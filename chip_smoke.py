@@ -10,17 +10,21 @@ Phases (any failure exits non-zero and prints no result line):
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compile the port's CUDA kernels from ``rnb_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at the serving path's shapes (rows 48 and 15, rows_valid = rows, 5,
-   0) — the normalize kernel bitwise, the colourspace kernel within one
-   u8 step with pad rows exact — and each one's time on the card (the
-   profiler's device time per call) beside its bound and its plain
-   version's, plus its time per back-to-back call by CUDA events;
+   at the serving paths' shapes (rows 48 and 15, rows_valid = rows, 5,
+   0) — the normalize kernel and the dct unpack bitwise, the
+   colourspace kernel within one u8 step and the dct convert within two
+   (one per quantized plane, carried through BT.601), pad rows exact —
+   and each one's time on the card (the profiler's device time per
+   call) beside its bound and its plain version's, plus its time per
+   back-to-back call by CUDA events;
 4. path: serve ``configs/rnb-fused-yuv-big.json`` and
-   ``configs/rnb-fused-yuv-ragged.json`` at full R(2+1)D-18 width on
-   cuda:0 over a generated y4m dataset, check that every request
-   completed with finite logits, that both kernels were launched, and
-   that a few requests' logits agree with a CPU recompute through the
-   plain versions on the same seeded weights.
+   ``configs/rnb-fused-yuv-ragged.json`` over a generated y4m dataset,
+   and ``configs/rnb-fused-dct-ragged.json`` over ``synth://`` ids, at
+   full R(2+1)D-18 width on cuda:0; check that every request completed
+   with finite logits, that each config launched exactly its pixel
+   path's kernels in the measured window, and that a few requests'
+   logits agree with a CPU recompute through the plain versions on the
+   same seeded weights.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -38,7 +42,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CONFIGS = ("configs/rnb-fused-yuv-big.json",
-           "configs/rnb-fused-yuv-ragged.json")
+           "configs/rnb-fused-yuv-ragged.json",
+           "configs/rnb-fused-dct-ragged.json")
+#: the kernels each pixel path's ingest launches, and no others
+PATH_KERNELS = {"yuv420": {"normalize_u8", "yuv420_to_rgb_u8"},
+                "dct": {"dct_unpack", "dct_convert"}}
 HW = 112
 FRAMES = 8
 #: requests served per config on the path phase
@@ -46,6 +54,12 @@ VIDEOS_PER_RUN = 48
 #: published H100 SXM peaks (NVIDIA data sheet) for the bound
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+#: the dct convert vs its plain version, in u8 steps: one per quantized
+#: plane where two float32 IDCT summation orders flip floor(p + 128.5),
+#: which BT.601 carries into R or B as up to two; and the least share
+#: of outputs that must be exact
+DCT_STEPS = 2
+DCT_EXACT_SHARE = 0.99
 #: card vs CPU float32 network on the same input: accumulation order
 #: only (TF32 off)
 F32_ATOL = 1e-3
@@ -184,18 +198,141 @@ def phase_kernels(device):
             bound_ops=3 * rgb.numel()),   # mul, sub, mul per element
     }
     for name, row in timings.items():
-        kernel, plain = calls[name]
-        row["ms"] = device_ms(kernel)
-        row["plain_ms"] = device_ms(plain, reps=10)
-        row["call_ms"] = call_ms(kernel)
-        by_bytes = row["bound_bytes"] / PEAK_BYTES_PER_S * 1e3
-        by_ops = row["bound_ops"] / PEAK_F32_FLOPS * 1e3
-        row["bound_ms"] = max(by_bytes, by_ops)
-        row["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
-        print("timing %s at %d rows: %.5f ms on the card (plain %.5f ms, "
-              "bound %.5f ms by %s); %.5f ms per back-to-back call"
-              % (name, rows, row["ms"], row["plain_ms"], row["bound_ms"],
-                 row["bound_by"], row["call_ms"]))
+        time_kernel(name, row, rows, *calls[name])
+    return timings, worst
+
+
+def time_kernel(name, row, rows, kernel, plain):
+    """Fill a timing row: device time per call of the kernel and of its
+    plain version, time per back-to-back call, and the bound from the
+    row's bytes and operations."""
+    row["ms"] = device_ms(kernel)
+    row["plain_ms"] = device_ms(plain, reps=10)
+    row["call_ms"] = call_ms(kernel)
+    by_bytes = row["bound_bytes"] / PEAK_BYTES_PER_S * 1e3
+    by_ops = row["bound_ops"] / PEAK_F32_FLOPS * 1e3
+    row["bound_ms"] = max(by_bytes, by_ops)
+    row["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    print("timing %s at %d rows: %.5f ms on the card (plain %.5f ms, "
+          "bound %.5f ms by %s); %.5f ms per back-to-back call"
+          % (name, rows, row["ms"], row["plain_ms"], row["bound_ms"],
+             row["bound_by"], row["call_ms"]))
+
+
+def dct_pool(rows, seed):
+    """A wire pool of ``rows`` clip rows: synthetic spectra (what the
+    serving path's dataset-free arm ships), random well-formed rows over
+    all 64 positions, and a random-int16 garbage tail, a third each."""
+    import numpy as np
+    import torch
+    from rnb_tpu_torch.decode import SyntheticDecoder
+    from rnb_tpu_torch.ops import dct
+    rng = np.random.default_rng(seed)
+    nb = dct.num_dct_blocks(HW, HW)
+    third = rows // 3
+    pool = np.empty((rows, FRAMES, dct.dct_frame_elems(HW, HW)), np.int16)
+    pool[:rows - 2 * third] = SyntheticDecoder().decode_clips_dct(
+        "synth://smoke-%d" % seed, list(range(rows - 2 * third)), FRAMES,
+        HW, HW)
+    for r in range(rows - 2 * third, rows - third):
+        for f in range(FRAMES):
+            zz = np.where(rng.random((nb, 64)) < 0.1,
+                          rng.integers(-900, 900, (nb, 64)), 0)
+            pool[r, f] = dct.pack_frame_dct(zz, HW, HW)
+    pool[rows - third:] = rng.integers(-32768, 32768,
+                                       pool[rows - third:].shape)
+    return torch.from_numpy(pool)
+
+
+def to_u8(x):
+    """Normalized frames back to u8 steps: (x*255 + 255) / 2."""
+    import torch
+    return torch.round((x.float() * 255.0 + 255.0) / 2.0)
+
+
+def phase_kernels_dct(device):
+    """The dct unpack and convert against their plain versions; returns
+    the timing rows at the dct serving path's 15-row pool and the worst
+    errors (the unpack's in coefficient units, the convert's in output
+    units)."""
+    import torch
+    from rnb_tpu_torch.decode import SyntheticDecoder
+    from rnb_tpu_torch.ops import dct
+    worst = {"dct_unpack": 0, "dct_convert": 0.0}
+    for rows in (48, 15):
+        pool = dct_pool(rows, seed=rows)
+        card = pool.to(device)
+        plain_planes = [p.to(device)
+                        for p in dct.unpack_dct_rows(pool, HW, HW)]
+        for valid in (rows, 5, 0):
+            planes = dct.unpack_dct_rows(card, HW, HW, valid)
+            err = max(int((got[:valid].long() - want[:valid].long()).abs()
+                          .max()) if valid else 0
+                      for got, want in zip(planes, plain_planes))
+            worst["dct_unpack"] = max(worst["dct_unpack"], err)
+            check(err == 0, "dct_unpack rows=%d valid=%d differs from its "
+                  "plain version by %d" % (rows, valid, err))
+            out = dct.dct_convert(*planes, valid, HW, HW)
+            plain = dct.dct_convert_reference(*plain_planes, valid, HW, HW)
+            steps = (to_u8(out) - to_u8(plain)).abs()
+            max_steps = int(steps.max())
+            exact = float((out == plain).double().mean())
+            worst["dct_convert"] = max(
+                worst["dct_convert"],
+                float((out.float() - plain.float()).abs().max()))
+            check(max_steps <= DCT_STEPS and exact >= DCT_EXACT_SHARE,
+                  "dct_convert rows=%d valid=%d: %d u8 steps from its "
+                  "plain version, exact share %.6f" % (rows, valid,
+                                                       max_steps, exact))
+            pads_zero = not bool(out[valid:].float().any())
+            check(pads_zero, "dct_convert rows=%d valid=%d: pad rows are "
+                  "not zero" % (rows, valid))
+            print("kernels rows=%d rows_valid=%d: dct_unpack bitwise %s; "
+                  "dct_convert max %d u8 steps (%d outputs over one, exact "
+                  "share %.6f, pad rows zero %s)"
+                  % (rows, valid, err == 0, max_steps,
+                     int((steps > 1).sum()), exact, pads_zero))
+    torch.cuda.synchronize()
+
+    # timing at the serving shape: a full 15-row pool of synthetic spectra
+    rows = 15
+    wire = torch.from_numpy(SyntheticDecoder().decode_clips_dct(
+        "synth://smoke-timing", list(range(rows)), FRAMES, HW, HW))
+    card = wire.to(device)
+    planes = dct.unpack_dct_rows(card, HW, HW)
+    out = dct.dct_convert(*planes, rows, HW, HW)
+    nb = dct.num_dct_blocks(HW, HW)
+    coeffs = dct.coeffs_from_elems(HW, HW, wire.shape[-1])
+    counts = wire[..., :nb].long().clamp(0, 64)
+    kept = int(counts.sum(-1).clamp(max=coeffs).sum())
+    frames = rows * FRAMES
+    plane_bytes = sum(p.numel() * p.element_size() for p in planes)
+    pixels = frames * HW * HW
+    timings = {
+        "dct_unpack": dict(
+            # the counts and the kept (value, position) pairs in, every
+            # plane slot out
+            bound_bytes=frames * nb * 2 + kept * 4 + plane_bytes,
+            # per count: clamp and add; per kept entry: clamp, map, store
+            bound_ops=2 * frames * nb + 3 * kept),
+        "dct_convert": dict(
+            bound_bytes=plane_bytes + out.numel() * out.element_size(),
+            # two 8-term passes per plane sample (8 mul + 7 add each),
+            # the quantize (add, floor, clip) per plane sample, and per
+            # pixel BT.601 (10) plus clip, floor, normalize per channel
+            bound_ops=pixels * 3 // 2 * (2 * 15 + 4) + pixels * (10 + 18)),
+    }
+    calls = {
+        "dct_unpack": (lambda: dct.unpack_dct_rows(card, HW, HW),
+                       lambda: dct.unpack_dct_rows_reference(card, HW, HW)),
+        "dct_convert": (
+            lambda: dct.dct_convert(*planes, rows, HW, HW),
+            lambda: dct.dct_convert_reference(*planes, rows, HW, HW)),
+    }
+    for name, row in timings.items():
+        time_kernel(name, row, rows, *calls[name])
+    print("dct wire: %d kept coefficients in %d frames (%.1f per block)"
+          % (kept, frames, kept / (frames * nb)))
     return timings, worst
 
 
@@ -218,9 +355,12 @@ def cpu_recompute(config_path, sink, picks):
     from rnb_tpu_torch.decode import get_decoder
     from rnb_tpu_torch.models.r2p1d.model import shared_network
     from rnb_tpu_torch.models.r2p1d.sampler import R2P1DSampler
+    from rnb_tpu_torch.ops.dct import normalize_dct
     from rnb_tpu_torch.ops.yuv import normalize_yuv420
     config = load_config(config_path, "cpu")
-    max_clips = config.steps[0].kwargs.get("max_clips", 15)
+    loader_kwargs = config.steps[0].kwargs
+    max_clips = loader_kwargs.get("max_clips", 15)
+    pixel_path = loader_kwargs["pixel_path"]
     runner_kwargs = config.steps[-1].kwargs
     arch = (1, runner_kwargs.get("end_index", 5),
             runner_kwargs.get("num_classes", 400),
@@ -238,18 +378,37 @@ def cpu_recompute(config_path, sink, picks):
         decoder = get_decoder(video)
         starts = sampler.sample(decoder.num_frames(video),
                                 video_id=video)[:max_clips]
-        packed = torch.from_numpy(decoder.decode_clips_yuv(
-            video, starts, FRAMES, HW, HW))
+        if pixel_path == "dct":
+            wire = torch.from_numpy(decoder.decode_clips_dct(
+                video, starts, FRAMES, HW, HW,
+                loader_kwargs.get("dct_coeffs_per_frame")))
+            ingest = normalize_dct
+        else:
+            wire = torch.from_numpy(decoder.decode_clips_yuv(
+                video, starts, FRAMES, HW, HW))
+            ingest = normalize_yuv420
         with torch.inference_mode():
-            x_cpu = normalize_yuv420(packed, HW, HW)
-            x_card = normalize_yuv420(packed.to(card), HW, HW)
-            check(torch.equal(x_card.cpu().view(torch.int16),
-                              x_cpu.view(torch.int16)),
-                  "request %d: card ingest differs from the plain one"
-                  % rid)
+            x_cpu = ingest(wire, HW, HW)
+            x_card = ingest(wire.to(card), HW, HW).cpu()
+            if pixel_path == "dct":
+                steps = int((to_u8(x_card) - to_u8(x_cpu)).abs().max())
+                exact = float((x_card == x_cpu).double().mean())
+                report["ingest_exact_share"] = min(
+                    report.get("ingest_exact_share", 1.0), exact)
+                check(steps <= DCT_STEPS and exact >= DCT_EXACT_SHARE,
+                      "request %d: card ingest is %d u8 steps from the "
+                      "plain one (exact share %.6f)" % (rid, steps, exact))
+            else:
+                check(torch.equal(x_card.view(torch.int16),
+                                  x_cpu.view(torch.int16)),
+                      "request %d: card ingest differs from the plain one"
+                      % rid)
+            # the float32 networks see the same input, so they differ by
+            # accumulation order only
             out = {"cpu_bf16": nets["cpu_bf16"](x_cpu).numpy(),
                    "cpu_f32": nets["cpu_f32"](x_cpu).numpy(),
-                   "card_f32": nets["card_f32"](x_card).cpu().numpy()}
+                   "card_f32": nets["card_f32"](x_cpu.to(card))
+                   .cpu().numpy()}
         truth = out["cpu_f32"]
         check(truth.shape == served.shape, "request %d: cpu logits %s vs "
               "card %s" % (rid, truth.shape, served.shape))
@@ -282,13 +441,21 @@ def cpu_recompute(config_path, sink, picks):
 
 
 def phase_path(data_root, videos_per_run):
-    """Serve both configs on cuda:0; returns per-config launch counts."""
+    """Serve every config on cuda:0: the yuv420 ones over the y4m
+    dataset, the dct one over synth:// ids (a y4m file holds no DCT
+    coefficients). Returns the launches summed over the configs."""
     import numpy as np
     from rnb_tpu_torch.benchmark import run_benchmark
+    from rnb_tpu_torch.config import load_config
     from rnb_tpu_torch.ops import _kernels
-    os.environ["RNB_TPU_DATA_ROOT"] = data_root
     launches = {k.name: 0 for k in _kernels.KERNELS}
     for config in CONFIGS:
+        pixel_path = load_config(os.path.join(HERE, config),
+                                 "cpu").steps[0].kwargs["pixel_path"]
+        if pixel_path == "dct":
+            os.environ.pop("RNB_TPU_DATA_ROOT", None)
+        else:
+            os.environ["RNB_TPU_DATA_ROOT"] = data_root
         sink = {}
         _kernels.reset_launches()
         t0 = time.time()
@@ -315,11 +482,13 @@ def phase_path(data_root, videos_per_run):
             check(np.isfinite(logits).all(),
                   "%s request %d: non-finite logits" % (config, rid))
         for name, count in counts.items():
-            check(count > 0, "%s: kernel %s was never launched"
-                  % (config, name))
-            check(result.window_launches[name] > 0,
-                  "%s: kernel %s was not launched in the measured window"
-                  % (config, name))
+            if name in PATH_KERNELS[pixel_path]:
+                check(result.window_launches[name] > 0,
+                      "%s: kernel %s was not launched in the measured "
+                      "window" % (config, name))
+            else:
+                check(count == 0, "%s: kernel %s of another pixel path "
+                      "was launched" % (config, name))
             launches[name] += count
         by_clips = sorted(sink, key=lambda r: (sink[r][1].shape[0], r))
         picks = by_clips[:2] + by_clips[-1:]
@@ -364,6 +533,9 @@ def main() -> int:
 
         device = torch.device("cuda", 0)
         timings, worst = phase_kernels(device)
+        dct_timings, dct_worst = phase_kernels_dct(device)
+        timings.update(dct_timings)
+        worst.update(dct_worst)
 
         from rnb_tpu_torch.dataset import make_dataset
         make_dataset(data_root)

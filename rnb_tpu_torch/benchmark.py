@@ -116,6 +116,7 @@ def run_benchmark(config_path: str,
     counter = InferenceCounter()
     termination = TerminationState()
     summary_sink, pad_sink, ragged_sink, staging_sink = [], [], [], []
+    ingest_sink = []
     if mean_interval_ms == 0:
         # bulk mode pre-enqueues everything (plus the exit markers)
         queue_size = num_videos + config.num_runners + NUM_EXIT_MARKERS + 1
@@ -160,7 +161,7 @@ def run_benchmark(config_path: str,
                     log_base=log_base,
                     summary_sink=summary_sink if is_final else None,
                     pad_sink=pad_sink, ragged_sink=ragged_sink,
-                    staging_sink=staging_sink,
+                    staging_sink=staging_sink, ingest_sink=ingest_sink,
                     outputs_sink=outputs_sink if is_final else None)
                 threads.append(threading.Thread(
                     target=runner, args=(ctx,), daemon=True,
@@ -242,6 +243,11 @@ def run_benchmark(config_path: str,
         f.write("%f %f\n" % (time_start, time_end))
         f.write("Termination flag: %d\n" % termination.value)
         f.write("Device: %s\n" % device)
+        for ingest in ingest_sink:
+            # no "=" in these lines: they are names, not counters
+            f.write("Pixel path: %s\n" % ingest["pixel_path"])
+            f.write("Decode backend: %s\n"
+                    % ",".join(sorted(ingest["backends"])))
         f.write("Padding: pad_rows=%d total_rows=%d\n"
                 % (pad_rows, total_rows))
         for stats in ragged_sink:

@@ -29,13 +29,14 @@ GROUP_KEYS = frozenset({"devices", "out_queues", "in_queue"})
 MODEL_KEYS = {
     "R2P1DFusingLoader": frozenset({
         "max_clips", "row_buckets", "fuse", "max_hold_ms", "pixel_path",
-        "staging_slots", "transfer_async"}),
+        "staging_slots", "transfer_async", "dct_coeffs_per_frame"}),
     "R2P1DRunner": frozenset({
         "start_index", "end_index", "max_rows", "row_buckets",
-        "pixel_path", "ragged_chunk_rows", "layer_sizes", "num_classes"}),
+        "pixel_path", "ragged_chunk_rows", "layer_sizes", "num_classes",
+        "dct_coeffs_per_frame"}),
 }
-#: the one pixel path ported so far
-PIXEL_PATHS = ("yuv420",)
+#: the pixel paths ported so far
+PIXEL_PATHS = ("yuv420", "dct")
 #: ring slots per producer when a step omits num_shared_tensors
 DEFAULT_NUM_SHARED_TENSORS = 10
 

@@ -1,31 +1,122 @@
-"""Host-side video decode: y4m files -> packed 4:2:0 clip planes.
+"""Host-side video decode: videos -> packed clip rows for the card.
 
-Counterpart of ``rnb_tpu/decode/__init__.py`` for the yuv420 pixel
-path: :class:`Y4MDecoder` parses an uncompressed YUV4MPEG2 header and
-gathers each requested frame's planes at the output geometry — pure
-byte gathers, no colourspace arithmetic (that runs on the card,
-``rnb_tpu_torch/ops/yuv.py``). numpy only; the output is byte-equal to
-the JAX package's numpy decoder on the same file.
+Counterpart of ``rnb_tpu/decode/__init__.py`` for the two ported pixel
+paths. ``decode_clips_yuv`` returns packed 4:2:0 planes (yuv420 path,
+converted on the card by ``rnb_tpu_torch/ops/yuv.py``);
+``decode_clips_dct`` returns packed int16 dequantized DCT coefficient
+rows (dct path, ``rnb_tpu_torch/ops/dct.py``). numpy only; every
+backend's output is byte-equal to the JAX package's for the same input.
 
-A file that cannot be decoded raises; the serving path lets that fail
-the run loudly.
+Backends, picked by :func:`get_decoder`:
+
+* :class:`SyntheticDecoder` for ``synth://`` ids: procedural clips,
+  deterministic per (id, clip start) — the dataset-free arm;
+* :class:`Y4MDecoder` for uncompressed ``.y4m`` (yuv420 only: such a
+  file holds no DCT coefficients);
+* :class:`MjpegDecoder` for ``.mjpg``/``.mjpeg`` (dct only), through
+  the pure-Python coefficient decoder ``jpeg_dct``.
+
+A video that cannot be decoded raises (:class:`CorruptVideoError`, a
+``ValueError``); the serving path lets that fail the run loudly.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import zlib
 from typing import List, Optional
 
 import numpy as np
 
 DEFAULT_WIDTH = 112
 DEFAULT_HEIGHT = 112
+SYNTH_PREFIX = "synth://"
+
+
+class CorruptVideoError(ValueError):
+    """A video that can never decode on the asked path: a bad or
+    truncated stream, an unsupported format, an over-budget spectrum."""
+
+
+class SyntheticDecoder:
+    """Procedural clips, deterministic per (video id, clip start), with
+    the JAX package's seeds: the frame count comes from the id's CRC32,
+    each clip's bytes from a PRNG seeded by a CRC32 of the id, the
+    start and the pixel path."""
+
+    BACKEND = "synth"
+
+    def __init__(self, min_frames: int = 128, max_frames: int = 360):
+        self.min_frames = min_frames
+        self.max_frames = max_frames
+
+    def num_frames(self, video: str) -> int:
+        h = zlib.crc32(("len:" + video).encode())
+        return self.min_frames + h % (self.max_frames - self.min_frames + 1)
+
+    def decode_clips_yuv(self, video: str, clip_starts: List[int],
+                         consecutive_frames: int = 8,
+                         width: int = DEFAULT_WIDTH,
+                         height: int = DEFAULT_HEIGHT) -> np.ndarray:
+        """uint8 ``(num_clips, consecutive_frames, H*W*3//2)`` of PRNG
+        noise."""
+        if width % 2 or height % 2:
+            raise ValueError("packed 4:2:0 needs even geometry")
+        packed = height * width * 3 // 2
+        out = np.empty((len(clip_starts), consecutive_frames, packed),
+                       dtype=np.uint8)
+        for i, start in enumerate(clip_starts):
+            seed = zlib.crc32(("yuv:%s@%d" % (video, start)).encode())
+            rng = np.random.default_rng(seed)
+            out[i] = rng.integers(0, 256, (consecutive_frames, packed),
+                                  dtype=np.uint8)
+        return out
+
+    def decode_clips_dct(self, video: str, clip_starts: List[int],
+                         consecutive_frames: int = 8,
+                         width: int = DEFAULT_WIDTH,
+                         height: int = DEFAULT_HEIGHT,
+                         coeffs: Optional[int] = None) -> np.ndarray:
+        """int16 ``(num_clips, consecutive_frames, elems)`` wire rows: a
+        short zigzag-prefix spectrum per block (1..6 coefficients of
+        magnitude 1..479), like quantized video and always within the
+        budget, so the dataset-free arm runs the real unpack and IDCT."""
+        from rnb_tpu_torch.ops.dct import dct_frame_elems, num_dct_blocks
+        nb = num_dct_blocks(height, width)
+        elems = dct_frame_elems(height, width, coeffs)
+        budget = (elems - nb) // 2
+        if budget < nb:
+            raise ValueError(
+                "dct coefficient budget %d below one coefficient per "
+                "block (%d)" % (budget, nb))
+        kmax = min(6, budget // nb)
+        out = np.zeros((len(clip_starts), consecutive_frames, elems),
+                       dtype=np.int16)
+        for i, start in enumerate(clip_starts):
+            seed = zlib.crc32(("dct:%s@%d" % (video, start)).encode())
+            rng = np.random.default_rng(seed)
+            for fi in range(consecutive_frames):
+                counts = rng.integers(1, kmax + 1, nb)
+                total = int(counts.sum())
+                mags = rng.integers(1, 480, total)
+                signs = rng.integers(0, 2, total) * 2 - 1
+                # zigzag-prefix positions: 0..counts[b]-1 per block
+                cum = np.concatenate(([0], np.cumsum(counts)[:-1]))
+                poss = np.arange(total) - np.repeat(cum, counts)
+                row = out[i, fi]
+                row[:nb] = counts.astype(np.int16)
+                row[nb:nb + total] = (mags * signs).astype(np.int16)
+                row[nb + budget:nb + budget + total] = \
+                    poss.astype(np.int16)
+        return out
 
 
 class Y4MDecoder:
     """Uncompressed YUV4MPEG2 (.y4m) decode, 4:2:0 or 4:4:4 sources, to
     packed output-resolution 4:2:0 planes."""
+
+    BACKEND = "y4m"
 
     def __init__(self):
         self._meta = {}
@@ -134,6 +225,146 @@ class Y4MDecoder:
                                            meta, maps, out[ci, fi])
         return out
 
+    def decode_clips_dct(self, video, clip_starts, consecutive_frames=8,
+                         width=DEFAULT_WIDTH, height=DEFAULT_HEIGHT,
+                         coeffs=None):
+        raise CorruptVideoError(
+            "the dct pixel path needs an MJPEG container; %s is "
+            "uncompressed y4m (no DCT coefficients to ship)" % video)
+
+
+def _jpeg_frame_end(data: bytes, p: int) -> int:
+    """Offset one past the frame's EOI, or 0 on a corrupt or truncated
+    structure. ``data[p:]`` must start at an SOI."""
+    n = len(data)
+    p += 2  # SOI
+    while p + 1 < n:
+        if data[p] != 0xFF:
+            return 0
+        while p < n and data[p] == 0xFF:
+            p += 1  # fill bytes
+        if p >= n:
+            return 0
+        m = data[p]
+        p += 1
+        if m == 0xD9:
+            return p  # EOI
+        if m == 0x01 or 0xD0 <= m <= 0xD7:
+            continue  # TEM / RSTn: no length field
+        if p + 2 > n:
+            return 0
+        length = (data[p] << 8) | data[p + 1]
+        if length < 2 or p + length > n:
+            return 0
+        is_sos = m == 0xDA
+        p += length
+        if is_sos:
+            # entropy-coded data: only here is FFD9 unambiguous
+            while True:
+                q = data.find(b"\xff", p)
+                if q < 0 or q + 1 >= n:
+                    return 0
+                nm = data[q + 1]
+                if nm == 0x00 or 0xD0 <= nm <= 0xD7:
+                    p = q + 2  # stuffing / restart
+                elif nm == 0xFF:
+                    p = q + 1  # fill byte
+                else:
+                    p = q
+                    break  # real marker: handled by the loop top
+    return 0
+
+
+def scan_mjpeg_frames(data: bytes):
+    """``[(offset, length)]`` of the JPEG frames of an MJPEG byte
+    stream. Walks the marker structure and skips length-prefixed
+    segments whole (an APPn payload may embed a thumbnail's FFD9); a
+    truncated trailing frame is dropped."""
+    frames = []
+    p = 0
+    n = len(data)
+    while p + 2 < n:
+        if data[p] == 0xFF and data[p + 1] == 0xD8 and data[p + 2] == 0xFF:
+            end = _jpeg_frame_end(data, p)
+            if not end:
+                break
+            frames.append((p, end - p))
+            p = end
+        else:
+            p += 1
+    return frames
+
+
+class MjpegDecoder:
+    """MJPEG (.mjpg/.mjpeg: baseline JPEG frames back to back) to
+    packed dequantized DCT coefficient rows, through the pure-Python
+    entropy decoder — no pixel decode, so no PIL. Frames past the end
+    repeat the last one, as on the pixel paths."""
+
+    BACKEND = "mjpeg"
+
+    def __init__(self):
+        # the frame index only: bytes are re-read per call, so a long
+        # many-video run does not hold every file in memory
+        self._index = {}
+        self._lock = threading.Lock()
+
+    def _frames(self, video: str):
+        with open(video, "rb") as f:
+            data = f.read()
+        with self._lock:
+            frames = self._index.get(video)
+        if frames is None:
+            frames = scan_mjpeg_frames(data)
+            if not frames:
+                raise CorruptVideoError("%s contains no JPEG frames" % video)
+            with self._lock:
+                self._index[video] = frames
+        return data, frames
+
+    def num_frames(self, video: str) -> int:
+        return len(self._frames(video)[1])
+
+    def decode_clips_dct(self, video: str, clip_starts: List[int],
+                         consecutive_frames: int = 8,
+                         width: int = DEFAULT_WIDTH,
+                         height: int = DEFAULT_HEIGHT,
+                         coeffs: Optional[int] = None) -> np.ndarray:
+        """int16 ``(num_clips, consecutive_frames, elems)`` wire rows.
+        The source geometry must be the asked one (coefficients cannot
+        be resized); a spectrum over the budget raises."""
+        from rnb_tpu_torch.decode.jpeg_dct import jpeg_frame_dct
+        from rnb_tpu_torch.ops.dct import dct_frame_elems, pack_frame_dct
+        elems = dct_frame_elems(height, width, coeffs)
+        data, frames = self._frames(video)
+        count = len(frames)
+        if any(s < 0 for s in clip_starts):
+            raise ValueError("negative clip start in %r" % (clip_starts,))
+        out = np.zeros((len(clip_starts), consecutive_frames, elems),
+                       dtype=np.int16)
+        last_idx = last_row = None
+        for ci, start in enumerate(clip_starts):
+            for fi in range(consecutive_frames):
+                idx = min(start + fi, count - 1)
+                if idx != last_idx:
+                    off, length = frames[idx]
+                    zz, w, h = jpeg_frame_dct(data[off:off + length])
+                    if (w, h) != (width, height):
+                        raise CorruptVideoError(
+                            "%s is %dx%d but the dct path was asked "
+                            "for %dx%d — coefficients cannot be "
+                            "resized on the host" % (video, w, h,
+                                                     width, height))
+                    try:
+                        last_row = pack_frame_dct(zz, height, width,
+                                                  coeffs)
+                    except ValueError as e:
+                        raise CorruptVideoError(
+                            "%s frame %d: %s" % (video, idx, e)) from e
+                    last_idx = idx
+                out[ci, fi] = last_row
+        return out
+
 
 def write_y4m(path: str, frames: np.ndarray,
               colorspace: str = "444") -> None:
@@ -164,14 +395,21 @@ def write_y4m(path: str, frames: np.ndarray,
                 f.write(np.clip(plane, 0, 255).astype(np.uint8).tobytes())
 
 
-_DECODER = Y4MDecoder()
+#: one shared instance per backend, so per-video header and frame-index
+#: caches survive across requests
+_DECODERS = {"synth": SyntheticDecoder(), "y4m": Y4MDecoder(),
+             "mjpeg": MjpegDecoder()}
 
 
-def get_decoder(video: str) -> Y4MDecoder:
-    """The process-wide decoder for one video path (one shared
-    instance, so its per-video header cache survives across
-    requests). Only ``.y4m`` files decode in this port so far."""
-    if not video.endswith(".y4m"):
-        raise ValueError("no decode backend for %r: the port decodes "
-                         ".y4m files only" % video)
-    return _DECODER
+def get_decoder(video: str):
+    """The process-wide decoder for one video: ``synth://`` ids, ``.y4m``
+    and ``.mjpg``/``.mjpeg`` files. Anything else raises."""
+    if video.startswith(SYNTH_PREFIX):
+        return _DECODERS["synth"]
+    if video.endswith(".y4m"):
+        return _DECODERS["y4m"]
+    if video.endswith((".mjpg", ".mjpeg")):
+        return _DECODERS["mjpeg"]
+    raise CorruptVideoError(
+        "no decode backend for %r: the port decodes synth:// ids, .y4m "
+        "and .mjpg/.mjpeg files" % video)

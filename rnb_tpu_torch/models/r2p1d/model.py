@@ -1,20 +1,22 @@
-"""R(2+1)D pipeline stages: path iterator, fused yuv420 loader, runner.
+"""R(2+1)D pipeline stages: path iterator, fused loader, runner.
 
-Counterpart of ``rnb_tpu/models/r2p1d/model.py`` for the fused yuv420
-serving path (``configs/rnb-fused-yuv-big.json`` and its ragged form):
+Counterpart of ``rnb_tpu/models/r2p1d/model.py`` for the fused serving
+paths: yuv420 (``configs/rnb-fused-yuv-big.json`` and its ragged form)
+and dct (``configs/rnb-fused-dct-ragged.json``):
 
-* :class:`R2P1DFusingLoader` decodes y4m requests on host threads into
-  packed 4:2:0 planes and fuses ready requests into one batch —
-  padded to a row bucket, or shipped as the one ragged pool shape with
-  ``rows_valid`` and a segment table — assembled in a pinned staging
-  slot and sent to the card on a dedicated stream;
-* :class:`R2P1DRunner` runs the yuv420 ingest kernels and R(2+1)D
-  layers [start..end] on the batch; one network and one parameter copy
-  per (range, device) serve every replica.
+* :class:`R2P1DFusingLoader` decodes requests on host threads into the
+  pixel path's wire rows — packed 4:2:0 planes (uint8) or packed
+  dequantized DCT coefficients (int16) — and fuses ready requests into
+  one batch, padded to a row bucket or shipped as the one ragged pool
+  shape with ``rows_valid`` and a segment table, assembled in a pinned
+  staging slot and sent to the card on a dedicated stream;
+* :class:`R2P1DRunner` runs the pixel path's ingest kernels and
+  R(2+1)D layers [start..end] on the batch; one network and one
+  parameter copy per (range, device) serve every replica.
 
 Not yet ported from the reference stages: the clip cache, the pager,
-the autotune controller, fault containment, the rgb and dct pixel
-paths, the native decode pool, sharding.
+the autotune controller, fault containment, the rgb pixel path, the
+native decode pool, sharding.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from rnb_tpu_torch.models.r2p1d.network import (KINETICS_CLASSES,
                                                 cast_compute_weights,
                                                 range_output_shape)
 from rnb_tpu_torch.models.r2p1d.sampler import R2P1DSampler
+from rnb_tpu_torch.ops.dct import (dct_frame_elems, default_dct_coeffs,
+                                   normalize_dct, ragged_normalize_dct)
 from rnb_tpu_torch.ops.ragged import (ragged_normalize_yuv420,
                                       resolve_pool_rows, segment_offsets_of)
 from rnb_tpu_torch.ops.yuv import normalize_yuv420, packed_frame_bytes
@@ -54,7 +58,9 @@ FRAME_HW = 112
 NUM_WARMUPS = 3  # reference warm-up convention
 #: the seed every stage's weights are drawn from
 WEIGHT_SEED = 0
-PIXEL_PATHS = ("yuv420",)
+PIXEL_PATHS = ("yuv420", "dct")
+#: the synthetic ids the path iterator cycles when there is no dataset
+NUM_SYNTHETIC_VIDEOS = 200
 
 _cache_lock = threading.Lock()
 _network_cache: Dict[tuple, torch.nn.Module] = {}
@@ -66,10 +72,35 @@ def _check_pixel_path(pixel_path: str) -> None:
                          "(ported: %s)" % (pixel_path, PIXEL_PATHS))
 
 
-def _packed_batch_shape(rows: int) -> tuple:
-    """A batch of packed 4:2:0 clip rows: ``(rows, frames, bytes)``."""
-    return (int(rows), CONSECUTIVE_FRAMES,
-            packed_frame_bytes(FRAME_HW, FRAME_HW))
+def _dct_coeffs(pixel_path: str, dct_coeffs_per_frame) -> Optional[int]:
+    """The dct wire's per-frame coefficient budget (the default rule
+    when unset); None on the other paths, which refuse the key."""
+    if pixel_path != "dct":
+        if dct_coeffs_per_frame is not None:
+            raise ValueError("dct_coeffs_per_frame only applies to "
+                             "pixel_path='dct'")
+        return None
+    if dct_coeffs_per_frame is None:
+        return default_dct_coeffs(FRAME_HW, FRAME_HW)
+    if int(dct_coeffs_per_frame) < 1:
+        raise ValueError("dct_coeffs_per_frame must be >= 1, got %r"
+                         % (dct_coeffs_per_frame,))
+    return int(dct_coeffs_per_frame)
+
+
+def _wire_batch_shape(rows: int, pixel_path: str,
+                      dct_coeffs: Optional[int] = None) -> tuple:
+    """A batch of wire rows, ``(rows, frames, elems)``: packed 4:2:0
+    bytes, or packed int16 coefficients under dct."""
+    if pixel_path == "dct":
+        elems = dct_frame_elems(FRAME_HW, FRAME_HW, dct_coeffs)
+    else:
+        elems = packed_frame_bytes(FRAME_HW, FRAME_HW)
+    return (int(rows), CONSECUTIVE_FRAMES, elems)
+
+
+def _wire_dtype(pixel_path: str) -> torch.dtype:
+    return torch.int16 if pixel_path == "dct" else torch.uint8
 
 
 def _device_of(device) -> torch.device:
@@ -108,17 +139,18 @@ def shared_network(start: int, end: int, num_classes: int,
 
 
 class R2P1DVideoPathIterator(VideoPathIterator):
-    """Cycles a y4m dataset forever: ``root`` (or $RNB_TPU_DATA_ROOT)
-    holds ``label/video.y4m`` files."""
+    """Cycles a video dataset forever: ``root`` (or $RNB_TPU_DATA_ROOT)
+    holds ``label/video`` files (.y4m, .mjpg/.mjpeg). Without one it
+    cycles the reference's fixed population of ``synth://`` ids, which
+    the decode layer makes procedurally."""
 
     def __init__(self, root: Optional[str] = None):
         root = root or os.environ.get("RNB_TPU_DATA_ROOT")
         videos = scan_video_tree(root) if root and os.path.isdir(root) \
             else []
         if not videos:
-            raise ValueError(
-                "no .y4m videos under %r: point RNB_TPU_DATA_ROOT at a "
-                "root/label/video.y4m tree" % (root,))
+            videos = ["synth://kinetics/video-%04d" % i
+                      for i in range(NUM_SYNTHETIC_VIDEOS)]
         self._videos = videos
 
     def __iter__(self):
@@ -175,9 +207,10 @@ class R2P1DFusingLoader(StageModel):
                  row_buckets=None,
                  pixel_path: str = "rgb", staging_slots=None,
                  transfer_async: bool = False, ragged: bool = False,
-                 ragged_pool_rows=None):
+                 ragged_pool_rows=None, dct_coeffs_per_frame=None):
         super().__init__(device)
         _check_pixel_path(pixel_path)
+        self.dct_coeffs = _dct_coeffs(pixel_path, dct_coeffs_per_frame)
         if int(fuse) < 1:
             raise ValueError("fuse must be >= 1, got %r" % (fuse,))
         self.torch_device = _device_of(device)
@@ -201,7 +234,10 @@ class R2P1DFusingLoader(StageModel):
         slots = (self.DEFAULT_STAGING_SLOTS if staging_slots is None
                  else int(staging_slots))
         self.staging = StagingPool(self._batch_shape(self.max_clips),
-                                   slots, self.torch_device)
+                                   slots, self.torch_device,
+                                   _wire_dtype(pixel_path))
+        #: the pixel path and every decode backend that served a request
+        self.ingest_stats = {"pixel_path": pixel_path, "backends": set()}
         self.transfer_async = bool(transfer_async)
         self._worker = (TransferWorker(self.staging)
                         if self.transfer_async else None)
@@ -224,11 +260,14 @@ class R2P1DFusingLoader(StageModel):
             torch.cuda.synchronize(self.torch_device)
 
     @classmethod
-    def output_shape_for(cls, max_clips: int = MAX_CLIPS, **_kwargs):
-        return (_packed_batch_shape(max_clips),)
+    def output_shape_for(cls, max_clips: int = MAX_CLIPS,
+                         pixel_path: str = "rgb",
+                         dct_coeffs_per_frame=None, **_kwargs):
+        return (_wire_batch_shape(max_clips, pixel_path, _dct_coeffs(
+            pixel_path, dct_coeffs_per_frame)),)
 
     def _batch_shape(self, rows: int):
-        return _packed_batch_shape(rows)
+        return _wire_batch_shape(rows, self.pixel_path, self.dct_coeffs)
 
     def _warm_shapes(self):
         return (self.pool_rows,) if self.ragged else self.row_buckets
@@ -256,9 +295,15 @@ class R2P1DFusingLoader(StageModel):
         starts = self._sample_starts(decoder, video)
         time_card.num_clips = len(starts)
         time_card.video = video
-        future = self._decode_pool.submit(
-            decoder.decode_clips_yuv, video, starts, CONSECUTIVE_FRAMES,
-            FRAME_HW, FRAME_HW)
+        self.ingest_stats["backends"].add(decoder.BACKEND)
+        if self.pixel_path == "dct":
+            future = self._decode_pool.submit(
+                decoder.decode_clips_dct, video, starts, CONSECUTIVE_FRAMES,
+                FRAME_HW, FRAME_HW, self.dct_coeffs)
+        else:
+            future = self._decode_pool.submit(
+                decoder.decode_clips_yuv, video, starts, CONSECUTIVE_FRAMES,
+                FRAME_HW, FRAME_HW)
         self._inflight.append(_FuseRecord(future, len(starts), time_card))
         out = self.poll()
         if out is not None:
@@ -423,7 +468,9 @@ class R2P1DFusingLoader(StageModel):
 
 class R2P1DRunner(StageModel):
     """Network stage over the layer range [start..end] with the fused
-    yuv420 ingest in front of layer 1.
+    ingest of its pixel path in front of layer 1: yuv420 planes through
+    the colourspace and normalize kernels, dct coefficient rows through
+    the unpack and IDCT/convert kernels.
 
     Bucketed mode takes ``PaddedBatch`` es at the warmed row buckets.
     Ragged mode takes the one pool shape plus ``rows_valid``: the
@@ -442,9 +489,12 @@ class R2P1DRunner(StageModel):
                  num_warmups: int = NUM_WARMUPS, row_buckets=None,
                  pixel_path: str = "rgb", ragged: bool = False,
                  ragged_pool_rows=None, ragged_chunk_rows=None,
+                 dct_coeffs_per_frame=None,
                  network: Optional[torch.nn.Module] = None):
         super().__init__(device)
         _check_pixel_path(pixel_path)
+        self.pixel_path = pixel_path
+        self.dct_coeffs = _dct_coeffs(pixel_path, dct_coeffs_per_frame)
         if not (1 <= start_index <= end_index <= NUM_LAYERS):
             raise ValueError("invalid layer range [%s..%s]"
                              % (start_index, end_index))
@@ -485,8 +535,9 @@ class R2P1DRunner(StageModel):
                      normalize_row_buckets(row_buckets, self.max_rows,
                                            "max_rows"))
         for rows in warm_rows:
-            dummy = torch.zeros(_packed_batch_shape(rows),
-                                dtype=torch.uint8, device=self.torch_device)
+            dummy = torch.zeros(
+                _wire_batch_shape(rows, pixel_path, self.dct_coeffs),
+                dtype=_wire_dtype(pixel_path), device=self.torch_device)
             for _ in range(num_warmups):
                 self.forward(dummy, rows)
         if self.torch_device.type == "cuda":
@@ -501,13 +552,23 @@ class R2P1DRunner(StageModel):
             int(start_index), int(end_index), CONSECUTIVE_FRAMES,
             int(num_classes)),)
 
+    def _ingest(self, x: torch.Tensor, rows_valid: int) -> torch.Tensor:
+        """Wire rows -> normalized bf16 NDHWC frames."""
+        if self.pixel_path == "dct":
+            if not self.ragged:
+                return normalize_dct(x, FRAME_HW, FRAME_HW)
+            return ragged_normalize_dct(x, rows_valid, FRAME_HW, FRAME_HW)
+        if not self.ragged:
+            return normalize_yuv420(x, FRAME_HW, FRAME_HW)
+        return ragged_normalize_yuv420(x, rows_valid, FRAME_HW, FRAME_HW)
+
     @torch.inference_mode()
     def forward(self, x: torch.Tensor, rows_valid: int) -> torch.Tensor:
-        """Packed u8 planes ``(rows, F, packed)`` -> float32 outputs
-        ``(rows, ...)``; ``rows_valid`` matters in ragged mode only."""
+        """Wire rows ``(rows, F, elems)`` -> float32 outputs ``(rows,
+        ...)``; ``rows_valid`` matters in ragged mode only."""
+        xin = self._ingest(x, rows_valid)
         if not self.ragged:
-            return self.network(normalize_yuv420(x, FRAME_HW, FRAME_HW))
-        xin = ragged_normalize_yuv420(x, rows_valid, FRAME_HW, FRAME_HW)
+            return self.network(xin)
         chunk = self.ragged_chunk_rows
         rows = int(xin.shape[0])
         if chunk <= 0 or chunk >= rows:

@@ -27,7 +27,7 @@ from typing import Dict, List, Sequence, Tuple
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
-SOURCES = ("ingest.cu",)
+SOURCES = ("ingest.cu", "dct.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -157,8 +157,16 @@ YUV420_TO_RGB_U8 = Kernel(
     "yuv420_to_rgb_u8", "ingest.cu", "rnb_yuv420_to_rgb_u8",
     [_P, _P, _I, _I, _I, _I, _I],
     "rnb_tpu/ops/yuv.py:48 (yuv420_to_rgb_u8, jnp fused by XLA)")
+DCT_UNPACK = Kernel(
+    "dct_unpack", "dct.cu", "rnb_dct_unpack",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I],
+    "rnb_tpu/ops/dct.py:213 (unpack_dct_rows, jnp scatter fused by XLA)")
+DCT_CONVERT = Kernel(
+    "dct_convert", "dct.cu", "rnb_dct_convert",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+    "rnb_tpu/ops/dct.py:312 (_dct_kernel via _dct_convert_pallas)")
 
-KERNELS = (NORMALIZE_U8, YUV420_TO_RGB_U8)
+KERNELS = (NORMALIZE_U8, YUV420_TO_RGB_U8, DCT_UNPACK, DCT_CONVERT)
 
 
 def reset_launches() -> None:

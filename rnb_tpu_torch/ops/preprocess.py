@@ -41,13 +41,14 @@ def normalize_u8_reference(x: torch.Tensor,
     return ((xf * 2.0 - 255.0) * INV_255).to(dtype)
 
 
-def check_kernel_input(x: torch.Tensor, what: str) -> None:
-    """Raise unless ``x`` is a contiguous uint8 CUDA tensor."""
+def check_kernel_input(x: torch.Tensor, what: str,
+                       dtype: torch.dtype = torch.uint8) -> None:
+    """Raise unless ``x`` is a contiguous CUDA tensor of ``dtype``."""
     if x.device.type != "cuda":
         raise ValueError("%s runs its kernel on cuda tensors, got %s"
                          % (what, x.device))
-    if x.dtype != torch.uint8:
-        raise TypeError("%s takes uint8, got %s" % (what, x.dtype))
+    if x.dtype != dtype:
+        raise TypeError("%s takes %s, got %s" % (what, dtype, x.dtype))
     if not x.is_contiguous():
         raise ValueError("%s needs a contiguous tensor" % what)
 

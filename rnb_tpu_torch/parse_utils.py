@@ -24,7 +24,8 @@ from typing import Dict, List
 #: kernel families of a profile, by a substring of the kernel's name;
 #: the first family that matches takes the kernel
 KERNEL_FAMILIES = (
-    ("ingest", ("normalize_u8_kernel", "yuv420_to_rgb_u8_kernel")),
+    ("ingest", ("normalize_u8_kernel", "yuv420_to_rgb_u8_kernel",
+                "dct_unpack_kernel", "dct_convert_kernel")),
     ("conv_f32", ("f32f32",)),
     ("conv", ("fprop", "conv")),
     ("elementwise", ("elementwise_kernel",)),
@@ -35,7 +36,8 @@ KERNEL_FAMILIES = (
 
 def read_meta(path: str) -> dict:
     """``log-meta.txt`` -> args, the window's two wall-clock stamps, the
-    in-window kernel launches and the ``Key: k=v ...`` lines."""
+    in-window kernel launches, the pixel path and decode backend, and
+    the ``Key: k=v ...`` lines."""
     meta: dict = {"lines": {}}
     with open(path) as f:
         for line in f.read().splitlines():
@@ -44,6 +46,8 @@ def read_meta(path: str) -> dict:
                 meta["args"] = json.loads(rest)
             elif head == "Kernels":
                 meta["launches"] = json.loads(rest)
+            elif head in ("Pixel path", "Decode backend"):
+                meta[head.lower().replace(" ", "_")] = rest
             elif rest and "=" in rest:
                 meta["lines"][head] = {
                     k: float(v) for k, v in
@@ -80,7 +84,9 @@ def summarize(log_dir: str) -> dict:
     start, end = meta["window"]
     out = dict(log_dir=log_dir, config=meta["args"]["config"],
                mean_interval_ms=meta["args"]["mean_interval_ms"],
-               window_s=end - start, launches=meta.get("launches", {}))
+               window_s=end - start, launches=meta.get("launches", {}),
+               pixel_path=meta.get("pixel_path"),
+               decode_backend=meta.get("decode_backend"))
     requests, service_ms, wait_ms = 0, [], []
     for name in sorted(os.listdir(log_dir)):
         if not name.endswith(".txt") or name in ("log-meta.txt",

@@ -82,6 +82,8 @@ class RunnerContext:
     pad_sink: Optional[List] = None
     ragged_sink: Optional[List] = None
     staging_sink: Optional[List] = None
+    #: loaders append their pixel path and decode backends here
+    ingest_sink: Optional[List] = None
     #: when set, the final step stores each request's output rows here:
     #: request id -> (video path, float32 numpy rows)
     outputs_sink: Optional[Dict[int, tuple]] = None
@@ -256,7 +258,8 @@ def runner(ctx: RunnerContext) -> None:
                     send_exit_markers(out_queue, markers, ctx.termination)
         for sink, attr in ((ctx.pad_sink, "padding"),
                            (ctx.ragged_sink, "ragged_stats"),
-                           (ctx.staging_sink, "staging")):
+                           (ctx.staging_sink, "staging"),
+                           (ctx.ingest_sink, "ingest_stats")):
             value = getattr(model, attr, None)
             if sink is not None and value is not None:
                 sink.append(value.snapshot() if hasattr(value, "snapshot")

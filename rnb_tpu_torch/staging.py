@@ -36,24 +36,26 @@ class StagingSlot:
 
     __slots__ = ("buf", "array", "busy")
 
-    def __init__(self, shape: Tuple[int, ...], pin: bool):
-        self.buf = torch.empty(shape, dtype=torch.uint8, pin_memory=pin)
+    def __init__(self, shape: Tuple[int, ...], pin: bool,
+                 dtype: torch.dtype = torch.uint8):
+        self.buf = torch.empty(shape, dtype=dtype, pin_memory=pin)
         self.array = self.buf.numpy()
         self.busy = False
 
 
 class StagingPool:
-    """``num_slots`` staging slots of one shape for one target device,
-    plus the transfer stream all of their copies run on."""
+    """``num_slots`` staging slots of one shape and dtype (the wire's:
+    uint8 planes, int16 coefficient rows) for one target device, plus
+    the transfer stream all of their copies run on."""
 
     def __init__(self, shape: Tuple[int, ...], num_slots: int,
-                 device: torch.device):
+                 device: torch.device, dtype: torch.dtype = torch.uint8):
         if num_slots < 1:
             raise ValueError("staging needs at least one slot, got %r"
                              % (num_slots,))
         self.device = device
         pin = device.type == "cuda"
-        self._slots = [StagingSlot(tuple(shape), pin)
+        self._slots = [StagingSlot(tuple(shape), pin, dtype)
                        for _ in range(num_slots)]
         self._stream = (torch.cuda.Stream(device=device) if pin else None)
         self._lock = threading.Lock()
@@ -62,6 +64,7 @@ class StagingPool:
         self.num_acquires = 0
         self.num_acquire_waits = 0
         self.num_transfers = 0
+        self.num_transfer_bytes = 0
 
     def acquire(self) -> StagingSlot:
         """A free slot; blocks (counted) while every slot is held by an
@@ -105,6 +108,7 @@ class StagingPool:
         finally:
             with self._lock:
                 self.num_transfers += 1
+                self.num_transfer_bytes += src.nbytes
             self.release(slot)
 
     def fail(self, exc: BaseException) -> None:
@@ -118,10 +122,11 @@ class StagingPool:
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
             return {"slots": len(self._slots),
-                    "slot_bytes": sum(s.buf.numel() for s in self._slots),
+                    "slot_bytes": sum(s.buf.nbytes for s in self._slots),
                     "acquires": self.num_acquires,
                     "acquire_waits": self.num_acquire_waits,
-                    "transfers": self.num_transfers}
+                    "transfers": self.num_transfers,
+                    "transfer_bytes": self.num_transfer_bytes}
 
 
 class TransferWorker:

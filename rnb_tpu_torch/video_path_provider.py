@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import os
 
-VIDEO_EXTENSIONS = (".y4m",)
+VIDEO_EXTENSIONS = (".y4m", ".mjpg", ".mjpeg")
 
 
 def scan_video_tree(root: str, extensions=VIDEO_EXTENSIONS) -> list:

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from rnb_tpu_torch.ops import _kernels
+from rnb_tpu_torch.decode import SyntheticDecoder
+from rnb_tpu_torch.ops import _kernels, dct
 from rnb_tpu_torch.ops.preprocess import normalize_u8, normalize_u8_rows
 from rnb_tpu_torch.ops.yuv import packed_frame_bytes, yuv420_to_rgb_u8
 
@@ -22,6 +23,8 @@ pytestmark = pytest.mark.cuda
 def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    # the plain dct convert multiplies in float32: no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -55,7 +58,8 @@ def test_wrappers_count_launches_and_refuse_what_kernels_cannot_take(
     normalize_u8(rgb)
     torch.cuda.synchronize(device)
     assert _kernels.launch_counts() == {"normalize_u8": 1,
-                                        "yuv420_to_rgb_u8": 1}
+                                        "yuv420_to_rgb_u8": 1,
+                                        "dct_unpack": 0, "dct_convert": 0}
     with pytest.raises(TypeError):
         normalize_u8(rgb.float())                     # not uint8
     with pytest.raises(ValueError):
@@ -64,5 +68,65 @@ def test_wrappers_count_launches_and_refuse_what_kernels_cannot_take(
         normalize_u8(rgb.view(-1)[1:33].view(2, 16))  # not 16-byte aligned
     with pytest.raises(ValueError):
         yuv420_to_rgb_u8(packed[:, :, :-2], 16, 16)   # wrong plane size
+    wire = torch.zeros((2, 8, 4704), dtype=torch.int16, device=device)
+    dct.ragged_normalize_dct(wire, 1, 112, 112)
+    torch.cuda.synchronize(device)
+    with pytest.raises(TypeError):
+        dct.unpack_dct_rows(wire.int(), 112, 112)          # not int16
+    with pytest.raises(ValueError):
+        dct.unpack_dct_rows(wire.transpose(0, 1), 112, 112)  # strided
+    with pytest.raises(TypeError):
+        dct.normalize_dct(wire, 112, 112, torch.float16)   # no fp16 out
     assert _kernels.launch_counts() == {"normalize_u8": 1,
-                                        "yuv420_to_rgb_u8": 1}
+                                        "yuv420_to_rgb_u8": 1,
+                                        "dct_unpack": 1, "dct_convert": 1}
+
+
+def _u8(x):
+    """Normalized frames back to u8 steps: (x*255 + 255) / 2."""
+    return torch.round((x.float() * 255.0 + 255.0) / 2.0)
+
+
+def _dct_pool(rows, seed):
+    """Synthetic spectra, random well-formed rows over all 64 positions,
+    and a random-int16 garbage tail, one third each."""
+    rng = np.random.default_rng(seed)
+    nb = dct.num_dct_blocks(112, 112)
+    third = max(1, rows // 3)
+    pool = np.empty((rows, 8, dct.dct_frame_elems(112, 112)), np.int16)
+    pool[:third] = SyntheticDecoder().decode_clips_dct(
+        "synth://card-%d" % seed, list(range(third)), 8, 112, 112)
+    for r in range(third, rows - third):
+        for f in range(8):
+            zz = np.where(rng.random((nb, 64)) < 0.1,
+                          rng.integers(-900, 900, (nb, 64)), 0)
+            pool[r, f] = dct.pack_frame_dct(zz, 112, 112)
+    pool[rows - third:] = rng.integers(-32768, 32768,
+                                       pool[rows - third:].shape)
+    return torch.from_numpy(pool)
+
+
+def test_dct_kernels_match_plain_versions_on_card(device):
+    # tolerance: the unpack bitwise on every row it writes (rows past
+    # rows_valid are not written); the convert within two u8 steps
+    # (one step per quantized plane, carried through BT.601's 1.772;
+    # tests/test_torch_dct.py) with at least 99% exact, pad rows exact
+    # zeros, in both output dtypes
+    for rows in (15, 4):
+        pool = _dct_pool(rows, seed=rows)
+        card = pool.to(device)
+        plain_planes = dct.unpack_dct_rows(pool, 112, 112)
+        for valid in (rows, 2, 0):
+            planes = dct.unpack_dct_rows(card, 112, 112, valid)
+            for got, want in zip(planes, plain_planes):
+                assert torch.equal(got[:valid].cpu(), want[:valid])
+            for dtype in (torch.bfloat16, torch.float32):
+                out = dct.dct_convert(*planes, valid, 112, 112, dtype)
+                plain = dct.dct_convert_reference(
+                    *(p.to(device) for p in plain_planes), valid, 112, 112,
+                    dtype)
+                assert out.dtype == dtype
+                steps = (_u8(out) - _u8(plain)).abs()
+                assert float(steps.max()) <= 2
+                assert float((out == plain).double().mean()) >= 0.99
+                assert not out[valid:].float().any()

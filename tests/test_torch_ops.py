@@ -234,18 +234,21 @@ def test_cpu_paths_launch_no_kernel_and_build_nothing():
     ragged_normalize_yuv420(x, 1, 16, 16)
     normalize_yuv420(x, 16, 16)
     assert _kernels.launch_counts() == {"normalize_u8": 0,
-                                        "yuv420_to_rgb_u8": 0}
+                                        "yuv420_to_rgb_u8": 0,
+                                        "dct_unpack": 0, "dct_convert": 0}
     assert _kernels._libraries == {}
     assert os.path.basename(_kernels.library_path("ingest.cu")).startswith(
         "libingest-")
     names = {k.name for k in _kernels.KERNELS}
-    assert names == {"normalize_u8", "yuv420_to_rgb_u8"}
+    assert names == {"normalize_u8", "yuv420_to_rgb_u8", "dct_unpack",
+                     "dct_convert"}
+    assert {k.source for k in _kernels.KERNELS} == set(_kernels.SOURCES)
 
 
 def test_kernel_source_exports_the_bound_symbols():
-    with open(os.path.join(_kernels.CSRC_DIR, "ingest.cu")) as f:
-        source = f.read()
     for kernel in _kernels.KERNELS:
+        with open(os.path.join(_kernels.CSRC_DIR, kernel.source)) as f:
+            source = f.read()
         assert "int %s(" % kernel.symbol in source
         path, line = kernel.replaces.split(" ")[0].split(":")
         with open(os.path.join(REPO, path)) as f:

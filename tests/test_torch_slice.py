@@ -1,5 +1,5 @@
-"""The port's fused yuv420 serving slice against the JAX package, and
-end to end on the CPU.
+"""The port's fused serving slices against the JAX package, and end to
+end on the CPU.
 
 * ``R2P1DRunner`` (yuv420 ingest + R(2+1)D layers 1..5, bucketed and
   ragged/chunked) against the JAX ``_shared_apply`` on the same
@@ -7,8 +7,9 @@ end to end on the CPU.
   across with ``from_jax_variables`` — and the same packed planes, made
   from a seed with numpy. Both compute in bf16.
 * the fused loader's batching, and ``run_benchmark(platform="cpu")``
-  over reduced copies of the two shipped configs, its logs read back
-  with ``parse_utils``.
+  over reduced copies of the shipped configs (yuv420 over a y4m
+  dataset, dct over ``synth://`` ids), its logs read back with
+  ``parse_utils``.
 * config reading: the repo's configs unchanged, every unported key
   refused.
 """
@@ -39,7 +40,12 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = ("configs/rnb-fused-yuv-big.json",
-           "configs/rnb-fused-yuv-ragged.json")
+           "configs/rnb-fused-yuv-ragged.json",
+           "configs/rnb-fused-dct-ragged.json")
+#: per config: its pixel path and what its requests' ids look like
+#: (the dct path serves synthetic ids: a y4m file has no coefficients)
+PIXEL_PATH = {CONFIGS[0]: "yuv420", CONFIGS[1]: "yuv420",
+              CONFIGS[2]: "dct"}
 LS = (1, 1, 1, 1)  # minimal layer sizes: the full topology, fast
 CLASSES = 10
 PACKED = 18816  # one 112x112 4:2:0 frame
@@ -126,7 +132,7 @@ def test_runner_ragged_chunked_matches_jax_shared_apply(bridged):
 
 
 def test_runner_rejects_unported_pixel_paths():
-    for kwargs in (dict(pixel_path="rgb"), dict(pixel_path="dct")):
+    for kwargs in (dict(pixel_path="rgb"),):
         with pytest.raises(ValueError, match="not yet ported"):
             R2P1DRunner(CPU, num_warmups=0, **kwargs)
 
@@ -212,7 +218,12 @@ def _reduced(config, tmp_path):
 def test_run_benchmark_on_cpu_completes_every_request(tmp_path, config,
                                                       monkeypatch):
     from rnb_tpu_torch.benchmark import run_benchmark
-    monkeypatch.setenv("RNB_TPU_DATA_ROOT", _dataset(str(tmp_path / "d")))
+    dct = PIXEL_PATH[config] == "dct"
+    if dct:
+        monkeypatch.delenv("RNB_TPU_DATA_ROOT", raising=False)
+    else:
+        monkeypatch.setenv("RNB_TPU_DATA_ROOT",
+                           _dataset(str(tmp_path / "d")))
     _kernels.reset_launches()
     sink = {}
     result = run_benchmark(_reduced(config, tmp_path), mean_interval_ms=0,
@@ -223,16 +234,22 @@ def test_run_benchmark_on_cpu_completes_every_request(tmp_path, config,
     assert result.num_completed == 8 and result.device == "cpu"
     assert sorted(sink) == list(range(8))
     for video, logits in sink.values():
-        assert video.endswith(".y4m")
+        if dct:
+            assert video.startswith("synth://kinetics/video-")
+        else:
+            assert video.endswith(".y4m")
         assert logits.shape[1] == CLASSES and 1 <= logits.shape[0] <= 3
         assert np.isfinite(logits).all()
     # the CPU runs the plain versions: no kernel is launched or built
     assert _kernels.launch_counts() == {"normalize_u8": 0,
-                                        "yuv420_to_rgb_u8": 0}
+                                        "yuv420_to_rgb_u8": 0,
+                                        "dct_unpack": 0, "dct_convert": 0}
     with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
         meta = f.read()
     assert "Termination flag: 0" in meta
     assert ("Ragged:" in meta) == ("ragged" in config)
+    assert "Pixel path: %s\n" % PIXEL_PATH[config] in meta
+    assert "Decode backend: %s\n" % ("synth" if dct else "y4m") in meta
     table = os.path.join(result.log_dir, "cpu0-group0-0.txt")
     with open(table) as f:
         lines = f.read().splitlines()
@@ -242,6 +259,7 @@ def test_run_benchmark_on_cpu_completes_every_request(tmp_path, config,
     # the log reader gives back what the run reported
     stats = summarize(result.log_dir)
     assert stats["requests"] == 8 and 1 <= stats["emissions"] <= 8
+    assert stats["pixel_path"] == PIXEL_PATH[config]
     assert stats["videos_per_s"] == pytest.approx(result.throughput_vps,
                                                   rel=1e-3)
     assert stats["runner_service_ms"] > 0 and stats["runner_wait_ms"] >= 0
@@ -274,7 +292,8 @@ def test_shipped_configs_read_unchanged(config):
     assert all(s.model.startswith("rnb_tpu_torch.") for s in cfg.steps)
     assert cfg.steps[0].groups[0].devices[0].resolve() == \
         torch.device("cpu")
-    assert cfg.steps[0].kwargs["pixel_path"] == "yuv420"
+    assert [s.kwargs["pixel_path"] for s in cfg.steps] == [
+        PIXEL_PATH[config]] * 2
 
 
 def _base_raw():
@@ -289,7 +308,7 @@ def _base_raw():
     ("loader", "cache_mb", 64),
     ("loader", "autotune", True),
     ("loader", "pixel_path", "rgb"),
-    ("runner", "pixel_path", "dct"),
+    ("runner", "pixel_path", "rgb"),
     ("runner", "shard", {"degree": 2}),
 ])
 def test_unported_keys_are_refused(where, key, value):
