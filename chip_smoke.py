@@ -17,14 +17,27 @@ Phases (any failure exits non-zero and prints no result line):
    and each one's time on the card (the profiler's device time per
    call) beside its bound and its plain version's, plus its time per
    back-to-back call by CUDA events;
+   The gather kernel is held bitwise to its plain version at the clip
+   arena's rows (15 x 8 x 18,816 u8 over a 445-row slab) and the
+   feature arena's (15 x 400 float32), on five source tables, timed at
+   the 15-row clip pool with 8 hits beside ``torch.index_select`` on an
+   all-hit table, and the clip arena's stream order is checked: a
+   gather issued before a write of its page returns the old rows;
 4. path: serve ``configs/rnb-fused-yuv-big.json`` and
    ``configs/rnb-fused-yuv-ragged.json`` over a generated y4m dataset,
    and ``configs/rnb-fused-dct-ragged.json`` over ``synth://`` ids, at
-   full R(2+1)D-18 width on cuda:0; check that every request completed
-   with finite logits, that each config launched exactly its pixel
-   path's kernels in the measured window, and that a few requests'
-   logits agree with a CPU recompute through the plain versions on the
-   same seeded weights.
+   full R(2+1)D-18 width on cuda:0, in bulk; then the Zipf cache cells
+   under Poisson arrivals: ``configs/rnb-fused-yuv-paged-zipf.json``, a
+   copy of it with ``pager.feature_cache`` off (repeats become clip-page
+   hits) and ``configs/rnb-fused-yuv-zipf-cache.json``. Check that every
+   request completed with finite logits, that each config launched
+   exactly its own kernels in the measured window, that a few
+   requests' logits (on the features-off copy, a clip-page hit among
+   them) agree with a CPU recompute through the plain versions on the
+   same seeded weights, that the ``Pages:`` footings hold, that the
+   cache answered (feature hits, gathers, blob hits), and that every
+   feature hit's logits are bitwise those of its video's first
+   serving.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -41,12 +54,24 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+PAGED = "configs/rnb-fused-yuv-paged-zipf.json"
+BLOB = "configs/rnb-fused-yuv-zipf-cache.json"
 CONFIGS = ("configs/rnb-fused-yuv-big.json",
            "configs/rnb-fused-yuv-ragged.json",
-           "configs/rnb-fused-dct-ragged.json")
-#: the kernels each pixel path's ingest launches, and no others
-PATH_KERNELS = {"yuv420": {"normalize_u8", "yuv420_to_rgb_u8"},
-                "dct": {"dct_unpack", "dct_convert"}}
+           "configs/rnb-fused-dct-ragged.json", PAGED, BLOB)
+#: the paged cell with feature pages off, written next to the dataset
+FEATURES_OFF = "paged-zipf-features-off"
+YUV_KERNELS = {"normalize_u8", "yuv420_to_rgb_u8"}
+#: the kernels each run launches, and no others
+PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
+                CONFIGS[2]: {"dct_unpack", "dct_convert"},
+                PAGED: YUV_KERNELS | {"gather_rows"},
+                FEATURES_OFF: YUV_KERNELS | {"gather_rows"},
+                BLOB: YUV_KERNELS}
+#: mean Poisson gap of the Zipf runs: repeats then arrive after their
+#: video's first forward stored its logits (in bulk the loader admits
+#: every request before the first forward ends)
+ZIPF_INTERVAL_MS = 25
 HW = 112
 FRAMES = 8
 #: requests served per config on the path phase
@@ -336,6 +361,120 @@ def phase_kernels_dct(device):
     return timings, worst
 
 
+def gather_tables(pool_rows, slab_rows, seed):
+    """The source tables the gather is held on: all sentinels, all hits,
+    mixed, duplicate sources, and the slab's last row."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    mixed = rng.integers(-1, slab_rows, pool_rows).astype(np.int32)
+    return {"all_miss": np.full(pool_rows, -1, np.int32),
+            "all_hit": rng.integers(0, slab_rows, pool_rows).astype(np.int32),
+            "mixed": mixed,
+            "duplicates": np.where(mixed >= 0, 3, -1).astype(np.int32),
+            "last_row": np.where(np.arange(pool_rows) % 2, slab_rows - 1,
+                                 -1).astype(np.int32)}
+
+
+def check_arena_order(device):
+    """A gather issued, its plan released, its page evicted and
+    rewritten by an insert, with no host sync between: the gather must
+    return the old rows (the arena runs gathers and writes on one
+    stream, in order)."""
+    import numpy as np
+    import torch
+    from rnb_tpu_torch.cache import ClipCache
+    from rnb_tpu_torch.pager import Pager, PagerSettings
+    row = (FRAMES, 18816)
+    pager = Pager(PagerSettings(page_rows=1))
+    arena = pager.create_arena("clips", row, torch.uint8,
+                               budget_bytes=FRAMES * 18816, device=device)
+    cache = ClipCache(1.0, device=device)
+    cache.attach_arena(arena)
+    rng = np.random.default_rng(3)
+    for trial in range(10):
+        old, new = (torch.from_numpy(rng.integers(
+            0, 256, (1,) + row, dtype=np.uint8)).to(device)
+            for _ in range(2))
+        check(cache.insert_pages(("old", trial), old, 0, 1),
+              "order check: insert refused")
+        plan = cache.acquire(("old", trial))
+        out = arena.gather(torch.zeros((15,) + row, dtype=torch.uint8,
+                                       device=device),
+                           np.full(15, plan.src_rows[0], np.int32))
+        plan.release()
+        check(cache.insert_pages(("new", trial), new, 0, 1),
+              "order check: the page was not reused")
+        torch.cuda.synchronize()
+        check(torch.equal(out, old.expand((15,) + row)),
+              "order check: a write overtook an earlier gather of its page")
+        check(torch.equal(arena._slab[0], new[0]),
+              "order check: the write did not land")
+        cache.acquire(("new", trial)).release()
+        with pager.lock:
+            cache._entries.clear()
+            arena.free_locked((0,))
+    print("kernels gather_rows: stream order held in 10 trials (gather, "
+          "release, evict, rewrite, no host sync)")
+
+
+def phase_kernels_gather(device):
+    """The gather against its plain version, bitwise, at the clip and
+    feature arenas' rows; returns its timing row at the 15-row clip pool
+    with 8 hits and the worst error."""
+    import numpy as np
+    import torch
+    from rnb_tpu_torch.ops.pages import gather_rows, gather_rows_reference
+    gen = torch.Generator().manual_seed(99)
+    worst = 0.0
+    clip_slab_rows = 445  # the clip arena of cache_mb 256: 445 rows/page 4
+    cases = (
+        ("clip u8", torch.randint(0, 256, (15, FRAMES, 18816),
+                                  generator=gen, dtype=torch.uint8),
+         torch.randint(0, 256, (clip_slab_rows * 4, FRAMES, 18816),
+                       generator=gen, dtype=torch.uint8)),
+        ("feature f32", torch.randn((15, 400), generator=gen),
+         torch.randn((4096, 400), generator=gen)))
+    for what, pool, slab in cases:
+        pool, slab = pool.to(device), slab.to(device)
+        for name, src in gather_tables(15, int(slab.shape[0]), 5).items():
+            out = gather_rows(pool, slab, src)
+            plain = gather_rows_reference(pool, slab, src)
+            bitwise = bool(torch.equal(
+                out.view(torch.uint8) if out.dtype != torch.uint8 else out,
+                plain.view(torch.uint8) if plain.dtype != torch.uint8
+                else plain))
+            worst = max(worst, float((out.float() - plain.float()).abs()
+                                     .max()))
+            check(bitwise, "gather_rows %s table %s is not bitwise equal "
+                  "to its plain version" % (what, name))
+            print("kernels gather_rows %s %s, table %s, over %d slab rows: "
+                  "bitwise %s" % (what, tuple(pool.shape), name,
+                                  int(slab.shape[0]), bitwise))
+    torch.cuda.synchronize()
+    check_arena_order(device)
+
+    # timing at the serving shape: a 15-row clip pool, 8 rows hit
+    pool, slab = cases[0][1].to(device), cases[0][2].to(device)
+    src = np.full(15, -1, np.int32)
+    src[:8] = np.arange(0, 8 * 97, 97)
+    table = torch.from_numpy(src).to(device)
+    all_hit = torch.from_numpy(np.arange(0, 15 * 97, 97)).to(device)
+    all_hit32 = all_hit.int()
+    row_bytes = FRAMES * 18816
+    row = dict(bound_bytes=15 * row_bytes * 2 + src.nbytes, bound_ops=0)
+    time_kernel("gather_rows", row, 15,
+                lambda: gather_rows(pool, slab, table),
+                lambda: gather_rows_reference(pool, slab, table))
+    row["library_ms"] = device_ms(
+        lambda: torch.index_select(slab, 0, all_hit))
+    row["all_hit_ms"] = device_ms(
+        lambda: gather_rows(pool, slab, all_hit32))
+    print("timing gather_rows on an all-hit table: %.5f ms; "
+          "torch.index_select (library) %.5f ms"
+          % (row["all_hit_ms"], row["library_ms"]))
+    return {"gather_rows": row}, {"gather_rows": worst}
+
+
 def cpu_recompute(config_path, sink, picks):
     """Recompute ``picks`` requests on the CPU through the plain
     versions with the same seeded weights, in bfloat16 (as served) and
@@ -374,7 +513,7 @@ def cpu_recompute(config_path, sink, picks):
     report = dict(f32_err=0.0, served_err=0.0, cpu_bf16_err=0.0,
                   bound=0.0, argmax_agreed=0, rows=0, past_margin=0)
     for rid in picks:
-        video, served = sink[rid]
+        video, served, _stamps = sink[rid]
         decoder = get_decoder(video)
         starts = sampler.sample(decoder.num_frames(video),
                                 video_id=video)[:max_clips]
@@ -440,63 +579,137 @@ def cpu_recompute(config_path, sink, picks):
     return report
 
 
+def features_off_copy(data_root) -> str:
+    """The paged Zipf cell with ``pager.feature_cache`` off, so repeats
+    become clip-page hits: a temporary copy beside the dataset."""
+    with open(os.path.join(HERE, PAGED)) as f:
+        raw = json.load(f)
+    raw["pager"]["feature_cache"] = False
+    path = os.path.join(data_root, FEATURES_OFF + ".json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def check_cache_run(label, result, sink):
+    """The Zipf runs' own checks: the ``Pages:`` footings, that the
+    cache answered, and that every feature hit's logits are bitwise
+    its video's first serving's. Returns the rid of a clip-page hit
+    (None when the run had none)."""
+    from rnb_tpu_torch.parse_utils import footing_problems, read_meta
+    meta = read_meta(os.path.join(result.log_dir, "log-meta.txt"))
+    problems = footing_problems(meta)
+    check(not problems, "%s: %s" % (label, "; ".join(problems)))
+    pages = result.pages
+    if label == PAGED:
+        check(pages["feature_hits"] > 0, "%s: no feature hit" % label)
+    elif label == FEATURES_OFF:
+        check(pages["gathers"] > 0 and pages["gather_rows"] > 0,
+              "%s: no clip-page gather" % label)
+    else:
+        check(result.cache_hits > 0, "%s: no cache hit" % label)
+    first = {}
+    for rid in sorted(sink):
+        video, logits, stamps = sink[rid]
+        if not stamps["feature_hit"]:
+            first.setdefault(video, rid)
+    feature_hits = 0
+    for rid, (video, logits, stamps) in sorted(sink.items()):
+        if stamps["feature_hit"]:
+            feature_hits += 1
+            check(video in first and logits.tobytes()
+                  == sink[first[video]][1].tobytes(),
+                  "%s request %d: feature-hit logits are not bitwise those "
+                  "of request %s, its video's first serving"
+                  % (label, rid, first.get(video)))
+    page_hits = [rid for rid, (_v, _l, st) in sorted(sink.items())
+                 if st["cache_hit"] and label != BLOB]
+    print("path %s: Cache: %s; Pages: %s; %d feature hits bitwise equal "
+          "to their first serving; %d clip-page hits"
+          % (label, json.dumps({k: getattr(result, "cache_" + k) for k in (
+              "hits", "misses", "inserts", "evictions", "coalesced")}),
+             json.dumps(pages, sort_keys=True), feature_hits,
+             len(page_hits)))
+    return page_hits[0] if page_hits else None
+
+
 def phase_path(data_root, videos_per_run):
-    """Serve every config on cuda:0: the yuv420 ones over the y4m
-    dataset, the dct one over synth:// ids (a y4m file holds no DCT
-    coefficients). Returns the launches summed over the configs."""
+    """Serve every run on cuda:0: the yuv420 configs over the y4m
+    dataset (bulk, then the Zipf cells under Poisson arrivals), the dct
+    one over synth:// ids (a y4m file holds no DCT coefficients).
+    Returns the launches summed over the runs."""
     import numpy as np
     from rnb_tpu_torch.benchmark import run_benchmark
     from rnb_tpu_torch.config import load_config
     from rnb_tpu_torch.ops import _kernels
     launches = {k.name: 0 for k in _kernels.KERNELS}
-    for config in CONFIGS:
-        pixel_path = load_config(os.path.join(HERE, config),
+    runs = [(c, os.path.join(HERE, c)) for c in CONFIGS]
+    runs.insert(4, (FEATURES_OFF, features_off_copy(data_root)))
+    for label, config_path in runs:
+        pixel_path = load_config(config_path,
                                  "cpu").steps[0].kwargs["pixel_path"]
         if pixel_path == "dct":
             os.environ.pop("RNB_TPU_DATA_ROOT", None)
         else:
             os.environ["RNB_TPU_DATA_ROOT"] = data_root
+        zipf = label in (PAGED, FEATURES_OFF, BLOB)
         sink = {}
         _kernels.reset_launches()
         t0 = time.time()
         result = run_benchmark(
-            os.path.join(HERE, config), mean_interval_ms=0,
+            config_path, mean_interval_ms=ZIPF_INTERVAL_MS if zipf else 0,
             num_videos=videos_per_run, print_progress=False,
             log_base=os.path.join(data_root, "logs"), seed=0,
             outputs_sink=sink)
         counts = _kernels.launch_counts()
         wall = time.time() - t0
         check(result.termination_flag == 0, "%s terminated with flag %d"
-              % (config, result.termination_flag))
-        check(result.num_completed == videos_per_run,
-              "%s completed %d of %d requests"
-              % (config, result.num_completed, videos_per_run))
-        check(sorted(sink) == list(range(videos_per_run)),
-              "%s: outputs of requests %s missing" % (
-                  config, sorted(set(range(videos_per_run)) - set(sink))))
-        for rid, (video, logits) in sink.items():
+              % (label, result.termination_flag))
+        if zipf:
+            # an open-loop client: the run stops once the target is met,
+            # and a fused emission may complete a few more requests
+            check(result.num_completed >= videos_per_run
+                  and len(sink) == result.num_completed,
+                  "%s completed %d of %d requests (%d outputs)"
+                  % (label, result.num_completed, videos_per_run,
+                     len(sink)))
+        else:
+            check(result.num_completed == videos_per_run,
+                  "%s completed %d of %d requests"
+                  % (label, result.num_completed, videos_per_run))
+            check(sorted(sink) == list(range(videos_per_run)),
+                  "%s: outputs of requests %s missing" % (
+                      label, sorted(set(range(videos_per_run))
+                                    - set(sink))))
+        for rid, (video, logits, _stamps) in sink.items():
             check(logits.ndim == 2 and logits.shape[1] == 400
                   and logits.shape[0] >= 1,
                   "%s request %d: logits of shape %s"
-                  % (config, rid, logits.shape))
+                  % (label, rid, logits.shape))
             check(np.isfinite(logits).all(),
-                  "%s request %d: non-finite logits" % (config, rid))
+                  "%s request %d: non-finite logits" % (label, rid))
         for name, count in counts.items():
-            if name in PATH_KERNELS[pixel_path]:
+            if name in PATH_KERNELS[label]:
                 check(result.window_launches[name] > 0,
                       "%s: kernel %s was not launched in the measured "
-                      "window" % (config, name))
+                      "window" % (label, name))
             else:
-                check(count == 0, "%s: kernel %s of another pixel path "
-                      "was launched" % (config, name))
+                check(count == 0, "%s: kernel %s, not of this config, "
+                      "was launched" % (label, name))
             launches[name] += count
         by_clips = sorted(sink, key=lambda r: (sink[r][1].shape[0], r))
         picks = by_clips[:2] + by_clips[-1:]
-        report = cpu_recompute(os.path.join(HERE, config), sink, picks)
+        if zipf:
+            page_hit = check_cache_run(label, result, sink)
+            if label == FEATURES_OFF:
+                check(page_hit is not None, "%s: no clip-page hit to "
+                      "recompute" % label)
+                picks = [page_hit] + by_clips[1:2] + by_clips[-1:]
+        report = cpu_recompute(config_path, sink, picks)
         print("path %s: %d requests, %d clips, %.3f videos/s, p50 %s ms, "
               "p99 %s ms, wall %.1f s, launches %s (window %s), "
               "pad_rows %d of %d; recompute of requests %s: %s"
-              % (config, result.num_completed, result.clips_completed,
+              % (label, result.num_completed, result.clips_completed,
                  result.throughput_vps, result.p50_latency_ms,
                  result.p99_latency_ms, wall, counts,
                  result.window_launches, result.pad_rows,
@@ -533,9 +746,10 @@ def main() -> int:
 
         device = torch.device("cuda", 0)
         timings, worst = phase_kernels(device)
-        dct_timings, dct_worst = phase_kernels_dct(device)
-        timings.update(dct_timings)
-        worst.update(dct_worst)
+        for phase in (phase_kernels_dct, phase_kernels_gather):
+            more_timings, more_worst = phase(device)
+            timings.update(more_timings)
+            worst.update(more_worst)
 
         from rnb_tpu_torch.dataset import make_dataset
         make_dataset(data_root)
@@ -552,7 +766,7 @@ def main() -> int:
                 "max_abs_err": worst[kernel.name],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": None})
+                "library_ms": t.get("library_ms")})
         print("total %.1f s" % (time.time() - t_start))
         print(json.dumps({"kernels": rows}))
         print(smi)

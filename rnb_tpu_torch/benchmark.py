@@ -31,6 +31,7 @@ from typing import Dict, Optional
 
 import torch
 
+from rnb_tpu_torch.cache import aggregate_snapshots
 from rnb_tpu_torch.client import bulk_client, poisson_client
 from rnb_tpu_torch.config import load_config
 from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, EdgeTracker,
@@ -38,12 +39,21 @@ from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, EdgeTracker,
                                    TerminationState)
 from rnb_tpu_torch.ops import _kernels
 from rnb_tpu_torch.ops.ragged import RaggedSettings
+from rnb_tpu_torch.pager import Pager, PagerSettings
 from rnb_tpu_torch.runner import NUM_SUMMARY_SKIPS, RunnerContext, runner
 from rnb_tpu_torch.telemetry import latency_percentiles, logmeta, logroot
 from rnb_tpu_torch.utils.class_utils import load_class
 
 #: a stage that has not reached a barrier after this long is hung
 BARRIER_TIMEOUT_S = 1800.0
+#: the ``Pages:`` line's counters, in the reference's order
+PAGES_LINE_KEYS = ("arenas", "pages", "page_rows", "live", "limbo", "bytes",
+                   "allocs", "frees", "alloc_fails", "gathers",
+                   "gather_rows", "feature_lookups", "feature_hits",
+                   "feature_inserts", "feature_evictions",
+                   "feature_gathers", "feature_gather_rows",
+                   "feature_bytes_saved", "feature_entries",
+                   "bypassed_batches")
 
 
 @dataclass
@@ -66,6 +76,19 @@ class BenchmarkResult:
     window_launches: Dict[str, int] = field(default_factory=dict)
     #: sum of device kernel time in the window (profiled runs only)
     kernel_ms: Optional[float] = None
+    #: clip-cache counters summed over the loaders (all zero without
+    #: ``cache_mb``): the ``Cache:`` log-meta line
+    cache_hits: int = 0
+    cache_misses: int = 0
+    cache_inserts: int = 0
+    cache_evictions: int = 0
+    cache_coalesced: int = 0
+    cache_oversize: int = 0
+    cache_bytes_resident: int = 0
+    #: rows ragged cache hits served into pools (the ``Ragged:`` line)
+    ragged_cache_hit_rows: int = 0
+    #: the ``Pages:`` log-meta line's counters (empty without ``pager``)
+    pages: Dict[str, int] = field(default_factory=dict)
 
 
 def _pipeline_queues(config, queue_size: int):
@@ -100,8 +123,9 @@ def run_benchmark(config_path: str,
                   profile: bool = False) -> BenchmarkResult:
     """Programmatic entry used by the CLI, the tests and chip_smoke.py.
     ``outputs_sink``, when given, receives every request's output rows
-    (request id -> (video, float32 array)). ``profile`` traces the
-    measured window with ``torch.profiler`` (card runs): the sum of
+    (request id -> (video, float32 array, its cache stamps)).
+    ``profile`` traces the measured window with ``torch.profiler``
+    (card runs): the sum of
     kernel time lands in the result, each kernel's time and launches in
     ``profile.json``, and the profiler's table in ``profile.txt``."""
     config = load_config(config_path, platform)
@@ -110,13 +134,16 @@ def run_benchmark(config_path: str,
         num_videos, queue_size)
 
     ragged = RaggedSettings.from_config(config.ragged)
+    # one page allocator per job, handed to every SUPPORTS_PAGER stage
+    pager_settings = PagerSettings.from_config(config.pager)
+    pager = Pager(pager_settings) if pager_settings is not None else None
     bar_total = config.num_runners + 2  # runners + client + controller
     sta_bar = threading.Barrier(bar_total, timeout=BARRIER_TIMEOUT_S)
     fin_bar = threading.Barrier(bar_total, timeout=BARRIER_TIMEOUT_S)
     counter = InferenceCounter()
     termination = TerminationState()
     summary_sink, pad_sink, ragged_sink, staging_sink = [], [], [], []
-    ingest_sink = []
+    ingest_sink, cache_sink = [], []
     if mean_interval_ms == 0:
         # bulk mode pre-enqueues everything (plus the exit markers)
         queue_size = num_videos + config.num_runners + NUM_EXIT_MARKERS + 1
@@ -127,7 +154,8 @@ def run_benchmark(config_path: str,
 
     client_args = (config.video_path_iterator, filename_queue,
                    mean_interval_ms if mean_interval_ms > 0 else num_videos,
-                   termination, sta_bar, fin_bar, seed, num_markers)
+                   termination, sta_bar, fin_bar, seed, num_markers,
+                   config.popularity)
     threads = [threading.Thread(
         target=poisson_client if mean_interval_ms > 0 else bulk_client,
         args=client_args, name="client", daemon=True)]
@@ -162,6 +190,7 @@ def run_benchmark(config_path: str,
                     summary_sink=summary_sink if is_final else None,
                     pad_sink=pad_sink, ragged_sink=ragged_sink,
                     staging_sink=staging_sink, ingest_sink=ingest_sink,
+                    cache_sink=cache_sink, pager=pager,
                     outputs_sink=outputs_sink if is_final else None)
                 threads.append(threading.Thread(
                     target=runner, args=(ctx,), daemon=True,
@@ -225,6 +254,15 @@ def run_benchmark(config_path: str,
     total_rows = sum(p["total_rows"] for p in pad_sink)
     device = (torch.cuda.get_device_name(0) if config.platform == "cuda"
               else "cpu")
+    cache_stats = aggregate_snapshots(cache_sink) if cache_sink else None
+    cache_hit_rows = sum(r.get("cache_hit_rows", 0) for r in ragged_sink)
+    pages_summary = None
+    if pager is not None:
+        # every thread has joined: occupancy is settled, so the
+        # teardown footing allocs == frees + live holds from the line
+        pages_summary = pager.snapshot()
+        pages_summary["bypassed_batches"] = sum(
+            s.get("bypassed_batches", 0) for s in staging_sink)
     result = BenchmarkResult(
         job_id=job_id, total_time_s=total_time, num_videos=num_videos,
         termination_flag=int(termination.value),
@@ -233,7 +271,13 @@ def run_benchmark(config_path: str,
         p50_latency_ms=pct.get(50.0), p99_latency_ms=pct.get(99.0),
         clips_completed=clips, num_completed=completed,
         pad_rows=pad_rows, total_rows=total_rows,
-        window_launches=window_launches, kernel_ms=kernel_ms)
+        window_launches=window_launches, kernel_ms=kernel_ms,
+        ragged_cache_hit_rows=cache_hit_rows,
+        pages=dict(pages_summary) if pages_summary else {})
+    if cache_stats is not None:
+        for key in ("hits", "misses", "inserts", "evictions", "coalesced",
+                    "oversize", "bytes_resident"):
+            setattr(result, "cache_" + key, cache_stats[key])
 
     with open(logmeta(job_id, base=log_base), "w") as f:
         f.write("Args: %s\n" % json.dumps(dict(
@@ -252,12 +296,29 @@ def run_benchmark(config_path: str,
                 % (pad_rows, total_rows))
         for stats in ragged_sink:
             f.write("Ragged: pool_rows=%d emissions=%d rows=%d "
-                    "pad_rows_eliminated=%d\n"
+                    "pad_rows_eliminated=%d cache_hit_rows=%d\n"
                     % (stats["pool_rows"], stats["emissions"],
-                       stats["rows"], stats["pad_rows_eliminated"]))
+                       stats["rows"], stats["pad_rows_eliminated"],
+                       stats["cache_hit_rows"]))
+        if cache_stats is not None:
+            # the reference's format, byte for byte
+            f.write("Cache: hits=%d misses=%d inserts=%d evictions=%d "
+                    "coalesced=%d oversize=%d bytes_resident=%d\n"
+                    % (cache_stats["hits"], cache_stats["misses"],
+                       cache_stats["inserts"], cache_stats["evictions"],
+                       cache_stats["coalesced"], cache_stats["oversize"],
+                       cache_stats["bytes_resident"]))
         for snap in staging_sink:
             f.write("Staging: %s\n" % " ".join(
                 "%s=%d" % kv for kv in sorted(snap.items())))
+        if pages_summary is not None:
+            # the reference's format, byte for byte; then each arena's
+            # size (the feature arena's depends on which stage attached
+            # first)
+            f.write("Pages: %s\n" % " ".join(
+                "%s=%d" % (k, pages_summary[k]) for k in PAGES_LINE_KEYS))
+            f.write("Pages arenas: %s\n" % json.dumps(pager.arena_sizes(),
+                                                       sort_keys=True))
         f.write("Kernels: %s\n" % json.dumps(window_launches,
                                              sort_keys=True))
         if kernel_ms is not None:
@@ -272,6 +333,10 @@ def run_benchmark(config_path: str,
             completed=completed, termination_flag=result.termination_flag,
             device=device, kernel_launches=window_launches,
             kernel_ms=kernel_ms)))
+        if cache_stats is not None:
+            print("Cache: %s" % json.dumps(cache_stats, sort_keys=True))
+        if pages_summary is not None:
+            print("Pages: %s" % json.dumps(pages_summary, sort_keys=True))
     return result
 
 

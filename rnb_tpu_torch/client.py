@@ -5,8 +5,10 @@ video request per draw of an exponential inter-arrival time (mean
 ``mean_interval_ms``): the open-loop streaming workload.
 ``bulk_client`` enqueues ``num_videos`` requests at once: the
 max-throughput mode (``-mi 0``). Both stamp a fresh TimeCard
-(``enqueue_filename``) per request. A full filename queue aborts the
-run (``FILENAME_QUEUE_FULL``), as in the reference.
+(``enqueue_filename``) per request. With the root ``popularity`` key
+the configured iterator is wrapped in the seeded Zipf sampler. A full
+filename queue aborts the run (``FILENAME_QUEUE_FULL``), as in the
+reference.
 """
 
 from __future__ import annotations
@@ -23,15 +25,28 @@ from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, TerminationFlag,
                                    TerminationState, send_exit_markers)
 from rnb_tpu_torch.telemetry import TimeCard
 from rnb_tpu_torch.utils.class_utils import load_class
+from rnb_tpu_torch.video_path_provider import ZipfPathIterator
 
 
 def _client(video_path_iterator_path: str, filename_queue: "queue.Queue",
             termination: TerminationState, sta_bar: threading.Barrier,
             fin_bar: threading.Barrier, *, mean_interval_ms: int,
             num_videos: Optional[int], seed: Optional[int],
-            num_markers: int = NUM_EXIT_MARKERS) -> None:
+            num_markers: int = NUM_EXIT_MARKERS,
+            popularity: Optional[dict] = None) -> None:
     try:
-        iterator = iter(load_class(video_path_iterator_path)())
+        source = load_class(video_path_iterator_path)()
+        if popularity is not None:
+            # a child seed for the popularity draws: seeding them and the
+            # Poisson gaps below with one value would couple video rank
+            # with the next gap (the reference's rule, so the draws are
+            # the reference's draws)
+            zipf_seed = (None if seed is None
+                         else np.random.SeedSequence([seed, 1]))
+            source = ZipfPathIterator(source, s=popularity.get("s", 1.0),
+                                      universe=popularity.get("universe"),
+                                      seed=zipf_seed)
+        iterator = iter(source)
         rng = np.random.default_rng(seed)
     except Exception:
         traceback.print_exc()
@@ -76,18 +91,20 @@ def _client(video_path_iterator_path: str, filename_queue: "queue.Queue",
 def poisson_client(video_path_iterator_path, filename_queue,
                    mean_interval_ms, termination, sta_bar, fin_bar,
                    seed: Optional[int] = None,
-                   num_markers: int = NUM_EXIT_MARKERS) -> None:
+                   num_markers: int = NUM_EXIT_MARKERS,
+                   popularity: Optional[dict] = None) -> None:
     """Open-loop Poisson stream until the job terminates."""
     _client(video_path_iterator_path, filename_queue, termination, sta_bar,
             fin_bar, mean_interval_ms=mean_interval_ms, num_videos=None,
-            seed=seed, num_markers=num_markers)
+            seed=seed, num_markers=num_markers, popularity=popularity)
 
 
 def bulk_client(video_path_iterator_path, filename_queue, num_videos,
                 termination, sta_bar, fin_bar,
                 seed: Optional[int] = None,
-                num_markers: int = NUM_EXIT_MARKERS) -> None:
+                num_markers: int = NUM_EXIT_MARKERS,
+                popularity: Optional[dict] = None) -> None:
     """Enqueue ``num_videos`` requests immediately."""
     _client(video_path_iterator_path, filename_queue, termination, sta_bar,
             fin_bar, mean_interval_ms=0, num_videos=num_videos, seed=seed,
-            num_markers=num_markers)
+            num_markers=num_markers, popularity=popularity)

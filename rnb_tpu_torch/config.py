@@ -21,15 +21,19 @@ PORT_PREFIX = "rnb_tpu_torch."
 
 #: comments are allowed wherever a key is
 COMMENT_KEY = "_comment"
-ROOT_KEYS = frozenset({"video_path_iterator", "pipeline", "ragged"})
+ROOT_KEYS = frozenset({"video_path_iterator", "pipeline", "ragged",
+                       "popularity", "pager"})
 RAGGED_KEYS = frozenset({"enabled", "pool_rows"})
+POPULARITY_KEYS = frozenset({"dist", "s", "universe"})
+PAGER_KEYS = frozenset({"enabled", "page_rows", "pool_mb", "feature_cache"})
 STEP_KEYS = frozenset({"model", "queue_groups", "num_shared_tensors"})
 GROUP_KEYS = frozenset({"devices", "out_queues", "in_queue"})
 #: model keys per ported stage class (the step's kwargs)
 MODEL_KEYS = {
     "R2P1DFusingLoader": frozenset({
         "max_clips", "row_buckets", "fuse", "max_hold_ms", "pixel_path",
-        "staging_slots", "transfer_async", "dct_coeffs_per_frame"}),
+        "staging_slots", "transfer_async", "dct_coeffs_per_frame",
+        "cache_mb"}),
     "R2P1DRunner": frozenset({
         "start_index", "end_index", "max_rows", "row_buckets",
         "pixel_path", "ragged_chunk_rows", "layer_sizes", "num_classes",
@@ -89,6 +93,10 @@ class PipelineConfig:
     steps: List[StepConfig]
     ragged: Optional[dict]
     platform: str
+    #: the request-popularity spec ({"dist": "zipf", "s", "universe"})
+    popularity: Optional[dict] = None
+    #: the page allocator's settings (root ``pager`` key)
+    pager: Optional[dict] = None
 
     @property
     def num_steps(self) -> int:
@@ -97,6 +105,55 @@ class PipelineConfig:
     @property
     def num_runners(self) -> int:
         return sum(len(g.devices) for s in self.steps for g in s.groups)
+
+
+def _is_number(value) -> bool:
+    return isinstance(value, (int, float)) and not isinstance(value, bool)
+
+
+def _check_popularity(popularity) -> None:
+    """The reference's rules (rnb_tpu/config.py, root ``popularity``)."""
+    _check_keys(popularity, POPULARITY_KEYS, "popularity")
+    if popularity.get("dist", "zipf") != "zipf":
+        raise ConfigError("'popularity.dist' must be \"zipf\" (the one "
+                          "supported distribution), got %r"
+                          % (popularity.get("dist"),))
+    s = popularity.get("s", 1.0)
+    if not _is_number(s) or s < 0:
+        raise ConfigError("'popularity.s' must be a non-negative number, "
+                          "got %r" % (s,))
+    universe = popularity.get("universe")
+    if universe is not None and (not isinstance(universe, int)
+                                 or isinstance(universe, bool)
+                                 or universe < 1):
+        raise ConfigError("'popularity.universe' must be a positive "
+                          "integer, got %r" % (universe,))
+
+
+def _check_pager(pager, ragged) -> None:
+    """The reference's rules (rnb_tpu/config.py, root ``pager``),
+    including that paged gathers need the ragged pool."""
+    _check_keys(pager, PAGER_KEYS, "pager")
+    if not isinstance(pager.get("enabled", True), bool):
+        raise ConfigError("'pager.enabled' must be a boolean")
+    page_rows = pager.get("page_rows")
+    if page_rows is not None and (not isinstance(page_rows, int)
+                                  or isinstance(page_rows, bool)
+                                  or page_rows < 1):
+        raise ConfigError("'pager.page_rows' must be a positive integer "
+                          "(rows per fixed-size page), got %r"
+                          % (page_rows,))
+    pool_mb = pager.get("pool_mb")
+    if pool_mb is not None and (not _is_number(pool_mb) or pool_mb <= 0):
+        raise ConfigError("'pager.pool_mb' must be a positive number, "
+                          "got %r" % (pool_mb,))
+    if not isinstance(pager.get("feature_cache", False), bool):
+        raise ConfigError("'pager.feature_cache' must be a boolean")
+    if pager.get("enabled", True) and not (
+            isinstance(ragged, dict) and ragged.get("enabled", True)):
+        raise ConfigError("'pager' requires 'ragged': paged cache hits "
+                          "gather into the ragged row pool at its one "
+                          "shape")
 
 
 def parse_config(raw: dict, platform: Optional[str] = None
@@ -110,6 +167,12 @@ def parse_config(raw: dict, platform: Optional[str] = None
     ragged = raw.get("ragged")
     if ragged is not None:
         _check_keys(ragged, RAGGED_KEYS, "ragged")
+    popularity = raw.get("popularity")
+    if popularity is not None:
+        _check_popularity(popularity)
+    pager = raw.get("pager")
+    if pager is not None:
+        _check_pager(pager, ragged)
     steps = []
     pipeline = raw["pipeline"]
     if not isinstance(pipeline, list) or not pipeline:
@@ -157,7 +220,8 @@ def parse_config(raw: dict, platform: Optional[str] = None
                                 num_shared_tensors=slots, kwargs=kwargs))
     return PipelineConfig(
         video_path_iterator=port_class_path(raw["video_path_iterator"]),
-        steps=steps, ragged=ragged, platform=platform)
+        steps=steps, ragged=ragged, platform=platform,
+        popularity=popularity, pager=pager)
 
 
 def load_config(path: str, platform: Optional[str] = None

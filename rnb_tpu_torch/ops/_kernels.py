@@ -27,7 +27,7 @@ from typing import Dict, List, Sequence, Tuple
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
-SOURCES = ("ingest.cu", "dct.cu")
+SOURCES = ("ingest.cu", "dct.cu", "pages.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -165,8 +165,13 @@ DCT_CONVERT = Kernel(
     "dct_convert", "dct.cu", "rnb_dct_convert",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
     "rnb_tpu/ops/dct.py:312 (_dct_kernel via _dct_convert_pallas)")
+GATHER_ROWS = Kernel(
+    "gather_rows", "pages.cu", "rnb_gather_rows",
+    [_P, _P, _P, _P, _L, _L, _L],
+    "rnb_tpu/ops/pages.py:92 (_gather_rows_kernel via _gather_rows_pallas)")
 
-KERNELS = (NORMALIZE_U8, YUV420_TO_RGB_U8, DCT_UNPACK, DCT_CONVERT)
+KERNELS = (NORMALIZE_U8, YUV420_TO_RGB_U8, DCT_UNPACK, DCT_CONVERT,
+           GATHER_ROWS)
 
 
 def reset_launches() -> None:

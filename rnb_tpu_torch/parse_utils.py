@@ -7,11 +7,19 @@ on the card, ``profile.json``::
 
     python -m rnb_tpu_torch.parse_utils logs/<job> [logs/<job> ...]
 
-prints one JSON object per job: requests and videos/s over the measured
-window, emissions (fused batches) and the mean runner service per
-emission and wait before it, from the timing tables; and from the
-profile, device kernel time and launches, the card's busy share and
-each kernel family's share of the kernel time.
+prints one JSON object per job: requests, videos/s and clips/s over
+the measured window, emissions (fused batches) and the mean runner
+service per emission and wait before it, from the timing tables; the
+clip cache's hit rate and the page allocator's feature hits and
+gathers, from ``Cache:`` and ``Pages:``; and from the profile, device
+kernel time and launches, the card's busy share and each kernel
+family's share of the kernel time.
+
+It also checks the reference's footings of the ``Pages:`` line
+(``scripts/parse_utils.py --check``): pages allocated == freed + live
+at teardown, feature hits <= feature lookups, and gathered rows <= the
+ragged cache-hit rows they serve. A violation is printed and the exit
+code is 1.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from typing import Dict, List
 KERNEL_FAMILIES = (
     ("ingest", ("normalize_u8_kernel", "yuv420_to_rgb_u8_kernel",
                 "dct_unpack_kernel", "dct_convert_kernel")),
+    ("gather", ("gather_rows_kernel",)),
     ("conv_f32", ("f32f32",)),
     ("conv", ("fprop", "conv")),
     ("elementwise", ("elementwise_kernel",)),
@@ -46,6 +55,8 @@ def read_meta(path: str) -> dict:
                 meta["args"] = json.loads(rest)
             elif head == "Kernels":
                 meta["launches"] = json.loads(rest)
+            elif head == "Pages arenas":
+                meta["arenas"] = json.loads(rest)
             elif head in ("Pixel path", "Decode backend"):
                 meta[head.lower().replace(" ", "_")] = rest
             elif rest and "=" in rest:
@@ -79,6 +90,28 @@ def kernel_families(kernels: Dict[str, dict]) -> Dict[str, float]:
     return shares
 
 
+def footing_problems(meta: dict) -> List[str]:
+    """The ``Pages:`` line's footings that do not hold (empty when the
+    run had no pager)."""
+    pages = meta["lines"].get("Pages")
+    if pages is None:
+        return []
+    problems = []
+    if pages["allocs"] != pages["frees"] + pages["live"]:
+        problems.append("Pages: allocs=%d != frees=%d + live=%d (a page "
+                        "leaked or was freed twice)"
+                        % (pages["allocs"], pages["frees"], pages["live"]))
+    if pages["feature_hits"] > pages["feature_lookups"]:
+        problems.append("Pages: feature_hits=%d > feature_lookups=%d"
+                        % (pages["feature_hits"], pages["feature_lookups"]))
+    hit_rows = meta["lines"].get("Ragged", {}).get("cache_hit_rows", 0)
+    if pages["gather_rows"] > hit_rows:
+        problems.append("Pages: gather_rows=%d > Ragged cache_hit_rows=%d "
+                        "(gathered rows are cache-hit rows)"
+                        % (pages["gather_rows"], hit_rows))
+    return problems
+
+
 def summarize(log_dir: str) -> dict:
     meta = read_meta(os.path.join(log_dir, "log-meta.txt"))
     start, end = meta["window"]
@@ -107,16 +140,42 @@ def summarize(log_dir: str) -> dict:
                                                 % (step - 1)]]))
         service_ms.extend(1e3 * (f - s) for s, f in emissions.items())
         requests += len(rows)
+    lines = meta["lines"]
+    # clip rows served: the pools' valid rows, or the buckets' shipped
+    # rows less their padding
+    if "Ragged" in lines:
+        clips = lines["Ragged"]["rows"]
+    else:
+        clips = (lines["Padding"]["total_rows"]
+                 - lines["Padding"]["pad_rows"])
     out.update(requests=requests, videos_per_s=requests / out["window_s"],
+               clips_per_s=clips / out["window_s"],
                emissions=len(service_ms),
                runner_service_ms=_mean(service_ms),
                runner_wait_ms=_mean(wait_ms))
+    if "Cache" in lines:
+        cache = lines["Cache"]
+        lookups = cache["hits"] + cache["misses"]
+        out.update(cache_hits=int(cache["hits"]),
+                   cache_coalesced=int(cache["coalesced"]),
+                   cache_hit_rate=cache["hits"] / lookups if lookups
+                   else None)
+    if "Pages" in lines:
+        pages = lines["Pages"]
+        out.update({"pages_" + k: int(pages[k]) for k in (
+            "gathers", "gather_rows", "feature_lookups", "feature_hits",
+            "feature_gathers", "bypassed_batches")})
+        out["arenas"] = meta.get("arenas")
+    out["footing_problems"] = footing_problems(meta)
     profile = os.path.join(log_dir, "profile.json")
     if os.path.exists(profile):
         with open(profile) as f:
             kernels = json.load(f)["kernels"]
         kernel_ms = sum(k["device_us"] for k in kernels.values()) / 1e3
-        forwards = max(out["launches"].values(), default=0)
+        # each forward launches its ingest kernels once; a gather serves
+        # a hit and runs no forward
+        forwards = max((n for k, n in out["launches"].items()
+                        if k != "gather_rows"), default=0)
         out.update(kernel_ms=kernel_ms,
                    device_launches=sum(k["count"] for k in kernels.values()),
                    busy_share=kernel_ms / (1e3 * out["window_s"]),
@@ -135,9 +194,14 @@ def main(argv=None) -> int:
     if not log_dirs:
         print(__doc__)
         return 2
+    failed = False
     for log_dir in log_dirs:
-        print(json.dumps(summarize(log_dir)))
-    return 0
+        stats = summarize(log_dir)
+        print(json.dumps(stats))
+        for problem in stats["footing_problems"]:
+            print("%s: %s" % (log_dir, problem), file=sys.stderr)
+            failed = True
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -84,8 +84,13 @@ class RunnerContext:
     staging_sink: Optional[List] = None
     #: loaders append their pixel path and decode backends here
     ingest_sink: Optional[List] = None
+    #: loaders with a clip cache append its counter snapshot here
+    cache_sink: Optional[List] = None
+    #: the job's page allocator, handed to every SUPPORTS_PAGER stage
+    #: before the start barrier (None without the root ``pager`` key)
+    pager: Any = None
     #: when set, the final step stores each request's output rows here:
-    #: request id -> (video path, float32 numpy rows)
+    #: request id -> (video path, float32 numpy rows, cache stamps)
     outputs_sink: Optional[Dict[int, tuple]] = None
 
 
@@ -127,20 +132,23 @@ def _sync(payload) -> None:
             torch.cuda.current_stream(pb.data.device).synchronize()
 
 
+#: the cache stamps the outputs sink records per request
+OUTPUT_STAMPS = ("cache_hit", "cache_coalesced", "feature_hit")
+
+
 def _store_outputs(sink: Dict[int, tuple], payload, time_card) -> None:
-    """Copy each request's output rows to the host sink. A fused
-    emission packs its requests' rows in card order."""
+    """Copy each request's output rows to the host sink, with its cache
+    stamps. A request's rows are ``[row0, row0 + num_clips)`` of the
+    emission, as the loader stamped them: a coalesced follower shares
+    its leader's rows, so an emission may hold more cards than row
+    segments."""
     pb = payload[0]
     cards = cards_of(time_card)
-    if isinstance(pb, RaggedBatch):
-        offsets = pb.segment_offsets
-    else:
-        offsets = [0]
-        for tc in cards:
-            offsets.append(offsets[-1] + int(tc.num_clips))
-    rows = pb.data[:offsets[-1]].to(torch.float32).cpu().numpy()
-    for i, tc in enumerate(cards):
-        sink[tc.id] = (tc.video, rows[offsets[i]:offsets[i + 1]])
+    end = max(tc.row0 + int(tc.num_clips) for tc in cards)
+    rows = pb.data[:end].to(torch.float32).cpu().numpy()
+    for tc in cards:
+        sink[tc.id] = (tc.video, rows[tc.row0:tc.row0 + int(tc.num_clips)],
+                       {k: getattr(tc, k) for k in OUTPUT_STAMPS})
 
 
 def _publish(ctx: RunnerContext, payload, non_tensors, time_card,
@@ -168,6 +176,10 @@ def runner(ctx: RunnerContext) -> None:
         model_class = load_class(ctx.model_class_path)
         model = model_class(ctx.device, **ctx.model_kwargs)
         declared = model_class.output_shape_for(**ctx.model_kwargs)
+        if ctx.pager is not None and getattr(model, "SUPPORTS_PAGER",
+                                             False):
+            # arenas are allocated before the start barrier
+            model.enable_pager(ctx.pager)
     except Exception:
         traceback.print_exc()
         ctx.termination.raise_flag(TerminationFlag.INTERNAL_ERROR)
@@ -259,7 +271,8 @@ def runner(ctx: RunnerContext) -> None:
         for sink, attr in ((ctx.pad_sink, "padding"),
                            (ctx.ragged_sink, "ragged_stats"),
                            (ctx.staging_sink, "staging"),
-                           (ctx.ingest_sink, "ingest_stats")):
+                           (ctx.ingest_sink, "ingest_stats"),
+                           (ctx.cache_sink, "cache")):
             value = getattr(model, attr, None)
             if sink is not None and value is not None:
                 sink.append(value.snapshot() if hasattr(value, "snapshot")

@@ -65,6 +65,13 @@ class StagingPool:
         self.num_acquire_waits = 0
         self.num_transfers = 0
         self.num_transfer_bytes = 0
+        #: emissions that shipped no host bytes (feature-page hits)
+        self.num_bypassed_batches = 0
+
+    @property
+    def stream(self) -> Optional["torch.cuda.Stream"]:
+        """The transfer stream (None off the card)."""
+        return self._stream
 
     def acquire(self) -> StagingSlot:
         """A free slot; blocks (counted) while every slot is held by an
@@ -111,6 +118,12 @@ class StagingPool:
                 self.num_transfer_bytes += src.nbytes
             self.release(slot)
 
+    def note_bypassed(self) -> None:
+        """Count an emission that acquired no slot and moved no host
+        bytes: every row came from the page allocator."""
+        with self._lock:
+            self.num_bypassed_batches += 1
+
     def fail(self, exc: BaseException) -> None:
         """Record a transfer-pipeline failure; every later acquire
         re-raises it."""
@@ -126,7 +139,8 @@ class StagingPool:
                     "acquires": self.num_acquires,
                     "acquire_waits": self.num_acquire_waits,
                     "transfers": self.num_transfers,
-                    "transfer_bytes": self.num_transfer_bytes}
+                    "transfer_bytes": self.num_transfer_bytes,
+                    "bypassed_batches": self.num_bypassed_batches}
 
 
 class TransferWorker:

@@ -8,6 +8,18 @@ stamps all of its requests at once through :class:`TimeCardList`. The
 final step's :class:`TimeCardSummary` writes the per-instance timing
 table in the JAX package's text format: one header line of event keys
 and ``device{step}`` columns, one row per request, then trailers.
+
+Besides the event stamps, the loader stamps a card's content: its clip
+rows (``num_clips``), the first row of its request's rows in the
+emission (``row0``; a coalesced follower shares its leader's rows), and
+the cache outcome: ``cache_hit`` (True/False on a cache-enabled loader,
+None otherwise), ``cache_coalesced`` (the request shared another's
+in-flight decode) and ``feature_hit`` (answered from feature pages; the
+forward never ran for it). Two transient carriers take live pager state
+from the loader to the consuming stage, which pops them:
+``feature_plan`` (a feature hit's pinned gather plan) and
+``feature_insert`` (the (content key, row0, rows) insert the runner
+performs after its forward returned).
 """
 
 from __future__ import annotations
@@ -61,6 +73,14 @@ class TimeCard:
         self.num_clips = 0
         #: the request's video path, stamped by the loader
         self.video: Optional[str] = None
+        #: first row of this request's rows in its emission
+        self.row0 = 0
+        #: the cache outcome: None without a clip cache
+        self.cache_hit: Optional[bool] = None
+        self.cache_coalesced = False
+        self.feature_hit = False
+        self.feature_plan = None
+        self.feature_insert = None
 
     def record(self, key: str, at: Optional[float] = None) -> None:
         """Stamp ``key`` with the wall clock (or a given instant)."""
@@ -108,6 +128,11 @@ class TimeCardSummary:
         self.clip_counts: List[int] = []
         self.num_pad_rows = 0
         self.num_pad_tracked = 0
+        #: registered cards with a cache_hit stamp, the hits among
+        #: them, and the coalesced followers (the `# cache` trailer)
+        self.num_cache_hits = 0
+        self.num_cache_coalesced = 0
+        self.num_cache_tracked = 0
 
     def register(self, time_card: TimeCard) -> None:
         if not self.summary:
@@ -121,7 +146,16 @@ class TimeCardSummary:
         for key, ts in time_card.timings.items():
             self.summary[key].append(ts)
         self.devices_per_inference.append(time_card.devices)
-        self.clip_counts.append(int(time_card.num_clips))
+        # clips count device work: a coalesced follower's rows were
+        # computed once, on its leader's card, so it adds none
+        coalesced = getattr(time_card, "cache_coalesced", False)
+        self.clip_counts.append(0 if coalesced
+                                else int(time_card.num_clips))
+        hit = getattr(time_card, "cache_hit", None)
+        if hit is not None:
+            self.num_cache_tracked += 1
+            self.num_cache_hits += int(bool(hit))
+        self.num_cache_coalesced += int(bool(coalesced))
         pad = getattr(time_card, "pad_rows", None)
         if pad is not None:
             self.num_pad_tracked += 1
@@ -170,6 +204,15 @@ class TimeCardSummary:
         return ("# padding pad_rows=%d num_tracked=%d"
                 % (self.num_pad_rows, self.num_pad_tracked))
 
+    def cache_line(self) -> Optional[str]:
+        """The ``# cache`` trailer, or None on a cacheless run; written
+        even at zero hits (a zero hit rate is a result)."""
+        if not self.num_cache_tracked:
+            return None
+        return ("# cache num_hits=%d num_coalesced=%d num_tracked=%d"
+                % (self.num_cache_hits, self.num_cache_coalesced,
+                   self.num_cache_tracked))
+
     def save_full_report(self, fp: IO[str]) -> None:
         num_steps = max((len(d) for d in self.devices_per_inference),
                         default=0)
@@ -186,6 +229,6 @@ class TimeCardSummary:
                                 else ("-",))
                 fp.write(" %s" % step_devices[0])
             fp.write("\n")
-        padding = self.padding_line()
-        if padding is not None:
-            fp.write(padding + "\n")
+        for trailer in (self.cache_line(), self.padding_line()):
+            if trailer is not None:
+                fp.write(trailer + "\n")

@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from rnb_tpu_torch.cache import ClipCache
 from rnb_tpu_torch.decode import SyntheticDecoder
 from rnb_tpu_torch.ops import _kernels, dct
+from rnb_tpu_torch.ops.pages import gather_rows, gather_rows_reference
 from rnb_tpu_torch.ops.preprocess import normalize_u8, normalize_u8_rows
 from rnb_tpu_torch.ops.yuv import packed_frame_bytes, yuv420_to_rgb_u8
+from rnb_tpu_torch.pager import Pager, PagerSettings
 
 pytestmark = pytest.mark.cuda
 
@@ -59,7 +62,8 @@ def test_wrappers_count_launches_and_refuse_what_kernels_cannot_take(
     torch.cuda.synchronize(device)
     assert _kernels.launch_counts() == {"normalize_u8": 1,
                                         "yuv420_to_rgb_u8": 1,
-                                        "dct_unpack": 0, "dct_convert": 0}
+                                        "dct_unpack": 0, "dct_convert": 0,
+                                        "gather_rows": 0}
     with pytest.raises(TypeError):
         normalize_u8(rgb.float())                     # not uint8
     with pytest.raises(ValueError):
@@ -79,7 +83,8 @@ def test_wrappers_count_launches_and_refuse_what_kernels_cannot_take(
         dct.normalize_dct(wire, 112, 112, torch.float16)   # no fp16 out
     assert _kernels.launch_counts() == {"normalize_u8": 1,
                                         "yuv420_to_rgb_u8": 1,
-                                        "dct_unpack": 1, "dct_convert": 1}
+                                        "dct_unpack": 1, "dct_convert": 1,
+                                        "gather_rows": 0}
 
 
 def _u8(x):
@@ -130,3 +135,108 @@ def test_dct_kernels_match_plain_versions_on_card(device):
                 assert float(steps.max()) <= 2
                 assert float((out == plain).double().mean()) >= 0.99
                 assert not out[valid:].float().any()
+
+
+def _gather_tables(pool_rows, slab_rows, seed):
+    """Source tables: all sentinels, all hits, mixed, duplicate sources,
+    and the slab's last row (plus an index past it, clamped)."""
+    rng = np.random.default_rng(seed)
+    mixed = rng.integers(-1, slab_rows, pool_rows)
+    return {"all_miss": np.full(pool_rows, -1),
+            "all_hit": rng.integers(0, slab_rows, pool_rows),
+            "mixed": mixed,
+            "duplicates": np.where(mixed >= 0, 3, -1),
+            "last_row": np.where(np.arange(pool_rows) % 2, slab_rows - 1,
+                                 slab_rows + 5)}
+
+
+def test_gather_kernel_is_bitwise_its_plain_version(device):
+    # bitwise: the kernel moves bytes. The clip rows (150,528 B, 10
+    # chunks of 16 KiB), the feature rows (1,600 B), a 7-byte row (the
+    # byte loop), and a slab view that starts 1 byte off alignment
+    rng = np.random.default_rng(5)
+    shapes = (((15, 8, 18816), np.uint8, 400), ((15, 400), np.float32, 64),
+              ((9, 7), np.uint8, 30))
+    for shape, dtype, slab_rows in shapes:
+        if dtype == np.uint8:
+            pool = rng.integers(0, 256, shape, dtype=np.uint8)
+            slab = rng.integers(0, 256, (slab_rows,) + shape[1:],
+                                dtype=np.uint8)
+        else:
+            pool = rng.standard_normal(shape).astype(dtype)
+            slab = rng.standard_normal((slab_rows,) + shape[1:]).astype(
+                dtype)
+        pool_d = torch.from_numpy(pool).to(device)
+        slab_d = torch.from_numpy(slab).to(device)
+        for name, table in _gather_tables(shape[0], slab_rows, 1).items():
+            src = table.astype(np.int32)
+            out = gather_rows(pool_d, slab_d, src)
+            plain = gather_rows_reference(pool_d, slab_d, src)
+            assert out.cpu().numpy().tobytes() == \
+                plain.cpu().numpy().tobytes(), (shape, name)
+    flat = torch.from_numpy(rng.integers(0, 256, 30 * 7 + 1,
+                                         dtype=np.uint8)).to(device)
+    odd = flat[1:].view(30, 7)
+    pool = torch.zeros((9, 7), dtype=torch.uint8, device=device)
+    src = _gather_tables(9, 30, 2)["mixed"].astype(np.int32)
+    assert torch.equal(gather_rows(pool, odd, src),
+                       gather_rows_reference(pool, odd, src))
+
+
+def test_gather_wrapper_counts_launches_and_refuses(device):
+    _kernels.reset_launches()
+    pool = torch.zeros((4, 400), dtype=torch.float32, device=device)
+    slab = torch.ones((8, 400), dtype=torch.float32, device=device)
+    src = np.asarray([0, -1, 7, 3], np.int32)
+    gather_rows(pool, slab, src)
+    gather_rows(pool, slab, torch.from_numpy(src).to(device))
+    torch.cuda.synchronize(device)
+    assert _kernels.GATHER_ROWS.launches == 2
+    with pytest.raises(ValueError):
+        gather_rows(pool, slab.cpu(), src)               # two devices
+    with pytest.raises(TypeError):
+        gather_rows(pool, slab.half(), src)              # two dtypes
+    with pytest.raises(ValueError):
+        gather_rows(pool, slab[:, :200], src)            # row shapes
+    with pytest.raises(ValueError):
+        gather_rows(pool, slab[:0], src)                 # empty slab
+    with pytest.raises(ValueError):
+        gather_rows(pool, slab.t().contiguous().t(), src)  # strided
+    with pytest.raises(ValueError):
+        gather_rows(pool, slab, torch.from_numpy(src).long().to(device))
+    with pytest.raises(ValueError):
+        gather_rows(pool, slab, src[:3])                 # table length
+    assert _kernels.GATHER_ROWS.launches == 2
+
+
+def test_arena_orders_a_gather_before_a_later_write_of_its_page(device):
+    # the slab is written in place: a gather issued, its plan released,
+    # its page evicted and rewritten by an insert, all without a host
+    # sync -- the gather must still return the old rows, because the
+    # arena runs every gather and write on its one stream, in order
+    rng = np.random.default_rng(9)
+    pager = Pager(PagerSettings(page_rows=1))
+    arena = pager.create_arena("clips", (8, 18816), torch.uint8,
+                               budget_bytes=8 * 18816, device=device)
+    assert arena.num_pages == 1
+    cache = ClipCache(1.0, device=device)
+    cache.attach_arena(arena)
+    for trial in range(5):
+        old, new = (torch.from_numpy(rng.integers(
+            0, 256, (1, 8, 18816), dtype=np.uint8)).to(device)
+            for _ in range(2))
+        assert cache.insert_pages(("old", trial), old, 0, 1)
+        plan = cache.acquire(("old", trial))
+        dest = torch.zeros((15, 8, 18816), dtype=torch.uint8, device=device)
+        out = arena.gather(dest, np.full(15, plan.src_rows[0], np.int32))
+        plan.release()
+        assert cache.insert_pages(("new", trial), new, 0, 1)  # same page
+        torch.cuda.synchronize(device)
+        assert torch.equal(out, old.expand(15, 8, 18816)), trial
+        assert torch.equal(arena._slab[0], new[0])
+        cache.acquire(("new", trial)).release()
+        with pager.lock:  # empty the cache for the next trial
+            cache._entries.clear()
+            arena.free_locked((0,))
+    snap = pager.snapshot()
+    assert snap["gathers"] == 5 and snap["limbo"] == 0

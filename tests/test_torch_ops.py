@@ -235,13 +235,14 @@ def test_cpu_paths_launch_no_kernel_and_build_nothing():
     normalize_yuv420(x, 16, 16)
     assert _kernels.launch_counts() == {"normalize_u8": 0,
                                         "yuv420_to_rgb_u8": 0,
-                                        "dct_unpack": 0, "dct_convert": 0}
+                                        "dct_unpack": 0, "dct_convert": 0,
+                                        "gather_rows": 0}
     assert _kernels._libraries == {}
     assert os.path.basename(_kernels.library_path("ingest.cu")).startswith(
         "libingest-")
     names = {k.name for k in _kernels.KERNELS}
     assert names == {"normalize_u8", "yuv420_to_rgb_u8", "dct_unpack",
-                     "dct_convert"}
+                     "dct_convert", "gather_rows"}
     assert {k.source for k in _kernels.KERNELS} == set(_kernels.SOURCES)
 
 

@@ -10,12 +10,18 @@ end on the CPU.
   over reduced copies of the shipped configs (yuv420 over a y4m
   dataset, dct over ``synth://`` ids), its logs read back with
   ``parse_utils``.
+* the paged clip cache and feature pages: the loader and runner driven
+  by hand through a miss, a coalesced follower, a clip-page hit and
+  feature hits, every served request's logits against the JAX
+  ``_shared_apply`` on its own decoded rows, feature hits bitwise equal
+  to the first serving; and both Zipf configs end to end.
 * config reading: the repo's configs unchanged, every unported key
   refused.
 """
 
 import json
 import os
+from concurrent.futures import Future
 
 import numpy as np
 import pytest
@@ -24,7 +30,7 @@ import torch
 from rnb_tpu.models.r2p1d import checkpoint as jax_ckpt
 from rnb_tpu.models.r2p1d.model import _shared_apply
 from rnb_tpu_torch.config import ConfigError, load_config, parse_config
-from rnb_tpu_torch.decode import write_y4m
+from rnb_tpu_torch.decode import Y4MDecoder, write_y4m
 from rnb_tpu_torch.devices import DeviceResolutionError, DeviceSpec
 from rnb_tpu_torch.models.r2p1d.checkpoint import from_jax_variables
 from rnb_tpu_torch.models.r2p1d.model import (R2P1DFusingLoader,
@@ -32,6 +38,7 @@ from rnb_tpu_torch.models.r2p1d.model import (R2P1DFusingLoader,
 from rnb_tpu_torch.models.r2p1d.network import (R2Plus1DClassifier,
                                                 cast_compute_weights)
 from rnb_tpu_torch.ops import _kernels
+from rnb_tpu_torch.pager import Pager, PagerSettings
 from rnb_tpu_torch.parse_utils import summarize
 from rnb_tpu_torch.stage import PaddedBatch, RaggedBatch
 from rnb_tpu_torch.telemetry import TimeCard
@@ -46,6 +53,9 @@ CONFIGS = ("configs/rnb-fused-yuv-big.json",
 #: (the dct path serves synthetic ids: a y4m file has no coefficients)
 PIXEL_PATH = {CONFIGS[0]: "yuv420", CONFIGS[1]: "yuv420",
               CONFIGS[2]: "dct"}
+#: the Zipf cache cells: the paged one and its blob-cache twin
+ZIPF_CONFIGS = ("configs/rnb-fused-yuv-paged-zipf.json",
+                "configs/rnb-fused-yuv-zipf-cache.json")
 LS = (1, 1, 1, 1)  # minimal layer sizes: the full topology, fast
 CLASSES = 10
 PACKED = 18816  # one 112x112 4:2:0 frame
@@ -208,6 +218,8 @@ def _reduced(config, tmp_path):
     if "ragged" in raw:
         raw["ragged"]["pool_rows"] = 3
         runner["ragged_chunk_rows"] = 1
+    if "cache_mb" in loader:
+        loader["cache_mb"] = 4  # a 4 MB clip arena, not 256 MB
     path = str(tmp_path / os.path.basename(config))
     with open(path, "w") as f:
         json.dump(raw, f)
@@ -233,7 +245,7 @@ def test_run_benchmark_on_cpu_completes_every_request(tmp_path, config,
     assert result.termination_flag == 0
     assert result.num_completed == 8 and result.device == "cpu"
     assert sorted(sink) == list(range(8))
-    for video, logits in sink.values():
+    for video, logits, _stamps in sink.values():
         if dct:
             assert video.startswith("synth://kinetics/video-")
         else:
@@ -243,7 +255,8 @@ def test_run_benchmark_on_cpu_completes_every_request(tmp_path, config,
     # the CPU runs the plain versions: no kernel is launched or built
     assert _kernels.launch_counts() == {"normalize_u8": 0,
                                         "yuv420_to_rgb_u8": 0,
-                                        "dct_unpack": 0, "dct_convert": 0}
+                                        "dct_unpack": 0, "dct_convert": 0,
+                                        "gather_rows": 0}
     with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
         meta = f.read()
     assert "Termination flag: 0" in meta
@@ -280,6 +293,196 @@ def test_run_benchmark_on_cpu_completes_every_request(tmp_path, config,
         {"ingest": 0.1, "conv_f32": 0.3, "elementwise": 0.6})
 
 
+# -- the paged clip cache and feature pages ----------------------------
+
+class _ManualPool:
+    """A decode pool whose decodes run only when the test says, so the
+    hit kinds arise in a fixed order."""
+
+    def __init__(self):
+        self.jobs = []
+
+    def submit(self, fn, *args):
+        future = Future()
+        self.jobs.append((future, fn, args))
+        return future
+
+    def run_all(self):
+        for future, fn, args in self.jobs:
+            future.set_result(fn(*args))
+        self.jobs = []
+
+    def shutdown(self, wait=True, cancel_futures=False):
+        del wait, cancel_futures
+
+
+def _polled(loader):
+    """Every emission the loader's rules let out now."""
+    out = []
+    while True:
+        emission = loader.poll()
+        if emission is None:
+            return out
+        out.append(emission)
+
+
+def test_paged_hits_serve_the_jax_logits_and_feature_hits_are_bitwise(
+        tmp_path, bridged):
+    variables, net = bridged
+    root = _dataset(str(tmp_path / "data"), videos=2)
+    video_a, video_b = sorted(os.path.join(d, f) for d, _, fs in
+                              os.walk(root) for f in fs)
+    loader = R2P1DFusingLoader(CPU, fuse=3, max_clips=3, num_warmups=0,
+                               row_buckets=[1, 3], pixel_path="yuv420",
+                               ragged=True, ragged_pool_rows=3, cache_mb=4)
+    runner = R2P1DRunner(CPU, num_classes=CLASSES, layer_sizes=LS,
+                         max_rows=3, pixel_path="yuv420", num_warmups=0,
+                         ragged=True, ragged_pool_rows=3,
+                         ragged_chunk_rows=1, network=net)
+    pager = Pager(PagerSettings(page_rows=2, pool_mb=2,
+                                feature_cache=True))
+    loader.enable_pager(pager)
+    runner.enable_pager(pager)
+    loader._decode_pool.shutdown()
+    loader._decode_pool = _ManualPool()
+    cards = []
+
+    def admit(video):
+        cards.append(TimeCard(len(cards)))
+        out = loader(None, video, cards[-1])
+        return [out] if out[2] is not None else []
+
+    # a miss, a coalesced follower, a second miss: one or two pools
+    for video in (video_a, video_a, video_b):
+        assert admit(video) == []
+    loader._decode_pool.run_all()
+    first = _polled(loader)
+    # before the runner stores any logits: a clip-page hit
+    second = admit(video_a)
+    second += _polled(loader)
+    served = {}
+    for emission in first + second:
+        (batch,), _, tcs = runner(*emission)
+        for tc in tcs.time_cards:
+            served[tc.id] = batch.data[tc.row0:tc.row0 + tc.num_clips]
+    # the runner stored A's and B's logits: feature hits, emitted at once
+    for video in (video_a, video_b):
+        (emission,) = admit(video)
+        (batch,), _, tcs = runner(*emission)
+        (tc,) = tcs.time_cards
+        served[tc.id] = batch.data[:tc.num_clips]
+    loader.discard_pending()
+
+    assert [(tc.cache_hit, tc.cache_coalesced, tc.feature_hit)
+            for tc in cards] == [(False, False, False), (False, True, False),
+                                 (False, False, False), (True, False, False),
+                                 (None, False, True), (None, False, True)]
+    apply = _shared_apply(1, 5, CLASSES, LS, pixel_path="yuv420",
+                          ragged=True, ragged_chunk=1)
+    for tc in cards:
+        starts = loader._starts_cache[tc.video]
+        rows = Y4MDecoder().decode_clips_yuv(tc.video, starts, 8, 112, 112)
+        pool = np.zeros((3, 8, PACKED), np.uint8)
+        pool[:len(rows)] = rows
+        want = np.asarray(apply(variables, pool, np.int32(len(rows))))
+        got = served[tc.id].numpy()
+        _assert_logits_close(got, want[:len(rows)])
+    # a feature hit is the first serving's rows, bit for bit
+    assert served[4].numpy().tobytes() == served[0].numpy().tobytes()
+    assert served[5].numpy().tobytes() == served[2].numpy().tobytes()
+    assert served[1].numpy().tobytes() == served[0].numpy().tobytes()
+    snap = pager.snapshot()
+    assert snap["gathers"] == 1 and snap["feature_hits"] == 2
+    assert snap["gather_rows"] == cards[3].num_clips
+    assert snap["feature_gathers"] == 2
+    assert snap["allocs"] == snap["frees"] + snap["live"]
+    assert loader.ragged_stats["cache_hit_rows"] == cards[3].num_clips
+    assert loader.staging.snapshot()["bypassed_batches"] == 2
+
+
+def test_pager_refuses_what_the_reference_refuses():
+    pager = Pager(PagerSettings(feature_cache=True))
+    bucketed = R2P1DFusingLoader(CPU, max_clips=3, num_warmups=0,
+                                 pixel_path="yuv420", cache_mb=1)
+    with pytest.raises(ValueError, match="ragged"):
+        bucketed.enable_pager(pager)
+    cacheless = R2P1DFusingLoader(CPU, max_clips=3, num_warmups=0,
+                                  pixel_path="yuv420", ragged=True)
+    with pytest.raises(ValueError, match="cache_mb"):
+        cacheless.enable_pager(pager)
+    for loader in (bucketed, cacheless):
+        loader.discard_pending()
+    with pytest.raises(ValueError, match="ragged"):
+        R2P1DRunner(CPU, num_classes=CLASSES, layer_sizes=LS, max_rows=3,
+                    pixel_path="yuv420", num_warmups=0,
+                    network=object()).enable_pager(pager)
+    with pytest.raises(ValueError, match="end the network"):
+        R2P1DRunner(CPU, end_index=4, num_classes=CLASSES, layer_sizes=LS,
+                    max_rows=3, pixel_path="yuv420", num_warmups=0,
+                    ragged=True, network=object()).enable_pager(pager)
+
+
+@pytest.mark.parametrize("config", ZIPF_CONFIGS)
+def test_zipf_configs_serve_every_request_and_foot(tmp_path, config,
+                                                   monkeypatch):
+    from rnb_tpu_torch.benchmark import run_benchmark
+    from rnb_tpu_torch.parse_utils import main as parse_main
+    monkeypatch.setenv("RNB_TPU_DATA_ROOT", _dataset(str(tmp_path / "d")))
+    sink = {}
+    result = run_benchmark(_reduced(config, tmp_path), mean_interval_ms=0,
+                           num_videos=12, log_base=str(tmp_path / "logs"),
+                           print_progress=False, seed=0, platform="cpu",
+                           outputs_sink=sink)
+    assert result.termination_flag == 0 and result.num_completed == 12
+    assert sorted(sink) == list(range(12))
+    stamps = [st for _v, _l, st in sink.values()]
+    assert all(st["cache_hit"] is not None or st["feature_hit"]
+               for st in stamps)
+    # every request the feature pages did not answer is one clip-cache
+    # lookup; a coalesced follower is counted a miss
+    assert result.cache_hits + result.cache_misses \
+        == sum(st["cache_hit"] is not None for st in stamps)
+    assert result.cache_coalesced == sum(st["cache_coalesced"]
+                                         for st in stamps)
+    with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
+        meta = f.read()
+    assert "Cache: hits=%d misses=%d " % (result.cache_hits,
+                                          result.cache_misses) in meta
+    paged = "paged" in config
+    assert ("Pages: arenas=2 " in meta) == paged
+    assert ("Pages arenas: " in meta) == paged
+    assert ("cache_hit_rows=" in meta) == paged
+    stats = summarize(result.log_dir)
+    assert stats["footing_problems"] == []
+    assert stats["clips_per_s"] > 0 and stats["cache_hit_rate"] is not None
+    if paged:
+        assert result.pages["allocs"] == (result.pages["frees"]
+                                          + result.pages["live"])
+        assert set(stats["arenas"]) == {"clips", "features"}
+    with open(os.path.join(result.log_dir, "cpu0-group0-0.txt")) as f:
+        trailers = [ln for ln in f.read().splitlines() if ln[:1] == "#"]
+    assert trailers[0].startswith("# cache num_hits=%d "
+                                  % result.cache_hits)
+    assert parse_main([result.log_dir]) == 0
+
+
+def test_parse_utils_flags_a_broken_footing(tmp_path):
+    from rnb_tpu_torch.parse_utils import footing_problems, read_meta
+    meta = tmp_path / "log-meta.txt"
+    meta.write_text(
+        "Ragged: pool_rows=15 emissions=2 rows=4 pad_rows_eliminated=0 "
+        "cache_hit_rows=1\n"
+        "Pages: arenas=2 pages=9 page_rows=4 live=2 limbo=0 bytes=1 "
+        "allocs=3 frees=0 alloc_fails=0 gathers=1 gather_rows=2 "
+        "feature_lookups=1 feature_hits=2 feature_inserts=0 "
+        "feature_evictions=0 feature_gathers=0 feature_gather_rows=0 "
+        "feature_bytes_saved=0 feature_entries=0 bypassed_batches=0\n")
+    problems = footing_problems(read_meta(str(meta)))
+    assert len(problems) == 3
+    assert "allocs=3" in problems[0] and "feature_hits=2" in problems[1]
+    assert "gather_rows=2" in problems[2]
+
+
 # -- configs -----------------------------------------------------------
 
 @pytest.mark.parametrize("config", CONFIGS)
@@ -305,7 +508,7 @@ def _base_raw():
     ("root", "cache", {"mb": 64}),
     ("root", "metrics", {"interval_ms": 100}),
     ("root", "shard", {}),
-    ("loader", "cache_mb", 64),
+    ("root", "autotune", {"enabled": True}),
     ("loader", "autotune", True),
     ("loader", "pixel_path", "rgb"),
     ("runner", "pixel_path", "rgb"),
