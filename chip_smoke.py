@@ -23,6 +23,15 @@ Phases (any failure exits non-zero and prints no result line):
    the 15-row clip pool with 8 hits beside ``torch.index_select`` on an
    all-hit table, and the clip arena's stream order is checked: a
    gather issued before a write of its page returns the old rows;
+   The ragged normalize kernel is held bitwise to its plain version at
+   the unfused loader's full-width pool (15 x 8 x 112 x 112 x 3 u8) for
+   ``rows_valid`` in {0, 1, 7, 14, 15} read from one device scalar that
+   is rewritten between launches whose arguments stay the same, over a
+   pool whose tail holds random bytes (pad rows come out zero, so the
+   tail was not read into the result), at one odd row size through the
+   byte loop, and against the bucketed normalize kernel on the valid
+   rows; timed at 15 and at 7 valid rows beside its bounds, its plain
+   version and the bucketed kernel at 15 rows;
 4. path: serve ``configs/rnb-fused-yuv-big.json`` and
    ``configs/rnb-fused-yuv-ragged.json`` over a generated y4m dataset,
    and ``configs/rnb-fused-dct-ragged.json`` over ``synth://`` ids, at
@@ -37,7 +46,17 @@ Phases (any failure exits non-zero and prints no result line):
    same seeded weights, that the ``Pages:`` footings hold, that the
    cache answered (feature hits, gathers, blob hits), and that every
    feature hit's logits are bitwise those of its video's first
-   serving.
+   serving. Then the unfused multi-step topologies on the rgb path:
+   ``configs/r2p1d-whole.json`` (loader -> runner; the bucketed
+   normalize in the loader step), a copy of it with the root ``ragged``
+   key (the ragged normalize kernel once per emission, the bucketed one
+   never), ``configs/r2p1d-whole-yuv.json``,
+   ``configs/r2p1d-split-1chip.json`` (a feature map between 1..4 and
+   5..5; logits held to the unsplit run's), ``configs/rnb-1chip.json``
+   (Large/Small routing into two batchers; at least one six-request
+   fused batch) and ``configs/r2p1d-nopipeline-1chip.json`` (class ids
+   held to the argmax of the two-step run's logits), each with a CPU
+   recompute of two requests where it emits logits.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -56,18 +75,34 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PAGED = "configs/rnb-fused-yuv-paged-zipf.json"
 BLOB = "configs/rnb-fused-yuv-zipf-cache.json"
+WHOLE = "configs/r2p1d-whole.json"
+WHOLE_YUV = "configs/r2p1d-whole-yuv.json"
+SPLIT = "configs/r2p1d-split-1chip.json"
+RNB = "configs/rnb-1chip.json"
+NOPIPELINE = "configs/r2p1d-nopipeline-1chip.json"
 CONFIGS = ("configs/rnb-fused-yuv-big.json",
            "configs/rnb-fused-yuv-ragged.json",
-           "configs/rnb-fused-dct-ragged.json", PAGED, BLOB)
+           "configs/rnb-fused-dct-ragged.json", PAGED, BLOB,
+           WHOLE, WHOLE_YUV, SPLIT, RNB, NOPIPELINE)
 #: the paged cell with feature pages off, written next to the dataset
 FEATURES_OFF = "paged-zipf-features-off"
+#: the unfused whole pipeline under the root ``ragged`` key, likewise
+WHOLE_RAGGED = "r2p1d-whole-ragged"
 YUV_KERNELS = {"normalize_u8", "yuv420_to_rgb_u8"}
 #: the kernels each run launches, and no others
 PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 CONFIGS[2]: {"dct_unpack", "dct_convert"},
                 PAGED: YUV_KERNELS | {"gather_rows"},
                 FEATURES_OFF: YUV_KERNELS | {"gather_rows"},
-                BLOB: YUV_KERNELS}
+                BLOB: YUV_KERNELS,
+                WHOLE: {"normalize_u8"},
+                WHOLE_RAGGED: {"ragged_normalize_u8"},
+                WHOLE_YUV: YUV_KERNELS, SPLIT: {"normalize_u8"},
+                RNB: {"normalize_u8"}, NOPIPELINE: {"normalize_u8"}}
+#: the runs of the unfused multi-step pipeline, in serving order
+UNFUSED = (WHOLE, WHOLE_RAGGED, WHOLE_YUV, SPLIT, RNB, NOPIPELINE)
+#: the fused loader of rnb-1chip's small lane fuses this many requests
+RNB_BATCH = 6
 #: mean Poisson gap of the Zipf runs: repeats then arrive after their
 #: video's first forward stored its logits (in bulk the loader admits
 #: every request before the first forward ends)
@@ -75,7 +110,19 @@ ZIPF_INTERVAL_MS = 25
 HW = 112
 FRAMES = 8
 #: requests served per config on the path phase
-VIDEOS_PER_RUN = 48
+VIDEOS_PER_RUN = 32
+#: another topology's logits against the two-step run's for the same
+#: request: the same bf16 network at other batch shapes (row tiles, fused
+#: batches) or cut at a float32 feature map, so equal up to the
+#: convolution algorithm the library picks per shape; each run is held
+#: to float32 within about BF16_ATOL by its recompute, two runs to twice
+#: that
+TWO_STEP_ATOL = 2e-2
+#: the single step's class id against the two-step run's logits: it may
+#: differ only where the top-2 margin of the summed clip logits is within
+#: this much per clip, twice over (twice the largest difference between
+#: two topologies' logits that the smoke has shown, 0.002)
+CLASS_ID_ATOL = 4e-3
 #: published H100 SXM peaks (NVIDIA data sheet) for the bound
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -475,6 +522,74 @@ def phase_kernels_gather(device):
     return {"gather_rows": row}, {"gather_rows": worst}
 
 
+def phase_kernels_ragged(device):
+    """The ragged normalize against its plain version, bitwise, at the
+    unfused loader's 15-row pool; returns its timing row at 15 valid
+    rows (7 beside it) and the worst error."""
+    import torch
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.ops.preprocess import normalize_u8
+    from rnb_tpu_torch.ops.ragged import (ragged_normalize_u8,
+                                          ragged_normalize_u8_reference)
+    gen = torch.Generator().manual_seed(77)
+    rows = 15
+    # every row random, so the tail past rows_valid is garbage
+    pool = torch.randint(0, 256, (rows, FRAMES, HW, HW, 3), generator=gen,
+                         dtype=torch.uint8).to(device)
+    odd = torch.randint(0, 256, (rows, 1001), generator=gen,
+                        dtype=torch.uint8).to(device)
+    bucketed = normalize_u8(pool)
+    scalar = torch.zeros((1,), dtype=torch.int32, device=device)
+    worst = 0.0
+    for what, x in (("clip pool", pool), ("odd rows", odd)):
+        before = _kernels.RAGGED_NORMALIZE_U8.launches
+        for valid in (0, 1, 7, 14, 15):
+            # the same launch arguments every time: only the scalar on
+            # the card changes
+            scalar.fill_(valid)
+            out = ragged_normalize_u8(x, scalar)
+            plain = ragged_normalize_u8_reference(x, valid)
+            bitwise = torch.equal(out.view(torch.int16),
+                                  plain.view(torch.int16))
+            worst = max(worst, float((out.float() - plain.float()).abs()
+                                     .max()))
+            check(bitwise, "ragged_normalize_u8 %s rows_valid=%d is not "
+                  "bitwise equal to its plain version" % (what, valid))
+            pads_zero = not bool(out[valid:].float().any())
+            check(pads_zero, "ragged_normalize_u8 %s rows_valid=%d: pad "
+                  "rows are not zero" % (what, valid))
+            same_as_k1 = x is not pool or torch.equal(
+                out[:valid].view(torch.int16),
+                bucketed[:valid].view(torch.int16))
+            check(same_as_k1, "ragged_normalize_u8 rows_valid=%d: valid "
+                  "rows differ from normalize_u8's" % valid)
+            print("kernels ragged_normalize_u8 %s %s rows_valid=%d (device "
+                  "scalar): bitwise %s, pad rows zero %s, valid rows equal "
+                  "normalize_u8 %s" % (what, tuple(x.shape), valid, bitwise,
+                                       pads_zero, same_as_k1))
+        check(_kernels.RAGGED_NORMALIZE_U8.launches == before + 5,
+              "ragged_normalize_u8 did not count one launch per call")
+    torch.cuda.synchronize()
+
+    per_row = pool[0].numel()
+    row = dict(bound_bytes=rows * per_row * 3, bound_ops=3 * rows * per_row)
+    scalar.fill_(rows)
+    time_kernel("ragged_normalize_u8", row, rows,
+                lambda: ragged_normalize_u8(pool, scalar),
+                lambda: ragged_normalize_u8_reference(pool, scalar))
+    # 7 valid rows: 7 rows read, 15 written
+    scalar.fill_(7)
+    row["ms_valid7"] = device_ms(lambda: ragged_normalize_u8(pool, scalar))
+    row["bound_ms_valid7"] = ((7 * per_row + rows * per_row * 2)
+                              / PEAK_BYTES_PER_S * 1e3)
+    row["k1_ms_15_rows"] = device_ms(lambda: normalize_u8(pool))
+    print("timing ragged_normalize_u8 at 7 valid rows of 15: %.5f ms "
+          "(bound %.5f ms); normalize_u8 at the same 15 rows: %.5f ms"
+          % (row["ms_valid7"], row["bound_ms_valid7"],
+             row["k1_ms_15_rows"]))
+    return {"ragged_normalize_u8": row}, {"ragged_normalize_u8": worst}
+
+
 def cpu_recompute(config_path, sink, picks):
     """Recompute ``picks`` requests on the CPU through the plain
     versions with the same seeded weights, in bfloat16 (as served) and
@@ -495,11 +610,12 @@ def cpu_recompute(config_path, sink, picks):
     from rnb_tpu_torch.models.r2p1d.model import shared_network
     from rnb_tpu_torch.models.r2p1d.sampler import R2P1DSampler
     from rnb_tpu_torch.ops.dct import normalize_dct
+    from rnb_tpu_torch.ops.preprocess import normalize_u8
     from rnb_tpu_torch.ops.yuv import normalize_yuv420
     config = load_config(config_path, "cpu")
     loader_kwargs = config.steps[0].kwargs
     max_clips = loader_kwargs.get("max_clips", 15)
-    pixel_path = loader_kwargs["pixel_path"]
+    pixel_path = loader_kwargs.get("pixel_path", "rgb")
     runner_kwargs = config.steps[-1].kwargs
     arch = (1, runner_kwargs.get("end_index", 5),
             runner_kwargs.get("num_classes", 400),
@@ -522,10 +638,16 @@ def cpu_recompute(config_path, sink, picks):
                 video, starts, FRAMES, HW, HW,
                 loader_kwargs.get("dct_coeffs_per_frame")))
             ingest = normalize_dct
-        else:
+        elif pixel_path == "yuv420":
             wire = torch.from_numpy(decoder.decode_clips_yuv(
                 video, starts, FRAMES, HW, HW))
             ingest = normalize_yuv420
+        else:
+            wire = torch.from_numpy(decoder.decode_clips(
+                video, starts, FRAMES, HW, HW))
+
+            def ingest(frames, _height, _width):
+                return normalize_u8(frames)
         with torch.inference_mode():
             x_cpu = ingest(wire, HW, HW)
             x_card = ingest(wire.to(card), HW, HW).cpu()
@@ -591,6 +713,80 @@ def features_off_copy(data_root) -> str:
     return path
 
 
+def whole_ragged_copy(data_root) -> str:
+    """The unfused whole pipeline under the root ``ragged`` key, so the
+    loader's step runs the ragged normalize kernel: a temporary copy
+    beside the dataset."""
+    with open(os.path.join(HERE, WHOLE)) as f:
+        raw = json.load(f)
+    raw["ragged"] = {"enabled": True}
+    path = os.path.join(data_root, WHOLE_RAGGED + ".json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def check_unfused_run(label, result, sink, whole_sink):
+    """The unfused runs' own checks against the two-step run of the same
+    requests (``whole_sink``): one ragged-normalize launch per emission,
+    the split pipeline's logits, the batcher's fused batches, the single
+    step's class ids."""
+    import numpy as np
+    from rnb_tpu_torch.parse_utils import read_table
+    if label == WHOLE_RAGGED:
+        launched = result.window_launches["ragged_normalize_u8"]
+        check(launched == result.num_completed,
+              "%s: %d ragged_normalize_u8 launches for %d emissions"
+              % (label, launched, result.num_completed))
+    if label in (WHOLE_RAGGED, SPLIT, RNB):
+        worst = 0.0
+        for rid, (video, logits, _stamps) in sorted(sink.items()):
+            check(video == whole_sink[rid][0], "%s request %d served %s, "
+                  "the two-step run %s" % (label, rid, video,
+                                           whole_sink[rid][0]))
+            worst = max(worst, float(np.abs(
+                logits - whole_sink[rid][1]).max()))
+        check(worst <= TWO_STEP_ATOL, "%s: logits differ from the two-step "
+              "run's by %g > %g" % (label, worst, TWO_STEP_ATOL))
+        print("path %s: logits within %g of the two-step run's (bound %g)"
+              % (label, worst, TWO_STEP_ATOL))
+    if label == RNB:
+        tables = [n for n in os.listdir(result.log_dir)
+                  if n.endswith("-0.txt")]
+        fused = {}
+        for name in tables:
+            keys, rows = read_table(os.path.join(result.log_dir, name))
+            col = keys.index("inference2_start")
+            for row in rows:
+                fused[row[col]] = fused.get(row[col], 0) + 1
+        check(max(fused.values()) == RNB_BATCH,
+              "%s: no emission fused %d requests (sizes %s)"
+              % (label, RNB_BATCH, sorted(fused.values())))
+        print("path %s: %d emissions for %d requests, %d of them fused %d"
+              % (label, len(fused), result.num_completed,
+                 sum(n == RNB_BATCH for n in fused.values()), RNB_BATCH))
+    if label == NOPIPELINE:
+        held = 0
+        for rid, (video, pred, _stamps) in sorted(sink.items()):
+            check(video == whole_sink[rid][0], "%s request %d served "
+                  "another video than the two-step run" % (label, rid))
+            total = whole_sink[rid][1].sum(axis=0)
+            top2 = np.sort(total)[-2:]
+            # the batch shapes differ (max shape here, row buckets
+            # there): hold the class id past the bf16 margin
+            clips = whole_sink[rid][1].shape[0]
+            if top2[1] - top2[0] > 2 * CLASS_ID_ATOL * clips:
+                check(pred == int(total.argmax()), "%s request %d: class "
+                      "id %d, the two-step run's logits say %d"
+                      % (label, rid, pred, int(total.argmax())))
+                held += 1
+        check(held >= len(sink) // 4, "%s: only %d of %d class ids could "
+              "be held to the two-step run" % (label, held, len(sink)))
+        print("path %s: %d of %d class ids equal the argmax of the "
+              "two-step run's summed logits (the rest have a top-2 "
+              "margin inside the bound)" % (label, held, len(sink)))
+
+
 def check_cache_run(label, result, sink):
     """The Zipf runs' own checks: the ``Pages:`` footings, that the
     cache answered, and that every feature hit's logits are bitwise
@@ -645,9 +841,12 @@ def phase_path(data_root, videos_per_run):
     launches = {k.name: 0 for k in _kernels.KERNELS}
     runs = [(c, os.path.join(HERE, c)) for c in CONFIGS]
     runs.insert(4, (FEATURES_OFF, features_off_copy(data_root)))
+    runs.insert(runs.index((WHOLE, os.path.join(HERE, WHOLE))) + 1,
+                (WHOLE_RAGGED, whole_ragged_copy(data_root)))
+    whole_sink = None
     for label, config_path in runs:
-        pixel_path = load_config(config_path,
-                                 "cpu").steps[0].kwargs["pixel_path"]
+        pixel_path = load_config(config_path, "cpu").steps[0].kwargs.get(
+            "pixel_path", "rgb")
         if pixel_path == "dct":
             os.environ.pop("RNB_TPU_DATA_ROOT", None)
         else:
@@ -682,6 +881,10 @@ def phase_path(data_root, videos_per_run):
                       label, sorted(set(range(videos_per_run))
                                     - set(sink))))
         for rid, (video, logits, _stamps) in sink.items():
+            if label == NOPIPELINE:
+                check(isinstance(logits, int) and 0 <= logits < 400,
+                      "%s request %d: class id %r" % (label, rid, logits))
+                continue
             check(logits.ndim == 2 and logits.shape[1] == 400
                   and logits.shape[0] >= 1,
                   "%s request %d: logits of shape %s"
@@ -697,8 +900,22 @@ def phase_path(data_root, videos_per_run):
                 check(count == 0, "%s: kernel %s, not of this config, "
                       "was launched" % (label, name))
             launches[name] += count
+        if label == WHOLE:
+            whole_sink = sink
+        if label in UNFUSED:
+            check_unfused_run(label, result, sink, whole_sink)
+        if label == NOPIPELINE:
+            print("path %s: %d requests, %d clips, %.3f videos/s, wall "
+                  "%.1f s, launches %s (window %s), pad_rows %d of %d"
+                  % (label, result.num_completed, result.clips_completed,
+                     result.throughput_vps, wall, counts,
+                     result.window_launches, result.pad_rows,
+                     result.total_rows))
+            continue
         by_clips = sorted(sink, key=lambda r: (sink[r][1].shape[0], r))
         picks = by_clips[:2] + by_clips[-1:]
+        if label in UNFUSED:
+            picks = by_clips[:1] + by_clips[-1:]
         if zipf:
             page_hit = check_cache_run(label, result, sink)
             if label == FEATURES_OFF:
@@ -746,7 +963,8 @@ def main() -> int:
 
         device = torch.device("cuda", 0)
         timings, worst = phase_kernels(device)
-        for phase in (phase_kernels_dct, phase_kernels_gather):
+        for phase in (phase_kernels_dct, phase_kernels_gather,
+                      phase_kernels_ragged):
             more_timings, more_worst = phase(device)
             timings.update(more_timings)
             worst.update(more_worst)

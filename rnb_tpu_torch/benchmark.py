@@ -161,11 +161,12 @@ def run_benchmark(config_path: str,
         args=client_args, name="client", daemon=True)]
     for step_idx, step in enumerate(config.steps):
         is_final = step_idx == config.num_steps - 1
-        kwargs = dict(step.kwargs)
-        if ragged is not None and getattr(load_class(step.model),
-                                          "SUPPORTS_RAGGED", False):
-            kwargs.update(ragged=True, ragged_pool_rows=ragged.pool_rows)
         for group_idx, group in enumerate(step.groups):
+            kwargs = step.kwargs_for_group(group_idx)
+            if ragged is not None and getattr(load_class(step.model),
+                                              "SUPPORTS_RAGGED", False):
+                kwargs.update(ragged=True,
+                              ragged_pool_rows=ragged.pool_rows)
             in_queue = (filename_queue if step_idx == 0
                         else queues[step_idx - 1][group.in_queue])
             out_queues = (None if is_final else
@@ -178,6 +179,7 @@ def run_benchmark(config_path: str,
                     num_videos=num_videos, termination=termination,
                     step_idx=step_idx, sta_bar=sta_bar, fin_bar=fin_bar,
                     model_class_path=step.model, model_kwargs=kwargs,
+                    queue_selector_path=group.queue_selector,
                     credits=(None if is_final
                              else RingCredits(step.num_shared_tensors)),
                     out_trackers=(None if is_final else
@@ -292,14 +294,21 @@ def run_benchmark(config_path: str,
             f.write("Pixel path: %s\n" % ingest["pixel_path"])
             f.write("Decode backend: %s\n"
                     % ",".join(sorted(ingest["backends"])))
+        # the clip rows the final step completed: every batching stage
+        # counts its own rows into Padding: and Ragged:, so a loader
+        # followed by a batcher counts a clip twice there
+        f.write("Completed: requests=%d clips=%d\n" % (completed, clips))
         f.write("Padding: pad_rows=%d total_rows=%d\n"
                 % (pad_rows, total_rows))
-        for stats in ragged_sink:
+        if ragged_sink:
+            # one line over every ragged batching stage (a loader, a
+            # batcher), as the reference writes it
             f.write("Ragged: pool_rows=%d emissions=%d rows=%d "
                     "pad_rows_eliminated=%d cache_hit_rows=%d\n"
-                    % (stats["pool_rows"], stats["emissions"],
-                       stats["rows"], stats["pad_rows_eliminated"],
-                       stats["cache_hit_rows"]))
+                    % ((max(r["pool_rows"] for r in ragged_sink),)
+                       + tuple(sum(r[k] for r in ragged_sink) for k in (
+                           "emissions", "rows", "pad_rows_eliminated",
+                           "cache_hit_rows"))))
         if cache_stats is not None:
             # the reference's format, byte for byte
             f.write("Cache: hits=%d misses=%d inserts=%d evictions=%d "

@@ -4,7 +4,10 @@ Counterpart of ``rnb_tpu/config.py``. The port reads the same config
 files, unchanged: every class path's ``rnb_tpu.`` prefix becomes
 ``rnb_tpu_torch.``. It accepts exactly the keys of the paths it has
 ported and raises a clear "not yet ported" error on any other key — a
-key is never silently ignored. Device ``d`` maps to ``cuda:d`` (every
+key is never silently ignored. A step's model keys may also stand on
+one of its queue groups, whose value then wins for that group (the
+reference's rule: ``configs/rnb-1chip.json`` gives each ``Batcher``
+group its own ``batch``). Device ``d`` maps to ``cuda:d`` (every
 device to the CPU on ``platform="cpu"``) and ``-1`` to the host.
 """
 
@@ -15,6 +18,7 @@ import json
 from typing import Any, Dict, List, Optional
 
 from rnb_tpu_torch.devices import DeviceSpec, resolve_platform
+from rnb_tpu_torch.selector import DEFAULT_QUEUE_SELECTOR
 
 REFERENCE_PREFIX = "rnb_tpu."
 PORT_PREFIX = "rnb_tpu_torch."
@@ -27,20 +31,36 @@ RAGGED_KEYS = frozenset({"enabled", "pool_rows"})
 POPULARITY_KEYS = frozenset({"dist", "s", "universe"})
 PAGER_KEYS = frozenset({"enabled", "page_rows", "pool_mb", "feature_cache"})
 STEP_KEYS = frozenset({"model", "queue_groups", "num_shared_tensors"})
-GROUP_KEYS = frozenset({"devices", "out_queues", "in_queue"})
+GROUP_KEYS = frozenset({"devices", "out_queues", "in_queue",
+                        "queue_selector"})
+_LOADER_KEYS = frozenset({
+    "max_clips", "consecutive_frames", "num_clips_population", "weights",
+    "num_warmups", "row_buckets", "prefetch", "pixel_path", "cache_mb",
+    "dct_coeffs_per_frame"})
+_RUNNER_KEYS = frozenset({
+    "start_index", "end_index", "max_rows", "consecutive_frames",
+    "num_warmups", "row_buckets", "pixel_path", "ragged_chunk_rows",
+    "layer_sizes", "num_classes", "dct_coeffs_per_frame"})
 #: model keys per ported stage class (the step's kwargs)
 MODEL_KEYS = {
+    "R2P1DLoader": _LOADER_KEYS,
     "R2P1DFusingLoader": frozenset({
         "max_clips", "row_buckets", "fuse", "max_hold_ms", "pixel_path",
         "staging_slots", "transfer_async", "dct_coeffs_per_frame",
         "cache_mb"}),
-    "R2P1DRunner": frozenset({
-        "start_index", "end_index", "max_rows", "row_buckets",
-        "pixel_path", "ragged_chunk_rows", "layer_sizes", "num_classes",
-        "dct_coeffs_per_frame"}),
+    "R2P1DRunner": _RUNNER_KEYS,
+    # the single step hands its keys to the embedded loader and runner
+    "R2P1DSingleStep": _LOADER_KEYS | frozenset({"layer_sizes",
+                                                 "num_classes"}),
+    "Batcher": frozenset({
+        "batch", "shapes", "max_rows", "consecutive_frames", "frame_hw",
+        "row_buckets"}),
 }
+#: the selectors a group may name (``ReplicaSelector`` waits for
+#: replica lanes)
+QUEUE_SELECTORS = frozenset({"RoundRobinSelector", "LargeSmallSelector"})
 #: the pixel paths ported so far
-PIXEL_PATHS = ("yuv420", "dct")
+PIXEL_PATHS = ("rgb", "yuv420", "dct")
 #: ring slots per producer when a step omits num_shared_tensors
 DEFAULT_NUM_SHARED_TENSORS = 10
 
@@ -76,6 +96,10 @@ class GroupConfig:
     devices: List[DeviceSpec]
     out_queues: List[int]
     in_queue: Optional[int]
+    #: class path of the selector routing over ``out_queues``
+    queue_selector: str = DEFAULT_QUEUE_SELECTOR
+    #: model keys given on the group: they override the step's
+    kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -85,6 +109,13 @@ class StepConfig:
     num_shared_tensors: int
     #: the step's model keys, passed to the stage's constructor
     kwargs: Dict[str, Any]
+
+    def kwargs_for_group(self, group_idx: int) -> Dict[str, Any]:
+        """Constructor kwargs of one group's instances: the step's
+        model keys, overridden by the group's."""
+        merged = dict(self.kwargs)
+        merged.update(self.groups[group_idx].kwargs)
+        return merged
 
 
 @dataclasses.dataclass
@@ -192,16 +223,28 @@ def parse_config(raw: dict, platform: Optional[str] = None
             raise _not_ported("%s pixel_path %r" % (where, pixel_path))
         groups = []
         for group_raw in step_raw.get("queue_groups", ()):
-            _check_keys(group_raw, GROUP_KEYS, where + " queue group")
+            _check_keys(group_raw, GROUP_KEYS | MODEL_KEYS[class_name],
+                        where + " queue group")
             devices = group_raw.get("devices")
             if not devices:
                 raise ConfigError("%s: every queue group needs devices"
                                   % where)
+            selector = port_class_path(group_raw.get(
+                "queue_selector", DEFAULT_QUEUE_SELECTOR))
+            if selector.rpartition(".")[2] not in QUEUE_SELECTORS:
+                raise _not_ported("%s queue_selector %r"
+                                  % (where, group_raw["queue_selector"]))
+            group_kwargs = {k: v for k, v in group_raw.items()
+                            if k in MODEL_KEYS[class_name]}
+            if group_kwargs.get("pixel_path", "rgb") not in PIXEL_PATHS:
+                raise _not_ported("%s pixel_path %r"
+                                  % (where, group_kwargs["pixel_path"]))
             groups.append(GroupConfig(
                 devices=[DeviceSpec(d, platform) for d in devices],
                 out_queues=[int(q) for q in group_raw.get("out_queues",
                                                           ())],
-                in_queue=group_raw.get("in_queue")))
+                in_queue=group_raw.get("in_queue"),
+                queue_selector=selector, kwargs=group_kwargs))
         if not groups:
             raise ConfigError("%s needs at least one queue group" % where)
         is_final = step_idx == len(pipeline) - 1
@@ -212,6 +255,19 @@ def parse_config(raw: dict, platform: Optional[str] = None
             if step_idx > 0 and group.in_queue is None:
                 raise ConfigError("%s: a consumer group needs in_queue"
                                   % where)
+            if is_final and group.out_queues:
+                raise ConfigError("%s: the last step may not declare "
+                                  "out_queues" % where)
+        if step_idx > 0:
+            # this step's in queues are exactly the previous step's out
+            # queues
+            fed = {q for g in steps[-1].groups for q in g.out_queues}
+            read = {g.in_queue for g in groups}
+            if fed != read:
+                raise ConfigError(
+                    "output queues of step %d %s do not match input "
+                    "queues of step %d %s" % (step_idx - 1, sorted(fed),
+                                              step_idx, sorted(read)))
         slots = int(step_raw.get("num_shared_tensors",
                                  DEFAULT_NUM_SHARED_TENSORS))
         if slots < 1:

@@ -5,9 +5,9 @@
 // rnb_normalize_u8 -- port of the Pallas kernel `_normalize_kernel` /
 //   `_normalize_u8_pallas` (rnb_tpu/ops/preprocess.py:48-70).
 //   Computes y = (2x - 255) * (1/255) rounded once to bf16, row by row;
-//   rows at or past `rows_valid` store zeros and do no arithmetic, so
-//   the same kernel also stands in for the ragged Pallas kernel
-//   `_ragged_normalize_kernel` (rnb_tpu/ops/ragged.py:157-208).
+//   rows at or past the host integer `rows_valid` store zeros and do no
+//   arithmetic. (The ragged Pallas kernel `_ragged_normalize_kernel`,
+//   whose `rows_valid` lives in device memory, is ported in ragged.cu.)
 //   Bound: memory. One byte read and two written per element, no reuse
 //   (48 clip rows: 14.5 MB in, 28.9 MB out, ~13 us at 3.35 TB/s).
 //   Design: every thread moves one 16-byte vector in (uint4) and two

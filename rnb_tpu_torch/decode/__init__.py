@@ -1,7 +1,9 @@
 """Host-side video decode: videos -> packed clip rows for the card.
 
-Counterpart of ``rnb_tpu/decode/__init__.py`` for the two ported pixel
-paths. ``decode_clips_yuv`` returns packed 4:2:0 planes (yuv420 path,
+Counterpart of ``rnb_tpu/decode/__init__.py``. ``decode_clips`` returns
+RGB uint8 frames ``(clips, frames, H, W, 3)`` (rgb path, normalized on
+the card by ``rnb_tpu_torch/ops/preprocess.py`` or ``ops/ragged.py``);
+``decode_clips_yuv`` returns packed 4:2:0 planes (yuv420 path,
 converted on the card by ``rnb_tpu_torch/ops/yuv.py``);
 ``decode_clips_dct`` returns packed int16 dequantized DCT coefficient
 rows (dct path, ``rnb_tpu_torch/ops/dct.py``). numpy only; every
@@ -11,10 +13,11 @@ Backends, picked by :func:`get_decoder`:
 
 * :class:`SyntheticDecoder` for ``synth://`` ids: procedural clips,
   deterministic per (id, clip start) — the dataset-free arm;
-* :class:`Y4MDecoder` for uncompressed ``.y4m`` (yuv420 only: such a
-  file holds no DCT coefficients);
+* :class:`Y4MDecoder` for uncompressed ``.y4m`` (rgb and yuv420: such
+  a file holds no DCT coefficients);
 * :class:`MjpegDecoder` for ``.mjpg``/``.mjpeg`` (dct only), through
-  the pure-Python coefficient decoder ``jpeg_dct``.
+  the pure-Python coefficient decoder ``jpeg_dct``; its RGB decode is
+  not ported (the reference's needs PIL).
 
 A video that cannot be decoded raises (:class:`CorruptVideoError`, a
 ``ValueError``); the serving path lets that fail the run loudly.
@@ -55,12 +58,28 @@ class SyntheticDecoder:
         h = zlib.crc32(("len:" + video).encode())
         return self.min_frames + h % (self.max_frames - self.min_frames + 1)
 
+    def decode_clips(self, video: str, clip_starts: List[int],
+                     consecutive_frames: int = 8,
+                     width: int = DEFAULT_WIDTH,
+                     height: int = DEFAULT_HEIGHT) -> np.ndarray:
+        """uint8 ``(num_clips, consecutive_frames, H, W, 3)`` RGB frames
+        of PRNG noise."""
+        out = np.empty((len(clip_starts), consecutive_frames, height, width,
+                        3), dtype=np.uint8)
+        for i, start in enumerate(clip_starts):
+            seed = zlib.crc32(("%s@%d" % (video, start)).encode())
+            rng = np.random.default_rng(seed)
+            out[i] = rng.integers(0, 256,
+                                  (consecutive_frames, height, width, 3),
+                                  dtype=np.uint8)
+        return out
+
     def decode_clips_yuv(self, video: str, clip_starts: List[int],
                          consecutive_frames: int = 8,
                          width: int = DEFAULT_WIDTH,
                          height: int = DEFAULT_HEIGHT) -> np.ndarray:
         """uint8 ``(num_clips, consecutive_frames, H*W*3//2)`` of PRNG
-        noise."""
+        noise (a stream of its own, apart from the rgb path's)."""
         if width % 2 or height % 2:
             raise ValueError("packed 4:2:0 needs even geometry")
         packed = height * width * 3 // 2
@@ -113,8 +132,10 @@ class SyntheticDecoder:
 
 
 class Y4MDecoder:
-    """Uncompressed YUV4MPEG2 (.y4m) decode, 4:2:0 or 4:4:4 sources, to
-    packed output-resolution 4:2:0 planes."""
+    """Uncompressed YUV4MPEG2 (.y4m) decode, 4:2:0 or 4:4:4 sources: to
+    RGB frames (chroma upsample, full-range BT.601 in float32, clip,
+    truncate, nearest resize), or to packed output-resolution 4:2:0
+    planes."""
 
     BACKEND = "y4m"
 
@@ -164,6 +185,68 @@ class Y4MDecoder:
 
     def num_frames(self, video: str) -> int:
         return self._parse_header(video)["count"]
+
+    @staticmethod
+    def _read_frame(f, meta: dict) -> np.ndarray:
+        """The frame at ``f``'s position -> ``(h, w, 3)`` RGB uint8 at
+        the source geometry: nearest chroma upsample, full-range BT.601
+        in float32, clipped to [0, 255] and truncated."""
+        w, h, sub = meta["width"], meta["height"], meta["subsample"]
+        payload = f.read(meta["frame_bytes"])
+        if len(payload) < meta["frame_bytes"]:
+            raise CorruptVideoError(
+                "truncated y4m frame payload (%d of %d bytes)"
+                % (len(payload), meta["frame_bytes"]))
+        y = np.frombuffer(payload, np.uint8, w * h).reshape(h, w)
+        cw, ch = w // sub, h // sub
+        u = np.frombuffer(payload, np.uint8, cw * ch,
+                          offset=w * h).reshape(ch, cw)
+        v = np.frombuffer(payload, np.uint8, cw * ch,
+                          offset=w * h + cw * ch).reshape(ch, cw)
+        if sub > 1:
+            u = u.repeat(sub, axis=0).repeat(sub, axis=1)
+            v = v.repeat(sub, axis=0).repeat(sub, axis=1)
+        yf = y.astype(np.float32)
+        uf = u.astype(np.float32) - 128.0
+        vf = v.astype(np.float32) - 128.0
+        rgb = np.stack([
+            yf + 1.402 * vf,
+            yf - 0.344136 * uf - 0.714136 * vf,
+            yf + 1.772 * uf,
+        ], axis=-1)
+        return np.clip(rgb, 0.0, 255.0).astype(np.uint8)
+
+    @staticmethod
+    def _box_resize(frame: np.ndarray, width: int, height: int
+                    ) -> np.ndarray:
+        """Nearest-index resize to ``(height, width)``."""
+        h, w = frame.shape[:2]
+        if (h, w) == (height, width):
+            return frame
+        rows = np.arange(height) * h // height
+        cols = np.arange(width) * w // width
+        return frame[rows][:, cols]
+
+    def decode_clips(self, video: str, clip_starts: List[int],
+                     consecutive_frames: int = 8,
+                     width: int = DEFAULT_WIDTH,
+                     height: int = DEFAULT_HEIGHT) -> np.ndarray:
+        """-> uint8 ``(num_clips, consecutive_frames, H, W, 3)`` RGB
+        frames. Frames past the end repeat the last one."""
+        meta = self._parse_header(video)
+        if any(s < 0 for s in clip_starts):
+            raise ValueError("negative clip start in %r" % (clip_starts,))
+        out = np.empty((len(clip_starts), consecutive_frames, height, width,
+                        3), dtype=np.uint8)
+        with open(video, "rb") as f:
+            for ci, start in enumerate(clip_starts):
+                for fi in range(consecutive_frames):
+                    idx = min(start + fi, meta["count"] - 1)
+                    f.seek(meta["data_start"] + idx * meta["stride"]
+                           + meta["marker_len"])
+                    out[ci, fi] = self._box_resize(
+                        self._read_frame(f, meta), width, height)
+        return out
 
     @staticmethod
     def _gather_frame_yuv(payload: bytes, meta: dict, maps,
@@ -300,6 +383,14 @@ class MjpegDecoder:
     packed dequantized DCT coefficient rows, through the pure-Python
     entropy decoder — no pixel decode, so no PIL. Frames past the end
     repeat the last one, as on the pixel paths."""
+
+    def decode_clips(self, video, clip_starts, consecutive_frames=8,
+                     width=DEFAULT_WIDTH, height=DEFAULT_HEIGHT):
+        raise CorruptVideoError(
+            "the rgb pixel path of MJPEG files is not yet ported to "
+            "rnb_tpu_torch (%s): serve them on the dct path" % video)
+
+    decode_clips_yuv = decode_clips
 
     BACKEND = "mjpeg"
 

@@ -27,7 +27,7 @@ from typing import Dict, List, Sequence, Tuple
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
-SOURCES = ("ingest.cu", "dct.cu", "pages.cu")
+SOURCES = ("ingest.cu", "dct.cu", "pages.cu", "ragged.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -170,8 +170,14 @@ GATHER_ROWS = Kernel(
     [_P, _P, _P, _P, _L, _L, _L],
     "rnb_tpu/ops/pages.py:92 (_gather_rows_kernel via _gather_rows_pallas)")
 
+RAGGED_NORMALIZE_U8 = Kernel(
+    "ragged_normalize_u8", "ragged.cu", "rnb_ragged_normalize_u8",
+    [_P, _P, _P, _L, _L],
+    "rnb_tpu/ops/ragged.py:157 (_ragged_normalize_kernel via "
+    "_ragged_normalize_pallas)")
+
 KERNELS = (NORMALIZE_U8, YUV420_TO_RGB_U8, DCT_UNPACK, DCT_CONVERT,
-           GATHER_ROWS)
+           GATHER_ROWS, RAGGED_NORMALIZE_U8)
 
 
 def reset_launches() -> None:

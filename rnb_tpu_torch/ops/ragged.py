@@ -6,23 +6,30 @@ flat row pool of fixed capacity ``(pool_rows, ...)`` plus a scalar
 :class:`rnb_tpu_torch.stage.RaggedBatch`; the forward primitives mask
 or skip rows past ``rows_valid``.
 
-On the card the masking happens inside the kernels: the normalize
-kernel stores zeros for pad rows without doing arithmetic, and the
-colourspace kernel converts pad rows as zero bytes without reading
-them. On the CPU the plain versions mask with tensor ops. Either way
-valid rows are bit-identical to the bucketed path applied to the same
-rows.
+On the card the masking happens inside the kernels: the ragged
+normalize kernel (``csrc/ragged.cu``, ``rnb_ragged_normalize_u8``) reads
+``rows_valid`` from device memory and stores zeros for pad rows without
+reading them or doing arithmetic, and the colourspace kernel converts
+pad rows as zero bytes without reading them. On the CPU the plain
+versions mask with tensor ops. Either way valid rows are bit-identical
+to the bucketed path applied to the same rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import math
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from rnb_tpu_torch.ops.preprocess import normalize_u8_rows
+from rnb_tpu_torch.ops import _kernels
+from rnb_tpu_torch.ops.preprocess import (check_kernel_input,
+                                          normalize_u8_reference)
 from rnb_tpu_torch.ops.yuv import normalize_u8, yuv420_to_rgb_u8
+
+#: the kernel's grid carries the pool row on an axis of this extent
+MAX_POOL_ROWS = 65535
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,13 +107,71 @@ def ragged_mask_rows(pool: torch.Tensor, rows_valid: int) -> torch.Tensor:
     return out
 
 
-def ragged_normalize_u8(pool: torch.Tensor, rows_valid: int,
+def _rows_valid_tensor(rows_valid, device: torch.device) -> torch.Tensor:
+    """``rows_valid`` as a 1-element int32 tensor on ``device``. A host
+    integer is written there by a tiny fill on the current stream, into
+    a fresh element of the caching allocator (stream-ordered, so two
+    threads never share it): no host sync, and nothing is read back."""
+    if isinstance(rows_valid, torch.Tensor):
+        if (rows_valid.dtype != torch.int32 or rows_valid.numel() != 1
+                or rows_valid.device != device):
+            raise ValueError(
+                "rows_valid must be one int32 element on %s, got %s %s on "
+                "%s" % (device, rows_valid.dtype, tuple(rows_valid.shape),
+                        rows_valid.device))
+        return rows_valid
+    return torch.full((1,), int(rows_valid), dtype=torch.int32,
+                      device=device)
+
+
+def ragged_normalize_u8_reference(pool: torch.Tensor,
+                                  rows_valid: Union[int, torch.Tensor],
+                                  dtype: torch.dtype = torch.bfloat16
+                                  ) -> torch.Tensor:
+    """The plain version: the normalize of every row, then a ``where``
+    on the row mask (the reference's masked-jnp formulation,
+    ragged.py:242-244). ``rows_valid`` is an int or a 1-element tensor."""
+    rows = int(pool.shape[0])
+    if isinstance(rows_valid, torch.Tensor):
+        rows_valid = rows_valid.reshape(()).to(pool.device)
+    idx = torch.arange(rows, device=pool.device).reshape(
+        (rows,) + (1,) * (pool.dim() - 1))
+    return torch.where(idx < rows_valid,
+                       normalize_u8_reference(pool, dtype),
+                       torch.zeros((), dtype=dtype, device=pool.device))
+
+
+def ragged_normalize_u8(pool: torch.Tensor,
+                        rows_valid: Union[int, torch.Tensor],
                         dtype: torch.dtype = torch.bfloat16
                         ) -> torch.Tensor:
     """uint8 row pool -> normalized ``dtype`` pool; pad rows exactly
-    zero. The ragged twin of ``normalize_u8``: on the card, the same
-    normalize kernel with ``rows_valid`` below the row count."""
-    return normalize_u8_rows(pool, rows_valid, dtype)
+    zero. The ragged twin of ``normalize_u8``.
+
+    ``rows_valid`` is an int or a 1-element int32 tensor on the pool's
+    device. On a CUDA pool this launches ``rnb_ragged_normalize_u8``,
+    which reads ``rows_valid`` from device memory: the launch arguments
+    are the same for every batch composition, and a pad row is stored
+    as zeros without being read. On a CPU pool it runs the plain
+    version. There is no fallback from one to the other."""
+    if pool.dim() < 1:
+        raise ValueError("ragged_normalize_u8 needs a (rows, ...) pool")
+    if pool.device.type == "cpu":
+        return ragged_normalize_u8_reference(pool, rows_valid, dtype)
+    check_kernel_input(pool, "ragged_normalize_u8")
+    if dtype != torch.bfloat16:
+        raise TypeError("the ragged normalize kernel writes bfloat16, got "
+                        "%s" % dtype)
+    rows = int(pool.shape[0])
+    if rows > MAX_POOL_ROWS:
+        raise ValueError("ragged_normalize_u8 takes at most %d pool rows, "
+                         "got %d" % (MAX_POOL_ROWS, rows))
+    valid = _rows_valid_tensor(rows_valid, pool.device)
+    out = torch.empty(pool.shape, dtype=torch.bfloat16, device=pool.device)
+    if out.numel():
+        _kernels.RAGGED_NORMALIZE_U8.launch(pool, out, valid, rows,
+                                            math.prod(pool.shape[1:]))
+    return out
 
 
 def ragged_normalize_yuv420(pool: torch.Tensor, rows_valid: int,

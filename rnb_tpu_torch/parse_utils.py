@@ -32,8 +32,9 @@ from typing import Dict, List
 #: kernel families of a profile, by a substring of the kernel's name;
 #: the first family that matches takes the kernel
 KERNEL_FAMILIES = (
-    ("ingest", ("normalize_u8_kernel", "yuv420_to_rgb_u8_kernel",
-                "dct_unpack_kernel", "dct_convert_kernel")),
+    ("ingest", ("normalize_u8_kernel", "ragged_normalize_u8_kernel",
+                "yuv420_to_rgb_u8_kernel", "dct_unpack_kernel",
+                "dct_convert_kernel")),
     ("gather", ("gather_rows_kernel",)),
     ("conv_f32", ("f32f32",)),
     ("conv", ("fprop", "conv")),
@@ -141,9 +142,12 @@ def summarize(log_dir: str) -> dict:
         service_ms.extend(1e3 * (f - s) for s, f in emissions.items())
         requests += len(rows)
     lines = meta["lines"]
-    # clip rows served: the pools' valid rows, or the buckets' shipped
-    # rows less their padding
-    if "Ragged" in lines:
+    # clip rows served: the final step's own count; in logs written
+    # before that line existed, the pools' valid rows or the buckets'
+    # shipped rows less their padding
+    if "Completed" in lines:
+        clips = lines["Completed"]["clips"]
+    elif "Ragged" in lines:
         clips = lines["Ragged"]["rows"]
     else:
         clips = (lines["Padding"]["total_rows"]

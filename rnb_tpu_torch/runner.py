@@ -11,8 +11,12 @@ stamp, as the reference's ``stream.synchronize()``), checks the
 produced payload against the stage's declared shapes, and publishes it
 downstream — or, on the
 final step, counts the completions and registers their TimeCards.
-Accumulating stages (the fusing loader) get idle polls so a held batch
-emits on its hold timeout, and are flushed at end of stream.
+Accumulating stages (the fusing loader, the batcher) get idle polls so
+a held batch emits on its hold timeout, and are flushed at end of
+stream. A group with several out queues asks its queue selector where
+each item goes. A first stage with ``submit()``/``complete()`` and a
+``prefetch_depth`` has the decode of its next requests started while
+the head request's device work runs.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import queue
 import threading
 import traceback
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -31,6 +36,7 @@ from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, EdgeTracker,
                                    send_exit_markers)
 from rnb_tpu_torch.devices import DeviceSpec
 from rnb_tpu_torch.ops.ragged import check_segment_offsets
+from rnb_tpu_torch.selector import DEFAULT_QUEUE_SELECTOR
 from rnb_tpu_torch.stage import RaggedBatch
 from rnb_tpu_torch.telemetry import (TimeCardList, TimeCardSummary,
                                      cards_of, logname)
@@ -71,6 +77,8 @@ class RunnerContext:
     fin_bar: threading.Barrier
     model_class_path: str
     model_kwargs: Dict[str, Any] = field(default_factory=dict)
+    #: class path of the selector that routes over ``out_queues``
+    queue_selector_path: str = DEFAULT_QUEUE_SELECTOR
     #: this producer's ring credits (None on the final step)
     credits: Optional[RingCredits] = None
     out_trackers: Optional[List[EdgeTracker]] = None
@@ -89,8 +97,9 @@ class RunnerContext:
     #: the job's page allocator, handed to every SUPPORTS_PAGER stage
     #: before the start barrier (None without the root ``pager`` key)
     pager: Any = None
-    #: when set, the final step stores each request's output rows here:
-    #: request id -> (video path, float32 numpy rows, cache stamps)
+    #: when set, the final step stores each request's output here:
+    #: request id -> (video path, float32 numpy rows — or the non-tensor
+    #: payload of a stage that emits no tensor —, cache stamps)
     outputs_sink: Optional[Dict[int, tuple]] = None
 
 
@@ -136,14 +145,21 @@ def _sync(payload) -> None:
 OUTPUT_STAMPS = ("cache_hit", "cache_coalesced", "feature_hit")
 
 
-def _store_outputs(sink: Dict[int, tuple], payload, time_card) -> None:
+def _store_outputs(sink: Dict[int, tuple], payload, non_tensors,
+                   time_card) -> None:
     """Copy each request's output rows to the host sink, with its cache
     stamps. A request's rows are ``[row0, row0 + num_clips)`` of the
-    emission, as the loader stamped them: a coalesced follower shares
-    its leader's rows, so an emission may hold more cards than row
-    segments."""
-    pb = payload[0]
+    emission, as the last batching stage stamped them: a coalesced
+    follower shares its leader's rows, so an emission may hold more
+    cards than row segments. A stage that emits no tensor stores its
+    non-tensor payload (the single step's class id)."""
     cards = cards_of(time_card)
+    if not payload:
+        for tc in cards:
+            sink[tc.id] = (tc.video, non_tensors,
+                           {k: getattr(tc, k) for k in OUTPUT_STAMPS})
+        return
+    pb = payload[0]
     end = max(tc.row0 + int(tc.num_clips) for tc in cards)
     rows = pb.data[:end].to(torch.float32).cpu().numpy()
     for tc in cards:
@@ -151,13 +167,15 @@ def _store_outputs(sink: Dict[int, tuple], payload, time_card) -> None:
                        {k: getattr(tc, k) for k in OUTPUT_STAMPS})
 
 
-def _publish(ctx: RunnerContext, payload, non_tensors, time_card,
-             out_counter: int) -> bool:
-    """Hand one item to the next step (round robin over out queues,
-    one ring credit per payload). False when the job died waiting."""
+def _publish(ctx: RunnerContext, selector, payload, non_tensors,
+             time_card) -> bool:
+    """Hand one item to the next step, on the out queue the selector
+    names (one ring credit per payload). False when the job died
+    waiting."""
     if payload and not ctx.credits.acquire(ctx.termination):
         return False
-    out_queue = ctx.out_queues[out_counter % len(ctx.out_queues)]
+    out_queue = ctx.out_queues[selector.select(payload, non_tensors,
+                                               time_card)]
     try:
         out_queue.put_nowait((payload, non_tensors, time_card,
                               ctx.credits if payload else None))
@@ -185,11 +203,30 @@ def runner(ctx: RunnerContext) -> None:
         ctx.termination.raise_flag(TerminationFlag.INTERNAL_ERROR)
         model = None
 
+    selector = None
+    try:
+        if model is not None and ctx.out_queues is not None:
+            selector = load_class(ctx.queue_selector_path)(
+                len(ctx.out_queues))
+            selector.bind_stage(model)
+    except Exception:
+        traceback.print_exc()
+        ctx.termination.raise_flag(TerminationFlag.INTERNAL_ERROR)
+        model = None
+
     try:
         ctx.sta_bar.wait()
     except threading.BrokenBarrierError:
         pass
 
+    # prefetch: a first stage with submit()/complete() has the host work
+    # (decode) of its next requests started while the head request's
+    # device work runs; depth 0 keeps the plain loop
+    prefetch_depth = 0
+    if (model is not None and ctx.step_idx == 0
+            and hasattr(model, "submit") and hasattr(model, "complete")):
+        prefetch_depth = int(getattr(model, "prefetch_depth", 0) or 0)
+    pending: deque = deque()  # (handle, non_tensors, time_card)
     idle_poll = getattr(model, "poll", None)
     take_ready = getattr(model, "take_ready", None)
     where = "step %d %s" % (ctx.step_idx, ctx.model_class_path)
@@ -197,10 +234,30 @@ def runner(ctx: RunnerContext) -> None:
     key_finish = "inference%d_finish" % ctx.step_idx
     key_runner = "runner%d_start" % ctx.step_idx
     saw_marker = False
-    out_counter = 0
     try:
         while model is not None and not ctx.termination.terminated:
             result = take_ready() if take_ready is not None else None
+            if result is None and prefetch_depth > 0:
+                while not saw_marker and len(pending) < prefetch_depth + 1:
+                    try:
+                        item = ctx.in_queue.get(block=not pending,
+                                                timeout=QUEUE_POLL_S)
+                    except queue.Empty:
+                        break
+                    if item is None:
+                        saw_marker = True
+                        break
+                    _payload, non_tensors, time_card, _credits = item
+                    time_card.add_device(ctx.device.label)
+                    time_card.record(key_runner)
+                    pending.append((model.submit(non_tensors, time_card),
+                                    non_tensors, time_card))
+                if pending:
+                    handle, non_tensors, time_card = pending.popleft()
+                    time_card.record(key_start)
+                    result = model.complete(handle, non_tensors, time_card)
+                elif not saw_marker:
+                    continue
             if result is None and saw_marker:
                 result = model.flush() if hasattr(model, "flush") else None
                 if result is None or result[2] is None:
@@ -234,14 +291,14 @@ def runner(ctx: RunnerContext) -> None:
                 _sync(tensors_out)
             time_card.record(key_finish)
             if ctx.out_queues is not None:
-                if not _publish(ctx, tensors_out, non_tensors_out,
-                                time_card, out_counter):
+                if not _publish(ctx, selector, tensors_out,
+                                non_tensors_out, time_card):
                     break
-                out_counter += 1
                 continue
             # final step: count completions, detect the target
             if ctx.outputs_sink is not None:
-                _store_outputs(ctx.outputs_sink, tensors_out, time_card)
+                _store_outputs(ctx.outputs_sink, tensors_out,
+                               non_tensors_out, time_card)
             n = len(time_card) if isinstance(time_card, TimeCardList) else 1
             old, new = ctx.counter.add(n)
             for tc in cards_of(time_card):
@@ -255,6 +312,12 @@ def runner(ctx: RunnerContext) -> None:
         traceback.print_exc()
         ctx.termination.raise_flag(TerminationFlag.INTERNAL_ERROR)
     finally:
+        # retire prefetched decodes whose results will never be used
+        for handle, non_tensors, _tc in pending:
+            try:
+                model.discard(handle, non_tensors)
+            except Exception:
+                traceback.print_exc()
         if model is not None and hasattr(model, "discard_pending"):
             try:
                 model.discard_pending()

@@ -1,7 +1,7 @@
 """The pipeline-stage plugin contract.
 
 Counterpart of ``rnb_tpu/stage.py``. A *stage model* is one step of the
-pipeline — the fused decode loader, a (possibly partial) network.
+pipeline — a decode loader, a batcher, a (possibly partial) network.
 Stage classes are named by string in the JSON configs and loaded
 dynamically; the executor builds one per (step, group, device).
 
@@ -37,6 +37,32 @@ class PadCounter:
     def snapshot(self) -> dict:
         return {"pad_rows": self.pad_rows, "total_rows": self.total_rows,
                 "emissions": self.emissions}
+
+
+def note_emission_accounting(padding: PadCounter, ragged_stats, cards,
+                             valid: int, shipped: int,
+                             counterfactual_rows: int) -> None:
+    """The one padding/ragged accounting rule every batching stage (the
+    loaders, the Batcher) applies per emission.
+
+    Bucketed (``ragged_stats is None``): count ``shipped - valid`` pad
+    rows. Ragged: no pad row is computed, so the counted shipped rows
+    are the valid rows, and ``counterfactual_rows - valid`` — what the
+    bucketed pad rule would have shipped — lands in
+    ``pad_rows_eliminated``. Either way the emission's pad count is
+    added to the first constituent card's ``pad_rows`` (the rest get 0
+    added), so table sums stay exact across stages."""
+    if ragged_stats is not None:
+        pad = padding.note(valid, valid)
+        ragged_stats["emissions"] += 1
+        ragged_stats["rows"] += valid
+        ragged_stats["pad_rows_eliminated"] += \
+            int(counterfactual_rows) - int(valid)
+    else:
+        pad = padding.note(valid, shipped)
+    for idx, tc in enumerate(cards):
+        tc.pad_rows = (getattr(tc, "pad_rows", 0) + pad if idx == 0
+                       else getattr(tc, "pad_rows", 0))
 
 
 @dataclasses.dataclass
@@ -91,6 +117,13 @@ class StageModel:
       returns ``(tensors, non_tensors, time_card)``, with a None
       time_card when the stage swallowed the item (a batching loader
       still accumulating).
+
+    Optional protocols the executor looks for: ``submit(non_tensors,
+    time_card)`` / ``complete(handle, non_tensors, time_card)`` /
+    ``discard(handle, non_tensors)`` with a ``prefetch_depth`` (a first
+    stage whose host work starts ahead of its turn), ``poll()`` /
+    ``take_ready()`` / ``next_deadline_s()`` (an accumulating stage),
+    ``flush()`` (end of stream) and ``discard_pending()`` (teardown).
     """
 
     #: True for stages that take the ``ragged``/``ragged_pool_rows``

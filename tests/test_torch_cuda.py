@@ -16,6 +16,8 @@ from rnb_tpu_torch.decode import SyntheticDecoder
 from rnb_tpu_torch.ops import _kernels, dct
 from rnb_tpu_torch.ops.pages import gather_rows, gather_rows_reference
 from rnb_tpu_torch.ops.preprocess import normalize_u8, normalize_u8_rows
+from rnb_tpu_torch.ops.ragged import (ragged_normalize_u8,
+                                      ragged_normalize_u8_reference)
 from rnb_tpu_torch.ops.yuv import packed_frame_bytes, yuv420_to_rgb_u8
 from rnb_tpu_torch.pager import Pager, PagerSettings
 
@@ -63,7 +65,8 @@ def test_wrappers_count_launches_and_refuse_what_kernels_cannot_take(
     assert _kernels.launch_counts() == {"normalize_u8": 1,
                                         "yuv420_to_rgb_u8": 1,
                                         "dct_unpack": 0, "dct_convert": 0,
-                                        "gather_rows": 0}
+                                        "gather_rows": 0,
+                                        "ragged_normalize_u8": 0}
     with pytest.raises(TypeError):
         normalize_u8(rgb.float())                     # not uint8
     with pytest.raises(ValueError):
@@ -84,7 +87,57 @@ def test_wrappers_count_launches_and_refuse_what_kernels_cannot_take(
     assert _kernels.launch_counts() == {"normalize_u8": 1,
                                         "yuv420_to_rgb_u8": 1,
                                         "dct_unpack": 1, "dct_convert": 1,
-                                        "gather_rows": 0}
+                                        "gather_rows": 0,
+                                        "ragged_normalize_u8": 0}
+
+
+def test_ragged_normalize_kernel_reads_rows_valid_from_the_card(device):
+    # tolerance: none. Valid rows are bitwise the plain version and the
+    # bucketed normalize kernel; pad rows are exactly zero whatever the
+    # pool tail holds; rows_valid is clamped to [0, rows]
+    rng = np.random.default_rng(21)
+    for shape in ((15, 8, 112, 112, 3), (5, 3, 7, 3), (4, 33)):
+        pool = torch.from_numpy(rng.integers(0, 256, shape,
+                                             dtype=np.uint8)).to(device)
+        rows = shape[0]
+        scalar = torch.zeros((1,), dtype=torch.int32, device=device)
+        _kernels.reset_launches()
+        for valid in (0, 1, rows // 2, rows - 1, rows, rows + 3, -2):
+            # one device scalar rewritten between launches: the launch
+            # arguments stay the same
+            scalar.fill_(valid)
+            got = ragged_normalize_u8(pool, scalar)
+            want = ragged_normalize_u8_reference(pool, valid)
+            assert got.dtype == torch.bfloat16 and got.shape == pool.shape
+            assert torch.equal(got.view(torch.int16),
+                               want.view(torch.int16))
+            clamped = max(0, min(valid, rows))
+            assert not got[clamped:].float().any()
+            # the int form writes the scalar to the card itself
+            assert torch.equal(ragged_normalize_u8(pool, valid)
+                               .view(torch.int16), got.view(torch.int16))
+        assert _kernels.RAGGED_NORMALIZE_U8.launches == 14
+        assert _kernels.NORMALIZE_U8.launches == 0
+    pool = torch.from_numpy(rng.integers(
+        0, 256, (15, 8, 112, 112, 3), dtype=np.uint8)).to(device)
+    assert torch.equal(ragged_normalize_u8(pool, 15).view(torch.int16),
+                       normalize_u8(pool).view(torch.int16))
+    # an unaligned pool start goes through the byte loop
+    odd = pool.view(-1)[1:1 + 4 * 1000].view(4, 1000)
+    assert torch.equal(ragged_normalize_u8(odd, 3).view(torch.int16),
+                       ragged_normalize_u8_reference(odd, 3)
+                       .view(torch.int16))
+    with pytest.raises(TypeError):
+        ragged_normalize_u8(pool.float(), 1)                 # not uint8
+    with pytest.raises(ValueError):
+        ragged_normalize_u8(pool.transpose(2, 3), 1)         # strided
+    with pytest.raises(ValueError):
+        ragged_normalize_u8(pool, torch.zeros(1, dtype=torch.int32))  # host
+    with pytest.raises(ValueError):
+        ragged_normalize_u8(pool, torch.zeros(1, dtype=torch.int64,
+                                              device=device))
+    with pytest.raises(TypeError):
+        ragged_normalize_u8(pool, 1, torch.float16)
 
 
 def _u8(x):

@@ -226,6 +226,8 @@ def test_wrappers_never_fall_back_for_non_cpu_tensors():
         yuv420_to_rgb_u8(meta, 112, 112)
     with pytest.raises(ValueError):
         normalize_u8(meta)
+    with pytest.raises(ValueError):
+        ragged_normalize_u8(meta, 1)
 
 
 def test_cpu_paths_launch_no_kernel_and_build_nothing():
@@ -233,16 +235,18 @@ def test_cpu_paths_launch_no_kernel_and_build_nothing():
     x = torch.from_numpy(_packed(2, 2, 16, 16, seed=4))
     ragged_normalize_yuv420(x, 1, 16, 16)
     normalize_yuv420(x, 16, 16)
+    ragged_normalize_u8(torch.from_numpy(_u8((3, 32), seed=5)), 2)
     assert _kernels.launch_counts() == {"normalize_u8": 0,
                                         "yuv420_to_rgb_u8": 0,
                                         "dct_unpack": 0, "dct_convert": 0,
-                                        "gather_rows": 0}
+                                        "gather_rows": 0,
+                                        "ragged_normalize_u8": 0}
     assert _kernels._libraries == {}
     assert os.path.basename(_kernels.library_path("ingest.cu")).startswith(
         "libingest-")
     names = {k.name for k in _kernels.KERNELS}
     assert names == {"normalize_u8", "yuv420_to_rgb_u8", "dct_unpack",
-                     "dct_convert", "gather_rows"}
+                     "dct_convert", "gather_rows", "ragged_normalize_u8"}
     assert {k.source for k in _kernels.KERNELS} == set(_kernels.SOURCES)
 
 

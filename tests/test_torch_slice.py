@@ -142,9 +142,14 @@ def test_runner_ragged_chunked_matches_jax_shared_apply(bridged):
 
 
 def test_runner_rejects_unported_pixel_paths():
-    for kwargs in (dict(pixel_path="rgb"),):
-        with pytest.raises(ValueError, match="not yet ported"):
+    # rgb, yuv420 and dct are ported; anything else is no pixel path
+    for kwargs in (dict(pixel_path="nv12"), dict(pixel_path="RGB")):
+        with pytest.raises(ValueError, match="pixel_path must be one of"):
             R2P1DRunner(CPU, num_warmups=0, **kwargs)
+    # the wire paths fuse their ingest in front of layer 1 only
+    with pytest.raises(ValueError, match="receives activations"):
+        R2P1DRunner(CPU, start_index=2, pixel_path="yuv420",
+                    num_warmups=0)
 
 
 # -- the fused loader --------------------------------------------------
@@ -256,7 +261,8 @@ def test_run_benchmark_on_cpu_completes_every_request(tmp_path, config,
     assert _kernels.launch_counts() == {"normalize_u8": 0,
                                         "yuv420_to_rgb_u8": 0,
                                         "dct_unpack": 0, "dct_convert": 0,
-                                        "gather_rows": 0}
+                                        "gather_rows": 0,
+                                        "ragged_normalize_u8": 0}
     with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
         meta = f.read()
     assert "Termination flag: 0" in meta
@@ -510,14 +516,25 @@ def _base_raw():
     ("root", "shard", {}),
     ("root", "autotune", {"enabled": True}),
     ("loader", "autotune", True),
-    ("loader", "pixel_path", "rgb"),
-    ("runner", "pixel_path", "rgb"),
+    ("loader", "pixel_path", "nv12"),
+    ("runner", "pixel_path", "nv12"),
     ("runner", "shard", {"degree": 2}),
+    ("root", "num_segments", 2),
+    ("loader", "num_segments", 2),
+    ("loader", "raw_output", True),
+    ("loader", "enable_autotune", True),
+    ("runner", "replicas", 2),
+    ("runner", "hedge_ms", 5),
+    ("runner", "ckpt_path", "weights.npz"),
+    ("runner", "factored_shortcut", True),
+    ("group", "queue_selector", "rnb_tpu.selector.ReplicaSelector"),
+    ("group", "take_shed", True),
 ])
 def test_unported_keys_are_refused(where, key, value):
     raw = _base_raw()
     target = {"root": raw, "loader": raw["pipeline"][0],
-              "runner": raw["pipeline"][1]}[where]
+              "runner": raw["pipeline"][1],
+              "group": raw["pipeline"][0]["queue_groups"][0]}[where]
     target[key] = value
     with pytest.raises(ConfigError, match="not yet ported"):
         parse_config(raw, platform="cpu")
