@@ -11,12 +11,18 @@ Phases (any failure exits non-zero and prints no result line):
 2. build: compile the port's CUDA kernels from ``rnb_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the serving paths' shapes (rows 48 and 15, rows_valid = rows, 5,
-   0) — the normalize kernel and the dct unpack bitwise, the
-   colourspace kernel within one u8 step and the dct convert within two
-   (one per quantized plane, carried through BT.601), pad rows exact —
-   and each one's time on the card (the profiler's device time per
-   call) beside its bound and its plain version's, plus its time per
-   back-to-back call by CUDA events;
+   0, read by the yuv420 kernel and the dct convert from one device
+   scalar that is rewritten between launches whose arguments stay the
+   same) — the normalize kernel and the dct unpack bitwise, the
+   colourspace kernel's u8 entry within one u8 step and its fused
+   normalize entry bitwise the normalize kernel of the u8 entry's
+   output (bf16; f32 bitwise the plain normalize), both also at a width
+   that is not a multiple of 16 (the scalar path), the dct convert
+   within two u8 steps (one per quantized plane, carried through
+   BT.601), also at a second geometry, pad rows exact — and each one's
+   time on the card (the profiler's device time per call) beside its
+   bound and its plain version's, plus its time per back-to-back call by
+   CUDA events; the fused entry's beside the two launches it replaces;
    The gather kernel is held bitwise to its plain version at the clip
    arena's rows (15 x 8 x 18,816 u8 over a 445-row slab) and the
    feature arena's (15 x 400 float32), on five source tables, timed at
@@ -43,7 +49,8 @@ Phases (any failure exits non-zero and prints no result line):
    exactly its own kernels in the measured window, that a few
    requests' logits (on the features-off copy, a clip-page hit among
    them) agree with a CPU recompute through the plain versions on the
-   same seeded weights, that the ``Pages:`` footings hold, that the
+   same seeded weights, that each bulk yuv420 or dct run launched its
+   ingest kernel once per emission, that the ``Pages:`` footings hold, that the
    cache answered (feature hits, gathers, blob hits), and that every
    feature hit's logits are bitwise those of its video's first
    serving. Then the unfused multi-step topologies on the rgb path:
@@ -88,7 +95,13 @@ CONFIGS = ("configs/rnb-fused-yuv-big.json",
 FEATURES_OFF = "paged-zipf-features-off"
 #: the unfused whole pipeline under the root ``ragged`` key, likewise
 WHOLE_RAGGED = "r2p1d-whole-ragged"
-YUV_KERNELS = {"normalize_u8", "yuv420_to_rgb_u8"}
+#: a yuv420 emission launches the fused ingest once, and no other ingest
+YUV_KERNELS = {"yuv420_normalize"}
+#: the ingest kernel each bulk run launches once per emission
+ONE_PER_EMISSION = {"configs/rnb-fused-yuv-big.json": "yuv420_normalize",
+                    "configs/rnb-fused-yuv-ragged.json": "yuv420_normalize",
+                    "configs/rnb-fused-dct-ragged.json": "dct_convert",
+                    WHOLE_YUV: "yuv420_normalize"}
 #: the kernels each run launches, and no others
 PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 CONFIGS[2]: {"dct_unpack", "dct_convert"},
@@ -109,6 +122,12 @@ RNB_BATCH = 6
 ZIPF_INTERVAL_MS = 25
 HW = 112
 FRAMES = 8
+#: a geometry whose width is not a multiple of 16: the yuv420 kernel's
+#: scalar path
+ODD_GEOMETRY = (66, 90)
+#: a second dct geometry: wider than 128, so the convert's load phase
+#: takes two rounds
+DCT_GEOMETRY = (64, 176)
 #: requests served per config on the path phase
 VIDEOS_PER_RUN = 32
 #: another topology's logits against the two-step run's for the same
@@ -202,13 +221,18 @@ def device_ms(fn, reps: int = 50) -> float:
 
 
 def phase_kernels(device):
-    """Each kernel against its plain version; returns the timing rows
-    at the 48-row serving shape and the worst errors."""
+    """The yuv420 kernel's two entries and the bucketed normalize against
+    their plain versions; returns the timing rows at the 48-row serving
+    shape and the worst errors."""
     import torch
-    from rnb_tpu_torch.ops import preprocess, yuv
+    from rnb_tpu_torch.ops import _kernels, preprocess, yuv
     packed_bytes = yuv.packed_frame_bytes(HW, HW)
     gen = torch.Generator().manual_seed(1234)
-    worst = {"yuv420_to_rgb_u8": 0, "normalize_u8": 0}
+    worst = {"yuv420_to_rgb_u8": 0, "yuv420_normalize": 0.0,
+             "normalize_u8": 0}
+    # one device scalar, rewritten between launches whose arguments stay
+    # the same
+    scalar = torch.zeros((1,), dtype=torch.int32, device=device)
     for rows in (48, 15):
         packed = torch.randint(0, 256, (rows, FRAMES, packed_bytes),
                                generator=gen, dtype=torch.uint8)
@@ -216,10 +240,13 @@ def phase_kernels(device):
         zero_rgb = yuv.yuv420_to_rgb_reference(
             torch.zeros((1, FRAMES, packed_bytes), dtype=torch.uint8,
                         device=device), HW, HW)
+        before = (_kernels.YUV420_TO_RGB_U8.launches,
+                  _kernels.YUV420_NORMALIZE.launches)
         for valid in (rows, 5, 0):
+            scalar.fill_(valid)
             masked = packed.clone()
             masked[valid:] = 0
-            rgb = yuv.yuv420_to_rgb_u8(packed, HW, HW, valid)
+            rgb = yuv.yuv420_to_rgb_u8(packed, HW, HW, scalar)
             plain_rgb = yuv.yuv420_to_rgb_reference(masked, HW, HW)
             diff = (rgb.int() - plain_rgb.int()).abs()
             err = int(diff.max())
@@ -231,6 +258,28 @@ def phase_kernels(device):
             pads_exact = bool((rgb[valid:] == zero_rgb).all())
             check(pads_exact, "yuv420_to_rgb_u8 rows=%d valid=%d: pad rows "
                   "are not the conversion of zero bytes" % (rows, valid))
+            check(torch.equal(yuv.yuv420_to_rgb_u8(packed, HW, HW, valid),
+                              rgb),
+                  "yuv420_to_rgb_u8 rows=%d valid=%d: the int form differs "
+                  "from the device scalar's" % (rows, valid))
+            # the fused entry, bitwise the normalize kernel of the u8
+            # entry's output (every row: pads are converted zero bytes)
+            fused = yuv.yuv420_normalize(packed, HW, HW, scalar)
+            two = preprocess.normalize_u8(rgb)
+            fused_bitwise = torch.equal(fused.view(torch.int16),
+                                        two.view(torch.int16))
+            check(fused_bitwise, "yuv420_normalize rows=%d valid=%d is not "
+                  "bitwise normalize_u8 of yuv420_to_rgb_u8" % (rows, valid))
+            fused32 = yuv.yuv420_normalize(packed, HW, HW, scalar,
+                                           torch.float32)
+            check(torch.equal(fused32, preprocess.normalize_u8_reference(
+                rgb, torch.float32)), "yuv420_normalize rows=%d valid=%d: "
+                  "float32 out is not the normalize of the u8 entry's"
+                  % (rows, valid))
+            worst["yuv420_normalize"] = max(
+                worst["yuv420_normalize"],
+                float((fused.float() - preprocess.normalize_u8_reference(
+                    plain_rgb).float()).abs().max()))
             out = preprocess.normalize_u8_rows(rgb, valid)
             plain = preprocess.normalize_u8_reference(rgb)
             plain[valid:] = 0
@@ -241,10 +290,39 @@ def phase_kernels(device):
                 float((out.float() - plain.float()).abs().max()))
             check(bitwise, "normalize_u8 rows=%d valid=%d is not bitwise "
                   "equal to its plain version" % (rows, valid))
-            print("kernels rows=%d rows_valid=%d: yuv420_to_rgb_u8 max "
-                  "err %d (exact share %.6f, pad rows exact %s); "
-                  "normalize_u8 bitwise %s"
-                  % (rows, valid, err, exact, pads_exact, bitwise))
+            print("kernels rows=%d rows_valid=%d (device scalar): "
+                  "yuv420_to_rgb_u8 max err %d (exact share %.6f, pad rows "
+                  "exact %s); yuv420_normalize bitwise normalize_u8 of it "
+                  "%s (bf16 and f32); normalize_u8 bitwise %s"
+                  % (rows, valid, err, exact, pads_exact, fused_bitwise,
+                     bitwise))
+        check((_kernels.YUV420_TO_RGB_U8.launches - before[0],
+               _kernels.YUV420_NORMALIZE.launches - before[1]) == (6, 6),
+              "the yuv420 entries did not count one launch per call")
+    # a width that is not a multiple of 16: the scalar path
+    height, width = ODD_GEOMETRY
+    packed = torch.randint(0, 256, (15, FRAMES, yuv.packed_frame_bytes(
+        height, width)), generator=gen, dtype=torch.uint8).to(device)
+    for valid in (15, 5):
+        scalar.fill_(valid)
+        masked = packed.clone()
+        masked[valid:] = 0
+        rgb = yuv.yuv420_to_rgb_u8(packed, height, width, scalar)
+        plain_rgb = yuv.yuv420_to_rgb_reference(masked, height, width)
+        err = int((rgb.int() - plain_rgb.int()).abs().max())
+        check(err <= 1 and torch.equal(rgb[valid:], plain_rgb[valid:]),
+              "yuv420_to_rgb_u8 at %dx%d valid=%d: %d u8 steps from its "
+              "plain version or pad rows not exact" % (height, width, valid,
+                                                       err))
+        fused = yuv.yuv420_normalize(packed, height, width, scalar)
+        check(torch.equal(fused.view(torch.int16),
+                          preprocess.normalize_u8_reference(rgb)
+                          .view(torch.int16)),
+              "yuv420_normalize at %dx%d valid=%d is not bitwise the "
+              "normalize of the u8 entry's output" % (height, width, valid))
+        print("kernels %dx%d (scalar path) rows_valid=%d: yuv420_to_rgb_u8 "
+              "max err %d, pad rows exact; yuv420_normalize bitwise the "
+              "normalize of it" % (height, width, valid, err))
     torch.cuda.synchronize()
 
     rows = 48
@@ -256,21 +334,37 @@ def phase_kernels(device):
         "yuv420_to_rgb_u8": (
             lambda: yuv.yuv420_to_rgb_u8(packed, HW, HW),
             lambda: yuv.yuv420_to_rgb_reference(packed, HW, HW)),
+        "yuv420_normalize": (
+            lambda: yuv.yuv420_normalize(packed, HW, HW),
+            lambda: preprocess.normalize_u8_reference(
+                yuv.yuv420_to_rgb_reference(packed, HW, HW))),
         "normalize_u8": (
             lambda: preprocess.normalize_u8(rgb),
             lambda: preprocess.normalize_u8_reference(rgb)),
     }
+    # per pixel: 4 adds/subs; per 2x2 quad: 2 subs + 4 muls
+    yuv_ops = 4 * out_k2 // 3 + 6 * out_k2 // 12
     timings = {
-        "yuv420_to_rgb_u8": dict(
-            bound_bytes=in_k2 + out_k2,
-            # per pixel: 4 adds/subs; per 2x2 quad: 4 muls + 2 subs
-            bound_ops=4 * out_k2 // 3 + 6 * out_k2 // 12),
+        "yuv420_to_rgb_u8": dict(bound_bytes=in_k2 + out_k2,
+                                 bound_ops=yuv_ops),
+        # packed planes in, bf16 out; the conversion plus mul, sub, mul
+        # per element
+        "yuv420_normalize": dict(bound_bytes=in_k2 + 2 * out_k2,
+                                 bound_ops=yuv_ops + 3 * out_k2),
         "normalize_u8": dict(
             bound_bytes=rgb.numel() * 3,  # 1 byte in, 2 bytes out
             bound_ops=3 * rgb.numel()),   # mul, sub, mul per element
     }
     for name, row in timings.items():
         time_kernel(name, row, rows, *calls[name])
+    row = timings["yuv420_normalize"]
+    row["two_launch_ms"] = device_ms(lambda: preprocess.normalize_u8(
+        yuv.yuv420_to_rgb_u8(packed, HW, HW)))
+    print("timing yuv420_normalize at %d rows: %.5f ms for the work of "
+          "yuv420_to_rgb_u8 + normalize_u8, which take %.5f ms as two "
+          "launches (bound %.5f ms)" % (rows, row["ms"],
+                                        row["two_launch_ms"],
+                                        row["bound_ms"]))
     return timings, worst
 
 
@@ -327,10 +421,14 @@ def phase_kernels_dct(device):
     the timing rows at the dct serving path's 15-row pool and the worst
     errors (the unpack's in coefficient units, the convert's in output
     units)."""
+    import numpy as np
     import torch
     from rnb_tpu_torch.decode import SyntheticDecoder
     from rnb_tpu_torch.ops import dct
     worst = {"dct_unpack": 0, "dct_convert": 0.0}
+    # one device scalar, rewritten between launches whose arguments stay
+    # the same
+    scalar = torch.zeros((1,), dtype=torch.int32, device=device)
     for rows in (48, 15):
         pool = dct_pool(rows, seed=rows)
         card = pool.to(device)
@@ -344,7 +442,11 @@ def phase_kernels_dct(device):
             worst["dct_unpack"] = max(worst["dct_unpack"], err)
             check(err == 0, "dct_unpack rows=%d valid=%d differs from its "
                   "plain version by %d" % (rows, valid, err))
-            out = dct.dct_convert(*planes, valid, HW, HW)
+            scalar.fill_(valid)
+            out = dct.dct_convert(*planes, scalar, HW, HW)
+            check(torch.equal(dct.dct_convert(*planes, valid, HW, HW), out),
+                  "dct_convert rows=%d valid=%d: the int form differs from "
+                  "the device scalar's" % (rows, valid))
             plain = dct.dct_convert_reference(*plain_planes, valid, HW, HW)
             steps = (to_u8(out) - to_u8(plain)).abs()
             max_steps = int(steps.max())
@@ -360,10 +462,39 @@ def phase_kernels_dct(device):
             check(pads_zero, "dct_convert rows=%d valid=%d: pad rows are "
                   "not zero" % (rows, valid))
             print("kernels rows=%d rows_valid=%d: dct_unpack bitwise %s; "
-                  "dct_convert max %d u8 steps (%d outputs over one, exact "
-                  "share %.6f, pad rows zero %s)"
+                  "dct_convert (device scalar) max %d u8 steps (%d outputs "
+                  "over one, exact share %.6f, pad rows zero %s)"
                   % (rows, valid, err == 0, max_steps,
                      int((steps > 1).sum()), exact, pads_zero))
+    # a second geometry, both output dtypes
+    height, width = DCT_GEOMETRY
+    rng = np.random.default_rng(5)
+    nb = dct.num_dct_blocks(height, width)
+    wire = np.empty((15, FRAMES, dct.dct_frame_elems(height, width)),
+                    np.int16)
+    for r in range(15):
+        for f in range(FRAMES):
+            zz = np.where(rng.random((nb, 64)) < 0.1,
+                          rng.integers(-900, 900, (nb, 64)), 0)
+            wire[r, f] = dct.pack_frame_dct(zz, height, width)
+    planes = [p.to(device) for p in dct.unpack_dct_rows(
+        torch.from_numpy(wire), height, width)]
+    for valid in (15, 5):
+        scalar.fill_(valid)
+        for dtype in (torch.bfloat16, torch.float32):
+            out = dct.dct_convert(*planes, scalar, height, width, dtype)
+            plain = dct.dct_convert_reference(*planes, valid, height, width,
+                                              dtype)
+            max_steps = int((to_u8(out) - to_u8(plain)).abs().max())
+            exact = float((out == plain).double().mean())
+            check(max_steps <= DCT_STEPS and exact >= DCT_EXACT_SHARE
+                  and not out[valid:].float().any(),
+                  "dct_convert %dx%d valid=%d %s: %d u8 steps from its "
+                  "plain version, exact share %.6f, or pad rows not zero"
+                  % (height, width, valid, dtype, max_steps, exact))
+            print("kernels dct_convert %dx%d rows_valid=%d (device scalar) "
+                  "%s: max %d u8 steps, exact share %.6f, pad rows zero"
+                  % (height, width, valid, dtype, max_steps, exact))
     torch.cuda.synchronize()
 
     # timing at the serving shape: a full 15-row pool of synthetic spectra
@@ -838,6 +969,7 @@ def phase_path(data_root, videos_per_run):
     from rnb_tpu_torch.benchmark import run_benchmark
     from rnb_tpu_torch.config import load_config
     from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.parse_utils import summarize
     launches = {k.name: 0 for k in _kernels.KERNELS}
     runs = [(c, os.path.join(HERE, c)) for c in CONFIGS]
     runs.insert(4, (FEATURES_OFF, features_off_copy(data_root)))
@@ -900,6 +1032,12 @@ def phase_path(data_root, videos_per_run):
                 check(count == 0, "%s: kernel %s, not of this config, "
                       "was launched" % (label, name))
             launches[name] += count
+        if label in ONE_PER_EMISSION:
+            name = ONE_PER_EMISSION[label]
+            emissions = summarize(result.log_dir)["emissions"]
+            check(result.window_launches[name] == emissions,
+                  "%s: %d %s launches for %d emissions"
+                  % (label, result.window_launches[name], name, emissions))
         if label == WHOLE:
             whole_sink = sink
         if label in UNFUSED:
@@ -979,7 +1117,7 @@ def main() -> int:
             rows.append({
                 "name": kernel.name, "route": "cuda",
                 "source": "rnb_tpu_torch/csrc/%s" % kernel.source,
-                "replaces": kernel.replaces.split(" ")[0],
+                "replaces": " + ".join(kernel.replaced),
                 "launches": launches[kernel.name],
                 "max_abs_err": worst[kernel.name],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],

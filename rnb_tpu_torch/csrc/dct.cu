@@ -30,18 +30,46 @@
 //   bases, 14x the useful FLOPs at 112x112; per block only the 8-term
 //   sums remain. Its chroma basis repeats rows; computing chroma at
 //   half resolution and reading it through the 2x map gives the same
-//   values. Rows at or past `rows_valid` store zeros without reading.
-//   Design: one CTA per (row, frame, 16-row MCU stripe). The stripe's
-//   coefficients (16 luma rows, 8 rows of each chroma plane) are
-//   contiguous in the tiled planes, so the CTA reads them with
-//   coalesced loads into shared memory, runs the row pass and the
-//   column pass there, and writes the stripe's 16 x W x 3 outputs as
-//   one contiguous run. Every multiply and add is spelled
-//   __fmul_rn/__fadd_rn/__fsub_rn so `--fmad` cannot contract it (the
-//   BT.601 and normalize roundings then match the plain version's).
+//   values. Rows at or past `rows_valid` store zeros without reading;
+//   `rows_valid` is a pointer to an int32 in device memory (null: every
+//   row), so the launch arguments are the same for every emission of a
+//   pool shape.
 //   Bound: memory. 6 bytes per pixel of int32 planes in, 6 (bf16) or
-//   12 (f32) out; the IDCT is ~600 kFLOP per 112x112 frame, ~1 us for
-//   a 15-row pool at 67 TFLOP/s.
+//   12 (f32) out: at the dct cell's 15-row pool, 9.03 MB in and 9.03 MB
+//   of bf16 out, 5.4 us at 3.35 TB/s; the IDCT is ~600 kFLOP per
+//   112x112 frame, ~1.8 us for the pool at 67 TFLOP/s.
+//   What held the first version back (0.03165 ms on an
+//   NVIDIA H100 80GB HBM3 at 700 W, 17% of its bound): its row pass
+//   indexed the `__constant__` basis by a value that differed across
+//   the warp (the constant cache serves one address per cycle, so each
+//   basis load replayed up to 8 times); it loaded one int32 at a time
+//   through a branch on the plane; it found every element's plane, row
+//   and column by integer division; and it stored bf16 one value at a
+//   time at a 6-byte lane stride.
+//   Design: one warp per 16x16 MCU (four luma blocks, one U, one V),
+//   four warps to a 128-thread CTA, and no barrier wider than the warp,
+//   so the warps of an SM drift apart and one's loads overlap another's
+//   arithmetic. load_lines issues all of a lane's int4 loads (its block
+//   lines: two of the MCU's 48) before any is used. Each IDCT pass runs
+//   one lane per (block, line), the line's 8 values in registers and the
+//   basis read in fully unrolled loops at compile-time indices (an
+//   operand of the multiply, never a divergent load); a pass sums only
+//   the terms up to the warp's last non-zero input (see idct_terms),
+//   which changes nothing but the sign of zeros that the +128.5 removes.
+//   Shared-memory pitches are odd numbers of float4s. The epilogue runs
+//   one lane per 8-pixel run of an MCU line, packs its 24 outputs into
+//   16-byte chunks, and the warp stores the MCU's 16 output lines with
+//   consecutive lanes on consecutive chunks. Work indices come from
+//   shifts and compares; a warp divides only to find its MCU. Every
+//   multiply and add is spelled __fmul_rn/__fadd_rn/__fsub_rn in the
+//   first version's summation order (row pass from v = 0 up, column
+//   pass from u = 0 up; 2q - 255 is exact, so it may be one __fmaf_rn),
+//   so `--fmad` cannot contract it: the same arithmetic as the first
+//   version, so the same bound against the plain version (two RGB
+//   steps). With one CTA per 16-row stripe and CTA-wide barriers
+//   between the phases, every CTA of the one wave loaded, computed and
+//   stored in step, so memory and arithmetic never overlapped (about
+//   half of the bound).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -49,7 +77,7 @@
 
 namespace {
 
-constexpr int kConvertThreads = 256;
+constexpr int kConvertThreads = 128;
 constexpr int kMaxUnpackThreads = 512;
 // a thread's 64-slot slab is padded to 65 words: thread t's slot k sits
 // in bank (t + k) % 32, so no two lanes of a warp share a bank
@@ -157,133 +185,313 @@ __global__ void dct_unpack_kernel(const int16_t* __restrict__ wire,
   }
 }
 
-template <typename Out>
-__device__ __forceinline__ Out to_out(float v);
-
-template <>
-__device__ __forceinline__ float to_out<float>(float v) {
-  return v;
-}
-
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 __device__ __forceinline__ float clip255(float v) {
   return fminf(fmaxf(v, 0.0f), 255.0f);
 }
 
-// Shared-memory stripe layout, in floats: luma rows 0..15 (pitch W) at
-// [0, 16W), U rows 0..7 (pitch W/2) at [16W, 20W), V at [20W, 24W).
-// Maps a stripe element to its plane's offset, pitch, row and column.
-__device__ __forceinline__ void stripe_coords(int i, int width, int* base,
-                                              int* pitch, int* r, int* c) {
-  const int luma = 16 * width;
-  const int chroma = 4 * width;
-  if (i < luma) {
-    *base = 0;
-    *pitch = width;
-  } else {
-    *base = i < luma + chroma ? luma : luma + chroma;
-    *pitch = width / 2;
+// (2q - 255) * (1/255) of a quantized channel: 2q - 255 is exact, so
+// the fused multiply-add rounds nothing
+__device__ __forceinline__ float normalize_q(float q) {
+  return __fmul_rn(__fmaf_rn(q, 2.0f, -255.0f),
+                   static_cast<float>(1.0 / 255.0));
+}
+
+// How one 8-pixel run (24 normalized values) becomes 16-byte chunks of
+// the output: three uint4 of bf16 or six of float32.
+template <typename Out>
+struct PackRun;
+
+template <>
+struct PackRun<__nv_bfloat16> {
+  static constexpr int kChunks = 3;
+  __device__ static void pack(const float (&v)[24], uint4 (&c)[kChunks]) {
+    uint32_t w[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      const __nv_bfloat162 two = __floats2bfloat162_rn(v[2 * i],
+                                                        v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&two);
+    }
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i)
+      c[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
   }
-  const int j = i - *base;
-  *r = j / *pitch;
-  *c = j - *r * *pitch;
+};
+
+template <>
+struct PackRun<float> {
+  static constexpr int kChunks = 6;
+  __device__ static void pack(const float (&v)[24], uint4 (&c)[kChunks]) {
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i)
+      c[i] = make_uint4(__float_as_uint(v[4 * i]),
+                        __float_as_uint(v[4 * i + 1]),
+                        __float_as_uint(v[4 * i + 2]),
+                        __float_as_uint(v[4 * i + 3]));
+  }
+};
+
+// One warp per 16x16 MCU: its four luma blocks (band 0 and 1, block
+// columns 2c and 2c + 1), then its U and its V block -- six 8x8 blocks,
+// 48 block lines. The warp's shared memory, in floats: luma rows 0..7
+// at r * 20 and rows 8..15 at 176 + (r - 8) * 20, U rows at 336 + u * 12
+// and V rows at 440 + u * 12. Pitches of 20 and 12 floats are odd
+// numbers of float4s, so the eight lines of a block fall in eight bank
+// groups; the band and V offsets put the two luma bands, and U and V,
+// on different banks where a pass reads them side by side.
+constexpr int kLumaPitch = 20;
+constexpr int kChromaPitch = 12;
+constexpr int kBand1 = 176;
+constexpr int kU = 336;
+constexpr int kV = 440;
+constexpr int kMcuFloats = 544;
+constexpr int kWarps = kConvertThreads / 32;
+
+__device__ __forceinline__ int luma_row(int r) {
+  return r < 8 ? r * kLumaPitch : kBand1 + (r - 8) * kLumaPitch;
+}
+
+// where row `line` of block `blk` (0..3 luma, 4 U, 5 V) starts
+__device__ __forceinline__ int block_row(int blk, int line) {
+  if (blk < 4) return luma_row((blk >> 1) * 8 + line) + (blk & 1) * 8;
+  return (blk == 4 ? kU : kV) + line * kChromaPitch;
+}
+
+__device__ __forceinline__ int block_pitch(int blk) {
+  return blk < 4 ? kLumaPitch : kChromaPitch;
+}
+
+// The load phase: the lane's block lines -- line ids lane and lane + 32
+// of the MCU's 48 -- as two int4 each, every load issued before any is
+// used. (A later fusion can replace this function by an unpack of the
+// wire into the same registers.)
+__device__ __forceinline__ void load_lines(const int32_t* __restrict__ y,
+                                           const int32_t* __restrict__ u,
+                                           const int32_t* __restrict__ v,
+                                           int width, int lane,
+                                           int4 (&q)[2][2]) {
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int l = lane + 32 * k;
+    q[k][0] = make_int4(0, 0, 0, 0);
+    q[k][1] = q[k][0];
+    if (l < 48) {
+      const int blk = l >> 3, line = l & 7;
+      const int32_t* src =
+          blk < 4
+              ? y + ((blk >> 1) * 8 + line) * static_cast<long long>(width)
+                    + (blk & 1) * 8
+              : (blk == 4 ? u : v)
+                    + line * static_cast<long long>(width / 2);
+      q[k][0] = reinterpret_cast<const int4*>(src)[0];
+      q[k][1] = reinterpret_cast<const int4*>(src)[1];
+    }
+  }
+}
+
+// Both passes sum from index 0 up (the first version's order). Terms
+// past a line's last non-zero input add fl(m * 0) = +-0, which leaves
+// the sum unchanged but for the sign of a zero, and every result later
+// goes through floor(p + 128.5), where that sign is gone: so each pass
+// sums only the first K terms, K the warp's largest count of leading
+// inputs up to the last non-zero one. The warp agrees on K, so the
+// branch is uniform and the basis index stays a compile-time constant.
+
+// 1 + the index of the last non-zero of 8 values, 0 when all are zero
+__device__ __forceinline__ unsigned live_terms(const float (&c)[8]) {
+  unsigned k = 0;
+#pragma unroll
+  for (int v = 0; v < 8; ++v)
+    if (c[v] != 0.0f) k = v + 1;
+  return k;
+}
+
+// Row pass of one block line: out[x] = sum_v c[v] * M[x][v]
+template <int K>
+__device__ __forceinline__ void idct_row_terms(const float (&c)[8],
+                                               float (&o)[8]) {
+#pragma unroll
+  for (int x = 0; x < 8; ++x) {
+    float acc = __fmul_rn(c[0], kIdct8[x * 8]);
+#pragma unroll
+    for (int v = 1; v < K; ++v)
+      acc = __fadd_rn(acc, __fmul_rn(c[v], kIdct8[x * 8 + v]));
+    o[x] = acc;
+  }
+}
+
+// Column pass of one block column: p[y] = sum_u M[y][u] * t[u]
+template <int K>
+__device__ __forceinline__ void idct_column_terms(const float (&t)[8],
+                                                  float (&p)[8]) {
+#pragma unroll
+  for (int y = 0; y < 8; ++y) {
+    float acc = __fmul_rn(kIdct8[y * 8], t[0]);
+#pragma unroll
+    for (int u = 1; u < K; ++u)
+      acc = __fadd_rn(acc, __fmul_rn(kIdct8[y * 8 + u], t[u]));
+    p[y] = acc;
+  }
+}
+
+template <bool kRow>
+__device__ __forceinline__ void idct_terms(unsigned k, const float (&in)[8],
+                                           float (&out)[8]) {
+  if (k <= 1) {
+    kRow ? idct_row_terms<1>(in, out) : idct_column_terms<1>(in, out);
+  } else if (k <= 2) {
+    kRow ? idct_row_terms<2>(in, out) : idct_column_terms<2>(in, out);
+  } else if (k <= 4) {
+    kRow ? idct_row_terms<4>(in, out) : idct_column_terms<4>(in, out);
+  } else {
+    kRow ? idct_row_terms<8>(in, out) : idct_column_terms<8>(in, out);
+  }
 }
 
 template <typename Out>
-__global__ void dct_convert_kernel(const int32_t* __restrict__ ycoef,
-                                   const int32_t* __restrict__ ucoef,
-                                   const int32_t* __restrict__ vcoef,
-                                   Out* __restrict__ out, int frames,
-                                   int height, int width, int rows_valid) {
-  extern __shared__ float stripe[];
-  float* pix = stripe;               // coefficients, then pixels
-  float* tmp = stripe + 24 * width;  // the row pass's output
-  const int stripes = height / 16;
-  const long long frame = blockIdx.x / stripes;  // row * frames + f
-  const int s = blockIdx.x - static_cast<int>(frame) * stripes;
-  const long long row = frame / frames;
-  Out* dst = out + (frame * height + s * 16) * static_cast<long long>(width)
-                       * 3;
-
-  if (row >= rows_valid) {
-    const int vectors = 16 * width * 3 * static_cast<int>(sizeof(Out)) / 16;
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    for (int i = threadIdx.x; i < vectors; i += blockDim.x)
-      d[i] = make_uint4(0, 0, 0, 0);
+__global__ void __launch_bounds__(kConvertThreads)
+dct_convert_kernel(const int32_t* __restrict__ ycoef,
+                   const int32_t* __restrict__ ucoef,
+                   const int32_t* __restrict__ vcoef, Out* __restrict__ out,
+                   const int32_t* __restrict__ rows_valid_ptr, int rows,
+                   int frames, int height, int width, unsigned mcus) {
+  constexpr int kChunks = PackRun<Out>::kChunks;  // per lane
+  constexpr int kLineChunks = 2 * kChunks;        // per MCU output line
+  __shared__ __align__(16) float smem[kWarps][kMcuFloats];
+  __shared__ uint4 stage[kWarps][32 * (kChunks + 1)];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const unsigned m = blockIdx.x * kWarps + warp;
+  if (m >= mcus) return;  // the whole warp
+  const unsigned across = width / 16;
+  const unsigned per_frame = across * (height / 16);
+  const unsigned frame = m / per_frame;  // row * frames + f
+  const unsigned in_frame = m - frame * per_frame;
+  const unsigned s = in_frame / across;  // MCU stripe
+  const unsigned c = in_frame - s * across;
+  uint4* dst = reinterpret_cast<uint4*>(
+      out + ((static_cast<long long>(frame) * height + s * 16) * width
+             + c * 16) * 3);
+  const int line_vectors = width * 3 * static_cast<int>(sizeof(Out)) / 16;
+  int rows_valid = rows;
+  if (rows_valid_ptr != nullptr) {
+    const int v = *rows_valid_ptr;
+    rows_valid = v < 0 ? 0 : (v > rows ? rows : v);
+  }
+  if (frame >= static_cast<unsigned>(rows_valid) * frames) {
+    for (int i = lane; i < 16 * kLineChunks; i += 32)  // a pad row:
+      dst[(i / kLineChunks) * line_vectors + i % kLineChunks] =  // nothing
+          make_uint4(0, 0, 0, 0);                                 // read
     return;
   }
 
-  const int n = 24 * width;
-  const int half = width / 2;
-  const int32_t* ysrc = ycoef + (frame * height + s * 16)
-                                    * static_cast<long long>(width);
-  const long long chroma_off = (frame * (height / 2) + s * 8)
-                               * static_cast<long long>(half);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    int32_t v;
-    if (i < 16 * width) v = ysrc[i];
-    else if (i < 20 * width) v = ucoef[chroma_off + i - 16 * width];
-    else v = vcoef[chroma_off + i - 20 * width];
-    pix[i] = __int2float_rn(v);
-  }
-  __syncthreads();
+  float* mcu = smem[warp];
+  int4 q[2][2];
+  load_lines(ycoef + (static_cast<long long>(frame) * height + s * 16)
+                         * width + c * 16,
+             ucoef + (static_cast<long long>(frame) * (height / 2) + s * 8)
+                         * (width / 2) + c * 8,
+             vcoef + (static_cast<long long>(frame) * (height / 2) + s * 8)
+                         * (width / 2) + c * 8,
+             width, lane, q);
 
-  // row pass: tmp[u][x] = sum_v C[u][v] * M[x][v] within each block
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    int base, pitch, r, c;
-    stripe_coords(i, width, &base, &pitch, &r, &c);
-    const float* src = pix + base + r * pitch + (c & ~7);
-    const float* m = kIdct8 + (c & 7) * 8;
-    float acc = __fmul_rn(src[0], m[0]);
+  // row pass: one lane per block line, the line's 8 values in registers
 #pragma unroll
-    for (int v = 1; v < 8; ++v) acc = __fadd_rn(acc, __fmul_rn(src[v], m[v]));
-    tmp[i] = acc;
+  for (int k = 0; k < 2; ++k) {
+    const int l = lane + 32 * k;
+    const float cv[8] = {
+        __int2float_rn(q[k][0].x), __int2float_rn(q[k][0].y),
+        __int2float_rn(q[k][0].z), __int2float_rn(q[k][0].w),
+        __int2float_rn(q[k][1].x), __int2float_rn(q[k][1].y),
+        __int2float_rn(q[k][1].z), __int2float_rn(q[k][1].w)};
+    const unsigned terms = __reduce_max_sync(0xffffffffu, live_terms(cv));
+    if (l < 48) {
+      float o[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      if (terms > 0) idct_terms<true>(terms, cv, o);
+      float* line = mcu + block_row(l >> 3, l & 7);
+      *reinterpret_cast<float4*>(line) = make_float4(o[0], o[1], o[2], o[3]);
+      *reinterpret_cast<float4*>(line + 4) =
+          make_float4(o[4], o[5], o[6], o[7]);
+    }
   }
-  __syncthreads();
+  __syncwarp();
 
-  // column pass: p[y][x] = sum_u M[y][u] * tmp[u][x], level shift and
-  // the host decoder's round-half-up u8 quantize
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    int base, pitch, r, c;
-    stripe_coords(i, width, &base, &pitch, &r, &c);
-    const float* src = tmp + base + (r & ~7) * pitch + c;
-    const float* m = kIdct8 + (r & 7) * 8;
-    float acc = __fmul_rn(m[0], src[0]);
+  // column pass: one lane per block column, then the level shift and
+  // the host decoder's round-half-up u8 quantize, in place
 #pragma unroll
-    for (int u = 1; u < 8; ++u)
-      acc = __fadd_rn(acc, __fmul_rn(m[u], src[u * pitch]));
-    pix[i] = clip255(floorf(__fadd_rn(acc, 128.5f)));
+  for (int k = 0; k < 2; ++k) {
+    const int l = lane + 32 * k;
+    const int blk = l >> 3;
+    float* col = mcu + (l < 48 ? block_row(blk, 0) + (l & 7) : 0);
+    const int pitch = block_pitch(blk);
+    float t[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (l < 48) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) t[u] = col[u * pitch];
+    }
+    const unsigned terms = __reduce_max_sync(0xffffffffu, live_terms(t));
+    if (l < 48) {
+      float p[8];
+      idct_terms<false>(terms, t, p);
+#pragma unroll
+      for (int yy = 0; yy < 8; ++yy)
+        col[yy * pitch] = clip255(floorf(__fadd_rn(p[yy], 128.5f)));
+    }
   }
-  __syncthreads();
+  __syncwarp();
 
   // BT.601 in the numpy op order, each coefficient the float32 rounding
-  // of the double, then clip, truncate and normalize
+  // of the double, then clip, truncate and normalize: one lane per
+  // 8-pixel run of an MCU line (lines 0..15, runs 0..1)
+  const int py = lane >> 1, run = lane & 1;
+  const float* yl = mcu + luma_row(py) + run * 8;
+  const float* ul = mcu + kU + (py >> 1) * kChromaPitch + run * 4;
+  const float* vl = mcu + kV + (py >> 1) * kChromaPitch + run * 4;
+  const float4 y0 = *reinterpret_cast<const float4*>(yl);
+  const float4 y1 = *reinterpret_cast<const float4*>(yl + 4);
+  const float4 u4 = *reinterpret_cast<const float4*>(ul);
+  const float4 v4 = *reinterpret_cast<const float4*>(vl);
+  const float ys[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+  const float us[4] = {u4.x, u4.y, u4.z, u4.w};
+  const float vs[4] = {v4.x, v4.y, v4.z, v4.w};
   const float kr = static_cast<float>(1.402);
   const float kgu = static_cast<float>(0.344136);
   const float kgv = static_cast<float>(0.714136);
   const float kb = static_cast<float>(1.772);
-  const float inv255 = static_cast<float>(1.0 / 255.0);
-  for (int i = threadIdx.x; i < 16 * width; i += blockDim.x) {
-    const int py = i / width;
-    const int px = i - py * width;
-    const int ci = (py / 2) * half + px / 2;
-    const float y = pix[i];
-    const float uf = __fsub_rn(pix[16 * width + ci], 128.0f);
-    const float vf = __fsub_rn(pix[20 * width + ci], 128.0f);
-    const float rgb[3] = {
-        __fadd_rn(y, __fmul_rn(kr, vf)),
-        __fsub_rn(__fsub_rn(y, __fmul_rn(kgu, uf)), __fmul_rn(kgv, vf)),
-        __fadd_rn(y, __fmul_rn(kb, uf))};
+  float vals[24];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float q = floorf(clip255(rgb[k]));
-      dst[i * 3 + k] = to_out<Out>(
-          __fmul_rn(__fsub_rn(__fmul_rn(q, 2.0f), 255.0f), inv255));
+  for (int cs = 0; cs < 4; ++cs) {  // a chroma sample, two pixels
+    const float uf = __fsub_rn(us[cs], 128.0f);
+    const float vf = __fsub_rn(vs[cs], 128.0f);
+    const float dr = __fmul_rn(kr, vf);
+    const float dg1 = __fmul_rn(kgu, uf);
+    const float dg2 = __fmul_rn(kgv, vf);
+    const float db = __fmul_rn(kb, uf);
+#pragma unroll
+    for (int p = 2 * cs; p < 2 * cs + 2; ++p) {
+      const float yv = ys[p];
+      const float rgb[3] = {__fadd_rn(yv, dr),
+                            __fsub_rn(__fsub_rn(yv, dg1), dg2),
+                            __fadd_rn(yv, db)};
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch)
+        vals[3 * p + ch] = normalize_q(floorf(clip255(rgb[ch])));
     }
+  }
+  uint4 chunks[kChunks];
+  PackRun<Out>::pack(vals, chunks);
+  uint4* mine = stage[warp];
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) mine[lane * (kChunks + 1) + j] = chunks[j];
+  __syncwarp();
+
+  // the MCU's 16 output lines are 16 runs of 16 x 3 values: consecutive
+  // lanes store consecutive 16-byte chunks of each
+#pragma unroll
+  for (int i = lane; i < 16 * kLineChunks; i += 32) {
+    const int line = i / kLineChunks, w = i % kLineChunks;
+    dst[line * line_vectors + w] =
+        mine[(2 * line + w / kChunks) * (kChunks + 1) + w % kChunks];
   }
 }
 
@@ -298,18 +506,18 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
 
 template <typename Out>
 int launch_convert(const void* ycoef, const void* ucoef, const void* vcoef,
-                   void* out, int rows, int frames, int height, int width,
-                   int rows_valid, cudaStream_t stream) {
-  const size_t smem = 2 * 24 * static_cast<size_t>(width) * sizeof(float);
-  cudaError_t err = allow_shared(dct_convert_kernel<Out>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = static_cast<long long>(rows) * frames
-                           * (height / 16);
-  dct_convert_kernel<Out><<<static_cast<unsigned>(blocks), kConvertThreads,
-                            smem, stream>>>(
+                   void* out, const void* rows_valid, int rows, int frames,
+                   int height, int width, cudaStream_t stream) {
+  const long long mcus = static_cast<long long>(rows) * frames
+                         * (height / 16) * (width / 16);
+  if (mcus > 0xffffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>(
+      (mcus + kWarps - 1) / kWarps);
+  dct_convert_kernel<Out><<<blocks, kConvertThreads, 0, stream>>>(
       static_cast<const int32_t*>(ycoef), static_cast<const int32_t*>(ucoef),
-      static_cast<const int32_t*>(vcoef), static_cast<Out*>(out), frames,
-      height, width, rows_valid);
+      static_cast<const int32_t*>(vcoef), static_cast<Out*>(out),
+      static_cast<const int32_t*>(rows_valid), rows, frames, height, width,
+      static_cast<unsigned>(mcus));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -347,20 +555,22 @@ int rnb_dct_unpack(const void* wire, void* ycoef, void* ucoef, void* vcoef,
 }
 
 // planes as rnb_dct_unpack writes them; out: (rows, frames, H, W, 3),
-// bf16 when out_bf16 is non-zero, else float32, 16-byte aligned.
+// bf16 when out_bf16 is non-zero, else float32, 16-byte aligned;
+// rows_valid: one int32 in device memory, or null for every row.
 int rnb_dct_convert(const void* ycoef, const void* ucoef, const void* vcoef,
-                    void* out, int rows, int frames, int height, int width,
-                    int rows_valid, int out_bf16, int device, void* stream) {
+                    void* out, const void* rows_valid, int rows, int frames,
+                    int height, int width, int out_bf16, int device,
+                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (static_cast<long long>(rows) * frames * height == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_bf16)
-    return launch_convert<__nv_bfloat16>(ycoef, ucoef, vcoef, out, rows,
-                                         frames, height, width, rows_valid,
-                                         s);
-  return launch_convert<float>(ycoef, ucoef, vcoef, out, rows, frames,
-                               height, width, rows_valid, s);
+    return launch_convert<__nv_bfloat16>(ycoef, ucoef, vcoef, out,
+                                         rows_valid, rows, frames, height,
+                                         width, s);
+  return launch_convert<float>(ycoef, ucoef, vcoef, out, rows_valid, rows,
+                               frames, height, width, s);
 }
 
 }  // extern "C"

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -118,6 +119,9 @@ class Kernel:
         self.argtypes = list(argtypes)
         #: the TPU kernel or op this kernel takes the place of
         self.replaces = replaces
+        #: every ``file:line`` that ``replaces`` names
+        self.replaced = tuple(re.findall(r"rnb_tpu/[\w/]+\.py:\d+",
+                                         replaces))
         self.launches = 0
         self._fn = None
 
@@ -155,15 +159,21 @@ NORMALIZE_U8 = Kernel(
     "_normalize_u8_pallas)")
 YUV420_TO_RGB_U8 = Kernel(
     "yuv420_to_rgb_u8", "ingest.cu", "rnb_yuv420_to_rgb_u8",
-    [_P, _P, _I, _I, _I, _I, _I],
+    [_P, _P, _P, _I, _I, _I, _I, _I],
     "rnb_tpu/ops/yuv.py:48 (yuv420_to_rgb_u8, jnp fused by XLA)")
+YUV420_NORMALIZE = Kernel(
+    "yuv420_normalize", "ingest.cu", "rnb_yuv420_normalize",
+    [_P, _P, _P, _I, _I, _I, _I, _I, _I],
+    "rnb_tpu/ops/yuv.py:48 (yuv420_to_rgb_u8, jnp fused by XLA) followed "
+    "by rnb_tpu/ops/preprocess.py:48 (_normalize_kernel); ragged, "
+    "rnb_tpu/ops/ragged.py:157 (_ragged_normalize_kernel)")
 DCT_UNPACK = Kernel(
     "dct_unpack", "dct.cu", "rnb_dct_unpack",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I],
     "rnb_tpu/ops/dct.py:213 (unpack_dct_rows, jnp scatter fused by XLA)")
 DCT_CONVERT = Kernel(
     "dct_convert", "dct.cu", "rnb_dct_convert",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I],
     "rnb_tpu/ops/dct.py:312 (_dct_kernel via _dct_convert_pallas)")
 GATHER_ROWS = Kernel(
     "gather_rows", "pages.cu", "rnb_gather_rows",
@@ -176,8 +186,8 @@ RAGGED_NORMALIZE_U8 = Kernel(
     "rnb_tpu/ops/ragged.py:157 (_ragged_normalize_kernel via "
     "_ragged_normalize_pallas)")
 
-KERNELS = (NORMALIZE_U8, YUV420_TO_RGB_U8, DCT_UNPACK, DCT_CONVERT,
-           GATHER_ROWS, RAGGED_NORMALIZE_U8)
+KERNELS = (NORMALIZE_U8, YUV420_TO_RGB_U8, YUV420_NORMALIZE, DCT_UNPACK,
+           DCT_CONVERT, GATHER_ROWS, RAGGED_NORMALIZE_U8)
 
 
 def reset_launches() -> None:

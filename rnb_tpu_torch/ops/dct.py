@@ -41,13 +41,15 @@ within two steps. The unpack is bitwise on every input. Pad rows
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from rnb_tpu_torch.ops import _kernels
-from rnb_tpu_torch.ops.preprocess import INV_255, check_kernel_input
+from rnb_tpu_torch.ops.preprocess import (INV_255, check_kernel_input,
+                                          rows_valid_int,
+                                          rows_valid_pointer)
 
 #: zigzag scan: position k in the scan -> natural (row-major u*8+v)
 #: coefficient index
@@ -331,17 +333,22 @@ def unpack_dct_rows(x: torch.Tensor, height: int, width: int,
 
 
 def dct_convert(ycoef: torch.Tensor, ucoef: torch.Tensor,
-                vcoef: torch.Tensor, rows_valid: int, height: int,
-                width: int, dtype: torch.dtype = torch.bfloat16
-                ) -> torch.Tensor:
+                vcoef: torch.Tensor, rows_valid: Union[int, torch.Tensor],
+                height: int, width: int,
+                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Block-tiled planes -> normalized ``(rows, F, H, W, 3)`` frames,
-    rows at or past ``rows_valid`` exactly zero. A CUDA tensor launches
-    ``rnb_dct_convert``; a CPU tensor runs the plain version."""
+    rows at or past ``rows_valid`` (an int or a 1-element int32 tensor
+    on the planes' device) exactly zero. A CUDA tensor launches
+    ``rnb_dct_convert``, which reads ``rows_valid`` from device memory
+    (an int below the row count is written there by a fill; every row
+    needs none); a CPU tensor runs the plain version."""
     _check_geometry(height, width)
-    if ycoef.device.type == "cpu":
-        return dct_convert_reference(ycoef, ucoef, vcoef, rows_valid,
-                                     height, width, dtype)
     rows, frames = int(ycoef.shape[0]), int(ycoef.shape[1])
+    if ycoef.device.type == "cpu":
+        return dct_convert_reference(
+            ycoef, ucoef, vcoef, rows_valid_int(rows_valid, rows,
+                                                ycoef.device),
+            height, width, dtype)
     want = ((rows, frames, height, width),
             (rows, frames, height // 2, width // 2),
             (rows, frames, height // 2, width // 2))
@@ -351,12 +358,13 @@ def dct_convert(ycoef: torch.Tensor, ucoef: torch.Tensor,
             raise ValueError("dct_convert planes must be %s, got %s"
                              % (want, tuple(plane.shape)))
     _check_out_dtype(dtype)
+    valid = rows_valid_pointer(rows_valid, rows, ycoef.device)
     out = torch.empty((rows, frames, height, width, 3), dtype=dtype,
                       device=ycoef.device)
     if out.numel():
         _kernels.DCT_CONVERT.launch(
-            ycoef, ucoef, vcoef, out, rows, frames, height, width,
-            _clamp_rows(rows_valid, rows), int(dtype == torch.bfloat16))
+            ycoef, ucoef, vcoef, out, valid, rows, frames, height, width,
+            int(dtype == torch.bfloat16))
     return out
 
 

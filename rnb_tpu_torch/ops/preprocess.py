@@ -9,12 +9,15 @@ video batch crosses on its way into the network:
 numerics contract. ``normalize_u8`` dispatches on where the tensor
 lies: a CUDA tensor goes to the hand-written kernel
 (``csrc/ingest.cu``, ``rnb_normalize_u8``), a CPU tensor to the plain
-version. There is no fallback from one to the other.
+version. There is no fallback from one to the other. The module also
+holds the ``rows_valid`` helpers of every kernel that reads it from
+device memory.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -51,6 +54,56 @@ def check_kernel_input(x: torch.Tensor, what: str,
         raise TypeError("%s takes %s, got %s" % (what, dtype, x.dtype))
     if not x.is_contiguous():
         raise ValueError("%s needs a contiguous tensor" % what)
+
+
+#: how a wrapper takes ``rows_valid``: None (every row), a host int, or
+#: a 1-element int32 tensor on the pool's device
+RowsValid = Optional[Union[int, torch.Tensor]]
+
+
+def rows_valid_tensor(rows_valid: Union[int, torch.Tensor],
+                      device: torch.device) -> torch.Tensor:
+    """``rows_valid`` as a 1-element int32 tensor on ``device``. The
+    caller's tensor is checked and returned as it is; a host integer is
+    written there by a tiny fill on the current stream, into a fresh
+    element of the caching allocator (stream-ordered, so two threads
+    never share it): no host sync, and nothing is read back."""
+    if isinstance(rows_valid, torch.Tensor):
+        if (rows_valid.dtype != torch.int32 or rows_valid.numel() != 1
+                or rows_valid.device != device):
+            raise ValueError(
+                "rows_valid must be one int32 element on %s, got %s %s on "
+                "%s" % (device, rows_valid.dtype, tuple(rows_valid.shape),
+                        rows_valid.device))
+        return rows_valid
+    return torch.full((1,), int(rows_valid), dtype=torch.int32,
+                      device=device)
+
+
+def rows_valid_pointer(rows_valid: RowsValid, rows: int,
+                       device: torch.device
+                       ) -> Optional[torch.Tensor]:
+    """What a kernel that reads ``rows_valid`` from device memory is
+    given: None (a null pointer: every row) for None or an int at or
+    past ``rows``, so a bucketed launch adds no fill; else a device
+    int32 scalar (see :func:`rows_valid_tensor`)."""
+    if isinstance(rows_valid, torch.Tensor):
+        return rows_valid_tensor(rows_valid, device)
+    if rows_valid is None or int(rows_valid) >= rows:
+        return None
+    return rows_valid_tensor(max(0, int(rows_valid)), device)
+
+
+def rows_valid_int(rows_valid: RowsValid, rows: int,
+                   device: torch.device) -> int:
+    """``rows_valid`` (None, an int, or a 1-element int32 tensor on
+    ``device``) as a host int clamped to ``[0, rows]``, for the plain
+    versions."""
+    if rows_valid is None:
+        return rows
+    if isinstance(rows_valid, torch.Tensor):
+        rows_valid = int(rows_valid_tensor(rows_valid, device).item())
+    return max(0, min(int(rows_valid), rows))
 
 
 def normalize_u8_rows(x: torch.Tensor, rows_valid: int,

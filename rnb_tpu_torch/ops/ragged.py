@@ -6,11 +6,12 @@ flat row pool of fixed capacity ``(pool_rows, ...)`` plus a scalar
 :class:`rnb_tpu_torch.stage.RaggedBatch`; the forward primitives mask
 or skip rows past ``rows_valid``.
 
-On the card the masking happens inside the kernels: the ragged
-normalize kernel (``csrc/ragged.cu``, ``rnb_ragged_normalize_u8``) reads
-``rows_valid`` from device memory and stores zeros for pad rows without
-reading them or doing arithmetic, and the colourspace kernel converts
-pad rows as zero bytes without reading them. On the CPU the plain
+On the card the masking happens inside the kernels, which read
+``rows_valid`` from device memory: the ragged normalize kernel
+(``csrc/ragged.cu``, ``rnb_ragged_normalize_u8``) stores zeros for pad
+rows without reading them or doing arithmetic, and the fused yuv420
+kernel (``csrc/ingest.cu``, ``rnb_yuv420_normalize``) converts pad rows
+as zero bytes without reading them. On the CPU the plain
 versions mask with tensor ops. Either way valid rows are bit-identical
 to the bucketed path applied to the same rows.
 """
@@ -25,8 +26,9 @@ import torch
 
 from rnb_tpu_torch.ops import _kernels
 from rnb_tpu_torch.ops.preprocess import (check_kernel_input,
-                                          normalize_u8_reference)
-from rnb_tpu_torch.ops.yuv import normalize_u8, yuv420_to_rgb_u8
+                                          normalize_u8_reference,
+                                          rows_valid_tensor)
+from rnb_tpu_torch.ops.yuv import yuv420_normalize
 
 #: the kernel's grid carries the pool row on an axis of this extent
 MAX_POOL_ROWS = 65535
@@ -107,23 +109,6 @@ def ragged_mask_rows(pool: torch.Tensor, rows_valid: int) -> torch.Tensor:
     return out
 
 
-def _rows_valid_tensor(rows_valid, device: torch.device) -> torch.Tensor:
-    """``rows_valid`` as a 1-element int32 tensor on ``device``. A host
-    integer is written there by a tiny fill on the current stream, into
-    a fresh element of the caching allocator (stream-ordered, so two
-    threads never share it): no host sync, and nothing is read back."""
-    if isinstance(rows_valid, torch.Tensor):
-        if (rows_valid.dtype != torch.int32 or rows_valid.numel() != 1
-                or rows_valid.device != device):
-            raise ValueError(
-                "rows_valid must be one int32 element on %s, got %s %s on "
-                "%s" % (device, rows_valid.dtype, tuple(rows_valid.shape),
-                        rows_valid.device))
-        return rows_valid
-    return torch.full((1,), int(rows_valid), dtype=torch.int32,
-                      device=device)
-
-
 def ragged_normalize_u8_reference(pool: torch.Tensor,
                                   rows_valid: Union[int, torch.Tensor],
                                   dtype: torch.dtype = torch.bfloat16
@@ -166,7 +151,7 @@ def ragged_normalize_u8(pool: torch.Tensor,
     if rows > MAX_POOL_ROWS:
         raise ValueError("ragged_normalize_u8 takes at most %d pool rows, "
                          "got %d" % (MAX_POOL_ROWS, rows))
-    valid = _rows_valid_tensor(rows_valid, pool.device)
+    valid = rows_valid_tensor(rows_valid, pool.device)
     out = torch.empty(pool.shape, dtype=torch.bfloat16, device=pool.device)
     if out.numel():
         _kernels.RAGGED_NORMALIZE_U8.launch(pool, out, valid, rows,
@@ -174,14 +159,16 @@ def ragged_normalize_u8(pool: torch.Tensor,
     return out
 
 
-def ragged_normalize_yuv420(pool: torch.Tensor, rows_valid: int,
+def ragged_normalize_yuv420(pool: torch.Tensor,
+                            rows_valid: Union[int, torch.Tensor],
                             height: int, width: int,
                             dtype: torch.dtype = torch.bfloat16
                             ) -> torch.Tensor:
     """Packed 4:2:0 row pool -> normalized NDHWC frames. Rows past
-    ``rows_valid`` enter the converter as zero bytes, as in the
-    reference, so they come out as the conversion of zero bytes —
-    RGB (0, 135, 0), normalized (-1, 0.0588, -1) — not as zeros. The
-    normalize then runs over the whole pool."""
-    return normalize_u8(yuv420_to_rgb_u8(pool, height, width, rows_valid),
-                        dtype=dtype)
+    ``rows_valid`` (an int or a 1-element int32 tensor on the pool's
+    device) enter the converter as zero bytes, as in the reference, so
+    they come out as the conversion of zero bytes — RGB (0, 135, 0),
+    normalized (-1, 0.0588, -1) — not as zeros. On the card one launch
+    of ``rnb_yuv420_normalize`` does the mask, the conversion and the
+    normalize."""
+    return yuv420_normalize(pool, height, width, rows_valid, dtype)

@@ -6,10 +6,13 @@ wire); the card does the colourspace arithmetic:
 
     nearest 2x chroma upsample -> BT.601 -> clip/truncate to u8 -> normalize
 
-On the TPU, XLA fused the converter into the stage's program. On the
-GPU nothing fuses it, so it is a hand-written kernel of its own
-(``csrc/ingest.cu``, ``rnb_yuv420_to_rgb_u8``) followed by the
-normalize kernel. CPU tensors take the plain PyTorch versions.
+On the TPU, XLA fused the converter into the stage's program, ahead of
+the Pallas normalize. On the GPU one hand-written kernel does all of it
+(``csrc/ingest.cu``): ``rnb_yuv420_normalize`` converts and normalizes
+in one pass, so the RGB u8 bytes never reach device memory, and
+``rnb_yuv420_to_rgb_u8``, the same kernel with a u8 epilogue, stops at
+the RGB bytes. Both read ``rows_valid`` from device memory. CPU tensors
+take the plain PyTorch versions.
 
 Packed layout per frame (geometry must be even): ``Y`` (H*W bytes),
 then ``U`` and ``V`` ((H/2)*(W/2) bytes each), flattened on the
@@ -23,12 +26,18 @@ port agrees with it within one u8 step.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from rnb_tpu_torch.ops import _kernels
-from rnb_tpu_torch.ops.preprocess import check_kernel_input, normalize_u8
+from rnb_tpu_torch.ops.preprocess import (RowsValid, check_kernel_input,
+                                          normalize_u8_reference,
+                                          rows_valid_int,
+                                          rows_valid_pointer)
+
+#: output dtypes of the normalizing entry
+NORMALIZE_DTYPES = (torch.bfloat16, torch.float32)
+#: the kernel's vector path takes 16 luma pixels per thread and line
+RUN_PIXELS = 16
 
 
 def packed_frame_bytes(height: int, width: int) -> int:
@@ -61,41 +70,85 @@ def yuv420_to_rgb_reference(x: torch.Tensor, height: int,
     return rgb.clamp(0.0, 255.0).to(torch.uint8)
 
 
+def _check_packed(x: torch.Tensor, height: int, width: int,
+                  what: str) -> None:
+    if x.dim() != 3 or x.shape[-1] != packed_frame_bytes(height, width):
+        raise ValueError(
+            "%s takes (rows, frames, %d) packed planes, got shape %s"
+            % (what, packed_frame_bytes(height, width), tuple(x.shape)))
+
+
+def _masked_rgb(x: torch.Tensor, height: int, width: int,
+                rows_valid: RowsValid) -> torch.Tensor:
+    """The plain conversion of the pool with rows at or past
+    ``rows_valid`` zeroed first (the input is left as it was)."""
+    valid = rows_valid_int(rows_valid, int(x.shape[0]), x.device)
+    if valid < x.shape[0]:
+        x = x.clone()
+        x[valid:] = 0
+    return yuv420_to_rgb_reference(x, height, width)
+
+
+def _launch(kernel, x: torch.Tensor, out: torch.Tensor, height: int,
+            width: int, rows_valid: RowsValid, *extra) -> torch.Tensor:
+    rows, frames = int(x.shape[0]), int(x.shape[1])
+    valid = rows_valid_pointer(rows_valid, rows, x.device)
+    vector = int(width % RUN_PIXELS == 0 and x.data_ptr() % 16 == 0
+                 and out.data_ptr() % 16 == 0)
+    if out.numel():
+        kernel.launch(x, out, valid, rows, frames, height, width, vector,
+                      *extra)
+    return out
+
+
 def yuv420_to_rgb_u8(x: torch.Tensor, height: int, width: int,
-                     rows_valid: Optional[int] = None) -> torch.Tensor:
+                     rows_valid: RowsValid = None) -> torch.Tensor:
     """Packed 4:2:0 rows ``(rows, frames, packed)`` -> RGB u8
     ``(rows, frames, H, W, 3)``. Rows at or past ``rows_valid`` (all
-    rows by default) are converted as if their bytes were zero.
+    rows by default; an int or a 1-element int32 tensor on ``x``'s
+    device) are converted as if their bytes were zero.
 
     A CUDA tensor launches ``rnb_yuv420_to_rgb_u8``; a CPU tensor runs
     the plain version on the masked rows."""
-    if x.dim() != 3 or x.shape[-1] != packed_frame_bytes(height, width):
-        raise ValueError(
-            "yuv420_to_rgb_u8 takes (rows, frames, %d) packed planes, got "
-            "shape %s" % (packed_frame_bytes(height, width),
-                          tuple(x.shape)))
-    rows, frames = int(x.shape[0]), int(x.shape[1])
-    rows_valid = rows if rows_valid is None else max(
-        0, min(int(rows_valid), rows))
+    _check_packed(x, height, width, "yuv420_to_rgb_u8")
     if x.device.type == "cpu":
-        if rows_valid < rows:
-            x = x.clone()
-            x[rows_valid:] = 0
-        return yuv420_to_rgb_reference(x, height, width)
+        return _masked_rgb(x, height, width, rows_valid)
     check_kernel_input(x, "yuv420_to_rgb_u8")
-    out = torch.empty((rows, frames, height, width, 3), dtype=torch.uint8,
-                      device=x.device)
-    if out.numel():
-        _kernels.YUV420_TO_RGB_U8.launch(x, out, rows, frames, height,
-                                         width, rows_valid)
-    return out
+    out = torch.empty((int(x.shape[0]), int(x.shape[1]), height, width, 3),
+                      dtype=torch.uint8, device=x.device)
+    return _launch(_kernels.YUV420_TO_RGB_U8, x, out, height, width,
+                   rows_valid)
+
+
+def yuv420_normalize(x: torch.Tensor, height: int, width: int,
+                     rows_valid: RowsValid = None,
+                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Packed 4:2:0 rows -> ``dtype`` NDHWC frames in [-1, 1], the
+    normalize of :func:`yuv420_to_rgb_u8`'s result. Rows at or past
+    ``rows_valid`` come out as the conversion of zero bytes: RGB (0,
+    135, 0), normalized (-1, 0.0588, -1).
+
+    The u8 quantization between conversion and normalization is kept,
+    as in the reference: the network's input is then identical to what
+    a host-side converter would have produced. A CUDA tensor launches
+    ``rnb_yuv420_normalize`` (bf16 or float32 out), one pass that never
+    writes the u8 bytes; a CPU tensor runs the plain versions."""
+    _check_packed(x, height, width, "yuv420_normalize")
+    if x.device.type == "cpu":
+        return normalize_u8_reference(
+            _masked_rgb(x, height, width, rows_valid), dtype)
+    check_kernel_input(x, "yuv420_normalize")
+    if dtype not in NORMALIZE_DTYPES:
+        raise TypeError("the yuv420 normalize kernel writes %s, got %s"
+                        % (NORMALIZE_DTYPES, dtype))
+    out = torch.empty((int(x.shape[0]), int(x.shape[1]), height, width, 3),
+                      dtype=dtype, device=x.device)
+    return _launch(_kernels.YUV420_NORMALIZE, x, out, height, width,
+                   rows_valid, int(dtype == torch.bfloat16))
 
 
 def normalize_yuv420(x: torch.Tensor, height: int = 112, width: int = 112,
                      dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Packed u8 planes -> ``dtype`` NDHWC frames in [-1, 1].
-
-    The u8 quantization between conversion and normalization is kept,
-    as in the reference: the network's input is then identical to what
-    a host-side converter would have produced."""
-    return normalize_u8(yuv420_to_rgb_u8(x, height, width), dtype=dtype)
+    """Packed u8 planes -> ``dtype`` NDHWC frames in [-1, 1], every row:
+    one launch of the fused kernel on the card."""
+    return yuv420_normalize(x, height, width, None, dtype)

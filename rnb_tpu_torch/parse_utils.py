@@ -33,7 +33,7 @@ from typing import Dict, List
 #: the first family that matches takes the kernel
 KERNEL_FAMILIES = (
     ("ingest", ("normalize_u8_kernel", "ragged_normalize_u8_kernel",
-                "yuv420_to_rgb_u8_kernel", "dct_unpack_kernel",
+                "yuv420_kernel", "dct_unpack_kernel",
                 "dct_convert_kernel")),
     ("gather", ("gather_rows_kernel",)),
     ("conv_f32", ("f32f32",)),

@@ -15,10 +15,12 @@ from rnb_tpu_torch.cache import ClipCache
 from rnb_tpu_torch.decode import SyntheticDecoder
 from rnb_tpu_torch.ops import _kernels, dct
 from rnb_tpu_torch.ops.pages import gather_rows, gather_rows_reference
-from rnb_tpu_torch.ops.preprocess import normalize_u8, normalize_u8_rows
+from rnb_tpu_torch.ops.preprocess import (normalize_u8, normalize_u8_reference,
+                                          normalize_u8_rows)
 from rnb_tpu_torch.ops.ragged import (ragged_normalize_u8,
                                       ragged_normalize_u8_reference)
-from rnb_tpu_torch.ops.yuv import packed_frame_bytes, yuv420_to_rgb_u8
+from rnb_tpu_torch.ops.yuv import (packed_frame_bytes, yuv420_normalize,
+                                   yuv420_to_rgb_u8)
 from rnb_tpu_torch.pager import Pager, PagerSettings
 
 pytestmark = pytest.mark.cuda
@@ -64,6 +66,7 @@ def test_wrappers_count_launches_and_refuse_what_kernels_cannot_take(
     torch.cuda.synchronize(device)
     assert _kernels.launch_counts() == {"normalize_u8": 1,
                                         "yuv420_to_rgb_u8": 1,
+                                        "yuv420_normalize": 0,
                                         "dct_unpack": 0, "dct_convert": 0,
                                         "gather_rows": 0,
                                         "ragged_normalize_u8": 0}
@@ -86,6 +89,7 @@ def test_wrappers_count_launches_and_refuse_what_kernels_cannot_take(
         dct.normalize_dct(wire, 112, 112, torch.float16)   # no fp16 out
     assert _kernels.launch_counts() == {"normalize_u8": 1,
                                         "yuv420_to_rgb_u8": 1,
+                                        "yuv420_normalize": 0,
                                         "dct_unpack": 1, "dct_convert": 1,
                                         "gather_rows": 0,
                                         "ragged_normalize_u8": 0}
@@ -140,6 +144,66 @@ def test_ragged_normalize_kernel_reads_rows_valid_from_the_card(device):
         ragged_normalize_u8(pool, 1, torch.float16)
 
 
+def test_fused_yuv420_entry_is_bitwise_k1_of_the_u8_entry(device):
+    # tolerance: none. bf16 out is bitwise rnb_normalize_u8 of the u8
+    # entry's output over every row (pad rows are the conversion of zero
+    # bytes), float32 out bitwise the plain normalize of it; one device
+    # scalar is rewritten between launches with the same arguments, and
+    # the int form gives the same bytes
+    scalar = torch.zeros((1,), dtype=torch.int32, device=device)
+    for rows in (15, 4):
+        packed = _packed(rows, seed=30 + rows).to(device)
+        _kernels.reset_launches()
+        for valid in (rows, 2, 0, rows + 3, -1):
+            scalar.fill_(valid)
+            rgb = yuv420_to_rgb_u8(packed, 112, 112, scalar)
+            plain = yuv420_to_rgb_u8(packed.cpu(), 112, 112,
+                                     max(0, min(valid, rows)))
+            assert (rgb.cpu().int() - plain.int()).abs().max() <= 1
+            fused = yuv420_normalize(packed, 112, 112, scalar)
+            assert torch.equal(fused.view(torch.int16),
+                               normalize_u8(rgb).view(torch.int16))
+            assert torch.equal(yuv420_normalize(packed, 112, 112, valid)
+                               .view(torch.int16), fused.view(torch.int16))
+            f32 = yuv420_normalize(packed, 112, 112, scalar, torch.float32)
+            assert torch.equal(f32, normalize_u8_reference(rgb,
+                                                           torch.float32))
+        assert _kernels.YUV420_NORMALIZE.launches == 15
+        assert _kernels.YUV420_TO_RGB_U8.launches == 5
+    with pytest.raises(TypeError):
+        yuv420_normalize(packed, 112, 112, None, torch.float16)
+    with pytest.raises(ValueError):
+        yuv420_normalize(packed, 112, 112, scalar.cpu())        # host
+    with pytest.raises(ValueError):
+        yuv420_normalize(packed, 112, 112, scalar.long())       # int64
+
+
+def test_yuv420_scalar_path_at_widths_not_a_multiple_of_16(device):
+    # tolerance: the u8 entry within one step of its plain version, pad
+    # rows exact; the fused entry bitwise the normalize of it. A pool
+    # view one byte off 16-byte alignment takes the scalar path too
+    rng = np.random.default_rng(31)
+    for h, w in ((66, 90), (10, 18), (16, 40)):
+        packed = torch.from_numpy(rng.integers(
+            0, 256, (5, 3, packed_frame_bytes(h, w)), dtype=np.uint8))
+        card = packed.to(device)
+        for valid in (5, 2):
+            rgb = yuv420_to_rgb_u8(card, h, w, valid)
+            plain = yuv420_to_rgb_u8(packed, h, w, valid)
+            assert (rgb.cpu().int() - plain.int()).abs().max() <= 1
+            assert torch.equal(rgb.cpu()[valid:], plain[valid:])
+            fused = yuv420_normalize(card, h, w, valid)
+            assert torch.equal(fused.view(torch.int16),
+                               normalize_u8_reference(rgb)
+                               .view(torch.int16))
+    flat = torch.from_numpy(rng.integers(
+        0, 256, 2 * 8 * packed_frame_bytes(32, 32) + 1,
+        dtype=np.uint8)).to(device)
+    odd = flat[1:].view(2, 8, packed_frame_bytes(32, 32))
+    assert (yuv420_to_rgb_u8(odd, 32, 32).cpu().int()
+            - yuv420_to_rgb_u8(odd.cpu(), 32, 32).int()).abs().max() <= 1
+
+
 def _u8(x):
     """Normalized frames back to u8 steps: (x*255 + 255) / 2."""
     return torch.round((x.float() * 255.0 + 255.0) / 2.0)
@@ -188,6 +252,35 @@ def test_dct_kernels_match_plain_versions_on_card(device):
                 assert float(steps.max()) <= 2
                 assert float((out == plain).double().mean()) >= 0.99
                 assert not out[valid:].float().any()
+
+
+def test_dct_convert_at_two_widths_reads_rows_valid_from_the_card(device):
+    # tolerance as above; one device scalar rewritten between launches
+    # with the same arguments; 176 is wider than one round of the load
+    # phase
+    rng = np.random.default_rng(32)
+    scalar = torch.zeros((1,), dtype=torch.int32, device=device)
+    for h, w in ((112, 112), (64, 176)):
+        nb = dct.num_dct_blocks(h, w)
+        pool = np.empty((6, 4, dct.dct_frame_elems(h, w)), np.int16)
+        for r in range(6):
+            for f in range(4):
+                zz = np.where(rng.random((nb, 64)) < 0.05,
+                              rng.integers(-900, 900, (nb, 64)), 0)
+                pool[r, f] = dct.pack_frame_dct(zz, h, w)
+        planes = [p.to(device) for p in dct.unpack_dct_rows(
+            torch.from_numpy(pool), h, w)]
+        for valid in (6, 3, 0):
+            scalar.fill_(valid)
+            for dtype in (torch.bfloat16, torch.float32):
+                out = dct.dct_convert(*planes, scalar, h, w, dtype)
+                plain = dct.dct_convert_reference(*planes, valid, h, w,
+                                                  dtype)
+                assert float((_u8(out) - _u8(plain)).abs().max()) <= 2
+                assert float((out == plain).double().mean()) >= 0.99
+                assert not out[valid:].float().any()
+                assert torch.equal(dct.dct_convert(*planes, valid, h, w,
+                                                   dtype), out)
 
 
 def _gather_tables(pool_rows, slab_rows, seed):

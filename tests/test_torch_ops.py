@@ -238,6 +238,7 @@ def test_cpu_paths_launch_no_kernel_and_build_nothing():
     ragged_normalize_u8(torch.from_numpy(_u8((3, 32), seed=5)), 2)
     assert _kernels.launch_counts() == {"normalize_u8": 0,
                                         "yuv420_to_rgb_u8": 0,
+                                        "yuv420_normalize": 0,
                                         "dct_unpack": 0, "dct_convert": 0,
                                         "gather_rows": 0,
                                         "ragged_normalize_u8": 0}
@@ -245,8 +246,9 @@ def test_cpu_paths_launch_no_kernel_and_build_nothing():
     assert os.path.basename(_kernels.library_path("ingest.cu")).startswith(
         "libingest-")
     names = {k.name for k in _kernels.KERNELS}
-    assert names == {"normalize_u8", "yuv420_to_rgb_u8", "dct_unpack",
-                     "dct_convert", "gather_rows", "ragged_normalize_u8"}
+    assert names == {"normalize_u8", "yuv420_to_rgb_u8", "yuv420_normalize",
+                     "dct_unpack", "dct_convert", "gather_rows",
+                     "ragged_normalize_u8"}
     assert {k.source for k in _kernels.KERNELS} == set(_kernels.SOURCES)
 
 
@@ -255,9 +257,12 @@ def test_kernel_source_exports_the_bound_symbols():
         with open(os.path.join(_kernels.CSRC_DIR, kernel.source)) as f:
             source = f.read()
         assert "int %s(" % kernel.symbol in source
-        path, line = kernel.replaces.split(" ")[0].split(":")
-        with open(os.path.join(REPO, path)) as f:
-            assert f.read().splitlines()[int(line) - 1].startswith("def ")
+        assert kernel.replaced[0] == kernel.replaces.split(" ")[0]
+        for ref in kernel.replaced:
+            path, line = ref.split(":")
+            with open(os.path.join(REPO, path)) as f:
+                assert f.read().splitlines()[int(line) - 1].startswith(
+                    "def ")
 
 
 # -- the decoder -------------------------------------------------------

@@ -260,6 +260,7 @@ def test_run_benchmark_on_cpu_completes_every_request(tmp_path, config,
     # the CPU runs the plain versions: no kernel is launched or built
     assert _kernels.launch_counts() == {"normalize_u8": 0,
                                         "yuv420_to_rgb_u8": 0,
+                                        "yuv420_normalize": 0,
                                         "dct_unpack": 0, "dct_convert": 0,
                                         "gather_rows": 0,
                                         "ragged_normalize_u8": 0}
