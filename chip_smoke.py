@@ -19,10 +19,19 @@ Phases (any failure exits non-zero and prints no result line):
    output (bf16; f32 bitwise the plain normalize), both also at a width
    that is not a multiple of 16 (the scalar path), the dct convert
    within two u8 steps (one per quantized plane, carried through
-   BT.601), also at a second geometry, pad rows exact — and each one's
-   time on the card (the profiler's device time per call) beside its
-   bound and its plain version's, plus its time per back-to-back call by
-   CUDA events; the fused entry's beside the two launches it replaces;
+   BT.601), also at a second geometry, pad rows exact; the fused dct
+   ingest (the serving path's one dct launch) bitwise the unpack
+   followed by the convert at 48 and 15 rows and at the second geometry
+   (a garbage wire row among its pad rows), bf16 and f32, and within two
+   u8 steps of its plain version — and each one's time on the card (the
+   profiler's device time per call; CUDA events around each call, queued
+   behind a spin on the card, where no profiler session comes back whole)
+   with L2 warm (back-to-back calls on one input) and with L2 flushed
+   (256 MB written between calls; only the calls' own events summed)
+   beside its bound and its plain version's, plus its time per
+   back-to-back call by CUDA events; the
+   fused entries' beside the two launches each replaces (the dct ingest
+   also at 48 rows);
    The gather kernel is held bitwise to its plain version at the clip
    arena's rows (15 x 8 x 18,816 u8 over a 445-row slab) and the
    feature arena's (15 x 400 float32), on five source tables, timed at
@@ -100,11 +109,11 @@ YUV_KERNELS = {"yuv420_normalize"}
 #: the ingest kernel each bulk run launches once per emission
 ONE_PER_EMISSION = {"configs/rnb-fused-yuv-big.json": "yuv420_normalize",
                     "configs/rnb-fused-yuv-ragged.json": "yuv420_normalize",
-                    "configs/rnb-fused-dct-ragged.json": "dct_convert",
+                    "configs/rnb-fused-dct-ragged.json": "dct_ingest",
                     WHOLE_YUV: "yuv420_normalize"}
 #: the kernels each run launches, and no others
 PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
-                CONFIGS[2]: {"dct_unpack", "dct_convert"},
+                CONFIGS[2]: {"dct_ingest"},
                 PAGED: YUV_KERNELS | {"gather_rows"},
                 FEATURES_OFF: YUV_KERNELS | {"gather_rows"},
                 BLOB: YUV_KERNELS,
@@ -142,6 +151,16 @@ TWO_STEP_ATOL = 2e-2
 #: this much per clip, twice over (twice the largest difference between
 #: two topologies' logits that the smoke has shown, 0.002)
 CLASS_ID_ATOL = 4e-3
+#: bytes written between calls for the L2-flushed times: five times the
+#: H100's 50 MB L2
+FLUSH_BYTES = 256 << 20
+#: profiler sessions tried before CUDA events time a call instead
+PROFILER_TRIES = 3
+#: the spin that holds the card while the host queues timed calls counts
+#: SM cycles; the H100's highest clock is 1.98 GHz, so a lower clock only
+#: makes it longer. Each retry doubles it.
+SPIN_CYCLES_PER_S = 2e9
+SPIN_TRIES = 4
 #: published H100 SXM peaks (NVIDIA data sheet) for the bound
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -199,25 +218,113 @@ def call_ms(fn, reps: int = 50, rounds: int = 5) -> float:
     return samples[len(samples) // 2]
 
 
+def profiled(calls, reps: int):
+    """``{event name: device us}`` of the device events the profiler
+    records while ``calls()`` runs ``reps`` calls and the card is
+    synchronized, or None where no session of PROFILER_TRIES came back
+    whole: with events, each a multiple of ``reps`` times (a session may
+    come back with none, one or two seconds after one that had them)."""
+    import torch
+    for _ in range(PROFILER_TRIES):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            calls()
+            torch.cuda.synchronize()
+        # device-side events only: an operator's own event repeats the
+        # time of the kernels it launched
+        events = [e for e in prof.key_averages()
+                  if e.device_type != torch.autograd.DeviceType.CPU]
+        if events and all(e.count % reps == 0 for e in events):
+            return {e.key: e.self_device_time_total for e in events}
+    return None
+
+
 def device_ms(fn, reps: int = 50) -> float:
-    """Time on the card per call: the device time of every kernel the
-    profiler records over ``reps`` calls, after a warm-up, over
-    ``reps``."""
+    """Time on the card per call, L2 warm: the device time of every
+    kernel the profiler records over ``reps`` back-to-back calls, after a
+    warm-up, over ``reps``. An input under 50 MB stays in L2. Where the
+    profiler records no whole session, CUDA events time the calls."""
     import torch
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    times = profiled(lambda: [fn() for _ in range(reps)], reps)
+    if times is not None:
+        return sum(times.values()) / reps / 1e3
+    print("note: no profiler session timed the calls whole; CUDA events "
+          "time the next row's warm call")
+    return events_ms(fn, reps)
+
+
+def flushed_ms(fn, reps: int = 50) -> float:
+    """Time on the card per call with L2 flushed before each call, as a
+    serving pool finds it after its copy from the host: FLUSH_BYTES are
+    written between calls, and only the device events named as those of
+    the calls alone are summed, so the flush's own kernel is not. Where
+    the profiler records no whole session, CUDA events time the calls."""
+    import torch
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    own = profiled(lambda: [fn() for _ in range(reps)], reps)
+    theirs = profiled(lambda: [flush.zero_() for _ in range(reps)], reps)
+
+    def calls():
         for _ in range(reps):
+            flush.zero_()
             fn()
+    if own is not None and theirs is not None and not own.keys() & theirs:
+        both = profiled(calls, reps)
+        if both is not None and own.keys() <= both.keys():
+            return sum(both[name] for name in own) / reps / 1e3
+    print("note: no profiler session timed the calls whole; CUDA events "
+          "time the next row's L2-flushed call")
+    return events_ms(fn, reps, flush=flush)
+
+
+def events_ms(fn, reps: int, flush=None) -> float:
+    """Time on the card per call: the mean of CUDA event pairs around each
+    of ``reps`` calls, after a warm-up, the calls queued behind a spin on
+    the card that outlasts the host's queueing of them, so a pair times
+    the card's work and not the host's launches; it also holds the gaps
+    between the pair and the call's launches (2-4 us more than the
+    profiler's time of a 2-17 us kernel on the H100). ``flush``, a
+    tensor, is written before each call and outside its pair."""
+    import time
+    import torch
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+
+    def queue():
+        for start, end in pairs:
+            if flush is not None:
+                flush.zero_()
+            start.record()
+            fn()
+            end.record()
+    fn()
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    queue()
+    host_s = time.perf_counter() - begin
+    torch.cuda.synchronize()
+    for _ in range(SPIN_TRIES):
+        torch.cuda._sleep(int(2 * host_s * SPIN_CYCLES_PER_S))
+        spun = torch.cuda.Event()
+        spun.record()
+        queue()
+        # the spin still runs: every call was queued before the card
+        # reached it
+        ahead = not spun.query()
         torch.cuda.synchronize()
-    # device-side events only: an operator's own event repeats the time
-    # of the kernels it launched
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type != torch.autograd.DeviceType.CPU)
-    check(total_us > 0, "the profiler recorded no device time")
-    return total_us / reps / 1e3
+        if ahead:
+            break
+        host_s *= 2
+    else:
+        print("note: the host fell behind the card while it queued the "
+              "calls (a call that waits for the card); their time "
+              "includes the host's")
+    return sum(start.elapsed_time(end) for start, end in pairs) / reps
 
 
 def phase_kernels(device):
@@ -358,31 +465,45 @@ def phase_kernels(device):
     for name, row in timings.items():
         time_kernel(name, row, rows, *calls[name])
     row = timings["yuv420_normalize"]
-    row["two_launch_ms"] = device_ms(lambda: preprocess.normalize_u8(
-        yuv.yuv420_to_rgb_u8(packed, HW, HW)))
-    print("timing yuv420_normalize at %d rows: %.5f ms for the work of "
-          "yuv420_to_rgb_u8 + normalize_u8, which take %.5f ms as two "
-          "launches (bound %.5f ms)" % (rows, row["ms"],
-                                        row["two_launch_ms"],
-                                        row["bound_ms"]))
+    def two():
+        return preprocess.normalize_u8(yuv.yuv420_to_rgb_u8(packed, HW, HW))
+    row["two_launch_ms"] = device_ms(two)
+    row["two_launch_ms_l2_flushed"] = flushed_ms(two)
+    print("timing yuv420_normalize at %d rows: %.5f ms (L2 flushed %.5f ms) "
+          "for the work of yuv420_to_rgb_u8 + normalize_u8, which take "
+          "%.5f ms (L2 flushed %.5f ms) as two launches (bound %.5f ms)"
+          % (rows, row["ms"], row["ms_l2_flushed"], row["two_launch_ms"],
+             row["two_launch_ms_l2_flushed"], row["bound_ms"]))
     return timings, worst
 
 
+def bound(bound_bytes, bound_ops):
+    """(ms, "bytes" or "operations"): the least time the card could
+    take, from the bytes moved and the operations done."""
+    by_bytes = bound_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = bound_ops / PEAK_F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
 def time_kernel(name, row, rows, kernel, plain):
-    """Fill a timing row: device time per call of the kernel and of its
-    plain version, time per back-to-back call, and the bound from the
-    row's bytes and operations."""
+    """Fill a timing row: device time per call of the kernel with L2
+    warm and with L2 flushed, and of its plain version, time per
+    back-to-back call, and the bound from the row's bytes and
+    operations."""
     row["ms"] = device_ms(kernel)
+    row["ms_l2_flushed"] = flushed_ms(kernel)
     row["plain_ms"] = device_ms(plain, reps=10)
     row["call_ms"] = call_ms(kernel)
-    by_bytes = row["bound_bytes"] / PEAK_BYTES_PER_S * 1e3
-    by_ops = row["bound_ops"] / PEAK_F32_FLOPS * 1e3
-    row["bound_ms"] = max(by_bytes, by_ops)
-    row["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
-    print("timing %s at %d rows: %.5f ms on the card (plain %.5f ms, "
-          "bound %.5f ms by %s); %.5f ms per back-to-back call"
-          % (name, rows, row["ms"], row["plain_ms"], row["bound_ms"],
-             row["bound_by"], row["call_ms"]))
+    row["bound_ms"], row["bound_by"] = bound(row["bound_bytes"],
+                                             row["bound_ops"])
+    print("timing %s at %d rows: %.5f ms on the card, L2 warm (share "
+          "%.3f), %.5f ms with L2 flushed (share %.3f); plain %.5f ms, "
+          "bound %.5f ms by %s; %.5f ms per back-to-back call"
+          % (name, rows, row["ms"], row["bound_ms"] / row["ms"],
+             row["ms_l2_flushed"], row["bound_ms"] / row["ms_l2_flushed"],
+             row["plain_ms"], row["bound_ms"], row["bound_by"],
+             row["call_ms"]))
 
 
 def dct_pool(rows, seed):
@@ -416,16 +537,64 @@ def to_u8(x):
     return torch.round((x.float() * 255.0 + 255.0) / 2.0)
 
 
+def check_dct_ingest(wire, scalar, valid, two, height, width, dtype):
+    """The fused ingest on ``wire`` with ``rows_valid`` from the device
+    ``scalar`` (holding ``valid``): bitwise ``two`` (the unpack and the
+    convert kernels' output), within DCT_STEPS of its plain version with
+    at least DCT_EXACT_SHARE exact, pad rows zero. Returns (max abs
+    error against the plain version, max steps, exact share)."""
+    import torch
+    from rnb_tpu_torch.ops import dct
+    one = dct.ragged_normalize_dct(wire, scalar, height, width, dtype)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    check(torch.equal(one.view(bits), two.view(bits)),
+          "dct_ingest rows=%d %dx%d valid=%d %s is not bitwise dct_unpack "
+          "followed by dct_convert" % (wire.shape[0], height, width, valid,
+                                       dtype))
+    plain = dct.dct_ingest_reference(wire, valid, height, width, dtype)
+    max_steps = int((to_u8(one) - to_u8(plain)).abs().max())
+    exact = float((one == plain).double().mean())
+    check(max_steps <= DCT_STEPS and exact >= DCT_EXACT_SHARE
+          and not one[valid:].float().any(),
+          "dct_ingest rows=%d %dx%d valid=%d %s: %d u8 steps from its plain "
+          "version, exact share %.6f, or pad rows not zero"
+          % (wire.shape[0], height, width, valid, dtype, max_steps, exact))
+    return (float((one.float() - plain.float()).abs().max()), max_steps,
+            exact)
+
+
+def dct_ingest_row(wire, out):
+    """The fused ingest's bound at a wire pool: the counts and the kept
+    (value, position) pairs in, ``out`` out; the unpack's operations
+    (per count: clamp and add; per kept entry: clamp, map, store) and
+    the convert's (two 8-term passes per plane sample, 8 mul + 7 add
+    each, the quantize -- add, floor, clip -- per plane sample, and per
+    pixel BT.601 (10) plus clip, floor, normalize per channel)."""
+    from rnb_tpu_torch.ops import dct
+    nb = dct.num_dct_blocks(HW, HW)
+    coeffs = dct.coeffs_from_elems(HW, HW, wire.shape[-1])
+    counts = wire[..., :nb].long().clamp(0, 64)
+    kept = int(counts.sum(-1).clamp(max=coeffs).sum())
+    frames = wire.shape[0] * wire.shape[1]
+    pixels = frames * HW * HW
+    return dict(
+        bound_bytes=frames * nb * 2 + kept * 4
+        + out.numel() * out.element_size(),
+        bound_ops=2 * frames * nb + 3 * kept
+        + pixels * 3 // 2 * (2 * 15 + 4) + pixels * (10 + 18)), kept
+
+
 def phase_kernels_dct(device):
-    """The dct unpack and convert against their plain versions; returns
-    the timing rows at the dct serving path's 15-row pool and the worst
-    errors (the unpack's in coefficient units, the convert's in output
-    units)."""
+    """The dct kernels against their plain versions, and the fused ingest
+    bitwise the unpack followed by the convert; returns the timing rows
+    at the dct serving path's 15-row pool (the ingest also at 48 rows,
+    each beside the two launches it replaces) and the worst errors (the
+    unpack's in coefficient units, the others' in output units)."""
     import numpy as np
     import torch
     from rnb_tpu_torch.decode import SyntheticDecoder
     from rnb_tpu_torch.ops import dct
-    worst = {"dct_unpack": 0, "dct_convert": 0.0}
+    worst = {"dct_unpack": 0, "dct_convert": 0.0, "dct_ingest": 0.0}
     # one device scalar, rewritten between launches whose arguments stay
     # the same
     scalar = torch.zeros((1,), dtype=torch.int32, device=device)
@@ -461,11 +630,22 @@ def phase_kernels_dct(device):
             pads_zero = not bool(out[valid:].float().any())
             check(pads_zero, "dct_convert rows=%d valid=%d: pad rows are "
                   "not zero" % (rows, valid))
+            fused = []
+            for dtype in (torch.bfloat16, torch.float32):
+                two = out if dtype == torch.bfloat16 else dct.dct_convert(
+                    *planes, scalar, HW, HW, dtype)
+                fused.append(check_dct_ingest(card, scalar, valid, two, HW,
+                                              HW, dtype))
+                worst["dct_ingest"] = max(worst["dct_ingest"], fused[-1][0])
             print("kernels rows=%d rows_valid=%d: dct_unpack bitwise %s; "
                   "dct_convert (device scalar) max %d u8 steps (%d outputs "
-                  "over one, exact share %.6f, pad rows zero %s)"
+                  "over one, exact share %.6f, pad rows zero %s); "
+                  "dct_ingest (device scalar) bitwise dct_unpack + "
+                  "dct_convert in bf16 and f32, max %d u8 steps from its "
+                  "plain version (exact share %.6f), pad rows zero"
                   % (rows, valid, err == 0, max_steps,
-                     int((steps > 1).sum()), exact, pads_zero))
+                     int((steps > 1).sum()), exact, pads_zero,
+                     max(f[1] for f in fused), min(f[2] for f in fused)))
     # a second geometry, both output dtypes
     height, width = DCT_GEOMETRY
     rng = np.random.default_rng(5)
@@ -477,10 +657,11 @@ def phase_kernels_dct(device):
             zz = np.where(rng.random((nb, 64)) < 0.1,
                           rng.integers(-900, 900, (nb, 64)), 0)
             wire[r, f] = dct.pack_frame_dct(zz, height, width)
-    planes = [p.to(device) for p in dct.unpack_dct_rows(
-        torch.from_numpy(wire), height, width)]
-    for valid in (15, 5):
+    wire[14] = rng.integers(-32768, 32768, wire[14].shape)  # garbage row
+    wire = torch.from_numpy(wire).to(device)
+    for valid in (14, 5):
         scalar.fill_(valid)
+        planes = dct.unpack_dct_rows(wire, height, width, valid)
         for dtype in (torch.bfloat16, torch.float32):
             out = dct.dct_convert(*planes, scalar, height, width, dtype)
             plain = dct.dct_convert_reference(*planes, valid, height, width,
@@ -492,9 +673,15 @@ def phase_kernels_dct(device):
                   "dct_convert %dx%d valid=%d %s: %d u8 steps from its "
                   "plain version, exact share %.6f, or pad rows not zero"
                   % (height, width, valid, dtype, max_steps, exact))
-            print("kernels dct_convert %dx%d rows_valid=%d (device scalar) "
-                  "%s: max %d u8 steps, exact share %.6f, pad rows zero"
-                  % (height, width, valid, dtype, max_steps, exact))
+            _, fused_steps, fused_exact = check_dct_ingest(
+                wire, scalar, valid, out, height, width, dtype)
+            print("kernels %dx%d rows_valid=%d (device scalar) %s: "
+                  "dct_convert max %d u8 steps, exact share %.6f, pad rows "
+                  "zero; dct_ingest bitwise dct_unpack + dct_convert, max "
+                  "%d u8 steps from its plain version (exact share %.6f), "
+                  "pad rows zero (the garbage row among them)"
+                  % (height, width, valid, dtype, max_steps, exact,
+                     fused_steps, fused_exact))
     torch.cuda.synchronize()
 
     # timing at the serving shape: a full 15-row pool of synthetic spectra
@@ -505,9 +692,7 @@ def phase_kernels_dct(device):
     planes = dct.unpack_dct_rows(card, HW, HW)
     out = dct.dct_convert(*planes, rows, HW, HW)
     nb = dct.num_dct_blocks(HW, HW)
-    coeffs = dct.coeffs_from_elems(HW, HW, wire.shape[-1])
-    counts = wire[..., :nb].long().clamp(0, 64)
-    kept = int(counts.sum(-1).clamp(max=coeffs).sum())
+    ingest, kept = dct_ingest_row(wire, out)
     frames = rows * FRAMES
     plane_bytes = sum(p.numel() * p.element_size() for p in planes)
     pixels = frames * HW * HW
@@ -524,6 +709,7 @@ def phase_kernels_dct(device):
             # the quantize (add, floor, clip) per plane sample, and per
             # pixel BT.601 (10) plus clip, floor, normalize per channel
             bound_ops=pixels * 3 // 2 * (2 * 15 + 4) + pixels * (10 + 18)),
+        "dct_ingest": ingest,
     }
     calls = {
         "dct_unpack": (lambda: dct.unpack_dct_rows(card, HW, HW),
@@ -531,11 +717,44 @@ def phase_kernels_dct(device):
         "dct_convert": (
             lambda: dct.dct_convert(*planes, rows, HW, HW),
             lambda: dct.dct_convert_reference(*planes, rows, HW, HW)),
+        "dct_ingest": (
+            lambda: dct.normalize_dct(card, HW, HW),
+            lambda: dct.dct_ingest_reference(card, rows, HW, HW)),
     }
     for name, row in timings.items():
         time_kernel(name, row, rows, *calls[name])
     print("dct wire: %d kept coefficients in %d frames (%.1f per block)"
           % (kept, frames, kept / (frames * nb)))
+
+    # the fused ingest beside the two launches it replaces, at 15 rows
+    # and at the yuv420 kernel's 48
+    row = timings["dct_ingest"]
+    big = torch.from_numpy(SyntheticDecoder().decode_clips_dct(
+        "synth://smoke-timing-48", list(range(48)), FRAMES, HW, HW))
+    big_card = big.to(device)
+    big_row, _ = dct_ingest_row(big, dct.normalize_dct(big_card, HW, HW))
+    for suffix, pool in (("", card), ("_48", big_card)):
+        def two(pool=pool):
+            return dct.dct_convert(*dct.unpack_dct_rows(pool, HW, HW),
+                                   int(pool.shape[0]), HW, HW)
+
+        def one(pool=pool):
+            return dct.normalize_dct(pool, HW, HW)
+        if suffix:
+            row["ms_48"] = device_ms(one)
+            row["ms_48_l2_flushed"] = flushed_ms(one)
+            row["bound_ms_48"], _ = bound(big_row["bound_bytes"],
+                                          big_row["bound_ops"])
+        row["two_kernel_ms" + suffix] = device_ms(two)
+        row["two_kernel_ms_l2_flushed" + suffix] = flushed_ms(two)
+        print("timing dct_ingest at %d rows: %.5f ms (L2 flushed %.5f ms) "
+              "for the work of dct_unpack + dct_convert, which take %.5f ms "
+              "(L2 flushed %.5f ms) as two launches (bound %.5f ms)"
+              % (int(pool.shape[0]), row["ms" + suffix],
+                 row["ms%s_l2_flushed" % suffix],
+                 row["two_kernel_ms" + suffix],
+                 row["two_kernel_ms_l2_flushed" + suffix],
+                 row["bound_ms" + suffix]))
     return timings, worst
 
 
@@ -1120,7 +1339,8 @@ def main() -> int:
                 "replaces": " + ".join(kernel.replaced),
                 "launches": launches[kernel.name],
                 "max_abs_err": worst[kernel.name],
-                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "ms": t["ms"], "ms_l2_flushed": t["ms_l2_flushed"],
+                "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t.get("library_ms")})
         print("total %.1f s" % (time.time() - t_start))

@@ -2,11 +2,66 @@
 // (sm_90a). Built by rnb_tpu_torch/ops/_kernels.py with nvcc into a
 // shared library with a plain C interface, bound with ctypes.
 //
-// rnb_dct_unpack -- replaces the jnp scatter `unpack_dct_rows`
-//   (rnb_tpu/ops/dct.py:213-264), which XLA fused into the TPU program.
-//   Packed int16 wire rows (per frame: NB block counts, C values, C
-//   zigzag positions) -> block-tiled int32 coefficient planes (Y, then
-//   U and V at half resolution), every slot written, zeros included.
+// rnb_dct_ingest -- the one launch of a dct emission. Replaces the jnp
+//   scatter `unpack_dct_rows` (rnb_tpu/ops/dct.py:213-264), which XLA
+//   fused into the TPU program, followed by the Pallas kernel
+//   `_dct_kernel` / `_dct_convert_pallas` (:312-374), as
+//   `ragged_normalize_dct` (:421-444) runs the two in one jit. Packed
+//   int16 wire rows (per frame: NB block counts, C values, C zigzag
+//   positions) -> normalized (rows, frames, H, W, 3) bf16 or float32.
+//   Bound: memory. The counts and the kept (value, position) pairs in,
+//   the frames out: at the dct cell's 15-row pool of synthetic spectra
+//   about 0.55 MB in and 9.03 MB of bf16 out, ~2.9 us at 3.35 TB/s; the
+//   IDCT's ~119 MFLOP is ~1.8 us at 67 TFLOP/s.
+//   What held the two launches it replaces (rnb_dct_unpack, then
+//   rnb_dct_convert) back:
+//   - the bytes moved twice: the unpack wrote 6 bytes per pixel of
+//     int32 planes (9.03 MB at 15 rows, 8x the wire) that the convert
+//     read back;
+//   - the unpack ran one CTA per (row, frame): 120 CTAs for 132 SMs;
+//   - inside its CTA the work was serial: a Hillis-Steele scan of the
+//     counts over 320 threads (9 steps, two CTA barriers each), one
+//     thread per block zeroing a 64-slot slab and walking its entries
+//     one at a time, and 16-byte stores to eight tile rows 448 B apart;
+//   - it took `rows_valid` by value and sized its grid by it, so the
+//     launch arguments changed with every ragged emission.
+//   Design: the convert's warp per 16x16 MCU (below) with only its load
+//   phase changed. The warp unpacks its MCU's six blocks from the wire
+//   into a 6 x 64 int32 slab of its own in shared memory, and the row
+//   pass reads its block lines there: no plane reaches device memory.
+//   The grid is the convert's, sized by the pool's rows: 5,880 warps
+//   (1,470 CTAs) at 15 rows. Each warp finds its own offsets: its lanes
+//   stride over the frame's counts (about 10 each at 112x112), clamp
+//   them to [0, 64] and keep five predicated sums -- the counts before
+//   the MCU's top-left luma block, before its bottom-left one, before
+//   its U and its V block, and in all -- which five warp reductions
+//   finish (the top-right and bottom-right blocks follow their left
+//   neighbours by one count). A frame's counts are read by its MCUs
+//   from L1 or L2, and no barrier is wider than the warp. The six
+//   blocks' kept entries are then walked as one list, 32 at a time in
+//   order: entries of one block are consecutive, so within a round the
+//   highest lane on a slot holds the later entry and alone stores it
+//   (`__match_any_sync`), and `__syncwarp` orders the rounds -- the
+//   last entry wins, as in the plain version, whatever the scheduling.
+//   Counts clamp to [0, 64], positions to [0, 63], entries at or past
+//   min(sum of counts, C) are dropped: the reference's garbage
+//   tolerance, bitwise. `rows_valid` is a pointer to an int32 in device
+//   memory (null: every row); rows at or past it store zeros without
+//   reading the wire, so an uninitialized pool tail never reaches a
+//   valid row, and the launch arguments are those of the pool's shape.
+//   The arithmetic after the load is the convert's, so the output is
+//   bitwise that of rnb_dct_unpack followed by rnb_dct_convert.
+//   Measured on an NVIDIA H100 80GB HBM3 at 700 W: 0.0126 ms at 15 rows,
+//   against 0.0187 ms for the two launches and 23% of the byte bound.
+//   Eight count loads in flight a lane, one wave of CTAs, or the counts
+//   read as int32 pairs did not make it faster: what holds it is most
+//   likely instruction throughput (every IDCT operation a separate `_rn`
+//   multiply or add, and the counts' prefix), not memory.
+//
+// rnb_dct_unpack -- the unpack alone, kept as the yardstick of
+//   rnb_dct_ingest's load phase (no serving path launches it). Packed
+//   wire rows -> block-tiled int32 coefficient planes (Y, then U and V
+//   at half resolution), every slot written, zeros included.
 //   Design: one CTA per (row, frame) and one thread per 8x8 block. The
 //   CTA clamps the counts to [0, 64] and scans them in shared memory;
 //   block b then owns exactly the entries [cum[b-1], cum[b]) cut to
@@ -18,10 +73,11 @@
 //   or past `rows_valid` get no CTA: nothing reads or writes them.
 //   Bound: memory. The counts and the kept entries in, 6 bytes per
 //   pixel of int32 planes out (15 rows x 8 frames of 112x112: about
-//   1 MB in, 9.03 MB out, ~3 us at 3.35 TB/s).
+//   0.55 MB in, 9.03 MB out, ~2.9 us at 3.35 TB/s).
 //
 // rnb_dct_convert -- port of the Pallas kernel `_dct_kernel` /
-//   `_dct_convert_pallas` (rnb_tpu/ops/dct.py:312-374). Per 8x8 block a
+//   `_dct_convert_pallas` (rnb_tpu/ops/dct.py:312-374) on int32 planes,
+//   kept as the yardstick of rnb_dct_ingest's arithmetic. Per 8x8 block a
 //   separable 8-point IDCT (rows, then columns) on the float32 basis
 //   kIdct8, `floor(p + 128.5)` clipped to [0, 255], BT.601 with the
 //   chroma read through the nearest 2x map, clip and truncate, then
@@ -83,8 +139,11 @@ constexpr int kMaxUnpackThreads = 512;
 // in bank (t + k) % 32, so no two lanes of a warp share a bank
 constexpr int kSlabStride = 65;
 
-// zigzag scan position -> natural (row-major u*8+v) coefficient index
-__constant__ int kZigzagNatural[64] = {
+// zigzag scan position -> natural (row-major u*8+v) coefficient index;
+// in global memory, read through the read-only data cache: the lanes of
+// a warp look it up at different positions, which a `__constant__`
+// table serves one address at a time
+__device__ const int kZigzagNatural[64] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
@@ -154,7 +213,7 @@ __global__ void dct_unpack_kernel(const int16_t* __restrict__ wire,
     for (int e = start; e < stop; ++e) {
       int p = poss[e];
       p = p < 0 ? 0 : (p > 63 ? 63 : p);
-      slab[kZigzagNatural[p]] = vals[e];
+      slab[__ldg(&kZigzagNatural[p])] = vals[e];
     }
     start = end;
 
@@ -261,10 +320,11 @@ __device__ __forceinline__ int block_pitch(int blk) {
   return blk < 4 ? kLumaPitch : kChromaPitch;
 }
 
-// The load phase: the lane's block lines -- line ids lane and lane + 32
-// of the MCU's 48 -- as two int4 each, every load issued before any is
-// used. (A later fusion can replace this function by an unpack of the
-// wire into the same registers.)
+// The load phase gives each lane its block lines -- line ids lane and
+// lane + 32 of the MCU's 48 -- as two int4 each (zeros past 48). A
+// source's `load` does it for the MCU at stripe s, column c of `frame`.
+
+// From int32 planes: every load in flight before any is used.
 __device__ __forceinline__ void load_lines(const int32_t* __restrict__ y,
                                            const int32_t* __restrict__ u,
                                            const int32_t* __restrict__ v,
@@ -288,6 +348,145 @@ __device__ __forceinline__ void load_lines(const int32_t* __restrict__ y,
     }
   }
 }
+
+struct PlaneSource {
+  const int32_t* y;
+  const int32_t* u;
+  const int32_t* v;
+
+  __device__ __forceinline__ void load(unsigned frame, unsigned s,
+                                       unsigned c, int height, int width,
+                                       int lane, int4 (&q)[2][2]) const {
+    load_lines(y + (static_cast<long long>(frame) * height + s * 16) * width
+                   + c * 16,
+               u + (static_cast<long long>(frame) * (height / 2) + s * 8)
+                       * (width / 2) + c * 8,
+               v + (static_cast<long long>(frame) * (height / 2) + s * 8)
+                       * (width / 2) + c * 8,
+               width, lane, q);
+  }
+};
+
+constexpr int kMcuBlocks = 6;
+constexpr int kMcuCoeffs = kMcuBlocks * 64;
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// From the wire: the MCU's six blocks are unpacked into the warp's slab
+// in shared memory (slot blk * 64 + natural index, the blocks numbered
+// as the convert numbers them: luma (0, 0), (0, 1), (1, 0), (1, 1), U,
+// V), and the lanes read their block lines there.
+struct WireSource {
+  const int16_t* wire;
+  int coeffs;
+
+  __device__ __forceinline__ void load(unsigned frame, unsigned s,
+                                       unsigned c, int height, int width,
+                                       int lane, int4 (&q)[2][2]) const {
+    __shared__ __align__(16) int32_t slabs[kWarps][kMcuCoeffs];
+    int32_t* slab = slabs[threadIdx.x >> 5];
+    const int luma_bw = width / 8;
+    const int across = width / 16;
+    const int ny = (height / 8) * luma_bw;
+    const int nc = (height / 16) * across;
+    const int nb = ny + 2 * nc;
+    const int16_t* counts =
+        wire + static_cast<long long>(frame) * (nb + 2 * coeffs);
+    const int16_t* vals = counts + nb;
+    const int16_t* poss = vals + coeffs;
+    const int top = 2 * s * luma_bw + 2 * c;  // top-left luma block
+    const int bottom = top + luma_bw;         // bottom-left
+    const int ublk = ny + s * across + c;
+    const int vblk = ublk + nc;
+
+#pragma unroll
+    for (int k = 0; k < kMcuCoeffs / 128; ++k)
+      reinterpret_cast<int4*>(slab)[lane + 32 * k] = make_int4(0, 0, 0, 0);
+
+    // the clamped counts before the top-left, the bottom-left, the U
+    // and the V block, and in all
+    int before_top = 0, before_bottom = 0, before_u = 0, before_v = 0;
+    int total = 0;
+    for (int i = lane; i < nb; i += 32) {
+      const int n = clamp_count(counts[i]);
+      before_top += i < top ? n : 0;
+      before_bottom += i < bottom ? n : 0;
+      before_u += i < ublk ? n : 0;
+      before_v += i < vblk ? n : 0;
+      total += n;
+    }
+    before_top = __reduce_add_sync(kFullWarp, before_top);
+    before_bottom = __reduce_add_sync(kFullWarp, before_bottom);
+    before_u = __reduce_add_sync(kFullWarp, before_u);
+    before_v = __reduce_add_sync(kFullWarp, before_v);
+    const int limit = min(__reduce_add_sync(kFullWarp, total), coeffs);
+
+    // lane b < 6: block b keeps the entries [first, first + kept) of the
+    // wire, its share of [0, limit)
+    int first = 0, kept = 0;
+    if (lane < kMcuBlocks) {
+      int blk, start;
+      if (lane < 4) {
+        const int left = lane < 2 ? top : bottom;
+        blk = left + (lane & 1);
+        start = (lane < 2 ? before_top : before_bottom)
+                + ((lane & 1) ? clamp_count(counts[left]) : 0);
+      } else {
+        blk = lane == 4 ? ublk : vblk;
+        start = lane == 4 ? before_u : before_v;
+      }
+      first = min(start, limit);
+      kept = min(start + clamp_count(counts[blk]), limit) - first;
+    }
+    // the six blocks' kept entries as one list: block b holds items
+    // [begin[b], begin[b] + its kept), item i at wire entry i + shift[b]
+    int begin[kMcuBlocks], shift[kMcuBlocks];
+    int items = 0;
+#pragma unroll
+    for (int b = 0; b < kMcuBlocks; ++b) {
+      begin[b] = items;
+      shift[b] = __shfl_sync(kFullWarp, first, b) - items;
+      items += __shfl_sync(kFullWarp, kept, b);
+    }
+    __syncwarp();  // the zeros are in place before any entry lands
+
+    // 32 items a round, in order. A block's items are consecutive, so of
+    // the lanes on one slot the highest holds the latest entry: it alone
+    // stores, and the rounds are ordered -- the last entry wins
+    for (int round = 0; round < items; round += 32) {
+      const int item = round + lane;
+      int blk = 0, entry = 0;
+#pragma unroll
+      for (int b = 0; b < kMcuBlocks; ++b) {
+        if (item >= begin[b]) {
+          blk = b;
+          entry = item + shift[b];
+        }
+      }
+      int slot = -1 - lane;  // no item: a key no other lane holds
+      int value = 0;
+      if (item < items) {
+        int p = poss[entry];
+        p = p < 0 ? 0 : (p > 63 ? 63 : p);
+        slot = blk * 64 + __ldg(&kZigzagNatural[p]);
+        value = vals[entry];
+      }
+      const unsigned same = __match_any_sync(kFullWarp, slot);
+      if (item < items && (same >> lane) == 1u) slab[slot] = value;
+      __syncwarp();
+    }
+
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int l = lane + 32 * k;
+      q[k][0] = make_int4(0, 0, 0, 0);
+      q[k][1] = q[k][0];
+      if (l < 48) {
+        q[k][0] = reinterpret_cast<const int4*>(slab + l * 8)[0];
+        q[k][1] = reinterpret_cast<const int4*>(slab + l * 8)[1];
+      }
+    }
+  }
+};
 
 // Both passes sum from index 0 up (the first version's order). Terms
 // past a line's last non-zero input add fl(m * 0) = +-0, which leaves
@@ -348,13 +547,12 @@ __device__ __forceinline__ void idct_terms(unsigned k, const float (&in)[8],
   }
 }
 
-template <typename Out>
-__global__ void __launch_bounds__(kConvertThreads)
-dct_convert_kernel(const int32_t* __restrict__ ycoef,
-                   const int32_t* __restrict__ ucoef,
-                   const int32_t* __restrict__ vcoef, Out* __restrict__ out,
-                   const int32_t* __restrict__ rows_valid_ptr, int rows,
-                   int frames, int height, int width, unsigned mcus) {
+// One warp's MCU, from its source's load phase to the stores.
+template <typename Out, typename Source>
+__device__ __forceinline__ void convert_mcu(
+    const Source& source, Out* __restrict__ out,
+    const int32_t* __restrict__ rows_valid_ptr, int rows, int frames,
+    int height, int width, unsigned mcus) {
   constexpr int kChunks = PackRun<Out>::kChunks;  // per lane
   constexpr int kLineChunks = 2 * kChunks;        // per MCU output line
   __shared__ __align__(16) float smem[kWarps][kMcuFloats];
@@ -387,13 +585,7 @@ dct_convert_kernel(const int32_t* __restrict__ ycoef,
 
   float* mcu = smem[warp];
   int4 q[2][2];
-  load_lines(ycoef + (static_cast<long long>(frame) * height + s * 16)
-                         * width + c * 16,
-             ucoef + (static_cast<long long>(frame) * (height / 2) + s * 8)
-                         * (width / 2) + c * 8,
-             vcoef + (static_cast<long long>(frame) * (height / 2) + s * 8)
-                         * (width / 2) + c * 8,
-             width, lane, q);
+  source.load(frame, s, c, height, width, lane, q);
 
   // row pass: one lane per block line, the line's 8 values in registers
 #pragma unroll
@@ -495,6 +687,27 @@ dct_convert_kernel(const int32_t* __restrict__ ycoef,
   }
 }
 
+template <typename Out>
+__global__ void __launch_bounds__(kConvertThreads)
+dct_convert_kernel(const int32_t* __restrict__ ycoef,
+                   const int32_t* __restrict__ ucoef,
+                   const int32_t* __restrict__ vcoef, Out* __restrict__ out,
+                   const int32_t* __restrict__ rows_valid_ptr, int rows,
+                   int frames, int height, int width, unsigned mcus) {
+  convert_mcu<Out>(PlaneSource{ycoef, ucoef, vcoef}, out, rows_valid_ptr,
+                   rows, frames, height, width, mcus);
+}
+
+template <typename Out>
+__global__ void __launch_bounds__(kConvertThreads)
+dct_ingest_kernel(const int16_t* __restrict__ wire, int coeffs,
+                  Out* __restrict__ out,
+                  const int32_t* __restrict__ rows_valid_ptr, int rows,
+                  int frames, int height, int width, unsigned mcus) {
+  convert_mcu<Out>(WireSource{wire, coeffs}, out, rows_valid_ptr, rows,
+                   frames, height, width, mcus);
+}
+
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t bytes) {
   // above 48 KB a block's dynamic shared memory must be asked for
@@ -504,20 +717,44 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The MCU kernels' grid: one warp per MCU of the pool; false when the
+// MCUs cannot be counted in 32 bits
+bool mcu_grid(int rows, int frames, int height, int width,
+              unsigned* mcus, unsigned* blocks) {
+  const long long n = static_cast<long long>(rows) * frames
+                      * (height / 16) * (width / 16);
+  if (n > 0xffffffffLL) return false;
+  *mcus = static_cast<unsigned>(n);
+  *blocks = static_cast<unsigned>((n + kWarps - 1) / kWarps);
+  return true;
+}
+
 template <typename Out>
 int launch_convert(const void* ycoef, const void* ucoef, const void* vcoef,
                    void* out, const void* rows_valid, int rows, int frames,
                    int height, int width, cudaStream_t stream) {
-  const long long mcus = static_cast<long long>(rows) * frames
-                         * (height / 16) * (width / 16);
-  if (mcus > 0xffffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = static_cast<unsigned>(
-      (mcus + kWarps - 1) / kWarps);
+  unsigned mcus, blocks;
+  if (!mcu_grid(rows, frames, height, width, &mcus, &blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
   dct_convert_kernel<Out><<<blocks, kConvertThreads, 0, stream>>>(
       static_cast<const int32_t*>(ycoef), static_cast<const int32_t*>(ucoef),
       static_cast<const int32_t*>(vcoef), static_cast<Out*>(out),
       static_cast<const int32_t*>(rows_valid), rows, frames, height, width,
-      static_cast<unsigned>(mcus));
+      mcus);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Out>
+int launch_ingest(const void* wire, void* out, const void* rows_valid,
+                  int rows, int frames, int height, int width, int coeffs,
+                  cudaStream_t stream) {
+  unsigned mcus, blocks;
+  if (!mcu_grid(rows, frames, height, width, &mcus, &blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dct_ingest_kernel<Out><<<blocks, kConvertThreads, 0, stream>>>(
+      static_cast<const int16_t*>(wire), coeffs, static_cast<Out*>(out),
+      static_cast<const int32_t*>(rows_valid), rows, frames, height, width,
+      mcus);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -571,6 +808,25 @@ int rnb_dct_convert(const void* ycoef, const void* ucoef, const void* vcoef,
                                          width, s);
   return launch_convert<float>(ycoef, ucoef, vcoef, out, rows_valid, rows,
                                frames, height, width, s);
+}
+
+// wire: (rows, frames, NB + 2C) int16, NB = num_dct_blocks(H, W); out:
+// (rows, frames, H, W, 3), bf16 when out_bf16 is non-zero, else
+// float32, 16-byte aligned; rows_valid: one int32 in device memory, or
+// null for every row. Rows at or past it are stored as zeros, their
+// wire unread. H % 16 == W % 16 == 0.
+int rnb_dct_ingest(const void* wire, void* out, const void* rows_valid,
+                   int rows, int frames, int height, int width, int coeffs,
+                   int out_bf16, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (static_cast<long long>(rows) * frames * height == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_bf16)
+    return launch_ingest<__nv_bfloat16>(wire, out, rows_valid, rows, frames,
+                                        height, width, coeffs, s);
+  return launch_ingest<float>(wire, out, rows_valid, rows, frames, height,
+                              width, coeffs, s);
 }
 
 }  // extern "C"

@@ -175,6 +175,12 @@ DCT_CONVERT = Kernel(
     "dct_convert", "dct.cu", "rnb_dct_convert",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I],
     "rnb_tpu/ops/dct.py:312 (_dct_kernel via _dct_convert_pallas)")
+DCT_INGEST = Kernel(
+    "dct_ingest", "dct.cu", "rnb_dct_ingest",
+    [_P, _P, _P, _I, _I, _I, _I, _I, _I],
+    "rnb_tpu/ops/dct.py:213 (unpack_dct_rows, jnp scatter fused by XLA) "
+    "followed by rnb_tpu/ops/dct.py:312 (_dct_kernel via "
+    "_dct_convert_pallas)")
 GATHER_ROWS = Kernel(
     "gather_rows", "pages.cu", "rnb_gather_rows",
     [_P, _P, _P, _P, _L, _L, _L],
@@ -187,7 +193,7 @@ RAGGED_NORMALIZE_U8 = Kernel(
     "_ragged_normalize_pallas)")
 
 KERNELS = (NORMALIZE_U8, YUV420_TO_RGB_U8, YUV420_NORMALIZE, DCT_UNPACK,
-           DCT_CONVERT, GATHER_ROWS, RAGGED_NORMALIZE_U8)
+           DCT_CONVERT, DCT_INGEST, GATHER_ROWS, RAGGED_NORMALIZE_U8)
 
 
 def reset_launches() -> None:

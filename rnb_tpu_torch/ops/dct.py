@@ -8,11 +8,15 @@ default budget); the card runs
     unpack  ->  IDCT  ->  2x nearest chroma upsample  ->  BT.601
             ->  u8 quantize  ->  normalize to [-1, 1]
 
-as two hand-written kernels (``csrc/dct.cu``): ``rnb_dct_unpack``
-scatters the wire rows into block-tiled dense coefficient planes, and
-``rnb_dct_convert`` does the rest per 8x8 block with a separable IDCT.
-A CPU tensor takes the plain PyTorch versions; nothing falls back from
-one to the other.
+as one hand-written kernel (``csrc/dct.cu``, ``rnb_dct_ingest``): a
+warp per 16x16 MCU unpacks its six blocks from the wire into shared
+memory and runs a separable IDCT on each. The two halves also stand
+alone as entries with kernels of their own, ``unpack_dct_rows``
+(``rnb_dct_unpack``: the wire rows scattered into block-tiled dense
+coefficient planes) and ``dct_convert`` (``rnb_dct_convert``: planes to
+frames); the fused kernel is held bitwise to the two. A CPU tensor
+takes the plain PyTorch versions; nothing falls back from one to the
+other.
 
 Wire row format (``dct_frame_elems`` int16 elements per frame; one clip
 row is ``(consecutive_frames, elems)``), for ``H % 16 == W % 16 == 0``:
@@ -47,7 +51,8 @@ import numpy as np
 import torch
 
 from rnb_tpu_torch.ops import _kernels
-from rnb_tpu_torch.ops.preprocess import (INV_255, check_kernel_input,
+from rnb_tpu_torch.ops.preprocess import (INV_255, RowsValid,
+                                          check_kernel_input,
                                           rows_valid_int,
                                           rows_valid_pointer)
 
@@ -286,12 +291,32 @@ def dct_convert_reference(ycoef: torch.Tensor, ucoef: torch.Tensor,
     return out
 
 
+def dct_ingest_reference(wire: torch.Tensor, rows_valid: int,
+                         height: int, width: int,
+                         dtype: torch.dtype = torch.bfloat16
+                         ) -> torch.Tensor:
+    """The plain ingest: wire rows ``(rows, F, elems)`` -> ``(rows, F,
+    H, W, 3)`` ``dtype``, the plain unpack followed by the plain
+    convert; rows at or past ``rows_valid`` are zeros."""
+    planes = unpack_dct_rows_reference(wire, height, width)
+    return dct_convert_reference(*planes, rows_valid, height, width, dtype)
+
+
 # -- entry points -------------------------------------------------------
 
 def _check_out_dtype(dtype: torch.dtype) -> None:
     if dtype not in CONVERT_DTYPES:
         raise TypeError("the convert kernel writes %s, got %s"
                         % (CONVERT_DTYPES, dtype))
+
+
+def _wire_coeffs(x: torch.Tensor, height: int, width: int) -> int:
+    """The budget C of wire rows ``(rows, frames, NB + 2C)``; raises on
+    any other shape."""
+    if x.dim() != 3:
+        raise ValueError("dct wire rows are (rows, frames, elems), got "
+                         "shape %s" % (tuple(x.shape),))
+    return coeffs_from_elems(height, width, x.shape[-1])
 
 
 def _clamp_rows(rows_valid: Optional[int], rows: int) -> int:
@@ -310,10 +335,7 @@ def unpack_dct_rows(x: torch.Tensor, height: int, width: int,
     rows ``< rows_valid`` (all by default) only: the planes of the rows
     past it are left as allocated, since the convert never reads them.
     A CPU tensor runs the plain version on every row."""
-    if x.dim() != 3:
-        raise ValueError("dct wire rows are (rows, frames, elems), got "
-                         "shape %s" % (tuple(x.shape),))
-    coeffs = coeffs_from_elems(height, width, x.shape[-1])
+    coeffs = _wire_coeffs(x, height, width)
     if x.device.type == "cpu":
         return unpack_dct_rows_reference(x, height, width)
     check_kernel_input(x, "unpack_dct_rows", torch.int16)
@@ -368,18 +390,33 @@ def dct_convert(ycoef: torch.Tensor, ucoef: torch.Tensor,
     return out
 
 
-def ragged_normalize_dct(pool: torch.Tensor, rows_valid: int,
+def ragged_normalize_dct(pool: torch.Tensor, rows_valid: RowsValid,
                          height: int, width: int,
                          dtype: torch.dtype = torch.bfloat16
                          ) -> torch.Tensor:
-    """The ragged ingest of the dct path: wire row pool + ``rows_valid``
-    -> normalized NDHWC pool whose rows ``>= rows_valid`` are exactly
-    zero. On the card neither kernel reads the pool tail."""
-    if pool.device.type != "cpu":
-        _check_out_dtype(dtype)   # before the unpack launches
-    rows_valid = _clamp_rows(rows_valid, int(pool.shape[0]))
-    planes = unpack_dct_rows(pool, height, width, rows_valid)
-    return dct_convert(*planes, rows_valid, height, width, dtype)
+    """The ragged ingest of the dct path: wire row pool ``(rows, F,
+    elems)`` int16 + ``rows_valid`` (an int or a 1-element int32 tensor
+    on the pool's device) -> normalized NDHWC pool whose rows ``>=
+    rows_valid`` are exactly zero. A CUDA pool launches
+    ``rnb_dct_ingest`` once; it reads ``rows_valid`` from device memory
+    (see :func:`dct_convert`) and never reads the pool tail. A CPU pool
+    runs :func:`dct_ingest_reference`."""
+    coeffs = _wire_coeffs(pool, height, width)
+    rows, frames = int(pool.shape[0]), int(pool.shape[1])
+    if pool.device.type == "cpu":
+        return dct_ingest_reference(
+            pool, rows_valid_int(rows_valid, rows, pool.device), height,
+            width, dtype)
+    check_kernel_input(pool, "ragged_normalize_dct", torch.int16)
+    _check_out_dtype(dtype)
+    valid = rows_valid_pointer(rows_valid, rows, pool.device)
+    out = torch.empty((rows, frames, height, width, 3), dtype=dtype,
+                      device=pool.device)
+    if out.numel():
+        _kernels.DCT_INGEST.launch(pool, out, valid, rows, frames, height,
+                                   width, coeffs,
+                                   int(dtype == torch.bfloat16))
+    return out
 
 
 def normalize_dct(pool: torch.Tensor, height: int, width: int,
@@ -387,8 +424,7 @@ def normalize_dct(pool: torch.Tensor, height: int, width: int,
     """The bucketed ingest: every row converted. Zero wire rows (the
     loader's bucket padding) decode to flat mid-gray, 1/255 after the
     normalize, as in the reference."""
-    return ragged_normalize_dct(pool, int(pool.shape[0]), height, width,
-                                dtype)
+    return ragged_normalize_dct(pool, None, height, width, dtype)
 
 
 # -- numpy oracle (tests) -----------------------------------------------

@@ -34,7 +34,7 @@ from typing import Dict, List
 KERNEL_FAMILIES = (
     ("ingest", ("normalize_u8_kernel", "ragged_normalize_u8_kernel",
                 "yuv420_kernel", "dct_unpack_kernel",
-                "dct_convert_kernel")),
+                "dct_convert_kernel", "dct_ingest_kernel")),
     ("gather", ("gather_rows_kernel",)),
     ("conv_f32", ("f32f32",)),
     ("conv", ("fprop", "conv")),

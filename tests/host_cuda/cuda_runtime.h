@@ -2,9 +2,9 @@
 // rnb_tpu_torch/csrc/ use, so that tests/test_torch_host_cuda.py can
 // compile them with a host C++ compiler and run them on the CPU.
 // Every CUDA thread of a block is a std::thread; __syncthreads is a
-// barrier of the block, __syncwarp and the warp vote a barrier of the
-// warp; blocks run one after another, so `__shared__` variables become
-// function statics. Float intrinsics round each operation once (the
+// barrier of the block, __syncwarp and the warp collectives a barrier
+// of the warp; blocks run one after another, so `__shared__` variables
+// become function statics. Float intrinsics round each operation once (the
 // file is compiled with -ffp-contract=off), as the card does. It checks
 // indexing, masking and arithmetic; it says nothing about speed, and a
 // race that the hardware's scheduling would expose may pass here.
@@ -52,6 +52,38 @@ inline unsigned __reduce_max_sync(unsigned, unsigned value) {
   host_warp_barrier->arrive_and_wait();
   return most;
 }
+
+// The other warp collectives, on the same vote array: every lane posts
+// its value, the warp meets, each lane reads what it needs, the warp
+// meets again before the array is reused.
+inline int __reduce_add_sync(unsigned, int value) {
+  const unsigned first = threadIdx.x & ~31u;
+  host_vote[threadIdx.x] = static_cast<unsigned>(value);
+  host_warp_barrier->arrive_and_wait();
+  unsigned sum = 0;
+  for (unsigned i = first; i < first + 32; ++i) sum += host_vote[i];
+  host_warp_barrier->arrive_and_wait();
+  return static_cast<int>(sum);
+}
+inline int __shfl_sync(unsigned, int value, int src) {
+  host_vote[threadIdx.x] = static_cast<unsigned>(value);
+  host_warp_barrier->arrive_and_wait();
+  const int got = static_cast<int>(host_vote[(threadIdx.x & ~31u) + src]);
+  host_warp_barrier->arrive_and_wait();
+  return got;
+}
+inline unsigned __match_any_sync(unsigned, int value) {
+  const unsigned first = threadIdx.x & ~31u;
+  host_vote[threadIdx.x] = static_cast<unsigned>(value);
+  host_warp_barrier->arrive_and_wait();
+  unsigned same = 0;
+  for (unsigned i = first; i < first + 32; ++i)
+    if (host_vote[i] == static_cast<unsigned>(value)) same |= 1u << (i - first);
+  host_warp_barrier->arrive_and_wait();
+  return same;
+}
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
 
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(8) uint2 { unsigned x, y; };

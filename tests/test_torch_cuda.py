@@ -68,6 +68,7 @@ def test_wrappers_count_launches_and_refuse_what_kernels_cannot_take(
                                         "yuv420_to_rgb_u8": 1,
                                         "yuv420_normalize": 0,
                                         "dct_unpack": 0, "dct_convert": 0,
+                                        "dct_ingest": 0,
                                         "gather_rows": 0,
                                         "ragged_normalize_u8": 0}
     with pytest.raises(TypeError):
@@ -90,7 +91,8 @@ def test_wrappers_count_launches_and_refuse_what_kernels_cannot_take(
     assert _kernels.launch_counts() == {"normalize_u8": 1,
                                         "yuv420_to_rgb_u8": 1,
                                         "yuv420_normalize": 0,
-                                        "dct_unpack": 1, "dct_convert": 1,
+                                        "dct_unpack": 0, "dct_convert": 0,
+                                        "dct_ingest": 1,
                                         "gather_rows": 0,
                                         "ragged_normalize_u8": 0}
 
@@ -281,6 +283,50 @@ def test_dct_convert_at_two_widths_reads_rows_valid_from_the_card(device):
                 assert not out[valid:].float().any()
                 assert torch.equal(dct.dct_convert(*planes, valid, h, w,
                                                    dtype), out)
+
+
+def test_dct_ingest_is_bitwise_the_two_kernels_on_card(device):
+    # tolerance: none against rnb_dct_unpack followed by rnb_dct_convert
+    # (the same arithmetic after the load phase), in both dtypes; against
+    # the plain version two u8 steps with at least 99% exact, as for the
+    # convert; pad rows exact zeros whatever the pool tail holds. One
+    # device scalar is rewritten between launches with the same
+    # arguments (clamped to [0, rows]), and the int form gives the same
+    # bytes; 64x176 is wider than one round of the load phase
+    rng = np.random.default_rng(41)
+    scalar = torch.zeros((1,), dtype=torch.int32, device=device)
+    wide = np.empty((4, 3, dct.dct_frame_elems(64, 176)), np.int16)
+    nb = dct.num_dct_blocks(64, 176)
+    for r in range(3):
+        for f in range(3):
+            zz = np.where(rng.random((nb, 64)) < 0.05,
+                          rng.integers(-900, 900, (nb, 64)), 0)
+            wide[r, f] = dct.pack_frame_dct(zz, 64, 176)
+    wide[3] = rng.integers(-32768, 32768, wide[3].shape)
+    for pool, h, w in ((_dct_pool(15, seed=40), 112, 112),
+                       (_dct_pool(4, seed=44), 112, 112),
+                       (torch.from_numpy(wide), 64, 176)):
+        card = pool.to(device)
+        rows = int(pool.shape[0])
+        _kernels.reset_launches()
+        for valid in (rows, 2, 0, rows + 3, -1):
+            scalar.fill_(valid)
+            n = max(0, min(valid, rows))
+            planes = dct.unpack_dct_rows(card, h, w, n)
+            for dtype in (torch.bfloat16, torch.float32):
+                bits = (torch.int16 if dtype == torch.bfloat16
+                        else torch.int32)
+                one = dct.ragged_normalize_dct(card, scalar, h, w, dtype)
+                two = dct.dct_convert(*planes, scalar, h, w, dtype)
+                assert one.dtype == dtype
+                assert torch.equal(one.view(bits), two.view(bits))
+                assert torch.equal(dct.ragged_normalize_dct(
+                    card, valid, h, w, dtype).view(bits), one.view(bits))
+                plain = dct.dct_ingest_reference(card, n, h, w, dtype)
+                assert float((_u8(one) - _u8(plain)).abs().max()) <= 2
+                assert float((one == plain).double().mean()) >= 0.99
+                assert not one[n:].float().any()
+        assert _kernels.DCT_INGEST.launches == 20
 
 
 def _gather_tables(pool_rows, slab_rows, seed):

@@ -16,6 +16,7 @@ versions, which the CUDA kernels are held to on the card:
 Tolerances, with their reasons, are stated per test.
 """
 
+import ctypes
 import os
 import re
 
@@ -208,6 +209,72 @@ def test_ragged_normalize_dct_within_idct_rounding_of_jax(hw, valid):
         assert (ours == ref).mean() >= EXACT_SHARE
         np.testing.assert_array_equal(ours[valid:], ref[valid:])
     assert not ours[valid:].any()
+
+
+@pytest.mark.parametrize("hw", [32, 112])
+@pytest.mark.parametrize("valid", [0, 2, 4])
+def test_dct_ingest_reference_with_garbage_tail_within_idct_rounding_of_jax(
+        hw, valid):
+    # the port's CPU ragged ingest is dct_ingest_reference (bitwise),
+    # held to the JAX ragged_normalize_dct -- the jnp twin and the Pallas
+    # body in interpret mode -- within RGB_STEPS with at least 99% exact,
+    # on a pool whose two tail rows are garbage (random int16, then small
+    # counts and positions that put many entries on one slot): pad rows
+    # exact zeros in all three
+    pool = np.concatenate([_well_formed(4, 2, hw, seed=valid),
+                           _garbage(2, 2, hw, seed=30 + valid)])
+    ours = dct.ragged_normalize_dct(torch.from_numpy(pool), valid, hw, hw,
+                                    torch.float32)
+    assert torch.equal(ours, dct.dct_ingest_reference(
+        torch.from_numpy(pool), valid, hw, hw, torch.float32))
+    ours = ours.numpy()
+    for interpret in (False, True):
+        ref = np.asarray(jax_dct.ragged_normalize_dct(
+            jnp.asarray(pool), valid, hw, hw, dtype=jnp.float32,
+            interpret=interpret))
+        assert np.abs(_u8(ours) - _u8(ref)).max() <= RGB_STEPS
+        assert (ours == ref).mean() >= EXACT_SHARE
+        np.testing.assert_array_equal(ours[valid:], ref[valid:])
+    assert not ours[valid:].any()
+
+
+def _c_parameters(kernel):
+    """(C type, name) of each parameter of a kernel's C entry before
+    (device, stream), read from its source."""
+    with open(os.path.join(_kernels.CSRC_DIR, kernel.source)) as f:
+        source = f.read()
+    params = re.search(r"int %s\((.*?)\)\s*\{" % kernel.symbol, source,
+                       re.S).group(1)
+    out = [re.match(r"(.*?)\s*(\w+)$", " ".join(p.split())).groups()
+           for p in params.split(",")]
+    assert [name for _, name in out[-2:]] == ["device", "stream"]
+    return out[:-2]
+
+
+def test_dct_ingest_takes_rows_valid_as_a_device_pointer():
+    params = _c_parameters(_kernels.DCT_INGEST)
+    assert len(params) == len(_kernels.DCT_INGEST.argtypes)
+    i = [name for _, name in params].index("rows_valid")
+    assert params[i][0] == "const void*"
+    assert _kernels.DCT_INGEST.argtypes[i] is ctypes.c_void_p
+
+
+def test_no_kernel_takes_an_emission_rows_valid_by_value():
+    # every kernel whose caller hands it the emission's rows_valid reads
+    # it from device memory, so the launch arguments depend on the pool
+    # shape alone. Two take it by value: rnb_dct_unpack, which no serving
+    # path launches now (the tests' yardstick of rnb_dct_ingest), and
+    # rnb_normalize_u8, whose serving entry normalize_u8 passes the row
+    # count (ops/preprocess.py); the ragged rgb path has its own kernel
+    by_value = []
+    for kernel in _kernels.KERNELS:
+        params = _c_parameters(kernel)
+        assert len(params) == len(kernel.argtypes), kernel.name
+        for (ctype, name), argtype in zip(params, kernel.argtypes):
+            if name == "rows_valid" and (ctype != "const void*"
+                                         or argtype is not ctypes.c_void_p):
+                by_value.append(kernel.name)
+    assert sorted(by_value) == ["dct_unpack", "normalize_u8"]
 
 
 def test_normalize_dct_bucketed_pads_are_mid_gray():

@@ -5,8 +5,9 @@ barriers, warp votes, shared memory, the rounding intrinsics), so a
 host C++ compiler builds ``rnb_tpu_torch/csrc/ingest.cu`` and
 ``dct.cu`` unchanged but for the launch syntax. The kernels then run on
 CPU tensors through their C entry points and are held to the plain
-versions: this checks their indexing, masking, vector and scalar paths
-and arithmetic on the CPU. Speed, and races that only the card's
+versions, and the fused dct ingest bitwise to the unpack and convert
+kernels it fuses: this checks their indexing, masking, vector and
+scalar paths, warp collectives and arithmetic on the CPU. Speed, and races that only the card's
 scheduling would expose, are the card's to show (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
@@ -152,3 +153,97 @@ def test_dct_kernels_equal_the_plain_versions(libs, h, w, valid):
         assert float(steps.max()) <= 2
         assert float((out == ref).double().mean()) >= 0.99
         assert not out[n:].float().any()
+
+
+def _steps(out, ref):
+    """Normalized outputs apart, in u8 steps."""
+    return (torch.round((out.float() * 255 + 255) / 2)
+            - torch.round((ref.float() * 255 + 255) / 2)).abs()
+
+
+def _ingest_and_two_kernels(libs, wire, valid, h, w, dtype):
+    """``rnb_dct_ingest``'s output, and the planes and output of
+    ``rnb_dct_unpack`` followed by ``rnb_dct_convert``, on the emulated
+    card; ``rows_valid`` from a device scalar (None: a null pointer).
+    Every buffer starts as garbage."""
+    rows, frames = int(wire.shape[0]), int(wire.shape[1])
+    coeffs = dct.coeffs_from_elems(h, w, wire.shape[-1])
+    scalar = _scalar(valid)
+    bf16 = int(dtype == torch.bfloat16)
+    planes = [torch.full((rows, frames, h // k, w // k), 99,
+                         dtype=torch.int32) for k in (1, 2, 2)]
+    assert libs["dct_unpack"](
+        _ptr(wire), *(_ptr(p) for p in planes),
+        rows if valid is None else valid, frames, h, w, coeffs, 0,
+        None) == 0
+    two = torch.full((rows, frames, h, w, 3), 7.0, dtype=dtype)
+    assert libs["dct_convert"](
+        *(_ptr(p) for p in planes), _ptr(two), _ptr(scalar), rows, frames,
+        h, w, bf16, 0, None) == 0
+    one = torch.full(two.shape, 5.0, dtype=dtype)
+    assert libs["dct_ingest"](
+        _ptr(wire), _ptr(one), _ptr(scalar), rows, frames, h, w, coeffs,
+        bf16, 0, None) == 0
+    return one, planes, two
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("valid", [None, 2, 0])
+@pytest.mark.parametrize("h,w", [(32, 32), (48, 80), (16, 144), (112, 112)])
+def test_dct_ingest_is_bitwise_the_two_kernels(libs, h, w, valid, dtype):
+    # tolerance: none against rnb_dct_unpack followed by rnb_dct_convert
+    # (the same arithmetic after the load phase); against the plain
+    # version two RGB steps with at least 99% exact, as for the convert.
+    # The last row's wire is garbage: a pad row at rows_valid 2 and 0,
+    # which must come out exact zeros
+    frames = 1 if h * w > 64 * 64 else 2
+    wire = _wire(4, frames, h, w, seed=h * w)
+    one, _planes, two = _ingest_and_two_kernels(libs, wire, valid, h, w,
+                                                dtype)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(one.view(bits), two.view(bits))
+    n = 4 if valid is None else valid
+    ref = dct.dct_ingest_reference(wire, n, h, w, dtype)
+    assert float(_steps(one, ref).max()) <= 2
+    assert float((one == ref).double().mean()) >= 0.99
+    assert not one[n:].float().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dct_ingest_last_entry_wins_and_drops_past_the_budget(libs, dtype):
+    # one 32x32 frame with a budget of C = 100: block 0 claims 99 entries
+    # (64 after the clamp), block 1 -7 (none), block 2 40 and the last
+    # block 200 (64), so the counts sum past C: block 2 keeps 36 and the
+    # last block none. Positions in [-5, 70] put many entries of blocks
+    # 0 and 2 on one slot, within a round of 32 lanes and across rounds;
+    # entries 0-2 (one round) and 10 and 50 (two rounds) are forced onto
+    # one slot. The second row is garbage past rows_valid = 1
+    h = w = 32
+    nb = dct.num_dct_blocks(h, w)
+    coeffs = 100
+    rng = np.random.default_rng(17)
+    frame = np.zeros(nb + 2 * coeffs, np.int16)
+    frame[[0, 1, 2, nb - 1]] = [99, -7, 40, 200]
+    frame[nb:nb + coeffs] = rng.integers(-1000, 1000, coeffs)
+    pos = rng.integers(-5, 71, coeffs)
+    pos[[0, 1, 2]] = [-3, 0, 0]
+    pos[[10, 50]] = 9
+    frame[nb + coeffs:] = pos
+    garbage = rng.integers(-32768, 32768, frame.shape).astype(np.int16)
+    wire = torch.from_numpy(np.stack([frame, garbage])[:, None])
+    one, planes, two = _ingest_and_two_kernels(libs, wire, 1, h, w, dtype)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(one.view(bits), two.view(bits))
+    want = dct.unpack_dct_rows_reference(wire, h, w)
+    for got, ref in zip(planes, want):
+        assert torch.equal(got[:1], ref[:1])
+    # the slot of zigzag position 0 holds the last kept entry of block 0
+    # on it
+    slot0 = np.clip(pos[:64], 0, 63) == 0
+    assert planes[0][0, 0, 0, 0] == frame[nb + np.flatnonzero(slot0)[-1]]
+    assert 0 < int((want[0][0, 0, :8, 16:24] != 0).sum()) <= 36
+    assert not want[2][0, 0, 8:, 8:].any()   # the last (V) block: dropped
+    ref = dct.dct_ingest_reference(wire, 1, h, w, dtype)
+    assert float(_steps(one, ref).max()) <= 2
+    assert float((one == ref).double().mean()) >= 0.99
+    assert not one[1:].float().any()

@@ -207,13 +207,16 @@ def _yuv_call(entry):
         return lambda rv: yuv420_normalize(pool, h, w, rv)
     if entry == "ragged_normalize_yuv420":
         return lambda rv: ragged_normalize_yuv420(pool, rv, h, w)
-    planes = dct.unpack_dct_rows(torch.from_numpy(_well_formed(3, 1, 32,
-                                                               2)), 32, 32)
+    wire = torch.from_numpy(_well_formed(3, 1, 32, 2))
+    if entry == "ragged_normalize_dct":
+        return lambda rv: dct.ragged_normalize_dct(wire, rv, 32, 32)
+    planes = dct.unpack_dct_rows(wire, 32, 32)
     return lambda rv: dct.dct_convert(*planes, rv, 32, 32)
 
 
 @pytest.mark.parametrize("entry", ["yuv420_to_rgb_u8", "yuv420_normalize",
-                                   "ragged_normalize_yuv420", "dct_convert"])
+                                   "ragged_normalize_yuv420", "dct_convert",
+                                   "ragged_normalize_dct"])
 @pytest.mark.parametrize("bad", sorted(BAD_SCALARS))
 def test_wrappers_reject_a_rows_valid_of_wrong_dtype_or_shape(entry, bad):
     call = _yuv_call(entry)

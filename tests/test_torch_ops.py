@@ -240,6 +240,7 @@ def test_cpu_paths_launch_no_kernel_and_build_nothing():
                                         "yuv420_to_rgb_u8": 0,
                                         "yuv420_normalize": 0,
                                         "dct_unpack": 0, "dct_convert": 0,
+                                        "dct_ingest": 0,
                                         "gather_rows": 0,
                                         "ragged_normalize_u8": 0}
     assert _kernels._libraries == {}
@@ -247,7 +248,8 @@ def test_cpu_paths_launch_no_kernel_and_build_nothing():
         "libingest-")
     names = {k.name for k in _kernels.KERNELS}
     assert names == {"normalize_u8", "yuv420_to_rgb_u8", "yuv420_normalize",
-                     "dct_unpack", "dct_convert", "gather_rows",
+                     "dct_unpack", "dct_convert", "dct_ingest",
+                     "gather_rows",
                      "ragged_normalize_u8"}
     assert {k.source for k in _kernels.KERNELS} == set(_kernels.SOURCES)
 

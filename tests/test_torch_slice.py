@@ -262,6 +262,7 @@ def test_run_benchmark_on_cpu_completes_every_request(tmp_path, config,
                                         "yuv420_to_rgb_u8": 0,
                                         "yuv420_normalize": 0,
                                         "dct_unpack": 0, "dct_convert": 0,
+                                        "dct_ingest": 0,
                                         "gather_rows": 0,
                                         "ragged_normalize_u8": 0}
     with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
