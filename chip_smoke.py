@@ -8,7 +8,10 @@ Run from the root of a checkout, on a machine with a CUDA card:
 Phases (any failure exits non-zero and prints no result line):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: compile the port's CUDA kernels from ``rnb_tpu_torch/csrc``;
+2. build: compile the port's CUDA kernels from ``rnb_tpu_torch/csrc``,
+   and beside them count the dct kernels' SASS instructions by source
+   section (``rnb_tpu_torch/tools/sass_counts.py``), printed on ``sass``
+   lines before the result;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the serving paths' shapes (rows 48 and 15, rows_valid = rows, 5,
    0, read by the yuv420 kernel and the dct convert from one device
@@ -33,11 +36,12 @@ Phases (any failure exits non-zero and prints no result line):
    fused entries' beside the two launches each replaces (the dct ingest
    also at 48 rows);
    The gather kernel is held bitwise to its plain version at the clip
-   arena's rows (15 x 8 x 18,816 u8 over a 445-row slab) and the
+   arena's rows (15 x 8 x 18,816 u8 over a 1,780-row slab) and the
    feature arena's (15 x 400 float32), on five source tables, timed at
-   the 15-row clip pool with 8 hits beside ``torch.index_select`` on an
-   all-hit table, and the clip arena's stream order is checked: a
-   gather issued before a write of its page returns the old rows;
+   the 15-row clip pool with 8 hits, and on an all-hit table beside
+   ``torch.index_select`` of the same table (both with L2 warm and
+   flushed), and the clip arena's stream order is checked: a gather
+   issued before a write of its page returns the old rows;
    The ragged normalize kernel is held bitwise to its plain version at
    the unfused loader's full-width pool (15 x 8 x 112 x 112 x 3 u8) for
    ``rows_valid`` in {0, 1, 7, 14, 15} read from one device scalar that
@@ -177,6 +181,14 @@ F32_ATOL = 1e-3
 #: the CPU's own bf16 error, plus BF16_ATOL (see cpu_recompute)
 BF16_FACTOR = 2.0
 BF16_ATOL = 1e-2
+
+
+#: timing keys a kernel's row carries into the ``kernels`` line where
+#: its phase measured them
+EXTRA_ROW_KEYS = ("all_hit_ms", "all_hit_ms_l2_flushed",
+                  "library_ms_l2_flushed", "tiny_rows_ms",
+                  "tiny_rows_ms_l2_flushed", "ms_48", "ms_48_l2_flushed",
+                  "bound_ms_48")
 
 
 class SmokeFailure(RuntimeError):
@@ -862,13 +874,35 @@ def phase_kernels_gather(device):
     time_kernel("gather_rows", row, 15,
                 lambda: gather_rows(pool, slab, table),
                 lambda: gather_rows_reference(pool, slab, table))
-    row["library_ms"] = device_ms(
-        lambda: torch.index_select(slab, 0, all_hit))
-    row["all_hit_ms"] = device_ms(
-        lambda: gather_rows(pool, slab, all_hit32))
-    print("timing gather_rows on an all-hit table: %.5f ms; "
-          "torch.index_select (library) %.5f ms"
-          % (row["all_hit_ms"], row["library_ms"]))
+    # the library yardstick like for like: one torch.index_select of the
+    # all-hit table beside the kernel on the same table, both with L2
+    # warm and flushed
+    def library():
+        return torch.index_select(slab, 0, all_hit)
+
+    def kernel_all_hit():
+        return gather_rows(pool, slab, all_hit32)
+    # the fixed cost: the same launch and table at 16-byte rows (the
+    # table's read, the launch and one dependent row load)
+    tiny_pool = pool.reshape(15, -1)[:, :16].contiguous()
+    tiny_slab = slab.reshape(slab.shape[0], -1)[:, :16].contiguous()
+
+    def kernel_tiny():
+        return gather_rows(tiny_pool, tiny_slab, table)
+    row["tiny_rows_ms"] = device_ms(kernel_tiny)
+    row["tiny_rows_ms_l2_flushed"] = flushed_ms(kernel_tiny)
+    print("timing gather_rows at 16-byte rows, the same table: %.5f ms "
+          "(L2 flushed %.5f ms)" % (row["tiny_rows_ms"],
+                                    row["tiny_rows_ms_l2_flushed"]))
+    row["library_ms"] = device_ms(library)
+    row["library_ms_l2_flushed"] = flushed_ms(library)
+    row["all_hit_ms"] = device_ms(kernel_all_hit)
+    row["all_hit_ms_l2_flushed"] = flushed_ms(kernel_all_hit)
+    print("timing gather_rows on an all-hit table: %.5f ms (L2 flushed "
+          "%.5f ms); torch.index_select (library) on it %.5f ms (L2 "
+          "flushed %.5f ms)"
+          % (row["all_hit_ms"], row["all_hit_ms_l2_flushed"],
+             row["library_ms"], row["library_ms_l2_flushed"]))
     return {"gather_rows": row}, {"gather_rows": worst}
 
 
@@ -1304,6 +1338,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     t_start = time.time()
     data_root = tempfile.mkdtemp(prefix="rnb-smoke-")
+    sass = None
     try:
         print("torch %s, CUDA %s, python %s" % (
             torch.__version__, torch.version.cuda, sys.version.split()[0]))
@@ -1313,6 +1348,15 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
 
         from rnb_tpu_torch.ops import _kernels
+        # the SASS counts of the dct kernels, by section, built beside the
+        # kernels and read at the end
+        sass = subprocess.Popen(
+            [sys.executable, "-m", "rnb_tpu_torch.tools.sass_counts",
+             "--kernel", "dct_ingest_kernel", "--kernel",
+             "dct_convert_kernel", "--out-dir",
+             os.path.join(data_root, "sass")],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
         seconds = _kernels.build()
         for source, (secs, log) in _kernels.BUILD_LOG.items():
             print("build %s: %.1f s\n%s" % (source, secs, log.strip()))
@@ -1330,6 +1374,15 @@ def main() -> int:
         make_dataset(data_root)
         launches = phase_path(data_root, VIDEOS_PER_RUN)
 
+        sass_out, _ = sass.communicate()
+        check(sass.returncode == 0, "sass_counts failed:\n%s" % sass_out)
+        for line in sass_out.splitlines():
+            report = json.loads(line)
+            print("sass %s: %d instructions; by section %s" % (
+                report["kernel"], report["total"], json.dumps(
+                    {name: section["instructions"] for name, section
+                     in sorted(report["sections"].items())})))
+
         rows = []
         for kernel in _kernels.KERNELS:
             t = timings[kernel.name]
@@ -1342,7 +1395,8 @@ def main() -> int:
                 "ms": t["ms"], "ms_l2_flushed": t["ms_l2_flushed"],
                 "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t.get("library_ms")})
+                "library_ms": t.get("library_ms"),
+                **{key: t[key] for key in EXTRA_ROW_KEYS if key in t}})
         print("total %.1f s" % (time.time() - t_start))
         print(json.dumps({"kernels": rows}))
         print(smi)
@@ -1354,6 +1408,9 @@ def main() -> int:
         print("chip_smoke FAILED: %s" % e, file=sys.stderr)
         return 1
     finally:
+        if sass is not None and sass.poll() is None:
+            sass.kill()
+            sass.wait()
         shutil.rmtree(data_root, ignore_errors=True)
 
 

@@ -72,6 +72,33 @@ inline int __shfl_sync(unsigned, int value, int src) {
   host_warp_barrier->arrive_and_wait();
   return got;
 }
+inline int __shfl_up_sync(unsigned, int value, unsigned delta) {
+  host_vote[threadIdx.x] = static_cast<unsigned>(value);
+  host_warp_barrier->arrive_and_wait();
+  const int got = (threadIdx.x & 31u) >= delta
+                      ? static_cast<int>(host_vote[threadIdx.x - delta])
+                      : value;
+  host_warp_barrier->arrive_and_wait();
+  return got;
+}
+inline int __shfl_down_sync(unsigned, int value, unsigned delta) {
+  host_vote[threadIdx.x] = static_cast<unsigned>(value);
+  host_warp_barrier->arrive_and_wait();
+  const int got = (threadIdx.x & 31u) + delta < 32
+                      ? static_cast<int>(host_vote[threadIdx.x + delta])
+                      : value;
+  host_warp_barrier->arrive_and_wait();
+  return got;
+}
+inline bool __all_sync(unsigned, bool predicate) {
+  const unsigned first = threadIdx.x & ~31u;
+  host_vote[threadIdx.x] = predicate;
+  host_warp_barrier->arrive_and_wait();
+  bool all = true;
+  for (unsigned i = first; i < first + 32; ++i) all = all && host_vote[i];
+  host_warp_barrier->arrive_and_wait();
+  return all;
+}
 inline unsigned __match_any_sync(unsigned, int value) {
   const unsigned first = threadIdx.x & ~31u;
   host_vote[threadIdx.x] = static_cast<unsigned>(value);

@@ -152,6 +152,25 @@ def test_kernel_source_carries_the_basis_and_zigzag_bit_for_bit():
     np.testing.assert_array_equal(
         np.array([int(t) for t in table("kZigzagNatural")]),
         dct.ZIGZAG_NATURAL)
+    # the MCU slab's slot of each zigzag position: line pitch 9
+    np.testing.assert_array_equal(
+        np.array([int(t) for t in table("kZigzagSlot")]),
+        dct.ZIGZAG_NATURAL // 8 * 9 + dct.ZIGZAG_NATURAL % 8)
+
+
+def test_bf16_normalize_in_one_fma_is_exact_for_every_level():
+    # the kernels' bf16 epilogue computes (2q - 255) / 255 as one fused
+    # multiply-add, fl(q * fl(2/255) - 1), where the plain version rounds
+    # fl(2q - 255) * fl(1/255): the float32 values may differ, their bf16
+    # roundings must not, for every quantized level q
+    q = np.arange(256, dtype=np.float64)
+    fused = (q * np.float64(np.float32(2.0 / 255.0)) - 1.0).astype(
+        np.float32)  # exact in float64, then one rounding, as the FMA
+    plain = (np.float32(2 * q - 255) * np.float32(1.0 / 255.0)).astype(
+        np.float32)
+    assert torch.equal(
+        torch.from_numpy(fused).to(torch.bfloat16).view(torch.int16),
+        torch.from_numpy(plain).to(torch.bfloat16).view(torch.int16))
 
 
 # -- the unpack (jnp scatter fused by XLA on the TPU) -------------------

@@ -2,12 +2,13 @@
 
 ``tests/host_cuda/`` emulates the CUDA subset the kernels use (threads,
 barriers, warp votes, shared memory, the rounding intrinsics), so a
-host C++ compiler builds ``rnb_tpu_torch/csrc/ingest.cu`` and
-``dct.cu`` unchanged but for the launch syntax. The kernels then run on
-CPU tensors through their C entry points and are held to the plain
-versions, and the fused dct ingest bitwise to the unpack and convert
-kernels it fuses: this checks their indexing, masking, vector and
-scalar paths, warp collectives and arithmetic on the CPU. Speed, and races that only the card's
+host C++ compiler builds ``rnb_tpu_torch/csrc/ingest.cu``, ``dct.cu``
+and ``pages.cu`` unchanged but for the launch syntax. The kernels then
+run on CPU tensors through their C entry points and are held to the
+plain versions, the fused dct ingest bitwise to the unpack and convert
+kernels it fuses and the page gather bitwise to its plain version: this
+checks their indexing, masking, vector and scalar paths, warp
+collectives and arithmetic on the CPU. Speed, and races that only the card's
 scheduling would expose, are the card's to show (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
@@ -24,6 +25,7 @@ import torch
 
 from rnb_tpu_torch.decode import SyntheticDecoder
 from rnb_tpu_torch.ops import _kernels, dct
+from rnb_tpu_torch.ops.pages import gather_rows_reference
 from rnb_tpu_torch.ops.preprocess import normalize_u8_reference
 from rnb_tpu_torch.ops.yuv import packed_frame_bytes, yuv420_to_rgb_reference
 
@@ -58,8 +60,8 @@ def _build(source, out_dir):
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("host_cuda"))
-    built = {source: _build(source, out) for source in ("ingest.cu",
-                                                         "dct.cu")}
+    built = {source: _build(source, out)
+             for source in ("ingest.cu", "dct.cu", "pages.cu")}
     fns = {}
     for kernel in _kernels.KERNELS:
         if kernel.source in built:
@@ -247,3 +249,55 @@ def test_dct_ingest_last_entry_wins_and_drops_past_the_budget(libs, dtype):
     assert float(_steps(one, ref).max()) <= 2
     assert float((one == ref).double().mean()) >= 0.99
     assert not one[1:].float().any()
+
+
+#: row kinds of the gather: the clip arena's u8 row (8 frames of packed
+#: 4:2:0), the feature arena's float32 logit row, a row size that is not
+#: a multiple of 16, and a clip-sized row whose source and destination
+#: sit one byte off 16-byte alignment
+_GATHER_ROWS = {"clip": (np.uint8, (8, 18816)),
+                "feature": (np.float32, (400,)),
+                "odd": (np.uint8, (1001,)),
+                "misaligned": (np.uint8, (8, 18816))}
+
+
+def _gather_table(kind, pool_rows, slab_rows, rng):
+    return {"all_sentinel": np.full(pool_rows, -1),
+            "all_hit": rng.integers(0, slab_rows, pool_rows),
+            "mixed": np.where(np.arange(pool_rows) % 2, -1,
+                              rng.integers(0, slab_rows, pool_rows)),
+            # past the slab: clamped to its last row
+            "past_slab": np.where(np.arange(pool_rows) % 2, slab_rows + 7,
+                                  rng.integers(-1, slab_rows, pool_rows)),
+            }[kind].astype(np.int32)
+
+
+@pytest.mark.parametrize("table", ["all_sentinel", "all_hit", "mixed",
+                                   "past_slab"])
+@pytest.mark.parametrize("row", sorted(_GATHER_ROWS))
+def test_gather_kernel_is_bitwise_its_plain_version(libs, row, table):
+    # tolerance: none (the kernel moves bytes). The clip row takes the
+    # batched 16-byte path over several chunks with a partial last one,
+    # the feature row one partial chunk, the odd and misaligned rows the
+    # byte loop; the output starts as garbage
+    dtype, shape = _GATHER_ROWS[row]
+    rng = np.random.default_rng(len(row) * 10 + len(table))
+    pool_rows, slab_rows = 3, 5
+    pool = torch.from_numpy(rng.integers(0, 255, (pool_rows,) + shape)
+                            .astype(dtype))
+    slab = torch.from_numpy(rng.integers(0, 255, (slab_rows,) + shape)
+                            .astype(dtype))
+    src = torch.from_numpy(_gather_table(table, pool_rows, slab_rows, rng))
+    want = gather_rows_reference(pool, slab, src)
+    row_bytes = want[0].numel() * want.element_size()
+    shift = int(row == "misaligned")
+    # pool and output one byte into buffers of their own
+    pool_buf = torch.zeros(pool_rows * row_bytes + shift, dtype=torch.uint8)
+    pool_buf[shift:] = pool.reshape(-1).view(torch.uint8)
+    out_buf = torch.full((pool_rows * row_bytes + shift,), 0xA5,
+                         dtype=torch.uint8)
+    assert libs["gather_rows"](
+        pool_buf.data_ptr() + shift, _ptr(slab), _ptr(src),
+        out_buf.data_ptr() + shift, pool_rows, slab_rows, row_bytes, 0,
+        None) == 0
+    assert torch.equal(out_buf[shift:], want.reshape(-1).view(torch.uint8))
