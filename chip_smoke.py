@@ -8,10 +8,12 @@ Run from the root of a checkout, on a machine with a CUDA card:
 Phases (any failure exits non-zero and prints no result line):
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: compile the port's CUDA kernels from ``rnb_tpu_torch/csrc``,
-   and beside them count the dct kernels' SASS instructions by source
-   section (``rnb_tpu_torch/tools/sass_counts.py``), printed on ``sass``
-   lines before the result;
+2. build: compile the port's CUDA kernels from ``rnb_tpu_torch/csrc``
+   and, at the same time, the native C++ decoder from
+   ``native/decode.cpp`` (``rnb_tpu_torch/ops/_native.py``), each
+   build's seconds printed, and beside them count the dct kernels' SASS
+   instructions by source section (``rnb_tpu_torch/tools/sass_counts.py``),
+   printed on ``sass`` lines before the result;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the serving paths' shapes (rows 48 and 15, rows_valid = rows, 5,
    0, read by the yuv420 kernel and the dct convert from one device
@@ -76,7 +78,18 @@ Phases (any failure exits non-zero and prints no result line):
    (Large/Small routing into two batchers; at least one six-request
    fused batch) and ``configs/r2p1d-nopipeline-1chip.json`` (class ids
    held to the argmax of the two-step run's logits), each with a CPU
-   recompute of two requests where it emits logits.
+   recompute of two requests where it emits logits (of its smallest
+   request where its logits are held to the two-step run's). Then
+   ``configs/rnb-fused-yuv-big-torchckpt.json`` (the factored shortcut)
+   and ``configs/rnb-fused-yuv-mid.json`` (``depth``), at fewer
+   requests, with the same checks as big.
+   Every run: each ``R2P1DRunner`` forward in the window is one replay
+   of a captured CUDA graph (``Graphs:`` replays == ``Compiles:``
+   steady calls, or requests for the single step), no signature is new
+   in the window (``steady_new`` 0), each captured graph of every
+   runner replays bitwise its eager forward on a seeded input (the
+   graphs' capture seconds printed), and every y4m request was decoded
+   by the native pool (``Decode backend: native``).
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -90,6 +103,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -100,10 +114,12 @@ WHOLE_YUV = "configs/r2p1d-whole-yuv.json"
 SPLIT = "configs/r2p1d-split-1chip.json"
 RNB = "configs/rnb-1chip.json"
 NOPIPELINE = "configs/r2p1d-nopipeline-1chip.json"
+TORCHCKPT = "configs/rnb-fused-yuv-big-torchckpt.json"
+MID = "configs/rnb-fused-yuv-mid.json"
 CONFIGS = ("configs/rnb-fused-yuv-big.json",
            "configs/rnb-fused-yuv-ragged.json",
            "configs/rnb-fused-dct-ragged.json", PAGED, BLOB,
-           WHOLE, WHOLE_YUV, SPLIT, RNB, NOPIPELINE)
+           WHOLE, WHOLE_YUV, SPLIT, RNB, NOPIPELINE, TORCHCKPT, MID)
 #: the paged cell with feature pages off, written next to the dataset
 FEATURES_OFF = "paged-zipf-features-off"
 #: the unfused whole pipeline under the root ``ragged`` key, likewise
@@ -114,7 +130,9 @@ YUV_KERNELS = {"yuv420_normalize"}
 ONE_PER_EMISSION = {"configs/rnb-fused-yuv-big.json": "yuv420_normalize",
                     "configs/rnb-fused-yuv-ragged.json": "yuv420_normalize",
                     "configs/rnb-fused-dct-ragged.json": "dct_ingest",
-                    WHOLE_YUV: "yuv420_normalize"}
+                    WHOLE_YUV: "yuv420_normalize",
+                    TORCHCKPT: "yuv420_normalize",
+                    MID: "yuv420_normalize"}
 #: the kernels each run launches, and no others
 PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 CONFIGS[2]: {"dct_ingest"},
@@ -124,9 +142,12 @@ PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 WHOLE: {"normalize_u8"},
                 WHOLE_RAGGED: {"ragged_normalize_u8"},
                 WHOLE_YUV: YUV_KERNELS, SPLIT: {"normalize_u8"},
-                RNB: {"normalize_u8"}, NOPIPELINE: {"normalize_u8"}}
+                RNB: {"normalize_u8"}, NOPIPELINE: {"normalize_u8"},
+                TORCHCKPT: YUV_KERNELS, MID: YUV_KERNELS}
 #: the runs of the unfused multi-step pipeline, in serving order
 UNFUSED = (WHOLE, WHOLE_RAGGED, WHOLE_YUV, SPLIT, RNB, NOPIPELINE)
+#: the runs whose logits check_unfused_run holds to the two-step run's
+TWO_STEP_HELD = (WHOLE_RAGGED, SPLIT, RNB)
 #: the fused loader of rnb-1chip's small lane fuses this many requests
 RNB_BATCH = 6
 #: mean Poisson gap of the Zipf runs: repeats then arrive after their
@@ -143,6 +164,13 @@ ODD_GEOMETRY = (66, 90)
 DCT_GEOMETRY = (64, 176)
 #: requests served per config on the path phase
 VIDEOS_PER_RUN = 32
+#: requests of the two configs added last (their cells are big's)
+FEW_VIDEOS = {TORCHCKPT: 12, MID: 12}
+#: a captured graph against its eager forward where the two are not
+#: bitwise (a capture that changed the library's kernel choice): the
+#: float32 network's bound of tests/test_torch_network.py, relative to
+#: the output's scale, and equal argmax of the logits
+GRAPH_RTOL = 5e-4
 #: another topology's logits against the two-step run's for the same
 #: request: the same bf16 network at other batch shapes (row tiles, fused
 #: batches) or cut at a float32 feature map, so equal up to the
@@ -1004,11 +1032,14 @@ def cpu_recompute(config_path, sink, picks):
     arch = (1, runner_kwargs.get("end_index", 5),
             runner_kwargs.get("num_classes", 400),
             tuple(runner_kwargs.get("layer_sizes", (2, 2, 2, 2))))
+    factored = runner_kwargs.get("factored_shortcut", False)
     cpu, card = torch.device("cpu"), torch.device("cuda", 0)
     nets = {
-        "cpu_bf16": shared_network(*arch, cpu),
-        "cpu_f32": shared_network(*arch, cpu, dtype=torch.float32),
-        "card_f32": shared_network(*arch, card, dtype=torch.float32)}
+        "cpu_bf16": shared_network(*arch, cpu, factored_shortcut=factored),
+        "cpu_f32": shared_network(*arch, cpu, dtype=torch.float32,
+                                  factored_shortcut=factored),
+        "card_f32": shared_network(*arch, card, dtype=torch.float32,
+                                   factored_shortcut=factored)}
     sampler = R2P1DSampler(consecutive_frames=FRAMES)
     report = dict(f32_err=0.0, served_err=0.0, cpu_bf16_err=0.0,
                   bound=0.0, argmax_agreed=0, rows=0, past_margin=0)
@@ -1213,6 +1244,76 @@ def check_cache_run(label, result, sink):
     return page_hits[0] if page_hits else None
 
 
+def graph_input(runner, rows, seed):
+    """A seeded input of one runner's input signature: wire rows on the
+    yuv420 and dct paths, normalized frames or a feature map else."""
+    import numpy as np
+    import torch
+    device = torch.device("cuda", 0)
+    if runner.pixel_path == "dct":
+        return dct_pool(rows, seed).to(device)
+    shape = (rows,) + tuple(runner._steady_shape[1:])
+    rng = np.random.default_rng(seed)
+    if runner.pixel_path == "yuv420":
+        return torch.from_numpy(rng.integers(0, 256, shape,
+                                             dtype=np.uint8)).to(device)
+    dtype = torch.bfloat16 if runner.start_index == 1 else torch.float32
+    return torch.from_numpy(rng.uniform(-1, 1, shape).astype(
+        np.float32)).to(device=device, dtype=dtype)
+
+
+def check_graphs(label, result, stages):
+    """Every captured graph of every runner of the run replays bitwise
+    its eager forward on a seeded input (or, where not bitwise, within
+    GRAPH_RTOL with equal argmax: reported); every forward of the window
+    was one replay; no signature was new in the window. Returns the
+    signatures that were not bitwise."""
+    import torch
+    from rnb_tpu_torch.models.r2p1d.model import R2P1DRunner
+    for step, sigs in result.compiles.items():
+        check(sigs["steady_new"] == 0, "%s: %s saw %d new signature(s) in "
+              "the window" % (label, step, sigs["steady_new"]))
+    check(result.graphs, "%s: no stage captured a graph" % label)
+    for step, stats in result.graphs.items():
+        calls = (result.compiles[step]["steady_calls"]
+                 if step in result.compiles else result.num_completed)
+        check(stats["replays"] == calls, "%s: %s replayed %d graphs for %d "
+              "forwards" % (label, step, stats["replays"], calls))
+    loose = []
+    for step_idx, stage in stages:
+        runner = getattr(stage, "net", stage)
+        if not isinstance(runner, R2P1DRunner):
+            continue
+        for i, key in enumerate(sorted(runner._graphs, key=repr)):
+            ((shape, _dtype), ), tiles = key
+            rows = shape[0]
+            x = graph_input(runner, rows, seed=1000 * step_idx + i)
+            valid = rows if tiles is None else min(
+                rows, tiles * runner.ragged_chunk_rows)
+            check(runner.graph_key(x, valid) == key, "%s: key %s" % (
+                label, key))
+            replayed = runner.forward(x, valid)
+            eager = runner.eager_forward(x, valid)
+            torch.cuda.synchronize()
+            if torch.equal(replayed, eager):
+                continue
+            err = float((replayed - eager).abs().max())
+            scale = float(eager.abs().max())
+            same = bool((replayed.argmax(-1) == eager.argmax(-1)).all()) \
+                if eager.dim() == 2 else True
+            check(err <= GRAPH_RTOL * max(1.0, scale) and same,
+                  "%s: step %d graph %s replays %g from its eager forward "
+                  "(scale %g, argmax equal %s)" % (label, step_idx, key,
+                                                   err, scale, same))
+            loose.append((step_idx, key, err))
+        runner._graphs.clear()  # free the graphs' memory
+    print("path %s graphs: %s; %d not bitwise their eager forward%s"
+          % (label, json.dumps(result.graphs, sort_keys=True), len(loose),
+             "" if not loose else " " + json.dumps(
+                 [[s, repr(k), e] for s, k, e in loose])))
+    return loose
+
+
 def phase_path(data_root, videos_per_run):
     """Serve every run on cuda:0: the yuv420 configs over the y4m
     dataset (bulk, then the Zipf cells under Poisson arrivals), the dct
@@ -1237,14 +1338,15 @@ def phase_path(data_root, videos_per_run):
         else:
             os.environ["RNB_TPU_DATA_ROOT"] = data_root
         zipf = label in (PAGED, FEATURES_OFF, BLOB)
-        sink = {}
+        videos = FEW_VIDEOS.get(label, videos_per_run)
+        sink, stages = {}, []
         _kernels.reset_launches()
         t0 = time.time()
         result = run_benchmark(
             config_path, mean_interval_ms=ZIPF_INTERVAL_MS if zipf else 0,
-            num_videos=videos_per_run, print_progress=False,
+            num_videos=videos, print_progress=False,
             log_base=os.path.join(data_root, "logs"), seed=0,
-            outputs_sink=sink)
+            outputs_sink=sink, stages_sink=stages)
         counts = _kernels.launch_counts()
         wall = time.time() - t0
         check(result.termination_flag == 0, "%s terminated with flag %d"
@@ -1252,19 +1354,29 @@ def phase_path(data_root, videos_per_run):
         if zipf:
             # an open-loop client: the run stops once the target is met,
             # and a fused emission may complete a few more requests
-            check(result.num_completed >= videos_per_run
+            check(result.num_completed >= videos
                   and len(sink) == result.num_completed,
                   "%s completed %d of %d requests (%d outputs)"
-                  % (label, result.num_completed, videos_per_run,
-                     len(sink)))
+                  % (label, result.num_completed, videos, len(sink)))
         else:
-            check(result.num_completed == videos_per_run,
+            check(result.num_completed == videos,
                   "%s completed %d of %d requests"
-                  % (label, result.num_completed, videos_per_run))
-            check(sorted(sink) == list(range(videos_per_run)),
+                  % (label, result.num_completed, videos))
+            check(sorted(sink) == list(range(videos)),
                   "%s: outputs of requests %s missing" % (
-                      label, sorted(set(range(videos_per_run))
-                                    - set(sink))))
+                      label, sorted(set(range(videos)) - set(sink))))
+        t0 = time.time()
+        check_graphs(label, result, stages)
+        del stages
+        print("path %s: graphs checked in %.1f s" % (label, time.time() - t0))
+        if pixel_path != "dct":
+            with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
+                backends = [line.split(": ", 1)[1] for line in
+                            f.read().splitlines()
+                            if line.startswith("Decode backend: ")]
+            check(backends and all(b == "native" for b in backends),
+                  "%s: y4m requests decoded by %s, not the native pool"
+                  % (label, backends))
         for rid, (video, logits, _stamps) in sink.items():
             if label == NOPIPELINE:
                 check(isinstance(logits, int) and 0 <= logits < 400,
@@ -1305,23 +1417,29 @@ def phase_path(data_root, videos_per_run):
             continue
         by_clips = sorted(sink, key=lambda r: (sink[r][1].shape[0], r))
         picks = by_clips[:2] + by_clips[-1:]
-        if label in UNFUSED:
+        if label in UNFUSED or label in FEW_VIDEOS:
             picks = by_clips[:1] + by_clips[-1:]
+        if label in TWO_STEP_HELD:
+            # every request's logits are held to the two-step run's,
+            # whose largest request the CPU recomputes
+            picks = by_clips[:1]
         if zipf:
             page_hit = check_cache_run(label, result, sink)
             if label == FEATURES_OFF:
                 check(page_hit is not None, "%s: no clip-page hit to "
                       "recompute" % label)
                 picks = [page_hit] + by_clips[1:2] + by_clips[-1:]
+        t0 = time.time()
         report = cpu_recompute(config_path, sink, picks)
         print("path %s: %d requests, %d clips, %.3f videos/s, p50 %s ms, "
               "p99 %s ms, wall %.1f s, launches %s (window %s), "
-              "pad_rows %d of %d; recompute of requests %s: %s"
+              "pad_rows %d of %d; recompute of requests %s (%.1f s): %s"
               % (label, result.num_completed, result.clips_completed,
                  result.throughput_vps, result.p50_latency_ms,
                  result.p99_latency_ms, wall, counts,
                  result.window_launches, result.pad_rows,
-                 result.total_rows, picks, json.dumps(report)))
+                 result.total_rows, picks, time.time() - t0,
+                 json.dumps(report)))
     return launches
 
 
@@ -1357,10 +1475,33 @@ def main() -> int:
              os.path.join(data_root, "sass")],
             cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)
-        seconds = _kernels.build()
+        # the native decoder builds with g++ while nvcc builds the kernels
+        from rnb_tpu_torch.ops import _native
+        native_build = {}
+
+        def build_native():
+            try:
+                native_build["seconds"] = _native.build()
+            except Exception as e:  # re-raised on this thread below
+                native_build["error"] = e
+
+        native_thread = threading.Thread(target=build_native,
+                                         name="native-build")
+        native_thread.start()
+        try:
+            seconds = _kernels.build()
+        finally:
+            native_thread.join()
         for source, (secs, log) in _kernels.BUILD_LOG.items():
             print("build %s: %.1f s\n%s" % (source, secs, log.strip()))
         print("build: %s" % json.dumps(seconds))
+        if "error" in native_build:
+            raise native_build["error"]
+        print("build native/decode.cpp -> %s: %s\n%s" % (
+            os.path.relpath(_native.library_path(), HERE),
+            "already built" if native_build["seconds"] is None
+            else "%.1f s" % native_build["seconds"],
+            (_native.BUILD_LOG or (0.0, ""))[1].strip()))
 
         device = torch.device("cuda", 0)
         timings, worst = phase_kernels(device)

@@ -33,6 +33,7 @@ import torch
 
 from rnb_tpu_torch.cache import aggregate_snapshots
 from rnb_tpu_torch.client import bulk_client, poisson_client
+from rnb_tpu_torch.compilestats import aggregate_compile_records
 from rnb_tpu_torch.config import load_config
 from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, EdgeTracker,
                                    InferenceCounter, RingCredits,
@@ -89,6 +90,14 @@ class BenchmarkResult:
     ragged_cache_hit_rows: int = 0
     #: the ``Pages:`` log-meta line's counters (empty without ``pager``)
     pages: Dict[str, int] = field(default_factory=dict)
+    #: ``{step: {warmup, steady_new, steady_calls}}``: input signatures
+    #: per step (the ``Compiles:`` line)
+    compiles: Dict[str, dict] = field(default_factory=dict)
+    #: ``{step: seconds}`` of stage construction (the ``Warmup:`` line)
+    warmup_s: Dict[str, float] = field(default_factory=dict)
+    #: ``{step: {graphs, capture_s, replays}}``: captured forwards (the
+    #: ``Graphs:`` line; empty off the card)
+    graphs: Dict[str, dict] = field(default_factory=dict)
 
 
 def _pipeline_queues(config, queue_size: int):
@@ -120,12 +129,14 @@ def run_benchmark(config_path: str,
                   seed: Optional[int] = None,
                   platform: Optional[str] = None,
                   outputs_sink: Optional[dict] = None,
-                  profile: bool = False) -> BenchmarkResult:
+                  profile: bool = False,
+                  stages_sink: Optional[list] = None) -> BenchmarkResult:
     """Programmatic entry used by the CLI, the tests and chip_smoke.py.
     ``outputs_sink``, when given, receives every request's output rows
     (request id -> (video, float32 array, its cache stamps)).
-    ``profile`` traces the measured window with ``torch.profiler``
-    (card runs): the sum of
+    ``stages_sink``, when given, receives ``(step_idx, stage)`` for every
+    stage built. ``profile`` traces the measured window with
+    ``torch.profiler`` (card runs): the sum of
     kernel time lands in the result, each kernel's time and launches in
     ``profile.json``, and the profiler's table in ``profile.txt``."""
     config = load_config(config_path, platform)
@@ -143,7 +154,7 @@ def run_benchmark(config_path: str,
     counter = InferenceCounter()
     termination = TerminationState()
     summary_sink, pad_sink, ragged_sink, staging_sink = [], [], [], []
-    ingest_sink, cache_sink = [], []
+    ingest_sink, cache_sink, compile_sink, graph_sink = [], [], [], []
     if mean_interval_ms == 0:
         # bulk mode pre-enqueues everything (plus the exit markers)
         queue_size = num_videos + config.num_runners + NUM_EXIT_MARKERS + 1
@@ -192,7 +203,9 @@ def run_benchmark(config_path: str,
                     summary_sink=summary_sink if is_final else None,
                     pad_sink=pad_sink, ragged_sink=ragged_sink,
                     staging_sink=staging_sink, ingest_sink=ingest_sink,
-                    cache_sink=cache_sink, pager=pager,
+                    cache_sink=cache_sink, compile_sink=compile_sink,
+                    graph_sink=graph_sink, stage_sink=stages_sink,
+                    pager=pager,
                     outputs_sink=outputs_sink if is_final else None)
                 threads.append(threading.Thread(
                     target=runner, args=(ctx,), daemon=True,
@@ -265,6 +278,15 @@ def run_benchmark(config_path: str,
         pages_summary = pager.snapshot()
         pages_summary["bypassed_batches"] = sum(
             s.get("bypassed_batches", 0) for s in staging_sink)
+    compiles, warmup = aggregate_compile_records(compile_sink)
+    graphs: Dict[str, dict] = {}
+    for step_idx, stats in graph_sink:
+        agg = graphs.setdefault("step%d" % step_idx, {
+            "graphs": 0, "capture_s": 0.0, "replays": 0})
+        for key in agg:
+            agg[key] += stats[key]
+    for agg in graphs.values():
+        agg["capture_s"] = round(agg["capture_s"], 3)
     result = BenchmarkResult(
         job_id=job_id, total_time_s=total_time, num_videos=num_videos,
         termination_flag=int(termination.value),
@@ -275,7 +297,8 @@ def run_benchmark(config_path: str,
         pad_rows=pad_rows, total_rows=total_rows,
         window_launches=window_launches, kernel_ms=kernel_ms,
         ragged_cache_hit_rows=cache_hit_rows,
-        pages=dict(pages_summary) if pages_summary else {})
+        pages=dict(pages_summary) if pages_summary else {},
+        compiles=compiles, warmup_s=warmup, graphs=graphs)
     if cache_stats is not None:
         for key in ("hits", "misses", "inserts", "evictions", "coalesced",
                     "oversize", "bytes_resident"):
@@ -328,12 +351,27 @@ def run_benchmark(config_path: str,
                 "%s=%d" % (k, pages_summary[k]) for k in PAGES_LINE_KEYS))
             f.write("Pages arenas: %s\n" % json.dumps(pager.arena_sizes(),
                                                        sort_keys=True))
+        if compiles:
+            # the reference's format: per step, the warm-up vocabulary
+            # and the signatures first seen in the measured window
+            # (steady_new > 0 is a mid-run capture; parse_utils fails it)
+            f.write("Compiles: %s\n" % json.dumps(compiles, sort_keys=True))
+        if warmup:
+            f.write("Warmup: %s\n" % json.dumps(warmup, sort_keys=True))
+        if graphs:
+            f.write("Graphs: %s\n" % json.dumps(graphs, sort_keys=True))
         f.write("Kernels: %s\n" % json.dumps(window_launches,
                                              sort_keys=True))
         if kernel_ms is not None:
             f.write("Profile: kernel_ms=%.3f window_ms=%.3f busy_share=%.4f\n"
                     % (kernel_ms, total_time * 1e3,
                        kernel_ms / (total_time * 1e3)))
+    recompiled = sorted(step for step, sigs in compiles.items()
+                        if sigs["steady_new"] > 0)
+    if recompiled:
+        print("[rnb-tpu-torch] WARNING: mid-run capture signature(s) on %s "
+              "(Compiles: steady_new > 0)" % ", ".join(recompiled),
+              file=sys.stderr)
     if print_progress:
         print("FINISH! %f" % time_end)
         print("Result: %s" % json.dumps(dict(

@@ -40,14 +40,15 @@ _LOADER_KEYS = frozenset({
 _RUNNER_KEYS = frozenset({
     "start_index", "end_index", "max_rows", "consecutive_frames",
     "num_warmups", "row_buckets", "pixel_path", "ragged_chunk_rows",
-    "layer_sizes", "num_classes", "dct_coeffs_per_frame"})
+    "layer_sizes", "num_classes", "dct_coeffs_per_frame",
+    "factored_shortcut"})
 #: model keys per ported stage class (the step's kwargs)
 MODEL_KEYS = {
     "R2P1DLoader": _LOADER_KEYS,
     "R2P1DFusingLoader": frozenset({
-        "max_clips", "row_buckets", "fuse", "max_hold_ms", "pixel_path",
-        "staging_slots", "transfer_async", "dct_coeffs_per_frame",
-        "cache_mb"}),
+        "max_clips", "row_buckets", "fuse", "depth", "max_hold_ms",
+        "pixel_path", "staging_slots", "transfer_async",
+        "dct_coeffs_per_frame", "cache_mb"}),
     "R2P1DRunner": _RUNNER_KEYS,
     # the single step hands its keys to the embedded loader and runner
     "R2P1DSingleStep": _LOADER_KEYS | frozenset({"layer_sizes",

@@ -13,14 +13,19 @@ Backends, picked by :func:`get_decoder`:
 
 * :class:`SyntheticDecoder` for ``synth://`` ids: procedural clips,
   deterministic per (id, clip start) — the dataset-free arm;
-* :class:`Y4MDecoder` for uncompressed ``.y4m`` (rgb and yuv420: such
-  a file holds no DCT coefficients);
-* :class:`MjpegDecoder` for ``.mjpg``/``.mjpeg`` (dct only), through
-  the pure-Python coefficient decoder ``jpeg_dct``; its RGB decode is
-  not ported (the reference's needs PIL).
+* ``NativeY4MDecoder`` (:mod:`rnb_tpu_torch.decode.native`, the repo's
+  C++ decoder, built at first use) for ``.y4m`` and ``.mjpg``/``.mjpeg``
+  files, as in the reference;
+* with ``RNB_DISABLE_NATIVE`` set (the reference's switch), numpy:
+  :class:`Y4MDecoder` for uncompressed ``.y4m`` (rgb and yuv420: such a
+  file holds no DCT coefficients) and :class:`MjpegDecoder` for
+  ``.mjpg``/``.mjpeg`` (dct only), through the pure-Python coefficient
+  decoder ``jpeg_dct``; its RGB decode is not ported (the reference's
+  needs PIL).
 
 A video that cannot be decoded raises (:class:`CorruptVideoError`, a
-``ValueError``); the serving path lets that fail the run loudly.
+``ValueError``; :class:`TransientDecodeError` where a read failed); the
+serving path lets that fail the run loudly.
 """
 
 from __future__ import annotations
@@ -40,6 +45,11 @@ SYNTH_PREFIX = "synth://"
 class CorruptVideoError(ValueError):
     """A video that can never decode on the asked path: a bad or
     truncated stream, an unsupported format, an over-budget spectrum."""
+
+
+class TransientDecodeError(ValueError):
+    """A read of the video failed (the native decoder's I/O error): the
+    file may decode on a retry."""
 
 
 class SyntheticDecoder:
@@ -487,20 +497,28 @@ def write_y4m(path: str, frames: np.ndarray,
 
 
 #: one shared instance per backend, so per-video header and frame-index
-#: caches survive across requests
+#: caches survive across requests (the native one is made at first use:
+#: it builds the library)
 _DECODERS = {"synth": SyntheticDecoder(), "y4m": Y4MDecoder(),
              "mjpeg": MjpegDecoder()}
+_decoders_lock = threading.Lock()
 
 
 def get_decoder(video: str):
-    """The process-wide decoder for one video: ``synth://`` ids, ``.y4m``
-    and ``.mjpg``/``.mjpeg`` files. Anything else raises."""
+    """The process-wide decoder for one video: ``synth://`` ids, and
+    ``.y4m`` and ``.mjpg``/``.mjpeg`` files on the native decoder (on
+    numpy under ``RNB_DISABLE_NATIVE``). Anything else raises."""
     if video.startswith(SYNTH_PREFIX):
         return _DECODERS["synth"]
-    if video.endswith(".y4m"):
-        return _DECODERS["y4m"]
-    if video.endswith((".mjpg", ".mjpeg")):
-        return _DECODERS["mjpeg"]
-    raise CorruptVideoError(
-        "no decode backend for %r: the port decodes synth:// ids, .y4m "
-        "and .mjpg/.mjpeg files" % video)
+    if not video.endswith((".y4m", ".mjpg", ".mjpeg")):
+        raise CorruptVideoError(
+            "no decode backend for %r: the port decodes synth:// ids, "
+            ".y4m and .mjpg/.mjpeg files" % video)
+    from rnb_tpu_torch.decode import native
+    if not native.native_enabled():
+        return _DECODERS["y4m" if video.endswith(".y4m") else "mjpeg"]
+    with _decoders_lock:
+        decoder = _DECODERS.get("native")
+        if decoder is None:
+            decoder = _DECODERS["native"] = native.NativeY4MDecoder()
+    return decoder

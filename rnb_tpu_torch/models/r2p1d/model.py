@@ -32,9 +32,14 @@ with the root ``pager`` key the cache lives on pages of one device slab,
 hits are gathered on the card, and feature pages let a repeated request
 skip the forward (``configs/rnb-fused-yuv-paged-zipf.json``).
 
+Both loaders decode ``.y4m`` and ``.mjpg`` files on the native C++
+pool (:mod:`rnb_tpu_torch.decode.native`) straight into the pinned
+staging rows a request was given when it was submitted; the runner
+replays one captured CUDA graph per input signature on the card.
+
 Not yet ported from the reference stages: the autotune controller,
-fault containment, the native decode pool, ``raw_output`` and the mesh
-runner, the aggregator, sharding.
+fault containment, ``raw_output`` and the mesh runner, the aggregator,
+sharding.
 """
 
 from __future__ import annotations
@@ -46,14 +51,19 @@ import os
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from rnb_tpu_torch.cache import ClipCache, InflightTable, content_key
+from rnb_tpu_torch.compilestats import SignatureTracker, signature_of
 from rnb_tpu_torch.decode import get_decoder
+from rnb_tpu_torch.decode.native import (PIX_DCT, PIX_RGB, PIX_YUV420,
+                                         DecodePool, NativeY4MDecoder,
+                                         default_decode_threads,
+                                         native_enabled)
 from rnb_tpu_torch.models.r2p1d.checkpoint import init_variables
 from rnb_tpu_torch.models.r2p1d.network import (KINETICS_CLASSES,
                                                 NUM_LAYERS, R18_LAYER_SIZES,
@@ -61,6 +71,7 @@ from rnb_tpu_torch.models.r2p1d.network import (KINETICS_CLASSES,
                                                 cast_compute_weights,
                                                 range_output_shape)
 from rnb_tpu_torch.models.r2p1d.sampler import R2P1DSampler
+from rnb_tpu_torch.ops import _kernels
 from rnb_tpu_torch.ops.dct import (dct_frame_elems, default_dct_coeffs,
                                    normalize_dct, ragged_normalize_dct)
 from rnb_tpu_torch.ops.preprocess import normalize_u8
@@ -150,18 +161,22 @@ def default_ragged_chunk(pool_rows: int) -> int:
 
 def shared_network(start: int, end: int, num_classes: int,
                    layer_sizes: tuple, device: torch.device,
-                   dtype: torch.dtype = torch.bfloat16) -> torch.nn.Module:
-    """The one network (and parameter copy) per (range, device): weights
-    drawn from ``WEIGHT_SEED``, filtered to the range, cast once to the
-    compute dtype."""
-    key = (start, end, num_classes, tuple(layer_sizes), str(device), dtype)
+                   dtype: torch.dtype = torch.bfloat16,
+                   factored_shortcut: bool = False) -> torch.nn.Module:
+    """The one network (and parameter copy) per (range, shortcut form,
+    device): weights drawn from ``WEIGHT_SEED``, filtered to the range,
+    cast once to the compute dtype."""
+    factored_shortcut = bool(factored_shortcut)
+    key = (start, end, num_classes, tuple(layer_sizes), factored_shortcut,
+           str(device), dtype)
     with _cache_lock:
         net = _network_cache.get(key)
         if net is None:
             net = R2Plus1DClassifier(start, end, num_classes, layer_sizes,
-                                     dtype=dtype)
+                                     factored_shortcut, dtype=dtype)
             net.load_state_dict(init_variables(
-                WEIGHT_SEED, start, end, num_classes, layer_sizes))
+                WEIGHT_SEED, start, end, num_classes, layer_sizes,
+                factored_shortcut))
             net = cast_compute_weights(net).to(device).eval()
             _network_cache[key] = net
         return net
@@ -190,14 +205,6 @@ class R2P1DVideoPathIterator(VideoPathIterator):
         return itertools.cycle(self._videos)
 
 
-def _completed(value) -> Future:
-    """A future that already holds ``value``: the rows of a hit, which
-    need no decode, ride the fused window like a finished decode."""
-    future: Future = Future()
-    future.set_result(value)
-    return future
-
-
 def normalize_emission(pixel_path: str, ragged: bool,
                        device_wire: torch.Tensor, valid: int):
     """The loaders' device step, shared by every emission path: on the
@@ -216,21 +223,77 @@ def normalize_emission(pixel_path: str, ragged: bool,
     return normalize_u8(device_wire)
 
 
+def dataset_samples(suffixes, num_samples: int = 3) -> list:
+    """A few files of the dataset (``$RNB_TPU_DATA_ROOT``) with one of
+    ``suffixes``, for a loader's decode warm-up; none without one."""
+    root = os.environ.get("RNB_TPU_DATA_ROOT")
+    if not root or not os.path.isdir(root):
+        return []
+    return [v for v in scan_video_tree(root)
+            if v.endswith(tuple(suffixes))][:num_samples]
+
+
+#: the native pixel format of each pixel path
+PIXFMT = {"rgb": PIX_RGB, "yuv420": PIX_YUV420, "dct": PIX_DCT}
+#: clips per native ticket: one request's decode fans out over the pool
+POOL_CHUNK_CLIPS = 4
+
+
+def submit_native(video: str, starts, frames: int, target: np.ndarray,
+                  pixel_path: str) -> list:
+    """Queue one request's native decode into ``target`` (its planned
+    staging rows), a ticket per :data:`POOL_CHUNK_CLIPS` clips. A
+    submit that fails part way waits the tickets already queued, so
+    none is left writing into the rows."""
+    pool = DecodePool.shared()
+    tickets = []
+    try:
+        for lo in range(0, len(starts), POOL_CHUNK_CLIPS):
+            hi = min(lo + POOL_CHUNK_CLIPS, len(starts))
+            tickets.append(pool.submit_into(
+                video, starts[lo:hi], frames, target[lo:hi],
+                PIXFMT[pixel_path], FRAME_HW, FRAME_HW))
+    except Exception:
+        wait_tickets(tickets, video, swallow=True)
+        raise
+    return tickets
+
+
+def wait_tickets(tickets, video: str, swallow: bool = False) -> None:
+    """Wait every ticket, even after one failed (an unwaited ticket
+    would leave its rows pinned in the pool), then raise the first
+    decode error unless ``swallow``."""
+    pool = DecodePool.shared()
+    first_error = None
+    for ticket in tickets:
+        try:
+            pool.wait(ticket, video)
+        except ValueError as e:
+            first_error = first_error or e
+    if first_error is not None and not swallow:
+        raise first_error
+
+
 class _DecodeHandle:
     """Decode work of one request, started ahead of its turn: ``wait()``
     blocks until the clip rows are in ``out``.
 
-    A ``cached`` handle carries a clip-cache hit and a ``feature_plan``
-    handle a feature-page hit: neither owns decode work. A ``leader``
-    handle is a coalesced follower sharing another request's decode. A
-    failed ``wait()`` keeps its error and raises it again on every later
-    wait, so a follower of a failed leader fails the same way."""
+    A native decode writes into rows of a staging ``slot`` (``out`` is
+    that view) through pool ``tickets``; the handle holds one reference
+    on the slot until its rows are shipped or dropped. A numpy decode
+    runs on a thread (``future``). A ``cached`` handle carries a
+    clip-cache hit and a ``feature_plan`` handle a feature-page hit:
+    neither owns decode work. A ``leader`` handle is a coalesced
+    follower sharing another request's decode (and, on a slot, holding
+    its own reference on the leader's rows). A failed ``wait()`` keeps
+    its error and raises it again on every later wait, so a follower of
+    a failed leader fails the same way."""
 
     __slots__ = ("out", "n", "future", "cached", "leader", "key", "error",
-                 "feature_plan")
+                 "feature_plan", "slot", "tickets", "video")
 
     def __init__(self, out, n, future=None, cached=None, leader=None,
-                 key=None):
+                 key=None, slot=None, tickets=None, video=None):
         self.out = out          # wire rows (n, ...), set by the decode
         self.n = n              # valid clip count
         self.future = future    # the decode thread's future, or None
@@ -239,6 +302,9 @@ class _DecodeHandle:
         self.key = key          # cache key this decode inserts under
         self.error = None
         self.feature_plan = None  # a pinned feature-page hit, or None
+        self.slot = slot        # the staging slot ``out`` lies in
+        self.tickets = tickets  # native pool tickets, or None
+        self.video = video
 
     def wait(self) -> None:
         if self.leader is not None:
@@ -247,13 +313,16 @@ class _DecodeHandle:
             return
         if self.error is not None:
             raise self.error
-        if self.future is not None:
-            try:
+        try:
+            if self.tickets:
+                tickets, self.tickets = self.tickets, None
+                wait_tickets(tickets, self.video)
+            if self.future is not None:
                 self.out = self.future.result()
-            except Exception as e:
-                self.error = e
-                raise
-            self.future = None
+                self.future = None
+        except Exception as e:
+            self.error = e
+            raise
 
 
 class R2P1DLoader(StageModel):
@@ -329,16 +398,28 @@ class R2P1DLoader(StageModel):
                               "cache_hit_rows": 0}
                              if self.ragged else None)
         self.prefetch_depth = int(prefetch)
-        self._decode_pool = None  # built at the first submit
+        self._decode_pool = None  # built at the first numpy submit
         self._starts_cache: Dict[str, list] = {}
-        #: the staging plane counts only slots a decoder writes into; this
-        #: loader copies its rows into a transfer buffer, as the reference
-        #: does without its native decoder
+        #: the slots the native pool decodes prefetched requests into,
+        #: one a request: the prefetch window, the head request and one
+        #: transferring (the reference's sizing; without prefetch every
+        #: decode is synchronous and targets no slot)
         self.staging = None
+        if self.prefetch_depth > 0 and native_enabled():
+            self.staging = StagingPool(self._batch_shape(self.max_clips),
+                                       self.prefetch_depth + 2,
+                                       self.torch_device,
+                                       _wire_dtype(pixel_path))
+        #: the copy path: a numpy decode or a synchronous one is copied
+        #: into one of these pinned buffers, as the reference does
+        #: without its native decoder
         self._transfer = StagingPool(self._batch_shape(self.max_clips),
                                      self.TRANSFER_SLOTS,
                                      self.torch_device,
                                      _wire_dtype(pixel_path))
+        #: entry signatures of the rgb device step (the reference's
+        #: preprocess jit); the wire paths run no device step here
+        self.compiles = SignatureTracker() if pixel_path == "rgb" else None
         self.ingest_stats = {"pixel_path": pixel_path, "backends": set()}
         self.cache = None
         self._inflight_keys = None
@@ -404,12 +485,7 @@ class R2P1DLoader(StageModel):
     def _warm_decode(self, num_samples: int = 3) -> None:
         """Decode a few files of the dataset once, so the first measured
         request pays no cold file or header cost."""
-        root = os.environ.get("RNB_TPU_DATA_ROOT")
-        if not root or not os.path.isdir(root):
-            return
-        samples = [v for v in scan_video_tree(root)
-                   if v.endswith(".y4m")][:num_samples]
-        for path in samples:
+        for path in dataset_samples((".y4m",), num_samples):
             decoder = get_decoder(path)
             self._decode_sync(decoder, path,
                               self._sample_starts(decoder, path))
@@ -449,6 +525,8 @@ class R2P1DLoader(StageModel):
             self._bucket_for(valid) if self.ragged else 0)
 
     def _normalize_emission(self, device_wire: torch.Tensor, valid: int):
+        if self.compiles is not None:
+            self.compiles.observe(device_wire)
         return normalize_emission(self.pixel_path, self.ragged,
                                   device_wire, valid)
 
@@ -577,14 +655,51 @@ class R2P1DLoader(StageModel):
         if caching and self.ragged and not self.cache.paged:
             self.cache.insert_rows(cache_key, clips, n)
         device_wire = self._transfer.transfer(slot, shipped)
-        if caching and self.ragged and self.cache.paged:
-            self.cache.insert_pages(cache_key, device_wire, 0, n)
-            self._stamp_feature_insert(time_card, cache_key, 0, n)
-        if caching and not self.ragged:
-            self.cache.insert_device(cache_key, device_wire, n)
-        self._note_emission_padding(n, shipped, [time_card])
+        if self.staging is not None:
+            self.staging.note_emission(copied=True)
+        return self._materialized(device_wire, n, time_card, cache_key)
+
+    def _materialize_slot(self, handle: _DecodeHandle, time_card,
+                          cache_key=None):
+        """The staged twin of :meth:`_materialize`: the native pool
+        decoded into the handle's slot rows, so they ship from there
+        with no copy; a bucketed emission's pad rows are zeroed on the
+        card. The handle's slot reference goes once the transfer is
+        confirmed (a ragged blob insert copies the rows out first)."""
+        n = handle.n
+        try:
+            if cache_key is not None and self.cache is not None \
+                    and self.ragged and not self.cache.paged:
+                self.cache.insert_rows(cache_key, handle.out, n)
+            device_wire = self.staging.transfer_rows(
+                ((handle.slot, 0, n),), self._ship_rows(n),
+                zero_tail=not self.ragged)
+        finally:
+            self._release_handle_slot(handle)
+        self.staging.note_emission(copied=False)
+        return self._materialized(device_wire, n, time_card, cache_key)
+
+    def _materialized(self, device_wire, n: int, time_card, cache_key):
+        """An emission's device rows into the cache (paged or bucketed
+        blob, insert-after-success), the padding counters and the
+        device step."""
+        if cache_key is not None and self.cache is not None:
+            if self.ragged and self.cache.paged:
+                self.cache.insert_pages(cache_key, device_wire, 0, n)
+                self._stamp_feature_insert(time_card, cache_key, 0, n)
+            elif not self.ragged:
+                self.cache.insert_device(cache_key, device_wire, n)
+        self._note_emission_padding(n, int(device_wire.shape[0]),
+                                    [time_card])
         return (self._wrap_batch(self._normalize_emission(device_wire, n),
                                  n),), None, time_card
+
+    def _release_handle_slot(self, handle: _DecodeHandle) -> None:
+        """Retire a handle's slot reference (idempotent): its rows are
+        shipped or dropped."""
+        if handle.slot is not None:
+            slot, handle.slot = handle.slot, None
+            self.staging.release(slot)
 
     # -- prefetch: submit / complete / discard ------------------------------
 
@@ -613,18 +728,39 @@ class R2P1DLoader(StageModel):
                 time_card.num_clips = leader.n
                 time_card.cache_coalesced = True
                 self.cache.note_coalesced()
-                return _DecodeHandle(None, leader.n, leader=leader)
+                follower = _DecodeHandle(None, leader.n, leader=leader)
+                if leader.slot is not None:
+                    # the follower ships the leader's slot rows itself:
+                    # its own reference keeps them from being reused
+                    self.staging.add_ref(leader.slot)
+                    follower.slot = leader.slot
+                return follower
         decoder = get_decoder(video)
         starts = self._sample_starts(decoder, video)
-        time_card.num_clips = len(starts)
-        if self._decode_pool is None:
-            self._decode_pool = ThreadPoolExecutor(
-                max_workers=min(8, os.cpu_count() or 1),
-                thread_name_prefix="rnb-decode")
-        handle = _DecodeHandle(None, len(starts), key=key,
-                               future=self._decode_pool.submit(
-                                   self._decode_sync, decoder, video,
-                                   starts))
+        n = len(starts)
+        time_card.num_clips = n
+        if isinstance(decoder, NativeY4MDecoder) and self.staging is not None:
+            self.ingest_stats["backends"].add(decoder.BACKEND)
+            slot = self.staging.acquire()
+            target = slot.array[:n]
+            try:
+                tickets = submit_native(video, starts,
+                                        self.consecutive_frames, target,
+                                        self.pixel_path)
+            except Exception:
+                self.staging.release(slot)
+                raise
+            handle = _DecodeHandle(target, n, key=key, slot=slot,
+                                   tickets=tickets, video=video)
+        else:
+            if self._decode_pool is None:
+                self._decode_pool = ThreadPoolExecutor(
+                    max_workers=default_decode_threads(),
+                    thread_name_prefix="rnb-decode")
+            handle = _DecodeHandle(None, n, key=key,
+                                   future=self._decode_pool.submit(
+                                       self._decode_sync, decoder, video,
+                                       starts))
         if key is not None:
             self._inflight_keys.put(key, handle)
         return handle
@@ -640,15 +776,27 @@ class R2P1DLoader(StageModel):
             return self._materialize_hit(entry, time_card)
         if handle.leader is not None:
             # the leader decoded for both and made the cache insert
-            handle.wait()
+            try:
+                handle.wait()
+            except Exception:
+                self._release_handle_slot(handle)
+                raise
+            if handle.slot is not None:
+                return self._materialize_slot(handle, time_card)
             return self._materialize(handle.out, handle.n, time_card)
         try:
             handle.wait()
+        except Exception:
+            self._release_handle_slot(handle)
+            raise
         finally:
             # finalized either way: later requests for this key consult
             # the cache or decode afresh
             if self._inflight_keys is not None:
                 self._inflight_keys.pop(handle.key)
+        if handle.slot is not None:
+            return self._materialize_slot(handle, time_card,
+                                          cache_key=handle.key)
         return self._materialize(handle.out, handle.n, time_card,
                                  cache_key=handle.key)
 
@@ -660,6 +808,8 @@ class R2P1DLoader(StageModel):
             handle.wait()
         except Exception:
             pass  # abort path: decode errors are moot
+        # waited, so no decoder writes into the slot rows any more
+        self._release_handle_slot(handle)
         for plan in (handle.feature_plan, handle.cached):
             if plan is not None and hasattr(plan, "release"):
                 plan.release()
@@ -695,54 +845,93 @@ class R2P1DLoader(StageModel):
 
 
 class _FuseRecord:
-    """One request of the fusing loader: where its rows come from (a
-    decode future, a ragged blob hit's rows, or a paged hit's gather
-    plan), its clip row count, and every TimeCard riding on it — the
-    leader's and any coalesced followers', which share its rows."""
+    """One request of the fusing loader: its planned rows (``row0`` ..
+    ``row0 + n`` of a staging ``slot``, on which it holds one
+    reference), what fills them — native pool ``tickets``, a numpy
+    decode ``future`` that copies into them, a ragged blob hit's rows
+    copied at admission, or a paged hit's gather ``plan`` (the rows ship
+    unfilled and the clip arena overwrites them on the card) — and every
+    TimeCard riding on it: the leader's and any coalesced followers',
+    which share its rows."""
 
-    __slots__ = ("future", "n", "cards", "key", "fkey", "plan", "t_ready")
+    __slots__ = ("n", "cards", "key", "fkey", "plan", "slot", "row0",
+                 "tickets", "future", "copied", "video", "t_ready")
 
-    def __init__(self, future, n, card, key=None, fkey=None, plan=None):
-        self.future = future
+    def __init__(self, n, card, slot, row0, key=None, fkey=None, plan=None,
+                 video=None):
         self.n = n
         self.cards = [card]
         self.key = key     # cache key to insert under, None for a hit
         self.fkey = fkey   # content key for the feature-page insert
         self.plan = plan   # paged hit: its pinned GatherPlan
+        self.slot = slot
+        self.row0 = row0
+        self.tickets = None  # native decode into the rows
+        self.future = None   # numpy decode, copied into the rows
+        #: the rows were placed by a host copy, not by the decoder
+        self.copied = False
+        self.video = video
         self.t_ready = 0.0
+
+    @property
+    def rows(self) -> np.ndarray:
+        return self.slot.array[self.row0:self.row0 + self.n]
+
+    def ready(self) -> bool:
+        """The rows are filled (native tickets are only peeked)."""
+        if self.tickets:
+            pool = DecodePool.shared()
+            return all(pool.peek(t) for t in self.tickets)
+        return self.future is None or self.future.done()
+
+    def wait(self) -> None:
+        """Retire the decode that fills the rows; its error raises."""
+        if self.tickets:
+            tickets, self.tickets = self.tickets, None
+            wait_tickets(tickets, self.video)
+        if self.future is not None:
+            future, self.future = self.future, None
+            future.result()
 
 
 class R2P1DFusingLoader(StageModel):
     """Decode stage with loader-side dynamic batching.
 
-    Each request is submitted to a decode thread pool at once; requests
-    whose decode finished are taken in FIFO order and emitted as ONE
-    fused batch with a TimeCardList. Emission policy (the reference's):
+    Each request is given its rows in a pinned staging slot when it is
+    admitted (submit-time row planning: a slot takes ``fuse`` requests
+    or ``max_clips`` rows, the emission rules below) and its decode
+    starts at once: ``.y4m`` and ``.mjpg`` files on the native C++ pool,
+    which decodes straight into those rows, other ids on numpy threads,
+    which copy their result into them. Requests whose decode finished
+    are taken in FIFO order and emitted as ONE fused batch with a
+    TimeCardList; the emission copies their rows from the slots to the
+    card (one copy per run of adjacent rows) with no assembly copy on
+    the host. Emission policy (the reference's):
 
       * emit when ``fuse`` requests are ready or their rows reach the
         max shape;
       * emit a partial batch when nothing is left in flight;
       * emit when the oldest ready request has waited ``max_hold_ms``;
-      * block on the oldest in-flight decode once ``2 * fuse``
-        requests are pending (backpressure toward the client queue).
+      * block on the oldest in-flight decode once ``depth`` (default
+        ``2 * fuse``) requests are pending (backpressure toward the
+        client queue).
 
-    A batch is assembled in a pinned staging slot and transferred to
-    the card on a dedicated stream; with ``transfer_async`` the
-    transfer runs on a worker thread while the next batch decodes.
-    Bucketed emissions zero their pad rows; ragged emissions ship the
-    pool shape and leave the tail as it is — the ingest kernels treat
-    rows past ``rows_valid`` as zero bytes.
+    The transfer runs on a dedicated stream; with ``transfer_async`` on
+    a worker thread while the next batch decodes. Bucketed emissions
+    zero their pad rows on the card; ragged emissions ship the pool
+    shape with the tail unwritten — the ingest kernels treat rows past
+    ``rows_valid`` as zero bytes and never read them.
 
     With ``cache_mb`` a clip cache serves repeated videos
     (:mod:`rnb_tpu_torch.cache`): a bucketed hit is emitted at once as
-    its cached device batch; a ragged hit rides the next pool — a blob
-    hit copies its host rows in, a paged hit (after ``enable_pager``)
-    ships its slot rows as they are and has them overwritten on the
-    card by the clip arena's gather after the transfer. A request whose
-    video is decoding parks on that decode (coalescing). With feature
-    pages, a request whose logits are stored skips decode, transfer and
-    the forward: it is emitted at once as a stub, and the runner
-    gathers its logits.
+    its cached device batch; a ragged hit takes rows in the next pool —
+    a blob hit copies its host rows in, a paged hit (after
+    ``enable_pager``) ships them unfilled and has them overwritten on
+    the card by the clip arena's gather after the transfer. A request
+    whose video is decoding parks on that decode (coalescing). With
+    feature pages, a request whose logits are stored skips decode,
+    transfer and the forward: it is emitted at once as a stub, and the
+    runner gathers its logits.
     """
 
     SUPPORTS_RAGGED = True
@@ -756,7 +945,8 @@ class R2P1DFusingLoader(StageModel):
     #: ready-queue poll tick while draining the transfer worker
     FLUSH_TICK_S = 0.0005
 
-    def __init__(self, device, fuse: int = 6, max_hold_ms: float = 5.0,
+    def __init__(self, device, fuse: int = 6, depth: Optional[int] = None,
+                 max_hold_ms: float = 5.0,
                  max_clips: int = MAX_CLIPS, num_warmups: int = NUM_WARMUPS,
                  row_buckets=None,
                  pixel_path: str = "rgb", staging_slots=None,
@@ -771,7 +961,8 @@ class R2P1DFusingLoader(StageModel):
         self.torch_device = _device_of(device)
         self.pixel_path = pixel_path
         self.fuse = int(fuse)
-        self.depth = 2 * self.fuse
+        #: the in-flight decode window
+        self.depth = int(depth) if depth is not None else 2 * self.fuse
         self.max_hold_ms = float(max_hold_ms)
         self.max_clips = int(max_clips)
         self.sampler = R2P1DSampler(consecutive_frames=CONSECUTIVE_FRAMES)
@@ -792,14 +983,20 @@ class R2P1DFusingLoader(StageModel):
         self.staging = StagingPool(self._batch_shape(self.max_clips),
                                    slots, self.torch_device,
                                    _wire_dtype(pixel_path))
+        #: the slot rows are planned into: it holds one reference of its
+        #: own until it is sealed
+        self._open_slot = None
+        self._open_rows = 0
+        self._open_count = 0
         #: the pixel path and every decode backend that served a request
         self.ingest_stats = {"pixel_path": pixel_path, "backends": set()}
+        #: entry signatures of the rgb device step (the reference's
+        #: preprocess jit); the wire paths run no device step here
+        self.compiles = SignatureTracker() if pixel_path == "rgb" else None
         self.transfer_async = bool(transfer_async)
         self._worker = (TransferWorker(self.staging)
                         if self.transfer_async else None)
-        self._decode_pool = ThreadPoolExecutor(
-            max_workers=min(8, os.cpu_count() or 1),
-            thread_name_prefix="rnb-decode")
+        self._decode_pool = None  # numpy decode threads, at first use
         self._starts_cache: Dict[str, list] = {}
         self._inflight: deque = deque()  # decode still running
         self._ready: deque = deque()     # decode complete
@@ -837,6 +1034,8 @@ class R2P1DFusingLoader(StageModel):
                     self.staging.acquire(), rows), rows)
         if self.torch_device.type == "cuda":
             torch.cuda.synchronize(self.torch_device)
+        if num_warmups > 0:
+            self._warm_decode()
 
     @classmethod
     def output_shape_for(cls, max_clips: int = MAX_CLIPS,
@@ -882,6 +1081,8 @@ class R2P1DFusingLoader(StageModel):
         return _wire_batch_shape(rows, self.pixel_path, self.dct_coeffs)
 
     def _normalize_emission(self, device_wire: torch.Tensor, valid: int):
+        if self.compiles is not None:
+            self.compiles.observe(device_wire)
         return normalize_emission(self.pixel_path, self.ragged,
                                   device_wire, valid)
 
@@ -904,6 +1105,79 @@ class R2P1DFusingLoader(StageModel):
             starts = starts[: self.max_clips]
             self._starts_cache[video] = starts
         return starts
+
+    def _warm_decode(self, num_samples: int = 3) -> None:
+        """Decode a few files of the dataset once before the measured
+        window, as the reference's loaders do: the native library is
+        built or loaded and its pool started here, so the first measured
+        request pays neither that nor a cold file or header."""
+        suffixes = ((".mjpg", ".mjpeg") if self.pixel_path == "dct"
+                    else (".y4m",))
+        for path in dataset_samples(suffixes, num_samples):
+            decoder = get_decoder(path)
+            starts = self._sample_starts(decoder, path)
+            self._decode_into(decoder, path, starts, np.empty(
+                self._batch_shape(len(starts)),
+                np.int16 if self.pixel_path == "dct" else np.uint8))
+            if isinstance(decoder, NativeY4MDecoder):
+                DecodePool.shared()
+
+    def _decode_into(self, decoder, video: str, starts, target) -> None:
+        """A numpy decode on a decode thread, copied into the request's
+        planned rows."""
+        if self.pixel_path == "dct":
+            target[...] = decoder.decode_clips_dct(
+                video, starts, CONSECUTIVE_FRAMES, FRAME_HW, FRAME_HW,
+                self.dct_coeffs)
+        elif self.pixel_path == "yuv420":
+            target[...] = decoder.decode_clips_yuv(
+                video, starts, CONSECUTIVE_FRAMES, FRAME_HW, FRAME_HW)
+        else:
+            target[...] = decoder.decode_clips(
+                video, starts, CONSECUTIVE_FRAMES, FRAME_HW, FRAME_HW)
+
+    # -- submit-time row planning ------------------------------------------
+
+    def _stage_target(self, n: int):
+        """Place ``n`` rows of a request in the open slot, opening a
+        fresh one when it has taken ``fuse`` requests or its rows would
+        pass ``max_clips`` (the emission rules, so a full take is one
+        slot). The request holds a reference on the slot. -> (slot,
+        row0)."""
+        if (self._open_slot is None or self._open_count >= self.fuse
+                or self._open_rows + n > self.max_clips):
+            self._seal_open_slot()
+            self._open_slot = self._acquire_fused_slot()
+        slot, row0 = self._open_slot, self._open_rows
+        self.staging.add_ref(slot)
+        self._open_rows += n
+        self._open_count += 1
+        return slot, row0
+
+    def _seal_open_slot(self) -> None:
+        """Plan no more rows into the open slot: drop its own
+        reference (its requests keep theirs)."""
+        if self._open_slot is not None:
+            slot, self._open_slot = self._open_slot, None
+            self._open_rows = self._open_count = 0
+            self.staging.release(slot)
+
+    def _acquire_fused_slot(self):
+        """A fresh slot. When none is free, finish this stage's own work
+        first — wait the oldest decode and emit, which releases slots —
+        since the emissions run on this same thread; block only when
+        nothing is left but transfers in flight on the worker."""
+        slot = self.staging.try_acquire()
+        while slot is None:
+            if self._inflight or self._ready:
+                if not self._ready:
+                    self._retire_oldest()
+                self._harvest()
+                self._emit()
+                slot = self.staging.try_acquire()
+                continue
+            slot = self.staging.acquire()
+        return slot
 
     # -- the clip cache and feature pages ---------------------------------
 
@@ -982,62 +1256,9 @@ class R2P1DFusingLoader(StageModel):
 
     # -- admission ----------------------------------------------------------
 
-    def __call__(self, tensors, non_tensors, time_card):
-        video = str(non_tensors)
-        time_card.video = video
-        fkey, fplan = self._feature_probe(video)
-        if fplan is not None:
-            return self._emit_feature(fplan, time_card)
-        key, entry = self._cache_lookup(video, key=fkey)
-        if entry is not None and self.ragged:
-            # a ragged hit fills its pool rows like a decode that
-            # finished at once, and joins the window in arrival order
-            n = entry.valid
-            time_card.num_clips = n
-            time_card.cache_hit = True
-            self.ragged_stats["cache_hit_rows"] += n
-            if self.cache.paged:
-                rec = _FuseRecord(_completed(None), n, time_card,
-                                  fkey=fkey, plan=entry)
-            else:
-                rec = _FuseRecord(_completed(entry.batch), n, time_card,
-                                  fkey=fkey)
-            self._inflight.append(rec)
-            out = self.poll()
-            return out if out is not None else (None, None, None)
-        if entry is not None:
-            return self._emit_hit(entry, time_card)
-        if key is not None:
-            time_card.cache_hit = False
-            live = self._inflight_keys.get(key)
-            if live is not None:
-                # coalesce: ride the leader's decode and row range
-                time_card.num_clips = live.n
-                time_card.cache_coalesced = True
-                self.cache.note_coalesced()
-                live.cards.append(time_card)
-                out = self.poll()
-                return out if out is not None else (None, None, None)
-        decoder = get_decoder(video)
-        starts = self._sample_starts(decoder, video)
-        time_card.num_clips = len(starts)
-        self.ingest_stats["backends"].add(decoder.BACKEND)
-        if self.pixel_path == "dct":
-            future = self._decode_pool.submit(
-                decoder.decode_clips_dct, video, starts, CONSECUTIVE_FRAMES,
-                FRAME_HW, FRAME_HW, self.dct_coeffs)
-        elif self.pixel_path == "yuv420":
-            future = self._decode_pool.submit(
-                decoder.decode_clips_yuv, video, starts, CONSECUTIVE_FRAMES,
-                FRAME_HW, FRAME_HW)
-        else:
-            future = self._decode_pool.submit(
-                decoder.decode_clips, video, starts, CONSECUTIVE_FRAMES,
-                FRAME_HW, FRAME_HW)
-        rec = _FuseRecord(future, len(starts), time_card, key=key,
-                          fkey=fkey)
-        if key is not None:
-            self._inflight_keys.put(key, rec)
+    def _admit(self, rec: _FuseRecord):
+        """A planned record joins the window in arrival order; then the
+        emission rules and the depth backpressure."""
         self._inflight.append(rec)
         out = self.poll()
         if out is not None:
@@ -1053,17 +1274,82 @@ class R2P1DFusingLoader(StageModel):
                 return out
         return None, None, None
 
+    def __call__(self, tensors, non_tensors, time_card):
+        video = str(non_tensors)
+        time_card.video = video
+        fkey, fplan = self._feature_probe(video)
+        if fplan is not None:
+            return self._emit_feature(fplan, time_card)
+        key, entry = self._cache_lookup(video, key=fkey)
+        if entry is not None and self.ragged:
+            # a ragged hit takes pool rows like a decode that finished
+            # at once, and joins the window in arrival order
+            n = entry.valid
+            time_card.num_clips = n
+            time_card.cache_hit = True
+            self.ragged_stats["cache_hit_rows"] += n
+            slot, row0 = self._stage_target(n)
+            if self.cache.paged:
+                rec = _FuseRecord(n, time_card, slot, row0, fkey=fkey,
+                                  plan=entry)
+            else:
+                rec = _FuseRecord(n, time_card, slot, row0, fkey=fkey)
+                rec.rows[...] = entry.batch[:n]
+                rec.copied = True
+            return self._admit(rec)
+        if entry is not None:
+            return self._emit_hit(entry, time_card)
+        if key is not None:
+            time_card.cache_hit = False
+            live = self._inflight_keys.get(key)
+            if live is not None:
+                # coalesce: ride the leader's decode and row range
+                time_card.num_clips = live.n
+                time_card.cache_coalesced = True
+                self.cache.note_coalesced()
+                live.cards.append(time_card)
+                out = self.poll()
+                return out if out is not None else (None, None, None)
+        decoder = get_decoder(video)
+        starts = self._sample_starts(decoder, video)
+        n = len(starts)
+        time_card.num_clips = n
+        self.ingest_stats["backends"].add(decoder.BACKEND)
+        slot, row0 = self._stage_target(n)
+        rec = _FuseRecord(n, time_card, slot, row0, key=key, fkey=fkey,
+                          video=video)
+        try:
+            if isinstance(decoder, NativeY4MDecoder):
+                rec.tickets = submit_native(video, starts,
+                                            CONSECUTIVE_FRAMES, rec.rows,
+                                            self.pixel_path)
+            else:
+                if self._decode_pool is None:
+                    self._decode_pool = ThreadPoolExecutor(
+                        max_workers=default_decode_threads(),
+                        thread_name_prefix="rnb-decode")
+                rec.copied = True
+                rec.future = self._decode_pool.submit(
+                    self._decode_into, decoder, video, starts, rec.rows)
+        except Exception:
+            self.staging.release(slot)
+            raise
+        if key is not None:
+            self._inflight_keys.put(key, rec)
+        return self._admit(rec)
+
     def _retire_oldest(self) -> None:
         rec = self._inflight.popleft()
-        rec.future.result()  # a decode error fails the run here
-        rec.t_ready = time.monotonic()
-        self._ready.append(rec)
+        try:
+            rec.wait()  # a decode error fails the run here
+        finally:
+            rec.t_ready = time.monotonic()
+            self._ready.append(rec)  # discard_pending releases its slot
 
     def _harvest(self) -> None:
         """Move decode-complete requests to ready, in FIFO order."""
-        while self._inflight and self._inflight[0].future.done():
+        while self._inflight and self._inflight[0].ready():
             rec = self._inflight.popleft()
-            rec.future.result()
             rec.t_ready = time.monotonic()
             self._ready.append(rec)
 
@@ -1077,54 +1363,70 @@ class R2P1DFusingLoader(StageModel):
             n = self._ready[0].n
             if take and rows + n > self.max_clips:
                 break
-            rec = self._ready.popleft()
-            # finalizing: a later same-key request consults the cache
-            self._drop_coalesce(rec)
-            take.append(rec)
+            take.append(self._ready.popleft())
             rows += n
         if not take:
             return False
+        try:
+            for rec in take:
+                rec.wait()  # retires the tickets; a decode error raises
+        except Exception:
+            self._ready.extendleft(reversed(take))
+            raise
+        for rec in take:
+            # finalizing: a later same-key request consults the cache
+            self._drop_coalesce(rec)
         if rows > self.max_clips:
             raise RuntimeError("fused %d rows over max_clips=%d"
                                % (rows, self.max_clips))
         shipped = self.pool_rows if self.ragged else self._bucket_for(rows)
         paged = self.cache is not None and self.cache.paged
         offsets = segment_offsets_of(rec.n for rec in take)
-        slot = self.staging.acquire()
-        cards, gather_plans, insert_jobs = [], [], []
+        cards, gather_plans, insert_jobs, runs = [], [], [], []
         for i, rec in enumerate(take):
             row0 = offsets[i]
-            if rec.plan is None:
-                slot.array[row0:row0 + rec.n] = rec.future.result()
+            if runs and runs[-1][0] is rec.slot \
+                    and runs[-1][1] + runs[-1][2] == rec.row0:
+                runs[-1][2] += rec.n  # adjacent rows: one copy
             else:
-                # a paged hit ships its slot rows as they are: the clip
-                # arena's gather overwrites them after the transfer
+                runs.append([rec.slot, rec.row0, rec.n])
+            hit = rec.plan is not None
+            if hit:
+                # a paged hit's rows ship unfilled: the clip arena's
+                # gather overwrites them after the transfer
                 gather_plans.append((row0, rec.plan))
+                rec.plan = None
             for tc in rec.cards:
                 tc.row0 = row0
             cards.extend(rec.cards)
             if paged:
-                if rec.plan is None and rec.key is not None:
+                if not hit and rec.key is not None:
                     insert_jobs.append((rec.key, row0, rec.n))
                 self._stamp_feature_insert(rec.cards[0], rec.fkey, row0,
                                            rec.n)
             elif self.cache is not None and rec.key is not None:
                 # insert-after-success: the decode completed; both blob
-                # inserts copy the rows out before the slot is reused
+                # inserts copy the rows out before the slot is released
                 if self.ragged:
-                    self.cache.insert_rows(rec.key, rec.future.result(),
-                                           rec.n)
+                    self.cache.insert_rows(rec.key, rec.rows, rec.n)
                 else:
                     self.cache.insert_host(
-                        rec.key, rec.future.result(), rec.n,
+                        rec.key, rec.rows, rec.n,
                         self._batch_shape(self._bucket_for(rec.n)),
                         _wire_dtype(self.pixel_path))
-        if not self.ragged:
-            slot.array[rows:shipped] = 0
         self._note_emission(rows, shipped, cards)
+        self.staging.note_emission(any(rec.copied for rec in take))
+        slots = [rec.slot for rec in take]
 
         def job():
-            batch = self.staging.transfer(slot, shipped)
+            try:
+                batch = self.staging.transfer_rows(
+                    [tuple(run) for run in runs], shipped,
+                    zero_tail=not self.ragged)
+            finally:
+                # the copies are confirmed (or failed): the rows go
+                for slot in slots:
+                    self.staging.release(slot)
             if gather_plans or insert_jobs:
                 batch = self._overlay_pages(batch, gather_plans,
                                             insert_jobs)
@@ -1243,19 +1545,61 @@ class R2P1DFusingLoader(StageModel):
             return None
 
     def discard_pending(self) -> None:
-        """Teardown: drop unemitted work, release the page pins of
-        unemitted hits, and stop the helper threads."""
+        """Teardown: drop unemitted work — every decode is waited first,
+        so no decoder writes into a slot after its rows are released —
+        release the page pins of unemitted hits, and stop the helper
+        threads."""
         for rec in list(self._inflight) + list(self._ready):
             self._drop_coalesce(rec)
+            try:
+                rec.wait()
+            except Exception:
+                pass  # abort path: decode errors are moot
             if rec.plan is not None:
                 rec.plan.release()
+            self.staging.release(rec.slot)
         self._inflight.clear()
         self._ready.clear()
+        self._seal_open_slot()
         if self._worker is not None:
             self._worker.close()
-        self._decode_pool.shutdown(wait=True, cancel_futures=True)
+        if self._decode_pool is not None:
+            self._decode_pool.shutdown(wait=True, cancel_futures=True)
         with self._out_lock:
             self._out_ready.clear()
+
+
+class CapturedForward:
+    """One captured CUDA graph of the runner's forward at one input
+    signature: the card's counterpart of one compiled executable.
+
+    A replay reads fixed addresses, so the stage input is copied into
+    ``static_in`` and ``rows_valid`` written into ``static_rows_valid``
+    (the one int32 element the ragged ingest reads; None where it reads
+    none), both on the current stream and outside the graph; the graph
+    then runs, and ``static_out`` is copied out, since the next replay
+    overwrites it. ``launches`` is the tally of hand-written kernel
+    launches recorded at capture; every replay counts it once."""
+
+    __slots__ = ("graph", "static_in", "static_rows_valid", "static_out",
+                 "launches", "capture_s")
+
+    def __init__(self, graph, static_in, static_rows_valid, static_out,
+                 launches, capture_s: float = 0.0):
+        self.graph = graph
+        self.static_in = static_in
+        self.static_rows_valid = static_rows_valid
+        self.static_out = static_out
+        self.launches = dict(launches)
+        self.capture_s = float(capture_s)
+
+    def replay(self, x: torch.Tensor, rows_valid: int) -> torch.Tensor:
+        self.static_in.copy_(x)
+        if self.static_rows_valid is not None:
+            self.static_rows_valid.fill_(int(rows_valid))
+        self.graph.replay()
+        _kernels.add_launches(self.launches)
+        return self.static_out.clone()
 
 
 class R2P1DRunner(StageModel):
@@ -1284,6 +1628,17 @@ class R2P1DRunner(StageModel):
     stamped request's output rows after its forward returned, and
     answers a feature hit by gathering them back over a zero logit pool
     without running the ingest or the network.
+
+    On the card the forward is compiled, as the reference's is: after
+    the eager warm-ups, ``__init__`` captures one CUDA graph
+    (:class:`CapturedForward`) per signature — each bucket's input
+    shape and dtype; under ragged, the pool shape and each tile count
+    ``1 .. pool_rows / chunk`` — and every forward replays the graph of
+    its signature. ``compiles`` counts the input signatures as the
+    reference's does; a signature first seen in the measured window is
+    captured then and counted as ``steady_new``. A capture or a replay
+    that fails raises: there is no eager fallback. On the CPU the
+    forward is eager.
     """
 
     SUPPORTS_RAGGED = True
@@ -1297,10 +1652,11 @@ class R2P1DRunner(StageModel):
                  num_warmups: int = NUM_WARMUPS, row_buckets=None,
                  pixel_path: str = "rgb", ragged: bool = False,
                  ragged_pool_rows=None, ragged_chunk_rows=None,
-                 dct_coeffs_per_frame=None,
+                 dct_coeffs_per_frame=None, factored_shortcut: bool = False,
                  network: Optional[torch.nn.Module] = None):
         super().__init__(device)
         _check_pixel_path(pixel_path)
+        self.factored_shortcut = bool(factored_shortcut)
         self.pixel_path = pixel_path
         self.dct_coeffs = _dct_coeffs(pixel_path, dct_coeffs_per_frame)
         if not (1 <= start_index <= end_index <= NUM_LAYERS):
@@ -1342,7 +1698,8 @@ class R2P1DRunner(StageModel):
         #: the network; tests hand in their own (bridged weights)
         self.network = network if network is not None else shared_network(
             self.start_index, self.end_index, int(num_classes),
-            tuple(layer_sizes), self.torch_device)
+            tuple(layer_sizes), self.torch_device,
+            factored_shortcut=self.factored_shortcut)
         self._out_row_shape = range_output_shape(
             self.start_index, self.end_index, self.consecutive_frames,
             int(num_classes))
@@ -1354,15 +1711,33 @@ class R2P1DRunner(StageModel):
                         dct_coeffs_per_frame=dct_coeffs_per_frame)
         self._steady_shape = self.input_shape_for(**declared)[0]
         warm_dtype = getattr(torch, self.input_dtype_for(**declared))
-        warm_rows = ((self.pool_rows,) if self.ragged else
-                     normalize_row_buckets(row_buckets, self.max_rows,
-                                           "max_rows"))
-        for rows in warm_rows:
+        self._warm_rows = ((self.pool_rows,) if self.ragged else
+                           normalize_row_buckets(row_buckets, self.max_rows,
+                                                 "max_rows"))
+        #: entry signatures (rnb_tpu_torch.compilestats), the declared
+        #: vocabulary observed even without warm-ups, as the reference's
+        self.compiles = SignatureTracker()
+        for rows in self._warm_rows:
             dummy = torch.zeros((rows,) + self._steady_shape[1:],
                                 dtype=warm_dtype, device=self.torch_device)
+            self.compiles.observe(dummy)
             for _ in range(num_warmups):
-                self.forward(dummy, rows)
+                self.eager_forward(dummy, rows)
+        #: signature key -> CapturedForward (the card only)
+        self._graphs: Dict[tuple, CapturedForward] = {}
+        #: graphs held, capture seconds, replays (the ``Graphs:`` line);
+        #: None off the card
+        self.graph_stats = None
         if self.torch_device.type == "cuda":
+            self.graph_stats = {"graphs": 0, "capture_s": 0.0,
+                                "replays": 0}
+            torch.cuda.synchronize(self.torch_device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            # a capture stream of this stage's own: stages capture on
+            # their threads at once
+            self._capture_stream = torch.cuda.Stream(self.torch_device)
+            for key in self.graph_keys():
+                self._capture(key, warm_dtype)
             torch.cuda.synchronize(self.torch_device)
 
     @classmethod
@@ -1431,7 +1806,7 @@ class R2P1DRunner(StageModel):
                 "outputs" % (self.end_index,))
         fingerprint = (
             "r2p1d-logits", self.start_index, self.end_index,
-            self.num_classes, self.layer_sizes, False,
+            self.num_classes, self.layer_sizes, self.factored_shortcut,
             self.consecutive_frames, self.pixel_path, self.dct_coeffs)
         self._feature_arena = pager.create_arena(
             "features", (self.num_classes,), torch.float32,
@@ -1485,27 +1860,111 @@ class R2P1DRunner(StageModel):
             return normalize_yuv420(x, FRAME_HW, FRAME_HW)
         return ragged_normalize_yuv420(x, rows_valid, FRAME_HW, FRAME_HW)
 
-    @torch.inference_mode()
-    def forward(self, x: torch.Tensor, rows_valid: int) -> torch.Tensor:
-        """The stage's input ``(rows, ...)`` -> float32 outputs ``(rows,
-        ...)``; ``rows_valid`` matters in ragged mode only."""
+    def _num_tiles(self, rows: int, rows_valid: int) -> Optional[int]:
+        """The row tiles a ragged forward runs, ``ceil(rows_valid /
+        chunk)`` (at least one: an emission carries a valid row); None
+        where the network takes the whole input in one call."""
+        chunk = self.ragged_chunk_rows
+        if not self.ragged or chunk <= 0 or chunk >= rows:
+            return None
+        return max(1, min(math.ceil(rows_valid / chunk), rows // chunk))
+
+    def graph_key(self, x, rows_valid: int) -> tuple:
+        """The captured graph a forward of ``x`` replays: the input's
+        signature and, tiled, the tile count."""
+        return (signature_of(x), self._num_tiles(int(x.shape[0]),
+                                                 rows_valid))
+
+    def graph_keys(self) -> list:
+        """The graphs ``__init__`` captures on the card: one per warmed
+        row count, and per tile count where the forward is tiled."""
+        dtype = getattr(torch, self.input_dtype_for(
+            start_index=self.start_index, pixel_path=self.pixel_path))
+        keys = []
+        for rows in self._warm_rows:
+            sig = signature_of(torch.empty((rows,) + self._steady_shape[1:],
+                                           dtype=dtype, device="meta"))
+            tiles = self._num_tiles(rows, rows)
+            keys.extend([(sig, None)] if tiles is None else
+                        [(sig, t) for t in range(1, tiles + 1)])
+        return keys
+
+    def _apply(self, x: torch.Tensor, rows_valid,
+               num_tiles: Optional[int]) -> torch.Tensor:
+        """Ingest and network: the whole input, or ``num_tiles`` row
+        tiles with the output's other rows zero. ``rows_valid`` (an int,
+        or the graph's int32 element) reaches the ragged ingest only."""
         xin = self._ingest(x, rows_valid)
-        if not self.ragged:
+        if num_tiles is None:
             return self.network(xin)
         chunk = self.ragged_chunk_rows
-        rows = int(xin.shape[0])
-        if chunk <= 0 or chunk >= rows:
-            return self.network(xin)
-        # tile 0 always runs (an emission carries >= 1 valid row); the
-        # rest run while they hold valid rows
-        num_tiles = max(1, min(math.ceil(rows_valid / chunk),
-                               rows // chunk))
-        out = torch.zeros((rows,) + self._out_row_shape,
+        out = torch.zeros((int(xin.shape[0]),) + self._out_row_shape,
                           dtype=torch.float32, device=xin.device)
         for i in range(num_tiles):
             out[i * chunk:(i + 1) * chunk] = self.network(
                 xin[i * chunk:(i + 1) * chunk])
         return out
+
+    @torch.inference_mode()
+    def eager_forward(self, x: torch.Tensor, rows_valid: int
+                      ) -> torch.Tensor:
+        """The forward op by op, as on the CPU."""
+        return self._apply(x, rows_valid,
+                           self._num_tiles(int(x.shape[0]), rows_valid))
+
+    @torch.inference_mode()
+    def forward(self, x: torch.Tensor, rows_valid: int) -> torch.Tensor:
+        """The stage's input ``(rows, ...)`` -> float32 outputs ``(rows,
+        ...)``; ``rows_valid`` matters in ragged mode only. On the card,
+        one replay of the captured graph of the input's signature."""
+        if not x.is_cuda:
+            return self.eager_forward(x, rows_valid)
+        key = self.graph_key(x, rows_valid)
+        graph = self._graphs.get(key)
+        if graph is None:
+            # a signature warm-up did not declare: compiles counts it
+            graph = self._capture(key, x.dtype)
+        out = graph.replay(x, rows_valid)
+        self.graph_stats["replays"] += 1
+        return out
+
+    @torch.inference_mode()
+    def _capture(self, key: tuple, dtype: torch.dtype) -> CapturedForward:
+        """Capture the forward at one signature key: warm up on the
+        capture stream (PyTorch's rule), then record the graph into the
+        stage's memory pool, in thread-local mode since other stages
+        issue work on the card meanwhile."""
+        (((shape, _dtype_name),), num_tiles) = key
+        rows = int(shape[0])
+        device = self.torch_device
+        static_in = torch.zeros(shape, dtype=dtype, device=device)
+        static_rows_valid = None
+        rows_valid = rows if num_tiles is None else min(
+            rows, num_tiles * self.ragged_chunk_rows)
+        if self.ragged and self.pixel_path != "rgb":
+            static_rows_valid = torch.full((1,), rows_valid,
+                                           dtype=torch.int32, device=device)
+        ingest_rows_valid = (rows_valid if static_rows_valid is None
+                             else static_rows_valid)
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(device))
+        t0 = time.monotonic()
+        with torch.cuda.stream(stream):
+            self._apply(static_in, ingest_rows_valid, num_tiles)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with _kernels.recording() as tally, torch.cuda.graph(
+                graph, pool=self._graph_pool, stream=stream,
+                capture_error_mode="thread_local"):
+            static_out = self._apply(static_in, ingest_rows_valid,
+                                     num_tiles)
+        captured = CapturedForward(graph, static_in, static_rows_valid,
+                                   static_out, tally,
+                                   time.monotonic() - t0)
+        self._graphs[key] = captured
+        self.graph_stats["graphs"] = len(self._graphs)
+        self.graph_stats["capture_s"] += captured.capture_s
+        return captured
 
     def __call__(self, tensors, non_tensors, time_card):
         pb = tensors[0]
@@ -1527,6 +1986,7 @@ class R2P1DRunner(StageModel):
             # allocated on the loader's transfer stream; keep its memory
             # from being reused until this stream's work is done
             x.record_stream(torch.cuda.current_stream(x.device))
+        self.compiles.observe(x)
         out = self.forward(x, int(pb.valid))
         self._insert_features(out, time_card)
         if self.ragged:
@@ -1562,6 +2022,7 @@ class R2P1DSingleStep(StageModel):
             num_warmups=num_warmups, row_buckets=kwargs.get("row_buckets"),
             pixel_path=kwargs.get("pixel_path", "rgb"),
             dct_coeffs_per_frame=kwargs.get("dct_coeffs_per_frame"))
+        self.graph_stats = self.net.graph_stats
 
     @classmethod
     def output_shape_for(cls, **_kwargs):

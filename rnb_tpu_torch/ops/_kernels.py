@@ -11,10 +11,16 @@ Every kernel is a :class:`Kernel`: its C symbol, argument types and a
 plain integer ``launches`` count that goes up by one exactly where the
 kernel is launched. Pointers and the stream are passed as
 ``c_void_p``; a non-zero CUDA error code from the launch raises.
+
+A launch made while a CUDA graph is captured runs nothing: inside
+:func:`recording` it goes to the capture's own tally instead of
+``launches``, and every replay of the graph adds that tally
+(:func:`add_launches`), so the counts stay the launches that ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -36,6 +42,8 @@ _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}
 #: source -> (seconds, compiler output) of the build this process ran
 BUILD_LOG: Dict[str, Tuple[float, str]] = {}
+#: the capture tally of the calling thread (see :func:`recording`)
+_capturing = threading.local()
 
 
 def nvcc() -> str:
@@ -148,7 +156,11 @@ class Kernel:
             raise RuntimeError("kernel %s was not launched: CUDA error %d "
                                "(%s)" % (self.name, code,
                                          message.decode()))
-        self.launches += 1
+        tally = getattr(_capturing, "tally", None)
+        if tally is not None:
+            tally[self.name] = tally.get(self.name, 0) + 1
+        else:
+            self.launches += 1
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -203,3 +215,22 @@ def reset_launches() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {kernel.name: kernel.launches for kernel in KERNELS}
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside: this thread's launches are tallied into the dict yielded
+    (a graph capture's launches, which run only when it is replayed),
+    not counted."""
+    _capturing.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capturing.tally = None
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Count a recorded tally's launches once more (one graph replay)."""
+    by_name = {kernel.name: kernel for kernel in KERNELS}
+    for name, count in tally.items():
+        by_name[name].launches += count

@@ -15,11 +15,16 @@ gathers, from ``Cache:`` and ``Pages:``; and from the profile, device
 kernel time and launches, the card's busy share and each kernel
 family's share of the kernel time.
 
-It also checks the reference's footings of the ``Pages:`` line
-(``scripts/parse_utils.py --check``): pages allocated == freed + live
-at teardown, feature hits <= feature lookups, and gathered rows <= the
-ragged cache-hit rows they serve. A violation is printed and the exit
-code is 1.
+It reads the ``Compiles:`` and ``Warmup:`` lines as the reference's
+reader does (``compile_signatures``, ``warmup_s``) and the port's
+``Graphs:`` line (captured forwards and their replays per step).
+
+It also checks the reference's footings (``scripts/parse_utils.py
+--check``): of the ``Pages:`` line, pages allocated == freed + live at
+teardown, feature hits <= feature lookups, and gathered rows <= the
+ragged cache-hit rows they serve; of the ``Compiles:`` line, no step
+saw a new signature inside the measured window (``steady_new``). A
+violation is printed and the exit code is 1.
 """
 
 from __future__ import annotations
@@ -58,6 +63,12 @@ def read_meta(path: str) -> dict:
                 meta["launches"] = json.loads(rest)
             elif head == "Pages arenas":
                 meta["arenas"] = json.loads(rest)
+            elif head == "Compiles":
+                meta["compile_signatures"] = json.loads(rest)
+            elif head == "Warmup":
+                meta["warmup_s"] = json.loads(rest)
+            elif head == "Graphs":
+                meta["graphs"] = json.loads(rest)
             elif head in ("Pixel path", "Decode backend"):
                 meta[head.lower().replace(" ", "_")] = rest
             elif rest and "=" in rest:
@@ -92,12 +103,18 @@ def kernel_families(kernels: Dict[str, dict]) -> Dict[str, float]:
 
 
 def footing_problems(meta: dict) -> List[str]:
-    """The ``Pages:`` line's footings that do not hold (empty when the
-    run had no pager)."""
+    """The footings of the ``Compiles:`` and ``Pages:`` lines that do
+    not hold (empty when they all hold)."""
+    problems = []
+    for step, sigs in sorted(meta.get("compile_signatures", {}).items()):
+        if int(sigs.get("steady_new", 0)) > 0:
+            problems.append(
+                "%s compiled %d new signature(s) inside the measured "
+                "window (Compiles: steady_new) — warmup must cover the "
+                "full shape vocabulary" % (step, int(sigs["steady_new"])))
     pages = meta["lines"].get("Pages")
     if pages is None:
-        return []
-    problems = []
+        return problems
     if pages["allocs"] != pages["frees"] + pages["live"]:
         problems.append("Pages: allocs=%d != frees=%d + live=%d (a page "
                         "leaked or was freed twice)"
@@ -120,7 +137,9 @@ def summarize(log_dir: str) -> dict:
                mean_interval_ms=meta["args"]["mean_interval_ms"],
                window_s=end - start, launches=meta.get("launches", {}),
                pixel_path=meta.get("pixel_path"),
-               decode_backend=meta.get("decode_backend"))
+               decode_backend=meta.get("decode_backend"),
+               compile_signatures=meta.get("compile_signatures"),
+               warmup_s=meta.get("warmup_s"), graphs=meta.get("graphs"))
     requests, service_ms, wait_ms = 0, [], []
     for name in sorted(os.listdir(log_dir)):
         if not name.endswith(".txt") or name in ("log-meta.txt",

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 import traceback
 from collections import deque
 from dataclasses import dataclass, field
@@ -94,6 +95,17 @@ class RunnerContext:
     ingest_sink: Optional[List] = None
     #: loaders with a clip cache append its counter snapshot here
     cache_sink: Optional[List] = None
+    #: every stage appends ``(step_idx, warmup_s, sigs-or-None)`` here:
+    #: its construction time (weights, warm-ups, graph captures) and
+    #: the snapshot of its signature tracker (rnb_tpu_torch.compilestats)
+    #: — the ``Compiles:`` and ``Warmup:`` log-meta lines
+    compile_sink: Optional[List] = None
+    #: stages with captured forwards append ``(step_idx, graph_stats)``
+    #: here — the ``Graphs:`` log-meta line
+    graph_sink: Optional[List] = None
+    #: when set, every stage appends ``(step_idx, model)`` here once it
+    #: is built (the smoke checks each runner's graphs after the run)
+    stage_sink: Optional[List] = None
     #: the job's page allocator, handed to every SUPPORTS_PAGER stage
     #: before the start barrier (None without the root ``pager`` key)
     pager: Any = None
@@ -190,9 +202,16 @@ def runner(ctx: RunnerContext) -> None:
     summary = TimeCardSummary() if ctx.out_queues is None else None
     model = None
     declared = None
+    warmup_s = 0.0
     try:
         model_class = load_class(ctx.model_class_path)
+        # the stage builds its weights, warms up and captures its graphs
+        # in its constructor, before the start barrier: the Warmup: line
+        t_construct = time.monotonic()
         model = model_class(ctx.device, **ctx.model_kwargs)
+        warmup_s = time.monotonic() - t_construct
+        if ctx.stage_sink is not None:
+            ctx.stage_sink.append((ctx.step_idx, model))
         declared = model_class.output_shape_for(**ctx.model_kwargs)
         if ctx.pager is not None and getattr(model, "SUPPORTS_PAGER",
                                              False):
@@ -218,6 +237,11 @@ def runner(ctx: RunnerContext) -> None:
         ctx.sta_bar.wait()
     except threading.BrokenBarrierError:
         pass
+    # the measured window opens here: a signature the stage first sees
+    # from now on is a mid-run compile (steady_new in Compiles:)
+    compile_tracker = getattr(model, "compiles", None)
+    if compile_tracker is not None:
+        compile_tracker.freeze()
 
     # prefetch: a first stage with submit()/complete() has the host work
     # (decode) of its next requests started while the head request's
@@ -340,6 +364,13 @@ def runner(ctx: RunnerContext) -> None:
             if sink is not None and value is not None:
                 sink.append(value.snapshot() if hasattr(value, "snapshot")
                             else dict(value))
+        if model is not None and ctx.compile_sink is not None:
+            ctx.compile_sink.append(
+                (ctx.step_idx, warmup_s, compile_tracker.snapshot()
+                 if compile_tracker is not None else None))
+        graph_stats = getattr(model, "graph_stats", None)
+        if graph_stats is not None and ctx.graph_sink is not None:
+            ctx.graph_sink.append((ctx.step_idx, dict(graph_stats)))
         try:
             ctx.fin_bar.wait()
         except threading.BrokenBarrierError:

@@ -1,16 +1,25 @@
 """Pinned host staging slots + the pipelined host->device transfer.
 
-Counterpart of ``rnb_tpu/staging.py``. The fusing loader assembles each
-fused batch in a **staging slot** — a pre-allocated pinned host tensor
-of the loader's max batch shape — and ships the slot's leading rows to
-the card. The transfer is ``copy_(non_blocking=True)`` on a dedicated
-CUDA stream, confirmed by a CUDA event; a slot goes back to the free
-list only after its event has completed, so no copy can ever read a
-slot that is being refilled.
+Counterpart of ``rnb_tpu/staging.py``. A **staging slot** is a
+pre-allocated pinned host tensor of a loader's max batch shape. The
+loaders plan each request's rows in a slot when the request is
+submitted, and the native decode pool decodes straight into them
+(``DecodePool.submit_into``): an emission then ships the rows where the
+decoder left them, with no assembly copy. A numpy decode is copied into
+its planned rows on the decode thread instead.
+
+Slots are referenced by row range, as in the reference: every planned
+request holds one reference on its slot (``add_ref``) until its rows
+are shipped or dropped (``release``), and a slot returns to the free
+list only when no reference is left. A native ticket keeps its
+reference until its decode is waited on, so no slot is reused while a
+decoder may still write into it. The transfer is ``copy_`` with
+``non_blocking=True`` on a dedicated CUDA stream, confirmed by a CUDA
+event before any reference is released.
 
 * :class:`StagingPool` — a bounded set of slots with counted
-  backpressure: when every slot is held by an unconfirmed transfer,
-  ``acquire`` blocks (``acquire_waits``) instead of dropping work.
+  backpressure: when no slot is free, ``acquire`` blocks
+  (``acquire_waits``) instead of dropping work.
 * :class:`TransferWorker` — a dedicated thread that runs transfer jobs,
   so batch N crosses the bus while batch N+1 is decoded and assembled
   (``transfer_async``). A failed job is recorded and re-raised on the
@@ -22,9 +31,10 @@ recycled slot can never alias a batch still in flight.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import deque
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,15 +42,15 @@ import torch
 class StagingSlot:
     """One pre-allocated host buffer (pinned when its target is a
     card); ``array`` is a numpy view of the same bytes for the decoder
-    to fill."""
+    to fill. ``refs`` counts the holders of its rows."""
 
-    __slots__ = ("buf", "array", "busy")
+    __slots__ = ("buf", "array", "refs")
 
     def __init__(self, shape: Tuple[int, ...], pin: bool,
                  dtype: torch.dtype = torch.uint8):
         self.buf = torch.empty(shape, dtype=dtype, pin_memory=pin)
         self.array = self.buf.numpy()
-        self.busy = False
+        self.refs = 0
 
 
 class StagingPool:
@@ -65,6 +75,10 @@ class StagingPool:
         self.num_acquire_waits = 0
         self.num_transfers = 0
         self.num_transfer_bytes = 0
+        #: emissions whose every row the decoder wrote in place
+        self.num_staged_batches = 0
+        #: emissions holding rows that a host copy placed in the slot
+        self.num_copied_batches = 0
         #: emissions that shipped no host bytes (feature-page hits)
         self.num_bypassed_batches = 0
 
@@ -73,50 +87,100 @@ class StagingPool:
         """The transfer stream (None off the card)."""
         return self._stream
 
+    def _claim_locked(self) -> Optional[StagingSlot]:
+        if self._error is not None:
+            raise self._error
+        for slot in self._slots:
+            if slot.refs == 0:
+                slot.refs = 1
+                self.num_acquires += 1
+                return slot
+        return None
+
+    def try_acquire(self) -> Optional[StagingSlot]:
+        """A free slot holding one reference (the caller's), or None."""
+        with self._lock:
+            return self._claim_locked()
+
     def acquire(self) -> StagingSlot:
-        """A free slot; blocks (counted) while every slot is held by an
-        unconfirmed transfer."""
+        """A free slot holding one reference (the caller's); blocks
+        (counted) while every slot is referenced."""
         with self._available:
-            waited = False
-            while True:
-                if self._error is not None:
-                    raise self._error
-                for slot in self._slots:
-                    if not slot.busy:
-                        slot.busy = True
-                        self.num_acquires += 1
-                        self.num_acquire_waits += int(waited)
-                        return slot
-                waited = True
+            slot = self._claim_locked()
+            if slot is not None:
+                return slot
+            self.num_acquire_waits += 1
+            while slot is None:
                 self._available.wait(timeout=0.05)
+                slot = self._claim_locked()
+            return slot
+
+    def add_ref(self, slot: StagingSlot) -> None:
+        """One more holder of rows of ``slot``."""
+        with self._lock:
+            slot.refs += 1
 
     def release(self, slot: StagingSlot) -> None:
+        """A holder is done with its rows; the slot is free at zero."""
         with self._available:
-            slot.busy = False
-            self._available.notify_all()
+            if slot.refs <= 0:
+                raise RuntimeError("staging slot released more often "
+                                   "than referenced")
+            slot.refs -= 1
+            if slot.refs == 0:
+                self._available.notify_all()
 
     def transfer(self, slot: StagingSlot, rows: int) -> torch.Tensor:
         """Copy the slot's leading ``rows`` rows to the pool's device,
-        confirm the copy, and free the slot. The result was allocated
-        on the transfer stream: a consumer on another stream calls
-        ``record_stream`` before its last use."""
-        src = slot.buf[:rows]
+        confirm the copy, and release the caller's reference."""
         try:
-            if self._stream is None:
-                return src.clone()
-            with torch.cuda.stream(self._stream):
-                dst = torch.empty(src.shape, dtype=src.dtype,
-                                  device=self.device)
-                dst.copy_(src, non_blocking=True)
+            return self.transfer_rows(((slot, 0, rows),), rows)
+        finally:
+            self.release(slot)
+
+    def transfer_rows(self, runs: Sequence[Tuple[StagingSlot, int, int]],
+                      shipped: int, zero_tail: bool = False
+                      ) -> torch.Tensor:
+        """One batch of ``shipped`` rows on the pool's device from row
+        runs ``(slot, row0, n)`` of pinned slots, placed one after the
+        other from row 0; the rows past them are zeroed on the device
+        with ``zero_tail``, else left as the allocator gave them (a
+        ragged pool's tail, which no consumer reads). The copies are
+        confirmed before this returns; no reference is released. The
+        result was allocated on the transfer stream: a consumer on
+        another stream calls ``record_stream`` before its last use."""
+        first = runs[0][0].buf
+        shape = (int(shipped),) + tuple(first.shape[1:])
+        nbytes = 0
+        with (torch.cuda.stream(self._stream) if self._stream is not None
+              else contextlib.nullcontext()):
+            dst = torch.empty(shape, dtype=first.dtype, device=self.device)
+            row = 0
+            for slot, row0, n in runs:
+                src = slot.buf[row0:row0 + n]
+                dst[row:row + n].copy_(src, non_blocking=True)
+                nbytes += src.nbytes
+                row += n
+            if zero_tail and row < shipped:
+                dst[row:].zero_()
+            if self._stream is not None:
                 done = torch.cuda.Event()
                 done.record(self._stream)
+        if self._stream is not None:
             done.synchronize()
-            return dst
-        finally:
-            with self._lock:
-                self.num_transfers += 1
-                self.num_transfer_bytes += src.nbytes
-            self.release(slot)
+        with self._lock:
+            self.num_transfers += 1
+            self.num_transfer_bytes += nbytes
+        return dst
+
+    def note_emission(self, copied: bool) -> None:
+        """Count a shipped emission: staged (the decoder wrote every row
+        in place) or copied (some row was copied in on the host)."""
+        with self._lock:
+            if copied:
+                self.num_copied_batches += 1
+            else:
+                self.num_staged_batches += 1
 
     def note_bypassed(self) -> None:
         """Count an emission that acquired no slot and moved no host
@@ -140,6 +204,8 @@ class StagingPool:
                     "acquire_waits": self.num_acquire_waits,
                     "transfers": self.num_transfers,
                     "transfer_bytes": self.num_transfer_bytes,
+                    "staged_batches": self.num_staged_batches,
+                    "copied_batches": self.num_copied_batches,
                     "bypassed_batches": self.num_bypassed_batches}
 
 

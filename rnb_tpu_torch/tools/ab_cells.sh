@@ -9,10 +9,16 @@
 #     bash rnb_tpu_torch/tools/ab_cells.sh <checkout_a> [out_dir] [cell ...]
 #
 # Cells: yuv (configs/rnb-fused-yuv-ragged.json), dct
-# (configs/rnb-fused-dct-ragged.json over synth:// ids) and big
-# (configs/rnb-fused-yuv-big.json), all three when none is named.
-# RNB_MEASURE_VIDEOS sets the request count per run (2000). The card's
-# name and power limit are printed before and after.
+# (configs/rnb-fused-dct-ragged.json over synth:// ids), big
+# (configs/rnb-fused-yuv-big.json), rnb (configs/rnb-1chip.json),
+# torchckpt (configs/rnb-fused-yuv-big-torchckpt.json) and mid
+# (configs/rnb-fused-yuv-mid.json); yuv, dct and big when none is named.
+# RNB_MEASURE_VIDEOS sets the request count per run (2000).
+# RNB_AB_TURNS sets the turns (default "A1 B1 B2 A2"): a turn is an arm
+# letter and a number, A for checkout A, B for this checkout, N for this
+# checkout with RNB_DISABLE_NATIVE=1 (numpy decode threads), and a
+# trailing "p" traces the run with --profile (kernel time, busy share).
+# The card's name and power limit are printed before and after.
 
 other=$(cd "$1" && pwd)
 here=$(pwd)
@@ -26,26 +32,36 @@ trap 'rm -rf "$data"' EXIT
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 python3 -m rnb_tpu_torch.dataset "$data" --videos 64
 videos=${RNB_MEASURE_VIDEOS:-2000}
-run() {  # run <turn dir> <checkout> <cell>
-  case $3 in
+run() {  # run <turn> <cell>
+  case $2 in
     yuv) cfg=configs/rnb-fused-yuv-ragged.json ;;
     dct) cfg=configs/rnb-fused-dct-ragged.json ;;
     big) cfg=configs/rnb-fused-yuv-big.json ;;
-    *) echo "unknown cell $3" >&2; exit 2 ;;
+    rnb) cfg=configs/rnb-1chip.json ;;
+    torchckpt) cfg=configs/rnb-fused-yuv-big-torchckpt.json ;;
+    mid) cfg=configs/rnb-fused-yuv-mid.json ;;
+    *) echo "unknown cell $2" >&2; exit 2 ;;
   esac
-  echo "== $1 $3"
-  if [ "$3" = dct ]; then
-    (cd "$2" && env -u RNB_TPU_DATA_ROOT python3 -m rnb_tpu_torch.benchmark \
-      -c $cfg --seed 0 -mi 0 -v $videos --log-base "$out/$1" 2>&1 \
-      | grep -E "^(Result|Throughput)")
+  case $1 in
+    A*) dir=$other; env=() ;;
+    B*) dir=$here; env=() ;;
+    N*) dir=$here; env=(RNB_DISABLE_NATIVE=1) ;;
+    *) echo "unknown turn $1" >&2; exit 2 ;;
+  esac
+  flags=()
+  case $1 in *p) flags=(--profile) ;; esac
+  if [ "$2" = dct ]; then
+    env=(-u RNB_TPU_DATA_ROOT "${env[@]}")  # env's options come first
   else
-    (cd "$2" && RNB_TPU_DATA_ROOT="$data" python3 -m rnb_tpu_torch.benchmark \
-      -c $cfg --seed 0 -mi 0 -v $videos --log-base "$out/$1" 2>&1 \
-      | grep -E "^(Result|Throughput)")
+    env+=(RNB_TPU_DATA_ROOT="$data")
   fi
+  echo "== $1 $2"
+  (cd "$dir" && env "${env[@]}" python3 -m rnb_tpu_torch.benchmark \
+    -c $cfg --seed 0 -mi 0 -v $videos --log-base "$out/$1" "${flags[@]}" \
+    2>&1 | grep -E "^(Result|Throughput)")
 }
-for turn in A1:$other B1:$here B2:$here A2:$other; do
-  for c in $cells; do run ${turn%%:*} ${turn#*:} $c; done
+for turn in ${RNB_AB_TURNS:-A1 B1 B2 A2}; do
+  for c in $cells; do run "$turn" "$c"; done
 done
 python3 -m rnb_tpu_torch.parse_utils "$out"/*/*/ > "$out/summary.jsonl"
 python3 - "$out/summary.jsonl" <<'PY'
@@ -55,7 +71,15 @@ for line in open(sys.argv[1]):
     turn = d["log_dir"].rstrip("/").split("/")[-2]
     print(turn, d["config"].split("/")[-1], "vps=%.3f" % d["videos_per_s"],
           "cps=%.1f" % d["clips_per_s"], "em=%d" % d["emissions"],
-          "svc=%.2f" % d["runner_service_ms"], "launches=%s"
-          % json.dumps(d["launches"], sort_keys=True))
+          "svc=%.2f" % d["runner_service_ms"],
+          "kms/em=%s" % d.get("kernel_ms_per_emission"),
+          "busy=%s" % d.get("busy_share"),
+          "backend=%s" % d["decode_backend"],
+          "graphs=%s" % json.dumps(d.get("graphs"), sort_keys=True),
+          "compiles=%s" % json.dumps(d.get("compile_signatures"),
+                                     sort_keys=True),
+          "launches=%s" % json.dumps(d["launches"], sort_keys=True))
 PY
+grep -h "^Staging" "$out"/*/*/log-meta.txt | sort | uniq -c | sort -rn \
+  | head -20
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader

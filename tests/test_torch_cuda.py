@@ -432,3 +432,87 @@ def test_arena_orders_a_gather_before_a_later_write_of_its_page(device):
             arena.free_locked((0,))
     snap = pager.snapshot()
     assert snap["gathers"] == 5 and snap["limbo"] == 0
+
+
+# -- the runner's captured forward ----------------------------------------
+
+def _graph_runner(device, **kwargs):
+    from rnb_tpu_torch.devices import DeviceSpec
+    from rnb_tpu_torch.models.r2p1d.model import R2P1DRunner
+    return R2P1DRunner(DeviceSpec(device.index or 0), num_classes=10,
+                       layer_sizes=(1, 1, 1, 1), num_warmups=1, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(max_rows=6, row_buckets=[3, 6], pixel_path="yuv420"),
+    dict(max_rows=6, pixel_path="yuv420", ragged=True, ragged_pool_rows=6,
+         ragged_chunk_rows=2),
+    dict(max_rows=6, pixel_path="dct", ragged=True, ragged_pool_rows=6,
+         ragged_chunk_rows=3),
+], ids=["yuv420-bucketed", "yuv420-ragged", "dct-ragged"])
+def test_every_graph_replays_bitwise_its_eager_forward(device, kwargs):
+    # tolerance: none — the same kernels on the same input; a capture
+    # only records them
+    runner = _graph_runner(device, **kwargs)
+    keys = runner.graph_keys()
+    assert runner.graph_stats["graphs"] == len(keys) >= 2
+    _kernels.reset_launches()
+    for i, (((shape, _),), tiles) in enumerate(keys):
+        rows = shape[0]
+        if kwargs["pixel_path"] == "dct":
+            x = _dct_pool(rows, seed=50 + i).to(device)
+        else:
+            x = _packed(rows, seed=50 + i).to(device)
+        valid = rows if tiles is None else min(
+            rows, tiles * runner.ragged_chunk_rows) - 1
+        assert runner.graph_key(x, valid) == keys[i]
+        replayed = runner.forward(x, valid)
+        eager = runner.eager_forward(x, valid)
+        torch.cuda.synchronize(device)
+        assert torch.equal(replayed, eager), keys[i]
+    # one ingest per replay, counted as the eager forward counts it
+    ingest = "dct_ingest" if kwargs["pixel_path"] == "dct" \
+        else "yuv420_normalize"
+    assert _kernels.launch_counts()[ingest] == 2 * len(keys)
+    assert runner.graph_stats["replays"] == len(keys)
+    # the replay's output is a copy: the next replay leaves it alone
+    first = runner.forward(x, valid)
+    again = first.clone()
+    runner.forward(torch.zeros_like(x), valid)
+    torch.cuda.synchronize(device)
+    assert torch.equal(first, again)
+
+
+def test_a_new_signature_is_captured_and_counted(device):
+    runner = _graph_runner(device, max_rows=6, row_buckets=[3, 6],
+                           pixel_path="yuv420")
+    runner.compiles.freeze()
+    x = _packed(4, seed=60).to(device)  # no bucket declared 4 rows
+    from rnb_tpu_torch.stage import PaddedBatch
+    (out,), _, _ = runner((PaddedBatch(x, 4),), None, None)
+    torch.cuda.synchronize(device)
+    assert torch.equal(out.data, runner.eager_forward(x, 4))
+    assert runner.graph_stats["graphs"] == 3
+    assert runner.compiles.snapshot()["steady_new"] == 1
+
+
+def test_a_failing_capture_raises(device):
+    runner = _graph_runner(device, max_rows=3, row_buckets=[3],
+                           pixel_path="yuv420")
+    network = runner.network
+
+    class Syncs(torch.nn.Module):
+        """A forward that reads a value back to the host: not
+        capturable."""
+
+        def forward(self, x):
+            out = network(x)
+            if float(out.sum()) != float(out.sum()):
+                raise AssertionError("unreachable")
+            return out
+
+    runner.network = Syncs()
+    runner._graphs.clear()
+    with pytest.raises(RuntimeError):
+        runner.forward(_packed(3, seed=61).to(device), 3)
+    torch.cuda.synchronize(device)

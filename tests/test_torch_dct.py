@@ -375,7 +375,7 @@ def mjpeg_file(tmp_path_factory):
     return path
 
 
-def test_mjpeg_coefficients_bitwise_equal_to_jax(mjpeg_file):
+def test_mjpeg_coefficients_bitwise_equal_to_jax(mjpeg_file, monkeypatch):
     # tolerance: none — the same integer entropy decode
     ours, ref = MjpegDecoder(), JaxMjpegDecoder()
     assert ours.num_frames(mjpeg_file) == ref.num_frames(mjpeg_file) == 6
@@ -389,6 +389,13 @@ def test_mjpeg_coefficients_bitwise_equal_to_jax(mjpeg_file):
     assert got.dtype == np.int16 and got.shape == (2, 4, 4704)
     np.testing.assert_array_equal(
         got, ref.decode_clips_dct(mjpeg_file, starts, 4, 112, 112))
+    # .mjpg takes the native decoder, as in the reference; the numpy one
+    # under the reference's switch, and the two agree bit for bit
+    native = get_decoder(mjpeg_file)
+    assert native.BACKEND == "native"
+    np.testing.assert_array_equal(
+        native.decode_clips_dct(mjpeg_file, starts, 4, 112, 112), got)
+    monkeypatch.setenv("RNB_DISABLE_NATIVE", "1")
     assert isinstance(get_decoder(mjpeg_file), MjpegDecoder)
 
 

@@ -101,10 +101,10 @@ def bridged_networks(weights, monkeypatch):
     state = from_jax_variables(weights)
 
     def shared_network(start, end, num_classes, layer_sizes, device,
-                       dtype=torch.bfloat16):
+                       dtype=torch.bfloat16, factored_shortcut=False):
         assert (num_classes, tuple(layer_sizes)) == (CLASSES, LS)
         net = R2Plus1DClassifier(start, end, num_classes, layer_sizes,
-                                 dtype=dtype)
+                                 factored_shortcut, dtype=dtype)
         net.load_state_dict(filter_layer_range(state, start, end),
                             strict=True)
         return cast_compute_weights(net).to(device).eval()
