@@ -83,6 +83,24 @@ Phases (any failure exits non-zero and prints no result line):
    ``configs/rnb-fused-yuv-big-torchckpt.json`` (the factored shortcut)
    and ``configs/rnb-fused-yuv-mid.json`` (``depth``), at fewer
    requests, with the same checks as big.
+   Right after ``r2p1d-whole``: the one-card copy of
+   ``configs/r2p1d-segment.json`` (every device index >= 0 made 0: the
+   rgb loader with ``num_segments`` 3, seven runner instances of 5 rows
+   on cuda:0, the ``R2P1DAggregator`` on the host), on the whole run's
+   requests — every class id in [0, 400), the argmax of its segment
+   sums recomputed on the card, those sums held element by element to
+   the whole run's summed logits, and the class id equal to the argmax
+   of the whole run's sums outside a top-2 margin of twice the
+   request's largest difference between the two sums (near ties
+   counted and printed, and more than one in ten of the requests
+   serving another class id than the whole run fails), two requests'
+   segment sums held element by element to the CPU's float32 sums,
+   ``normalize_u8`` once per request and no other kernel, three
+   graph replays per request, ``-0/-1/-2`` stamps in the merged cards —
+   and ``configs/rnb-fused-yuv-traced.json`` as shipped: its
+   ``trace.json`` passes ``validate_trace``, its ``Trace:`` line matches
+   the file, every request's phases sum to its end-to-end latency, and
+   ``yuv420_normalize`` runs once per emission.
    Every run: each ``R2P1DRunner`` forward in the window is one replay
    of a captured CUDA graph (``Graphs:`` replays == ``Compiles:``
    steady calls, or requests for the single step), no signature is new
@@ -116,6 +134,8 @@ RNB = "configs/rnb-1chip.json"
 NOPIPELINE = "configs/r2p1d-nopipeline-1chip.json"
 TORCHCKPT = "configs/rnb-fused-yuv-big-torchckpt.json"
 MID = "configs/rnb-fused-yuv-mid.json"
+SEGMENT = "configs/r2p1d-segment.json"
+TRACED = "configs/rnb-fused-yuv-traced.json"
 CONFIGS = ("configs/rnb-fused-yuv-big.json",
            "configs/rnb-fused-yuv-ragged.json",
            "configs/rnb-fused-dct-ragged.json", PAGED, BLOB,
@@ -124,6 +144,15 @@ CONFIGS = ("configs/rnb-fused-yuv-big.json",
 FEATURES_OFF = "paged-zipf-features-off"
 #: the unfused whole pipeline under the root ``ragged`` key, likewise
 WHOLE_RAGGED = "r2p1d-whole-ragged"
+#: the segment topology with every device on cuda:0, likewise
+SEGMENT_COPY = "r2p1d-segment-1card"
+#: segments a request of the segment copy is split into
+SEGMENTS = 3
+#: the share of the segment copy's requests that may be near ties (a
+#: top-2 gap of the whole run's summed logits inside the margin, down to
+#: exact ties of its bf16 sums) serving another class id than the whole
+#: run; every request's sums are held element by element all the same
+NEAR_TIE_SHARE = 0.1
 #: a yuv420 emission launches the fused ingest once, and no other ingest
 YUV_KERNELS = {"yuv420_normalize"}
 #: the ingest kernel each bulk run launches once per emission
@@ -132,7 +161,8 @@ ONE_PER_EMISSION = {"configs/rnb-fused-yuv-big.json": "yuv420_normalize",
                     "configs/rnb-fused-dct-ragged.json": "dct_ingest",
                     WHOLE_YUV: "yuv420_normalize",
                     TORCHCKPT: "yuv420_normalize",
-                    MID: "yuv420_normalize"}
+                    MID: "yuv420_normalize",
+                    TRACED: "yuv420_normalize"}
 #: the kernels each run launches, and no others
 PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 CONFIGS[2]: {"dct_ingest"},
@@ -143,7 +173,8 @@ PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 WHOLE_RAGGED: {"ragged_normalize_u8"},
                 WHOLE_YUV: YUV_KERNELS, SPLIT: {"normalize_u8"},
                 RNB: {"normalize_u8"}, NOPIPELINE: {"normalize_u8"},
-                TORCHCKPT: YUV_KERNELS, MID: YUV_KERNELS}
+                TORCHCKPT: YUV_KERNELS, MID: YUV_KERNELS,
+                SEGMENT_COPY: {"normalize_u8"}, TRACED: YUV_KERNELS}
 #: the runs of the unfused multi-step pipeline, in serving order
 UNFUSED = (WHOLE, WHOLE_RAGGED, WHOLE_YUV, SPLIT, RNB, NOPIPELINE)
 #: the runs whose logits check_unfused_run holds to the two-step run's
@@ -164,8 +195,9 @@ ODD_GEOMETRY = (66, 90)
 DCT_GEOMETRY = (64, 176)
 #: requests served per config on the path phase
 VIDEOS_PER_RUN = 32
-#: requests of the two configs added last (their cells are big's)
-FEW_VIDEOS = {TORCHCKPT: 12, MID: 12}
+#: requests of the configs added last (the segment copy serves the
+#: whole run's requests, which it is held to)
+FEW_VIDEOS = {TORCHCKPT: 12, MID: 12, TRACED: 12}
 #: a captured graph against its eager forward where the two are not
 #: bitwise (a capture that changed the library's kernel choice): the
 #: float32 network's bound of tests/test_torch_network.py, relative to
@@ -1002,11 +1034,14 @@ def phase_kernels_ragged(device):
     return {"ragged_normalize_u8": row}, {"ragged_normalize_u8": worst}
 
 
-def cpu_recompute(config_path, sink, picks):
+def cpu_recompute(config_path, sink, picks, sums=None):
     """Recompute ``picks`` requests on the CPU through the plain
     versions with the same seeded weights, in bfloat16 (as served) and
     in float32; also run the card's network in float32 on the same
     input. Returns a dict of the worst errors and the bounds held.
+    Where a request served a class id and ``sums`` holds its summed
+    logits from the card (the segment copy's), those are held element
+    by element to the float32 sums within the bound times the clips.
 
     bf16 rounds at other places on the card (cuDNN) than on the CPU
     (oneDNN), so the served logits are held to the float32 truth with a
@@ -1028,7 +1063,10 @@ def cpu_recompute(config_path, sink, picks):
     loader_kwargs = config.steps[0].kwargs
     max_clips = loader_kwargs.get("max_clips", 15)
     pixel_path = loader_kwargs.get("pixel_path", "rgb")
-    runner_kwargs = config.steps[-1].kwargs
+    # the last network step (an aggregator may follow it)
+    runner_kwargs = next(
+        s.kwargs for s in reversed(config.steps)
+        if s.model.endswith((".R2P1DRunner", ".R2P1DSingleStep")))
     arch = (1, runner_kwargs.get("end_index", 5),
             runner_kwargs.get("num_classes", 400),
             tuple(runner_kwargs.get("layer_sizes", (2, 2, 2, 2))))
@@ -1086,9 +1124,41 @@ def cpu_recompute(config_path, sink, picks):
                    "card_f32": nets["card_f32"](x_cpu.to(card))
                    .cpu().numpy()}
         truth = out["cpu_f32"]
+        f32_err = float(np.abs(out["card_f32"] - truth).max())
+        if isinstance(served, int):
+            # a class id: the argmax of the summed float32 truth, held
+            # where its top-2 margin exceeds twice the bf16 bound summed
+            # over the clips
+            check(f32_err <= F32_ATOL, "request %d (%s): card float32 "
+                  "network differs from the CPU's by %g > %g"
+                  % (rid, video, f32_err, F32_ATOL))
+            cpu_bf16_err = float(np.abs(out["cpu_bf16"] - truth).max())
+            bound = BF16_FACTOR * cpu_bf16_err + BF16_ATOL
+            total = truth.sum(axis=0)
+            top2 = np.sort(total)[-2:]
+            held = top2[1] - top2[0] > 2 * bound * truth.shape[0]
+            check(not held or served == int(total.argmax()),
+                  "request %d: class id %d, the CPU float32 logits say %d"
+                  % (rid, served, int(total.argmax())))
+            if sums is not None:
+                # a clip's served logits lie within the bound of float32
+                sums_err = float(np.abs(sums[rid] - total).max()
+                                 / truth.shape[0])
+                check(sums_err <= bound, "request %d: card sums are %g a "
+                      "clip from the float32 sums, more than the bound %g"
+                      % (rid, sums_err, bound))
+                report["sums_err"] = max(report.get("sums_err", 0.0),
+                                         sums_err)
+            for key, value in (("f32_err", f32_err),
+                               ("cpu_bf16_err", cpu_bf16_err),
+                               ("bound", bound)):
+                report[key] = max(report[key], value)
+            report["rows"] += int(truth.shape[0])
+            report["past_margin"] += int(held)
+            report["argmax_agreed"] += int(served == int(total.argmax()))
+            continue
         check(truth.shape == served.shape, "request %d: cpu logits %s vs "
               "card %s" % (rid, truth.shape, served.shape))
-        f32_err = float(np.abs(out["card_f32"] - truth).max())
         check(f32_err <= F32_ATOL, "request %d (%s): card float32 network "
               "differs from the CPU's by %g > %g"
               % (rid, video, f32_err, F32_ATOL))
@@ -1139,6 +1209,148 @@ def whole_ragged_copy(data_root) -> str:
     with open(path, "w") as f:
         json.dump(raw, f)
     return path
+
+
+def segment_copy(data_root) -> str:
+    """The segment topology on one card: every device index >= 0 of
+    ``configs/r2p1d-segment.json`` made 0 (the host stays the host), a
+    temporary copy beside the dataset."""
+    with open(os.path.join(HERE, SEGMENT)) as f:
+        raw = json.load(f)
+    for step in raw["pipeline"]:
+        for group in step["queue_groups"]:
+            group["devices"] = [0 if d >= 0 else d
+                                for d in group["devices"]]
+    path = os.path.join(data_root, SEGMENT_COPY + ".json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def segment_sums(stages, sink):
+    """Each request's segment logits summed as the aggregator sums them,
+    recomputed on the card: the run's own loader on the request's video,
+    ``split_segments``, and a runner's eager forward on each segment
+    (which ``check_graphs`` held bitwise to its graph's replay)."""
+    import torch
+    from rnb_tpu_torch.runner import split_segments
+    from rnb_tpu_torch.telemetry import TimeCard
+    loader = next(stage for step, stage in stages if step == 0)
+    runner = next(stage for step, stage in stages if step == 1)
+    sums = {}
+    for rid, (video, _pred, _stamps) in sorted(sink.items()):
+        (pb,), _nt, _tc = loader(None, video, TimeCard(rid))
+        total = None
+        for (seg,) in split_segments((pb,), SEGMENTS):
+            out = runner.eager_forward(seg.data, seg.valid)[:seg.valid]
+            part = out.to(torch.float32).cpu().numpy().sum(axis=0)
+            total = part if total is None else total + part
+        sums[rid] = total
+    return sums
+
+
+def check_segment_run(result, sink, whole_sink, sums):
+    """The segment copy's own checks: every class id the argmax of its
+    recomputed segment sums; those sums held element by element to the
+    whole run's summed logits of the same request, within TWO_STEP_ATOL
+    times the clips; and the class id equal to the argmax of the whole
+    run's sums outside a top-2 margin of twice the largest difference
+    between the request's two sums (past it the argmax cannot move).
+    A request inside the margin is a near tie: every one is counted and
+    printed, and more than NEAR_TIE_SHARE of the requests serving
+    another class id than the whole run there fails (the whole run's
+    bf16 sums tie exactly in some requests, where no margin holds the
+    class id; the sums are held all the same). Also
+    one ``normalize_u8`` launch a request, three replays a request, and
+    the merged cards' suffixed stamps."""
+    import numpy as np
+    from rnb_tpu_torch.parse_utils import read_table
+    label = SEGMENT_COPY
+    per_clip, near_ties, held = 0.0, [], 0
+    for rid, (video, pred, _stamps) in sorted(sink.items()):
+        check(isinstance(pred, int) and 0 <= pred < 400,
+              "%s request %d: class id %r" % (label, rid, pred))
+        check(video == whole_sink[rid][0], "%s request %d served %s, the "
+              "whole run %s" % (label, rid, video, whole_sink[rid][0]))
+        check(pred == int(sums[rid].argmax()), "%s request %d: class id "
+              "%d, its recomputed segment sums say %d"
+              % (label, rid, pred, int(sums[rid].argmax())))
+        whole = whole_sink[rid][1]
+        total = whole.sum(axis=0)
+        diff = float(np.abs(sums[rid] - total).max())
+        check(diff <= TWO_STEP_ATOL * whole.shape[0], "%s request %d: "
+              "segment sums differ from the whole run's by %g > %g x %d "
+              "clips" % (label, rid, diff, TWO_STEP_ATOL, whole.shape[0]))
+        per_clip = max(per_clip, diff / whole.shape[0])
+        top2 = np.sort(total)[-2:]
+        if top2[1] - top2[0] > 2 * diff:
+            check(pred == int(total.argmax()), "%s request %d: class id "
+                  "%d, the whole run's summed logits say %d"
+                  % (label, rid, pred, int(total.argmax())))
+            held += 1
+        else:
+            near_ties.append((rid, float(top2[1] - top2[0]), 2 * diff,
+                              pred == int(total.argmax())))
+    differ = [tie for tie in near_ties if not tie[3]]
+    launched = result.window_launches["normalize_u8"]
+    replays = result.graphs["step1"]["replays"]
+    (table,) = [n for n in os.listdir(result.log_dir)
+                if n.endswith("-0.txt")]
+    keys, rows = read_table(os.path.join(result.log_dir, table))
+    print("path %s: segment sums within %g a clip of the whole run's "
+          "summed logits (bound %g); %d class ids equal the argmax of the "
+          "whole run's sums past a top-2 margin of twice the request's "
+          "largest difference between the two sums; %d near ties [rid, "
+          "gap, margin, equal] %s, %d of them another class id (at most "
+          "%g of %d requests); normalize_u8 %d launches, %d replays for "
+          "%d requests; Warmup: %s; Graphs: %s"
+          % (label, per_clip, TWO_STEP_ATOL, held, len(near_ties),
+             json.dumps(near_ties), len(differ), NEAR_TIE_SHARE, len(sink),
+             launched, replays, result.num_completed,
+             json.dumps(result.warmup_s, sort_keys=True),
+             json.dumps(result.graphs, sort_keys=True)))
+    check(len(differ) <= NEAR_TIE_SHARE * len(sink),
+          "%s: %d near ties of %d requests served another class id than "
+          "the whole run (more than %g of them)"
+          % (label, len(differ), len(sink), NEAR_TIE_SHARE))
+    check(launched == result.num_completed, "%s: %d normalize_u8 launches "
+          "for %d requests" % (label, launched, result.num_completed))
+    check(replays == SEGMENTS * result.num_completed,
+          "%s: %d graph replays for %d requests" % (
+              label, replays, result.num_completed))
+    for sub_id in range(SEGMENTS):
+        check("inference1_finish-%d" % sub_id in keys, "%s: no merged "
+              "stamp inference1_finish-%d (keys %s)" % (label, sub_id, keys))
+    check(keys[-1] == "inference2_finish" and len(rows) == len(sink),
+          "%s: merged table keys %s, %d rows" % (label, keys, len(rows)))
+
+
+def check_traced_run(result):
+    """The traced run's own checks: ``trace.json`` valid, the ``Trace:``
+    line matching it, and every request's phases summing to its
+    end-to-end latency (within 1 us)."""
+    from rnb_tpu_torch.parse_utils import attribute, read_meta, trace_problems
+    from rnb_tpu_torch.trace import track_names, validate_trace
+    label = TRACED
+    path = os.path.join(result.log_dir, "trace.json")
+    check(os.path.isfile(path), "%s: no trace.json" % label)
+    problems = validate_trace(path)
+    check(not problems, "%s: trace.json: %s" % (label, problems[:5]))
+    meta = read_meta(os.path.join(result.log_dir, "log-meta.txt"))
+    problems = trace_problems(result.log_dir, meta)
+    check(not problems, "%s: %s" % (label, "; ".join(problems)))
+    report = attribute(result.log_dir, num_skips=0)
+    check(report["requests"] == result.num_completed
+          and report["max_residual_ms"] <= 1e-3,
+          "%s: phases of %d requests, worst residual %g ms"
+          % (label, report["requests"], report["max_residual_ms"]))
+    print("path %s: Trace: events=%d dropped=%d; tracks %s; phases of %d "
+          "requests sum to their latency within %.3g ms: %s"
+          % (label, result.trace_events, result.trace_dropped,
+             json.dumps(track_names(path)), report["requests"],
+             report["max_residual_ms"],
+             json.dumps({k: round(v["mean_ms"], 3)
+                         for k, v in report["phases"].items()})))
 
 
 def check_unfused_run(label, result, sink, whole_sink):
@@ -1329,6 +1541,10 @@ def phase_path(data_root, videos_per_run):
     runs.insert(4, (FEATURES_OFF, features_off_copy(data_root)))
     runs.insert(runs.index((WHOLE, os.path.join(HERE, WHOLE))) + 1,
                 (WHOLE_RAGGED, whole_ragged_copy(data_root)))
+    after_whole = runs.index((WHOLE, os.path.join(HERE, WHOLE))) + 1
+    runs[after_whole:after_whole] = [
+        (SEGMENT_COPY, segment_copy(data_root)),
+        (TRACED, os.path.join(HERE, TRACED))]
     whole_sink = None
     for label, config_path in runs:
         pixel_path = load_config(config_path, "cpu").steps[0].kwargs.get(
@@ -1367,6 +1583,8 @@ def phase_path(data_root, videos_per_run):
                       label, sorted(set(range(videos)) - set(sink))))
         t0 = time.time()
         check_graphs(label, result, stages)
+        if label == SEGMENT_COPY:
+            sums = segment_sums(stages, sink)
         del stages
         print("path %s: graphs checked in %.1f s" % (label, time.time() - t0))
         if pixel_path != "dct":
@@ -1378,7 +1596,7 @@ def phase_path(data_root, videos_per_run):
                   "%s: y4m requests decoded by %s, not the native pool"
                   % (label, backends))
         for rid, (video, logits, _stamps) in sink.items():
-            if label == NOPIPELINE:
+            if label in (NOPIPELINE, SEGMENT_COPY):
                 check(isinstance(logits, int) and 0 <= logits < 400,
                       "%s request %d: class id %r" % (label, rid, logits))
                 continue
@@ -1407,6 +1625,23 @@ def phase_path(data_root, videos_per_run):
             whole_sink = sink
         if label in UNFUSED:
             check_unfused_run(label, result, sink, whole_sink)
+        if label == TRACED:
+            check_traced_run(result)
+        if label == SEGMENT_COPY:
+            check_segment_run(result, sink, whole_sink, sums)
+            picks = sorted(sink, key=lambda r: (len(whole_sink[r][1]), r))
+            picks = picks[:1] + picks[-1:]
+            t0 = time.time()
+            report = cpu_recompute(config_path, sink, picks, sums)
+            print("path %s: %d requests, %d clips, %.3f videos/s, wall "
+                  "%.1f s, launches %s (window %s), pad_rows %d of %d; "
+                  "recompute of requests %s (%.1f s): %s"
+                  % (label, result.num_completed, result.clips_completed,
+                     result.throughput_vps, wall, counts,
+                     result.window_launches, result.pad_rows,
+                     result.total_rows, picks, time.time() - t0,
+                     json.dumps(report)))
+            continue
         if label == NOPIPELINE:
             print("path %s: %d requests, %d clips, %.3f videos/s, wall "
                   "%.1f s, launches %s (window %s), pad_rows %d of %d"
@@ -1449,7 +1684,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     if not os.path.isdir(os.path.join(HERE, "rnb_tpu_torch")) or not all(
-            os.path.exists(os.path.join(HERE, c)) for c in CONFIGS):
+            os.path.exists(os.path.join(HERE, c))
+            for c in CONFIGS + (SEGMENT, TRACED)):
         print("chip_smoke: run from a checkout of the repo (rnb_tpu_torch/ "
               "and configs/ beside this script)", file=sys.stderr)
         return 1

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from rnb_tpu_torch import hostprof, trace
 from rnb_tpu_torch.ops.ragged import resolve_pool_rows, segment_offsets_of
 from rnb_tpu_torch.stage import (PadCounter, PaddedBatch, RaggedBatch,
                                  StageModel, normalize_row_buckets,
@@ -126,6 +127,13 @@ class Batcher(StageModel):
         return self._declared_max[0]
 
     def _emit_fused(self):
+        with hostprof.section("batcher.fuse"):
+            out = self._fuse_pending()
+        trace.instant("batcher.emit", args={"requests": len(out[2]),
+                                            "rows": int(out[0][0].valid)})
+        return out
+
+    def _fuse_pending(self):
         fused = []
         # the constituent cards, flat (an upstream fusing stage delivers
         # lists), each re-stamped with its first row in the fused batch

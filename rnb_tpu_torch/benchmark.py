@@ -8,6 +8,14 @@ up), and closes it when the final step has completed ``num_videos``
 requests. It writes ``logs/<job>/log-meta.txt`` and one timing table
 per final-step instance, and returns a :class:`BenchmarkResult`.
 
+With the root ``trace`` key the run is traced (:mod:`rnb_tpu_torch.trace`):
+the tracer is installed at the start barrier, its sampler reads the
+queue depths and the loaders' occupancy, and ``trace.json`` is written
+into the job's log directory beside a ``Trace: events=N dropped=M`` and a
+``Phases:`` log-meta line. With ``RNB_HOST_PROFILE`` set, the host
+profiler's sections over the window go to ``hostprof.txt`` with the
+process's CPU share of the window (``host_cpu_frac``).
+
 Runs on ``cuda:0`` (the config's devices) unless ``platform="cpu"``.
 
 CLI::
@@ -22,6 +30,7 @@ import argparse
 import json
 import os
 import queue
+import resource
 import sys
 import threading
 import time
@@ -31,6 +40,8 @@ from typing import Dict, Optional
 
 import torch
 
+from rnb_tpu_torch import hostprof
+from rnb_tpu_torch import trace as trace_mod
 from rnb_tpu_torch.cache import aggregate_snapshots
 from rnb_tpu_torch.client import bulk_client, poisson_client
 from rnb_tpu_torch.compilestats import aggregate_compile_records
@@ -98,6 +109,45 @@ class BenchmarkResult:
     #: ``{step: {graphs, capture_s, replays}}``: captured forwards (the
     #: ``Graphs:`` line; empty off the card)
     graphs: Dict[str, dict] = field(default_factory=dict)
+    #: events written to ``trace.json`` and dropped at the cap (0 and 0
+    #: on an untraced run): the ``Trace:`` line
+    trace_events: int = 0
+    trace_dropped: int = 0
+    #: ``{phase: {mean_ms, p99_ms, count}}`` on traced runs (``Phases:``)
+    phases: Optional[Dict[str, dict]] = None
+    #: process CPU seconds (user + system) over the measured window
+    host_cpu_s: float = 0.0
+
+
+def _bulk_queue_size(config, num_videos: int) -> int:
+    """A bulk run's queue capacity: every request pre-enqueued, times
+    the segments each step fans an item into, plus the exit markers
+    that share the queues (the reference's rule)."""
+    seg_factor = 1
+    for step in config.steps:
+        seg_factor *= step.num_segments
+    return (num_videos * seg_factor + config.num_runners
+            + max(NUM_EXIT_MARKERS, config.num_runners) + 1)
+
+
+def _start_tracer(config, filename_queue, queues):
+    """The job's tracer (None untraced), with the queue-depth counters
+    it samples: the filename queue and every inter-stage queue, keyed by
+    its edge ordinal in step order."""
+    settings = trace_mod.TraceSettings.from_config(config.trace)
+    if settings is None:
+        return None
+    tracer = trace_mod.Tracer(settings)
+    tracer.add_counter_source(trace_mod.name("queue.filename.depth"),
+                              filename_queue.qsize)
+    edge_idx = 0
+    for step_idx in sorted(queues):
+        for q_idx in sorted(queues[step_idx]):
+            tracer.add_counter_source(
+                trace_mod.name("queue.e%d.depth", edge_idx),
+                queues[step_idx][q_idx].qsize)
+            edge_idx += 1
+    return tracer
 
 
 def _pipeline_queues(config, queue_size: int):
@@ -157,9 +207,12 @@ def run_benchmark(config_path: str,
     ingest_sink, cache_sink, compile_sink, graph_sink = [], [], [], []
     if mean_interval_ms == 0:
         # bulk mode pre-enqueues everything (plus the exit markers)
-        queue_size = num_videos + config.num_runners + NUM_EXIT_MARKERS + 1
+        queue_size = _bulk_queue_size(config, num_videos)
     filename_queue: "queue.Queue" = queue.Queue(queue_size)
     queues, trackers = _pipeline_queues(config, queue_size)
+    # a run that died mid-trace must not leave its tracer installed
+    trace_mod.ACTIVE = None
+    tracer = _start_tracer(config, filename_queue, queues)
     num_markers = max(NUM_EXIT_MARKERS,
                       sum(len(g.devices) for g in config.steps[0].groups))
 
@@ -206,7 +259,8 @@ def run_benchmark(config_path: str,
                     cache_sink=cache_sink, compile_sink=compile_sink,
                     graph_sink=graph_sink, stage_sink=stages_sink,
                     pager=pager,
-                    outputs_sink=outputs_sink if is_final else None)
+                    outputs_sink=outputs_sink if is_final else None,
+                    num_segments=step.num_segments, tracer=tracer)
                 threads.append(threading.Thread(
                     target=runner, args=(ctx,), daemon=True,
                     name="runner-s%d-g%d-i%d" % (step_idx, group_idx,
@@ -225,13 +279,26 @@ def run_benchmark(config_path: str,
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA])
         profiler.__enter__()
+    if hostprof.ENABLED:
+        # the sections of this window only, not the warm-ups
+        hostprof.reset()
+    if tracer is not None:
+        # installed at the barrier: every stage is built and warm, so no
+        # warm-up lands in the timeline; no runner passes the barrier
+        # before this thread reaches it
+        trace_mod.ACTIVE = tracer
+        tracer.start_sampler()
     sta_bar.wait()
+    ru_start = resource.getrusage(resource.RUSAGE_SELF)
     launches_start = _kernels.launch_counts()
     time_start = time.time()
     if print_progress:
         print("START! %f" % time_start)
     fin_bar.wait()
     time_end = time.time()
+    ru_end = resource.getrusage(resource.RUSAGE_SELF)
+    host_cpu_s = ((ru_end.ru_utime + ru_end.ru_stime)
+                  - (ru_start.ru_utime + ru_start.ru_stime))
     total_time = time_end - time_start
     kernel_ms = None
     if profiler is not None:
@@ -258,6 +325,16 @@ def run_benchmark(config_path: str,
                        for name, count in _kernels.launch_counts().items()}
     for t in threads:
         t.join(timeout=60)
+    trace_events = trace_dropped = 0
+    if tracer is not None:
+        # every thread has drained: uninstall first, so a later run in
+        # this process never writes into this job's collector
+        trace_mod.ACTIVE = None
+        tracer.stop_sampler()
+        trace_events = tracer.export(
+            os.path.join(logroot(job_id, base=log_base), "trace.json"),
+            job_id)
+        trace_dropped = tracer.dropped
 
     latencies, clips, completed = [], 0, 0
     for summary in summary_sink:
@@ -287,6 +364,14 @@ def run_benchmark(config_path: str,
             agg[key] += stats[key]
     for agg in graphs.values():
         agg["capture_s"] = round(agg["capture_s"], 3)
+    phases = None
+    if tracer is not None:
+        samples: Dict[str, list] = {}
+        for summary in summary_sink:
+            for phase, values in summary.phase_samples(
+                    NUM_SUMMARY_SKIPS).items():
+                samples.setdefault(phase, []).extend(values)
+        phases = trace_mod.phase_stats(samples) or None
     result = BenchmarkResult(
         job_id=job_id, total_time_s=total_time, num_videos=num_videos,
         termination_flag=int(termination.value),
@@ -298,7 +383,9 @@ def run_benchmark(config_path: str,
         window_launches=window_launches, kernel_ms=kernel_ms,
         ragged_cache_hit_rows=cache_hit_rows,
         pages=dict(pages_summary) if pages_summary else {},
-        compiles=compiles, warmup_s=warmup, graphs=graphs)
+        compiles=compiles, warmup_s=warmup, graphs=graphs,
+        trace_events=trace_events, trace_dropped=trace_dropped,
+        phases=phases, host_cpu_s=host_cpu_s)
     if cache_stats is not None:
         for key in ("hits", "misses", "inserts", "evictions", "coalesced",
                     "oversize", "bytes_resident"):
@@ -360,12 +447,26 @@ def run_benchmark(config_path: str,
             f.write("Warmup: %s\n" % json.dumps(warmup, sort_keys=True))
         if graphs:
             f.write("Graphs: %s\n" % json.dumps(graphs, sort_keys=True))
+        if tracer is not None:
+            # parse_utils checks the count against trace.json
+            f.write("Trace: events=%d dropped=%d\n"
+                    % (trace_events, trace_dropped))
+        if phases is not None:
+            f.write("Phases: %s\n" % json.dumps(phases, sort_keys=True))
         f.write("Kernels: %s\n" % json.dumps(window_launches,
                                              sort_keys=True))
         if kernel_ms is not None:
             f.write("Profile: kernel_ms=%.3f window_ms=%.3f busy_share=%.4f\n"
                     % (kernel_ms, total_time * 1e3,
                        kernel_ms / (total_time * 1e3)))
+    if hostprof.ENABLED:
+        lines = hostprof.report_lines(total_time)
+        with open(os.path.join(logroot(job_id, base=log_base),
+                               "hostprof.txt"), "w") as f:
+            f.write("# wall_s %.3f host_cpu_s %.3f host_cpu_frac %.3f\n"
+                    % (total_time, host_cpu_s,
+                       host_cpu_s / total_time if total_time else 0.0))
+            f.write("\n".join(lines) + "\n")
     recompiled = sorted(step for step, sigs in compiles.items()
                         if sigs["steady_new"] > 0)
     if recompiled:

@@ -21,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 
+from rnb_tpu_torch import trace
 from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, TerminationFlag,
                                    TerminationState, send_exit_markers)
 from rnb_tpu_torch.telemetry import TimeCard
@@ -74,7 +75,9 @@ def _client(video_path_iterator_path: str, filename_queue: "queue.Queue",
                     termination.raise_flag(
                         TerminationFlag.FILENAME_QUEUE_FULL)
                     break
+                trace.instant("client.enqueue", rid=video_count)
                 video_count += 1
+                trace.counter("client.enqueued", video_count)
                 if mean_interval_ms > 0:
                     time.sleep(rng.exponential(mean_interval_ms / 1000.0))
     except Exception:

@@ -9,6 +9,10 @@ one of its queue groups, whose value then wins for that group (the
 reference's rule: ``configs/rnb-1chip.json`` gives each ``Batcher``
 group its own ``batch``). Device ``d`` maps to ``cuda:d`` (every
 device to the CPU on ``platform="cpu"``) and ``-1`` to the host.
+
+The reference's rules on ``num_segments`` (a step's fan-out into row
+segments) and on the root ``trace`` key are kept with the reference's
+own messages.
 """
 
 from __future__ import annotations
@@ -26,11 +30,13 @@ PORT_PREFIX = "rnb_tpu_torch."
 #: comments are allowed wherever a key is
 COMMENT_KEY = "_comment"
 ROOT_KEYS = frozenset({"video_path_iterator", "pipeline", "ragged",
-                       "popularity", "pager"})
+                       "popularity", "pager", "trace"})
+TRACE_KEYS = ("enabled", "sample_hz", "max_events")
 RAGGED_KEYS = frozenset({"enabled", "pool_rows"})
 POPULARITY_KEYS = frozenset({"dist", "s", "universe"})
 PAGER_KEYS = frozenset({"enabled", "page_rows", "pool_mb", "feature_cache"})
-STEP_KEYS = frozenset({"model", "queue_groups", "num_shared_tensors"})
+STEP_KEYS = frozenset({"model", "queue_groups", "num_shared_tensors",
+                       "num_segments"})
 GROUP_KEYS = frozenset({"devices", "out_queues", "in_queue",
                         "queue_selector"})
 _LOADER_KEYS = frozenset({
@@ -56,6 +62,7 @@ MODEL_KEYS = {
     "Batcher": frozenset({
         "batch", "shapes", "max_rows", "consecutive_frames", "frame_hw",
         "row_buckets"}),
+    "R2P1DAggregator": frozenset({"aggregate"}),
 }
 #: the selectors a group may name (``ReplicaSelector`` waits for
 #: replica lanes)
@@ -110,6 +117,8 @@ class StepConfig:
     num_shared_tensors: int
     #: the step's model keys, passed to the stage's constructor
     kwargs: Dict[str, Any]
+    #: segments each published item is split into (runner.split_segments)
+    num_segments: int = 1
 
     def kwargs_for_group(self, group_idx: int) -> Dict[str, Any]:
         """Constructor kwargs of one group's instances: the step's
@@ -129,6 +138,8 @@ class PipelineConfig:
     popularity: Optional[dict] = None
     #: the page allocator's settings (root ``pager`` key)
     pager: Optional[dict] = None
+    #: the tracing settings (root ``trace`` key; rnb_tpu_torch.trace)
+    trace: Optional[dict] = None
 
     @property
     def num_steps(self) -> int:
@@ -188,6 +199,58 @@ def _check_pager(pager, ragged) -> None:
                           "shape")
 
 
+def _expect(cond: bool, message: str) -> None:
+    if not cond:
+        raise ConfigError(message)
+
+
+def _check_trace(trace) -> None:
+    """The reference's rules (rnb_tpu/config.py, root ``trace``)."""
+    _expect(isinstance(trace, dict), "'trace' must be an object")
+    unknown = sorted(set(trace) - set(TRACE_KEYS))
+    _expect(not unknown, "'trace' has unknown key(s) %s — keys are %s"
+            % (unknown, list(TRACE_KEYS)))
+    _expect(isinstance(trace.get("enabled", True), bool),
+            "'trace.enabled' must be a boolean")
+    sample_hz = trace.get("sample_hz", 20.0)
+    _expect(_is_number(sample_hz) and sample_hz >= 0,
+            "'trace.sample_hz' must be a non-negative number (0 disables "
+            "the occupancy sampler), got %r" % (sample_hz,))
+    max_events = trace.get("max_events", 200000)
+    _expect(isinstance(max_events, int)
+            and not isinstance(max_events, bool) and max_events >= 1,
+            "'trace.max_events' must be a positive integer, got %r"
+            % (max_events,))
+
+
+def _check_num_segments(step_raw: dict, step_idx: int,
+                        final: bool) -> int:
+    """A step's ``num_segments``, under the reference's rules and
+    messages: a positive integer, not on the last step, not with
+    ``row_buckets`` (each bucket would split into unwarmed segment
+    shapes), and no more segments than the producer's credits
+    (``num_shared_tensors``): every segment holds one until its
+    consumer takes it."""
+    where = "pipeline step %d" % step_idx
+    num_segments = step_raw.get("num_segments", 1)
+    _expect(isinstance(num_segments, int) and num_segments >= 1,
+            "%s: 'num_segments' must be a positive integer" % where)
+    _expect(not (final and num_segments != 1),
+            "the last step may not have multiple segments")
+    _expect(not (num_segments > 1 and "row_buckets" in step_raw),
+            "%s: 'row_buckets' cannot be combined with 'num_segments' > 1"
+            % where)
+    slots = step_raw.get("num_shared_tensors")
+    effective = DEFAULT_NUM_SHARED_TENSORS if slots is None else slots
+    _expect(num_segments <= effective,
+            "%s: 'num_segments' (%d) exceeds the shared-tensor ring size "
+            "(%d%s) — the producer would deadlock waiting on a slot it "
+            "has not yet published; raise 'num_shared_tensors'"
+            % (where, num_segments, effective,
+               "" if slots is not None else ", the default"))
+    return num_segments
+
+
 def parse_config(raw: dict, platform: Optional[str] = None
                  ) -> PipelineConfig:
     """Validate a config dict and build the port's view of it."""
@@ -196,9 +259,20 @@ def parse_config(raw: dict, platform: Optional[str] = None
     if "video_path_iterator" not in raw or "pipeline" not in raw:
         raise ConfigError("config needs 'video_path_iterator' and "
                           "'pipeline'")
+    trace = raw.get("trace")
+    if trace is not None:
+        _check_trace(trace)
     ragged = raw.get("ragged")
     if ragged is not None:
         _check_keys(ragged, RAGGED_KEYS, "ragged")
+        if ragged.get("enabled", True):
+            # the pool is one dispatch shape; segments would need a
+            # pool shape each
+            _expect(all(step.get("num_segments", 1) == 1
+                        for step in raw["pipeline"]
+                        if isinstance(step, dict)),
+                    "'ragged' cannot be combined with 'num_segments' > 1: "
+                    "the pool is one fixed dispatch shape")
     popularity = raw.get("popularity")
     if popularity is not None:
         _check_popularity(popularity)
@@ -273,12 +347,14 @@ def parse_config(raw: dict, platform: Optional[str] = None
                                  DEFAULT_NUM_SHARED_TENSORS))
         if slots < 1:
             raise ConfigError("%s: num_shared_tensors must be >= 1" % where)
-        steps.append(StepConfig(model=model, groups=groups,
-                                num_shared_tensors=slots, kwargs=kwargs))
+        steps.append(StepConfig(
+            model=model, groups=groups, num_shared_tensors=slots,
+            kwargs=kwargs,
+            num_segments=_check_num_segments(step_raw, step_idx, is_final)))
     return PipelineConfig(
         video_path_iterator=port_class_path(raw["video_path_iterator"]),
         steps=steps, ragged=ragged, platform=platform,
-        popularity=popularity, pager=pager)
+        popularity=popularity, pager=pager, trace=trace)
 
 
 def load_config(path: str, platform: Optional[str] = None

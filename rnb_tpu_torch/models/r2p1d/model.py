@@ -25,6 +25,9 @@ Counterpart of ``rnb_tpu/models/r2p1d/model.py``:
 * :class:`R2P1DSingleStep` is loader and full network in one stage, the
   no-pipelining baseline; :class:`LargeSmallSelector` routes max-clip
   videos to their own queue.
+* :class:`R2P1DAggregator` is the host step behind a segmented step: it
+  sums each request's segment logits, merges the segments' TimeCards
+  and emits the class id.
 
 With ``cache_mb`` a loader keeps a clip cache and coalesces requests
 for a video that is decoding (``configs/rnb-fused-yuv-zipf-cache.json``);
@@ -37,9 +40,13 @@ pool (:mod:`rnb_tpu_torch.decode.native`) straight into the pinned
 staging rows a request was given when it was submitted; the runner
 replays one captured CUDA graph per input signature on the card.
 
+On a traced run (root ``trace`` key) the loaders stamp the
+phase-refinement stamps (``decode{i}_done``, ``transfer{i}_start``,
+``transfer{i}_done``) on every card and register their occupancy
+counters with the tracer (``enable_trace``).
+
 Not yet ported from the reference stages: the autotune controller,
-fault containment, ``raw_output`` and the mesh runner, the aggregator,
-sharding.
+fault containment, ``raw_output`` and the mesh runner, sharding.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from rnb_tpu_torch import hostprof, trace
 from rnb_tpu_torch.cache import ClipCache, InflightTable, content_key
 from rnb_tpu_torch.compilestats import SignatureTracker, signature_of
 from rnb_tpu_torch.decode import get_decoder
@@ -84,7 +92,7 @@ from rnb_tpu_torch.stage import (PadCounter, PaddedBatch, RaggedBatch,
                                  StageModel, normalize_row_buckets,
                                  note_emission_accounting)
 from rnb_tpu_torch.staging import StagingPool, TransferWorker
-from rnb_tpu_torch.telemetry import TimeCardList, cards_of
+from rnb_tpu_torch.telemetry import TimeCard, TimeCardList, cards_of
 from rnb_tpu_torch.video_path_provider import (VideoPathIterator,
                                                scan_video_tree)
 
@@ -100,6 +108,19 @@ NUM_SYNTHETIC_VIDEOS = 200
 
 _cache_lock = threading.Lock()
 _network_cache: Dict[tuple, torch.nn.Module] = {}
+#: a graph capture on one stage's thread fails when another thread
+#: synchronizes the device meanwhile (the synchronize would wait on the
+#: capturing stream), and ``torch.cuda.graph`` synchronizes the device
+#: when it begins: captures and the device synchronizes of stage
+#: construction take this lock in turn (several runners of one card
+#: build at once)
+_DEVICE_SYNC_LOCK = threading.RLock()
+
+
+def _synchronize(device: torch.device) -> None:
+    """``torch.cuda.synchronize`` outside any other stage's capture."""
+    with _DEVICE_SYNC_LOCK:
+        torch.cuda.synchronize(device)
 
 
 def _check_pixel_path(pixel_path: str) -> None:
@@ -147,6 +168,54 @@ def _device_of(device) -> torch.device:
     """Accept a DeviceSpec or a torch.device."""
     return device.resolve() if hasattr(device, "resolve") else \
         torch.device(device)
+
+
+def _record_clamped(card, key: str, at: float) -> None:
+    """Record a phase-refinement stamp no earlier than the card's latest
+    stamp, so each card's stamps stay in time order (a coalesced
+    follower admitted after its leader's decode reads a zero-length
+    decode phase)."""
+    if card.timings:
+        last = next(reversed(card.timings.values()))
+        if at < last:
+            at = last
+    card.record(key, at=at)
+
+
+#: the refinement stamps, by stage (telemetry.TRACE_STAMP_REGISTRY)
+_REFINEMENT_KEYS = {"decode": "decode%d_done",
+                    "transfer_start": "transfer%d_start",
+                    "transfer_done": "transfer%d_done"}
+_ALL_STAGES = ("decode", "transfer_start", "transfer_done")
+
+
+class _TraceStamps:
+    """The loaders' side of tracing: ``enable_trace`` turns on the
+    refinement stamps of step ``_trace_step``; off, every stamp call is
+    one None test."""
+
+    _trace_step: Optional[int] = None
+
+    def enable_trace(self, tracer, step_idx: int) -> None:
+        """Executor protocol (traced runs only): stamp the refinement
+        stamps from now on, and let the tracer's sampler read this
+        loader's free staging slots."""
+        self._trace_step = int(step_idx)
+        if self.staging is not None:
+            tracer.add_counter_source(
+                trace.name("staging.s%d.free", step_idx),
+                self.staging.available)
+
+    def _stamp(self, cards, *stages, at: Optional[float] = None) -> None:
+        """Stamp ``decode``/``transfer_start``/``transfer_done``
+        (``stages``) on every card, at ``at`` or now."""
+        if self._trace_step is None:
+            return
+        at = time.time() if at is None else at
+        step = self._trace_step
+        for tc in cards:
+            for stage in stages:
+                _record_clamped(tc, _REFINEMENT_KEYS[stage] % step, at)
 
 
 def default_ragged_chunk(pool_rows: int) -> int:
@@ -325,7 +394,7 @@ class _DecodeHandle:
             raise
 
 
-class R2P1DLoader(StageModel):
+class R2P1DLoader(_TraceStamps, StageModel):
     """Decode stage: video path or id -> one padded clip batch on the
     card per request, normalized there on the rgb pixel path.
 
@@ -443,7 +512,7 @@ class R2P1DLoader(StageModel):
                 self._normalize_emission(self._transfer.transfer(
                     self._transfer.acquire(), rows), rows)
         if self.torch_device.type == "cuda":
-            torch.cuda.synchronize(self.torch_device)
+            _synchronize(self.torch_device)
         if num_warmups > 0:
             self._warm_decode()
 
@@ -569,7 +638,7 @@ class R2P1DLoader(StageModel):
             pager.adopt_shared("loader-feature-stub", stub)
         self._feature_stub = stub
         if self.torch_device.type == "cuda":
-            torch.cuda.synchronize(self.torch_device)
+            _synchronize(self.torch_device)
 
     def _feature_probe(self, video: str):
         """(content key, plan) from the feature pages, probed ahead of
@@ -604,11 +673,13 @@ class R2P1DLoader(StageModel):
         transfer in the pool shape; a paged entry is gathered."""
         time_card.num_clips = entry.valid
         time_card.cache_hit = True
+        self._stamp((time_card,), "decode")
         if self.ragged:
             self.ragged_stats["cache_hit_rows"] += entry.valid
             if self.cache.paged:
                 return self._materialize_pages(entry, time_card)
             return self._materialize(entry.batch, entry.valid, time_card)
+        self._stamp((time_card,), "transfer_start", "transfer_done")
         self._note_emission_padding(entry.valid, int(entry.batch.shape[0]),
                                     [time_card])
         return (PaddedBatch(self._normalize_emission(entry.batch,
@@ -620,6 +691,7 @@ class R2P1DLoader(StageModel):
         gathered on the card over the zero pool, and the result goes
         through the same device step a miss feeds."""
         n = plan.valid
+        self._stamp((time_card,), "transfer_start", "transfer_done")
         src = np.full((self.pool_rows,), -1, np.int32)
         src[:n] = plan.src_rows
         device_wire = self._clip_arena.gather(self._zero_pool, src)
@@ -636,6 +708,7 @@ class R2P1DLoader(StageModel):
         time_card.num_clips = n
         time_card.feature_hit = True
         time_card.feature_plan = plan
+        self._stamp((time_card,), *_ALL_STAGES)
         self.pager.note_feature_saved(n * self._clip_arena.row_bytes)
         self._note_emission_padding(n, self.pool_rows, [time_card])
         return (self._wrap_batch(self._feature_stub, n),), None, time_card
@@ -654,7 +727,11 @@ class R2P1DLoader(StageModel):
         caching = cache_key is not None and self.cache is not None
         if caching and self.ragged and not self.cache.paged:
             self.cache.insert_rows(cache_key, clips, n)
-        device_wire = self._transfer.transfer(slot, shipped)
+        self._stamp((time_card,), "transfer_start")
+        with hostprof.section("loader.transfer"), \
+                trace.span("loader.transfer", time_card.id):
+            device_wire = self._transfer.transfer(slot, shipped)
+        self._stamp((time_card,), "transfer_done")
         if self.staging is not None:
             self.staging.note_emission(copied=True)
         return self._materialized(device_wire, n, time_card, cache_key)
@@ -671,9 +748,13 @@ class R2P1DLoader(StageModel):
             if cache_key is not None and self.cache is not None \
                     and self.ragged and not self.cache.paged:
                 self.cache.insert_rows(cache_key, handle.out, n)
-            device_wire = self.staging.transfer_rows(
-                ((handle.slot, 0, n),), self._ship_rows(n),
-                zero_tail=not self.ragged)
+            self._stamp((time_card,), "transfer_start")
+            with hostprof.section("loader.transfer"), \
+                    trace.span("loader.transfer", time_card.id):
+                device_wire = self.staging.transfer_rows(
+                    ((handle.slot, 0, n),), self._ship_rows(n),
+                    zero_tail=not self.ragged)
+            self._stamp((time_card,), "transfer_done")
         finally:
             self._release_handle_slot(handle)
         self.staging.note_emission(copied=False)
@@ -691,8 +772,9 @@ class R2P1DLoader(StageModel):
                 self.cache.insert_device(cache_key, device_wire, n)
         self._note_emission_padding(n, int(device_wire.shape[0]),
                                     [time_card])
-        return (self._wrap_batch(self._normalize_emission(device_wire, n),
-                                 n),), None, time_card
+        with hostprof.section("loader.normalize"):
+            batch = self._normalize_emission(device_wire, n)
+        return (self._wrap_batch(batch, n),), None, time_card
 
     def _release_handle_slot(self, handle: _DecodeHandle) -> None:
         """Retire a handle's slot reference (idempotent): its rows are
@@ -763,7 +845,16 @@ class R2P1DLoader(StageModel):
                                        starts))
         if key is not None:
             self._inflight_keys.put(key, handle)
+        trace.instant("loader.decode_submit", rid=time_card.id)
         return handle
+
+    def _decode_waited(self, handle: "_DecodeHandle", time_card) -> None:
+        """Wait a submitted decode (the residual the prefetch did not
+        hide) and stamp its end."""
+        with hostprof.section("loader.decode_wait"):
+            handle.wait()
+        self._stamp((time_card,), "decode")
+        trace.instant("loader.decode_ready", rid=time_card.id)
 
     def complete(self, handle: _DecodeHandle, non_tensors, time_card):
         """Wait for a submitted decode, then pad, transfer and normalize
@@ -777,7 +868,7 @@ class R2P1DLoader(StageModel):
         if handle.leader is not None:
             # the leader decoded for both and made the cache insert
             try:
-                handle.wait()
+                self._decode_waited(handle, time_card)
             except Exception:
                 self._release_handle_slot(handle)
                 raise
@@ -785,7 +876,7 @@ class R2P1DLoader(StageModel):
                 return self._materialize_slot(handle, time_card)
             return self._materialize(handle.out, handle.n, time_card)
         try:
-            handle.wait()
+            self._decode_waited(handle, time_card)
         except Exception:
             self._release_handle_slot(handle)
             raise
@@ -835,8 +926,10 @@ class R2P1DLoader(StageModel):
         if entry is not None:
             return self._materialize_hit(entry, time_card)
         decoder = get_decoder(video)
-        clips = self._decode_sync(decoder, video,
-                                  self._sample_starts(decoder, video))
+        with hostprof.section("loader.decode"):
+            clips = self._decode_sync(decoder, video,
+                                      self._sample_starts(decoder, video))
+        self._stamp((time_card,), "decode")
         n = int(clips.shape[0])
         time_card.num_clips = n
         if key is not None:
@@ -894,7 +987,7 @@ class _FuseRecord:
             future.result()
 
 
-class R2P1DFusingLoader(StageModel):
+class R2P1DFusingLoader(_TraceStamps, StageModel):
     """Decode stage with loader-side dynamic batching.
 
     Each request is given its rows in a pinned staging slot when it is
@@ -1033,7 +1126,7 @@ class R2P1DFusingLoader(StageModel):
                 self._normalize_emission(self.staging.transfer(
                     self.staging.acquire(), rows), rows)
         if self.torch_device.type == "cuda":
-            torch.cuda.synchronize(self.torch_device)
+            _synchronize(self.torch_device)
         if num_warmups > 0:
             self._warm_decode()
 
@@ -1075,7 +1168,7 @@ class R2P1DFusingLoader(StageModel):
         if self._feature_stub is not self._zero_pool:
             pager.adopt_shared("loader-feature-stub", self._feature_stub)
         if self.torch_device.type == "cuda":
-            torch.cuda.synchronize(self.torch_device)
+            _synchronize(self.torch_device)
 
     def _batch_shape(self, rows: int):
         return _wire_batch_shape(rows, self.pixel_path, self.dct_coeffs)
@@ -1224,11 +1317,21 @@ class R2P1DFusingLoader(StageModel):
             self.padding, self.ragged_stats, cards, valid, shipped,
             self._bucket_for(valid) if self.ragged else 0)
 
+    def enable_trace(self, tracer, step_idx: int) -> None:
+        """On top of the staging counter: sample the decode window —
+        decodes in flight plus decoded but unemitted requests (deque
+        lengths are safe to read from the sampler thread)."""
+        super().enable_trace(tracer, step_idx)
+        tracer.add_counter_source(
+            trace.name("loader.s%d.inflight", step_idx),
+            lambda: len(self._inflight) + len(self._ready))
+
     def _emit_feature(self, plan, time_card):
         """A feature-page hit, emitted at once as its own dispatch: the
         stub pool goes downstream (never read), and the pinned plan rides
         the card to the runner, which gathers the stored logits and
         releases it."""
+        self._stamp((time_card,), *_ALL_STAGES)
         n = plan.valid
         time_card.num_clips = n
         time_card.row0 = 0
@@ -1244,6 +1347,7 @@ class R2P1DFusingLoader(StageModel):
         """A bucketed blob hit, emitted at once as its cached device
         batch: there is no decode to overlap, so holding it for fusion
         would only add latency."""
+        self._stamp((time_card,), *_ALL_STAGES)
         time_card.num_clips = entry.valid
         time_card.row0 = 0
         time_card.cache_hit = True
@@ -1336,15 +1440,18 @@ class R2P1DFusingLoader(StageModel):
             raise
         if key is not None:
             self._inflight_keys.put(key, rec)
+        trace.instant("loader.decode_submit", rid=time_card.id)
         return self._admit(rec)
 
     def _retire_oldest(self) -> None:
         rec = self._inflight.popleft()
         try:
-            rec.wait()  # a decode error fails the run here
+            with hostprof.section("loader.decode_wait"):
+                rec.wait()  # a decode error fails the run here
         finally:
             rec.t_ready = time.monotonic()
             self._ready.append(rec)  # discard_pending releases its slot
+        trace.instant("loader.decode_ready", rid=rec.cards[0].id)
 
     def _harvest(self) -> None:
         """Move decode-complete requests to ready, in FIFO order."""
@@ -1352,12 +1459,18 @@ class R2P1DFusingLoader(StageModel):
             rec = self._inflight.popleft()
             rec.t_ready = time.monotonic()
             self._ready.append(rec)
+            trace.instant("loader.decode_ready", rid=rec.cards[0].id)
 
     # -- emission -------------------------------------------------------------
 
     def _emit(self) -> bool:
         """Fuse ready requests (up to ``fuse`` / the max rows) into one
         batch and ship it. False when nothing was ready."""
+        with hostprof.section("loader.emit"), trace.span("loader.emit"):
+            return self._emit_take()
+
+    def _emit_take(self) -> bool:
+        """:meth:`_emit`'s body: take, assemble, hand to the transfer."""
         take, rows = [], 0
         while self._ready and len(take) < self.fuse:
             n = self._ready[0].n
@@ -1379,6 +1492,14 @@ class R2P1DFusingLoader(StageModel):
         if rows > self.max_clips:
             raise RuntimeError("fused %d rows over max_clips=%d"
                                % (rows, self.max_clips))
+        if self._trace_step is not None:
+            # each request's decode ended when it was harvested (its
+            # monotonic t_ready on the wall clock), its hold ends now
+            now, now_mono = time.time(), time.monotonic()
+            for rec in take:
+                self._stamp(rec.cards, "decode",
+                            at=now - max(0.0, now_mono - rec.t_ready))
+                self._stamp(rec.cards, "transfer_start", at=now)
         shipped = self.pool_rows if self.ragged else self._bucket_for(rows)
         paged = self.cache is not None and self.cache.paged
         offsets = segment_offsets_of(rec.n for rec in take)
@@ -1420,13 +1541,16 @@ class R2P1DFusingLoader(StageModel):
 
         def job():
             try:
-                batch = self.staging.transfer_rows(
-                    [tuple(run) for run in runs], shipped,
-                    zero_tail=not self.ragged)
+                with hostprof.section("loader.transfer"), \
+                        trace.span("loader.transfer"):
+                    batch = self.staging.transfer_rows(
+                        [tuple(run) for run in runs], shipped,
+                        zero_tail=not self.ragged)
             finally:
                 # the copies are confirmed (or failed): the rows go
                 for slot in slots:
                     self.staging.release(slot)
+            self._stamp(cards, "transfer_done")
             if gather_plans or insert_jobs:
                 batch = self._overlay_pages(batch, gather_plans,
                                             insert_jobs)
@@ -1594,12 +1718,15 @@ class CapturedForward:
         self.capture_s = float(capture_s)
 
     def replay(self, x: torch.Tensor, rows_valid: int) -> torch.Tensor:
-        self.static_in.copy_(x)
-        if self.static_rows_valid is not None:
-            self.static_rows_valid.fill_(int(rows_valid))
-        self.graph.replay()
+        with hostprof.section("runner.copy_in"):
+            self.static_in.copy_(x)
+            if self.static_rows_valid is not None:
+                self.static_rows_valid.fill_(int(rows_valid))
+        with hostprof.section("runner.graph_replay"):
+            self.graph.replay()
         _kernels.add_launches(self.launches)
-        return self.static_out.clone()
+        with hostprof.section("runner.copy_out"):
+            return self.static_out.clone()
 
 
 class R2P1DRunner(StageModel):
@@ -1731,14 +1858,14 @@ class R2P1DRunner(StageModel):
         if self.torch_device.type == "cuda":
             self.graph_stats = {"graphs": 0, "capture_s": 0.0,
                                 "replays": 0}
-            torch.cuda.synchronize(self.torch_device)
             self._graph_pool = torch.cuda.graph_pool_handle()
-            # a capture stream of this stage's own: stages capture on
-            # their threads at once
+            # a capture stream of this stage's own
             self._capture_stream = torch.cuda.Stream(self.torch_device)
-            for key in self.graph_keys():
-                self._capture(key, warm_dtype)
-            torch.cuda.synchronize(self.torch_device)
+            with _DEVICE_SYNC_LOCK:
+                torch.cuda.synchronize(self.torch_device)
+                for key in self.graph_keys():
+                    self._capture(key, warm_dtype)
+                torch.cuda.synchronize(self.torch_device)
 
     @classmethod
     def input_shape_for(cls, start_index: int = 1,
@@ -1818,7 +1945,7 @@ class R2P1DRunner(StageModel):
                                        device=self.torch_device)
         pager.adopt_shared("runner-logit-pool", self._logit_pool)
         if self.torch_device.type == "cuda":
-            torch.cuda.synchronize(self.torch_device)
+            _synchronize(self.torch_device)
 
     def _take_feature_plan(self, time_card):
         """The pinned feature-page plan riding this dispatch's card, if
@@ -1933,7 +2060,13 @@ class R2P1DRunner(StageModel):
         """Capture the forward at one signature key: warm up on the
         capture stream (PyTorch's rule), then record the graph into the
         stage's memory pool, in thread-local mode since other stages
-        issue work on the card meanwhile."""
+        issue work on the card meanwhile; no other stage captures or
+        synchronizes the device until it is done."""
+        with _DEVICE_SYNC_LOCK:
+            return self._capture_locked(key, dtype)
+
+    def _capture_locked(self, key: tuple, dtype: torch.dtype
+                        ) -> CapturedForward:
         (((shape, _dtype_name),), num_tiles) = key
         rows = int(shape[0])
         device = self.torch_device
@@ -1983,8 +2116,10 @@ class R2P1DRunner(StageModel):
         if x.device != self.torch_device:
             x = x.to(self.torch_device)
         elif x.is_cuda:
-            # allocated on the loader's transfer stream; keep its memory
-            # from being reused until this stream's work is done
+            # allocated on the loader's transfer stream (a segment is a
+            # view of the loader's output, shared with its siblings);
+            # keep its memory from being reused until this stream's work
+            # is done
             x.record_stream(torch.cuda.current_stream(x.device))
         self.compiles.observe(x)
         out = self.forward(x, int(pb.valid))
@@ -2039,6 +2174,43 @@ class R2P1DSingleStep(StageModel):
         # host
         pred = int(torch.argmax(logits.data[: logits.valid].sum(dim=0)))
         return None, pred, time_card
+
+
+class R2P1DAggregator(StageModel):
+    """The host step behind a segmented step: sums each request's
+    float32 segment logits over their valid rows, in arrival order
+    (numpy, as the reference does), swallows segments until
+    ``aggregate`` of a request have arrived, then merges their TimeCards
+    (:meth:`TimeCard.merge`) and emits the argmax class id as the
+    non-tensor payload. An empty segment (no valid rows) adds zeros.
+    Declares no tensor outputs."""
+
+    def __init__(self, device, aggregate: int, **kwargs):
+        super().__init__(device)
+        self.aggregate = int(aggregate)
+        if self.aggregate < 1:
+            raise ValueError("aggregate must be >= 1")
+        #: request id -> [summed logits, [TimeCard, ...]]
+        self._pending: Dict[int, list] = {}
+
+    @classmethod
+    def output_shape_for(cls, **_kwargs):
+        return None
+
+    def __call__(self, tensors, non_tensors, time_card):
+        pb = tensors[0]
+        logits = pb.data[: pb.valid].to(torch.float32).cpu().numpy()
+        contribution = logits.sum(axis=0)
+        entry = self._pending.setdefault(
+            time_card.id, [np.zeros_like(contribution), []])
+        entry[0] = entry[0] + contribution
+        entry[1].append(time_card)
+        if len(entry[1]) < self.aggregate:
+            return None, None, None
+        del self._pending[time_card.id]
+        merged = (TimeCard.merge(entry[1]) if self.aggregate > 1
+                  else entry[1][0])
+        return None, int(entry[0].argmax()), merged
 
 
 class LargeSmallSelector(QueueSelector):

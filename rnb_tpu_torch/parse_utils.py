@@ -6,24 +6,40 @@ one timing table per final-step instance and, for a ``--profile`` run
 on the card, ``profile.json``::
 
     python -m rnb_tpu_torch.parse_utils logs/<job> [logs/<job> ...]
+    python -m rnb_tpu_torch.parse_utils --attribute logs/<job> [...]
 
 prints one JSON object per job: requests, videos/s and clips/s over
 the measured window, emissions (fused batches) and the mean runner
 service per emission and wait before it, from the timing tables; the
 clip cache's hit rate and the page allocator's feature hits and
 gathers, from ``Cache:`` and ``Pages:``; and from the profile, device
-kernel time and launches, the card's busy share and each kernel
-family's share of the kernel time.
+kernel time and launches, kernel time per forward of the last network
+step (its ``Graphs:`` replays) and per request, the card's busy share
+and each kernel family's share of the kernel time.
 
 It reads the ``Compiles:`` and ``Warmup:`` lines as the reference's
 reader does (``compile_signatures``, ``warmup_s``) and the port's
 ``Graphs:`` line (captured forwards and their replays per step).
 
+Timing tables of a segmented topology hold merged cards: a stamp
+recorded after the fork appears once per segment with a ``-{sub_id}``
+suffix (``inference1_start-2``), and a request's end-to-end latency runs
+from ``enqueue_filename`` to the aggregator's unsuffixed
+``inference{last}_finish``. The reader strips the suffixes to find the
+steps, and counts each segment's forward as its own emission.
+
+``--attribute`` prints, per job, each phase's mean, p99 and count over
+the requests past the first ten (:func:`rnb_tpu_torch.trace.attribute_phases`
+of every table row, as the reference's ``--attribute`` does) and the
+largest gap between a request's phase sum and its end-to-end latency.
+
 It also checks the reference's footings (``scripts/parse_utils.py
 --check``): of the ``Pages:`` line, pages allocated == freed + live at
 teardown, feature hits <= feature lookups, and gathered rows <= the
 ragged cache-hit rows they serve; of the ``Compiles:`` line, no step
-saw a new signature inside the measured window (``steady_new``). A
+saw a new signature inside the measured window (``steady_new``); of the
+``Trace:`` line, that ``trace.json`` exists, records the same event and
+drop counts, and passes :func:`rnb_tpu_torch.trace.validate_trace`. A
 violation is printed and the exit code is 1.
 """
 
@@ -33,6 +49,12 @@ import json
 import os
 import sys
 from typing import Dict, List
+
+from rnb_tpu_torch.trace import (_step_of, _strip_suffix, attribute_phases,
+                                 phase_stats, validate_trace)
+
+#: warm records a job-wide summary skips per table (runner.py)
+NUM_SUMMARY_SKIPS = 10
 
 #: kernel families of a profile, by a substring of the kernel's name;
 #: the first family that matches takes the kernel
@@ -69,6 +91,8 @@ def read_meta(path: str) -> dict:
                 meta["warmup_s"] = json.loads(rest)
             elif head == "Graphs":
                 meta["graphs"] = json.loads(rest)
+            elif head == "Phases":
+                meta["phases"] = json.loads(rest)
             elif head in ("Pixel path", "Decode backend"):
                 meta[head.lower().replace(" ", "_")] = rest
             elif rest and "=" in rest:
@@ -88,6 +112,107 @@ def read_table(path: str):
     keys = [k for k in lines[0] if not k.startswith("device")]
     rows = [[float(v) for v in ln[:len(keys)]] for ln in lines[1:]]
     return keys, rows
+
+
+def _stamp_pairs(keys: List[str], first: str, second: str):
+    """``[(first_col, second_col)]``: the columns of two stamps of one
+    request, one pair per segment where both carry the same sub_id
+    suffix, and, where ``second`` is recorded once after the segments
+    merged, each segment's ``first`` paired with it."""
+    col = {k: i for i, k in enumerate(keys)}
+    if first in col and second in col:
+        return [(col[first], col[second])]
+    subs = sorted(k[len(first) + 1:] for k in keys
+                  if k.startswith(first + "-")
+                  and k[len(first) + 1:].isdigit())
+    if second in col:
+        return [(col["%s-%s" % (first, sub)], col[second]) for sub in subs]
+    return [(col["%s-%s" % (first, sub)], col["%s-%s" % (second, sub)])
+            for sub in subs if "%s-%s" % (second, sub) in col]
+
+
+def step_service_ms(keys: List[str], rows) -> Dict[int, List[float]]:
+    """{step: [service ms per emission]}: ``inference{i}_finish`` less
+    ``inference{i}_start``, one emission per distinct start stamp (a
+    fused emission stamps all its requests at once; a segment is its own
+    forward). Where the finish is stamped once after a merge, an
+    emission is the merged request and its service starts at its last
+    segment's start."""
+    steps = sorted({s for s in (_step_of(_strip_suffix(k), "inference",
+                                         "_start") for k in keys)
+                    if s is not None})
+    out: Dict[int, List[float]] = {}
+    for step in steps:
+        pairs = _stamp_pairs(keys, "inference%d_start" % step,
+                             "inference%d_finish" % step)
+        merged = len({f for _s, f in pairs}) == 1 and len(pairs) > 1
+        emissions = {}
+        for row in rows:
+            if merged:
+                begin = max(row[s] for s, _f in pairs)
+                emissions[(begin, row[pairs[0][1]])] = None
+            else:
+                for s, f in pairs:
+                    emissions[(row[s], row[f])] = None
+        out[step] = [1e3 * (f - b) for b, f in emissions]
+    return out
+
+
+def attribute(log_dir: str, num_skips: int = NUM_SUMMARY_SKIPS) -> dict:
+    """Per-request phases of one job over every timing table's rows past
+    ``num_skips``: ``{"phases": {phase: {mean_ms, p99_ms, count}},
+    "requests": n, "max_residual_ms": x}``, the residual being a
+    request's end-to-end latency (first stamp to last) less the sum of
+    its phases."""
+    samples: Dict[str, List[float]] = {}
+    residual, requests = 0.0, 0
+    for path in _tables(log_dir):
+        keys, rows = read_table(path)
+        for row in rows[num_skips:]:
+            timings = dict(zip(keys, row))
+            phases = attribute_phases(timings)
+            e2e = 1e3 * (max(row) - min(row))
+            residual = max(residual, abs(sum(phases.values()) - e2e))
+            requests += 1
+            for phase, ms in phases.items():
+                samples.setdefault(phase, []).append(ms)
+    return {"phases": phase_stats(samples), "requests": requests,
+            "max_residual_ms": residual}
+
+
+def trace_problems(log_dir: str, meta: dict) -> List[str]:
+    """The ``Trace:`` line against ``trace.json`` (empty when they
+    agree, or when the run was not traced and wrote neither)."""
+    path = os.path.join(log_dir, "trace.json")
+    line = meta["lines"].get("Trace")
+    if line is None:
+        return (["trace.json present but log-meta has no 'Trace:' line"]
+                if os.path.isfile(path) else [])
+    if not os.path.isfile(path):
+        return ["log-meta carries a 'Trace:' line but trace.json is "
+                "missing"]
+    with open(path) as f:
+        other = json.load(f).get("otherData", {})
+    problems = []
+    if other.get("num_events") != line["events"]:
+        problems.append("'Trace:' line says events=%d but trace.json "
+                        "records num_events=%s"
+                        % (line["events"], other.get("num_events")))
+    if other.get("dropped_events") != line["dropped"]:
+        problems.append("'Trace:' line says dropped=%d but trace.json "
+                        "records dropped_events=%s"
+                        % (line["dropped"], other.get("dropped_events")))
+    problems.extend("trace.json: %s" % issue
+                    for issue in validate_trace(path)[:5])
+    return problems
+
+
+def _tables(log_dir: str) -> List[str]:
+    """The job's timing tables, one per final-step instance."""
+    return [os.path.join(log_dir, name)
+            for name in sorted(os.listdir(log_dir))
+            if name.endswith(".txt")
+            and name not in ("log-meta.txt", "profile.txt", "hostprof.txt")]
 
 
 def kernel_families(kernels: Dict[str, dict]) -> Dict[str, float]:
@@ -140,26 +265,21 @@ def summarize(log_dir: str) -> dict:
                decode_backend=meta.get("decode_backend"),
                compile_signatures=meta.get("compile_signatures"),
                warmup_s=meta.get("warmup_s"), graphs=meta.get("graphs"))
-    requests, service_ms, wait_ms = 0, [], []
-    for name in sorted(os.listdir(log_dir)):
-        if not name.endswith(".txt") or name in ("log-meta.txt",
-                                                 "profile.txt"):
-            continue
-        keys, rows = read_table(os.path.join(log_dir, name))
-        step = max(int(k[len("inference"):-len("_start")]) for k in keys
-                   if k.startswith("inference") and k.endswith("_start"))
-        col = {k: i for i, k in enumerate(keys)}
-        begin = col["inference%d_start" % step]
-        finish = col["inference%d_finish" % step]
-        emissions = {}
-        for row in rows:
-            emissions[row[begin]] = row[finish]
-            if step > 0:
-                wait_ms.append(1e3 * (row[col["runner%d_start" % step]]
-                                      - row[col["inference%d_finish"
-                                                % (step - 1)]]))
-        service_ms.extend(1e3 * (f - s) for s, f in emissions.items())
+    requests, wait_ms = 0, []
+    by_step: Dict[int, List[float]] = {}
+    for path in _tables(log_dir):
+        keys, rows = read_table(path)
+        for step, values in step_service_ms(keys, rows).items():
+            by_step.setdefault(step, []).extend(values)
+        step = max(by_step)
+        if step > 0:
+            for arrive, leave in _stamp_pairs(
+                    keys, "inference%d_finish" % (step - 1),
+                    "runner%d_start" % step):
+                wait_ms.extend(1e3 * (row[leave] - row[arrive])
+                               for row in rows)
         requests += len(rows)
+    service_ms = by_step[max(by_step)] if by_step else []
     lines = meta["lines"]
     # clip rows served: the final step's own count; in logs written
     # before that line existed, the pools' valid rows or the buckets'
@@ -175,7 +295,16 @@ def summarize(log_dir: str) -> dict:
                clips_per_s=clips / out["window_s"],
                emissions=len(service_ms),
                runner_service_ms=_mean(service_ms),
-               runner_wait_ms=_mean(wait_ms))
+               runner_wait_ms=_mean(wait_ms),
+               service_ms_by_step={str(step): _mean(values)
+                                   for step, values in sorted(
+                                       by_step.items())},
+               emissions_by_step={str(step): len(values)
+                                  for step, values in sorted(
+                                      by_step.items())})
+    if "Trace" in lines:
+        out.update(trace_events=int(lines["Trace"]["events"]),
+                   trace_dropped=int(lines["Trace"]["dropped"]))
     if "Cache" in lines:
         cache = lines["Cache"]
         lookups = cache["hits"] + cache["misses"]
@@ -189,21 +318,24 @@ def summarize(log_dir: str) -> dict:
             "gathers", "gather_rows", "feature_lookups", "feature_hits",
             "feature_gathers", "bypassed_batches")})
         out["arenas"] = meta.get("arenas")
-    out["footing_problems"] = footing_problems(meta)
+    out["footing_problems"] = (footing_problems(meta)
+                               + trace_problems(log_dir, meta))
     profile = os.path.join(log_dir, "profile.json")
     if os.path.exists(profile):
         with open(profile) as f:
             kernels = json.load(f)["kernels"]
         kernel_ms = sum(k["device_us"] for k in kernels.values()) / 1e3
-        # each forward launches its ingest kernels once; a gather serves
-        # a hit and runs no forward
-        forwards = max((n for k, n in out["launches"].items()
-                        if k != "gather_rows"), default=0)
+        # per forward of the last network step: its graph replays (None
+        # in a log without a Graphs: line)
+        graphs = out.get("graphs") or {}
+        forwards = (graphs[max(graphs, key=lambda k: int(k[4:]))]["replays"]
+                    if graphs else 0)
         out.update(kernel_ms=kernel_ms,
                    device_launches=sum(k["count"] for k in kernels.values()),
                    busy_share=kernel_ms / (1e3 * out["window_s"]),
                    kernel_ms_per_emission=(kernel_ms / forwards
                                            if forwards else None),
+                   kernel_ms_per_request=kernel_ms / requests,
                    kernel_families=kernel_families(kernels))
     return out
 
@@ -213,7 +345,12 @@ def _mean(values: List[float]):
 
 
 def main(argv=None) -> int:
-    log_dirs = sys.argv[1:] if argv is None else argv
+    log_dirs = list(sys.argv[1:] if argv is None else argv)
+    if "--attribute" in log_dirs:
+        log_dirs.remove("--attribute")
+        for log_dir in log_dirs:
+            print(json.dumps(dict(log_dir=log_dir, **attribute(log_dir))))
+        return 0 if log_dirs else 2
     if not log_dirs:
         print(__doc__)
         return 2

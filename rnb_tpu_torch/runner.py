@@ -1,9 +1,9 @@
 """The stage executor: one thread per (step, group, device instance).
 
 Counterpart of ``rnb_tpu/runner.py``, without the containment, health,
-hedging, tracing and metrics layers of the JAX package (not yet
-ported): an error escaping a stage stops the run with
-``INTERNAL_ERROR`` — a decode error fails the run loudly.
+hedging and metrics layers of the JAX package (not yet ported): an
+error escaping a stage stops the run with ``INTERNAL_ERROR`` — a
+decode error fails the run loudly.
 
 The hot loop takes an item from the stage's input queue, runs the
 stage, waits for its device work (the honest ``inference{i}_finish``
@@ -17,10 +17,22 @@ stream. A group with several out queues asks its queue selector where
 each item goes. A first stage with ``submit()``/``complete()`` and a
 ``prefetch_depth`` has the decode of its next requests started while
 the head request's device work runs.
+
+A step with ``num_segments`` k splits each item's valid rows into k
+segments (:func:`split_segments`) and publishes them to the one out
+queue the selector picked, each with its own forked TimeCard and its
+own ring credit; an aggregating stage downstream merges them back.
+
+The hot loop carries the tracing layer's spans
+(:mod:`rnb_tpu_torch.trace`: ``exec{i}.queue_get``, ``hold_wait``,
+``model_call``, ``device_sync``, ``publish``) and the host profiler's
+sections (:mod:`rnb_tpu_torch.hostprof`), each one ``None`` or bool
+test when off.
 """
 
 from __future__ import annotations
 
+import math
 import queue
 import threading
 import time
@@ -31,6 +43,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from rnb_tpu_torch import hostprof, trace
 from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, EdgeTracker,
                                    InferenceCounter, RingCredits,
                                    TerminationFlag, TerminationState,
@@ -38,7 +51,7 @@ from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, EdgeTracker,
 from rnb_tpu_torch.devices import DeviceSpec
 from rnb_tpu_torch.ops.ragged import check_segment_offsets
 from rnb_tpu_torch.selector import DEFAULT_QUEUE_SELECTOR
-from rnb_tpu_torch.stage import RaggedBatch
+from rnb_tpu_torch.stage import PaddedBatch, RaggedBatch
 from rnb_tpu_torch.telemetry import (TimeCardList, TimeCardSummary,
                                      cards_of, logname)
 from rnb_tpu_torch.utils.class_utils import load_class
@@ -49,15 +62,45 @@ QUEUE_POLL_S = 0.05
 MIN_POLL_S = 0.001
 
 
-def poll_timeout(model) -> float:
-    """The input-queue poll timeout: the stage's own next deadline
-    (hold expiry / harvest tick), clamped to [MIN_POLL_S,
-    QUEUE_POLL_S]; the coarse default for stages without one."""
+def poll_timeout(model):
+    """(timeout, holding): the input-queue poll timeout — the stage's
+    own next deadline (hold expiry / harvest tick), clamped to
+    [MIN_POLL_S, QUEUE_POLL_S], the coarse default for stages without
+    one — and whether the stage holds work (it has a deadline), which
+    names the wait a hold and not starvation."""
     next_deadline = getattr(model, "next_deadline_s", None)
     deadline = next_deadline() if next_deadline is not None else None
     if deadline is None:
-        return QUEUE_POLL_S
-    return min(QUEUE_POLL_S, max(MIN_POLL_S, deadline))
+        return QUEUE_POLL_S, False
+    return min(QUEUE_POLL_S, max(MIN_POLL_S, deadline)), True
+
+
+def split_segments(payload, num_segments: int):
+    """Split each batch's valid rows into ``num_segments`` segment
+    batches of ``ceil(rows / num_segments)`` rows: the quotient of the
+    valid rows everywhere, the remainder spread from the front (11 rows
+    in 3 -> 4, 4, 3); a segment may be empty. Segment ``i`` is the view
+    ``data[start:start + seg_rows]``, so its pad rows are the next
+    segment's valid rows; only where that runs off the end of the
+    batch are zero rows appended (the reference's rule, bitwise)."""
+    if num_segments <= 1:
+        return [payload]
+    segments = []
+    for seg_idx in range(num_segments):
+        seg_payload = []
+        for pb in payload:
+            q, r = divmod(int(pb.valid), num_segments)
+            start = q * seg_idx + min(seg_idx, r)
+            end = q * (seg_idx + 1) + min(seg_idx + 1, r)
+            seg_max = math.ceil(int(pb.data.shape[0]) / num_segments)
+            chunk = pb.data[start:start + seg_max]
+            pad = seg_max - int(chunk.shape[0])
+            if pad > 0:
+                chunk = torch.cat([chunk, chunk.new_zeros(
+                    (pad,) + tuple(chunk.shape[1:]))])
+            seg_payload.append(PaddedBatch(chunk, end - start))
+        segments.append(tuple(seg_payload))
+    return segments
 
 
 @dataclass
@@ -113,6 +156,12 @@ class RunnerContext:
     #: request id -> (video path, float32 numpy rows — or the non-tensor
     #: payload of a stage that emits no tensor —, cache stamps)
     outputs_sink: Optional[Dict[int, tuple]] = None
+    #: segments each published item is split into (config num_segments)
+    num_segments: int = 1
+    #: the job's rnb_tpu_torch.trace.Tracer on traced runs: stages with
+    #: ``enable_trace`` get it before the start barrier, and the final
+    #: step's summary writes the ``# phases`` trailer
+    tracer: Any = None
 
 
 def validate_payload(declared, payload, where: str) -> None:
@@ -182,24 +231,41 @@ def _store_outputs(sink: Dict[int, tuple], payload, non_tensors,
 def _publish(ctx: RunnerContext, selector, payload, non_tensors,
              time_card) -> bool:
     """Hand one item to the next step, on the out queue the selector
-    names (one ring credit per payload). False when the job died
-    waiting."""
-    if payload and not ctx.credits.acquire(ctx.termination):
-        return False
+    names: as it is, or as ``num_segments`` segments, each with its own
+    forked card and its own ring credit. The segments are views of the
+    stage's output: each consumer keeps the tensor alive by its
+    reference and orders the caching allocator's reuse of it after its
+    own stream (``record_stream``), so no segment is copied. False
+    when the job died waiting."""
     out_queue = ctx.out_queues[selector.select(payload, non_tensors,
                                                time_card)]
-    try:
-        out_queue.put_nowait((payload, non_tensors, time_card,
-                              ctx.credits if payload else None))
-    except queue.Full:
-        ctx.termination.raise_flag(TerminationFlag.FRAME_QUEUE_FULL)
-        return False
+    k = ctx.num_segments
+    segments = (split_segments(payload, k) if payload and k > 1
+                else [payload] * k)
+    for seg_idx, seg_payload in enumerate(segments):
+        if seg_payload and not ctx.credits.acquire(ctx.termination):
+            return False
+        card = time_card.fork(seg_idx) if k > 1 else time_card
+        try:
+            out_queue.put_nowait((seg_payload, non_tensors, card,
+                                  ctx.credits if seg_payload else None))
+        except queue.Full:
+            ctx.termination.raise_flag(TerminationFlag.FRAME_QUEUE_FULL)
+            return False
     return True
+
+
+def _rid(time_card) -> Optional[int]:
+    """The request id a span correlates with (None for a fused list)."""
+    return None if isinstance(time_card, TimeCardList) else time_card.id
 
 
 def runner(ctx: RunnerContext) -> None:
     """Thread entry: build the stage, run the hot loop, drain."""
     summary = TimeCardSummary() if ctx.out_queues is None else None
+    if summary is not None and ctx.tracer is not None:
+        summary.track_phases = True
+        summary.phase_num_skips = NUM_SUMMARY_SKIPS
     model = None
     declared = None
     warmup_s = 0.0
@@ -217,6 +283,9 @@ def runner(ctx: RunnerContext) -> None:
                                              False):
             # arenas are allocated before the start barrier
             model.enable_pager(ctx.pager)
+        if ctx.tracer is not None and hasattr(model, "enable_trace"):
+            # refinement stamps and the stage's counter sources
+            model.enable_trace(ctx.tracer, ctx.step_idx)
     except Exception:
         traceback.print_exc()
         ctx.termination.raise_flag(TerminationFlag.INTERNAL_ERROR)
@@ -257,6 +326,17 @@ def runner(ctx: RunnerContext) -> None:
     key_start = "inference%d_start" % ctx.step_idx
     key_finish = "inference%d_finish" % ctx.step_idx
     key_runner = "runner%d_start" % ctx.step_idx
+    # span and section names built once (the host profiler's sections
+    # share the spans' names but for publish and bookkeeping, as in the
+    # reference): the disabled hooks then cost one None or bool test
+    tr_queue_get = trace.name("exec%d.queue_get", ctx.step_idx)
+    tr_hold_wait = trace.name("exec%d.hold_wait", ctx.step_idx)
+    tr_swallow = trace.name("exec%d.swallow", ctx.step_idx)
+    tr_model_call = trace.name("exec%d.model_call", ctx.step_idx)
+    tr_device_sync = trace.name("exec%d.device_sync", ctx.step_idx)
+    tr_publish = trace.name("exec%d.publish", ctx.step_idx)
+    sec_publish = "exec%d.route+enqueue" % ctx.step_idx
+    sec_bookkeeping = "exec%d.bookkeeping" % ctx.step_idx
     saw_marker = False
     try:
         while model is not None and not ctx.termination.terminated:
@@ -264,8 +344,10 @@ def runner(ctx: RunnerContext) -> None:
             if result is None and prefetch_depth > 0:
                 while not saw_marker and len(pending) < prefetch_depth + 1:
                     try:
-                        item = ctx.in_queue.get(block=not pending,
-                                                timeout=QUEUE_POLL_S)
+                        with hostprof.section(tr_queue_get), \
+                                trace.span(tr_queue_get):
+                            item = ctx.in_queue.get(block=not pending,
+                                                    timeout=QUEUE_POLL_S)
                     except queue.Empty:
                         break
                     if item is None:
@@ -274,12 +356,17 @@ def runner(ctx: RunnerContext) -> None:
                     _payload, non_tensors, time_card, _credits = item
                     time_card.add_device(ctx.device.label)
                     time_card.record(key_runner)
-                    pending.append((model.submit(non_tensors, time_card),
-                                    non_tensors, time_card))
+                    with hostprof.section(tr_model_call), \
+                            trace.span(tr_model_call, time_card.id):
+                        handle = model.submit(non_tensors, time_card)
+                    pending.append((handle, non_tensors, time_card))
                 if pending:
                     handle, non_tensors, time_card = pending.popleft()
                     time_card.record(key_start)
-                    result = model.complete(handle, non_tensors, time_card)
+                    with hostprof.section(tr_model_call), \
+                            trace.span(tr_model_call, time_card.id):
+                        result = model.complete(handle, non_tensors,
+                                                time_card)
                 elif not saw_marker:
                     continue
             if result is None and saw_marker:
@@ -287,8 +374,13 @@ def runner(ctx: RunnerContext) -> None:
                 if result is None or result[2] is None:
                     break
             elif result is None:
+                timeout, holding = poll_timeout(model)
                 try:
-                    item = ctx.in_queue.get(timeout=poll_timeout(model))
+                    with hostprof.section(tr_hold_wait if holding
+                                          else tr_queue_get), \
+                            trace.span(tr_hold_wait if holding
+                                       else tr_queue_get):
+                        item = ctx.in_queue.get(timeout=timeout)
                 except queue.Empty:
                     if idle_poll is None:
                         continue
@@ -306,27 +398,38 @@ def runner(ctx: RunnerContext) -> None:
                     time_card.add_device(ctx.device.label)
                     time_card.record(key_runner)
                     time_card.record(key_start)
-                    result = model(payload, non_tensors, time_card)
+                    with hostprof.section(tr_model_call), \
+                            trace.span(tr_model_call, _rid(time_card)):
+                        result = model(payload, non_tensors, time_card)
+                    if result[2] is None:
+                        trace.instant(tr_swallow, rid=_rid(time_card))
             tensors_out, non_tensors_out, time_card = result
             if time_card is None:
                 continue  # the stage swallowed the item
             validate_payload(declared, tensors_out, where)
             if tensors_out:
-                _sync(tensors_out)
+                with hostprof.section(tr_device_sync), \
+                        trace.span(tr_device_sync, _rid(time_card)):
+                    _sync(tensors_out)
             time_card.record(key_finish)
             if ctx.out_queues is not None:
-                if not _publish(ctx, selector, tensors_out,
-                                non_tensors_out, time_card):
+                with hostprof.section(sec_publish), \
+                        trace.span(tr_publish, _rid(time_card)):
+                    published = _publish(ctx, selector, tensors_out,
+                                         non_tensors_out, time_card)
+                if not published:
                     break
                 continue
             # final step: count completions, detect the target
-            if ctx.outputs_sink is not None:
-                _store_outputs(ctx.outputs_sink, tensors_out,
-                               non_tensors_out, time_card)
-            n = len(time_card) if isinstance(time_card, TimeCardList) else 1
-            old, new = ctx.counter.add(n)
-            for tc in cards_of(time_card):
-                summary.register(tc)
+            with hostprof.section(sec_bookkeeping):
+                if ctx.outputs_sink is not None:
+                    _store_outputs(ctx.outputs_sink, tensors_out,
+                                   non_tensors_out, time_card)
+                n = (len(time_card) if isinstance(time_card, TimeCardList)
+                     else 1)
+                old, new = ctx.counter.add(n)
+                for tc in cards_of(time_card):
+                    summary.register(tc)
             if new >= ctx.num_videos:
                 if old < ctx.num_videos:
                     ctx.termination.raise_flag(

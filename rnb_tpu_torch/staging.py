@@ -38,6 +38,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from rnb_tpu_torch import trace
+
 
 class StagingSlot:
     """One pre-allocated host buffer (pinned when its target is a
@@ -110,10 +112,16 @@ class StagingPool:
             if slot is not None:
                 return slot
             self.num_acquire_waits += 1
-            while slot is None:
-                self._available.wait(timeout=0.05)
-                slot = self._claim_locked()
+            with trace.span("staging.acquire_wait"):
+                while slot is None:
+                    self._available.wait(timeout=0.05)
+                    slot = self._claim_locked()
             return slot
+
+    def available(self) -> int:
+        """Slots no holder references (the tracer's occupancy counter)."""
+        with self._lock:
+            return sum(1 for slot in self._slots if slot.refs == 0)
 
     def add_ref(self, slot: StagingSlot) -> None:
         """One more holder of rows of ``slot``."""
@@ -254,7 +262,8 @@ class TransferWorker:
                     return
                 job = self._jobs.popleft()
             try:
-                job()
+                with trace.span("transfer.job"):
+                    job()
             except BaseException as exc:  # noqa: BLE001 — re-raised
                 with self._wake:
                     if self._error is None:

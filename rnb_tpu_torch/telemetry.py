@@ -20,13 +20,23 @@ from the loader to the consuming stage, which pops them:
 ``feature_plan`` (a feature hit's pinned gather plan) and
 ``feature_insert`` (the (content key, row0, rows) insert the runner
 performs after its forward returned).
+
+A step with ``num_segments`` k publishes each item as k segments, each
+with its own card forked from the item's (:meth:`TimeCard.fork`); the
+aggregating step merges the k cards back into one
+(:meth:`TimeCard.merge`): stamps recorded before the fork appear once,
+stamps after it once per segment with a ``-{sub_id}`` suffix.
+
+The module also declares the names the tracing layer emits
+(:data:`TRACE_EVENT_REGISTRY`) and the stamps only a traced run records
+(:data:`TRACE_STAMP_REGISTRY`).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from collections import OrderedDict
+from collections import OrderedDict, namedtuple
 from typing import IO, List, Optional, Sequence
 
 
@@ -60,6 +70,16 @@ def latency_percentiles(latencies_ms: Sequence[float],
     return {p: float(np.percentile(latencies_ms, p)) for p in percentiles}
 
 
+#: the per-request content stamps a fork carries to every segment and
+#: a merge keeps once: the loader's clip rows, video path and first
+#: row, the cache outcome, and the pad rows its emission shipped (set
+#: on the card by the batching stages). The transient carriers
+#: ``feature_plan`` / ``feature_insert`` hold live page pins and insert
+#: obligations a fork would double-own, so they are not among them.
+CONTENT_STAMPS = ("num_clips", "video", "row0", "cache_hit",
+                  "cache_coalesced", "feature_hit", "pad_rows")
+
+
 class TimeCard:
     """An ordered event -> timestamp record riding along with one
     request, plus the trail of devices it visited."""
@@ -67,7 +87,13 @@ class TimeCard:
     def __init__(self, id: int):
         self.timings: "OrderedDict[str, float]" = OrderedDict()
         self.id = id
-        #: one entry per pipeline step traversed (a tuple of labels)
+        #: the segment a fork belongs to, and how many stamps its parent
+        #: held at the fork (None on a card that is not a fork)
+        self.sub_id: Optional[int] = None
+        self.num_parent_timings: Optional[int] = None
+        #: one entry per pipeline step traversed: a tuple of labels
+        #: (a singleton until a merge joins segments that ran on
+        #: different devices)
         self.devices: List[tuple] = []
         #: clip rows the loader sampled for this request
         self.num_clips = 0
@@ -89,6 +115,76 @@ class TimeCard:
     def add_device(self, device_label: str) -> None:
         self.devices.append((device_label,))
 
+    def fork(self, sub_id: int) -> "TimeCard":
+        """Clone this card for one parallel segment: the same id, a copy
+        of the stamps, the content stamps and the device trail, and the
+        fork point, so :meth:`merge` knows which stamps are shared. A
+        fork cannot be forked again: merge first."""
+        if self.sub_id is not None:
+            raise RuntimeError(
+                "cannot fork TimeCard(id=%s) twice: it is already a fork "
+                "with sub_id=%s; merge first" % (self.id, self.sub_id))
+        child = TimeCard(self.id)
+        child.timings = OrderedDict(self.timings)
+        child.sub_id = sub_id
+        child.num_parent_timings = len(self.timings)
+        for attr in CONTENT_STAMPS:
+            if hasattr(self, attr):
+                setattr(child, attr, getattr(self, attr))
+        child.devices = list(self.devices)
+        return child
+
+    @staticmethod
+    def merge(time_cards: Sequence["TimeCard"]) -> "TimeCard":
+        """Join sibling forks into one card. They must carry the same
+        stamp keys and the same fork point, with distinct sub_ids.
+        Stamps before the fork are kept once; stamps after it once per
+        sibling with a ``-{sub_id}`` suffix, in sub_id order. Device
+        trails are zipped step by step: a step every sibling ran on one
+        device collapses to that device, else the tuple is kept."""
+        if not time_cards:
+            raise ValueError("merge() needs at least one TimeCard")
+        first = time_cards[0]
+        keys = list(first.timings.keys())
+        fork_point = first.num_parent_timings
+        seen_sub_ids = set()
+        for tc in time_cards:
+            if tc.sub_id is None:
+                raise RuntimeError(
+                    "cannot merge TimeCard(id=%s): not a fork (sub_id is "
+                    "None); only sibling forks can be merged" % tc.id)
+            if tc.sub_id in seen_sub_ids:
+                raise RuntimeError(
+                    "cannot merge TimeCards with duplicate sub_id=%s"
+                    % tc.sub_id)
+            seen_sub_ids.add(tc.sub_id)
+        for tc in time_cards[1:]:
+            if list(tc.timings.keys()) != keys:
+                raise RuntimeError(
+                    "cannot merge TimeCards with different timing keys: "
+                    "%s != %s" % (keys, list(tc.timings.keys())))
+            if tc.num_parent_timings != fork_point:
+                raise RuntimeError(
+                    "cannot merge TimeCards forked at different points: "
+                    "%s != %s" % (fork_point, tc.num_parent_timings))
+        ordered = sorted(time_cards, key=lambda tc: tc.sub_id)
+        merged = TimeCard(first.id)
+        for key_idx, key in enumerate(keys):
+            if fork_point is not None and key_idx < fork_point:
+                merged.timings[key] = ordered[0].timings[key]
+            else:
+                for tc in ordered:
+                    merged.timings["%s-%s" % (key, tc.sub_id)] = \
+                        tc.timings[key]
+        for step_devices in zip(*[tc.devices for tc in ordered]):
+            flat = tuple(d for tpl in step_devices for d in tpl)
+            merged.devices.append((flat[0],) if len(set(flat)) == 1
+                                  else flat)
+        for attr in CONTENT_STAMPS:
+            if hasattr(ordered[0], attr):
+                setattr(merged, attr, getattr(ordered[0], attr))
+        return merged
+
 
 class TimeCardList:
     """The cards of one fused dispatch: one event, one instant, stamped
@@ -105,6 +201,9 @@ class TimeCardList:
     def add_device(self, device_label: str) -> None:
         for tc in self.time_cards:
             tc.add_device(device_label)
+
+    def fork(self, sub_id: int) -> "TimeCard":
+        raise NotImplementedError("TimeCardLists cannot be forked")
 
     def __len__(self) -> int:
         return len(self.time_cards)
@@ -133,6 +232,10 @@ class TimeCardSummary:
         self.num_cache_hits = 0
         self.num_cache_coalesced = 0
         self.num_cache_tracked = 0
+        #: the ``# phases`` trailer, on traced runs only (the executor
+        #: opts the summary in), over records after the skip
+        self.track_phases = False
+        self.phase_num_skips = 0
 
     def register(self, time_card: TimeCard) -> None:
         if not self.summary:
@@ -213,22 +316,136 @@ class TimeCardSummary:
                 % (self.num_cache_hits, self.num_cache_coalesced,
                    self.num_cache_tracked))
 
+    def phase_samples(self, num_skips: int = 0):
+        """{phase: [per-request ms]} over records after ``num_skips``:
+        :func:`rnb_tpu_torch.trace.attribute_phases` of each row, whose
+        phases sum to the row's end-to-end latency."""
+        from rnb_tpu_torch.trace import attribute_phases
+        samples: "OrderedDict[str, List[float]]" = OrderedDict()
+        if len(self.keys) < 2:
+            return samples
+        columns = [self.summary[key][num_skips:] for key in self.keys]
+        for row in zip(*columns):
+            for phase, ms in attribute_phases(
+                    dict(zip(self.keys, row))).items():
+                samples.setdefault(phase, []).append(ms)
+        return samples
+
+    def phases_line(self) -> Optional[str]:
+        """The ``# phases`` trailer (microsecond means and p99s), or None
+        off traced runs or without records."""
+        if not self.track_phases:
+            return None
+        from rnb_tpu_torch.trace import phase_stats, sorted_phases
+        stats = phase_stats(self.phase_samples(self.phase_num_skips))
+        if not stats:
+            return None
+        parts = ["# phases n=%d" % max(s["count"] for s in stats.values())]
+        for phase in sorted_phases(stats):
+            parts.append("%s_mean_us=%d"
+                         % (phase, round(stats[phase]["mean_ms"] * 1000)))
+            parts.append("%s_p99_us=%d"
+                         % (phase, round(stats[phase]["p99_ms"] * 1000)))
+        return " ".join(parts)
+
     def save_full_report(self, fp: IO[str]) -> None:
+        # a merge keeps a step's devices as a tuple where the segments
+        # ran on different ones: each step gets the widest record's
+        # columns, narrower rows padded with '-', so the table stays
+        # rectangular
         num_steps = max((len(d) for d in self.devices_per_inference),
                         default=0)
+        widths = [0] * num_steps
+        for devices_per_step in self.devices_per_inference:
+            for step_idx, step_devices in enumerate(devices_per_step):
+                widths[step_idx] = max(widths[step_idx], len(step_devices))
         fp.write(" ".join(self.keys))
-        for step_idx in range(num_steps):
-            fp.write(" device%d" % step_idx)
+        for step_idx, width in enumerate(widths):
+            if width > 1:
+                for sub_id in range(width):
+                    fp.write(" device%d-%d" % (step_idx, sub_id))
+            else:
+                fp.write(" device%d" % step_idx)
         fp.write("\n")
         for row, devices_per_step in zip(zip(*self.summary.values()),
                                          self.devices_per_inference):
             fp.write(" ".join(map(str, row)))
-            for step_idx in range(num_steps):
+            for step_idx, width in enumerate(widths):
                 step_devices = (devices_per_step[step_idx]
-                                if step_idx < len(devices_per_step)
-                                else ("-",))
-                fp.write(" %s" % step_devices[0])
+                                if step_idx < len(devices_per_step) else ())
+                for col in range(width):
+                    fp.write(" %s" % (step_devices[col]
+                                      if col < len(step_devices) else "-"))
             fp.write("\n")
-        for trailer in (self.cache_line(), self.padding_line()):
+        for trailer in (self.cache_line(), self.padding_line(),
+                        self.phases_line()):
             if trailer is not None:
                 fp.write(trailer + "\n")
+
+
+#: one declared telemetry name: ``pattern`` uses ``{step}`` for the
+#: pipeline-step or queue index
+StampSpec = namedtuple("StampSpec", ("pattern", "producer", "description"))
+
+#: the stamps a traced run adds to the loaders' cards (root ``trace``
+#: key): they split a loader's ``inference{step}`` span into decode,
+#: hold, transfer and drain for the phase attribution
+TRACE_STAMP_REGISTRY = (
+    StampSpec("decode{step}_done", "rnb_tpu_torch/models/r2p1d/model.py",
+              "this request's clip decode completed (a hit records a "
+              "zero-length decode phase)"),
+    StampSpec("transfer{step}_start", "rnb_tpu_torch/models/r2p1d/model.py",
+              "the emission holding this request closed and its "
+              "host->device transfer began"),
+    StampSpec("transfer{step}_done", "rnb_tpu_torch/models/r2p1d/model.py",
+              "host->device transfer confirmed; the gap to "
+              "inference{step}_finish is the device step and publish"),
+)
+
+#: every span, instant and counter name the port's tracing layer
+#: (rnb_tpu_torch.trace) may write into ``logs/<job>/trace.json``
+TRACE_EVENT_REGISTRY = (
+    StampSpec("client.enqueue", "rnb_tpu_torch/client.py",
+              "instant: the client created and enqueued one request"),
+    StampSpec("client.enqueued", "rnb_tpu_torch/client.py",
+              "counter: requests the client has emitted"),
+    StampSpec("exec{step}.queue_get", "rnb_tpu_torch/runner.py",
+              "span: executor blocked on its input queue"),
+    StampSpec("exec{step}.hold_wait", "rnb_tpu_torch/runner.py",
+              "span: executor idle while its stage holds work (a batch "
+              "filling)"),
+    StampSpec("exec{step}.swallow", "rnb_tpu_torch/runner.py",
+              "instant: one request admitted into the stage"),
+    StampSpec("exec{step}.model_call", "rnb_tpu_torch/runner.py",
+              "span: the stage call for one dispatch"),
+    StampSpec("exec{step}.device_sync", "rnb_tpu_torch/runner.py",
+              "span: waiting for the stage's device work"),
+    StampSpec("exec{step}.publish", "rnb_tpu_torch/runner.py",
+              "span: route, segment split and downstream enqueue"),
+    StampSpec("loader.decode_submit", "rnb_tpu_torch/models/r2p1d/model.py",
+              "instant: one request's decode submitted"),
+    StampSpec("loader.decode_ready", "rnb_tpu_torch/models/r2p1d/model.py",
+              "instant: one request's decode observed complete"),
+    StampSpec("loader.emit", "rnb_tpu_torch/models/r2p1d/model.py",
+              "span: fused-batch take, assembly and handoff"),
+    StampSpec("loader.transfer", "rnb_tpu_torch/models/r2p1d/model.py",
+              "span: host->device copy and its confirmation"),
+    StampSpec("loader.s{step}.inflight",
+              "rnb_tpu_torch/models/r2p1d/model.py",
+              "counter (sampled): decodes in flight plus decoded but "
+              "unemitted requests in the fusing loader"),
+    StampSpec("staging.s{step}.free", "rnb_tpu_torch/models/r2p1d/model.py",
+              "counter (sampled): free staging slots of a loader"),
+    StampSpec("staging.acquire_wait", "rnb_tpu_torch/staging.py",
+              "span: blocked acquiring a staging slot"),
+    StampSpec("transfer.job", "rnb_tpu_torch/staging.py",
+              "span: one job on the transfer worker thread"),
+    StampSpec("batcher.emit", "rnb_tpu_torch/batcher.py",
+              "instant: the Batcher fused and emitted one batch (args: "
+              "requests, rows)"),
+    StampSpec("queue.filename.depth", "rnb_tpu_torch/benchmark.py",
+              "counter (sampled): client filename queue depth"),
+    StampSpec("queue.e{step}.depth", "rnb_tpu_torch/benchmark.py",
+              "counter (sampled): inter-stage queue depth, by edge "
+              "ordinal"),
+)

@@ -8,8 +8,14 @@
 # whole-ragged (a copy of it with the root "ragged" key, written beside
 # the dataset), whole-yuv (configs/r2p1d-whole-yuv.json), split
 # (configs/r2p1d-split-1chip.json), rnb (configs/rnb-1chip.json) and
-# nopipeline (configs/r2p1d-nopipeline-1chip.json); all but dct over a
-# generated y4m dataset. RNB_MEASURE_VIDEOS sets the bulk request count
+# nopipeline (configs/r2p1d-nopipeline-1chip.json); segment (the one-card
+# copy of configs/r2p1d-segment.json, every device index >= 0 made 0,
+# written beside the dataset), traced (configs/rnb-fused-yuv-traced.json)
+# and staged (configs/rnb-fused-yuv-staged.json, the traced cell without
+# its trace key); all but dct over a generated y4m dataset. With
+# RNB_HOST_PROFILE=1 in the environment every run also writes
+# hostprof.txt, and its sections are printed at the end.
+# RNB_MEASURE_VIDEOS sets the bulk request count
 # (2000; the Poisson runs take half). Each
 # phase runs every chosen cell before the next phase starts: bulk, bulk
 # with --profile, Poisson at a 20 ms mean interval, and bulk again; then
@@ -35,6 +41,14 @@ raw = json.load(open("configs/r2p1d-whole.json"))
 raw["ragged"] = {"enabled": True}
 json.dump(raw, open(sys.argv[1], "w"))
 PY
+python3 - "$data/r2p1d-segment-1card.json" <<'PY'
+import json, sys
+raw = json.load(open("configs/r2p1d-segment.json"))
+for step in raw["pipeline"]:
+    for group in step["queue_groups"]:
+        group["devices"] = [0 if d >= 0 else d for d in group["devices"]]
+json.dump(raw, open(sys.argv[1], "w"))
+PY
 run() {  # run <cell> <args...>
   cell=$1; shift
   case $cell in
@@ -49,6 +63,9 @@ run() {  # run <cell> <args...>
     split) cfg=configs/r2p1d-split-1chip.json ;;
     rnb) cfg=configs/rnb-1chip.json ;;
     nopipeline) cfg=configs/r2p1d-nopipeline-1chip.json ;;
+    segment) cfg=$data/r2p1d-segment-1card.json ;;
+    traced) cfg=configs/rnb-fused-yuv-traced.json ;;
+    staged) cfg=configs/rnb-fused-yuv-staged.json ;;
     *) echo "unknown cell $cell" >&2; exit 2 ;;
   esac
   if [ "$cell" = dct ]; then
@@ -66,7 +83,10 @@ cat $out/summary.jsonl | python3 -c "
 import sys, json
 for line in sys.stdin:
     d = json.loads(line); fam = d.get('kernel_families') or {}
-    print(d['log_dir'].split('/')[-2], d['config'].split('/')[-1], d['mean_interval_ms'], d['pixel_path'], d['decode_backend'], 'vps=%.3f' % d['videos_per_s'], 'cps=%.1f' % d['clips_per_s'], 'em=%d' % d['emissions'], 'svc=%.2f' % d['runner_service_ms'], 'wait=%s' % d['runner_wait_ms'], 'kms/em=%s' % d.get('kernel_ms_per_emission'), 'busy=%s' % d.get('busy_share'), 'ingest=%s' % fam.get('ingest'), 'gather=%s' % fam.get('gather'), 'hit_rate=%s' % d.get('cache_hit_rate'), 'feature_hits=%s' % d.get('pages_feature_hits'), 'gathers=%s' % d.get('pages_gathers'), 'footing=%s' % d['footing_problems'])
+    print(d['log_dir'].split('/')[-2], d['config'].split('/')[-1], d['mean_interval_ms'], d['pixel_path'], d['decode_backend'], 'vps=%.3f' % d['videos_per_s'], 'cps=%.1f' % d['clips_per_s'], 'em=%d' % d['emissions'], 'svc=%.2f' % d['runner_service_ms'], 'wait=%s' % d['runner_wait_ms'], 'svc_by_step=%s' % json.dumps(d.get('service_ms_by_step')), 'em_by_step=%s' % json.dumps(d.get('emissions_by_step')), 'trace_events=%s' % d.get('trace_events'), 'kms/em=%s' % d.get('kernel_ms_per_emission'), 'busy=%s' % d.get('busy_share'), 'ingest=%s' % fam.get('ingest'), 'gather=%s' % fam.get('gather'), 'hit_rate=%s' % d.get('cache_hit_rate'), 'feature_hits=%s' % d.get('pages_feature_hits'), 'gathers=%s' % d.get('pages_gathers'), 'footing=%s' % d['footing_problems'])
 "
-grep -h "Staging\|Profile\|Pages\|Cache" $out/*/log-meta.txt
+for f in $out/*/hostprof.txt; do
+  [ -f "$f" ] && { echo "== $f"; head -n 40 "$f"; }
+done
+grep -H "Staging\|Profile\|Pages\|Cache\|Graphs\|Warmup\|Trace" $out/*/log-meta.txt
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader

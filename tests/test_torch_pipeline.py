@@ -355,8 +355,6 @@ def test_rgb_is_a_pixel_path_of_every_stage():
 
 
 @pytest.mark.parametrize("where,key,value", [
-    ("root", "num_segments", 3),
-    ("loader", "num_segments", 3),
     ("loader", "raw_output", True),
     ("loader", "staging_slots", 4),
     ("loader", "transfer_async", True),
@@ -373,6 +371,33 @@ def test_keys_of_unported_parts_stay_refused(where, key, value):
     target[key] = value
     with pytest.raises(ConfigError, match="not yet ported"):
         parse_config(raw, platform="cpu")
+
+
+@pytest.mark.parametrize("where,value", [
+    ("root", 3),       # unknown to both readers
+    ("loader", 3),     # the loader's 'row_buckets' refuses segments
+    ("runner", 3),     # the last step may have none
+    ("loader", 2.5),   # not a positive integer
+])
+def test_num_segments_refused_with_the_reference_message(where, value):
+    from rnb_tpu import config as jax_config
+    raw = _whole_raw()
+    target = {"root": raw, "loader": raw["pipeline"][0],
+              "runner": raw["pipeline"][1]}[where]
+    target["num_segments"] = value
+    with pytest.raises(jax_config.ConfigError) as jax_error:
+        jax_config.parse_config(json.loads(json.dumps(raw)))
+    with pytest.raises(ConfigError) as port_error:
+        parse_config(raw, platform="cpu")
+    if where == "root":
+        # a step key on the root: both readers refuse it as a key they
+        # do not read there
+        assert "unknown root key(s) ['num_segments']" in str(
+            jax_error.value)
+        assert str(port_error.value) == ("root key 'num_segments' is not "
+                                         "yet ported to rnb_tpu_torch")
+    else:
+        assert str(port_error.value) == str(jax_error.value)
 
 
 @pytest.mark.parametrize("key,value", [("enable_autotune", True),

@@ -523,8 +523,6 @@ def _base_raw():
     ("loader", "pixel_path", "nv12"),
     ("runner", "pixel_path", "nv12"),
     ("runner", "shard", {"degree": 2}),
-    ("root", "num_segments", 2),
-    ("loader", "num_segments", 2),
     ("loader", "raw_output", True),
     ("loader", "enable_autotune", True),
     ("runner", "replicas", 2),
@@ -542,6 +540,39 @@ def test_unported_keys_are_refused(where, key, value):
     target[key] = value
     with pytest.raises(ConfigError, match="not yet ported"):
         parse_config(raw, platform="cpu")
+
+
+@pytest.mark.parametrize("base,where,value", [
+    # the ragged base: the root key is unknown to both readers, and the
+    # root 'ragged' key refuses segments before any step is read
+    (1, "root", 2),
+    (1, "loader", 2),
+    # the bucketed base: 'row_buckets' refuses segments, the last step
+    # may have none, and the count must be a positive integer
+    (0, "loader", 2),
+    (0, "runner", 2),
+    (0, "loader", 0),
+])
+def test_num_segments_refused_with_the_reference_message(base, where, value):
+    from rnb_tpu import config as jax_config
+    with open(os.path.join(REPO, CONFIGS[base])) as f:
+        raw = json.load(f)
+    target = {"root": raw, "loader": raw["pipeline"][0],
+              "runner": raw["pipeline"][1]}[where]
+    target["num_segments"] = value
+    with pytest.raises(jax_config.ConfigError) as jax_error:
+        jax_config.parse_config(json.loads(json.dumps(raw)))
+    with pytest.raises(ConfigError) as port_error:
+        parse_config(raw, platform="cpu")
+    if where == "root":
+        # a step key on the root: both readers refuse it as a key they
+        # do not read there
+        assert "unknown root key(s) ['num_segments']" in str(
+            jax_error.value)
+        assert str(port_error.value) == ("root key 'num_segments' is not "
+                                         "yet ported to rnb_tpu_torch")
+    else:
+        assert str(port_error.value) == str(jax_error.value)
 
 
 def test_device_mapping_and_platform_guard(monkeypatch):
