@@ -101,6 +101,27 @@ Phases (any failure exits non-zero and prints no result line):
    ``trace.json`` passes ``validate_trace``, its ``Trace:`` line matches
    the file, every request's phases sum to its end-to-end latency, and
    ``yuv420_normalize`` runs once per emission.
+   Last, the planes of the live metrics, the batch controller and
+   critical-path extraction: ``configs/rnb-fused-yuv-metrics.json`` as
+   shipped at a Poisson mean interval of 20 ms with ``RNB_FLIGHT_FORCE``
+   set for this run only — two or more ``Metrics:`` snapshots and a
+   flight dump, every counter monotone and each histogram's buckets
+   summing to its count, the final snapshot's ``client.requests`` equal
+   to the requests the client created and its ``staging.*`` counters to
+   the ``Staging:`` line, ``Slo:`` tracking every completion, all within
+   (no budget is configured) and burning nothing, ``metrics.prom``
+   written and every ``flight-<n>.json`` valid per ``validate_trace``;
+   ``configs/rnb-fused-yuv-autotune.json`` as shipped, in bulk and at a
+   Poisson mean interval of 25 ms — decisions made, the controller's
+   emissions equal to the loader's, only the warmed buckets 6 and 15
+   chosen (the immediate/held split and the bucket counts printed, not
+   asserted); and a copy of the traced config with the root
+   ``critpath`` key (12 requests in bulk) — every request's blocking
+   chain summing to its end-to-end latency within 1 us, ``Critpath:``
+   requests equal to the completions less the summary's skips, its bound
+   step a step of the pipeline and the ``# critpath`` trailer written.
+   Each of them launches ``yuv420_normalize`` once per emission and has
+   one request's logits held to the CPU recompute.
    Every run: each ``R2P1DRunner`` forward in the window is one replay
    of a captured CUDA graph (``Graphs:`` replays == ``Compiles:``
    steady calls, or requests for the single step), no signature is new
@@ -136,6 +157,19 @@ TORCHCKPT = "configs/rnb-fused-yuv-big-torchckpt.json"
 MID = "configs/rnb-fused-yuv-mid.json"
 SEGMENT = "configs/r2p1d-segment.json"
 TRACED = "configs/rnb-fused-yuv-traced.json"
+METRICS = "configs/rnb-fused-yuv-metrics.json"
+AUTOTUNE = "configs/rnb-fused-yuv-autotune.json"
+#: the autotune config again, under Poisson arrivals
+AUTOTUNE_POISSON = "rnb-fused-yuv-autotune-poisson"
+#: the traced config with the root ``critpath`` key, written next to the
+#: dataset
+CRITPATH = "rnb-fused-yuv-traced-critpath"
+#: the runs of the metrics, autotune and critpath planes, served last
+PLANES = (METRICS, AUTOTUNE, AUTOTUNE_POISSON, CRITPATH)
+#: mean Poisson gap of the open-loop runs that are not Zipf cells
+PLANE_INTERVAL_MS = {METRICS: 20, AUTOTUNE_POISSON: 25}
+#: the buckets the autotune config warms: the only ones it may choose
+AUTOTUNE_BUCKETS = {"6", "15"}
 CONFIGS = ("configs/rnb-fused-yuv-big.json",
            "configs/rnb-fused-yuv-ragged.json",
            "configs/rnb-fused-dct-ragged.json", PAGED, BLOB,
@@ -162,7 +196,8 @@ ONE_PER_EMISSION = {"configs/rnb-fused-yuv-big.json": "yuv420_normalize",
                     WHOLE_YUV: "yuv420_normalize",
                     TORCHCKPT: "yuv420_normalize",
                     MID: "yuv420_normalize",
-                    TRACED: "yuv420_normalize"}
+                    TRACED: "yuv420_normalize",
+                    **{label: "yuv420_normalize" for label in PLANES}}
 #: the kernels each run launches, and no others
 PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 CONFIGS[2]: {"dct_ingest"},
@@ -174,7 +209,8 @@ PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 WHOLE_YUV: YUV_KERNELS, SPLIT: {"normalize_u8"},
                 RNB: {"normalize_u8"}, NOPIPELINE: {"normalize_u8"},
                 TORCHCKPT: YUV_KERNELS, MID: YUV_KERNELS,
-                SEGMENT_COPY: {"normalize_u8"}, TRACED: YUV_KERNELS}
+                SEGMENT_COPY: {"normalize_u8"}, TRACED: YUV_KERNELS,
+                **{label: YUV_KERNELS for label in PLANES}}
 #: the runs of the unfused multi-step pipeline, in serving order
 UNFUSED = (WHOLE, WHOLE_RAGGED, WHOLE_YUV, SPLIT, RNB, NOPIPELINE)
 #: the runs whose logits check_unfused_run holds to the two-step run's
@@ -197,7 +233,7 @@ DCT_GEOMETRY = (64, 176)
 VIDEOS_PER_RUN = 32
 #: requests of the configs added last (the segment copy serves the
 #: whole run's requests, which it is held to)
-FEW_VIDEOS = {TORCHCKPT: 12, MID: 12, TRACED: 12}
+FEW_VIDEOS = {TORCHCKPT: 12, MID: 12, TRACED: 12, CRITPATH: 12}
 #: a captured graph against its eager forward where the two are not
 #: bitwise (a capture that changed the library's kernel choice): the
 #: float32 network's bound of tests/test_torch_network.py, relative to
@@ -1353,6 +1389,126 @@ def check_traced_run(result):
                          for k, v in report["phases"].items()})))
 
 
+def critpath_copy(data_root) -> str:
+    """The traced cell with the root ``critpath`` key: a temporary copy
+    beside the dataset."""
+    with open(os.path.join(HERE, TRACED)) as f:
+        raw = json.load(f)
+    raw["critpath"] = {"enabled": True}
+    path = os.path.join(data_root, CRITPATH + ".json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def check_metrics_run(result):
+    """The metrics run: its logs pass the port's footings of the plane
+    (snapshots, counters monotone, histogram sums, the final snapshot
+    against ``Staging:`` and ``Slo:``, ``metrics.prom``, every flight
+    dump valid and named), and the counts this run must show."""
+    from rnb_tpu_torch.parse_utils import (load_metrics, metrics_problems,
+                                           read_meta)
+    label = METRICS
+    meta = read_meta(os.path.join(result.log_dir, "log-meta.txt"))
+    problems = metrics_problems(result.log_dir, meta)
+    check(not problems, "%s: %s" % (label, "; ".join(problems[:5])))
+    snapshots = load_metrics(result.log_dir)
+    check(result.metrics_snapshots >= 2 and result.metrics_dumps >= 1,
+          "%s: %d snapshots, %d dumps" % (label, result.metrics_snapshots,
+                                          result.metrics_dumps))
+    final = snapshots[-1]["counters"]
+    check(final.get("client.requests") == result.num_requests,
+          "%s: final client.requests %s, the client created %d"
+          % (label, final.get("client.requests"), result.num_requests))
+    check(result.slo_tracked == result.num_completed
+          and result.slo_within == result.slo_tracked
+          and result.slo_missed == 0 and result.slo_burn_max_milli == 0,
+          "%s: Slo tracked=%d within=%d missed=%d burn_max_milli=%d for %d "
+          "completions" % (label, result.slo_tracked, result.slo_within,
+                           result.slo_missed, result.slo_burn_max_milli,
+                           result.num_completed))
+    hists = snapshots[-1]["histograms"]
+    print("path %s: Metrics: snapshots=%d series=%d dumps=%d triggers=%d; "
+          "Slo: tracked=%d within=%d; client.requests=%d; files %s; "
+          "exec1.model_call n=%d mean %.3f ms; exec1.device_sync n=%d"
+          % (label, result.metrics_snapshots, result.metrics_series,
+             result.metrics_dumps, result.metrics_triggers,
+             result.slo_tracked, result.slo_within,
+             final["client.requests"], sorted(os.listdir(result.log_dir)),
+             hists["exec1.model_call"]["count"],
+             hists["exec1.model_call"]["sum_ms"]
+             / max(1, hists["exec1.model_call"]["count"]),
+             hists.get("exec1.device_sync", {}).get("count", 0)))
+
+
+def check_autotune_run(label, result):
+    """An autotune run: the controller decided, its emissions are the
+    loader's, it chose only warmed buckets, and its line's invariants
+    hold. The immediate/held split is printed, not asserted."""
+    from rnb_tpu_torch.parse_utils import autotune_problems, read_meta
+    meta = read_meta(os.path.join(result.log_dir, "log-meta.txt"))
+    problems = autotune_problems(meta)
+    check(not problems, "%s: %s" % (label, "; ".join(problems)))
+    staging = meta["staging"][0]
+    loader = staging["staged_batches"] + staging["copied_batches"]
+    check(result.autotune_decisions > 0
+          and result.autotune_emissions == loader,
+          "%s: %d decisions, %d controller emissions, %d loader emissions"
+          % (label, result.autotune_decisions, result.autotune_emissions,
+             loader))
+    check(set(result.autotune_bucket_counts) <= AUTOTUNE_BUCKETS,
+          "%s: buckets %s chosen, only %s are warmed"
+          % (label, result.autotune_bucket_counts, AUTOTUNE_BUCKETS))
+    print("path %s: Autotune: decisions=%d immediate=%d held=%d "
+          "emissions=%d buckets %s; p50 %s ms, p99 %s ms"
+          % (label, result.autotune_decisions, result.autotune_immediate,
+             result.autotune_held, result.autotune_emissions,
+             json.dumps(result.autotune_bucket_counts, sort_keys=True),
+             result.p50_latency_ms, result.p99_latency_ms))
+
+
+def check_critpath_run(result):
+    """The critpath run: every request's blocking chain sums to its
+    end-to-end latency within 1 us, ``Critpath:`` covers the completions
+    past the summary's skips and names a step of the pipeline, and the
+    line and the ``# critpath`` trailer re-derive from the table."""
+    from rnb_tpu_torch import critpath
+    from rnb_tpu_torch.parse_utils import (critpath_problems, read_meta,
+                                           read_table, read_trailers)
+    from rnb_tpu_torch.runner import NUM_SUMMARY_SKIPS
+    label = CRITPATH
+    meta = read_meta(os.path.join(result.log_dir, "log-meta.txt"))
+    problems = critpath_problems(result.log_dir, meta)
+    check(not problems, "%s: %s" % (label, "; ".join(problems)))
+    worst, trailer = 0.0, None
+    for name in os.listdir(result.log_dir):
+        if not name.endswith("-0.txt"):
+            continue
+        path = os.path.join(result.log_dir, name)
+        keys, rows = read_table(path)
+        for row in rows:
+            chain = critpath.blocking_chain(dict(zip(keys, row)))
+            worst = max(worst, abs(sum(ms for _c, _s, ms in chain)
+                                   - 1e3 * (max(row) - min(row))))
+        trailer = read_trailers(path).get("critpath")
+    check(worst <= 1e-3, "%s: a blocking chain misses its request's "
+          "latency by %g ms" % (label, worst))
+    check(trailer is not None, "%s: no '# critpath' trailer" % label)
+    check(result.critpath_requests
+          == result.num_completed - NUM_SUMMARY_SKIPS,
+          "%s: Critpath requests=%d for %d completions" % (
+              label, result.critpath_requests, result.num_completed))
+    check(result.critpath_bound_step in (0, 1),
+          "%s: bound_step %d" % (label, result.critpath_bound_step))
+    print("path %s: Critpath: requests=%d segments=%d bound_step=%d "
+          "bound_vps_milli=%d; chains sum to latency within %.3g ms; "
+          "stages %s; trailer %s"
+          % (label, result.critpath_requests, result.critpath_segments,
+             result.critpath_bound_step, result.critpath_bound_vps_milli,
+             worst, json.dumps(result.critpath_stage_detail,
+                               sort_keys=True), json.dumps(trailer)))
+
+
 def check_unfused_run(label, result, sink, whole_sink):
     """The unfused runs' own checks against the two-step run of the same
     requests (``whole_sink``): one ragged-normalize launch per emission,
@@ -1545,6 +1701,10 @@ def phase_path(data_root, videos_per_run):
     runs[after_whole:after_whole] = [
         (SEGMENT_COPY, segment_copy(data_root)),
         (TRACED, os.path.join(HERE, TRACED))]
+    runs += [(METRICS, os.path.join(HERE, METRICS)),
+             (AUTOTUNE, os.path.join(HERE, AUTOTUNE)),
+             (AUTOTUNE_POISSON, os.path.join(HERE, AUTOTUNE)),
+             (CRITPATH, critpath_copy(data_root))]
     whole_sink = None
     for label, config_path in runs:
         pixel_path = load_config(config_path, "cpu").steps[0].kwargs.get(
@@ -1554,20 +1714,28 @@ def phase_path(data_root, videos_per_run):
         else:
             os.environ["RNB_TPU_DATA_ROOT"] = data_root
         zipf = label in (PAGED, FEATURES_OFF, BLOB)
+        interval = ZIPF_INTERVAL_MS if zipf else PLANE_INTERVAL_MS.get(
+            label, 0)
         videos = FEW_VIDEOS.get(label, videos_per_run)
         sink, stages = {}, []
+        # one forced flight dump, for the metrics run only
+        if label == METRICS:
+            os.environ["RNB_FLIGHT_FORCE"] = "1"
         _kernels.reset_launches()
         t0 = time.time()
-        result = run_benchmark(
-            config_path, mean_interval_ms=ZIPF_INTERVAL_MS if zipf else 0,
-            num_videos=videos, print_progress=False,
-            log_base=os.path.join(data_root, "logs"), seed=0,
-            outputs_sink=sink, stages_sink=stages)
+        try:
+            result = run_benchmark(
+                config_path, mean_interval_ms=interval,
+                num_videos=videos, print_progress=False,
+                log_base=os.path.join(data_root, "logs"), seed=0,
+                outputs_sink=sink, stages_sink=stages)
+        finally:
+            os.environ.pop("RNB_FLIGHT_FORCE", None)
         counts = _kernels.launch_counts()
         wall = time.time() - t0
         check(result.termination_flag == 0, "%s terminated with flag %d"
               % (label, result.termination_flag))
-        if zipf:
+        if interval > 0:
             # an open-loop client: the run stops once the target is met,
             # and a fused emission may complete a few more requests
             check(result.num_completed >= videos
@@ -1627,6 +1795,12 @@ def phase_path(data_root, videos_per_run):
             check_unfused_run(label, result, sink, whole_sink)
         if label == TRACED:
             check_traced_run(result)
+        if label == METRICS:
+            check_metrics_run(result)
+        if label in (AUTOTUNE, AUTOTUNE_POISSON):
+            check_autotune_run(label, result)
+        if label == CRITPATH:
+            check_critpath_run(result)
         if label == SEGMENT_COPY:
             check_segment_run(result, sink, whole_sink, sums)
             picks = sorted(sink, key=lambda r: (len(whole_sink[r][1]), r))
@@ -1654,6 +1828,8 @@ def phase_path(data_root, videos_per_run):
         picks = by_clips[:2] + by_clips[-1:]
         if label in UNFUSED or label in FEW_VIDEOS:
             picks = by_clips[:1] + by_clips[-1:]
+        if label in PLANES:
+            picks = by_clips[:1]
         if label in TWO_STEP_HELD:
             # every request's logits are held to the two-step run's,
             # whose largest request the CPU recomputes
@@ -1685,7 +1861,7 @@ def main() -> int:
         return 1
     if not os.path.isdir(os.path.join(HERE, "rnb_tpu_torch")) or not all(
             os.path.exists(os.path.join(HERE, c))
-            for c in CONFIGS + (SEGMENT, TRACED)):
+            for c in CONFIGS + (SEGMENT, TRACED, METRICS, AUTOTUNE)):
         print("chip_smoke: run from a checkout of the repo (rnb_tpu_torch/ "
               "and configs/ beside this script)", file=sys.stderr)
         return 1

@@ -15,15 +15,23 @@ constituent request's card. Parts on the card are fused there
 (``torch.cat``), on whatever device they lie; the stage itself may sit
 on the host (``devices: [-1]``).
 
-Not yet ported: the load-adaptive controller (``enable_autotune``) and
-deadline shedding (``take_shed``).
+Under the root ``autotune`` key the load-adaptive controller
+(:mod:`rnb_tpu_torch.autotune`) drives the accumulate/emit decision and
+the pad bucket: ``batch`` becomes a ceiling, and a held batch emits once
+growing it can no longer meet the latency budget, or at the controller's
+hold deadline (``next_deadline_s`` / ``poll``).
+
+Not yet ported: deadline shedding (``take_shed``).
 """
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from rnb_tpu_torch import hostprof, trace
+from rnb_tpu_torch.autotune import BatchController
 from rnb_tpu_torch.ops.ragged import resolve_pool_rows, segment_offsets_of
 from rnb_tpu_torch.stage import (PadCounter, PaddedBatch, RaggedBatch,
                                  StageModel, normalize_row_buckets,
@@ -46,6 +54,9 @@ class Batcher(StageModel):
     """
 
     SUPPORTS_RAGGED = True
+    #: the accumulate/emit decision and the pad bucket can be driven by
+    #: the load-adaptive controller
+    SUPPORTS_AUTOTUNE = True
 
     def __init__(self, device, batch=1, shapes=None, max_rows=MAX_ROWS,
                  consecutive_frames=8, frame_hw=112, row_buckets=None,
@@ -73,6 +84,27 @@ class Batcher(StageModel):
                              if self.ragged else None)
         self._tensors = []      # one tuple of PaddedBatch per request
         self._time_cards = []
+        #: the controller (``enable_autotune``); None keeps the static
+        #: accumulate-to-``batch`` rule
+        self.autotune = None
+        #: monotonic instant the oldest pending request joined (None
+        #: when nothing is pending): the hold deadline's anchor
+        self._t_oldest = None
+
+    def enable_autotune(self, settings) -> BatchController:
+        """Executor protocol: a BatchController over this stage's own
+        bucket set (the shapes the downstream stage warmed). Under ragged
+        dispatch every row count is one dispatch of the pool shape, so
+        the candidates are 1..pool_rows."""
+        if self.ragged:
+            self.autotune = BatchController.for_stage(
+                settings, tuple(range(1, self.pool_rows + 1)),
+                self.pool_rows)
+        else:
+            self.autotune = BatchController.for_stage(
+                settings, self.row_buckets or (self._declared_max[0],),
+                self._declared_max[0])
+        return self.autotune
 
     @classmethod
     def output_shape_for(cls, shapes=None, max_rows: int = MAX_ROWS,
@@ -104,13 +136,63 @@ class Batcher(StageModel):
             early = self._emit_fused()
         self._tensors.append(tensors)
         self._time_cards.append(time_card)
+        if self._t_oldest is None:
+            self._t_oldest = time.monotonic()
+        if self.autotune is not None:
+            # rows per client request: an upstream fused emission
+            # delivers many requests' rows in one call, and the executor
+            # feeds the inter-arrival EWMA per constituent card
+            self.autotune.observe_rows(tensors[0].valid
+                                       / len(cards_of(time_card)))
         if early is not None:
             return early
         if len(self._time_cards) >= self.batch:
+            # the static count stays a ceiling under autotune
             return self._emit_fused()
+        if self.autotune is not None:
+            rows, waited, dec = self._decide()
+            if rows >= dec.target_rows or waited >= dec.hold_s:
+                return self._emit_fused()
         return None, None, None
 
+    def _decide(self, peek: bool = False):
+        """``(rows_ready, oldest_wait_s, Decision)`` for the pending
+        requests: the one place the controller's inputs are derived, so
+        the emit check and the polled deadline never diverge. ``peek``
+        leaves the decision accounting alone (deadline queries run every
+        executor poll)."""
+        rows = sum(parts[0].valid for parts in self._tensors)
+        waited = time.monotonic() - self._t_oldest
+        ask = self.autotune.peek if peek else self.autotune.decide
+        return rows, waited, ask(len(self._time_cards), rows, waited)
+
+    def next_deadline_s(self):
+        """Seconds until the controller's hold deadline for the oldest
+        pending request, or None when nothing is held or autotune is off
+        (the static batcher waits for arrivals)."""
+        if self.autotune is None or self._t_oldest is None:
+            return None
+        _, waited, dec = self._decide(peek=True)
+        return max(0.0, dec.hold_s - waited)
+
+    def poll(self):
+        """Idle tick: under autotune, emit the held batch once the
+        controller's target or hold deadline is met; None otherwise."""
+        if self.autotune is None or self._t_oldest is None:
+            return None
+        rows, waited, dec = self._decide()
+        if rows >= dec.target_rows or waited >= dec.hold_s:
+            return self._emit_fused()
+        return None
+
     def _bucket_for(self, rows: int, max_rows: int) -> int:
+        if self.autotune is not None:
+            # the controller's candidates: the shapes its decisions
+            # reason about; rows past every candidate take the static
+            # rule (never padded short)
+            bucket = self.autotune.bucket_for(rows)
+            if rows <= bucket <= max_rows:
+                return bucket
         if self.row_buckets:
             for bucket in self.row_buckets:
                 if rows <= bucket <= max_rows:
@@ -129,8 +211,10 @@ class Batcher(StageModel):
     def _emit_fused(self):
         with hostprof.section("batcher.fuse"):
             out = self._fuse_pending()
-        trace.instant("batcher.emit", args={"requests": len(out[2]),
-                                            "rows": int(out[0][0].valid)})
+        if trace.ACTIVE is not None:
+            # the args are built only while a collector is installed
+            trace.instant("batcher.emit", args={
+                "requests": len(out[2]), "rows": int(out[0][0].valid)})
         return out
 
     def _fuse_pending(self):
@@ -148,6 +232,9 @@ class Batcher(StageModel):
             valid = sum(pb.valid for pb in parts)
             bucket = (self._declared_max[pos] if self.ragged else
                       self._bucket_for(valid, self._declared_max[pos]))
+            if pos == 0 and self.autotune is not None:
+                self.autotune.note_emission(valid if self.ragged
+                                            else bucket)
             if pos == 0:
                 note_emission_accounting(
                     self.padding, self.ragged_stats, cards, valid, bucket,
@@ -159,6 +246,7 @@ class Batcher(StageModel):
             fused.append(pb)
         self._tensors = []
         self._time_cards = []
+        self._t_oldest = None
         # per-request metadata cannot belong to a fused batch
         return tuple(fused), None, TimeCardList(cards)
 

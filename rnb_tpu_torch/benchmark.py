@@ -16,6 +16,21 @@ into the job's log directory beside a ``Trace: events=N dropped=M`` and a
 profiler's sections over the window go to ``hostprof.txt`` with the
 process's CPU share of the window (``host_cpu_frac``).
 
+With the root ``metrics`` key the live-metrics plane runs
+(:mod:`rnb_tpu_torch.metrics`): its registry takes the queue depths, the
+page allocator and every stage's cache and staging pool as sources, its
+SpanBridge takes the tracer's place in the trace hooks at the start
+barrier (forwarding to the tracer on a traced run), and its flusher
+writes ``metrics.jsonl``, ``metrics.prom`` and any ``flight-<n>.json``
+into the job's directory, with ``Metrics:`` and ``Slo:`` lines. The root
+``critpath`` key adds ``Critpath:``/``Critpath stages:`` and the
+``# critpath`` table trailer (:mod:`rnb_tpu_torch.critpath`); the root
+``autotune`` key gives every supporting stage a batch controller
+(:mod:`rnb_tpu_torch.autotune`) and adds ``Autotune:``/``Autotune
+buckets:``. Without those keys none of it runs and no line or file is
+added. Every exit path, an aborted run included, leaves no hook
+installed and no flusher running.
+
 Runs on ``cuda:0`` (the config's devices) unless ``platform="cpu"``.
 
 CLI::
@@ -36,13 +51,19 @@ import threading
 import time
 from dataclasses import asdict, dataclass, field
 from datetime import datetime
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from rnb_tpu_torch import hostprof
+from rnb_tpu_torch import metrics as metrics_mod
 from rnb_tpu_torch import trace as trace_mod
+from rnb_tpu_torch.autotune import AutotuneSettings
+from rnb_tpu_torch.autotune import aggregate_snapshots as aggregate_autotune
 from rnb_tpu_torch.cache import aggregate_snapshots
+from rnb_tpu_torch.critpath import CritpathSettings
+from rnb_tpu_torch.critpath import aggregate as critpath_aggregate
+from rnb_tpu_torch.critpath import ranking as critpath_ranking
 from rnb_tpu_torch.client import bulk_client, poisson_client
 from rnb_tpu_torch.compilestats import aggregate_compile_records
 from rnb_tpu_torch.config import load_config
@@ -117,6 +138,38 @@ class BenchmarkResult:
     phases: Optional[Dict[str, dict]] = None
     #: process CPU seconds (user + system) over the measured window
     host_cpu_s: float = 0.0
+    #: requests the client created (an open-loop client may create more
+    #: than complete before the run stops)
+    num_requests: int = 0
+    #: the ``Metrics:`` and ``Slo:`` lines (zero without ``metrics``)
+    metrics_snapshots: int = 0
+    metrics_series: int = 0
+    metrics_dumps: int = 0
+    metrics_triggers: int = 0
+    slo_tracked: int = 0
+    slo_within: int = 0
+    slo_missed: int = 0
+    slo_burn_max_milli: int = 0
+    #: the ``Critpath:`` and ``Critpath stages:`` lines (zero and empty
+    #: without ``critpath``)
+    critpath_requests: int = 0
+    critpath_segments: int = 0
+    critpath_residual_us_max: int = 0
+    critpath_hedged: int = 0
+    critpath_redispatched: int = 0
+    critpath_bound_step: int = 0
+    critpath_bound_vps_milli: int = 0
+    critpath_stage_detail: Dict[str, Any] = field(default_factory=dict)
+    #: the ``Autotune:`` and ``Autotune buckets:`` lines (zero and empty
+    #: without ``autotune``)
+    autotune_decisions: int = 0
+    autotune_immediate: int = 0
+    autotune_held: int = 0
+    autotune_emissions: int = 0
+    autotune_deadline_us_min: int = 0
+    autotune_deadline_us_max: int = 0
+    autotune_deadline_us_sum: int = 0
+    autotune_bucket_counts: Dict[str, int] = field(default_factory=dict)
 
 
 def _bulk_queue_size(config, num_videos: int) -> int:
@@ -148,6 +201,63 @@ def _start_tracer(config, filename_queue, queues):
                 queues[step_idx][q_idx].qsize)
             edge_idx += 1
     return tracer
+
+
+def _start_metrics(config, job_id: str, log_base: str, filename_queue,
+                   queues, queue_size: int, pager, tracer, slo_budget_ms):
+    """The job's live-metrics registry and its SpanBridge (None, None
+    without the root ``metrics`` key). Its gauge sources are the filename
+    queue and every inter-stage queue (keyed by edge ordinal in step
+    order, each armed for the saturation trigger at the queue's
+    capacity); the page allocator is a poll source. The bridge forwards
+    to ``tracer`` on a traced run."""
+    settings = metrics_mod.MetricsSettings.from_config(config.metrics)
+    if settings is None:
+        return None, None
+    registry = metrics_mod.MetricsRegistry(
+        settings, job_dir=logroot(job_id, base=log_base), job_id=job_id,
+        slo_budget_ms=slo_budget_ms)
+    registry.add_gauge_source(metrics_mod.name("queue.filename.depth"),
+                              filename_queue.qsize, capacity=queue_size)
+    edge_idx = 0
+    for step_idx in sorted(queues):
+        for q_idx in sorted(queues[step_idx]):
+            registry.add_gauge_source(
+                metrics_mod.name("queue.e%d.depth", edge_idx),
+                queues[step_idx][q_idx].qsize, capacity=queue_size)
+            edge_idx += 1
+    if pager is not None:
+        registry.add_poll(metrics_mod.snapshot_poll(
+            "pages", pager.snapshot,
+            counters=("allocs", "frees", "alloc_fails", "gathers",
+                      "gather_rows", "feature_lookups", "feature_hits",
+                      "feature_inserts", "feature_evictions",
+                      "feature_gathers", "feature_gather_rows",
+                      "feature_bytes_saved"),
+            gauges=("live", "limbo", "bytes")))
+    bridge = metrics_mod.SpanBridge(
+        registry, forward=tracer,
+        ring_events=settings.ring_events if settings.flight_enabled else 0)
+    registry.bridge = bridge
+    return registry, bridge
+
+
+def _warn_if_no_stage_autotunes(config) -> None:
+    """Autotune on with no participating stage (every step opted out or
+    none supports it) reads like a static run: say so, as the reference
+    does."""
+    def may_participate(step):
+        try:
+            return getattr(load_class(step.model), "SUPPORTS_AUTOTUNE",
+                           False)
+        except Exception:
+            return True  # the runner thread reports a bad class path
+    if not any(step.autotune and may_participate(step)
+               for step in config.steps):
+        print("[rnb-tpu-torch] WARNING: autotune is enabled but no "
+              "pipeline stage participates (every step opted out or "
+              "unsupported) — batching stays static and no Autotune: "
+              "telemetry will be emitted", file=sys.stderr)
 
 
 def _pipeline_queues(config, queue_size: int):
@@ -189,6 +299,23 @@ def run_benchmark(config_path: str,
     ``torch.profiler`` (card runs): the sum of
     kernel time lands in the result, each kernel's time and launches in
     ``profile.json``, and the profiler's table in ``profile.txt``."""
+    try:
+        return _run_benchmark(
+            config_path, mean_interval_ms, num_videos, queue_size, log_base,
+            print_progress, seed, platform, outputs_sink, profile,
+            stages_sink)
+    finally:
+        # every exit path, an aborted or failed run included: no trace
+        # or metrics hook stays installed, no flusher keeps running
+        trace_mod.ACTIVE = None
+        registry, metrics_mod.ACTIVE = metrics_mod.ACTIVE, None
+        if registry is not None:
+            registry.stop()
+
+
+def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
+                   log_base, print_progress, seed, platform, outputs_sink,
+                   profile, stages_sink) -> BenchmarkResult:
     config = load_config(config_path, platform)
     job_id = "%s-mi%d-v%d-qs%d" % (
         datetime.today().strftime("%y%m%d_%H%M%S"), mean_interval_ms,
@@ -205,14 +332,27 @@ def run_benchmark(config_path: str,
     termination = TerminationState()
     summary_sink, pad_sink, ragged_sink, staging_sink = [], [], [], []
     ingest_sink, cache_sink, compile_sink, graph_sink = [], [], [], []
+    autotune_sink, requests_sink = [], []
+    autotune_settings = AutotuneSettings.from_config(config.autotune)
+    if autotune_settings is not None:
+        _warn_if_no_stage_autotunes(config)
+    critpath_settings = CritpathSettings.from_config(config.critpath)
     if mean_interval_ms == 0:
         # bulk mode pre-enqueues everything (plus the exit markers)
         queue_size = _bulk_queue_size(config, num_videos)
     filename_queue: "queue.Queue" = queue.Queue(queue_size)
     queues, trackers = _pipeline_queues(config, queue_size)
-    # a run that died mid-trace must not leave its tracer installed
+    # a run that died mid-trace must not leave its hooks installed
     trace_mod.ACTIVE = None
+    metrics_mod.ACTIVE = None
     tracer = _start_tracer(config, filename_queue, queues)
+    # the SLO budget: the controller's, without a deadline plane
+    registry, bridge = _start_metrics(
+        config, job_id, log_base, filename_queue, queues, queue_size, pager,
+        tracer, autotune_settings.slo_ms if autotune_settings else None)
+    # installed before the stages are built: they register their poll
+    # sources before the start barrier
+    metrics_mod.ACTIVE = registry
     num_markers = max(NUM_EXIT_MARKERS,
                       sum(len(g.devices) for g in config.steps[0].groups))
 
@@ -222,7 +362,8 @@ def run_benchmark(config_path: str,
                    config.popularity)
     threads = [threading.Thread(
         target=poisson_client if mean_interval_ms > 0 else bulk_client,
-        args=client_args, name="client", daemon=True)]
+        args=client_args, kwargs={"requests_sink": requests_sink},
+        name="client", daemon=True)]
     for step_idx, step in enumerate(config.steps):
         is_final = step_idx == config.num_steps - 1
         for group_idx, group in enumerate(step.groups):
@@ -260,7 +401,10 @@ def run_benchmark(config_path: str,
                     graph_sink=graph_sink, stage_sink=stages_sink,
                     pager=pager,
                     outputs_sink=outputs_sink if is_final else None,
-                    num_segments=step.num_segments, tracer=tracer)
+                    num_segments=step.num_segments, tracer=tracer,
+                    autotune=autotune_settings if step.autotune else None,
+                    autotune_sink=autotune_sink,
+                    critpath=critpath_settings is not None)
                 threads.append(threading.Thread(
                     target=runner, args=(ctx,), daemon=True,
                     name="runner-s%d-g%d-i%d" % (step_idx, group_idx,
@@ -269,12 +413,14 @@ def run_benchmark(config_path: str,
         t.start()
 
     profiler = None
-    if profile:
-        # trace the measured window only: every other party is parked
-        # on the start barrier (warm-up done) before capture begins
+    if profile or registry is not None:
+        # the profiler and the metrics flusher cover the measured window
+        # only: wait until every other party is parked on the start
+        # barrier (built, warm, and its poll sources registered)
         while sta_bar.n_waiting < bar_total - 1 and not any(
                 not t.is_alive() for t in threads):
             time.sleep(0.01)
+    if profile:
         profiler = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA])
@@ -288,6 +434,11 @@ def run_benchmark(config_path: str,
         # before this thread reaches it
         trace_mod.ACTIVE = tracer
         tracer.start_sampler()
+    if registry is not None:
+        # the bridge takes the hooks at the same point, forwarding to the
+        # tracer on a traced run; the flusher covers the window
+        trace_mod.ACTIVE = bridge
+        registry.start()
     sta_bar.wait()
     ru_start = resource.getrusage(resource.RUSAGE_SELF)
     launches_start = _kernels.launch_counts()
@@ -325,11 +476,12 @@ def run_benchmark(config_path: str,
                        for name, count in _kernels.launch_counts().items()}
     for t in threads:
         t.join(timeout=60)
+    # every thread has drained: uninstall the tracer (or the bridge)
+    # first, so a later run in this process never writes into this job's
+    # collector
+    trace_mod.ACTIVE = None
     trace_events = trace_dropped = 0
     if tracer is not None:
-        # every thread has drained: uninstall first, so a later run in
-        # this process never writes into this job's collector
-        trace_mod.ACTIVE = None
         tracer.stop_sampler()
         trace_events = tracer.export(
             os.path.join(logroot(job_id, base=log_base), "trace.json"),
@@ -372,6 +524,25 @@ def run_benchmark(config_path: str,
                     NUM_SUMMARY_SKIPS).items():
                 samples.setdefault(phase, []).extend(values)
         phases = trace_mod.phase_stats(samples) or None
+    critpath_report = None
+    if critpath_settings is not None and summary_sink:
+        lanes = {step_idx: sum(len(g.devices) for g in step.groups)
+                 for step_idx, step in enumerate(config.steps)}
+        # the port has no hedging or lane eviction: no row is hedged or
+        # redispatched
+        critpath_report = critpath_aggregate(
+            ((timings, False, 0) for summary in summary_sink
+             for timings in summary.steady_rows(NUM_SUMMARY_SKIPS)), lanes)
+    autotune_stats = (aggregate_autotune(autotune_sink) if autotune_sink
+                      else None)
+    metrics_summary = None
+    if registry is not None:
+        # the final footing snapshot: every thread joined and every
+        # ledger above settled, so its counters equal the log-meta lines
+        # exactly; also services RNB_FLIGHT_FORCE and writes metrics.prom
+        registry.stop()
+        metrics_mod.ACTIVE = None
+        metrics_summary = registry.summary()
     result = BenchmarkResult(
         job_id=job_id, total_time_s=total_time, num_videos=num_videos,
         termination_flag=int(termination.value),
@@ -385,7 +556,21 @@ def run_benchmark(config_path: str,
         pages=dict(pages_summary) if pages_summary else {},
         compiles=compiles, warmup_s=warmup, graphs=graphs,
         trace_events=trace_events, trace_dropped=trace_dropped,
-        phases=phases, host_cpu_s=host_cpu_s)
+        phases=phases, host_cpu_s=host_cpu_s,
+        num_requests=sum(requests_sink))
+    if metrics_summary is not None:
+        for key, value in metrics_summary.items():
+            if key == "burn_max_milli":
+                key = "slo_" + key
+            elif not key.startswith("slo_"):
+                key = "metrics_" + key
+            setattr(result, key, value)
+    if critpath_report is not None:
+        for key, value in critpath_report.items():
+            setattr(result, "critpath_" + key, value)
+    if autotune_stats is not None:
+        for key, value in autotune_stats.items():
+            setattr(result, "autotune_" + key, value)
     if cache_stats is not None:
         for key in ("hits", "misses", "inserts", "evictions", "coalesced",
                     "oversize", "bytes_resident"):
@@ -438,6 +623,17 @@ def run_benchmark(config_path: str,
                 "%s=%d" % (k, pages_summary[k]) for k in PAGES_LINE_KEYS))
             f.write("Pages arenas: %s\n" % json.dumps(pager.arena_sizes(),
                                                        sort_keys=True))
+        if autotune_stats is not None:
+            # the reference's format; autotune runs only
+            f.write("Autotune: decisions=%d immediate=%d held=%d "
+                    "emissions=%d deadline_us_min=%d deadline_us_max=%d "
+                    "deadline_us_sum=%d\n" % tuple(autotune_stats[k] for k in (
+                        "decisions", "immediate", "held", "emissions",
+                        "deadline_us_min", "deadline_us_max",
+                        "deadline_us_sum")))
+            if autotune_stats["bucket_counts"]:
+                f.write("Autotune buckets: %s\n" % json.dumps(
+                    autotune_stats["bucket_counts"], sort_keys=True))
         if compiles:
             # the reference's format: per step, the warm-up vocabulary
             # and the signatures first seen in the measured window
@@ -453,6 +649,26 @@ def run_benchmark(config_path: str,
                     % (trace_events, trace_dropped))
         if phases is not None:
             f.write("Phases: %s\n" % json.dumps(phases, sort_keys=True))
+        if metrics_summary is not None:
+            # the reference's format; parse_utils holds the final
+            # snapshot of metrics.jsonl to the ledger lines above
+            f.write("Metrics: snapshots=%d series=%d dumps=%d triggers=%d\n"
+                    % tuple(metrics_summary[k] for k in (
+                        "snapshots", "series", "dumps", "triggers")))
+            f.write("Slo: tracked=%d within=%d missed=%d "
+                    "burn_max_milli=%d\n" % tuple(metrics_summary[k] for k in (
+                        "slo_tracked", "slo_within", "slo_missed",
+                        "burn_max_milli")))
+        if critpath_report is not None:
+            # the reference's format; parse_utils re-derives it from the
+            # timing tables
+            f.write("Critpath: requests=%d segments=%d residual_us_max=%d "
+                    "hedged=%d redispatched=%d bound_step=%d "
+                    "bound_vps_milli=%d\n" % tuple(critpath_report[k] for k in (
+                        "requests", "segments", "residual_us_max", "hedged",
+                        "redispatched", "bound_step", "bound_vps_milli")))
+            f.write("Critpath stages: %s\n" % json.dumps(
+                critpath_report["stage_detail"], sort_keys=True))
         f.write("Kernels: %s\n" % json.dumps(window_launches,
                                              sort_keys=True))
         if kernel_ms is not None:
@@ -485,6 +701,24 @@ def run_benchmark(config_path: str,
             print("Cache: %s" % json.dumps(cache_stats, sort_keys=True))
         if pages_summary is not None:
             print("Pages: %s" % json.dumps(pages_summary, sort_keys=True))
+        if autotune_stats is not None:
+            print("Autotune: %d decision(s) (%d immediate / %d held), %d "
+                  "emission(s), buckets %s"
+                  % (autotune_stats["decisions"], autotune_stats["immediate"],
+                     autotune_stats["held"], autotune_stats["emissions"],
+                     json.dumps(autotune_stats["bucket_counts"],
+                                sort_keys=True)))
+        if metrics_summary is not None:
+            print("Metrics: %s" % json.dumps(metrics_summary, sort_keys=True))
+        if critpath_report is not None:
+            ranked = critpath_ranking(critpath_report["stage_detail"])
+            print("Critpath: %d request(s), top blockers %s; bound step%d at "
+                  "%.3f videos/s"
+                  % (critpath_report["requests"], ", ".join(
+                      "%s %.1f ms" % (seg, total)
+                      for seg, total, _mean in ranked[:3]),
+                     critpath_report["bound_step"],
+                     critpath_report["bound_vps_milli"] / 1000.0))
     return result
 
 

@@ -11,8 +11,9 @@ group its own ``batch``). Device ``d`` maps to ``cuda:d`` (every
 device to the CPU on ``platform="cpu"``) and ``-1`` to the host.
 
 The reference's rules on ``num_segments`` (a step's fan-out into row
-segments) and on the root ``trace`` key are kept with the reference's
-own messages.
+segments), on the root ``trace``, ``metrics``, ``critpath`` and
+``autotune`` keys and on a step's ``autotune`` opt-out are kept with the
+reference's own messages.
 """
 
 from __future__ import annotations
@@ -30,13 +31,22 @@ PORT_PREFIX = "rnb_tpu_torch."
 #: comments are allowed wherever a key is
 COMMENT_KEY = "_comment"
 ROOT_KEYS = frozenset({"video_path_iterator", "pipeline", "ragged",
-                       "popularity", "pager", "trace"})
+                       "popularity", "pager", "trace", "metrics",
+                       "critpath", "autotune"})
 TRACE_KEYS = ("enabled", "sample_hz", "max_events")
+#: the reference's key lists, in its order (its messages print them)
+METRICS_KEYS = ["enabled", "interval_ms", "flight_recorder"]
+FLIGHT_RECORDER_KEYS = ["enabled", "ring_events", "max_dumps",
+                        "burn_threshold", "shed_spike_per_s",
+                        "queue_saturation", "cooldown_s"]
+CRITPATH_KEYS = ["enabled"]
+AUTOTUNE_KEYS = ["enabled", "slo_ms", "ewma_alpha", "min_hold_ms",
+                 "max_hold_ms", "buckets"]
 RAGGED_KEYS = frozenset({"enabled", "pool_rows"})
 POPULARITY_KEYS = frozenset({"dist", "s", "universe"})
 PAGER_KEYS = frozenset({"enabled", "page_rows", "pool_mb", "feature_cache"})
 STEP_KEYS = frozenset({"model", "queue_groups", "num_shared_tensors",
-                       "num_segments"})
+                       "num_segments", "autotune"})
 GROUP_KEYS = frozenset({"devices", "out_queues", "in_queue",
                         "queue_selector"})
 _LOADER_KEYS = frozenset({
@@ -119,6 +129,8 @@ class StepConfig:
     kwargs: Dict[str, Any]
     #: segments each published item is split into (runner.split_segments)
     num_segments: int = 1
+    #: False opts the step out of the root ``autotune`` controller
+    autotune: bool = True
 
     def kwargs_for_group(self, group_idx: int) -> Dict[str, Any]:
         """Constructor kwargs of one group's instances: the step's
@@ -140,6 +152,12 @@ class PipelineConfig:
     pager: Optional[dict] = None
     #: the tracing settings (root ``trace`` key; rnb_tpu_torch.trace)
     trace: Optional[dict] = None
+    #: the live-metrics plane's settings (root ``metrics`` key)
+    metrics: Optional[dict] = None
+    #: critical-path extraction (root ``critpath`` key)
+    critpath: Optional[dict] = None
+    #: the load-adaptive batching controller (root ``autotune`` key)
+    autotune: Optional[dict] = None
 
     @property
     def num_steps(self) -> int:
@@ -223,6 +241,95 @@ def _check_trace(trace) -> None:
             % (max_events,))
 
 
+def _is_positive(value) -> bool:
+    return _is_number(value) and value > 0
+
+
+def _check_metrics(metrics) -> None:
+    """The reference's rules (rnb_tpu/config.py, root ``metrics``)."""
+    _expect(isinstance(metrics, dict), "'metrics' must be an object")
+    unknown = sorted(set(metrics) - set(METRICS_KEYS))
+    _expect(not unknown, "'metrics' has unknown key(s) %s — keys are %s"
+            % (unknown, METRICS_KEYS))
+    _expect(isinstance(metrics.get("enabled", True), bool),
+            "'metrics.enabled' must be a boolean")
+    interval = metrics.get("interval_ms", 250.0)
+    _expect(_is_positive(interval),
+            "'metrics.interval_ms' must be a positive number, got %r"
+            % (interval,))
+    fr = metrics.get("flight_recorder")
+    if fr is None or isinstance(fr, bool):
+        return
+    _expect(isinstance(fr, dict),
+            "'metrics.flight_recorder' must be a boolean or an object")
+    unknown = sorted(set(fr) - set(FLIGHT_RECORDER_KEYS))
+    _expect(not unknown, "'metrics.flight_recorder' has unknown key(s) %s "
+            "— keys are %s" % (unknown, FLIGHT_RECORDER_KEYS))
+    _expect(isinstance(fr.get("enabled", True), bool),
+            "'metrics.flight_recorder.enabled' must be a boolean")
+    for key in ("ring_events", "max_dumps"):
+        val = fr.get(key)
+        _expect(val is None or (isinstance(val, int)
+                                and not isinstance(val, bool) and val >= 1),
+                "'metrics.flight_recorder.%s' must be a positive integer, "
+                "got %r" % (key, val))
+    for key in ("burn_threshold", "shed_spike_per_s", "cooldown_s"):
+        val = fr.get(key)
+        _expect(val is None or _is_positive(val),
+                "'metrics.flight_recorder.%s' must be a positive number, "
+                "got %r" % (key, val))
+    sat = fr.get("queue_saturation")
+    _expect(sat is None or (_is_number(sat) and 0 < sat <= 1),
+            "'metrics.flight_recorder.queue_saturation' must be a "
+            "fraction in (0, 1], got %r" % (sat,))
+
+
+def _check_critpath(critpath) -> None:
+    """The reference's rules (rnb_tpu/config.py, root ``critpath``)."""
+    _expect(isinstance(critpath, dict), "'critpath' must be an object")
+    unknown = sorted(set(critpath) - set(CRITPATH_KEYS))
+    _expect(not unknown, "'critpath' has unknown key(s) %s — keys are %s"
+            % (unknown, CRITPATH_KEYS))
+    _expect(isinstance(critpath.get("enabled", True), bool),
+            "'critpath.enabled' must be a boolean")
+
+
+def _check_autotune(autotune) -> None:
+    """The reference's rules (rnb_tpu/config.py, root ``autotune``)."""
+    _expect(isinstance(autotune, dict), "'autotune' must be an object")
+    unknown = sorted(set(autotune) - set(AUTOTUNE_KEYS))
+    _expect(not unknown, "'autotune' has unknown key(s) %s — keys are %s"
+            % (unknown, AUTOTUNE_KEYS))
+    _expect(isinstance(autotune.get("enabled", True), bool),
+            "'autotune.enabled' must be a boolean")
+
+    def number(key, default, minimum, strict=False):
+        val = autotune.get(key, default)
+        _expect(_is_number(val)
+                and (val > minimum if strict else val >= minimum),
+                "'autotune.%s' must be a number %s %g, got %r"
+                % (key, ">" if strict else ">=", minimum, val))
+        return float(val)
+
+    number("slo_ms", 50.0, 0, strict=True)
+    alpha = number("ewma_alpha", 0.2, 0, strict=True)
+    _expect(alpha <= 1.0, "'autotune.ewma_alpha' must be in (0, 1], got %r"
+            % (alpha,))
+    min_hold = number("min_hold_ms", 0.5, 0)
+    max_hold = number("max_hold_ms", max(min_hold, 50.0), 0)
+    _expect(max_hold >= min_hold,
+            "'autotune.max_hold_ms' (%g) must be >= "
+            "'autotune.min_hold_ms' (%g)" % (max_hold, min_hold))
+    buckets = autotune.get("buckets")
+    _expect(buckets is None
+            or (isinstance(buckets, list) and buckets
+                and all(isinstance(b, int) and not isinstance(b, bool)
+                        and b >= 1 for b in buckets)
+                and len(set(buckets)) == len(buckets)),
+            "'autotune.buckets' must be a non-empty list of distinct "
+            "positive row counts, got %r" % (buckets,))
+
+
 def _check_num_segments(step_raw: dict, step_idx: int,
                         final: bool) -> int:
     """A step's ``num_segments``, under the reference's rules and
@@ -262,6 +369,11 @@ def parse_config(raw: dict, platform: Optional[str] = None
     trace = raw.get("trace")
     if trace is not None:
         _check_trace(trace)
+    for key, check in (("metrics", _check_metrics),
+                       ("critpath", _check_critpath),
+                       ("autotune", _check_autotune)):
+        if raw.get(key) is not None:
+            check(raw[key])
     ragged = raw.get("ragged")
     if ragged is not None:
         _check_keys(ragged, RAGGED_KEYS, "ragged")
@@ -343,6 +455,11 @@ def parse_config(raw: dict, platform: Optional[str] = None
                     "output queues of step %d %s do not match input "
                     "queues of step %d %s" % (step_idx - 1, sorted(fed),
                                               step_idx, sorted(read)))
+        step_autotune = step_raw.get("autotune", True)
+        _expect(isinstance(step_autotune, bool),
+                "pipeline step %d: 'autotune' must be a boolean (false "
+                "opts the step out of the root autotune controller)"
+                % step_idx)
         slots = int(step_raw.get("num_shared_tensors",
                                  DEFAULT_NUM_SHARED_TENSORS))
         if slots < 1:
@@ -350,11 +467,14 @@ def parse_config(raw: dict, platform: Optional[str] = None
         steps.append(StepConfig(
             model=model, groups=groups, num_shared_tensors=slots,
             kwargs=kwargs,
-            num_segments=_check_num_segments(step_raw, step_idx, is_final)))
+            num_segments=_check_num_segments(step_raw, step_idx, is_final),
+            autotune=step_autotune))
     return PipelineConfig(
         video_path_iterator=port_class_path(raw["video_path_iterator"]),
         steps=steps, ragged=ragged, platform=platform,
-        popularity=popularity, pager=pager, trace=trace)
+        popularity=popularity, pager=pager, trace=trace,
+        metrics=raw.get("metrics"), critpath=raw.get("critpath"),
+        autotune=raw.get("autotune"))
 
 
 def load_config(path: str, platform: Optional[str] = None

@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from rnb_tpu_torch import hostprof, trace
+from rnb_tpu_torch.autotune import BatchController
 from rnb_tpu_torch.cache import ClipCache, InflightTable, content_key
 from rnb_tpu_torch.compilestats import SignatureTracker, signature_of
 from rnb_tpu_torch.decode import get_decoder
@@ -1009,6 +1010,12 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         ``2 * fuse``) requests are pending (backpressure toward the
         client queue).
 
+    Under the root ``autotune`` key (``enable_autotune``) the load-adaptive
+    controller's decision takes the place of the ``max_hold_ms`` rule: it
+    emits at once when growing the batch cannot meet the latency budget,
+    holds toward a warmed bucket when it can, and ``fuse`` / the max rows
+    stay ceilings.
+
     The transfer runs on a dedicated stream; with ``transfer_async`` on
     a worker thread while the next batch decodes. Bucketed emissions
     zero their pad rows on the card; ragged emissions ship the pool
@@ -1029,6 +1036,14 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
 
     SUPPORTS_RAGGED = True
     SUPPORTS_PAGER = True
+    #: the hold deadline / accumulation target can be driven by the
+    #: load-adaptive controller (rnb_tpu_torch.autotune)
+    SUPPORTS_AUTOTUNE = True
+    #: this stage feeds the controller's service estimator itself (batch
+    #: close -> ready queue, fed at ``_pop_ready``): under transfer_async
+    #: every emission surfaces through ``take_ready``/``poll``, never
+    #: through a stamp-bearing call, so the executor must not feed it
+    AUTOTUNE_SELF_SERVICE = True
 
     #: staging depth: one slot filling, one transferring, one spare
     DEFAULT_STAGING_SLOTS = 3
@@ -1093,8 +1108,9 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         self._starts_cache: Dict[str, list] = {}
         self._inflight: deque = deque()  # decode still running
         self._ready: deque = deque()     # decode complete
-        #: completed emissions awaiting pickup; appended by the
-        #: transfer worker under transfer_async
+        #: completed emissions awaiting pickup, each with its shipped
+        #: rows and close -> ready seconds; appended by the transfer
+        #: worker under transfer_async
         self._out_ready: deque = deque()
         self._out_lock = threading.Lock()
         self.cache = None
@@ -1118,6 +1134,9 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         self._clip_arena = None
         self._zero_pool = None
         self._feature_stub = None
+        #: the load-adaptive controller (``enable_autotune``); None keeps
+        #: the static ``max_hold_ms`` rule
+        self.autotune = None
         # warm-up: fault in the pinned slots and the transfer path at
         # every shape an emission ships (and, on the rgb path, build and
         # launch the loader's normalize kernel)
@@ -1169,6 +1188,22 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
             pager.adopt_shared("loader-feature-stub", self._feature_stub)
         if self.torch_device.type == "cuda":
             _synchronize(self.torch_device)
+
+    def enable_autotune(self, settings) -> BatchController:
+        """Executor protocol: a BatchController over this stage's own
+        warmed buckets — on the card, the shapes whose forward graphs the
+        runner captured before the start barrier, so no decision can
+        cause a capture inside the measured window. Under ragged dispatch
+        every row count ships the one pool shape, so the candidates are
+        1..pool_rows."""
+        if self.ragged:
+            self.autotune = BatchController.for_stage(
+                settings, tuple(range(1, self.pool_rows + 1)),
+                self.pool_rows)
+        else:
+            self.autotune = BatchController.for_stage(
+                settings, self.row_buckets, self.max_clips)
+        return self.autotune
 
     def _batch_shape(self, rows: int):
         return _wire_batch_shape(rows, self.pixel_path, self.dct_coeffs)
@@ -1392,6 +1427,8 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
             time_card.num_clips = n
             time_card.cache_hit = True
             self.ragged_stats["cache_hit_rows"] += n
+            if self.autotune is not None:
+                self.autotune.observe_rows(n)
             slot, row0 = self._stage_target(n)
             if self.cache.paged:
                 rec = _FuseRecord(n, time_card, slot, row0, fkey=fkey,
@@ -1441,6 +1478,11 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         if key is not None:
             self._inflight_keys.put(key, rec)
         trace.instant("loader.decode_submit", rid=time_card.id)
+        if self.autotune is not None:
+            # rows per request: converts a bucket target into a count of
+            # requests still to arrive (coalesced followers add cards,
+            # not rows, so they do not feed it)
+            self.autotune.observe_rows(n)
         return self._admit(rec)
 
     def _retire_oldest(self) -> None:
@@ -1501,6 +1543,17 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
                             at=now - max(0.0, now_mono - rec.t_ready))
                 self._stamp(rec.cards, "transfer_start", at=now)
         shipped = self.pool_rows if self.ragged else self._bucket_for(rows)
+        if self.autotune is not None:
+            # every emission is attributed to its shipped bucket (the
+            # valid rows under ragged); one no decision preceded counts
+            # as an immediate decision
+            self.autotune.note_emission(rows if self.ragged else shipped)
+        # the service span the controller budgets opens here, where the
+        # batch stopped accumulating, and closes when the emission lands
+        # on the ready queue: after the transfer's copies are confirmed
+        # (transfer_rows waits on its event, as it always does) and the
+        # ingest kernel is queued; nothing more waits on the card for it
+        t_close = time.monotonic()
         paged = self.cache is not None and self.cache.paged
         offsets = segment_offsets_of(rec.n for rec in take)
         cards, gather_plans, insert_jobs, runs = [], [], [], []
@@ -1560,8 +1613,9 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
             else:
                 wrapped = PaddedBatch(batch, rows)
             with self._out_lock:
-                self._out_ready.append(((wrapped,), None,
-                                        TimeCardList(cards)))
+                self._out_ready.append((((wrapped,), None,
+                                         TimeCardList(cards)), shipped,
+                                        time.monotonic() - t_close))
 
         if self._worker is not None:
             self._worker.submit(job)
@@ -1595,8 +1649,16 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         return batch
 
     def _pop_ready(self):
+        """The oldest completed emission, or None. Its close -> ready
+        span feeds the controller here, on the executor thread that
+        owns it (the span may have been measured on the worker)."""
         with self._out_lock:
-            return self._out_ready.popleft() if self._out_ready else None
+            if not self._out_ready:
+                return None
+            emission, shipped, service_s = self._out_ready.popleft()
+        if self.autotune is not None:
+            self.autotune.observe_service(shipped, service_s)
+        return emission
 
     def take_ready(self):
         """A completed fused emission, or None; re-raises a failure of
@@ -1616,7 +1678,15 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
             if not self._inflight:
                 return 0.0
             waited = time.monotonic() - self._ready[0].t_ready
-            remaining = max(0.0, self.max_hold_ms / 1000.0 - waited)
+            if self.autotune is not None:
+                # the controller's deadline; peek, since this runs every
+                # poll and a tick is not a decision
+                dec = self.autotune.peek(
+                    len(self._ready), sum(rec.n for rec in self._ready),
+                    waited)
+                remaining = max(0.0, dec.hold_s - waited)
+            else:
+                remaining = max(0.0, self.max_hold_ms / 1000.0 - waited)
             return min(remaining, self.HARVEST_TICK_S)
         if self._inflight:
             return self.HARVEST_TICK_S
@@ -1635,9 +1705,17 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
             return None
         rows_ready = sum(rec.n for rec in self._ready)
         waited_s = time.monotonic() - self._ready[0].t_ready
+        if self.autotune is not None:
+            # the controller's target and deadline replace max_hold_ms;
+            # fuse and the max rows stay ceilings
+            dec = self.autotune.decide(len(self._ready), rows_ready,
+                                       waited_s)
+            held_out = (rows_ready >= dec.target_rows
+                        or waited_s >= dec.hold_s)
+        else:
+            held_out = waited_s * 1000.0 > self.max_hold_ms
         if (len(self._ready) >= self.fuse or rows_ready >= self.max_clips
-                or not self._inflight
-                or waited_s * 1000.0 > self.max_hold_ms):
+                or not self._inflight or held_out):
             self._emit()
             return self._pop_ready()
         return None

@@ -39,8 +39,21 @@ teardown, feature hits <= feature lookups, and gathered rows <= the
 ragged cache-hit rows they serve; of the ``Compiles:`` line, no step
 saw a new signature inside the measured window (``steady_new``); of the
 ``Trace:`` line, that ``trace.json`` exists, records the same event and
-drop counts, and passes :func:`rnb_tpu_torch.trace.validate_trace`. A
-violation is printed and the exit code is 1.
+drop counts, and passes :func:`rnb_tpu_torch.trace.validate_trace`. Of
+the live-metrics plane (``Metrics:``, ``Slo:``): ``metrics.jsonl`` holds
+as many snapshots as the line says, with increasing ``seq``, counters
+monotone from snapshot to snapshot and each histogram's buckets summing
+to its count; the final snapshot's counters equal the ``Staging:``,
+``Cache:``, ``Pages:`` and ``Slo:`` ledgers; every ``flight-<n>.json``
+passes ``validate_trace`` and names its trigger, and ``metrics.prom``
+exists. Of critpath (``Critpath:``, the ``# critpath`` trailer): every
+row's blocking chain sums to its end-to-end latency within 1 ms, and the
+line and the trailers re-derive from the tables. Of ``Autotune:``:
+verdicts sum to the decisions, emissions are covered by decisions and
+sum over the buckets, the held deadlines' min/max/sum agree, every
+bucket is one the config warms and, where only fusing loaders are
+controlled, the emissions equal the loaders' staged and copied batches.
+A violation is printed and the exit code is 1.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ import os
 import sys
 from typing import Dict, List
 
+from rnb_tpu_torch import critpath
 from rnb_tpu_torch.trace import (_step_of, _strip_suffix, attribute_phases,
                                  phase_stats, validate_trace)
 
@@ -93,12 +107,20 @@ def read_meta(path: str) -> dict:
                 meta["graphs"] = json.loads(rest)
             elif head == "Phases":
                 meta["phases"] = json.loads(rest)
+            elif head == "Autotune buckets":
+                meta["autotune_buckets"] = json.loads(rest)
+            elif head == "Critpath stages":
+                meta["critpath_stages"] = json.loads(rest)
             elif head in ("Pixel path", "Decode backend"):
                 meta[head.lower().replace(" ", "_")] = rest
             elif rest and "=" in rest:
                 meta["lines"][head] = {
                     k: float(v) for k, v in
                     (kv.split("=", 1) for kv in rest.split())}
+                if head == "Staging":
+                    # one line per loader: the footings sum them
+                    meta.setdefault("staging", []).append(
+                        {k: int(v) for k, v in meta["lines"][head].items()})
             elif not rest and len(line.split()) == 2:
                 meta["window"] = tuple(float(t) for t in line.split())
     return meta
@@ -112,6 +134,242 @@ def read_table(path: str):
     keys = [k for k in lines[0] if not k.startswith("device")]
     rows = [[float(v) for v in ln[:len(keys)]] for ln in lines[1:]]
     return keys, rows
+
+
+def read_trailers(path: str) -> Dict[str, Dict[str, int]]:
+    """A timing table's ``# <kind> k=v ...`` trailers, by kind."""
+    trailers: Dict[str, Dict[str, int]] = {}
+    with open(path) as f:
+        for line in f:
+            tokens = line[1:].split() if line.startswith("#") else ()
+            if tokens:
+                trailers[tokens[0]] = {
+                    k: int(v) for k, _, v in (t.partition("=")
+                                              for t in tokens[1:])}
+    return trailers
+
+
+def load_metrics(log_dir: str) -> List[dict]:
+    """A job's ``metrics.jsonl`` snapshots (empty without the file)."""
+    path = os.path.join(log_dir, "metrics.jsonl")
+    if not os.path.isfile(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _flight_dumps(log_dir: str) -> List[str]:
+    return sorted(name for name in os.listdir(log_dir)
+                  if name.startswith("flight-") and name.endswith(".json")
+                  and name[7:-5].isdigit())
+
+
+def _staging_totals(meta: dict) -> Dict[str, int]:
+    totals: Dict[str, int] = {}
+    for line in meta.get("staging", ()):
+        for key, value in line.items():
+            totals[key] = totals.get(key, 0) + value
+    return totals
+
+
+#: (final-snapshot counter, log-meta line, key) the final snapshot must
+#: equal wherever the line is present
+METRICS_FOOTING = (
+    tuple(("staging." + k, "Staging", k) for k in (
+        "acquires", "acquire_waits", "staged_batches", "copied_batches"))
+    + tuple(("cache." + k, "Cache", k) for k in (
+        "hits", "misses", "inserts", "evictions", "coalesced", "oversize"))
+    + tuple(("pages." + k, "Pages", k) for k in (
+        "allocs", "frees", "alloc_fails", "gathers", "gather_rows",
+        "feature_lookups", "feature_hits", "feature_inserts",
+        "feature_evictions", "feature_gathers", "feature_gather_rows",
+        "feature_bytes_saved"))
+    + tuple(("slo." + k, "Slo", k) for k in (
+        "tracked", "within", "missed")))
+
+
+def metrics_problems(log_dir: str, meta: dict) -> List[str]:
+    """The live-metrics plane's invariants (the reference's --check)."""
+    lines = meta["lines"]
+    flights = _flight_dumps(log_dir)
+    if "Metrics" not in lines:
+        return (["metrics.jsonl present but log-meta has no 'Metrics:' "
+                 "line"] if os.path.isfile(os.path.join(
+                     log_dir, "metrics.jsonl")) else []) + (
+            ["flight dump(s) %s but no 'Metrics:' line" % flights]
+            if flights else [])
+    problems = []
+    snapshots = load_metrics(log_dir)
+    if len(snapshots) != lines["Metrics"]["snapshots"]:
+        problems.append("'Metrics:' line says snapshots=%d but "
+                        "metrics.jsonl holds %d"
+                        % (lines["Metrics"]["snapshots"], len(snapshots)))
+    if "Slo" not in lines:
+        problems.append("a 'Metrics:' line without its 'Slo:' line")
+    last_seq, previous = 0, {}
+    for idx, snap in enumerate(snapshots):
+        if snap["seq"] <= last_seq:
+            problems.append("snapshot %d: seq %d not increasing"
+                            % (idx, snap["seq"]))
+        last_seq = snap["seq"]
+        for name, value in snap["counters"].items():
+            if value < previous.get(name, 0):
+                problems.append("snapshot %d: counter %r fell %s -> %s"
+                                % (idx, name, previous[name], value))
+        previous = snap["counters"]
+        for name, hist in snap["histograms"].items():
+            if sum(hist["buckets"]) != hist["count"]:
+                problems.append("snapshot %d: histogram %r buckets sum to "
+                                "%d, count %d" % (idx, name,
+                                                  sum(hist["buckets"]),
+                                                  hist["count"]))
+    final = snapshots[-1]["counters"] if snapshots else {}
+    staging = _staging_totals(meta)
+    for counter, line, key in METRICS_FOOTING:
+        want = (staging.get(key) if line == "Staging"
+                else lines.get(line, {}).get(key))
+        if want is not None and final.get(counter) != want:
+            problems.append("final snapshot %s=%s does not foot %s: %s=%d"
+                            % (counter, final.get(counter), line, key, want))
+    slo = lines.get("Slo", {})
+    if slo and slo["within"] + slo["missed"] != slo["tracked"]:
+        problems.append("Slo: within + missed != tracked")
+    if len(flights) != lines["Metrics"]["dumps"]:
+        problems.append("'Metrics:' line says dumps=%d but the job holds "
+                        "%s" % (lines["Metrics"]["dumps"], flights))
+    if lines["Metrics"]["dumps"] > lines["Metrics"]["triggers"]:
+        problems.append("more flight dumps than triggers")
+    for name in flights:
+        path = os.path.join(log_dir, name)
+        problems.extend("%s: %s" % (name, issue)
+                        for issue in validate_trace(path)[:3])
+        with open(path) as f:
+            if not json.load(f).get("otherData", {}).get("flight_trigger"):
+                problems.append("%s names no flight_trigger" % name)
+    if not os.path.isfile(os.path.join(log_dir, "metrics.prom")):
+        problems.append("a metrics run wrote no metrics.prom")
+    return problems
+
+
+def critpath_problems(log_dir: str, meta: dict,
+                      num_skips: int = NUM_SUMMARY_SKIPS) -> List[str]:
+    """Every row's blocking chain partitions its end-to-end span (1 ms),
+    and the ``Critpath:`` line and ``# critpath`` trailers re-derive
+    from the tables (the reference's --check)."""
+    problems, steady, trailers = [], [], 0
+    for path in _tables(log_dir):
+        keys, rows = read_table(path)
+        name = os.path.basename(path)
+        for row in rows:
+            chain = critpath.blocking_chain(dict(zip(keys, row)))
+            e2e = 1e3 * (max(row) - min(row))
+            if abs(sum(ms for _c, _s, ms in chain) - e2e) > 1.0:
+                problems.append("%s: a blocking chain does not sum to its "
+                                "end-to-end latency" % name)
+                break
+        tail = [dict(zip(keys, row)) for row in rows[num_skips:]]
+        steady.extend(tail)
+        trailer = read_trailers(path).get("critpath")
+        if trailer is None:
+            continue
+        trailers += 1
+        n, totals = critpath.trailer_totals(tail)
+        if trailer.get("n") != n:
+            problems.append("%s: '# critpath' n=%s, the table gives %d"
+                            % (name, trailer.get("n"), n))
+        for key, want in sorted(totals.items()):
+            got = trailer.get(key + "_us")
+            if got is None or abs(got - want) > 1000:
+                problems.append("%s: '# critpath' %s_us=%s, the table "
+                                "gives %d" % (name, key, got, want))
+    line = meta["lines"].get("Critpath")
+    if line is None:
+        return problems + (["'# critpath' trailers without a 'Critpath:' "
+                            "line"] if trailers else [])
+    if not trailers:
+        problems.append("a 'Critpath:' line but no '# critpath' trailer")
+    if line["residual_us_max"] > 1000:
+        problems.append("Critpath: residual_us_max=%d over 1000"
+                        % line["residual_us_max"])
+    report = critpath.aggregate(((t, False, 0) for t in steady),
+                                _config_lanes(meta))
+    for key in ("requests", "segments", "bound_step"):
+        if report is None or line[key] != report[key]:
+            problems.append("Critpath: %s=%d, the tables give %s" % (
+                key, line[key], None if report is None else report[key]))
+    return problems
+
+
+def _config(meta: dict):
+    """The job's config as its Args line names it, or None."""
+    path = meta.get("args", {}).get("config")
+    if not path or not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def _config_lanes(meta: dict) -> Dict[int, int]:
+    raw = _config(meta)
+    if raw is None:
+        return {}
+    return {idx: sum(len(g.get("devices", ())) for g in step["queue_groups"])
+            for idx, step in enumerate(raw["pipeline"])}
+
+
+def autotune_problems(meta: dict) -> List[str]:
+    """The ``Autotune:`` line's invariants (the reference's --check), and
+    its emissions against the loaders' where only loaders are
+    controlled."""
+    line = meta["lines"].get("Autotune")
+    if line is None:
+        return []
+    problems = []
+    held, decisions = line["held"], line["decisions"]
+    if line["immediate"] + held != decisions:
+        problems.append("Autotune: immediate + held != decisions")
+    if line["emissions"] > decisions:
+        problems.append("Autotune: emissions exceed decisions")
+    buckets = meta.get("autotune_buckets", {})
+    if sum(buckets.values()) != line["emissions"]:
+        problems.append("Autotune buckets sum to %d, emissions=%d"
+                        % (sum(buckets.values()), line["emissions"]))
+    d_min, d_max, d_sum = (line["deadline_us_min"], line["deadline_us_max"],
+                           line["deadline_us_sum"])
+    if held and not (d_min <= d_max and held * d_min <= d_sum
+                     <= held * d_max):
+        problems.append("Autotune: held deadlines min/max/sum disagree")
+    if not held and d_sum:
+        problems.append("Autotune: deadline_us_sum without a held decision")
+    raw = _config(meta)
+    if raw is None:
+        return problems
+    if "Ragged" in meta["lines"]:
+        pool = meta["lines"]["Ragged"]["pool_rows"]
+        rogue = [b for b in buckets if int(b) > pool]
+    else:
+        warmed = set((raw.get("autotune") or {}).get("buckets") or ())
+        for step in raw["pipeline"]:
+            for scope in [step] + step["queue_groups"]:
+                warmed.update(scope.get("row_buckets") or ())
+                warmed.update(scope[k] for k in ("max_clips", "max_rows")
+                              if k in scope)
+        rogue = [b for b in buckets if warmed and int(b) not in warmed]
+    if rogue:
+        problems.append("Autotune chose row bucket(s) %s the config never "
+                        "warms" % sorted(rogue))
+    controlled = {step["model"].rpartition(".")[2]
+                  for step in raw["pipeline"] if step.get("autotune", True)
+                  and step["model"].rpartition(".")[2] in (
+                      "R2P1DFusingLoader", "Batcher")}
+    staging = _staging_totals(meta)
+    loader_emissions = (staging.get("staged_batches", 0)
+                        + staging.get("copied_batches", 0))
+    if controlled == {"R2P1DFusingLoader"} \
+            and line["emissions"] != loader_emissions:
+        problems.append("Autotune: emissions=%d but the loaders shipped %d"
+                        % (line["emissions"], loader_emissions))
+    return problems
 
 
 def _stamp_pairs(keys: List[str], first: str, second: str):
@@ -305,6 +563,11 @@ def summarize(log_dir: str) -> dict:
     if "Trace" in lines:
         out.update(trace_events=int(lines["Trace"]["events"]),
                    trace_dropped=int(lines["Trace"]["dropped"]))
+    for head in ("Metrics", "Slo", "Critpath", "Autotune"):
+        if head in lines:
+            out[head.lower()] = {k: int(v) for k, v in lines[head].items()}
+    if "autotune_buckets" in meta:
+        out["autotune_buckets"] = meta["autotune_buckets"]
     if "Cache" in lines:
         cache = lines["Cache"]
         lookups = cache["hits"] + cache["misses"]
@@ -319,7 +582,10 @@ def summarize(log_dir: str) -> dict:
             "feature_gathers", "bypassed_batches")})
         out["arenas"] = meta.get("arenas")
     out["footing_problems"] = (footing_problems(meta)
-                               + trace_problems(log_dir, meta))
+                               + trace_problems(log_dir, meta)
+                               + metrics_problems(log_dir, meta)
+                               + critpath_problems(log_dir, meta)
+                               + autotune_problems(meta))
     profile = os.path.join(log_dir, "profile.json")
     if os.path.exists(profile):
         with open(profile) as f:

@@ -27,7 +27,14 @@ The hot loop carries the tracing layer's spans
 (:mod:`rnb_tpu_torch.trace`: ``exec{i}.queue_get``, ``hold_wait``,
 ``model_call``, ``device_sync``, ``publish``) and the host profiler's
 sections (:mod:`rnb_tpu_torch.hostprof`), each one ``None`` or bool
-test when off.
+test when off. With the live-metrics plane on, the stage's cache and
+staging pool become poll sources before the start barrier and the
+final step feeds its completions to the SLO layer
+(:mod:`rnb_tpu_torch.metrics`). A stage with ``SUPPORTS_AUTOTUNE`` gets
+the job's controller (:mod:`rnb_tpu_torch.autotune`) unless its step
+opts out; the executor feeds it the client's enqueue stamps and, for
+stages that do not report their own service, each arrival-triggered
+dispatch's ``inference{i}_start`` -> ``_finish`` span.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from rnb_tpu_torch import hostprof, trace
+from rnb_tpu_torch import hostprof, metrics, trace
 from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, EdgeTracker,
                                    InferenceCounter, RingCredits,
                                    TerminationFlag, TerminationState,
@@ -162,6 +169,13 @@ class RunnerContext:
     #: ``enable_trace`` get it before the start barrier, and the final
     #: step's summary writes the ``# phases`` trailer
     tracer: Any = None
+    #: the job's AutotuneSettings when this step takes part (root
+    #: ``autotune`` key, and the step did not opt out)
+    autotune: Any = None
+    #: controller-owning stages append their final snapshot here
+    autotune_sink: Optional[List] = None
+    #: critpath runs: the final step's summary writes ``# critpath``
+    critpath: bool = False
 
 
 def validate_payload(declared, payload, where: str) -> None:
@@ -266,7 +280,11 @@ def runner(ctx: RunnerContext) -> None:
     if summary is not None and ctx.tracer is not None:
         summary.track_phases = True
         summary.phase_num_skips = NUM_SUMMARY_SKIPS
+    if summary is not None and ctx.critpath:
+        summary.track_critpath = True
+        summary.critpath_num_skips = NUM_SUMMARY_SKIPS
     model = None
+    controller = None
     declared = None
     warmup_s = 0.0
     try:
@@ -286,6 +304,13 @@ def runner(ctx: RunnerContext) -> None:
         if ctx.tracer is not None and hasattr(model, "enable_trace"):
             # refinement stamps and the stage's counter sources
             model.enable_trace(ctx.tracer, ctx.step_idx)
+        if ctx.autotune is not None and getattr(model, "SUPPORTS_AUTOTUNE",
+                                                False):
+            # over the stage's own warmed buckets
+            controller = model.enable_autotune(ctx.autotune)
+        # the stage's cache and staging pool become poll sources of the
+        # live-metrics registry before the barrier (no-op when off)
+        metrics.register_stage(model)
     except Exception:
         traceback.print_exc()
         ctx.termination.raise_flag(TerminationFlag.INTERNAL_ERROR)
@@ -322,6 +347,10 @@ def runner(ctx: RunnerContext) -> None:
     pending: deque = deque()  # (handle, non_tensors, time_card)
     idle_poll = getattr(model, "poll", None)
     take_ready = getattr(model, "take_ready", None)
+    # the executor feeds the controller's service estimator unless the
+    # stage reports its own
+    service_feed = controller is not None and not getattr(
+        model, "AUTOTUNE_SELF_SERVICE", False)
     where = "step %d %s" % (ctx.step_idx, ctx.model_class_path)
     key_start = "inference%d_start" % ctx.step_idx
     key_finish = "inference%d_finish" % ctx.step_idx
@@ -340,6 +369,10 @@ def runner(ctx: RunnerContext) -> None:
     saw_marker = False
     try:
         while model is not None and not ctx.termination.terminated:
+            # set where an arrival was dispatched by the stage call: only
+            # such a dispatch's start -> finish span is service (a polled
+            # or flushed emission's last start predates it by the hold)
+            arrival = False
             result = take_ready() if take_ready is not None else None
             if result is None and prefetch_depth > 0:
                 while not saw_marker and len(pending) < prefetch_depth + 1:
@@ -398,9 +431,17 @@ def runner(ctx: RunnerContext) -> None:
                     time_card.add_device(ctx.device.label)
                     time_card.record(key_runner)
                     time_card.record(key_start)
+                    if controller is not None:
+                        # arrival-rate estimator: the client's wall-clock
+                        # enqueue stamps (no clock read here)
+                        for tc in cards_of(time_card):
+                            t_enq = tc.timings.get("enqueue_filename")
+                            if t_enq is not None:
+                                controller.observe_enqueue(t_enq)
                     with hostprof.section(tr_model_call), \
                             trace.span(tr_model_call, _rid(time_card)):
                         result = model(payload, non_tensors, time_card)
+                    arrival = True
                     if result[2] is None:
                         trace.instant(tr_swallow, rid=_rid(time_card))
             tensors_out, non_tensors_out, time_card = result
@@ -412,6 +453,17 @@ def runner(ctx: RunnerContext) -> None:
                         trace.span(tr_device_sync, _rid(time_card)):
                     _sync(tensors_out)
             time_card.record(key_finish)
+            if service_feed and arrival and tensors_out:
+                # per shipped row bucket: the LAST-swallowed
+                # constituent's start -> the finish (earlier ones' starts
+                # include their accumulate hold)
+                cards = cards_of(time_card)
+                t_fin = cards[0].timings[key_finish]
+                t_sta = max(tc.timings.get(key_start, t_fin) for tc in cards)
+                out_pb = tensors_out[0]
+                controller.observe_service(
+                    out_pb.valid if isinstance(out_pb, RaggedBatch)
+                    else int(out_pb.data.shape[0]), max(0.0, t_fin - t_sta))
             if ctx.out_queues is not None:
                 with hostprof.section(sec_publish), \
                         trace.span(tr_publish, _rid(time_card)):
@@ -428,8 +480,12 @@ def runner(ctx: RunnerContext) -> None:
                 n = (len(time_card) if isinstance(time_card, TimeCardList)
                      else 1)
                 old, new = ctx.counter.add(n)
-                for tc in cards_of(time_card):
+                cards = cards_of(time_card)
+                for tc in cards:
                     summary.register(tc)
+                # the SLO layer's feed: a merged segment card is one
+                # completion (one None test when metrics are off)
+                metrics.completions(cards)
             if new >= ctx.num_videos:
                 if old < ctx.num_videos:
                     ctx.termination.raise_flag(
@@ -471,6 +527,9 @@ def runner(ctx: RunnerContext) -> None:
             ctx.compile_sink.append(
                 (ctx.step_idx, warmup_s, compile_tracker.snapshot()
                  if compile_tracker is not None else None))
+        if controller is not None and ctx.autotune_sink is not None:
+            # the stage is drained: the counters are final
+            ctx.autotune_sink.append(controller.snapshot())
         graph_stats = getattr(model, "graph_stats", None)
         if graph_stats is not None and ctx.graph_sink is not None:
             ctx.graph_sink.append((ctx.step_idx, dict(graph_stats)))

@@ -28,8 +28,11 @@ aggregating step merges the k cards back into one
 stamps after it once per segment with a ``-{sub_id}`` suffix.
 
 The module also declares the names the tracing layer emits
-(:data:`TRACE_EVENT_REGISTRY`) and the stamps only a traced run records
-(:data:`TRACE_STAMP_REGISTRY`).
+(:data:`TRACE_EVENT_REGISTRY`), the stamps only a traced run records
+(:data:`TRACE_STAMP_REGISTRY`), the live-metric series the metrics plane
+may hold (:data:`METRIC_REGISTRY`; the registry raises on any other
+name) and the log-meta lines of the metrics, critpath and autotune
+planes (:data:`META_LINE_REGISTRY`).
 """
 
 from __future__ import annotations
@@ -236,6 +239,10 @@ class TimeCardSummary:
         #: opts the summary in), over records after the skip
         self.track_phases = False
         self.phase_num_skips = 0
+        #: the ``# critpath`` trailer, on critpath runs only (root
+        #: ``critpath`` key), over records after the skip
+        self.track_critpath = False
+        self.critpath_num_skips = 0
 
     def register(self, time_card: TimeCard) -> None:
         if not self.summary:
@@ -316,6 +323,28 @@ class TimeCardSummary:
                 % (self.num_cache_hits, self.num_cache_coalesced,
                    self.num_cache_tracked))
 
+    def steady_rows(self, num_skips: int = 0):
+        """Each record's stamp mapping after ``num_skips``, in
+        registration order: the critical-path aggregation's input."""
+        if len(self.keys) < 2:
+            return
+        columns = [self.summary[key][num_skips:] for key in self.keys]
+        for row in zip(*columns):
+            yield dict(zip(self.keys, row))
+
+    def critpath_line(self) -> Optional[str]:
+        """The ``# critpath`` trailer (microseconds blocked per
+        ``<class><step>`` segment), or None off critpath runs or without
+        a decomposable record."""
+        if not self.track_critpath:
+            return None
+        from rnb_tpu_torch.critpath import trailer_totals
+        n, totals = trailer_totals(self.steady_rows(self.critpath_num_skips))
+        if not n:
+            return None
+        return " ".join(["# critpath n=%d" % n] + [
+            "%s_us=%d" % (key, totals[key]) for key in sorted(totals)])
+
     def phase_samples(self, num_skips: int = 0):
         """{phase: [per-request ms]} over records after ``num_skips``:
         :func:`rnb_tpu_torch.trace.attribute_phases` of each row, whose
@@ -378,7 +407,7 @@ class TimeCardSummary:
                                       if col < len(step_devices) else "-"))
             fp.write("\n")
         for trailer in (self.cache_line(), self.padding_line(),
-                        self.phases_line()):
+                        self.phases_line(), self.critpath_line()):
             if trailer is not None:
                 fp.write(trailer + "\n")
 
@@ -443,9 +472,155 @@ TRACE_EVENT_REGISTRY = (
     StampSpec("batcher.emit", "rnb_tpu_torch/batcher.py",
               "instant: the Batcher fused and emitted one batch (args: "
               "requests, rows)"),
+    StampSpec("autotune.decision", "rnb_tpu_torch/autotune.py",
+              "instant: one BatchController decision (args: verdict, "
+              "target_rows, hold_ms)"),
     StampSpec("queue.filename.depth", "rnb_tpu_torch/benchmark.py",
               "counter (sampled): client filename queue depth"),
     StampSpec("queue.e{step}.depth", "rnb_tpu_torch/benchmark.py",
               "counter (sampled): inter-stage queue depth, by edge "
               "ordinal"),
+)
+
+
+#: the log-meta lines of the metrics, critpath and autotune planes, each
+#: written only when its root config key is on
+META_LINE_REGISTRY = (
+    StampSpec("Metrics:", "rnb_tpu_torch/benchmark.py",
+              "live-metrics plane counters: interval snapshots appended "
+              "to metrics.jsonl, distinct series, flight dumps written and "
+              "triggers observed"),
+    StampSpec("Slo:", "rnb_tpu_torch/benchmark.py",
+              "SLO ledger: completions tracked / within their budget / "
+              "missed, and the run's peak burn rate in milli-units (1000 = "
+              "consuming the error budget exactly)"),
+    StampSpec("Critpath:", "rnb_tpu_torch/benchmark.py",
+              "critical-path counters (rnb_tpu_torch.critpath): requests "
+              "whose blocking chain was recovered, chain segments, worst "
+              "partition residual (us), hedge-won and redispatched "
+              "completions, and the binding stage's throughput bound "
+              "(bound_step / bound_vps_milli)"),
+    StampSpec("Critpath stages:", "rnb_tpu_torch/benchmark.py",
+              "JSON per-stage blocking attribution: lanes, blocked totals "
+              "and means per class, occupied ms and the stage's bound"),
+    StampSpec("Autotune:", "rnb_tpu_torch/benchmark.py",
+              "BatchController counters (rnb_tpu_torch.autotune): "
+              "decisions, immediate / held verdicts, emissions and the "
+              "held deadlines' min / max / sum in microseconds"),
+    StampSpec("Autotune buckets:", "rnb_tpu_torch/benchmark.py",
+              "JSON {row bucket: emissions} of the controlled stages"),
+)
+
+
+#: one declared live-metric series: ``kind`` is counter, gauge, rate or
+#: histogram; ``source`` says where its samples come from: ``site`` (a
+#: ``metrics.counter/gauge/observe/mark`` call), ``bridge`` (the
+#: same-named trace span or instant, through the SpanBridge), ``poll``
+#: (a subsystem's ``snapshot()`` read each flusher tick) or ``derived``
+#: (computed inside the registry)
+MetricSpec = namedtuple("MetricSpec",
+                        ("pattern", "kind", "source", "description"))
+
+#: every live-metric series the port may write into
+#: ``logs/<job>/metrics.jsonl`` and ``metrics.prom`` — the names and
+#: kinds of the reference's registry, for the signals the port has
+METRIC_REGISTRY = (
+    MetricSpec("client.arrivals", "rate", "site",
+               "windowed request arrival rate at the client"),
+    MetricSpec("client.requests", "counter", "site",
+               "requests the client has created"),
+    MetricSpec("exec{step}.queue_get", "histogram", "bridge",
+               "executor input-queue starvation wait (ms)"),
+    MetricSpec("exec{step}.hold_wait", "histogram", "bridge",
+               "executor batch-fill hold wait (ms)"),
+    MetricSpec("exec{step}.model_call", "histogram", "bridge",
+               "stage call service time (ms)"),
+    MetricSpec("exec{step}.device_sync", "histogram", "bridge",
+               "wait for the stage's device work (ms)"),
+    MetricSpec("exec{step}.publish", "histogram", "bridge",
+               "route, segment split and downstream enqueue (ms)"),
+    MetricSpec("loader.emit", "histogram", "bridge",
+               "fused-batch take, assembly and handoff (ms)"),
+    MetricSpec("loader.transfer", "histogram", "bridge",
+               "host->device copy and its confirmation (ms)"),
+    MetricSpec("staging.acquire_wait", "histogram", "bridge",
+               "staging-slot exhaustion wait (ms)"),
+    MetricSpec("batcher.emit", "counter", "bridge",
+               "Batcher fused emissions"),
+    MetricSpec("autotune.decision", "counter", "bridge",
+               "BatchController decisions"),
+    MetricSpec("queue.filename.depth", "gauge", "site",
+               "client filename queue depth (saturation-armed)"),
+    MetricSpec("queue.e{step}.depth", "gauge", "site",
+               "inter-stage queue depth by edge ordinal "
+               "(saturation-armed)"),
+    MetricSpec("autotune.arrival_hz", "gauge", "site",
+               "controller arrival-rate EWMA at the last decision"),
+    MetricSpec("autotune.target_rows", "gauge", "site",
+               "controller target row count at the last decision"),
+    MetricSpec("cache.hits", "counter", "poll", "clip-cache lookup hits"),
+    MetricSpec("cache.misses", "counter", "poll",
+               "clip-cache lookup misses"),
+    MetricSpec("cache.inserts", "counter", "poll", "clip-cache inserts"),
+    MetricSpec("cache.evictions", "counter", "poll",
+               "clip-cache LRU evictions"),
+    MetricSpec("cache.coalesced", "counter", "poll",
+               "requests that shared an in-flight decode"),
+    MetricSpec("cache.oversize", "counter", "poll",
+               "entries skipped as larger than the whole budget"),
+    MetricSpec("cache.bytes_resident", "gauge", "poll",
+               "resident cache bytes"),
+    MetricSpec("cache.entries", "gauge", "poll", "resident cache entries"),
+    MetricSpec("staging.acquires", "counter", "poll",
+               "staging-slot acquires"),
+    MetricSpec("staging.acquire_waits", "counter", "poll",
+               "staging-slot exhaustion waits"),
+    MetricSpec("staging.staged_batches", "counter", "poll",
+               "emissions decoded in place"),
+    MetricSpec("staging.copied_batches", "counter", "poll",
+               "emissions with a row copied in on the host"),
+    MetricSpec("staging.slots", "gauge", "poll", "allocated staging slots"),
+    MetricSpec("pages.allocs", "counter", "poll",
+               "pages popped off arena free lists"),
+    MetricSpec("pages.frees", "counter", "poll",
+               "pages returned to arena free lists"),
+    MetricSpec("pages.alloc_fails", "counter", "poll",
+               "page allocations refused for lack of free pages"),
+    MetricSpec("pages.gathers", "counter", "poll",
+               "clip-arena gather kernels launched"),
+    MetricSpec("pages.gather_rows", "counter", "poll",
+               "rows overlaid from clip pages onto emission pools"),
+    MetricSpec("pages.feature_lookups", "counter", "poll",
+               "feature-page probes at admission"),
+    MetricSpec("pages.feature_hits", "counter", "poll",
+               "feature-page hits (decode, transfer and forward skipped)"),
+    MetricSpec("pages.feature_inserts", "counter", "poll",
+               "feature entries written after a forward"),
+    MetricSpec("pages.feature_evictions", "counter", "poll",
+               "feature entries evicted to fit an insert"),
+    MetricSpec("pages.feature_gathers", "counter", "poll",
+               "feature-arena gather kernels launched"),
+    MetricSpec("pages.feature_gather_rows", "counter", "poll",
+               "output rows gathered from feature pages"),
+    MetricSpec("pages.feature_bytes_saved", "counter", "poll",
+               "wire bytes feature hits did not ship"),
+    MetricSpec("pages.live", "gauge", "poll",
+               "pages off the free lists across arenas"),
+    MetricSpec("pages.limbo", "gauge", "poll",
+               "evicted pages still pinned"),
+    MetricSpec("pages.bytes", "gauge", "poll", "total arena slab bytes"),
+    MetricSpec("slo.good", "rate", "derived",
+               "windowed within-budget completions"),
+    MetricSpec("slo.miss", "rate", "derived",
+               "windowed completions past their budget"),
+    MetricSpec("slo.tracked", "counter", "derived",
+               "completions the SLO layer observed"),
+    MetricSpec("slo.within", "counter", "derived",
+               "completions inside their budget"),
+    MetricSpec("slo.missed", "counter", "derived",
+               "completions outside their budget"),
+    MetricSpec("slo.goodput_vps", "gauge", "derived",
+               "windowed within-budget goodput (completions/s)"),
+    MetricSpec("slo.burn_rate", "gauge", "derived",
+               "windowed miss fraction / error budget"),
 )

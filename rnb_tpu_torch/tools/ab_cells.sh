@@ -11,8 +11,10 @@
 # Cells: yuv (configs/rnb-fused-yuv-ragged.json), dct
 # (configs/rnb-fused-dct-ragged.json over synth:// ids), big
 # (configs/rnb-fused-yuv-big.json), rnb (configs/rnb-1chip.json),
-# torchckpt (configs/rnb-fused-yuv-big-torchckpt.json) and mid
-# (configs/rnb-fused-yuv-mid.json); yuv, dct and big when none is named.
+# torchckpt (configs/rnb-fused-yuv-big-torchckpt.json), mid
+# (configs/rnb-fused-yuv-mid.json), staged (configs/rnb-fused-yuv-
+# staged.json) and traced (configs/rnb-fused-yuv-traced.json); yuv, dct
+# and big when none is named.
 # RNB_MEASURE_VIDEOS sets the request count per run (2000).
 # RNB_AB_TURNS sets the turns (default "A1 B1 B2 A2"): a turn is an arm
 # letter and a number, A for checkout A, B for this checkout, N for this
@@ -40,6 +42,8 @@ run() {  # run <turn> <cell>
     rnb) cfg=configs/rnb-1chip.json ;;
     torchckpt) cfg=configs/rnb-fused-yuv-big-torchckpt.json ;;
     mid) cfg=configs/rnb-fused-yuv-mid.json ;;
+    staged) cfg=configs/rnb-fused-yuv-staged.json ;;
+    traced) cfg=configs/rnb-fused-yuv-traced.json ;;
     *) echo "unknown cell $2" >&2; exit 2 ;;
   esac
   case $1 in

@@ -12,14 +12,21 @@
 # copy of configs/r2p1d-segment.json, every device index >= 0 made 0,
 # written beside the dataset), traced (configs/rnb-fused-yuv-traced.json)
 # and staged (configs/rnb-fused-yuv-staged.json, the traced cell without
-# its trace key); all but dct over a generated y4m dataset. With
+# its trace key); metrics (configs/rnb-fused-yuv-metrics.json, the staged
+# cell with the live-metrics plane), autotune (configs/rnb-fused-yuv-
+# autotune.json, the staged cell with the batch controller) and critpath
+# (the traced cell with the root "critpath" key, written beside the
+# dataset); all but dct over a generated y4m dataset. With
 # RNB_HOST_PROFILE=1 in the environment every run also writes
 # hostprof.txt, and its sections are printed at the end.
 # RNB_MEASURE_VIDEOS sets the bulk request count
 # (2000; the Poisson runs take half). Each
 # phase runs every chosen cell before the next phase starts: bulk, bulk
-# with --profile, Poisson at a 20 ms mean interval, and bulk again; then
-# one summary line per run from rnb_tpu_torch/parse_utils.py. Run from
+# with --profile (skipped with RNB_MEASURE_PROFILE=0), Poisson at each
+# mean interval of RNB_MEASURE_INTERVALS in turn ("20" when unset), and
+# bulk again; then one summary line per run from
+# rnb_tpu_torch/parse_utils.py (with the Autotune:, Metrics: and
+# Critpath: counters where the run has them). Run from
 # the root of a checkout:
 #
 #     bash rnb_tpu_torch/tools/measure_cells.sh [out_dir] [cell ...]
@@ -39,6 +46,12 @@ python3 - "$data/r2p1d-whole-ragged.json" <<'PY'
 import json, sys
 raw = json.load(open("configs/r2p1d-whole.json"))
 raw["ragged"] = {"enabled": True}
+json.dump(raw, open(sys.argv[1], "w"))
+PY
+python3 - "$data/rnb-fused-yuv-traced-critpath.json" <<'PY'
+import json, sys
+raw = json.load(open("configs/rnb-fused-yuv-traced.json"))
+raw["critpath"] = {"enabled": True}
 json.dump(raw, open(sys.argv[1], "w"))
 PY
 python3 - "$data/r2p1d-segment-1card.json" <<'PY'
@@ -66,27 +79,34 @@ run() {  # run <cell> <args...>
     segment) cfg=$data/r2p1d-segment-1card.json ;;
     traced) cfg=configs/rnb-fused-yuv-traced.json ;;
     staged) cfg=configs/rnb-fused-yuv-staged.json ;;
+    metrics) cfg=configs/rnb-fused-yuv-metrics.json ;;
+    autotune) cfg=configs/rnb-fused-yuv-autotune.json ;;
+    critpath) cfg=$data/rnb-fused-yuv-traced-critpath.json ;;
     *) echo "unknown cell $cell" >&2; exit 2 ;;
   esac
   if [ "$cell" = dct ]; then
-    env -u RNB_TPU_DATA_ROOT python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages)"
+    env -u RNB_TPU_DATA_ROOT python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath)"
   else
-    RNB_TPU_DATA_ROOT="$data" python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages)"
+    RNB_TPU_DATA_ROOT="$data" python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath)"
   fi
 }
 for c in $cells; do echo "== $c bulk"; run $c -mi 0 -v $videos; done
-for c in $cells; do echo "== $c bulk profile"; run $c -mi 0 -v $videos --profile; done
-for c in $cells; do echo "== $c poisson 20"; run $c -mi 20 -v $((videos / 2)); done
+if [ "${RNB_MEASURE_PROFILE:-1}" != 0 ]; then
+  for c in $cells; do echo "== $c bulk profile"; run $c -mi 0 -v $videos --profile; done
+fi
+for mi in ${RNB_MEASURE_INTERVALS:-20}; do
+  for c in $cells; do echo "== $c poisson $mi"; run $c -mi $mi -v $((videos / 2)); done
+done
 for c in $(echo $cells | tr ' ' '\n' | tac); do echo "== $c bulk (2nd)"; run $c -mi 0 -v $videos; done
 python3 -m rnb_tpu_torch.parse_utils $out/*/ > $out/summary.jsonl
 cat $out/summary.jsonl | python3 -c "
 import sys, json
 for line in sys.stdin:
     d = json.loads(line); fam = d.get('kernel_families') or {}
-    print(d['log_dir'].split('/')[-2], d['config'].split('/')[-1], d['mean_interval_ms'], d['pixel_path'], d['decode_backend'], 'vps=%.3f' % d['videos_per_s'], 'cps=%.1f' % d['clips_per_s'], 'em=%d' % d['emissions'], 'svc=%.2f' % d['runner_service_ms'], 'wait=%s' % d['runner_wait_ms'], 'svc_by_step=%s' % json.dumps(d.get('service_ms_by_step')), 'em_by_step=%s' % json.dumps(d.get('emissions_by_step')), 'trace_events=%s' % d.get('trace_events'), 'kms/em=%s' % d.get('kernel_ms_per_emission'), 'busy=%s' % d.get('busy_share'), 'ingest=%s' % fam.get('ingest'), 'gather=%s' % fam.get('gather'), 'hit_rate=%s' % d.get('cache_hit_rate'), 'feature_hits=%s' % d.get('pages_feature_hits'), 'gathers=%s' % d.get('pages_gathers'), 'footing=%s' % d['footing_problems'])
+    print(d['log_dir'].split('/')[-2], d['config'].split('/')[-1], d['mean_interval_ms'], d['pixel_path'], d['decode_backend'], 'vps=%.3f' % d['videos_per_s'], 'cps=%.1f' % d['clips_per_s'], 'em=%d' % d['emissions'], 'svc=%.2f' % d['runner_service_ms'], 'wait=%s' % d['runner_wait_ms'], 'svc_by_step=%s' % json.dumps(d.get('service_ms_by_step')), 'em_by_step=%s' % json.dumps(d.get('emissions_by_step')), 'trace_events=%s' % d.get('trace_events'), 'kms/em=%s' % d.get('kernel_ms_per_emission'), 'busy=%s' % d.get('busy_share'), 'ingest=%s' % fam.get('ingest'), 'gather=%s' % fam.get('gather'), 'hit_rate=%s' % d.get('cache_hit_rate'), 'feature_hits=%s' % d.get('pages_feature_hits'), 'gathers=%s' % d.get('pages_gathers'), 'autotune=%s' % json.dumps(d.get('autotune')), 'autotune_buckets=%s' % json.dumps(d.get('autotune_buckets')), 'metrics=%s' % json.dumps(d.get('metrics')), 'slo=%s' % json.dumps(d.get('slo')), 'critpath=%s' % json.dumps(d.get('critpath')), 'footing=%s' % d['footing_problems'])
 "
 for f in $out/*/hostprof.txt; do
   [ -f "$f" ] && { echo "== $f"; head -n 40 "$f"; }
 done
-grep -H "Staging\|Profile\|Pages\|Cache\|Graphs\|Warmup\|Trace" $out/*/log-meta.txt
+grep -H "Staging\|Profile\|Pages\|Cache\|Graphs\|Warmup\|Trace\|Autotune\|Metrics\|Slo\|Critpath" $out/*/log-meta.txt
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader

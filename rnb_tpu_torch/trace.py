@@ -244,10 +244,12 @@ class Tracer:
 
 
 def export_events(events: List[Tuple], dropped: int, path: str,
-                  job_id: str = "") -> int:
+                  job_id: str = "", extra: Optional[dict] = None) -> int:
     """Export one event list — ``(name, ph, t0, dur_s, thread_name,
     rid, args)`` tuples, the :class:`Tracer` collection schema — as
-    Chrome-trace JSON (:meth:`Tracer.export`)."""
+    Chrome-trace JSON: :meth:`Tracer.export` and the flight recorder's
+    dumps (rnb_tpu_torch.metrics), whose ``extra`` keys (the trigger,
+    the metric window) land in ``otherData``."""
     events = sorted(events, key=lambda e: e[2])
     t_base = events[0][2] if events else 0.0
     tids: Dict[str, int] = {}
@@ -366,6 +368,8 @@ def export_events(events: List[Tuple], dropped: int, path: str,
              "num_flows": num_flows,
              "dropped_events": dropped,
              "t_base_epoch_s": t_base}
+    if extra:
+        other.update(extra)
     doc = {"traceEvents": meta + out,
            "displayTimeUnit": "ms",
            "otherData": other}

@@ -355,6 +355,10 @@ def _one_device_configs():
 
 
 def test_seventeen_of_the_one_device_configs_read():
+    """Nineteen of the 23 one-device configs now read (the name counts
+    the configs read before the metrics and autotune planes were
+    ported); each of the four others is refused by the first key the
+    reader does not port."""
     read, refused = [], {}
     for name in _one_device_configs():
         try:
@@ -363,13 +367,12 @@ def test_seventeen_of_the_one_device_configs_read():
             read.append(name)
         except ConfigError as e:
             refused[name] = str(e)
-    assert len(read) + len(refused) == 23 and len(read) == 17
-    assert "rnb-fused-yuv-traced.json" in read
+    assert len(read) + len(refused) == 23 and len(read) == 19
+    assert {"rnb-fused-yuv-traced.json", "rnb-fused-yuv-metrics.json",
+            "rnb-fused-yuv-autotune.json"} <= set(read)
     assert {name: msg.split("'")[1] for name, msg in refused.items()} == {
-        "rnb-fused-yuv-autotune.json": "autotune",
-        "rnb-fused-yuv-devobs.json": "metrics",
-        "rnb-fused-yuv-metrics.json": "metrics",
-        "rnb-fused-yuv-operator.json": "metrics",
+        "rnb-fused-yuv-devobs.json": "devobs",
+        "rnb-fused-yuv-operator.json": "operator",
         "rnb-netedge-loopback.json": "netedge",
         "rnb-netedge-off.json": "netedge"}
 

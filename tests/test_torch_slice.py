@@ -516,10 +516,11 @@ def _base_raw():
 
 @pytest.mark.parametrize("where,key,value", [
     ("root", "cache", {"mb": 64}),
-    ("root", "metrics", {"interval_ms": 100}),
     ("root", "shard", {}),
-    ("root", "autotune", {"enabled": True}),
-    ("loader", "autotune", True),
+    ("root", "devobs", {"capture_window_ms": 300}),
+    ("root", "operator", {"enabled": True}),
+    ("root", "whatif", {"enabled": True}),
+    ("root", "netedge", {"enabled": True}),
     ("loader", "pixel_path", "nv12"),
     ("runner", "pixel_path", "nv12"),
     ("runner", "shard", {"degree": 2}),
@@ -540,6 +541,75 @@ def test_unported_keys_are_refused(where, key, value):
     target[key] = value
     with pytest.raises(ConfigError, match="not yet ported"):
         parse_config(raw, platform="cpu")
+
+
+@pytest.mark.parametrize("where,key,value", [
+    ("root", "metrics", {"interval_ms": 100}),
+    ("root", "metrics", {"flight_recorder": {"ring_events": 64,
+                                             "queue_saturation": 1}}),
+    ("root", "autotune", {"enabled": True}),
+    ("root", "autotune", {"slo_ms": 20, "buckets": [6, 15]}),
+    ("root", "critpath", {"enabled": True}),
+    ("loader", "autotune", True),
+    ("runner", "autotune", False),
+])
+def test_ported_plane_keys_are_read(where, key, value):
+    raw = _base_raw()
+    target = {"root": raw, "loader": raw["pipeline"][0],
+              "runner": raw["pipeline"][1]}[where]
+    target[key] = value
+    config = parse_config(raw, platform="cpu")
+    if where == "root":
+        assert getattr(config, key) == value
+    else:
+        step = config.steps[where == "runner"]
+        assert step.autotune is value and key not in step.kwargs
+
+
+def test_the_critpath_copy_of_the_traced_config_is_read(tmp_path):
+    with open(os.path.join(REPO, "configs/rnb-fused-yuv-traced.json")) as f:
+        raw = json.load(f)
+    raw["critpath"] = {"enabled": True}
+    path = str(tmp_path / "rnb-fused-yuv-traced-critpath.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    config = load_config(path, platform="cpu")
+    assert config.critpath == {"enabled": True}
+    assert config.trace["enabled"] is True
+
+
+@pytest.mark.parametrize("where,key,value", [
+    ("root", "metrics", {"enabled": "yes"}),
+    ("root", "metrics", {"interval_ms": 0}),
+    ("root", "metrics", {"interval_ms": -5}),
+    ("root", "metrics", {"flight_recorder": {"rings": 4}}),
+    ("root", "metrics", {"flight_recorder": {"ring_events": 0}}),
+    ("root", "metrics", {"flight_recorder": {"queue_saturation": 1.5}}),
+    ("root", "metrics", {"flight_recorder": "on"}),
+    ("root", "metrics", {"interval": 100}),
+    ("root", "metrics", []),
+    ("root", "critpath", {"enabled": 1}),
+    ("root", "critpath", {"mode": "fast"}),
+    ("root", "autotune", {"enabled": "true"}),
+    ("root", "autotune", {"slo_ms": 0}),
+    ("root", "autotune", {"slo_ms": "50"}),
+    ("root", "autotune", {"ewma_alpha": 1.5}),
+    ("root", "autotune", {"min_hold_ms": 5, "max_hold_ms": 1}),
+    ("root", "autotune", {"buckets": [6, 6]}),
+    ("root", "autotune", {"budget": 3}),
+    ("loader", "autotune", "no"),
+])
+def test_bad_plane_values_fail_with_the_reference_message(where, key,
+                                                          value):
+    from rnb_tpu import config as jax_config
+    raw = _base_raw()
+    target = {"root": raw, "loader": raw["pipeline"][0]}[where]
+    target[key] = value
+    with pytest.raises(jax_config.ConfigError) as jax_error:
+        jax_config.parse_config(json.loads(json.dumps(raw)))
+    with pytest.raises(ConfigError) as port_error:
+        parse_config(raw, platform="cpu")
+    assert str(port_error.value) == str(jax_error.value)
 
 
 @pytest.mark.parametrize("base,where,value", [
