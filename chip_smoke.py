@@ -122,6 +122,30 @@ Phases (any failure exits non-zero and prints no result line):
    step a step of the pipeline and the ``# critpath`` trailer written.
    Each of them launches ``yuv420_normalize`` once per emission and has
    one request's logits held to the CPU recompute.
+   Then fault containment and deadlines: the staged cell's chaos copy
+   (``rnb_tpu_torch/tools/chaos.py``: ``overload_policy`` shed, two
+   retries 5 ms apart on both steps, a 1000 ms deadline, a seeded plan
+   with permanent faults at step 0 on requests 2 and 5, transients at
+   step 1 on 1 and 13, and 1500 ms stalls at step 1 on request 20 and at
+   step 0 on 60), over a copy of the dataset that adds one video whose
+   header probes and whose decode fails (request 8 draws it first), in
+   bulk (64 requests) and as a burst (a Poisson mean of 1 ms into queues
+   4 deep, 200 requests): completed + failed + shed equal to the
+   requests in bulk (at least the target in the burst), the dead
+   letters the plan's permanent ids (all of them in bulk) and the broken
+   video's requests (request 8 in bulk), the broken decode failing
+   inside a fused take whose other requests are served (in bulk), the
+   retries the transient firings, each retry's staged input bitwise the
+   first attempt's, each retried request's logits bitwise those of a
+   fault-free replay of that input on the same captured graph and held
+   to the CPU recompute, at least one deadline shed (``Deadline sites:`` cross-footed
+   with ``Shed sites:``; in bulk one at step 1's queue take), client
+   sheds in the burst, no graph captured
+   after the warm-ups, and the port's ``parse_utils`` checks passing on
+   each job directory; last, ``configs/r2p1d-tiny-shed.json`` with its
+   devices 0 and 1 made 0 (32 requests in bulk: the rgb loader and
+   ``normalize_u8`` once per request, a narrow 8-class runner), its
+   logs through ``parse_utils`` and two requests recomputed on the CPU.
    Every run: each ``R2P1DRunner`` forward in the window is one replay
    of a captured CUDA graph (``Graphs:`` replays == ``Compiles:``
    steady calls, or requests for the single step), no signature is new
@@ -164,10 +188,22 @@ AUTOTUNE_POISSON = "rnb-fused-yuv-autotune-poisson"
 #: the traced config with the root ``critpath`` key, written next to the
 #: dataset
 CRITPATH = "rnb-fused-yuv-traced-critpath"
-#: the runs of the metrics, autotune and critpath planes, served last
+#: the runs of the metrics, autotune and critpath planes
 PLANES = (METRICS, AUTOTUNE, AUTOTUNE_POISSON, CRITPATH)
+STAGED = "configs/rnb-fused-yuv-staged.json"
+#: the staged cell's chaos copy (rnb_tpu_torch/tools/chaos.py), written
+#: next to the dataset: in bulk, then as a burst (a Poisson mean of 1 ms
+#: into queues 4 deep, so the client sheds); served after the planes
+CHAOS = "rnb-fused-yuv-staged-chaos"
+CHAOS_BURST = "rnb-fused-yuv-staged-chaos-burst"
+CHAOS_RUNS = (CHAOS, CHAOS_BURST)
+BURST_QUEUE = 4
+TINY_SHED = "configs/r2p1d-tiny-shed.json"
+#: the shipped tiny-shed config with its devices 0 and 1 made 0, served
+#: last
+TINY_SHED_COPY = "r2p1d-tiny-shed-1card"
 #: mean Poisson gap of the open-loop runs that are not Zipf cells
-PLANE_INTERVAL_MS = {METRICS: 20, AUTOTUNE_POISSON: 25}
+PLANE_INTERVAL_MS = {METRICS: 20, AUTOTUNE_POISSON: 25, CHAOS_BURST: 1}
 #: the buckets the autotune config warms: the only ones it may choose
 AUTOTUNE_BUCKETS = {"6", "15"}
 CONFIGS = ("configs/rnb-fused-yuv-big.json",
@@ -197,7 +233,9 @@ ONE_PER_EMISSION = {"configs/rnb-fused-yuv-big.json": "yuv420_normalize",
                     TORCHCKPT: "yuv420_normalize",
                     MID: "yuv420_normalize",
                     TRACED: "yuv420_normalize",
-                    **{label: "yuv420_normalize" for label in PLANES}}
+                    TINY_SHED_COPY: "normalize_u8",
+                    **{label: "yuv420_normalize"
+                       for label in PLANES + CHAOS_RUNS}}
 #: the kernels each run launches, and no others
 PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 CONFIGS[2]: {"dct_ingest"},
@@ -210,7 +248,8 @@ PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 RNB: {"normalize_u8"}, NOPIPELINE: {"normalize_u8"},
                 TORCHCKPT: YUV_KERNELS, MID: YUV_KERNELS,
                 SEGMENT_COPY: {"normalize_u8"}, TRACED: YUV_KERNELS,
-                **{label: YUV_KERNELS for label in PLANES}}
+                TINY_SHED_COPY: {"normalize_u8"},
+                **{label: YUV_KERNELS for label in PLANES + CHAOS_RUNS}}
 #: the runs of the unfused multi-step pipeline, in serving order
 UNFUSED = (WHOLE, WHOLE_RAGGED, WHOLE_YUV, SPLIT, RNB, NOPIPELINE)
 #: the runs whose logits check_unfused_run holds to the two-step run's
@@ -233,7 +272,8 @@ DCT_GEOMETRY = (64, 176)
 VIDEOS_PER_RUN = 32
 #: requests of the configs added last (the segment copy serves the
 #: whole run's requests, which it is held to)
-FEW_VIDEOS = {TORCHCKPT: 12, MID: 12, TRACED: 12, CRITPATH: 12}
+FEW_VIDEOS = {TORCHCKPT: 12, MID: 12, TRACED: 12, CRITPATH: 12,
+              CHAOS: 64, CHAOS_BURST: 200}
 #: a captured graph against its eager forward where the two are not
 #: bitwise (a capture that changed the library's kernel choice): the
 #: float32 network's bound of tests/test_torch_network.py, relative to
@@ -1099,6 +1139,12 @@ def cpu_recompute(config_path, sink, picks, sums=None):
     loader_kwargs = config.steps[0].kwargs
     max_clips = loader_kwargs.get("max_clips", 15)
     pixel_path = loader_kwargs.get("pixel_path", "rgb")
+    # the loader's sampler (the tiny-shed config draws 1 or 2 clips of
+    # 2 frames)
+    frames = loader_kwargs.get("consecutive_frames", FRAMES)
+    population = {k: loader_kwargs[k] for k in ("num_clips_population",
+                                                "weights")
+                  if k in loader_kwargs}
     # the last network step (an aggregator may follow it)
     runner_kwargs = next(
         s.kwargs for s in reversed(config.steps)
@@ -1114,7 +1160,7 @@ def cpu_recompute(config_path, sink, picks, sums=None):
                                   factored_shortcut=factored),
         "card_f32": shared_network(*arch, card, dtype=torch.float32,
                                    factored_shortcut=factored)}
-    sampler = R2P1DSampler(consecutive_frames=FRAMES)
+    sampler = R2P1DSampler(consecutive_frames=frames, **population)
     report = dict(f32_err=0.0, served_err=0.0, cpu_bf16_err=0.0,
                   bound=0.0, argmax_agreed=0, rows=0, past_margin=0)
     for rid in picks:
@@ -1124,16 +1170,16 @@ def cpu_recompute(config_path, sink, picks, sums=None):
                                 video_id=video)[:max_clips]
         if pixel_path == "dct":
             wire = torch.from_numpy(decoder.decode_clips_dct(
-                video, starts, FRAMES, HW, HW,
+                video, starts, frames, HW, HW,
                 loader_kwargs.get("dct_coeffs_per_frame")))
             ingest = normalize_dct
         elif pixel_path == "yuv420":
             wire = torch.from_numpy(decoder.decode_clips_yuv(
-                video, starts, FRAMES, HW, HW))
+                video, starts, frames, HW, HW))
             ingest = normalize_yuv420
         else:
             wire = torch.from_numpy(decoder.decode_clips(
-                video, starts, FRAMES, HW, HW))
+                video, starts, frames, HW, HW))
 
             def ingest(frames, _height, _width):
                 return normalize_u8(frames)
@@ -1247,17 +1293,17 @@ def whole_ragged_copy(data_root) -> str:
     return path
 
 
-def segment_copy(data_root) -> str:
-    """The segment topology on one card: every device index >= 0 of
-    ``configs/r2p1d-segment.json`` made 0 (the host stays the host), a
-    temporary copy beside the dataset."""
-    with open(os.path.join(HERE, SEGMENT)) as f:
+def one_card_copy(data_root, config, name) -> str:
+    """A topology on one card: every device index >= 0 of ``config``
+    made 0 (the host stays the host), a temporary copy beside the
+    dataset."""
+    with open(os.path.join(HERE, config)) as f:
         raw = json.load(f)
     for step in raw["pipeline"]:
         for group in step["queue_groups"]:
             group["devices"] = [0 if d >= 0 else d
                                 for d in group["devices"]]
-    path = os.path.join(data_root, SEGMENT_COPY + ".json")
+    path = os.path.join(data_root, name + ".json")
     with open(path, "w") as f:
         json.dump(raw, f)
     return path
@@ -1612,6 +1658,222 @@ def check_cache_run(label, result, sink):
     return page_hits[0] if page_hits else None
 
 
+class RetryRecorder:
+    """While a chaos run serves, keep two copies of each step-1 input
+    that carries a planned transient request: one as the executor hands
+    it to the stage call, before the plan's fault fires on the first
+    attempt, and one as the retry calls the runner (the fault fires
+    before the call, so the runner sees only the retry). ``firings``
+    counts the retries; :meth:`check` holds each retry's input bitwise
+    to its first attempt's, replays that input on the run's captured
+    graph afterwards, fault-free, and holds the retried requests' served
+    logits to the replay bitwise."""
+
+    def __init__(self, transient_ids):
+        import torch
+        from rnb_tpu_torch import runner as executor
+        from rnb_tpu_torch.models.r2p1d.model import R2P1DRunner
+        from rnb_tpu_torch.telemetry import cards_of
+        self.cls, self.executor = R2P1DRunner, executor
+        self.transient = set(transient_ids)
+        self.calls = []
+        self.first = {}
+        self._original = R2P1DRunner.__call__
+        self._call_stage = executor._call_stage
+        recorder = self
+
+        def planned(time_card):
+            return [tc for tc in cards_of(time_card)
+                    if tc.id in recorder.transient]
+
+        def call_stage(ctx, model, payload, non_tensors, time_card, *rest):
+            if isinstance(model, R2P1DRunner) and planned(time_card):
+                # the transfer's copies may still be landing on another
+                # stream: the copy is of what the stage is handed
+                torch.cuda.synchronize()
+                recorder.first[id(time_card)] = payload[0].data.clone()
+            return recorder._call_stage(ctx, model, payload, non_tensors,
+                                        time_card, *rest)
+
+        def recording(runner, tensors, non_tensors, time_card):
+            cards = planned(time_card)
+            kept = tensors[0].data.clone() if cards else None
+            out = recorder._original(runner, tensors, non_tensors,
+                                     time_card)
+            if cards:
+                recorder.calls.append((
+                    runner, recorder.first.pop(id(time_card), None), kept,
+                    int(tensors[0].valid),
+                    [(tc.id, tc.row0, int(tc.num_clips)) for tc in cards]))
+            return out
+
+        R2P1DRunner.__call__ = recording
+        executor._call_stage = call_stage
+
+    def close(self) -> None:
+        self.cls.__call__ = self._original
+        self.executor._call_stage = self._call_stage
+
+    @property
+    def firings(self) -> int:
+        return len(self.calls)
+
+    @property
+    def retried(self) -> list:
+        return sorted(rid for *_rest, cards in self.calls
+                      for rid, _row0, _n in cards)
+
+    def check(self, label, sink) -> int:
+        """Each retry read its first attempt's input and each retried
+        request's served logits are bitwise the replay's; returns the
+        requests held."""
+        import numpy as np
+        import torch
+        held = 0
+        for runner, first, x, valid, cards in self.calls:
+            check(first is not None and torch.equal(first, x),
+                  "%s: the retry of requests %s read another input than "
+                  "their first attempt" % (label, [c[0] for c in cards]))
+            out = runner.forward(first, valid).to(torch.float32).cpu()
+            out = out.numpy()
+            for rid, row0, n in cards:
+                check(rid in sink, "%s: retried request %d was not served"
+                      % (label, rid))
+                check(np.array_equal(sink[rid][1], out[row0:row0 + n]),
+                      "%s: retried request %d's logits differ from the "
+                      "fault-free replay of its emission" % (label, rid))
+                held += 1
+        return held
+
+
+class TakeRecorder:
+    """While a chaos run serves, note each fused take that lost a
+    request to a failed decode: ``R2P1DFusingLoader._wait_contained``
+    returning False inside ``_emit_take``. ``shrunk`` holds, per such
+    take, the failed requests' ids and the survivors'."""
+
+    def __init__(self):
+        from rnb_tpu_torch.models.r2p1d.model import R2P1DFusingLoader
+        self.cls = R2P1DFusingLoader
+        self._emit_take = R2P1DFusingLoader._emit_take
+        self._wait = R2P1DFusingLoader._wait_contained
+        self.shrunk = []
+        self._take = None
+        recorder = self
+
+        def emit_take(loader):
+            recorder._take = []
+            try:
+                return recorder._emit_take(loader)
+            finally:
+                take, recorder._take = recorder._take, None
+                failed = [rid for ids, ok in take if not ok for rid in ids]
+                if failed:
+                    recorder.shrunk.append((failed, [
+                        rid for ids, ok in take if ok for rid in ids]))
+
+        def wait_contained(loader, rec):
+            ok = recorder._wait(loader, rec)
+            if recorder._take is not None:
+                recorder._take.append(([tc.id for tc in rec.cards], ok))
+            return ok
+
+        R2P1DFusingLoader._emit_take = emit_take
+        R2P1DFusingLoader._wait_contained = wait_contained
+
+    def close(self) -> None:
+        self.cls._emit_take = self._emit_take
+        self.cls._wait_contained = self._wait
+
+
+def check_chaos_run(label, result, sink, recorder, takes, broken_ids,
+                    stages):
+    """A chaos run: its logs pass the port's parse_utils (the fault
+    ledger's footings and cross-feet included); the dead letters are the
+    plan's permanent ids (in bulk all of them) and requests that drew the
+    broken video (in bulk the first of them), which nothing serves; each
+    request that left a fused take on a failed decode is such a dead
+    letter and the take's survivors are not; the retries are the plan's
+    transient firings, each retry read its first attempt's input and its
+    logits are bitwise the fault-free replay's; a deadline shed at
+    least, the burst's client sheds; no capture and no new signature
+    after the warm-ups. Returns the takes that lost a broken decode and
+    emitted survivors that were all served."""
+    from rnb_tpu_torch.parse_utils import read_dead_letters, summarize
+    from rnb_tpu_torch.tools import chaos
+    problems = summarize(result.log_dir)["footing_problems"]
+    check(not problems, "%s: %s" % (label, "; ".join(problems[:5])))
+    letters = read_dead_letters(result.log_dir)
+    planned = sorted(rid for rid, _step, reason in letters
+                     if reason == "injected-permanent")
+    corrupt = sorted(rid for rid, _step, reason in letters
+                     if reason == "corrupt-video")
+    check(all(step == 0 for _rid, step, _reason in letters)
+          and len(planned) + len(corrupt) == len(letters)
+          and set(planned) <= set(chaos.PERMANENT_IDS)
+          and (label != CHAOS or planned == sorted(chaos.PERMANENT_IDS)),
+          "%s: dead letters %s, the plan's permanent ids %s"
+          % (label, letters, chaos.PERMANENT_IDS))
+    check(set(corrupt) <= set(broken_ids)
+          and not set(broken_ids) & set(sink)
+          and (label != CHAOS or broken_ids[0] in corrupt),
+          "%s: of the broken video's requests %s, %s were dead-lettered "
+          "as corrupt-video and %s served"
+          % (label, broken_ids, corrupt, sorted(set(broken_ids) & set(sink))))
+    served_takes = 0
+    for failed, kept in takes.shrunk:
+        check(set(failed) <= set(corrupt)
+              and not set(kept) & {rid for rid, _s, _r in letters},
+              "%s: a take lost requests %s (dead letters %s) and kept %s"
+              % (label, failed, letters, kept))
+        served_takes += bool(kept) and set(kept) <= set(sink)
+    for step, sigs in result.compiles.items():
+        check(sigs["steady_new"] == 0, "%s: %s saw %d new signature(s) "
+              "after the warm-ups (takes that lost a decode: %s)"
+              % (label, step, sigs["steady_new"], takes.shrunk))
+    check(result.num_retries == recorder.firings,
+          "%s: %d retries for %d transient firings"
+          % (label, result.num_retries, recorder.firings))
+    check(label != CHAOS or recorder.firings >= 1,
+          "%s: no planned transient fired" % label)
+    check(result.deadline_expired >= 1 and result.deadline_sites,
+          "%s: no request expired (Deadline: expired=%d)"
+          % (label, result.deadline_expired))
+    check(label != CHAOS or result.deadline_sites.get(
+        "step1_take:deadline_expired", 0) >= 1, "%s: nothing expired in "
+          "step 1's queue behind its stall (%s)"
+          % (label, result.deadline_sites))
+    check(label != CHAOS_BURST or result.shed_sites.get(
+        "filename_queue", 0) >= 1, "%s: the client shed nothing (%s)"
+          % (label, result.shed_sites))
+    from rnb_tpu_torch.models.r2p1d.model import R2P1DRunner
+    for step_idx, stage in stages:
+        if isinstance(stage, R2P1DRunner):
+            # the retries replayed; a capture after the warm-ups would
+            # have grown the set
+            check(len(stage._graphs) == len(stage.graph_keys())
+                  == stage.graph_stats["graphs"],
+                  "%s: step %d holds %d graphs for %d warmed keys"
+                  % (label, step_idx, len(stage._graphs),
+                     len(stage.graph_keys())))
+    held = recorder.check(label, sink)
+    print("path %s: completed %d + failed %d + shed %d of %d requests the "
+          "client created; Faults: num_failed=%d num_shed=%d "
+          "num_retries=%d; Failure reasons: %s; Shed sites: %s; Deadline: "
+          "budget_ms=%d expired=%d; %d retried request(s) read their first "
+          "attempt's input and are bitwise the fault-free replay; the "
+          "broken video's requests %s, dead-lettered %s; takes that lost a "
+          "decode [failed, kept] %s, %d with every survivor served"
+          % (label, result.num_completed, result.num_failed,
+             result.num_shed, result.num_requests, result.num_failed,
+             result.num_shed, result.num_retries,
+             json.dumps(result.failure_reasons, sort_keys=True),
+             json.dumps(result.shed_sites, sort_keys=True),
+             result.deadline_budget_ms, result.deadline_expired, held,
+             broken_ids, corrupt, json.dumps(takes.shrunk), served_takes))
+    return served_takes
+
+
 def graph_input(runner, rows, seed):
     """A seeded input of one runner's input signature: wire rows on the
     yuv420 and dct paths, normalized frames or a feature map else."""
@@ -1699,20 +1961,35 @@ def phase_path(data_root, videos_per_run):
                 (WHOLE_RAGGED, whole_ragged_copy(data_root)))
     after_whole = runs.index((WHOLE, os.path.join(HERE, WHOLE))) + 1
     runs[after_whole:after_whole] = [
-        (SEGMENT_COPY, segment_copy(data_root)),
+        (SEGMENT_COPY, one_card_copy(data_root, SEGMENT, SEGMENT_COPY)),
         (TRACED, os.path.join(HERE, TRACED))]
+    from rnb_tpu_torch.tools import chaos
+    from rnb_tpu_torch.video_path_provider import scan_video_tree
+    chaos_path = chaos.write_chaos_copy(os.path.join(data_root,
+                                                     CHAOS + ".json"))
+    # the chaos runs' dataset: the same videos and one whose decode
+    # fails after its header probed; request i draws video i mod N
+    chaos_root = os.path.join(data_root, "chaos-dataset")
+    broken = chaos.write_chaos_dataset(data_root, chaos_root)
+    chaos_videos = scan_video_tree(chaos_root)
+    served_takes = 0
     runs += [(METRICS, os.path.join(HERE, METRICS)),
              (AUTOTUNE, os.path.join(HERE, AUTOTUNE)),
              (AUTOTUNE_POISSON, os.path.join(HERE, AUTOTUNE)),
-             (CRITPATH, critpath_copy(data_root))]
+             (CRITPATH, critpath_copy(data_root)),
+             (CHAOS, chaos_path), (CHAOS_BURST, chaos_path),
+             (TINY_SHED_COPY, one_card_copy(data_root, TINY_SHED,
+                                            TINY_SHED_COPY))]
     whole_sink = None
     for label, config_path in runs:
-        pixel_path = load_config(config_path, "cpu").steps[0].kwargs.get(
-            "pixel_path", "rgb")
+        config = load_config(config_path, "cpu")
+        pixel_path = config.steps[0].kwargs.get("pixel_path", "rgb")
+        classes = config.steps[-1].kwargs.get("num_classes", 400)
         if pixel_path == "dct":
             os.environ.pop("RNB_TPU_DATA_ROOT", None)
         else:
-            os.environ["RNB_TPU_DATA_ROOT"] = data_root
+            os.environ["RNB_TPU_DATA_ROOT"] = (
+                chaos_root if label in CHAOS_RUNS else data_root)
         zipf = label in (PAGED, FEATURES_OFF, BLOB)
         interval = ZIPF_INTERVAL_MS if zipf else PLANE_INTERVAL_MS.get(
             label, 0)
@@ -1721,34 +1998,61 @@ def phase_path(data_root, videos_per_run):
         # one forced flight dump, for the metrics run only
         if label == METRICS:
             os.environ["RNB_FLIGHT_FORCE"] = "1"
+        recorder = takes = None
+        if label in CHAOS_RUNS:
+            recorder = RetryRecorder(chaos.TRANSIENT_IDS)
+            takes = TakeRecorder()
         _kernels.reset_launches()
         t0 = time.time()
         try:
             result = run_benchmark(
                 config_path, mean_interval_ms=interval,
-                num_videos=videos, print_progress=False,
+                num_videos=videos,
+                queue_size=BURST_QUEUE if label == CHAOS_BURST else 50000,
+                print_progress=False,
                 log_base=os.path.join(data_root, "logs"), seed=0,
                 outputs_sink=sink, stages_sink=stages)
         finally:
             os.environ.pop("RNB_FLIGHT_FORCE", None)
+            if recorder is not None:
+                recorder.close()
+                takes.close()
         counts = _kernels.launch_counts()
         wall = time.time() - t0
         check(result.termination_flag == 0, "%s terminated with flag %d"
               % (label, result.termination_flag))
+        # every request the pipeline disposed of: served, dead-lettered
+        # or shed (only the chaos runs fail or shed any)
+        disposed = result.num_completed + result.num_failed + result.num_shed
+        check(label in CHAOS_RUNS or result.num_failed + result.num_shed
+              + result.num_retries == 0, "%s: Faults: num_failed=%d "
+              "num_shed=%d num_retries=%d" % (
+                  label, result.num_failed, result.num_shed,
+                  result.num_retries))
+        check(len(sink) == result.num_completed, "%s: %d outputs for %d "
+              "completions" % (label, len(sink), result.num_completed))
         if interval > 0:
             # an open-loop client: the run stops once the target is met,
             # and a fused emission may complete a few more requests
-            check(result.num_completed >= videos
-                  and len(sink) == result.num_completed,
-                  "%s completed %d of %d requests (%d outputs)"
-                  % (label, result.num_completed, videos, len(sink)))
+            check(disposed >= videos, "%s disposed of %d of %d requests"
+                  % (label, disposed, videos))
         else:
-            check(result.num_completed == videos,
-                  "%s completed %d of %d requests"
-                  % (label, result.num_completed, videos))
-            check(sorted(sink) == list(range(videos)),
+            check(disposed == videos, "%s: completed %d + failed %d + "
+                  "shed %d for %d requests" % (
+                      label, result.num_completed, result.num_failed,
+                      result.num_shed, videos))
+            check(set(sink) <= set(range(videos)) and (
+                label in CHAOS_RUNS or len(sink) == videos),
                   "%s: outputs of requests %s missing" % (
                       label, sorted(set(range(videos)) - set(sink))))
+        if label in CHAOS_RUNS:
+            broken_ids = [rid for rid in range(result.num_requests)
+                          if chaos_videos[rid % len(chaos_videos)] == broken]
+            served_takes += check_chaos_run(label, result, sink, recorder,
+                                            takes, broken_ids, stages)
+        if label == TINY_SHED_COPY:
+            problems = summarize(result.log_dir)["footing_problems"]
+            check(not problems, "%s: %s" % (label, "; ".join(problems[:5])))
         t0 = time.time()
         check_graphs(label, result, stages)
         if label == SEGMENT_COPY:
@@ -1768,7 +2072,7 @@ def phase_path(data_root, videos_per_run):
                 check(isinstance(logits, int) and 0 <= logits < 400,
                       "%s request %d: class id %r" % (label, rid, logits))
                 continue
-            check(logits.ndim == 2 and logits.shape[1] == 400
+            check(logits.ndim == 2 and logits.shape[1] == classes
                   and logits.shape[0] >= 1,
                   "%s request %d: logits of shape %s"
                   % (label, rid, logits.shape))
@@ -1830,6 +2134,10 @@ def phase_path(data_root, videos_per_run):
             picks = by_clips[:1] + by_clips[-1:]
         if label in PLANES:
             picks = by_clips[:1]
+        if label in CHAOS_RUNS:
+            # the retried requests too: their served logits held to the
+            # recompute from their video, not only to a replay
+            picks = sorted(set(by_clips[:1] + recorder.retried))
         if label in TWO_STEP_HELD:
             # every request's logits are held to the two-step run's,
             # whose largest request the CPU recomputes
@@ -1851,6 +2159,8 @@ def phase_path(data_root, videos_per_run):
                  result.window_launches, result.pad_rows,
                  result.total_rows, picks, time.time() - t0,
                  json.dumps(report)))
+    check(served_takes >= 1, "no chaos run failed a decode inside a fused "
+          "take and served the take's other requests")
     return launches
 
 
@@ -1861,7 +2171,8 @@ def main() -> int:
         return 1
     if not os.path.isdir(os.path.join(HERE, "rnb_tpu_torch")) or not all(
             os.path.exists(os.path.join(HERE, c))
-            for c in CONFIGS + (SEGMENT, TRACED, METRICS, AUTOTUNE)):
+            for c in CONFIGS + (SEGMENT, TRACED, METRICS, AUTOTUNE, STAGED,
+                                TINY_SHED)):
         print("chip_smoke: run from a checkout of the repo (rnb_tpu_torch/ "
               "and configs/ beside this script)", file=sys.stderr)
         return 1

@@ -21,7 +21,10 @@ the pad bucket: ``batch`` becomes a ceiling, and a held batch emits once
 growing it can no longer meet the latency budget, or at the controller's
 hold deadline (``next_deadline_s`` / ``poll``).
 
-Not yet ported: deadline shedding (``take_shed``).
+Under the root ``deadline`` key a request whose deadline passed while it
+waited in the accumulator is dropped before the fuse (the Batcher's emit
+boundary, site ``hold``) and handed to the executor through
+``take_shed()``; a forked segment card is never dropped.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from rnb_tpu_torch import hostprof, trace
 from rnb_tpu_torch.autotune import BatchController
+from rnb_tpu_torch.health import expired as deadline_expired
 from rnb_tpu_torch.ops.ragged import resolve_pool_rows, segment_offsets_of
 from rnb_tpu_torch.stage import (PadCounter, PaddedBatch, RaggedBatch,
                                  StageModel, normalize_row_buckets,
@@ -90,6 +94,9 @@ class Batcher(StageModel):
         #: monotonic instant the oldest pending request joined (None
         #: when nothing is pending): the hold deadline's anchor
         self._t_oldest = None
+        #: requests dropped at the emit boundary because their deadline
+        #: passed, ``[(card, "hold")]``, drained by ``take_shed()``
+        self._shed = []
 
     def enable_autotune(self, settings) -> BatchController:
         """Executor protocol: a BatchController over this stage's own
@@ -208,7 +215,39 @@ class Batcher(StageModel):
                     return bucket
         return self._declared_max[0]
 
+    def take_shed(self):
+        """Executor hook: the requests dropped at the emit boundary
+        because their deadline passed, ``[(card, where)]``."""
+        out, self._shed = self._shed, []
+        return out
+
+    def _drop_expired(self) -> None:
+        """The emit boundary of the deadline layer: a pending request
+        whose deadline passed is dropped before the fuse, so its rows
+        never pad a dispatch. Inert when no card carries a deadline (the
+        constituents of an upstream fused list carry them)."""
+        if not any(getattr(tc, "deadline_s", None) is not None
+                   for item in self._time_cards for tc in cards_of(item)):
+            return
+        live_tensors, live_cards = [], []
+        for tensors, card in zip(self._tensors, self._time_cards):
+            forked = any(getattr(tc, "sub_id", None) is not None
+                         for tc in cards_of(card))
+            if not forked and deadline_expired(card):
+                self._shed.append((card, "hold"))
+            else:
+                live_tensors.append(tensors)
+                live_cards.append(card)
+        self._tensors = live_tensors
+        self._time_cards = live_cards
+
     def _emit_fused(self):
+        self._drop_expired()
+        if not self._time_cards:
+            # every pending request expired: take_shed() disposes them
+            self._tensors = []
+            self._t_oldest = None
+            return None, None, None
         with hostprof.section("batcher.fuse"):
             out = self._fuse_pending()
         if trace.ACTIVE is not None:

@@ -31,6 +31,16 @@ buckets:``. Without those keys none of it runs and no line or file is
 added. Every exit path, an aborted run included, leaves no hook
 installed and no flusher running.
 
+Fault containment (:mod:`rnb_tpu_torch.faults`, the reference's wiring):
+every run keeps a :class:`~rnb_tpu_torch.control.FaultStats` ledger shared
+by the client and the executors and writes ``Faults:`` (with ``Failure
+reasons:``, ``Shed sites:`` and ``Queue overflows:`` when they have
+entries, and ``failed-requests.txt``, one line per dead letter). The root
+``fault_plan`` key (or the ``RNB_FAULT_PLAN`` env JSON, which wins) is
+the injection schedule; the root ``deadline`` key stamps each request's
+deadline and adds ``Deadline:``/``Deadline sites:``. Latency percentiles
+and throughput count successes only.
+
 Runs on ``cuda:0`` (the config's devices) unless ``platform="cpu"``.
 
 CLI::
@@ -68,8 +78,10 @@ from rnb_tpu_torch.client import bulk_client, poisson_client
 from rnb_tpu_torch.compilestats import aggregate_compile_records
 from rnb_tpu_torch.config import load_config
 from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, EdgeTracker,
-                                   InferenceCounter, RingCredits,
-                                   TerminationState)
+                                   FaultStats, InferenceCounter,
+                                   RingCredits, TerminationState)
+from rnb_tpu_torch.faults import LANE_KINDS, FaultPlan
+from rnb_tpu_torch.health import DeadlineSettings, DeadlineStats
 from rnb_tpu_torch.ops import _kernels
 from rnb_tpu_torch.ops.ragged import RaggedSettings
 from rnb_tpu_torch.pager import Pager, PagerSettings
@@ -170,6 +182,45 @@ class BenchmarkResult:
     autotune_deadline_us_max: int = 0
     autotune_deadline_us_sum: int = 0
     autotune_bucket_counts: Dict[str, int] = field(default_factory=dict)
+    #: the fault ledger (the ``Faults:``, ``Failure reasons:``, ``Shed
+    #: sites:`` and ``Queue overflows:`` lines): dead-lettered and shed
+    #: requests, transient retries, per-reason and per-site counts
+    num_failed: int = 0
+    num_shed: int = 0
+    num_retries: int = 0
+    failure_reasons: Dict[str, int] = field(default_factory=dict)
+    shed_sites: Dict[str, int] = field(default_factory=dict)
+    queue_overflows: Dict[str, int] = field(default_factory=dict)
+    #: the ``Deadline:`` and ``Deadline sites:`` lines (zero and empty
+    #: without ``deadline``)
+    deadline_budget_ms: int = 0
+    deadline_expired: int = 0
+    deadline_sites: Dict[str, int] = field(default_factory=dict)
+
+
+def _resolve_fault_plan(config, print_progress: bool):
+    """The run's fault plan (the ``RNB_FAULT_PLAN`` env JSON over the
+    config's ``fault_plan``), or None; a plan no path of the port can
+    inject is refused with the reference's messages."""
+    plan = FaultPlan.resolve(config.fault_plan)
+    if plan is None:
+        return None
+    # an env plan bypassed the config reader's step check
+    plan.check_steps(config.num_steps)
+    if any(f["kind"] in LANE_KINDS for f in plan.faults):
+        raise ValueError(
+            "the fault plan injects replica_crash/replica_stall but the "
+            "config has no enabled root 'health' key (or no replica "
+            "lanes) — lane deaths need the health layer's eviction/drain "
+            "machinery to stay contained")
+    if plan.has_net_faults():
+        raise ValueError(
+            "the fault plan injects net_* faults but the config has no "
+            "enabled root 'netedge' key — there is no network edge to "
+            "address")
+    if print_progress:
+        print("[rnb-tpu-torch] fault plan active: %s" % plan.describe())
+    return plan
 
 
 def _bulk_queue_size(config, num_videos: int) -> int:
@@ -204,13 +255,15 @@ def _start_tracer(config, filename_queue, queues):
 
 
 def _start_metrics(config, job_id: str, log_base: str, filename_queue,
-                   queues, queue_size: int, pager, tracer, slo_budget_ms):
+                   queues, queue_size: int, pager, tracer, slo_budget_ms,
+                   fault_stats, deadline_stats):
     """The job's live-metrics registry and its SpanBridge (None, None
     without the root ``metrics`` key). Its gauge sources are the filename
     queue and every inter-stage queue (keyed by edge ordinal in step
     order, each armed for the saturation trigger at the queue's
-    capacity); the page allocator is a poll source. The bridge forwards
-    to ``tracer`` on a traced run."""
+    capacity); the fault ledger, the deadline ledger and the page
+    allocator are poll sources. The bridge forwards to ``tracer`` on a
+    traced run."""
     settings = metrics_mod.MetricsSettings.from_config(config.metrics)
     if settings is None:
         return None, None
@@ -226,6 +279,12 @@ def _start_metrics(config, job_id: str, log_base: str, filename_queue,
                 metrics_mod.name("queue.e%d.depth", edge_idx),
                 queues[step_idx][q_idx].qsize, capacity=queue_size)
             edge_idx += 1
+    registry.add_poll(metrics_mod.snapshot_poll(
+        "faults", fault_stats.snapshot,
+        counters=("num_failed", "num_shed", "num_retries")))
+    if deadline_stats is not None:
+        registry.add_poll(metrics_mod.snapshot_poll(
+            "deadline", deadline_stats.snapshot, counters=("expired",)))
     if pager is not None:
         registry.add_poll(metrics_mod.snapshot_poll(
             "pages", pager.snapshot,
@@ -337,6 +396,12 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     if autotune_settings is not None:
         _warn_if_no_stage_autotunes(config)
     critpath_settings = CritpathSettings.from_config(config.critpath)
+    fault_plan = _resolve_fault_plan(config, print_progress)
+    fault_stats = FaultStats()
+    deadline_settings = DeadlineSettings.from_config(config.deadline,
+                                                     config.autotune)
+    deadline_stats = (DeadlineStats() if deadline_settings is not None
+                      else None)
     if mean_interval_ms == 0:
         # bulk mode pre-enqueues everything (plus the exit markers)
         queue_size = _bulk_queue_size(config, num_videos)
@@ -346,10 +411,13 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     trace_mod.ACTIVE = None
     metrics_mod.ACTIVE = None
     tracer = _start_tracer(config, filename_queue, queues)
-    # the SLO budget: the controller's, without a deadline plane
+    # the SLO budget: the deadline's, else the controller's
+    slo_budget_ms = (deadline_settings.budget_ms if deadline_settings
+                     else autotune_settings.slo_ms if autotune_settings
+                     else None)
     registry, bridge = _start_metrics(
         config, job_id, log_base, filename_queue, queues, queue_size, pager,
-        tracer, autotune_settings.slo_ms if autotune_settings else None)
+        tracer, slo_budget_ms, fault_stats, deadline_stats)
     # installed before the stages are built: they register their poll
     # sources before the start barrier
     metrics_mod.ACTIVE = registry
@@ -358,12 +426,17 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
 
     client_args = (config.video_path_iterator, filename_queue,
                    mean_interval_ms if mean_interval_ms > 0 else num_videos,
-                   termination, sta_bar, fin_bar, seed, num_markers,
-                   config.popularity)
+                   termination, sta_bar, fin_bar, seed, num_markers)
+    client_kwargs = dict(
+        popularity=config.popularity, requests_sink=requests_sink,
+        overload_policy=config.overload_policy,
+        fault_stats=fault_stats, counter=counter,
+        target_num_videos=num_videos,
+        deadline_budget_s=(deadline_settings.budget_ms / 1000.0
+                           if deadline_settings is not None else None))
     threads = [threading.Thread(
         target=poisson_client if mean_interval_ms > 0 else bulk_client,
-        args=client_args, kwargs={"requests_sink": requests_sink},
-        name="client", daemon=True)]
+        args=client_args, kwargs=client_kwargs, name="client", daemon=True)]
     for step_idx, step in enumerate(config.steps):
         is_final = step_idx == config.num_steps - 1
         for group_idx, group in enumerate(step.groups):
@@ -404,7 +477,14 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                     num_segments=step.num_segments, tracer=tracer,
                     autotune=autotune_settings if step.autotune else None,
                     autotune_sink=autotune_sink,
-                    critpath=critpath_settings is not None)
+                    critpath=critpath_settings is not None,
+                    containment=config.fault_containment,
+                    overload_policy=config.overload_policy,
+                    max_retries=step.max_retries,
+                    retry_backoff_ms=step.retry_backoff_ms,
+                    fault_plan=fault_plan, fault_stats=fault_stats,
+                    deadline=deadline_settings,
+                    deadline_stats=deadline_stats)
                 threads.append(threading.Thread(
                     target=runner, args=(ctx,), daemon=True,
                     name="runner-s%d-g%d-i%d" % (step_idx, group_idx,
@@ -535,6 +615,9 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
              for timings in summary.steady_rows(NUM_SUMMARY_SKIPS)), lanes)
     autotune_stats = (aggregate_autotune(autotune_sink) if autotune_sink
                       else None)
+    faults = fault_stats.snapshot()
+    deadline_snap = (deadline_stats.snapshot() if deadline_stats is not None
+                     else None)
     metrics_summary = None
     if registry is not None:
         # the final footing snapshot: every thread joined and every
@@ -557,7 +640,16 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
         compiles=compiles, warmup_s=warmup, graphs=graphs,
         trace_events=trace_events, trace_dropped=trace_dropped,
         phases=phases, host_cpu_s=host_cpu_s,
-        num_requests=sum(requests_sink))
+        num_requests=sum(requests_sink),
+        num_failed=faults["num_failed"], num_shed=faults["num_shed"],
+        num_retries=faults["num_retries"],
+        failure_reasons=faults["failure_reasons"],
+        shed_sites=faults["shed_sites"],
+        queue_overflows=faults["overflow_sites"])
+    if deadline_snap is not None:
+        result.deadline_budget_ms = round(deadline_settings.budget_ms)
+        result.deadline_expired = deadline_snap["expired"]
+        result.deadline_sites = deadline_snap["sites"]
     if metrics_summary is not None:
         for key, value in metrics_summary.items():
             if key == "burn_max_milli":
@@ -583,6 +675,24 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
             platform=config.platform)))
         f.write("%f %f\n" % (time_start, time_end))
         f.write("Termination flag: %d\n" % termination.value)
+        # the reference's fault lines, byte for byte
+        f.write("Faults: num_failed=%d num_shed=%d num_retries=%d\n"
+                % (faults["num_failed"], faults["num_shed"],
+                   faults["num_retries"]))
+        for head, key in (("Failure reasons", "failure_reasons"),
+                          ("Shed sites", "shed_sites"),
+                          ("Queue overflows", "overflow_sites")):
+            if faults[key]:
+                f.write("%s: %s\n" % (head, json.dumps(faults[key],
+                                                       sort_keys=True)))
+        if deadline_snap is not None:
+            # parse_utils cross-foots the sites with the deadline-suffixed
+            # entries of Shed sites:
+            f.write("Deadline: budget_ms=%d expired=%d\n"
+                    % (result.deadline_budget_ms, deadline_snap["expired"]))
+            if deadline_snap["sites"]:
+                f.write("Deadline sites: %s\n" % json.dumps(
+                    deadline_snap["sites"], sort_keys=True))
         f.write("Device: %s\n" % device)
         for ingest in ingest_sink:
             # no "=" in these lines: they are names, not counters
@@ -675,6 +785,14 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
             f.write("Profile: kernel_ms=%.3f window_ms=%.3f busy_share=%.4f\n"
                     % (kernel_ms, total_time * 1e3,
                        kernel_ms / (total_time * 1e3)))
+    if faults["dead_letters"]:
+        # one line per dead letter (the detail is capped, the counters
+        # above are exact)
+        with open(os.path.join(logroot(job_id, base=log_base),
+                               "failed-requests.txt"), "w") as f:
+            f.write("# request_id step reason\n")
+            for rid, step_idx, reason in faults["dead_letters"]:
+                f.write("%s %d %s\n" % (rid, step_idx, reason))
     if hostprof.ENABLED:
         lines = hostprof.report_lines(total_time)
         with open(os.path.join(logroot(job_id, base=log_base),
@@ -697,6 +815,18 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
             completed=completed, termination_flag=result.termination_flag,
             device=device, kernel_launches=window_launches,
             kernel_ms=kernel_ms)))
+        if faults["num_failed"] or faults["num_shed"] \
+                or faults["num_retries"]:
+            print("Faults: %d failed, %d shed, %d retries (%s)"
+                  % (faults["num_failed"], faults["num_shed"],
+                     faults["num_retries"], ", ".join(
+                         "%s=%d" % kv for kv in sorted(
+                             faults["failure_reasons"].items())) or "-"))
+        if deadline_snap is not None:
+            print("Deadline: budget %d ms, %d expired request(s) shed (%s)"
+                  % (result.deadline_budget_ms, deadline_snap["expired"],
+                     ", ".join("%s=%d" % kv for kv in sorted(
+                         deadline_snap["sites"].items())) or "-"))
         if cache_stats is not None:
             print("Cache: %s" % json.dumps(cache_stats, sort_keys=True))
         if pages_summary is not None:

@@ -12,8 +12,11 @@ device to the CPU on ``platform="cpu"``) and ``-1`` to the host.
 
 The reference's rules on ``num_segments`` (a step's fan-out into row
 segments), on the root ``trace``, ``metrics``, ``critpath`` and
-``autotune`` keys and on a step's ``autotune`` opt-out are kept with the
-reference's own messages.
+``autotune`` keys, on the fault-containment root keys
+(``overload_policy``, ``fault_containment``, ``fault_plan``,
+``deadline``) and on a step's ``autotune`` opt-out and retry budget
+(``max_retries``, ``retry_backoff_ms``) are kept with the reference's own
+messages.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ PORT_PREFIX = "rnb_tpu_torch."
 COMMENT_KEY = "_comment"
 ROOT_KEYS = frozenset({"video_path_iterator", "pipeline", "ragged",
                        "popularity", "pager", "trace", "metrics",
-                       "critpath", "autotune"})
+                       "critpath", "autotune", "overload_policy",
+                       "fault_containment", "fault_plan", "deadline"})
 TRACE_KEYS = ("enabled", "sample_hz", "max_events")
 #: the reference's key lists, in its order (its messages print them)
 METRICS_KEYS = ["enabled", "interval_ms", "flight_recorder"]
@@ -40,13 +44,15 @@ FLIGHT_RECORDER_KEYS = ["enabled", "ring_events", "max_dumps",
                         "burn_threshold", "shed_spike_per_s",
                         "queue_saturation", "cooldown_s"]
 CRITPATH_KEYS = ["enabled"]
+DEADLINE_KEYS = ["enabled", "budget_ms"]
 AUTOTUNE_KEYS = ["enabled", "slo_ms", "ewma_alpha", "min_hold_ms",
                  "max_hold_ms", "buckets"]
 RAGGED_KEYS = frozenset({"enabled", "pool_rows"})
 POPULARITY_KEYS = frozenset({"dist", "s", "universe"})
 PAGER_KEYS = frozenset({"enabled", "page_rows", "pool_mb", "feature_cache"})
 STEP_KEYS = frozenset({"model", "queue_groups", "num_shared_tensors",
-                       "num_segments", "autotune"})
+                       "num_segments", "autotune", "max_retries",
+                       "retry_backoff_ms"})
 GROUP_KEYS = frozenset({"devices", "out_queues", "in_queue",
                         "queue_selector"})
 _LOADER_KEYS = frozenset({
@@ -131,6 +137,11 @@ class StepConfig:
     num_segments: int = 1
     #: False opts the step out of the root ``autotune`` controller
     autotune: bool = True
+    #: the retry budget for transient errors escaping the step's model
+    #: call (rnb_tpu_torch.faults): up to ``max_retries`` re-attempts,
+    #: ``retry_backoff_ms`` apart; 0 fails on the first transient
+    max_retries: int = 0
+    retry_backoff_ms: float = 10.0
 
     def kwargs_for_group(self, group_idx: int) -> Dict[str, Any]:
         """Constructor kwargs of one group's instances: the step's
@@ -158,6 +169,15 @@ class PipelineConfig:
     critpath: Optional[dict] = None
     #: the load-adaptive batching controller (root ``autotune`` key)
     autotune: Optional[dict] = None
+    #: "abort" (a full queue stops the run) or "shed" (the new request
+    #: is dropped, counted, and the run goes on)
+    overload_policy: str = "abort"
+    #: False keeps the strict semantics: even a classified error aborts
+    fault_containment: bool = True
+    #: the injection schedule (rnb_tpu_torch.faults.FaultPlan's spec)
+    fault_plan: Optional[dict] = None
+    #: deadline propagation (root ``deadline`` key; rnb_tpu_torch.health)
+    deadline: Optional[dict] = None
 
     @property
     def num_steps(self) -> int:
@@ -330,6 +350,44 @@ def _check_autotune(autotune) -> None:
             "positive row counts, got %r" % (buckets,))
 
 
+def _check_deadline(deadline) -> None:
+    """The reference's rules (rnb_tpu/config.py, root ``deadline``)."""
+    _expect(isinstance(deadline, dict), "'deadline' must be an object")
+    unknown = sorted(set(deadline) - set(DEADLINE_KEYS))
+    _expect(not unknown, "'deadline' has unknown key(s) %s — keys are %s"
+            % (unknown, DEADLINE_KEYS))
+    _expect(isinstance(deadline.get("enabled", True), bool),
+            "'deadline.enabled' must be a boolean")
+    budget = deadline.get("budget_ms")
+    _expect(budget is None or (_is_number(budget) and budget > 0),
+            "'deadline.budget_ms' must be a positive number (defaults to "
+            "autotune.slo_ms when autotune is configured), got %r"
+            % (budget,))
+
+
+def _check_fault_plan(fault_plan, num_steps: int) -> None:
+    """The reference's rule: the plan's structure, and its step indices
+    against this pipeline (a typo'd step would never fire)."""
+    from rnb_tpu_torch.faults import FaultPlan
+    try:
+        FaultPlan(fault_plan).check_steps(num_steps)
+    except ValueError as e:
+        raise ConfigError("invalid 'fault_plan': %s" % e) from e
+
+
+def _check_retries(step_raw: dict, step_idx: int):
+    """A step's ``(max_retries, retry_backoff_ms)`` under the reference's
+    rules and messages."""
+    where = "pipeline step %d" % step_idx
+    max_retries = step_raw.get("max_retries", 0)
+    _expect(isinstance(max_retries, int) and max_retries >= 0,
+            "%s: 'max_retries' must be a non-negative integer" % where)
+    backoff = step_raw.get("retry_backoff_ms", 10.0)
+    _expect(isinstance(backoff, (int, float)) and backoff >= 0,
+            "%s: 'retry_backoff_ms' must be a non-negative number" % where)
+    return int(max_retries), float(backoff)
+
+
 def _check_num_segments(step_raw: dict, step_idx: int,
                         final: bool) -> int:
     """A step's ``num_segments``, under the reference's rules and
@@ -366,10 +424,18 @@ def parse_config(raw: dict, platform: Optional[str] = None
     if "video_path_iterator" not in raw or "pipeline" not in raw:
         raise ConfigError("config needs 'video_path_iterator' and "
                           "'pipeline'")
+    overload_policy = raw.get("overload_policy", "abort")
+    _expect(overload_policy in ("abort", "shed"),
+            "'overload_policy' must be \"abort\" or \"shed\", got %r"
+            % (overload_policy,))
+    fault_containment = raw.get("fault_containment", True)
+    _expect(isinstance(fault_containment, bool),
+            "'fault_containment' must be a boolean")
     trace = raw.get("trace")
     if trace is not None:
         _check_trace(trace)
-    for key, check in (("metrics", _check_metrics),
+    for key, check in (("deadline", _check_deadline),
+                       ("metrics", _check_metrics),
                        ("critpath", _check_critpath),
                        ("autotune", _check_autotune)):
         if raw.get(key) is not None:
@@ -395,6 +461,9 @@ def parse_config(raw: dict, platform: Optional[str] = None
     pipeline = raw["pipeline"]
     if not isinstance(pipeline, list) or not pipeline:
         raise ConfigError("'pipeline' must be a non-empty list of steps")
+    fault_plan = raw.get("fault_plan")
+    if fault_plan is not None:
+        _check_fault_plan(fault_plan, len(pipeline))
     for step_idx, step_raw in enumerate(pipeline):
         where = "step %d" % step_idx
         model = port_class_path(step_raw.get("model") if isinstance(
@@ -460,6 +529,7 @@ def parse_config(raw: dict, platform: Optional[str] = None
                 "pipeline step %d: 'autotune' must be a boolean (false "
                 "opts the step out of the root autotune controller)"
                 % step_idx)
+        max_retries, retry_backoff_ms = _check_retries(step_raw, step_idx)
         slots = int(step_raw.get("num_shared_tensors",
                                  DEFAULT_NUM_SHARED_TENSORS))
         if slots < 1:
@@ -468,13 +538,16 @@ def parse_config(raw: dict, platform: Optional[str] = None
             model=model, groups=groups, num_shared_tensors=slots,
             kwargs=kwargs,
             num_segments=_check_num_segments(step_raw, step_idx, is_final),
-            autotune=step_autotune))
+            autotune=step_autotune, max_retries=max_retries,
+            retry_backoff_ms=retry_backoff_ms))
     return PipelineConfig(
         video_path_iterator=port_class_path(raw["video_path_iterator"]),
         steps=steps, ragged=ragged, platform=platform,
         popularity=popularity, pager=pager, trace=trace,
         metrics=raw.get("metrics"), critpath=raw.get("critpath"),
-        autotune=raw.get("autotune"))
+        autotune=raw.get("autotune"), overload_policy=overload_policy,
+        fault_containment=fault_containment, fault_plan=fault_plan,
+        deadline=raw.get("deadline"))
 
 
 def load_config(path: str, platform: Optional[str] = None

@@ -8,6 +8,12 @@ device is handed over by reference. Each producer instance holds a
 per published payload and the consumer gives it back once it has
 taken the payload, which bounds the device memory in flight as the
 reference's buffer rings did.
+
+:class:`FaultStats` is the job-wide ledger of the containment layer
+(:mod:`rnb_tpu_torch.runner`): dead letters with their reasons, sheds per
+site, transient retries and abort-policy queue overflows.
+:func:`dispose_requests` counts a dead letter or a shed toward the run
+target, so a run whose last requests failed or were shed still ends.
 """
 
 from __future__ import annotations
@@ -16,7 +22,9 @@ import enum
 import queue
 import threading
 import time
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
+
+from rnb_tpu_torch import metrics
 
 #: end-of-stream markers sent on every edge
 NUM_EXIT_MARKERS = 10
@@ -53,13 +61,101 @@ class TerminationState:
         return self._value != TerminationFlag.UNSET
 
 
+class FaultStats:
+    """Job-wide fault accounting shared by the client and every stage
+    executor (the reference's ledger, ``rnb_tpu/control.py``).
+
+    Counts contained permanent failures (with per-reason totals and a
+    bounded dead-letter record of ``(request_id, step_idx, reason)``),
+    shed requests per site, transient retries, and per-edge queue
+    overflows under the ``"abort"`` overload policy (the ``Queue
+    overflows:`` line). All counts are exact; only the dead-letter
+    detail list is capped.
+    """
+
+    MAX_DEAD_LETTERS = 1000
+
+    GUARDED_BY = {
+        "num_failed": "_lock",
+        "num_shed": "_lock",
+        "num_retries": "_lock",
+        "failure_reasons": "_lock",
+        "shed_sites": "_lock",
+        "overflow_sites": "_lock",
+        "dead_letters": "_lock",
+    }
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.num_failed = 0
+        self.num_shed = 0
+        self.num_retries = 0
+        self.failure_reasons: Dict[str, int] = {}
+        self.shed_sites: Dict[str, int] = {}
+        self.overflow_sites: Dict[str, int] = {}
+        self.dead_letters: List[tuple] = []
+
+    def record_failure(self, request_ids, step_idx: int,
+                       reason: str) -> None:
+        """Dead-letter one or more requests (a fused batch fails as a
+        unit) with one reason at one step."""
+        with self._lock:
+            self.num_failed += len(request_ids)
+            self.failure_reasons[reason] = \
+                self.failure_reasons.get(reason, 0) + len(request_ids)
+            for rid in request_ids:
+                if len(self.dead_letters) < self.MAX_DEAD_LETTERS:
+                    self.dead_letters.append((rid, step_idx, reason))
+        # a dead letter is an SLO miss the burn window sees at once
+        # (outside the ledger lock, so the two locks never nest)
+        metrics.mark("slo.miss", len(request_ids))
+
+    def record_shed(self, site: str, n: int = 1) -> None:
+        with self._lock:
+            self.num_shed += n
+            self.shed_sites[site] = self.shed_sites.get(site, 0) + n
+        # the shed-spike trigger and the SLO burn both window on these
+        metrics.mark("faults.sheds", n)
+        metrics.mark("slo.miss", n)
+
+    def record_retries(self, n: int = 1) -> None:
+        with self._lock:
+            self.num_retries += n
+
+    def record_overflow(self, edge: str, n: int = 1) -> None:
+        """A queue hit its capacity under the ``"abort"`` policy, counted
+        per edge: the telemetry names where the pipeline backed up."""
+        with self._lock:
+            self.overflow_sites[edge] = \
+                self.overflow_sites.get(edge, 0) + n
+
+    def snapshot(self) -> Dict[str, object]:
+        """Point-in-time copy for reports (dead letters included)."""
+        with self._lock:
+            return {
+                "num_failed": self.num_failed,
+                "num_shed": self.num_shed,
+                "num_retries": self.num_retries,
+                "failure_reasons": dict(self.failure_reasons),
+                "shed_sites": dict(self.shed_sites),
+                "overflow_sites": dict(self.overflow_sites),
+                "dead_letters": list(self.dead_letters),
+            }
+
+
 class InferenceCounter:
-    """Locked global count of completed requests; drives the
-    target-reached check."""
+    """Locked global count of disposed requests — completed, dead-lettered
+    or shed — driving the target-reached check: a request the pipeline
+    will never owe more work counts toward the target, so a run with
+    contained failures still ends."""
 
     def __init__(self):
         self._value = 0
         self._lock = threading.Lock()
+
+    @property
+    def value(self) -> int:
+        return self._value
 
     def add(self, n: int) -> Tuple[int, int]:
         """Add n; return (old, new) atomically."""
@@ -67,6 +163,19 @@ class InferenceCounter:
             old = self._value
             self._value = old + n
             return old, self._value
+
+
+def dispose_requests(counter: InferenceCounter, num_videos: int,
+                     termination: TerminationState,
+                     n: int = 1) -> Tuple[int, int]:
+    """Count ``n`` requests as disposed (failed or shed) and raise the
+    target-reached flag when the count crosses the job target. Every
+    disposal site but the final step's success path (which also leaves
+    its hot loop on the crossing) goes through here."""
+    old, new = counter.add(n)
+    if old < num_videos <= new:
+        termination.raise_flag(TerminationFlag.TARGET_NUM_VIDEOS_REACHED)
+    return old, new
 
 
 class EdgeTracker:

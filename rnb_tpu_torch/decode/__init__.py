@@ -23,9 +23,12 @@ Backends, picked by :func:`get_decoder`:
   decoder ``jpeg_dct``; its RGB decode is not ported (the reference's
   needs PIL).
 
-A video that cannot be decoded raises (:class:`CorruptVideoError`, a
-``ValueError``; :class:`TransientDecodeError` where a read failed); the
-serving path lets that fail the run loudly.
+A video that cannot be decoded raises :class:`CorruptVideoError` (a
+permanent error of :mod:`rnb_tpu_torch.faults`, and a ``ValueError``), or
+:class:`TransientDecodeError` (transient, also a ``ValueError``) where a
+read failed: the containment layer dead-letters or retries that one
+request, and every existing ``except ValueError`` keeps working. Both
+live in :mod:`rnb_tpu_torch.faults` and are re-exported here.
 """
 
 from __future__ import annotations
@@ -37,19 +40,12 @@ from typing import List, Optional
 
 import numpy as np
 
+from rnb_tpu_torch.faults import (  # noqa: F401 (re-exported)
+    CorruptVideoError, TransientDecodeError)
+
 DEFAULT_WIDTH = 112
 DEFAULT_HEIGHT = 112
 SYNTH_PREFIX = "synth://"
-
-
-class CorruptVideoError(ValueError):
-    """A video that can never decode on the asked path: a bad or
-    truncated stream, an unsupported format, an over-budget spectrum."""
-
-
-class TransientDecodeError(ValueError):
-    """A read of the video failed (the native decoder's I/O error): the
-    file may decode on a retry."""
 
 
 class SyntheticDecoder:

@@ -75,8 +75,15 @@ def load_native() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            _native.build()
-            lib = ctypes.CDLL(_native.library_path())
+            try:
+                _native.build()
+                lib = ctypes.CDLL(_native.library_path())
+            except OSError as e:
+                # a broken installation aborts the run: as an OSError,
+                # fault containment would retry or dead-letter every
+                # request that decodes natively
+                raise RuntimeError("loading the native decoder failed: "
+                                   "%s" % e) from e
             for symbol, (restype, argtypes) in _SIGNATURES.items():
                 fn = getattr(lib, symbol)
                 fn.restype = restype

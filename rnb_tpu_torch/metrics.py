@@ -17,8 +17,9 @@ key ``metrics: {enabled, interval_ms, flight_recorder}``; three pieces:
   event to the real tracer when tracing is on too), so the executors'
   spans feed latency histograms and instants feed counters with no new
   hot-path instrumentation. Stage-owned subsystems (the clip cache, the
-  staging pool) and the page allocator register *poll sources* the
-  flusher reads each tick; queue depths are gauge sources. The final
+  staging pool), the fault and deadline ledgers and the page allocator
+  register *poll sources* the flusher reads each tick; queue depths are
+  gauge sources. The final
   snapshot's counters must equal the log-meta ledgers exactly
   (``python3 -m rnb_tpu_torch.parse_utils`` holds them to it).
 * **SLO layer + flight recorder**: completions at the final step feed
@@ -26,8 +27,8 @@ key ``metrics: {enabled, interval_ms, flight_recorder}``; three pieces:
   over the window divided by the error budget ``1 - SLO_TARGET``),
   surfaced live and as the ``Slo:`` log-meta line. The flight recorder
   keeps a bounded ring of recent trace events even when full tracing is
-  off; when a trigger fires — SLO burn over its threshold, queue
-  saturation, or a forced dump — the ring is written as a
+  off; when a trigger fires — SLO burn over its threshold, a shed
+  spike, queue saturation, or a forced dump — the ring is written as a
   Perfetto-loadable ``flight-<n>.json`` (valid per
   :func:`rnb_tpu_torch.trace.validate_trace`) with the metric window
   around the trigger and its busiest spans
@@ -72,9 +73,7 @@ DEFAULT_MAX_DUMPS = 4
 #: SLO burn-rate threshold that trips the flight recorder (burn 1.0 =
 #: consuming the error budget exactly; > threshold = burning it down)
 DEFAULT_BURN_THRESHOLD = 2.0
-#: shed-spike trigger threshold (sheds/second): read from the config
-#: for the reference's schema; the port sheds nothing yet, so it never
-#: fires
+#: shed-spike trigger: windowed sheds/second at or above this fires
 DEFAULT_SHED_SPIKE_PER_S = 2.0
 #: queue-saturation trigger: depth/capacity at or above this fires
 DEFAULT_QUEUE_SATURATION = 0.9
@@ -108,7 +107,9 @@ MAX_SERIES = 512
 FORCE_DUMP_ENV = "RNB_FLIGHT_FORCE"
 
 #: trigger kinds the port's flight recorder fires
+TRIGGER_CIRCUIT_OPEN = "circuit_open"
 TRIGGER_SLO_BURN = "slo_burn"
+TRIGGER_SHED_SPIKE = "shed_spike"
 TRIGGER_QUEUE_SATURATION = "queue_saturation"
 TRIGGER_FORCED = "forced"
 
@@ -714,8 +715,13 @@ class MetricsRegistry:
             # SLO derivation over the sliding window
             good = self._rates.get("slo.good")
             miss = self._rates.get("slo.miss")
+            sheds = self._rates.get("faults.sheds")
             goodput = good.per_second(now) if good is not None else 0.0
+            # slo.miss already counts sheds and dead letters (the fault
+            # ledger marks it per disposal), so burn reads it alone; the
+            # faults.sheds rate exists for the shed-spike trigger
             bad_ps = miss.per_second(now) if miss is not None else 0.0
+            shed_ps = sheds.per_second(now) if sheds is not None else 0.0
             events_ps = goodput + bad_ps
             budget = max(1e-9, 1.0 - self.slo_target)
             burn = ((bad_ps / events_ps) / budget
@@ -752,6 +758,9 @@ class MetricsRegistry:
             if burn >= self.settings.burn_threshold:
                 self._trigger_locked(TRIGGER_SLO_BURN,
                                      {"burn_rate": burn}, now)
+            if shed_ps >= self.settings.shed_spike_per_s:
+                self._trigger_locked(TRIGGER_SHED_SPIKE,
+                                     {"sheds_per_s": shed_ps}, now)
             if saturated is not None:
                 self._trigger_locked(TRIGGER_QUEUE_SATURATION,
                                      saturated, now)

@@ -73,6 +73,9 @@ from rnb_tpu_torch.decode.native import (PIX_DCT, PIX_RGB, PIX_YUV420,
                                          DecodePool, NativeY4MDecoder,
                                          default_decode_threads,
                                          native_enabled)
+from rnb_tpu_torch.faults import (FATAL, TRANSIENT, classify_error,
+                                  fault_reason)
+from rnb_tpu_torch.health import expired as deadline_expired
 from rnb_tpu_torch.models.r2p1d.checkpoint import init_variables
 from rnb_tpu_torch.models.r2p1d.network import (KINETICS_CLASSES,
                                                 NUM_LAYERS, R18_LAYER_SIZES,
@@ -344,6 +347,16 @@ def wait_tickets(tickets, video: str, swallow: bool = False) -> None:
         raise first_error
 
 
+def warn_warmup_skipped(path: str, error: Exception) -> None:
+    """A decode warm-up met a classified error: skip that sample (the
+    hot loop contains the same error per request); anything else
+    raises, as stage init must."""
+    if classify_error(error) is FATAL:
+        raise error
+    print("[rnb-tpu-torch] WARNING: decode warm-up skipped %s: %s"
+          % (path, error))
+
+
 class _DecodeHandle:
     """Decode work of one request, started ahead of its turn: ``wait()``
     blocks until the clip rows are in ``out``.
@@ -554,11 +567,16 @@ class R2P1DLoader(_TraceStamps, StageModel):
 
     def _warm_decode(self, num_samples: int = 3) -> None:
         """Decode a few files of the dataset once, so the first measured
-        request pays no cold file or header cost."""
+        request pays no cold file or header cost. Best effort, as in the
+        reference: a corrupt sample is skipped (the hot loop contains the
+        same error per request); an unclassified error still raises."""
         for path in dataset_samples((".y4m",), num_samples):
-            decoder = get_decoder(path)
-            self._decode_sync(decoder, path,
-                              self._sample_starts(decoder, path))
+            try:
+                decoder = get_decoder(path)
+                self._decode_sync(decoder, path,
+                                  self._sample_starts(decoder, path))
+            except Exception as e:
+                warn_warmup_skipped(path, e)
 
     def _sample_starts(self, decoder, video: str):
         """Clip starts for one video, cached: the sampler is
@@ -1032,6 +1050,17 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
     feature pages, a request whose logits are stored skips decode,
     transfer and the forward: it is emitted at once as a stub, and the
     runner gathers its logits.
+
+    **Containment** (:mod:`rnb_tpu_torch.faults`): a decode that fails
+    inside a fused take does not poison its batchmates. A transient
+    failure is retried by a synchronous re-decode into the same planned
+    rows, up to the step's ``fault_retry_budget`` (the executor hands it
+    the step's ``max_retries`` and ``retry_backoff_ms``); a permanent one
+    (or an exhausted budget) parks every card riding the record on
+    :meth:`take_failed`, releases its rows and page pins, and the take
+    emits the survivors in a warmed bucket. A record whose every card's
+    deadline passed while it waited to be fused is dropped the same way
+    and surfaces through :meth:`take_shed` (site ``hold``).
     """
 
     SUPPORTS_RAGGED = True
@@ -1137,6 +1166,14 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         #: the load-adaptive controller (``enable_autotune``); None keeps
         #: the static ``max_hold_ms`` rule
         self.autotune = None
+        #: the transient-retry budget ``(max_retries, backoff_ms)``, set by
+        #: the executor from the step's keys (``(0, 0)`` in strict mode)
+        self.fault_retry_budget = (0, 0.0)
+        #: contained failures ``[(card, reason)]``, retries made and
+        #: deadline sheds ``[(card, where)]``, drained by the executor
+        self._failed: list = []
+        self._stage_retries = 0
+        self._deadline_shed: list = []
         # warm-up: fault in the pinned slots and the transfer path at
         # every shape an emission ships (and, on the rgb path, build and
         # launch the loader's normalize kernel)
@@ -1242,11 +1279,15 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         suffixes = ((".mjpg", ".mjpeg") if self.pixel_path == "dct"
                     else (".y4m",))
         for path in dataset_samples(suffixes, num_samples):
-            decoder = get_decoder(path)
-            starts = self._sample_starts(decoder, path)
-            self._decode_into(decoder, path, starts, np.empty(
-                self._batch_shape(len(starts)),
-                np.int16 if self.pixel_path == "dct" else np.uint8))
+            try:
+                decoder = get_decoder(path)
+                starts = self._sample_starts(decoder, path)
+                self._decode_into(decoder, path, starts, np.empty(
+                    self._batch_shape(len(starts)),
+                    np.int16 if self.pixel_path == "dct" else np.uint8))
+            except Exception as e:
+                warn_warmup_skipped(path, e)
+                continue
             if isinstance(decoder, NativeY4MDecoder):
                 DecodePool.shared()
 
@@ -1487,13 +1528,111 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
 
     def _retire_oldest(self) -> None:
         rec = self._inflight.popleft()
-        try:
-            with hostprof.section("loader.decode_wait"):
-                rec.wait()  # a decode error fails the run here
-        finally:
+        with hostprof.section("loader.decode_wait"):
+            ok = self._wait_contained(rec)
+        if ok:
             rec.t_ready = time.monotonic()
-            self._ready.append(rec)  # discard_pending releases its slot
-        trace.instant("loader.decode_ready", rid=rec.cards[0].id)
+            self._ready.append(rec)
+            trace.instant("loader.decode_ready", rid=rec.cards[0].id)
+
+    # -- containment ------------------------------------------------------
+
+    def _wait_contained(self, rec: _FuseRecord) -> bool:
+        """Wait one record's decode; True on success. A transient failure
+        is retried by a synchronous re-decode into the same rows, up to
+        ``fault_retry_budget``; a permanent one, or an exhausted budget,
+        parks the record (:meth:`_park_failed`); an unclassified error
+        raises. The failed decode's tickets are all waited before the
+        error surfaces, so no decoder still writes into the rows."""
+        try:
+            rec.wait()
+            return True
+        except Exception as e:
+            kind = classify_error(e)
+            if kind is FATAL:
+                raise
+            reason = fault_reason(e)
+        if kind is TRANSIENT:
+            max_retries, backoff_ms = self.fault_retry_budget
+            for _ in range(int(max_retries)):
+                self._stage_retries += 1
+                if backoff_ms > 0:
+                    time.sleep(backoff_ms / 1000.0)
+                try:
+                    decoder = get_decoder(rec.video)
+                    self._decode_into(decoder, rec.video,
+                                      self._sample_starts(decoder, rec.video),
+                                      rec.rows)
+                    rec.copied = True
+                    return True
+                except Exception as e:
+                    kind = classify_error(e)
+                    if kind is FATAL:
+                        raise
+                    reason = fault_reason(e)
+                    if kind is not TRANSIENT:
+                        # a permanent verdict: no retry can help
+                        self._park_failed(rec, reason)
+                        return False
+            reason = "retries-exhausted:" + reason
+        self._park_failed(rec, reason)
+        return False
+
+    def _park_failed(self, rec: _FuseRecord, reason: str) -> None:
+        """Every card riding the record (leader and coalesced followers)
+        fails as a unit and nothing of it is cached: its slot reference
+        and any page pin go, and the executor dead-letters its cards."""
+        self._drop_record(rec)
+        self._failed.extend((tc, reason) for tc in rec.cards)
+
+    def _drop_record(self, rec: _FuseRecord) -> None:
+        """Retire a record that will not be emitted: its coalescing
+        window, its page pin and its slot reference (its decode is
+        already waited)."""
+        self._drop_coalesce(rec)
+        if rec.plan is not None:
+            rec.plan.release()
+            rec.plan = None
+        self.staging.release(rec.slot)
+
+    def take_failed(self):
+        """Executor hook: the contained failures ``[(card, reason)]``."""
+        out, self._failed = self._failed, []
+        return out
+
+    def take_retries(self) -> int:
+        """Executor hook: the retries made while assembling takes."""
+        n, self._stage_retries = self._stage_retries, 0
+        return n
+
+    def take_shed(self):
+        """Executor hook: the requests shed here because their deadline
+        passed while their decoded rows waited ``[(card, "hold")]``."""
+        out, self._deadline_shed = self._deadline_shed, []
+        return out
+
+    def _drop_expired_ready(self) -> None:
+        """The loader's hold boundary of the deadline layer: a decoded
+        record whose every card's deadline passed while it waited to be
+        fused is dropped before the take (its rows shared by every card
+        riding it, one live card keeps it). Inert when no card carries a
+        deadline."""
+        if not self._ready or not any(
+                getattr(rec.cards[0], "deadline_s", None) is not None
+                for rec in self._ready):
+            return
+        kept = deque()
+        for rec in self._ready:
+            if all(deadline_expired(tc) for tc in rec.cards):
+                try:
+                    rec.wait()  # decode-complete: retires its tickets
+                except Exception:
+                    pass  # shed either way
+                self._drop_record(rec)
+                self._deadline_shed.extend((tc, "hold") for tc in rec.cards)
+            else:
+                kept.append(rec)
+        self._ready = kept
 
     def _harvest(self) -> None:
         """Move decode-complete requests to ready, in FIFO order."""
@@ -1520,14 +1659,11 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
                 break
             take.append(self._ready.popleft())
             rows += n
+        # a failed decode leaves the take: the survivors are emitted
+        take = [rec for rec in take if self._wait_contained(rec)]
         if not take:
             return False
-        try:
-            for rec in take:
-                rec.wait()  # retires the tickets; a decode error raises
-        except Exception:
-            self._ready.extendleft(reversed(take))
-            raise
+        rows = sum(rec.n for rec in take)
         for rec in take:
             # finalizing: a later same-key request consults the cache
             self._drop_coalesce(rec)
@@ -1701,6 +1837,7 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         if out is not None:
             return out
         self._harvest()
+        self._drop_expired_ready()
         if not self._ready:
             return None
         rows_ready = sum(rec.n for rec in self._ready)
@@ -1752,14 +1889,11 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         release the page pins of unemitted hits, and stop the helper
         threads."""
         for rec in list(self._inflight) + list(self._ready):
-            self._drop_coalesce(rec)
             try:
                 rec.wait()
             except Exception:
                 pass  # abort path: decode errors are moot
-            if rec.plan is not None:
-                rec.plan.release()
-            self.staging.release(rec.slot)
+            self._drop_record(rec)
         self._inflight.clear()
         self._ready.clear()
         self._seal_open_slot()

@@ -107,8 +107,16 @@ def _library(source: str) -> ctypes.CDLL:
     with _lock:
         lib = _libraries.get(source)
         if lib is None:
-            build((source,))
-            lib = ctypes.CDLL(library_path(source))
+            try:
+                build((source,))
+                lib = ctypes.CDLL(library_path(source))
+            except OSError as e:
+                # a library that cannot be built or loaded is a broken
+                # installation, not one request's fault: as an OSError,
+                # fault containment would retry or dead-letter every
+                # request that launches the kernel instead of aborting
+                raise RuntimeError("loading the kernel library of %s "
+                                   "failed: %s" % (source, e)) from e
             lib.rnb_error_string.restype = ctypes.c_char_p
             lib.rnb_error_string.argtypes = [ctypes.c_int]
             _libraries[source] = lib

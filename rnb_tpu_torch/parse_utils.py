@@ -53,7 +53,18 @@ verdicts sum to the decisions, emissions are covered by decisions and
 sum over the buckets, the held deadlines' min/max/sum agree, every
 bucket is one the config warms and, where only fusing loaders are
 controlled, the emissions equal the loaders' staged and copied batches.
-A violation is printed and the exit code is 1.
+Of the fault ledger (``Faults:``, ``Failure reasons:``, ``Shed
+sites:``, ``Deadline:``, ``Deadline sites:``, ``failed-requests.txt``):
+on a run that reached its target, completed + failed + shed equals the
+requests of a bulk run (and reaches the target of an open-loop one);
+``Failure reasons:`` sums to ``num_failed`` and ``Shed sites:`` to
+``num_shed``; ``Deadline sites:`` sums to ``expired`` and equals the
+``:deadline_expired`` entries of ``Shed sites:``; ``failed-requests.txt``
+holds one distinct request per dead letter with the same reasons; the
+tables' ``# faults`` trailers stay within the job's counts; and the final
+metrics snapshot's ``faults.*`` and ``deadline.expired`` counters equal
+the lines. A violation is printed and the exit code is 1 (``--check`` is
+accepted and changes nothing: the checks always run).
 """
 
 from __future__ import annotations
@@ -69,6 +80,16 @@ from rnb_tpu_torch.trace import (_step_of, _strip_suffix, attribute_phases,
 
 #: warm records a job-wide summary skips per table (runner.py)
 NUM_SUMMARY_SKIPS = 10
+#: the dead-letter detail cap (rnb_tpu_torch.control.FaultStats)
+MAX_DEAD_LETTERS = 1000
+
+#: the fault ledger's JSON lines, by the meta key each is read into
+JSON_LINES = {"Failure reasons": "failure_reasons",
+              "Shed sites": "shed_sites",
+              "Queue overflows": "queue_overflows",
+              "Deadline sites": "deadline_sites"}
+#: the suffix of every deadline shed site (rnb_tpu_torch.health)
+DEADLINE_SUFFIX = ":deadline_expired"
 
 #: kernel families of a profile, by a substring of the kernel's name;
 #: the first family that matches takes the kernel
@@ -111,6 +132,10 @@ def read_meta(path: str) -> dict:
                 meta["autotune_buckets"] = json.loads(rest)
             elif head == "Critpath stages":
                 meta["critpath_stages"] = json.loads(rest)
+            elif head in JSON_LINES:
+                meta[JSON_LINES[head]] = json.loads(rest)
+            elif head == "Termination flag":
+                meta["termination_flag"] = int(rest)
             elif head in ("Pixel path", "Decode backend"):
                 meta[head.lower().replace(" ", "_")] = rest
             elif rest and "=" in rest:
@@ -127,10 +152,13 @@ def read_meta(path: str) -> dict:
 
 
 def read_table(path: str):
-    """One timing table -> (event keys, rows of stamps per request)."""
+    """One timing table -> (event keys, rows of stamps per request); an
+    instance that completed nothing (every request shed) has neither."""
     with open(path) as f:
         lines = [ln.split() for ln in f.read().splitlines()
-                 if ln and not ln.startswith("#")]
+                 if ln.strip() and not ln.startswith("#")]
+    if not lines:
+        return [], []
     keys = [k for k in lines[0] if not k.startswith("device")]
     rows = [[float(v) for v in ln[:len(keys)]] for ln in lines[1:]]
     return keys, rows
@@ -185,7 +213,10 @@ METRICS_FOOTING = (
         "feature_evictions", "feature_gathers", "feature_gather_rows",
         "feature_bytes_saved"))
     + tuple(("slo." + k, "Slo", k) for k in (
-        "tracked", "within", "missed")))
+        "tracked", "within", "missed"))
+    + tuple(("faults." + k, "Faults", k) for k in (
+        "num_failed", "num_shed", "num_retries"))
+    + (("deadline.expired", "Deadline", "expired"),))
 
 
 def metrics_problems(log_dir: str, meta: dict) -> List[str]:
@@ -466,11 +497,11 @@ def trace_problems(log_dir: str, meta: dict) -> List[str]:
 
 
 def _tables(log_dir: str) -> List[str]:
-    """The job's timing tables, one per final-step instance."""
+    """The job's timing tables, one per final-step instance
+    (``<device>-group<g>-<i>.txt``)."""
     return [os.path.join(log_dir, name)
             for name in sorted(os.listdir(log_dir))
-            if name.endswith(".txt")
-            and name not in ("log-meta.txt", "profile.txt", "hostprof.txt")]
+            if name.endswith(".txt") and "-group" in name]
 
 
 def kernel_families(kernels: Dict[str, dict]) -> Dict[str, float]:
@@ -483,6 +514,100 @@ def kernel_families(kernels: Dict[str, dict]) -> Dict[str, float]:
                        if any(m in name for m in marks)), "other")
         shares[family] = shares.get(family, 0.0) + k["device_us"] / total
     return shares
+
+
+def read_dead_letters(log_dir: str) -> List[tuple]:
+    """``failed-requests.txt`` -> ``[(request id, step, reason)]`` (empty
+    without the file)."""
+    path = os.path.join(log_dir, "failed-requests.txt")
+    if not os.path.isfile(path):
+        return []
+    with open(path) as f:
+        rows = [line.split() for line in f.read().splitlines()
+                if line and not line.startswith("#")]
+    return [(int(rid), int(step), reason) for rid, step, reason in rows]
+
+
+def fault_problems(log_dir: str, meta: dict) -> List[str]:
+    """The fault ledger's invariants (the reference's --check)."""
+    lines = meta["lines"]
+    problems = []
+    faults = lines.get("Faults")
+    if faults is None:
+        return []  # a log from before the fault ledger
+    failed, shed = int(faults["num_failed"]), int(faults["num_shed"])
+    reasons = meta.get("failure_reasons", {})
+    if sum(reasons.values()) != failed:
+        problems.append("'Failure reasons:' sum to %d but num_failed=%d"
+                        % (sum(reasons.values()), failed))
+    sites = meta.get("shed_sites", {})
+    if sum(sites.values()) != shed:
+        problems.append("'Shed sites:' sum to %d but num_shed=%d"
+                        % (sum(sites.values()), shed))
+    completed = 0
+    table_faults = {"num_failed": 0, "num_shed": 0}
+    for path in _tables(log_dir):
+        completed += len(read_table(path)[1])
+        trailer = read_trailers(path).get("faults", {})
+        for key in table_faults:
+            table_faults[key] += trailer.get(key, 0)
+    for key, total in (("num_failed", failed), ("num_shed", shed)):
+        if table_faults[key] > total:
+            problems.append("the tables' '# faults' trailers count %s=%d "
+                            "but Faults: says %d"
+                            % (key, table_faults[key], total))
+    args = meta.get("args", {})
+    if meta.get("termination_flag") == 0 and "num_videos" in args:
+        disposed = completed + failed + shed
+        want = args["num_videos"]
+        if disposed < want or (args.get("mean_interval_ms") == 0
+                               and disposed != want):
+            problems.append(
+                "completed %d + failed %d + shed %d = %d for a target of "
+                "%d requests (%s)" % (completed, failed, shed, disposed,
+                                      want, "bulk: every request ends "
+                                      "once" if args.get(
+                                          "mean_interval_ms") == 0
+                                      else "open loop: at least"))
+    letters = read_dead_letters(log_dir)
+    if len(letters) != min(failed, MAX_DEAD_LETTERS):
+        problems.append("failed-requests.txt lists %d dead letter(s) but "
+                        "num_failed=%d" % (len(letters), failed))
+    if len({rid for rid, _, _ in letters}) != len(letters):
+        problems.append("failed-requests.txt lists a request twice")
+    if failed <= MAX_DEAD_LETTERS:
+        letter_reasons: Dict[str, int] = {}
+        for _, _, reason in letters:
+            letter_reasons[reason] = letter_reasons.get(reason, 0) + 1
+        if letter_reasons != {k: int(v) for k, v in reasons.items()}:
+            problems.append("failed-requests.txt reasons %s disagree with "
+                            "'Failure reasons:' %s"
+                            % (letter_reasons, reasons))
+    deadline = lines.get("Deadline")
+    deadline_sites = meta.get("deadline_sites")
+    if deadline is None:
+        if deadline_sites is not None:
+            problems.append("a 'Deadline sites:' line without its "
+                            "'Deadline:' line")
+        return problems
+    expired = int(deadline["expired"])
+    if deadline["budget_ms"] <= 0:
+        problems.append("Deadline: budget_ms=%d must be positive"
+                        % deadline["budget_ms"])
+    deadline_sites = {k: int(v) for k, v in (deadline_sites or {}).items()}
+    if sum(deadline_sites.values()) != expired:
+        problems.append("'Deadline sites:' sum to %d but expired=%d"
+                        % (sum(deadline_sites.values()), expired))
+    shed_deadline = {k: int(v) for k, v in sites.items()
+                     if k.endswith(DEADLINE_SUFFIX)}
+    if shed_deadline != deadline_sites:
+        problems.append("'Deadline sites:' %s disagree with the "
+                        "deadline entries of 'Shed sites:' %s"
+                        % (deadline_sites, shed_deadline))
+    if expired > shed:
+        problems.append("Deadline: expired=%d exceeds num_shed=%d"
+                        % (expired, shed))
+    return problems
 
 
 def footing_problems(meta: dict) -> List[str]:
@@ -529,7 +654,7 @@ def summarize(log_dir: str) -> dict:
         keys, rows = read_table(path)
         for step, values in step_service_ms(keys, rows).items():
             by_step.setdefault(step, []).extend(values)
-        step = max(by_step)
+        step = max(by_step, default=0)
         if step > 0:
             for arrive, leave in _stamp_pairs(
                     keys, "inference%d_finish" % (step - 1),
@@ -563,7 +688,8 @@ def summarize(log_dir: str) -> dict:
     if "Trace" in lines:
         out.update(trace_events=int(lines["Trace"]["events"]),
                    trace_dropped=int(lines["Trace"]["dropped"]))
-    for head in ("Metrics", "Slo", "Critpath", "Autotune"):
+    for head in ("Metrics", "Slo", "Critpath", "Autotune", "Faults",
+                 "Deadline"):
         if head in lines:
             out[head.lower()] = {k: int(v) for k, v in lines[head].items()}
     if "autotune_buckets" in meta:
@@ -585,7 +711,8 @@ def summarize(log_dir: str) -> dict:
                                + trace_problems(log_dir, meta)
                                + metrics_problems(log_dir, meta)
                                + critpath_problems(log_dir, meta)
-                               + autotune_problems(meta))
+                               + autotune_problems(meta)
+                               + fault_problems(log_dir, meta))
     profile = os.path.join(log_dir, "profile.json")
     if os.path.exists(profile):
         with open(profile) as f:
@@ -612,6 +739,8 @@ def _mean(values: List[float]):
 
 def main(argv=None) -> int:
     log_dirs = list(sys.argv[1:] if argv is None else argv)
+    if "--check" in log_dirs:
+        log_dirs.remove("--check")  # the checks always run
     if "--attribute" in log_dirs:
         log_dirs.remove("--attribute")
         for log_dir in log_dirs:

@@ -1,9 +1,32 @@
 """The stage executor: one thread per (step, group, device instance).
 
-Counterpart of ``rnb_tpu/runner.py``, without the containment, health,
-hedging and metrics layers of the JAX package (not yet ported): an
-error escaping a stage stops the run with ``INTERNAL_ERROR`` — a
-decode error fails the run loudly.
+Counterpart of ``rnb_tpu/runner.py``, without the replica lanes, health
+board and hedging of the JAX package (not yet ported).
+
+**Fault containment** (:mod:`rnb_tpu_torch.faults`): an error escaping
+a stage's model call is classified. A transient one is retried up to the
+step's ``max_retries``, ``retry_backoff_ms`` apart (the retry calls the
+stage again on the same payload: a runner replays its captured graph on
+the same input); a permanent one, or an exhausted budget, stamps the
+request's card ``failed``, dead-letters it in the job's
+:class:`~rnb_tpu_torch.control.FaultStats` and counts it toward the run
+target, and the stream goes on; anything unclassified, or any error
+with ``fault_containment: false``, stops the run with
+``INTERNAL_ERROR`` as before. Stages that batch internally (the fusing
+loader) contain their own decode failures and hand them over through
+``take_failed()``/``take_retries()``. Under ``overload_policy: "shed"``
+a full downstream queue drops the new item with a counted shed instead
+of stopping the run with ``FRAME_QUEUE_FULL``. A
+:class:`~rnb_tpu_torch.faults.FaultPlan` stalls a stage before the
+inference span and raises or sleeps per model-call attempt. Under the
+root ``deadline`` key an item whose every request's deadline passed is
+shed at the queue take, before publishing, and where a stage held it
+(``take_shed()``); a forked segment card is never shed. Every disposal
+path returns what the item held: the consumer gave the producer's ring
+credit back at the take, a shed before publishing never took one, and
+a dropped card's feature-page pin is released. With no fault plan, no
+deadline and nothing failing, each of these is one ``None`` test in the
+hot loop.
 
 The hot loop takes an item from the stage's input queue, runs the
 stage, waits for its device work (the honest ``inference{i}_finish``
@@ -52,10 +75,15 @@ import torch
 
 from rnb_tpu_torch import hostprof, metrics, trace
 from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, EdgeTracker,
-                                   InferenceCounter, RingCredits,
-                                   TerminationFlag, TerminationState,
+                                   FaultStats, InferenceCounter,
+                                   RingCredits, TerminationFlag,
+                                   TerminationState, dispose_requests,
                                    send_exit_markers)
 from rnb_tpu_torch.devices import DeviceSpec
+from rnb_tpu_torch.faults import (FATAL, TRANSIENT, classify_error,
+                                  fault_reason)
+from rnb_tpu_torch.health import deadline_site
+from rnb_tpu_torch.health import expired as deadline_expired
 from rnb_tpu_torch.ops.ragged import check_segment_offsets
 from rnb_tpu_torch.selector import DEFAULT_QUEUE_SELECTOR
 from rnb_tpu_torch.stage import PaddedBatch, RaggedBatch
@@ -176,6 +204,21 @@ class RunnerContext:
     autotune_sink: Optional[List] = None
     #: critpath runs: the final step's summary writes ``# critpath``
     critpath: bool = False
+    #: False keeps the strict semantics: even a classified error aborts
+    containment: bool = True
+    #: "abort" (a full queue stops the run) or "shed" (drop the new item)
+    overload_policy: str = "abort"
+    #: the retry budget for transient errors of this step's model call
+    max_retries: int = 0
+    retry_backoff_ms: float = 10.0
+    #: the injection schedule (rnb_tpu_torch.faults.FaultPlan), or None
+    fault_plan: Any = None
+    #: the job-wide dead-letter / shed / retry ledger
+    fault_stats: Optional[FaultStats] = None
+    #: deadline propagation (root ``deadline`` key): the settings and the
+    #: job's expiry ledger (both None: the checks are inert)
+    deadline: Any = None
+    deadline_stats: Any = None
 
 
 def validate_payload(declared, payload, where: str) -> None:
@@ -242,17 +285,17 @@ def _store_outputs(sink: Dict[int, tuple], payload, non_tensors,
                        {k: getattr(tc, k) for k in OUTPUT_STAMPS})
 
 
-def _publish(ctx: RunnerContext, selector, payload, non_tensors,
+def _publish(ctx: RunnerContext, out_queue, payload, non_tensors,
              time_card) -> bool:
-    """Hand one item to the next step, on the out queue the selector
-    names: as it is, or as ``num_segments`` segments, each with its own
-    forked card and its own ring credit. The segments are views of the
-    stage's output: each consumer keeps the tensor alive by its
-    reference and orders the caching allocator's reuse of it after its
-    own stream (``record_stream``), so no segment is copied. False
-    when the job died waiting."""
-    out_queue = ctx.out_queues[selector.select(payload, non_tensors,
-                                               time_card)]
+    """Hand one item to the next step on ``out_queue``: as it is, or as
+    ``num_segments`` segments, each with its own forked card and its own
+    ring credit. The segments are views of the stage's output: each
+    consumer keeps the tensor alive by its reference and orders the
+    caching allocator's reuse of it after its own stream
+    (``record_stream``), so no segment is copied. A full queue stops the
+    run under the ``"abort"`` policy (an overflow counted on the edge);
+    under ``"shed"`` the item passed the shed check, so it waits for
+    room (bounded backpressure). False when the job died."""
     k = ctx.num_segments
     segments = (split_segments(payload, k) if payload and k > 1
                 else [payload] * k)
@@ -260,13 +303,187 @@ def _publish(ctx: RunnerContext, selector, payload, non_tensors,
         if seg_payload and not ctx.credits.acquire(ctx.termination):
             return False
         card = time_card.fork(seg_idx) if k > 1 else time_card
+        item = (seg_payload, non_tensors, card,
+                ctx.credits if seg_payload else None)
+        if ctx.overload_policy == "shed":
+            while True:
+                try:
+                    out_queue.put(item, timeout=QUEUE_POLL_S)
+                    break
+                except queue.Full:
+                    if ctx.termination.terminated:
+                        return False
+            continue
         try:
-            out_queue.put_nowait((seg_payload, non_tensors, card,
-                                  ctx.credits if seg_payload else None))
+            out_queue.put_nowait(item)
         except queue.Full:
+            if ctx.fault_stats is not None:
+                ctx.fault_stats.record_overflow(
+                    "step%d->step%d" % (ctx.step_idx, ctx.step_idx + 1))
             ctx.termination.raise_flag(TerminationFlag.FRAME_QUEUE_FULL)
             return False
     return True
+
+
+def _release_pins(cards) -> None:
+    """A dropped card's feature-page pin goes with it (the runner would
+    have released it after its gather)."""
+    for tc in cards:
+        plan = getattr(tc, "feature_plan", None)
+        if plan is not None:
+            tc.feature_plan = None
+            plan.release()
+
+
+def _contain_failure(ctx: RunnerContext, time_card, reason: str,
+                     summary) -> None:
+    """Dead-letter one item's request(s): stamp the cards failed, record
+    them in the job's ledger and count them toward the run target (a
+    failed request never produces the completion the target waits for)."""
+    cards = cards_of(time_card)
+    _release_pins(cards)
+    for tc in cards:
+        if tc.status == "ok":
+            tc.mark_failed(reason)
+    if ctx.fault_stats is not None:
+        ctx.fault_stats.record_failure([tc.id for tc in cards],
+                                       ctx.step_idx, reason)
+    if summary is not None:
+        summary.note_failure(reason, len(cards))
+    dispose_requests(ctx.counter, ctx.num_videos, ctx.termination,
+                     len(cards))
+
+
+def _shed(ctx: RunnerContext, time_card, site: str, summary,
+          expired: bool = False) -> None:
+    """Drop one item at ``site``: stamped, counted in the fault ledger
+    (and, for an ``expired`` deadline, in the deadline ledger, which
+    ``parse_utils`` cross-foots with it) and disposed toward the target."""
+    cards = cards_of(time_card)
+    _release_pins(cards)
+    for tc in cards:
+        tc.mark_shed(site)
+    if ctx.fault_stats is not None:
+        ctx.fault_stats.record_shed(site, len(cards))
+    if expired and ctx.deadline_stats is not None:
+        ctx.deadline_stats.record(site, len(cards))
+    if summary is not None:
+        summary.note_shed(len(cards))
+    dispose_requests(ctx.counter, ctx.num_videos, ctx.termination,
+                     len(cards))
+
+
+def _shed_deadline(ctx: RunnerContext, time_card, where: str,
+                   summary) -> None:
+    """Shed an item whose every request's deadline passed, at the
+    boundary ``where`` (e.g. ``step1_take``)."""
+    _shed(ctx, time_card, deadline_site(where), summary, expired=True)
+
+
+def _sheddable_expired(ctx: RunnerContext, time_card) -> bool:
+    """The deadline check of a boundary: expired and legal to shed (a
+    forked segment card never is: dropping one segment would strand its
+    siblings in the aggregator)."""
+    return (ctx.deadline is not None
+            and getattr(time_card, "sub_id", None) is None
+            and deadline_expired(time_card))
+
+
+def _overloaded(ctx: RunnerContext, out_queue, time_card) -> bool:
+    """Under ``overload_policy: "shed"``: would this item (all its
+    segments) overfill ``out_queue``? A forked card never sheds."""
+    return (ctx.overload_policy == "shed" and out_queue.maxsize > 0
+            and getattr(time_card, "sub_id", None) is None
+            and out_queue.qsize() + ctx.num_segments > out_queue.maxsize)
+
+
+def _stage_hooks(model):
+    """A stage's containment hooks ``(take_retries, take_failed,
+    take_shed)``, or None when it has none (resolved once)."""
+    hooks = tuple(getattr(model, name, None) for name in (
+        "take_retries", "take_failed", "take_shed"))
+    return hooks if any(h is not None for h in hooks) else None
+
+
+def _drain_stage_failures(ctx: RunnerContext, hooks, summary) -> None:
+    """Turn what a stage contained internally into the job's accounting:
+    its retries, its failures (dead-lettered here, or the run aborted
+    with ``fault_containment: false``) and its deadline sheds."""
+    take_retries, take_failed, take_shed = hooks
+    if take_retries is not None:
+        n = take_retries()
+        if n:
+            if ctx.fault_stats is not None:
+                ctx.fault_stats.record_retries(n)
+            if summary is not None:
+                summary.note_retries(n)
+    if take_failed is not None:
+        for tc, reason in take_failed():
+            if not ctx.containment:
+                raise RuntimeError(
+                    "request %s failed in-stage (%s) with "
+                    "fault_containment disabled"
+                    % (getattr(tc, "id", "?"), reason))
+            _contain_failure(ctx, tc, reason, summary)
+    if take_shed is not None:
+        for tc, where in take_shed():
+            _shed_deadline(ctx, tc, "step%d_%s" % (ctx.step_idx, where),
+                           summary)
+
+
+def _call_stage(ctx: RunnerContext, model, payload, non_tensors, time_card,
+                handle, summary, key_start: str, tr_model_call: str):
+    """One dispatch of the stage under the fault plan and the retry
+    budget: the plan's stall before the inference span, then per attempt
+    its latency or error and the call (``complete`` of a prefetched
+    decode on the first attempt, the stage itself on a retry). Returns
+    the stage's result, or None when the item was dead-lettered."""
+    rids = None
+    if ctx.fault_plan is not None:
+        # a fault matching any constituent hits the whole dispatch
+        rids = [tc.id for tc in cards_of(time_card)]
+        stall = ctx.fault_plan.stall_ms(ctx.step_idx, rids)
+        if stall > 0:
+            time.sleep(stall / 1000.0)
+    time_card.record(key_start)
+    attempt = 0
+    while True:
+        try:
+            with hostprof.section(tr_model_call), \
+                    trace.span(tr_model_call, _rid(time_card)):
+                if ctx.fault_plan is not None:
+                    ctx.fault_plan.fire(ctx.step_idx, rids, attempt)
+                if handle is not None:
+                    return model.complete(handle, non_tensors, time_card)
+                return model(payload, non_tensors, time_card)
+        except Exception as exc:
+            if handle is not None:
+                # a retry decodes again on the synchronous path: the
+                # prefetched decode is retired, its rows released
+                model.discard(handle, non_tensors)
+                handle = None
+            kind = classify_error(exc)
+            if kind is FATAL or not ctx.containment:
+                raise
+            retry = kind is TRANSIENT and attempt < ctx.max_retries
+            if not retry and getattr(time_card, "sub_id", None) is not None:
+                # a segment stays fail-fast past its retries: one
+                # dead-lettered segment would strand its siblings
+                raise
+            if retry:
+                attempt += 1
+                if ctx.fault_stats is not None:
+                    ctx.fault_stats.record_retries(1)
+                if summary is not None:
+                    summary.note_retries(1)
+                if ctx.retry_backoff_ms > 0:
+                    time.sleep(ctx.retry_backoff_ms / 1000.0)
+                continue
+            reason = fault_reason(exc)
+            if kind is TRANSIENT:
+                reason = "retries-exhausted:" + reason
+            _contain_failure(ctx, time_card, reason, summary)
+            return None
 
 
 def _rid(time_card) -> Optional[int]:
@@ -347,6 +564,12 @@ def runner(ctx: RunnerContext) -> None:
     pending: deque = deque()  # (handle, non_tensors, time_card)
     idle_poll = getattr(model, "poll", None)
     take_ready = getattr(model, "take_ready", None)
+    # what a stage contains internally, drained at each loop top
+    hooks = _stage_hooks(model)
+    if hooks is not None and hooks[1] is not None and ctx.containment:
+        # the step's retry budget; strict mode leaves the stage's (0, 0),
+        # so a failure it parks is drained into an abort
+        model.fault_retry_budget = (ctx.max_retries, ctx.retry_backoff_ms)
     # the executor feeds the controller's service estimator unless the
     # stage reports its own
     service_feed = controller is not None and not getattr(
@@ -366,9 +589,13 @@ def runner(ctx: RunnerContext) -> None:
     tr_publish = trace.name("exec%d.publish", ctx.step_idx)
     sec_publish = "exec%d.route+enqueue" % ctx.step_idx
     sec_bookkeeping = "exec%d.bookkeeping" % ctx.step_idx
+    where_take = "step%d_take" % ctx.step_idx
+    where_publish = "step%d_publish" % ctx.step_idx
     saw_marker = False
     try:
         while model is not None and not ctx.termination.terminated:
+            if hooks is not None:
+                _drain_stage_failures(ctx, hooks, summary)
             # set where an arrival was dispatched by the stage call: only
             # such a dispatch's start -> finish span is service (a polled
             # or flushed emission's last start predates it by the hold)
@@ -389,17 +616,31 @@ def runner(ctx: RunnerContext) -> None:
                     _payload, non_tensors, time_card, _credits = item
                     time_card.add_device(ctx.device.label)
                     time_card.record(key_runner)
-                    with hostprof.section(tr_model_call), \
-                            trace.span(tr_model_call, time_card.id):
-                        handle = model.submit(non_tensors, time_card)
+                    if _sheddable_expired(ctx, time_card):
+                        # shed before its decode is even submitted
+                        _shed_deadline(ctx, time_card, where_take, summary)
+                        continue
+                    try:
+                        with hostprof.section(tr_model_call), \
+                                trace.span(tr_model_call, time_card.id):
+                            handle = model.submit(non_tensors, time_card)
+                    except Exception as exc:
+                        # a submit-time decode error (a corrupt header)
+                        # fails this request only
+                        if classify_error(exc) is FATAL \
+                                or not ctx.containment:
+                            raise
+                        _contain_failure(ctx, time_card, fault_reason(exc),
+                                         summary)
+                        continue
                     pending.append((handle, non_tensors, time_card))
                 if pending:
                     handle, non_tensors, time_card = pending.popleft()
-                    time_card.record(key_start)
-                    with hostprof.section(tr_model_call), \
-                            trace.span(tr_model_call, time_card.id):
-                        result = model.complete(handle, non_tensors,
-                                                time_card)
+                    result = _call_stage(ctx, model, None, non_tensors,
+                                         time_card, handle, summary,
+                                         key_start, tr_model_call)
+                    if result is None:
+                        continue  # dead-lettered
                 elif not saw_marker:
                     continue
             if result is None and saw_marker:
@@ -430,7 +671,11 @@ def runner(ctx: RunnerContext) -> None:
                         credits.release()
                     time_card.add_device(ctx.device.label)
                     time_card.record(key_runner)
-                    time_card.record(key_start)
+                    if _sheddable_expired(ctx, time_card):
+                        # the credit went back above: nothing upstream
+                        # waits on a shed item
+                        _shed_deadline(ctx, time_card, where_take, summary)
+                        continue
                     if controller is not None:
                         # arrival-rate estimator: the client's wall-clock
                         # enqueue stamps (no clock read here)
@@ -438,9 +683,11 @@ def runner(ctx: RunnerContext) -> None:
                             t_enq = tc.timings.get("enqueue_filename")
                             if t_enq is not None:
                                 controller.observe_enqueue(t_enq)
-                    with hostprof.section(tr_model_call), \
-                            trace.span(tr_model_call, _rid(time_card)):
-                        result = model(payload, non_tensors, time_card)
+                    result = _call_stage(ctx, model, payload, non_tensors,
+                                         time_card, None, summary,
+                                         key_start, tr_model_call)
+                    if result is None:
+                        continue  # dead-lettered
                     arrival = True
                     if result[2] is None:
                         trace.instant(tr_swallow, rid=_rid(time_card))
@@ -465,9 +712,19 @@ def runner(ctx: RunnerContext) -> None:
                     out_pb.valid if isinstance(out_pb, RaggedBatch)
                     else int(out_pb.data.shape[0]), max(0.0, t_fin - t_sta))
             if ctx.out_queues is not None:
+                if _sheddable_expired(ctx, time_card):
+                    # too late already: dropped before it holds a credit
+                    _shed_deadline(ctx, time_card, where_publish, summary)
+                    continue
                 with hostprof.section(sec_publish), \
                         trace.span(tr_publish, _rid(time_card)):
-                    published = _publish(ctx, selector, tensors_out,
+                    out_queue = ctx.out_queues[selector.select(
+                        tensors_out, non_tensors_out, time_card)]
+                    if _overloaded(ctx, out_queue, time_card):
+                        _shed(ctx, time_card,
+                              "step%d_out_queue" % ctx.step_idx, summary)
+                        continue
+                    published = _publish(ctx, out_queue, tensors_out,
                                          non_tensors_out, time_card)
                 if not published:
                     break
@@ -491,6 +748,9 @@ def runner(ctx: RunnerContext) -> None:
                     ctx.termination.raise_flag(
                         TerminationFlag.TARGET_NUM_VIDEOS_REACHED)
                 break
+        if hooks is not None:
+            # the final flush may have contained failures or parked sheds
+            _drain_stage_failures(ctx, hooks, summary)
     except Exception:
         traceback.print_exc()
         ctx.termination.raise_flag(TerminationFlag.INTERNAL_ERROR)

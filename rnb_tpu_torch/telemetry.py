@@ -80,7 +80,10 @@ def latency_percentiles(latencies_ms: Sequence[float],
 #: ``feature_plan`` / ``feature_insert`` hold live page pins and insert
 #: obligations a fork would double-own, so they are not among them.
 CONTENT_STAMPS = ("num_clips", "video", "row0", "cache_hit",
-                  "cache_coalesced", "feature_hit", "pad_rows")
+                  "cache_coalesced", "feature_hit", "pad_rows",
+                  # the absolute wall-clock deadline the client stamps
+                  # under the root ``deadline`` key (absent otherwise)
+                  "deadline_s")
 
 
 class TimeCard:
@@ -110,6 +113,20 @@ class TimeCard:
         self.feature_hit = False
         self.feature_plan = None
         self.feature_insert = None
+        #: the request's outcome: "ok" until the containment layer
+        #: stamps it "failed" (dead-lettered) or "shed"
+        self.status = "ok"
+        self.failure_reason: Optional[str] = None
+
+    def mark_failed(self, reason: str) -> None:
+        """Stamp this request dead-lettered."""
+        self.status = "failed"
+        self.failure_reason = str(reason)
+
+    def mark_shed(self, site: str) -> None:
+        """Stamp this request shed (overload or an expired deadline)."""
+        self.status = "shed"
+        self.failure_reason = str(site)
 
     def record(self, key: str, at: Optional[float] = None) -> None:
         """Stamp ``key`` with the wall clock (or a given instant)."""
@@ -135,6 +152,8 @@ class TimeCard:
             if hasattr(self, attr):
                 setattr(child, attr, getattr(self, attr))
         child.devices = list(self.devices)
+        child.status = self.status
+        child.failure_reason = self.failure_reason
         return child
 
     @staticmethod
@@ -186,6 +205,12 @@ class TimeCard:
         for attr in CONTENT_STAMPS:
             if hasattr(ordered[0], attr):
                 setattr(merged, attr, getattr(ordered[0], attr))
+        for tc in ordered:
+            # one failed segment fails the merged request
+            if tc.status != "ok":
+                merged.status = tc.status
+                merged.failure_reason = tc.failure_reason
+                break
         return merged
 
 
@@ -243,6 +268,24 @@ class TimeCardSummary:
         #: ``critpath`` key), over records after the skip
         self.track_critpath = False
         self.critpath_num_skips = 0
+        #: requests this instance dead-lettered, shed and retried (the
+        #: ``# faults`` trailer); latencies stay over successes only
+        self.num_failed = 0
+        self.num_shed = 0
+        self.num_retries = 0
+        self.failure_reasons: "OrderedDict[str, int]" = OrderedDict()
+
+    def note_failure(self, reason: str, n: int = 1) -> None:
+        """Count a dead-lettered request (it has no timing row)."""
+        self.num_failed += n
+        self.failure_reasons[reason] = \
+            self.failure_reasons.get(reason, 0) + n
+
+    def note_shed(self, n: int = 1) -> None:
+        self.num_shed += n
+
+    def note_retries(self, n: int = 1) -> None:
+        self.num_retries += n
 
     def register(self, time_card: TimeCard) -> None:
         if not self.summary:
@@ -307,6 +350,23 @@ class TimeCardSummary:
                   % self.num_records())
         for prv, nxt, ms in gaps:
             print("Average time between %s and %s: %f ms" % (prv, nxt, ms))
+        if self.num_failed or self.num_shed or self.num_retries:
+            print("Contained faults: %d failed, %d shed, %d retries (%s)"
+                  % (self.num_failed, self.num_shed, self.num_retries,
+                     ", ".join("%s=%d" % kv
+                               for kv in self.failure_reasons.items())
+                     or "no failures"))
+
+    def faults_line(self) -> Optional[str]:
+        """The ``# faults`` trailer, or None when every request of the
+        instance succeeded (the reference's format)."""
+        if not (self.num_failed or self.num_shed or self.num_retries):
+            return None
+        parts = ["# faults num_failed=%d num_shed=%d num_retries=%d"
+                 % (self.num_failed, self.num_shed, self.num_retries)]
+        parts.extend("reason:%s=%d" % kv
+                     for kv in self.failure_reasons.items())
+        return " ".join(parts)
 
     def padding_line(self) -> Optional[str]:
         if not self.num_pad_tracked:
@@ -406,8 +466,9 @@ class TimeCardSummary:
                     fp.write(" %s" % (step_devices[col]
                                       if col < len(step_devices) else "-"))
             fp.write("\n")
-        for trailer in (self.cache_line(), self.padding_line(),
-                        self.phases_line(), self.critpath_line()):
+        for trailer in (self.faults_line(), self.cache_line(),
+                        self.padding_line(), self.phases_line(),
+                        self.critpath_line()):
             if trailer is not None:
                 fp.write(trailer + "\n")
 
@@ -438,6 +499,9 @@ TRACE_EVENT_REGISTRY = (
               "instant: the client created and enqueued one request"),
     StampSpec("client.enqueued", "rnb_tpu_torch/client.py",
               "counter: requests the client has emitted"),
+    StampSpec("client.shed", "rnb_tpu_torch/client.py",
+              "instant: the client shed a request at the full filename "
+              "queue (overload_policy shed)"),
     StampSpec("exec{step}.queue_get", "rnb_tpu_torch/runner.py",
               "span: executor blocked on its input queue"),
     StampSpec("exec{step}.hold_wait", "rnb_tpu_torch/runner.py",
@@ -451,6 +515,10 @@ TRACE_EVENT_REGISTRY = (
               "span: waiting for the stage's device work"),
     StampSpec("exec{step}.publish", "rnb_tpu_torch/runner.py",
               "span: route, segment split and downstream enqueue"),
+    StampSpec("health.lane_state", "rnb_tpu_torch/health.py",
+              "instant: a replica lane's health state transition "
+              "(args: lane, from, to, why); no path of the port builds "
+              "a board yet"),
     StampSpec("loader.decode_submit", "rnb_tpu_torch/models/r2p1d/model.py",
               "instant: one request's decode submitted"),
     StampSpec("loader.decode_ready", "rnb_tpu_torch/models/r2p1d/model.py",
@@ -483,9 +551,25 @@ TRACE_EVENT_REGISTRY = (
 )
 
 
-#: the log-meta lines of the metrics, critpath and autotune planes, each
-#: written only when its root config key is on
+#: the log-meta lines of the fault ledger (``Faults:`` on every run, the
+#: others when they have entries), of the deadline layer and of the
+#: metrics, critpath and autotune planes (each only when its root config
+#: key is on)
 META_LINE_REGISTRY = (
+    StampSpec("Faults:", "rnb_tpu_torch/benchmark.py",
+              "job-wide num_failed/num_shed/num_retries counters"),
+    StampSpec("Failure reasons:", "rnb_tpu_torch/benchmark.py",
+              "JSON per-reason dead-letter counts"),
+    StampSpec("Shed sites:", "rnb_tpu_torch/benchmark.py",
+              "JSON per-site shed counts"),
+    StampSpec("Queue overflows:", "rnb_tpu_torch/benchmark.py",
+              "JSON per-edge abort-policy queue-overflow counts"),
+    StampSpec("Deadline:", "rnb_tpu_torch/benchmark.py",
+              "deadline-propagation counters: configured budget_ms and "
+              "requests shed as deadline_expired (per-site sheds sum to "
+              "the total)"),
+    StampSpec("Deadline sites:", "rnb_tpu_torch/benchmark.py",
+              "JSON per-check-site deadline_expired shed counts"),
     StampSpec("Metrics:", "rnb_tpu_torch/benchmark.py",
               "live-metrics plane counters: interval snapshots appended "
               "to metrics.jsonl, distinct series, flight dumps written and "
@@ -529,6 +613,8 @@ METRIC_REGISTRY = (
                "windowed request arrival rate at the client"),
     MetricSpec("client.requests", "counter", "site",
                "requests the client has created"),
+    MetricSpec("client.shed", "counter", "site",
+               "requests the client shed at the full filename queue"),
     MetricSpec("exec{step}.queue_get", "histogram", "bridge",
                "executor input-queue starvation wait (ms)"),
     MetricSpec("exec{step}.hold_wait", "histogram", "bridge",
@@ -549,6 +635,19 @@ METRIC_REGISTRY = (
                "Batcher fused emissions"),
     MetricSpec("autotune.decision", "counter", "bridge",
                "BatchController decisions"),
+    MetricSpec("health.lane_state", "counter", "bridge",
+               "lane health state transitions"),
+    MetricSpec("faults.num_failed", "counter", "poll",
+               "dead-lettered requests (FaultStats ledger)"),
+    MetricSpec("faults.num_shed", "counter", "poll",
+               "shed requests (FaultStats ledger)"),
+    MetricSpec("faults.num_retries", "counter", "poll",
+               "transient retry attempts (FaultStats ledger)"),
+    MetricSpec("faults.sheds", "rate", "site",
+               "windowed shed rate (the shed-spike flight trigger)"),
+    MetricSpec("deadline.expired", "counter", "poll",
+               "requests shed as deadline_expired (DeadlineStats "
+               "ledger)"),
     MetricSpec("queue.filename.depth", "gauge", "site",
                "client filename queue depth (saturation-armed)"),
     MetricSpec("queue.e{step}.depth", "gauge", "site",
@@ -611,8 +710,9 @@ METRIC_REGISTRY = (
     MetricSpec("pages.bytes", "gauge", "poll", "total arena slab bytes"),
     MetricSpec("slo.good", "rate", "derived",
                "windowed within-budget completions"),
-    MetricSpec("slo.miss", "rate", "derived",
-               "windowed completions past their budget"),
+    MetricSpec("slo.miss", "rate", "site",
+               "windowed SLO violations: late completions and shed or "
+               "dead-lettered requests"),
     MetricSpec("slo.tracked", "counter", "derived",
                "completions the SLO layer observed"),
     MetricSpec("slo.within", "counter", "derived",

@@ -16,7 +16,11 @@
 # cell with the live-metrics plane), autotune (configs/rnb-fused-yuv-
 # autotune.json, the staged cell with the batch controller) and critpath
 # (the traced cell with the root "critpath" key, written beside the
-# dataset); all but dct over a generated y4m dataset. With
+# dataset) and staged-chaos (the staged cell's chaos copy with an empty
+# fault plan, rnb_tpu_torch/tools/chaos.py --empty-plan: overload_policy
+# shed, retry budgets and a deadline no request reaches, so every
+# containment check runs and nothing fails); all but dct over a generated
+# y4m dataset. With
 # RNB_HOST_PROFILE=1 in the environment every run also writes
 # hostprof.txt, and its sections are printed at the end.
 # RNB_MEASURE_VIDEOS sets the bulk request count
@@ -54,6 +58,7 @@ raw = json.load(open("configs/rnb-fused-yuv-traced.json"))
 raw["critpath"] = {"enabled": True}
 json.dump(raw, open(sys.argv[1], "w"))
 PY
+python3 -m rnb_tpu_torch.tools.chaos "$data/rnb-fused-yuv-staged-chaos.json" --empty-plan
 python3 - "$data/r2p1d-segment-1card.json" <<'PY'
 import json, sys
 raw = json.load(open("configs/r2p1d-segment.json"))
@@ -82,12 +87,13 @@ run() {  # run <cell> <args...>
     metrics) cfg=configs/rnb-fused-yuv-metrics.json ;;
     autotune) cfg=configs/rnb-fused-yuv-autotune.json ;;
     critpath) cfg=$data/rnb-fused-yuv-traced-critpath.json ;;
+    staged-chaos) cfg=$data/rnb-fused-yuv-staged-chaos.json ;;
     *) echo "unknown cell $cell" >&2; exit 2 ;;
   esac
   if [ "$cell" = dct ]; then
-    env -u RNB_TPU_DATA_ROOT python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath)"
+    env -u RNB_TPU_DATA_ROOT python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath|Faults|Deadline)"
   else
-    RNB_TPU_DATA_ROOT="$data" python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath)"
+    RNB_TPU_DATA_ROOT="$data" python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath|Faults|Deadline)"
   fi
 }
 for c in $cells; do echo "== $c bulk"; run $c -mi 0 -v $videos; done
@@ -103,10 +109,10 @@ cat $out/summary.jsonl | python3 -c "
 import sys, json
 for line in sys.stdin:
     d = json.loads(line); fam = d.get('kernel_families') or {}
-    print(d['log_dir'].split('/')[-2], d['config'].split('/')[-1], d['mean_interval_ms'], d['pixel_path'], d['decode_backend'], 'vps=%.3f' % d['videos_per_s'], 'cps=%.1f' % d['clips_per_s'], 'em=%d' % d['emissions'], 'svc=%.2f' % d['runner_service_ms'], 'wait=%s' % d['runner_wait_ms'], 'svc_by_step=%s' % json.dumps(d.get('service_ms_by_step')), 'em_by_step=%s' % json.dumps(d.get('emissions_by_step')), 'trace_events=%s' % d.get('trace_events'), 'kms/em=%s' % d.get('kernel_ms_per_emission'), 'busy=%s' % d.get('busy_share'), 'ingest=%s' % fam.get('ingest'), 'gather=%s' % fam.get('gather'), 'hit_rate=%s' % d.get('cache_hit_rate'), 'feature_hits=%s' % d.get('pages_feature_hits'), 'gathers=%s' % d.get('pages_gathers'), 'autotune=%s' % json.dumps(d.get('autotune')), 'autotune_buckets=%s' % json.dumps(d.get('autotune_buckets')), 'metrics=%s' % json.dumps(d.get('metrics')), 'slo=%s' % json.dumps(d.get('slo')), 'critpath=%s' % json.dumps(d.get('critpath')), 'footing=%s' % d['footing_problems'])
+    print(d['log_dir'].split('/')[-2], d['config'].split('/')[-1], d['mean_interval_ms'], d['pixel_path'], d['decode_backend'], 'vps=%.3f' % d['videos_per_s'], 'cps=%.1f' % d['clips_per_s'], 'em=%d' % d['emissions'], 'svc=%.2f' % d['runner_service_ms'], 'wait=%s' % d['runner_wait_ms'], 'svc_by_step=%s' % json.dumps(d.get('service_ms_by_step')), 'em_by_step=%s' % json.dumps(d.get('emissions_by_step')), 'trace_events=%s' % d.get('trace_events'), 'kms/em=%s' % d.get('kernel_ms_per_emission'), 'busy=%s' % d.get('busy_share'), 'ingest=%s' % fam.get('ingest'), 'gather=%s' % fam.get('gather'), 'hit_rate=%s' % d.get('cache_hit_rate'), 'feature_hits=%s' % d.get('pages_feature_hits'), 'gathers=%s' % d.get('pages_gathers'), 'autotune=%s' % json.dumps(d.get('autotune')), 'autotune_buckets=%s' % json.dumps(d.get('autotune_buckets')), 'metrics=%s' % json.dumps(d.get('metrics')), 'slo=%s' % json.dumps(d.get('slo')), 'critpath=%s' % json.dumps(d.get('critpath')), 'faults=%s' % json.dumps(d.get('faults')), 'deadline=%s' % json.dumps(d.get('deadline')), 'footing=%s' % d['footing_problems'])
 "
 for f in $out/*/hostprof.txt; do
   [ -f "$f" ] && { echo "== $f"; head -n 40 "$f"; }
 done
-grep -H "Staging\|Profile\|Pages\|Cache\|Graphs\|Warmup\|Trace\|Autotune\|Metrics\|Slo\|Critpath" $out/*/log-meta.txt
+grep -H "Staging\|Profile\|Pages\|Cache\|Graphs\|Warmup\|Trace\|Autotune\|Metrics\|Slo\|Critpath\|Faults\|Deadline" $out/*/log-meta.txt
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader

@@ -180,7 +180,8 @@ def test_merge_matches_the_reference(devices, order):
 def test_fork_carries_the_content_stamps():
     tc = TimeCard(3)
     values = dict(num_clips=5, video="v.y4m", row0=2, cache_hit=False,
-                  cache_coalesced=True, feature_hit=False, pad_rows=4)
+                  cache_coalesced=True, feature_hit=False, pad_rows=4,
+                  deadline_s=12.5)
     for key, value in values.items():
         setattr(tc, key, value)
     assert set(values) == set(CONTENT_STAMPS)
@@ -375,6 +376,31 @@ def test_seventeen_of_the_one_device_configs_read():
         "rnb-fused-yuv-operator.json": "operator",
         "rnb-netedge-loopback.json": "netedge",
         "rnb-netedge-off.json": "netedge"}
+
+
+def test_the_tiny_shed_config_now_reads():
+    """``configs/r2p1d-tiny-shed.json`` (its first unported key was
+    ``overload_policy``) reads on the CPU as the reference reads it, and
+    so 29 of the 41 shipped configs read."""
+    path = os.path.join(REPO, "configs", "r2p1d-tiny-shed.json")
+    cfg = load_config(path, platform="cpu")
+    with open(path) as f:
+        jax_cfg = jax_config.parse_config(json.load(f))
+    assert cfg.overload_policy == jax_cfg.overload_policy == "shed"
+    assert [(s.max_retries, s.retry_backoff_ms) for s in cfg.steps] == \
+        [(s.max_retries, s.retry_backoff_ms) for s in jax_cfg.steps] == \
+        [(2, 5.0), (0, 10.0)]
+    assert [s.model.rpartition(".")[2] for s in cfg.steps] == [
+        "R2P1DLoader", "R2P1DRunner"]
+    read = 0
+    names = sorted(glob.glob(os.path.join(REPO, "configs", "*.json")))
+    for name in names:
+        try:
+            load_config(name, platform="cpu")
+            read += 1
+        except ConfigError:
+            pass
+    assert (read, len(names)) == (29, 41)
 
 
 def _mutated(case):

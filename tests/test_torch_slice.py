@@ -550,8 +550,17 @@ def test_unported_keys_are_refused(where, key, value):
     ("root", "autotune", {"enabled": True}),
     ("root", "autotune", {"slo_ms": 20, "buckets": [6, 15]}),
     ("root", "critpath", {"enabled": True}),
+    ("root", "overload_policy", "shed"),
+    ("root", "fault_containment", False),
+    ("root", "fault_plan", {"seed": 3, "faults": [
+        {"step": 1, "kind": "transient", "request_ids": [3]},
+        {"kind": "stall", "ms": 5, "probability": 0.1}]}),
+    ("root", "deadline", {"budget_ms": 250}),
+    ("root", "deadline", {"enabled": False}),
     ("loader", "autotune", True),
     ("runner", "autotune", False),
+    ("loader", "max_retries", 2),
+    ("runner", "retry_backoff_ms", 5),
 ])
 def test_ported_plane_keys_are_read(where, key, value):
     raw = _base_raw()
@@ -563,7 +572,7 @@ def test_ported_plane_keys_are_read(where, key, value):
         assert getattr(config, key) == value
     else:
         step = config.steps[where == "runner"]
-        assert step.autotune is value and key not in step.kwargs
+        assert getattr(step, key) == value and key not in step.kwargs
 
 
 def test_the_critpath_copy_of_the_traced_config_is_read(tmp_path):
@@ -598,12 +607,28 @@ def test_the_critpath_copy_of_the_traced_config_is_read(tmp_path):
     ("root", "autotune", {"buckets": [6, 6]}),
     ("root", "autotune", {"budget": 3}),
     ("loader", "autotune", "no"),
+    ("root", "overload_policy", "drop"),
+    ("root", "fault_containment", "yes"),
+    ("root", "fault_plan", {"faults": [{"step": 5, "kind": "transient",
+                                        "request_ids": [1]}]}),
+    ("root", "fault_plan", {"faults": "all"}),
+    ("root", "fault_plan", {"faults": [{"kind": "stall",
+                                        "probability": 0.5}]}),
+    ("root", "deadline", {"budget_ms": 0}),
+    ("root", "deadline", {"budget": 5}),
+    ("root", "deadline", {"enabled": "no"}),
+    ("root", "deadline", []),
+    ("loader", "max_retries", -1),
+    ("loader", "max_retries", 1.5),
+    ("runner", "retry_backoff_ms", -5),
+    ("runner", "retry_backoff_ms", "5"),
 ])
 def test_bad_plane_values_fail_with_the_reference_message(where, key,
                                                           value):
     from rnb_tpu import config as jax_config
     raw = _base_raw()
-    target = {"root": raw, "loader": raw["pipeline"][0]}[where]
+    target = {"root": raw, "loader": raw["pipeline"][0],
+              "runner": raw["pipeline"][1]}[where]
     target[key] = value
     with pytest.raises(jax_config.ConfigError) as jax_error:
         jax_config.parse_config(json.loads(json.dumps(raw)))
