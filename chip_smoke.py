@@ -110,7 +110,8 @@ Phases (any failure exits non-zero and prints no result line):
    to the requests the client created and its ``staging.*`` counters to
    the ``Staging:`` line, ``Slo:`` tracking every completion, all within
    (no budget is configured) and burning nothing, ``metrics.prom``
-   written and every ``flight-<n>.json`` valid per ``validate_trace``;
+   written and every ``flight-<n>.json`` valid per ``validate_trace``,
+   and no ``Compute:``/``Memory:`` line or capture file (devobs off);
    ``configs/rnb-fused-yuv-autotune.json`` as shipped, in bulk and at a
    Poisson mean interval of 25 ms — decisions made, the controller's
    emissions equal to the loader's, only the warmed buckets 6 and 15
@@ -146,6 +147,21 @@ Phases (any failure exits non-zero and prints no result line):
    devices 0 and 1 made 0 (32 requests in bulk: the rgb loader and
    ``normalize_u8`` once per request, a narrow 8-class runner), its
    logs through ``parse_utils`` and two requests recomputed on the CPU.
+   Last, the device observability plane (served after the others, so
+   their timing stays as it was): ``configs/rnb-fused-yuv-devobs.json``
+   as shipped (64 requests in bulk, ``RNB_DEVOBS_FORCE`` set for this run
+   only) — the port's ``parse_utils`` checks green, step 1's
+   ``flops_per_row`` the config walk's, ``Compute:`` rows the completed
+   clips and ``tflops_milli``/``mfu_e4`` what the clips, the window and
+   the card's peak give to the digit, ``Memory:`` reconciled against
+   ``torch.cuda.memory_allocated`` with no watermark hit, a capture
+   holding the yuv420 kernel on ``/device:GPU:0``, ``trace.json`` with a
+   ``device:`` track that a flow event binds, ``yuv420_normalize`` once
+   per emission and one request's logits held to the CPU recompute; then
+   a copy with a 1 MiB watermark (32 requests) — a watermark hit, a
+   capture it triggered and a flight dump; each prints the job and busy
+   MFU, the owners' bytes, the captures' kernels by share of their spans
+   and the card's name and power limit.
    Every run: each ``R2P1DRunner`` forward in the window is one replay
    of a captured CUDA graph (``Graphs:`` replays == ``Compiles:``
    steady calls, or requests for the single step), no signature is new
@@ -190,6 +206,13 @@ AUTOTUNE_POISSON = "rnb-fused-yuv-autotune-poisson"
 CRITPATH = "rnb-fused-yuv-traced-critpath"
 #: the runs of the metrics, autotune and critpath planes
 PLANES = (METRICS, AUTOTUNE, AUTOTUNE_POISSON, CRITPATH)
+DEVOBS = "configs/rnb-fused-yuv-devobs.json"
+#: the devobs config with a 1 MiB watermark, written next to the dataset:
+#: the ledger crosses it at its first sample
+DEVOBS_WATERMARK = "rnb-fused-yuv-devobs-watermark"
+DEVOBS_RUNS = (DEVOBS, DEVOBS_WATERMARK)
+#: the yuv420 kernel's symbol, as the profiler names the kernel
+YUV420_SYMBOL = "yuv420_kernel"
 STAGED = "configs/rnb-fused-yuv-staged.json"
 #: the staged cell's chaos copy (rnb_tpu_torch/tools/chaos.py), written
 #: next to the dataset: in bulk, then as a burst (a Poisson mean of 1 ms
@@ -235,7 +258,7 @@ ONE_PER_EMISSION = {"configs/rnb-fused-yuv-big.json": "yuv420_normalize",
                     TRACED: "yuv420_normalize",
                     TINY_SHED_COPY: "normalize_u8",
                     **{label: "yuv420_normalize"
-                       for label in PLANES + CHAOS_RUNS}}
+                       for label in PLANES + CHAOS_RUNS + DEVOBS_RUNS}}
 #: the kernels each run launches, and no others
 PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 CONFIGS[2]: {"dct_ingest"},
@@ -249,7 +272,8 @@ PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 TORCHCKPT: YUV_KERNELS, MID: YUV_KERNELS,
                 SEGMENT_COPY: {"normalize_u8"}, TRACED: YUV_KERNELS,
                 TINY_SHED_COPY: {"normalize_u8"},
-                **{label: YUV_KERNELS for label in PLANES + CHAOS_RUNS}}
+                **{label: YUV_KERNELS
+                   for label in PLANES + CHAOS_RUNS + DEVOBS_RUNS}}
 #: the runs of the unfused multi-step pipeline, in serving order
 UNFUSED = (WHOLE, WHOLE_RAGGED, WHOLE_YUV, SPLIT, RNB, NOPIPELINE)
 #: the runs whose logits check_unfused_run holds to the two-step run's
@@ -273,7 +297,8 @@ VIDEOS_PER_RUN = 32
 #: requests of the configs added last (the segment copy serves the
 #: whole run's requests, which it is held to)
 FEW_VIDEOS = {TORCHCKPT: 12, MID: 12, TRACED: 12, CRITPATH: 12,
-              CHAOS: 64, CHAOS_BURST: 200}
+              CHAOS: 64, CHAOS_BURST: 200, DEVOBS: 64,
+              DEVOBS_WATERMARK: 32}
 #: a captured graph against its eager forward where the two are not
 #: bitwise (a capture that changed the library's kernel choice): the
 #: float32 network's bound of tests/test_torch_network.py, relative to
@@ -1459,6 +1484,12 @@ def check_metrics_run(result):
     problems = metrics_problems(result.log_dir, meta)
     check(not problems, "%s: %s" % (label, "; ".join(problems[:5])))
     snapshots = load_metrics(result.log_dir)
+    # devobs off: no Compute:/Memory: line, no capture file
+    check(not {"Compute", "Memory"} & set(meta["lines"])
+          and result.compute_stages == result.memory_owners == 0
+          and not [name for name in os.listdir(result.log_dir)
+                   if name.startswith("devobs-capture-")],
+          "%s: devobs output without the devobs key" % label)
     check(result.metrics_snapshots >= 2 and result.metrics_dumps >= 1,
           "%s: %d snapshots, %d dumps" % (label, result.metrics_snapshots,
                                           result.metrics_dumps))
@@ -1485,6 +1516,161 @@ def check_metrics_run(result):
              hists["exec1.model_call"]["sum_ms"]
              / max(1, hists["exec1.model_call"]["count"]),
              hists.get("exec1.device_sync", {}).get("count", 0)))
+
+
+def devobs_watermark_copy(data_root) -> str:
+    """The devobs cell with a 1 MiB watermark: a temporary copy beside
+    the dataset."""
+    with open(os.path.join(HERE, DEVOBS)) as f:
+        raw = json.load(f)
+    raw["devobs"]["watermark_mb"] = 1
+    path = os.path.join(data_root, DEVOBS_WATERMARK + ".json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def read_capture(path):
+    """``(trigger, [(t0_ns, t1_ns, plane, op name)])`` of one
+    ``devobs-capture-<n>.txt``."""
+    trigger, ops = None, []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("#"):
+                parts = line.split()
+                if "trigger" in parts:
+                    trigger = parts[parts.index("trigger") + 1]
+                continue
+            t0, t1, plane, name = line.rstrip("\n").split(" ", 3)
+            ops.append((int(t0), int(t1), plane, name))
+    return trigger, ops
+
+
+def device_flows(path):
+    """``(device tracks, flow events bound to them)`` of a trace.json."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    tids = {e["tid"]: e["args"]["name"] for e in events
+            if e.get("ph") == "M" and e.get("name") == "thread_name"
+            and e["args"]["name"].startswith("device:")}
+    flows = sum(1 for e in events
+                if e.get("ph") in ("s", "t", "f") and e.get("tid") in tids)
+    return sorted(tids.values()), flows
+
+
+def check_devobs_run(label, result, config_path):
+    """A devobs run: its logs pass the port's checks (the Compute: and
+    Memory: footings among them); each stage's flops_per_row is the
+    config walk's; tflops_milli and mfu_e4 are what the completed clips,
+    the window and the card's peak give, to the digit; the ledger
+    reconciles against the allocator. Run A (the config as shipped, one
+    forced capture): a capture holds device ops on /device:GPU:0, the
+    yuv420 kernel among them, and trace.json a device track with a flow
+    bound to it. Run B (the 1 MiB watermark): a watermark hit, a capture
+    it triggered and a flight dump. Prints the figures PERF.md keeps."""
+    import torch
+    from rnb_tpu_torch.devobs import flops_per_clip_for_config
+    from rnb_tpu_torch.models.r2p1d.flops import peak_tflops_for
+    from rnb_tpu_torch.parse_utils import kernel_families, summarize
+    problems = summarize(result.log_dir)["footing_problems"]
+    check(not problems, "%s: %s" % (label, "; ".join(problems[:5])))
+    with open(config_path) as f:
+        per_clip = flops_per_clip_for_config(json.load(f))
+    detail = result.compute_stage_detail
+    check(list(detail) == ["step1"]
+          and detail["step1"]["flops_per_row"] == per_clip
+          and result.compute_rows == detail["step1"]["rows"]
+          == result.clips_completed,
+          "%s: Compute stages %s against %s FLOPs a clip and %d clips"
+          % (label, detail, per_clip, result.clips_completed))
+    peak = peak_tflops_for(torch.cuda.get_device_name(0))
+    check(peak is not None, "%s: no peak for %s"
+          % (label, torch.cuda.get_device_name(0)))
+    tflops = result.clips_completed / result.total_time_s * per_clip / 1e12
+    want = (int(round(round(tflops, 3) * 1000)),
+            int(round(round(tflops / peak, 4) * 10000)))
+    check((result.compute_tflops_milli, result.compute_mfu_e4) == want,
+          "%s: tflops_milli=%d mfu_e4=%d, the clips, window and peak give "
+          "%s" % (label, result.compute_tflops_milli, result.compute_mfu_e4,
+                  want))
+    check(result.memory_reconciled == 1 and result.memory_live_bytes > 0,
+          "%s: Memory: live_bytes=%d reconciled=%d"
+          % (label, result.memory_live_bytes, result.memory_reconciled))
+    files = sorted(name for name in os.listdir(result.log_dir)
+                   if name.startswith("devobs-capture-"))
+    check(len(files) == result.compute_captures,
+          "%s: %d capture files, Compute: captures=%d"
+          % (label, len(files), result.compute_captures))
+    captures = [read_capture(os.path.join(result.log_dir, name))
+                for name in files]
+    tracks, flows = device_flows(os.path.join(result.log_dir, "trace.json"))
+    if label == DEVOBS:
+        check(result.memory_watermark_hits == 0,
+              "%s: %d watermark hits under 256 MiB"
+              % (label, result.memory_watermark_hits))
+        check(any(plane == "/device:GPU:0" and YUV420_SYMBOL in name
+                  for _trigger, ops in captures
+                  for _t0, _t1, plane, name in ops),
+              "%s: no capture holds %s on /device:GPU:0 (captures %s)"
+              % (label, YUV420_SYMBOL, files))
+        check(tracks and flows >= 1, "%s: trace.json device tracks %s, "
+              "%d flow events on them" % (label, tracks, flows))
+    else:
+        check(result.memory_watermark_hits >= 1
+              and "memory_watermark" in [t for t, _ops in captures]
+              and any(name.startswith("flight-")
+                      for name in os.listdir(result.log_dir)),
+              "%s: watermark_hits=%d, capture triggers %s, files %s"
+              % (label, result.memory_watermark_hits,
+                 [t for t, _ops in captures],
+                 sorted(os.listdir(result.log_dir))))
+    # the captures' device time by kernel, as shares of their spans
+    kernels, span_ns = {}, 0
+    for _trigger, ops in captures:
+        ops = [op for op in ops if op[2].startswith("/device:")]
+        if ops:
+            span_ns += max(t1 for _t0, t1, _p, _n in ops) - min(
+                t0 for t0, _t1, _p, _n in ops)
+        for t0, t1, _plane, name in ops:
+            entry = kernels.setdefault(name, {"device_us": 0.0, "count": 0})
+            entry["device_us"] += (t1 - t0) / 1e3
+            entry["count"] += 1
+    top = sorted(kernels.items(), key=lambda kv: -kv[1]["device_us"])[:10]
+    # one yuv420 launch a forward: the forwards the captures hold
+    forwards = sum(entry["count"] for name, entry in kernels.items()
+                   if YUV420_SYMBOL in name)
+    step1 = detail["step1"]
+    print("devobs %s: %d requests, %d clips in %.4f s; Compute: tflops_milli"
+          "=%d mfu_e4=%d (job MFU %.4f), step1 tflops_busy %s mfu_busy %s "
+          "(busy %d us, %d dispatches); Memory: total_bytes=%d peak_bytes=%d "
+          "owners %s live_bytes=%d reconciled=%d watermark_hits=%d; "
+          "captures %d (skipped %d; triggers %s; ops %s); trace device "
+          "tracks %s with %d flow events; card: %s"
+          % (label, result.num_completed, result.clips_completed,
+             result.total_time_s, result.compute_tflops_milli,
+             result.compute_mfu_e4, result.compute_mfu_e4 / 1e4,
+             step1["tflops_busy"], step1["mfu_busy"], step1["busy_us"],
+             step1["dispatches"], result.memory_total_bytes,
+             result.memory_peak_bytes,
+             json.dumps({k: v["bytes"] for k, v in
+                         result.memory_owner_detail.items()},
+                        sort_keys=True),
+             result.memory_live_bytes, result.memory_reconciled,
+             result.memory_watermark_hits, result.compute_captures,
+             result.compute_captures_skipped,
+             [t for t, _ops in captures], [len(ops) for _t, ops in captures],
+             tracks, flows, nvidia_smi_line()))
+    print("devobs %s: device ops over %.3f ms of capture spans, %d "
+          "forwards; kernel families %s; top kernels [name, launches, "
+          "launches a forward, share of the spans] %s"
+          % (label, span_ns / 1e6, forwards,
+             json.dumps(kernel_families(kernels)),
+             json.dumps([(name[:100], entry["count"],
+                          round(entry["count"] / forwards, 2)
+                          if forwards else None,
+                          round(entry["device_us"] * 1e3 / span_ns, 4)
+                          if span_ns else None)
+                         for name, entry in top])))
 
 
 def check_autotune_run(label, result):
@@ -1979,7 +2165,10 @@ def phase_path(data_root, videos_per_run):
              (CRITPATH, critpath_copy(data_root)),
              (CHAOS, chaos_path), (CHAOS_BURST, chaos_path),
              (TINY_SHED_COPY, one_card_copy(data_root, TINY_SHED,
-                                            TINY_SHED_COPY))]
+                                            TINY_SHED_COPY)),
+             # last: the runs before them keep their timing
+             (DEVOBS, os.path.join(HERE, DEVOBS)),
+             (DEVOBS_WATERMARK, devobs_watermark_copy(data_root))]
     whole_sink = None
     for label, config_path in runs:
         config = load_config(config_path, "cpu")
@@ -1995,9 +2184,12 @@ def phase_path(data_root, videos_per_run):
             label, 0)
         videos = FEW_VIDEOS.get(label, videos_per_run)
         sink, stages = {}, []
-        # one forced flight dump, for the metrics run only
+        # one forced flight dump, for the metrics run only; one forced
+        # capture, for devobs run A only
         if label == METRICS:
             os.environ["RNB_FLIGHT_FORCE"] = "1"
+        if label == DEVOBS:
+            os.environ["RNB_DEVOBS_FORCE"] = "1"
         recorder = takes = None
         if label in CHAOS_RUNS:
             recorder = RetryRecorder(chaos.TRANSIENT_IDS)
@@ -2014,6 +2206,7 @@ def phase_path(data_root, videos_per_run):
                 outputs_sink=sink, stages_sink=stages)
         finally:
             os.environ.pop("RNB_FLIGHT_FORCE", None)
+            os.environ.pop("RNB_DEVOBS_FORCE", None)
             if recorder is not None:
                 recorder.close()
                 takes.close()
@@ -2101,6 +2294,8 @@ def phase_path(data_root, videos_per_run):
             check_traced_run(result)
         if label == METRICS:
             check_metrics_run(result)
+        if label in DEVOBS_RUNS:
+            check_devobs_run(label, result, config_path)
         if label in (AUTOTUNE, AUTOTUNE_POISSON):
             check_autotune_run(label, result)
         if label == CRITPATH:
@@ -2132,7 +2327,7 @@ def phase_path(data_root, videos_per_run):
         picks = by_clips[:2] + by_clips[-1:]
         if label in UNFUSED or label in FEW_VIDEOS:
             picks = by_clips[:1] + by_clips[-1:]
-        if label in PLANES:
+        if label in PLANES + DEVOBS_RUNS:
             picks = by_clips[:1]
         if label in CHAOS_RUNS:
             # the retried requests too: their served logits held to the
@@ -2171,8 +2366,8 @@ def main() -> int:
         return 1
     if not os.path.isdir(os.path.join(HERE, "rnb_tpu_torch")) or not all(
             os.path.exists(os.path.join(HERE, c))
-            for c in CONFIGS + (SEGMENT, TRACED, METRICS, AUTOTUNE, STAGED,
-                                TINY_SHED)):
+            for c in CONFIGS + (SEGMENT, TRACED, METRICS, DEVOBS, AUTOTUNE,
+                                STAGED, TINY_SHED)):
         print("chip_smoke: run from a checkout of the repo (rnb_tpu_torch/ "
               "and configs/ beside this script)", file=sys.stderr)
         return 1

@@ -27,8 +27,13 @@ into the job's directory, with ``Metrics:`` and ``Slo:`` lines. The root
 ``# critpath`` table trailer (:mod:`rnb_tpu_torch.critpath`); the root
 ``autotune`` key gives every supporting stage a batch controller
 (:mod:`rnb_tpu_torch.autotune`) and adds ``Autotune:``/``Autotune
-buckets:``. Without those keys none of it runs and no line or file is
-added. Every exit path, an aborted run included, leaves no hook
+buckets:``. The root ``devobs`` key runs the device observability plane
+(:mod:`rnb_tpu_torch.devobs`): bounded ``devobs-capture-<n>.txt``
+windows merged into ``trace.json`` as ``device:<plane>`` tracks, the
+per-stage compute meters behind ``Compute:``/``Compute stages:`` and the
+footprint ledger (:mod:`rnb_tpu_torch.memledger`) behind
+``Memory:``/``Memory owners:``. Without those keys none of it runs and no
+line or file is added. Every exit path, an aborted run included, leaves no hook
 installed and no flusher running.
 
 Fault containment (:mod:`rnb_tpu_torch.faults`, the reference's wiring):
@@ -65,8 +70,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from rnb_tpu_torch import devobs as devobs_mod
 from rnb_tpu_torch import hostprof
+from rnb_tpu_torch import memledger as memledger_mod
 from rnb_tpu_torch import metrics as metrics_mod
+from rnb_tpu_torch import profiler as profiler_mod
 from rnb_tpu_torch import trace as trace_mod
 from rnb_tpu_torch.autotune import AutotuneSettings
 from rnb_tpu_torch.autotune import aggregate_snapshots as aggregate_autotune
@@ -196,6 +204,37 @@ class BenchmarkResult:
     deadline_budget_ms: int = 0
     deadline_expired: int = 0
     deadline_sites: Dict[str, int] = field(default_factory=dict)
+    #: the ``Compute:`` line (zero without ``devobs``): metered stages,
+    #: dispatches, valid rows, achieved FLOPs, the window in us, the job
+    #: TFLOP/s and MFU in milli / 1e-4 units (mfu_e4 -1 where the card's
+    #: peak is unknown) and the capture windows taken
+    compute_stages: int = 0
+    compute_dispatches: int = 0
+    compute_rows: int = 0
+    compute_flops_total: int = 0
+    compute_window_us: int = 0
+    compute_tflops_milli: int = 0
+    compute_mfu_e4: int = 0
+    compute_captures: int = 0
+    #: capture windows refused: over the budget, or another profiler
+    #: session (``--profile``, ``--xprof``) held the profiler
+    compute_captures_skipped: int = 0
+    #: the ``Compute stages:`` line: per-stage rows, dispatches,
+    #: flops_per_row, busy_us, tflops_busy, mfu_busy, ai_flops_per_byte
+    compute_stage_detail: Dict[str, Any] = field(default_factory=dict)
+    #: the ``Memory:`` line (zero without ``devobs``): owners and devices
+    #: seen, final and peak bytes, the watermark and its crossings, the
+    #: allocator's bytes and the reconcile verdict
+    memory_owners: int = 0
+    memory_devices: int = 0
+    memory_total_bytes: int = 0
+    memory_peak_bytes: int = 0
+    memory_watermark_bytes: int = 0
+    memory_watermark_hits: int = 0
+    memory_live_bytes: int = 0
+    memory_reconciled: int = 0
+    #: the ``Memory owners:`` line: {owner: {bytes, peak_bytes}}
+    memory_owner_detail: Dict[str, Any] = field(default_factory=dict)
 
 
 def _resolve_fault_plan(config, print_progress: bool):
@@ -301,6 +340,21 @@ def _start_metrics(config, job_id: str, log_base: str, filename_queue,
     return registry, bridge
 
 
+def _start_devobs(config, job_id: str, log_base: str, registry):
+    """The job's device observability plane (None without the root
+    ``devobs`` key): a poll source and trigger hook of the metrics
+    registry where there is one."""
+    settings = devobs_mod.DevObsSettings.from_config(config.devobs)
+    if settings is None:
+        return None
+    plane = devobs_mod.DevObsPlane(
+        settings, job_dir=logroot(job_id, base=log_base), job_id=job_id)
+    if registry is not None:
+        registry.add_poll(plane.metrics_poll)
+        registry.trigger_hooks.append(plane.on_trigger)
+    return plane
+
+
 def _warn_if_no_stage_autotunes(config) -> None:
     """Autotune on with no participating stage (every step opted out or
     none supports it) reads like a static run: say so, as the reference
@@ -317,6 +371,21 @@ def _warn_if_no_stage_autotunes(config) -> None:
               "pipeline stage participates (every step opted out or "
               "unsupported) — batching stays static and no Autotune: "
               "telemetry will be emitted", file=sys.stderr)
+
+
+def _write_xprof(path: str, ops, time_start: float, time_end: float,
+                 flush_epoch: float) -> None:
+    """The ``--xprof`` artifact in the reference's 4-column format: one
+    ``t0_ns t1_ns plane op_name`` line per op (timestamps comparable
+    within one plane), after a header that carries the measured window
+    in host epoch seconds and the flush epoch the last op maps to."""
+    with open(path, "w") as f:
+        f.write("# t0_ns t1_ns plane op_name\n")
+        f.write("# window_epoch %f %f flush_epoch %f\n"
+                % (time_start, time_end, flush_epoch))
+        for name, t0, t1, plane in ops:
+            f.write("%d %d %s %s\n" % (t0, t1, plane.replace(" ", "_") or "-",
+                                       name))
 
 
 def _pipeline_queues(config, queue_size: int):
@@ -349,7 +418,8 @@ def run_benchmark(config_path: str,
                   platform: Optional[str] = None,
                   outputs_sink: Optional[dict] = None,
                   profile: bool = False,
-                  stages_sink: Optional[list] = None) -> BenchmarkResult:
+                  stages_sink: Optional[list] = None,
+                  xprof: bool = False) -> BenchmarkResult:
     """Programmatic entry used by the CLI, the tests and chip_smoke.py.
     ``outputs_sink``, when given, receives every request's output rows
     (request id -> (video, float32 array, its cache stamps)).
@@ -357,16 +427,29 @@ def run_benchmark(config_path: str,
     stage built. ``profile`` traces the measured window with
     ``torch.profiler`` (card runs): the sum of
     kernel time lands in the result, each kernel's time and launches in
-    ``profile.json``, and the profiler's table in ``profile.txt``."""
+    ``profile.json``, and the profiler's table in ``profile.txt``.
+    ``xprof`` writes the window's device ops to ``xprof-ops.txt`` in the
+    reference's 4-column format (``scripts/device_busy.py`` reads it).
+    The two hold the one profiler session: pass one of them."""
+    if profile and xprof:
+        raise ValueError("profile and xprof each hold the one profiler "
+                         "session; pass one of them")
     try:
         return _run_benchmark(
             config_path, mean_interval_ms, num_videos, queue_size, log_base,
             print_progress, seed, platform, outputs_sink, profile,
-            stages_sink)
+            stages_sink, xprof)
     finally:
-        # every exit path, an aborted or failed run included: no trace
-        # or metrics hook stays installed, no flusher keeps running
+        # every exit path, an aborted or failed run included: no trace,
+        # metrics or devobs hook stays installed, no flusher, worker or
+        # profiler session keeps running
         trace_mod.ACTIVE = None
+        memledger_mod.ACTIVE = None
+        plane, devobs_mod.ACTIVE = devobs_mod.ACTIVE, None
+        if plane is not None:
+            plane.stop()
+        if profile or xprof:
+            profiler_mod.flush()
         registry, metrics_mod.ACTIVE = metrics_mod.ACTIVE, None
         if registry is not None:
             registry.stop()
@@ -374,7 +457,7 @@ def run_benchmark(config_path: str,
 
 def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                    log_base, print_progress, seed, platform, outputs_sink,
-                   profile, stages_sink) -> BenchmarkResult:
+                   profile, stages_sink, xprof) -> BenchmarkResult:
     config = load_config(config_path, platform)
     job_id = "%s-mi%d-v%d-qs%d" % (
         datetime.today().strftime("%y%m%d_%H%M%S"), mean_interval_ms,
@@ -410,6 +493,8 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     # a run that died mid-trace must not leave its hooks installed
     trace_mod.ACTIVE = None
     metrics_mod.ACTIVE = None
+    devobs_mod.ACTIVE = None
+    memledger_mod.ACTIVE = None
     tracer = _start_tracer(config, filename_queue, queues)
     # the SLO budget: the deadline's, else the controller's
     slo_budget_ms = (deadline_settings.budget_ms if deadline_settings
@@ -418,9 +503,13 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     registry, bridge = _start_metrics(
         config, job_id, log_base, filename_queue, queues, queue_size, pager,
         tracer, slo_budget_ms, fault_stats, deadline_stats)
+    devobs_plane = _start_devobs(config, job_id, log_base, registry)
     # installed before the stages are built: they register their poll
-    # sources before the start barrier
+    # sources, compute profiles and byte owners before the start barrier
     metrics_mod.ACTIVE = registry
+    if devobs_plane is not None:
+        devobs_mod.ACTIVE = devobs_plane
+        memledger_mod.ACTIVE = devobs_plane.ledger
     num_markers = max(NUM_EXIT_MARKERS,
                       sum(len(g.devices) for g in config.steps[0].groups))
 
@@ -493,18 +582,25 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
         t.start()
 
     profiler = None
-    if profile or registry is not None:
-        # the profiler and the metrics flusher cover the measured window
-        # only: wait until every other party is parked on the start
-        # barrier (built, warm, and its poll sources registered)
+    if profile or xprof or registry is not None \
+            or devobs_plane is not None:
+        # the profiler, the metrics flusher and the devobs worker cover
+        # the measured window only: wait until every other party is
+        # parked on the start barrier (built, warm, its graphs captured
+        # and its poll sources registered; no profiler session may
+        # start during a graph capture)
         while sta_bar.n_waiting < bar_total - 1 and not any(
                 not t.is_alive() for t in threads):
             time.sleep(0.01)
     if profile:
-        profiler = torch.profiler.profile(activities=[
+        # through the profiler's one-session guard: a devobs capture in
+        # this window is skipped and counted, never opened twice
+        profiler = profiler_mod.initialize([
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA])
-        profiler.__enter__()
+    if xprof:
+        # the card's ops (every thread's CPU operators on the CPU)
+        profiler_mod.initialize()
     if hostprof.ENABLED:
         # the sections of this window only, not the warm-ups
         hostprof.reset()
@@ -519,7 +615,13 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
         # tracer on a traced run; the flusher covers the window
         trace_mod.ACTIVE = bridge
         registry.start()
+    if devobs_plane is not None:
+        # the worker is up before the barrier (every source registered);
+        # its capture windows wait for note_run_started below
+        devobs_plane.start()
     sta_bar.wait()
+    if devobs_plane is not None:
+        devobs_plane.note_run_started()
     ru_start = resource.getrusage(resource.RUSAGE_SELF)
     launches_start = _kernels.launch_counts()
     time_start = time.time()
@@ -532,11 +634,23 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                   - (ru_start.ru_utime + ru_start.ru_stime))
     total_time = time_end - time_start
     kernel_ms = None
+    if xprof:
+        if config.platform == "cuda":
+            torch.cuda.synchronize()
+        # anchored before the stop: device_busy.py maps the last device
+        # op to this instant
+        flush_epoch = time.time()
+        profiler_mod.flush()
+        _write_xprof(os.path.join(logroot(job_id, base=log_base),
+                                  "xprof-ops.txt"),
+                     profiler_mod.report(include_plane=True), time_start,
+                     time_end, flush_epoch)
     if profiler is not None:
         if config.platform == "cuda":
             torch.cuda.synchronize()
-        profiler.__exit__(None, None, None)
+        profiler_mod.flush()
         averages = profiler.key_averages()
+        profiler_mod.discard(profiler)
         root = logroot(job_id, base=log_base)
         if config.platform == "cuda":
             # device-side events only: an operator's own event repeats
@@ -560,6 +674,17 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     # first, so a later run in this process never writes into this job's
     # collector
     trace_mod.ACTIVE = None
+    if devobs_plane is not None:
+        # stop the capture worker (a still-armed capture is drained with
+        # a zero-length window) and clear the hooks; the captured device
+        # ops join the tracer as device:<plane> tracks, rid-correlated to
+        # the model_call spans, before trace.json is written
+        devobs_mod.ACTIVE = None
+        memledger_mod.ACTIVE = None
+        devobs_plane.stop()
+        if tracer is not None:
+            tracer.extend(devobs_plane.device_events(
+                devobs_mod.model_call_spans(tracer.snapshot_events())))
     trace_events = trace_dropped = 0
     if tracer is not None:
         tracer.stop_sampler()
@@ -618,6 +743,13 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     faults = fault_stats.snapshot()
     deadline_snap = (deadline_stats.snapshot() if deadline_stats is not None
                      else None)
+    compute_summary = memory_summary = None
+    if devobs_plane is not None:
+        # the job figures over the same measured window; the ledger
+        # re-samples after every thread joined
+        compute_summary = devobs_plane.compute_summary(
+            total_time, devobs_mod.devices_used(config.raw))
+        memory_summary = devobs_plane.memory_summary()
     metrics_summary = None
     if registry is not None:
         # the final footing snapshot: every thread joined and every
@@ -667,6 +799,18 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
         for key in ("hits", "misses", "inserts", "evictions", "coalesced",
                     "oversize", "bytes_resident"):
             setattr(result, "cache_" + key, cache_stats[key])
+    if compute_summary is not None:
+        for key, value in compute_summary.items():
+            setattr(result, "compute_" + key, value)
+        result.compute_captures_skipped = devobs_plane.captures_skipped
+        for key, value in memory_summary.items():
+            if key == "owners":
+                result.memory_owners = len(value)
+                result.memory_owner_detail = value
+            elif key == "devices":
+                result.memory_devices = len(value)
+            else:
+                setattr(result, "memory_" + key, value)
 
     with open(logmeta(job_id, base=log_base), "w") as f:
         f.write("Args: %s\n" % json.dumps(dict(
@@ -769,6 +913,36 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                     "burn_max_milli=%d\n" % tuple(metrics_summary[k] for k in (
                         "slo_tracked", "slo_within", "slo_missed",
                         "burn_max_milli")))
+        if compute_summary is not None:
+            # the reference's format; every devobs run carries it (zero
+            # flops with no metered stage), parse_utils cross-foots it
+            f.write("Compute: stages=%d dispatches=%d rows=%d "
+                    "flops_total=%d window_us=%d tflops_milli=%d "
+                    "mfu_e4=%d captures=%d\n" % tuple(
+                        compute_summary[k] for k in (
+                            "stages", "dispatches", "rows", "flops_total",
+                            "window_us", "tflops_milli", "mfu_e4",
+                            "captures")))
+            f.write("Compute stages: %s\n" % json.dumps(
+                compute_summary["stage_detail"], sort_keys=True))
+        if memory_summary is not None:
+            # the reference's format: owner rows sum to total_bytes,
+            # peak >= final, reconciled=1 where the allocator holds the
+            # ledger's live-backed claims
+            f.write("Memory: owners=%d devices=%d total_bytes=%d "
+                    "peak_bytes=%d watermark_bytes=%d watermark_hits=%d "
+                    "live_bytes=%d reconciled=%d\n" % (
+                        len(memory_summary["owners"]),
+                        len(memory_summary["devices"]),
+                        memory_summary["total_bytes"],
+                        memory_summary["peak_bytes"],
+                        memory_summary["watermark_bytes"],
+                        memory_summary["watermark_hits"],
+                        memory_summary["live_bytes"],
+                        memory_summary["reconciled"]))
+            if memory_summary["owners"]:
+                f.write("Memory owners: %s\n" % json.dumps(
+                    memory_summary["owners"], sort_keys=True))
         if critpath_report is not None:
             # the reference's format; parse_utils re-derives it from the
             # timing tables
@@ -840,6 +1014,25 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                                 sort_keys=True)))
         if metrics_summary is not None:
             print("Metrics: %s" % json.dumps(metrics_summary, sort_keys=True))
+        if compute_summary is not None:
+            print("Compute: %d stage(s), %d dispatch(es), %d row(s), %.3f "
+                  "achieved TFLOP/s over the window (mfu %s), %d capture(s)"
+                  % (compute_summary["stages"],
+                     compute_summary["dispatches"], compute_summary["rows"],
+                     compute_summary["tflops_milli"] / 1000.0,
+                     ("%.4f" % (compute_summary["mfu_e4"] / 10000.0)
+                      if compute_summary["mfu_e4"] >= 0
+                      else "n/a: unknown device peak"),
+                     compute_summary["captures"]))
+            print("Memory: %.2f MiB resident (peak %.2f MiB) across %d "
+                  "owner(s); allocator reconcile: %s"
+                  % (memory_summary["total_bytes"] / (1 << 20),
+                     memory_summary["peak_bytes"] / (1 << 20),
+                     len(memory_summary["owners"]),
+                     "ok" if memory_summary["reconciled"] else
+                     ("%.2f MiB allocated"
+                      % (memory_summary["live_bytes"] / (1 << 20))
+                      if memory_summary["live_bytes"] else "unavailable")))
         if critpath_report is not None:
             ranked = critpath_ranking(critpath_report["stage_detail"])
             print("Critpath: %d request(s), top blockers %s; bound step%d at "
@@ -870,12 +1063,17 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--profile", action="store_true",
                         help="trace the measured window (torch.profiler)")
+    parser.add_argument("--xprof", action="store_true",
+                        help="write the measured window's device ops to "
+                             "xprof-ops.txt (scripts/device_busy.py "
+                             "reads it)")
     args = parser.parse_args(argv)
     result = run_benchmark(
         config_path=args.config_file_path,
         mean_interval_ms=args.mean_interval_ms, num_videos=args.videos,
         queue_size=args.queue_size, log_base=args.log_base,
-        seed=args.seed, platform=args.platform, profile=args.profile)
+        seed=args.seed, platform=args.platform, profile=args.profile,
+        xprof=args.xprof)
     print("Throughput: %.3f videos/s" % result.throughput_vps)
     print("Logs: %s" % result.log_dir)
     print(json.dumps(asdict(result)))

@@ -11,8 +11,8 @@ group its own ``batch``). Device ``d`` maps to ``cuda:d`` (every
 device to the CPU on ``platform="cpu"``) and ``-1`` to the host.
 
 The reference's rules on ``num_segments`` (a step's fan-out into row
-segments), on the root ``trace``, ``metrics``, ``critpath`` and
-``autotune`` keys, on the fault-containment root keys
+segments), on the root ``trace``, ``metrics``, ``critpath``,
+``autotune`` and ``devobs`` keys, on the fault-containment root keys
 (``overload_policy``, ``fault_containment``, ``fault_plan``,
 ``deadline``) and on a step's ``autotune`` opt-out and retry budget
 (``max_retries``, ``retry_backoff_ms``) are kept with the reference's own
@@ -36,7 +36,8 @@ COMMENT_KEY = "_comment"
 ROOT_KEYS = frozenset({"video_path_iterator", "pipeline", "ragged",
                        "popularity", "pager", "trace", "metrics",
                        "critpath", "autotune", "overload_policy",
-                       "fault_containment", "fault_plan", "deadline"})
+                       "fault_containment", "fault_plan", "deadline",
+                       "devobs"})
 TRACE_KEYS = ("enabled", "sample_hz", "max_events")
 #: the reference's key lists, in its order (its messages print them)
 METRICS_KEYS = ["enabled", "interval_ms", "flight_recorder"]
@@ -44,6 +45,9 @@ FLIGHT_RECORDER_KEYS = ["enabled", "ring_events", "max_dumps",
                         "burn_threshold", "shed_spike_per_s",
                         "queue_saturation", "cooldown_s"]
 CRITPATH_KEYS = ["enabled"]
+DEVOBS_KEYS = ["enabled", "capture_window_ms", "capture_on_trigger",
+               "max_captures", "capture_max_ops", "watermark_mb",
+               "sample_hz"]
 DEADLINE_KEYS = ["enabled", "budget_ms"]
 AUTOTUNE_KEYS = ["enabled", "slo_ms", "ewma_alpha", "min_hold_ms",
                  "max_hold_ms", "buckets"]
@@ -167,6 +171,9 @@ class PipelineConfig:
     metrics: Optional[dict] = None
     #: critical-path extraction (root ``critpath`` key)
     critpath: Optional[dict] = None
+    #: the device observability plane (root ``devobs`` key;
+    #: rnb_tpu_torch.devobs)
+    devobs: Optional[dict] = None
     #: the load-adaptive batching controller (root ``autotune`` key)
     autotune: Optional[dict] = None
     #: "abort" (a full queue stops the run) or "shed" (the new request
@@ -178,6 +185,8 @@ class PipelineConfig:
     fault_plan: Optional[dict] = None
     #: deadline propagation (root ``deadline`` key; rnb_tpu_torch.health)
     deadline: Optional[dict] = None
+    #: the config dict as read (the devobs config walks read it)
+    raw: Optional[dict] = None
 
     @property
     def num_steps(self) -> int:
@@ -314,6 +323,34 @@ def _check_critpath(critpath) -> None:
             "'critpath.enabled' must be a boolean")
 
 
+def _check_devobs(devobs) -> None:
+    """The reference's rules (rnb_tpu/config.py, root ``devobs``)."""
+    _expect(isinstance(devobs, dict), "'devobs' must be an object")
+    unknown = sorted(set(devobs) - set(DEVOBS_KEYS))
+    _expect(not unknown, "'devobs' has unknown key(s) %s — keys are %s"
+            % (unknown, DEVOBS_KEYS))
+    _expect(isinstance(devobs.get("enabled", True), bool),
+            "'devobs.enabled' must be a boolean")
+    _expect(isinstance(devobs.get("capture_on_trigger", True), bool),
+            "'devobs.capture_on_trigger' must be a boolean")
+    window = devobs.get("capture_window_ms")
+    _expect(window is None or (_is_number(window) and window >= 0),
+            "'devobs.capture_window_ms' must be a non-negative number (0 "
+            "disables the configured window; forced/trigger captures still "
+            "run), got %r" % (window,))
+    for key in ("max_captures", "capture_max_ops"):
+        val = devobs.get(key)
+        _expect(val is None or (isinstance(val, int)
+                                and not isinstance(val, bool) and val >= 1),
+                "'devobs.%s' must be a positive integer, got %r"
+                % (key, val))
+    for key in ("watermark_mb", "sample_hz"):
+        val = devobs.get(key)
+        _expect(val is None or _is_positive(val),
+                "'devobs.%s' must be a positive number, got %r"
+                % (key, val))
+
+
 def _check_autotune(autotune) -> None:
     """The reference's rules (rnb_tpu/config.py, root ``autotune``)."""
     _expect(isinstance(autotune, dict), "'autotune' must be an object")
@@ -437,6 +474,7 @@ def parse_config(raw: dict, platform: Optional[str] = None
     for key, check in (("deadline", _check_deadline),
                        ("metrics", _check_metrics),
                        ("critpath", _check_critpath),
+                       ("devobs", _check_devobs),
                        ("autotune", _check_autotune)):
         if raw.get(key) is not None:
             check(raw[key])
@@ -545,9 +583,10 @@ def parse_config(raw: dict, platform: Optional[str] = None
         steps=steps, ragged=ragged, platform=platform,
         popularity=popularity, pager=pager, trace=trace,
         metrics=raw.get("metrics"), critpath=raw.get("critpath"),
+        devobs=raw.get("devobs"),
         autotune=raw.get("autotune"), overload_policy=overload_policy,
         fault_containment=fault_containment, fault_plan=fault_plan,
-        deadline=raw.get("deadline"))
+        deadline=raw.get("deadline"), raw=raw)
 
 
 def load_config(path: str, platform: Optional[str] = None

@@ -112,6 +112,7 @@ TRIGGER_SLO_BURN = "slo_burn"
 TRIGGER_SHED_SPIKE = "shed_spike"
 TRIGGER_QUEUE_SATURATION = "queue_saturation"
 TRIGGER_FORCED = "forced"
+TRIGGER_MEMORY_WATERMARK = "memory_watermark"
 
 
 def name(pattern: str, *args) -> str:
@@ -401,6 +402,7 @@ class MetricsRegistry:
         "_polled_counters": "_lock",
         "_overflowed": "_lock",
         "_pending_dumps": "_lock",
+        "_fired_triggers": "_lock",
         "_last_dump_t": "_lock",
         "slo_tracked": "_lock",
         "slo_within": "_lock",
@@ -466,6 +468,12 @@ class MetricsRegistry:
         self.num_dumps = 0
         self.num_triggers = 0
         self._last_dump_t: Dict[str, float] = {}
+        #: observers of EVERY trigger firing (not just ones that win a
+        #: dump slot) — the devobs plane arms a bounded device-capture
+        #: window here, so one anomaly leaves both a flight dump and a
+        #: device trace. Called OUTSIDE the registry lock.
+        self.trigger_hooks: List[Callable[[str, dict], None]] = []
+        self._fired_triggers: List[Tuple[str, dict]] = []
 
     # -- declaration enforcement --------------------------------------
 
@@ -639,6 +647,7 @@ class MetricsRegistry:
         on the triggering thread)."""
         with self._lock:
             self._trigger_locked(reason, detail or {}, time.time())
+        self._dispatch_trigger_hooks()
 
     def _service_dumps_locked(self) -> List[_PendingDump]:
         due, self._pending_dumps = self._pending_dumps, []
@@ -764,11 +773,29 @@ class MetricsRegistry:
             if saturated is not None:
                 self._trigger_locked(TRIGGER_QUEUE_SATURATION,
                                      saturated, now)
+        self._dispatch_trigger_hooks()
         return record
+
+    def _dispatch_trigger_hooks(self) -> None:
+        """Deliver trigger firings to the registered observers outside
+        the registry lock (a hook arming a devobs capture must never
+        nest under it)."""
+        with self._lock:
+            fired, self._fired_triggers = self._fired_triggers, []
+        for reason, detail in fired:
+            for hook in list(self.trigger_hooks):
+                try:
+                    hook(reason, detail)
+                except Exception:
+                    continue  # an observer must not break the plane
 
     def _trigger_locked(self, reason: str, detail: dict,
                         now: float) -> None:
-        # with the recorder disarmed (no ring) a trigger counts nothing
+        # every firing reaches the hooks first — even with the flight
+        # recorder disarmed (no ring) a devobs capture still arms on
+        # the anomaly; the ring gate below guards only the dump
+        # machinery and its trigger counter
+        self._fired_triggers.append((reason, dict(detail)))
         if self.bridge is None or self.bridge.ring is None:
             return
         self.num_triggers += 1

@@ -77,6 +77,7 @@ from rnb_tpu_torch.faults import (FATAL, TRANSIENT, classify_error,
                                   fault_reason)
 from rnb_tpu_torch.health import expired as deadline_expired
 from rnb_tpu_torch.models.r2p1d.checkpoint import init_variables
+from rnb_tpu_torch.models.r2p1d.flops import range_flops_per_clip
 from rnb_tpu_torch.models.r2p1d.network import (KINETICS_CLASSES,
                                                 NUM_LAYERS, R18_LAYER_SIZES,
                                                 R2Plus1DClassifier,
@@ -2311,6 +2312,37 @@ class R2P1DRunner(StageModel):
         self.graph_stats["capture_s"] += captured.capture_s
         return captured
 
+    def compute_profile(self) -> dict:
+        """The devobs compute/memory seam (rnb_tpu_torch.devobs): the
+        declared per-row FLOPs of the analytic walk over this stage's
+        network shape, the network's parameter and buffer bytes on the
+        card (keyed by the module's identity, so stages sharing one
+        network count it once) and, ragged, the one pool-shaped input's
+        bytes. ``bytes_per_row`` is None: the reference takes it from
+        XLA's cost model, and PyTorch has none."""
+        flops_per_row = range_flops_per_clip(
+            self.start_index, self.end_index,
+            consecutive_frames=self.consecutive_frames,
+            num_classes=self.num_classes, layer_sizes=self.layer_sizes,
+            factored_shortcut=self.factored_shortcut)
+        tensors = list(self.network.parameters()) + list(
+            self.network.buffers())
+        params_bytes = sum(t.numel() * t.element_size() for t in tensors)
+        pool_bytes = 0
+        if self.ragged:
+            dtype = getattr(torch, self.input_dtype_for(
+                start_index=self.start_index, pixel_path=self.pixel_path))
+            pool_bytes = (self.pool_rows * math.prod(self._steady_shape[1:])
+                          * torch.empty((), dtype=dtype).element_size())
+        return {
+            "flops_per_row": int(flops_per_row),
+            "devices": 1,
+            "bytes_per_row": None,
+            "params_key": ("params", id(self.network)),
+            "params_bytes": int(params_bytes),
+            "pool_bytes": int(pool_bytes),
+        }
+
     def __call__(self, tensors, non_tensors, time_card):
         pb = tensors[0]
         offsets = getattr(pb, "segment_offsets", (0, int(pb.valid)))
@@ -2377,6 +2409,11 @@ class R2P1DSingleStep(StageModel):
 
     def discard_pending(self) -> None:
         self.loader.discard_pending()
+
+    def compute_profile(self) -> dict:
+        """devobs seam: the embedded network's profile is this fused
+        step's (the loader's cache and staging are its own owners)."""
+        return self.net.compute_profile()
 
     @torch.inference_mode()
     def __call__(self, tensors, non_tensors, time_card):

@@ -27,9 +27,10 @@ Counterpart of ``rnb_tpu/pager.py``:
   consuming stage attaches its arena and inserts strictly after its
   forward returned; the loader probes at admission, and a hit skips
   decode, transfer and the whole forward.
-
-Left out of the port for now: the memory ledger registration
-(``memledger``) and ``adopt_shared``'s ledger side; ``owns()`` stays.
+* **Footprint**: every arena slab and every adopted shared pool
+  registers under the ``page_pool`` owner of
+  :mod:`rnb_tpu_torch.memledger` (live-backed: persistent device
+  tensors); with devobs off that is one ``None`` test.
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from rnb_tpu_torch import memledger
 
 #: fallback arena budget when neither ``pool_mb`` nor a cache-derived
 #: size hint exists (a bare pager on a cache-less config)
@@ -133,6 +136,11 @@ class Arena:
         self._free: List[int] = list(range(self.num_pages))
         self._pins: Dict[int, int] = {}
         self._limbo: set = set()
+        # one ledger probe per arena under the declared page_pool owner;
+        # live: the slab is a persistent device tensor
+        memledger.register("page_pool", str(self.device),
+                           ("pager", self.name, id(self)), self.nbytes,
+                           live=True)
 
     @property
     def nbytes(self) -> int:
@@ -418,10 +426,14 @@ class Pager:
 
     def adopt_shared(self, name: str, tensor: torch.Tensor) -> None:
         """Mark a pager-owned device tensor (the zero pools hits and
-        feature hits dispatch with) so :meth:`owns` knows it."""
-        del name
+        feature hits dispatch with) so :meth:`owns` knows it, and account
+        it under the page_pool owner."""
         with self.lock:
             self._owned_ids[id(tensor)] = tensor
+        memledger.register("page_pool", str(tensor.device),
+                           ("pager-shared", name),
+                           tensor.numel() * tensor.element_size(),
+                           live=True)
 
     def arena_sizes(self) -> Dict[str, Dict[str, int]]:
         """Each arena's pages and bytes, by name, for the ``Pages

@@ -63,8 +63,16 @@ requests of a bulk run (and reaches the target of an open-loop one);
 holds one distinct request per dead letter with the same reasons; the
 tables' ``# faults`` trailers stay within the job's counts; and the final
 metrics snapshot's ``faults.*`` and ``deadline.expired`` counters equal
-the lines. A violation is printed and the exit code is 1 (``--check`` is
-accepted and changes nothing: the checks always run).
+the lines. Of the device observability plane (``Compute:``, ``Compute
+stages:``, ``Memory:``, ``Memory owners:``, ``devobs-capture-<n>.txt``):
+each stage's flops equal its rows x flops_per_row and sum to
+``flops_total``, ``tflops_milli`` recomputes from the integer fields,
+``mfu_e4 <= 10000`` and ``mfu_busy <= 1`` where a peak exists, the owner
+rows sum to the total with peak >= final, a watermark hit means a
+watermark the peak reached, ``live_bytes > 0`` means ``reconciled=1``,
+and the capture files match ``captures=`` and each stays within its
+``ops_written`` bound. A violation is printed and the exit code is 1
+(``--check`` is accepted and changes nothing: the checks always run).
 """
 
 from __future__ import annotations
@@ -74,7 +82,10 @@ import os
 import sys
 from typing import Dict, List
 
+import re
+
 from rnb_tpu_torch import critpath
+from rnb_tpu_torch.memledger import MEM_OWNERS
 from rnb_tpu_torch.trace import (_step_of, _strip_suffix, attribute_phases,
                                  phase_stats, validate_trace)
 
@@ -132,6 +143,10 @@ def read_meta(path: str) -> dict:
                 meta["autotune_buckets"] = json.loads(rest)
             elif head == "Critpath stages":
                 meta["critpath_stages"] = json.loads(rest)
+            elif head == "Compute stages":
+                meta["compute_stage_detail"] = json.loads(rest)
+            elif head == "Memory owners":
+                meta["memory_owner_detail"] = json.loads(rest)
             elif head in JSON_LINES:
                 meta[JSON_LINES[head]] = json.loads(rest)
             elif head == "Termination flag":
@@ -610,6 +625,255 @@ def fault_problems(log_dir: str, meta: dict) -> List[str]:
     return problems
 
 
+def _devobs_captures(log_dir: str) -> List[str]:
+    return sorted(name for name in os.listdir(log_dir)
+                  if re.fullmatch(r"devobs-capture-\d+\.txt", name))
+
+
+def _check_capture_artifact(path: str) -> List[str]:
+    """One capture file's structure (the reference's rule): the 4-column
+    header, an ``ops_written`` bound the data rows honor, and every row
+    two integer timestamps (t1 >= t0), a plane and an op name."""
+    base = os.path.basename(path)
+    problems: List[str] = []
+    ops_written = None
+    rows = 0
+    with open(path) as f:
+        first = f.readline()
+        if not first.startswith("# t0_ns t1_ns plane op_name"):
+            return ["%s: missing the '# t0_ns t1_ns plane op_name' "
+                    "header" % base]
+        for line in f:
+            if line.startswith("#"):
+                parts = line.split()
+                if "ops_written" in parts:
+                    ops_written = int(parts[parts.index("ops_written") + 1])
+                continue
+            rows += 1
+            parts = line.rstrip("\n").split(" ", 3)
+            if len(parts) != 4:
+                problems.append("%s: malformed data row %r"
+                                % (base, line.strip()[:60]))
+                break
+            try:
+                t0, t1 = int(parts[0]), int(parts[1])
+            except ValueError:
+                problems.append("%s: non-integer timestamps in %r"
+                                % (base, line.strip()[:60]))
+                break
+            if t1 < t0:
+                problems.append("%s: interval ends before it starts "
+                                "(%d > %d)" % (base, t0, t1))
+                break
+    if ops_written is None:
+        problems.append("%s: missing the ops_total/ops_written bound "
+                        "header" % base)
+    elif rows != ops_written:
+        problems.append("%s: header says ops_written=%d but the file "
+                        "holds %d row(s)" % (base, ops_written, rows))
+    return problems
+
+
+def _devobs_meta(meta: dict) -> dict:
+    """The devobs lines in the reference reader's flat keys
+    (``compute_<k>``, ``memory_<k>``, the two detail objects and
+    ``wall_time_s``)."""
+    flat: dict = {}
+    for head, prefix in (("Compute", "compute_"), ("Memory", "memory_")):
+        for key, value in meta["lines"].get(head, {}).items():
+            flat[prefix + key] = int(value)
+    for key in ("compute_stage_detail", "memory_owner_detail"):
+        if key in meta:
+            flat[key] = meta[key]
+    if "window" in meta:
+        flat["wall_time_s"] = meta["window"][1] - meta["window"][0]
+    return flat
+
+
+def devobs_problems(log_dir: str, meta: dict) -> List[str]:
+    """The device observability plane's invariants (the reference's
+    --check, with its messages). Malformed detail values surface as a
+    finding, never as a crash of the checker."""
+    try:
+        return _devobs_problems(log_dir, _devobs_meta(meta))
+    except (ValueError, TypeError, KeyError) as e:
+        return ["devobs Compute:/Memory: lines are malformed "
+                "(%s: %s) — the detail JSON does not match the "
+                "declared schema" % (type(e).__name__, e)]
+
+
+def _devobs_problems(log_dir: str, meta: dict) -> List[str]:
+    problems: List[str] = []
+    captures = _devobs_captures(log_dir)
+    if "compute_stages" not in meta and "memory_total_bytes" not in meta:
+        if captures:
+            problems.append("devobs capture artifact(s) %s present "
+                            "but log-meta has no 'Compute:'/'Memory:' "
+                            "line" % captures)
+        return problems
+    if "compute_stages" in meta and "memory_total_bytes" not in meta:
+        problems.append("log-meta carries a 'Compute:' line but no "
+                        "'Memory:' line (the devobs plane writes the "
+                        "ledger totals on every enabled run)")
+    if "compute_stages" in meta:
+        problems.extend(_compute_problems(meta, captures))
+    if "memory_total_bytes" in meta:
+        problems.extend(_memory_problems(meta))
+    for name in captures:
+        problems.extend(_check_capture_artifact(os.path.join(log_dir,
+                                                             name)))
+    return problems
+
+
+def _compute_problems(meta: dict, captures: List[str]) -> List[str]:
+    problems: List[str] = []
+    detail = {key: dict(val) for key, val
+              in dict(meta.get("compute_stage_detail", {})).items()}
+    if len(detail) != meta.get("compute_stages", 0):
+        problems.append("'Compute stages:' names %d stage(s) but the "
+                        "'Compute:' line says stages=%d"
+                        % (len(detail), meta.get("compute_stages", 0)))
+    for key in ("compute_dispatches", "compute_rows", "compute_flops_total",
+                "compute_window_us", "compute_captures"):
+        if meta.get(key, 0) < 0:
+            problems.append("negative %s" % key)
+    flops_sum = dispatches_sum = 0
+    last_step = last_rows = None
+    for key, entry in sorted(detail.items()):
+        rows = int(entry.get("rows", 0))
+        per_row = int(entry.get("flops_per_row", 0))
+        flops = int(entry.get("flops", 0))
+        if flops != per_row * rows:
+            problems.append(
+                "'Compute stages:' %s: flops=%d != flops_per_row=%d x "
+                "rows=%d (achieved FLOPs are per-row counts times the rows "
+                "actually dispatched)" % (key, flops, per_row, rows))
+        if min(rows, per_row, int(entry.get("dispatches", 0)),
+               int(entry.get("busy_us", 0))) < 0:
+            problems.append("'Compute stages:' %s carries a negative "
+                            "counter" % key)
+        mfu_busy = entry.get("mfu_busy")
+        if mfu_busy is not None and float(mfu_busy) > 1.0001:
+            problems.append(
+                "'Compute stages:' %s: mfu_busy=%s exceeds 1 — a stage "
+                "cannot beat the device's peak; the declared FLOPs or the "
+                "peak table is wrong" % (key, mfu_busy))
+        flops_sum += flops
+        dispatches_sum += int(entry.get("dispatches", 0))
+        step = int(key[4:])
+        if last_step is None or step > last_step:
+            last_step, last_rows = step, rows
+    if flops_sum != meta.get("compute_flops_total", 0):
+        problems.append("'Compute stages:' flops sum to %d but the "
+                        "'Compute:' line says flops_total=%d"
+                        % (flops_sum, meta.get("compute_flops_total", 0)))
+    if dispatches_sum != meta.get("compute_dispatches", 0):
+        problems.append("'Compute stages:' dispatches sum to %d but the "
+                        "'Compute:' line says dispatches=%d"
+                        % (dispatches_sum, meta.get("compute_dispatches", 0)))
+    if detail and last_rows != meta.get("compute_rows", 0):
+        problems.append(
+            "'Compute:' rows=%d but the last flops-bearing stage "
+            "dispatched %d row(s) (the job row count is the final stage's "
+            "— the completed clips)" % (meta.get("compute_rows", 0),
+                                        last_rows))
+    if meta.get("compute_mfu_e4", 0) > 10000:
+        problems.append("compute_mfu_e4=%d exceeds 10000 (MFU > 1: the job "
+                        "cannot beat the device peak)"
+                        % meta.get("compute_mfu_e4", 0))
+    window_s = meta.get("compute_window_us", 0) / 1e6
+    if detail and window_s > 0:
+        # rows/s x the summed per-row FLOPs in the writer's expression
+        # order and rounding (±1 milli absorbs window_us's rounding)
+        flops_per_clip = float(sum(int(entry.get("flops_per_row", 0))
+                                   for entry in detail.values()))
+        tflops = (meta.get("compute_rows", 0) / window_s) \
+            * flops_per_clip / 1e12
+        want_milli = int(round(round(tflops, 3) * 1000))
+        if abs(int(meta.get("compute_tflops_milli", 0)) - want_milli) > 1:
+            problems.append("'Compute:' tflops_milli=%s but rows/window x "
+                            "per-row flops recompute to %d"
+                            % (meta.get("compute_tflops_milli"), want_milli))
+    if "wall_time_s" in meta and abs(
+            meta.get("compute_window_us", 0) / 1e6
+            - float(meta["wall_time_s"])) > 0.01:
+        problems.append(
+            "'Compute:' window_us=%d disagrees with the measured wall time "
+            "%.6f s (the compute window IS the measured window)"
+            % (meta.get("compute_window_us", 0), meta["wall_time_s"]))
+    if len(captures) != meta.get("compute_captures", 0):
+        problems.append("'Compute:' line says captures=%d but the job dir "
+                        "holds %d capture artifact(s): %s"
+                        % (meta.get("compute_captures", 0), len(captures),
+                           captures))
+    return problems
+
+
+def _memory_problems(meta: dict) -> List[str]:
+    problems: List[str] = []
+    detail = {key: dict(val) for key, val
+              in dict(meta.get("memory_owner_detail", {})).items()}
+    if len(detail) != meta.get("memory_owners", 0):
+        problems.append("'Memory owners:' names %d owner(s) but the "
+                        "'Memory:' line says owners=%d"
+                        % (len(detail), meta.get("memory_owners", 0)))
+    rogue = sorted(set(detail) - set(MEM_OWNERS))
+    if rogue:
+        problems.append("'Memory owners:' names undeclared owner(s) %s — "
+                        "owners are declared in "
+                        "memledger.MEM_OWNER_REGISTRY" % rogue)
+    owner_sum = 0
+    for owner, entry in sorted(detail.items()):
+        nbytes = int(entry.get("bytes", 0))
+        peak = int(entry.get("peak_bytes", 0))
+        if nbytes < 0 or peak < 0:
+            problems.append("'Memory owners:' %s carries negative bytes"
+                            % owner)
+        if peak < nbytes:
+            problems.append(
+                "'Memory owners:' %s: peak_bytes=%d below final bytes=%d "
+                "(the high-water mark covers every sample, the final one "
+                "included)" % (owner, peak, nbytes))
+        owner_sum += nbytes
+    if owner_sum != meta.get("memory_total_bytes", 0):
+        problems.append(
+            "'Memory owners:' bytes sum to %d but the 'Memory:' line says "
+            "total_bytes=%d (owner rows must foot to the ledger total)"
+            % (owner_sum, meta.get("memory_total_bytes", 0)))
+    if meta.get("memory_peak_bytes", 0) < meta.get("memory_total_bytes", 0):
+        problems.append("memory_peak_bytes=%d below memory_total_bytes=%d "
+                        "(peak >= final by construction)"
+                        % (meta.get("memory_peak_bytes", 0),
+                           meta.get("memory_total_bytes", 0)))
+    if meta.get("memory_watermark_hits", 0) > 0:
+        if meta.get("memory_watermark_bytes", 0) <= 0:
+            problems.append("memory_watermark_hits=%d with no configured "
+                            "watermark" % meta["memory_watermark_hits"])
+        elif meta.get("memory_peak_bytes", 0) \
+                < meta.get("memory_watermark_bytes", 0):
+            problems.append(
+                "memory_watermark_hits=%d but the peak %d never reached "
+                "the %d-byte watermark"
+                % (meta["memory_watermark_hits"],
+                   meta.get("memory_peak_bytes", 0),
+                   meta.get("memory_watermark_bytes", 0)))
+    if meta.get("memory_reconciled", 0) not in (0, 1):
+        problems.append("memory_reconciled must be 0 or 1, got %s"
+                        % meta.get("memory_reconciled"))
+    if meta.get("memory_reconciled", 0) == 1 \
+            and meta.get("memory_live_bytes", 0) <= 0:
+        problems.append("memory_reconciled=1 with live_bytes=0 (a "
+                        "reconcile verdict needs the backend's live-buffer "
+                        "total)")
+    if meta.get("memory_live_bytes", 0) > 0 \
+            and meta.get("memory_reconciled", 0) != 1:
+        problems.append(
+            "live_bytes=%d but reconciled=0 — the ledger's live-backed "
+            "claims exceed the backend's own live buffers (the ledger is "
+            "lying about device memory)" % meta.get("memory_live_bytes", 0))
+    return problems
+
+
 def footing_problems(meta: dict) -> List[str]:
     """The footings of the ``Compiles:`` and ``Pages:`` lines that do
     not hold (empty when they all hold)."""
@@ -689,7 +953,7 @@ def summarize(log_dir: str) -> dict:
         out.update(trace_events=int(lines["Trace"]["events"]),
                    trace_dropped=int(lines["Trace"]["dropped"]))
     for head in ("Metrics", "Slo", "Critpath", "Autotune", "Faults",
-                 "Deadline"):
+                 "Deadline", "Compute", "Memory"):
         if head in lines:
             out[head.lower()] = {k: int(v) for k, v in lines[head].items()}
     if "autotune_buckets" in meta:
@@ -712,7 +976,8 @@ def summarize(log_dir: str) -> dict:
                                + metrics_problems(log_dir, meta)
                                + critpath_problems(log_dir, meta)
                                + autotune_problems(meta)
-                               + fault_problems(log_dir, meta))
+                               + fault_problems(log_dir, meta)
+                               + devobs_problems(log_dir, meta))
     profile = os.path.join(log_dir, "profile.json")
     if os.path.exists(profile):
         with open(profile) as f:

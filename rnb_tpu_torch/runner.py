@@ -57,7 +57,11 @@ final step feeds its completions to the SLO layer
 the job's controller (:mod:`rnb_tpu_torch.autotune`) unless its step
 opts out; the executor feeds it the client's enqueue stamps and, for
 stages that do not report their own service, each arrival-triggered
-dispatch's ``inference{i}_start`` -> ``_finish`` span.
+dispatch's ``inference{i}_start`` -> ``_finish`` span. With the device
+observability plane on (:mod:`rnb_tpu_torch.devobs`), the stage's
+compute profile and byte owners register before the start barrier and
+each stage-call dispatch feeds the step's compute meter its valid rows
+and busy span.
 """
 
 from __future__ import annotations
@@ -73,7 +77,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from rnb_tpu_torch import hostprof, metrics, trace
+from rnb_tpu_torch import devobs, hostprof, metrics, trace
 from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, EdgeTracker,
                                    FaultStats, InferenceCounter,
                                    RingCredits, TerminationFlag,
@@ -486,6 +490,22 @@ def _call_stage(ctx: RunnerContext, model, payload, non_tensors, time_card,
             return None
 
 
+def _note_compute(meter, time_card, key_start: str,
+                  key_finish: str) -> None:
+    """Feed one dispatch to the step's devobs compute meter: its valid
+    rows are the constituents' ``num_clips``, with coalesced followers
+    and feature hits counted 0 (neither ran the forward), and its busy
+    span runs from the last constituent's ``inference{i}_start`` (an
+    earlier one's includes its batch-fill hold) to the finish."""
+    cards = cards_of(time_card)
+    t_fin = cards[0].timings[key_finish]
+    t_sta = max(tc.timings.get(key_start, t_fin) for tc in cards)
+    rows = sum(int(getattr(tc, "num_clips", 0)) for tc in cards
+               if not getattr(tc, "cache_coalesced", False)
+               and not getattr(tc, "feature_hit", False))
+    meter.note(rows, t_fin - t_sta)
+
+
 def _rid(time_card) -> Optional[int]:
     """The request id a span correlates with (None for a fused list)."""
     return None if isinstance(time_card, TimeCardList) else time_card.id
@@ -528,6 +548,10 @@ def runner(ctx: RunnerContext) -> None:
         # the stage's cache and staging pool become poll sources of the
         # live-metrics registry before the barrier (no-op when off)
         metrics.register_stage(model)
+        # its compute profile becomes the step's meter and its byte
+        # owners ledger sources, before the barrier so every sample
+        # covers them (no-op when devobs is off)
+        devobs.register_stage(model, ctx.step_idx, ctx.device)
     except Exception:
         traceback.print_exc()
         ctx.termination.raise_flag(TerminationFlag.INTERNAL_ERROR)
@@ -587,6 +611,9 @@ def runner(ctx: RunnerContext) -> None:
     tr_model_call = trace.name("exec%d.model_call", ctx.step_idx)
     tr_device_sync = trace.name("exec%d.device_sync", ctx.step_idx)
     tr_publish = trace.name("exec%d.publish", ctx.step_idx)
+    # the devobs compute meter, resolved once: None when devobs is off
+    # or the stage declares no compute profile
+    devobs_meter = devobs.meter_for(ctx.step_idx)
     sec_publish = "exec%d.route+enqueue" % ctx.step_idx
     sec_bookkeeping = "exec%d.bookkeeping" % ctx.step_idx
     where_take = "step%d_take" % ctx.step_idx
@@ -700,6 +727,11 @@ def runner(ctx: RunnerContext) -> None:
                         trace.span(tr_device_sync, _rid(time_card)):
                     _sync(tensors_out)
             time_card.record(key_finish)
+            if devobs_meter is not None:
+                # a metered stage (a network step) emits only from its
+                # own calls: no take_ready, poll or flush emission
+                _note_compute(devobs_meter, time_card, key_start,
+                              key_finish)
             if service_feed and arrival and tensors_out:
                 # per shipped row bucket: the LAST-swallowed
                 # constituent's start -> the finish (earlier ones' starts

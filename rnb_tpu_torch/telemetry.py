@@ -593,6 +593,31 @@ META_LINE_REGISTRY = (
               "held deadlines' min / max / sum in microseconds"),
     StampSpec("Autotune buckets:", "rnb_tpu_torch/benchmark.py",
               "JSON {row bucket: emissions} of the controlled stages"),
+    StampSpec("Compute:", "rnb_tpu_torch/benchmark.py",
+              "device-compute plane counters (rnb_tpu_torch.devobs): "
+              "flops-bearing stages, dispatches, valid rows, total "
+              "achieved FLOPs, measured window, job tflops/mfu "
+              "(tflops_milli / mfu_e4; mfu_e4=-1 when the device peak is "
+              "unknown) and capture windows taken (devobs-enabled runs "
+              "only; --check cross-foots flops against per-row counts x "
+              "rows, recomputes tflops_milli and bounds the mfu)"),
+    StampSpec("Compute stages:", "rnb_tpu_torch/benchmark.py",
+              "JSON per-stage roofline detail: rows, dispatches, "
+              "flops_per_row, busy_us, achieved tflops_busy, mfu_busy vs "
+              "the device peak, and ai_flops_per_byte (null: PyTorch has "
+              "no cost model to give bytes per row) "
+              "(devobs-enabled runs only)"),
+    StampSpec("Memory:", "rnb_tpu_torch/benchmark.py",
+              "device footprint ledger totals (rnb_tpu_torch.memledger): "
+              "declared owners, devices, resident/peak bytes, watermark "
+              "threshold and crossings, torch.cuda.memory_allocated bytes "
+              "and the reconciliation verdict (devobs-enabled runs only; "
+              "--check asserts owner rows sum to the total and peak >= "
+              "final)"),
+    StampSpec("Memory owners:", "rnb_tpu_torch/benchmark.py",
+              "JSON per-owner footprint detail {owner: {bytes, "
+              "peak_bytes}}; owners are declared in "
+              "memledger.MEM_OWNER_REGISTRY (devobs-enabled runs only)"),
 )
 
 
@@ -708,6 +733,35 @@ METRIC_REGISTRY = (
     MetricSpec("pages.limbo", "gauge", "poll",
                "evicted pages still pinned"),
     MetricSpec("pages.bytes", "gauge", "poll", "total arena slab bytes"),
+    MetricSpec("compute.s{step}.rows", "counter", "poll",
+               "valid rows a flops-bearing stage dispatched"),
+    MetricSpec("compute.s{step}.dispatches", "counter", "poll",
+               "model-call dispatches the compute meter observed"),
+    MetricSpec("compute.s{step}.tflops", "gauge", "poll",
+               "achieved TFLOP/s over the stage's busy time "
+               "(declared per-row FLOPs x rows / busy seconds)"),
+    MetricSpec("compute.s{step}.mfu", "gauge", "poll",
+               "busy-time MFU vs the device peak (absent when the "
+               "device has no known peak — never guessed)"),
+    MetricSpec("memory.total_bytes", "gauge", "poll",
+               "footprint ledger total across declared owners"),
+    MetricSpec("memory.peak_bytes", "gauge", "poll",
+               "ledger high-water mark (monotone)"),
+    MetricSpec("memory.params_bytes", "gauge", "poll",
+               "device-resident network parameter bytes (deduped "
+               "across replicas sharing one copy)"),
+    MetricSpec("memory.cache_bytes", "gauge", "poll",
+               "clip-cache resident bytes as a ledger owner"),
+    MetricSpec("memory.staging_bytes", "gauge", "poll",
+               "staging-slot slab bytes as a ledger owner (pinned host "
+               "memory)"),
+    MetricSpec("memory.ragged_pool_bytes", "gauge", "poll",
+               "ragged pool dispatch-shape bytes as a ledger owner"),
+    MetricSpec("memory.page_pool_bytes", "gauge", "poll",
+               "page-allocator arena slab + shared-pool bytes "
+               "(memledger page_pool owner, rnb_tpu_torch.pager)"),
+    MetricSpec("memory.handoff_bytes", "gauge", "poll",
+               "bytes resident from the latest edge adoptions"),
     MetricSpec("slo.good", "rate", "derived",
                "windowed within-budget completions"),
     MetricSpec("slo.miss", "rate", "site",

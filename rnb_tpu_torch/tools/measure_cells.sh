@@ -16,7 +16,12 @@
 # cell with the live-metrics plane), autotune (configs/rnb-fused-yuv-
 # autotune.json, the staged cell with the batch controller) and critpath
 # (the traced cell with the root "critpath" key, written beside the
-# dataset) and staged-chaos (the staged cell's chaos copy with an empty
+# dataset), devobs (configs/rnb-fused-yuv-devobs.json, the metrics cell
+# with trace and the device observability plane), traced-metrics (the
+# devobs cell without its devobs key) and devobs-quiet (the devobs cell
+# with "capture_on_trigger": false: no capture opens), both written
+# beside the dataset, and staged-chaos (the
+# staged cell's chaos copy with an empty
 # fault plan, rnb_tpu_torch/tools/chaos.py --empty-plan: overload_policy
 # shed, retry budgets and a deadline no request reaches, so every
 # containment check runs and nothing fails); all but dct over a generated
@@ -29,8 +34,8 @@
 # with --profile (skipped with RNB_MEASURE_PROFILE=0), Poisson at each
 # mean interval of RNB_MEASURE_INTERVALS in turn ("20" when unset), and
 # bulk again; then one summary line per run from
-# rnb_tpu_torch/parse_utils.py (with the Autotune:, Metrics: and
-# Critpath: counters where the run has them). Run from
+# rnb_tpu_torch/parse_utils.py (with the Autotune:, Metrics:, Critpath:,
+# Compute: and Memory: counters where the run has them). Run from
 # the root of a checkout:
 #
 #     bash rnb_tpu_torch/tools/measure_cells.sh [out_dir] [cell ...]
@@ -59,6 +64,14 @@ raw["critpath"] = {"enabled": True}
 json.dump(raw, open(sys.argv[1], "w"))
 PY
 python3 -m rnb_tpu_torch.tools.chaos "$data/rnb-fused-yuv-staged-chaos.json" --empty-plan
+python3 - "$data" <<'PY'
+import json, os, sys
+raw = json.load(open("configs/rnb-fused-yuv-devobs.json"))
+quiet = dict(raw, devobs=dict(raw["devobs"], capture_on_trigger=False))
+json.dump(quiet, open(os.path.join(sys.argv[1], "rnb-fused-yuv-devobs-quiet.json"), "w"))
+del raw["devobs"]
+json.dump(raw, open(os.path.join(sys.argv[1], "rnb-fused-yuv-traced-metrics.json"), "w"))
+PY
 python3 - "$data/r2p1d-segment-1card.json" <<'PY'
 import json, sys
 raw = json.load(open("configs/r2p1d-segment.json"))
@@ -85,15 +98,18 @@ run() {  # run <cell> <args...>
     traced) cfg=configs/rnb-fused-yuv-traced.json ;;
     staged) cfg=configs/rnb-fused-yuv-staged.json ;;
     metrics) cfg=configs/rnb-fused-yuv-metrics.json ;;
+    devobs) cfg=configs/rnb-fused-yuv-devobs.json ;;
+    devobs-quiet) cfg=$data/rnb-fused-yuv-devobs-quiet.json ;;
+    traced-metrics) cfg=$data/rnb-fused-yuv-traced-metrics.json ;;
     autotune) cfg=configs/rnb-fused-yuv-autotune.json ;;
     critpath) cfg=$data/rnb-fused-yuv-traced-critpath.json ;;
     staged-chaos) cfg=$data/rnb-fused-yuv-staged-chaos.json ;;
     *) echo "unknown cell $cell" >&2; exit 2 ;;
   esac
   if [ "$cell" = dct ]; then
-    env -u RNB_TPU_DATA_ROOT python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath|Faults|Deadline)"
+    env -u RNB_TPU_DATA_ROOT python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath|Faults|Deadline|Compute|Memory)"
   else
-    RNB_TPU_DATA_ROOT="$data" python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath|Faults|Deadline)"
+    RNB_TPU_DATA_ROOT="$data" python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath|Faults|Deadline|Compute|Memory)"
   fi
 }
 for c in $cells; do echo "== $c bulk"; run $c -mi 0 -v $videos; done
@@ -109,10 +125,10 @@ cat $out/summary.jsonl | python3 -c "
 import sys, json
 for line in sys.stdin:
     d = json.loads(line); fam = d.get('kernel_families') or {}
-    print(d['log_dir'].split('/')[-2], d['config'].split('/')[-1], d['mean_interval_ms'], d['pixel_path'], d['decode_backend'], 'vps=%.3f' % d['videos_per_s'], 'cps=%.1f' % d['clips_per_s'], 'em=%d' % d['emissions'], 'svc=%.2f' % d['runner_service_ms'], 'wait=%s' % d['runner_wait_ms'], 'svc_by_step=%s' % json.dumps(d.get('service_ms_by_step')), 'em_by_step=%s' % json.dumps(d.get('emissions_by_step')), 'trace_events=%s' % d.get('trace_events'), 'kms/em=%s' % d.get('kernel_ms_per_emission'), 'busy=%s' % d.get('busy_share'), 'ingest=%s' % fam.get('ingest'), 'gather=%s' % fam.get('gather'), 'hit_rate=%s' % d.get('cache_hit_rate'), 'feature_hits=%s' % d.get('pages_feature_hits'), 'gathers=%s' % d.get('pages_gathers'), 'autotune=%s' % json.dumps(d.get('autotune')), 'autotune_buckets=%s' % json.dumps(d.get('autotune_buckets')), 'metrics=%s' % json.dumps(d.get('metrics')), 'slo=%s' % json.dumps(d.get('slo')), 'critpath=%s' % json.dumps(d.get('critpath')), 'faults=%s' % json.dumps(d.get('faults')), 'deadline=%s' % json.dumps(d.get('deadline')), 'footing=%s' % d['footing_problems'])
+    print(d['log_dir'].split('/')[-2], d['config'].split('/')[-1], d['mean_interval_ms'], d['pixel_path'], d['decode_backend'], 'vps=%.3f' % d['videos_per_s'], 'cps=%.1f' % d['clips_per_s'], 'em=%d' % d['emissions'], 'svc=%.2f' % d['runner_service_ms'], 'wait=%s' % d['runner_wait_ms'], 'svc_by_step=%s' % json.dumps(d.get('service_ms_by_step')), 'em_by_step=%s' % json.dumps(d.get('emissions_by_step')), 'trace_events=%s' % d.get('trace_events'), 'kms/em=%s' % d.get('kernel_ms_per_emission'), 'busy=%s' % d.get('busy_share'), 'ingest=%s' % fam.get('ingest'), 'gather=%s' % fam.get('gather'), 'hit_rate=%s' % d.get('cache_hit_rate'), 'feature_hits=%s' % d.get('pages_feature_hits'), 'gathers=%s' % d.get('pages_gathers'), 'autotune=%s' % json.dumps(d.get('autotune')), 'autotune_buckets=%s' % json.dumps(d.get('autotune_buckets')), 'metrics=%s' % json.dumps(d.get('metrics')), 'slo=%s' % json.dumps(d.get('slo')), 'critpath=%s' % json.dumps(d.get('critpath')), 'faults=%s' % json.dumps(d.get('faults')), 'deadline=%s' % json.dumps(d.get('deadline')), 'compute=%s' % json.dumps(d.get('compute')), 'memory=%s' % json.dumps(d.get('memory')), 'footing=%s' % d['footing_problems'])
 "
 for f in $out/*/hostprof.txt; do
   [ -f "$f" ] && { echo "== $f"; head -n 40 "$f"; }
 done
-grep -H "Staging\|Profile\|Pages\|Cache\|Graphs\|Warmup\|Trace\|Autotune\|Metrics\|Slo\|Critpath\|Faults\|Deadline" $out/*/log-meta.txt
+grep -H "Staging\|Profile\|Pages\|Cache\|Graphs\|Warmup\|Trace\|Autotune\|Metrics\|Slo\|Critpath\|Faults\|Deadline\|Compute\|Memory" $out/*/log-meta.txt
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader

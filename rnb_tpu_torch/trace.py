@@ -196,6 +196,29 @@ class Tracer:
         with self._lock:
             return len(self._events)
 
+    def snapshot_events(self) -> List[Tuple]:
+        """Copy of the collected event tuples — the devobs merge reads
+        the ``model_call`` spans here to rid-correlate device ops."""
+        with self._lock:
+            return list(self._events)
+
+    def extend(self, events: List[Tuple]) -> int:
+        """Append externally-built event tuples (the collection schema)
+        under the same ``max_events`` bound as live collection; returns
+        how many were admitted. rnb_tpu_torch.devobs merges captured
+        device-op intervals as ``device:<plane>`` tracks here after the
+        run drained (never on the hot path); a rid on a device event
+        joins that request's flow chain in :func:`export_events`."""
+        added = 0
+        with self._lock:
+            for event in events:
+                if len(self._events) >= self.settings.max_events:
+                    self.dropped += 1
+                    continue
+                self._events.append(tuple(event))
+                added += 1
+        return added
+
     # -- background occupancy sampler ---------------------------------
 
     def add_counter_source(self, event_name: str,

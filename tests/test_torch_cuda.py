@@ -516,3 +516,42 @@ def test_a_failing_capture_raises(device):
     with pytest.raises(RuntimeError):
         runner.forward(_packed(3, seed=61).to(device), 3)
     torch.cuda.synchronize(device)
+
+
+def test_a_devobs_capture_sees_the_graph_replayed_kernels(device):
+    """A capture opened from another thread after the runner captured its
+    graphs (the devobs worker's pattern) records the kernels those
+    graphs replay on this one, the yuv420 kernel among them, on
+    ``/device:GPU:<index>``."""
+    import threading
+
+    from rnb_tpu_torch import profiler
+    runner = _graph_runner(device, max_rows=6, row_buckets=[3, 6],
+                           pixel_path="yuv420")
+    x = _packed(6, seed=70).to(device)
+    opened, done = threading.Event(), threading.Event()
+    captured = {}
+
+    def capture():
+        profiler.initialize()
+        opened.set()
+        done.wait(timeout=60)
+        profiler.flush()
+        captured["ops"] = profiler.report(include_plane=True)
+    worker = threading.Thread(target=capture)
+    worker.start()
+    try:
+        assert opened.wait(timeout=120)
+        for _ in range(3):
+            runner.forward(x, 6)
+        torch.cuda.synchronize(device)
+    finally:
+        done.set()
+        worker.join(timeout=120)
+    assert not worker.is_alive()
+    plane = "/device:GPU:%d" % (device.index or 0)
+    ops = captured["ops"]
+    assert ops and {op[3] for op in ops} == {plane}
+    assert sum("yuv420_kernel" in op[0] for op in ops) == 3
+    assert all(t1 >= t0 >= 0 for _name, t0, t1, _plane in ops)
+    assert runner.graph_stats["replays"] == 3

@@ -356,9 +356,9 @@ def _one_device_configs():
 
 
 def test_seventeen_of_the_one_device_configs_read():
-    """Nineteen of the 23 one-device configs now read (the name counts
-    the configs read before the metrics and autotune planes were
-    ported); each of the four others is refused by the first key the
+    """Twenty of the 23 one-device configs now read (the name counts
+    the configs read before the metrics, autotune and devobs planes were
+    ported); each of the three others is refused by the first key the
     reader does not port."""
     read, refused = [], {}
     for name in _one_device_configs():
@@ -368,11 +368,11 @@ def test_seventeen_of_the_one_device_configs_read():
             read.append(name)
         except ConfigError as e:
             refused[name] = str(e)
-    assert len(read) + len(refused) == 23 and len(read) == 19
+    assert len(read) + len(refused) == 23 and len(read) == 20
     assert {"rnb-fused-yuv-traced.json", "rnb-fused-yuv-metrics.json",
-            "rnb-fused-yuv-autotune.json"} <= set(read)
+            "rnb-fused-yuv-autotune.json",
+            "rnb-fused-yuv-devobs.json"} <= set(read)
     assert {name: msg.split("'")[1] for name, msg in refused.items()} == {
-        "rnb-fused-yuv-devobs.json": "devobs",
         "rnb-fused-yuv-operator.json": "operator",
         "rnb-netedge-loopback.json": "netedge",
         "rnb-netedge-off.json": "netedge"}
@@ -381,7 +381,7 @@ def test_seventeen_of_the_one_device_configs_read():
 def test_the_tiny_shed_config_now_reads():
     """``configs/r2p1d-tiny-shed.json`` (its first unported key was
     ``overload_policy``) reads on the CPU as the reference reads it, and
-    so 29 of the 41 shipped configs read."""
+    with the devobs plane ported 30 of the 41 shipped configs read."""
     path = os.path.join(REPO, "configs", "r2p1d-tiny-shed.json")
     cfg = load_config(path, platform="cpu")
     with open(path) as f:
@@ -400,7 +400,7 @@ def test_the_tiny_shed_config_now_reads():
             read += 1
         except ConfigError:
             pass
-    assert (read, len(names)) == (29, 41)
+    assert (read, len(names)) == (30, 41)
 
 
 def _mutated(case):
