@@ -53,6 +53,16 @@ Phases (any failure exits non-zero and prints no result line):
    byte loop, and against the bucketed normalize kernel on the valid
    rows; timed at 15 and at 7 valid rows beside its bounds, its plain
    version and the bucketed kernel at 15 rows;
+   The ring-shift kernel (the one hop of the shard ring collectives) is
+   held bitwise to its plain version, destinations laid out as the
+   sources, at each of the 19 sharded leaves of R(2+1)D-18 at degree 2 in
+   bf16 (and their ring all-gather against the concatenation), at the
+   conv5 temporal leaf at degree 4 with shifts 1 to 3, on a (15, 200)
+   float32 merge block, on 1001 bytes at degree 3 and on views 1 and 3
+   bytes off 16-byte alignment; timed at the conv5 temporal leaf and the
+   merge block at degree 2 (L2 warm and flushed) beside the bound, the
+   plain version and ``torch.roll`` of the members' stacked bytes, and
+   one forward's 19 hops together;
 4. path: serve ``configs/rnb-fused-yuv-big.json`` and
    ``configs/rnb-fused-yuv-ragged.json`` over a generated y4m dataset,
    and ``configs/rnb-fused-dct-ragged.json`` over ``synth://`` ids, at
@@ -147,6 +157,17 @@ Phases (any failure exits non-zero and prints no result line):
    devices 0 and 1 made 0 (32 requests in bulk: the rgb loader and
    ``normalize_u8`` once per request, a narrow 8-class runner), its
    logs through ``parse_utils`` and two requests recomputed on the CPU.
+   Then the intra-stage sharding pair: one-card copies of
+   ``configs/rnb-shard-d1.json`` and ``configs/rnb-shard-d2.json``
+   (every device index made 0, so the degree-2 ring's members share the
+   card), 64 requests each in bulk: every request's d2 logits bitwise
+   d1's, ``rnb_ring_shift`` launched 19 times a forward (warm-ups,
+   capture warm-ups and graph replays) and once a merge in d2 and never
+   in d1, one merge a forward with collective time spent, the ``Shard:``
+   lines footed by the port's ``parse_utils`` and ``exec1.collective``
+   in ``metrics.jsonl``; then the d1 copy under a budget between the
+   port's two projections, whose stage raises the reference's rejection
+   naming degree 2.
    Last, the device observability plane (served after the others, so
    their timing stays as it was): ``configs/rnb-fused-yuv-devobs.json``
    as shipped (64 requests in bulk, ``RNB_DEVOBS_FORCE`` set for this run
@@ -177,6 +198,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -225,6 +247,23 @@ TINY_SHED = "configs/r2p1d-tiny-shed.json"
 #: the shipped tiny-shed config with its devices 0 and 1 made 0, served
 #: last
 TINY_SHED_COPY = "r2p1d-tiny-shed-1card"
+SHARD_D1 = "configs/rnb-shard-d1.json"
+SHARD_D2 = "configs/rnb-shard-d2.json"
+#: the intra-stage sharding pair with every device index made 0: the
+#: degree-2 ring's two members share the card; served before devobs
+SHARD_D1_COPY = "rnb-shard-d1-1card"
+SHARD_D2_COPY = "rnb-shard-d2-1card"
+SHARD_RUNS = (SHARD_D1_COPY, SHARD_D2_COPY)
+#: the d1 copy with an HBM budget between the port's degree-2 and
+#: degree-1 projections: its launch is refused
+SHARD_BUDGET_COPY = "rnb-shard-d1-1card-budget"
+#: the sharded leaves of R(2+1)D-18: 17 temporal conv kernels and the
+#: head's weight and bias, one hop each at degree 2
+SHARD_LEAVES = 19
+#: the ring shift's timed shapes: the conv5 temporal kernel's shard at
+#: degree 2 (the largest leaf) and a merge block at 15 rows
+RING_TIMED_DEGREE = 2
+MERGE_BLOCK = (15, 200)
 #: mean Poisson gap of the open-loop runs that are not Zipf cells
 PLANE_INTERVAL_MS = {METRICS: 20, AUTOTUNE_POISSON: 25, CHAOS_BURST: 1}
 #: the buckets the autotune config warms: the only ones it may choose
@@ -258,7 +297,8 @@ ONE_PER_EMISSION = {"configs/rnb-fused-yuv-big.json": "yuv420_normalize",
                     TRACED: "yuv420_normalize",
                     TINY_SHED_COPY: "normalize_u8",
                     **{label: "yuv420_normalize"
-                       for label in PLANES + CHAOS_RUNS + DEVOBS_RUNS}}
+                       for label in PLANES + CHAOS_RUNS + DEVOBS_RUNS
+                       + SHARD_RUNS}}
 #: the kernels each run launches, and no others
 PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 CONFIGS[2]: {"dct_ingest"},
@@ -272,6 +312,8 @@ PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 TORCHCKPT: YUV_KERNELS, MID: YUV_KERNELS,
                 SEGMENT_COPY: {"normalize_u8"}, TRACED: YUV_KERNELS,
                 TINY_SHED_COPY: {"normalize_u8"},
+                SHARD_D1_COPY: YUV_KERNELS,
+                SHARD_D2_COPY: YUV_KERNELS | {"ring_shift"},
                 **{label: YUV_KERNELS
                    for label in PLANES + CHAOS_RUNS + DEVOBS_RUNS}}
 #: the runs of the unfused multi-step pipeline, in serving order
@@ -298,7 +340,7 @@ VIDEOS_PER_RUN = 32
 #: whole run's requests, which it is held to)
 FEW_VIDEOS = {TORCHCKPT: 12, MID: 12, TRACED: 12, CRITPATH: 12,
               CHAOS: 64, CHAOS_BURST: 200, DEVOBS: 64,
-              DEVOBS_WATERMARK: 32}
+              DEVOBS_WATERMARK: 32, SHARD_D1_COPY: 64, SHARD_D2_COPY: 64}
 #: a captured graph against its eager forward where the two are not
 #: bitwise (a capture that changed the library's kernel choice): the
 #: float32 network's bound of tests/test_torch_network.py, relative to
@@ -349,7 +391,10 @@ BF16_ATOL = 1e-2
 EXTRA_ROW_KEYS = ("all_hit_ms", "all_hit_ms_l2_flushed",
                   "library_ms_l2_flushed", "tiny_rows_ms",
                   "tiny_rows_ms_l2_flushed", "ms_48", "ms_48_l2_flushed",
-                  "bound_ms_48")
+                  "bound_ms_48", "merge_ms", "merge_ms_l2_flushed",
+                  "merge_plain_ms", "merge_bound_ms", "merge_library_ms",
+                  "forward_hops_ms", "forward_hops_bound_ms",
+                  "merge_host_us")
 
 
 class SmokeFailure(RuntimeError):
@@ -1133,6 +1178,181 @@ def phase_kernels_ragged(device):
           % (row["ms_valid7"], row["bound_ms_valid7"],
              row["k1_ms_15_rows"]))
     return {"ragged_normalize_u8": row}, {"ragged_normalize_u8": worst}
+
+
+def ring_leaves(degree):
+    """The sharded leaves of the served full-width network at ``degree``:
+    leaf name -> (member shard shape, memory format, dtype), read off a
+    copy of the sharded network on the meta device."""
+    import torch
+    from rnb_tpu_torch.models.r2p1d.network import (R2Plus1DClassifier,
+                                                    cast_compute_weights)
+    with torch.device("meta"):
+        net = cast_compute_weights(R2Plus1DClassifier(1, 5, 400,
+                                                      shards=degree))
+    leaves = {}
+    for name, param in net.named_parameters():
+        leaf, _, member = name.rpartition(".")
+        if leaf.endswith("_shards") and member == "0":
+            fmt = (torch.channels_last_3d if param.dim() == 5
+                   else torch.contiguous_format)
+            leaves[leaf[:-len("_shards")]] = (tuple(param.shape), fmt,
+                                              param.dtype)
+    return leaves
+
+
+def ring_members(shape, fmt, dtype, degree, gen, device):
+    """``degree`` seeded member buffers of one shape and layout on the
+    card."""
+    import torch
+    return [torch.randn(shape, generator=gen).to(dtype).contiguous(
+        memory_format=fmt).to(device) for _ in range(degree)]
+
+
+def check_ring(what, members, shift):
+    """``ring_shift`` of ``members`` bitwise its plain version on the
+    same card buffers, one launch, the destinations laid out as the
+    sources; returns the largest difference (0)."""
+    import torch
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.ops.handoff_dma import (ring_shift,
+                                               ring_shift_reference)
+    before = _kernels.RING_SHIFT.launches
+    got = ring_shift(members, shift)
+    check(_kernels.RING_SHIFT.launches == before + 1,
+          "ring_shift %s did not count one launch" % what)
+    want = ring_shift_reference(members, shift)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w in zip(got, want):
+        check(g.stride() == w.stride(), "ring_shift %s: destination "
+              "strides %s, source's %s" % (what, g.stride(), w.stride()))
+        bitwise = torch.equal(g, w)
+        if not bitwise:
+            err = max(err, float((g.float() - w.float()).abs().max()))
+        check(bitwise, "ring_shift %s shift %d is not bitwise its plain "
+              "version" % (what, shift))
+    return err
+
+
+def phase_kernels_ring(device):
+    """The ring shift against its plain version, bitwise: each of the 19
+    sharded leaves at degree 2 in bf16 (and their ring all-gather against
+    the concatenation), the conv5 temporal leaf at degree 4 with shifts
+    1 to 3, a merge block, an odd byte count and a misaligned view; timed
+    at the conv5 temporal leaf and at the merge block, with L2 warm and
+    flushed, beside the bound, the plain version and ``torch.roll``, and
+    one forward's 19 hops together. Returns its timing row and worst
+    error."""
+    import torch
+    from rnb_tpu_torch.ops.handoff_dma import (ring_all_gather,
+                                               ring_shift,
+                                               ring_shift_reference)
+    from rnb_tpu_torch.parallel.shardplan import build_shard_ring, make_merge
+    gen = torch.Generator().manual_seed(314)
+    worst = 0.0
+    leaves = ring_leaves(RING_TIMED_DEGREE)
+    check(len(leaves) == SHARD_LEAVES, "the sharded network has %d "
+          "sharded leaves, not %d" % (len(leaves), SHARD_LEAVES))
+    forward = []
+    for name, (shape, fmt, dtype) in sorted(leaves.items()):
+        members = ring_members(shape, fmt, dtype, RING_TIMED_DEGREE, gen,
+                               device)
+        forward.append(members)
+        worst = max(worst, check_ring(name, members, 1))
+        full = torch.cat(members).contiguous(memory_format=fmt)
+        for member in ring_all_gather(members, axis=0):
+            check(torch.equal(member, full) and member.stride()
+                  == full.stride(), "ring_all_gather of %s is not the "
+                  "concatenation, laid out as it" % name)
+    print("kernels ring_shift: the %d sharded leaves at degree %d (bf16, "
+          "%d to %d bytes a member) bitwise their plain version; their "
+          "gathers bitwise the concatenation" % (
+              len(leaves), RING_TIMED_DEGREE,
+              min(math.prod(s) * 2 for s, _, _ in leaves.values()),
+              max(math.prod(s) * 2 for s, _, _ in leaves.values())))
+    conv5 = "net.conv5.block1.conv2.temporal.weight"
+    shape, fmt, dtype = ring_leaves(4)[conv5]
+    members4 = ring_members(shape, fmt, dtype, 4, gen, device)
+    for shift in (1, 2, 3):
+        worst = max(worst, check_ring("%s degree 4" % conv5, members4,
+                                      shift))
+    merge = ring_members(MERGE_BLOCK, torch.contiguous_format,
+                         torch.float32, RING_TIMED_DEGREE, gen, device)
+    worst = max(worst, check_ring("merge block", merge, 1))
+    odd = [torch.randint(0, 256, (1001,), generator=gen,
+                         dtype=torch.uint8).to(device) for _ in range(3)]
+    for shift in (1, 2):
+        worst = max(worst, check_ring("odd u8", odd, shift))
+    base = torch.randint(0, 256, (2, 40007), generator=gen,
+                         dtype=torch.uint8).to(device)
+    # 1 and 3 bytes off 16-byte alignment: the byte loop
+    worst = max(worst, check_ring("misaligned view",
+                                  [base[0, 1:40001], base[1, 3:40003]], 1))
+    print("kernels ring_shift: %s at degree 4, shifts 1-3; merge block %s "
+          "f32; 1001 u8 bytes at degree 3; a misaligned view: bitwise"
+          % (conv5, MERGE_BLOCK))
+
+    def timed(members, prefix, row):
+        n = len(members)
+        nbytes = members[0].numel() * members[0].element_size()
+        # the library yardstick's input: the members' bytes stacked
+        stacked = torch.randint(0, 256, (n, nbytes), generator=gen,
+                                dtype=torch.uint8).to(device)
+        row[prefix + "ms"] = device_ms(lambda: ring_shift(members, 1))
+        row[prefix + "ms_l2_flushed"] = flushed_ms(
+            lambda: ring_shift(members, 1))
+        row[prefix + "plain_ms"] = device_ms(
+            lambda: ring_shift_reference(members, 1), reps=10)
+        row[prefix + "library_ms"] = device_ms(
+            lambda: torch.roll(stacked, 1, dims=0))
+        # every member's buffer read once and written once
+        row[prefix + "bound_ms"], by = bound(2 * n * nbytes, 0)
+        print("timing ring_shift %s at degree %d (%d bytes a member): %.5f "
+              "ms on the card, L2 warm (share %.3f), %.5f ms with L2 "
+              "flushed (share %.3f); plain %.5f ms, torch.roll %.5f ms, "
+              "bound %.5f ms by %s"
+              % (prefix or "conv5 temporal", n, nbytes, row[prefix + "ms"],
+                 row[prefix + "bound_ms"] / row[prefix + "ms"],
+                 row[prefix + "ms_l2_flushed"],
+                 row[prefix + "bound_ms"] / row[prefix + "ms_l2_flushed"],
+                 row[prefix + "plain_ms"], row[prefix + "library_ms"],
+                 row[prefix + "bound_ms"], by))
+        return by
+    # the merge as the stage times it, on an idle host: its host time
+    # from the forward's end (synchronized) to the merged logits' (the
+    # served runs' exec1.collective spans add whatever else holds the
+    # interpreter then)
+    merge_fn = make_merge(build_shard_ring([device] * RING_TIMED_DEGREE,
+                                           RING_TIMED_DEGREE))
+    merge_fn(merge)
+    host_us = []
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        merge_fn(merge)
+        torch.cuda.synchronize()
+        host_us.append((time.perf_counter() - t0) * 1e6)
+    host_us.sort()
+    print("timing the merge collective at degree %d, host clock on an idle "
+          "host: median %.1f us, min %.1f us, max %.1f us of 50"
+          % (RING_TIMED_DEGREE, host_us[25], host_us[0], host_us[-1]))
+    row = {"merge_host_us": host_us[25]}
+    conv5_members = forward[sorted(leaves).index(conv5)]
+    row["bound_by"] = timed(conv5_members, "", row)
+    row["call_ms"] = call_ms(lambda: ring_shift(conv5_members, 1))
+    timed(merge, "merge_", row)
+    # one forward's weight gathers at degree 2: a hop for each leaf
+    row["forward_hops_ms"] = device_ms(
+        lambda: [ring_shift(m, 1) for m in forward])
+    row["forward_hops_bound_ms"] = bound(2 * sum(
+        len(m) * m[0].numel() * m[0].element_size() for m in forward),
+        0)[0]
+    print("timing ring_shift: one forward's %d hops at degree %d, %.5f ms "
+          "on the card (bound %.5f ms); %.5f ms per back-to-back conv5 "
+          "hop" % (len(forward), RING_TIMED_DEGREE, row["forward_hops_ms"],
+                   row["forward_hops_bound_ms"], row["call_ms"]))
+    return {"ring_shift": row}, {"ring_shift": worst}
 
 
 def cpu_recompute(config_path, sink, picks, sums=None):
@@ -2110,6 +2330,10 @@ def check_graphs(label, result, stages):
                 label, key))
             replayed = runner.forward(x, valid)
             eager = runner.eager_forward(x, valid)
+            if isinstance(replayed, list):
+                # a sharded head's column blocks, in member order
+                replayed = torch.cat(replayed, dim=-1)
+                eager = torch.cat(eager, dim=-1)
             torch.cuda.synchronize()
             if torch.equal(replayed, eager):
                 continue
@@ -2128,6 +2352,120 @@ def check_graphs(label, result, stages):
              "" if not loose else " " + json.dumps(
                  [[s, repr(k), e] for s, k, e in loose])))
     return loose
+
+
+def check_shard_run(label, result, sink, stages, counts, shard_runs):
+    """A run of the sharding pair: the Shard: lines footed by the port's
+    parse_utils, one merge a forward, collective time spent; at degree 2
+    the ring kernel launched 19 times a forward (warm-ups, capture
+    warm-ups and replays) and once a merge, and every request's logits
+    bitwise the d1 copy's; at degree 1 no hop at all. Returns a summary
+    for the print."""
+    import numpy as np
+    from rnb_tpu_torch.models.r2p1d.model import NUM_WARMUPS, R2P1DRunner
+    from rnb_tpu_torch.parse_utils import load_metrics, summarize
+    (runner,) = [s for _, s in stages if isinstance(s, R2P1DRunner)]
+    degree = 2 if label == SHARD_D2_COPY else 1
+    check(runner.shard_degree == result.shard_max_degree == degree,
+          "%s: degree %d, Shard: max_degree %d" % (
+              label, runner.shard_degree, result.shard_max_degree))
+    problems = summarize(result.log_dir)["footing_problems"]
+    check(not problems, "%s: %s" % (label, "; ".join(problems[:5])))
+    check(result.shard_rows == result.clips_completed,
+          "%s: Shard: rows=%d for %d clips" % (label, result.shard_rows,
+                                               result.clips_completed))
+    replays = runner.graph_stats["replays"]
+    if degree == 1:
+        check(result.shard_gathers == 0 and counts["ring_shift"] == 0,
+              "%s: %d merges, %d ring hops at degree 1" % (
+                  label, result.shard_gathers, counts["ring_shift"]))
+        return dict(replays=replays)
+    check(result.shard_gathers == replays
+          == result.compiles["step1"]["steady_calls"],
+          "%s: %d merges for %d replays" % (label, result.shard_gathers,
+                                            replays))
+    check(result.shard_collective_us > 0, "%s: no collective time" % label)
+    for key, graph in runner._graphs.items():
+        check(graph.launches.get("ring_shift") == SHARD_LEAVES,
+              "%s: graph %s records %s ring hops, not %d" % (
+                  label, key, graph.launches.get("ring_shift"),
+                  SHARD_LEAVES))
+    # warm-ups and each graph's capture warm-up run the forward eagerly;
+    # a warm-up also merges
+    warm = NUM_WARMUPS * len(runner._warm_rows)
+    eager = warm + len(runner._graphs)
+    want = SHARD_LEAVES * (eager + replays) + warm + result.shard_gathers
+    check(counts["ring_shift"] == want,
+          "%s: %d ring hops, %d expected (%d leaves x (%d eager + %d "
+          "replayed forwards) + %d warm-up and %d served merges)" % (
+              label, counts["ring_shift"], want, SHARD_LEAVES, eager,
+              replays, warm, result.shard_gathers))
+    check(result.window_launches["ring_shift"]
+          == (SHARD_LEAVES + 1) * replays,
+          "%s: %d ring hops in the window for %d forwards" % (
+              label, result.window_launches["ring_shift"], replays))
+    d1_result, d1_sink = shard_runs[SHARD_D1_COPY]
+    check(sorted(sink) == sorted(d1_sink), "%s: other requests than d1's"
+          % label)
+    for rid, (video, logits, _stamps) in sink.items():
+        check(d1_sink[rid][0] == video
+              and np.array_equal(logits, d1_sink[rid][1]),
+              "%s request %d: logits are not bitwise the d1 copy's"
+              % (label, rid))
+    final = load_metrics(result.log_dir)[-1]
+    collective = final["histograms"].get("exec1.collective", {})
+    check(collective.get("count") == result.shard_gathers,
+          "%s: metrics.jsonl holds %s exec1.collective samples for %d "
+          "merges" % (label, collective.get("count"), result.shard_gathers))
+    return dict(replays=replays, ring_launches=counts["ring_shift"],
+                collective_us_per_request=(result.shard_collective_us
+                                           / result.num_completed),
+                collective_us_per_merge=(result.shard_collective_us
+                                         / result.shard_gathers),
+                videos_per_s_d1=d1_result.throughput_vps,
+                videos_per_s_d2=result.throughput_vps)
+
+
+def check_shard_budget(data_root, shard_runs):
+    """The d1 copy under a budget between the port's two projections
+    (read off the pair's Shard steps: lines): building its stage as the
+    executor does raises the reference's rejection, naming degree 2."""
+    import re
+    from rnb_tpu_torch.config import load_config
+    from rnb_tpu_torch.utils.class_utils import load_class
+    d1_mb = shard_runs[SHARD_D1_COPY][0].shard_step_detail["1"][
+        "projected_mb"]
+    d2_mb = shard_runs[SHARD_D2_COPY][0].shard_step_detail["1"][
+        "projected_mb"]
+    check(d2_mb < d1_mb < 120.0, "projections d1 %.3f, d2 %.3f MiB: the "
+          "shipped 120 MiB budget no longer launches both" % (d1_mb, d2_mb))
+    budget = round((d1_mb + d2_mb) / 2, 1)
+    path = one_card_copy(data_root, SHARD_D1, SHARD_BUDGET_COPY)
+    with open(path) as f:
+        raw = json.load(f)
+    raw["pipeline"][1]["shard"]["hbm_budget_mb"] = budget
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    config = load_config(path)
+    step = config.steps[1]
+    kwargs = dict(step.kwargs_for_group(0), ragged=True,
+                  ragged_pool_rows=config.ragged["pool_rows"])
+    try:
+        load_class(step.model)(step.groups[0].devices[0], **kwargs)
+    except ValueError as e:
+        message = str(e)
+    else:
+        raise SmokeFailure("%s launched over its %.1f MiB budget"
+                           % (SHARD_BUDGET_COPY, budget))
+    pattern = (r"shard launch rejected: projected per-device HBM [\d.]+ MiB "
+               r"at shard degree 1 exceeds hbm_budget_mb=%s for layers "
+               r"\[1\.\.5\] \(replicated [\d.]+ MiB \+ sharded [\d.]+ MiB "
+               r"/ degree \+ pool [\d.]+ MiB\); smallest feasible degree "
+               r"of \(1, 2, 4, 8\): 2" % re.escape("%.1f" % budget))
+    check(re.fullmatch(pattern, message), "%s: %s" % (SHARD_BUDGET_COPY,
+                                                      message))
+    print("path %s: rejected at %.1f MiB (d1 projects %.3f, d2 %.3f): %s"
+          % (SHARD_BUDGET_COPY, budget, d1_mb, d2_mb, message))
 
 
 def phase_path(data_root, videos_per_run):
@@ -2166,10 +2504,15 @@ def phase_path(data_root, videos_per_run):
              (CHAOS, chaos_path), (CHAOS_BURST, chaos_path),
              (TINY_SHED_COPY, one_card_copy(data_root, TINY_SHED,
                                             TINY_SHED_COPY)),
+             (SHARD_D1_COPY, one_card_copy(data_root, SHARD_D1,
+                                           SHARD_D1_COPY)),
+             (SHARD_D2_COPY, one_card_copy(data_root, SHARD_D2,
+                                           SHARD_D2_COPY)),
              # last: the runs before them keep their timing
              (DEVOBS, os.path.join(HERE, DEVOBS)),
              (DEVOBS_WATERMARK, devobs_watermark_copy(data_root))]
     whole_sink = None
+    shard_runs = {}
     for label, config_path in runs:
         config = load_config(config_path, "cpu")
         pixel_path = config.steps[0].kwargs.get("pixel_path", "rgb")
@@ -2246,6 +2589,11 @@ def phase_path(data_root, videos_per_run):
         if label == TINY_SHED_COPY:
             problems = summarize(result.log_dir)["footing_problems"]
             check(not problems, "%s: %s" % (label, "; ".join(problems[:5])))
+        shard_report = None
+        if label in SHARD_RUNS:
+            shard_report = check_shard_run(label, result, sink, stages,
+                                           counts, shard_runs)
+            shard_runs[label] = (result, sink)
         t0 = time.time()
         check_graphs(label, result, stages)
         if label == SEGMENT_COPY:
@@ -2327,7 +2675,7 @@ def phase_path(data_root, videos_per_run):
         picks = by_clips[:2] + by_clips[-1:]
         if label in UNFUSED or label in FEW_VIDEOS:
             picks = by_clips[:1] + by_clips[-1:]
-        if label in PLANES + DEVOBS_RUNS:
+        if label in PLANES + DEVOBS_RUNS + SHARD_RUNS:
             picks = by_clips[:1]
         if label in CHAOS_RUNS:
             # the retried requests too: their served logits held to the
@@ -2354,6 +2702,12 @@ def phase_path(data_root, videos_per_run):
                  result.window_launches, result.pad_rows,
                  result.total_rows, picks, time.time() - t0,
                  json.dumps(report)))
+        if shard_report is not None:
+            print("path %s shard: %s; Shard: %s" % (
+                label, json.dumps(shard_report), json.dumps(
+                    result.shard_step_detail, sort_keys=True)))
+        if label == SHARD_D2_COPY:
+            check_shard_budget(data_root, shard_runs)
     check(served_takes >= 1, "no chaos run failed a decode inside a fused "
           "take and served the take's other requests")
     return launches
@@ -2367,7 +2721,7 @@ def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "rnb_tpu_torch")) or not all(
             os.path.exists(os.path.join(HERE, c))
             for c in CONFIGS + (SEGMENT, TRACED, METRICS, DEVOBS, AUTOTUNE,
-                                STAGED, TINY_SHED)):
+                                STAGED, TINY_SHED, SHARD_D1, SHARD_D2)):
         print("chip_smoke: run from a checkout of the repo (rnb_tpu_torch/ "
               "and configs/ beside this script)", file=sys.stderr)
         return 1
@@ -2424,7 +2778,7 @@ def main() -> int:
         device = torch.device("cuda", 0)
         timings, worst = phase_kernels(device)
         for phase in (phase_kernels_dct, phase_kernels_gather,
-                      phase_kernels_ragged):
+                      phase_kernels_ragged, phase_kernels_ring):
             more_timings, more_worst = phase(device)
             timings.update(more_timings)
             worst.update(more_worst)

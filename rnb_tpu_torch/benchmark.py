@@ -235,6 +235,47 @@ class BenchmarkResult:
     memory_reconciled: int = 0
     #: the ``Memory owners:`` line: {owner: {bytes, peak_bytes}}
     memory_owner_detail: Dict[str, Any] = field(default_factory=dict)
+    #: intra-stage shard accounting (the step ``shard`` key), summed over
+    #: every declared-degree stage (the ``Shard:`` line): steps, the
+    #: largest degree, the merge gathers, their host-timed microseconds
+    #: and the valid rows that crossed a sharded stage
+    shard_steps: int = 0
+    shard_max_degree: int = 0
+    shard_gathers: int = 0
+    shard_collective_us: int = 0
+    shard_rows: int = 0
+    #: per-step shard detail (the ``Shard steps:`` line): degree, axis,
+    #: merge counters, projected and budget MiB, smallest feasible degree
+    shard_step_detail: Dict[str, Any] = field(default_factory=dict)
+
+
+def aggregate_shard(shard_sink) -> Dict[str, Any]:
+    """The ``Shard:`` totals and the ``Shard steps:`` detail from the
+    stages' ``(step_idx, shard_stats)``, as the reference sums them:
+    instances of one step add their counters, the static facts (degree,
+    axis, budgets) are the step's."""
+    per_step: Dict[int, Dict[str, Any]] = {}
+    for step_idx, snap in shard_sink:
+        row = per_step.setdefault(step_idx, {
+            "degree": int(snap.get("degree", 1)),
+            "axis": str(snap.get("axis", "")),
+            "gathers": 0, "collective_us": 0, "rows": 0,
+            "budget_mb": round(float(snap.get("budget_mb") or 0.0), 3),
+            "projected_mb": round(float(snap.get("projected_mb", 0.0)), 3),
+            "min_degree": int(snap.get("min_degree", 0)),
+        })
+        row["gathers"] += int(snap.get("gathers", 0))
+        row["collective_us"] += int(round(
+            float(snap.get("collective_ms", 0.0)) * 1e3))
+        row["rows"] += int(snap.get("rows", 0))
+    return {
+        "steps": len(per_step),
+        "max_degree": max(r["degree"] for r in per_step.values()),
+        "gathers": sum(r["gathers"] for r in per_step.values()),
+        "collective_us": sum(r["collective_us"] for r in per_step.values()),
+        "rows": sum(r["rows"] for r in per_step.values()),
+        "step_detail": {str(k): per_step[k] for k in sorted(per_step)},
+    }
 
 
 def _resolve_fault_plan(config, print_progress: bool):
@@ -474,7 +515,7 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     termination = TerminationState()
     summary_sink, pad_sink, ragged_sink, staging_sink = [], [], [], []
     ingest_sink, cache_sink, compile_sink, graph_sink = [], [], [], []
-    autotune_sink, requests_sink = [], []
+    autotune_sink, requests_sink, shard_sink = [], [], []
     autotune_settings = AutotuneSettings.from_config(config.autotune)
     if autotune_settings is not None:
         _warn_if_no_stage_autotunes(config)
@@ -561,7 +602,7 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                     staging_sink=staging_sink, ingest_sink=ingest_sink,
                     cache_sink=cache_sink, compile_sink=compile_sink,
                     graph_sink=graph_sink, stage_sink=stages_sink,
-                    pager=pager,
+                    shard_sink=shard_sink, pager=pager,
                     outputs_sink=outputs_sink if is_final else None,
                     num_segments=step.num_segments, tracer=tracer,
                     autotune=autotune_settings if step.autotune else None,
@@ -743,6 +784,7 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     faults = fault_stats.snapshot()
     deadline_snap = (deadline_stats.snapshot() if deadline_stats is not None
                      else None)
+    shard_stats = aggregate_shard(shard_sink) if shard_sink else None
     compute_summary = memory_summary = None
     if devobs_plane is not None:
         # the job figures over the same measured window; the ledger
@@ -792,6 +834,9 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     if critpath_report is not None:
         for key, value in critpath_report.items():
             setattr(result, "critpath_" + key, value)
+    if shard_stats is not None:
+        for key, value in shard_stats.items():
+            setattr(result, "shard_" + key, value)
     if autotune_stats is not None:
         for key, value in autotune_stats.items():
             setattr(result, "autotune_" + key, value)
@@ -858,6 +903,17 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                        + tuple(sum(r[k] for r in ragged_sink) for k in (
                            "emissions", "rows", "pad_rows_eliminated",
                            "cache_hit_rows"))))
+        if shard_stats is not None:
+            # declared-shard runs only, so unsharded logs keep their
+            # bytes; the reference's format (its --check foots the
+            # totals and nests collective_us in the model_call spans)
+            f.write("Shard: steps=%d max_degree=%d gathers=%d "
+                    "collective_us=%d rows=%d\n" % tuple(
+                        shard_stats[k] for k in (
+                            "steps", "max_degree", "gathers",
+                            "collective_us", "rows")))
+            f.write("Shard steps: %s\n" % json.dumps(
+                shard_stats["step_detail"], sort_keys=True))
         if cache_stats is not None:
             # the reference's format, byte for byte
             f.write("Cache: hits=%d misses=%d inserts=%d evictions=%d "

@@ -16,11 +16,16 @@ segments), on the root ``trace``, ``metrics``, ``critpath``,
 (``overload_policy``, ``fault_containment``, ``fault_plan``,
 ``deadline``) and on a step's ``autotune`` opt-out and retry budget
 (``max_retries``, ``retry_backoff_ms``) are kept with the reference's own
-messages.
+messages. So is the step-level ``shard`` key (intra-stage sharding,
+rnb_tpu_torch.parallel.shardplan): each queue group keeps its first
+device, and the ring travels to the runner as ``shard_devices``
+(``DeviceSpec`` s), ``shard_degree``, ``shard_axis`` and
+``shard_hbm_budget_mb``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 from typing import Any, Dict, List, Optional
@@ -56,7 +61,12 @@ POPULARITY_KEYS = frozenset({"dist", "s", "universe"})
 PAGER_KEYS = frozenset({"enabled", "page_rows", "pool_mb", "feature_cache"})
 STEP_KEYS = frozenset({"model", "queue_groups", "num_shared_tensors",
                        "num_segments", "autotune", "max_retries",
-                       "retry_backoff_ms"})
+                       "retry_backoff_ms", "shard"})
+#: keys a step-level 'shard' object may carry, in the reference's order
+SHARD_KEYWORDS = ["degree", "axis", "hbm_budget_mb"]
+#: the runner's kwargs ``_expand_shard`` puts on each queue group
+SHARD_GROUP_KEYS = frozenset({"shard_devices", "shard_degree",
+                              "shard_axis", "shard_hbm_budget_mb"})
 GROUP_KEYS = frozenset({"devices", "out_queues", "in_queue",
                         "queue_selector"})
 _LOADER_KEYS = frozenset({
@@ -67,7 +77,7 @@ _RUNNER_KEYS = frozenset({
     "start_index", "end_index", "max_rows", "consecutive_frames",
     "num_warmups", "row_buckets", "pixel_path", "ragged_chunk_rows",
     "layer_sizes", "num_classes", "dct_coeffs_per_frame",
-    "factored_shortcut"})
+    "factored_shortcut"}) | SHARD_GROUP_KEYS
 #: model keys per ported stage class (the step's kwargs)
 MODEL_KEYS = {
     "R2P1DLoader": _LOADER_KEYS,
@@ -453,6 +463,74 @@ def _check_num_segments(step_raw: dict, step_idx: int,
     return num_segments
 
 
+def _expand_shard(pipeline: list) -> list:
+    """The reference's rule for the step-level ``shard: {degree, axis,
+    hbm_budget_mb}`` key, with its messages: each queue group lists
+    exactly ``degree`` devices, none the host, and keeps the first as
+    its one instance's; the whole ring goes to the stage as
+    ``shard_devices`` beside ``shard_degree``, ``shard_axis`` and, when
+    set, ``shard_hbm_budget_mb``. Returns a copy when a step declares
+    ``shard``; the input is never changed."""
+    if not any(isinstance(step, dict) and step.get("shard") is not None
+               for step in pipeline):
+        return pipeline
+    pipeline = copy.deepcopy(pipeline)
+    for step_idx, step in enumerate(pipeline):
+        if not isinstance(step, dict):
+            continue
+        shard = step.get("shard")
+        if shard is None:
+            continue
+        where = "pipeline step %d" % step_idx
+        _expect(isinstance(shard, dict),
+                "%s: 'shard' must be an object" % where)
+        unknown = sorted(set(shard) - set(SHARD_KEYWORDS))
+        _expect(not unknown,
+                "%s: 'shard' has unknown key(s) %s — keys are %s"
+                % (where, unknown, SHARD_KEYWORDS))
+        degree = shard.get("degree")
+        _expect(isinstance(degree, int) and not isinstance(degree, bool)
+                and degree >= 1,
+                "%s: 'shard.degree' must be a positive integer, got %r"
+                % (where, degree))
+        axis = shard.get("axis", "tp")
+        _expect(isinstance(axis, str) and axis,
+                "%s: 'shard.axis' must be a non-empty string, got %r"
+                % (where, axis))
+        budget = shard.get("hbm_budget_mb")
+        _expect(budget is None
+                or (isinstance(budget, (int, float))
+                    and not isinstance(budget, bool) and budget > 0),
+                "%s: 'shard.hbm_budget_mb' must be a positive number, "
+                "got %r" % (where, budget))
+        _expect(step.get("num_segments", 1) == 1,
+                "%s: 'shard' cannot be combined with 'num_segments' > 1 "
+                "(segment siblings would each need their own ring)" % where)
+        for group_idx, group in enumerate(step.get("queue_groups") or []):
+            gwhere = "%s, queue group %d" % (where, group_idx)
+            _expect(isinstance(group, dict), "%s must be an object" % gwhere)
+            _expect("devices" in group, "%s needs a 'devices' list" % gwhere)
+            devices = group["devices"]
+            _expect(isinstance(devices, list) and len(devices) == degree,
+                    "%s: 'shard.degree'=%d needs exactly that many devices "
+                    "per lane (got %d) — with 'replicas' the step's device "
+                    "list must total replicas x degree"
+                    % (gwhere, degree,
+                       len(devices) if isinstance(devices, list) else 0))
+            _expect(all(d != -1 for d in devices),
+                    "%s: 'shard' rings cannot include the host (-1)"
+                    % gwhere)
+            # one primary device, one executor instance; the ring rides
+            # to the stage as its kwargs
+            group["devices"] = devices[:1]
+            group["shard_devices"] = list(devices)
+            group["shard_degree"] = degree
+            group["shard_axis"] = axis
+            if budget is not None:
+                group["shard_hbm_budget_mb"] = budget
+    return pipeline
+
+
 def parse_config(raw: dict, platform: Optional[str] = None
                  ) -> PipelineConfig:
     """Validate a config dict and build the port's view of it."""
@@ -499,6 +577,7 @@ def parse_config(raw: dict, platform: Optional[str] = None
     pipeline = raw["pipeline"]
     if not isinstance(pipeline, list) or not pipeline:
         raise ConfigError("'pipeline' must be a non-empty list of steps")
+    pipeline = _expand_shard(pipeline)
     fault_plan = raw.get("fault_plan")
     if fault_plan is not None:
         _check_fault_plan(fault_plan, len(pipeline))
@@ -509,6 +588,10 @@ def parse_config(raw: dict, platform: Optional[str] = None
         class_name = model.rpartition(".")[2]
         if class_name not in MODEL_KEYS:
             raise _not_ported("%s model %r" % (where, step_raw["model"]))
+        if step_raw.get("shard") is not None and class_name != "R2P1DRunner":
+            raise ConfigError("%s: 'shard' needs a stage that declares a "
+                              "partition (R2P1DRunner), not %s"
+                              % (where, class_name))
         _check_keys(step_raw, STEP_KEYS | MODEL_KEYS[class_name], where)
         kwargs = {k: v for k, v in step_raw.items()
                   if k in MODEL_KEYS[class_name]}
@@ -530,6 +613,10 @@ def parse_config(raw: dict, platform: Optional[str] = None
                                   % (where, group_raw["queue_selector"]))
             group_kwargs = {k: v for k, v in group_raw.items()
                             if k in MODEL_KEYS[class_name]}
+            if "shard_devices" in group_kwargs:
+                group_kwargs["shard_devices"] = [
+                    DeviceSpec(d, platform)
+                    for d in group_kwargs["shard_devices"]]
             if group_kwargs.get("pixel_path", "rgb") not in PIXEL_PATHS:
                 raise _not_ported("%s pixel_path %r"
                                   % (where, group_kwargs["pixel_path"]))

@@ -45,8 +45,13 @@ phase-refinement stamps (``decode{i}_done``, ``transfer{i}_start``,
 ``transfer{i}_done``) on every card and register their occupancy
 counters with the tracer (``enable_trace``).
 
-Not yet ported from the reference stages: the autotune controller,
-fault containment, ``raw_output`` and the mesh runner, sharding.
+With the step-level ``shard`` key the runner holds its temporal conv
+kernels and its head in member shards over a ring of members that share
+one card, gathers them inside the captured forward, and merges a head's
+logits in a host-timed collective (rnb_tpu_torch.parallel.shardplan).
+
+Not yet ported from the reference stages: ``raw_output`` and the mesh
+runner.
 """
 
 from __future__ import annotations
@@ -80,8 +85,6 @@ from rnb_tpu_torch.models.r2p1d.checkpoint import init_variables
 from rnb_tpu_torch.models.r2p1d.flops import range_flops_per_clip
 from rnb_tpu_torch.models.r2p1d.network import (KINETICS_CLASSES,
                                                 NUM_LAYERS, R18_LAYER_SIZES,
-                                                R2Plus1DClassifier,
-                                                cast_compute_weights,
                                                 range_output_shape)
 from rnb_tpu_torch.models.r2p1d.sampler import R2P1DSampler
 from rnb_tpu_torch.ops import _kernels
@@ -92,6 +95,13 @@ from rnb_tpu_torch.ops.ragged import (ragged_normalize_u8,
                                       ragged_normalize_yuv420,
                                       resolve_pool_rows, segment_offsets_of)
 from rnb_tpu_torch.ops.yuv import normalize_yuv420, packed_frame_bytes
+from rnb_tpu_torch.parallel.mesh import Ring
+from rnb_tpu_torch.parallel.shardplan import (build_shard_ring,
+                                              make_merge, make_sharded_apply,
+                                              min_feasible_degree,
+                                              projected_device_mb,
+                                              split_param_bytes,
+                                              validate_degree)
 from rnb_tpu_torch.selector import QueueSelector
 from rnb_tpu_torch.stage import (PadCounter, PaddedBatch, RaggedBatch,
                                  StageModel, normalize_row_buckets,
@@ -236,22 +246,23 @@ def default_ragged_chunk(pool_rows: int) -> int:
 def shared_network(start: int, end: int, num_classes: int,
                    layer_sizes: tuple, device: torch.device,
                    dtype: torch.dtype = torch.bfloat16,
-                   factored_shortcut: bool = False) -> torch.nn.Module:
+                   factored_shortcut: bool = False,
+                   shards: int = 1) -> torch.nn.Module:
     """The one network (and parameter copy) per (range, shortcut form,
-    device): weights drawn from ``WEIGHT_SEED``, filtered to the range,
-    cast once to the compute dtype."""
+    device, shard degree): weights drawn from ``WEIGHT_SEED``, filtered
+    to the range, split into ``shards`` member shards where sharded
+    (members sharing ``device``), cast once to the compute dtype."""
     factored_shortcut = bool(factored_shortcut)
     key = (start, end, num_classes, tuple(layer_sizes), factored_shortcut,
-           str(device), dtype)
+           str(device), dtype, int(shards))
     with _cache_lock:
         net = _network_cache.get(key)
         if net is None:
-            net = R2Plus1DClassifier(start, end, num_classes, layer_sizes,
-                                     factored_shortcut, dtype=dtype)
-            net.load_state_dict(init_variables(
-                WEIGHT_SEED, start, end, num_classes, layer_sizes,
-                factored_shortcut))
-            net = cast_compute_weights(net).to(device).eval()
+            net = make_sharded_apply(
+                start, end, num_classes, tuple(layer_sizes),
+                Ring([device] * int(shards)), factored_shortcut,
+                dtype)(init_variables(WEIGHT_SEED, start, end, num_classes,
+                                      layer_sizes, factored_shortcut))
             _network_cache[key] = net
         return net
 
@@ -1939,7 +1950,15 @@ class CapturedForward:
             self.graph.replay()
         _kernels.add_launches(self.launches)
         with hostprof.section("runner.copy_out"):
-            return self.static_out.clone()
+            return _clone_out(self.static_out)
+
+
+def _clone_out(out):
+    """A forward's output copied: a tensor, or a sharded head's column
+    blocks."""
+    if isinstance(out, list):
+        return [t.clone() for t in out]
+    return out.clone()
 
 
 class R2P1DRunner(StageModel):
@@ -1979,6 +1998,18 @@ class R2P1DRunner(StageModel):
     captured then and counted as ``steady_new``. A capture or a replay
     that fails raises: there is no eager fallback. On the CPU the
     forward is eager.
+
+    With ``shard_degree`` (the step's ``shard`` key; rnb_tpu_torch.
+    parallel.shardplan) the stage runs over a ring of ``shard_degree``
+    members, which must share its device: the network holds its
+    temporal conv kernels and its head in member shards and gathers
+    each to full width right before its op, inside the captured forward,
+    so the logits are bitwise the unsharded stage's. A head stage's
+    forward leaves the logits in column blocks, and the merge gather
+    runs after it, outside the graph, timed on the host as
+    ``exec{i}.collective`` (``shard_stats``). A declared degree, 1
+    included, projects the per-member HBM footprint and, with
+    ``shard_hbm_budget_mb``, refuses a launch that does not fit.
     """
 
     SUPPORTS_RAGGED = True
@@ -1993,6 +2024,8 @@ class R2P1DRunner(StageModel):
                  pixel_path: str = "rgb", ragged: bool = False,
                  ragged_pool_rows=None, ragged_chunk_rows=None,
                  dct_coeffs_per_frame=None, factored_shortcut: bool = False,
+                 shard_devices=None, shard_degree=None,
+                 shard_axis: str = "tp", shard_hbm_budget_mb=None,
                  network: Optional[torch.nn.Module] = None):
         super().__init__(device)
         _check_pixel_path(pixel_path)
@@ -2035,11 +2068,56 @@ class R2P1DRunner(StageModel):
                         "ragged_chunk_rows=%r must be 0 (whole-pool "
                         "apply) or a positive divisor of pool_rows=%d"
                         % (ragged_chunk_rows, self.pool_rows))
+        # a declared degree, 1 included, arms the feasibility gate and
+        # the Shard: accounting; None means no shard key at all
+        self.shard_declared = shard_degree is not None
+        self.shard_degree = (int(shard_degree) if self.shard_declared
+                             else 1)
+        self.shard_axis = str(shard_axis)
+        self.shard_hbm_budget_mb = (float(shard_hbm_budget_mb)
+                                    if shard_hbm_budget_mb is not None
+                                    else None)
+        if self.shard_degree < 1:
+            raise ValueError("shard_degree must be >= 1, got %r"
+                             % (shard_degree,))
+        #: the shard ring and the head's merge (degree > 1 only)
+        self.ring = None
+        self._merge = None
+        if self.shard_degree > 1:
+            validate_degree(self.shard_degree, self.start_index,
+                            self.end_index, int(num_classes))
+            if self.ragged and self.ragged_chunk_rows:
+                if ragged_chunk_rows is not None:
+                    raise ValueError(
+                        "ragged_chunk_rows=%r cannot be combined with "
+                        "shard_degree=%d: the sharded applier is ONE "
+                        "whole-pool program (chunking would change the op "
+                        "graph and break bit parity with the unsharded "
+                        "forward)" % (ragged_chunk_rows, self.shard_degree))
+                # the auto-chunk default collapses to whole-pool apply
+                self.ragged_chunk_rows = 0
+            members = ([_device_of(d) for d in shard_devices]
+                       if shard_devices is not None
+                       else [self.torch_device] * self.shard_degree)
+            if len(members) != self.shard_degree:
+                raise ValueError(
+                    "shard_degree=%d needs exactly that many devices, got "
+                    "%d" % (self.shard_degree, len(members)))
+            self.ring = build_shard_ring(members, self.shard_degree,
+                                         self.shard_axis)
+            if self.ring.device != self.torch_device:
+                raise ValueError("the shard ring's members lie on %s, the "
+                                 "stage on %s" % (self.ring.device,
+                                                  self.torch_device))
+            if self.end_index == NUM_LAYERS:
+                self._merge = make_merge(self.ring)
         #: the network; tests hand in their own (bridged weights)
+        sharded = ({"shards": self.shard_degree} if self.shard_degree > 1
+                   else {})
         self.network = network if network is not None else shared_network(
             self.start_index, self.end_index, int(num_classes),
             tuple(layer_sizes), self.torch_device,
-            factored_shortcut=self.factored_shortcut)
+            factored_shortcut=self.factored_shortcut, **sharded)
         self._out_row_shape = range_output_shape(
             self.start_index, self.end_index, self.consecutive_frames,
             int(num_classes))
@@ -2054,6 +2132,13 @@ class R2P1DRunner(StageModel):
         self._warm_rows = ((self.pool_rows,) if self.ragged else
                            normalize_row_buckets(row_buckets, self.max_rows,
                                                  "max_rows"))
+        self.shard_stats = None
+        if self.shard_declared:
+            self.shard_stats = self._shard_feasibility(warm_dtype)
+        #: set by the executor's bind_shard_step(): the merge's hostprof
+        #: section and trace span name the step
+        self._sec_collective = None
+        self._tr_collective = None
         #: entry signatures (rnb_tpu_torch.compilestats), the declared
         #: vocabulary observed even without warm-ups, as the reference's
         self.compiles = SignatureTracker()
@@ -2062,7 +2147,10 @@ class R2P1DRunner(StageModel):
                                 dtype=warm_dtype, device=self.torch_device)
             self.compiles.observe(dummy)
             for _ in range(num_warmups):
-                self.eager_forward(dummy, rows)
+                out = self.eager_forward(dummy, rows)
+                if self._merge is not None:
+                    # the merge collective is warmed too
+                    self._merge(out)
         #: signature key -> CapturedForward (the card only)
         self._graphs: Dict[tuple, CapturedForward] = {}
         #: graphs held, capture seconds, replays (the ``Graphs:`` line);
@@ -2122,18 +2210,81 @@ class R2P1DRunner(StageModel):
             int(start_index), int(end_index), int(consecutive_frames),
             int(num_classes)),)
 
+    def _pool_bytes(self, dtype: torch.dtype) -> int:
+        """Bytes of the one ragged pool-shaped input (0 when bucketed)."""
+        if not self.ragged:
+            return 0
+        return (self.pool_rows * math.prod(self._steady_shape[1:])
+                * torch.empty((), dtype=dtype).element_size())
+
+    def _shard_feasibility(self, dtype: torch.dtype) -> dict:
+        """The ``shard_stats`` of a declared degree: the per-member HBM
+        projection of the network's bytes at rest and the ragged pool,
+        the smallest feasible degree under the budget, and the merge
+        counters. Raises the reference's rejection when the projection
+        exceeds ``shard_hbm_budget_mb``."""
+        rep_bytes, sh_bytes = split_param_bytes(self.network.state_dict())
+        pool_bytes = self._pool_bytes(dtype)
+        projected = projected_device_mb(rep_bytes, sh_bytes, pool_bytes,
+                                        self.shard_degree)
+        budget = self.shard_hbm_budget_mb
+        feasible = (min_feasible_degree(rep_bytes, sh_bytes, pool_bytes,
+                                        budget)
+                    if budget is not None else 1)
+        if budget is not None and projected > budget:
+            raise ValueError(
+                "shard launch rejected: projected per-device HBM %.1f MiB "
+                "at shard degree %d exceeds hbm_budget_mb=%.1f for layers "
+                "[%d..%d] (replicated %.1f MiB + sharded %.1f MiB / degree "
+                "+ pool %.1f MiB); smallest feasible degree of (1, 2, 4, "
+                "8): %s" % (projected, self.shard_degree, budget,
+                            self.start_index, self.end_index,
+                            rep_bytes / 2**20, sh_bytes / 2**20,
+                            pool_bytes / 2**20,
+                            feasible if feasible is not None else "none"))
+        return {
+            "degree": self.shard_degree,
+            "axis": self.shard_axis,
+            "gathers": 0,
+            "collective_ms": 0.0,
+            "rows": 0,
+            "budget_mb": budget,
+            "projected_mb": projected,
+            "replicated_bytes": int(rep_bytes),
+            "sharded_bytes": int(sh_bytes),
+            "pool_bytes": int(pool_bytes),
+            "min_degree": feasible if feasible is not None else 0,
+        }
+
+    def bind_shard_step(self, step_idx: int) -> None:
+        """Executor protocol: the step index the merge collective's
+        hostprof section and trace span carry (``exec{i}.collective``).
+        Called on every run, traced or not, so the collective tax reaches
+        hostprof and the ``Shard:`` line; a no-op without a merge."""
+        if self._merge is None:
+            return
+        self._sec_collective = "exec%d.collective" % int(step_idx)
+        self._tr_collective = trace.name("exec%d.collective",
+                                         int(step_idx))
+
     def enable_pager(self, pager) -> None:
         """Executor protocol: attach as the feature-page consumer before
         the start barrier. The stage's fingerprint keys every entry, its
         ``features`` arena holds float32 logit rows (budget: the pager's
         size hint, or the default when this runs before the loader's),
         and a zero logit pool is what hits gather over. Refused, as in
-        the reference, unless the stage is ragged and ends the network;
-        the reference's third refusal, a sharded stage, cannot arise:
-        the config reader refuses ``shard``."""
+        the reference, for a sharded stage, and unless the stage is
+        ragged and ends the network."""
         self.pager = pager
         if pager.feature is None:
             return
+        if self.shard_degree > 1:
+            raise ValueError(
+                "pager.feature_cache cannot attach to a shard-sharded "
+                "stage (shard_degree=%d): the feature arena is a "
+                "single-device gather pool, while sharded logits live "
+                "on a %d-device mesh" % (self.shard_degree,
+                                         self.shard_degree))
         if not self.ragged:
             raise ValueError(
                 "pager.feature_cache requires ragged dispatch on the "
@@ -2328,12 +2479,8 @@ class R2P1DRunner(StageModel):
         tensors = list(self.network.parameters()) + list(
             self.network.buffers())
         params_bytes = sum(t.numel() * t.element_size() for t in tensors)
-        pool_bytes = 0
-        if self.ragged:
-            dtype = getattr(torch, self.input_dtype_for(
-                start_index=self.start_index, pixel_path=self.pixel_path))
-            pool_bytes = (self.pool_rows * math.prod(self._steady_shape[1:])
-                          * torch.empty((), dtype=dtype).element_size())
+        pool_bytes = self._pool_bytes(getattr(torch, self.input_dtype_for(
+            start_index=self.start_index, pixel_path=self.pixel_path)))
         return {
             "flops_per_row": int(flops_per_row),
             "devices": 1,
@@ -2367,11 +2514,39 @@ class R2P1DRunner(StageModel):
             x.record_stream(torch.cuda.current_stream(x.device))
         self.compiles.observe(x)
         out = self.forward(x, int(pb.valid))
+        if self._merge is not None:
+            out = self._merged(out, time_card)
+        if self.shard_stats is not None:
+            self.shard_stats["rows"] += int(pb.valid)
         self._insert_features(out, time_card)
         if self.ragged:
             return (RaggedBatch(out, pb.valid, offsets),), \
                 non_tensors, time_card
         return (PaddedBatch(out, pb.valid),), non_tensors, time_card
+
+    def _merged(self, blocks, time_card) -> torch.Tensor:
+        """The merge collective over a sharded head's column blocks,
+        timed on the host alone: the forward is waited for first, and
+        the merge before the clock stops."""
+        stream = (torch.cuda.current_stream(self.torch_device)
+                  if self.torch_device.type == "cuda" else None)
+        if stream is not None:
+            stream.synchronize()
+        t0 = time.perf_counter()
+        if self._sec_collective is not None:
+            with hostprof.section(self._sec_collective), trace.span(
+                    self._tr_collective, getattr(time_card, "id", None)):
+                out = self._merge(blocks)
+                if stream is not None:
+                    stream.synchronize()
+        else:
+            out = self._merge(blocks)
+            if stream is not None:
+                stream.synchronize()
+        stats = self.shard_stats
+        stats["gathers"] += 1
+        stats["collective_ms"] += (time.perf_counter() - t0) * 1e3
+        return out
 
 
 class R2P1DSingleStep(StageModel):

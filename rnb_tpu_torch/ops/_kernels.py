@@ -34,7 +34,7 @@ from typing import Dict, List, Sequence, Tuple
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
-SOURCES = ("ingest.cu", "dct.cu", "pages.cu", "ragged.cu")
+SOURCES = ("ingest.cu", "dct.cu", "pages.cu", "ragged.cu", "ring.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -149,12 +149,15 @@ class Kernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Launch on the current stream of the first tensor's device:
-        tensors pass as their data pointers, everything else as is."""
+    def launch(self, *args, device=None) -> None:
+        """Launch on the current stream of ``device``, by default the
+        first tensor's: tensors pass as their data pointers, everything
+        else as is."""
         import torch
         fn = self._bind()
-        device = next(a.device for a in args if isinstance(a, torch.Tensor))
+        if device is None:
+            device = next(a.device for a in args
+                          if isinstance(a, torch.Tensor))
         c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                   for a in args]
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -212,8 +215,16 @@ RAGGED_NORMALIZE_U8 = Kernel(
     "rnb_tpu/ops/ragged.py:157 (_ragged_normalize_kernel via "
     "_ragged_normalize_pallas)")
 
+#: the two pointer arguments are host arrays of the members' pointers
+RING_SHIFT = Kernel(
+    "ring_shift", "ring.cu", "rnb_ring_shift",
+    [ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _L],
+    "rnb_tpu/ops/handoff_dma.py:104 (_pallas_shift_body, its pallas_call "
+    "at :134)")
+
 KERNELS = (NORMALIZE_U8, YUV420_TO_RGB_U8, YUV420_NORMALIZE, DCT_UNPACK,
-           DCT_CONVERT, DCT_INGEST, GATHER_ROWS, RAGGED_NORMALIZE_U8)
+           DCT_CONVERT, DCT_INGEST, GATHER_ROWS, RAGGED_NORMALIZE_U8,
+           RING_SHIFT)
 
 
 def reset_launches() -> None:

@@ -71,8 +71,13 @@ each stage's flops equal its rows x flops_per_row and sum to
 rows sum to the total with peak >= final, a watermark hit means a
 watermark the peak reached, ``live_bytes > 0`` means ``reconciled=1``,
 and the capture files match ``captures=`` and each stays within its
-``ops_written`` bound. A violation is printed and the exit code is 1
-(``--check`` is accepted and changes nothing: the checks always run).
+``ops_written`` bound. Of intra-stage sharding (``Shard:``, ``Shard
+steps:``): the totals foot the per-step detail, every degree is at least
+1, no running stage projects over its budget, each declared ring fits
+the step's listed devices and runs the config's degree, and the traced
+``exec{i}.collective`` spans nest inside step i's ``model_call`` spans.
+A violation is printed and the exit code is 1 (``--check`` is accepted
+and changes nothing: the checks always run).
 """
 
 from __future__ import annotations
@@ -98,7 +103,8 @@ MAX_DEAD_LETTERS = 1000
 JSON_LINES = {"Failure reasons": "failure_reasons",
               "Shed sites": "shed_sites",
               "Queue overflows": "queue_overflows",
-              "Deadline sites": "deadline_sites"}
+              "Deadline sites": "deadline_sites",
+              "Shard steps": "shard_step_detail"}
 #: the suffix of every deadline shed site (rnb_tpu_torch.health)
 DEADLINE_SUFFIX = ":deadline_expired"
 
@@ -874,6 +880,95 @@ def _memory_problems(meta: dict) -> List[str]:
     return problems
 
 
+def shard_problems(log_dir: str, meta: dict) -> List[str]:
+    """The ``Shard:`` ledger's invariants (the reference's --check, with
+    its messages): the totals foot the per-step detail, a running stage
+    sits inside its budget, each declared ring fits the config's devices
+    and ran its degree, and the merge nests inside the inference spans
+    it rides (traced collective wall <= traced model_call wall)."""
+    problems: List[str] = []
+    shard = meta["lines"].get("Shard")
+    if shard is None:
+        return problems
+    detail = {str(k): dict(v) for k, v
+              in dict(meta.get("shard_step_detail") or {}).items()}
+    if len(detail) != shard["steps"]:
+        problems.append(
+            "'Shard:' says steps=%d but 'Shard steps:' details %d step(s)"
+            % (shard["steps"], len(detail)))
+    for key in ("gathers", "collective_us", "rows"):
+        want = sum(int(d.get(key, 0)) for d in detail.values())
+        if int(shard[key]) != want:
+            problems.append("'Shard:' %s=%d but the per-step details sum "
+                            "to %d" % (key, shard[key], want))
+    if detail:
+        want = max(int(d.get("degree", 0)) for d in detail.values())
+        if int(shard["max_degree"]) != want:
+            problems.append("'Shard:' max_degree=%d but the per-step "
+                            "details max to %d"
+                            % (shard["max_degree"], want))
+    for step_key, d in sorted(detail.items()):
+        for key in ("gathers", "collective_us", "rows"):
+            if int(d.get(key, 0)) < 0:
+                problems.append("negative shard %s on step %s"
+                                % (key, step_key))
+        if int(d.get("degree", 0)) < 1:
+            problems.append(
+                "'Shard steps:' step %s shows degree %s (a declared stage "
+                "runs at least degree 1)" % (step_key, d.get("degree")))
+        budget = float(d.get("budget_mb") or 0.0)
+        projected = float(d.get("projected_mb") or 0.0)
+        if budget and projected > budget:
+            problems.append(
+                "'Shard steps:' step %s projects %.1f MiB over its %.1f MiB "
+                "budget — an over-budget stage is launch-rejected, so this "
+                "line cannot come from a completed run"
+                % (step_key, projected, budget))
+    raw = _config(meta)
+    for step_idx, step in enumerate((raw or {}).get("pipeline", ())):
+        spec = step.get("shard") if isinstance(step, dict) else None
+        if not isinstance(spec, dict):
+            continue
+        degree = int(spec.get("degree", 1))
+        devs = sum(len(g.get("devices") or ())
+                   for g in step.get("queue_groups") or ()
+                   if isinstance(g, dict))
+        if devs and degree > devs:
+            problems.append(
+                "pipeline step %d declares shard degree %d x 1 replica(s) "
+                "but lists only %d device(s) — the ring exceeds the step's "
+                "device budget" % (step_idx, degree, devs))
+        d = detail.get(str(step_idx))
+        if d is not None and int(d.get("degree", 0)) != degree:
+            problems.append("'Shard steps:' says step %d ran degree %s but "
+                            "the config declares %d"
+                            % (step_idx, d.get("degree"), degree))
+    trace_path = os.path.join(log_dir, "trace.json")
+    if not os.path.isfile(trace_path) or meta["lines"].get(
+            "Trace", {}).get("dropped", 0):
+        return problems
+    with open(trace_path) as f:
+        doc = json.load(f)
+    coll_us: Dict[int, float] = {}
+    call_us: Dict[int, float] = {}
+    span_re = re.compile(r"exec(\d+)\.(collective|model_call)$")
+    for ev in doc.get("traceEvents", []):
+        m = span_re.match(str(ev.get("name", ""))) \
+            if ev.get("ph") == "X" else None
+        if m:
+            bucket = coll_us if m.group(2) == "collective" else call_us
+            step = int(m.group(1))
+            bucket[step] = bucket.get(step, 0.0) + float(ev.get("dur", 0.0))
+    for step_idx, us in sorted(coll_us.items()):
+        if us > call_us.get(step_idx, 0.0) + 1.0:
+            problems.append(
+                "step %d traced %.0f us of exec.collective spans but only "
+                "%.0f us of model_call spans — the merge must nest inside "
+                "the inference span it rides"
+                % (step_idx, us, call_us.get(step_idx, 0.0)))
+    return problems
+
+
 def footing_problems(meta: dict) -> List[str]:
     """The footings of the ``Compiles:`` and ``Pages:`` lines that do
     not hold (empty when they all hold)."""
@@ -953,7 +1048,7 @@ def summarize(log_dir: str) -> dict:
         out.update(trace_events=int(lines["Trace"]["events"]),
                    trace_dropped=int(lines["Trace"]["dropped"]))
     for head in ("Metrics", "Slo", "Critpath", "Autotune", "Faults",
-                 "Deadline", "Compute", "Memory"):
+                 "Deadline", "Compute", "Memory", "Shard"):
         if head in lines:
             out[head.lower()] = {k: int(v) for k, v in lines[head].items()}
     if "autotune_buckets" in meta:
@@ -977,7 +1072,8 @@ def summarize(log_dir: str) -> dict:
                                + critpath_problems(log_dir, meta)
                                + autotune_problems(meta)
                                + fault_problems(log_dir, meta)
-                               + devobs_problems(log_dir, meta))
+                               + devobs_problems(log_dir, meta)
+                               + shard_problems(log_dir, meta))
     profile = os.path.join(log_dir, "profile.json")
     if os.path.exists(profile):
         with open(profile) as f:

@@ -185,6 +185,10 @@ class RunnerContext:
     #: stages with captured forwards append ``(step_idx, graph_stats)``
     #: here — the ``Graphs:`` log-meta line
     graph_sink: Optional[List] = None
+    #: stages with a declared ``shard`` key append ``(step_idx,
+    #: shard_stats)`` here once drained — the ``Shard:`` and ``Shard
+    #: steps:`` log-meta lines
+    shard_sink: Optional[List] = None
     #: when set, every stage appends ``(step_idx, model)`` here once it
     #: is built (the smoke checks each runner's graphs after the run)
     stage_sink: Optional[List] = None
@@ -541,6 +545,10 @@ def runner(ctx: RunnerContext) -> None:
         if ctx.tracer is not None and hasattr(model, "enable_trace"):
             # refinement stamps and the stage's counter sources
             model.enable_trace(ctx.tracer, ctx.step_idx)
+        if hasattr(model, "bind_shard_step"):
+            # the merge collective's section and span name the step, on
+            # traced and untraced runs alike
+            model.bind_shard_step(ctx.step_idx)
         if ctx.autotune is not None and getattr(model, "SUPPORTS_AUTOTUNE",
                                                 False):
             # over the stage's own warmed buckets
@@ -825,6 +833,10 @@ def runner(ctx: RunnerContext) -> None:
         graph_stats = getattr(model, "graph_stats", None)
         if graph_stats is not None and ctx.graph_sink is not None:
             ctx.graph_sink.append((ctx.step_idx, dict(graph_stats)))
+        shard_stats = getattr(model, "shard_stats", None)
+        if shard_stats is not None and ctx.shard_sink is not None:
+            # the stage is drained: the merge counters are final
+            ctx.shard_sink.append((ctx.step_idx, dict(shard_stats)))
         try:
             ctx.fin_bar.wait()
         except threading.BrokenBarrierError:

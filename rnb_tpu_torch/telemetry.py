@@ -515,6 +515,11 @@ TRACE_EVENT_REGISTRY = (
               "span: waiting for the stage's device work"),
     StampSpec("exec{step}.publish", "rnb_tpu_torch/runner.py",
               "span: route, segment split and downstream enqueue"),
+    StampSpec("exec{step}.collective", "rnb_tpu_torch/models/r2p1d/model.py",
+              "span: a sharded head stage's merge gather of its logits' "
+              "column blocks, host-timed after the forward was waited for "
+              "(declared shard_degree > 1 only; nested inside the step's "
+              "model_call span)"),
     StampSpec("health.lane_state", "rnb_tpu_torch/health.py",
               "instant: a replica lane's health state transition "
               "(args: lane, from, to, why); no path of the port builds "
@@ -614,6 +619,16 @@ META_LINE_REGISTRY = (
               "and the reconciliation verdict (devobs-enabled runs only; "
               "--check asserts owner rows sum to the total and peak >= "
               "final)"),
+    StampSpec("Shard:", "rnb_tpu_torch/benchmark.py",
+              "intra-stage shard counters: declared-degree steps, max "
+              "degree, merge gathers, their summed host-timed "
+              "microseconds, valid rows crossing sharded stages "
+              "(declared-shard runs only; parse_utils foots the totals and "
+              "nests collective_us inside the model_call spans)"),
+    StampSpec("Shard steps:", "rnb_tpu_torch/benchmark.py",
+              "JSON per-step shard detail: degree/axis, merge-gather "
+              "counters, projected vs budget per-member MiB, smallest "
+              "feasible degree (declared-shard runs only)"),
     StampSpec("Memory owners:", "rnb_tpu_torch/benchmark.py",
               "JSON per-owner footprint detail {owner: {bytes, "
               "peak_bytes}}; owners are declared in "
@@ -650,6 +665,8 @@ METRIC_REGISTRY = (
                "wait for the stage's device work (ms)"),
     MetricSpec("exec{step}.publish", "histogram", "bridge",
                "route, segment split and downstream enqueue (ms)"),
+    MetricSpec("exec{step}.collective", "histogram", "bridge",
+               "sharded-stage merge gather of the logits (ms)"),
     MetricSpec("loader.emit", "histogram", "bridge",
                "fused-batch take, assembly and handoff (ms)"),
     MetricSpec("loader.transfer", "histogram", "bridge",

@@ -24,8 +24,10 @@
 # staged cell's chaos copy with an empty
 # fault plan, rnb_tpu_torch/tools/chaos.py --empty-plan: overload_policy
 # shed, retry budgets and a deadline no request reaches, so every
-# containment check runs and nothing fails); all but dct over a generated
-# y4m dataset. With
+# containment check runs and nothing fails); shard-d1 and shard-d2 (the
+# one-card copies of configs/rnb-shard-d1.json and -d2.json, every device
+# index made 0, written beside the dataset: the degree-2 ring's members
+# share the card); all but dct over a generated y4m dataset. With
 # RNB_HOST_PROFILE=1 in the environment every run also writes
 # hostprof.txt, and its sections are printed at the end.
 # RNB_MEASURE_VIDEOS sets the bulk request count
@@ -72,13 +74,14 @@ json.dump(quiet, open(os.path.join(sys.argv[1], "rnb-fused-yuv-devobs-quiet.json
 del raw["devobs"]
 json.dump(raw, open(os.path.join(sys.argv[1], "rnb-fused-yuv-traced-metrics.json"), "w"))
 PY
-python3 - "$data/r2p1d-segment-1card.json" <<'PY'
-import json, sys
-raw = json.load(open("configs/r2p1d-segment.json"))
-for step in raw["pipeline"]:
-    for group in step["queue_groups"]:
-        group["devices"] = [0 if d >= 0 else d for d in group["devices"]]
-json.dump(raw, open(sys.argv[1], "w"))
+python3 - "$data" <<'PY'
+import json, os, sys
+for name in ("r2p1d-segment", "rnb-shard-d1", "rnb-shard-d2"):
+    raw = json.load(open("configs/%s.json" % name))
+    for step in raw["pipeline"]:
+        for group in step["queue_groups"]:
+            group["devices"] = [0 if d >= 0 else d for d in group["devices"]]
+    json.dump(raw, open(os.path.join(sys.argv[1], name + "-1card.json"), "w"))
 PY
 run() {  # run <cell> <args...>
   cell=$1; shift
@@ -104,6 +107,8 @@ run() {  # run <cell> <args...>
     autotune) cfg=configs/rnb-fused-yuv-autotune.json ;;
     critpath) cfg=$data/rnb-fused-yuv-traced-critpath.json ;;
     staged-chaos) cfg=$data/rnb-fused-yuv-staged-chaos.json ;;
+    shard-d1) cfg=$data/rnb-shard-d1-1card.json ;;
+    shard-d2) cfg=$data/rnb-shard-d2-1card.json ;;
     *) echo "unknown cell $cell" >&2; exit 2 ;;
   esac
   if [ "$cell" = dct ]; then
@@ -125,10 +130,10 @@ cat $out/summary.jsonl | python3 -c "
 import sys, json
 for line in sys.stdin:
     d = json.loads(line); fam = d.get('kernel_families') or {}
-    print(d['log_dir'].split('/')[-2], d['config'].split('/')[-1], d['mean_interval_ms'], d['pixel_path'], d['decode_backend'], 'vps=%.3f' % d['videos_per_s'], 'cps=%.1f' % d['clips_per_s'], 'em=%d' % d['emissions'], 'svc=%.2f' % d['runner_service_ms'], 'wait=%s' % d['runner_wait_ms'], 'svc_by_step=%s' % json.dumps(d.get('service_ms_by_step')), 'em_by_step=%s' % json.dumps(d.get('emissions_by_step')), 'trace_events=%s' % d.get('trace_events'), 'kms/em=%s' % d.get('kernel_ms_per_emission'), 'busy=%s' % d.get('busy_share'), 'ingest=%s' % fam.get('ingest'), 'gather=%s' % fam.get('gather'), 'hit_rate=%s' % d.get('cache_hit_rate'), 'feature_hits=%s' % d.get('pages_feature_hits'), 'gathers=%s' % d.get('pages_gathers'), 'autotune=%s' % json.dumps(d.get('autotune')), 'autotune_buckets=%s' % json.dumps(d.get('autotune_buckets')), 'metrics=%s' % json.dumps(d.get('metrics')), 'slo=%s' % json.dumps(d.get('slo')), 'critpath=%s' % json.dumps(d.get('critpath')), 'faults=%s' % json.dumps(d.get('faults')), 'deadline=%s' % json.dumps(d.get('deadline')), 'compute=%s' % json.dumps(d.get('compute')), 'memory=%s' % json.dumps(d.get('memory')), 'footing=%s' % d['footing_problems'])
+    print(d['log_dir'].split('/')[-2], d['config'].split('/')[-1], d['mean_interval_ms'], d['pixel_path'], d['decode_backend'], 'vps=%.3f' % d['videos_per_s'], 'cps=%.1f' % d['clips_per_s'], 'em=%d' % d['emissions'], 'svc=%.2f' % d['runner_service_ms'], 'wait=%s' % d['runner_wait_ms'], 'svc_by_step=%s' % json.dumps(d.get('service_ms_by_step')), 'em_by_step=%s' % json.dumps(d.get('emissions_by_step')), 'trace_events=%s' % d.get('trace_events'), 'kms/em=%s' % d.get('kernel_ms_per_emission'), 'busy=%s' % d.get('busy_share'), 'ingest=%s' % fam.get('ingest'), 'gather=%s' % fam.get('gather'), 'hit_rate=%s' % d.get('cache_hit_rate'), 'feature_hits=%s' % d.get('pages_feature_hits'), 'gathers=%s' % d.get('pages_gathers'), 'autotune=%s' % json.dumps(d.get('autotune')), 'autotune_buckets=%s' % json.dumps(d.get('autotune_buckets')), 'metrics=%s' % json.dumps(d.get('metrics')), 'slo=%s' % json.dumps(d.get('slo')), 'critpath=%s' % json.dumps(d.get('critpath')), 'faults=%s' % json.dumps(d.get('faults')), 'deadline=%s' % json.dumps(d.get('deadline')), 'compute=%s' % json.dumps(d.get('compute')), 'memory=%s' % json.dumps(d.get('memory')), 'shard=%s' % json.dumps(d.get('shard')), 'footing=%s' % d['footing_problems'])
 "
 for f in $out/*/hostprof.txt; do
   [ -f "$f" ] && { echo "== $f"; head -n 40 "$f"; }
 done
-grep -H "Staging\|Profile\|Pages\|Cache\|Graphs\|Warmup\|Trace\|Autotune\|Metrics\|Slo\|Critpath\|Faults\|Deadline\|Compute\|Memory" $out/*/log-meta.txt
+grep -H "Staging\|Profile\|Pages\|Cache\|Graphs\|Warmup\|Trace\|Autotune\|Metrics\|Slo\|Critpath\|Faults\|Deadline\|Compute\|Memory\|Shard" $out/*/log-meta.txt
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader

@@ -13,7 +13,7 @@ import torch
 
 from rnb_tpu_torch.cache import ClipCache
 from rnb_tpu_torch.decode import SyntheticDecoder
-from rnb_tpu_torch.ops import _kernels, dct
+from rnb_tpu_torch.ops import _kernels, dct, handoff_dma
 from rnb_tpu_torch.ops.pages import gather_rows, gather_rows_reference
 from rnb_tpu_torch.ops.preprocess import (normalize_u8, normalize_u8_reference,
                                           normalize_u8_rows)
@@ -70,7 +70,8 @@ def test_wrappers_count_launches_and_refuse_what_kernels_cannot_take(
                                         "dct_unpack": 0, "dct_convert": 0,
                                         "dct_ingest": 0,
                                         "gather_rows": 0,
-                                        "ragged_normalize_u8": 0}
+                                        "ragged_normalize_u8": 0,
+                                        "ring_shift": 0}
     with pytest.raises(TypeError):
         normalize_u8(rgb.float())                     # not uint8
     with pytest.raises(ValueError):
@@ -94,7 +95,8 @@ def test_wrappers_count_launches_and_refuse_what_kernels_cannot_take(
                                         "dct_unpack": 0, "dct_convert": 0,
                                         "dct_ingest": 1,
                                         "gather_rows": 0,
-                                        "ragged_normalize_u8": 0}
+                                        "ragged_normalize_u8": 0,
+                                        "ring_shift": 0}
 
 
 def test_ragged_normalize_kernel_reads_rows_valid_from_the_card(device):
@@ -555,3 +557,75 @@ def test_a_devobs_capture_sees_the_graph_replayed_kernels(device):
     assert sum("yuv420_kernel" in op[0] for op in ops) == 3
     assert all(t1 >= t0 >= 0 for _name, t0, t1, _plane in ops)
     assert runner.graph_stats["replays"] == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16,
+                                   torch.float32])
+def test_ring_shift_kernel_is_bitwise_its_plain_version(device, dtype):
+    # tolerance: none (the hop moves bytes): every degree and shift, a
+    # channels-last conv kernel's shards, and an odd byte count
+    gen = torch.Generator().manual_seed(7)
+    for degree in (2, 4, 8):
+        for shape in ((256, 1152, 3, 1, 1), (15, 200), (1001,)):
+            shards = [torch.randint(0, 256, shape, generator=gen,
+                                    dtype=torch.uint8).to(dtype)
+                      for _ in range(degree)]
+            if len(shape) == 5:
+                shards = [s.contiguous(memory_format=torch.channels_last_3d)
+                          for s in shards]
+            for shift in range(1, degree):
+                before = _kernels.RING_SHIFT.launches
+                got = handoff_dma.ring_shift([s.to(device) for s in shards],
+                                             shift)
+                assert _kernels.RING_SHIFT.launches == before + 1
+                want = handoff_dma.ring_shift_reference(shards, shift)
+                for g, w in zip(got, want):
+                    assert g.stride() == w.stride()
+                    assert torch.equal(g.cpu(), w)
+
+
+def test_ring_shift_kernel_on_a_misaligned_view_and_refusals(device):
+    base = torch.randint(0, 256, (2, 40007), dtype=torch.uint8,
+                         device=device)
+    # 1 and 3 bytes off 16-byte alignment: the byte loop
+    members = [base[0, 1:40001], base[1, 3:40003]]
+    got = handoff_dma.ring_shift(members, 1)
+    torch.cuda.synchronize(device)
+    assert torch.equal(got[1], members[0]) and torch.equal(got[0],
+                                                           members[1])
+    with pytest.raises(ValueError, match="one dense block"):
+        handoff_dma.ring_shift([base[:, ::2], base[:, 1::2]], 1)
+    with pytest.raises(ValueError, match="within one card"):
+        handoff_dma.ring_shift([base[0], base[1].cpu()], 1)
+    with pytest.raises(ValueError, match="one dtype and shape"):
+        handoff_dma.ring_shift([base[0], base[1, :5]], 1)
+
+
+def test_a_sharded_stage_replays_degree_1_s_logits_bitwise(device):
+    # tolerance: none — the gathers move bytes and the ops are the
+    # unsharded forward's, in the same captured form
+    from rnb_tpu_torch.stage import RaggedBatch
+    kwargs = dict(max_rows=6, pixel_path="yuv420", ragged=True,
+                  ragged_pool_rows=6, ragged_chunk_rows=0)
+    plain = _graph_runner(device, **kwargs)
+    kwargs.pop("ragged_chunk_rows")
+    sharded = _graph_runner(device, shard_degree=2, **kwargs)
+    sharded.bind_shard_step(1)
+    assert sharded.graph_keys() == plain.graph_keys()
+    (graph,) = sharded._graphs.values()
+    # the nine temporal kernels of layer sizes (1, 1, 1, 1) and the head's
+    # two leaves, one hop each at degree 2, inside the graph
+    assert graph.launches == {"yuv420_normalize": 1, "ring_shift": 11}
+    _kernels.reset_launches()
+    for valid in (6, 2):
+        x = _packed(6, seed=70 + valid).to(device)
+        (want,), _, _ = plain((RaggedBatch(x, valid, (0, valid)),), None,
+                              None)
+        (got,), _, _ = sharded((RaggedBatch(x, valid, (0, valid)),), None,
+                               None)
+        torch.cuda.synchronize(device)
+        assert torch.equal(got.data, want.data)
+    # one replay (11 hops) and one merge hop a forward
+    assert _kernels.RING_SHIFT.launches == 2 * (11 + 1)
+    assert sharded.shard_stats["gathers"] == 2
+    assert sharded.shard_stats["collective_ms"] > 0

@@ -3,10 +3,11 @@
 ``tests/host_cuda/`` emulates the CUDA subset the kernels use (threads,
 barriers, warp votes, shared memory, the rounding intrinsics), so a
 host C++ compiler builds ``rnb_tpu_torch/csrc/ingest.cu``, ``dct.cu``
-and ``pages.cu`` unchanged but for the launch syntax. The kernels then
-run on CPU tensors through their C entry points and are held to the
-plain versions, the fused dct ingest bitwise to the unpack and convert
-kernels it fuses and the page gather bitwise to its plain version: this
+``pages.cu`` and ``ring.cu`` unchanged but for the launch syntax. The
+kernels then run on CPU tensors through their C entry points and are
+held to the plain versions, the fused dct ingest bitwise to the unpack
+and convert kernels it fuses, the page gather and the ring shift bitwise
+to their plain versions: this
 checks their indexing, masking, vector and scalar paths, warp
 collectives and arithmetic on the CPU. Speed, and races that only the card's
 scheduling would expose, are the card's to show (tests/test_torch_cuda.py,
@@ -25,6 +26,7 @@ import torch
 
 from rnb_tpu_torch.decode import SyntheticDecoder
 from rnb_tpu_torch.ops import _kernels, dct
+from rnb_tpu_torch.ops.handoff_dma import ring_shift_reference
 from rnb_tpu_torch.ops.pages import gather_rows_reference
 from rnb_tpu_torch.ops.preprocess import normalize_u8_reference
 from rnb_tpu_torch.ops.yuv import packed_frame_bytes, yuv420_to_rgb_reference
@@ -61,7 +63,7 @@ def _build(source, out_dir):
 def libs(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("host_cuda"))
     built = {source: _build(source, out)
-             for source in ("ingest.cu", "dct.cu", "pages.cu")}
+             for source in ("ingest.cu", "dct.cu", "pages.cu", "ring.cu")}
     fns = {}
     for kernel in _kernels.KERNELS:
         if kernel.source in built:
@@ -301,3 +303,42 @@ def test_gather_kernel_is_bitwise_its_plain_version(libs, row, table):
         out_buf.data_ptr() + shift, pool_rows, slab_rows, row_bytes, 0,
         None) == 0
     assert torch.equal(out_buf[shift:], want.reshape(-1).view(torch.uint8))
+
+
+#: buffer sizes of the ring shift: 16-byte vectors over several blocks
+#: with a byte tail, a size under one vector, and the same buffers one
+#: byte off 16-byte alignment (the byte loop over the whole buffer)
+_RING_CASES = {"vectors_and_tail": (40007, 0), "small": (13, 0),
+               "misaligned": (40007, 1)}
+
+
+@pytest.mark.parametrize("case", sorted(_RING_CASES))
+@pytest.mark.parametrize("degree,shift", [(1, 0), (2, 1), (4, 1), (4, 3),
+                                          (8, 5)])
+def test_ring_shift_kernel_is_bitwise_its_plain_version(libs, degree, shift,
+                                                        case):
+    # tolerance: none (the hop moves bytes); every destination starts as
+    # garbage
+    nbytes, offset = _RING_CASES[case]
+    rng = np.random.default_rng(degree * 10 + shift + nbytes)
+    srcs = [torch.from_numpy(rng.integers(0, 256, nbytes + offset,
+                                          dtype=np.uint8))
+            for _ in range(degree)]
+    dsts = [torch.full((nbytes + offset,), 0xA5, dtype=torch.uint8)
+            for _ in range(degree)]
+    want = ring_shift_reference([t[offset:] for t in srcs], shift)
+    pointers = ctypes.c_void_p * degree
+    assert libs["ring_shift"](
+        pointers(*(t.data_ptr() + offset for t in srcs)),
+        pointers(*(t.data_ptr() + offset for t in dsts)), degree, shift,
+        nbytes, 0, None) == 0
+    for got, expected in zip(dsts, want):
+        assert torch.equal(got[offset:], expected)
+
+
+def test_ring_shift_kernel_refuses_what_it_cannot_run(libs):
+    one = torch.zeros(16, dtype=torch.uint8)
+    pointers = (ctypes.c_void_p * 1)(one.data_ptr())
+    for n, shift in ((0, 0), (9, 0), (2, 2), (2, -1)):
+        assert libs["ring_shift"](pointers, pointers, n, shift, 16, 0,
+                                  None) != 0

@@ -242,7 +242,8 @@ def test_cpu_paths_launch_no_kernel_and_build_nothing():
                                         "dct_unpack": 0, "dct_convert": 0,
                                         "dct_ingest": 0,
                                         "gather_rows": 0,
-                                        "ragged_normalize_u8": 0}
+                                        "ragged_normalize_u8": 0,
+                                        "ring_shift": 0}
     assert _kernels._libraries == {}
     assert os.path.basename(_kernels.library_path("ingest.cu")).startswith(
         "libingest-")
@@ -250,7 +251,7 @@ def test_cpu_paths_launch_no_kernel_and_build_nothing():
     assert names == {"normalize_u8", "yuv420_to_rgb_u8", "yuv420_normalize",
                      "dct_unpack", "dct_convert", "dct_ingest",
                      "gather_rows",
-                     "ragged_normalize_u8"}
+                     "ragged_normalize_u8", "ring_shift"}
     assert {k.source for k in _kernels.KERNELS} == set(_kernels.SOURCES)
 
 

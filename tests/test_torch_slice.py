@@ -264,7 +264,8 @@ def test_run_benchmark_on_cpu_completes_every_request(tmp_path, config,
                                         "dct_unpack": 0, "dct_convert": 0,
                                         "dct_ingest": 0,
                                         "gather_rows": 0,
-                                        "ragged_normalize_u8": 0}
+                                        "ragged_normalize_u8": 0,
+                                        "ring_shift": 0}
     with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
         meta = f.read()
     assert "Termination flag: 0" in meta
@@ -539,10 +540,14 @@ def test_unported_keys_are_refused(where, key, value):
               "runner": raw["pipeline"][1],
               "group": raw["pipeline"][0]["queue_groups"][0]}[where]
     target[key] = value
-    # devobs is ported: an unknown key inside it is refused with the
-    # reference's message
-    message = (r"'devobs' has unknown key\(s\) \['xplane'\]"
-               if key == "devobs" else "not yet ported")
+    # devobs and the step-level shard key are ported: an unknown devobs
+    # key, and a degree-2 ring on a one-device group, are refused with
+    # the reference's messages
+    message = {("root", "devobs"): r"'devobs' has unknown key\(s\) "
+                                   r"\['xplane'\]",
+               ("runner", "shard"): r"'shard.degree'=2 needs exactly that "
+                                    r"many devices per lane \(got 1\)"
+               }.get((where, key), "not yet ported")
     with pytest.raises(ConfigError, match=message):
         parse_config(raw, platform="cpu")
 
