@@ -53,16 +53,22 @@ Phases (any failure exits non-zero and prints no result line):
    byte loop, and against the bucketed normalize kernel on the valid
    rows; timed at 15 and at 7 valid rows beside its bounds, its plain
    version and the bucketed kernel at 15 rows;
-   The ring-shift kernel (the one hop of the shard ring collectives) is
-   held bitwise to its plain version, destinations laid out as the
-   sources, at each of the 19 sharded leaves of R(2+1)D-18 at degree 2 in
-   bf16 (and their ring all-gather against the concatenation), at the
-   conv5 temporal leaf at degree 4 with shifts 1 to 3, on a (15, 200)
-   float32 merge block, on 1001 bytes at degree 3 and on views 1 and 3
-   bytes off 16-byte alignment; timed at the conv5 temporal leaf and the
-   merge block at degree 2 (L2 warm and flushed) beside the bound, the
-   plain version and ``torch.roll`` of the members' stacked bytes, and
-   one forward's 19 hops together;
+   The ring-shift kernel (the grouped hop under the shard ring
+   collectives: a table of entries, each with its own shift, written
+   into slots of the gathered tensors) is held bitwise to its plain
+   version, every destination a slot of a canary-filled tensor whose
+   other bytes must stay as they were: the 19 sharded leaves of
+   R(2+1)D-18 at degree 2 in bf16 as one table (own slots and the hop)
+   and their all-gather, in one launch, against the concatenation; the
+   conv5 temporal leaf at degree 4 (one-buffer hops at shifts 1 to 3,
+   a table of shifts 0 to 3, its gather in 3 launches); the (15, 200)
+   float32 merge blocks as rows at a pitch; 1001 bytes and 13-byte rows
+   at degree 3; views 1 and 3 bytes off 16-byte alignment; and the
+   kernel's stack frame (``ptxas -v``) is 0 bytes. Timed with L2 warm
+   and flushed beside the bound and the plain version: the conv5 hop
+   alone (``torch.roll`` of the members' stacked bytes), the conv5
+   leaf's gather and the merge (``torch.cat``), and a whole forward's
+   gather at degree 2, beside its 19 gathers one leaf at a time;
 4. path: serve ``configs/rnb-fused-yuv-big.json`` and
    ``configs/rnb-fused-yuv-ragged.json`` over a generated y4m dataset,
    and ``configs/rnb-fused-dct-ragged.json`` over ``synth://`` ids, at
@@ -161,9 +167,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``configs/rnb-shard-d1.json`` and ``configs/rnb-shard-d2.json``
    (every device index made 0, so the degree-2 ring's members share the
    card), 64 requests each in bulk: every request's d2 logits bitwise
-   d1's, ``rnb_ring_shift`` launched 19 times a forward (warm-ups,
-   capture warm-ups and graph replays) and once a merge in d2 and never
-   in d1, one merge a forward with collective time spent, the ``Shard:``
+   d1's, ``rnb_ring_shift`` launched once a forward (the grouped gather
+   of all 19 leaves; warm-ups, capture warm-ups and graph replays) and
+   once a merge in d2 and never in d1, each copy's graph pool printed,
+   one merge a forward with collective time spent, the ``Shard:``
    lines footed by the port's ``parse_utils`` and ``exec1.collective``
    in ``metrics.jsonl``; then the d1 copy under a budget between the
    port's two projections, whose stage raises the reference's rejection
@@ -258,8 +265,11 @@ SHARD_RUNS = (SHARD_D1_COPY, SHARD_D2_COPY)
 #: degree-1 projections: its launch is refused
 SHARD_BUDGET_COPY = "rnb-shard-d1-1card-budget"
 #: the sharded leaves of R(2+1)D-18: 17 temporal conv kernels and the
-#: head's weight and bias, one hop each at degree 2
+#: head's weight and bias, gathered together at the start of a forward
 SHARD_LEAVES = 19
+#: launches of that gather at degree 2: own slots and the one hop of all
+#: 19 leaves ride one table (degree - 1 in general)
+GATHER_LAUNCHES = 1
 #: the ring shift's timed shapes: the conv5 temporal kernel's shard at
 #: degree 2 (the largest leaf) and a merge block at 15 rows
 RING_TIMED_DEGREE = 2
@@ -393,8 +403,11 @@ EXTRA_ROW_KEYS = ("all_hit_ms", "all_hit_ms_l2_flushed",
                   "tiny_rows_ms_l2_flushed", "ms_48", "ms_48_l2_flushed",
                   "bound_ms_48", "merge_ms", "merge_ms_l2_flushed",
                   "merge_plain_ms", "merge_bound_ms", "merge_library_ms",
-                  "forward_hops_ms", "forward_hops_bound_ms",
-                  "merge_host_us")
+                  "gather_ms", "gather_ms_l2_flushed", "gather_plain_ms",
+                  "gather_bound_ms", "gather_library_ms",
+                  "forward_gather_ms", "forward_gather_ms_l2_flushed",
+                  "forward_gather_plain_ms", "forward_gather_bound_ms",
+                  "forward_per_leaf_ms", "merge_host_us")
 
 
 class SmokeFailure(RuntimeError):
@@ -693,6 +706,15 @@ def phase_kernels(device):
           % (rows, row["ms"], row["ms_l2_flushed"], row["two_launch_ms"],
              row["two_launch_ms_l2_flushed"], row["bound_ms"]))
     return timings, worst
+
+
+def stack_frame_bytes(log, kernel):
+    """The stack frame ``ptxas -v`` reports in ``log`` for the kernel
+    whose mangled name holds ``kernel``, or None."""
+    import re
+    match = re.search(r"Function properties for \S*%s\S*\s+(\d+) bytes "
+                      r"stack frame" % kernel, log)
+    return None if match is None else int(match.group(1))
 
 
 def bound(bound_bytes, bound_ops):
@@ -1235,17 +1257,96 @@ def check_ring(what, members, shift):
     return err
 
 
-def phase_kernels_ring(device):
-    """The ring shift against its plain version, bitwise: each of the 19
-    sharded leaves at degree 2 in bf16 (and their ring all-gather against
-    the concatenation), the conv5 temporal leaf at degree 4 with shifts
-    1 to 3, a merge block, an odd byte count and a misaligned view; timed
-    at the conv5 temporal leaf and at the merge block, with L2 warm and
-    flushed, beside the bound, the plain version and ``torch.roll``, and
-    one forward's 19 hops together. Returns its timing row and worst
-    error."""
+def check_group(what, table, launches):
+    """The grouped hop of ``table``, whose destinations are slots of
+    canary-filled tensors, bitwise its plain version into clones of
+    those tensors (the canary bytes outside the slots included), in
+    ``launches`` launches; returns the largest difference (0)."""
     import torch
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.ops.handoff_dma import (RingEntry, ring_shift_group,
+                                               ring_shift_group_reference)
+    bases = {}
+    for entry in table:
+        for d in entry.dsts:
+            bases.setdefault(d.untyped_storage().data_ptr(),
+                             d if d._base is None else d._base)
+    twins = {key: base.clone() for key, base in bases.items()}
+
+    def twin(d):
+        return torch.as_strided(twins[d.untyped_storage().data_ptr()],
+                                d.shape, d.stride(), d.storage_offset())
+    ring_shift_group_reference([RingEntry(e.srcs, [twin(d) for d in e.dsts],
+                                          e.shift) for e in table])
+    before = _kernels.RING_SHIFT.launches
+    ring_shift_group(table)
+    check(_kernels.RING_SHIFT.launches == before + launches,
+          "the grouped hop of %s counted %d launches, not %d" % (
+              what, _kernels.RING_SHIFT.launches - before, launches))
+    torch.cuda.synchronize()
+    err = 0.0
+    for key, base in bases.items():
+        if not torch.equal(base, twins[key]):
+            err = max(err, float((base.float() - twins[key].float()).abs()
+                                 .max()))
+    check(err == 0.0, "the grouped hop of %s is not bitwise its plain "
+          "version (canary bytes included): %g" % (what, err))
+    return err
+
+
+def canary_table(leaves, axis, shifts, fill):
+    """A grouped table of ``leaves`` (member lists) along ``axis``: for
+    each leaf and shift in ``shifts``, member ``i``'s shard into chunk
+    ``i``'s slot of member ``i + shift``'s full-width tensor, every
+    full-width tensor filled with ``fill`` first."""
+    from rnb_tpu_torch.ops.handoff_dma import RingEntry, _full_width
+    table = []
+    for members in leaves:
+        n = len(members)
+        ax = axis % members[0].dim()
+        chunk = members[0].shape[ax]
+        full = [_full_width(m, n, ax).fill_(fill) for m in members]
+        for shift in shifts:
+            table.append(RingEntry(members, [
+                full[j].narrow(ax, ((j - shift) % n) * chunk, chunk)
+                for j in range(n)], shift))
+    return table
+
+
+def plain_gather(leaves, axis):
+    """The all-gather's tables through the plain version of the grouped
+    hop: the byte moves the kernel makes, one ``copy_`` each."""
+    from rnb_tpu_torch.ops.handoff_dma import (ring_gather_tables,
+                                               ring_shift_group_reference)
+    gathered, tables = ring_gather_tables(leaves, axis)
+    for table in tables:
+        ring_shift_group_reference(table)
+    return gathered
+
+
+def gather_bytes(leaves):
+    """The bytes an all-gather must move: every shard read once, every
+    member's full-width result written once."""
+    return sum(len(m) * (1 + len(m)) * m[0].numel() * m[0].element_size()
+               for m in leaves)
+
+
+def phase_kernels_ring(device):
+    """The grouped ring hop against its plain version, bitwise: the 19
+    sharded leaves at degree 2 as one table (own slots and the hop) and
+    their all-gather against the concatenation in one launch, the conv5
+    temporal leaf at degree 4 (one-buffer hops at shifts 1 to 3, its
+    gather in 3 launches), the merge block as an entry of rows at a
+    pitch, odd bytes and a misaligned view, every destination a slot of
+    a canary-filled tensor. Timed with L2 warm and flushed beside the
+    bound and the plain version: the conv5 hop (``torch.roll``), the
+    conv5 leaf's gather and the merge (``torch.cat``), and a whole
+    forward's gather at degree 2, beside its 19 gathers one leaf at a
+    time. Returns its timing row and worst error."""
+    import torch
+    from rnb_tpu_torch.ops import _kernels
     from rnb_tpu_torch.ops.handoff_dma import (ring_all_gather,
+                                               ring_all_gather_many,
                                                ring_shift,
                                                ring_shift_reference)
     from rnb_tpu_torch.parallel.shardplan import build_shard_ring, make_merge
@@ -1256,69 +1357,91 @@ def phase_kernels_ring(device):
           "sharded leaves, not %d" % (len(leaves), SHARD_LEAVES))
     forward = []
     for name, (shape, fmt, dtype) in sorted(leaves.items()):
-        members = ring_members(shape, fmt, dtype, RING_TIMED_DEGREE, gen,
-                               device)
-        forward.append(members)
-        worst = max(worst, check_ring(name, members, 1))
-        full = torch.cat(members).contiguous(memory_format=fmt)
-        for member in ring_all_gather(members, axis=0):
-            check(torch.equal(member, full) and member.stride()
-                  == full.stride(), "ring_all_gather of %s is not the "
+        forward.append(ring_members(shape, fmt, dtype, RING_TIMED_DEGREE,
+                                    gen, device))
+    # the forward's first table: every leaf's own slots and its hop
+    worst = max(worst, check_group("the %d leaves at degree %d" % (
+        len(forward), RING_TIMED_DEGREE), canary_table(
+            forward, 0, (0, 1), 7), 1))
+    before = _kernels.RING_SHIFT.launches
+    gathered = ring_all_gather_many(forward, axis=0)
+    check(_kernels.RING_SHIFT.launches == before + GATHER_LAUNCHES,
+          "the forward's gather took %d launches, not %d" % (
+              _kernels.RING_SHIFT.launches - before, GATHER_LAUNCHES))
+    for name, members, full in zip(sorted(leaves), forward, gathered):
+        fmt = leaves[name][1]
+        want = torch.cat(members).contiguous(memory_format=fmt)
+        for member in full:
+            check(torch.equal(member, want) and member.stride()
+                  == want.stride(), "ring_all_gather_many of %s is not the "
                   "concatenation, laid out as it" % name)
     print("kernels ring_shift: the %d sharded leaves at degree %d (bf16, "
-          "%d to %d bytes a member) bitwise their plain version; their "
-          "gathers bitwise the concatenation" % (
+          "%d to %d bytes a member) as one table bitwise its plain version "
+          "(canary bytes included); their gather in %d launch, bitwise the "
+          "concatenation" % (
               len(leaves), RING_TIMED_DEGREE,
               min(math.prod(s) * 2 for s, _, _ in leaves.values()),
-              max(math.prod(s) * 2 for s, _, _ in leaves.values())))
+              max(math.prod(s) * 2 for s, _, _ in leaves.values()),
+              GATHER_LAUNCHES))
     conv5 = "net.conv5.block1.conv2.temporal.weight"
     shape, fmt, dtype = ring_leaves(4)[conv5]
     members4 = ring_members(shape, fmt, dtype, 4, gen, device)
     for shift in (1, 2, 3):
         worst = max(worst, check_ring("%s degree 4" % conv5, members4,
                                       shift))
+    worst = max(worst, check_group("%s degree 4, shifts 0-3" % conv5,
+                                   canary_table([members4], 0, range(4), 7),
+                                   1))
+    before = _kernels.RING_SHIFT.launches
+    full4 = ring_all_gather(members4, axis=0)
+    want4 = torch.cat(members4).contiguous(memory_format=fmt)
+    check(_kernels.RING_SHIFT.launches == before + 3 and all(
+        torch.equal(m, want4) for m in full4), "the degree-4 gather of %s "
+          "is not the concatenation in 3 launches" % conv5)
     merge = ring_members(MERGE_BLOCK, torch.contiguous_format,
                          torch.float32, RING_TIMED_DEGREE, gen, device)
     worst = max(worst, check_ring("merge block", merge, 1))
+    # the merge's own table: rows of 800 bytes at a pitch of 1600
+    worst = max(worst, check_group("the merge blocks %s" % (MERGE_BLOCK,),
+                                   canary_table([merge], -1, (0, 1), 7),
+                                   1))
     odd = [torch.randint(0, 256, (1001,), generator=gen,
                          dtype=torch.uint8).to(device) for _ in range(3)]
     for shift in (1, 2):
         worst = max(worst, check_ring("odd u8", odd, shift))
+    odd_rows = [torch.randint(0, 256, (3, 13), generator=gen,
+                              dtype=torch.uint8).to(device)
+                for _ in range(3)]
+    worst = max(worst, check_group("odd bytes and odd rows", canary_table(
+        [odd, odd_rows], -1, (0, 1, 2), 0xA5), 1))
     base = torch.randint(0, 256, (2, 40007), generator=gen,
                          dtype=torch.uint8).to(device)
     # 1 and 3 bytes off 16-byte alignment: the byte loop
     worst = max(worst, check_ring("misaligned view",
                                   [base[0, 1:40001], base[1, 3:40003]], 1))
-    print("kernels ring_shift: %s at degree 4, shifts 1-3; merge block %s "
-          "f32; 1001 u8 bytes at degree 3; a misaligned view: bitwise"
-          % (conv5, MERGE_BLOCK))
+    print("kernels ring_shift: %s at degree 4, shifts 0-3 (one-buffer hops "
+          "and one table) and its gather; the merge blocks %s f32 as rows "
+          "at a pitch; 1001 bytes and 3 x 13-byte rows at degree 3; a "
+          "misaligned view: bitwise" % (conv5, MERGE_BLOCK))
 
-    def timed(members, prefix, row):
-        n = len(members)
-        nbytes = members[0].numel() * members[0].element_size()
-        # the library yardstick's input: the members' bytes stacked
-        stacked = torch.randint(0, 256, (n, nbytes), generator=gen,
-                                dtype=torch.uint8).to(device)
-        row[prefix + "ms"] = device_ms(lambda: ring_shift(members, 1))
-        row[prefix + "ms_l2_flushed"] = flushed_ms(
-            lambda: ring_shift(members, 1))
-        row[prefix + "plain_ms"] = device_ms(
-            lambda: ring_shift_reference(members, 1), reps=10)
-        row[prefix + "library_ms"] = device_ms(
-            lambda: torch.roll(stacked, 1, dims=0))
-        # every member's buffer read once and written once
-        row[prefix + "bound_ms"], by = bound(2 * n * nbytes, 0)
-        print("timing ring_shift %s at degree %d (%d bytes a member): %.5f "
-              "ms on the card, L2 warm (share %.3f), %.5f ms with L2 "
-              "flushed (share %.3f); plain %.5f ms, torch.roll %.5f ms, "
-              "bound %.5f ms by %s"
-              % (prefix or "conv5 temporal", n, nbytes, row[prefix + "ms"],
+    def timed(prefix, kernel, plain, library, bound_bytes, label):
+        row[prefix + "ms"] = device_ms(kernel)
+        row[prefix + "ms_l2_flushed"] = flushed_ms(kernel)
+        row[prefix + "plain_ms"] = device_ms(plain, reps=10)
+        row[prefix + "library_ms"] = (None if library is None
+                                      else device_ms(library))
+        row[prefix + "bound_ms"], by = bound(bound_bytes, 0)
+        print("timing ring_shift %s: %.5f ms on the card, L2 warm (share "
+              "%.3f), %.5f ms with L2 flushed (share %.3f); plain %.5f ms, "
+              "library %s ms, bound %.5f ms by %s"
+              % (label, row[prefix + "ms"],
                  row[prefix + "bound_ms"] / row[prefix + "ms"],
                  row[prefix + "ms_l2_flushed"],
                  row[prefix + "bound_ms"] / row[prefix + "ms_l2_flushed"],
                  row[prefix + "plain_ms"], row[prefix + "library_ms"],
                  row[prefix + "bound_ms"], by))
         return by
+
     # the merge as the stage times it, on an idle host: its host time
     # from the forward's end (synchronized) to the merged logits' (the
     # served runs' exec1.collective spans add whatever else holds the
@@ -1338,20 +1461,41 @@ def phase_kernels_ring(device):
           "host: median %.1f us, min %.1f us, max %.1f us of 50"
           % (RING_TIMED_DEGREE, host_us[25], host_us[0], host_us[-1]))
     row = {"merge_host_us": host_us[25]}
+    n = RING_TIMED_DEGREE
     conv5_members = forward[sorted(leaves).index(conv5)]
-    row["bound_by"] = timed(conv5_members, "", row)
+    nbytes = conv5_members[0].numel() * conv5_members[0].element_size()
+    # the library yardstick's input: the members' bytes stacked
+    stacked = torch.randint(0, 256, (n, nbytes), generator=gen,
+                            dtype=torch.uint8).to(device)
+    # the hop alone: every member's buffer read once and written once
+    row["bound_by"] = timed(
+        "", lambda: ring_shift(conv5_members, 1),
+        lambda: ring_shift_reference(conv5_members, 1),
+        lambda: torch.roll(stacked, 1, dims=0), 2 * n * nbytes,
+        "conv5 temporal hop at degree %d (%d bytes a member)" % (n, nbytes))
     row["call_ms"] = call_ms(lambda: ring_shift(conv5_members, 1))
-    timed(merge, "merge_", row)
-    # one forward's weight gathers at degree 2: a hop for each leaf
-    row["forward_hops_ms"] = device_ms(
-        lambda: [ring_shift(m, 1) for m in forward])
-    row["forward_hops_bound_ms"] = bound(2 * sum(
-        len(m) * m[0].numel() * m[0].element_size() for m in forward),
-        0)[0]
-    print("timing ring_shift: one forward's %d hops at degree %d, %.5f ms "
-          "on the card (bound %.5f ms); %.5f ms per back-to-back conv5 "
-          "hop" % (len(forward), RING_TIMED_DEGREE, row["forward_hops_ms"],
-                   row["forward_hops_bound_ms"], row["call_ms"]))
+    timed("gather_", lambda: ring_all_gather(conv5_members, axis=0),
+          lambda: plain_gather([conv5_members], 0),
+          lambda: torch.cat(conv5_members),
+          gather_bytes([conv5_members]),
+          "conv5 temporal gather at degree %d" % n)
+    timed("merge_", lambda: merge_fn(merge),
+          lambda: plain_gather([merge], -1)[0][0],
+          lambda: torch.cat(merge, dim=-1),
+          gather_bytes([merge]),
+          "merge of %s blocks at degree %d" % (MERGE_BLOCK, n))
+    timed("forward_gather_", lambda: ring_all_gather_many(forward, axis=0),
+          lambda: plain_gather(forward, 0), None,
+          gather_bytes(forward),
+          "one forward's %d leaves gathered at degree %d" % (len(forward),
+                                                              n))
+    row["forward_per_leaf_ms"] = device_ms(
+        lambda: [ring_all_gather(m, axis=0) for m in forward])
+    print("timing ring_shift: one forward's %d gathers one leaf at a time "
+          "(%d launches), %.5f ms on the card against %.5f ms as one; %.5f "
+          "ms per back-to-back conv5 hop" % (
+              len(forward), len(forward), row["forward_per_leaf_ms"],
+              row["forward_gather_ms"], row["call_ms"]))
     return {"ring_shift": row}, {"ring_shift": worst}
 
 
@@ -2357,10 +2501,11 @@ def check_graphs(label, result, stages):
 def check_shard_run(label, result, sink, stages, counts, shard_runs):
     """A run of the sharding pair: the Shard: lines footed by the port's
     parse_utils, one merge a forward, collective time spent; at degree 2
-    the ring kernel launched 19 times a forward (warm-ups, capture
-    warm-ups and replays) and once a merge, and every request's logits
-    bitwise the d1 copy's; at degree 1 no hop at all. Returns a summary
-    for the print."""
+    the ring kernel launched once a forward (the grouped gather of all
+    19 leaves; warm-ups, capture warm-ups and replays) and once a merge,
+    and every request's logits bitwise the d1 copy's; at degree 1 no hop
+    at all. Returns a summary for the print, with the bytes the stage's
+    graph pool holds."""
     import numpy as np
     from rnb_tpu_torch.models.r2p1d.model import NUM_WARMUPS, R2P1DRunner
     from rnb_tpu_torch.parse_utils import load_metrics, summarize
@@ -2375,34 +2520,35 @@ def check_shard_run(label, result, sink, stages, counts, shard_runs):
           "%s: Shard: rows=%d for %d clips" % (label, result.shard_rows,
                                                result.clips_completed))
     replays = runner.graph_stats["replays"]
+    pool = graph_pool_mib(runner)
     if degree == 1:
         check(result.shard_gathers == 0 and counts["ring_shift"] == 0,
               "%s: %d merges, %d ring hops at degree 1" % (
                   label, result.shard_gathers, counts["ring_shift"]))
-        return dict(replays=replays)
+        return dict(replays=replays, graph_pool_mib=pool)
     check(result.shard_gathers == replays
           == result.compiles["step1"]["steady_calls"],
           "%s: %d merges for %d replays" % (label, result.shard_gathers,
                                             replays))
     check(result.shard_collective_us > 0, "%s: no collective time" % label)
     for key, graph in runner._graphs.items():
-        check(graph.launches.get("ring_shift") == SHARD_LEAVES,
-              "%s: graph %s records %s ring hops, not %d" % (
+        check(graph.launches.get("ring_shift") == GATHER_LAUNCHES,
+              "%s: graph %s records %s ring launches, not %d" % (
                   label, key, graph.launches.get("ring_shift"),
-                  SHARD_LEAVES))
+                  GATHER_LAUNCHES))
     # warm-ups and each graph's capture warm-up run the forward eagerly;
     # a warm-up also merges
     warm = NUM_WARMUPS * len(runner._warm_rows)
     eager = warm + len(runner._graphs)
-    want = SHARD_LEAVES * (eager + replays) + warm + result.shard_gathers
+    want = GATHER_LAUNCHES * (eager + replays) + warm + result.shard_gathers
     check(counts["ring_shift"] == want,
-          "%s: %d ring hops, %d expected (%d leaves x (%d eager + %d "
-          "replayed forwards) + %d warm-up and %d served merges)" % (
-              label, counts["ring_shift"], want, SHARD_LEAVES, eager,
+          "%s: %d ring launches, %d expected (%d a forward x (%d eager + "
+          "%d replayed forwards) + %d warm-up and %d served merges)" % (
+              label, counts["ring_shift"], want, GATHER_LAUNCHES, eager,
               replays, warm, result.shard_gathers))
     check(result.window_launches["ring_shift"]
-          == (SHARD_LEAVES + 1) * replays,
-          "%s: %d ring hops in the window for %d forwards" % (
+          == (GATHER_LAUNCHES + 1) * replays,
+          "%s: %d ring launches in the window for %d forwards" % (
               label, result.window_launches["ring_shift"], replays))
     d1_result, d1_sink = shard_runs[SHARD_D1_COPY]
     check(sorted(sink) == sorted(d1_sink), "%s: other requests than d1's"
@@ -2417,13 +2563,25 @@ def check_shard_run(label, result, sink, stages, counts, shard_runs):
     check(collective.get("count") == result.shard_gathers,
           "%s: metrics.jsonl holds %s exec1.collective samples for %d "
           "merges" % (label, collective.get("count"), result.shard_gathers))
-    return dict(replays=replays, ring_launches=counts["ring_shift"],
+    return dict(replays=replays, graph_pool_mib=pool,
+                ring_launches=counts["ring_shift"],
                 collective_us_per_request=(result.shard_collective_us
                                            / result.num_completed),
                 collective_us_per_merge=(result.shard_collective_us
                                          / result.shard_gathers),
                 videos_per_s_d1=d1_result.throughput_vps,
                 videos_per_s_d2=result.throughput_vps)
+
+
+def graph_pool_mib(runner):
+    """MiB the caching allocator holds in ``runner``'s graph pool: the
+    peak of its captures, since a pool keeps its segments while its
+    graphs live; None where the snapshot names no pool."""
+    import torch
+    pool = tuple(runner._graph_pool)
+    held = [seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool]
+    return sum(held) / (1 << 20) if held else None
 
 
 def check_shard_budget(data_root, shard_runs):
@@ -2767,6 +2925,16 @@ def main() -> int:
         for source, (secs, log) in _kernels.BUILD_LOG.items():
             print("build %s: %.1f s\n%s" % (source, secs, log.strip()))
         print("build: %s" % json.dumps(seconds))
+        print("nvcc: %s" % subprocess.run(
+            [_kernels.nvcc(), "--version"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()[-1])
+        if "ring.cu" in _kernels.BUILD_LOG:
+            frame = stack_frame_bytes(_kernels.BUILD_LOG["ring.cu"][1],
+                                      "ring_shift_kernel")
+            print("ring_shift_kernel stack frame: %s bytes" % frame)
+            check(frame == 0, "ptxas gives ring_shift_kernel a stack frame "
+                  "of %s bytes: its table is copied off the parameters"
+                  % frame)
         if "error" in native_build:
             raise native_build["error"]
         print("build native/decode.cpp -> %s: %s\n%s" % (

@@ -2003,8 +2003,8 @@ class R2P1DRunner(StageModel):
     parallel.shardplan) the stage runs over a ring of ``shard_degree``
     members, which must share its device: the network holds its
     temporal conv kernels and its head in member shards and gathers
-    each to full width right before its op, inside the captured forward,
-    so the logits are bitwise the unsharded stage's. A head stage's
+    them all to full width at the start of the forward, inside the
+    captured graph, so the logits are bitwise the unsharded stage's. A head stage's
     forward leaves the logits in column blocks, and the merge gather
     runs after it, outside the graph, timed on the host as
     ``exec{i}.collective`` (``shard_stats``). A declared degree, 1

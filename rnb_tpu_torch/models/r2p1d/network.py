@@ -27,23 +27,26 @@ Design, mirroring the JAX package so the two agree number for number:
 * **Intra-stage sharding** (``shards > 1``; rnb_tpu_torch.parallel.
   shardplan): every temporal conv kernel and the head's weight and bias
   hold ``shards`` member shards of their rows at rest (``weight_shards``,
-  ``bias_shards``), ring-all-gathered to full width right before their
-  op — the counterpart of the reference's ``nn.map_variables`` with
-  ``_gather_shard_params``. The gathered tensor has the unsharded one's
-  dtype, shape and memory format and lives only for its op, which then
-  runs at full width. A sharded head returns its float32 logits as
-  ``shards`` column blocks, one a member, for the stage's merge.
+  ``bias_shards``). The forward ring-all-gathers every sharded leaf to
+  full width at its start, all in one collective (one launch at degree
+  2), and hands each op its gathered tensor — the counterpart of the
+  reference's ``nn.map_variables`` with ``_gather_shard_params``. A
+  gathered tensor has the unsharded one's dtype, shape and memory
+  format, so each op runs as at full width; all of them live for the
+  forward. A sharded head returns its float32 logits as ``shards``
+  column blocks, one a member, for the stage's merge.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rnb_tpu_torch.ops.handoff_dma import ring_all_gather_body
+from rnb_tpu_torch.ops.handoff_dma import (ring_all_gather_body,
+                                           ring_all_gather_many)
 
 NUM_LAYERS = 5
 KINETICS_CLASSES = 400
@@ -94,13 +97,39 @@ def factored_channels(in_features: int, out_features: int,
     return max(1, num // den)
 
 
+#: a forward's gathered leaves: member shards -> the full-width tensor
+Gathered = Dict[nn.ParameterList, torch.Tensor]
+
+
 def gather_shards(shards: Sequence[torch.Tensor]) -> torch.Tensor:
-    """A sharded leaf's full-width tensor: the ring all-gather of its
+    """One sharded leaf's full-width tensor: the ring all-gather of its
     member shards along dim 0. Every member's result is bitwise the
     same, and the members share one device, so the stage's one forward
     takes member 0's."""
     shards = list(shards)
     return ring_all_gather_body(len(shards), axis=0)(shards)[0]
+
+
+def sharded_leaves(module: nn.Module) -> List[nn.ParameterList]:
+    """The member shards of every sharded leaf under ``module``, in
+    module order: each sharded conv kernel, the head's weight and
+    bias."""
+    leaves: List[nn.ParameterList] = []
+    for m in module.modules():
+        if isinstance(m, Conv3d) and m.shards > 1:
+            leaves.append(m.weight_shards)
+        elif isinstance(m, ShardedLinear):
+            leaves += [m.weight_shards, m.bias_shards]
+    return leaves
+
+
+def gather_leaves(module: nn.Module) -> Gathered:
+    """Every sharded leaf under ``module`` at full width, by one ring
+    all-gather of them all along dim 0 (``degree - 1`` launches), each
+    bitwise what :func:`gather_shards` gives it; member 0's results."""
+    leaves = sharded_leaves(module)
+    full = ring_all_gather_many([list(p) for p in leaves], axis=0)
+    return {p: members[0] for p, members in zip(leaves, full)}
 
 
 def _member_shards(shape: Tuple[int, ...], shards: int) -> nn.ParameterList:
@@ -118,7 +147,8 @@ class Conv3d(nn.Module):
     """Unbiased 3-D convolution that computes in its input's dtype
     policy: input and kernel cast to ``dtype``, output in ``dtype``.
     ``weight`` is ``(out, in, T, H, W)``; with ``shards > 1`` the kernel
-    is held as ``weight_shards`` and gathered before the conv."""
+    is held as ``weight_shards``, and the forward takes it gathered from
+    ``gathered``."""
 
     def __init__(self, in_features: int, out_features: int,
                  kernel: Tuple[int, int, int], stride: Tuple[int, int, int],
@@ -141,9 +171,9 @@ class Conv3d(nn.Module):
         return (list(self.weight_shards) if self.shards > 1
                 else [self.weight])
 
-    def forward(self, x):
-        w = (gather_shards(self.weight_shards) if self.shards > 1
-             else self.weight)
+    def forward(self, x, gathered: Optional[Gathered] = None):
+        w = (self.weight if self.shards == 1
+             else gathered[self.weight_shards])
         if w.dtype != self.dtype:
             w = w.to(self.dtype)
         return F.conv3d(x.to(self.dtype), w, None, self.stride,
@@ -189,8 +219,8 @@ class SpatioTemporalConv(nn.Module):
         self.temporal = Conv3d(mid, features, (t, 1, 1), (st, 1, 1),
                                (t // 2, 0, 0), dtype, shards)
 
-    def forward(self, x):
-        return self.temporal(F.relu(self.bn(self.spatial(x))))
+    def forward(self, x, gathered: Optional[Gathered] = None):
+        return self.temporal(F.relu(self.bn(self.spatial(x))), gathered)
 
 
 class SpatioTemporalResBlock(nn.Module):
@@ -219,11 +249,11 @@ class SpatioTemporalResBlock(nn.Module):
                                        (2, 2, 2), (0, 0, 0), dtype)
             self.shortcut_bn = BatchNorm(features, dtype)
 
-    def forward(self, x):
-        res = F.relu(self.bn1(self.conv1(x)))
-        res = self.bn2(self.conv2(res))
+    def forward(self, x, gathered: Optional[Gathered] = None):
+        res = F.relu(self.bn1(self.conv1(x, gathered)))
+        res = self.bn2(self.conv2(res, gathered))
         if self.downsample:
-            x = self.shortcut_bn(self.shortcut(x))
+            x = self.shortcut_bn(self.shortcut(x, gathered))
         return F.relu(x + res)
 
 
@@ -243,16 +273,17 @@ class SpatioTemporalResLayer(nn.Module):
             self.add_module("block%d" % i, SpatioTemporalResBlock(
                 features, features, dtype=dtype, shards=shards))
 
-    def forward(self, x):
+    def forward(self, x, gathered: Optional[Gathered] = None):
         for i in range(self.num_blocks):
-            x = getattr(self, "block%d" % i)(x)
+            x = getattr(self, "block%d" % i)(x, gathered)
         return x
 
 
 class R2Plus1DNet(nn.Module):
     """Any contiguous layer range [start..end] of R(2+1)D-18, NDHWC in
     and (for partial ranges) out; a range reaching layer 5 returns the
-    pooled ``(rows, 512)`` features."""
+    pooled ``(rows, 512)`` features. Sharded, the forward takes its
+    leaves gathered from ``gathered`` (:func:`gather_leaves`)."""
 
     def __init__(self, start: int = 1, end: int = NUM_LAYERS,
                  layer_sizes: Sequence[int] = R18_LAYER_SIZES,
@@ -278,14 +309,14 @@ class R2Plus1DNet(nn.Module):
                     shards=shards))
                 channels = features
 
-    def forward(self, x):
+    def forward(self, x, gathered: Optional[Gathered] = None):
         # NDHWC -> an NCDHW view of the same bytes (channels_last_3d)
         x = x.permute(0, 4, 1, 2, 3)
         for layer in range(self.start, self.end + 1):
             if layer == 1:
-                x = F.relu(self.stem_bn(self.conv1(x)))
+                x = F.relu(self.stem_bn(self.conv1(x, gathered)))
             else:
-                x = getattr(self, "conv%d" % layer)(x)
+                x = getattr(self, "conv%d" % layer)(x, gathered)
         if self.end == NUM_LAYERS:
             # global spatiotemporal pool: float32 sum, input dtype out
             return x.to(torch.float32).mean(dim=(2, 3, 4)).to(x.dtype)
@@ -304,16 +335,13 @@ class ShardedLinear(nn.Module):
                                             self.shards)
         self.bias_shards = _member_shards((out_features,), self.shards)
 
-    def gathered(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The full-width weight and bias."""
-        return (gather_shards(self.weight_shards),
-                gather_shards(self.bias_shards))
-
 
 class R2Plus1DClassifier(nn.Module):
     """Partial net + linear head when the range reaches the last layer;
-    float32 output whatever the compute dtype. With ``shards > 1`` a
-    head returns the logits as ``shards`` column blocks."""
+    float32 output whatever the compute dtype. With ``shards > 1`` the
+    forward gathers every sharded leaf, the head's too, at its start
+    (:func:`gather_leaves`), and a head returns the logits as ``shards``
+    column blocks."""
 
     def __init__(self, start: int = 1, end: int = NUM_LAYERS,
                  num_classes: int = KINETICS_CLASSES,
@@ -337,11 +365,13 @@ class R2Plus1DClassifier(nn.Module):
                                      int(num_classes)))
 
     def forward(self, x):
-        x = self.net(x)
+        gathered = gather_leaves(self) if self.shards > 1 else None
+        x = self.net(x, gathered)
         if not self.has_head:
             return x.to(torch.float32)
         if self.shards > 1:
-            w, b = self.linear.gathered()
+            w = gathered[self.linear.weight_shards]
+            b = gathered[self.linear.bias_shards]
         else:
             w, b = self.linear.weight, self.linear.bias
         y = torch.matmul(x.to(self.dtype), w.to(self.dtype).t())

@@ -215,10 +215,13 @@ RAGGED_NORMALIZE_U8 = Kernel(
     "rnb_tpu/ops/ragged.py:157 (_ragged_normalize_kernel via "
     "_ragged_normalize_pallas)")
 
-#: the two pointer arguments are host arrays of the members' pointers
+#: host arrays: sources, destinations, their pitches (one an entry and
+#: member), shifts, rows and row bytes (one an entry); then n and entries
 RING_SHIFT = Kernel(
     "ring_shift", "ring.cu", "rnb_ring_shift",
-    [ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _L],
+    [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_L),
+     ctypes.POINTER(_L), ctypes.POINTER(_I), ctypes.POINTER(_L),
+     ctypes.POINTER(_L), _I, _I],
     "rnb_tpu/ops/handoff_dma.py:104 (_pallas_shift_body, its pallas_call "
     "at :134)")
 

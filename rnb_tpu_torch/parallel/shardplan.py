@@ -8,9 +8,10 @@ the unsharded stage's, is the reference's design:
   weight and bias (``linear.weight``, ``linear.bias``) live sharded at
   rest on the torch out-channel axis, dim 0 — each member holds
   ``1/degree`` of their rows — and are ring-all-gathered to full width
-  right before their op (:mod:`rnb_tpu_torch.ops.handoff_dma`). The op
-  then runs at full width, so the activation path is op for op the
-  unsharded one: a gather is pure data movement.
+  together at the start of the forward (:mod:`rnb_tpu_torch.ops.
+  handoff_dma`; one launch at degree 2), each op handed its gathered
+  tensor. The ops then run at full width, so the activation path is op
+  for op the unsharded one: a gather is pure data movement.
 * the spatial convs, BatchNorms, shortcuts and pooling stay replicated.
   Compute is not divided: sharding here buys per-member memory.
 

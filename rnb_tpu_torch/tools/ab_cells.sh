@@ -13,8 +13,10 @@
 # (configs/rnb-fused-yuv-big.json), rnb (configs/rnb-1chip.json),
 # torchckpt (configs/rnb-fused-yuv-big-torchckpt.json), mid
 # (configs/rnb-fused-yuv-mid.json), staged (configs/rnb-fused-yuv-
-# staged.json) and traced (configs/rnb-fused-yuv-traced.json); yuv, dct
-# and big when none is named.
+# staged.json), traced (configs/rnb-fused-yuv-traced.json), and shard-d1
+# and shard-d2 (the one-card copies of configs/rnb-shard-d1.json and
+# -d2.json, every device index made 0, written beside the dataset); yuv,
+# dct and big when none is named.
 # RNB_MEASURE_VIDEOS sets the request count per run (2000).
 # RNB_AB_TURNS sets the turns (default "A1 B1 B2 A2"): a turn is an arm
 # letter and a number, A for checkout A, B for this checkout, N for this
@@ -33,6 +35,15 @@ data=$(mktemp -d)
 trap 'rm -rf "$data"' EXIT
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 python3 -m rnb_tpu_torch.dataset "$data" --videos 64
+python3 - "$data" <<'PY'
+import json, os, sys
+for name in ("rnb-shard-d1", "rnb-shard-d2"):
+    raw = json.load(open("configs/%s.json" % name))
+    for step in raw["pipeline"]:
+        for group in step["queue_groups"]:
+            group["devices"] = [0 if d >= 0 else d for d in group["devices"]]
+    json.dump(raw, open(os.path.join(sys.argv[1], name + "-1card.json"), "w"))
+PY
 videos=${RNB_MEASURE_VIDEOS:-2000}
 run() {  # run <turn> <cell>
   case $2 in
@@ -44,6 +55,8 @@ run() {  # run <turn> <cell>
     mid) cfg=configs/rnb-fused-yuv-mid.json ;;
     staged) cfg=configs/rnb-fused-yuv-staged.json ;;
     traced) cfg=configs/rnb-fused-yuv-traced.json ;;
+    shard-d1) cfg=$data/rnb-shard-d1-1card.json ;;
+    shard-d2) cfg=$data/rnb-shard-d2-1card.json ;;
     *) echo "unknown cell $2" >&2; exit 2 ;;
   esac
   case $1 in
@@ -82,7 +95,8 @@ for line in open(sys.argv[1]):
           "graphs=%s" % json.dumps(d.get("graphs"), sort_keys=True),
           "compiles=%s" % json.dumps(d.get("compile_signatures"),
                                      sort_keys=True),
-          "launches=%s" % json.dumps(d["launches"], sort_keys=True))
+          "launches=%s" % json.dumps(d["launches"], sort_keys=True),
+          "shard=%s" % json.dumps(d.get("shard"), sort_keys=True))
 PY
 grep -h "^Staging" "$out"/*/*/log-meta.txt | sort | uniq -c | sort -rn \
   | head -20

@@ -27,8 +27,18 @@ of dependent steps takes), 15 and 48 rows:
 hits: ``kernel``, and ``no_table``, every row from the pool with the
 source table unread (what the table's dependent read costs).
 
+``rnb_ring_shift`` (``csrc/ring.cu``) on three of the degree-2 shard
+ring's tables: the conv5 temporal leaf's hop (one entry), a forward's
+first gather table (own slots and the hop of all 19 leaves, 76 tiles)
+and the merge's (rows at a pitch): ``kernel``, and the same source with
+8 or 16 vectors a thread in flight (``vectors_8``, ``vectors_16``; the
+kernel holds 4), 128 threads a block (``threads_128``), or a table of
+at most 8 tiles in 392 bytes of parameters (``tiles_8``; the hop and
+the merge only).
+
 With ``--parent DIR`` (another checkout, e.g. the parent commit
-unpacked with ``git archive``), that tree's two kernels as ``parent``.
+unpacked with ``git archive``), that tree's dct and gather kernels as
+``parent``. ``--only`` picks some of ``dct``, ``gather`` and ``ring``.
 A cut variant writes no usable output: its time says what the cut
 section costs, not that anything is right. Times are ``chip_smoke.py``'s
 (the profiler's device time, L2 warm and L2 flushed), two turns in
@@ -117,6 +127,46 @@ GATHER_VARIANTS: Dict[str, List[Tuple[str, str]]] = {
 }
 
 
+RING_VARIANTS = {
+    "kernel": [],
+    "vectors_8": [("constexpr int kVectors = 4;",
+                   "constexpr int kVectors = 8;")],
+    "vectors_16": [("constexpr int kVectors = 4;",
+                    "constexpr int kVectors = 16;")],
+    "threads_128": [("constexpr int kThreads = 256;",
+                     "constexpr int kThreads = 128;")],
+    "tiles_8": [("constexpr int kMaxTiles = 80;",
+                 "constexpr int kMaxTiles = 8;")],
+}
+
+
+def ring_tables(device):
+    """The degree-2 ring's tables the probe times, as ``rnb_ring_shift``
+    arguments (before device and stream): one launch each."""
+    import torch
+    import chip_smoke
+    from rnb_tpu_torch.ops.handoff_dma import (RingEntry, ring_gather_tables,
+                                               ring_launches)
+    gen = torch.Generator().manual_seed(7)
+    leaves = chip_smoke.ring_leaves(2)
+    forward = [chip_smoke.ring_members(shape, fmt, dtype, 2, gen, device)
+               for _, (shape, fmt, dtype) in sorted(leaves.items())]
+    conv5 = forward[sorted(leaves).index(
+        "net.conv5.block1.conv2.temporal.weight")]
+    merge = chip_smoke.ring_members(chip_smoke.MERGE_BLOCK,
+                                    torch.contiguous_format, torch.float32,
+                                    2, gen, device)
+    keep, tables = [], {}
+    for name, table in (
+            ("conv5_hop", [RingEntry(conv5, [torch.empty_like(m)
+                                             for m in conv5], 1)]),
+            ("forward_gather", ring_gather_tables(forward, 0)[1][0]),
+            ("merge", ring_gather_tables([merge], -1)[1][0])):
+        (tables[name],) = ring_launches(table)
+        keep.append(table)
+    return tables, keep
+
+
 def patched(source: str, patches: List[Tuple[str, str]]) -> str:
     """The source with each patch applied once; raises where a patch's
     text is not in it."""
@@ -191,6 +241,9 @@ def idct_terms(ycoef, ucoef, vcoef) -> Dict[str, float]:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", help="another checkout's root")
+    parser.add_argument("--only", nargs="+", choices=("dct", "gather",
+                                                      "ring"),
+                        default=("dct", "gather", "ring"))
     args = parser.parse_args(argv)
     import numpy as np
     import torch
@@ -204,12 +257,16 @@ def main(argv=None) -> int:
     out_dir = os.path.join(_kernels.BUILD_DIR, "probe")
     os.makedirs(out_dir, exist_ok=True)
     sources = {}
-    for stem, variants in (("dct", DCT_VARIANTS), ("pages", GATHER_VARIANTS)):
+    for stem, variants, kind in (("dct", DCT_VARIANTS, "dct"),
+                                 ("pages", GATHER_VARIANTS, "gather"),
+                                 ("ring", RING_VARIANTS, "ring")):
+        if kind not in args.only:
+            continue
         with open(os.path.join(_kernels.CSRC_DIR, stem + ".cu")) as f:
             text = f.read()
         for name, patches in variants.items():
             sources["%s_%s" % (stem, name)] = patched(text, patches)
-        if args.parent:
+        if args.parent and kind != "ring":
             with open(os.path.join(args.parent, "rnb_tpu_torch", "csrc",
                                    stem + ".cu")) as f:
                 sources["%s_parent" % stem] = f.read()
@@ -221,8 +278,11 @@ def main(argv=None) -> int:
     for name, lib in libs.items():
         if name.startswith("dct_"):
             lib.rnb_dct_ingest.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-        else:
+        elif name.startswith("pages_"):
             lib.rnb_gather_rows.argtypes = [p, p, p, p, ll, ll, ll, i, p]
+        else:
+            lib.rnb_ring_shift.argtypes = _kernels.RING_SHIFT.argtypes + [
+                i, p]
 
     device = torch.device("cuda", 0)
     wires = {rows: torch.from_numpy(SyntheticDecoder().decode_clips_dct(
@@ -255,17 +315,30 @@ def main(argv=None) -> int:
             gathered.data_ptr(), 15, slab.shape[0], FRAMES * 18816, 0,
             torch.cuda.current_stream().cuda_stream)
 
-    for rows in (15, 48):
-        print(json.dumps({"idct_ops_per_mcu_warp": idct_terms(
-            *dct.unpack_dct_rows_reference(wires[rows].cpu(), HW, HW)),
-            "rows": rows}))
+    tables, _keep = ring_tables(device)
+
+    def ring(lib, name):
+        table = tables[name]
+        return lambda: lib.rnb_ring_shift(
+            *table, 0, torch.cuda.current_stream().cuda_stream)
+
+    if "dct" in args.only:
+        for rows in (15, 48):
+            print(json.dumps({"idct_ops_per_mcu_warp": idct_terms(
+                *dct.unpack_dct_rows_reference(wires[rows].cpu(), HW, HW)),
+                "rows": rows}))
     calls = {}
     for name, lib in libs.items():
         if name.startswith("dct_"):
             for rows in (2, 15, 48):
                 calls[("dct_ingest", name[4:], rows)] = ingest(lib, rows)
-        else:
+        elif name.startswith("pages_"):
             calls[("gather_rows", name[6:], 15)] = gather(lib)
+        else:
+            for table in tables:
+                fn = ring(lib, table)
+                if fn() == 0:  # a table over the variant's cap is refused
+                    calls[("ring_shift", name[5:], table)] = fn
     times: Dict[tuple, list] = {}
     for turn in range(2):
         order = list(calls.items())

@@ -23,6 +23,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __grid_constant__
 #define __constant__
 #define __align__(n) __attribute__((aligned(n)))
 #define __shared__ static

@@ -601,6 +601,53 @@ def test_ring_shift_kernel_on_a_misaligned_view_and_refusals(device):
         handoff_dma.ring_shift([base[0], base[1, :5]], 1)
 
 
+#: buffers of a grouped table on the card: (shard shape, dtype, the
+#: destination tensor's shape, its slot): a channels-last conv kernel's
+#: dim-0 slot, a float32 merge block's column block at a pitch, odd bytes
+#: one byte off 16-byte alignment, and 13-byte rows at a pitch
+_CARD_SLOTS = (
+    ((256, 144, 3, 1, 1), torch.bfloat16, (512, 144, 3, 1, 1),
+     lambda full: full[256:]),
+    ((15, 200), torch.float32, (15, 400), lambda full: full[:, 200:]),
+    ((1001,), torch.uint8, (2002,), lambda full: full[1:1002]),
+    ((3, 13), torch.uint8, (3, 26), lambda full: full[:, 13:]))
+
+
+def test_grouped_ring_kernel_writes_every_slot_and_nothing_else(device):
+    # tolerance: none. Entries of other sizes and layouts, shifts
+    # 0..degree-1, written into slots of canary-filled tensors, against
+    # the plain version into twins of them on the same card; 44 entries
+    # pass the launch's cap at both degrees, so the table splits
+    gen = torch.Generator().manual_seed(11)
+    for degree in (2, 4):
+        table, plain, fulls = [], [], []
+        for e, (shape, dtype, wide, slot) in enumerate(_CARD_SLOTS * 11):
+            srcs = [torch.randint(0, 256, shape, generator=gen,
+                                  dtype=torch.uint8).to(dtype).to(device)
+                    for _ in range(degree)]
+            if len(shape) == 5:
+                srcs = [x.contiguous(memory_format=torch.channels_last_3d)
+                        for x in srcs]
+            fmt = (torch.channels_last_3d if len(shape) == 5
+                   else torch.contiguous_format)
+            full = [torch.full(wide, 7, dtype=dtype, device=device)
+                    .contiguous(memory_format=fmt) for _ in range(2 * degree)]
+            table.append(handoff_dma.RingEntry(
+                srcs, [slot(f) for f in full[:degree]], e % degree))
+            plain.append(handoff_dma.RingEntry(
+                srcs, [slot(f) for f in full[degree:]], e % degree))
+            fulls.append(full)
+        handoff_dma.ring_shift_group_reference(plain)
+        before = _kernels.RING_SHIFT.launches
+        handoff_dma.ring_shift_group(table)
+        torch.cuda.synchronize(device)
+        cap = handoff_dma.RING_MAX_TILES // degree
+        assert _kernels.RING_SHIFT.launches - before == -(-len(table) // cap)
+        for full in fulls:
+            for got, want in zip(full[:degree], full[degree:]):
+                assert torch.equal(got, want)
+
+
 def test_a_sharded_stage_replays_degree_1_s_logits_bitwise(device):
     # tolerance: none — the gathers move bytes and the ops are the
     # unsharded forward's, in the same captured form
@@ -614,8 +661,9 @@ def test_a_sharded_stage_replays_degree_1_s_logits_bitwise(device):
     assert sharded.graph_keys() == plain.graph_keys()
     (graph,) = sharded._graphs.values()
     # the nine temporal kernels of layer sizes (1, 1, 1, 1) and the head's
-    # two leaves, one hop each at degree 2, inside the graph
-    assert graph.launches == {"yuv420_normalize": 1, "ring_shift": 11}
+    # two leaves, gathered together: one launch at degree 2, inside the
+    # graph
+    assert graph.launches == {"yuv420_normalize": 1, "ring_shift": 1}
     _kernels.reset_launches()
     for valid in (6, 2):
         x = _packed(6, seed=70 + valid).to(device)
@@ -625,7 +673,7 @@ def test_a_sharded_stage_replays_degree_1_s_logits_bitwise(device):
                                None)
         torch.cuda.synchronize(device)
         assert torch.equal(got.data, want.data)
-    # one replay (11 hops) and one merge hop a forward
-    assert _kernels.RING_SHIFT.launches == 2 * (11 + 1)
+    # one replay (one grouped gather) and one merge launch a forward
+    assert _kernels.RING_SHIFT.launches == 2 * (1 + 1)
     assert sharded.shard_stats["gathers"] == 2
     assert sharded.shard_stats["collective_ms"] > 0

@@ -26,7 +26,11 @@ import torch
 
 from rnb_tpu_torch.decode import SyntheticDecoder
 from rnb_tpu_torch.ops import _kernels, dct
-from rnb_tpu_torch.ops.handoff_dma import ring_shift_reference
+from rnb_tpu_torch.ops.handoff_dma import (RING_MAX_TILES, RingEntry,
+                                           ring_gather_tables,
+                                           ring_launches,
+                                           ring_shift_group_reference,
+                                           ring_shift_reference)
 from rnb_tpu_torch.ops.pages import gather_rows_reference
 from rnb_tpu_torch.ops.preprocess import normalize_u8_reference
 from rnb_tpu_torch.ops.yuv import packed_frame_bytes, yuv420_to_rgb_reference
@@ -312,6 +316,15 @@ _RING_CASES = {"vectors_and_tail": (40007, 0), "small": (13, 0),
                "misaligned": (40007, 1)}
 
 
+def _run_ring(libs, table):
+    """``table`` through the emulated ``rnb_ring_shift``, launch by
+    launch, as the wrapper splits it; returns the launches."""
+    launches = ring_launches(table)
+    for args in launches:
+        assert libs["ring_shift"](*args, 0, None) == 0
+    return len(launches)
+
+
 @pytest.mark.parametrize("case", sorted(_RING_CASES))
 @pytest.mark.parametrize("degree,shift", [(1, 0), (2, 1), (4, 1), (4, 3),
                                           (8, 5)])
@@ -327,18 +340,193 @@ def test_ring_shift_kernel_is_bitwise_its_plain_version(libs, degree, shift,
     dsts = [torch.full((nbytes + offset,), 0xA5, dtype=torch.uint8)
             for _ in range(degree)]
     want = ring_shift_reference([t[offset:] for t in srcs], shift)
-    pointers = ctypes.c_void_p * degree
-    assert libs["ring_shift"](
-        pointers(*(t.data_ptr() + offset for t in srcs)),
-        pointers(*(t.data_ptr() + offset for t in dsts)), degree, shift,
-        nbytes, 0, None) == 0
+    assert _run_ring(libs, [RingEntry([t[offset:] for t in srcs],
+                                      [t[offset:] for t in dsts],
+                                      shift)]) == 1
     for got, expected in zip(dsts, want):
         assert torch.equal(got[offset:], expected)
 
 
-def test_ring_shift_kernel_refuses_what_it_cannot_run(libs):
-    one = torch.zeros(16, dtype=torch.uint8)
-    pointers = (ctypes.c_void_p * 1)(one.data_ptr())
-    for n, shift in ((0, 0), (9, 0), (2, 2), (2, -1)):
-        assert libs["ring_shift"](pointers, pointers, n, shift, 16, 0,
-                                  None) != 0
+def _arena_views(arena, kind, nbytes, rows, cursor, rng):
+    """A view of ``arena`` at ``cursor`` for an entry of ``kind``, and
+    the cursor past it and a gap of canary bytes."""
+    offset = cursor + (int(rng.integers(1, 16)) if kind == "misaligned"
+                       else 0)
+    if kind in ("rows", "odd_rows"):
+        row_bytes = nbytes // rows
+        pitch = 2 * row_bytes + (0 if kind == "rows" else 3)
+        view = arena[offset:offset + rows * pitch].view(rows, pitch)
+        return view[:, :row_bytes], offset + rows * pitch + 32
+    return arena[offset:offset + nbytes], offset + nbytes + 32
+
+
+#: entry kinds of a grouped table: (bytes, rows). One byte; an odd size
+#: under one vector; vectors and a tail; five blocks of 16 KB; the same
+#: one to 15 bytes off 16-byte alignment (the byte loop); rows of 48
+#: bytes at a pitch of 96 (16-byte vectors at a pitch); rows of 13 bytes
+#: at a pitch of 29 (the byte loop at a pitch)
+_GROUP_KINDS = {"one": (1, 1), "odd": (13, 1), "tail": (40007, 1),
+                "blocks": (70000, 1), "misaligned": (40007, 1),
+                "rows": (15 * 48, 15), "odd_rows": (3 * 13, 3)}
+
+
+def _group_table(degree, entries, seed):
+    """A seeded table of ``entries`` entries of mixed kinds and shifts
+    0..degree-1, sources in one random arena a member and destinations
+    in one canary-filled arena a member, with canary gaps between them;
+    returns the table and the destination arenas."""
+    rng = np.random.default_rng(seed)
+    kinds = [sorted(_GROUP_KINDS)[(seed + e) % len(_GROUP_KINDS)]
+             for e in range(entries)]
+    # the large kinds are few: the emulation runs a thread a CUDA thread
+    kinds = [k if k not in ("tail", "blocks", "misaligned") or e % 5 == 0
+             else "odd" for e, k in enumerate(kinds)]
+    size = sum(_GROUP_KINDS[k][0] * 2 + 128 for k in kinds)
+    src_arenas = [torch.from_numpy(rng.integers(0, 256, size,
+                                                dtype=np.uint8))
+                  for _ in range(degree)]
+    dst_arenas = [torch.full((size,), 0xA5, dtype=torch.uint8)
+                  for _ in range(degree)]
+    table, src_cursor, dst_cursor = [], [0] * degree, [0] * degree
+    for e, kind in enumerate(kinds):
+        nbytes, rows = _GROUP_KINDS[kind]
+        srcs, dsts = [], []
+        for m in range(degree):
+            # sources dense on even entries, at a pitch on odd ones
+            src_kind = kind if kind != "rows" or e % 2 else "dense_rows"
+            if src_kind == "dense_rows":
+                view = src_arenas[m][src_cursor[m]:src_cursor[m] + nbytes]
+                srcs.append(view.view(rows, nbytes // rows))
+                src_cursor[m] += nbytes + 32
+            else:
+                view, src_cursor[m] = _arena_views(
+                    src_arenas[m], kind, nbytes, rows, src_cursor[m], rng)
+                srcs.append(view)
+            view, dst_cursor[m] = _arena_views(
+                dst_arenas[m], kind, nbytes, rows, dst_cursor[m], rng)
+            dsts.append(view)
+        table.append(RingEntry(srcs, dsts, e % degree))
+    return table, dst_arenas
+
+
+def _reference_arenas(table, dst_arenas):
+    """The plain version of ``table`` into copies of the canary arenas."""
+    copies = [a.clone() for a in dst_arenas]
+    index = {a.data_ptr(): c for a, c in zip(dst_arenas, copies)}
+    ref = []
+    for entry in table:
+        dsts = []
+        for d in entry.dsts:
+            (base,) = [a for a in dst_arenas
+                       if 0 <= d.data_ptr() - a.data_ptr() < a.numel()]
+            dsts.append(torch.as_strided(
+                index[base.data_ptr()], d.shape, d.stride(),
+                d.data_ptr() - base.data_ptr()))
+        ref.append(RingEntry(entry.srcs, dsts, entry.shift))
+    ring_shift_group_reference(ref)
+    return copies
+
+
+@pytest.mark.parametrize("entries", ["few", "cap", "past_cap", "twice_cap"])
+@pytest.mark.parametrize("degree", [2, 4, 8])
+def test_grouped_ring_kernel_is_bitwise_its_plain_version(libs, degree,
+                                                          entries):
+    # tolerance: none (the hop moves bytes). Mixed entry sizes and
+    # layouts, per-entry shifts 0..degree-1, up to the launch's cap and
+    # past it (the wrapper's split); the destination arenas start as
+    # canary bytes, so a byte written outside a slot, or a slot byte not
+    # written, differs from the plain version's arenas
+    cap = RING_MAX_TILES // degree
+    count = {"few": 7, "cap": cap, "past_cap": cap + 1,
+             "twice_cap": 2 * cap + 3}[entries]
+    table, arenas = _group_table(degree, count, seed=degree * 100 + count)
+    want = _reference_arenas(table, arenas)
+    assert _run_ring(libs, table) == -(-count // cap)
+    for got, expected in zip(arenas, want):
+        assert torch.equal(got, expected)
+    assert {e.shift for e in table} == set(range(degree)) or count < degree
+
+
+def test_grouped_ring_kernel_skips_empty_entries(libs):
+    # an empty entry moves nothing and takes no tile; a table of them
+    # launches nothing
+    a = torch.arange(32, dtype=torch.uint8)
+    b = torch.zeros(32, dtype=torch.uint8)
+    empty = RingEntry([a[:0], a[:0]], [b[:0], b[:0]], 1)
+    assert _run_ring(libs, [empty]) == 0
+    assert _run_ring(libs, [empty, RingEntry([a[:16], a[16:]],
+                                             [b[:16], b[16:]], 1)]) == 1
+    assert torch.equal(b, torch.cat([a[16:], a[:16]]))
+
+
+def _refusal_args(n=2, entries=1, shift=1, rows=1, row_bytes=16,
+                  src_pitch=16, dst_pitch=16):
+    one = torch.zeros(4096, dtype=torch.uint8)
+    pairs = max(1, entries * n)
+    pointers = ctypes.c_void_p * pairs
+    longs = ctypes.c_longlong
+    return (pointers(*[one.data_ptr()] * pairs),
+            pointers(*[one.data_ptr()] * pairs),
+            (longs * pairs)(*[src_pitch] * pairs),
+            (longs * pairs)(*[dst_pitch] * pairs),
+            (ctypes.c_int * max(1, entries))(*[shift] * max(1, entries)),
+            (longs * max(1, entries))(*[rows] * max(1, entries)),
+            (longs * max(1, entries))(*[row_bytes] * max(1, entries)),
+            n, entries, 0, None), one
+
+
+@pytest.mark.parametrize("bad", [
+    dict(n=0, shift=0), dict(n=9, shift=0), dict(shift=2), dict(shift=-1),
+    dict(entries=RING_MAX_TILES // 2 + 1), dict(n=8, entries=11),
+    dict(entries=-1), dict(row_bytes=-16), dict(rows=-1),
+    dict(rows=2, src_pitch=8), dict(rows=2, dst_pitch=15),
+    dict(rows=2, row_bytes=1 << 31, src_pitch=1 << 32,
+         dst_pitch=1 << 32)])
+def test_ring_shift_kernel_refuses_what_it_cannot_run(libs, bad):
+    args, _keep = _refusal_args(**bad)
+    assert libs["ring_shift"](*args) != 0
+
+
+def test_ring_shift_kernel_takes_a_full_table(libs):
+    # the cap itself is taken, at every degree
+    for n in (1, 2, 3, 8):
+        args, _keep = _refusal_args(n=n, entries=RING_MAX_TILES // n,
+                                    shift=0)
+        assert libs["ring_shift"](*args) == 0
+
+
+@pytest.mark.parametrize("axis", [0, -1])
+@pytest.mark.parametrize("degree", [2, 3, 4, 8])
+def test_ring_all_gather_tables_through_the_kernel_are_the_unsharded(
+        libs, degree, axis):
+    # tolerance: none. Leaves of mixed shapes and dtypes, a channels-last
+    # conv kernel among them on axis 0; the all-gather's tables run
+    # through the emulated kernel in degree - 1 launches at degree 2 to 4
+    # (the first table at degree 8 holds 2 x 8 x 3 pairs: one split)
+    rng = np.random.default_rng(degree * 7 + axis)
+    shapes = [(degree * 2, 6), (3, degree * 5), (degree, 3, 2)]
+    leaves_full = [torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in shapes]
+    conv = torch.from_numpy(rng.integers(0, 256, (degree * 2, 5, 3, 1, 1),
+                                         dtype=np.uint8)).contiguous(
+        memory_format=torch.channels_last_3d)
+    if axis == 0:
+        leaves_full.append(conv)
+    leaves = [[c.clone() for c in torch.chunk(x, degree, dim=axis)]
+              if x.shape[axis] % degree == 0 else None for x in leaves_full]
+    leaves_full = [x for x, s in zip(leaves_full, leaves) if s is not None]
+    leaves = [s for s in leaves if s is not None]
+    if axis == 0:
+        leaves[-1] = [s.contiguous(memory_format=torch.channels_last_3d)
+                      for s in leaves[-1]]
+    got, tables = ring_gather_tables(leaves, axis)
+    assert len(tables) == degree - 1
+    splits = -(-2 * degree * len(leaves) // RING_MAX_TILES) - 1
+    assert sum(_run_ring(libs, table) for table in tables) == (degree - 1
+                                                              + splits)
+    for members, full in zip(got, leaves_full):
+        assert len(members) == degree
+        for member in members:
+            assert torch.equal(member, full)
+            if full.dim() == 5:
+                assert member.stride() == full.stride()

@@ -58,6 +58,7 @@ from rnb_tpu.telemetry import TimeCard as JaxCard
 from rnb_tpu_torch.config import ConfigError, load_config, parse_config
 from rnb_tpu_torch.decode import SyntheticDecoder, write_y4m
 from rnb_tpu_torch.models.r2p1d import model as port_model
+from rnb_tpu_torch.models.r2p1d import network as network_mod
 from rnb_tpu_torch.models.r2p1d.checkpoint import from_jax_variables
 from rnb_tpu_torch.models.r2p1d.model import R2P1DRunner
 from rnb_tpu_torch.models.r2p1d.network import (LAYER_INPUT_SHAPES, Conv3d,
@@ -145,7 +146,7 @@ def test_ring_shift_is_bitwise_the_reference_twin(degree, shift, dtype):
 
 
 @pytest.mark.parametrize("axis", [0, -1])
-@pytest.mark.parametrize("degree", [1, 2, 4])
+@pytest.mark.parametrize("degree", [1, 2, 4, 8])
 def test_ring_all_gather_is_bitwise_the_reference(degree, axis):
     full = _values("float32", (8, 3, 8), seed=degree + 31 * (axis + 2))
     spec = [None] * 3
@@ -162,6 +163,86 @@ def test_ring_all_gather_is_bitwise_the_reference(degree, axis):
     assert len(got) == degree
     for member in got:
         assert np.array_equal(member.numpy(), want)
+
+
+@pytest.mark.parametrize("axis", [0, -1])
+@pytest.mark.parametrize("degree", [1, 2, 4, 8])
+def test_ring_all_gather_many_is_bitwise_the_reference(degree, axis):
+    # several leaves of other shapes in the same n - 1 tables, each held
+    # to the reference's gather of it
+    leaves, wants = [], []
+    for k, shape in enumerate(((8, 3, 8), (16, 8), (8, 2, 2, 8))):
+        full = _values("float32", shape, seed=degree * 3 + k + 11 * (axis + 2))
+        spec = [None] * len(shape)
+        spec[axis] = "tp"
+        x = jax.device_put(jnp.asarray(full), NamedSharding(
+            _mesh(degree), PartitionSpec(*spec)))
+        wants.append(np.asarray(jax_dma.ring_all_gather(
+            x, _mesh(degree), axis=axis, use_pallas=False)))
+        leaves.append(_shard_along(_torch(full), degree, axis))
+    got = handoff_dma.ring_all_gather_many(leaves, axis)
+    assert len(got) == len(leaves)
+    for members, want in zip(got, wants):
+        assert len(members) == degree
+        for member in members:
+            assert np.array_equal(member.numpy(), want)
+            assert member.is_contiguous()
+
+
+@pytest.mark.parametrize("degree", [2, 4])
+def test_the_grouped_gather_takes_degree_minus_one_tables(degree,
+                                                          monkeypatch):
+    # at degree 2 one table (one launch on the card) whatever the number
+    # of leaves: own slots and the first hop ride together
+    tables = []
+    plain = handoff_dma.ring_shift_group
+
+    def counted(table):
+        tables.append(len(list(table)))
+        return plain(table)
+    monkeypatch.setattr(handoff_dma, "ring_shift_group", counted)
+    leaves = [_shard_along(torch.arange(degree * k * 3.0).view(-1, 3),
+                           degree, 0) for k in (1, 2, 5)]
+    handoff_dma.ring_all_gather_many(leaves, 0)
+    # the first table: own slot and first hop of each leaf; then a hop
+    # entry a leaf
+    assert tables == [2 * len(leaves)] + [len(leaves)] * (degree - 2)
+
+
+def _group(n, shift=1, shapes=None):
+    shapes = shapes or [(4,)] * (2 * n)
+    tensors = [torch.zeros(s) for s in shapes]
+    return handoff_dma.RingEntry(tensors[:n], tensors[n:], shift)
+
+
+@pytest.mark.parametrize("entry,message", [
+    (_group(2, shift=2), "shift 2 outside 0..1"),
+    (_group(2, shift=-1), "shift -1 outside 0..1"),
+    (_group(2, shapes=[(4,), (4,), (4,), (5,)]), "one dtype and shape"),
+    (handoff_dma.RingEntry([torch.zeros(4)] * 2, [torch.zeros(4)] * 3, 1),
+     "2 sources and 3 destinations"),
+    (_group(9), "1 to 8 members")])
+def test_the_grouped_hop_refuses_a_malformed_table(entry, message):
+    # the same refusals on the plain path as on the card's
+    for fn in (handoff_dma.ring_shift_group,
+               handoff_dma.ring_shift_group_reference):
+        with pytest.raises(ValueError, match=message):
+            fn([entry])
+
+
+def test_the_grouped_hop_writes_rows_at_a_pitch_on_the_plain_path():
+    # the merge's entry: (15, 200) float32 blocks into column blocks of
+    # (15, 400) results, each member's own (shift 0) and its neighbour's
+    # (shift 1) in one table
+    blocks = [torch.from_numpy(_values("float32", (15, 200), seed=m))
+              for m in range(2)]
+    full = [torch.full((15, 400), float("nan")) for _ in range(2)]
+    slots = [[f[:, :200], f[:, 200:]] for f in full]
+    handoff_dma.ring_shift_group([
+        handoff_dma.RingEntry(blocks, [slots[0][0], slots[1][1]], 0),
+        handoff_dma.RingEntry(blocks, [slots[0][1], slots[1][0]], 1)])
+    for f in full:
+        assert torch.equal(f, torch.cat(blocks, dim=-1))
 
 
 @pytest.mark.parametrize("axis", [-1, 0])
@@ -196,6 +277,8 @@ def test_a_cuda_or_meta_member_never_takes_the_plain_version():
     mixed = [torch.zeros(4), torch.empty(4, device="meta")]
     with pytest.raises(ValueError, match="cuda tensors"):
         handoff_dma.ring_shift(mixed)
+    with pytest.raises(ValueError, match="cuda tensors"):
+        handoff_dma.ring_all_gather_many([meta], 0)
 
 
 # -- the ring ------------------------------------------------------------
@@ -461,6 +544,41 @@ def test_every_member_gathers_the_same_weight_laid_out_as_unsharded(degree):
                if "_shards." in n) == sum(
         p.numel() for n, p in plain.named_parameters()
         if shardplan.is_sharded_param(n))
+
+
+@pytest.mark.parametrize("start,end", [(1, 5), (1, 4), (3, 5)])
+@pytest.mark.parametrize("degree", [2, 4])
+def test_the_grouped_gather_hands_each_op_the_per_leaf_gather(
+        degree, start, end, monkeypatch):
+    # tolerance: none. gather_leaves gathers every sharded leaf of the
+    # network together: bitwise, and laid out, as each leaf's own
+    # gather_shards, in degree - 1 tables; the forward takes it once
+    net = cast_compute_weights(port_model.shared_network(
+        start, end, CLASSES, LS, CPU, shards=degree))
+    leaves = network_mod.sharded_leaves(net)
+    # the temporal kernels of the range (one in the stem, two a layer of
+    # layer sizes (1, 1, 1, 1)) and the head's weight and bias
+    assert len(leaves) == {(1, 5): 11, (1, 4): 7, (3, 5): 8}[start, end]
+    gathered = network_mod.gather_leaves(net)
+    assert list(gathered) == leaves
+    for shards in leaves:
+        want = network_mod.gather_shards(shards)
+        got = gathered[shards]
+        assert torch.equal(got, want)
+        assert got.stride() == want.stride() and got.dtype == want.dtype
+    tables = []
+    plain = handoff_dma.ring_shift_group
+
+    def counted(table):
+        tables.append(len(list(table)))
+        return plain(table)
+    monkeypatch.setattr(handoff_dma, "ring_shift_group", counted)
+    rows = LAYER_INPUT_SHAPES[start]
+    x = torch.zeros((1, 2) + rows[1:] if start == 1 else (1,) + rows,
+                    dtype=torch.bfloat16)
+    with torch.inference_mode():
+        net(x)
+    assert tables == [2 * len(leaves)] + [len(leaves)] * (degree - 2)
 
 
 def _random_tree(tree, rng):
