@@ -147,7 +147,11 @@ Phases (any failure exits non-zero and prints no result line):
    step 0 on 60), over a copy of the dataset that adds one video whose
    header probes and whose decode fails (request 8 draws it first), in
    bulk (64 requests) and as a burst (a Poisson mean of 1 ms into queues
-   4 deep, 200 requests): completed + failed + shed equal to the
+   4 deep, 3000 requests, the burst's own copy: the same faults but both
+   stalls on request 0, the client's first, always admitted — 100 ms at
+   step 0, so the client sheds, then 1500 ms at step 1, so what step 0
+   published meanwhile expires at step 1's take; the target outlasts
+   what is shed during the stalls): completed + failed + shed equal to the
    requests in bulk (at least the target in the burst), the dead
    letters the plan's permanent ids (all of them in bulk) and the broken
    video's requests (request 8 in bulk), the broken decode failing
@@ -190,6 +194,21 @@ Phases (any failure exits non-zero and prints no result line):
    capture it triggered and a flight dump; each prints the job and busy
    MFU, the owners' bytes, the captures' kernels by share of their spans
    and the card's name and power limit.
+   Then the operator plane: ``configs/rnb-fused-yuv-operator.json`` as
+   shipped (400 requests in bulk, so that the window outlasts a few
+   250 ms metrics ticks), scraped while it serves by a thread that reads
+   the bound address from ``operator.json``: ``GET /healthz``,
+   ``/metrics``, ``/statusz``, ``/stacks`` and ``/whatif?replicas_step1=2``
+   all 200 inside the measured window, ``POST /flight`` 403, ``Operator:
+   scrapes >= 5 denied == 1 errors == 0``, ``stacks.folded`` holding a
+   ``runner-s1-g0-i0`` stack; then a copy with ``allow_actions``, the
+   devobs cell's ``devobs`` key and ``whatif`` (32 requests at a 20 ms
+   Poisson mean): ``POST /flight`` writing a valid ``flight-<n>.json``,
+   ``POST /capture`` a ``devobs-capture-<n>.txt`` holding the yuv420
+   kernel on ``/device:GPU:0``, ``Whatif: calibrated=1``; both through
+   the port's ``parse_utils`` (the ledger against ``operator.json``, the
+   folded stacks against ``Stacks:``, ``Whatif:`` recomputed), each with
+   one request's logits held to the CPU recompute.
    Every run: each ``R2P1DRunner`` forward in the window is one replay
    of a captured CUDA graph (``Graphs:`` replays == ``Compiles:``
    steady calls, or requests for the single step), no signature is new
@@ -198,8 +217,11 @@ Phases (any failure exits non-zero and prints no result line):
    graphs' capture seconds printed), and every y4m request was decoded
    by the native pool (``Decode backend: native``).
 
-The line before the last is ``nvidia-smi``'s name and power limit; the
-last line is ``{"ok": true, "device": {...}}``.
+The dataset lives under ``data/smoke`` in the checkout (cleared before
+the run, removed after it): its relative paths seed the sampler, so
+every smoke serves the same clip mix. The line before the last is
+``nvidia-smi``'s name and power limit; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -210,7 +232,6 @@ import os
 import shutil
 import subprocess
 import sys
-import tempfile
 import threading
 import time
 
@@ -247,9 +268,25 @@ STAGED = "configs/rnb-fused-yuv-staged.json"
 #: next to the dataset: in bulk, then as a burst (a Poisson mean of 1 ms
 #: into queues 4 deep, so the client sheds); served after the planes
 CHAOS = "rnb-fused-yuv-staged-chaos"
+#: the burst's own copy: the same faults, both stalls on the client's
+#: first request (chaos.BURST_STALL_ID), which is always admitted
 CHAOS_BURST = "rnb-fused-yuv-staged-chaos-burst"
 CHAOS_RUNS = (CHAOS, CHAOS_BURST)
 BURST_QUEUE = 4
+OPERATOR = "configs/rnb-fused-yuv-operator.json"
+#: the operator config with actions allowed, a devobs key and the root
+#: whatif key, written next to the dataset
+OPERATOR_ACTIONS = "rnb-fused-yuv-operator-actions"
+OPERATOR_RUNS = (OPERATOR, OPERATOR_ACTIONS)
+#: the devobs key of the actions copy: the shipped devobs cell's
+OPERATOR_DEVOBS = {"enabled": True, "watermark_mb": 256}
+#: seconds the operator scraper waits for the run's address and window
+SCRAPER_WAIT_S = 900
+#: the dataset's root, relative to the checkout and cleared before each
+#: run: the sampler draws a video's clip count from a CRC of its path,
+#: so a fixed relative path serves the same clip mix in every run and
+#: checkout
+SMOKE_ROOT = os.path.join("data", "smoke")
 TINY_SHED = "configs/r2p1d-tiny-shed.json"
 #: the shipped tiny-shed config with its devices 0 and 1 made 0, served
 #: last
@@ -275,7 +312,8 @@ GATHER_LAUNCHES = 1
 RING_TIMED_DEGREE = 2
 MERGE_BLOCK = (15, 200)
 #: mean Poisson gap of the open-loop runs that are not Zipf cells
-PLANE_INTERVAL_MS = {METRICS: 20, AUTOTUNE_POISSON: 25, CHAOS_BURST: 1}
+PLANE_INTERVAL_MS = {METRICS: 20, AUTOTUNE_POISSON: 25, CHAOS_BURST: 1,
+                     OPERATOR_ACTIONS: 20}
 #: the buckets the autotune config warms: the only ones it may choose
 AUTOTUNE_BUCKETS = {"6", "15"}
 CONFIGS = ("configs/rnb-fused-yuv-big.json",
@@ -308,7 +346,7 @@ ONE_PER_EMISSION = {"configs/rnb-fused-yuv-big.json": "yuv420_normalize",
                     TINY_SHED_COPY: "normalize_u8",
                     **{label: "yuv420_normalize"
                        for label in PLANES + CHAOS_RUNS + DEVOBS_RUNS
-                       + SHARD_RUNS}}
+                       + SHARD_RUNS + OPERATOR_RUNS}}
 #: the kernels each run launches, and no others
 PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 CONFIGS[2]: {"dct_ingest"},
@@ -325,7 +363,8 @@ PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 SHARD_D1_COPY: YUV_KERNELS,
                 SHARD_D2_COPY: YUV_KERNELS | {"ring_shift"},
                 **{label: YUV_KERNELS
-                   for label in PLANES + CHAOS_RUNS + DEVOBS_RUNS}}
+                   for label in PLANES + CHAOS_RUNS + DEVOBS_RUNS
+                   + OPERATOR_RUNS}}
 #: the runs of the unfused multi-step pipeline, in serving order
 UNFUSED = (WHOLE, WHOLE_RAGGED, WHOLE_YUV, SPLIT, RNB, NOPIPELINE)
 #: the runs whose logits check_unfused_run holds to the two-step run's
@@ -348,9 +387,15 @@ DCT_GEOMETRY = (64, 176)
 VIDEOS_PER_RUN = 32
 #: requests of the configs added last (the segment copy serves the
 #: whole run's requests, which it is held to)
+#: the burst's target outlasts what is shed during its stalls
+#: (chaos.BURST_MIN_TARGET); the operator config as shipped
+#: serves long enough in bulk for the scraper's requests and a few
+#: flusher ticks to fall inside the window (64 requests take about a
+#: third of a second, near the 250 ms metrics interval)
 FEW_VIDEOS = {TORCHCKPT: 12, MID: 12, TRACED: 12, CRITPATH: 12,
-              CHAOS: 64, CHAOS_BURST: 200, DEVOBS: 64,
-              DEVOBS_WATERMARK: 32, SHARD_D1_COPY: 64, SHARD_D2_COPY: 64}
+              CHAOS: 64, CHAOS_BURST: 3000, DEVOBS: 64,
+              DEVOBS_WATERMARK: 32, SHARD_D1_COPY: 64, SHARD_D2_COPY: 64,
+              OPERATOR: 400, OPERATOR_ACTIONS: 32}
 #: a captured graph against its eager forward where the two are not
 #: bitwise (a capture that changed the library's kernel choice): the
 #: float32 network's bound of tests/test_torch_network.py, relative to
@@ -2424,6 +2469,195 @@ def check_chaos_run(label, result, sink, recorder, takes, broken_ids,
     return served_takes
 
 
+def operator_actions_copy(data_root) -> str:
+    """The operator config with actions allowed, the shipped devobs
+    cell's devobs key and the root whatif key: a copy beside the
+    dataset."""
+    with open(os.path.join(HERE, OPERATOR)) as f:
+        raw = json.load(f)
+    raw["operator"]["allow_actions"] = True
+    raw["devobs"] = dict(OPERATOR_DEVOBS)
+    raw["whatif"] = {"enabled": True}
+    path = os.path.join(data_root, OPERATOR_ACTIONS + ".json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+class OperatorScraper(threading.Thread):
+    """A client of the operator plane while one run serves. It finds the
+    run's ``operator.json`` (one not there before the run started), reads
+    the bound address from it, polls ``/healthz`` until the measured
+    window opens, then makes its requests: for the config as shipped,
+    ``GET /healthz``, ``/metrics``, ``/statusz`` and ``/stacks``, a
+    ``POST /flight`` (refused: actions are off), ``/statusz`` until a
+    metrics snapshot exists and ``GET /whatif?replicas_step1=2`` until
+    the model is calibrated; for the actions copy, ``POST /flight`` and
+    ``POST /capture``. Each request's route, status, epoch second and
+    body are kept."""
+
+    def __init__(self, log_base, label):
+        super().__init__(name="operator-scraper", daemon=True)
+        self.log_base, self.label = log_base, label
+        self.before = set(self._addresses())
+        self.calls, self.error, self.address = [], None, None
+
+    def _addresses(self):
+        if not os.path.isdir(self.log_base):
+            return []
+        return [os.path.join(self.log_base, job, "operator.json")
+                for job in os.listdir(self.log_base)
+                if os.path.isfile(os.path.join(self.log_base, job,
+                                               "operator.json"))]
+
+    def _call(self, route, method="GET"):
+        import urllib.error
+        import urllib.request
+        request = urllib.request.Request(
+            self.address["url"] + route, method=method,
+            data=b"" if method == "POST" else None)
+        try:
+            with urllib.request.urlopen(request, timeout=30) as r:
+                status, body = r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            status, body = e.code, e.read().decode()
+        self.calls.append((method + " " + route, status, time.time(), body))
+        return status, body
+
+    def run(self):
+        try:
+            deadline = time.time() + SCRAPER_WAIT_S
+            while self.address is None:
+                check(time.time() < deadline, "%s: no operator.json"
+                      % self.label)
+                new = sorted(set(self._addresses()) - self.before)
+                if new:
+                    with open(new[0]) as f:
+                        self.address = json.load(f)
+                else:
+                    time.sleep(0.05)
+            while True:
+                check(time.time() < deadline, "%s: the window never "
+                      "opened" % self.label)
+                _status, body = self._call("/healthz")
+                if json.loads(body)["window_s"] > 0:
+                    break
+                time.sleep(0.1)
+            if self.label == OPERATOR:
+                for route in ("/metrics", "/statusz", "/stacks"):
+                    self._call(route)
+                self._call("/flight", "POST")
+                while "snapshot seq" not in self._call("/statusz")[1]:
+                    time.sleep(0.05)
+                # calibrated once a snapshot holds a completed dispatch
+                # of each step
+                while not json.loads(self._call(
+                        "/whatif?replicas_step1=2")[1])["calibrated"]:
+                    time.sleep(0.05)
+            else:
+                self._call("/flight", "POST")
+                self._call("/capture", "POST")
+        except Exception as e:  # read by check_operator_run
+            self.error = e
+
+
+def check_operator_run(label, result, scraper):
+    """An operator run: its logs pass the port's parse_utils (the
+    ``Operator:`` ledger against ``operator.json``, ``stacks.folded``
+    against ``Stacks:``, ``Whatif:`` recomputed from ``metrics.jsonl``
+    and the config copy); the server bound 127.0.0.1 on an ephemeral
+    port. As shipped: every GET answered 200 inside the measured window,
+    the POST 403, ``Operator: scrapes >= 5 denied == 1 errors == 0``,
+    ``/metrics`` the Prometheus exposition, ``/whatif`` a calibrated
+    answer and ``stacks.folded`` a stack of the runner thread. The
+    actions copy: both POSTs accepted, a valid ``flight-<n>.json``, a
+    ``devobs-capture-<n>.txt`` from the operator's trigger holding the
+    yuv420 kernel on ``/device:GPU:0``, and ``Whatif: calibrated=1``.
+    Prints the requests and the ledgers."""
+    from rnb_tpu_torch.parse_utils import read_folded, read_meta, summarize
+    from rnb_tpu_torch.trace import validate_trace
+    scraper.join(timeout=60)
+    check(not scraper.is_alive() and scraper.error is None,
+          "%s: the scraper failed: %r" % (label, scraper.error))
+    problems = summarize(result.log_dir)["footing_problems"]
+    check(not problems, "%s: %s" % (label, "; ".join(problems[:5])))
+    with open(os.path.join(result.log_dir, "operator.json")) as f:
+        record = json.load(f)
+    check(record["host"] == "127.0.0.1" and record["port"] > 0
+          and record["port"] == scraper.address["port"],
+          "%s: operator.json %s" % (label, record))
+    start, end = read_meta(os.path.join(result.log_dir,
+                                        "log-meta.txt"))["window"]
+    codes = {route: status for route, status, _t, _body in scraper.calls}
+    ledger = (result.operator_scrapes, result.operator_actions,
+              result.operator_denied, result.operator_errors)
+    if label == OPERATOR:
+        gets = [c for c in scraper.calls if c[0].startswith("GET")]
+        check(all(status == 200 for _r, status, _t, _b in gets)
+              and codes["POST /flight"] == 403,
+              "%s: %s" % (label, codes))
+        # every request came back before the window closed
+        late = [(r, round(t - end, 3)) for r, _s, t, _b in scraper.calls
+                if t > end]
+        check(not late, "%s: requests after the window closed (seconds "
+              "past it): %s" % (label, late))
+        check(result.operator_scrapes >= 5 and result.operator_denied == 1
+              and result.operator_errors == 0
+              and result.operator_actions == 0,
+              "%s: Operator: scrapes=%d actions=%d denied=%d errors=%d"
+              % ((label,) + ledger))
+        body = dict((r, b) for r, _s, _t, b in scraper.calls)
+        check("# TYPE rnb_client_requests counter" in body["GET /metrics"],
+              "%s: /metrics is no exposition" % label)
+        whatif = json.loads(body["GET /whatif?replicas_step1=2"])
+        check(whatif["calibrated"] is True and whatif["base_vps"] > 0
+              and whatif["spec"] == {"replicas": {"step1": 2}},
+              "%s: /whatif %s" % (label, whatif))
+        stacks, total, roles, _bad = read_folded(
+            os.path.join(result.log_dir, "stacks.folded"))
+        check("runner-s1-g0-i0" in roles and total == result.stacks_total,
+              "%s: stacks.folded roles %s" % (label, sorted(roles)))
+    else:
+        check(codes["POST /flight"] == 200 and codes["POST /capture"] == 200
+              and result.operator_actions == 2
+              and result.operator_errors == 0
+              and result.operator_denied == 0,
+              "%s: %s, Operator: scrapes=%d actions=%d denied=%d errors=%d"
+              % ((label, codes) + ledger))
+        flights = sorted(name for name in os.listdir(result.log_dir)
+                         if name.startswith("flight-"))
+        check(flights and not any(validate_trace(os.path.join(
+            result.log_dir, name)) for name in flights),
+              "%s: flight dumps %s" % (label, flights))
+        captures = {}
+        for name in os.listdir(result.log_dir):
+            if name.startswith("devobs-capture-"):
+                captures[name] = read_capture(os.path.join(result.log_dir,
+                                                           name))
+        check(any(trigger == "operator" and any(
+            plane == "/device:GPU:0" and YUV420_SYMBOL in op
+            for _t0, _t1, plane, op in ops)
+            for trigger, ops in captures.values()),
+              "%s: no operator capture holds %s on /device:GPU:0 (%s)"
+              % (label, YUV420_SYMBOL, {k: (t, len(o)) for k, (t, o)
+                                        in captures.items()}))
+        check(result.whatif_calibrated == 1 and result.whatif_stages == 2,
+              "%s: Whatif: stages=%d calibrated=%d" % (
+                  label, result.whatif_stages, result.whatif_calibrated))
+    print("operator %s: requests %s; Operator: scrapes=%d actions=%d "
+          "denied=%d errors=%d; Stacks: samples=%d threads=%d folded=%d "
+          "total=%d; Whatif: stages=%d calibrated=%d pred_vps_milli=%d "
+          "bottleneck_step=%d; window %.3f s"
+          % ((label, [(r, st, round(t - start, 3))
+                      for r, st, t, _b in scraper.calls[-8:]])
+             + ledger + (result.stacks_samples, result.stacks_threads,
+                         result.stacks_folded, result.stacks_total,
+                         result.whatif_stages, result.whatif_calibrated,
+                         result.whatif_pred_vps_milli,
+                         result.whatif_bottleneck_step,
+                         result.total_time_s)))
+
+
 def graph_input(runner, rows, seed):
     """A seeded input of one runner's input signature: wire rows on the
     yuv420 and dct paths, normalized frames or a feature map else."""
@@ -2649,6 +2883,12 @@ def phase_path(data_root, videos_per_run):
     from rnb_tpu_torch.video_path_provider import scan_video_tree
     chaos_path = chaos.write_chaos_copy(os.path.join(data_root,
                                                      CHAOS + ".json"))
+    burst_path = chaos.write_chaos_copy(
+        os.path.join(data_root, CHAOS_BURST + ".json"), burst=True)
+    check(FEW_VIDEOS[CHAOS_BURST] >= chaos.BURST_MIN_TARGET,
+          "the burst's target %d is under %d: its client could shed it "
+          "whole while step 1 stalls" % (FEW_VIDEOS[CHAOS_BURST],
+                                        chaos.BURST_MIN_TARGET))
     # the chaos runs' dataset: the same videos and one whose decode
     # fails after its header probed; request i draws video i mod N
     chaos_root = os.path.join(data_root, "chaos-dataset")
@@ -2659,7 +2899,7 @@ def phase_path(data_root, videos_per_run):
              (AUTOTUNE, os.path.join(HERE, AUTOTUNE)),
              (AUTOTUNE_POISSON, os.path.join(HERE, AUTOTUNE)),
              (CRITPATH, critpath_copy(data_root)),
-             (CHAOS, chaos_path), (CHAOS_BURST, chaos_path),
+             (CHAOS, chaos_path), (CHAOS_BURST, burst_path),
              (TINY_SHED_COPY, one_card_copy(data_root, TINY_SHED,
                                             TINY_SHED_COPY)),
              (SHARD_D1_COPY, one_card_copy(data_root, SHARD_D1,
@@ -2668,7 +2908,9 @@ def phase_path(data_root, videos_per_run):
                                            SHARD_D2_COPY)),
              # last: the runs before them keep their timing
              (DEVOBS, os.path.join(HERE, DEVOBS)),
-             (DEVOBS_WATERMARK, devobs_watermark_copy(data_root))]
+             (DEVOBS_WATERMARK, devobs_watermark_copy(data_root)),
+             (OPERATOR, os.path.join(HERE, OPERATOR)),
+             (OPERATOR_ACTIONS, operator_actions_copy(data_root))]
     whole_sink = None
     shard_runs = {}
     for label, config_path in runs:
@@ -2691,10 +2933,13 @@ def phase_path(data_root, videos_per_run):
             os.environ["RNB_FLIGHT_FORCE"] = "1"
         if label == DEVOBS:
             os.environ["RNB_DEVOBS_FORCE"] = "1"
-        recorder = takes = None
+        recorder = takes = scraper = None
         if label in CHAOS_RUNS:
             recorder = RetryRecorder(chaos.TRANSIENT_IDS)
             takes = TakeRecorder()
+        if label in OPERATOR_RUNS:
+            scraper = OperatorScraper(os.path.join(data_root, "logs"), label)
+            scraper.start()
         _kernels.reset_launches()
         t0 = time.time()
         try:
@@ -2804,6 +3049,8 @@ def phase_path(data_root, videos_per_run):
             check_devobs_run(label, result, config_path)
         if label in (AUTOTUNE, AUTOTUNE_POISSON):
             check_autotune_run(label, result)
+        if label in OPERATOR_RUNS:
+            check_operator_run(label, result, scraper)
         if label == CRITPATH:
             check_critpath_run(result)
         if label == SEGMENT_COPY:
@@ -2833,7 +3080,7 @@ def phase_path(data_root, videos_per_run):
         picks = by_clips[:2] + by_clips[-1:]
         if label in UNFUSED or label in FEW_VIDEOS:
             picks = by_clips[:1] + by_clips[-1:]
-        if label in PLANES + DEVOBS_RUNS + SHARD_RUNS:
+        if label in PLANES + DEVOBS_RUNS + SHARD_RUNS + OPERATOR_RUNS:
             picks = by_clips[:1]
         if label in CHAOS_RUNS:
             # the retried requests too: their served logits held to the
@@ -2879,13 +3126,18 @@ def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "rnb_tpu_torch")) or not all(
             os.path.exists(os.path.join(HERE, c))
             for c in CONFIGS + (SEGMENT, TRACED, METRICS, DEVOBS, AUTOTUNE,
-                                STAGED, TINY_SHED, SHARD_D1, SHARD_D2)):
+                                STAGED, TINY_SHED, SHARD_D1, SHARD_D2,
+                                OPERATOR)):
         print("chip_smoke: run from a checkout of the repo (rnb_tpu_torch/ "
               "and configs/ beside this script)", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
     t_start = time.time()
-    data_root = tempfile.mkdtemp(prefix="rnb-smoke-")
+    # the fixed dataset root is relative to the checkout
+    os.chdir(HERE)
+    data_root = SMOKE_ROOT
+    shutil.rmtree(data_root, ignore_errors=True)
+    os.makedirs(data_root)
     sass = None
     try:
         print("torch %s, CUDA %s, python %s" % (
@@ -2951,8 +3203,11 @@ def main() -> int:
             timings.update(more_timings)
             worst.update(more_worst)
 
-        from rnb_tpu_torch.dataset import make_dataset
+        from rnb_tpu_torch.dataset import clip_mix, make_dataset
         make_dataset(data_root)
+        mix = clip_mix(data_root)
+        print("dataset %s: %d videos, %.4f clips a request over them"
+              % (data_root, len(mix), sum(mix.values()) / len(mix)))
         launches = phase_path(data_root, VIDEOS_PER_RUN)
 
         sass_out, _ = sass.communicate()

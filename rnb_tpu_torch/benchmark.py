@@ -32,9 +32,18 @@ buckets:``. The root ``devobs`` key runs the device observability plane
 windows merged into ``trace.json`` as ``device:<plane>`` tracks, the
 per-stage compute meters behind ``Compute:``/``Compute stages:`` and the
 footprint ledger (:mod:`rnb_tpu_torch.memledger`) behind
-``Memory:``/``Memory owners:``. Without those keys none of it runs and no
-line or file is added. Every exit path, an aborted run included, leaves no hook
-installed and no flusher running.
+``Memory:``/``Memory owners:``. The root ``whatif`` key calibrates the
+queueing what-if model (:mod:`rnb_tpu_torch.whatif`) from the final
+metrics snapshot into ``Whatif:``; the root ``operator`` key serves the
+live registries over a loopback HTTP server (:mod:`rnb_tpu_torch.statusz`,
+its address in ``operator.json``, its request ledger in ``Operator:``)
+and samples the pipeline threads' stacks (:mod:`rnb_tpu_torch.stacksampler`:
+``stacks.folded``, ``Stacks:``, ``stacks:<role>`` tracks in a traced
+run's ``trace.json``); either key drops a copy of the config into the
+job directory, which ``parse_utils`` recomputes ``Whatif:`` from.
+Without those keys none of it runs and no line or file is added. Every
+exit path, an aborted run included, leaves no hook installed, no flusher
+running and no server bound.
 
 Fault containment (:mod:`rnb_tpu_torch.faults`, the reference's wiring):
 every run keeps a :class:`~rnb_tpu_torch.control.FaultStats` ledger shared
@@ -52,6 +61,7 @@ CLI::
 
     python -m rnb_tpu_torch.benchmark -c configs/rnb-fused-yuv-big.json \\
         -mi 0 -v 48            # bulk mode, 48 requests, on the card
+    python -m rnb_tpu_torch.benchmark --check -c CONFIG   # posture only
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ import json
 import os
 import queue
 import resource
+import shutil
 import sys
 import threading
 import time
@@ -76,6 +87,8 @@ from rnb_tpu_torch import memledger as memledger_mod
 from rnb_tpu_torch import metrics as metrics_mod
 from rnb_tpu_torch import profiler as profiler_mod
 from rnb_tpu_torch import trace as trace_mod
+from rnb_tpu_torch import whatif as whatif_mod
+from rnb_tpu_torch.arg_utils import nonnegative_int, positive_int
 from rnb_tpu_torch.autotune import AutotuneSettings
 from rnb_tpu_torch.autotune import aggregate_snapshots as aggregate_autotune
 from rnb_tpu_torch.cache import aggregate_snapshots
@@ -94,9 +107,14 @@ from rnb_tpu_torch.ops import _kernels
 from rnb_tpu_torch.ops.ragged import RaggedSettings
 from rnb_tpu_torch.pager import Pager, PagerSettings
 from rnb_tpu_torch.runner import NUM_SUMMARY_SKIPS, RunnerContext, runner
+from rnb_tpu_torch.stacksampler import StackSampler
+from rnb_tpu_torch.statusz import OperatorServer, OperatorSettings
 from rnb_tpu_torch.telemetry import latency_percentiles, logmeta, logroot
 from rnb_tpu_torch.utils.class_utils import load_class
 
+#: the JSON files a job writes itself, which its config copy must not
+#: replace
+JOB_FILES = ("operator.json", "trace.json", "profile.json")
 #: a stage that has not reached a barrier after this long is hung
 BARRIER_TIMEOUT_S = 1800.0
 #: the ``Pages:`` line's counters, in the reference's order
@@ -247,6 +265,26 @@ class BenchmarkResult:
     #: per-step shard detail (the ``Shard steps:`` line): degree, axis,
     #: merge counters, projected and budget MiB, smallest feasible degree
     shard_step_detail: Dict[str, Any] = field(default_factory=dict)
+    #: the ``Whatif:`` line (zero and -1 without ``whatif``): stages the
+    #: model calibrated, whether it calibrated, its predicted throughput
+    #: in milli videos/s and its bottleneck step
+    whatif_stages: int = 0
+    whatif_calibrated: int = 0
+    whatif_pred_vps_milli: int = 0
+    whatif_bottleneck_step: int = 0
+    #: the ``Operator:`` line (zero without ``operator``): GET requests
+    #: served, POST actions accepted, POST actions denied by the
+    #: ``allow_actions`` gate, request errors
+    operator_scrapes: int = 0
+    operator_actions: int = 0
+    operator_denied: int = 0
+    operator_errors: int = 0
+    #: the ``Stacks:`` line (zero without ``operator.sample_hz`` > 0):
+    #: sampling ticks, thread roles, distinct folded stacks, samples
+    stacks_samples: int = 0
+    stacks_threads: int = 0
+    stacks_folded: int = 0
+    stacks_total: int = 0
 
 
 def aggregate_shard(shard_sink) -> Dict[str, Any]:
@@ -334,31 +372,22 @@ def _start_tracer(config, filename_queue, queues):
     return tracer
 
 
-def _start_metrics(config, job_id: str, log_base: str, filename_queue,
-                   queues, queue_size: int, pager, tracer, slo_budget_ms,
-                   fault_stats, deadline_stats):
+def _start_metrics(config, job_id: str, log_base: str, queue_probes, pager,
+                   tracer, slo_budget_ms, fault_stats, deadline_stats):
     """The job's live-metrics registry and its SpanBridge (None, None
-    without the root ``metrics`` key). Its gauge sources are the filename
-    queue and every inter-stage queue (keyed by edge ordinal in step
-    order, each armed for the saturation trigger at the queue's
-    capacity); the fault ledger, the deadline ledger and the page
-    allocator are poll sources. The bridge forwards to ``tracer`` on a
-    traced run."""
+    without the root ``metrics`` key). Its gauge sources are the queue
+    depths of ``queue_probes`` (each armed for the saturation trigger at
+    the queue's capacity); the fault ledger, the deadline ledger and the
+    page allocator are poll sources. The bridge forwards to ``tracer`` on
+    a traced run."""
     settings = metrics_mod.MetricsSettings.from_config(config.metrics)
     if settings is None:
         return None, None
     registry = metrics_mod.MetricsRegistry(
         settings, job_dir=logroot(job_id, base=log_base), job_id=job_id,
         slo_budget_ms=slo_budget_ms)
-    registry.add_gauge_source(metrics_mod.name("queue.filename.depth"),
-                              filename_queue.qsize, capacity=queue_size)
-    edge_idx = 0
-    for step_idx in sorted(queues):
-        for q_idx in sorted(queues[step_idx]):
-            registry.add_gauge_source(
-                metrics_mod.name("queue.e%d.depth", edge_idx),
-                queues[step_idx][q_idx].qsize, capacity=queue_size)
-            edge_idx += 1
+    for probe_name, qsize, capacity in queue_probes:
+        registry.add_gauge_source(probe_name, qsize, capacity=capacity)
     registry.add_poll(metrics_mod.snapshot_poll(
         "faults", fault_stats.snapshot,
         counters=("num_failed", "num_shed", "num_retries")))
@@ -460,7 +489,8 @@ def run_benchmark(config_path: str,
                   outputs_sink: Optional[dict] = None,
                   profile: bool = False,
                   stages_sink: Optional[list] = None,
-                  xprof: bool = False) -> BenchmarkResult:
+                  xprof: bool = False,
+                  batch_size: int = 1) -> BenchmarkResult:
     """Programmatic entry used by the CLI, the tests and chip_smoke.py.
     ``outputs_sink``, when given, receives every request's output rows
     (request id -> (video, float32 array, its cache stamps)).
@@ -471,16 +501,23 @@ def run_benchmark(config_path: str,
     ``profile.json``, and the profiler's table in ``profile.txt``.
     ``xprof`` writes the window's device ops to ``xprof-ops.txt`` in the
     reference's 4-column format (``scripts/device_busy.py`` reads it).
-    The two hold the one profiler session: pass one of them."""
+    The two hold the one profiler session: pass one of them.
+    ``batch_size`` is the reference's ``-b``: recorded in the ``Args:``
+    line when it is not 1, read by no stage (as in the reference)."""
     if profile and xprof:
         raise ValueError("profile and xprof each hold the one profiler "
                          "session; pass one of them")
+    # stop() of the operator server and the stack sampler, run on every
+    # exit path (both are idempotent)
+    closers: list = []
     try:
         return _run_benchmark(
             config_path, mean_interval_ms, num_videos, queue_size, log_base,
             print_progress, seed, platform, outputs_sink, profile,
-            stages_sink, xprof)
+            stages_sink, xprof, batch_size, closers)
     finally:
+        for close in closers:
+            close()
         # every exit path, an aborted or failed run included: no trace,
         # metrics or devobs hook stays installed, no flusher, worker or
         # profiler session keeps running
@@ -496,9 +533,60 @@ def run_benchmark(config_path: str,
             registry.stop()
 
 
+def _queue_probes(filename_queue, queues, queue_size: int):
+    """``[(name, qsize, capacity)]`` of the filename queue and every
+    inter-stage queue, keyed by edge ordinal in step order: the metrics
+    plane's depth gauges and the depths ``/statusz`` shows."""
+    probes = [(metrics_mod.name("queue.filename.depth"),
+               filename_queue.qsize, queue_size)]
+    edge_idx = 0
+    for step_idx in sorted(queues):
+        for q_idx in sorted(queues[step_idx]):
+            probes.append((metrics_mod.name("queue.e%d.depth", edge_idx),
+                           queues[step_idx][q_idx].qsize, queue_size))
+            edge_idx += 1
+    return probes
+
+
+def _start_operator(config, job_id: str, log_base: str, registry,
+                    devobs_plane, queue_probes, termination, window: dict,
+                    closers: list, print_progress: bool):
+    """The operator plane's server and stack sampler (None, None without
+    the root ``operator`` key). The server binds and writes
+    ``operator.json`` now; the sampler starts with the measured window.
+    No path of the port builds lane health boards, so ``/healthz``
+    serves none."""
+    settings = OperatorSettings.from_config(config.operator)
+    if settings is None:
+        return None, None
+    sampler = (StackSampler(settings.sample_hz) if settings.sample_hz > 0
+               else None)
+    topology = {"steps": [
+        {"step": step_idx, "model": step.model, "groups": len(step.groups),
+         "instances": sum(len(g.devices) for g in step.groups),
+         "replica_lanes": []}
+        for step_idx, step in enumerate(config.steps)]}
+    server = OperatorServer(
+        settings, job_dir=logroot(job_id, base=log_base), job_id=job_id,
+        metrics_registry=registry, boards={}, devobs_plane=devobs_plane,
+        config_raw=config.raw, topology=topology,
+        queue_probes=queue_probes,
+        termination=termination, window=window, sampler=sampler)
+    if sampler is not None:
+        closers.append(sampler.stop)
+    closers.append(server.stop)
+    server.start()
+    if print_progress:
+        print("[rnb-tpu-torch] operator server on http://127.0.0.1:%d "
+              "(actions %s)" % (server.port, "enabled"
+                                if settings.allow_actions else "disabled"))
+    return server, sampler
+
+
 def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                    log_base, print_progress, seed, platform, outputs_sink,
-                   profile, stages_sink, xprof) -> BenchmarkResult:
+                   profile, stages_sink, xprof, batch_size,
+                   closers) -> BenchmarkResult:
     config = load_config(config_path, platform)
     job_id = "%s-mi%d-v%d-qs%d" % (
         datetime.today().strftime("%y%m%d_%H%M%S"), mean_interval_ms,
@@ -541,9 +629,10 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     slo_budget_ms = (deadline_settings.budget_ms if deadline_settings
                      else autotune_settings.slo_ms if autotune_settings
                      else None)
+    queue_probes = _queue_probes(filename_queue, queues, queue_size)
     registry, bridge = _start_metrics(
-        config, job_id, log_base, filename_queue, queues, queue_size, pager,
-        tracer, slo_budget_ms, fault_stats, deadline_stats)
+        config, job_id, log_base, queue_probes, pager, tracer,
+        slo_budget_ms, fault_stats, deadline_stats)
     devobs_plane = _start_devobs(config, job_id, log_base, registry)
     # installed before the stages are built: they register their poll
     # sources, compute profiles and byte owners before the start barrier
@@ -551,6 +640,13 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     if devobs_plane is not None:
         devobs_mod.ACTIVE = devobs_plane
         memledger_mod.ACTIVE = devobs_plane.ledger
+    whatif_settings = whatif_mod.WhatifSettings.from_config(config.whatif)
+    # the measured window's clock for /whatif and /statusz, stamped at
+    # the start barrier
+    operator_window: Dict[str, Any] = {"t0": None}
+    operator_server, stack_sampler = _start_operator(
+        config, job_id, log_base, registry, devobs_plane, queue_probes,
+        termination, operator_window, closers, print_progress)
     num_markers = max(NUM_EXIT_MARKERS,
                       sum(len(g.devices) for g in config.steps[0].groups))
 
@@ -666,10 +762,19 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     ru_start = resource.getrusage(resource.RUSAGE_SELF)
     launches_start = _kernels.launch_counts()
     time_start = time.time()
+    operator_window["t0"] = time_start
+    if stack_sampler is not None:
+        # the window only: no warm-up or capture lands in the folded
+        # stacks, and the ticks track sample_hz x the window
+        stack_sampler.start()
     if print_progress:
         print("START! %f" % time_start)
     fin_bar.wait()
     time_end = time.time()
+    if stack_sampler is not None:
+        # the ticks track sample_hz x the window: the reads of a --profile
+        # or --xprof session below take seconds
+        stack_sampler.stop()
     ru_end = resource.getrusage(resource.RUSAGE_SELF)
     host_cpu_s = ((ru_end.ru_utime + ru_end.ru_stime)
                   - (ru_start.ru_utime + ru_start.ru_stime))
@@ -726,6 +831,15 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
         if tracer is not None:
             tracer.extend(devobs_plane.device_events(
                 devobs_mod.model_call_spans(tracer.snapshot_events())))
+    stacks_summary = None
+    if stack_sampler is not None:
+        # written and merged into the tracer as stacks:<role> tracks
+        # before trace.json is written
+        stack_sampler.write_folded(os.path.join(
+            logroot(job_id, base=log_base), "stacks.folded"))
+        if tracer is not None:
+            tracer.extend(stack_sampler.trace_events())
+        stacks_summary = stack_sampler.summary()
     trace_events = trace_dropped = 0
     if tracer is not None:
         tracer.stop_sampler()
@@ -800,6 +914,24 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
         registry.stop()
         metrics_mod.ACTIVE = None
         metrics_summary = registry.summary()
+    operator_summary = None
+    if operator_server is not None:
+        # stopped after the final snapshot (a scraper may read the
+        # settled /metrics) and before log-meta, so the ledger is final
+        operator_server.stop()
+        operator_summary = operator_server.summary()
+    whatif_counters = None
+    if whatif_settings is not None:
+        # from the final snapshot, the last record of metrics.jsonl, so
+        # parse_utils recomputes the line from the artifacts alone
+        model = None
+        final = registry.final_snapshot() if registry is not None else None
+        if final is not None:
+            model = whatif_mod.calibrate_from_snapshot(
+                final, whatif_mod.steps_info_from_config(config.raw),
+                wall_s=total_time,
+                arrival_hz=whatif_mod.arrival_hz_from_snapshot(final))
+        whatif_counters = whatif_mod.summary_counters(model)
     result = BenchmarkResult(
         job_id=job_id, total_time_s=total_time, num_videos=num_videos,
         termination_flag=int(termination.value),
@@ -834,6 +966,11 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     if critpath_report is not None:
         for key, value in critpath_report.items():
             setattr(result, "critpath_" + key, value)
+    for prefix, summary in (("whatif_", whatif_counters),
+                            ("operator_", operator_summary),
+                            ("stacks_", stacks_summary)):
+        for key, value in (summary or {}).items():
+            setattr(result, prefix + key, value)
     if shard_stats is not None:
         for key, value in shard_stats.items():
             setattr(result, "shard_" + key, value)
@@ -857,11 +994,13 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
             else:
                 setattr(result, "memory_" + key, value)
 
+    args = dict(config=config_path, mean_interval_ms=mean_interval_ms,
+                num_videos=num_videos, queue_size=queue_size, seed=seed,
+                platform=config.platform)
+    if batch_size != 1:
+        args["batch_size"] = batch_size
     with open(logmeta(job_id, base=log_base), "w") as f:
-        f.write("Args: %s\n" % json.dumps(dict(
-            config=config_path, mean_interval_ms=mean_interval_ms,
-            num_videos=num_videos, queue_size=queue_size, seed=seed,
-            platform=config.platform)))
+        f.write("Args: %s\n" % json.dumps(args))
         f.write("%f %f\n" % (time_start, time_end))
         f.write("Termination flag: %d\n" % termination.value)
         # the reference's fault lines, byte for byte
@@ -1009,12 +1148,39 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                         "redispatched", "bound_step", "bound_vps_milli")))
             f.write("Critpath stages: %s\n" % json.dumps(
                 critpath_report["stage_detail"], sort_keys=True))
+        if whatif_counters is not None:
+            # the reference's format; parse_utils recomputes it from
+            # metrics.jsonl and the config copy within 1 milli-vps
+            f.write("Whatif: stages=%d calibrated=%d pred_vps_milli=%d "
+                    "bottleneck_step=%d\n" % tuple(whatif_counters[k] for k in (
+                        "stages", "calibrated", "pred_vps_milli",
+                        "bottleneck_step")))
+        if operator_summary is not None:
+            # the reference's format; parse_utils holds it to
+            # operator.json both ways
+            f.write("Operator: scrapes=%d actions=%d denied=%d errors=%d\n"
+                    % tuple(operator_summary[k] for k in (
+                        "scrapes", "actions", "denied", "errors")))
+        if stacks_summary is not None:
+            # the reference's format; stacks.folded re-sums to total
+            f.write("Stacks: samples=%d threads=%d folded=%d total=%d\n"
+                    % tuple(stacks_summary[k] for k in (
+                        "samples", "threads", "folded", "total")))
         f.write("Kernels: %s\n" % json.dumps(window_launches,
                                              sort_keys=True))
         if kernel_ms is not None:
             f.write("Profile: kernel_ms=%.3f window_ms=%.3f busy_share=%.4f\n"
                     % (kernel_ms, total_time * 1e3,
                        kernel_ms / (total_time * 1e3)))
+    if whatif_settings is not None or operator_server is not None:
+        # the config copy whatif recomputes from (and parse_utils reads
+        # the sampler's rate from), as the reference drops it; a config
+        # named like one of the job's own files keeps it whole
+        name = os.path.basename(config_path)
+        if name in JOB_FILES:
+            name = "config-" + name
+        shutil.copyfile(config_path, os.path.join(
+            logroot(job_id, base=log_base), name))
     if faults["dead_letters"]:
         # one line per dead letter (the detail is capped, the counters
         # above are exact)
@@ -1101,18 +1267,83 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     return result
 
 
+def check_config(path: str) -> int:
+    """``--check -c <config>``: validate the config as the port reads it
+    and print the reference's posture lines (``rnb_tpu/benchmark.py``
+    ``main``), the knobs to know before pointing traffic at the pipeline.
+    Validation only: no stage is built, no kernel compiled, no device
+    touched. A config the port does not read yet is refused with the
+    reader's "not yet ported" error (exit 1). The ``handoff``,
+    ``placement`` and ``health`` keys and ``hedge_ms`` are not ported, so
+    a config the port reads carries none of them."""
+    from rnb_tpu_torch import client, control, runner  # noqa: F401
+    from rnb_tpu_torch.config import ConfigError
+    from rnb_tpu_torch.models.r2p1d import model  # noqa: F401
+    try:
+        cfg = load_config(path, platform="cpu")
+        plan = FaultPlan.resolve(cfg.fault_plan)
+        if plan is not None:
+            plan.check_steps(cfg.num_steps)
+    except (ConfigError, ValueError) as e:
+        print("config %s: %s" % (path, e), file=sys.stderr)
+        return 1
+
+    def spec(value) -> str:
+        return json.dumps(value, sort_keys=True) if value else "none"
+
+    retries = ", ".join(
+        "step%d: %d@%gms" % (i, s.max_retries, s.retry_backoff_ms)
+        for i, s in enumerate(cfg.steps) if s.max_retries) or "none"
+    print("config %s: %d step(s), overload_policy=%s, "
+          "fault_containment=%s, retries: %s"
+          % (path, cfg.num_steps, cfg.overload_policy,
+             cfg.fault_containment, retries))
+    print("fault plan: %s" % (plan.describe() if plan is not None
+                              else "none"))
+    caches = ", ".join(
+        "step%d: %g MB" % (i, s.kwargs["cache_mb"])
+        for i, s in enumerate(cfg.steps)
+        if s.kwargs.get("cache_mb")) or "none"
+    print("clip cache: %s; popularity: %s" % (caches, spec(cfg.popularity)))
+    opted_out = [i for i, s in enumerate(cfg.steps) if not s.autotune]
+    print("autotune: %s%s" % (spec(cfg.autotune),
+                              "; opted-out steps: %s" % opted_out
+                              if opted_out else ""))
+    print("ragged: %s" % spec(cfg.ragged))
+    print("handoff: none")
+    print("placement: none")
+    print("trace: %s" % spec(cfg.trace))
+    print("metrics: %s" % spec(cfg.metrics))
+    print("devobs: %s" % spec(cfg.devobs))
+    print("critpath: %s; whatif: %s" % (spec(cfg.critpath),
+                                        spec(cfg.whatif)))
+    print("operator: %s" % spec(cfg.operator))
+    print("health: none; deadline: %s; hedging: none"
+          % spec(cfg.deadline))
+    print("rnb_tpu_torch is ready to go!")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="PyTorch/CUDA streaming video-analytics benchmark")
-    parser.add_argument("-mi", "--mean_interval_ms", type=int, default=3,
+    parser.add_argument("-mi", "--mean_interval_ms", type=nonnegative_int,
+                        default=3,
                         help="Mean request interval (Poisson), ms; 0 = "
                              "bulk max-throughput mode")
-    parser.add_argument("-v", "--videos", type=int, default=2000,
+    parser.add_argument("-b", "--batch_size", type=positive_int, default=1,
+                        help="Video batch size per replica (recorded in "
+                             "the Args: line; no stage reads it)")
+    parser.add_argument("-v", "--videos", type=positive_int, default=2000,
                         help="Total number of videos to run")
-    parser.add_argument("-qs", "--queue_size", type=int, default=50000,
+    parser.add_argument("-qs", "--queue_size", type=positive_int,
+                        default=50000,
                         help="Max size of inter-stage queues")
     parser.add_argument("-c", "--config_file_path", type=str,
                         default="configs/rnb-fused-yuv-big.json")
+    parser.add_argument("--check", action="store_true",
+                        help="validate the config and print its posture, "
+                             "then exit")
     parser.add_argument("--platform", choices=["cuda", "cpu"],
                         default="cuda")
     parser.add_argument("--log-base", type=str, default="logs")
@@ -1124,12 +1355,14 @@ def main(argv=None) -> int:
                              "xprof-ops.txt (scripts/device_busy.py "
                              "reads it)")
     args = parser.parse_args(argv)
+    if args.check:
+        return check_config(args.config_file_path)
     result = run_benchmark(
         config_path=args.config_file_path,
         mean_interval_ms=args.mean_interval_ms, num_videos=args.videos,
         queue_size=args.queue_size, log_base=args.log_base,
         seed=args.seed, platform=args.platform, profile=args.profile,
-        xprof=args.xprof)
+        xprof=args.xprof, batch_size=args.batch_size)
     print("Throughput: %.3f videos/s" % result.throughput_vps)
     print("Logs: %s" % result.log_dir)
     print(json.dumps(asdict(result)))

@@ -12,7 +12,7 @@ device to the CPU on ``platform="cpu"``) and ``-1`` to the host.
 
 The reference's rules on ``num_segments`` (a step's fan-out into row
 segments), on the root ``trace``, ``metrics``, ``critpath``,
-``autotune`` and ``devobs`` keys, on the fault-containment root keys
+``autotune``, ``devobs``, ``whatif`` and ``operator`` keys, on the fault-containment root keys
 (``overload_policy``, ``fault_containment``, ``fault_plan``,
 ``deadline``) and on a step's ``autotune`` opt-out and retry budget
 (``max_retries``, ``retry_backoff_ms``) are kept with the reference's own
@@ -42,7 +42,7 @@ ROOT_KEYS = frozenset({"video_path_iterator", "pipeline", "ragged",
                        "popularity", "pager", "trace", "metrics",
                        "critpath", "autotune", "overload_policy",
                        "fault_containment", "fault_plan", "deadline",
-                       "devobs"})
+                       "devobs", "whatif", "operator"})
 TRACE_KEYS = ("enabled", "sample_hz", "max_events")
 #: the reference's key lists, in its order (its messages print them)
 METRICS_KEYS = ["enabled", "interval_ms", "flight_recorder"]
@@ -50,6 +50,8 @@ FLIGHT_RECORDER_KEYS = ["enabled", "ring_events", "max_dumps",
                         "burn_threshold", "shed_spike_per_s",
                         "queue_saturation", "cooldown_s"]
 CRITPATH_KEYS = ["enabled"]
+WHATIF_KEYS = ["enabled"]
+OPERATOR_KEYS = ["enabled", "port", "allow_actions", "sample_hz"]
 DEVOBS_KEYS = ["enabled", "capture_window_ms", "capture_on_trigger",
                "max_captures", "capture_max_ops", "watermark_mb",
                "sample_hz"]
@@ -184,6 +186,12 @@ class PipelineConfig:
     #: the device observability plane (root ``devobs`` key;
     #: rnb_tpu_torch.devobs)
     devobs: Optional[dict] = None
+    #: the calibrated what-if model at teardown (root ``whatif`` key;
+    #: rnb_tpu_torch.whatif)
+    whatif: Optional[dict] = None
+    #: the operator plane's HTTP server and stack sampler (root
+    #: ``operator`` key; rnb_tpu_torch.statusz)
+    operator: Optional[dict] = None
     #: the load-adaptive batching controller (root ``autotune`` key)
     autotune: Optional[dict] = None
     #: "abort" (a full queue stops the run) or "shed" (the new request
@@ -331,6 +339,44 @@ def _check_critpath(critpath) -> None:
             % (unknown, CRITPATH_KEYS))
     _expect(isinstance(critpath.get("enabled", True), bool),
             "'critpath.enabled' must be a boolean")
+
+
+def _check_whatif(whatif, metrics) -> None:
+    """The reference's rules (rnb_tpu/config.py, root ``whatif``): the
+    model calibrates from the metrics plane's service histograms."""
+    _expect(isinstance(whatif, dict), "'whatif' must be an object")
+    unknown = sorted(set(whatif) - set(WHATIF_KEYS))
+    _expect(not unknown, "'whatif' has unknown key(s) %s — keys are %s"
+            % (unknown, WHATIF_KEYS))
+    _expect(isinstance(whatif.get("enabled", True), bool),
+            "'whatif.enabled' must be a boolean")
+    if whatif.get("enabled", True):
+        _expect(isinstance(metrics, dict) and metrics.get("enabled", True),
+                "'whatif' requires an enabled root 'metrics' key — the "
+                "per-stage service histograms streamed to metrics.jsonl "
+                "are the calibration data")
+
+
+def _check_operator(operator) -> None:
+    """The reference's rules (rnb_tpu/config.py, root ``operator``)."""
+    _expect(isinstance(operator, dict), "'operator' must be an object")
+    unknown = sorted(set(operator) - set(OPERATOR_KEYS))
+    _expect(not unknown, "'operator' has unknown key(s) %s — keys are %s"
+            % (unknown, OPERATOR_KEYS))
+    _expect(isinstance(operator.get("enabled", True), bool),
+            "'operator.enabled' must be a boolean")
+    _expect(isinstance(operator.get("allow_actions", False), bool),
+            "'operator.allow_actions' must be a boolean (false keeps POST "
+            "/flight and /capture 403-gated)")
+    port = operator.get("port", 0)
+    _expect(isinstance(port, int) and not isinstance(port, bool)
+            and 0 <= port <= 65535,
+            "'operator.port' must be an integer in [0, 65535] (0 binds an "
+            "ephemeral port, recorded in operator.json), got %r" % (port,))
+    sample_hz = operator.get("sample_hz")
+    _expect(sample_hz is None or (_is_number(sample_hz) and sample_hz >= 0),
+            "'operator.sample_hz' must be a non-negative number (0 disables "
+            "the wall-clock stack sampler), got %r" % (sample_hz,))
 
 
 def _check_devobs(devobs) -> None:
@@ -553,9 +599,12 @@ def parse_config(raw: dict, platform: Optional[str] = None
                        ("metrics", _check_metrics),
                        ("critpath", _check_critpath),
                        ("devobs", _check_devobs),
-                       ("autotune", _check_autotune)):
+                       ("autotune", _check_autotune),
+                       ("operator", _check_operator)):
         if raw.get(key) is not None:
             check(raw[key])
+    if raw.get("whatif") is not None:
+        _check_whatif(raw["whatif"], raw.get("metrics"))
     ragged = raw.get("ragged")
     if ragged is not None:
         _check_keys(ragged, RAGGED_KEYS, "ragged")
@@ -670,8 +719,8 @@ def parse_config(raw: dict, platform: Optional[str] = None
         steps=steps, ragged=ragged, platform=platform,
         popularity=popularity, pager=pager, trace=trace,
         metrics=raw.get("metrics"), critpath=raw.get("critpath"),
-        devobs=raw.get("devobs"),
-        autotune=raw.get("autotune"), overload_policy=overload_policy,
+        devobs=raw.get("devobs"), whatif=raw.get("whatif"),
+        operator=raw.get("operator"), autotune=raw.get("autotune"), overload_policy=overload_policy,
         fault_containment=fault_containment, fault_plan=fault_plan,
         deadline=raw.get("deadline"), raw=raw)
 

@@ -41,6 +41,20 @@ def make_dataset(root: str, videos: int = 32, frames: int = 128,
     return root
 
 
+def clip_mix(root: str) -> dict:
+    """``{video path: clips}`` a request for each video under ``root``
+    draws: the sampler seeds its draw with a CRC of the path, so the mix
+    follows the path string (a fixed relative root serves the same mix
+    in every run and checkout)."""
+    from rnb_tpu_torch.decode import get_decoder
+    from rnb_tpu_torch.models.r2p1d.sampler import R2P1DSampler
+    from rnb_tpu_torch.video_path_provider import scan_video_tree
+    sampler = R2P1DSampler()
+    return {video: len(sampler.sample(get_decoder(video).num_frames(video),
+                                      video_id=video))
+            for video in scan_video_tree(root)}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("root")

@@ -10,8 +10,9 @@ config key, with three legs:
   written as bounded ``devobs-capture-<n>.txt`` artifacts (the
   ``xprof-ops.txt`` 4-column format ``scripts/device_busy.py`` reads)
   and merged into ``trace.json`` as ``device:<plane>`` tracks,
-  time-aligned by anchoring each plane's last timestamp to the
-  capture's flush epoch and rid-correlated to the enclosing
+  time-aligned at the profiler session's start on the host's wall
+  clock (the reference's flush-epoch anchor where that cannot hold; see
+  :meth:`DevObsPlane.device_events`) and rid-correlated to the enclosing
   ``exec{i}.model_call`` spans, so the exporter's flow chains bind the
   device ops to their requests.
 * **Live MFU** — per-dispatch achieved FLOPs: the stage's declared
@@ -253,12 +254,15 @@ class _Capture:
     intervals (ns on each plane's own clock)."""
 
     __slots__ = ("index", "trigger", "t0_epoch", "t1_epoch",
-                 "intervals", "total_ops", "path", "plane_anchors")
+                 "intervals", "total_ops", "path", "plane_anchors",
+                 "start_epoch", "stop_epoch")
 
     def __init__(self, index: int, trigger: str, t0_epoch: float,
                  t1_epoch: float, intervals: List[Tuple],
                  total_ops: int, path: Optional[str],
-                 plane_anchors: Optional[Dict[str, int]] = None):
+                 plane_anchors: Optional[Dict[str, int]] = None,
+                 start_epoch: Optional[float] = None,
+                 stop_epoch: Optional[float] = None):
         self.index = index
         self.trigger = trigger
         self.t0_epoch = t0_epoch
@@ -270,6 +274,27 @@ class _Capture:
         #: recorded before the op bound truncates to the earliest ops:
         #: the epoch-alignment anchor (t1_epoch maps here)
         self.plane_anchors = plane_anchors or {}
+        #: the epoch second the intervals' zero stands for (the
+        #: profiler session's start), and when the session had stopped;
+        #: None where only the flush anchor is known
+        self.start_epoch = start_epoch
+        self.stop_epoch = stop_epoch
+
+
+#: slack of the session-start alignment's bounds (seconds): the
+#: window's opening is read before the session starts
+ALIGN_SLACK_S = 0.05
+
+
+def _within_session(cap: "_Capture", ivals: List[Tuple],
+                    max_end: int) -> bool:
+    """Whether a plane's ops, placed at the session's start, all fall
+    between the window's opening and the session's stop."""
+    stop = cap.stop_epoch if cap.stop_epoch is not None else cap.t1_epoch
+    first = min(t0 for _n, t0, _t1 in ivals) / 1e9 + cap.start_epoch
+    last = max_end / 1e9 + cap.start_epoch
+    return (first >= cap.t0_epoch - ALIGN_SLACK_S
+            and last <= stop + ALIGN_SLACK_S)
 
 
 def model_call_spans(events: List[Tuple]) -> List[Tuple]:
@@ -426,6 +451,7 @@ class DevObsPlane:
         t0 = time.time()
         try:
             profiler.initialize()
+            t_started = time.time()
         except RuntimeError:
             # another session owns the profiler (a --profile run):
             # skip, never break the run
@@ -442,7 +468,15 @@ class DevObsPlane:
             # op to this instant
             t1 = time.time()
             profiler.flush()
+            t_stopped = time.time()
         intervals = profiler.report(include_plane=True)
+        # the session's zero in epoch seconds: kineto's own start where
+        # its clock is the wall clock (it then lies between the two
+        # reads around the start), else the instant the start returned
+        base_ns = profiler.last_trace_start_ns()
+        start_epoch = t_started
+        if base_ns is not None and t0 <= base_ns / 1e9 <= t_started:
+            start_epoch = base_ns / 1e9
         total_ops = len(intervals)
         # per-plane anchors over the full set: the bound below keeps the
         # earliest ops, so anchoring on the kept maximum would misplace
@@ -473,7 +507,8 @@ class DevObsPlane:
         with self._lock:
             self.captures.append(_Capture(index, trigger, t0, t1,
                                           kept, total_ops, path,
-                                          plane_anchors))
+                                          plane_anchors, start_epoch,
+                                          t_stopped))
 
     # -- worker --------------------------------------------------------
 
@@ -595,11 +630,21 @@ class DevObsPlane:
 
     def device_events(self, spans: List[Tuple]) -> List[Tuple]:
         """Captured op intervals as Tracer event tuples on synthetic
-        ``device:<plane>`` tracks, epoch-aligned per plane (the plane's
-        last timestamp coincides with the capture's flush epoch) and
+        ``device:<plane>`` tracks, epoch-aligned per plane and
         rid-correlated to the enclosing ``model_call`` span, so the
         exporter's flow chains bind them to their request. ``spans``
-        comes from :func:`model_call_spans`."""
+        comes from :func:`model_call_spans`.
+
+        Alignment departs from the reference's rule, which maps each
+        plane's last op to the capture's flush epoch: that holds only
+        while the card works up to the window's end. When the pipeline
+        drains inside the window (a short run), every op would land
+        after its span by the idle tail and bind to nothing. kineto
+        stamps its ops on the host's wall clock from the session's
+        start, so a plane is placed at ``start_epoch`` where all of its
+        ops then fall between the window's opening and the session's
+        stop; otherwise (another clock, or a capture that recorded no
+        start) the reference's flush anchor applies."""
         starts = [s[0] for s in spans]
         # running max-end prefix: model_call spans overlap across lanes
         # and steps, so walk back while an earlier span could still
@@ -632,6 +677,9 @@ class DevObsPlane:
                 max_end = cap.plane_anchors.get(
                     plane, max(t1 for _n, _t0, t1 in ivals))
                 offset = cap.t1_epoch - max_end / 1e9
+                if cap.start_epoch is not None and _within_session(
+                        cap, ivals, max_end):
+                    offset = cap.start_epoch
                 track = DEVICE_TRACK_PREFIX + plane
                 for name, t0_ns, t1_ns in ivals:
                     t0 = t0_ns / 1e9 + offset

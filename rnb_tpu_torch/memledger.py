@@ -110,6 +110,7 @@ class MemLedger:
         "_peak_by_owner": "_lock",
         "peak_total": "_lock",
         "watermark_hits": "_lock",
+        "_last": "_lock",
     }
 
     def __init__(self, watermark_bytes: Optional[int] = None):
@@ -122,6 +123,8 @@ class MemLedger:
         self._above_watermark = False
         self.peak_total = 0
         self._peak_by_owner: Dict[str, int] = {}
+        #: the last :meth:`sample` record, for :meth:`peek`
+        self._last: Optional[dict] = None
         #: direct watermark observer (the devobs plane's capture arming)
         #: for runs without a metrics registry; with metrics on, the
         #: trigger-hook path delivers the same event and the observer
@@ -191,6 +194,7 @@ class MemLedger:
                 self._above_watermark = above
             record = {"total": total, "owners": owners,
                       "devices": devices}
+            self._last = record
         if crossed:
             print("[rnb-tpu] WARNING: memory ledger total %d B crossed "
                   "the %d B watermark" % (total, self.watermark_bytes),
@@ -206,6 +210,14 @@ class MemLedger:
                 except Exception:
                     pass  # an observer must not break the sampler
         return record
+
+    def peek(self) -> Optional[dict]:
+        """The most recent :meth:`sample` record without probing: no
+        peak update, no watermark, no trigger (the operator plane's
+        ``/statusz`` read must not change the ledger). None until the
+        ledger has sampled once."""
+        with self._lock:
+            return self._last
 
     # -- reconciliation ------------------------------------------------
 

@@ -76,6 +76,16 @@ steps:``): the totals foot the per-step detail, every degree is at least
 1, no running stage projects over its budget, each declared ring fits
 the step's listed devices and runs the config's degree, and the traced
 ``exec{i}.collective`` spans nest inside step i's ``model_call`` spans.
+Of the explanation and operator planes (``Whatif:``, ``Operator:``,
+``Stacks:``; the reference's ``_check_whatif`` and ``_check_operator``):
+``Whatif:`` needs a ``Metrics:`` line, an uncalibrated model predicts
+nothing, and a calibrated one recomputes from ``metrics.jsonl`` and the
+job's config copy (stages, calibration and bottleneck exactly,
+``pred_vps_milli`` within 1); the ``Operator:`` ledger and
+``operator.json`` (a bound port, a host) come together or not at all,
+and so do ``Stacks:`` and ``stacks.folded``, whose counts re-sum to
+``total`` over as many stacks and roles as the line says, with the
+sampler's ticks within tolerance of ``sample_hz`` x the window.
 A violation is printed and the exit code is 1 (``--check`` is accepted
 and changes nothing: the checks always run).
 """
@@ -90,6 +100,8 @@ from typing import Dict, List
 import re
 
 from rnb_tpu_torch import critpath
+from rnb_tpu_torch import whatif as whatif_mod
+from rnb_tpu_torch.stacksampler import DEFAULT_SAMPLE_HZ
 from rnb_tpu_torch.memledger import MEM_OWNERS
 from rnb_tpu_torch.trace import (_step_of, _strip_suffix, attribute_phases,
                                  phase_stats, validate_trace)
@@ -969,6 +981,160 @@ def shard_problems(log_dir: str, meta: dict) -> List[str]:
     return problems
 
 
+def whatif_problems(log_dir: str, meta: dict) -> List[str]:
+    """The ``Whatif:`` line's invariants (the reference's
+    ``_check_whatif``)."""
+    line = meta["lines"].get("Whatif")
+    if line is None:
+        return []
+    problems = []
+    if line.get("calibrated") not in (0, 1):
+        problems.append("whatif_calibrated must be 0 or 1, got %s"
+                        % line.get("calibrated"))
+    if "Metrics" not in meta["lines"]:
+        return problems + ["log-meta carries a 'Whatif:' line but no "
+                           "'Metrics:' line — the what-if engine "
+                           "calibrates from the metrics plane"]
+    if line.get("calibrated") != 1:
+        if line.get("pred_vps_milli", 0) != 0:
+            problems.append("whatif_pred_vps_milli=%d with calibrated=0 (an "
+                            "uncalibrated model must not predict)"
+                            % line["pred_vps_milli"])
+        return problems
+    # the line must recompute from the artifacts alone
+    want = whatif_mod.summary_counters(whatif_mod.calibrate_job(log_dir))
+    for key in ("stages", "calibrated", "bottleneck_step"):
+        if line.get(key) != want[key]:
+            problems.append("'Whatif:' %s=%s but metrics.jsonl + the config "
+                            "copy recompute %s" % (key, line.get(key),
+                                                   want[key]))
+    if abs(line.get("pred_vps_milli", 0) - want["pred_vps_milli"]) > 1:
+        problems.append("'Whatif:' pred_vps_milli=%s but metrics.jsonl + the "
+                        "config copy recompute %d"
+                        % (line.get("pred_vps_milli"), want["pred_vps_milli"]))
+    return problems
+
+
+#: the sampler cadence's tolerance (the reference's): ticks may run a
+#: little over sample_hz x the window (the drain to thread join) and far
+#: under it on a loaded host
+STACKS_UPPER_SLACK = 1.5
+STACKS_LOWER_FRAC = 0.2
+STACKS_ABS_SLACK = 25
+
+
+def read_folded(path: str):
+    """``(stacks, total count, roles, unparsable lines)`` of a
+    ``stacks.folded``."""
+    stacks = total = bad = 0
+    roles = set()
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            stack, _, count = line.rpartition(" ")
+            if not stack or not count.lstrip("-").isdigit():
+                bad += 1
+                continue
+            stacks += 1
+            total += int(count)
+            roles.add(stack.split(";", 1)[0])
+    return stacks, total, roles, bad
+
+
+def operator_problems(log_dir: str, meta: dict) -> List[str]:
+    """The operator plane's invariants (the reference's
+    ``_check_operator``): the ``Operator:`` ledger against
+    ``operator.json`` both ways, ``stacks.folded`` against ``Stacks:``,
+    and the sampler's cadence."""
+    lines = meta["lines"]
+    op_path = os.path.join(log_dir, "operator.json")
+    folded_path = os.path.join(log_dir, "stacks.folded")
+    problems = []
+    if "Operator" not in lines:
+        if os.path.isfile(op_path):
+            problems.append("operator.json present but log-meta has no "
+                            "'Operator:' line")
+        if "Stacks" in lines:
+            problems.append("log-meta carries a 'Stacks:' line but no "
+                            "'Operator:' line (the sampler rides the "
+                            "operator key)")
+        if os.path.isfile(folded_path):
+            problems.append("stacks.folded present but log-meta has no "
+                            "'Stacks:' line")
+        return problems
+    problems.extend("negative operator_%s" % k
+                    for k, v in sorted(lines["Operator"].items()) if v < 0)
+    if not os.path.isfile(op_path):
+        problems.append("log-meta carries an 'Operator:' line but "
+                        "operator.json is missing")
+    else:
+        try:
+            with open(op_path) as f:
+                record = json.load(f)
+        except (OSError, ValueError) as e:
+            problems.append("operator.json unreadable: %s" % e)
+            record = {}
+        port = record.get("port")
+        if record and (not isinstance(port, int) or not 1 <= port <= 65535):
+            problems.append("operator.json carries no bound port (got %r)"
+                            % (port,))
+        if record and not record.get("host"):
+            problems.append("operator.json names no host")
+    stacks_line = lines.get("Stacks")
+    if stacks_line is None:
+        if os.path.isfile(folded_path):
+            problems.append("stacks.folded present but log-meta has no "
+                            "'Stacks:' line")
+        return problems
+    problems.extend("negative stacks_%s" % k
+                    for k, v in sorted(stacks_line.items()) if v < 0)
+    if not os.path.isfile(folded_path):
+        problems.append("log-meta carries a 'Stacks:' line but "
+                        "stacks.folded is missing")
+    else:
+        stacks, total, roles, bad = read_folded(folded_path)
+        if bad:
+            problems.append("stacks.folded holds %d unparsable line(s) "
+                            "(want 'role;frame;... count')" % bad)
+        if stacks != stacks_line.get("folded"):
+            problems.append("stacks.folded holds %d folded stack(s) but the "
+                            "'Stacks:' line says folded=%s"
+                            % (stacks, stacks_line.get("folded")))
+        if total != stacks_line.get("total"):
+            problems.append("stacks.folded counts sum to %d but the "
+                            "'Stacks:' line says total=%s (every sample must "
+                            "fold exactly once)"
+                            % (total, stacks_line.get("total")))
+        if len(roles) != stacks_line.get("threads"):
+            problems.append("stacks.folded names %d role(s) but the "
+                            "'Stacks:' line says threads=%s"
+                            % (len(roles), stacks_line.get("threads")))
+    if stacks_line.get("folded", 0) > stacks_line.get("total", 0):
+        problems.append("stacks_folded=%s exceeds stacks_total=%s"
+                        % (stacks_line.get("folded"),
+                           stacks_line.get("total")))
+    operator = (whatif_mod.job_config(log_dir) or {}).get("operator")
+    window = meta.get("window")
+    if isinstance(operator, dict) and operator.get("enabled", True) \
+            and window and window[1] > window[0]:
+        hz = float(operator.get("sample_hz", DEFAULT_SAMPLE_HZ))
+        expected = hz * (window[1] - window[0])
+        upper = expected * STACKS_UPPER_SLACK + STACKS_ABS_SLACK
+        lower = max(0.0, expected * STACKS_LOWER_FRAC - STACKS_ABS_SLACK)
+        samples = stacks_line.get("samples", 0)
+        if hz > 0 and samples > upper:
+            problems.append("stacks_samples=%d far exceeds sample_hz x wall "
+                            "= %.1f (upper tolerance %.1f)"
+                            % (samples, expected, upper))
+        if hz > 0 and samples < lower:
+            problems.append("stacks_samples=%d falls far below sample_hz x "
+                            "wall = %.1f (lower tolerance %.1f)"
+                            % (samples, expected, lower))
+    return problems
+
+
 def footing_problems(meta: dict) -> List[str]:
     """The footings of the ``Compiles:`` and ``Pages:`` lines that do
     not hold (empty when they all hold)."""
@@ -1048,7 +1214,8 @@ def summarize(log_dir: str) -> dict:
         out.update(trace_events=int(lines["Trace"]["events"]),
                    trace_dropped=int(lines["Trace"]["dropped"]))
     for head in ("Metrics", "Slo", "Critpath", "Autotune", "Faults",
-                 "Deadline", "Compute", "Memory", "Shard"):
+                 "Deadline", "Compute", "Memory", "Shard", "Whatif",
+                 "Operator", "Stacks"):
         if head in lines:
             out[head.lower()] = {k: int(v) for k, v in lines[head].items()}
     if "autotune_buckets" in meta:
@@ -1073,7 +1240,9 @@ def summarize(log_dir: str) -> dict:
                                + autotune_problems(meta)
                                + fault_problems(log_dir, meta)
                                + devobs_problems(log_dir, meta)
-                               + shard_problems(log_dir, meta))
+                               + shard_problems(log_dir, meta)
+                               + whatif_problems(log_dir, meta)
+                               + operator_problems(log_dir, meta))
     profile = os.path.join(log_dir, "profile.json")
     if os.path.exists(profile):
         with open(profile) as f:

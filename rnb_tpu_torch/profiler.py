@@ -25,8 +25,10 @@ The reference parses ``.xplane.pb`` files that ``jax.profiler`` wrote to
 disk (natively by ``native/xplane.cpp``, else in Python). kineto hands
 the events back in process, so the port has no file and no parser: it
 reads kineto's raw event list, not the profiler's ``events()`` (which
-builds an operator tree in Python). Timestamps are nanoseconds from the session's start, comparable
-within one plane.
+builds an operator tree in Python). Timestamps are nanoseconds from the
+session's start, comparable within one plane; :func:`last_trace_start_ns`
+gives that start on kineto's clock, which is the host's wall clock
+(``time.time_ns``), so a caller can map the ops to epoch seconds.
 
 The first session of a process sets CUPTI up, seconds on the card; later
 ones start in milliseconds (``rnb_tpu_torch/tools/profiler_probe.py``
@@ -57,6 +59,8 @@ _state_lock = threading.Lock()
 #: the running session, or the stopped one whose events report() drains
 _session: Optional["torch.profiler.profile"] = None
 _capturing = False
+#: kineto's start of the last session report() drained
+_last_trace_start_ns: Optional[int] = None
 
 
 def _all_threads_config():
@@ -144,6 +148,13 @@ def _intervals(session) -> List[PlaneInterval]:
     return out
 
 
+def last_trace_start_ns() -> Optional[int]:
+    """The start, on kineto's clock, of the session :func:`report` last
+    drained (the zero of its timestamps), or None before the first."""
+    with _state_lock:
+        return _last_trace_start_ns
+
+
 def report(plane_filter: Optional[str] = None,
            include_plane: bool = False
            ) -> Union[List[Interval], List[PlaneInterval]]:
@@ -157,12 +168,15 @@ def report(plane_filter: Optional[str] = None,
     the owning plane name to each tuple; timestamps are comparable only
     within one plane.
     """
-    global _session
+    global _session, _last_trace_start_ns
     with _state_lock:
         if _capturing or _session is None:
             return []
         session, _session = _session, None
     intervals = _intervals(session)
+    with _state_lock:
+        _last_trace_start_ns = int(
+            session.profiler.kineto_results.trace_start_ns())
     if plane_filter is not None:
         intervals = [iv for iv in intervals if plane_filter in iv[3]]
     else:

@@ -633,6 +633,27 @@ META_LINE_REGISTRY = (
               "JSON per-owner footprint detail {owner: {bytes, "
               "peak_bytes}}; owners are declared in "
               "memledger.MEM_OWNER_REGISTRY (devobs-enabled runs only)"),
+    StampSpec("Whatif:", "rnb_tpu_torch/benchmark.py",
+              "calibrated queueing-model counters (rnb_tpu_torch.whatif): "
+              "stages calibrated from the metrics plane, whether "
+              "calibration succeeded, the model's self-predicted "
+              "throughput in milli-vps and its bottleneck step "
+              "(whatif-enabled runs only; parse_utils recomputes the "
+              "prediction from metrics.jsonl + the config copy and holds "
+              "it to +-1 milli-vps)"),
+    StampSpec("Operator:", "rnb_tpu_torch/benchmark.py",
+              "operator-plane request ledger (rnb_tpu_torch.statusz): GET "
+              "scrapes served, POST actions accepted, POST actions denied "
+              "by the allow_actions gate, request errors (operator-enabled "
+              "runs only; parse_utils holds the line to operator.json both "
+              "ways)"),
+    StampSpec("Stacks:", "rnb_tpu_torch/benchmark.py",
+              "wall-clock stack sampler counters "
+              "(rnb_tpu_torch.stacksampler): sampling ticks, distinct "
+              "thread roles, distinct folded stacks, total per-thread "
+              "samples (operator runs with sample_hz > 0 only; parse_utils "
+              "re-sums stacks.folded to total and holds ticks to sample_hz "
+              "x wall within tolerance)"),
 )
 
 

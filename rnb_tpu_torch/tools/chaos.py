@@ -19,12 +19,24 @@ one video whose header probes and whose decode fails
 fused loader's take, after it was planned into its rows, and the take's
 other requests are emitted without it.
 
+``--burst`` writes the copy a 1 ms Poisson burst into short queues
+serves: the same faults, but both stalls on :data:`BURST_STALL_ID`, the
+client's first request, which always finds the filename queue empty, so
+both always fire, at the burst's start. Step 0 stalls
+:data:`BURST_STEP0_STALL_MS` first: the filename queue fills and the
+client sheds. Then step 1 stalls :data:`STALL_MS`: what step 0
+publishes meanwhile waits past the budget in step 1's queue and expires
+at its take. Sheds count toward the run's target, so the burst's target
+must exceed what is shed during both stalls (:data:`BURST_MIN_TARGET`);
+the bulk copy's stalls on later ids could fall on a request the burst's
+client shed, or after the target was shed whole.
+
 ``--empty-plan`` writes the copy with no fault in its plan and a budget
 no request comes near: every containment check runs and nothing fails,
 the cell that measures what the checks cost. Written beside a dataset,
 never into ``configs/``::
 
-    python3 -m rnb_tpu_torch.tools.chaos OUT.json [--empty-plan]
+    python3 -m rnb_tpu_torch.tools.chaos OUT.json [--empty-plan | --burst]
 """
 
 from __future__ import annotations
@@ -39,8 +51,16 @@ PERMANENT_IDS = (2, 5)
 TRANSIENT_IDS = (1, 13)
 STEP1_STALL_ID = 20
 STEP0_STALL_ID = 60
+#: the burst copy's stalls: the client's first request
+BURST_STALL_ID = 0
 BUDGET_MS = 1000
 STALL_MS = 1500
+#: the burst's step-0 stall: long enough to fill a 4-deep filename queue
+#: at a 1 ms mean, short beside the budget
+BURST_STEP0_STALL_MS = 100
+#: the smallest target of a burst at a 1 ms mean that is not shed whole
+#: during its stalls: 1,600 arrivals are expected in them
+BURST_MIN_TARGET = 2 * STALL_MS
 #: the budget of the empty-plan copy: ten minutes, never reached
 EMPTY_PLAN_BUDGET_MS = 600000
 #: the undecodable video of the chaos dataset, in its first label
@@ -50,17 +70,23 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def chaos_config(empty_plan: bool = False) -> dict:
-    """The staged config with the containment keys added."""
+def chaos_config(empty_plan: bool = False, burst: bool = False) -> dict:
+    """The staged config with the containment keys added (``burst``:
+    the burst's plan, both stalls on the first request)."""
     with open(os.path.join(HERE, STAGED)) as f:
         raw = json.load(f)
-    faults = [] if empty_plan else [
-        {"step": 0, "kind": "permanent", "request_ids": list(PERMANENT_IDS)},
-        {"step": 1, "kind": "transient", "request_ids": list(TRANSIENT_IDS)},
+    stalls = ([{"step": 1, "kind": "stall", "ms": STALL_MS,
+                "request_ids": [BURST_STALL_ID]},
+               {"step": 0, "kind": "stall", "ms": BURST_STEP0_STALL_MS,
+                "request_ids": [BURST_STALL_ID]}] if burst else [
         {"step": 1, "kind": "stall", "ms": STALL_MS,
          "request_ids": [STEP1_STALL_ID]},
         {"step": 0, "kind": "stall", "ms": STALL_MS,
-         "request_ids": [STEP0_STALL_ID]}]
+         "request_ids": [STEP0_STALL_ID]}])
+    faults = [] if empty_plan else [
+        {"step": 0, "kind": "permanent", "request_ids": list(PERMANENT_IDS)},
+        {"step": 1, "kind": "transient", "request_ids": list(TRANSIENT_IDS)},
+    ] + stalls
     raw.update(overload_policy="shed",
                deadline={"budget_ms": EMPTY_PLAN_BUDGET_MS if empty_plan
                          else BUDGET_MS},
@@ -70,9 +96,10 @@ def chaos_config(empty_plan: bool = False) -> dict:
     return raw
 
 
-def write_chaos_copy(path: str, empty_plan: bool = False) -> str:
+def write_chaos_copy(path: str, empty_plan: bool = False,
+                     burst: bool = False) -> str:
     with open(path, "w") as f:
-        json.dump(chaos_config(empty_plan), f)
+        json.dump(chaos_config(empty_plan, burst), f)
     return path
 
 
@@ -132,11 +159,12 @@ def write_chaos_dataset(data_root: str, out_root: str) -> str:
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
     empty_plan = "--empty-plan" in args
-    paths = [a for a in args if a != "--empty-plan"]
-    if len(paths) != 1:
+    burst = "--burst" in args
+    paths = [a for a in args if a not in ("--empty-plan", "--burst")]
+    if len(paths) != 1 or (empty_plan and burst):
         print(__doc__, file=sys.stderr)
         return 2
-    write_chaos_copy(paths[0], empty_plan)
+    write_chaos_copy(paths[0], empty_plan, burst)
     return 0
 
 

@@ -519,7 +519,7 @@ def _base_raw():
     ("root", "cache", {"mb": 64}),
     ("root", "shard", {}),
     ("root", "devobs", {"capture_window_ms": 300, "xplane": True}),
-    ("root", "operator", {"enabled": True}),
+    ("root", "operator", {"enabled": True, "host": "0.0.0.0"}),
     ("root", "whatif", {"enabled": True}),
     ("root", "netedge", {"enabled": True}),
     ("loader", "pixel_path", "nv12"),
@@ -540,11 +540,16 @@ def test_unported_keys_are_refused(where, key, value):
               "runner": raw["pipeline"][1],
               "group": raw["pipeline"][0]["queue_groups"][0]}[where]
     target[key] = value
-    # devobs and the step-level shard key are ported: an unknown devobs
-    # key, and a degree-2 ring on a one-device group, are refused with
-    # the reference's messages
+    # devobs, operator, whatif and the step-level shard key are ported:
+    # an unknown devobs or operator key, whatif without metrics, and a
+    # degree-2 ring on a one-device group, are refused with the
+    # reference's messages
     message = {("root", "devobs"): r"'devobs' has unknown key\(s\) "
                                    r"\['xplane'\]",
+               ("root", "operator"): r"'operator' has unknown key\(s\) "
+                                     r"\['host'\]",
+               ("root", "whatif"): r"'whatif' requires an enabled root "
+                                   r"'metrics' key",
                ("runner", "shard"): r"'shard.degree'=2 needs exactly that "
                                     r"many devices per lane \(got 1\)"
                }.get((where, key), "not yet ported")
