@@ -209,6 +209,28 @@ Phases (any failure exits non-zero and prints no result line):
    the port's ``parse_utils`` (the ledger against ``operator.json``, the
    folded stacks against ``Stacks:``, ``Whatif:`` recomputed), each with
    one request's logits held to the CPU recompute.
+   Last, the network ingest edge, over ``synth://`` ids:
+   ``configs/rnb-netedge-off.json`` as shipped (300 requests in bulk; no
+   ``Net:`` or ``Health:`` line, no frame read), then
+   ``configs/rnb-netedge-loopback.json`` as shipped (300 requests in bulk,
+   step 0 in a spawned peer process on the card): every request remote,
+   none local, no net error, no reconnect, every REQ acked once, the DATA
+   rows whole 9,408-byte dct frames (the completed clips' frames), step 0
+   on ``cuda:0`` for every request, the rows of every 50th request's DATA
+   frame bitwise the in-process loader's emission of its video, the
+   ``Net:``/``Health:`` footings green; both launch ``rnb_dct_ingest``
+   once per emission inside the captured forward and have requests'
+   logits held to the CPU recompute. Then a copy of
+   ``configs/rnb-netedge-chaos.json`` with its device 1 made 0, 30
+   requests at a 200 ms Poisson mean into 64-deep queues, seed 17, held
+   to ``scripts/netchaos_demo.py``'s contract: every request terminated
+   once, no strand, the dedup ledger balanced, the reset classified and
+   survived by a reconnect, the wedge's timeout classified after the
+   circuit opened, refused dials after the peer's kill, exactly one
+   eviction by a legal path, requests served both remotely and locally,
+   no route to the open lane, the wire ledger footed; the main process's
+   loader normalized the local requests only; one remote and one local
+   request recomputed on the CPU.
    Every run: each ``R2P1DRunner`` forward in the window is one replay
    of a captured CUDA graph (``Graphs:`` replays == ``Compiles:``
    steady calls, or requests for the single step), no signature is new
@@ -311,9 +333,32 @@ GATHER_LAUNCHES = 1
 #: degree 2 (the largest leaf) and a merge block at 15 rows
 RING_TIMED_DEGREE = 2
 MERGE_BLOCK = (15, 200)
+#: the network ingest edge's cells: the in-process twin and the loopback
+#: cell as shipped (the peer a second process on the card), and the chaos
+#: config with its device 1 made 0; all over synth:// ids (the dct wire;
+#: the chaos config's rgb loader too), served last
+NETEDGE_OFF = "configs/rnb-netedge-off.json"
+NETEDGE_LOOPBACK = "configs/rnb-netedge-loopback.json"
+NETEDGE_CHAOS_CONFIG = "configs/rnb-netedge-chaos.json"
+NETEDGE_CHAOS = "rnb-netedge-chaos-1card"
+NETEDGE_RUNS = (NETEDGE_OFF, NETEDGE_LOOPBACK, NETEDGE_CHAOS)
+#: requests of the two shipped cells, each in bulk
+NETEDGE_VIDEOS = 300
+#: the chaos copy as scripts/netchaos_demo.py drives it: 30 requests at a
+#: 200 ms Poisson mean (its acts need paced arrivals) into 64-deep queues,
+#: seed 17
+NETCHAOS_VIDEOS = 30
+NETCHAOS_QUEUE = 64
+NETCHAOS_SEED = 17
+#: one packed dct frame at the default budget: a DATA frame of the
+#: loopback cell carries whole ones
+DCT_FRAME_BYTES = 9408
+#: the loopback requests whose DATA rows are held to the in-process
+#: loader's emission: every 50th
+WIRE_SAMPLE_EVERY = 50
 #: mean Poisson gap of the open-loop runs that are not Zipf cells
 PLANE_INTERVAL_MS = {METRICS: 20, AUTOTUNE_POISSON: 25, CHAOS_BURST: 1,
-                     OPERATOR_ACTIONS: 20}
+                     OPERATOR_ACTIONS: 20, NETEDGE_CHAOS: 200}
 #: the buckets the autotune config warms: the only ones it may choose
 AUTOTUNE_BUCKETS = {"6", "15"}
 CONFIGS = ("configs/rnb-fused-yuv-big.json",
@@ -344,6 +389,7 @@ ONE_PER_EMISSION = {"configs/rnb-fused-yuv-big.json": "yuv420_normalize",
                     MID: "yuv420_normalize",
                     TRACED: "yuv420_normalize",
                     TINY_SHED_COPY: "normalize_u8",
+                    NETEDGE_OFF: "dct_ingest", NETEDGE_LOOPBACK: "dct_ingest",
                     **{label: "yuv420_normalize"
                        for label in PLANES + CHAOS_RUNS + DEVOBS_RUNS
                        + SHARD_RUNS + OPERATOR_RUNS}}
@@ -362,6 +408,8 @@ PATH_KERNELS = {CONFIGS[0]: YUV_KERNELS, CONFIGS[1]: YUV_KERNELS,
                 TINY_SHED_COPY: {"normalize_u8"},
                 SHARD_D1_COPY: YUV_KERNELS,
                 SHARD_D2_COPY: YUV_KERNELS | {"ring_shift"},
+                NETEDGE_OFF: {"dct_ingest"}, NETEDGE_LOOPBACK: {"dct_ingest"},
+                NETEDGE_CHAOS: {"normalize_u8"},
                 **{label: YUV_KERNELS
                    for label in PLANES + CHAOS_RUNS + DEVOBS_RUNS
                    + OPERATOR_RUNS}}
@@ -395,7 +443,9 @@ VIDEOS_PER_RUN = 32
 FEW_VIDEOS = {TORCHCKPT: 12, MID: 12, TRACED: 12, CRITPATH: 12,
               CHAOS: 64, CHAOS_BURST: 3000, DEVOBS: 64,
               DEVOBS_WATERMARK: 32, SHARD_D1_COPY: 64, SHARD_D2_COPY: 64,
-              OPERATOR: 400, OPERATOR_ACTIONS: 32}
+              OPERATOR: 400, OPERATOR_ACTIONS: 32,
+              NETEDGE_OFF: NETEDGE_VIDEOS, NETEDGE_LOOPBACK: NETEDGE_VIDEOS,
+              NETEDGE_CHAOS: NETCHAOS_VIDEOS}
 #: a captured graph against its eager forward where the two are not
 #: bitwise (a capture that changed the library's kernel choice): the
 #: float32 network's bound of tests/test_torch_network.py, relative to
@@ -2658,6 +2708,171 @@ def check_operator_run(label, result, scraper):
                          result.total_time_s)))
 
 
+def first_devices(log_dir):
+    """The device each request's step 0 ran on, from the timing tables
+    (a remote request's is the peer's)."""
+    devices = []
+    for name in sorted(os.listdir(log_dir)):
+        if "-group" not in name:
+            continue
+        with open(os.path.join(log_dir, name)) as f:
+            lines = [ln.split() for ln in f.read().splitlines()
+                     if ln.strip() and not ln.startswith("#")]
+        if lines:
+            col = lines[0].index("device0")
+            devices += [ln[col] for ln in lines[1:]]
+    return devices
+
+
+def check_netedge_run(label, result, sink, rows, config_path):
+    """N1 (the in-process twin) and N2 (the loopback cell as shipped):
+    the port's parse_utils checks green. N1 carries no edge at all: no
+    ``Net:`` or ``Health:`` line, no frame read. N2 served every request
+    through the peer: remote == requests, nothing local, no net error,
+    no reconnect, every REQ acked once, the DATA rows whole packed dct
+    frames (the completed clips' frames x 9,408 B), step 0 on cuda:0
+    for every request (the peer did not fall back to the CPU), and the
+    rows each sampled DATA frame carried bitwise the in-process loader's
+    emission for the same video and clip starts. Returns N2's figures."""
+    import torch
+    from rnb_tpu_torch.config import load_config
+    from rnb_tpu_torch.devices import DeviceSpec
+    from rnb_tpu_torch.parse_utils import summarize
+    from rnb_tpu_torch.telemetry import TimeCard
+    from rnb_tpu_torch.utils.class_utils import load_class
+    problems = summarize(result.log_dir)["footing_problems"]
+    check(not problems, "%s: %s" % (label, "; ".join(problems[:5])))
+    with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
+        heads = {line.split(":")[0] for line in f.read().splitlines()}
+    videos = result.num_videos
+    if label == NETEDGE_OFF:
+        check(not heads & {"Net", "Net errors", "Health", "Health lanes"}
+              and result.net_frames_sent == 0 and result.health_lanes == 0
+              and all(v is None for v in rows.values()),
+              "%s: the disabled edge left a trace: %s" % (label, sorted(
+                  heads & {"Net", "Net errors", "Health", "Health lanes"})))
+        return None
+    check(result.net_remote == videos and result.net_local == 0,
+          "%s: %d remote and %d local routes for %d requests" % (
+              label, result.net_remote, result.net_local, videos))
+    check(result.net_err_total == 0 and result.net_reconnects == 0
+          and result.net_resends == 0,
+          "%s: %d net error(s), %d reconnect(s), %d resend(s)" % (
+              label, result.net_err_total, result.net_reconnects,
+              result.net_resends))
+    check(result.net_frames_sent == result.net_frames_acked == videos
+          and result.net_dedup_drops == result.net_dup_arrivals == 0
+          and result.net_window_stranded == 0,
+          "%s: sent %d, acked %d, dedup %d/%d, stranded %d" % (
+              label, result.net_frames_sent, result.net_frames_acked,
+              result.net_dedup_drops, result.net_dup_arrivals,
+              result.net_window_stranded))
+    check(result.net_frame_bytes % DCT_FRAME_BYTES == 0
+          and result.net_frame_bytes
+          == result.clips_completed * FRAMES * DCT_FRAME_BYTES,
+          "%s: %d DATA row bytes for %d clips of %d frames of %d B" % (
+              label, result.net_frame_bytes, result.clips_completed,
+              FRAMES, DCT_FRAME_BYTES))
+    devices = first_devices(result.log_dir)
+    check(len(devices) == videos and set(devices) == {"cuda:0"},
+          "%s: step 0 ran on %s" % (label, sorted(set(devices))))
+    config = load_config(config_path, "cuda")
+    step = config.steps[0]
+    loader = load_class(step.model)(DeviceSpec(0, "cuda"),
+                                    **step.kwargs_for_group(0))
+    sampled = sorted(rid for rid, got in rows.items() if got is not None)
+    check(sampled == sorted(rows), "%s: no DATA rows for requests %s"
+          % (label, sorted(set(rows) - set(sampled))))
+    for rid in sampled:
+        (batch,), _, _ = loader(None, sink[rid][0], TimeCard(rid))
+        want = batch.data[:batch.valid].cpu()
+        check(torch.equal(rows[rid], want),
+              "%s request %d: the DATA frame's rows differ from the "
+              "in-process loader's emission of %s" % (label, rid,
+                                                      sink[rid][0]))
+    return {"sampled_rows_bitwise": sampled,
+            "net_frame_bytes": result.net_frame_bytes,
+            "wire_bytes": result.net_wire_bytes,
+            "beats": result.net_beats,
+            "main_memory": {"allocated": torch.cuda.memory_allocated(0),
+                            "peak": torch.cuda.max_memory_allocated(0),
+                            "reserved": torch.cuda.memory_reserved(0)}}
+
+
+def check_netchaos_run(label, result, sink, rows):
+    """N3, the chaos copy: ``scripts/netchaos_demo.py``'s contract, word
+    for word: the run reached its target and ``--check`` is green; every
+    request terminated exactly once (completed + failed + shed == the
+    requests); nothing stranded in the window; the dedup ledger balances;
+    act 1, the reset was classified and a reconnect survived it; act 2,
+    the timeout was classified and the circuit opened before it
+    (open_before_timeout == 1); act 3, refused dials were classified and
+    exactly one eviction left the lane evicted, by a legal path; the
+    fallback served (local >= 1) and so did the wire (remote >= 1); no
+    route landed on the open or evicted lane; the wire ledger foots. The
+    main process's loader normalized every request it served and none
+    the peer served: no fewer launches than local completions, no more
+    than local routes."""
+    from rnb_tpu_torch.health import legal_path
+    from rnb_tpu_torch.parse_utils import summarize
+    problems = summarize(result.log_dir)["footing_problems"]
+    check(not problems, "%s: --check: %s" % (label, "; ".join(problems[:5])))
+    terminated = result.num_completed + result.num_failed + result.num_shed
+    lane = result.health_lane_detail.get("0", {})
+    for ok, what in (
+            (terminated == NETCHAOS_VIDEOS,
+             "%d of %d requests terminated (completed+failed+shed)"
+             % (terminated, NETCHAOS_VIDEOS)),
+            (result.net_window_stranded == 0,
+             "%d request(s) stranded in the resend window"
+             % result.net_window_stranded),
+            (result.net_dedup_drops == result.net_dup_arrivals,
+             "dedup ledger out of balance: %d drops vs %d duplicate "
+             "arrivals" % (result.net_dedup_drops, result.net_dup_arrivals)),
+            (result.net_err_reset >= 1,
+             "the injected net_reset was never classified (err_reset=0)"),
+            (result.net_reconnects >= 1,
+             "the sender never reconnected after the mid-stream reset "
+             "(reconnects=0)"),
+            (result.net_err_timeout >= 1,
+             "the injected net_timeout stall was never classified "
+             "(err_timeout=0)"),
+            (result.net_open_before_timeout == 1,
+             "the circuit did not open before the io timeout detected the "
+             "stall (open_before_timeout=%d)"
+             % result.net_open_before_timeout),
+            (result.net_err_refused >= 1,
+             "no refused dials were classified after the fatal peer kill "
+             "(err_refused=0)"),
+            (result.health_evictions == 1,
+             "expected exactly 1 lane eviction, got %d"
+             % result.health_evictions),
+            (lane.get("state") == "evicted" and legal_path(lane.get("path")),
+             "net lane 0 should be evicted by a legal path, detail says %r"
+             % (lane,)),
+            (result.net_local >= 1,
+             "no request ever drained to the in-process fallback (local=0)"),
+            (result.net_remote >= 1,
+             "no request was ever served remotely (remote=0)"),
+            (result.health_routes_after_open == 0,
+             "dispatcher routed %d request(s) to the open/evicted net lane"
+             % result.health_routes_after_open),
+            (result.net_frames_sent == result.net_frames_acked
+             + result.net_resent_pending,
+             "wire ledger does not foot: %d sent != %d acked + %d pending"
+             % (result.net_frames_sent, result.net_frames_acked,
+                result.net_resent_pending))):
+        check(ok, "%s: %s" % (label, what))
+    remote = sorted(rid for rid in sink if rows.get(rid) is not None)
+    local = sorted(set(sink) - set(remote))
+    launches = result.window_launches["normalize_u8"]
+    check(len(local) <= launches <= result.net_local,
+          "%s: the main process's loader normalized %d requests; %d "
+          "completed locally of %d local routes" % (
+              label, launches, len(local), result.net_local))
+    return remote, local
+
+
 def graph_input(runner, rows, seed):
     """A seeded input of one runner's input signature: wire rows on the
     yuv420 and dct paths, normalized frames or a feature map else."""
@@ -2910,14 +3125,21 @@ def phase_path(data_root, videos_per_run):
              (DEVOBS, os.path.join(HERE, DEVOBS)),
              (DEVOBS_WATERMARK, devobs_watermark_copy(data_root)),
              (OPERATOR, os.path.join(HERE, OPERATOR)),
-             (OPERATOR_ACTIONS, operator_actions_copy(data_root))]
+             (OPERATOR_ACTIONS, operator_actions_copy(data_root)),
+             # the network edge, two processes on the card
+             (NETEDGE_OFF, os.path.join(HERE, NETEDGE_OFF)),
+             (NETEDGE_LOOPBACK, os.path.join(HERE, NETEDGE_LOOPBACK)),
+             (NETEDGE_CHAOS, one_card_copy(data_root, NETEDGE_CHAOS_CONFIG,
+                                           NETEDGE_CHAOS))]
     whole_sink = None
     shard_runs = {}
     for label, config_path in runs:
         config = load_config(config_path, "cpu")
         pixel_path = config.steps[0].kwargs.get("pixel_path", "rgb")
         classes = config.steps[-1].kwargs.get("num_classes", 400)
-        if pixel_path == "dct":
+        if pixel_path == "dct" or label in NETEDGE_RUNS:
+            # a y4m file holds no coefficients; the chaos copy's rgb
+            # loader serves synth:// ids too
             os.environ.pop("RNB_TPU_DATA_ROOT", None)
         else:
             os.environ["RNB_TPU_DATA_ROOT"] = (
@@ -2940,16 +3162,27 @@ def phase_path(data_root, videos_per_run):
         if label in OPERATOR_RUNS:
             scraper = OperatorScraper(os.path.join(data_root, "logs"), label)
             scraper.start()
+        # the DATA rows of the sampled requests (of every request the
+        # open-loop chaos client may make: which ones crossed the wire)
+        wire_rows = None
+        if label in NETEDGE_RUNS:
+            wire_rows = dict.fromkeys(
+                range(4 * videos) if label == NETEDGE_CHAOS
+                else range(0, videos, WIRE_SAMPLE_EVERY))
         _kernels.reset_launches()
         t0 = time.time()
         try:
             result = run_benchmark(
                 config_path, mean_interval_ms=interval,
                 num_videos=videos,
-                queue_size=BURST_QUEUE if label == CHAOS_BURST else 50000,
+                queue_size=(BURST_QUEUE if label == CHAOS_BURST
+                            else NETCHAOS_QUEUE if label == NETEDGE_CHAOS
+                            else 50000),
                 print_progress=False,
-                log_base=os.path.join(data_root, "logs"), seed=0,
-                outputs_sink=sink, stages_sink=stages)
+                log_base=os.path.join(data_root, "logs"),
+                seed=NETCHAOS_SEED if label == NETEDGE_CHAOS else 0,
+                outputs_sink=sink, stages_sink=stages,
+                net_rows_sink=wire_rows)
         finally:
             os.environ.pop("RNB_FLIGHT_FORCE", None)
             os.environ.pop("RNB_DEVOBS_FORCE", None)
@@ -3003,7 +3236,7 @@ def phase_path(data_root, videos_per_run):
             sums = segment_sums(stages, sink)
         del stages
         print("path %s: graphs checked in %.1f s" % (label, time.time() - t0))
-        if pixel_path != "dct":
+        if pixel_path != "dct" and label not in NETEDGE_RUNS:
             with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
                 backends = [line.split(": ", 1)[1] for line in
                             f.read().splitlines()
@@ -3053,6 +3286,13 @@ def phase_path(data_root, videos_per_run):
             check_operator_run(label, result, scraper)
         if label == CRITPATH:
             check_critpath_run(result)
+        netedge_report = None
+        if label in (NETEDGE_OFF, NETEDGE_LOOPBACK):
+            netedge_report = check_netedge_run(label, result, sink,
+                                               wire_rows, config_path)
+        if label == NETEDGE_CHAOS:
+            remote, local = check_netchaos_run(label, result, sink,
+                                               wire_rows)
         if label == SEGMENT_COPY:
             check_segment_run(result, sink, whole_sink, sums)
             picks = sorted(sink, key=lambda r: (len(whole_sink[r][1]), r))
@@ -3080,8 +3320,14 @@ def phase_path(data_root, videos_per_run):
         picks = by_clips[:2] + by_clips[-1:]
         if label in UNFUSED or label in FEW_VIDEOS:
             picks = by_clips[:1] + by_clips[-1:]
-        if label in PLANES + DEVOBS_RUNS + SHARD_RUNS + OPERATOR_RUNS:
+        if label in PLANES + DEVOBS_RUNS + SHARD_RUNS + OPERATOR_RUNS \
+                + (NETEDGE_OFF,):
             picks = by_clips[:1]
+        if label == NETEDGE_LOOPBACK:
+            picks = by_clips[:1] + by_clips[-1:]
+        if label == NETEDGE_CHAOS:
+            # one request the peer served and one the fallback served
+            picks = remote[:1] + local[:1]
         if label in CHAOS_RUNS:
             # the retried requests too: their served logits held to the
             # recompute from their video, not only to a replay
@@ -3107,6 +3353,16 @@ def phase_path(data_root, videos_per_run):
                  result.window_launches, result.pad_rows,
                  result.total_rows, picks, time.time() - t0,
                  json.dumps(report)))
+        if label in NETEDGE_RUNS:
+            print("path %s net: Net: %s; Health: %s; lane %s; %s" % (
+                label, json.dumps({k[4:]: v for k, v in sorted(
+                    vars(result).items()) if k.startswith("net_")}),
+                json.dumps({k[7:]: v for k, v in sorted(
+                    vars(result).items()) if k.startswith("health_")
+                    and k != "health_lane_detail"}),
+                json.dumps(result.health_lane_detail, sort_keys=True),
+                json.dumps(netedge_report) if netedge_report is not None
+                else ""))
         if shard_report is not None:
             print("path %s shard: %s; Shard: %s" % (
                 label, json.dumps(shard_report), json.dumps(
@@ -3127,7 +3383,8 @@ def main() -> int:
             os.path.exists(os.path.join(HERE, c))
             for c in CONFIGS + (SEGMENT, TRACED, METRICS, DEVOBS, AUTOTUNE,
                                 STAGED, TINY_SHED, SHARD_D1, SHARD_D2,
-                                OPERATOR)):
+                                OPERATOR, NETEDGE_OFF, NETEDGE_LOOPBACK,
+                                NETEDGE_CHAOS_CONFIG)):
         print("chip_smoke: run from a checkout of the repo (rnb_tpu_torch/ "
               "and configs/ beside this script)", file=sys.stderr)
         return 1

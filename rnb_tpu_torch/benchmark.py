@@ -55,6 +55,17 @@ the injection schedule; the root ``deadline`` key stamps each request's
 deadline and adds ``Deadline:``/``Deadline sites:``. Latency percentiles
 and throughput count successes only.
 
+The root ``netedge`` key puts the network ingest edge in front of step 0
+(:mod:`rnb_tpu_torch.netedge`): a spawned peer process serves step 0 over
+TCP on the run's platform, its dispatcher takes the filename queue, the
+local step-0 executors serve the fallback off an interposed queue, and
+the receiver injects the peer's rows into step 0's out queue. The edge's
+lane board takes the root ``health`` key's thresholds (the defaults
+without it). log-meta gains ``Net:``, ``Net errors:``, ``Health:`` and
+``Health lanes:``; the metrics plane polls ``net.*`` and ``health.*``.
+With ``netedge.enabled: false`` nothing of it runs and the logs are those
+of the config without the key. The peer is stopped on every exit path.
+
 Runs on ``cuda:0`` (the config's devices) unless ``platform="cpu"``.
 
 CLI::
@@ -102,9 +113,14 @@ from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, EdgeTracker,
                                    FaultStats, InferenceCounter,
                                    RingCredits, TerminationState)
 from rnb_tpu_torch.faults import LANE_KINDS, FaultPlan
-from rnb_tpu_torch.health import DeadlineSettings, DeadlineStats
+from rnb_tpu_torch.health import (DeadlineSettings, DeadlineStats,
+                                  HealthSettings, LaneHealthBoard,
+                                  aggregate_board_snapshots)
 from rnb_tpu_torch.ops import _kernels
 from rnb_tpu_torch.ops.ragged import RaggedSettings
+from rnb_tpu_torch.netedge import (NET_LANE, PEER_EXIT_S, NetEdgeClient,
+                                   NetEdgeSettings, NetStats, spawn_peer,
+                                   stop_peer)
 from rnb_tpu_torch.pager import Pager, PagerSettings
 from rnb_tpu_torch.runner import NUM_SUMMARY_SKIPS, RunnerContext, runner
 from rnb_tpu_torch.stacksampler import StackSampler
@@ -285,6 +301,39 @@ class BenchmarkResult:
     stacks_threads: int = 0
     stacks_folded: int = 0
     stacks_total: int = 0
+    #: lane health accounting (the ``Health:`` and ``Health lanes:``
+    #: lines): the network edge's board, the one a path of the port
+    #: builds; routes_after_open must stay 0
+    health_lanes: int = 0
+    health_transitions: int = 0
+    health_opens: int = 0
+    health_evictions: int = 0
+    health_probes: int = 0
+    health_redispatches: int = 0
+    health_routes_after_open: int = 0
+    health_lane_detail: Dict[str, Any] = field(default_factory=dict)
+    #: the network edge's ledger (the ``Net:`` and ``Net errors:`` lines;
+    #: zero without ``netedge``)
+    net_frames_sent: int = 0
+    net_frames_acked: int = 0
+    net_resent_pending: int = 0
+    net_resends: int = 0
+    net_beats: int = 0
+    net_reconnects: int = 0
+    net_remote: int = 0
+    net_local: int = 0
+    net_dedup_drops: int = 0
+    net_dup_arrivals: int = 0
+    net_wire_bytes: int = 0
+    net_frame_bytes: int = 0
+    net_window_stranded: int = 0
+    net_open_before_timeout: int = 0
+    net_err_total: int = 0
+    net_err_refused: int = 0
+    net_err_reset: int = 0
+    net_err_timeout: int = 0
+    net_err_partial_frame: int = 0
+    net_err_corrupt: int = 0
 
 
 def aggregate_shard(shard_sink) -> Dict[str, Any]:
@@ -316,10 +365,11 @@ def aggregate_shard(shard_sink) -> Dict[str, Any]:
     }
 
 
-def _resolve_fault_plan(config, print_progress: bool):
+def _resolve_fault_plan(config, netedge: bool, print_progress: bool):
     """The run's fault plan (the ``RNB_FAULT_PLAN`` env JSON over the
-    config's ``fault_plan``), or None; a plan no path of the port can
-    inject is refused with the reference's messages."""
+    config's ``fault_plan``), or None; a plan no path of the run can
+    inject (lane faults without replica lanes, net faults without an
+    enabled ``netedge``) is refused with the reference's messages."""
     plan = FaultPlan.resolve(config.fault_plan)
     if plan is None:
         return None
@@ -331,7 +381,7 @@ def _resolve_fault_plan(config, print_progress: bool):
             "config has no enabled root 'health' key (or no replica "
             "lanes) — lane deaths need the health layer's eviction/drain "
             "machinery to stay contained")
-    if plan.has_net_faults():
+    if plan.has_net_faults() and not netedge:
         raise ValueError(
             "the fault plan injects net_* faults but the config has no "
             "enabled root 'netedge' key — there is no network edge to "
@@ -490,7 +540,8 @@ def run_benchmark(config_path: str,
                   profile: bool = False,
                   stages_sink: Optional[list] = None,
                   xprof: bool = False,
-                  batch_size: int = 1) -> BenchmarkResult:
+                  batch_size: int = 1,
+                  net_rows_sink: Optional[dict] = None) -> BenchmarkResult:
     """Programmatic entry used by the CLI, the tests and chip_smoke.py.
     ``outputs_sink``, when given, receives every request's output rows
     (request id -> (video, float32 array, its cache stamps)).
@@ -503,7 +554,10 @@ def run_benchmark(config_path: str,
     reference's 4-column format (``scripts/device_busy.py`` reads it).
     The two hold the one profiler session: pass one of them.
     ``batch_size`` is the reference's ``-b``: recorded in the ``Args:``
-    line when it is not 1, read by no stage (as in the reference)."""
+    line when it is not 1, read by no stage (as in the reference).
+    ``net_rows_sink``, on a netedge run, receives the valid rows of every
+    DATA frame whose request id is already a key of it (request id ->
+    CPU tensor)."""
     if profile and xprof:
         raise ValueError("profile and xprof each hold the one profiler "
                          "session; pass one of them")
@@ -514,7 +568,7 @@ def run_benchmark(config_path: str,
         return _run_benchmark(
             config_path, mean_interval_ms, num_videos, queue_size, log_base,
             print_progress, seed, platform, outputs_sink, profile,
-            stages_sink, xprof, batch_size, closers)
+            stages_sink, xprof, batch_size, net_rows_sink, closers)
     finally:
         for close in closers:
             close()
@@ -554,8 +608,9 @@ def _start_operator(config, job_id: str, log_base: str, registry,
     """The operator plane's server and stack sampler (None, None without
     the root ``operator`` key). The server binds and writes
     ``operator.json`` now; the sampler starts with the measured window.
-    No path of the port builds lane health boards, so ``/healthz``
-    serves none."""
+    ``/healthz`` serves the replica lanes' boards, as the reference's
+    does; the port has no replica lanes, so it serves none (the network
+    edge's board is not among them in the reference either)."""
     settings = OperatorSettings.from_config(config.operator)
     if settings is None:
         return None, None
@@ -583,9 +638,73 @@ def _start_operator(config, job_id: str, log_base: str, registry,
     return server, sampler
 
 
+class _NetEdge:
+    """One run's network ingest edge: the spawned peer, the lane board,
+    the ledger, the local fallback queue and the client."""
+
+    def __init__(self, config_path, config, settings, *, queue_size,
+                 inject_queue, filename_queue, num_markers, seed, counter,
+                 termination, fault_plan, fault_stats, deadline_stats,
+                 num_videos, rows_sink, closers):
+        self.peer = None
+        closers.append(self.close)
+        if settings.spawn:
+            self.peer, settings.connect = spawn_peer(
+                config_path, settings, config.platform, seed=seed or 0)
+        self.board = LaneHealthBoard(
+            (NET_LANE,), HealthSettings.from_config(config.health)
+            or HealthSettings())
+        self.stats = NetStats()
+        self.local_queue: "queue.Queue" = queue.Queue(queue_size)
+        self.client = NetEdgeClient(
+            settings, board=self.board, stats=self.stats,
+            fault_plan=fault_plan, fault_stats=fault_stats,
+            deadline_stats=deadline_stats, counter=counter,
+            num_videos=num_videos, termination=termination,
+            filename_queue=filename_queue, local_queue=self.local_queue,
+            inject_queue=inject_queue, num_markers=num_markers,
+            seed=seed or 0, peer_proc=self.peer, rows_sink=rows_sink)
+
+    def add_polls(self, registry) -> None:
+        """The ``net.*`` and ``health.*`` poll sources of the metrics
+        plane, as the reference registers them."""
+        registry.add_poll(metrics_mod.snapshot_poll(
+            "net", self.stats.snapshot,
+            counters=("frames_sent", "frames_acked", "resends", "beats",
+                      "reconnects", "remote", "local", "dedup_drops",
+                      "dup_arrivals", "wire_bytes", "frame_bytes",
+                      "err_total"),
+            gauges=("peer_depth",)))
+        registry.add_poll(metrics_mod.snapshot_poll(
+            "health", self.board.snapshot,
+            counters=("transitions", "opens", "evictions", "probes",
+                      "redispatches")))
+
+    def finish(self, pad_sink: list) -> None:
+        """After the stages joined: drain and stop the client (its
+        counters are then final), count the shipped emissions' pad rows
+        (the peer's own count died with it) and stop the peer, which
+        exits by itself after the EOS."""
+        self.client.stop()
+        pads = self.client.pad_snapshot()
+        if pads["emissions"]:
+            pad_sink.append(pads)
+        if self.peer is not None:
+            stop_peer(self.peer, wait_s=(PEER_EXIT_S if self.client.eos_sent
+                                         else 0.0))
+
+    def close(self) -> None:
+        """Every exit path: no transport thread runs on and no peer
+        outlives the run (both are no-ops after :meth:`finish`)."""
+        if hasattr(self, "client"):
+            self.client.stop(timeout_s=0.0)
+        if self.peer is not None:
+            stop_peer(self.peer, wait_s=0.0)
+
+
 def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                    log_base, print_progress, seed, platform, outputs_sink,
-                   profile, stages_sink, xprof, batch_size,
+                   profile, stages_sink, xprof, batch_size, net_rows_sink,
                    closers) -> BenchmarkResult:
     config = load_config(config_path, platform)
     job_id = "%s-mi%d-v%d-qs%d" % (
@@ -608,7 +727,15 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     if autotune_settings is not None:
         _warn_if_no_stage_autotunes(config)
     critpath_settings = CritpathSettings.from_config(config.critpath)
-    fault_plan = _resolve_fault_plan(config, print_progress)
+    netedge_settings = NetEdgeSettings.from_config(config.netedge)
+    if HealthSettings.from_config(config.health) is not None \
+            and netedge_settings is None:
+        # the port has no replica lanes: the edge's is the one board
+        print("[rnb-tpu-torch] WARNING: health is enabled but no step "
+              "declares replica lanes — there is nothing to circuit-break "
+              "and no Health: telemetry will be emitted", file=sys.stderr)
+    fault_plan = _resolve_fault_plan(config, netedge_settings is not None,
+                                     print_progress)
     fault_stats = FaultStats()
     deadline_settings = DeadlineSettings.from_config(config.deadline,
                                                      config.autotune)
@@ -649,6 +776,20 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
         termination, operator_window, closers, print_progress)
     num_markers = max(NUM_EXIT_MARKERS,
                       sum(len(g.devices) for g in config.steps[0].groups))
+    edge = None
+    if netedge_settings is not None:
+        # the peer binds before any stage of this process is built; a
+        # peer that cannot build its stage raises here
+        edge = _NetEdge(
+            config_path, config, netedge_settings, queue_size=queue_size,
+            inject_queue=queues[0][config.steps[0].groups[0].out_queues[0]],
+            filename_queue=filename_queue, num_markers=num_markers,
+            seed=seed, counter=counter, termination=termination,
+            fault_plan=fault_plan, fault_stats=fault_stats,
+            deadline_stats=deadline_stats, num_videos=num_videos,
+            rows_sink=net_rows_sink, closers=closers)
+        if registry is not None:
+            edge.add_polls(registry)
 
     client_args = (config.video_path_iterator, filename_queue,
                    mean_interval_ms if mean_interval_ms > 0 else num_videos,
@@ -671,8 +812,11 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                                               "SUPPORTS_RAGGED", False):
                 kwargs.update(ragged=True,
                               ragged_pool_rows=ragged.pool_rows)
-            in_queue = (filename_queue if step_idx == 0
-                        else queues[step_idx - 1][group.in_queue])
+            # under netedge the dispatcher takes the filename queue and
+            # step 0 serves the local fallback off the interposed queue
+            in_queue = (queues[step_idx - 1][group.in_queue] if step_idx
+                        else edge.local_queue if edge is not None
+                        else filename_queue)
             out_queues = (None if is_final else
                           [queues[step_idx][q] for q in group.out_queues])
             for instance_idx, device in enumerate(group.devices):
@@ -717,6 +861,9 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                                                  instance_idx)))
     for t in threads:
         t.start()
+    if edge is not None:
+        # transport threads, not stages: they join no barrier
+        edge.client.start()
 
     profiler = None
     if profile or xprof or registry is not None \
@@ -816,6 +963,8 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                        for name, count in _kernels.launch_counts().items()}
     for t in threads:
         t.join(timeout=60)
+    if edge is not None:
+        edge.finish(pad_sink)
     # every thread has drained: uninstall the tracer (or the bridge)
     # first, so a later run in this process never writes into this job's
     # collector
@@ -898,6 +1047,10 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     faults = fault_stats.snapshot()
     deadline_snap = (deadline_stats.snapshot() if deadline_stats is not None
                      else None)
+    health_stats = net_snap = None
+    if edge is not None:
+        health_stats = aggregate_board_snapshots([edge.board.snapshot()])
+        net_snap = edge.stats.snapshot()
     shard_stats = aggregate_shard(shard_sink) if shard_sink else None
     compute_summary = memory_summary = None
     if devobs_plane is not None:
@@ -974,6 +1127,12 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     if shard_stats is not None:
         for key, value in shard_stats.items():
             setattr(result, "shard_" + key, value)
+    if health_stats is not None:
+        for key, value in health_stats.items():
+            setattr(result, "health_" + key, value)
+    if net_snap is not None:
+        for key in NetStats.COUNTERS:
+            setattr(result, "net_" + key, int(net_snap[key]))
     if autotune_stats is not None:
         for key, value in autotune_stats.items():
             setattr(result, "autotune_" + key, value)
@@ -1021,6 +1180,17 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
             if deadline_snap["sites"]:
                 f.write("Deadline sites: %s\n" % json.dumps(
                     deadline_snap["sites"], sort_keys=True))
+        if health_stats is not None:
+            # the reference's format; parse_utils replays every lane's
+            # path against the legal automaton, routes_after_open 0
+            f.write("Health: lanes=%d transitions=%d opens=%d evictions=%d "
+                    "probes=%d redispatches=%d routes_after_open=%d\n"
+                    % tuple(health_stats[k] for k in (
+                        "lanes", "transitions", "opens", "evictions",
+                        "probes", "redispatches", "routes_after_open")))
+            if health_stats["lane_detail"]:
+                f.write("Health lanes: %s\n" % json.dumps(
+                    health_stats["lane_detail"], sort_keys=True))
         f.write("Device: %s\n" % device)
         for ingest in ingest_sink:
             # no "=" in these lines: they are names, not counters
@@ -1166,6 +1336,17 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
             f.write("Stacks: samples=%d threads=%d folded=%d total=%d\n"
                     % tuple(stacks_summary[k] for k in (
                         "samples", "threads", "folded", "total")))
+        if net_snap is not None:
+            # the reference's format; parse_utils foots frames_sent ==
+            # frames_acked + resent_pending, dedup_drops == dup_arrivals,
+            # the error classes to the total, no strands on a reached
+            # target; NetStats.COUNTERS is the reference's order
+            f.write("Net: %s\n" % " ".join(
+                "%s=%d" % (k, net_snap[k]) for k in NetStats.COUNTERS
+                if not k.startswith("err_")))
+            f.write("Net errors: %s\n" % " ".join(
+                "%s=%d" % (k[4:], net_snap[k]) for k in NetStats.COUNTERS
+                if k.startswith("err_")))
         f.write("Kernels: %s\n" % json.dumps(window_launches,
                                              sort_keys=True))
         if kernel_ms is not None:
@@ -1218,6 +1399,18 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                      faults["num_retries"], ", ".join(
                          "%s=%d" % kv for kv in sorted(
                              faults["failure_reasons"].items())) or "-"))
+        if health_stats is not None:
+            print("Health: %d lane(s), %d transition(s), %d open(s), %d "
+                  "eviction(s), %d probe(s), %d redispatch(es)"
+                  % tuple(health_stats[k] for k in (
+                      "lanes", "transitions", "opens", "evictions",
+                      "probes", "redispatches")))
+        if net_snap is not None:
+            print("Net: %d frame(s) sent / %d acked, %d resend(s), %d "
+                  "reconnect(s), %d remote / %d local route(s), %d error(s)"
+                  % tuple(net_snap[k] for k in (
+                      "frames_sent", "frames_acked", "resends",
+                      "reconnects", "remote", "local", "err_total")))
         if deadline_snap is not None:
             print("Deadline: budget %d ms, %d expired request(s) shed (%s)"
                   % (result.deadline_budget_ms, deadline_snap["expired"],
@@ -1273,9 +1466,9 @@ def check_config(path: str) -> int:
     ``main``), the knobs to know before pointing traffic at the pipeline.
     Validation only: no stage is built, no kernel compiled, no device
     touched. A config the port does not read yet is refused with the
-    reader's "not yet ported" error (exit 1). The ``handoff``,
-    ``placement`` and ``health`` keys and ``hedge_ms`` are not ported, so
-    a config the port reads carries none of them."""
+    reader's "not yet ported" error (exit 1). The ``handoff`` and
+    ``placement`` keys and ``hedge_ms`` are not ported, so a config the
+    port reads carries none of them."""
     from rnb_tpu_torch import client, control, runner  # noqa: F401
     from rnb_tpu_torch.config import ConfigError
     from rnb_tpu_torch.models.r2p1d import model  # noqa: F401
@@ -1318,8 +1511,8 @@ def check_config(path: str) -> int:
     print("critpath: %s; whatif: %s" % (spec(cfg.critpath),
                                         spec(cfg.whatif)))
     print("operator: %s" % spec(cfg.operator))
-    print("health: none; deadline: %s; hedging: none"
-          % spec(cfg.deadline))
+    print("health: %s; deadline: %s; hedging: none"
+          % (spec(cfg.health), spec(cfg.deadline)))
     print("rnb_tpu_torch is ready to go!")
     return 0
 

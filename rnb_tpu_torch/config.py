@@ -12,9 +12,12 @@ device to the CPU on ``platform="cpu"``) and ``-1`` to the host.
 
 The reference's rules on ``num_segments`` (a step's fan-out into row
 segments), on the root ``trace``, ``metrics``, ``critpath``,
-``autotune``, ``devobs``, ``whatif`` and ``operator`` keys, on the fault-containment root keys
-(``overload_policy``, ``fault_containment``, ``fault_plan``,
-``deadline``) and on a step's ``autotune`` opt-out and retry budget
+``autotune``, ``devobs``, ``whatif`` and ``operator`` keys, on the
+fault-containment root keys (``overload_policy``, ``fault_containment``,
+``fault_plan``, ``deadline``), on the network edge's ``netedge`` key and
+its lane board's ``health`` key (with the edge's cross-key rules: two or
+more steps, no segmented step 0, no ``trace``, no ``ragged``) and on a
+step's ``autotune`` opt-out and retry budget
 (``max_retries``, ``retry_backoff_ms``) are kept with the reference's own
 messages. So is the step-level ``shard`` key (intra-stage sharding,
 rnb_tpu_torch.parallel.shardplan): each queue group keeps its first
@@ -42,7 +45,8 @@ ROOT_KEYS = frozenset({"video_path_iterator", "pipeline", "ragged",
                        "popularity", "pager", "trace", "metrics",
                        "critpath", "autotune", "overload_policy",
                        "fault_containment", "fault_plan", "deadline",
-                       "devobs", "whatif", "operator"})
+                       "devobs", "whatif", "operator", "health",
+                       "netedge"})
 TRACE_KEYS = ("enabled", "sample_hz", "max_events")
 #: the reference's key lists, in its order (its messages print them)
 METRICS_KEYS = ["enabled", "interval_ms", "flight_recorder"]
@@ -56,6 +60,10 @@ DEVOBS_KEYS = ["enabled", "capture_window_ms", "capture_on_trigger",
                "max_captures", "capture_max_ops", "watermark_mb",
                "sample_hz"]
 DEADLINE_KEYS = ["enabled", "budget_ms"]
+HEALTH_KEYS = ["enabled", "suspect_after_ms", "open_after_ms",
+               "probe_interval_ms"]
+NETEDGE_KEYS = ["enabled", "listen", "connect", "beat_ms", "io_timeout_ms",
+                "max_retries", "backoff_ms", "resend_window", "spawn"]
 AUTOTUNE_KEYS = ["enabled", "slo_ms", "ewma_alpha", "min_hold_ms",
                  "max_hold_ms", "buckets"]
 RAGGED_KEYS = frozenset({"enabled", "pool_rows"})
@@ -203,6 +211,14 @@ class PipelineConfig:
     fault_plan: Optional[dict] = None
     #: deadline propagation (root ``deadline`` key; rnb_tpu_torch.health)
     deadline: Optional[dict] = None
+    #: the lane health board's thresholds (root ``health`` key;
+    #: rnb_tpu_torch.health): read by the network edge's board, the one
+    #: board a path of the port builds
+    health: Optional[dict] = None
+    #: the network ingest edge (root ``netedge`` key;
+    #: rnb_tpu_torch.netedge): when enabled, a peer process serves step 0
+    #: over TCP with a local fallback behind a lane health board
+    netedge: Optional[dict] = None
     #: the config dict as read (the devobs config walks read it)
     raw: Optional[dict] = None
 
@@ -458,6 +474,84 @@ def _check_deadline(deadline) -> None:
             % (budget,))
 
 
+def _check_health(health) -> None:
+    """The reference's rules (rnb_tpu/config.py, root ``health``)."""
+    _expect(isinstance(health, dict), "'health' must be an object")
+    unknown = sorted(set(health) - set(HEALTH_KEYS))
+    _expect(not unknown, "'health' has unknown key(s) %s — keys are %s"
+            % (unknown, HEALTH_KEYS))
+    _expect(isinstance(health.get("enabled", True), bool),
+            "'health.enabled' must be a boolean")
+    for key in ("suspect_after_ms", "open_after_ms", "probe_interval_ms"):
+        val = health.get(key)
+        _expect(val is None or _is_positive(val),
+                "'health.%s' must be a positive number, got %r" % (key, val))
+    if health.get("enabled", True):
+        # the runtime's defaulting: thresholds that invert fail here
+        from rnb_tpu_torch.health import HealthSettings
+        try:
+            HealthSettings.from_config(health)
+        except ValueError as e:
+            raise ConfigError("invalid 'health': %s" % e) from e
+
+
+def _check_netedge(netedge) -> None:
+    """The reference's rules (rnb_tpu/config.py, root ``netedge``)."""
+    _expect(isinstance(netedge, dict), "'netedge' must be an object")
+    unknown = sorted(set(netedge) - set(NETEDGE_KEYS))
+    _expect(not unknown, "'netedge' has unknown key(s) %s — keys are %s"
+            % (unknown, NETEDGE_KEYS))
+    _expect(isinstance(netedge.get("enabled", True), bool),
+            "'netedge.enabled' must be a boolean")
+    _expect(isinstance(netedge.get("spawn", False), bool),
+            "'netedge.spawn' must be a boolean")
+    for key in ("listen", "connect"):
+        val = netedge.get(key)
+        _expect(val is None or isinstance(val, str),
+                "'netedge.%s' must be a host:port string, got %r"
+                % (key, val))
+    for key in ("beat_ms", "io_timeout_ms", "backoff_ms"):
+        val = netedge.get(key)
+        _expect(val is None or (_is_number(val) and val >= 0),
+                "'netedge.%s' must be a non-negative number, got %r"
+                % (key, val))
+    for key in ("max_retries", "resend_window"):
+        val = netedge.get(key)
+        _expect(val is None or (isinstance(val, int)
+                                and not isinstance(val, bool) and val >= 1),
+                "'netedge.%s' must be a positive integer, got %r"
+                % (key, val))
+    if netedge.get("enabled", True):
+        # the runtime's defaulting: a timeout shorter than the beat, or
+        # neither connect nor spawn, fails here
+        from rnb_tpu_torch.netedge import NetEdgeSettings
+        try:
+            NetEdgeSettings.from_config(netedge)
+        except ValueError as e:
+            raise ConfigError("invalid 'netedge': %s" % e) from e
+
+
+def _check_netedge_pipeline(steps, raw) -> None:
+    """The reference's cross-key rules of an enabled edge: the peer
+    serves step 0 and the receiver injects into step 1's input edge, so
+    the remote and local emissions must be interchangeable."""
+    _expect(len(steps) >= 2,
+            "'netedge' needs at least 2 pipeline steps: the peer serves "
+            "step 0 remotely and injects into step 1's input edge")
+    _expect(steps[0].num_segments == 1,
+            "'netedge' cannot serve a segmented step 0: the remote path "
+            "bypasses the runner's segment split")
+    trace = raw.get("trace")
+    _expect(not (isinstance(trace, dict) and trace.get("enabled", True)),
+            "'netedge' cannot be combined with 'trace': remote emissions "
+            "lack the trace-mode decode stamps, so the per-request timing "
+            "tables would mix two schemas")
+    ragged = raw.get("ragged")
+    _expect(not (isinstance(ragged, dict) and ragged.get("enabled", True)),
+            "'netedge' cannot be combined with 'ragged': the peer's "
+            "row-pool accounting dies with the peer")
+
+
 def _check_fault_plan(fault_plan, num_steps: int) -> None:
     """The reference's rule: the plan's structure, and its step indices
     against this pipeline (a typo'd step would never fire)."""
@@ -596,6 +690,8 @@ def parse_config(raw: dict, platform: Optional[str] = None
     if trace is not None:
         _check_trace(trace)
     for key, check in (("deadline", _check_deadline),
+                       ("health", _check_health),
+                       ("netedge", _check_netedge),
                        ("metrics", _check_metrics),
                        ("critpath", _check_critpath),
                        ("devobs", _check_devobs),
@@ -714,6 +810,9 @@ def parse_config(raw: dict, platform: Optional[str] = None
             num_segments=_check_num_segments(step_raw, step_idx, is_final),
             autotune=step_autotune, max_retries=max_retries,
             retry_backoff_ms=retry_backoff_ms))
+    netedge = raw.get("netedge")
+    if netedge is not None and netedge.get("enabled", True):
+        _check_netedge_pipeline(steps, raw)
     return PipelineConfig(
         video_path_iterator=port_class_path(raw["video_path_iterator"]),
         steps=steps, ragged=ragged, platform=platform,
@@ -722,7 +821,8 @@ def parse_config(raw: dict, platform: Optional[str] = None
         devobs=raw.get("devobs"), whatif=raw.get("whatif"),
         operator=raw.get("operator"), autotune=raw.get("autotune"), overload_policy=overload_policy,
         fault_containment=fault_containment, fault_plan=fault_plan,
-        deadline=raw.get("deadline"), raw=raw)
+        deadline=raw.get("deadline"), health=raw.get("health"),
+        netedge=netedge, raw=raw)
 
 
 def load_config(path: str, platform: Optional[str] = None

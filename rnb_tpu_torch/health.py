@@ -22,8 +22,9 @@ Counterpart of ``rnb_tpu/health.py``, the port's own copy. Three pieces:
   sibling; the first resolution wins.
 
 The board and the governor are the reference's, held to it on the CPU
-with explicit clocks; no path of the port builds them until replica
-lanes are ported. Every method takes an explicit ``now``
+with explicit clocks. The network edge (:mod:`rnb_tpu_torch.netedge`)
+builds a board of one lane; the replica lanes' boards and the governor
+wait for the replica lanes. Every method takes an explicit ``now``
 (``time.monotonic()`` seconds) so tests drive the state machines
 deterministically.
 """

@@ -86,6 +86,14 @@ job's config copy (stages, calibration and bottleneck exactly,
 and so do ``Stacks:`` and ``stacks.folded``, whose counts re-sum to
 ``total`` over as many stacks and roles as the line says, with the
 sampler's ticks within tolerance of ``sample_hz`` x the window.
+Of the network edge (``Net:``, ``Net errors:``, ``Health:``, ``Health
+lanes:``; the reference's ``_check_netedge`` and ``_check_health``):
+``frames_sent == frames_acked + resent_pending``, the error classes sum
+to ``total``, ``dedup_drops == dup_arrivals``, ``remote <= frames_sent``,
+no window strand on a run that reached its target; every lane's path a
+legal walk ending in its state, the ``Health:`` counters re-derived from
+the paths, ``routes_after_open`` 0, and work moved only off an evicted
+lane.
 A violation is printed and the exit code is 1 (``--check`` is accepted
 and changes nothing: the checks always run).
 """
@@ -116,7 +124,8 @@ JSON_LINES = {"Failure reasons": "failure_reasons",
               "Shed sites": "shed_sites",
               "Queue overflows": "queue_overflows",
               "Deadline sites": "deadline_sites",
-              "Shard steps": "shard_step_detail"}
+              "Shard steps": "shard_step_detail",
+              "Health lanes": "health_lane_detail"}
 #: the suffix of every deadline shed site (rnb_tpu_torch.health)
 DEADLINE_SUFFIX = ":deadline_expired"
 
@@ -1135,6 +1144,118 @@ def operator_problems(log_dir: str, meta: dict) -> List[str]:
     return problems
 
 
+#: the ``Net:`` and ``Net errors:`` counters (rnb_tpu_torch.benchmark)
+NET_KEYS = ("frames_sent", "frames_acked", "resent_pending", "resends",
+            "beats", "reconnects", "remote", "local", "dedup_drops",
+            "dup_arrivals", "wire_bytes", "frame_bytes", "window_stranded",
+            "open_before_timeout")
+NET_ERROR_CLASSES = ("refused", "reset", "timeout", "partial_frame",
+                     "corrupt")
+
+
+def netedge_problems(meta: dict) -> List[str]:
+    """The network edge's ledger (the reference's ``_check_netedge``):
+    sends foot against acks plus the unacked remainder, the error
+    classes re-sum to the total, duplicate arrivals and dedup drops pair
+    1:1, no remote dispatch lacks its REQ frame, and a run that reached
+    its target strands nothing in the resend window."""
+    lines = meta["lines"]
+    net, errors = lines.get("Net"), lines.get("Net errors")
+    if net is None:
+        return (["log-meta carries a 'Net errors:' line but no 'Net:' "
+                 "totals line"] if errors is not None else [])
+    if errors is None:
+        return ["log-meta carries a 'Net:' line but no 'Net errors:' line"]
+    problems = ["negative net_%s" % k for k in NET_KEYS if net.get(k, 0) < 0]
+    problems += ["negative net_err_%s" % k for k in ("total",)
+                 + NET_ERROR_CLASSES if errors.get(k, 0) < 0]
+    sent, acked = net.get("frames_sent", 0), net.get("frames_acked", 0)
+    pending = net.get("resent_pending", 0)
+    if sent != acked + pending:
+        problems.append("net_frames_sent=%d != net_frames_acked=%d + "
+                        "net_resent_pending=%d — the send/ack ledger does "
+                        "not foot at teardown" % (sent, acked, pending))
+    class_sum = sum(errors.get(k, 0) for k in NET_ERROR_CLASSES)
+    if class_sum != errors.get("total", 0):
+        problems.append("per-class net error counts sum to %d but the 'Net "
+                        "errors:' line says total=%d — a fault class "
+                        "escaped classification"
+                        % (class_sum, errors.get("total", 0)))
+    if net.get("dedup_drops", 0) != net.get("dup_arrivals", 0):
+        problems.append("net_dedup_drops=%d != net_dup_arrivals=%d — a "
+                        "duplicate arrival escaped the receiver-side dedup "
+                        "ledger (exactly-once violated)"
+                        % (net.get("dedup_drops", 0),
+                           net.get("dup_arrivals", 0)))
+    if sent < net.get("remote", 0):
+        problems.append("net_remote=%d exceeds net_frames_sent=%d — a "
+                        "remote dispatch that never produced a REQ frame"
+                        % (net.get("remote", 0), sent))
+    if meta.get("termination_flag") == 0 \
+            and net.get("window_stranded", 0) != 0:
+        problems.append("net_window_stranded=%d on a target-reached run — "
+                        "requests left in the resend window were neither "
+                        "rerouted nor settled" % net["window_stranded"])
+    return problems
+
+
+def health_problems(meta: dict) -> List[str]:
+    """The lane boards' invariants (the reference's ``_check_health``):
+    every lane's transition path is a legal walk of the automaton that
+    ends in its state, the ``Health:`` counters re-derive from the
+    paths, no route landed on an open or evicted lane, and only an
+    evicted lane moved work off itself. (That every request terminated
+    is :func:`fault_problems`' footing.)"""
+    from rnb_tpu_torch.health import EVICTED, OPEN, legal_path
+    health = meta["lines"].get("Health")
+    detail = meta.get("health_lane_detail")
+    if health is None:
+        return (["log-meta carries a 'Health lanes:' line but no "
+                 "'Health:' totals line"] if detail is not None else [])
+    problems = ["negative health_%s" % k for k, v in sorted(health.items())
+                if v < 0]
+    if health.get("routes_after_open", 0) != 0:
+        problems.append("health_routes_after_open=%d — a route landed on "
+                        "an open/evicted lane (circuit containment "
+                        "violated)" % health["routes_after_open"])
+    if detail is None:
+        if health.get("lanes", 0):
+            problems.append("'Health:' counts %d lane(s) but no 'Health "
+                            "lanes:' detail line exists" % health["lanes"])
+        return problems
+    if len(detail) != health.get("lanes", 0):
+        problems.append("'Health lanes:' names %d lane(s) but the "
+                        "'Health:' line says lanes=%d"
+                        % (len(detail), health.get("lanes", 0)))
+    want = dict.fromkeys(("transitions", "opens", "evictions",
+                          "redispatches", "routes_after_open"), 0)
+    for lane, entry in sorted(detail.items()):
+        path = list(entry.get("path", []))
+        if not legal_path(path):
+            problems.append("lane %s transition path %s is not a legal walk "
+                            "of the health automaton (healthy start, "
+                            "declared edges only)" % (lane, path))
+        if path and entry.get("state") != path[-1]:
+            problems.append("lane %s final state %r disagrees with its path "
+                            "%s" % (lane, entry.get("state"), path))
+        moved = int(entry.get("redispatched_from", 0))
+        want["transitions"] += max(0, len(path) - 1)
+        want["opens"] += path.count(OPEN)
+        want["evictions"] += path.count(EVICTED)
+        want["redispatches"] += moved
+        want["routes_after_open"] += int(entry.get("routes_after_open", 0))
+        if moved and entry.get("state") != EVICTED:
+            problems.append("lane %s reports %d redispatched item(s) but was "
+                            "never evicted — only an evicted lane's drain "
+                            "moves work" % (lane, moved))
+    for key, value in want.items():
+        if health.get(key, 0) != value:
+            problems.append("'Health lanes:' detail recomputes %s=%d but the "
+                            "'Health:' line says %d"
+                            % (key, value, health.get(key, 0)))
+    return problems
+
+
 def footing_problems(meta: dict) -> List[str]:
     """The footings of the ``Compiles:`` and ``Pages:`` lines that do
     not hold (empty when they all hold)."""
@@ -1215,9 +1336,10 @@ def summarize(log_dir: str) -> dict:
                    trace_dropped=int(lines["Trace"]["dropped"]))
     for head in ("Metrics", "Slo", "Critpath", "Autotune", "Faults",
                  "Deadline", "Compute", "Memory", "Shard", "Whatif",
-                 "Operator", "Stacks"):
+                 "Operator", "Stacks", "Health", "Net", "Net errors"):
         if head in lines:
-            out[head.lower()] = {k: int(v) for k, v in lines[head].items()}
+            out[head.lower().replace(" ", "_")] = {
+                k: int(v) for k, v in lines[head].items()}
     if "autotune_buckets" in meta:
         out["autotune_buckets"] = meta["autotune_buckets"]
     if "Cache" in lines:
@@ -1242,7 +1364,9 @@ def summarize(log_dir: str) -> dict:
                                + devobs_problems(log_dir, meta)
                                + shard_problems(log_dir, meta)
                                + whatif_problems(log_dir, meta)
-                               + operator_problems(log_dir, meta))
+                               + operator_problems(log_dir, meta)
+                               + health_problems(meta)
+                               + netedge_problems(meta))
     profile = os.path.join(log_dir, "profile.json")
     if os.path.exists(profile):
         with open(profile) as f:

@@ -3,6 +3,13 @@
 Counterpart of ``rnb_tpu/runner.py``, without the replica lanes, health
 board and hedging of the JAX package (not yet ported).
 
+An item may carry its payload as host rows
+(:class:`~rnb_tpu_torch.health.DirectPayload`: what the network edge's
+receiver injects, :mod:`rnb_tpu_torch.netedge`). It holds no ring credit;
+the executor uploads its rows through a pinned buffer on its own stream
+(:class:`~rnb_tpu_torch.staging.PinnedUpload`), so they reach the card in
+stream order before the stage's forward replays.
+
 **Fault containment** (:mod:`rnb_tpu_torch.faults`): an error escaping
 a stage's model call is classified. A transient one is retried up to the
 step's ``max_retries``, ``retry_backoff_ms`` apart (the retry calls the
@@ -66,6 +73,7 @@ and busy span.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import queue
 import threading
@@ -86,11 +94,12 @@ from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, EdgeTracker,
 from rnb_tpu_torch.devices import DeviceSpec
 from rnb_tpu_torch.faults import (FATAL, TRANSIENT, classify_error,
                                   fault_reason)
-from rnb_tpu_torch.health import deadline_site
+from rnb_tpu_torch.health import DirectPayload, deadline_site
 from rnb_tpu_torch.health import expired as deadline_expired
 from rnb_tpu_torch.ops.ragged import check_segment_offsets
 from rnb_tpu_torch.selector import DEFAULT_QUEUE_SELECTOR
 from rnb_tpu_torch.stage import PaddedBatch, RaggedBatch
+from rnb_tpu_torch.staging import PinnedUpload
 from rnb_tpu_torch.telemetry import (TimeCardList, TimeCardSummary,
                                      cards_of, logname)
 from rnb_tpu_torch.utils.class_utils import load_class
@@ -627,6 +636,7 @@ def runner(ctx: RunnerContext) -> None:
     where_take = "step%d_take" % ctx.step_idx
     where_publish = "step%d_publish" % ctx.step_idx
     saw_marker = False
+    uploader = None  # built at the first DirectPayload item
     try:
         while model is not None and not ctx.termination.terminated:
             if hooks is not None:
@@ -718,6 +728,14 @@ def runner(ctx: RunnerContext) -> None:
                             t_enq = tc.timings.get("enqueue_filename")
                             if t_enq is not None:
                                 controller.observe_enqueue(t_enq)
+                    if isinstance(payload, DirectPayload):
+                        # host rows off the network edge: to the card on
+                        # this thread's stream, ahead of the forward
+                        if uploader is None:
+                            uploader = PinnedUpload(ctx.device.resolve())
+                        payload = tuple(
+                            dataclasses.replace(pb, data=uploader.upload(
+                                pb.data)) for pb in payload.payload)
                     result = _call_stage(ctx, model, payload, non_tensors,
                                          time_card, None, summary,
                                          key_start, tr_model_call)

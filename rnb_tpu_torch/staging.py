@@ -280,3 +280,43 @@ class TransferWorker:
             self._closed = True
             self._wake.notify_all()
         self._thread.join(timeout=timeout)
+
+
+class PinnedUpload:
+    """Host rows to the card through a pinned buffer, ordered on the
+    caller's current stream: the executor's upload of a payload that
+    arrived as host rows (a netedge DATA frame), before the stage's
+    forward replays on the same stream.
+
+    One pinned buffer per shape and dtype, refilled once the copy out of
+    it has run (its event). Off the card the rows are handed over as they
+    are, on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        #: (shape, dtype) -> [pinned buffer, event of its last copy]
+        self._buffers: Dict[tuple, list] = {}
+        self.uploads = 0
+        self.upload_bytes = 0
+
+    def upload(self, host: torch.Tensor) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return host
+        key = (tuple(host.shape), host.dtype)
+        entry = self._buffers.get(key)
+        if entry is None:
+            entry = [torch.empty(key[0], dtype=host.dtype, pin_memory=True),
+                     torch.cuda.Event()]
+            self._buffers[key] = entry
+        else:
+            # the last copy out of this buffer has run
+            entry[1].synchronize()
+        pinned, done = entry
+        pinned.copy_(host)
+        stream = torch.cuda.current_stream(self.device)
+        dst = torch.empty(key[0], dtype=host.dtype, device=self.device)
+        dst.copy_(pinned, non_blocking=True)
+        done.record(stream)
+        self.uploads += 1
+        self.upload_bytes += pinned.nbytes
+        return dst

@@ -8,9 +8,9 @@ sample_hz}``) serves what the planes already hold — nothing is
 re-measured:
 
 * ``GET /healthz`` — lane-health board states
-  (:class:`rnb_tpu_torch.health.LaneHealthBoard` snapshots; no path of
-  the port builds a board yet, so the map is empty) + the termination
-  flag;
+  (:class:`rnb_tpu_torch.health.LaneHealthBoard` snapshots of the
+  replica lanes; the port has none yet, so the map is empty) + the
+  termination flag;
 * ``GET /metrics`` — the Prometheus text exposition rendered from the
   live :class:`rnb_tpu_torch.metrics.MetricsRegistry` (the same
   renderer as the teardown ``metrics.prom``);

@@ -521,9 +521,9 @@ TRACE_EVENT_REGISTRY = (
               "(declared shard_degree > 1 only; nested inside the step's "
               "model_call span)"),
     StampSpec("health.lane_state", "rnb_tpu_torch/health.py",
-              "instant: a replica lane's health state transition "
-              "(args: lane, from, to, why); no path of the port builds "
-              "a board yet"),
+              "instant: a lane's health state transition (args: lane, "
+              "from, to, why); the network edge's board is the one a "
+              "path of the port builds"),
     StampSpec("loader.decode_submit", "rnb_tpu_torch/models/r2p1d/model.py",
               "instant: one request's decode submitted"),
     StampSpec("loader.decode_ready", "rnb_tpu_torch/models/r2p1d/model.py",
@@ -647,6 +647,29 @@ META_LINE_REGISTRY = (
               "by the allow_actions gate, request errors (operator-enabled "
               "runs only; parse_utils holds the line to operator.json both "
               "ways)"),
+    StampSpec("Health:", "rnb_tpu_torch/benchmark.py",
+              "lane health counters (rnb_tpu_torch.health): lanes, state "
+              "transitions, opens, evictions, half-open probes, "
+              "redispatched items, routes to an open or evicted lane "
+              "(netedge runs only: the edge's one-lane board; parse_utils "
+              "replays every lane's path and holds routes_after_open to "
+              "0)"),
+    StampSpec("Health lanes:", "rnb_tpu_torch/benchmark.py",
+              "JSON per-lane detail: state, transition path, "
+              "redispatched_from, routes_after_open"),
+    StampSpec("Net:", "rnb_tpu_torch/benchmark.py",
+              "network ingest edge counters (rnb_tpu_torch.netedge): "
+              "frames sent/acked, resends + resent_pending at teardown, "
+              "heartbeats seen, reconnects, remote vs local-fallback "
+              "dispatches, dedup drops vs duplicate arrivals, wire and "
+              "DATA row bytes, window strands, the opened-before-timeout "
+              "flag (netedge runs only; parse_utils holds frames_sent == "
+              "frames_acked + resent_pending and dedup_drops == "
+              "dup_arrivals)"),
+    StampSpec("Net errors:", "rnb_tpu_torch/benchmark.py",
+              "per-class network fault counts (refused/reset/timeout/"
+              "partial_frame/corrupt); parse_utils re-sums them to "
+              "total"),
     StampSpec("Stacks:", "rnb_tpu_torch/benchmark.py",
               "wall-clock stack sampler counters "
               "(rnb_tpu_torch.stacksampler): sampling ticks, distinct "
@@ -700,6 +723,41 @@ METRIC_REGISTRY = (
                "BatchController decisions"),
     MetricSpec("health.lane_state", "counter", "bridge",
                "lane health state transitions"),
+    MetricSpec("health.transitions", "counter", "poll",
+               "lane state-machine hops (LaneHealthBoard)"),
+    MetricSpec("health.opens", "counter", "poll", "lane circuit opens"),
+    MetricSpec("health.evictions", "counter", "poll",
+               "permanently dead lanes"),
+    MetricSpec("health.probes", "counter", "poll",
+               "half-open recovery probes"),
+    MetricSpec("health.redispatches", "counter", "poll",
+               "items drained off evicted lanes"),
+    MetricSpec("net.frames_sent", "counter", "poll",
+               "REQ frames shipped across the ingest edge"),
+    MetricSpec("net.frames_acked", "counter", "poll",
+               "REQ frames the peer acknowledged (unique seqs)"),
+    MetricSpec("net.resends", "counter", "poll",
+               "REQ frames re-shipped after a reconnect or a lost ack"),
+    MetricSpec("net.beats", "counter", "poll",
+               "peer heartbeat frames received"),
+    MetricSpec("net.reconnects", "counter", "poll",
+               "successful re-dials after a connection died"),
+    MetricSpec("net.remote", "counter", "poll",
+               "requests dispatched across the wire"),
+    MetricSpec("net.local", "counter", "poll",
+               "requests routed to the in-process fallback"),
+    MetricSpec("net.dedup_drops", "counter", "poll",
+               "duplicate DATA/DISPOSE frames the receiver dropped"),
+    MetricSpec("net.dup_arrivals", "counter", "poll",
+               "frames that arrived for an already-settled seq"),
+    MetricSpec("net.wire_bytes", "counter", "poll",
+               "bytes sent and received on the wire"),
+    MetricSpec("net.frame_bytes", "counter", "poll",
+               "DATA row bytes received (valid rows only)"),
+    MetricSpec("net.err_total", "counter", "poll",
+               "classified network faults (all classes)"),
+    MetricSpec("net.peer_depth", "gauge", "poll",
+               "the peer's in-flight depth, on every frame it sends"),
     MetricSpec("faults.num_failed", "counter", "poll",
                "dead-lettered requests (FaultStats ledger)"),
     MetricSpec("faults.num_shed", "counter", "poll",

@@ -29,7 +29,11 @@
 # index made 0, written beside the dataset: the degree-2 ring's members
 # share the card); operator (configs/rnb-fused-yuv-operator.json, the
 # metrics cell with the operator plane's HTTP server and 25 Hz stack
-# sampler; nothing scrapes it); all but dct over a generated y4m dataset. With
+# sampler; nothing scrapes it); netedge-off and netedge-loopback
+# (configs/rnb-netedge-off.json and -loopback.json as shipped: the plain
+# dct loader in process, and the same loader in a spawned peer process on
+# the card behind the TCP edge; the peer prints its memory at exit); all
+# but dct and the netedge cells over a generated y4m dataset. With
 # RNB_HOST_PROFILE=1 in the environment every run also writes
 # hostprof.txt, and its sections are printed at the end.
 # RNB_MEASURE_VIDEOS sets the bulk request count
@@ -112,12 +116,14 @@ run() {  # run <cell> <args...>
     shard-d1) cfg=$data/rnb-shard-d1-1card.json ;;
     shard-d2) cfg=$data/rnb-shard-d2-1card.json ;;
     operator) cfg=configs/rnb-fused-yuv-operator.json ;;
+    netedge-off) cfg=configs/rnb-netedge-off.json ;;
+    netedge-loopback) cfg=configs/rnb-netedge-loopback.json ;;
     *) echo "unknown cell $cell" >&2; exit 2 ;;
   esac
-  if [ "$cell" = dct ]; then
-    env -u RNB_TPU_DATA_ROOT python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath|Faults|Deadline|Compute|Memory|\[rnb-tpu-torch\] operator)"
+  if [ "$cell" = dct ] || [ "${cell#netedge}" != "$cell" ]; then
+    env -u RNB_TPU_DATA_ROOT python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath|Faults|Deadline|Compute|Memory|Net|Health|\[rnb-tpu-torch\] (operator|netedge))"
   else
-    RNB_TPU_DATA_ROOT="$data" python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath|Faults|Deadline|Compute|Memory|\[rnb-tpu-torch\] operator)"
+    RNB_TPU_DATA_ROOT="$data" python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath|Faults|Deadline|Compute|Memory|Net|Health|\[rnb-tpu-torch\] (operator|netedge))"
   fi
 }
 for c in $cells; do echo "== $c bulk"; run $c -mi 0 -v $videos; done
@@ -133,10 +139,10 @@ cat $out/summary.jsonl | python3 -c "
 import sys, json
 for line in sys.stdin:
     d = json.loads(line); fam = d.get('kernel_families') or {}
-    print(d['log_dir'].split('/')[-2], d['config'].split('/')[-1], d['mean_interval_ms'], d['pixel_path'], d['decode_backend'], 'vps=%.3f' % d['videos_per_s'], 'cps=%.1f' % d['clips_per_s'], 'em=%d' % d['emissions'], 'svc=%.2f' % d['runner_service_ms'], 'wait=%s' % d['runner_wait_ms'], 'svc_by_step=%s' % json.dumps(d.get('service_ms_by_step')), 'em_by_step=%s' % json.dumps(d.get('emissions_by_step')), 'trace_events=%s' % d.get('trace_events'), 'kms/em=%s' % d.get('kernel_ms_per_emission'), 'busy=%s' % d.get('busy_share'), 'ingest=%s' % fam.get('ingest'), 'gather=%s' % fam.get('gather'), 'hit_rate=%s' % d.get('cache_hit_rate'), 'feature_hits=%s' % d.get('pages_feature_hits'), 'gathers=%s' % d.get('pages_gathers'), 'autotune=%s' % json.dumps(d.get('autotune')), 'autotune_buckets=%s' % json.dumps(d.get('autotune_buckets')), 'metrics=%s' % json.dumps(d.get('metrics')), 'slo=%s' % json.dumps(d.get('slo')), 'critpath=%s' % json.dumps(d.get('critpath')), 'faults=%s' % json.dumps(d.get('faults')), 'deadline=%s' % json.dumps(d.get('deadline')), 'compute=%s' % json.dumps(d.get('compute')), 'memory=%s' % json.dumps(d.get('memory')), 'shard=%s' % json.dumps(d.get('shard')), 'operator=%s' % json.dumps(d.get('operator')), 'stacks=%s' % json.dumps(d.get('stacks')), 'footing=%s' % d['footing_problems'])
+    print(d['log_dir'].split('/')[-2], d['config'].split('/')[-1], d['mean_interval_ms'], d['pixel_path'], d['decode_backend'], 'vps=%.3f' % d['videos_per_s'], 'cps=%.1f' % d['clips_per_s'], 'em=%d' % d['emissions'], 'svc=%.2f' % d['runner_service_ms'], 'wait=%s' % d['runner_wait_ms'], 'svc_by_step=%s' % json.dumps(d.get('service_ms_by_step')), 'em_by_step=%s' % json.dumps(d.get('emissions_by_step')), 'trace_events=%s' % d.get('trace_events'), 'kms/em=%s' % d.get('kernel_ms_per_emission'), 'busy=%s' % d.get('busy_share'), 'ingest=%s' % fam.get('ingest'), 'gather=%s' % fam.get('gather'), 'hit_rate=%s' % d.get('cache_hit_rate'), 'feature_hits=%s' % d.get('pages_feature_hits'), 'gathers=%s' % d.get('pages_gathers'), 'autotune=%s' % json.dumps(d.get('autotune')), 'autotune_buckets=%s' % json.dumps(d.get('autotune_buckets')), 'metrics=%s' % json.dumps(d.get('metrics')), 'slo=%s' % json.dumps(d.get('slo')), 'critpath=%s' % json.dumps(d.get('critpath')), 'faults=%s' % json.dumps(d.get('faults')), 'deadline=%s' % json.dumps(d.get('deadline')), 'compute=%s' % json.dumps(d.get('compute')), 'memory=%s' % json.dumps(d.get('memory')), 'shard=%s' % json.dumps(d.get('shard')), 'operator=%s' % json.dumps(d.get('operator')), 'stacks=%s' % json.dumps(d.get('stacks')), 'net=%s' % json.dumps(d.get('net')), 'net_errors=%s' % json.dumps(d.get('net_errors')), 'health=%s' % json.dumps(d.get('health')), 'footing=%s' % d['footing_problems'])
 "
 for f in $out/*/hostprof.txt; do
   [ -f "$f" ] && { echo "== $f"; head -n 40 "$f"; }
 done
-grep -H "Staging\|Profile\|Pages\|Cache\|Graphs\|Warmup\|Trace\|Autotune\|Metrics\|Slo\|Critpath\|Faults\|Deadline\|Compute\|Memory\|Shard\|Operator\|Stacks" $out/*/log-meta.txt
+grep -H "Staging\|Profile\|Pages\|Cache\|Graphs\|Warmup\|Trace\|Autotune\|Metrics\|Slo\|Critpath\|Faults\|Deadline\|Compute\|Memory\|Shard\|Operator\|Stacks\|Net\|Health" $out/*/log-meta.txt
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader

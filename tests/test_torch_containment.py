@@ -534,7 +534,8 @@ def test_parse_utils_catches_an_altered_ledger(runs, tmp_path, drift):
 def test_a_plan_no_path_can_inject_is_refused_as_the_reference(
         tmp_path, kind):
     """The plan validates, and the run stops before it starts with the
-    reference's message: the port has no replica lane and no edge."""
+    reference's message: the port has no replica lane, and this config
+    no enabled network edge."""
     fault = {"kind": kind, "request_ids": [1]}
     if kind == "replica_crash":
         fault["step"] = 1

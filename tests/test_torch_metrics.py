@@ -275,9 +275,10 @@ def test_an_undeclared_name_raises(call):
     hook = getattr(metrics, call)
     with pytest.raises(ValueError, match="not declared"):
         hook("client.typo", 1)
-    # a declared name of another family is no excuse either
+    # a name the reference declares and the port does not is no excuse
+    # either (the port has no hedging)
     with pytest.raises(ValueError, match="not declared"):
-        hook("net.frames_sent", 1)
+        hook("hedge.fired", 1)
     assert registry.summary()["series"] == 0
 
 

@@ -356,10 +356,9 @@ def _one_device_configs():
 
 
 def test_seventeen_of_the_one_device_configs_read():
-    """Twenty-one of the 23 one-device configs now read (the name counts
-    the configs read before the metrics, autotune, devobs and operator
-    planes were ported); each of the two others is refused by the first
-    key the reader does not port."""
+    """All 23 one-device configs now read (the name counts the configs
+    read before the metrics, autotune, devobs and operator planes and the
+    network edge were ported); none is refused."""
     read, refused = [], {}
     for name in _one_device_configs():
         try:
@@ -368,20 +367,20 @@ def test_seventeen_of_the_one_device_configs_read():
             read.append(name)
         except ConfigError as e:
             refused[name] = str(e)
-    assert len(read) + len(refused) == 23 and len(read) == 21
+    assert len(read) + len(refused) == 23 and len(read) == 23
     assert {"rnb-fused-yuv-traced.json", "rnb-fused-yuv-metrics.json",
             "rnb-fused-yuv-autotune.json", "rnb-fused-yuv-devobs.json",
-            "rnb-fused-yuv-operator.json"} <= set(read)
-    assert {name: msg.split("'")[1] for name, msg in refused.items()} == {
-        "rnb-netedge-loopback.json": "netedge",
-        "rnb-netedge-off.json": "netedge"}
+            "rnb-fused-yuv-operator.json", "rnb-netedge-loopback.json",
+            "rnb-netedge-off.json"} <= set(read)
+    assert refused == {}
 
 
 def test_the_tiny_shed_config_now_reads():
     """``configs/r2p1d-tiny-shed.json`` (its first unported key was
     ``overload_policy``) reads on the CPU as the reference reads it, and
-    with the devobs and operator planes and the step-level ``shard`` key
-    ported 33 of the 41 shipped configs read."""
+    with the devobs and operator planes, the step-level ``shard`` key and
+    the network edge's ``netedge`` and ``health`` keys ported 36 of the
+    41 shipped configs read."""
     path = os.path.join(REPO, "configs", "r2p1d-tiny-shed.json")
     cfg = load_config(path, platform="cpu")
     with open(path) as f:
@@ -400,7 +399,7 @@ def test_the_tiny_shed_config_now_reads():
             read += 1
         except ConfigError:
             pass
-    assert (read, len(names)) == (33, 41)
+    assert (read, len(names)) == (36, 41)
 
 
 def _mutated(case):

@@ -540,8 +540,9 @@ def test_unported_keys_are_refused(where, key, value):
               "runner": raw["pipeline"][1],
               "group": raw["pipeline"][0]["queue_groups"][0]}[where]
     target[key] = value
-    # devobs, operator, whatif and the step-level shard key are ported:
-    # an unknown devobs or operator key, whatif without metrics, and a
+    # devobs, operator, whatif, netedge and the step-level shard key are
+    # ported: an unknown devobs or operator key, whatif without metrics,
+    # an edge with neither a peer to dial nor one to spawn, and a
     # degree-2 ring on a one-device group, are refused with the
     # reference's messages
     message = {("root", "devobs"): r"'devobs' has unknown key\(s\) "
@@ -550,6 +551,8 @@ def test_unported_keys_are_refused(where, key, value):
                                      r"\['host'\]",
                ("root", "whatif"): r"'whatif' requires an enabled root "
                                    r"'metrics' key",
+               ("root", "netedge"): r"invalid 'netedge': netedge needs "
+                                    r"'connect'",
                ("runner", "shard"): r"'shard.degree'=2 needs exactly that "
                                     r"many devices per lane \(got 1\)"
                }.get((where, key), "not yet ported")
