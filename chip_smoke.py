@@ -50,8 +50,9 @@ Phases (any failure exits non-zero and prints no result line):
    is rewritten between launches whose arguments stay the same, over a
    pool whose tail holds random bytes (pad rows come out zero, so the
    tail was not read into the result), at one odd row size through the
-   byte loop, and against the bucketed normalize kernel on the valid
-   rows; timed at 15 and at 7 valid rows beside its bounds, its plain
+   byte loop, at the scale-out loaders' pool (3 x 2 x 112 x 112 x 3 u8,
+   ``rows_valid`` 0 to 3), and against the bucketed normalize kernel on
+   the valid rows; timed at 15 and at 7 valid rows beside its bounds, its plain
    version and the bucketed kernel at 15 rows;
    The ring-shift kernel (the grouped hop under the shard ring
    collectives: a table of entries, each with its own shift, written
@@ -231,6 +232,27 @@ Phases (any failure exits non-zero and prints no result line):
    no route to the open lane, the wire ledger footed; the main process's
    loader normalized the local requests only; one remote and one local
    request recomputed on the CPU.
+   Then the replica lanes (``phase_lanes``), over the y4m dataset:
+   one-card copies of ``configs/rnb-scaleout-r1.json``, ``-r4.json`` and
+   ``-r4-chaos.json`` (every device index made 0: four lanes, each on a
+   stream of its own, share the card), at ``scripts/multichip_demo.py``'s
+   workload (bulk, 12 requests, seed 17, 64-deep queues, the shipped 2000
+   ms emulated step-1 service). r1 and r4 end cleanly, the port's
+   ``check_job`` green, r4 at least 2.5x r1's videos/s on four lanes,
+   every edge take d2d with 0 host bytes, and r1's measured costs,
+   recomputed at the shipped r4 config's five devices, recommend at least
+   four step-1 lanes (the run's own ``Placement:`` plans over the one
+   card). The chaos copy at ``scripts/chaos_demo.py``'s 12 requests and
+   again at 48, which outlast lane 3's 2.5 s wedge: every request ends
+   once, every dead letter ``chaos-lane-kill``, lane 3 evicted by a
+   legal path and no sibling, no route to an open lane, hedges won + lost
+   == fired, and at 48 the circuit opened and lane 3's queued work was
+   redispatched. Each run launches only ``rnb_ragged_normalize_u8``, once
+   per loader emission, prints each lane's graph pool and capture
+   seconds, and has two requests recomputed on the CPU. Last,
+   ``bench_cuda.py`` in a process of its own (300 requests): its one JSON
+   line, on the card (``platform`` gpu), decoded on the native pool, the
+   yuv420 ingest launched, a positive value and a numeric MFU.
    Every run: each ``R2P1DRunner`` forward in the window is one replay
    of a captured CUDA graph (``Graphs:`` replays == ``Compiles:``
    steady calls, or requests for the single step), no signature is new
@@ -433,6 +455,30 @@ ODD_GEOMETRY = (66, 90)
 DCT_GEOMETRY = (64, 176)
 #: requests served per config on the path phase
 VIDEOS_PER_RUN = 32
+#: the replica lanes: one-card copies of the three scale-out configs,
+#: at scripts/multichip_demo.py's and scripts/chaos_demo.py's workload
+#: (bulk, 12 requests, seed 17, 64-deep queues)
+SCALEOUT_R1 = "configs/rnb-scaleout-r1.json"
+SCALEOUT_R4 = "configs/rnb-scaleout-r4.json"
+SCALEOUT_CHAOS = "configs/rnb-scaleout-r4-chaos.json"
+LANES_R1 = "rnb-scaleout-r1-1card"
+LANES_R4 = "rnb-scaleout-r4-1card"
+LANES_CHAOS = "rnb-scaleout-r4-chaos-1card"
+#: the chaos copy again, at as many requests as outlast lane 3's 2.5 s
+#: wedge: at 12 the hedges on the three live lanes finish the run
+#: before the wedge ends, so the dead lane's drain never runs (the
+#: reference's own scripts/chaos_demo.py does the same on a fast host)
+LANES_CHAOS_DRAIN = "rnb-scaleout-r4-chaos-1card-drain"
+LANES_VIDEOS = 12
+LANES_DRAIN_VIDEOS = 48
+LANES_QUEUE = 64
+LANES_SEED = 17
+#: scripts/multichip_demo.py's floor on r4's videos/s over r1's
+LANES_MIN_SPEEDUP = 2.5
+#: the lane the chaos plan wedges and kills (its queue index)
+LANES_DEAD_LANE = "3"
+#: bench_cuda.py as a phase: its requests (RNB_BENCH_VIDEOS)
+BENCH_CUDA_VIDEOS = 300
 #: requests of the configs added last (the segment copy serves the
 #: whole run's requests, which it is held to)
 #: the burst's target outlasts what is shed during its stalls
@@ -1229,10 +1275,21 @@ def phase_kernels_gather(device):
     return {"gather_rows": row}, {"gather_rows": worst}
 
 
+def scaleout_pool_shape():
+    """The row pool the shipped scale-out loaders emit: the root
+    ``ragged`` key's ``pool_rows`` rows of ``consecutive_frames`` RGB
+    frames."""
+    with open(os.path.join(HERE, SCALEOUT_R4)) as f:
+        raw = json.load(f)
+    return (raw["ragged"]["pool_rows"],
+            raw["pipeline"][0]["consecutive_frames"], HW, HW, 3)
+
+
 def phase_kernels_ragged(device):
     """The ragged normalize against its plain version, bitwise, at the
-    unfused loader's 15-row pool; returns its timing row at 15 valid
-    rows (7 beside it) and the worst error."""
+    unfused loader's 15-row pool, at odd rows and at the scale-out
+    loaders' pool (every valid count); returns its timing row at 15
+    valid rows (7 beside it) and the worst error."""
     import torch
     from rnb_tpu_torch.ops import _kernels
     from rnb_tpu_torch.ops.preprocess import normalize_u8
@@ -1245,12 +1302,17 @@ def phase_kernels_ragged(device):
                          dtype=torch.uint8).to(device)
     odd = torch.randint(0, 256, (rows, 1001), generator=gen,
                         dtype=torch.uint8).to(device)
+    scaleout = torch.randint(0, 256, scaleout_pool_shape(), generator=gen,
+                             dtype=torch.uint8).to(device)
     bucketed = normalize_u8(pool)
     scalar = torch.zeros((1,), dtype=torch.int32, device=device)
     worst = 0.0
-    for what, x in (("clip pool", pool), ("odd rows", odd)):
+    for what, x, valids in (
+            ("clip pool", pool, (0, 1, 7, 14, 15)),
+            ("odd rows", odd, (0, 1, 7, 14, 15)),
+            ("scale-out pool", scaleout, range(scaleout.shape[0] + 1))):
         before = _kernels.RAGGED_NORMALIZE_U8.launches
-        for valid in (0, 1, 7, 14, 15):
+        for valid in valids:
             # the same launch arguments every time: only the scalar on
             # the card changes
             scalar.fill_(valid)
@@ -1274,7 +1336,8 @@ def phase_kernels_ragged(device):
                   "scalar): bitwise %s, pad rows zero %s, valid rows equal "
                   "normalize_u8 %s" % (what, tuple(x.shape), valid, bitwise,
                                        pads_zero, same_as_k1))
-        check(_kernels.RAGGED_NORMALIZE_U8.launches == before + 5,
+        check(_kernels.RAGGED_NORMALIZE_U8.launches
+              == before + len(valids),
               "ragged_normalize_u8 did not count one launch per call")
     torch.cuda.synchronize()
 
@@ -3022,6 +3085,237 @@ def check_shard_run(label, result, sink, stages, counts, shard_runs):
                 videos_per_s_d2=result.throughput_vps)
 
 
+def scaleout_budget() -> int:
+    """Distinct devices the shipped r4 config lists: the device count
+    its placement plan was made for (the one-card copies see one)."""
+    with open(os.path.join(HERE, SCALEOUT_R4)) as f:
+        raw = json.load(f)
+    return len({d for step in raw["pipeline"] for group in step["queue_groups"]
+                for d in group["devices"] if d >= 0})
+
+
+def check_lanes_run(label, result, stages, videos):
+    """What every replica-lane run holds: the port's ``check_job`` green,
+    every request terminated once (completed + dead-lettered + shed),
+    every edge take device-resident (d2d, 0 host bytes), and each lane's
+    graph pool and capture seconds printed. Returns the lanes' runners."""
+    from rnb_tpu_torch.models.r2p1d.model import R2P1DRunner
+    from rnb_tpu_torch.parse_utils import check_job
+    problems = check_job(result.log_dir)
+    check(not problems, "%s: check_job: %s" % (label, "; ".join(problems[:5])))
+    terminated = result.num_completed + result.num_failed + result.num_shed
+    check(terminated == videos, "%s: %d of %d requests terminated "
+          "(completed+failed+shed)" % (label, terminated, videos))
+    check(result.handoff_edges > 0
+          and result.handoff_edges == result.handoff_d2d_edges
+          and result.handoff_host_edges == 0
+          and result.handoff_host_bytes == 0,
+          "%s: handoff %d edge take(s), %d d2d, %d host, %d host bytes: "
+          "every edge must be device-resident" % (
+              label, result.handoff_edges, result.handoff_d2d_edges,
+              result.handoff_host_edges, result.handoff_host_bytes))
+    runners = [stage for _step, stage in stages
+               if isinstance(stage, R2P1DRunner)]
+    print("path %s lanes: %d runner(s); graph pools %s MiB; capture s %s"
+          % (label, len(runners), json.dumps(
+              [graph_pool_mib(r) for r in runners]), json.dumps(
+              [round(r.graph_stats["capture_s"], 3) for r in runners])))
+    return runners
+
+
+def check_lanes_chaos(label, result, drain):
+    """``scripts/chaos_demo.py``'s contract on the chaos copy: every
+    dead letter under the plan's reason, lane 3 evicted by a legal path
+    and no sibling evicted, no route to an open or evicted lane, every
+    fired hedge resolved once; with ``drain`` (a run that outlasts the
+    wedge) the circuit opened and lane 3's queued work was
+    redispatched."""
+    from rnb_tpu_torch.health import legal_path
+    dead = result.health_lane_detail.get(LANES_DEAD_LANE, {})
+    for ok, what in (
+            (set(result.failure_reasons) <= {"chaos-lane-kill"},
+             "dead letters %s, not all 'chaos-lane-kill'"
+             % json.dumps(result.failure_reasons, sort_keys=True)),
+            (result.health_evictions == 1,
+             "expected exactly 1 lane eviction, got %d"
+             % result.health_evictions),
+            (dead.get("state") == "evicted" and legal_path(dead.get("path")),
+             "lane %s should be evicted by a legal path, detail says %r"
+             % (LANES_DEAD_LANE, dead)),
+            (all(e.get("state") != "evicted" for lane, e
+                 in result.health_lane_detail.items()
+                 if lane != LANES_DEAD_LANE),
+             "a healthy sibling lane was evicted: %s" % json.dumps(
+                 result.health_lane_detail, sort_keys=True)),
+            (result.health_routes_after_open == 0,
+             "selector routed %d dispatch(es) to an open/evicted lane"
+             % result.health_routes_after_open),
+            (result.hedges_won + result.hedges_lost == result.hedges_fired,
+             "hedge resolution leak: %d won + %d lost != %d fired"
+             % (result.hedges_won, result.hedges_lost, result.hedges_fired)),
+            (not drain or result.health_opens >= 1,
+             "the circuit never opened during the 2.5 s wedge"),
+            (not drain or result.health_redispatches >= 1,
+             "no queued work was redispatched off the dead lane")):
+        check(ok, "%s: %s" % (label, what))
+    print("path %s chaos: %d completed / %d dead-lettered / %d shed; %d "
+          "eviction(s), %d open(s), %d redispatch(es), %d probe(s); hedges "
+          "%d fired = %d won + %d lost (%d ms wasted); lanes %s" % (
+              label, result.num_completed, result.num_failed,
+              result.num_shed, result.health_evictions, result.health_opens,
+              result.health_redispatches, result.health_probes,
+              result.hedges_fired, result.hedges_won, result.hedges_lost,
+              result.hedges_wasted_ms,
+              json.dumps(result.health_lane_detail, sort_keys=True)))
+
+
+def phase_lanes(data_root, launches):
+    """Serve the one-card copies of the three scale-out configs over the
+    y4m dataset (every device index made 0, so four lanes share the
+    card): r1 and r4 held to ``scripts/multichip_demo.py``'s contract
+    (clean ends, ``check_job`` green, r4 >= 2.5x r1's videos/s, every
+    edge take d2d with 0 host bytes, four lanes in r4, and r1's own
+    cost records recommending at least four step-1 replicas over the
+    shipped config's devices), the chaos copy at 12 requests and again
+    at 48 held to ``scripts/chaos_demo.py``'s. Each run launches only the
+    ragged normalize, once per emission, replays a captured graph a
+    forward (every graph bitwise its eager forward) and decodes on the
+    native pool; two requests are recomputed on the CPU. Adds the runs'
+    launches to ``launches``."""
+    import numpy as np
+    from rnb_tpu_torch.benchmark import run_benchmark
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.parse_utils import read_meta
+    from rnb_tpu_torch.placement import recommend
+    os.environ["RNB_TPU_DATA_ROOT"] = data_root
+    runs = [(LANES_R1, SCALEOUT_R1, LANES_VIDEOS),
+            (LANES_R4, SCALEOUT_R4, LANES_VIDEOS),
+            (LANES_CHAOS, SCALEOUT_CHAOS, LANES_VIDEOS),
+            (LANES_CHAOS_DRAIN, SCALEOUT_CHAOS, LANES_DRAIN_VIDEOS)]
+    results = {}
+    for label, config, videos in runs:
+        config_path = one_card_copy(data_root, config, label)
+        sink, stages = {}, []
+        _kernels.reset_launches()
+        t0 = time.time()
+        result = run_benchmark(
+            config_path, mean_interval_ms=0, num_videos=videos,
+            queue_size=LANES_QUEUE, print_progress=False,
+            log_base=os.path.join(data_root, "logs"), seed=LANES_SEED,
+            outputs_sink=sink, stages_sink=stages)
+        counts = _kernels.launch_counts()
+        wall = time.time() - t0
+        results[label] = result
+        check(result.termination_flag == 0, "%s terminated with flag %d"
+              % (label, result.termination_flag))
+        runners = check_lanes_run(label, result, stages, videos)
+        check(len(runners) == (1 if label == LANES_R1 else 4),
+              "%s ran %d step-1 lane(s)" % (label, len(runners)))
+        if label in (LANES_CHAOS, LANES_CHAOS_DRAIN):
+            check_lanes_chaos(label, result, label == LANES_CHAOS_DRAIN)
+        else:
+            check(result.num_failed + result.num_shed == 0
+                  and len(sink) == videos, "%s: %d served, %d failed, %d "
+                  "shed" % (label, len(sink), result.num_failed,
+                            result.num_shed))
+        # the loader's emissions, a dead-lettered request's among them
+        emissions = int(read_meta(os.path.join(
+            result.log_dir, "log-meta.txt"))["lines"]["Ragged"]["emissions"])
+        for name, count in counts.items():
+            if name == "ragged_normalize_u8":
+                check(result.window_launches[name] == emissions,
+                      "%s: %d %s launches for %d emissions" % (
+                          label, result.window_launches[name], name,
+                          emissions))
+            else:
+                check(count == 0, "%s: kernel %s, not of this config, was "
+                      "launched" % (label, name))
+            launches[name] += count
+        with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
+            backends = [line.split(": ", 1)[1] for line in
+                        f.read().splitlines()
+                        if line.startswith("Decode backend: ")]
+        check(backends and all(b == "native" for b in backends),
+              "%s: y4m requests decoded by %s, not the native pool"
+              % (label, backends))
+        check_graphs(label, result, stages)
+        del stages, runners
+        for rid, (_video, logits, _stamps) in sink.items():
+            check(logits.ndim == 2 and logits.shape[1] == 8
+                  and np.isfinite(logits).all(),
+                  "%s request %d: logits %s" % (label, rid, logits.shape))
+        by_clips = sorted(sink, key=lambda r: (sink[r][1].shape[0], r))
+        picks = by_clips[:1] + by_clips[-1:]
+        report = cpu_recompute(config_path, sink, picks)
+        print("path %s: %d requests, %d clips, %.3f videos/s, p50 %s ms, "
+              "wall %.1f s, launches %s (window %s); Handoff: %d d2d / %d "
+              "host, %d host bytes; Placement: %s; recompute of requests "
+              "%s: %s" % (
+                  label, result.num_completed, result.clips_completed,
+                  result.throughput_vps, result.p50_latency_ms, wall,
+                  counts, result.window_launches, result.handoff_d2d_edges,
+                  result.handoff_host_edges, result.handoff_host_bytes,
+                  json.dumps(result.placement, sort_keys=True), picks,
+                  json.dumps(report)))
+    r1, r4 = results[LANES_R1], results[LANES_R4]
+    speedup = r4.throughput_vps / r1.throughput_vps
+    check(speedup >= LANES_MIN_SPEEDUP, "r4 is %.2fx r1's videos/s (>= %.1fx"
+          " required)" % (speedup, LANES_MIN_SPEEDUP))
+    check(r4.placement["steps"]["step1"]["instances"] == 4,
+          "r4 ran %s step-1 instance(s), not the 4 its plan applies"
+          % r4.placement["steps"]["step1"]["instances"])
+    # the run's own plan names the card count; recomputed from r1's
+    # measured costs at the shipped config's device count it must name
+    # at least the four lanes r4 runs
+    budget = scaleout_budget()
+    loads = {int(key[4:]): row["rate_hz"] * row["service_ms"] / 1e3
+             for key, row in r1.placement["steps"].items()}
+    plan = recommend(loads, budget)
+    check(plan.get(1, 0) >= 4, "r1's costs recommend %s at %d devices: "
+          "step1 needs >= 4" % (plan, budget))
+    print("lanes: r4/r1 %.3fx videos/s (%.3f / %.3f); r1's plan at %d "
+          "device(s) %s, recomputed at %d %s" % (
+              speedup, r4.throughput_vps, r1.throughput_vps,
+              r1.placement["device_budget"],
+              json.dumps(r1.placement["plan"], sort_keys=True), budget,
+              json.dumps(plan, sort_keys=True)))
+
+
+def phase_bench_cuda(data_root):
+    """``bench_cuda.py`` as the port's headline entry point, in a process
+    of its own (``RNB_BENCH_VIDEOS`` 300, its dataset under the smoke's
+    root): its one JSON line parses, serves on the card through the
+    native pool with the yuv420 ingest, and carries a positive value and
+    a numeric MFU."""
+    env = dict(os.environ, RNB_BENCH_VIDEOS=str(BENCH_CUDA_VIDEOS),
+               RNB_TPU_DATA_ROOT=os.path.join(data_root, "bench_cuda_y4m"),
+               RNB_BENCH_LOG_BASE=os.path.join(data_root, "logs"))
+    env.pop("RNB_BENCH_PLATFORM", None)
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, os.path.join(HERE, "bench_cuda.py")],
+                          cwd=HERE, env=env, capture_output=True, text=True,
+                          timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and len(lines) == 1,
+          "bench_cuda.py exited %d with %d line(s):\n%s\n%s" % (
+              proc.returncode, len(lines), proc.stdout, proc.stderr[-4000:]))
+    line = json.loads(lines[0])
+    for ok, what in (
+            (line.get("value") is not None and line["value"] > 0,
+             "value %r" % line.get("value")),
+            (line.get("platform") == "gpu", "platform %r"
+             % line.get("platform")),
+            (line.get("decode_backend") == "native-y4m",
+             "decode_backend %r" % line.get("decode_backend")),
+            (isinstance(line.get("mfu"), (int, float)),
+             "mfu %r" % line.get("mfu")),
+            (line.get("kernel_launches", {}).get("yuv420_normalize", 0) > 0,
+             "yuv420_normalize launches %r"
+             % line.get("kernel_launches"))):
+        check(ok, "bench_cuda.py: %s" % what)
+    print("bench_cuda (%.1f s): %s" % (time.time() - t0, lines[0]))
+
+
 def graph_pool_mib(runner):
     """MiB the caching allocator holds in ``runner``'s graph pool: the
     peak of its captures, since a pool keeps its segments while its
@@ -3384,7 +3678,8 @@ def main() -> int:
             for c in CONFIGS + (SEGMENT, TRACED, METRICS, DEVOBS, AUTOTUNE,
                                 STAGED, TINY_SHED, SHARD_D1, SHARD_D2,
                                 OPERATOR, NETEDGE_OFF, NETEDGE_LOOPBACK,
-                                NETEDGE_CHAOS_CONFIG)):
+                                NETEDGE_CHAOS_CONFIG, SCALEOUT_R1,
+                                SCALEOUT_R4, SCALEOUT_CHAOS, "bench_cuda.py")):
         print("chip_smoke: run from a checkout of the repo (rnb_tpu_torch/ "
               "and configs/ beside this script)", file=sys.stderr)
         return 1
@@ -3466,6 +3761,8 @@ def main() -> int:
         print("dataset %s: %d videos, %.4f clips a request over them"
               % (data_root, len(mix), sum(mix.values()) / len(mix)))
         launches = phase_path(data_root, VIDEOS_PER_RUN)
+        phase_lanes(data_root, launches)
+        phase_bench_cuda(data_root)
 
         sass_out, _ = sass.communicate()
         check(sass.returncode == 0, "sass_counts failed:\n%s" % sass_out)

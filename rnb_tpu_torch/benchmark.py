@@ -66,6 +66,18 @@ without it). log-meta gains ``Net:``, ``Net errors:``, ``Health:`` and
 With ``netedge.enabled: false`` nothing of it runs and the logs are those
 of the config without the key. The peer is stopped on every exit path.
 
+Replica lanes (a step's ``replicas`` key, or an apply-mode ``placement``
+plan): each replicated step gets one shared
+:class:`~rnb_tpu_torch.handoff.InflightDepths` for its producers'
+``ReplicaSelector``, and, under the root ``health`` key, one
+:class:`~rnb_tpu_torch.health.LaneHealthBoard` (``Health:``, ``Health
+lanes:``, served on ``/healthz``); a step's ``hedge_ms`` adds a
+:class:`~rnb_tpu_torch.health.HedgeGovernor` (``Hedge:``). The root
+``handoff`` key accounts every consumer take (``Handoff:``, ``Handoff
+edges:``), and the root ``placement`` key turns the executors' measured
+costs into ``Placement:`` over the run's device budget, its card count
+(one device on the CPU).
+
 Runs on ``cuda:0`` (the config's devices) unless ``platform="cpu"``.
 
 CLI::
@@ -113,15 +125,19 @@ from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, EdgeTracker,
                                    FaultStats, InferenceCounter,
                                    RingCredits, TerminationState)
 from rnb_tpu_torch.faults import LANE_KINDS, FaultPlan
+from rnb_tpu_torch.handoff import HandoffSettings, InflightDepths
+from rnb_tpu_torch.handoff import aggregate_snapshots as aggregate_handoff
 from rnb_tpu_torch.health import (DeadlineSettings, DeadlineStats,
-                                  HealthSettings, LaneHealthBoard,
-                                  aggregate_board_snapshots)
+                                  HealthSettings, HedgeGovernor,
+                                  LaneHealthBoard, aggregate_board_snapshots,
+                                  aggregate_hedge_snapshots)
 from rnb_tpu_torch.ops import _kernels
 from rnb_tpu_torch.ops.ragged import RaggedSettings
 from rnb_tpu_torch.netedge import (NET_LANE, PEER_EXIT_S, NetEdgeClient,
                                    NetEdgeSettings, NetStats, spawn_peer,
                                    stop_peer)
 from rnb_tpu_torch.pager import Pager, PagerSettings
+from rnb_tpu_torch.placement import PlacementSettings, build_report
 from rnb_tpu_torch.runner import NUM_SUMMARY_SKIPS, RunnerContext, runner
 from rnb_tpu_torch.stacksampler import StackSampler
 from rnb_tpu_torch.statusz import OperatorServer, OperatorSettings
@@ -301,9 +317,21 @@ class BenchmarkResult:
     stacks_threads: int = 0
     stacks_folded: int = 0
     stacks_total: int = 0
+    #: the edge contract's ledger (the ``Handoff:`` and ``Handoff
+    #: edges:`` lines; zero without ``handoff``): every consumer take,
+    #: d2d or through host memory, and the bytes each class moved
+    handoff_edges: int = 0
+    handoff_d2d_edges: int = 0
+    handoff_host_edges: int = 0
+    handoff_d2d_bytes: int = 0
+    handoff_host_bytes: int = 0
+    handoff_edge_detail: Dict[str, Dict[str, int]] = field(
+        default_factory=dict)
+    #: the ``Placement:`` line's report (empty without ``placement``)
+    placement: Dict[str, Any] = field(default_factory=dict)
     #: lane health accounting (the ``Health:`` and ``Health lanes:``
-    #: lines): the network edge's board, the one a path of the port
-    #: builds; routes_after_open must stay 0
+    #: lines): every replica step's board and the network edge's;
+    #: routes_after_open must stay 0
     health_lanes: int = 0
     health_transitions: int = 0
     health_opens: int = 0
@@ -312,6 +340,13 @@ class BenchmarkResult:
     health_redispatches: int = 0
     health_routes_after_open: int = 0
     health_lane_detail: Dict[str, Any] = field(default_factory=dict)
+    #: hedged re-dispatch (the ``Hedge:`` line; zero without
+    #: ``hedge_ms``): fired, won by the hedge copy, lost to the original,
+    #: and the losers' service in ms; won + lost == fired
+    hedges_fired: int = 0
+    hedges_won: int = 0
+    hedges_lost: int = 0
+    hedges_wasted_ms: int = 0
     #: the network edge's ledger (the ``Net:`` and ``Net errors:`` lines;
     #: zero without ``netedge``)
     net_frames_sent: int = 0
@@ -365,17 +400,19 @@ def aggregate_shard(shard_sink) -> Dict[str, Any]:
     }
 
 
-def _resolve_fault_plan(config, netedge: bool, print_progress: bool):
+def _resolve_fault_plan(config, netedge: bool, boards: bool,
+                        print_progress: bool):
     """The run's fault plan (the ``RNB_FAULT_PLAN`` env JSON over the
     config's ``fault_plan``), or None; a plan no path of the run can
-    inject (lane faults without replica lanes, net faults without an
-    enabled ``netedge``) is refused with the reference's messages."""
+    contain (lane faults without a replica step's health board, net
+    faults without an enabled ``netedge``) is refused with the
+    reference's messages."""
     plan = FaultPlan.resolve(config.fault_plan)
     if plan is None:
         return None
     # an env plan bypassed the config reader's step check
     plan.check_steps(config.num_steps)
-    if any(f["kind"] in LANE_KINDS for f in plan.faults):
+    if not boards and any(f["kind"] in LANE_KINDS for f in plan.faults):
         raise ValueError(
             "the fault plan injects replica_crash/replica_stall but the "
             "config has no enabled root 'health' key (or no replica "
@@ -389,6 +426,12 @@ def _resolve_fault_plan(config, netedge: bool, print_progress: bool):
     if print_progress:
         print("[rnb-tpu-torch] fault plan active: %s" % plan.describe())
     return plan
+
+
+def device_budget(platform: str) -> int:
+    """The placement planner's device budget: the cards this process
+    sees (the reference's ``len(jax.devices())``), one on the CPU."""
+    return torch.cuda.device_count() if platform == "cuda" else 1
 
 
 def _bulk_queue_size(config, num_videos: int) -> int:
@@ -423,13 +466,15 @@ def _start_tracer(config, filename_queue, queues):
 
 
 def _start_metrics(config, job_id: str, log_base: str, queue_probes, pager,
-                   tracer, slo_budget_ms, fault_stats, deadline_stats):
+                   tracer, slo_budget_ms, fault_stats, deadline_stats,
+                   governors, boards):
     """The job's live-metrics registry and its SpanBridge (None, None
     without the root ``metrics`` key). Its gauge sources are the queue
     depths of ``queue_probes`` (each armed for the saturation trigger at
-    the queue's capacity); the fault ledger, the deadline ledger and the
-    page allocator are poll sources. The bridge forwards to ``tracer`` on
-    a traced run."""
+    the queue's capacity); the fault ledger, the deadline ledger, the
+    hedge governors, the replica steps' health boards and the page
+    allocator are poll sources. The bridge forwards to ``tracer`` on a
+    traced run."""
     settings = metrics_mod.MetricsSettings.from_config(config.metrics)
     if settings is None:
         return None, None
@@ -444,6 +489,16 @@ def _start_metrics(config, job_id: str, log_base: str, queue_probes, pager,
     if deadline_stats is not None:
         registry.add_poll(metrics_mod.snapshot_poll(
             "deadline", deadline_stats.snapshot, counters=("expired",)))
+    for gov in governors:
+        # live_counters: snapshot() resolves leftover hedges, which a
+        # per-tick poll must never do
+        registry.add_poll(metrics_mod.snapshot_poll(
+            "hedge", gov.live_counters, counters=("fired", "won", "lost")))
+    for board in boards:
+        registry.add_poll(metrics_mod.snapshot_poll(
+            "health", board.snapshot,
+            counters=("transitions", "opens", "evictions", "probes",
+                      "redispatches")))
     if pager is not None:
         registry.add_poll(metrics_mod.snapshot_poll(
             "pages", pager.snapshot,
@@ -604,13 +659,13 @@ def _queue_probes(filename_queue, queues, queue_size: int):
 
 def _start_operator(config, job_id: str, log_base: str, registry,
                     devobs_plane, queue_probes, termination, window: dict,
-                    closers: list, print_progress: bool):
+                    closers: list, print_progress: bool, boards: dict):
     """The operator plane's server and stack sampler (None, None without
     the root ``operator`` key). The server binds and writes
     ``operator.json`` now; the sampler starts with the measured window.
-    ``/healthz`` serves the replica lanes' boards, as the reference's
-    does; the port has no replica lanes, so it serves none (the network
-    edge's board is not among them in the reference either)."""
+    ``/healthz`` serves the replica steps' lane boards (``boards``), as
+    the reference's does (the network edge's board is not among
+    them)."""
     settings = OperatorSettings.from_config(config.operator)
     if settings is None:
         return None, None
@@ -619,11 +674,11 @@ def _start_operator(config, job_id: str, log_base: str, registry,
     topology = {"steps": [
         {"step": step_idx, "model": step.model, "groups": len(step.groups),
          "instances": sum(len(g.devices) for g in step.groups),
-         "replica_lanes": []}
+         "replica_lanes": list(step.replica_queues or [])}
         for step_idx, step in enumerate(config.steps)]}
     server = OperatorServer(
         settings, job_dir=logroot(job_id, base=log_base), job_id=job_id,
-        metrics_registry=registry, boards={}, devobs_plane=devobs_plane,
+        metrics_registry=registry, boards=boards, devobs_plane=devobs_plane,
         config_raw=config.raw, topology=topology,
         queue_probes=queue_probes,
         termination=termination, window=window, sampler=sampler)
@@ -728,14 +783,34 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
         _warn_if_no_stage_autotunes(config)
     critpath_settings = CritpathSettings.from_config(config.critpath)
     netedge_settings = NetEdgeSettings.from_config(config.netedge)
-    if HealthSettings.from_config(config.health) is not None \
-            and netedge_settings is None:
-        # the port has no replica lanes: the edge's is the one board
-        print("[rnb-tpu-torch] WARNING: health is enabled but no step "
-              "declares replica lanes — there is nothing to circuit-break "
-              "and no Health: telemetry will be emitted", file=sys.stderr)
+    # the edge contract of every consumer take, and the planner's cost
+    # sink (apply-mode replica counts were expanded at parse time)
+    handoff_settings = HandoffSettings.from_config(config.handoff)
+    handoff_sink: list = []
+    placement_settings = PlacementSettings.from_config(config.placement)
+    placement_sink = [] if placement_settings is not None else None
+    # per replica step: the lanes' shared depths, their health board
+    # (root health key) and the hedge governor of its edge (hedge_ms)
+    depths_by_step = {step_idx: InflightDepths(step.replica_queues)
+                      for step_idx, step in enumerate(config.steps)
+                      if step.replica_queues}
+    health_settings = HealthSettings.from_config(config.health)
+    boards_by_step: Dict[int, LaneHealthBoard] = {}
+    if health_settings is not None:
+        boards_by_step = {
+            step_idx: LaneHealthBoard(step.replica_queues, health_settings)
+            for step_idx, step in enumerate(config.steps)
+            if step.replica_queues}
+        if not boards_by_step and netedge_settings is None:
+            print("[rnb-tpu-torch] WARNING: health is enabled but no step "
+                  "declares replica lanes — there is nothing to "
+                  "circuit-break and no Health: telemetry will be emitted",
+                  file=sys.stderr)
+    governors_by_step = {step_idx: HedgeGovernor(step.hedge_ms)
+                         for step_idx, step in enumerate(config.steps)
+                         if step.replica_queues and step.hedge_ms is not None}
     fault_plan = _resolve_fault_plan(config, netedge_settings is not None,
-                                     print_progress)
+                                     bool(boards_by_step), print_progress)
     fault_stats = FaultStats()
     deadline_settings = DeadlineSettings.from_config(config.deadline,
                                                      config.autotune)
@@ -759,7 +834,8 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     queue_probes = _queue_probes(filename_queue, queues, queue_size)
     registry, bridge = _start_metrics(
         config, job_id, log_base, queue_probes, pager, tracer,
-        slo_budget_ms, fault_stats, deadline_stats)
+        slo_budget_ms, fault_stats, deadline_stats,
+        list(governors_by_step.values()), list(boards_by_step.values()))
     devobs_plane = _start_devobs(config, job_id, log_base, registry)
     # installed before the stages are built: they register their poll
     # sources, compute profiles and byte owners before the start barrier
@@ -773,7 +849,8 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     operator_window: Dict[str, Any] = {"t0": None}
     operator_server, stack_sampler = _start_operator(
         config, job_id, log_base, registry, devobs_plane, queue_probes,
-        termination, operator_window, closers, print_progress)
+        termination, operator_window, closers, print_progress,
+        boards_by_step)
     num_markers = max(NUM_EXIT_MARKERS,
                       sum(len(g.devices) for g in config.steps[0].groups))
     edge = None
@@ -819,6 +896,9 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                         else filename_queue)
             out_queues = (None if is_final else
                           [queues[step_idx][q] for q in group.out_queues])
+            # this group's lane of a replica step, if it is one
+            lane = (group.in_queue if step.replica_queues
+                    and group.in_queue in step.replica_queues else None)
             for instance_idx, device in enumerate(group.devices):
                 ctx = RunnerContext(
                     in_queue=in_queue, out_queues=out_queues,
@@ -854,7 +934,28 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                     retry_backoff_ms=step.retry_backoff_ms,
                     fault_plan=fault_plan, fault_stats=fault_stats,
                     deadline=deadline_settings,
-                    deadline_stats=deadline_stats)
+                    deadline_stats=deadline_stats,
+                    handoff_settings=handoff_settings,
+                    handoff_edge=("step%d->step%d" % (step_idx - 1, step_idx)
+                                  if step_idx > 0 else ""),
+                    handoff_sink=handoff_sink,
+                    placement_sink=placement_sink,
+                    out_depths=depths_by_step.get(step_idx + 1),
+                    out_queue_indices=(list(group.out_queues)
+                                       if group.out_queues else None),
+                    in_depths=(depths_by_step.get(step_idx)
+                               if lane is not None else None),
+                    in_queue_idx=group.in_queue,
+                    health_board=(boards_by_step.get(step_idx)
+                                  if lane is not None else None),
+                    out_health_board=boards_by_step.get(step_idx + 1),
+                    sibling_queues=(
+                        {q: queues[step_idx - 1][q]
+                         for q in step.replica_queues}
+                        if lane is not None else None),
+                    out_hedges=governors_by_step.get(step_idx + 1),
+                    in_hedges=(governors_by_step.get(step_idx)
+                               if lane is not None else None))
                 threads.append(threading.Thread(
                     target=runner, args=(ctx,), daemon=True,
                     name="runner-s%d-g%d-i%d" % (step_idx, group_idx,
@@ -1037,20 +1138,34 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     if critpath_settings is not None and summary_sink:
         lanes = {step_idx: sum(len(g.devices) for g in step.groups)
                  for step_idx, step in enumerate(config.steps)}
-        # the port has no hedging or lane eviction: no row is hedged or
-        # redispatched
+        # each row carries its hedge-won flag and redispatch count
         critpath_report = critpath_aggregate(
-            ((timings, False, 0) for summary in summary_sink
-             for timings in summary.steady_rows(NUM_SUMMARY_SKIPS)), lanes)
+            (row for summary in summary_sink
+             for row in summary.steady_rows(NUM_SUMMARY_SKIPS)), lanes)
     autotune_stats = (aggregate_autotune(autotune_sink) if autotune_sink
                       else None)
     faults = fault_stats.snapshot()
     deadline_snap = (deadline_stats.snapshot() if deadline_stats is not None
                      else None)
     health_stats = net_snap = None
+    board_snapshots = [b.snapshot() for b in boards_by_step.values()]
     if edge is not None:
-        health_stats = aggregate_board_snapshots([edge.board.snapshot()])
+        board_snapshots.append(edge.board.snapshot())
         net_snap = edge.stats.snapshot()
+    if board_snapshots:
+        health_stats = aggregate_board_snapshots(board_snapshots)
+    handoff_stats = (aggregate_handoff(handoff_sink) if handoff_sink
+                     else None)
+    # the governors' final counters (unresolved hedges resolve as lost),
+    # before the metrics plane's final snapshot so the two foot
+    hedge_stats = (aggregate_hedge_snapshots(
+        [g.snapshot() for g in governors_by_step.values()])
+        if governors_by_step else None)
+    placement_report = None
+    if placement_sink is not None:
+        placement_report = build_report(
+            placement_sink, total_time, device_budget(config.platform),
+            placement_settings.mode)
     shard_stats = aggregate_shard(shard_sink) if shard_sink else None
     compute_summary = memory_summary = None
     if devobs_plane is not None:
@@ -1130,6 +1245,14 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     if health_stats is not None:
         for key, value in health_stats.items():
             setattr(result, "health_" + key, value)
+    if handoff_stats is not None:
+        for key, value in handoff_stats.items():
+            setattr(result, "handoff_" + key, value)
+    if hedge_stats is not None:
+        for key, value in hedge_stats.items():
+            setattr(result, "hedges_" + key, value)
+    if placement_report is not None:
+        result.placement = placement_report
     if net_snap is not None:
         for key in NetStats.COUNTERS:
             setattr(result, "net_" + key, int(net_snap[key]))
@@ -1212,6 +1335,27 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                        + tuple(sum(r[k] for r in ragged_sink) for k in (
                            "emissions", "rows", "pad_rows_eliminated",
                            "cache_hit_rows"))))
+        if handoff_stats is not None:
+            # handoff runs only; the reference's format: d2d + host ==
+            # edges, and host_bytes 0 on a device config
+            f.write("Handoff: edges=%d d2d_edges=%d host_edges=%d "
+                    "d2d_bytes=%d host_bytes=%d\n" % tuple(
+                        handoff_stats[k] for k in (
+                            "edges", "d2d_edges", "host_edges",
+                            "d2d_bytes", "host_bytes")))
+            if handoff_stats["edge_detail"]:
+                f.write("Handoff edges: %s\n" % json.dumps(
+                    handoff_stats["edge_detail"], sort_keys=True))
+        if placement_report is not None:
+            # the executed plan's predicted occupancy (parse_utils holds
+            # it to the traced busy fraction) and the recommendation
+            f.write("Placement: %s\n" % json.dumps(placement_report,
+                                                   sort_keys=True))
+        if hedge_stats is not None:
+            # hedge_ms runs only; won + lost == fired
+            f.write("Hedge: fired=%d won=%d lost=%d wasted_ms=%d\n"
+                    % tuple(hedge_stats[k] for k in (
+                        "fired", "won", "lost", "wasted_ms")))
         if shard_stats is not None:
             # declared-shard runs only, so unsharded logs keep their
             # bytes; the reference's format (its --check foots the
@@ -1353,10 +1497,12 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
             f.write("Profile: kernel_ms=%.3f window_ms=%.3f busy_share=%.4f\n"
                     % (kernel_ms, total_time * 1e3,
                        kernel_ms / (total_time * 1e3)))
-    if whatif_settings is not None or operator_server is not None:
+    if whatif_settings is not None or operator_server is not None \
+            or handoff_settings is not None:
         # the config copy whatif recomputes from (and parse_utils reads
-        # the sampler's rate from), as the reference drops it; a config
-        # named like one of the job's own files keeps it whole
+        # the sampler's rate and the handoff mode from), as the
+        # reference drops it; a config named like one of the job's own
+        # files keeps it whole
         name = os.path.basename(config_path)
         if name in JOB_FILES:
             name = "config-" + name
@@ -1399,6 +1545,22 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                      faults["num_retries"], ", ".join(
                          "%s=%d" % kv for kv in sorted(
                              faults["failure_reasons"].items())) or "-"))
+        if handoff_stats is not None:
+            print("Handoff: %d edge take(s) — %d d2d (%.1f MiB on-device) "
+                  "/ %d host (%.1f MiB through host memory)"
+                  % (handoff_stats["edges"], handoff_stats["d2d_edges"],
+                     handoff_stats["d2d_bytes"] / (1 << 20),
+                     handoff_stats["host_edges"],
+                     handoff_stats["host_bytes"] / (1 << 20)))
+        if placement_report is not None:
+            print("Placement plan (predicted occupancy over %d devices): %s"
+                  % (placement_report["device_budget"],
+                     json.dumps(placement_report["plan"], sort_keys=True)))
+        if hedge_stats is not None:
+            print("Hedge: %d fired, %d won by the hedge / %d by the "
+                  "original, %d ms of loser service wasted"
+                  % tuple(hedge_stats[k] for k in (
+                      "fired", "won", "lost", "wasted_ms")))
         if health_stats is not None:
             print("Health: %d lane(s), %d transition(s), %d open(s), %d "
                   "eviction(s), %d probe(s), %d redispatch(es)"
@@ -1466,9 +1628,7 @@ def check_config(path: str) -> int:
     ``main``), the knobs to know before pointing traffic at the pipeline.
     Validation only: no stage is built, no kernel compiled, no device
     touched. A config the port does not read yet is refused with the
-    reader's "not yet ported" error (exit 1). The ``handoff`` and
-    ``placement`` keys and ``hedge_ms`` are not ported, so a config the
-    port reads carries none of them."""
+    reader's "not yet ported" error (exit 1)."""
     from rnb_tpu_torch import client, control, runner  # noqa: F401
     from rnb_tpu_torch.config import ConfigError
     from rnb_tpu_torch.models.r2p1d import model  # noqa: F401
@@ -1503,16 +1663,23 @@ def check_config(path: str) -> int:
                               "; opted-out steps: %s" % opted_out
                               if opted_out else ""))
     print("ragged: %s" % spec(cfg.ragged))
-    print("handoff: none")
-    print("placement: none")
+    print("handoff: %s" % spec(cfg.handoff))
+    replicated = {"step%d" % i: len(s.replica_queues)
+                  for i, s in enumerate(cfg.steps) if s.replica_queues}
+    print("placement: %s%s" % (spec(cfg.placement),
+                               "; replica lanes: %s" % json.dumps(
+                                   replicated, sort_keys=True)
+                               if replicated else ""))
     print("trace: %s" % spec(cfg.trace))
     print("metrics: %s" % spec(cfg.metrics))
     print("devobs: %s" % spec(cfg.devobs))
     print("critpath: %s; whatif: %s" % (spec(cfg.critpath),
                                         spec(cfg.whatif)))
     print("operator: %s" % spec(cfg.operator))
-    print("health: %s; deadline: %s; hedging: none"
-          % (spec(cfg.health), spec(cfg.deadline)))
+    hedged = {"step%d" % i: s.hedge_ms for i, s in enumerate(cfg.steps)
+              if s.hedge_ms is not None}
+    print("health: %s; deadline: %s; hedging: %s"
+          % (spec(cfg.health), spec(cfg.deadline), spec(hedged)))
     print("rnb_tpu_torch is ready to go!")
     return 0
 

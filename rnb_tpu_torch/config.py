@@ -24,6 +24,16 @@ rnb_tpu_torch.parallel.shardplan): each queue group keeps its first
 device, and the ring travels to the runner as ``shard_devices``
 (``DeviceSpec`` s), ``shard_degree``, ``shard_axis`` and
 ``shard_hbm_budget_mb``.
+
+Replica lanes (the reference's rules and messages): a step's
+``replicas: N`` key, or an apply-mode root ``placement`` plan naming it,
+expands the step's one queue group into N lane groups, each with a fresh
+lane queue and an equal slice of the device list
+(:func:`rnb_tpu_torch.parallel.mesh.carve_replicas`), and rewires the
+upstream producers onto the lanes with ``ReplicaSelector`` in place of
+the default selector. The step's ``hedge_ms`` and the root ``handoff``
+and ``placement`` keys are read with it. Sharding composes
+replica-major: each lane's slice becomes its ring.
 """
 
 from __future__ import annotations
@@ -46,7 +56,7 @@ ROOT_KEYS = frozenset({"video_path_iterator", "pipeline", "ragged",
                        "critpath", "autotune", "overload_policy",
                        "fault_containment", "fault_plan", "deadline",
                        "devobs", "whatif", "operator", "health",
-                       "netedge"})
+                       "netedge", "handoff", "placement"})
 TRACE_KEYS = ("enabled", "sample_hz", "max_events")
 #: the reference's key lists, in its order (its messages print them)
 METRICS_KEYS = ["enabled", "interval_ms", "flight_recorder"]
@@ -62,6 +72,8 @@ DEVOBS_KEYS = ["enabled", "capture_window_ms", "capture_on_trigger",
 DEADLINE_KEYS = ["enabled", "budget_ms"]
 HEALTH_KEYS = ["enabled", "suspect_after_ms", "open_after_ms",
                "probe_interval_ms"]
+HANDOFF_KEYS = ["enabled", "mode"]
+PLACEMENT_KEYS = ["enabled", "mode", "plan"]
 NETEDGE_KEYS = ["enabled", "listen", "connect", "beat_ms", "io_timeout_ms",
                 "max_retries", "backoff_ms", "resend_window", "spawn"]
 AUTOTUNE_KEYS = ["enabled", "slo_ms", "ewma_alpha", "min_hold_ms",
@@ -71,7 +83,8 @@ POPULARITY_KEYS = frozenset({"dist", "s", "universe"})
 PAGER_KEYS = frozenset({"enabled", "page_rows", "pool_mb", "feature_cache"})
 STEP_KEYS = frozenset({"model", "queue_groups", "num_shared_tensors",
                        "num_segments", "autotune", "max_retries",
-                       "retry_backoff_ms", "shard"})
+                       "retry_backoff_ms", "shard", "replicas",
+                       "hedge_ms"})
 #: keys a step-level 'shard' object may carry, in the reference's order
 SHARD_KEYWORDS = ["degree", "axis", "hbm_budget_mb"]
 #: the runner's kwargs ``_expand_shard`` puts on each queue group
@@ -93,6 +106,8 @@ MODEL_KEYS = {
     "R2P1DLoader": _LOADER_KEYS,
     "R2P1DFusingLoader": frozenset({
         "max_clips", "row_buckets", "fuse", "depth", "max_hold_ms",
+        "consecutive_frames", "num_clips_population", "weights",
+        "num_warmups",
         "pixel_path", "staging_slots", "transfer_async",
         "dct_coeffs_per_frame", "cache_mb"}),
     "R2P1DRunner": _RUNNER_KEYS,
@@ -104,9 +119,12 @@ MODEL_KEYS = {
         "row_buckets"}),
     "R2P1DAggregator": frozenset({"aggregate"}),
 }
-#: the selectors a group may name (``ReplicaSelector`` waits for
-#: replica lanes)
-QUEUE_SELECTORS = frozenset({"RoundRobinSelector", "LargeSmallSelector"})
+#: the selectors a group may name
+QUEUE_SELECTORS = frozenset({"RoundRobinSelector", "LargeSmallSelector",
+                             "ReplicaSelector"})
+#: the selector replica expansion puts on the producers of a replicated
+#: step in place of the default (least-loaded routing)
+REPLICA_QUEUE_SELECTOR = "rnb_tpu_torch.selector.ReplicaSelector"
 #: the pixel paths ported so far
 PIXEL_PATHS = ("rgb", "yuv420", "dct")
 #: ring slots per producer when a step omits num_shared_tensors
@@ -166,6 +184,12 @@ class StepConfig:
     #: ``retry_backoff_ms`` apart; 0 fails on the first transient
     max_retries: int = 0
     retry_backoff_ms: float = 10.0
+    #: a replica-expanded step's lane queue indices, in lane order (None
+    #: on a step without replica lanes)
+    replica_queues: Optional[tuple] = None
+    #: the hedge threshold for dispatches into this replica step (a
+    #: positive millisecond count or "p95x"); None: no hedging
+    hedge_ms: Optional[object] = None
 
     def kwargs_for_group(self, group_idx: int) -> Dict[str, Any]:
         """Constructor kwargs of one group's instances: the step's
@@ -212,13 +236,20 @@ class PipelineConfig:
     #: deadline propagation (root ``deadline`` key; rnb_tpu_torch.health)
     deadline: Optional[dict] = None
     #: the lane health board's thresholds (root ``health`` key;
-    #: rnb_tpu_torch.health): read by the network edge's board, the one
-    #: board a path of the port builds
+    #: rnb_tpu_torch.health): read by each replica step's board and the
+    #: network edge's
     health: Optional[dict] = None
     #: the network ingest edge (root ``netedge`` key;
     #: rnb_tpu_torch.netedge): when enabled, a peer process serves step 0
     #: over TCP with a local fallback behind a lane health board
     netedge: Optional[dict] = None
+    #: the edge contract of every consumer take (root ``handoff`` key;
+    #: rnb_tpu_torch.handoff)
+    handoff: Optional[dict] = None
+    #: the measured-cost planner (root ``placement`` key;
+    #: rnb_tpu_torch.placement); an apply-mode plan was expanded into
+    #: replica lanes at parse time
+    placement: Optional[dict] = None
     #: the config dict as read (the devobs config walks read it)
     raw: Optional[dict] = None
 
@@ -550,6 +581,183 @@ def _check_netedge_pipeline(steps, raw) -> None:
     _expect(not (isinstance(ragged, dict) and ragged.get("enabled", True)),
             "'netedge' cannot be combined with 'ragged': the peer's "
             "row-pool accounting dies with the peer")
+    _expect(all(s.replica_queues is None for s in steps),
+            "'netedge' cannot be combined with replica-expanded steps (or "
+            "hedging/apply-mode placement): injected remote emissions "
+            "bypass the replica in-flight depth accounting")
+
+
+def _check_handoff(handoff) -> None:
+    """The reference's rules (rnb_tpu/config.py, root ``handoff``)."""
+    _expect(isinstance(handoff, dict), "'handoff' must be an object")
+    unknown = sorted(set(handoff) - set(HANDOFF_KEYS))
+    _expect(not unknown, "'handoff' has unknown key(s) %s — keys are %s"
+            % (unknown, HANDOFF_KEYS))
+    _expect(isinstance(handoff.get("enabled", True), bool),
+            "'handoff.enabled' must be a boolean")
+    mode = handoff.get("mode", "device")
+    _expect(mode in ("device", "host"),
+            "'handoff.mode' must be \"device\" (device-resident edges) or "
+            "\"host\" (the explicit host round-trip baseline arm), got %r"
+            % (mode,))
+
+
+def _check_placement(placement, num_steps: int) -> None:
+    """The reference's rules (rnb_tpu/config.py, root ``placement``): an
+    apply-mode plan names ``step<i>`` replica counts inside the
+    pipeline."""
+    _expect(isinstance(placement, dict), "'placement' must be an object")
+    unknown = sorted(set(placement) - set(PLACEMENT_KEYS))
+    _expect(not unknown, "'placement' has unknown key(s) %s — keys are %s"
+            % (unknown, PLACEMENT_KEYS))
+    _expect(isinstance(placement.get("enabled", True), bool),
+            "'placement.enabled' must be a boolean")
+    mode = placement.get("mode", "plan")
+    _expect(mode in ("plan", "apply"),
+            "'placement.mode' must be \"plan\" (report the measured-cost "
+            "plan) or \"apply\" (apply 'plan' replica counts at launch), "
+            "got %r" % (mode,))
+    plan = placement.get("plan")
+    if mode == "apply":
+        _expect(isinstance(plan, dict) and plan,
+                "'placement.mode' \"apply\" needs a non-empty 'plan' "
+                "object ({\"step<i>\": replicas})")
+    if plan is None:
+        return
+    _expect(isinstance(plan, dict), "'placement.plan' must be an object")
+    for key, val in plan.items():
+        _expect(isinstance(key, str) and key.startswith("step")
+                and key[4:].isdigit() and int(key[4:]) < num_steps,
+                "'placement.plan' keys must be \"step<i>\" with i inside "
+                "the pipeline (0..%d), got %r" % (num_steps - 1, key))
+        _expect(isinstance(val, int) and not isinstance(val, bool)
+                and val >= 1,
+                "'placement.plan.%s' must be a positive integer replica "
+                "count, got %r" % (key, val))
+
+
+def _expand_replicas(pipeline: list, placement) -> tuple:
+    """The reference's replica expansion (rnb_tpu/config.py
+    ``_expand_replicas``), with its messages: every step declaring
+    ``replicas: N`` (or named by an apply-mode placement plan; the step's
+    own key wins) becomes N queue groups, one a lane, each with a fresh
+    lane queue and an equal contiguous slice of the step's devices; the
+    upstream producers' out queue becomes the lane queues, routed by
+    ``ReplicaSelector`` where they named the default selector. ``N == 1``
+    is validated and changes nothing. Returns ``(pipeline, {step_idx:
+    lane queue indices})``; the input is never changed."""
+    from rnb_tpu_torch.parallel.mesh import carve_replicas
+    plan: Dict[int, int] = {}
+    if isinstance(placement, dict) and placement.get("enabled", True) \
+            and placement.get("mode", "plan") == "apply":
+        for key, val in (placement.get("plan") or {}).items():
+            plan[int(key[4:])] = int(val)
+    wants: Dict[int, Any] = {}
+    for step_idx, step in enumerate(pipeline):
+        if not isinstance(step, dict):
+            continue
+        n = step.get("replicas")
+        if n is None:
+            n = plan.get(step_idx)
+        if n is not None:
+            wants[step_idx] = n
+    for step_idx, n in wants.items():
+        _expect(isinstance(n, int) and not isinstance(n, bool) and n >= 1,
+                "pipeline step %d: 'replicas' must be a positive integer, "
+                "got %r" % (step_idx, n))
+    if not wants:
+        return pipeline, {}
+    pipeline = copy.deepcopy(pipeline)
+    used = set()
+    for step in pipeline:
+        if not isinstance(step, dict):
+            continue
+        for group in step.get("queue_groups") or []:
+            if not isinstance(group, dict):
+                continue
+            if isinstance(group.get("in_queue"), int):
+                used.add(group["in_queue"])
+            used.update(q for q in group.get("out_queues") or []
+                        if isinstance(q, int))
+    next_q = max(used) + 1 if used else 0
+    replica_queues: Dict[int, tuple] = {}
+    for step_idx in sorted(wants):
+        n = wants[step_idx]
+        step = pipeline[step_idx]
+        step.pop("replicas", None)
+        where = "pipeline step %d" % step_idx
+        _expect(step_idx > 0,
+                "%s: 'replicas' needs a routable in_queue; the first step "
+                "reads the shared filename queue — replicate it by listing "
+                "more devices instead" % where)
+        _expect(step.get("num_segments", 1) == 1,
+                "%s: 'replicas' cannot be combined with 'num_segments' > 1 "
+                "(segment siblings must reach one aggregator, which "
+                "per-replica lanes cannot guarantee)" % where)
+        groups = step.get("queue_groups")
+        _expect(isinstance(groups, list) and len(groups) == 1
+                and isinstance(groups[0], dict),
+                "%s: 'replicas' requires exactly one queue group to expand"
+                % where)
+        group = groups[0]
+        _expect("devices" in group,
+                "%s, queue group 0 needs a 'devices' list" % where)
+        devices = group["devices"]
+        _expect(isinstance(devices, list) and devices
+                and len(devices) % n == 0,
+                "%s: 'replicas'=%d must evenly divide the %d-entry device "
+                "list — each replica owns an equal sub-mesh"
+                % (where, n, len(devices) if isinstance(devices, list)
+                   else 0))
+        orig_in = group.get("in_queue")
+        _expect(isinstance(orig_in, int),
+                "%s, queue group 0 needs an integer 'in_queue'" % where)
+        if n == 1:
+            continue
+        lanes = list(range(next_q, next_q + n))
+        next_q += n
+        new_groups = []
+        for lane, sub_mesh in zip(lanes, carve_replicas(devices, n)):
+            lane_group = copy.deepcopy(group)
+            lane_group["devices"] = sub_mesh
+            lane_group["in_queue"] = lane
+            new_groups.append(lane_group)
+        step["queue_groups"] = new_groups
+        rewired = False
+        for up in pipeline[step_idx - 1].get("queue_groups") or []:
+            if not isinstance(up, dict):
+                continue
+            outs = list(up.get("out_queues") or [])
+            if orig_in not in outs:
+                continue
+            pos = outs.index(orig_in)
+            up["out_queues"] = outs[:pos] + lanes + outs[pos + 1:]
+            if port_class_path(up.get("queue_selector",
+                                      DEFAULT_QUEUE_SELECTOR)) \
+                    == DEFAULT_QUEUE_SELECTOR:
+                up["queue_selector"] = REPLICA_QUEUE_SELECTOR
+            rewired = True
+        _expect(rewired,
+                "%s: no upstream queue group names out-queue %d, so the "
+                "replica lanes cannot be wired" % (where, orig_in))
+        replica_queues[step_idx] = tuple(lanes)
+    return pipeline, replica_queues
+
+
+def _check_hedge(step_raw: dict, step_idx: int, replica_queues: dict):
+    """A step's ``hedge_ms`` under the reference's rules and messages:
+    a positive millisecond count or ``"p95x"``, on a replica step."""
+    hedge_ms = step_raw.get("hedge_ms")
+    if hedge_ms is None:
+        return None
+    where = "pipeline step %d" % step_idx
+    _expect(hedge_ms == "p95x" or _is_positive(hedge_ms),
+            "%s: 'hedge_ms' must be a positive millisecond count or "
+            "\"p95x\", got %r" % (where, hedge_ms))
+    _expect(replica_queues.get(step_idx) is not None,
+            "%s: 'hedge_ms' needs replica lanes to re-dispatch onto — "
+            "declare 'replicas' >= 2 on this step" % where)
+    return hedge_ms
 
 
 def _check_fault_plan(fault_plan, num_steps: int) -> None:
@@ -690,6 +898,7 @@ def parse_config(raw: dict, platform: Optional[str] = None
     if trace is not None:
         _check_trace(trace)
     for key, check in (("deadline", _check_deadline),
+                       ("handoff", _check_handoff),
                        ("health", _check_health),
                        ("netedge", _check_netedge),
                        ("metrics", _check_metrics),
@@ -722,10 +931,16 @@ def parse_config(raw: dict, platform: Optional[str] = None
     pipeline = raw["pipeline"]
     if not isinstance(pipeline, list) or not pipeline:
         raise ConfigError("'pipeline' must be a non-empty list of steps")
-    pipeline = _expand_shard(pipeline)
+    placement = raw.get("placement")
+    if placement is not None:
+        _check_placement(placement, len(pipeline))
     fault_plan = raw.get("fault_plan")
     if fault_plan is not None:
         _check_fault_plan(fault_plan, len(pipeline))
+    # the expanded form is the one topology everything below checks and
+    # builds; sharding composes replica-major
+    pipeline, replica_queues = _expand_replicas(pipeline, placement)
+    pipeline = _expand_shard(pipeline)
     for step_idx, step_raw in enumerate(pipeline):
         where = "step %d" % step_idx
         model = port_class_path(step_raw.get("model") if isinstance(
@@ -809,7 +1024,9 @@ def parse_config(raw: dict, platform: Optional[str] = None
             kwargs=kwargs,
             num_segments=_check_num_segments(step_raw, step_idx, is_final),
             autotune=step_autotune, max_retries=max_retries,
-            retry_backoff_ms=retry_backoff_ms))
+            retry_backoff_ms=retry_backoff_ms,
+            replica_queues=replica_queues.get(step_idx),
+            hedge_ms=_check_hedge(step_raw, step_idx, replica_queues)))
     netedge = raw.get("netedge")
     if netedge is not None and netedge.get("enabled", True):
         _check_netedge_pipeline(steps, raw)
@@ -819,10 +1036,12 @@ def parse_config(raw: dict, platform: Optional[str] = None
         popularity=popularity, pager=pager, trace=trace,
         metrics=raw.get("metrics"), critpath=raw.get("critpath"),
         devobs=raw.get("devobs"), whatif=raw.get("whatif"),
-        operator=raw.get("operator"), autotune=raw.get("autotune"), overload_policy=overload_policy,
+        operator=raw.get("operator"), autotune=raw.get("autotune"),
+        overload_policy=overload_policy,
         fault_containment=fault_containment, fault_plan=fault_plan,
         deadline=raw.get("deadline"), health=raw.get("health"),
-        netedge=netedge, raw=raw)
+        netedge=netedge, handoff=raw.get("handoff"), placement=placement,
+        raw=raw)
 
 
 def load_config(path: str, platform: Optional[str] = None

@@ -11,20 +11,23 @@ Counterpart of ``rnb_tpu/health.py``, the port's own copy. Three pieces:
   the executor's queue-take and pre-publish — checks it and sheds the
   expired requests through the containment layer's shed machinery
   (site suffix ``:deadline_expired``), so under overload the pipeline
-  serves fresh requests instead of uniformly late ones. This is the
-  part a one-card run builds.
-* **Lane health + circuit breaking** (:class:`LaneHealthBoard`): per
-  replica lane ``healthy -> suspect -> open -> half_open`` (and the
-  terminal ``evicted``), driven by in-flight age, dead letters and an
-  executor liveness beat.
-* **Hedged re-dispatch** (:class:`HedgeGovernor`): a dispatch
-  outstanding on a lane past its threshold is re-issued to a healthy
-  sibling; the first resolution wins.
+  serves fresh requests instead of uniformly late ones.
+* **Lane health + circuit breaking** (:class:`LaneHealthBoard`, root
+  ``health`` key): per replica lane ``healthy -> suspect -> open ->
+  half_open`` (and the terminal ``evicted``), driven by in-flight age,
+  dead letters and an executor liveness beat. The upstream
+  ``ReplicaSelector`` stops routing to open lanes; a lane killed by a
+  ``replica_crash``/``replica_stall`` fault is evicted and its queued
+  work redispatched onto its siblings (:mod:`rnb_tpu_torch.runner`).
+* **Hedged re-dispatch** (:class:`HedgeGovernor`, step key
+  ``hedge_ms``): a dispatch outstanding on a lane past its threshold is
+  re-issued to a healthy sibling; the first resolution wins, the loser
+  is discarded by request id.
 
 The board and the governor are the reference's, held to it on the CPU
-with explicit clocks. The network edge (:mod:`rnb_tpu_torch.netedge`)
-builds a board of one lane; the replica lanes' boards and the governor
-wait for the replica lanes. Every method takes an explicit ``now``
+with explicit clocks; each replica step builds one of each, and the
+network edge (:mod:`rnb_tpu_torch.netedge`) a board of one lane. Every
+method takes an explicit ``now``
 (``time.monotonic()`` seconds) so tests drive the state machines
 deterministically.
 """

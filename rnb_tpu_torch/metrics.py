@@ -178,13 +178,13 @@ def completions(cards, finish_s: Optional[float] = None) -> None:
     m.note_completions(cards, finish_s)
 
 
-def register_stage(model) -> None:
+def register_stage(model, handoff=None) -> None:
     """Stage-side bridge registration (called by the executor after
     stage construction, before the start barrier): stage-owned
-    subsystems — the clip cache, the staging pool — become poll sources
-    of the active registry. No-op when metrics are off or the stage
-    owns neither. Both snapshots read host counters under the
-    subsystem's lock; neither waits on the card."""
+    subsystems — the clip cache, the staging pool, the consumer's
+    handoff edge — become poll sources of the active registry. No-op
+    when metrics are off or the stage owns none. Each snapshot reads
+    host counters; none waits on the card."""
     m = ACTIVE
     if m is None:
         return
@@ -202,6 +202,11 @@ def register_stage(model) -> None:
             counters=("acquires", "acquire_waits", "staged_batches",
                       "copied_batches"),
             gauges=("slots",)))
+    if handoff is not None:
+        m.add_poll(snapshot_poll(
+            "handoff", handoff.snapshot,
+            counters=("d2d_edges", "host_edges", "d2d_bytes",
+                      "host_bytes")))
 
 
 def snapshot_poll(prefix: str, snapshot_fn: Callable[[], dict],

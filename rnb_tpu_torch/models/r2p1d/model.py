@@ -1097,6 +1097,8 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
     def __init__(self, device, fuse: int = 6, depth: Optional[int] = None,
                  max_hold_ms: float = 5.0,
                  max_clips: int = MAX_CLIPS, num_warmups: int = NUM_WARMUPS,
+                 consecutive_frames: int = CONSECUTIVE_FRAMES,
+                 num_clips_population=None, weights=None,
                  row_buckets=None,
                  pixel_path: str = "rgb", staging_slots=None,
                  transfer_async: bool = False, ragged: bool = False,
@@ -1114,7 +1116,16 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         self.depth = int(depth) if depth is not None else 2 * self.fuse
         self.max_hold_ms = float(max_hold_ms)
         self.max_clips = int(max_clips)
-        self.sampler = R2P1DSampler(consecutive_frames=CONSECUTIVE_FRAMES)
+        self.consecutive_frames = int(consecutive_frames)
+        # the sampler's population and weights, as the reference's
+        # fusing loader inherits them from its base loader
+        sampler_kwargs = {}
+        if num_clips_population is not None:
+            sampler_kwargs["num_clips_population"] = num_clips_population
+        if weights is not None:
+            sampler_kwargs["weights"] = weights
+        self.sampler = R2P1DSampler(
+            consecutive_frames=self.consecutive_frames, **sampler_kwargs)
         self.row_buckets = normalize_row_buckets(row_buckets,
                                                  self.max_clips,
                                                  "max_clips")
@@ -1165,7 +1176,7 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
             self._cache_cfg = (
                 "r2p1d", tuple(self.sampler.num_clips_population),
                 tuple(float(p) for p in self.sampler.probabilities),
-                CONSECUTIVE_FRAMES, FRAME_HW, self.pixel_path,
+                self.consecutive_frames, FRAME_HW, self.pixel_path,
                 self.max_clips, self.row_buckets,
                 # ragged entries are host rows or pages, bucketed ones
                 # padded device batches: the two never alias
@@ -1200,10 +1211,11 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
 
     @classmethod
     def output_shape_for(cls, max_clips: int = MAX_CLIPS,
+                         consecutive_frames: int = CONSECUTIVE_FRAMES,
                          pixel_path: str = "rgb",
                          dct_coeffs_per_frame=None, **_kwargs):
         return (_wire_batch_shape(max_clips, pixel_path, _dct_coeffs(
-            pixel_path, dct_coeffs_per_frame)),)
+            pixel_path, dct_coeffs_per_frame), consecutive_frames),)
 
     def enable_pager(self, pager) -> None:
         """Executor protocol: install the page allocator before the start
@@ -1255,7 +1267,8 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         return self.autotune
 
     def _batch_shape(self, rows: int):
-        return _wire_batch_shape(rows, self.pixel_path, self.dct_coeffs)
+        return _wire_batch_shape(rows, self.pixel_path, self.dct_coeffs,
+                                 self.consecutive_frames)
 
     def _normalize_emission(self, device_wire: torch.Tensor, valid: int):
         if self.compiles is not None:
@@ -1308,14 +1321,14 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         planned rows."""
         if self.pixel_path == "dct":
             target[...] = decoder.decode_clips_dct(
-                video, starts, CONSECUTIVE_FRAMES, FRAME_HW, FRAME_HW,
+                video, starts, self.consecutive_frames, FRAME_HW, FRAME_HW,
                 self.dct_coeffs)
         elif self.pixel_path == "yuv420":
             target[...] = decoder.decode_clips_yuv(
-                video, starts, CONSECUTIVE_FRAMES, FRAME_HW, FRAME_HW)
+                video, starts, self.consecutive_frames, FRAME_HW, FRAME_HW)
         else:
             target[...] = decoder.decode_clips(
-                video, starts, CONSECUTIVE_FRAMES, FRAME_HW, FRAME_HW)
+                video, starts, self.consecutive_frames, FRAME_HW, FRAME_HW)
 
     # -- submit-time row planning ------------------------------------------
 
@@ -1515,7 +1528,7 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         try:
             if isinstance(decoder, NativeY4MDecoder):
                 rec.tickets = submit_native(video, starts,
-                                            CONSECUTIVE_FRAMES, rec.rows,
+                                            self.consecutive_frames, rec.rows,
                                             self.pixel_path)
             else:
                 if self._decode_pool is None:

@@ -11,8 +11,10 @@ config device maps to the CPU, and a one-card copy of a multi-device
 config puts every member on the card. A ring whose members sit on two
 or more distinct devices raises: a hop between cards (peer access,
 NVLink stores) is not yet ported (ROADMAP.md, queue 1 item 5).
-``MeshSpec``, ``factor_devices``, ``carve_replicas`` and ``submeshes``
-wait for the replica lanes and the mesh runner.
+
+:func:`carve_replicas` is the replica expansion's placement rule
+(``rnb_tpu_torch.config``). ``MeshSpec``, ``factor_devices`` and
+``submeshes`` wait for the mesh runner.
 """
 
 from __future__ import annotations
@@ -24,6 +26,24 @@ import torch
 #: the most members a ring carries (the reference's largest degree
 #: candidate, rnb_tpu/parallel/shardplan.py min_feasible_degree)
 MAX_MEMBERS = 8
+
+
+def carve_replicas(devices: Sequence, replicas: int) -> list:
+    """Carve a step's device list into ``replicas`` disjoint equal
+    slices, in order (the reference's rule): replica i owns
+    ``devices[i*k:(i+1)*k]`` with ``k = len(devices) // replicas``. Works
+    on raw config indices or resolved devices alike, repeated indices
+    included (a one-card copy lists device 0 four times)."""
+    devices = list(devices)
+    replicas = int(replicas)
+    if replicas < 1:
+        raise ValueError("need at least one replica, got %d" % replicas)
+    if not devices or len(devices) % replicas:
+        raise ValueError(
+            "%d device(s) cannot split into %d equal replica sub-meshes"
+            % (len(devices), replicas))
+    chunk = len(devices) // replicas
+    return [devices[i * chunk:(i + 1) * chunk] for i in range(replicas)]
 
 
 class Ring:

@@ -93,7 +93,16 @@ to ``total``, ``dedup_drops == dup_arrivals``, ``remote <= frames_sent``,
 no window strand on a run that reached its target; every lane's path a
 legal walk ending in its state, the ``Health:`` counters re-derived from
 the paths, ``routes_after_open`` 0, and work moved only off an evicted
-lane.
+lane (the same for the replica lanes' boards). Of the replica lanes
+(``Handoff:``, ``Handoff edges:``, ``Hedge:``, ``Placement:``; the
+reference's ``_check_handoff``, ``_check_hedge`` and
+``_check_placement``): every edge take one class and the per-edge detail
+summed to the totals, no host bytes where the job's config copy declares
+``handoff.mode`` "device"; hedges won + lost == fired; every planned
+step at least one replica and, on a complete trace, each step's
+predicted occupancy within max(25%, 0.05) of its traced ``model_call`` +
+``device_sync`` busy fraction. :func:`check_job` returns every
+violation of one job.
 A violation is printed and the exit code is 1 (``--check`` is accepted
 and changes nothing: the checks always run).
 """
@@ -125,7 +134,9 @@ JSON_LINES = {"Failure reasons": "failure_reasons",
               "Queue overflows": "queue_overflows",
               "Deadline sites": "deadline_sites",
               "Shard steps": "shard_step_detail",
-              "Health lanes": "health_lane_detail"}
+              "Health lanes": "health_lane_detail",
+              "Handoff edges": "handoff_edge_detail",
+              "Placement": "placement"}
 #: the suffix of every deadline shed site (rnb_tpu_torch.health)
 DEADLINE_SUFFIX = ":deadline_expired"
 
@@ -1256,6 +1267,135 @@ def health_problems(meta: dict) -> List[str]:
     return problems
 
 
+def hedge_problems(meta: dict) -> List[str]:
+    """The ``Hedge:`` line's invariants (the reference's
+    ``_check_hedge``): every fired hedge resolved exactly once, and no
+    waste without a hedge."""
+    hedge = meta["lines"].get("Hedge")
+    if hedge is None:
+        return []
+    problems = ["negative hedges_%s" % k for k, v in sorted(hedge.items())
+                if v < 0]
+    fired, won, lost = (int(hedge.get(k, 0)) for k in ("fired", "won",
+                                                        "lost"))
+    if won + lost != fired:
+        problems.append("hedges_won=%d + hedges_lost=%d != hedges_fired=%d "
+                        "(every fired hedge resolves exactly once)"
+                        % (won, lost, fired))
+    if fired == 0 and hedge.get("wasted_ms", 0) > 0:
+        problems.append("hedges_wasted_ms=%d with no hedge fired"
+                        % hedge["wasted_ms"])
+    return problems
+
+
+def _config_handoff_mode(log_dir: str):
+    """The handoff mode the job's config copy declares, or None."""
+    for name in sorted(os.listdir(log_dir)):
+        if not name.endswith(".json"):
+            continue
+        try:
+            with open(os.path.join(log_dir, name)) as f:
+                raw = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if not isinstance(raw, dict) or "pipeline" not in raw:
+            continue
+        handoff = raw.get("handoff")
+        if isinstance(handoff, dict) and handoff.get("enabled", True):
+            return handoff.get("mode", "device")
+        return None
+    return None
+
+
+def handoff_problems(log_dir: str, meta: dict) -> List[str]:
+    """The ``Handoff:`` ledger's invariants (the reference's
+    ``_check_handoff``): every take has one class, the per-edge detail
+    sums to the totals, and a device config moved no host bytes."""
+    handoff = meta["lines"].get("Handoff")
+    if handoff is None:
+        return (["log-meta carries a 'Handoff edges:' line but no "
+                 "'Handoff:' totals line"]
+                if "handoff_edge_detail" in meta else [])
+    problems = ["negative handoff_%s" % k
+                for k, v in sorted(handoff.items()) if v < 0]
+    d2d, host = int(handoff["d2d_edges"]), int(handoff["host_edges"])
+    if d2d + host != int(handoff["edges"]):
+        problems.append("handoff_d2d_edges=%d + handoff_host_edges=%d != "
+                        "handoff_edges=%d (every edge take has exactly one "
+                        "class)" % (d2d, host, handoff["edges"]))
+    detail = meta.get("handoff_edge_detail") or {}
+    if detail:
+        for key in ("d2d_edges", "host_edges", "d2d_bytes", "host_bytes"):
+            summed = sum(int(e.get(key, 0)) for e in detail.values())
+            if summed != int(handoff[key]):
+                problems.append("'Handoff edges:' %s sums to %d but the "
+                                "'Handoff:' line says %d"
+                                % (key, summed, handoff[key]))
+    if _config_handoff_mode(log_dir) == "device" and handoff["host_bytes"]:
+        problems.append("handoff_host_bytes=%d on a device-resident config "
+                        "(handoff.mode \"device\" promises zero host-hop "
+                        "bytes on every edge)" % handoff["host_bytes"])
+    return problems
+
+
+#: the predicted-against-traced occupancy tolerance (the reference's):
+#: relative, with an absolute floor for near-idle stages
+OCCUPANCY_REL_TOL = 0.25
+OCCUPANCY_ABS_TOL = 0.05
+
+
+def placement_problems(log_dir: str, meta: dict) -> List[str]:
+    """The ``Placement:`` report's invariants (the reference's
+    ``_check_placement``): every recommended step gets a replica, and on
+    a complete trace each step's predicted occupancy lies within
+    tolerance of its traced busy fraction (``exec{i}.model_call`` +
+    ``device_sync`` spans over the window, per instance)."""
+    report = meta.get("placement")
+    if not report:
+        return []
+    problems = ["'Placement:' plan for %s names %r replicas (must be >= 1)"
+                % (key, entry.get("replicas"))
+                for key, entry in sorted(report.get("plan", {}).items())
+                if int(entry.get("replicas", 0)) < 1]
+    path = os.path.join(log_dir, "trace.json")
+    trace_line = meta["lines"].get("Trace", {})
+    if not os.path.isfile(path) or trace_line.get("dropped", 0) \
+            or "window" not in meta:
+        return problems
+    try:
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    except ValueError:
+        return problems  # trace_problems reports it
+    busy_us: Dict[int, float] = {}
+    span = re.compile(r"exec(\d+)\.(model_call|device_sync)$")
+    for ev in events:
+        m = span.match(str(ev.get("name", ""))) if ev.get("ph") == "X" \
+            else None
+        if m:
+            step = int(m.group(1))
+            busy_us[step] = busy_us.get(step, 0.0) + float(ev.get("dur", 0))
+    start, end = meta["window"]
+    wall = end - start
+    for key, entry in sorted(report.get("steps", {}).items()):
+        step = int(key[4:])
+        if step not in busy_us or wall <= 0:
+            continue
+        pred = float(entry.get("occupancy", 0.0))
+        traced = (busy_us[step] / 1e6 / wall
+                  / max(1, int(entry.get("instances", 1))))
+        tol = max(OCCUPANCY_REL_TOL * traced, OCCUPANCY_ABS_TOL)
+        if abs(pred - traced) > tol:
+            problems.append(
+                "'Placement:' %s predicts occupancy %.4f but the trace "
+                "records a %.4f busy fraction (tolerance max(%d%%, %.2f)) — "
+                "the planner's cost model drifted from what the executors "
+                "measured" % (key, pred, traced,
+                              int(OCCUPANCY_REL_TOL * 100),
+                              OCCUPANCY_ABS_TOL))
+    return problems
+
+
 def footing_problems(meta: dict) -> List[str]:
     """The footings of the ``Compiles:`` and ``Pages:`` lines that do
     not hold (empty when they all hold)."""
@@ -1366,7 +1506,10 @@ def summarize(log_dir: str) -> dict:
                                + whatif_problems(log_dir, meta)
                                + operator_problems(log_dir, meta)
                                + health_problems(meta)
-                               + netedge_problems(meta))
+                               + netedge_problems(meta)
+                               + handoff_problems(log_dir, meta)
+                               + hedge_problems(meta)
+                               + placement_problems(log_dir, meta))
     profile = os.path.join(log_dir, "profile.json")
     if os.path.exists(profile):
         with open(profile) as f:
@@ -1385,6 +1528,12 @@ def summarize(log_dir: str) -> dict:
                    kernel_ms_per_request=kernel_ms / requests,
                    kernel_families=kernel_families(kernels))
     return out
+
+
+def check_job(log_dir: str) -> List[str]:
+    """Every invariant of one job's logs that does not hold (the
+    reference's ``check_job``, for the files the port writes)."""
+    return summarize(log_dir)["footing_problems"]
 
 
 def _mean(values: List[float]):

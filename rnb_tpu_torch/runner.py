@@ -1,7 +1,6 @@
 """The stage executor: one thread per (step, group, device instance).
 
-Counterpart of ``rnb_tpu/runner.py``, without the replica lanes, health
-board and hedging of the JAX package (not yet ported).
+Counterpart of ``rnb_tpu/runner.py``.
 
 An item may carry its payload as host rows
 (:class:`~rnb_tpu_torch.health.DirectPayload`: what the network edge's
@@ -53,6 +52,31 @@ segments (:func:`split_segments`) and publishes them to the one out
 queue the selector picked, each with its own forked TimeCard and its
 own ring credit; an aggregating stage downstream merges them back.
 
+**Replica lanes** (a step's ``replicas`` key, :mod:`rnb_tpu_torch.config`):
+each lane's executor reads its own lane queue on a CUDA stream of its
+own, and the producers route over the lanes with ``ReplicaSelector`` by
+the step's shared in-flight depths
+(:class:`~rnb_tpu_torch.handoff.InflightDepths`), raised at each enqueue
+and settled at the lane's next loop top, once the popped item's
+processing is over. Under the root ``handoff`` key each take goes
+through the consumer's :class:`~rnb_tpu_torch.handoff.EdgeHandoff`.
+Under the root ``health`` key each lane beats its step's
+:class:`~rnb_tpu_torch.health.LaneHealthBoard` every iteration and feeds
+it dead letters and settlements; a ``replica_crash``/``replica_stall`` fault kills the lane:
+its in-service dispatch is dead-lettered, the lane evicted, and its
+queued items moved onto healthy siblings (``redispatched`` stamps),
+while every sibling lingers past its own end of stream until the whole
+step drained. A step's ``hedge_ms`` gives its producers a
+:class:`~rnb_tpu_torch.health.HedgeGovernor`: a dispatch outstanding past
+the threshold is re-issued on a healthy sibling as a
+:class:`~rnb_tpu_torch.health.DirectPayload` with a clone of its cards,
+the first resolution wins and the other copy is discarded by request id.
+A hedge copy carries no ring credit: the original's comes back at its
+take, as every item's does (no producer writes into a payload it
+published, :mod:`rnb_tpu_torch.handoff`). Under the
+root ``placement`` key each executor reports its dispatch busy seconds
+(:class:`~rnb_tpu_torch.placement.CostRecord`).
+
 The hot loop carries the tracing layer's spans
 (:mod:`rnb_tpu_torch.trace`: ``exec{i}.queue_get``, ``hold_wait``,
 ``model_call``, ``device_sync``, ``publish``) and the host profiler's
@@ -92,12 +116,15 @@ from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, EdgeTracker,
                                    TerminationState, dispose_requests,
                                    send_exit_markers)
 from rnb_tpu_torch.devices import DeviceSpec
-from rnb_tpu_torch.faults import (FATAL, TRANSIENT, classify_error,
-                                  fault_reason)
-from rnb_tpu_torch.health import DirectPayload, deadline_site
+from rnb_tpu_torch.faults import (FATAL, TRANSIENT, LaneDeathError,
+                                  classify_error, fault_reason)
+from rnb_tpu_torch.handoff import EdgeHandoff
+from rnb_tpu_torch.health import (LOSER, WINNER, DirectPayload,
+                                  deadline_site)
 from rnb_tpu_torch.health import expired as deadline_expired
 from rnb_tpu_torch.ops.ragged import check_segment_offsets
-from rnb_tpu_torch.selector import DEFAULT_QUEUE_SELECTOR
+from rnb_tpu_torch.placement import CostRecord
+from rnb_tpu_torch.selector import DEFAULT_QUEUE_SELECTOR, pick_sibling_lane
 from rnb_tpu_torch.stage import PaddedBatch, RaggedBatch
 from rnb_tpu_torch.staging import PinnedUpload
 from rnb_tpu_torch.telemetry import (TimeCardList, TimeCardSummary,
@@ -236,6 +263,31 @@ class RunnerContext:
     #: job's expiry ledger (both None: the checks are inert)
     deadline: Any = None
     deadline_stats: Any = None
+    #: the edge contract (root ``handoff`` key): the job's HandoffSettings
+    #: on consumer steps, the edge's label and the sink of its snapshot
+    handoff_settings: Any = None
+    handoff_edge: str = ""
+    handoff_sink: Optional[List] = None
+    #: measured-cost placement (root ``placement`` key): each executor
+    #: appends its CostRecord here at teardown
+    placement_sink: Optional[List] = None
+    #: the next step's lane depths when it is replica-expanded, and this
+    #: producer's out-queue indices (lane addresses)
+    out_depths: Any = None
+    out_queue_indices: Optional[List[int]] = None
+    #: this lane's side of its step's depths, and its queue index
+    in_depths: Any = None
+    in_queue_idx: Optional[int] = None
+    #: this lane's step's health board, the next step's (for this
+    #: producer's selector), and every lane queue of this step (the
+    #: evicted lane's drain moves its items onto them)
+    health_board: Any = None
+    out_health_board: Any = None
+    sibling_queues: Optional[Dict[int, "queue.Queue"]] = None
+    #: hedge governors: the next step's (this producer tracks and fires)
+    #: and this step's (this lane claims resolutions)
+    out_hedges: Any = None
+    in_hedges: Any = None
 
 
 def validate_payload(declared, payload, where: str) -> None:
@@ -303,7 +355,7 @@ def _store_outputs(sink: Dict[int, tuple], payload, non_tensors,
 
 
 def _publish(ctx: RunnerContext, out_queue, payload, non_tensors,
-             time_card) -> bool:
+             time_card, lane: Optional[int] = None) -> bool:
     """Hand one item to the next step on ``out_queue``: as it is, or as
     ``num_segments`` segments, each with its own forked card and its own
     ring credit. The segments are views of the stage's output: each
@@ -312,7 +364,11 @@ def _publish(ctx: RunnerContext, out_queue, payload, non_tensors,
     (``record_stream``), so no segment is copied. A full queue stops the
     run under the ``"abort"`` policy (an overflow counted on the edge);
     under ``"shed"`` the item passed the shed check, so it waits for
-    room (bounded backpressure). False when the job died."""
+    room (bounded backpressure). False when the job died.
+
+    ``lane`` is the replica lane's queue index on a replica-expanded
+    edge: a successful put opens the item's in-flight window there, and
+    on a hedged edge the dispatch is tracked first."""
     k = ctx.num_segments
     segments = (split_segments(payload, k) if payload and k > 1
                 else [payload] * k)
@@ -320,8 +376,12 @@ def _publish(ctx: RunnerContext, out_queue, payload, non_tensors,
         if seg_payload and not ctx.credits.acquire(ctx.termination):
             return False
         card = time_card.fork(seg_idx) if k > 1 else time_card
-        item = (seg_payload, non_tensors, card,
-                ctx.credits if seg_payload else None)
+        credits = ctx.credits if seg_payload else None
+        if ctx.out_hedges is not None:
+            # tracked before the put: the clone never races the
+            # consumer's stamps
+            ctx.out_hedges.track(card, lane, seg_payload, non_tensors)
+        item = (seg_payload, non_tensors, card, credits)
         if ctx.overload_policy == "shed":
             while True:
                 try:
@@ -330,15 +390,19 @@ def _publish(ctx: RunnerContext, out_queue, payload, non_tensors,
                 except queue.Full:
                     if ctx.termination.terminated:
                         return False
-            continue
-        try:
-            out_queue.put_nowait(item)
-        except queue.Full:
-            if ctx.fault_stats is not None:
-                ctx.fault_stats.record_overflow(
-                    "step%d->step%d" % (ctx.step_idx, ctx.step_idx + 1))
-            ctx.termination.raise_flag(TerminationFlag.FRAME_QUEUE_FULL)
-            return False
+        else:
+            try:
+                out_queue.put_nowait(item)
+            except queue.Full:
+                if ctx.fault_stats is not None:
+                    ctx.fault_stats.record_overflow(
+                        "step%d->step%d" % (ctx.step_idx, ctx.step_idx + 1))
+                ctx.termination.raise_flag(TerminationFlag.FRAME_QUEUE_FULL)
+                return False
+        if ctx.out_depths is not None:
+            ctx.out_depths.inc(lane)
+            if ctx.out_health_board is not None:
+                ctx.out_health_board.note_enqueue(lane)
     return True
 
 
@@ -352,11 +416,37 @@ def _release_pins(cards) -> None:
             plan.release()
 
 
+def _hedge_lost(ctx: RunnerContext, time_card) -> bool:
+    """The exactly-once resolution of a hedged dispatch at its replica
+    step (the reference's rule): the first disposal or completion of
+    either copy claims the request ids; the other copy's is the loser,
+    discarded with its service counted as waste, and the caller drops
+    the item without touching a counter. A copy that already won
+    (``hedge_resolved``) owns the outcome and claims no second time."""
+    if ctx.in_hedges is None:
+        return False
+    cards = cards_of(time_card)
+    if any(getattr(tc, "hedge_resolved", False) for tc in cards):
+        return False
+    verdict = ctx.in_hedges.claim(time_card)
+    if verdict == LOSER:
+        _release_pins(cards)
+        ctx.in_hedges.discard(time_card)
+        return True
+    if verdict == WINNER:
+        for tc in cards:
+            tc.hedge_resolved = True
+    return False
+
+
 def _contain_failure(ctx: RunnerContext, time_card, reason: str,
                      summary) -> None:
     """Dead-letter one item's request(s): stamp the cards failed, record
     them in the job's ledger and count them toward the run target (a
-    failed request never produces the completion the target waits for)."""
+    failed request never produces the completion the target waits for).
+    A lane's dead letters feed its health board."""
+    if _hedge_lost(ctx, time_card):
+        return
     cards = cards_of(time_card)
     _release_pins(cards)
     for tc in cards:
@@ -365,6 +455,8 @@ def _contain_failure(ctx: RunnerContext, time_card, reason: str,
     if ctx.fault_stats is not None:
         ctx.fault_stats.record_failure([tc.id for tc in cards],
                                        ctx.step_idx, reason)
+    if ctx.health_board is not None:
+        ctx.health_board.note_failure(ctx.in_queue_idx)
     if summary is not None:
         summary.note_failure(reason, len(cards))
     dispose_requests(ctx.counter, ctx.num_videos, ctx.termination,
@@ -375,7 +467,10 @@ def _shed(ctx: RunnerContext, time_card, site: str, summary,
           expired: bool = False) -> None:
     """Drop one item at ``site``: stamped, counted in the fault ledger
     (and, for an ``expired`` deadline, in the deadline ledger, which
-    ``parse_utils`` cross-foots with it) and disposed toward the target."""
+    ``parse_utils`` cross-foots with it) and disposed toward the target.
+    A hedge loser is discarded instead."""
+    if _hedge_lost(ctx, time_card):
+        return
     cards = cards_of(time_card)
     _release_pins(cards)
     for tc in cards:
@@ -414,6 +509,115 @@ def _overloaded(ctx: RunnerContext, out_queue, time_card) -> bool:
             and out_queue.qsize() + ctx.num_segments > out_queue.maxsize)
 
 
+def _fire_hedges(ctx: RunnerContext) -> None:
+    """The producer's hedge tick: every dispatch outstanding past the
+    governor's threshold is re-issued on the best healthy sibling lane,
+    as a :class:`DirectPayload` of the same tensors with a clone of its
+    cards and no ring credit. A full sibling queue
+    defers the hedge to a later tick (a hedge never adds
+    backpressure)."""
+    gov = ctx.out_hedges
+    for entry in gov.poll():
+        lane = pick_sibling_lane(ctx.out_depths, ctx.out_health_board,
+                                 ctx.out_queue_indices, exclude=entry.lane)
+        if lane is None:
+            continue
+        # committed before the put: begin_fire re-checks that the
+        # dispatch is unresolved, so no copy of a claimed request goes out
+        if not gov.begin_fire(entry):
+            continue
+        item = (DirectPayload(entry.payload), entry.non_tensors, entry.card,
+                None)
+        try:
+            ctx.out_queues[ctx.out_queue_indices.index(lane)].put_nowait(
+                item)
+        except queue.Full:
+            gov.cancel_fire(entry)
+            continue
+        if ctx.out_depths is not None:
+            ctx.out_depths.inc(lane)
+        if ctx.out_health_board is not None:
+            ctx.out_health_board.note_enqueue(lane)
+
+
+def _linger_for_hedges(ctx: RunnerContext) -> None:
+    """The producer's end of stream on a hedged edge: keep ticking the
+    governor until every tracked dispatch settled (or the job ended), so
+    no tail dispatch that needs a hedge is orphaned and no hedge lands
+    behind the exit markers, which are sent after this."""
+    gov = ctx.out_hedges
+    while not ctx.termination.terminated and gov.num_outstanding():
+        _fire_hedges(ctx)
+        time.sleep(QUEUE_POLL_S / 5.0)
+
+
+def _die_lane(ctx: RunnerContext, exc: LaneDeathError) -> None:
+    """This replica lane's executor is dead (an injected replica_crash or
+    replica_stall; its in-service dispatch was dead-lettered by the
+    caller). Once the lane's last instance died the lane is evicted, so
+    the selector stops feeding it, and its queued items are moved onto
+    healthy siblings until its end of stream: none is stranded."""
+    board = ctx.health_board
+    if board is None or board.instance_died(ctx.in_queue_idx) > 0:
+        # no board (the launcher refuses lane faults without one), or a
+        # live instance still serves this lane's queue
+        return
+    board.evict(ctx.in_queue_idx, "replica-%s" % exc.fate)
+    targets = {q: sq for q, sq in (ctx.sibling_queues or {}).items()
+               if q != ctx.in_queue_idx}
+    if not targets:
+        return
+    try:
+        _pump_dead_lane(ctx, targets,
+                        trace.name("exec%d.redispatch", ctx.step_idx))
+    finally:
+        # the dead lane's stream is over: release the siblings' linger
+        board.note_drained(ctx.in_queue_idx)
+
+
+def _pump_dead_lane(ctx: RunnerContext, targets, tr_redispatch) -> None:
+    """Move every item queued on the dead lane to a healthy sibling,
+    with its credit (it was never taken), a ``redispatched`` stamp and
+    the in-flight windows of both lanes reconciled."""
+    while not ctx.termination.terminated:
+        try:
+            item = ctx.in_queue.get(timeout=QUEUE_POLL_S)
+        except queue.Empty:
+            continue
+        if item is None:
+            return  # end of stream: nothing more can strand here
+        lane = pick_sibling_lane(ctx.in_depths, ctx.health_board,
+                                 sorted(targets))
+        if lane is None:
+            lane = sorted(targets)[0]
+        with trace.span(tr_redispatch):
+            for tc in cards_of(item[2]):
+                tc.redispatched = getattr(tc, "redispatched", 0) + 1
+            while not ctx.termination.terminated:
+                try:
+                    targets[lane].put(item, timeout=QUEUE_POLL_S)
+                    break
+                except queue.Full:
+                    continue
+            else:
+                return
+        if ctx.in_depths is not None:
+            ctx.in_depths.dec(ctx.in_queue_idx)
+            ctx.in_depths.inc(lane)
+        ctx.health_board.note_settle(ctx.in_queue_idx)
+        ctx.health_board.note_enqueue(lane)
+        ctx.health_board.note_redispatch(ctx.in_queue_idx)
+
+
+class _LaneDied(Exception):
+    """Raised out of a stage call whose lane was killed: the in-service
+    dispatch is already dead-lettered."""
+
+    def __init__(self, cause: LaneDeathError):
+        super().__init__(str(cause))
+        self.cause = cause
+
+
 def _stage_hooks(model):
     """A stage's containment hooks ``(take_retries, take_failed,
     take_shed)``, or None when it has none (resolved once)."""
@@ -449,58 +653,92 @@ def _drain_stage_failures(ctx: RunnerContext, hooks, summary) -> None:
 
 
 def _call_stage(ctx: RunnerContext, model, payload, non_tensors, time_card,
-                handle, summary, key_start: str, tr_model_call: str):
+                handle, summary, key_start: str, tr_model_call: str,
+                busy: Optional[list] = None):
     """One dispatch of the stage under the fault plan and the retry
     budget: the plan's stall before the inference span, then per attempt
     its latency or error and the call (``complete`` of a prefetched
     decode on the first attempt, the stage itself on a retry). Returns
-    the stage's result, or None when the item was dead-lettered."""
+    the stage's result, or None when the item was dead-lettered. A
+    replica lane's faults are addressed by its queue index; a lane
+    death dead-letters the dispatch and raises :class:`_LaneDied`.
+    ``busy[0]`` accumulates the dispatch's busy seconds (the backoff
+    sleeps excluded), the placement planner's cost."""
     rids = None
     if ctx.fault_plan is not None:
         # a fault matching any constituent hits the whole dispatch
         rids = [tc.id for tc in cards_of(time_card)]
-        stall = ctx.fault_plan.stall_ms(ctx.step_idx, rids)
+        stall = ctx.fault_plan.stall_ms(ctx.step_idx, rids,
+                                        lane=ctx.in_queue_idx)
         if stall > 0:
             time.sleep(stall / 1000.0)
     time_card.record(key_start)
     attempt = 0
-    while True:
-        try:
-            with hostprof.section(tr_model_call), \
-                    trace.span(tr_model_call, _rid(time_card)):
-                if ctx.fault_plan is not None:
-                    ctx.fault_plan.fire(ctx.step_idx, rids, attempt)
+    t_busy = time.monotonic() if busy is not None else None
+    try:
+        while True:
+            try:
+                with hostprof.section(tr_model_call), \
+                        trace.span(tr_model_call, _rid(time_card)):
+                    if ctx.fault_plan is not None:
+                        ctx.fault_plan.fire(ctx.step_idx, rids, attempt,
+                                            lane=ctx.in_queue_idx)
+                    if handle is not None:
+                        return model.complete(handle, non_tensors, time_card)
+                    return model(payload, non_tensors, time_card)
+            except Exception as exc:
                 if handle is not None:
-                    return model.complete(handle, non_tensors, time_card)
-                return model(payload, non_tensors, time_card)
-        except Exception as exc:
-            if handle is not None:
-                # a retry decodes again on the synchronous path: the
-                # prefetched decode is retired, its rows released
-                model.discard(handle, non_tensors)
-                handle = None
-            kind = classify_error(exc)
-            if kind is FATAL or not ctx.containment:
-                raise
-            retry = kind is TRANSIENT and attempt < ctx.max_retries
-            if not retry and getattr(time_card, "sub_id", None) is not None:
-                # a segment stays fail-fast past its retries: one
-                # dead-lettered segment would strand its siblings
-                raise
-            if retry:
-                attempt += 1
-                if ctx.fault_stats is not None:
-                    ctx.fault_stats.record_retries(1)
-                if summary is not None:
-                    summary.note_retries(1)
-                if ctx.retry_backoff_ms > 0:
-                    time.sleep(ctx.retry_backoff_ms / 1000.0)
-                continue
-            reason = fault_reason(exc)
-            if kind is TRANSIENT:
-                reason = "retries-exhausted:" + reason
-            _contain_failure(ctx, time_card, reason, summary)
-            return None
+                    # a retry decodes again on the synchronous path: the
+                    # prefetched decode is retired, its rows released
+                    model.discard(handle, non_tensors)
+                    handle = None
+                if isinstance(exc, LaneDeathError) and ctx.containment \
+                        and ctx.in_depths is not None:
+                    # a lane death, not a request fault (on a step
+                    # without lanes it is fatal, as in the reference)
+                    _contain_failure(ctx, time_card, fault_reason(exc),
+                                     summary)
+                    raise _LaneDied(exc)
+                if _retry_or_contain(ctx, exc, attempt, time_card, summary):
+                    attempt += 1
+                    if ctx.retry_backoff_ms > 0:
+                        # backoff is idle, not service
+                        if t_busy is not None:
+                            busy[0] += time.monotonic() - t_busy
+                        time.sleep(ctx.retry_backoff_ms / 1000.0)
+                        if t_busy is not None:
+                            t_busy = time.monotonic()
+                    continue
+                return None
+    finally:
+        if t_busy is not None:
+            busy[0] += time.monotonic() - t_busy
+
+
+def _retry_or_contain(ctx: RunnerContext, exc: Exception, attempt: int,
+                      time_card, summary) -> bool:
+    """Classify an error escaping a stage call: True to retry it (the
+    retry counted), False once the item is dead-lettered; a fatal error,
+    strict mode and a segment past its retries re-raise it."""
+    kind = classify_error(exc)
+    if kind is FATAL or not ctx.containment:
+        raise exc
+    retry = kind is TRANSIENT and attempt < ctx.max_retries
+    if not retry and getattr(time_card, "sub_id", None) is not None:
+        # a segment stays fail-fast past its retries: one dead-lettered
+        # segment would strand its siblings
+        raise exc
+    if retry:
+        if ctx.fault_stats is not None:
+            ctx.fault_stats.record_retries(1)
+        if summary is not None:
+            summary.note_retries(1)
+        return True
+    reason = fault_reason(exc)
+    if kind is TRANSIENT:
+        reason = "retries-exhausted:" + reason
+    _contain_failure(ctx, time_card, reason, summary)
+    return False
 
 
 def _note_compute(meter, time_card, key_start: str,
@@ -536,8 +774,14 @@ def runner(ctx: RunnerContext) -> None:
     model = None
     controller = None
     declared = None
+    handoff = None
     warmup_s = 0.0
     try:
+        if ctx.in_depths is not None \
+                and ctx.device.resolve().type == "cuda":
+            # a replica lane warms up, captures and serves on a stream of
+            # its own (the current stream is the thread's)
+            torch.cuda.set_stream(torch.cuda.Stream(ctx.device.resolve()))
         model_class = load_class(ctx.model_class_path)
         # the stage builds its weights, warms up and captures its graphs
         # in its constructor, before the start barrier: the Warmup: line
@@ -562,13 +806,24 @@ def runner(ctx: RunnerContext) -> None:
                                                 False):
             # over the stage's own warmed buckets
             controller = model.enable_autotune(ctx.autotune)
-        # the stage's cache and staging pool become poll sources of the
-        # live-metrics registry before the barrier (no-op when off)
-        metrics.register_stage(model)
+        if ctx.health_board is not None:
+            # the lane's instance census, before the barrier: the last
+            # instance to die drains the lane
+            ctx.health_board.register_instance(ctx.in_queue_idx)
+        if ctx.handoff_settings is not None and ctx.step_idx > 0:
+            # this consumer's side of the edge contract
+            handoff = EdgeHandoff(
+                ctx.handoff_settings, ctx.device, ctx.handoff_edge,
+                external_owner=(ctx.pager.owns if ctx.pager is not None
+                                else None))
+        # the stage's cache and staging pool (and the handoff edge)
+        # become poll sources of the live-metrics registry before the
+        # barrier (no-op when off)
+        metrics.register_stage(model, handoff)
         # its compute profile becomes the step's meter and its byte
         # owners ledger sources, before the barrier so every sample
         # covers them (no-op when devobs is off)
-        devobs.register_stage(model, ctx.step_idx, ctx.device)
+        devobs.register_stage(model, ctx.step_idx, ctx.device, handoff)
     except Exception:
         traceback.print_exc()
         ctx.termination.raise_flag(TerminationFlag.INTERNAL_ERROR)
@@ -580,6 +835,14 @@ def runner(ctx: RunnerContext) -> None:
             selector = load_class(ctx.queue_selector_path)(
                 len(ctx.out_queues))
             selector.bind_stage(model)
+            if ctx.out_depths is not None and hasattr(selector,
+                                                      "bind_depths"):
+                # least-loaded routing over the next step's lanes, gated
+                # by their health board
+                selector.bind_depths(ctx.out_depths, ctx.out_queue_indices)
+                if ctx.out_health_board is not None \
+                        and hasattr(selector, "bind_health"):
+                    selector.bind_health(ctx.out_health_board)
     except Exception:
         traceback.print_exc()
         ctx.termination.raise_flag(TerminationFlag.INTERNAL_ERROR)
@@ -635,10 +898,35 @@ def runner(ctx: RunnerContext) -> None:
     sec_bookkeeping = "exec%d.bookkeeping" % ctx.step_idx
     where_take = "step%d_take" % ctx.step_idx
     where_publish = "step%d_publish" % ctx.step_idx
+    tr_handoff = trace.name("exec%d.handoff", ctx.step_idx)
     saw_marker = False
-    uploader = None  # built at the first DirectPayload item
+    uploader = None  # built at the first DirectPayload item of host rows
+    # placement: this executor's busy seconds (the dispatch spans) and
+    # dispatches
+    busy = [0.0] if ctx.placement_sink is not None else None
+    dispatches = 0
+    # items popped whose processing is over at the next loop top: their
+    # lane depth to settle
+    depth_owed = 0
+    # a health-enabled lane past its own end of stream lingers until
+    # every sibling lane drained (an evicted lane may still move work
+    # here), with one last timed sweep after it saw them all drained
+    marker_noted = False
+    final_sweep = False
     try:
         while model is not None and not ctx.termination.terminated:
+            if ctx.health_board is not None:
+                # the liveness beat: a wedged executor stops beating
+                ctx.health_board.beat(ctx.in_queue_idx)
+            if ctx.out_hedges is not None:
+                _fire_hedges(ctx)
+            if depth_owed:
+                if ctx.in_depths is not None:
+                    ctx.in_depths.dec(ctx.in_queue_idx, depth_owed)
+                if ctx.health_board is not None:
+                    ctx.health_board.note_settle(ctx.in_queue_idx,
+                                                 depth_owed)
+                depth_owed = 0
             if hooks is not None:
                 _drain_stage_failures(ctx, hooks, summary)
             # set where an arrival was dispatched by the stage call: only
@@ -701,6 +989,14 @@ def runner(ctx: RunnerContext) -> None:
                                        else tr_queue_get):
                         item = ctx.in_queue.get(timeout=timeout)
                 except queue.Empty:
+                    if marker_noted and ctx.health_board.all_drained():
+                        # a drain's last put happens before its drained
+                        # note: one more timed sweep proves the queue
+                        # empty
+                        if final_sweep:
+                            break
+                        final_sweep = True
+                        continue
                     if idle_poll is None:
                         continue
                     result = idle_poll()
@@ -708,12 +1004,28 @@ def runner(ctx: RunnerContext) -> None:
                         continue
                     item = False
                 if item is None:
-                    saw_marker = True
+                    if ctx.health_board is None:
+                        saw_marker = True
+                        continue
+                    # linger: a sibling evicted after this lane's end of
+                    # stream moves its queue here
+                    if not marker_noted:
+                        ctx.health_board.note_drained(ctx.in_queue_idx)
+                        marker_noted = True
+                    if ctx.health_board.all_drained():
+                        if final_sweep:
+                            saw_marker = True
+                            continue
+                        final_sweep = True
                     continue
                 if item is not False:
                     payload, non_tensors, time_card, credits = item
                     if credits is not None:
                         credits.release()
+                    if ctx.in_depths is not None:
+                        # settled at the next loop top: a depth covers
+                        # in-service time
+                        depth_owed += 1
                     time_card.add_device(ctx.device.label)
                     time_card.record(key_runner)
                     if _sheddable_expired(ctx, time_card):
@@ -729,16 +1041,31 @@ def runner(ctx: RunnerContext) -> None:
                             if t_enq is not None:
                                 controller.observe_enqueue(t_enq)
                     if isinstance(payload, DirectPayload):
-                        # host rows off the network edge: to the card on
-                        # this thread's stream, ahead of the forward
-                        if uploader is None:
-                            uploader = PinnedUpload(ctx.device.resolve())
-                        payload = tuple(
-                            dataclasses.replace(pb, data=uploader.upload(
-                                pb.data)) for pb in payload.payload)
-                    result = _call_stage(ctx, model, payload, non_tensors,
-                                         time_card, None, summary,
-                                         key_start, tr_model_call)
+                        payload = payload.payload
+                        if payload and payload[0].data.device.type == "cpu":
+                            # host rows off the network edge: to the card
+                            # on this thread's stream, ahead of the
+                            # forward (a hedge copy's tensors are already
+                            # on a device)
+                            if uploader is None:
+                                uploader = PinnedUpload(ctx.device.resolve())
+                            payload = tuple(
+                                dataclasses.replace(pb, data=uploader.upload(
+                                    pb.data)) for pb in payload)
+                    if handoff is not None and payload:
+                        with hostprof.section(tr_handoff), \
+                                trace.span(tr_handoff):
+                            payload = handoff.take(payload)
+                    try:
+                        result = _call_stage(ctx, model, payload,
+                                             non_tensors, time_card, None,
+                                             summary, key_start,
+                                             tr_model_call, busy)
+                    except _LaneDied as death:
+                        # evict the lane and move its queue onto the
+                        # siblings; no stage call runs here again
+                        _die_lane(ctx, death.cause)
+                        break
                     if result is None:
                         continue  # dead-lettered
                     arrival = True
@@ -749,10 +1076,18 @@ def runner(ctx: RunnerContext) -> None:
                 continue  # the stage swallowed the item
             validate_payload(declared, tensors_out, where)
             if tensors_out:
+                t_sync = time.monotonic() if busy is not None else None
                 with hostprof.section(tr_device_sync), \
                         trace.span(tr_device_sync, _rid(time_card)):
                     _sync(tensors_out)
+                if t_sync is not None:
+                    busy[0] += time.monotonic() - t_sync
             time_card.record(key_finish)
+            dispatches += 1
+            if ctx.in_hedges is not None and _hedge_lost(ctx, time_card):
+                # the other copy resolved this hedged dispatch first: its
+                # result stands, this one is discarded
+                continue
             if devobs_meter is not None:
                 # a metered stage (a network step) emits only from its
                 # own calls: no take_ready, poll or flush emission
@@ -776,14 +1111,20 @@ def runner(ctx: RunnerContext) -> None:
                     continue
                 with hostprof.section(sec_publish), \
                         trace.span(tr_publish, _rid(time_card)):
-                    out_queue = ctx.out_queues[selector.select(
-                        tensors_out, non_tensors_out, time_card)]
+                    out_idx = selector.select(tensors_out, non_tensors_out,
+                                              time_card)
+                    out_queue = ctx.out_queues[out_idx]
+                    # a replica edge's lane, by its queue index
+                    lane = (ctx.out_queue_indices[out_idx]
+                            if ctx.out_depths is not None else None)
                     if _overloaded(ctx, out_queue, time_card):
                         _shed(ctx, time_card,
-                              "step%d_out_queue" % ctx.step_idx, summary)
+                              "step%d_out_queue" % ctx.step_idx
+                              + ("" if lane is None else ".lane%d" % lane),
+                              summary)
                         continue
                     published = _publish(ctx, out_queue, tensors_out,
-                                         non_tensors_out, time_card)
+                                         non_tensors_out, time_card, lane)
                 if not published:
                     break
                 continue
@@ -824,6 +1165,12 @@ def runner(ctx: RunnerContext) -> None:
                 model.discard_pending()
             except Exception:
                 traceback.print_exc()
+        if ctx.out_hedges is not None:
+            # a hedge fired after the exit markers would strand behind them
+            try:
+                _linger_for_hedges(ctx)
+            except Exception:
+                traceback.print_exc()
         if ctx.out_queues is not None:
             for q_idx, out_queue in enumerate(ctx.out_queues):
                 tracker = (ctx.out_trackers[q_idx]
@@ -855,6 +1202,25 @@ def runner(ctx: RunnerContext) -> None:
         if shard_stats is not None and ctx.shard_sink is not None:
             # the stage is drained: the merge counters are final
             ctx.shard_sink.append((ctx.step_idx, dict(shard_stats)))
+        # the in-service item of an abort or a reached target
+        if depth_owed and ctx.in_depths is not None:
+            ctx.in_depths.dec(ctx.in_queue_idx, depth_owed)
+        if depth_owed and ctx.health_board is not None:
+            ctx.health_board.note_settle(ctx.in_queue_idx, depth_owed)
+        if handoff is not None and ctx.handoff_sink is not None:
+            ctx.handoff_sink.append(handoff.snapshot())
+        if model is not None and ctx.placement_sink is not None:
+            # the planner's measured cost; a sharded step adds its
+            # degree, collective slice and memory floor
+            if shard_stats is not None:
+                ctx.placement_sink.append(CostRecord(
+                    ctx.step_idx, busy[0], dispatches,
+                    shard_degree=int(shard_stats["degree"]),
+                    collective_s=float(shard_stats["collective_ms"]) / 1e3,
+                    min_degree=max(1, int(shard_stats["min_degree"]))))
+            else:
+                ctx.placement_sink.append(CostRecord(ctx.step_idx, busy[0],
+                                                     dispatches))
         try:
             ctx.fin_bar.wait()
         except threading.BrokenBarrierError:

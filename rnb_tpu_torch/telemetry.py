@@ -83,7 +83,16 @@ CONTENT_STAMPS = ("num_clips", "video", "row0", "cache_hit",
                   "cache_coalesced", "feature_hit", "pad_rows",
                   # the absolute wall-clock deadline the client stamps
                   # under the root ``deadline`` key (absent otherwise)
-                  "deadline_s")
+                  "deadline_s",
+                  # times the request was drained off an evicted replica
+                  # lane onto a sibling (rnb_tpu_torch.health)
+                  "redispatched",
+                  # True on the clone card of a hedged re-dispatch: the
+                  # claim site attributes the win to it or the original
+                  "hedge_copy",
+                  # set once a copy claimed the win: a later disposal of
+                  # the same copy must not claim again
+                  "hedge_resolved")
 
 
 class TimeCard:
@@ -274,6 +283,11 @@ class TimeCardSummary:
         self.num_shed = 0
         self.num_retries = 0
         self.failure_reasons: "OrderedDict[str, int]" = OrderedDict()
+        #: per record: did the hedge clone win it, and how often was it
+        #: drained off an evicted lane (the critical-path aggregation's
+        #: hedged and redispatched counts)
+        self.hedge_flags: List[bool] = []
+        self.redispatch_counts: List[int] = []
 
     def note_failure(self, reason: str, n: int = 1) -> None:
         """Count a dead-lettered request (it has no timing row)."""
@@ -313,6 +327,10 @@ class TimeCardSummary:
         if pad is not None:
             self.num_pad_tracked += 1
             self.num_pad_rows += int(pad)
+        self.hedge_flags.append(bool(getattr(time_card, "hedge_copy",
+                                             False)))
+        self.redispatch_counts.append(int(getattr(time_card, "redispatched",
+                                                  0)))
 
     def total_clips(self) -> int:
         return sum(self.clip_counts)
@@ -384,13 +402,19 @@ class TimeCardSummary:
                    self.num_cache_tracked))
 
     def steady_rows(self, num_skips: int = 0):
-        """Each record's stamp mapping after ``num_skips``, in
-        registration order: the critical-path aggregation's input."""
+        """``(timings, hedged, redispatched)`` of each record after
+        ``num_skips``, in registration order: the critical-path
+        aggregation's input (its stamp mapping and the claim ledger's
+        content stamps)."""
         if len(self.keys) < 2:
             return
         columns = [self.summary[key][num_skips:] for key in self.keys]
-        for row in zip(*columns):
-            yield dict(zip(self.keys, row))
+        hedges = self.hedge_flags[num_skips:]
+        redisps = self.redispatch_counts[num_skips:]
+        for idx, row in enumerate(zip(*columns)):
+            yield (dict(zip(self.keys, row)),
+                   hedges[idx] if idx < len(hedges) else False,
+                   redisps[idx] if idx < len(redisps) else 0)
 
     def critpath_line(self) -> Optional[str]:
         """The ``# critpath`` trailer (microseconds blocked per
@@ -399,7 +423,9 @@ class TimeCardSummary:
         if not self.track_critpath:
             return None
         from rnb_tpu_torch.critpath import trailer_totals
-        n, totals = trailer_totals(self.steady_rows(self.critpath_num_skips))
+        n, totals = trailer_totals(
+            timings for timings, _hedged, _redisp
+            in self.steady_rows(self.critpath_num_skips))
         if not n:
             return None
         return " ".join(["# critpath n=%d" % n] + [
@@ -520,10 +546,16 @@ TRACE_EVENT_REGISTRY = (
               "column blocks, host-timed after the forward was waited for "
               "(declared shard_degree > 1 only; nested inside the step's "
               "model_call span)"),
+    StampSpec("exec{step}.handoff", "rnb_tpu_torch/runner.py",
+              "span: the edge contract's payload take — adopt or re-home "
+              "the upstream tensors onto this consumer (handoff-enabled "
+              "runs only)"),
+    StampSpec("exec{step}.redispatch", "rnb_tpu_torch/runner.py",
+              "span: an evicted replica lane's executor re-enqueues one "
+              "queued item onto a healthy sibling lane"),
     StampSpec("health.lane_state", "rnb_tpu_torch/health.py",
               "instant: a lane's health state transition (args: lane, "
-              "from, to, why); the network edge's board is the one a "
-              "path of the port builds"),
+              "from, to, why): a replica lane's or the network edge's"),
     StampSpec("loader.decode_submit", "rnb_tpu_torch/models/r2p1d/model.py",
               "instant: one request's decode submitted"),
     StampSpec("loader.decode_ready", "rnb_tpu_torch/models/r2p1d/model.py",
@@ -651,12 +683,27 @@ META_LINE_REGISTRY = (
               "lane health counters (rnb_tpu_torch.health): lanes, state "
               "transitions, opens, evictions, half-open probes, "
               "redispatched items, routes to an open or evicted lane "
-              "(netedge runs only: the edge's one-lane board; parse_utils "
+              "(health-enabled replica runs and netedge runs; parse_utils "
               "replays every lane's path and holds routes_after_open to "
               "0)"),
     StampSpec("Health lanes:", "rnb_tpu_torch/benchmark.py",
               "JSON per-lane detail: state, transition path, "
               "redispatched_from, routes_after_open"),
+    StampSpec("Handoff:", "rnb_tpu_torch/benchmark.py",
+              "edge-contract counters (rnb_tpu_torch.handoff): edge takes "
+              "split d2d / host with the bytes each moved (handoff-enabled "
+              "runs only; d2d+host == edges, host_bytes 0 on a device "
+              "config)"),
+    StampSpec("Handoff edges:", "rnb_tpu_torch/benchmark.py",
+              "JSON per-edge-label handoff counters"),
+    StampSpec("Placement:", "rnb_tpu_torch/benchmark.py",
+              "JSON measured-cost plan (rnb_tpu_torch.placement): per-step "
+              "service, rate and predicted occupancy of the executed plan, "
+              "and the recommendation over the device budget"),
+    StampSpec("Hedge:", "rnb_tpu_torch/benchmark.py",
+              "hedged re-dispatch counters: fired, won by the hedge copy, "
+              "lost (the original resolved first) and the losers' wasted "
+              "service in ms (hedge_ms runs only; won + lost == fired)"),
     StampSpec("Net:", "rnb_tpu_torch/benchmark.py",
               "network ingest edge counters (rnb_tpu_torch.netedge): "
               "frames sent/acked, resends + resent_pending at teardown, "
@@ -723,6 +770,11 @@ METRIC_REGISTRY = (
                "BatchController decisions"),
     MetricSpec("health.lane_state", "counter", "bridge",
                "lane health state transitions"),
+    MetricSpec("hedge.fired", "counter", "poll",
+               "hedged re-dispatches fired (HedgeGovernor ledger)"),
+    MetricSpec("hedge.won", "counter", "poll", "hedges the clone copy won"),
+    MetricSpec("hedge.lost", "counter", "poll",
+               "hedges the original copy won"),
     MetricSpec("health.transitions", "counter", "poll",
                "lane state-machine hops (LaneHealthBoard)"),
     MetricSpec("health.opens", "counter", "poll", "lane circuit opens"),
@@ -800,6 +852,14 @@ METRIC_REGISTRY = (
     MetricSpec("staging.copied_batches", "counter", "poll",
                "emissions with a row copied in on the host"),
     MetricSpec("staging.slots", "gauge", "poll", "allocated staging slots"),
+    MetricSpec("handoff.d2d_edges", "counter", "poll",
+               "device-resident edge takes"),
+    MetricSpec("handoff.host_edges", "counter", "poll",
+               "host-round-trip edge takes"),
+    MetricSpec("handoff.d2d_bytes", "counter", "poll",
+               "bytes re-homed on the device"),
+    MetricSpec("handoff.host_bytes", "counter", "poll",
+               "bytes moved through host memory"),
     MetricSpec("pages.allocs", "counter", "poll",
                "pages popped off arena free lists"),
     MetricSpec("pages.frees", "counter", "poll",

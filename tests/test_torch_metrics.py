@@ -276,9 +276,9 @@ def test_an_undeclared_name_raises(call):
     with pytest.raises(ValueError, match="not declared"):
         hook("client.typo", 1)
     # a name the reference declares and the port does not is no excuse
-    # either (the port has no hedging)
+    # either (the port's staging pool never reallocates a slot)
     with pytest.raises(ValueError, match="not declared"):
-        hook("hedge.fired", 1)
+        hook("staging.reallocs", 1)
     assert registry.summary()["series"] == 0
 
 

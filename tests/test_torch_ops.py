@@ -316,7 +316,8 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax_flax_or_rnb_tpu():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "bench_cuda.py")]
     for dirpath, _dirs, names in os.walk(os.path.join(REPO,
                                                       "rnb_tpu_torch")):
         files.extend(os.path.join(dirpath, n) for n in names

@@ -181,7 +181,8 @@ def test_fork_carries_the_content_stamps():
     tc = TimeCard(3)
     values = dict(num_clips=5, video="v.y4m", row0=2, cache_hit=False,
                   cache_coalesced=True, feature_hit=False, pad_rows=4,
-                  deadline_s=12.5)
+                  deadline_s=12.5, redispatched=1, hedge_copy=True,
+                  hedge_resolved=False)
     for key, value in values.items():
         setattr(tc, key, value)
     assert set(values) == set(CONTENT_STAMPS)
@@ -399,7 +400,7 @@ def test_the_tiny_shed_config_now_reads():
             read += 1
         except ConfigError:
             pass
-    assert (read, len(names)) == (36, 41)
+    assert (read, len(names)) == (39, 41)
 
 
 def _mutated(case):

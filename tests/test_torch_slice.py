@@ -540,11 +540,18 @@ def test_unported_keys_are_refused(where, key, value):
               "runner": raw["pipeline"][1],
               "group": raw["pipeline"][0]["queue_groups"][0]}[where]
     target[key] = value
-    # devobs, operator, whatif, netedge and the step-level shard key are
-    # ported: an unknown devobs or operator key, whatif without metrics,
-    # an edge with neither a peer to dial nor one to spawn, and a
-    # degree-2 ring on a one-device group, are refused with the
-    # reference's messages
+    # devobs, operator, whatif, netedge, the step-level shard key and
+    # the replica lanes are ported: an unknown devobs or operator key,
+    # whatif without metrics, an edge with neither a peer to dial nor
+    # one to spawn, a degree-2 ring or two replicas on a one-device
+    # group, and hedging on a step without lanes, are refused with the
+    # reference's messages; ReplicaSelector on an ordinary edge reads,
+    # as in the reference (it routes round-robin there)
+    if (where, key) == ("group", "queue_selector"):
+        config = parse_config(raw, platform="cpu")
+        assert config.steps[0].groups[0].queue_selector == \
+            "rnb_tpu_torch.selector.ReplicaSelector"
+        return
     message = {("root", "devobs"): r"'devobs' has unknown key\(s\) "
                                    r"\['xplane'\]",
                ("root", "operator"): r"'operator' has unknown key\(s\) "
@@ -554,7 +561,12 @@ def test_unported_keys_are_refused(where, key, value):
                ("root", "netedge"): r"invalid 'netedge': netedge needs "
                                     r"'connect'",
                ("runner", "shard"): r"'shard.degree'=2 needs exactly that "
-                                    r"many devices per lane \(got 1\)"
+                                    r"many devices per lane \(got 1\)",
+               ("runner", "replicas"): r"pipeline step 1: 'replicas'=2 must "
+                                       r"evenly divide the 1-entry device "
+                                       r"list",
+               ("runner", "hedge_ms"): r"pipeline step 1: 'hedge_ms' needs "
+                                       r"replica lanes to re-dispatch onto"
                }.get((where, key), "not yet ported")
     with pytest.raises(ConfigError, match=message):
         parse_config(raw, platform="cpu")
