@@ -249,7 +249,20 @@ Phases (any failure exits non-zero and prints no result line):
    == fired, and at 48 the circuit opened and lane 3's queued work was
    redispatched. Each run launches only ``rnb_ragged_normalize_u8``, once
    per loader emission, prints each lane's graph pool and capture
-   seconds, and has two requests recomputed on the CPU. Last,
+   seconds, and has two requests recomputed on the CPU. Then the
+   clip-sharded mesh stage (``phase_mesh``): one-card copies of
+   ``configs/r2p1d-mesh.json`` (33 requests in bulk, so the last
+   dispatch's dp axis is padded with a zero video) and
+   ``configs/r2p1d-mesh-yuv.json`` (32) at their shipped geometry (the
+   loader's ``raw_output``, dp 2 over 8 members sharing the card, 15
+   clips padded to 16, ``sync_preds`` false): every request's class id
+   held to a full-width recompute of its valid clips on the CPU through
+   the plain versions, ``rnb_normalize_u8`` (rgb; the loader launches
+   none) or ``rnb_yuv420_normalize`` (yuv420) held to its plain version
+   at the dispatch's 32 rows and launched once a dispatch inside the
+   stage's captured graph and no other kernel, one replay a
+   dispatch, the graph bitwise its eager forward on seeded dispatches
+   (a zero video among them) and its replay timed. Last,
    ``bench_cuda.py`` in a process of its own (300 requests): its one JSON
    line, on the card (``platform`` gpu), decoded on the native pool, the
    yuv420 ingest launched, a positive value and a numeric MFU.
@@ -479,6 +492,20 @@ LANES_MIN_SPEEDUP = 2.5
 LANES_DEAD_LANE = "3"
 #: bench_cuda.py as a phase: its requests (RNB_BENCH_VIDEOS)
 BENCH_CUDA_VIDEOS = 300
+#: the clip-sharded mesh configs (``phase_mesh``), served as one-card
+#: copies (``mesh_devices`` made 0 too): 33 requests, so ``flush`` pads
+#: the dp axis of the last dispatch with a zero video, and 32
+MESH = "configs/r2p1d-mesh.json"
+MESH_YUV = "configs/r2p1d-mesh-yuv.json"
+MESH_RUNS = (("r2p1d-mesh-1card", MESH, 33),
+             ("r2p1d-mesh-yuv-1card", MESH_YUV, 32))
+#: their shipped geometry: dp 2 over 8 members, so sp 4 pads 15 clips
+#: to 16 inside the step
+MESH_DP = 2
+MESH_MAX_CLIPS = 15
+MESH_PADDED_CLIPS = 16
+#: the ingest kernel inside the mesh stage's captured step, by pixel path
+MESH_KERNELS = {"rgb": "normalize_u8", "yuv420": "yuv420_normalize"}
 #: requests of the configs added last (the segment copy serves the
 #: whole run's requests, which it is held to)
 #: the burst's target outlasts what is shed during its stalls
@@ -1842,14 +1869,16 @@ def whole_ragged_copy(data_root) -> str:
 
 def one_card_copy(data_root, config, name) -> str:
     """A topology on one card: every device index >= 0 of ``config``
-    made 0 (the host stays the host), a temporary copy beside the
-    dataset."""
+    made 0 (the host stays the host; a mesh step's members too), a
+    temporary copy beside the dataset."""
     with open(os.path.join(HERE, config)) as f:
         raw = json.load(f)
     for step in raw["pipeline"]:
         for group in step["queue_groups"]:
             group["devices"] = [0 if d >= 0 else d
                                 for d in group["devices"]]
+        if "mesh_devices" in step:
+            step["mesh_devices"] = [0] * len(step["mesh_devices"])
     path = os.path.join(data_root, name + ".json")
     with open(path, "w") as f:
         json.dump(raw, f)
@@ -3281,6 +3310,333 @@ def phase_lanes(data_root, launches):
               json.dumps(plan, sort_keys=True)))
 
 
+def mesh_recompute(config_path, sink, runner):
+    """Every request of a mesh run against a full-width recompute of its
+    valid clips, through the stage that served it (before it is freed)
+    and through the port's plain versions. The wire rows are decoded
+    again and the run's dispatches rebuilt: ``dp`` requests in order, the
+    last padded with a zero video as ``flush`` pads it.
+
+    * The stage again, as a burst through its entry (``__call__`` and
+      ``flush``, every input staged on the card first, no host read in
+      between): the ``max_inflight`` bound reached and held, ``finalize``
+      waiting for the dispatches still unretired; every prediction, read
+      after the drain, the argmax of its dispatch's replay (no later
+      replay overwrote it).
+    * The run's graph (``forward``) on each dispatch: every request's
+      served class id the argmax of its sums.
+    * The truth, the plain ingest and the float32 network on the CPU: the
+      served bf16 network on the card over the same input sets the bound
+      (its error against the truth, as the CPU's bf16 does in
+      ``cpu_recompute``); each request's sums are held element by element
+      within the bound times its clips, and its class id to the truth's
+      argmax wherever the top-2 margin exceeds twice that. The near ties
+      are counted (those serving another class id listed with their gap
+      and margin), and more than NEAR_TIE_SHARE of the requests serving
+      another class id than the truth fails.
+
+    Videos repeat across requests: each is recomputed once."""
+    import numpy as np
+    import torch
+    from rnb_tpu_torch.config import load_config
+    from rnb_tpu_torch.decode import get_decoder
+    from rnb_tpu_torch.models.r2p1d.model import shared_network
+    from rnb_tpu_torch.models.r2p1d.sampler import R2P1DSampler
+    from rnb_tpu_torch.ops.preprocess import normalize_u8
+    from rnb_tpu_torch.ops.yuv import normalize_yuv420
+    from rnb_tpu_torch.stage import PaddedBatch
+    from rnb_tpu_torch.telemetry import TimeCard
+    stage_kwargs = load_config(config_path, "cpu").steps[1].kwargs
+    si = runner._si
+    cpu_f32 = shared_network(
+        1, 5, si.num_classes, tuple(stage_kwargs.get("layer_sizes",
+                                                     (2, 2, 2, 2))),
+        torch.device("cpu"), dtype=torch.float32)
+    sampler = R2P1DSampler(consecutive_frames=FRAMES)
+    staged, truths = {}, {}
+    for rid in sorted(sink):
+        video, served, _stamps = sink[rid]
+        check(isinstance(served, int) and 0 <= served < si.num_classes,
+              "%s request %d: class id %r" % (config_path, rid, served))
+        if video in staged:
+            continue
+        decoder = get_decoder(video)
+        starts = sampler.sample(decoder.num_frames(video),
+                                video_id=video)[:si.max_clips]
+        with torch.inference_mode():
+            if si.pixel_path == "yuv420":
+                wire = torch.from_numpy(decoder.decode_clips_yuv(
+                    video, starts, FRAMES, HW, HW))
+                x = normalize_yuv420(wire, HW, HW)
+            else:
+                wire = torch.from_numpy(decoder.decode_clips(
+                    video, starts, FRAMES, HW, HW))
+                x = normalize_u8(wire)
+            truth = cpu_f32(x).numpy()
+            err = float(np.abs(si.network(x.to(si.device)).cpu().numpy()
+                               - truth).max())
+        rows = torch.zeros(si.batch_shape(1)[1:], dtype=torch.uint8)
+        rows[:wire.shape[0]] = wire
+        staged[video] = (rows.to(si.device), int(wire.shape[0]))
+        truths[video] = (truth.sum(axis=0), err)
+    rids = sorted(sink)
+    zero = (torch.zeros_like(next(iter(staged.values()))[0]), 0)
+    dispatches = []
+    for i in range(0, len(rids), runner.dp):
+        chunk = [staged[sink[rid][0]] for rid in rids[i:i + runner.dp]]
+        chunk += [zero] * (runner.dp - len(chunk))
+        dispatches.append((torch.stack([rows for rows, _ in chunk]),
+                           si.place_mask([clips for _, clips in chunk])))
+    torch.cuda.synchronize()
+    runner.inflight_peak = 0
+    preds = []
+    for rid in rids:
+        rows, clips = staged[sink[rid][0]]
+        _, pred, _ = runner((PaddedBatch(rows, clips),), None, TimeCard(rid))
+        if pred is not None:
+            preds.append(pred)
+    flushed = runner.flush()
+    if flushed is not None:
+        preds.append(flushed[1])
+    runner.finalize()
+    check(len(preds) == len(dispatches)
+          and runner.inflight_peak == runner.max_inflight
+          and runner.drained >= 1, "%s burst: %d predictions for %d "
+          "dispatches, at most %d unretired (bound %d), %d drained"
+          % (config_path, len(preds), len(dispatches), runner.inflight_peak,
+             runner.max_inflight, runner.drained))
+    report = dict(requests=0, clips=0, held=0, agreed=0, near_ties=0,
+                  bf16_err=0.0, bound=0.0, sums_err=0.0, differ=[],
+                  burst_peak=runner.inflight_peak,
+                  burst_drained=runner.drained)
+    for i, ((vids, mask), pred) in enumerate(zip(dispatches, preds)):
+        sums = runner.forward(vids, mask)
+        check(torch.equal(pred, sums.argmax(dim=-1)), "%s dispatch %d: the "
+              "burst predicted %s, its replay %s" % (
+                  config_path, i, pred.tolist(),
+                  sums.argmax(dim=-1).tolist()))
+        sums = sums.cpu().numpy()
+        for j, rid in enumerate(rids[i * runner.dp:(i + 1) * runner.dp]):
+            video, served, _stamps = sink[rid]
+            total, err = truths[video]
+            bound = BF16_FACTOR * err + BF16_ATOL
+            clips = staged[video][1]
+            check(served == int(sums[j].argmax()), "%s request %d: class "
+                  "id %d, the replay of its dispatch says %d" % (
+                      config_path, rid, served, int(sums[j].argmax())))
+            sums_err = float(np.abs(sums[j] - total).max()) / clips
+            check(sums_err <= bound, "%s request %d (%s): card sums are %g "
+                  "a clip from the float32 sums, more than the bound %g"
+                  % (config_path, rid, video, sums_err, bound))
+            top2 = np.sort(total)[-2:]
+            gap, margin = float(top2[1] - top2[0]), 2 * bound * clips
+            held = gap > margin
+            agreed = served == int(total.argmax())
+            check(not held or agreed, "%s request %d (%s): class id %d, the "
+                  "CPU float32 sums say %d past the margin" % (
+                      config_path, rid, video, served, int(total.argmax())))
+            if not agreed:
+                report["differ"].append([rid, gap, margin])
+            report["requests"] += 1
+            report["clips"] += clips
+            report["held"] += int(held)
+            report["agreed"] += int(agreed)
+            report["near_ties"] += int(not held)
+            report["sums_err"] = max(report["sums_err"], sums_err)
+            report["bound"] = max(report["bound"], bound)
+            report["bf16_err"] = max(report["bf16_err"], err)
+    check(report["requests"] == len(rids), "%s: %d of %d requests held"
+          % (config_path, report["requests"], len(rids)))
+    check(len(report["differ"]) <= NEAR_TIE_SHARE * report["requests"],
+          "%s: %d of %d requests serve another class id than the CPU"
+          % (config_path, len(report["differ"]), report["requests"]))
+    report["videos"] = len(staged)
+    return report
+
+
+def check_mesh_graphs(label, runner, reps=20):
+    """The mesh stage's ingest kernel against its plain version at the
+    dispatch's rows (dp x the padded clips): ``rnb_normalize_u8``
+    bitwise; ``rnb_yuv420_normalize`` bitwise the normalize of the u8
+    entry's output, which is within one u8 step of the plain conversion.
+    Its captured graph holds that kernel (one launch a replay) and
+    replays bitwise its eager forward on seeded dispatches (every clip
+    count, a zero video among them). Returns the worst ingest error
+    against the plain version, the replay's time by CUDA events and the
+    graph pool's MiB."""
+    import numpy as np
+    import torch
+    from rnb_tpu_torch.ops import preprocess, yuv
+    kernel = MESH_KERNELS[runner.pixel_path]
+    si = runner._si
+    rng = np.random.default_rng(19)
+    rows = runner.dp * si.padded_clips
+    wire = torch.from_numpy(rng.integers(0, 256, (rows,) + tuple(
+        si.batch_shape(1)[2:]), dtype=np.uint8)).cuda()
+    if runner.pixel_path == "yuv420":
+        rgb = yuv.yuv420_to_rgb_u8(wire, HW, HW)
+        plain_rgb = yuv.yuv420_to_rgb_reference(wire, HW, HW)
+        steps = int((rgb.int() - plain_rgb.int()).abs().max())
+        out = yuv.normalize_yuv420(wire, HW, HW)
+        ok = steps <= 1 and torch.equal(
+            out.view(torch.int16),
+            preprocess.normalize_u8_reference(rgb).view(torch.int16))
+        plain = preprocess.normalize_u8_reference(plain_rgb)
+    else:
+        out = preprocess.normalize_u8(wire)
+        plain = preprocess.normalize_u8_reference(wire)
+        ok = torch.equal(out.view(torch.int16), plain.view(torch.int16))
+    err = float((out.float() - plain.float()).abs().max())
+    check(ok, "%s: %s at %d rows differs from its plain version (max %g)"
+          % (label, kernel, rows, err))
+    check(len(runner._graphs) == 1, "%s: %d mesh graphs" % (
+        label, len(runner._graphs)))
+    (graph,) = runner._graphs.values()
+    check(graph.launches == {kernel: 1}, "%s: the mesh graph records %s, "
+          "not one %s launch" % (label, graph.launches, kernel))
+    for valid in ([1, si.max_clips], [si.max_clips, 0],
+                  [int(v) for v in rng.integers(1, si.max_clips + 1,
+                                                runner.dp)]):
+        vids = torch.from_numpy(rng.integers(
+            0, 256, si.batch_shape(runner.dp), dtype=np.uint8)).cuda()
+        mask = si.place_mask(valid)
+        replayed = runner.forward(vids, mask)
+        eager = runner.eager_forward(vids, mask)
+        torch.cuda.synchronize()
+        check(torch.equal(replayed, eager), "%s: the mesh graph replays %g "
+              "from its eager forward (valid %s)" % (
+                  label, float((replayed - eager).abs().max()), valid))
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(reps):
+        runner.forward(vids, mask)
+    end.record()
+    end.synchronize()
+    return err, start.elapsed_time(end) / reps, graph_pool_mib(runner)
+
+
+def check_mesh_unread(label, config_path, videos, data_root):
+    """The copy served again with no outputs sink, so nothing on the host
+    reads a prediction while the run lasts: the run completes, one replay
+    a dispatch, and ``finalize`` (called as the run reaches its target)
+    found the last dispatches unretired and waited for them."""
+    import torch
+    from rnb_tpu_torch.benchmark import run_benchmark
+    from rnb_tpu_torch.models.r2p1d.model import R2P1DMeshRunner
+    stages = []
+    result = run_benchmark(
+        config_path, mean_interval_ms=0, num_videos=videos,
+        print_progress=False, log_base=os.path.join(data_root, "logs"),
+        seed=0, stages_sink=stages)
+    (runner,) = [s for _, s in stages if isinstance(s, R2P1DMeshRunner)]
+    dispatches = -(-videos // MESH_DP)
+    check(result.termination_flag == 0 and result.num_completed == videos
+          and runner.graph_stats["replays"] == dispatches
+          and runner.drained >= 1, "%s unread: flag %d, %d completed, %d "
+          "replays for %d dispatches, %d drained at the end" % (
+              label, result.termination_flag, result.num_completed,
+              runner.graph_stats["replays"], dispatches, runner.drained))
+    print("path %s unread: %d requests, %.3f videos/s, at most %d "
+          "dispatches unretired, %d drained by finalize" % (
+              label, result.num_completed, result.throughput_vps,
+              runner.inflight_peak, runner.drained))
+    runner._graphs.clear()
+    del stages, runner
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(data_root, launches):
+    """Serve the one-card copies of ``configs/r2p1d-mesh.json`` (33
+    requests, so ``flush`` pads the dp axis) and ``-mesh-yuv.json`` (32)
+    in bulk over the y4m dataset, at their shipped geometry: every
+    request completed, the rgb loader shipping raw u8 (no normalize of
+    its own), the mesh stage's ingest kernel launched once a dispatch
+    inside its captured graph (plus the warm-ups and the capture's
+    warm-up) and no other kernel, one replay a dispatch, the graph
+    bitwise its eager forward, every decode on the native pool; then the
+    served stage driven again and every request recomputed
+    (``mesh_recompute``), and the copy served once more with no outputs
+    sink (``check_mesh_unread``). Adds the first runs' launches to
+    ``launches``."""
+    import torch
+    from rnb_tpu_torch.benchmark import run_benchmark
+    from rnb_tpu_torch.models.r2p1d.model import (NUM_WARMUPS,
+                                                  R2P1DMeshRunner)
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.parse_utils import summarize
+    os.environ["RNB_TPU_DATA_ROOT"] = data_root
+    for label, config, videos in MESH_RUNS:
+        config_path = one_card_copy(data_root, config, label)
+        sink, stages = {}, []
+        _kernels.reset_launches()
+        t0 = time.time()
+        result = run_benchmark(
+            config_path, mean_interval_ms=0, num_videos=videos,
+            print_progress=False, log_base=os.path.join(data_root, "logs"),
+            seed=0, outputs_sink=sink, stages_sink=stages)
+        counts = _kernels.launch_counts()
+        wall = time.time() - t0
+        check(result.termination_flag == 0, "%s terminated with flag %d"
+              % (label, result.termination_flag))
+        check(result.num_completed == videos and sorted(sink) == list(
+            range(videos)), "%s: %d completed, outputs of %s" % (
+                label, result.num_completed, sorted(sink)))
+        (runner,) = [s for _, s in stages if isinstance(s, R2P1DMeshRunner)]
+        check(runner._si.padded_clips == MESH_PADDED_CLIPS
+              and runner.dp == MESH_DP and not runner.sync_preds,
+              "%s: padded clips %d, dp %d, sync_preds %s" % (
+                  label, runner._si.padded_clips, runner.dp,
+                  runner.sync_preds))
+        dispatches = -(-videos // MESH_DP)
+        replays = runner.graph_stats["replays"]
+        check(replays == dispatches == result.compiles["step1"][
+            "steady_calls"], "%s: %d replays, %d dispatches" % (
+                label, replays, dispatches))
+        kernel = MESH_KERNELS[runner.pixel_path]
+        for name, count in counts.items():
+            if name == kernel:
+                want = NUM_WARMUPS + len(runner._graphs) + replays
+                check(count == want and result.window_launches[name]
+                      == replays, "%s: %d %s launches (%d in the window) "
+                      "for %d warm-ups, %d captures and %d replays" % (
+                          label, count, name, result.window_launches[name],
+                          NUM_WARMUPS, len(runner._graphs), replays))
+            else:
+                check(count == 0, "%s: kernel %s, not of this config, was "
+                      "launched" % (label, name))
+            launches[name] += count
+        with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
+            backends = [line.split(": ", 1)[1] for line in
+                        f.read().splitlines()
+                        if line.startswith("Decode backend: ")]
+        check(backends and all(b == "native" for b in backends),
+              "%s: y4m requests decoded by %s, not the native pool"
+              % (label, backends))
+        check_graphs(label, result, stages)
+        ingest_err, replay_ms, pool = check_mesh_graphs(label, runner)
+        served_peak = runner.inflight_peak
+        t1 = time.time()
+        report = mesh_recompute(config_path, sink, runner)
+        runner._graphs.clear()  # free the graph's memory
+        del stages, runner
+        stats = summarize(result.log_dir)
+        print("path %s: %d requests, %d clips, %.3f videos/s, %.3f clips/s, "
+              "wall %.1f s, %d dispatches (at most %d unretired, the sink "
+              "reading each), replay %.3f ms a dispatch, graph pool %s MiB, "
+              "capture %.3f s, launches %s (window %s), ingest at %d rows %g "
+              "from its plain version; recompute of every request (%.1f s): "
+              "%s" % (
+                  label, result.num_completed, result.clips_completed,
+                  result.throughput_vps, stats["clips_per_s"], wall,
+                  dispatches, served_peak, replay_ms,
+                  "%.1f" % pool if pool is not None else "not measured",
+                  result.graphs["step1"]["capture_s"], counts,
+                  result.window_launches, MESH_DP * MESH_PADDED_CLIPS,
+                  ingest_err, time.time() - t1, json.dumps(report)))
+        torch.cuda.empty_cache()
+        check_mesh_unread(label, config_path, videos, data_root)
+
+
 def phase_bench_cuda(data_root):
     """``bench_cuda.py`` as the port's headline entry point, in a process
     of its own (``RNB_BENCH_VIDEOS`` 300, its dataset under the smoke's
@@ -3679,7 +4035,8 @@ def main() -> int:
                                 STAGED, TINY_SHED, SHARD_D1, SHARD_D2,
                                 OPERATOR, NETEDGE_OFF, NETEDGE_LOOPBACK,
                                 NETEDGE_CHAOS_CONFIG, SCALEOUT_R1,
-                                SCALEOUT_R4, SCALEOUT_CHAOS, "bench_cuda.py")):
+                                SCALEOUT_R4, SCALEOUT_CHAOS, MESH, MESH_YUV,
+                                "bench_cuda.py")):
         print("chip_smoke: run from a checkout of the repo (rnb_tpu_torch/ "
               "and configs/ beside this script)", file=sys.stderr)
         return 1
@@ -3762,6 +4119,7 @@ def main() -> int:
               % (data_root, len(mix), sum(mix.values()) / len(mix)))
         launches = phase_path(data_root, VIDEOS_PER_RUN)
         phase_lanes(data_root, launches)
+        phase_mesh(data_root, launches)
         phase_bench_cuda(data_root)
 
         sass_out, _ = sass.communicate()

@@ -137,6 +137,7 @@ from rnb_tpu_torch.netedge import (NET_LANE, PEER_EXIT_S, NetEdgeClient,
                                    NetEdgeSettings, NetStats, spawn_peer,
                                    stop_peer)
 from rnb_tpu_torch.pager import Pager, PagerSettings
+from rnb_tpu_torch.parallel.distributed import check_single_process
 from rnb_tpu_torch.placement import PlacementSettings, build_report
 from rnb_tpu_torch.runner import NUM_SUMMARY_SKIPS, RunnerContext, runner
 from rnb_tpu_torch.stacksampler import StackSampler
@@ -761,6 +762,9 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                    log_base, print_progress, seed, platform, outputs_sink,
                    profile, stages_sink, xprof, batch_size, net_rows_sink,
                    closers) -> BenchmarkResult:
+    # where the reference joins a multi-process launch (RNB_TPU_COORDINATOR
+    # ...), the port refuses one before its first device touch
+    check_single_process()
     config = load_config(config_path, platform)
     job_id = "%s-mi%d-v%d-qs%d" % (
         datetime.today().strftime("%y%m%d_%H%M%S"), mean_interval_ms,

@@ -23,7 +23,9 @@ messages. So is the step-level ``shard`` key (intra-stage sharding,
 rnb_tpu_torch.parallel.shardplan): each queue group keeps its first
 device, and the ring travels to the runner as ``shard_devices``
 (``DeviceSpec`` s), ``shard_degree``, ``shard_axis`` and
-``shard_hbm_budget_mb``.
+``shard_hbm_budget_mb``. A mesh step's (``R2P1DMeshRunner``)
+``mesh_devices`` become ``DeviceSpec`` s the same way, and the loader's
+``raw_output`` is read with it.
 
 Replica lanes (the reference's rules and messages): a step's
 ``replicas: N`` key, or an apply-mode root ``placement`` plan naming it,
@@ -95,7 +97,7 @@ GROUP_KEYS = frozenset({"devices", "out_queues", "in_queue",
 _LOADER_KEYS = frozenset({
     "max_clips", "consecutive_frames", "num_clips_population", "weights",
     "num_warmups", "row_buckets", "prefetch", "pixel_path", "cache_mb",
-    "dct_coeffs_per_frame"})
+    "dct_coeffs_per_frame", "raw_output"})
 _RUNNER_KEYS = frozenset({
     "start_index", "end_index", "max_rows", "consecutive_frames",
     "num_warmups", "row_buckets", "pixel_path", "ragged_chunk_rows",
@@ -118,6 +120,10 @@ MODEL_KEYS = {
         "batch", "shapes", "max_rows", "consecutive_frames", "frame_hw",
         "row_buckets"}),
     "R2P1DAggregator": frozenset({"aggregate"}),
+    "R2P1DMeshRunner": frozenset({
+        "mesh_devices", "dp", "max_clips", "consecutive_frames",
+        "num_classes", "layer_sizes", "num_warmups", "max_inflight",
+        "sync_preds", "factored_shortcut", "pixel_path"}),
 }
 #: the selectors a group may name
 QUEUE_SELECTORS = frozenset({"RoundRobinSelector", "LargeSmallSelector",
@@ -879,6 +885,20 @@ def _expand_shard(pipeline: list) -> list:
     return pipeline
 
 
+def _mesh_devices(kwargs: dict, platform: str, where: str) -> None:
+    """A mesh stage's ``mesh_devices`` indices become ``DeviceSpec`` s,
+    as a ring's ``shard_devices`` do."""
+    if "mesh_devices" not in kwargs:
+        return
+    devices = kwargs["mesh_devices"]
+    _expect(isinstance(devices, list) and devices and all(
+        isinstance(d, int) and not isinstance(d, bool) and d >= 0
+        for d in devices),
+        "%s: 'mesh_devices' must be a non-empty list of device indices, "
+        "got %r" % (where, devices))
+    kwargs["mesh_devices"] = [DeviceSpec(d, platform) for d in devices]
+
+
 def parse_config(raw: dict, platform: Optional[str] = None
                  ) -> PipelineConfig:
     """Validate a config dict and build the port's view of it."""
@@ -955,6 +975,7 @@ def parse_config(raw: dict, platform: Optional[str] = None
         _check_keys(step_raw, STEP_KEYS | MODEL_KEYS[class_name], where)
         kwargs = {k: v for k, v in step_raw.items()
                   if k in MODEL_KEYS[class_name]}
+        _mesh_devices(kwargs, platform, where)
         pixel_path = kwargs.get("pixel_path", "rgb")
         if pixel_path not in PIXEL_PATHS:
             raise _not_ported("%s pixel_path %r" % (where, pixel_path))
@@ -977,6 +998,7 @@ def parse_config(raw: dict, platform: Optional[str] = None
                 group_kwargs["shard_devices"] = [
                     DeviceSpec(d, platform)
                     for d in group_kwargs["shard_devices"]]
+            _mesh_devices(group_kwargs, platform, where + " queue group")
             if group_kwargs.get("pixel_path", "rgb") not in PIXEL_PATHS:
                 raise _not_ported("%s pixel_path %r"
                                   % (where, group_kwargs["pixel_path"]))

@@ -5,7 +5,8 @@ key every consumer executor applies an :class:`EdgeHandoff` to each
 payload it takes off its input queue, and counts the take:
 
 * ``mode: "device"``: a payload already on the consumer's
-  ``torch.device`` is adopted by reference (no copy, no transfer, no
+  ``torch.device`` (a mesh stage's: the device its ``input_sharding``
+  names) is adopted by reference (no copy, no transfer, no
   host bounce; on one card, and on the CPU, that is every take). A
   payload on another device is moved with ``Tensor.to(device,
   non_blocking=True)`` on the consumer's stream; the host never holds
@@ -78,7 +79,7 @@ class EdgeHandoff:
     which reads plain ints)."""
 
     def __init__(self, settings: HandoffSettings, device, edge: str,
-                 external_owner=None):
+                 model=None, external_owner=None):
         self.mode = settings.mode
         self.edge = str(edge)
         #: predicate over tensors whose bytes another ledger owner (the
@@ -86,6 +87,12 @@ class EdgeHandoff:
         self._external_owner = external_owner
         self._device = torch.device(device.resolve()
                                     if hasattr(device, "resolve") else device)
+        # a stage homed on a mesh names the device its inputs land on
+        # (``input_sharding``); every other stage takes them at home
+        sharding_fn = getattr(model, "input_sharding", None)
+        target = sharding_fn() if sharding_fn is not None else None
+        if target is not None:
+            self._device = torch.device(target)
         self.d2d_edges = 0
         self.host_edges = 0
         self.d2d_bytes = 0

@@ -28,6 +28,11 @@ Counterpart of ``rnb_tpu/models/r2p1d/model.py``:
 * :class:`R2P1DAggregator` is the host step behind a segmented step: it
   sums each request's segment logits, merges the segments' TimeCards
   and emits the class id.
+* :class:`R2P1DMeshRunner` is the clip-sharded successor of that
+  topology: ``dp`` videos a dispatch, their clips split over ``sp``
+  members (rnb_tpu_torch.parallel.sharded), the members' logit sums
+  added on the device, class ids out; it takes the ``raw_output``
+  batches of an ``R2P1DLoader``.
 
 With ``cache_mb`` a loader keeps a clip cache and coalesces requests
 for a video that is decoding (``configs/rnb-fused-yuv-zipf-cache.json``);
@@ -49,9 +54,6 @@ With the step-level ``shard`` key the runner holds its temporal conv
 kernels and its head in member shards over a ring of members that share
 one card, gathers them inside the captured forward, and merges a head's
 logits in a host-timed collective (rnb_tpu_torch.parallel.shardplan).
-
-Not yet ported from the reference stages: ``raw_output`` and the mesh
-runner.
 """
 
 from __future__ import annotations
@@ -95,7 +97,8 @@ from rnb_tpu_torch.ops.ragged import (ragged_normalize_u8,
                                       ragged_normalize_yuv420,
                                       resolve_pool_rows, segment_offsets_of)
 from rnb_tpu_torch.ops.yuv import normalize_yuv420, packed_frame_bytes
-from rnb_tpu_torch.parallel.mesh import Ring
+from rnb_tpu_torch.parallel.mesh import Mesh, Ring
+from rnb_tpu_torch.parallel.sharded import ShardedInference
 from rnb_tpu_torch.parallel.shardplan import (build_shard_ring,
                                               make_merge, make_sharded_apply,
                                               min_feasible_degree,
@@ -434,7 +437,10 @@ class R2P1DLoader(_TraceStamps, StageModel):
     come out exactly zero whatever the pool tail held; a bucketed
     emission zero-fills its pad rows on the host instead, which
     normalize to -1. On the yuv420 and dct paths the wire rows go to the
-    network stage's fused ingest untouched.
+    network stage's fused ingest untouched, and so do the rgb path's
+    with ``raw_output`` (the padded uint8 batch, for a mesh stage that
+    ingests on its mesh; refused with dct, ragged or several row
+    buckets, as in the reference).
 
     **Prefetch**: with a ``prefetch`` depth the stage exposes
     ``submit()`` / ``complete()`` / ``discard()`` and the executor starts
@@ -462,14 +468,23 @@ class R2P1DLoader(_TraceStamps, StageModel):
     def __init__(self, device, max_clips: int = MAX_CLIPS,
                  consecutive_frames: int = CONSECUTIVE_FRAMES,
                  num_clips_population=None, weights=None,
-                 num_warmups: int = NUM_WARMUPS, row_buckets=None,
-                 prefetch: int = 0, pixel_path: str = "rgb",
-                 cache_mb: float = 0, ragged: bool = False,
-                 ragged_pool_rows=None, dct_coeffs_per_frame=None):
+                 num_warmups: int = NUM_WARMUPS, raw_output: bool = False,
+                 row_buckets=None, prefetch: int = 0,
+                 pixel_path: str = "rgb", cache_mb: float = 0,
+                 ragged: bool = False, ragged_pool_rows=None,
+                 dct_coeffs_per_frame=None):
         super().__init__(device)
         _check_pixel_path(pixel_path)
         self.torch_device = _device_of(device)
         self.pixel_path = pixel_path
+        #: raw mode ships the padded uint8 wire batch unnormalized, for a
+        #: consumer that ingests it on its mesh (R2P1DMeshRunner)
+        self.raw_output = bool(raw_output)
+        if pixel_path == "dct" and self.raw_output:
+            raise ValueError(
+                "pixel_path='dct' cannot combine with raw_output: mesh "
+                "consumers ingest raw pixel batches, not packed "
+                "coefficient rows")
         self.dct_coeffs = _dct_coeffs(pixel_path, dct_coeffs_per_frame)
         sampler_kwargs = {}
         if num_clips_population is not None:
@@ -487,11 +502,19 @@ class R2P1DLoader(_TraceStamps, StageModel):
         self.pool_rows = (resolve_pool_rows(ragged_pool_rows,
                                             self.max_clips, "max_clips")
                           if self.ragged else None)
+        if self.ragged and self.raw_output:
+            raise ValueError("ragged cannot be combined with raw_output: "
+                             "mesh consumers shard a fixed clip axis, not "
+                             "a rows_valid pool")
         self.padding = PadCounter()
         self.ragged_stats = ({"pool_rows": self.pool_rows, "emissions": 0,
                               "rows": 0, "pad_rows_eliminated": 0,
                               "cache_hit_rows": 0}
                              if self.ragged else None)
+        if self.raw_output and len(self.row_buckets) > 1:
+            raise ValueError("row_buckets cannot be combined with "
+                             "raw_output: mesh consumers need a fixed clip "
+                             "axis")
         self.prefetch_depth = int(prefetch)
         self._decode_pool = None  # built at the first numpy submit
         self._starts_cache: Dict[str, list] = {}
@@ -513,8 +536,10 @@ class R2P1DLoader(_TraceStamps, StageModel):
                                      self.torch_device,
                                      _wire_dtype(pixel_path))
         #: entry signatures of the rgb device step (the reference's
-        #: preprocess jit); the wire paths run no device step here
-        self.compiles = SignatureTracker() if pixel_path == "rgb" else None
+        #: preprocess jit); the wire paths and raw mode run no device
+        #: step here
+        self.compiles = (SignatureTracker() if pixel_path == "rgb"
+                         and not self.raw_output else None)
         self.ingest_stats = {"pixel_path": pixel_path, "backends": set()}
         self.cache = None
         self._inflight_keys = None
@@ -551,9 +576,12 @@ class R2P1DLoader(_TraceStamps, StageModel):
             pixel_path, dct_coeffs_per_frame), consecutive_frames),)
 
     @classmethod
-    def output_dtype_for(cls, pixel_path: str = "rgb", **_kwargs):
+    def output_dtype_for(cls, pixel_path: str = "rgb",
+                         raw_output: bool = False, **_kwargs):
         """What the stage emits: normalized bfloat16 on the rgb path,
-        the wire dtype otherwise."""
+        the wire dtype otherwise (and in raw mode)."""
+        if raw_output and pixel_path == "rgb":
+            return "uint8"
         return {"rgb": "bfloat16", "yuv420": "uint8",
                 "dct": "int16"}[pixel_path]
 
@@ -625,6 +653,8 @@ class R2P1DLoader(_TraceStamps, StageModel):
             self._bucket_for(valid) if self.ragged else 0)
 
     def _normalize_emission(self, device_wire: torch.Tensor, valid: int):
+        if self.raw_output:
+            return device_wire
         if self.compiles is not None:
             self.compiles.observe(device_wire)
         return normalize_emission(self.pixel_path, self.ragged,
@@ -1931,16 +1961,17 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
 
 
 class CapturedForward:
-    """One captured CUDA graph of the runner's forward at one input
+    """One captured CUDA graph of a stage's forward at one input
     signature: the card's counterpart of one compiled executable.
 
     A replay reads fixed addresses, so the stage input is copied into
-    ``static_in`` and ``rows_valid`` written into ``static_rows_valid``
-    (the one int32 element the ragged ingest reads; None where it reads
-    none), both on the current stream and outside the graph; the graph
-    then runs, and ``static_out`` is copied out, since the next replay
-    overwrites it. ``launches`` is the tally of hand-written kernel
-    launches recorded at capture; every replay counts it once."""
+    ``static_in`` and its second input into ``static_rows_valid`` (the
+    one int32 element the ragged ingest reads, an int filled in; or the
+    mesh step's clip mask, a tensor copied in; None where the forward
+    reads none), both on the current stream and outside the graph; the
+    graph then runs, and ``static_out`` is copied out, since the next
+    replay overwrites it. ``launches`` is the tally of hand-written
+    kernel launches recorded at capture; every replay counts it once."""
 
     __slots__ = ("graph", "static_in", "static_rows_valid", "static_out",
                  "launches", "capture_s")
@@ -1954,10 +1985,12 @@ class CapturedForward:
         self.launches = dict(launches)
         self.capture_s = float(capture_s)
 
-    def replay(self, x: torch.Tensor, rows_valid: int) -> torch.Tensor:
+    def replay(self, x: torch.Tensor, rows_valid) -> torch.Tensor:
         with hostprof.section("runner.copy_in"):
             self.static_in.copy_(x)
-            if self.static_rows_valid is not None:
+            if isinstance(rows_valid, torch.Tensor):
+                self.static_rows_valid.copy_(rows_valid)
+            elif self.static_rows_valid is not None:
                 self.static_rows_valid.fill_(int(rows_valid))
         with hostprof.section("runner.graph_replay"):
             self.graph.replay()
@@ -1972,6 +2005,29 @@ def _clone_out(out):
     if isinstance(out, list):
         return [t.clone() for t in out]
     return out.clone()
+
+
+def capture_forward(run, static_in: torch.Tensor, static_rows_valid,
+                    pool, stream: torch.cuda.Stream) -> CapturedForward:
+    """Capture ``run()`` (a forward over the static inputs) as one CUDA
+    graph: warm up on the capture stream (PyTorch's rule), then record
+    into the stage's memory pool, in thread-local mode since other
+    stages issue work on the card meanwhile. The caller holds
+    ``_DEVICE_SYNC_LOCK``: no other stage captures or synchronizes the
+    device until it is done."""
+    device = static_in.device
+    stream.wait_stream(torch.cuda.current_stream(device))
+    t0 = time.monotonic()
+    with torch.cuda.stream(stream):
+        run()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with _kernels.recording() as tally, torch.cuda.graph(
+            graph, pool=pool, stream=stream,
+            capture_error_mode="thread_local"):
+        static_out = run()
+    return CapturedForward(graph, static_in, static_rows_valid, static_out,
+                           tally, time.monotonic() - t0)
 
 
 class R2P1DRunner(StageModel):
@@ -2434,11 +2490,8 @@ class R2P1DRunner(StageModel):
 
     @torch.inference_mode()
     def _capture(self, key: tuple, dtype: torch.dtype) -> CapturedForward:
-        """Capture the forward at one signature key: warm up on the
-        capture stream (PyTorch's rule), then record the graph into the
-        stage's memory pool, in thread-local mode since other stages
-        issue work on the card meanwhile; no other stage captures or
-        synchronizes the device until it is done."""
+        """Capture the forward at one signature key
+        (:func:`capture_forward`), under the device lock."""
         with _DEVICE_SYNC_LOCK:
             return self._capture_locked(key, dtype)
 
@@ -2456,21 +2509,10 @@ class R2P1DRunner(StageModel):
                                            dtype=torch.int32, device=device)
         ingest_rows_valid = (rows_valid if static_rows_valid is None
                              else static_rows_valid)
-        stream = self._capture_stream
-        stream.wait_stream(torch.cuda.current_stream(device))
-        t0 = time.monotonic()
-        with torch.cuda.stream(stream):
-            self._apply(static_in, ingest_rows_valid, num_tiles)
-        torch.cuda.current_stream(device).wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        with _kernels.recording() as tally, torch.cuda.graph(
-                graph, pool=self._graph_pool, stream=stream,
-                capture_error_mode="thread_local"):
-            static_out = self._apply(static_in, ingest_rows_valid,
-                                     num_tiles)
-        captured = CapturedForward(graph, static_in, static_rows_valid,
-                                   static_out, tally,
-                                   time.monotonic() - t0)
+        captured = capture_forward(
+            lambda: self._apply(static_in, ingest_rows_valid, num_tiles),
+            static_in, static_rows_valid, self._graph_pool,
+            self._capture_stream)
         self._graphs[key] = captured
         self.graph_stats["graphs"] = len(self._graphs)
         self.graph_stats["capture_s"] += captured.capture_s
@@ -2611,6 +2653,263 @@ class R2P1DSingleStep(StageModel):
         # host
         pred = int(torch.argmax(logits.data[: logits.valid].sum(dim=0)))
         return None, pred, time_card
+
+
+class R2P1DMeshRunner(StageModel):
+    """Clip-sharded inference stage over a ``dp x sp`` mesh.
+
+    The reference's successor to the segment topology: instead of
+    fanning each video's clips out to replica stages and re-summing the
+    logits on a host aggregator, one stage computes over a mesh of
+    ``mesh_devices`` factored as ``dp`` x ``sp = len(mesh_devices) /
+    dp`` (rnb_tpu_torch.parallel.sharded): every ``sp`` member sums the
+    logits of its clip shard and the members' sums are added on the
+    device. ``sp`` need not divide ``max_clips``: the step pads the clip
+    axis with masked rows. It consumes the loader's ``raw_output``
+    batches (uint8 frames, or packed 4:2:0 planes with ``pixel_path``
+    "yuv420" on both stages) and emits predicted class ids (a final
+    stage: no tensor outputs).
+
+    With ``dp > 1`` it accumulates ``dp`` videos and dispatches them as
+    one step; ``flush()`` pads a partial batch with zero videos at end of
+    stream. With ``sync_preds=False`` the emitted predictions are device
+    tensors: no per-video host sync blocks the executor thread, at most
+    ``max_inflight`` dispatches are unretired, and ``finalize()`` drains
+    them before the finish barrier, so the measured window covers all
+    compute. Per-record ``inference{i}`` spans then measure dispatch,
+    not device compute, as in the reference.
+
+    Members share one device, so the mesh runs one forward a card over
+    every row of a dispatch; a mesh over distinct devices raises. On the
+    card the step is compiled as the runner's forward is: one captured
+    CUDA graph per signature (:class:`CapturedForward`), the pixel
+    path's ingest kernel inside it, captured under the device lock after
+    the eager warm-ups; the predictions are the argmax of a copy of the
+    graph's output, so no later replay overwrites them.
+    """
+
+    def __init__(self, device, mesh_devices, dp: int = 1,
+                 max_clips: int = MAX_CLIPS,
+                 consecutive_frames: int = CONSECUTIVE_FRAMES,
+                 num_classes: int = KINETICS_CLASSES,
+                 layer_sizes=R18_LAYER_SIZES,
+                 num_warmups: int = NUM_WARMUPS,
+                 max_inflight: int = 4, sync_preds: bool = True,
+                 factored_shortcut: bool = False,
+                 pixel_path: str = "rgb"):
+        super().__init__(device)
+        self.torch_device = _device_of(device)
+        self.dp = int(dp)
+        if len(mesh_devices) % self.dp != 0:
+            raise ValueError("dp=%d must divide len(mesh_devices)=%d"
+                             % (self.dp, len(mesh_devices)))
+        mesh = Mesh(np.array([_device_of(d) for d in mesh_devices],
+                             dtype=object).reshape(self.dp, -1),
+                    ("dp", "sp"))
+        if mesh.device != self.torch_device:
+            raise ValueError("the mesh's members lie on %s, the stage on %s"
+                             % (mesh.device, self.torch_device))
+        self.max_clips = int(max_clips)
+        self.consecutive_frames = int(consecutive_frames)
+        self.max_inflight = int(max_inflight)
+        self.sync_preds = bool(sync_preds)
+        self.pixel_path = pixel_path
+        self._si = ShardedInference(
+            mesh, shared_network(1, NUM_LAYERS, int(num_classes),
+                                 tuple(layer_sizes), mesh.device,
+                                 factored_shortcut=factored_shortcut),
+            max_clips=self.max_clips,
+            consecutive_frames=self.consecutive_frames, frame_hw=FRAME_HW,
+            num_classes=num_classes, pixel_path=pixel_path)
+        self._flops_args = dict(
+            consecutive_frames=self.consecutive_frames,
+            num_classes=int(num_classes), layer_sizes=tuple(layer_sizes),
+            factored_shortcut=bool(factored_shortcut))
+        self._acc = []            # (PaddedBatch, TimeCard) awaiting dp fill
+        self._inflight = deque()  # unretired dispatches' events
+        #: the most dispatches unretired at once, and the ones the last
+        #: finalize waited for (the card only: CPU work is synchronous)
+        self.inflight_peak = 0
+        self.drained = 0
+        #: entry signatures of the step (the dispatch batch and its mask)
+        self.compiles = SignatureTracker()
+        dummy = torch.zeros(self._si.batch_shape(self.dp),
+                            dtype=torch.uint8, device=mesh.device)
+        full = self._si.place_mask([self.max_clips] * self.dp)
+        self.compiles.observe(dummy, full)
+        for _ in range(num_warmups):
+            self.eager_forward(dummy, full)
+        #: signature key -> CapturedForward (the card only)
+        self._graphs: Dict[tuple, CapturedForward] = {}
+        self.graph_stats = None
+        if mesh.device.type == "cuda":
+            self.graph_stats = {"graphs": 0, "capture_s": 0.0,
+                                "replays": 0}
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(mesh.device)
+            with _DEVICE_SYNC_LOCK:
+                torch.cuda.synchronize(mesh.device)
+                self._capture(dummy, full)
+                torch.cuda.synchronize(mesh.device)
+
+    def input_shape(self):
+        # one source of truth for the per-video shape in either pixel
+        # path: the sharded step's own batch geometry
+        return (self._si.batch_shape(1)[1:],)
+
+    def input_sharding(self) -> torch.device:
+        """Edge-contract target (rnb_tpu_torch.handoff): payloads land
+        on the mesh's device, the one every member shares."""
+        return self._si.mesh.device
+
+    @classmethod
+    def input_shape_for(cls, max_clips: int = MAX_CLIPS,
+                        consecutive_frames: int = CONSECUTIVE_FRAMES,
+                        pixel_path: str = "rgb", **_kwargs):
+        """One raw loader video batch per dispatch row."""
+        return (_wire_batch_shape(max_clips, pixel_path, None,
+                                  consecutive_frames),)
+
+    @classmethod
+    def input_dtype_for(cls, **_kwargs):
+        """The loader's raw_output uint8 batches, in either pixel path
+        (the sharded step owns the ingest)."""
+        return "uint8"
+
+    def compute_profile(self) -> dict:
+        """The devobs compute/memory seam: full-range per-row FLOPs over
+        the distinct devices the mesh spans (one on a one-card copy,
+        where the reference counts every mesh member), the network's
+        bytes counted once per network."""
+        flops_per_row = range_flops_per_clip(1, NUM_LAYERS,
+                                             **self._flops_args)
+        network = self._si.network
+        tensors = list(network.parameters()) + list(network.buffers())
+        return {
+            "flops_per_row": int(flops_per_row),
+            "devices": len({str(d) for d in self._si.mesh.devices.flat}),
+            "bytes_per_row": None,
+            "params_key": ("params", id(network)),
+            "params_bytes": int(sum(t.numel() * t.element_size()
+                                    for t in tensors)),
+            "pool_bytes": 0,
+        }
+
+    @torch.inference_mode()
+    def eager_forward(self, vids: torch.Tensor, mask: torch.Tensor
+                      ) -> torch.Tensor:
+        """The step op by op, as on the CPU."""
+        return self._si.step(vids, mask)
+
+    @torch.inference_mode()
+    def forward(self, vids: torch.Tensor, mask: torch.Tensor
+                ) -> torch.Tensor:
+        """A dispatch's (dp, max_clips, ...) batch and its mask -> the
+        per-video logits; on the card one replay of the captured graph
+        of the batch's signature."""
+        if not vids.is_cuda:
+            return self.eager_forward(vids, mask)
+        graph = self._graphs.get(signature_of(vids, mask))
+        if graph is None:
+            # a signature warm-up did not declare: compiles counts it
+            graph = self._capture(vids, mask)
+        out = graph.replay(vids, mask)
+        self.graph_stats["replays"] += 1
+        return out
+
+    @torch.inference_mode()
+    def _capture(self, vids: torch.Tensor, mask: torch.Tensor
+                 ) -> CapturedForward:
+        """Capture the step at the signature of ``vids`` and ``mask``
+        (:func:`capture_forward`), under the device lock."""
+        with _DEVICE_SYNC_LOCK:
+            static_in = torch.zeros_like(vids)
+            static_mask = torch.ones_like(mask)
+            captured = capture_forward(
+                lambda: self._si.step(static_in, static_mask), static_in,
+                static_mask, self._graph_pool, self._capture_stream)
+        self._graphs[signature_of(vids, mask)] = captured
+        self.graph_stats["graphs"] = len(self._graphs)
+        self.graph_stats["capture_s"] += captured.capture_s
+        return captured
+
+    def _dispatch(self, pbs, cards):
+        """One step over len(pbs) == dp videos; device predictions out,
+        the unretired dispatches bounded."""
+        datas = []
+        for pb in pbs:
+            data = pb.data
+            if data.device != self._si.device:
+                data = data.to(self._si.device)
+            elif data.is_cuda:
+                # allocated on the loader's transfer stream: keep its
+                # memory until this stream's work is done
+                data.record_stream(torch.cuda.current_stream(data.device))
+            datas.append(data)
+        batch = torch.stack(datas)
+        mask = self._si.place_mask([pb.valid for pb in pbs])
+        self.compiles.observe(batch, mask)
+        preds = self.forward(batch, mask).argmax(dim=-1)
+        if preds.is_cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(preds.device))
+            if self.sync_preds:
+                # honest latency spans: the executor stamps the finish
+                # right after this returns
+                done.synchronize()
+            else:
+                self._retire()
+                self._inflight.append(done)
+                while len(self._inflight) > self.max_inflight:
+                    self._inflight.popleft().synchronize()
+                self.inflight_peak = max(self.inflight_peak,
+                                         len(self._inflight))
+        out_card = (TimeCardList(list(cards)) if len(cards) > 1
+                    else cards[0])
+        return None, preds, out_card
+
+    def __call__(self, tensors, non_tensors, time_card):
+        pb = tensors[0]
+        want = self.input_shape()[0]
+        if tuple(pb.data.shape) != tuple(want):
+            # fail fast with the likely cause: the loader and this stage
+            # must agree on pixel_path
+            raise ValueError(
+                "mesh stage received batch shape %r but expects %r — "
+                "do the loader's and this stage's pixel_path settings "
+                "agree? (this stage: %r)"
+                % (tuple(pb.data.shape), tuple(want), self.pixel_path))
+        self._acc.append((pb, time_card))
+        if len(self._acc) < self.dp:
+            return None, None, None  # swallow until the dp axis fills
+        pbs, cards = zip(*self._acc)
+        self._acc = []
+        return self._dispatch(list(pbs), list(cards))
+
+    def flush(self):
+        """End of stream: run the partial video batch, padding the dp
+        axis with zero videos (mask 0: dead rows, no result rows)."""
+        if not self._acc:
+            return None
+        pbs, cards = zip(*self._acc)
+        self._acc = []
+        pbs = list(pbs)
+        while len(pbs) < self.dp:
+            pbs.append(PaddedBatch(torch.zeros_like(pbs[0].data), 0))
+        return self._dispatch(pbs, list(cards))
+
+    def _retire(self) -> None:
+        """Drop the dispatches the card has finished."""
+        while self._inflight and self._inflight[0].query():
+            self._inflight.popleft()
+
+    def finalize(self) -> None:
+        """Drain the unretired dispatches (the executor calls it before
+        the finish barrier, keeping the measured window honest)."""
+        self._retire()
+        self.drained = len(self._inflight)
+        while self._inflight:
+            self._inflight.popleft().synchronize()
 
 
 class R2P1DAggregator(StageModel):

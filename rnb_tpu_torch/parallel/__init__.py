@@ -1,3 +1,5 @@
-"""Intra-stage sharding over a ring of members (rnb_tpu.parallel's
-counterpart): :mod:`mesh` holds the ring, :mod:`shardplan` what a
-sharded stage keeps at rest and how it gathers it."""
+"""Parallel execution over member devices (rnb_tpu.parallel's
+counterpart): :mod:`mesh` holds meshes and rings, :mod:`sharded` the
+dp x sp sharded inference step, :mod:`shardplan` what a sharded stage
+keeps at rest and how it gathers it, :mod:`distributed` the refusal of
+a multi-process run."""

@@ -339,11 +339,18 @@ def _store_outputs(sink: Dict[int, tuple], payload, non_tensors,
     emission, as the last batching stage stamped them: a coalesced
     follower shares its leader's rows, so an emission may hold more
     cards than row segments. A stage that emits no tensor stores its
-    non-tensor payload (the single step's class id)."""
+    non-tensor payload (the single step's class id, or a mesh stage's
+    class ids, one a card)."""
     cards = cards_of(time_card)
     if not payload:
-        for tc in cards:
-            sink[tc.id] = (tc.video, non_tensors,
+        if isinstance(non_tensors, torch.Tensor):
+            # card i's is entry i; a padded video's, past the cards, is
+            # dropped
+            values = non_tensors.tolist()
+        else:
+            values = [non_tensors] * len(cards)
+        for tc, value in zip(cards, values):
+            sink[tc.id] = (tc.video, value,
                            {k: getattr(tc, k) for k in OUTPUT_STAMPS})
         return
     pb = payload[0]
@@ -814,6 +821,7 @@ def runner(ctx: RunnerContext) -> None:
             # this consumer's side of the edge contract
             handoff = EdgeHandoff(
                 ctx.handoff_settings, ctx.device, ctx.handoff_edge,
+                model=model,
                 external_owner=(ctx.pager.owns if ctx.pager is not None
                                 else None))
         # the stage's cache and staging pool (and the handoff edge)
@@ -868,6 +876,8 @@ def runner(ctx: RunnerContext) -> None:
     pending: deque = deque()  # (handle, non_tensors, time_card)
     idle_poll = getattr(model, "poll", None)
     take_ready = getattr(model, "take_ready", None)
+    # an async stage's drain (the mesh runner's), None once it ran
+    finalize = getattr(model, "finalize", None)
     # what a stage contains internally, drained at each loop top
     hooks = _stage_hooks(model)
     if hooks is not None and hooks[1] is not None and ctx.containment:
@@ -1144,6 +1154,13 @@ def runner(ctx: RunnerContext) -> None:
                 metrics.completions(cards)
             if new >= ctx.num_videos:
                 if old < ctx.num_videos:
+                    if finalize is not None:
+                        # an async stage (the mesh runner) counted its
+                        # completions at dispatch: its device work is
+                        # drained before the run is called complete, so
+                        # a fault there fails it (INTERNAL_ERROR below)
+                        finalize()
+                        finalize = None
                     ctx.termination.raise_flag(
                         TerminationFlag.TARGET_NUM_VIDEOS_REACHED)
                 break
@@ -1179,6 +1196,15 @@ def runner(ctx: RunnerContext) -> None:
                     markers = (tracker.num_markers if tracker is not None
                                else NUM_EXIT_MARKERS)
                     send_exit_markers(out_queue, markers, ctx.termination)
+        if finalize is not None:
+            # an async stage that did not end the run drains its device
+            # work before the finish barrier all the same, so the
+            # measured window covers every dispatch
+            try:
+                finalize()
+            except Exception:
+                traceback.print_exc()
+                ctx.termination.raise_flag(TerminationFlag.INTERNAL_ERROR)
         for sink, attr in ((ctx.pad_sink, "padding"),
                            (ctx.ragged_sink, "ragged_stats"),
                            (ctx.staging_sink, "staging"),

@@ -139,5 +139,15 @@ class StageModel:
         del model_kwargs
         return None
 
+    def input_sharding(self):
+        """The ``torch.device`` this stage wants its input payloads
+        homed on, or None for the instance's home device. Consulted by
+        the device-resident edge contract (rnb_tpu_torch.handoff.
+        EdgeHandoff) under the root ``handoff`` key: a mesh stage
+        (R2P1DMeshRunner) names its mesh's device, so the edge re-homes
+        payloads there instead of the stage re-placing them inside its
+        dispatch path."""
+        return None
+
     def __call__(self, tensors, non_tensors, time_card):
         raise NotImplementedError

@@ -32,7 +32,10 @@
 # sampler; nothing scrapes it); netedge-off and netedge-loopback
 # (configs/rnb-netedge-off.json and -loopback.json as shipped: the plain
 # dct loader in process, and the same loader in a spawned peer process on
-# the card behind the TCP edge; the peer prints its memory at exit); all
+# the card behind the TCP edge; the peer prints its memory at exit); mesh
+# and mesh-yuv (the one-card copies of configs/r2p1d-mesh.json and
+# -mesh-yuv.json, every device index and mesh_devices made 0, written
+# beside the dataset: dp 2 over 8 members sharing the card); all
 # but dct and the netedge cells over a generated y4m dataset. With
 # RNB_HOST_PROFILE=1 in the environment every run also writes
 # hostprof.txt, and its sections are printed at the end.
@@ -82,11 +85,14 @@ json.dump(raw, open(os.path.join(sys.argv[1], "rnb-fused-yuv-traced-metrics.json
 PY
 python3 - "$data" <<'PY'
 import json, os, sys
-for name in ("r2p1d-segment", "rnb-shard-d1", "rnb-shard-d2"):
+for name in ("r2p1d-segment", "rnb-shard-d1", "rnb-shard-d2", "r2p1d-mesh",
+             "r2p1d-mesh-yuv"):
     raw = json.load(open("configs/%s.json" % name))
     for step in raw["pipeline"]:
         for group in step["queue_groups"]:
             group["devices"] = [0 if d >= 0 else d for d in group["devices"]]
+        if "mesh_devices" in step:
+            step["mesh_devices"] = [0] * len(step["mesh_devices"])
     json.dump(raw, open(os.path.join(sys.argv[1], name + "-1card.json"), "w"))
 PY
 run() {  # run <cell> <args...>
@@ -118,6 +124,8 @@ run() {  # run <cell> <args...>
     operator) cfg=configs/rnb-fused-yuv-operator.json ;;
     netedge-off) cfg=configs/rnb-netedge-off.json ;;
     netedge-loopback) cfg=configs/rnb-netedge-loopback.json ;;
+    mesh) cfg=$data/r2p1d-mesh-1card.json ;;
+    mesh-yuv) cfg=$data/r2p1d-mesh-yuv-1card.json ;;
     *) echo "unknown cell $cell" >&2; exit 2 ;;
   esac
   if [ "$cell" = dct ] || [ "${cell#netedge}" != "$cell" ]; then

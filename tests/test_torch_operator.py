@@ -880,17 +880,22 @@ def test_batch_size_lands_in_the_args_line(tmp_path, monkeypatch):
     assert seen["mean_interval_ms"] == 0 and seen["num_videos"] == 2
 
 
-READABLE = [p for p in SHIPPED if '"raw_output"' not in open(p).read()]
-UNREAD = sorted(set(SHIPPED) - set(READABLE))
+READABLE = list(SHIPPED)
+#: configs the port does not read: the two mesh configs with a key of a
+#: part still to port (a mesh over several cards needs the NCCL reduce)
+UNREAD = [os.path.join(REPO, "configs", name) for name in (
+    "r2p1d-mesh-yuv.json", "r2p1d-mesh.json")]
 
 
-def test_the_port_reads_33_of_the_shipped_configs():
+def test_the_port_reads_41_of_the_shipped_configs():
     # the netedge configs read since the edge was ported, the three
-    # scale-out configs since the replica lanes were: only the two
-    # mesh configs stay refused, at raw_output
-    assert len(SHIPPED) == 41 and len(READABLE) == 39
-    assert [os.path.basename(p) for p in UNREAD] == [
-        "r2p1d-mesh-yuv.json", "r2p1d-mesh.json"]
+    # scale-out configs since the replica lanes were, the two mesh
+    # configs since the mesh stage was: every shipped config
+    read = 0
+    for path in SHIPPED:
+        load_config(path, platform="cpu")
+        read += 1
+    assert len(SHIPPED) == 41 and read == 41
 
 
 @pytest.mark.parametrize("config", READABLE,
@@ -911,8 +916,15 @@ def test_check_prints_the_reference_s_posture(config):
 
 @pytest.mark.parametrize("config", UNREAD,
                          ids=[os.path.basename(p) for p in UNREAD])
-def test_check_refuses_a_config_the_port_does_not_read(config):
-    code, out, err = _cli(benchmark.main, ["--check", "-c", config])
+def test_check_refuses_a_config_the_port_does_not_read(config, tmp_path):
+    with open(config) as f:
+        raw = json.load(f)
+    # the reference's key for an asynchronous step, not ported
+    raw["pipeline"][1]["async_dispatch"] = True
+    path = str(tmp_path / os.path.basename(config))
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    code, out, err = _cli(benchmark.main, ["--check", "-c", path])
     assert code == 1 and out == ""
     assert "is not yet ported to rnb_tpu_torch" in err
 

@@ -375,6 +375,11 @@ def test_keys_of_unported_parts_stay_refused(where, key, value):
         assert parse_config(raw, platform="cpu").steps[0].groups[
             0].queue_selector == "rnb_tpu_torch.selector.ReplicaSelector"
         return
+    if (where, key) == ("loader", "raw_output"):
+        # ported with the mesh stage: the loader reads it
+        assert parse_config(raw, platform="cpu").steps[0].kwargs[
+            "raw_output"] is True
+        return
     with pytest.raises(ConfigError, match="not yet ported"):
         parse_config(raw, platform="cpu")
 

@@ -380,8 +380,8 @@ def test_the_tiny_shed_config_now_reads():
     """``configs/r2p1d-tiny-shed.json`` (its first unported key was
     ``overload_policy``) reads on the CPU as the reference reads it, and
     with the devobs and operator planes, the step-level ``shard`` key and
-    the network edge's ``netedge`` and ``health`` keys ported 36 of the
-    41 shipped configs read."""
+    the network edge's ``netedge`` and ``health`` keys, the replica lanes
+    and the mesh stage ported all 41 shipped configs read."""
     path = os.path.join(REPO, "configs", "r2p1d-tiny-shed.json")
     cfg = load_config(path, platform="cpu")
     with open(path) as f:
@@ -400,7 +400,7 @@ def test_the_tiny_shed_config_now_reads():
             read += 1
         except ConfigError:
             pass
-    assert (read, len(names)) == (39, 41)
+    assert (read, len(names)) == (41, 41)
 
 
 def _mutated(case):
