@@ -262,7 +262,22 @@ Phases (any failure exits non-zero and prints no result line):
    at the dispatch's 32 rows and launched once a dispatch inside the
    stage's captured graph and no other kernel, one replay a
    dispatch, the graph bitwise its eager forward on seeded dispatches
-   (a zero video among them) and its replay timed. Last,
+   (a zero video among them) and its replay timed. Then converted
+   checkpoints (``phase_ckpt``): a full-width R(2+1)D-18 state dict in
+   the reference's torch format drawn from a seed, its head centred on
+   the dataset, saved as a ``.pth.tar`` and converted by
+   ``convert_file`` (``rnb_tpu_torch/tools/synth_ckpt.py``); copies of
+   ``configs/rnb-fused-yuv-big-torchckpt.json`` (64 requests in bulk)
+   and ``configs/r2p1d-split-1chip.json`` (16) with ``ckpt_path`` at the
+   file and the factored shortcut on every runner step: every parameter
+   and buffer on the card the file's range bitwise after the cast (each
+   split stage exactly its range's keys), every conv kernel and the head
+   unlike the seeded init's, finite logits of more than one class id,
+   three requests recomputed on the CPU from the same file,
+   ``check_job`` green, ``rnb_yuv420_normalize`` once an emission (big)
+   or ``rnb_normalize_u8`` (split) and no other kernel; then the CLI on
+   a copy whose ``ckpt_path`` names no file: exit 1 with the reference's
+   ``FileNotFoundError`` and nothing served. Last,
    ``bench_cuda.py`` in a process of its own (300 requests): its one JSON
    line, on the card (``platform`` gpu), decoded on the native pool, the
    yuv420 ingest launched, a positive value and a numeric MFU.
@@ -506,6 +521,18 @@ MESH_MAX_CLIPS = 15
 MESH_PADDED_CLIPS = 16
 #: the ingest kernel inside the mesh stage's captured step, by pixel path
 MESH_KERNELS = {"rgb": "normalize_u8", "yuv420": "yuv420_normalize"}
+#: the checkpoint phase (``phase_ckpt``): the copies of
+#: ``rnb_tpu_torch/tools/synth_ckpt.py`` served from the file it
+#: converts, each with its requests, the kernel its path launches and
+#: its runner steps; and a copy naming a file that is not there
+CKPT_RUNS = (("rnb-fused-yuv-big-torchckpt-file", 64, "yuv420_normalize",
+              1),
+             ("r2p1d-split-1chip-file", 16, "normalize_u8", 2))
+CKPT_MISSING = "rnb-fused-yuv-big-torchckpt-missing"
+CKPT_MISSING_VIDEOS = 8
+#: the floating-point values of a full-width R(2+1)D-18 state dict in
+#: the reference's format (400 classes)
+CKPT_VALUES = 33410197
 #: requests of the configs added last (the segment copy serves the
 #: whole run's requests, which it is held to)
 #: the burst's target outlasts what is shed during its stalls
@@ -1686,7 +1713,8 @@ def phase_kernels_ring(device):
 
 def cpu_recompute(config_path, sink, picks, sums=None):
     """Recompute ``picks`` requests on the CPU through the plain
-    versions with the same seeded weights, in bfloat16 (as served) and
+    versions with the same weights (seeded, or the last network step's
+    ``ckpt_path``), in bfloat16 (as served) and
     in float32; also run the card's network in float32 on the same
     input. Returns a dict of the worst errors and the bounds held.
     Where a request served a class id and ``sums`` holds its summed
@@ -1726,14 +1754,16 @@ def cpu_recompute(config_path, sink, picks, sums=None):
     arch = (1, runner_kwargs.get("end_index", 5),
             runner_kwargs.get("num_classes", 400),
             tuple(runner_kwargs.get("layer_sizes", (2, 2, 2, 2))))
-    factored = runner_kwargs.get("factored_shortcut", False)
+    weights = dict(factored_shortcut=runner_kwargs.get("factored_shortcut",
+                                                       False),
+                   ckpt_path=runner_kwargs.get("ckpt_path"))
     cpu, card = torch.device("cpu"), torch.device("cuda", 0)
     nets = {
-        "cpu_bf16": shared_network(*arch, cpu, factored_shortcut=factored),
+        "cpu_bf16": shared_network(*arch, cpu, **weights),
         "cpu_f32": shared_network(*arch, cpu, dtype=torch.float32,
-                                  factored_shortcut=factored),
+                                  **weights),
         "card_f32": shared_network(*arch, card, dtype=torch.float32,
-                                   factored_shortcut=factored)}
+                                   **weights)}
     sampler = R2P1DSampler(consecutive_frames=frames, **population)
     report = dict(f32_err=0.0, served_err=0.0, cpu_bf16_err=0.0,
                   bound=0.0, argmax_agreed=0, rows=0, past_margin=0)
@@ -3637,6 +3667,168 @@ def phase_mesh(data_root, launches):
         check_mesh_unread(label, config_path, videos, data_root)
 
 
+def check_served_weights(label, runner, file_state, seeded):
+    """Every parameter and buffer of ``runner``'s network on the card is
+    the file's tensor of its range cast to the network's dtype, bitwise;
+    every conv kernel and the head differ from the seeded network's.
+    Returns the values held."""
+    import torch
+    from rnb_tpu_torch.models.r2p1d.checkpoint import filter_layer_range
+    want = filter_layer_range(file_state, runner.start_index,
+                              runner.end_index)
+    held = runner.network.state_dict()
+    check(set(held) == set(want), "%s: step [%d..%d] holds %d keys, its "
+          "range %d (%s)" % (label, runner.start_index, runner.end_index,
+                             len(held), len(want), sorted(
+                                 set(held) ^ set(want))[:5]))
+    drawn = seeded.state_dict()
+    for key, value in held.items():
+        check(value.device.type == "cuda" and torch.equal(
+            value.cpu(), want[key].to(value.dtype)), "%s: %s on the card "
+            "is not the file's tensor in %s" % (label, key, value.dtype))
+        if key.endswith("weight") and value.dim() > 1:
+            check(not torch.equal(value, drawn[key]), "%s: %s equals the "
+                  "seeded init's" % (label, key))
+    return sum(v.numel() for v in held.values())
+
+
+def phase_ckpt(data_root, launches):
+    """Serve converted checkpoints: draw a full-width state dict in the
+    reference's torch format, centre its head on the dataset, save it as
+    a ``.pth.tar`` and ``convert_file`` it
+    (``rnb_tpu_torch/tools/synth_ckpt.py``); serve its copies of
+    ``configs/rnb-fused-yuv-big-torchckpt.json`` (64 requests in bulk)
+    and ``configs/r2p1d-split-1chip.json`` (16), ``ckpt_path`` at the
+    converted file on every runner step: each stage's weights on the
+    card the file's range bitwise, the graphs bitwise their eager
+    forwards, finite logits, more than one class id, requests recomputed
+    on the CPU from the same file, ``check_job`` green, the path's kernel
+    launched (``rnb_yuv420_normalize`` once an emission;
+    ``rnb_normalize_u8``) and no other; then the CLI on a copy whose
+    ``ckpt_path`` names no file ends with the reference's
+    ``FileNotFoundError`` before any request. Adds the served runs'
+    launches to ``launches``."""
+    import numpy as np
+    import torch
+    from rnb_tpu_torch.benchmark import run_benchmark
+    from rnb_tpu_torch.models.r2p1d.checkpoint import load_checkpoint
+    from rnb_tpu_torch.models.r2p1d.model import R2P1DRunner, shared_network
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.parse_utils import check_job, summarize
+    from rnb_tpu_torch.tools import synth_ckpt
+    os.environ["RNB_TPU_DATA_ROOT"] = data_root
+    card = torch.device("cuda", 0)
+    ckpt_dir = os.path.abspath(os.path.join(data_root, "ckpt"))
+    made = synth_ckpt.make(ckpt_dir, data_root, card, repo=HERE)
+    converted = made["converted"]
+    file_state = load_checkpoint(converted)
+    print("ckpt: %s" % json.dumps({k: v for k, v in made.items()
+                                   if k != "copies"}))
+    check(len(file_state) == 202 and made["values"] == CKPT_VALUES,
+          "ckpt: %d keys converted from %d, %d values" % (
+              len(file_state), made["keys"], made["values"]))
+    for label, videos, kernel, steps in CKPT_RUNS:
+        config_path = made["copies"][label]
+        sink, stages = {}, []
+        _kernels.reset_launches()
+        t0 = time.time()
+        result = run_benchmark(
+            config_path, mean_interval_ms=0, num_videos=videos,
+            print_progress=False, log_base=os.path.join(data_root, "logs"),
+            seed=0, outputs_sink=sink, stages_sink=stages)
+        counts = _kernels.launch_counts()
+        wall = time.time() - t0
+        check(result.termination_flag == 0, "%s terminated with flag %d"
+              % (label, result.termination_flag))
+        check(result.num_completed == videos and sorted(sink) == list(
+            range(videos)), "%s: %d completed, outputs of %s" % (
+                label, result.num_completed, sorted(sink)))
+        problems = check_job(result.log_dir)
+        check(not problems, "%s: check_job: %s" % (label,
+                                                  "; ".join(problems[:5])))
+        runners = [s for _, s in stages if isinstance(s, R2P1DRunner)]
+        check(len(runners) == steps and all(
+            r.ckpt_path == converted and r.factored_shortcut
+            for r in runners), "%s: runners %s" % (
+                label, [(r.ckpt_path, r.factored_shortcut) for r in runners]))
+        held = 0
+        for runner in runners:
+            seeded = shared_network(runner.start_index, runner.end_index,
+                                    runner.num_classes, runner.layer_sizes,
+                                    card, factored_shortcut=True)
+            held += check_served_weights(label, runner, file_state, seeded)
+        for name, count in counts.items():
+            if name == kernel:
+                check(result.window_launches[name] > 0, "%s: kernel %s was "
+                      "not launched in the measured window" % (label, name))
+            else:
+                check(count == 0, "%s: kernel %s, not of this config, was "
+                      "launched" % (label, name))
+            launches[name] += count
+        stats = summarize(result.log_dir)
+        if kernel == "yuv420_normalize":
+            check(result.window_launches[kernel] == stats["emissions"],
+                  "%s: %d %s launches for %d emissions" % (
+                      label, result.window_launches[kernel], kernel,
+                      stats["emissions"]))
+        with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
+            backends = [line.split(": ", 1)[1] for line in
+                        f.read().splitlines()
+                        if line.startswith("Decode backend: ")]
+        check(backends and all(b == "native" for b in backends),
+              "%s: y4m requests decoded by %s, not the native pool"
+              % (label, backends))
+        check_graphs(label, result, stages)
+        del stages, runners
+        class_ids = set()
+        for rid, (_video, logits, _stamps) in sink.items():
+            check(logits.ndim == 2 and logits.shape[1] == 400
+                  and logits.shape[0] >= 1 and np.isfinite(logits).all(),
+                  "%s request %d: logits of shape %s, finite %s" % (
+                      label, rid, logits.shape, np.isfinite(logits).all()))
+            class_ids.add(int(logits.sum(axis=0).argmax()))
+        check(len(class_ids) > 1, "%s: every request served class id %s"
+              % (label, class_ids))
+        by_clips = sorted(sink, key=lambda r: (sink[r][1].shape[0], r))
+        picks = by_clips[:2] + by_clips[-1:]
+        t0 = time.time()
+        report = cpu_recompute(config_path, sink, picks)
+        print("path %s: %d requests, %d clips, %.3f videos/s, %.3f clips/s, "
+              "wall %.1f s, %d values held bitwise the file's, %d class "
+              "ids, launches %s (window %s), graphs %s; recompute of "
+              "requests %s (%.1f s): %s" % (
+                  label, result.num_completed, result.clips_completed,
+                  result.throughput_vps, stats["clips_per_s"], wall, held,
+                  len(class_ids), counts, result.window_launches,
+                  json.dumps(result.graphs, sort_keys=True), picks,
+                  time.time() - t0, json.dumps(report)))
+        torch.cuda.empty_cache()
+    # a mistyped path: the stage raises the reference's message before
+    # the start barrier, the run serves nothing and the CLI exits 1
+    missing = os.path.join(ckpt_dir, "missing.pt")
+    config_path = synth_ckpt.ckpt_copy(
+        os.path.join(HERE, TORCHCKPT),
+        os.path.join(ckpt_dir, CKPT_MISSING + ".json"), missing)
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rnb_tpu_torch.benchmark", "-c", config_path,
+         "-mi", "0", "-v", str(CKPT_MISSING_VIDEOS), "--log-base",
+         os.path.join(data_root, "logs")],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    message = ("FileNotFoundError: explicit ckpt_path %r does not exist; "
+               "convert or save a checkpoint there first "
+               "(models/r2p1d/convert.py)" % (missing,))
+    results = [json.loads(line[len("Result: "):]) for line in
+               proc.stdout.splitlines() if line.startswith("Result: ")]
+    check(proc.returncode != 0 and message in proc.stderr and len(
+        results) == 1 and results[0]["completed"] == 0,
+          "%s: exit %d, results %s, stderr:\n%s" % (
+              CKPT_MISSING, proc.returncode, results, proc.stderr[-3000:]))
+    print("path %s: exit %d in %.1f s, %s" % (
+        CKPT_MISSING, proc.returncode, time.time() - t0, json.dumps(
+            {k: results[0][k] for k in ("completed", "termination_flag")})))
+
+
 def phase_bench_cuda(data_root):
     """``bench_cuda.py`` as the port's headline entry point, in a process
     of its own (``RNB_BENCH_VIDEOS`` 300, its dataset under the smoke's
@@ -4120,6 +4312,7 @@ def main() -> int:
         launches = phase_path(data_root, VIDEOS_PER_RUN)
         phase_lanes(data_root, launches)
         phase_mesh(data_root, launches)
+        phase_ckpt(data_root, launches)
         phase_bench_cuda(data_root)
 
         sass_out, _ = sass.communicate()

@@ -102,7 +102,7 @@ _RUNNER_KEYS = frozenset({
     "start_index", "end_index", "max_rows", "consecutive_frames",
     "num_warmups", "row_buckets", "pixel_path", "ragged_chunk_rows",
     "layer_sizes", "num_classes", "dct_coeffs_per_frame",
-    "factored_shortcut"}) | SHARD_GROUP_KEYS
+    "factored_shortcut", "ckpt_path"}) | SHARD_GROUP_KEYS
 #: model keys per ported stage class (the step's kwargs)
 MODEL_KEYS = {
     "R2P1DLoader": _LOADER_KEYS,
@@ -114,8 +114,8 @@ MODEL_KEYS = {
         "dct_coeffs_per_frame", "cache_mb"}),
     "R2P1DRunner": _RUNNER_KEYS,
     # the single step hands its keys to the embedded loader and runner
-    "R2P1DSingleStep": _LOADER_KEYS | frozenset({"layer_sizes",
-                                                 "num_classes"}),
+    "R2P1DSingleStep": _LOADER_KEYS | frozenset({
+        "layer_sizes", "num_classes", "ckpt_path", "factored_shortcut"}),
     "Batcher": frozenset({
         "batch", "shapes", "max_rows", "consecutive_frames", "frame_hw",
         "row_buckets"}),
@@ -123,7 +123,7 @@ MODEL_KEYS = {
     "R2P1DMeshRunner": frozenset({
         "mesh_devices", "dp", "max_clips", "consecutive_frames",
         "num_classes", "layer_sizes", "num_warmups", "max_inflight",
-        "sync_preds", "factored_shortcut", "pixel_path"}),
+        "sync_preds", "factored_shortcut", "pixel_path", "ckpt_path"}),
 }
 #: the selectors a group may name
 QUEUE_SELECTORS = frozenset({"RoundRobinSelector", "LargeSmallSelector",

@@ -83,7 +83,7 @@ from rnb_tpu_torch.decode.native import (PIX_DCT, PIX_RGB, PIX_YUV420,
 from rnb_tpu_torch.faults import (FATAL, TRANSIENT, classify_error,
                                   fault_reason)
 from rnb_tpu_torch.health import expired as deadline_expired
-from rnb_tpu_torch.models.r2p1d.checkpoint import init_variables
+from rnb_tpu_torch.models.r2p1d.checkpoint import load_or_init
 from rnb_tpu_torch.models.r2p1d.flops import range_flops_per_clip
 from rnb_tpu_torch.models.r2p1d.network import (KINETICS_CLASSES,
                                                 NUM_LAYERS, R18_LAYER_SIZES,
@@ -118,8 +118,6 @@ MAX_CLIPS = 15
 CONSECUTIVE_FRAMES = 8
 FRAME_HW = 112
 NUM_WARMUPS = 3  # reference warm-up convention
-#: the seed every stage's weights are drawn from
-WEIGHT_SEED = 0
 PIXEL_PATHS = ("rgb", "yuv420", "dct")
 #: the synthetic ids the path iterator cycles when there is no dataset
 NUM_SYNTHETIC_VIDEOS = 200
@@ -246,26 +244,36 @@ def default_ragged_chunk(pool_rows: int) -> int:
     return 1
 
 
+def _ckpt_kwargs(ckpt_path: Optional[str]) -> dict:
+    """``shared_network``'s checkpoint argument, given only where a file
+    is named."""
+    return {} if ckpt_path is None else {"ckpt_path": ckpt_path}
+
+
 def shared_network(start: int, end: int, num_classes: int,
                    layer_sizes: tuple, device: torch.device,
                    dtype: torch.dtype = torch.bfloat16,
                    factored_shortcut: bool = False,
-                   shards: int = 1) -> torch.nn.Module:
+                   shards: int = 1,
+                   ckpt_path: Optional[str] = None) -> torch.nn.Module:
     """The one network (and parameter copy) per (range, shortcut form,
-    device, shard degree): weights drawn from ``WEIGHT_SEED``, filtered
+    checkpoint, device, shard degree): weights read from ``ckpt_path``
+    or drawn from ``WEIGHT_SEED`` (``checkpoint.load_or_init``), filtered
     to the range, split into ``shards`` member shards where sharded
     (members sharing ``device``), cast once to the compute dtype."""
     factored_shortcut = bool(factored_shortcut)
+    if ckpt_path is not None:
+        ckpt_path = os.path.abspath(ckpt_path)
     key = (start, end, num_classes, tuple(layer_sizes), factored_shortcut,
-           str(device), dtype, int(shards))
+           ckpt_path, str(device), dtype, int(shards))
     with _cache_lock:
         net = _network_cache.get(key)
         if net is None:
             net = make_sharded_apply(
                 start, end, num_classes, tuple(layer_sizes),
                 Ring([device] * int(shards)), factored_shortcut,
-                dtype)(init_variables(WEIGHT_SEED, start, end, num_classes,
-                                      layer_sizes, factored_shortcut))
+                dtype)(load_or_init(start, end, num_classes, layer_sizes,
+                                    ckpt_path, factored_shortcut))
             _network_cache[key] = net
         return net
 
@@ -2052,6 +2060,13 @@ class R2P1DRunner(StageModel):
     host integer ``rows_valid`` — so network work scales with the valid
     rows; pad rows of the output stay zero.
 
+    The weights come from ``ckpt_path`` where a file is named (the
+    port's checkpoint format, or a flax msgpack file of the JAX package;
+    a converted torch checkpoint needs ``factored_shortcut``), the stage
+    holding its range's keys only, else from the seeded init
+    (``checkpoint.load_or_init``); an explicit path that does not exist
+    raises ``FileNotFoundError`` before any warm-up.
+
     With feature pages (``enable_pager``) the runner stores each
     stamped request's output rows after its forward returned, and
     answers a feature hit by gathering them back over a zero logit pool
@@ -2095,10 +2110,13 @@ class R2P1DRunner(StageModel):
                  dct_coeffs_per_frame=None, factored_shortcut: bool = False,
                  shard_devices=None, shard_degree=None,
                  shard_axis: str = "tp", shard_hbm_budget_mb=None,
+                 ckpt_path: Optional[str] = None,
                  network: Optional[torch.nn.Module] = None):
         super().__init__(device)
         _check_pixel_path(pixel_path)
         self.factored_shortcut = bool(factored_shortcut)
+        #: the checkpoint file the weights come from (None: seeded)
+        self.ckpt_path = ckpt_path
         self.pixel_path = pixel_path
         self.dct_coeffs = _dct_coeffs(pixel_path, dct_coeffs_per_frame)
         if not (1 <= start_index <= end_index <= NUM_LAYERS):
@@ -2186,7 +2204,8 @@ class R2P1DRunner(StageModel):
         self.network = network if network is not None else shared_network(
             self.start_index, self.end_index, int(num_classes),
             tuple(layer_sizes), self.torch_device,
-            factored_shortcut=self.factored_shortcut, **sharded)
+            factored_shortcut=self.factored_shortcut, **sharded,
+            **_ckpt_kwargs(ckpt_path))
         self._out_row_shape = range_output_shape(
             self.start_index, self.end_index, self.consecutive_frames,
             int(num_classes))
@@ -2607,13 +2626,16 @@ class R2P1DRunner(StageModel):
 class R2P1DSingleStep(StageModel):
     """Decode and the full network in one stage: the no-pipelining
     baseline. Emits the predicted class id as the non-tensor payload and
-    declares no tensor outputs. Model keys other than the network's go
-    to the embedded loader."""
+    declares no tensor outputs. The network's keys (``num_classes``,
+    ``layer_sizes``, ``ckpt_path``, ``factored_shortcut``) go to the
+    embedded runner, the others to the embedded loader."""
 
     def __init__(self, device, num_classes: int = KINETICS_CLASSES,
                  layer_sizes=R18_LAYER_SIZES, max_clips: int = MAX_CLIPS,
                  consecutive_frames: int = CONSECUTIVE_FRAMES,
-                 num_warmups: int = NUM_WARMUPS, **kwargs):
+                 num_warmups: int = NUM_WARMUPS,
+                 ckpt_path: Optional[str] = None,
+                 factored_shortcut: bool = False, **kwargs):
         super().__init__(device)
         self.loader = R2P1DLoader(device, max_clips=max_clips,
                                   consecutive_frames=consecutive_frames,
@@ -2630,7 +2652,8 @@ class R2P1DSingleStep(StageModel):
             max_rows=max_clips, consecutive_frames=consecutive_frames,
             num_warmups=num_warmups, row_buckets=kwargs.get("row_buckets"),
             pixel_path=kwargs.get("pixel_path", "rgb"),
-            dct_coeffs_per_frame=kwargs.get("dct_coeffs_per_frame"))
+            dct_coeffs_per_frame=kwargs.get("dct_coeffs_per_frame"),
+            factored_shortcut=factored_shortcut, ckpt_path=ckpt_path)
         self.graph_stats = self.net.graph_stats
 
     @classmethod
@@ -2685,7 +2708,9 @@ class R2P1DMeshRunner(StageModel):
     CUDA graph per signature (:class:`CapturedForward`), the pixel
     path's ingest kernel inside it, captured under the device lock after
     the eager warm-ups; the predictions are the argmax of a copy of the
-    graph's output, so no later replay overwrites them.
+    graph's output, so no later replay overwrites them. The whole
+    network's weights come from ``ckpt_path`` where a file is named, else
+    from the seeded init.
     """
 
     def __init__(self, device, mesh_devices, dp: int = 1,
@@ -2694,6 +2719,7 @@ class R2P1DMeshRunner(StageModel):
                  num_classes: int = KINETICS_CLASSES,
                  layer_sizes=R18_LAYER_SIZES,
                  num_warmups: int = NUM_WARMUPS,
+                 ckpt_path: Optional[str] = None,
                  max_inflight: int = 4, sync_preds: bool = True,
                  factored_shortcut: bool = False,
                  pixel_path: str = "rgb"):
@@ -2717,7 +2743,8 @@ class R2P1DMeshRunner(StageModel):
         self._si = ShardedInference(
             mesh, shared_network(1, NUM_LAYERS, int(num_classes),
                                  tuple(layer_sizes), mesh.device,
-                                 factored_shortcut=factored_shortcut),
+                                 factored_shortcut=factored_shortcut,
+                                 **_ckpt_kwargs(ckpt_path)),
             max_clips=self.max_clips,
             consecutive_frames=self.consecutive_frames, frame_hw=FRAME_HW,
             num_classes=num_classes, pixel_path=pixel_path)

@@ -35,7 +35,11 @@
 # the card behind the TCP edge; the peer prints its memory at exit); mesh
 # and mesh-yuv (the one-card copies of configs/r2p1d-mesh.json and
 # -mesh-yuv.json, every device index and mesh_devices made 0, written
-# beside the dataset: dp 2 over 8 members sharing the card); all
+# beside the dataset: dp 2 over 8 members sharing the card); torchckpt
+# (configs/rnb-fused-yuv-big-torchckpt.json, seeded weights) and
+# torchckpt-file (its copy serving a converted checkpoint: the synthetic
+# reference file of rnb_tpu_torch/tools/synth_ckpt.py, centred on the
+# dataset and converted beside it, its time printed); all
 # but dct and the netedge cells over a generated y4m dataset. With
 # RNB_HOST_PROFILE=1 in the environment every run also writes
 # hostprof.txt, and its sections are printed at the end.
@@ -95,6 +99,9 @@ for name in ("r2p1d-segment", "rnb-shard-d1", "rnb-shard-d2", "r2p1d-mesh",
             step["mesh_devices"] = [0] * len(step["mesh_devices"])
     json.dump(raw, open(os.path.join(sys.argv[1], name + "-1card.json"), "w"))
 PY
+case " $cells " in
+  *" torchckpt-file "*) python3 -m rnb_tpu_torch.tools.synth_ckpt "$data/ckpt" --data "$data" ;;
+esac
 run() {  # run <cell> <args...>
   cell=$1; shift
   case $cell in
@@ -126,6 +133,8 @@ run() {  # run <cell> <args...>
     netedge-loopback) cfg=configs/rnb-netedge-loopback.json ;;
     mesh) cfg=$data/r2p1d-mesh-1card.json ;;
     mesh-yuv) cfg=$data/r2p1d-mesh-yuv-1card.json ;;
+    torchckpt) cfg=configs/rnb-fused-yuv-big-torchckpt.json ;;
+    torchckpt-file) cfg=$data/ckpt/rnb-fused-yuv-big-torchckpt-file.json ;;
     *) echo "unknown cell $cell" >&2; exit 2 ;;
   esac
   if [ "$cell" = dct ] || [ "${cell#netedge}" != "$cell" ]; then

@@ -380,6 +380,11 @@ def test_keys_of_unported_parts_stay_refused(where, key, value):
         assert parse_config(raw, platform="cpu").steps[0].kwargs[
             "raw_output"] is True
         return
+    if (where, key) == ("runner", "ckpt_path"):
+        # ported with the checkpoint store: the runner reads it
+        assert parse_config(raw, platform="cpu").steps[1].kwargs[
+            "ckpt_path"] == "r2p1d.npz"
+        return
     with pytest.raises(ConfigError, match="not yet ported"):
         parse_config(raw, platform="cpu")
 

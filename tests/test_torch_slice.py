@@ -552,6 +552,11 @@ def test_unported_keys_are_refused(where, key, value):
         assert config.steps[0].groups[0].queue_selector == \
             "rnb_tpu_torch.selector.ReplicaSelector"
         return
+    if (where, key) == ("runner", "ckpt_path"):
+        # ported with the checkpoint store: the runner reads it
+        assert parse_config(raw, platform="cpu").steps[1].kwargs[
+            "ckpt_path"] == "weights.npz"
+        return
     message = {("root", "devobs"): r"'devobs' has unknown key\(s\) "
                                    r"\['xplane'\]",
                ("root", "operator"): r"'operator' has unknown key\(s\) "

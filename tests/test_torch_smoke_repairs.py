@@ -36,6 +36,9 @@ from rnb_tpu_torch.tools import chaos
 
 torch.set_num_threads(2)
 
+#: the idle-tail capture's window, never reached: the test ends it
+IDLE_TAIL_WINDOW_S = 60
+
 
 @pytest.fixture(autouse=True)
 def _no_installed_hooks():
@@ -217,23 +220,34 @@ def test_ops_outside_the_session_keep_the_flush_anchor():
 
 def test_a_real_capture_of_an_idle_tail_binds_its_ops(tmp_path):
     """A CPU profiler capture whose window outlives the work: ops run
-    inside ``exec1.model_call`` spans in the first tenth of a 1 s window,
-    then nothing. The port binds them to their spans; the flush anchor
-    (the reference's rule on the same capture) binds none."""
-    plane = devobs.DevObsPlane(devobs.DevObsSettings(capture_window_ms=1000))
+    inside ``exec1.model_call`` spans once the session is up, then an
+    idle tail twice as long as the work closes the window. The port
+    binds them to their spans; the flush anchor (the reference's rule on
+    the same capture) binds none."""
+    # a window long enough for the work under any load; the plane's own
+    # stop event ends it once an idle tail longer than the work has
+    # passed, so the flush anchor moves every op past the last span
+    plane = devobs.DevObsPlane(devobs.DevObsSettings(
+        capture_window_ms=IDLE_TAIL_WINDOW_S * 1000))
     tracer = trace.Tracer(trace.TraceSettings())
     profiler.warm_up()
     capture = threading.Thread(target=plane._capture_once,
                                args=("forced",))
     capture.start()
-    time.sleep(0.2)  # the session is up
+    deadline = time.monotonic() + 30.0
+    while not profiler._capturing:  # the session is up
+        assert capture.is_alive() and time.monotonic() < deadline
+        time.sleep(0.005)
     trace.ACTIVE = tracer
+    t0 = time.monotonic()
     x = torch.randn(64, 64)
     for rid in range(5):
         with trace.span("exec1.model_call", rid):
             for _ in range(20):
                 x = torch.tanh(x @ x)
     trace.ACTIVE = None
+    time.sleep(max(0.5, 2 * (time.monotonic() - t0)))
+    plane._stop.set()
     capture.join()
     spans = devobs.model_call_spans(tracer.snapshot_events())
     assert len(spans) == 5
