@@ -25,14 +25,23 @@ videos in 44.249694 s on one GPU over ``config/r2p1d-whole.json``
 The decode is real: a y4m dataset generated by ``rnb_tpu_torch.dataset``
 (44 videos of 128 frames, 112 x 112, 4:2:0), cached under
 ``data/bench_cuda_y4m`` and decoded on the port's native C++ pool
-(``decode_backend`` "native-y4m"). ``gflops_per_clip`` is the analytic
+(``decode_backend`` "native-y4m"). ``RNB_BENCH_DATASET=mjpeg`` serves
+compressed input instead, as ``bench.py``'s mode of that name: the same
+44 x 128-frame population, written by the port's own encoder
+(``rnb_tpu_torch.dataset --format mjpeg``, the JAX package's generator)
+at quality 90 (``rnb_tpu_torch.dataset.PIXEL_QUALITY``) under
+``data/bench_cuda_mjpeg``, each frame entropy-decoded and inverse-DCT'd
+on the native pool (``decode_backend`` "native-mjpeg"). A root holding
+both formats is refused: the iterator would serve both while
+``decode_backend`` names one. ``gflops_per_clip`` is the analytic
 conv+dense count of ``rnb_tpu_torch/models/r2p1d/flops.py`` over the
 config's network steps; ``mfu`` divides the achieved rate by the card's
 spec-sheet dense bf16 peak, looked up by ``torch.cuda.get_device_name``
 (null for a card the table does not know).
 
 Env knobs, as ``bench.py``'s: ``RNB_BENCH_VIDEOS`` (default 10000),
-``RNB_BENCH_CONFIG``, ``RNB_BENCH_DATASET`` (y4m or synth; default y4m),
+``RNB_BENCH_CONFIG``, ``RNB_BENCH_DATASET`` (y4m, mjpeg or synth;
+default y4m),
 ``RNB_TPU_DATA_ROOT`` (an existing dataset instead of the generated
 one), ``RNB_BENCH_LOG_BASE`` and ``RNB_BENCH_PLATFORM=cpu`` (serve on the CPU: a smoke of the line,
 never a card number). Without a card and without that knob it prints
@@ -42,6 +51,7 @@ Run from the root of a checkout::
 
     python3 bench_cuda.py
     RNB_BENCH_VIDEOS=300 python3 bench_cuda.py
+    RNB_BENCH_DATASET=mjpeg python3 bench_cuda.py
 """
 
 from __future__ import annotations
@@ -72,10 +82,21 @@ def _emit_error(message: str) -> int:
     return 1
 
 
-def _count_videos(root: str) -> int:
-    """Videos the pipeline's iterator would serve under ``root``."""
-    from rnb_tpu_torch.video_path_provider import scan_video_tree
-    return len(scan_video_tree(root)) if os.path.isdir(root) else 0
+#: the files of each dataset mode
+MODE_EXTENSIONS = {"y4m": (".y4m",), "mjpeg": (".mjpg", ".mjpeg")}
+#: a backend's name in ``decode_backend`` where it differs from
+#: log-meta's (MJPEG without the native pool decodes through PIL)
+BACKEND_NAMES = {"mjpeg": "pil"}
+
+
+def _count_videos(root: str, *extensions) -> int:
+    """Videos the pipeline's iterator would serve under ``root`` (those
+    of ``extensions`` only, where given)."""
+    from rnb_tpu_torch.video_path_provider import (VIDEO_EXTENSIONS,
+                                                   scan_video_tree)
+    if not os.path.isdir(root):
+        return 0
+    return len(scan_video_tree(root, extensions or VIDEO_EXTENSIONS))
 
 
 def ensure_dataset(repo_dir: str):
@@ -85,16 +106,29 @@ def ensure_dataset(repo_dir: str):
     if mode == "synth":
         os.environ.pop("RNB_TPU_DATA_ROOT", None)
         return None, mode
-    if mode != "y4m":
-        raise ValueError("RNB_BENCH_DATASET must be y4m or synth, got %r"
-                         % mode)
+    if mode not in MODE_EXTENSIONS:
+        raise ValueError("RNB_BENCH_DATASET must be y4m, mjpeg or synth, "
+                         "got %r" % mode)
     root = os.environ.get("RNB_TPU_DATA_ROOT") or os.path.join(
-        repo_dir, "data", "bench_cuda_y4m")
-    if _count_videos(root) == 0:
-        from rnb_tpu_torch.dataset import make_dataset
-        make_dataset(root, videos=DATASET_VIDEOS, frames=DATASET_FRAMES)
-    if _count_videos(root) == 0:
+        repo_dir, "data", "bench_cuda_" + mode)
+    extensions = MODE_EXTENSIONS[mode]
+    if _count_videos(root, *extensions) == 0:
+        from rnb_tpu_torch.dataset import PIXEL_QUALITY, make_dataset
+        if mode == "y4m":
+            make_dataset(root, videos=DATASET_VIDEOS, frames=DATASET_FRAMES)
+        else:
+            make_dataset(root, videos=DATASET_VIDEOS, frames=DATASET_FRAMES,
+                         fmt="mjpeg", quality=PIXEL_QUALITY)
+    served = _count_videos(root, *extensions)
+    if served == 0:
         raise RuntimeError("no videos under %s" % root)
+    other = _count_videos(root) - served
+    if other:
+        raise RuntimeError(
+            "dataset root %s holds %d video(s) of another format beside "
+            "the %s dataset: the iterator would serve both and "
+            "decode_backend would name one; use a single-format root"
+            % (root, other, mode))
     os.environ["RNB_TPU_DATA_ROOT"] = root
     return root, mode
 
@@ -107,8 +141,10 @@ def _decode_backend(log_dir: str, mode: str) -> str:
         backends = {b for line in f.read().splitlines()
                     if line.startswith("Decode backend: ")
                     for b in line.split(": ", 1)[1].split(",")}
-    return "native-y4m" if backends == {"native"} else \
-        "+".join(sorted(backends)) + "-y4m"
+    if backends == {"native"}:
+        return "native-" + mode
+    return "+".join(sorted(BACKEND_NAMES.get(b, b)
+                           for b in backends)) + "-" + mode
 
 
 def measure(config: str, num_videos: int, dataset_root, mode: str,

@@ -277,10 +277,27 @@ Phases (any failure exits non-zero and prints no result line):
    ``check_job`` green, ``rnb_yuv420_normalize`` once an emission (big)
    or ``rnb_normalize_u8`` (split) and no other kernel; then the CLI on
    a copy whose ``ckpt_path`` names no file: exit 1 with the reference's
-   ``FileNotFoundError`` and nothing served. Last,
+   ``FileNotFoundError`` and nothing served. Then
    ``bench_cuda.py`` in a process of its own (300 requests): its one JSON
    line, on the card (``platform`` gpu), decoded on the native pool, the
-   yuv420 ingest launched, a positive value and a numeric MFU.
+   yuv420 ingest launched, a positive value and a numeric MFU. Last,
+   MJPEG files (``phase_mjpeg``): two 16-video trees written at once by
+   the port's own encoder on this host (``rnb_tpu_torch/dataset.py
+   --format mjpeg``; quality 90 for the pixel paths, 70 for dct, every
+   frame of that one within the dct budget), each write timed;
+   ``configs/rnb-fused-yuv-big.json`` (yuv420) and
+   ``configs/r2p1d-whole.json`` (rgb) over the first and
+   ``configs/rnb-fused-dct-ragged.json`` (dct) over the second, 32
+   requests each in bulk: every request served and none dead-lettered,
+   every decode on the native pool, each config's own kernels launched
+   (``rnb_yuv420_normalize`` and ``rnb_dct_ingest`` once an emission)
+   and no other, two requests recomputed on the CPU; the native
+   coefficient rows of sampled clips bitwise the pure-Python
+   ``jpeg_dct``'s and the encoder's own; and the busy-card probe: a
+   child process that holds 64 MiB on the card adds exactly one process
+   to what ``nvidia-smi`` lists there beside this one (what was there
+   before it is printed, not required to be empty), and the probe warns
+   about ``cuda:0`` while it does.
    Every run: each ``R2P1DRunner`` forward in the window is one replay
    of a captured CUDA graph (``Graphs:`` replays == ``Compiles:``
    steady calls, or requests for the single step), no signature is new
@@ -497,6 +514,10 @@ LANES_CHAOS = "rnb-scaleout-r4-chaos-1card"
 #: before the wedge ends, so the dead lane's drain never runs (the
 #: reference's own scripts/chaos_demo.py does the same on a fast host)
 LANES_CHAOS_DRAIN = "rnb-scaleout-r4-chaos-1card-drain"
+#: the r4 copy again with ``async_dispatch`` on its loader step: the
+#: lanes' streams are ordered behind the loader's unwaited work, and
+#: every request's logits are bitwise the r4 copy's
+LANES_R4_ASYNC = "rnb-scaleout-r4-1card-async"
 LANES_VIDEOS = 12
 LANES_DRAIN_VIDEOS = 48
 LANES_QUEUE = 64
@@ -507,6 +528,22 @@ LANES_MIN_SPEEDUP = 2.5
 LANES_DEAD_LANE = "3"
 #: bench_cuda.py as a phase: its requests (RNB_BENCH_VIDEOS)
 BENCH_CUDA_VIDEOS = 300
+#: the MJPEG phase: videos a tree, and each run's (label, config, tree);
+#: the trees' qualities are rnb_tpu_torch.dataset's. The last run is a
+#: copy of the first with ``async_dispatch`` on its loader step
+MJPEG_TREE_VIDEOS = 16
+MJPEG_BIG_ASYNC = "rnb-fused-yuv-big-mjpeg-async"
+MJPEG_RUNS = (("rnb-fused-yuv-big-mjpeg", "configs/rnb-fused-yuv-big.json",
+               "mjpeg"),
+              ("rnb-fused-dct-ragged-mjpeg",
+               "configs/rnb-fused-dct-ragged.json", "mjpeg-dct"),
+              ("r2p1d-whole-mjpeg", WHOLE, "mjpeg"),
+              (MJPEG_BIG_ASYNC, "configs/rnb-fused-yuv-big.json", "mjpeg"))
+#: videos of the dct tree whose native coefficient rows are held to the
+#: pure-Python decoder's and the encoder's
+MJPEG_DCT_SAMPLES = 2
+#: MiB the busy-card probe's child process holds on the card
+BUSY_CHILD_MIB = 64
 #: the clip-sharded mesh configs (``phase_mesh``), served as one-card
 #: copies (``mesh_devices`` made 0 too): 33 requests, so ``flush`` pads
 #: the dp axis of the last dispatch with a zero video, and 32
@@ -1915,6 +1952,19 @@ def one_card_copy(data_root, config, name) -> str:
     return path
 
 
+def async_producer_copy(data_root, config, name) -> str:
+    """:func:`one_card_copy` with ``async_dispatch`` on the first step:
+    the loader no longer waits for its device work, and the next step's
+    stream is ordered behind it on the card."""
+    path = one_card_copy(data_root, config, name)
+    with open(path) as f:
+        raw = json.load(f)
+    raw["pipeline"][0]["async_dispatch"] = True
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
 def segment_sums(stages, sink):
     """Each request's segment logits summed as the aggregator sums them,
     recomputed on the card: the run's own loader on the request's video,
@@ -3077,7 +3127,6 @@ def check_shard_run(label, result, sink, stages, counts, shard_runs):
     and every request's logits bitwise the d1 copy's; at degree 1 no hop
     at all. Returns a summary for the print, with the bytes the stage's
     graph pool holds."""
-    import numpy as np
     from rnb_tpu_torch.models.r2p1d.model import NUM_WARMUPS, R2P1DRunner
     from rnb_tpu_torch.parse_utils import load_metrics, summarize
     (runner,) = [s for _, s in stages if isinstance(s, R2P1DRunner)]
@@ -3122,13 +3171,7 @@ def check_shard_run(label, result, sink, stages, counts, shard_runs):
           "%s: %d ring launches in the window for %d forwards" % (
               label, result.window_launches["ring_shift"], replays))
     d1_result, d1_sink = shard_runs[SHARD_D1_COPY]
-    check(sorted(sink) == sorted(d1_sink), "%s: other requests than d1's"
-          % label)
-    for rid, (video, logits, _stamps) in sink.items():
-        check(d1_sink[rid][0] == video
-              and np.array_equal(logits, d1_sink[rid][1]),
-              "%s request %d: logits are not bitwise the d1 copy's"
-              % (label, rid))
+    check_bitwise(label, sink, d1_sink, SHARD_D1_COPY)
     final = load_metrics(result.log_dir)[-1]
     collective = final["histograms"].get("exec1.collective", {})
     check(collective.get("count") == result.shard_gathers,
@@ -3151,6 +3194,19 @@ def scaleout_budget() -> int:
         raw = json.load(f)
     return len({d for step in raw["pipeline"] for group in step["queue_groups"]
                 for d in group["devices"] if d >= 0})
+
+
+def check_bitwise(label, sink, other_sink, other):
+    """Every request of ``sink`` served the same video with logits
+    bitwise those of ``other_sink`` (the run ``other``)."""
+    import numpy as np
+    check(sorted(sink) == sorted(other_sink), "%s: other requests than %s's"
+          % (label, other))
+    for rid, (video, logits, _stamps) in sink.items():
+        check(other_sink[rid][0] == video
+              and np.array_equal(logits, other_sink[rid][1]),
+              "%s request %d: logits are not bitwise %s's" % (label, rid,
+                                                               other))
 
 
 def check_lanes_run(label, result, stages, videos):
@@ -3250,10 +3306,12 @@ def phase_lanes(data_root, launches):
     runs = [(LANES_R1, SCALEOUT_R1, LANES_VIDEOS),
             (LANES_R4, SCALEOUT_R4, LANES_VIDEOS),
             (LANES_CHAOS, SCALEOUT_CHAOS, LANES_VIDEOS),
-            (LANES_CHAOS_DRAIN, SCALEOUT_CHAOS, LANES_DRAIN_VIDEOS)]
-    results = {}
+            (LANES_CHAOS_DRAIN, SCALEOUT_CHAOS, LANES_DRAIN_VIDEOS),
+            (LANES_R4_ASYNC, SCALEOUT_R4, LANES_VIDEOS)]
+    results, sinks = {}, {}
     for label, config, videos in runs:
-        config_path = one_card_copy(data_root, config, label)
+        config_path = (async_producer_copy if label == LANES_R4_ASYNC
+                       else one_card_copy)(data_root, config, label)
         sink, stages = {}, []
         _kernels.reset_launches()
         t0 = time.time()
@@ -3264,7 +3322,7 @@ def phase_lanes(data_root, launches):
             outputs_sink=sink, stages_sink=stages)
         counts = _kernels.launch_counts()
         wall = time.time() - t0
-        results[label] = result
+        results[label], sinks[label] = result, sink
         check(result.termination_flag == 0, "%s terminated with flag %d"
               % (label, result.termination_flag))
         runners = check_lanes_run(label, result, stages, videos)
@@ -3303,9 +3361,14 @@ def phase_lanes(data_root, launches):
             check(logits.ndim == 2 and logits.shape[1] == 8
                   and np.isfinite(logits).all(),
                   "%s request %d: logits %s" % (label, rid, logits.shape))
-        by_clips = sorted(sink, key=lambda r: (sink[r][1].shape[0], r))
-        picks = by_clips[:1] + by_clips[-1:]
-        report = cpu_recompute(config_path, sink, picks)
+        if label == LANES_R4_ASYNC:
+            # held bitwise to the r4 copy, which was recomputed
+            check_bitwise(label, sink, sinks[LANES_R4], LANES_R4)
+            picks, report = [], "bitwise %s's" % LANES_R4
+        else:
+            by_clips = sorted(sink, key=lambda r: (sink[r][1].shape[0], r))
+            picks = by_clips[:1] + by_clips[-1:]
+            report = cpu_recompute(config_path, sink, picks)
         print("path %s: %d requests, %d clips, %.3f videos/s, p50 %s ms, "
               "wall %.1f s, launches %s (window %s); Handoff: %d d2d / %d "
               "host, %d host bytes; Placement: %s; recompute of requests "
@@ -3864,6 +3927,222 @@ def phase_bench_cuda(data_root):
     print("bench_cuda (%.1f s): %s" % (time.time() - t0, lines[0]))
 
 
+def write_mjpeg_trees(data_root):
+    """The phase's two trees under ``data_root``, written at the same
+    time by two processes of ``rnb_tpu_torch.dataset``, each write
+    timed: -> ``{tree: root}``."""
+    from rnb_tpu_torch.dataset import DCT_QUALITY, PIXEL_QUALITY
+    trees = (("mjpeg", PIXEL_QUALITY, ()),
+             ("mjpeg-dct", DCT_QUALITY, ("--dct-budget",)))
+    procs = {tree: subprocess.Popen(
+        [sys.executable, "-m", "rnb_tpu_torch.dataset",
+         os.path.join(data_root, tree), "--videos", str(MJPEG_TREE_VIDEOS),
+         "--format", "mjpeg", "--quality", str(quality), *extra],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for tree, quality, extra in trees}
+    roots = {}
+    for tree, quality, _ in trees:
+        out, _ = procs[tree].communicate(timeout=600)
+        check(procs[tree].returncode == 0, "writing the %s tree failed:\n%s"
+              % (tree, out))
+        root = roots[tree] = os.path.join(data_root, tree)
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, files in os.walk(root) for f in files)
+        print("mjpeg tree at quality %d, %.1f MB: %s" % (
+            quality, size / 1e6, out.strip()))
+    return roots
+
+
+def check_mjpeg_dct_rows(root):
+    """The native pool's coefficient rows of sampled clips of the dct
+    tree are bitwise the pure-Python ``jpeg_dct``'s
+    (``MjpegPILDecoder``'s dct entry) and the encoder's own coefficients,
+    dequantized and packed. Returns the frames held."""
+    import numpy as np
+    from rnb_tpu_torch.dataset import DCT_QUALITY, synth_frames
+    from rnb_tpu_torch.decode import MjpegPILDecoder, get_decoder
+    from rnb_tpu_torch.decode.mjpeg_encode import (ZIGZAG_NATURAL,
+                                                   encode_frames,
+                                                   quant_tables)
+    from rnb_tpu_torch.ops.dct import num_dct_blocks, pack_frame_dct
+    from rnb_tpu_torch.video_path_provider import scan_video_tree
+    videos = scan_video_tree(root)
+    luma_q, chroma_q = quant_tables(DCT_QUALITY)
+    ny = (HW // 8) ** 2
+    q = np.concatenate([np.tile(luma_q[ZIGZAG_NATURAL], (ny, 1)),
+                        np.tile(chroma_q[ZIGZAG_NATURAL],
+                                (num_dct_blocks(HW, HW) - ny, 1))])
+    held = 0
+    for i in range(MJPEG_DCT_SAMPLES):
+        # video i of the tree is the generator's [7, i % 4, i // 4]
+        video = [v for v in videos
+                 if os.path.basename(v) == "v%03d.mjpg" % i][0]
+        decoder = get_decoder(video)
+        check(decoder.BACKEND == "native", "%s decodes on %s" % (
+            video, decoder.BACKEND))
+        starts = [0, 120]  # the last clip runs past the end: repeats
+        native = decoder.decode_clips_dct(video, starts, FRAMES, HW, HW)
+        plain = MjpegPILDecoder().decode_clips_dct(video, starts, FRAMES,
+                                                   HW, HW)
+        check(np.array_equal(native, plain), "%s: native dct rows differ "
+              "from jpeg_dct's in %d elements" % (
+                  video, int((native != plain).sum())))
+        frames = synth_frames(128, HW, HW, seed=[7, i % 4, i // 4])
+        _, zz = encode_frames(frames, DCT_QUALITY)
+        for ci, start in enumerate(starts):
+            for fi in range(FRAMES):
+                idx = min(start + fi, 127)
+                want = pack_frame_dct(zz[idx] * q, HW, HW)
+                check(np.array_equal(native[ci, fi], want), "%s frame %d: "
+                      "native dct row is not the encoder's" % (video, idx))
+                held += 1
+    return held
+
+
+def check_busy_probe():
+    """The busy-card probe against a child process that holds
+    ``BUSY_CHILD_MIB`` on the card. What cuda:0 held before the child
+    (this process's own context, and any other process: a monitor,
+    another checkout's run) is the baseline, printed and not required
+    to be empty. With the child, the other processes that ``nvidia-smi``
+    lists on cuda:0 are the baseline's plus exactly one (where it names
+    processes by host pid, holding at least ``BUSY_CHILD_MIB`` more),
+    and ``probe_busy_devices`` warns about cuda:0. The child is stopped
+    either way. Returns the baseline ``(count, MiB, warnings)``, the
+    warnings with the child, and the seconds one probe took."""
+    from rnb_tpu_torch.devices import (DeviceSpec, other_processes,
+                                       probe_busy_devices, read_card_memory)
+    spec = [DeviceSpec(0, "cuda")]
+
+    def others():
+        return other_processes(read_card_memory()[0], os.getpid(), True)
+
+    t0 = time.time()
+    alone = probe_busy_devices(spec)
+    probe_s = time.time() - t0
+    base_count, base_mib = others()
+    child = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, torch\n"
+         "x = torch.empty(%d << 20, dtype=torch.uint8, device='cuda')\n"
+         "torch.cuda.synchronize()\n"
+         "print('holding', flush=True)\n"
+         "sys.stdin.read()\n" % BUSY_CHILD_MIB],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    try:
+        ready = child.stdout.readline().strip()
+        check(ready == "holding", "the busy-card child did not start: %r"
+              % ready)
+        shared = probe_busy_devices(spec)
+        count, mib = others()
+    finally:
+        child.stdin.close()
+        try:
+            child.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait()
+    check(count == base_count + 1, "the busy-card child added %d process(es)"
+          " to the %d other(s) on cuda:0, not one" % (count - base_count,
+                                                       base_count))
+    if mib is not None and base_mib is not None:
+        check(mib - base_mib >= BUSY_CHILD_MIB, "the busy-card child added "
+              "%.1f MiB on cuda:0, under the %d MiB it holds"
+              % (mib - base_mib, BUSY_CHILD_MIB))
+    check(len(shared) == 1 and "cuda:0" in shared[0], "the busy-card probe "
+          "did not warn about cuda:0 while a child held %d MiB there: %s"
+          % (BUSY_CHILD_MIB, shared))
+    return (base_count, base_mib, alone), shared, probe_s
+
+
+def phase_mjpeg(data_root, launches):
+    """Serve MJPEG files on the yuv420, dct and rgb paths (see the
+    module docstring); adds the runs' launches to ``launches``."""
+    import numpy as np
+    from rnb_tpu_torch.benchmark import run_benchmark
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.parse_utils import summarize
+    t_phase = time.time()
+    roots = write_mjpeg_trees(data_root)
+    for label, config, tree in MJPEG_RUNS:
+        os.environ["RNB_TPU_DATA_ROOT"] = roots[tree]
+        served = (async_producer_copy(data_root, config, label)
+                  if label == MJPEG_BIG_ASYNC else os.path.join(HERE, config))
+        sink, stages = {}, []
+        _kernels.reset_launches()
+        t0 = time.time()
+        result = run_benchmark(
+            served, mean_interval_ms=0,
+            num_videos=VIDEOS_PER_RUN, print_progress=False,
+            log_base=os.path.join(data_root, "logs"), seed=0,
+            outputs_sink=sink, stages_sink=stages)
+        counts = _kernels.launch_counts()
+        wall = time.time() - t0
+        check(result.termination_flag == 0, "%s terminated with flag %d"
+              % (label, result.termination_flag))
+        check(result.num_completed == VIDEOS_PER_RUN
+              and result.num_failed + result.num_shed
+              + result.num_retries == 0
+              and sorted(sink) == list(range(VIDEOS_PER_RUN)),
+              "%s: %d completed, %d dead-lettered, %d shed, %d retried, "
+              "outputs of %s" % (label, result.num_completed,
+                                 result.num_failed, result.num_shed,
+                                 result.num_retries, sorted(sink)))
+        with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
+            meta = f.read().splitlines()
+        backends = [line.split(": ", 1)[1] for line in meta
+                    if line.startswith("Decode backend: ")]
+        check(backends and all(b == "native" for b in backends),
+              "%s: MJPEG requests decoded by %s, not the native pool"
+              % (label, backends))
+        check(all(video.endswith(".mjpg") for video, _, _ in sink.values()),
+              "%s served other files than the tree's" % label)
+        for rid, (video, logits, _stamps) in sink.items():
+            check(logits.ndim == 2 and logits.shape[1] == 400
+                  and np.isfinite(logits).all(), "%s request %d: logits of "
+                  "shape %s, finite %s" % (label, rid, logits.shape,
+                                           np.isfinite(logits).all()))
+        for name, count in counts.items():
+            if name in PATH_KERNELS[config]:
+                check(result.window_launches[name] > 0, "%s: kernel %s was "
+                      "not launched in the measured window" % (label, name))
+            else:
+                check(count == 0, "%s: kernel %s, not of this config, was "
+                      "launched" % (label, name))
+            launches[name] += count
+        emissions = summarize(result.log_dir)["emissions"]
+        if config in ONE_PER_EMISSION:
+            name = ONE_PER_EMISSION[config]
+            check(result.window_launches[name] == emissions,
+                  "%s: %d %s launches for %d emissions"
+                  % (label, result.window_launches[name], name, emissions))
+        check_graphs(label, result, stages)
+        del stages
+        by_clips = sorted(sink, key=lambda r: (sink[r][1].shape[0], r))
+        picks = by_clips[:1] + by_clips[-1:]
+        t1 = time.time()
+        report = cpu_recompute(served, sink, picks)
+        print("path %s: %d requests, %d clips, %.3f videos/s, wall %.1f s, "
+              "%d emissions, launches %s (window %s); recompute of requests "
+              "%s (%.1f s): %s" % (
+                  label, result.num_completed, result.clips_completed,
+                  result.throughput_vps, wall, emissions, counts,
+                  result.window_launches, picks, time.time() - t1,
+                  json.dumps(report)))
+    os.environ.pop("RNB_TPU_DATA_ROOT", None)
+    t1 = time.time()
+    held = check_mjpeg_dct_rows(roots["mjpeg-dct"])
+    print("mjpeg dct rows: %d frames of %d videos bitwise jpeg_dct's and "
+          "the encoder's (%.1f s)" % (held, MJPEG_DCT_SAMPLES,
+                                      time.time() - t1))
+    (base_count, base_mib, alone), shared, probe_s = check_busy_probe()
+    print("busy-card probe (%.2f s a reading): before the child %d other "
+          "process(es) (%s MiB), warnings %s; with a child holding %d MiB: "
+          "%s" % (probe_s, base_count, base_mib, alone, BUSY_CHILD_MIB,
+                  shared))
+    print("phase mjpeg: %.1f s" % (time.time() - t_phase))
+
+
 def graph_pool_mib(runner):
     """MiB the caching allocator holds in ``runner``'s graph pool: the
     peak of its captures, since a pool keeps its segments while its
@@ -4314,6 +4593,7 @@ def main() -> int:
         phase_mesh(data_root, launches)
         phase_ckpt(data_root, launches)
         phase_bench_cuda(data_root)
+        phase_mjpeg(data_root, launches)
 
         sass_out, _ = sass.communicate()
         check(sass.returncode == 0, "sass_counts failed:\n%s" % sass_out)

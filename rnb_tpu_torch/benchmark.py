@@ -106,6 +106,7 @@ import torch
 
 from rnb_tpu_torch import devobs as devobs_mod
 from rnb_tpu_torch import hostprof
+from rnb_tpu_torch import lockwitness
 from rnb_tpu_torch import memledger as memledger_mod
 from rnb_tpu_torch import metrics as metrics_mod
 from rnb_tpu_torch import profiler as profiler_mod
@@ -124,6 +125,7 @@ from rnb_tpu_torch.config import load_config
 from rnb_tpu_torch.control import (NUM_EXIT_MARKERS, EdgeTracker,
                                    FaultStats, InferenceCounter,
                                    RingCredits, TerminationState)
+from rnb_tpu_torch.devices import probe_busy_devices
 from rnb_tpu_torch.faults import LANE_KINDS, FaultPlan
 from rnb_tpu_torch.handoff import HandoffSettings, InflightDepths
 from rnb_tpu_torch.handoff import aggregate_snapshots as aggregate_handoff
@@ -370,6 +372,13 @@ class BenchmarkResult:
     net_err_timeout: int = 0
     net_err_partial_frame: int = 0
     net_err_corrupt: int = 0
+    #: the lock-order witness's ledger (the ``Locks:`` line; zero
+    #: without the root ``lint: {"lock_witness": true}`` key): witnessed
+    #: locks, acquisitions, distinct order edges, violations
+    locks_tracked: int = 0
+    locks_acquires: int = 0
+    locks_edges: int = 0
+    locks_violations: int = 0
 
 
 def aggregate_shard(shard_sink) -> Dict[str, Any]:
@@ -620,6 +629,7 @@ def run_benchmark(config_path: str,
     # stop() of the operator server and the stack sampler, run on every
     # exit path (both are idempotent)
     closers: list = []
+    witness_was_on = lockwitness.enabled()
     try:
         return _run_benchmark(
             config_path, mean_interval_ms, num_videos, queue_size, log_base,
@@ -628,6 +638,10 @@ def run_benchmark(config_path: str,
     finally:
         for close in closers:
             close()
+        if not witness_was_on:
+            # a config-armed witness ends with its run: the next run in
+            # this process builds plain locks again
+            lockwitness.disable()
         # every exit path, an aborted or failed run included: no trace,
         # metrics or devobs hook stays installed, no flusher, worker or
         # profiler session keeps running
@@ -766,6 +780,17 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     # ...), the port refuses one before its first device touch
     check_single_process()
     config = load_config(config_path, platform)
+    # the reference's contention probe, a warning (never an abort): a
+    # card another process already holds memory on serves slower
+    for warning in probe_busy_devices(config.all_devices()):
+        print("[rnb-tpu-torch] WARNING: %s" % warning, file=sys.stderr)
+    # the lock-order witness (root lint key) wraps locks as they are
+    # made, so it is armed before any stage, plane or board exists
+    witness_armed = bool(config.lint
+                         and config.lint.get("lock_witness", False))
+    if witness_armed:
+        lockwitness.enable()
+        lockwitness.reset()
     job_id = "%s-mi%d-v%d-qs%d" % (
         datetime.today().strftime("%y%m%d_%H%M%S"), mean_interval_ms,
         num_videos, queue_size)
@@ -911,6 +936,9 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                     num_videos=num_videos, termination=termination,
                     step_idx=step_idx, sta_bar=sta_bar, fin_bar=fin_bar,
                     model_class_path=step.model, model_kwargs=kwargs,
+                    sync_outputs=not step.async_dispatch,
+                    upstream_async=(step_idx > 0 and config.steps[
+                        step_idx - 1].async_dispatch),
                     queue_selector_path=group.queue_selector,
                     credits=(None if is_final
                              else RingCredits(step.num_shared_tensors)),
@@ -1152,6 +1180,8 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     deadline_snap = (deadline_stats.snapshot() if deadline_stats is not None
                      else None)
     health_stats = net_snap = None
+    # every pipeline thread joined: the witness's edges are settled
+    lock_snap = lockwitness.summary() if witness_armed else None
     board_snapshots = [b.snapshot() for b in boards_by_step.values()]
     if edge is not None:
         board_snapshots.append(edge.board.snapshot())
@@ -1260,6 +1290,11 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     if net_snap is not None:
         for key in NetStats.COUNTERS:
             setattr(result, "net_" + key, int(net_snap[key]))
+    if lock_snap is not None:
+        result.locks_tracked = lock_snap["locks"]
+        result.locks_acquires = lock_snap["acquires"]
+        result.locks_edges = len(lock_snap["edges"])
+        result.locks_violations = len(lock_snap["violations"])
     if autotune_stats is not None:
         for key, value in autotune_stats.items():
             setattr(result, "autotune_" + key, value)
@@ -1495,6 +1530,16 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
             f.write("Net errors: %s\n" % " ".join(
                 "%s=%d" % (k[4:], net_snap[k]) for k in NetStats.COUNTERS
                 if k.startswith("err_")))
+        if lock_snap is not None:
+            # the reference's lines; parse_utils holds violations to 0
+            # and the counts to the detail
+            f.write("Locks: tracked=%d acquires=%d edges=%d "
+                    "violations=%d\n"
+                    % (lock_snap["locks"], lock_snap["acquires"],
+                       len(lock_snap["edges"]),
+                       len(lock_snap["violations"])))
+            f.write("Lock edges: %s\n"
+                    % lockwitness.format_edges(lock_snap))
         f.write("Kernels: %s\n" % json.dumps(window_launches,
                                              sort_keys=True))
         if kernel_ms is not None:
@@ -1577,6 +1622,11 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                   % tuple(net_snap[k] for k in (
                       "frames_sent", "frames_acked", "resends",
                       "reconnects", "remote", "local", "err_total")))
+        if lock_snap is not None:
+            print("Locks: %d witnessed lock(s), %d acquisition(s), %d order "
+                  "edge(s), %d violation(s)"
+                  % (lock_snap["locks"], lock_snap["acquires"],
+                     len(lock_snap["edges"]), len(lock_snap["violations"])))
         if deadline_snap is not None:
             print("Deadline: budget %d ms, %d expired request(s) shed (%s)"
                   % (result.deadline_budget_ms, deadline_snap["expired"],

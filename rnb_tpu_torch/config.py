@@ -27,6 +27,15 @@ device, and the ring travels to the runner as ``shard_devices``
 ``mesh_devices`` become ``DeviceSpec`` s the same way, and the loader's
 ``raw_output`` is read with it.
 
+The loaders' ``fallback_decode_threads`` (the numpy/PIL decode pool's
+width), ``staging_slots`` and ``transfer_async`` are read with the
+reference's type rules and messages; so are a step's ``async_dispatch``
+(its executor stamps ``inference{i}_finish`` at dispatch instead of
+waiting for the card), a queue group's ``gpus`` (the reference's alias
+of ``devices``; ``devices`` wins where both stand) and the root
+``lint: {"lock_witness": bool}`` key (the runtime lock-order witness,
+:mod:`rnb_tpu_torch.lockwitness`).
+
 Replica lanes (the reference's rules and messages): a step's
 ``replicas: N`` key, or an apply-mode root ``placement`` plan naming it,
 expands the step's one queue group into N lane groups, each with a fresh
@@ -58,7 +67,7 @@ ROOT_KEYS = frozenset({"video_path_iterator", "pipeline", "ragged",
                        "critpath", "autotune", "overload_policy",
                        "fault_containment", "fault_plan", "deadline",
                        "devobs", "whatif", "operator", "health",
-                       "netedge", "handoff", "placement"})
+                       "netedge", "handoff", "placement", "lint"})
 TRACE_KEYS = ("enabled", "sample_hz", "max_events")
 #: the reference's key lists, in its order (its messages print them)
 METRICS_KEYS = ["enabled", "interval_ms", "flight_recorder"]
@@ -75,6 +84,7 @@ DEADLINE_KEYS = ["enabled", "budget_ms"]
 HEALTH_KEYS = ["enabled", "suspect_after_ms", "open_after_ms",
                "probe_interval_ms"]
 HANDOFF_KEYS = ["enabled", "mode"]
+LINT_KEYS = ["lock_witness"]
 PLACEMENT_KEYS = ["enabled", "mode", "plan"]
 NETEDGE_KEYS = ["enabled", "listen", "connect", "beat_ms", "io_timeout_ms",
                 "max_retries", "backoff_ms", "resend_window", "spawn"]
@@ -86,7 +96,7 @@ PAGER_KEYS = frozenset({"enabled", "page_rows", "pool_mb", "feature_cache"})
 STEP_KEYS = frozenset({"model", "queue_groups", "num_shared_tensors",
                        "num_segments", "autotune", "max_retries",
                        "retry_backoff_ms", "shard", "replicas",
-                       "hedge_ms"})
+                       "hedge_ms", "async_dispatch"})
 #: keys a step-level 'shard' object may carry, in the reference's order
 SHARD_KEYWORDS = ["degree", "axis", "hbm_budget_mb"]
 #: the runner's kwargs ``_expand_shard`` puts on each queue group
@@ -97,7 +107,8 @@ GROUP_KEYS = frozenset({"devices", "out_queues", "in_queue",
 _LOADER_KEYS = frozenset({
     "max_clips", "consecutive_frames", "num_clips_population", "weights",
     "num_warmups", "row_buckets", "prefetch", "pixel_path", "cache_mb",
-    "dct_coeffs_per_frame", "raw_output"})
+    "dct_coeffs_per_frame", "raw_output", "staging_slots", "transfer_async",
+    "fallback_decode_threads"})
 _RUNNER_KEYS = frozenset({
     "start_index", "end_index", "max_rows", "consecutive_frames",
     "num_warmups", "row_buckets", "pixel_path", "ragged_chunk_rows",
@@ -111,7 +122,10 @@ MODEL_KEYS = {
         "consecutive_frames", "num_clips_population", "weights",
         "num_warmups",
         "pixel_path", "staging_slots", "transfer_async",
-        "dct_coeffs_per_frame", "cache_mb"}),
+        "dct_coeffs_per_frame", "cache_mb", "fallback_decode_threads",
+        # refused by the stage with the reference's message: its window
+        # is ``depth``
+        "prefetch"}),
     "R2P1DRunner": _RUNNER_KEYS,
     # the single step hands its keys to the embedded loader and runner
     "R2P1DSingleStep": _LOADER_KEYS | frozenset({
@@ -196,6 +210,10 @@ class StepConfig:
     #: the hedge threshold for dispatches into this replica step (a
     #: positive millisecond count or "p95x"); None: no hedging
     hedge_ms: Optional[object] = None
+    #: True: the step's executor does not wait for its device work
+    #: before the ``inference{i}_finish`` stamp (the reference's
+    #: ``sync_outputs=False``)
+    async_dispatch: bool = False
 
     def kwargs_for_group(self, group_idx: int) -> Dict[str, Any]:
         """Constructor kwargs of one group's instances: the step's
@@ -256,6 +274,9 @@ class PipelineConfig:
     #: rnb_tpu_torch.placement); an apply-mode plan was expanded into
     #: replica lanes at parse time
     placement: Optional[dict] = None
+    #: the runtime arms of the lint analyzers (root ``lint`` key):
+    #: ``lock_witness`` true arms rnb_tpu_torch.lockwitness for the run
+    lint: Optional[dict] = None
     #: the config dict as read (the devobs config walks read it)
     raw: Optional[dict] = None
 
@@ -266,6 +287,18 @@ class PipelineConfig:
     @property
     def num_runners(self) -> int:
         return sum(len(g.devices) for s in self.steps for g in s.groups)
+
+    def all_devices(self) -> List[DeviceSpec]:
+        """Every device the pipeline places work on: each group's, and
+        a ring's or a mesh's members."""
+        devices = []
+        for step in self.steps:
+            for group_idx, group in enumerate(step.groups):
+                kwargs = step.kwargs_for_group(group_idx)
+                devices.extend(group.devices)
+                devices.extend(kwargs.get("shard_devices") or ())
+                devices.extend(kwargs.get("mesh_devices") or ())
+        return devices
 
 
 def _is_number(value) -> bool:
@@ -608,6 +641,60 @@ def _check_handoff(handoff) -> None:
             % (mode,))
 
 
+def _check_lint(lint) -> None:
+    """The reference's rules (rnb_tpu/config.py, root ``lint``)."""
+    _expect(isinstance(lint, dict), "'lint' must be an object")
+    unknown = sorted(set(lint) - set(LINT_KEYS))
+    _expect(not unknown, "'lint' has unknown key(s) %s — keys are %s"
+            % (unknown, LINT_KEYS))
+    _expect(isinstance(lint.get("lock_witness", False), bool),
+            "'lint.lock_witness' must be a boolean")
+
+
+def _alias_gpus(pipeline: list) -> list:
+    """A queue group's ``gpus`` list is the reference's alias of
+    ``devices``: it becomes ``devices`` where the group has none, and is
+    dropped where it has (``devices`` wins, as in the reference). Returns
+    a copy when a group names ``gpus``; the input is never changed."""
+    def named(group):
+        return isinstance(group, dict) and "gpus" in group
+    if not any(named(g) for step in pipeline if isinstance(step, dict)
+               for g in step.get("queue_groups") or []):
+        return pipeline
+    pipeline = copy.deepcopy(pipeline)
+    for step in pipeline:
+        if not isinstance(step, dict):
+            continue
+        for group in step.get("queue_groups") or []:
+            if named(group):
+                gpus = group.pop("gpus")
+                group.setdefault("devices", gpus)
+    return pipeline
+
+
+def _check_loader_knobs(step_raw: dict, step_idx: int) -> None:
+    """The reference's parse-time types of the transfer-pipeline and
+    fallback-pool knobs, with its messages."""
+    where = "pipeline step %d" % step_idx
+    staging_slots = step_raw.get("staging_slots")
+    _expect(staging_slots is None
+            or (isinstance(staging_slots, int)
+                and not isinstance(staging_slots, bool)
+                and staging_slots >= 0),
+            "%s: 'staging_slots' must be a non-negative integer (0 "
+            "disables zero-copy staging), got %r" % (where, staging_slots))
+    transfer_async = step_raw.get("transfer_async")
+    _expect(transfer_async is None or isinstance(transfer_async, bool),
+            "%s: 'transfer_async' must be a boolean, got %r"
+            % (where, transfer_async))
+    threads = step_raw.get("fallback_decode_threads")
+    _expect(threads is None
+            or (isinstance(threads, int) and not isinstance(threads, bool)
+                and threads >= 1),
+            "%s: 'fallback_decode_threads' must be a positive integer, "
+            "got %r" % (where, threads))
+
+
 def _check_placement(placement, num_steps: int) -> None:
     """The reference's rules (rnb_tpu/config.py, root ``placement``): an
     apply-mode plan names ``step<i>`` replica counts inside the
@@ -918,6 +1005,7 @@ def parse_config(raw: dict, platform: Optional[str] = None
     if trace is not None:
         _check_trace(trace)
     for key, check in (("deadline", _check_deadline),
+                       ("lint", _check_lint),
                        ("handoff", _check_handoff),
                        ("health", _check_health),
                        ("netedge", _check_netedge),
@@ -959,6 +1047,7 @@ def parse_config(raw: dict, platform: Optional[str] = None
         _check_fault_plan(fault_plan, len(pipeline))
     # the expanded form is the one topology everything below checks and
     # builds; sharding composes replica-major
+    pipeline = _alias_gpus(pipeline)
     pipeline, replica_queues = _expand_replicas(pipeline, placement)
     pipeline = _expand_shard(pipeline)
     for step_idx, step_raw in enumerate(pipeline):
@@ -973,6 +1062,7 @@ def parse_config(raw: dict, platform: Optional[str] = None
                               "partition (R2P1DRunner), not %s"
                               % (where, class_name))
         _check_keys(step_raw, STEP_KEYS | MODEL_KEYS[class_name], where)
+        _check_loader_knobs(step_raw, step_idx)
         kwargs = {k: v for k, v in step_raw.items()
                   if k in MODEL_KEYS[class_name]}
         _mesh_devices(kwargs, platform, where)
@@ -1037,6 +1127,17 @@ def parse_config(raw: dict, platform: Optional[str] = None
                 "opts the step out of the root autotune controller)"
                 % step_idx)
         max_retries, retry_backoff_ms = _check_retries(step_raw, step_idx)
+        async_dispatch = step_raw.get("async_dispatch", False)
+        _expect(isinstance(async_dispatch, bool),
+                "pipeline step %d: 'async_dispatch' must be a boolean"
+                % step_idx)
+        _expect(not (async_dispatch and not is_final
+                     and replica_queues.get(step_idx) is not None),
+                "pipeline step %d: 'async_dispatch' on a replica step "
+                "that feeds another step is refused: each lane serves on "
+                "a CUDA stream of its own, and the next step's stream "
+                "would read its outputs unordered; set it on the step "
+                "before the lanes or on a final lane step" % step_idx)
         slots = int(step_raw.get("num_shared_tensors",
                                  DEFAULT_NUM_SHARED_TENSORS))
         if slots < 1:
@@ -1048,7 +1149,8 @@ def parse_config(raw: dict, platform: Optional[str] = None
             autotune=step_autotune, max_retries=max_retries,
             retry_backoff_ms=retry_backoff_ms,
             replica_queues=replica_queues.get(step_idx),
-            hedge_ms=_check_hedge(step_raw, step_idx, replica_queues)))
+            hedge_ms=_check_hedge(step_raw, step_idx, replica_queues),
+            async_dispatch=async_dispatch))
     netedge = raw.get("netedge")
     if netedge is not None and netedge.get("enabled", True):
         _check_netedge_pipeline(steps, raw)
@@ -1063,7 +1165,7 @@ def parse_config(raw: dict, platform: Optional[str] = None
         fault_containment=fault_containment, fault_plan=fault_plan,
         deadline=raw.get("deadline"), health=raw.get("health"),
         netedge=netedge, handoff=raw.get("handoff"), placement=placement,
-        raw=raw)
+        lint=raw.get("lint"), raw=raw)
 
 
 def load_config(path: str, platform: Optional[str] = None

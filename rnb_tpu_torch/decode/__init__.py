@@ -6,8 +6,8 @@ the card by ``rnb_tpu_torch/ops/preprocess.py`` or ``ops/ragged.py``);
 ``decode_clips_yuv`` returns packed 4:2:0 planes (yuv420 path,
 converted on the card by ``rnb_tpu_torch/ops/yuv.py``);
 ``decode_clips_dct`` returns packed int16 dequantized DCT coefficient
-rows (dct path, ``rnb_tpu_torch/ops/dct.py``). numpy only; every
-backend's output is byte-equal to the JAX package's for the same input.
+rows (dct path, ``rnb_tpu_torch/ops/dct.py``). Every backend's output
+is byte-equal to the JAX package's for the same input.
 
 Backends, picked by :func:`get_decoder`:
 
@@ -16,12 +16,16 @@ Backends, picked by :func:`get_decoder`:
 * ``NativeY4MDecoder`` (:mod:`rnb_tpu_torch.decode.native`, the repo's
   C++ decoder, built at first use) for ``.y4m`` and ``.mjpg``/``.mjpeg``
   files, as in the reference;
-* with ``RNB_DISABLE_NATIVE`` set (the reference's switch), numpy:
-  :class:`Y4MDecoder` for uncompressed ``.y4m`` (rgb and yuv420: such a
-  file holds no DCT coefficients) and :class:`MjpegDecoder` for
-  ``.mjpg``/``.mjpeg`` (dct only), through the pure-Python coefficient
-  decoder ``jpeg_dct``; its RGB decode is not ported (the reference's
-  needs PIL).
+* with ``RNB_DISABLE_NATIVE`` set (the reference's switch):
+  :class:`Y4MDecoder` (numpy) for uncompressed ``.y4m`` (rgb and
+  yuv420: such a file holds no DCT coefficients) and
+  :class:`MjpegPILDecoder` for ``.mjpg``/``.mjpeg``: PIL for the rgb and
+  yuv420 entries (an error naming PIL where it is missing), the
+  pure-Python coefficient decoder ``jpeg_dct`` for dct.
+
+:func:`write_mjpeg` (:mod:`rnb_tpu_torch.decode.mjpeg_encode`) writes
+MJPEG files with the port's own baseline-JPEG encoder, in numpy: the
+bytes PIL writes for the same frames, with no PIL.
 
 A video that cannot be decoded raises :class:`CorruptVideoError` (a
 permanent error of :mod:`rnb_tpu_torch.faults`, and a ``ValueError``), or
@@ -33,6 +37,7 @@ live in :mod:`rnb_tpu_torch.faults` and are re-exported here.
 
 from __future__ import annotations
 
+import io
 import os
 import threading
 import zlib
@@ -40,6 +45,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from rnb_tpu_torch.decode.mjpeg_encode import (  # noqa: F401 (re-exported)
+    write_mjpeg)
 from rnb_tpu_torch.faults import (  # noqa: F401 (re-exported)
     CorruptVideoError, TransientDecodeError)
 
@@ -384,19 +391,16 @@ def scan_mjpeg_frames(data: bytes):
     return frames
 
 
-class MjpegDecoder:
-    """MJPEG (.mjpg/.mjpeg: baseline JPEG frames back to back) to
-    packed dequantized DCT coefficient rows, through the pure-Python
-    entropy decoder — no pixel decode, so no PIL. Frames past the end
-    repeat the last one, as on the pixel paths."""
-
-    def decode_clips(self, video, clip_starts, consecutive_frames=8,
-                     width=DEFAULT_WIDTH, height=DEFAULT_HEIGHT):
-        raise CorruptVideoError(
-            "the rgb pixel path of MJPEG files is not yet ported to "
-            "rnb_tpu_torch (%s): serve them on the dct path" % video)
-
-    decode_clips_yuv = decode_clips
+class MjpegPILDecoder:
+    """MJPEG (.mjpg/.mjpeg: baseline JPEG frames back to back) without
+    the native library, as the reference's fallback of the same name:
+    the rgb and yuv420 entries decode pixels through PIL (imported at
+    the call; without it they raise an error that names PIL, never
+    another decode), the dct entry decodes coefficients through the
+    pure-Python ``jpeg_dct``. libjpeg upsamples chroma with a triangle
+    filter where the native decoder keeps the stored samples, so the
+    pixel entries agree with the native backend within a few LSB, not
+    bitwise. Frames past the end repeat the last one."""
 
     BACKEND = "mjpeg"
 
@@ -422,14 +426,105 @@ class MjpegDecoder:
     def num_frames(self, video: str) -> int:
         return len(self._frames(video)[1])
 
+    @staticmethod
+    def _image_module():
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ModuleNotFoundError(
+                "decoding MJPEG pixels without the native decoder needs "
+                "PIL (Pillow), which is not installed: build the native "
+                "library (unset RNB_DISABLE_NATIVE) or serve MJPEG on "
+                "the dct path") from e
+        return Image
+
+    def decode_clips(self, video: str, clip_starts: List[int],
+                     consecutive_frames: int = 8,
+                     width: int = DEFAULT_WIDTH,
+                     height: int = DEFAULT_HEIGHT) -> np.ndarray:
+        """-> uint8 ``(num_clips, consecutive_frames, H, W, 3)`` RGB
+        frames: PIL's RGB decode, then the nearest-index resize."""
+        Image = self._image_module()
+        data, frames = self._frames(video)
+        count = len(frames)
+        if any(s < 0 for s in clip_starts):
+            raise ValueError("negative clip start in %r" % (clip_starts,))
+        out = np.empty((len(clip_starts), consecutive_frames, height,
+                        width, 3), dtype=np.uint8)
+        for ci, start in enumerate(clip_starts):
+            for fi in range(consecutive_frames):
+                off, length = frames[min(start + fi, count - 1)]
+                try:
+                    with Image.open(io.BytesIO(
+                            data[off:off + length])) as im:
+                        frame = np.asarray(im.convert("RGB"))
+                except (OSError, SyntaxError, ValueError) as e:
+                    # libjpeg's truncation and corruption errors
+                    raise CorruptVideoError(
+                        "%s frame %d: %s" % (video, start + fi, e)) from e
+                out[ci, fi] = Y4MDecoder._box_resize(frame, width, height)
+        return out
+
+    def decode_clips_yuv(self, video: str, clip_starts: List[int],
+                         consecutive_frames: int = 8,
+                         width: int = DEFAULT_WIDTH,
+                         height: int = DEFAULT_HEIGHT) -> np.ndarray:
+        """-> uint8 ``(num_clips, consecutive_frames, H*W*3//2)`` packed
+        4:2:0 planes from PIL's YCbCr draft decode. libjpeg hands chroma
+        back upsampled to full resolution, so the half-resolution planes
+        are re-sampled from it at the phase of the native gather's
+        nearest map."""
+        Image = self._image_module()
+        if width % 2 or height % 2:
+            raise ValueError("packed 4:2:0 needs even geometry")
+        data, frames = self._frames(video)
+        count = len(frames)
+        if any(s < 0 for s in clip_starts):
+            raise ValueError("negative clip start in %r" % (clip_starts,))
+        packed = height * width * 3 // 2
+        out = np.empty((len(clip_starts), consecutive_frames, packed),
+                       dtype=np.uint8)
+        maps = None  # per source geometry, built once
+        for ci, start in enumerate(clip_starts):
+            for fi in range(consecutive_frames):
+                off, length = frames[min(start + fi, count - 1)]
+                try:
+                    with Image.open(io.BytesIO(
+                            data[off:off + length])) as im:
+                        im.draft("YCbCr", im.size)
+                        ycc = np.asarray(im.convert("YCbCr"))
+                except (OSError, SyntaxError, ValueError) as e:
+                    raise CorruptVideoError(
+                        "%s frame %d: %s" % (video, start + fi, e)) from e
+                if maps is None or maps[0] != ycc.shape[:2]:
+                    # a file from another encoder may change its frame
+                    # size mid-stream
+                    h, w = ycc.shape[:2]
+                    maps = ((h, w),
+                            np.arange(height) * h // height,
+                            np.arange(width) * w // width,
+                            np.arange(height // 2) * (h // 2)
+                            // (height // 2) * 2,
+                            np.arange(width // 2) * (w // 2)
+                            // (width // 2) * 2)
+                _, rows, cols, crows, ccols = maps
+                y = ycc[rows][:, cols, 0]
+                u = ycc[crows][:, ccols, 1]
+                v = ycc[crows][:, ccols, 2]
+                out[ci, fi] = np.concatenate(
+                    [y.ravel(), u.ravel(), v.ravel()])
+        return out
+
     def decode_clips_dct(self, video: str, clip_starts: List[int],
                          consecutive_frames: int = 8,
                          width: int = DEFAULT_WIDTH,
                          height: int = DEFAULT_HEIGHT,
                          coeffs: Optional[int] = None) -> np.ndarray:
-        """int16 ``(num_clips, consecutive_frames, elems)`` wire rows.
-        The source geometry must be the asked one (coefficients cannot
-        be resized); a spectrum over the budget raises."""
+        """int16 ``(num_clips, consecutive_frames, elems)`` wire rows
+        through the pure-Python coefficient decoder (no PIL: libjpeg
+        never exposes coefficients). The source geometry must be the
+        asked one (coefficients cannot be resized); a spectrum over the
+        budget raises."""
         from rnb_tpu_torch.decode.jpeg_dct import jpeg_frame_dct
         from rnb_tpu_torch.ops.dct import dct_frame_elems, pack_frame_dct
         elems = dct_frame_elems(height, width, coeffs)
@@ -496,14 +591,15 @@ def write_y4m(path: str, frames: np.ndarray,
 #: caches survive across requests (the native one is made at first use:
 #: it builds the library)
 _DECODERS = {"synth": SyntheticDecoder(), "y4m": Y4MDecoder(),
-             "mjpeg": MjpegDecoder()}
+             "mjpeg": MjpegPILDecoder()}
 _decoders_lock = threading.Lock()
 
 
 def get_decoder(video: str):
     """The process-wide decoder for one video: ``synth://`` ids, and
-    ``.y4m`` and ``.mjpg``/``.mjpeg`` files on the native decoder (on
-    numpy under ``RNB_DISABLE_NATIVE``). Anything else raises."""
+    ``.y4m`` and ``.mjpg``/``.mjpeg`` files on the native decoder (under
+    ``RNB_DISABLE_NATIVE`` on :class:`Y4MDecoder` and
+    :class:`MjpegPILDecoder`). Anything else raises."""
     if video.startswith(SYNTH_PREFIX):
         return _DECODERS["synth"]
     if not video.endswith((".y4m", ".mjpg", ".mjpeg")):

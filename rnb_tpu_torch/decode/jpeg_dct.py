@@ -3,8 +3,10 @@
 A copy of ``rnb_tpu/decode/jpeg_dct.py``: a from-the-spec (ITU T.81
 sequential DCT, 8-bit, Huffman) entropy decoder that stops the MJPEG
 decode at dequantized 8x8 DCT coefficients (libjpeg never exposes
-them). It is correct but slow: a native decode pool is the performance
-path, not yet ported.
+them). It is correct but slow: the native decode pool
+(``rnb_tpu_torch/decode/native.py``) is the performance path, and this
+decoder serves MJPEG's dct entry under ``RNB_DISABLE_NATIVE``
+(``MjpegPILDecoder``), and the tests as the coefficients' oracle.
 
 Scope matches the dct wire format (``rnb_tpu_torch/ops/dct.py``):
 3-component 4:2:0 (2x2, 1x1, 1x1) sampling, geometry divisible by 16

@@ -145,6 +145,18 @@ def _check_pixel_path(pixel_path: str) -> None:
                          % (PIXEL_PATHS, pixel_path))
 
 
+def _fallback_threads(fallback_decode_threads) -> int:
+    """The width of a loader's pool for decodes off the native pool: the
+    native pool's rule (``default_decode_threads``) unless given."""
+    if fallback_decode_threads is None:
+        return default_decode_threads()
+    threads = int(fallback_decode_threads)
+    if threads < 1:
+        raise ValueError("fallback_decode_threads must be >= 1, got %r"
+                         % (fallback_decode_threads,))
+    return threads
+
+
 def _dct_coeffs(pixel_path: str, dct_coeffs_per_frame) -> Optional[int]:
     """The dct wire's per-frame coefficient budget (the default rule
     when unset); None on the other paths, which refuse the key."""
@@ -454,7 +466,15 @@ class R2P1DLoader(_TraceStamps, StageModel):
     ``submit()`` / ``complete()`` / ``discard()`` and the executor starts
     the decode of requests N+1..N+k on a thread pool while request N's
     device work runs; the decode span on the TimeCard then measures only
-    the residual wait.
+    the residual wait. The native pool decodes prefetched requests
+    straight into staging slots: ``staging_slots`` of them (default
+    ``prefetch + 2``, never fewer; 0 turns the slots off and the native
+    decodes are copied like the numpy ones); without ``prefetch`` every
+    decode is synchronous and takes no slot. Decodes off the native pool
+    (numpy, PIL, synthetic) run on ``fallback_decode_threads`` threads
+    (default ``default_decode_threads()``). ``transfer_async`` is
+    refused, as in the reference: this stage completes each request
+    synchronously.
 
     With ``cache_mb`` a clip cache serves repeated videos and a request
     whose video is decoding in the prefetch window shares that decode. A
@@ -479,10 +499,19 @@ class R2P1DLoader(_TraceStamps, StageModel):
                  num_warmups: int = NUM_WARMUPS, raw_output: bool = False,
                  row_buckets=None, prefetch: int = 0,
                  pixel_path: str = "rgb", cache_mb: float = 0,
+                 staging_slots=None, transfer_async: bool = False,
+                 fallback_decode_threads=None,
                  ragged: bool = False, ragged_pool_rows=None,
                  dct_coeffs_per_frame=None):
         super().__init__(device)
         _check_pixel_path(pixel_path)
+        if transfer_async:
+            raise ValueError(
+                "transfer_async requires a stage that emits "
+                "asynchronously (R2P1DFusingLoader); %s completes "
+                "requests synchronously" % type(self).__name__)
+        self.fallback_decode_threads = _fallback_threads(
+            fallback_decode_threads)
         self.torch_device = _device_of(device)
         self.pixel_path = pixel_path
         #: raw mode ships the padded uint8 wire batch unnormalized, for a
@@ -527,13 +556,20 @@ class R2P1DLoader(_TraceStamps, StageModel):
         self._decode_pool = None  # built at the first numpy submit
         self._starts_cache: Dict[str, list] = {}
         #: the slots the native pool decodes prefetched requests into,
-        #: one a request: the prefetch window, the head request and one
-        #: transferring (the reference's sizing; without prefetch every
-        #: decode is synchronous and targets no slot)
+        #: one a request: by default the prefetch window, the head
+        #: request and one transferring, and never fewer (fewer would
+        #: deadlock submit against its own complete); the reference's
+        #: sizing. Without prefetch every decode is synchronous and
+        #: targets no slot, so ``staging_slots`` is ignored there.
+        if staging_slots is not None and int(staging_slots) < 0:
+            raise ValueError("staging_slots must be >= 0 (0 disables "
+                             "staging), got %r" % (staging_slots,))
+        min_slots = self.prefetch_depth + 2
+        slots = min_slots if staging_slots is None else int(staging_slots)
         self.staging = None
-        if self.prefetch_depth > 0 and native_enabled():
+        if self.prefetch_depth > 0 and slots and native_enabled():
             self.staging = StagingPool(self._batch_shape(self.max_clips),
-                                       self.prefetch_depth + 2,
+                                       max(slots, min_slots),
                                        self.torch_device,
                                        _wire_dtype(pixel_path))
         #: the copy path: a numpy decode or a synchronous one is copied
@@ -906,7 +942,7 @@ class R2P1DLoader(_TraceStamps, StageModel):
         else:
             if self._decode_pool is None:
                 self._decode_pool = ThreadPoolExecutor(
-                    max_workers=default_decode_threads(),
+                    max_workers=self.fallback_decode_threads,
                     thread_name_prefix="rnb-decode")
             handle = _DecodeHandle(None, n, key=key,
                                    future=self._decode_pool.submit(
@@ -1063,8 +1099,12 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
     admitted (submit-time row planning: a slot takes ``fuse`` requests
     or ``max_clips`` rows, the emission rules below) and its decode
     starts at once: ``.y4m`` and ``.mjpg`` files on the native C++ pool,
-    which decodes straight into those rows, other ids on numpy threads,
-    which copy their result into them. Requests whose decode finished
+    which decodes straight into those rows, everything else (synthetic
+    ids, and the numpy and PIL decoders under ``RNB_DISABLE_NATIVE``) on
+    ``fallback_decode_threads`` threads (default
+    ``default_decode_threads()``), which copy their result into them.
+    ``prefetch`` is refused with the reference's message: the in-flight
+    window is ``depth``. Requests whose decode finished
     are taken in FIFO order and emitted as ONE fused batch with a
     TimeCardList; the emission copies their rows from the slots to the
     card (one copy per run of adjacent rows) with no assembly copy on
@@ -1141,9 +1181,16 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
                  pixel_path: str = "rgb", staging_slots=None,
                  transfer_async: bool = False, ragged: bool = False,
                  ragged_pool_rows=None, dct_coeffs_per_frame=None,
-                 cache_mb=None):
+                 cache_mb=None, fallback_decode_threads=None,
+                 prefetch: int = 0):
+        if prefetch:
+            raise ValueError(
+                "R2P1DFusingLoader manages its own decode pipeline; "
+                "its in-flight window is `depth`, not `prefetch`")
         super().__init__(device)
         _check_pixel_path(pixel_path)
+        self.fallback_decode_threads = _fallback_threads(
+            fallback_decode_threads)
         self.dct_coeffs = _dct_coeffs(pixel_path, dct_coeffs_per_frame)
         if int(fuse) < 1:
             raise ValueError("fuse must be >= 1, got %r" % (fuse,))
@@ -1178,6 +1225,13 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
                              if self.ragged else None)
         slots = (self.DEFAULT_STAGING_SLOTS if staging_slots is None
                  else int(staging_slots))
+        if slots < 1:
+            # the reference falls back to copying emissions; here every
+            # request's rows are planned into a slot at submit
+            raise ValueError(
+                "R2P1DFusingLoader plans each request's rows into a "
+                "staging slot: staging_slots must be >= 1, got %r"
+                % (staging_slots,))
         self.staging = StagingPool(self._batch_shape(self.max_clips),
                                    slots, self.torch_device,
                                    _wire_dtype(pixel_path))
@@ -1571,7 +1625,7 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
             else:
                 if self._decode_pool is None:
                     self._decode_pool = ThreadPoolExecutor(
-                        max_workers=default_decode_threads(),
+                        max_workers=self.fallback_decode_threads,
                         thread_name_prefix="rnb-decode")
                 rec.copied = True
                 rec.future = self._decode_pool.submit(

@@ -101,8 +101,13 @@ summed to the totals, no host bytes where the job's config copy declares
 ``handoff.mode`` "device"; hedges won + lost == fired; every planned
 step at least one replica and, on a complete trace, each step's
 predicted occupancy within max(25%, 0.05) of its traced ``model_call`` +
-``device_sync`` busy fraction. :func:`check_job` returns every
-violation of one job.
+``device_sync`` busy fraction. Of the lock-order witness (``Locks:``,
+``Lock edges:``; the reference's ``_check_locks`` but for its last
+step, the observed edges against rnb-lint's static lock-order graph,
+which the port does not have yet): the two lines come together, the
+counts foot against the detail, no edge without an acquisition or a
+witnessed lock behind it, and no violation. :func:`check_job` returns
+every violation of one job.
 A violation is printed and the exit code is 1 (``--check`` is accepted
 and changes nothing: the checks always run).
 """
@@ -136,7 +141,8 @@ JSON_LINES = {"Failure reasons": "failure_reasons",
               "Shard steps": "shard_step_detail",
               "Health lanes": "health_lane_detail",
               "Handoff edges": "handoff_edge_detail",
-              "Placement": "placement"}
+              "Placement": "placement",
+              "Lock edges": "lock_edge_detail"}
 #: the suffix of every deadline shed site (rnb_tpu_torch.health)
 DEADLINE_SUFFIX = ":deadline_expired"
 
@@ -1210,6 +1216,44 @@ def netedge_problems(meta: dict) -> List[str]:
     return problems
 
 
+def lock_problems(meta: dict) -> List[str]:
+    """The lock-order witness's ledger (the reference's ``_check_locks``
+    without its static-graph step)."""
+    locks = meta["lines"].get("Locks")
+    detail = meta.get("lock_edge_detail")
+    if locks is None:
+        return (["log-meta carries a 'Lock edges:' line but no 'Locks:' "
+                 "totals line"] if detail is not None else [])
+    if detail is None:
+        return ["log-meta carries a 'Locks:' line but no 'Lock edges:' "
+                "detail line"]
+    edges = [tuple(e) for e in detail.get("edges", [])]
+    violations = detail.get("violations", [])
+    problems = ["negative locks_%s" % k for k in (
+        "tracked", "acquires", "edges", "violations") if locks.get(k, 0) < 0]
+    if len(edges) != locks.get("edges", 0):
+        problems.append("'Lock edges:' lists %d edge(s) but the Locks: line "
+                        "says edges=%d" % (len(edges), locks.get("edges", 0)))
+    if len(violations) != locks.get("violations", 0):
+        problems.append("'Lock edges:' lists %d violation(s) but the Locks: "
+                        "line says violations=%d"
+                        % (len(violations), locks.get("violations", 0)))
+    if violations:
+        problems.append("lock-order witness recorded %d discipline "
+                        "violation(s): %s" % (len(violations), "; ".join(
+                            str(v) for v in violations[:5])))
+    if locks.get("edges", 0) > locks.get("acquires", 0):
+        problems.append("locks_edges=%d exceeds locks_acquires=%d — an order "
+                        "edge with no acquisition behind it"
+                        % (locks.get("edges", 0), locks.get("acquires", 0)))
+    named = {name for edge in edges for name in edge}
+    if len(named) > locks.get("tracked", 0):
+        problems.append("%d distinct lock name(s) appear in edges but only "
+                        "locks_tracked=%d were witnessed"
+                        % (len(named), locks.get("tracked", 0)))
+    return problems
+
+
 def health_problems(meta: dict) -> List[str]:
     """The lane boards' invariants (the reference's ``_check_health``):
     every lane's transition path is a legal walk of the automaton that
@@ -1476,7 +1520,8 @@ def summarize(log_dir: str) -> dict:
                    trace_dropped=int(lines["Trace"]["dropped"]))
     for head in ("Metrics", "Slo", "Critpath", "Autotune", "Faults",
                  "Deadline", "Compute", "Memory", "Shard", "Whatif",
-                 "Operator", "Stacks", "Health", "Net", "Net errors"):
+                 "Operator", "Stacks", "Health", "Net", "Net errors",
+                 "Locks"):
         if head in lines:
             out[head.lower().replace(" ", "_")] = {
                 k: int(v) for k, v in lines[head].items()}
@@ -1507,6 +1552,7 @@ def summarize(log_dir: str) -> dict:
                                + operator_problems(log_dir, meta)
                                + health_problems(meta)
                                + netedge_problems(meta)
+                               + lock_problems(meta)
                                + handoff_problems(log_dir, meta)
                                + hedge_problems(meta)
                                + placement_problems(log_dir, meta))

@@ -39,7 +39,18 @@ stage, waits for its device work (the honest ``inference{i}_finish``
 stamp, as the reference's ``stream.synchronize()``), checks the
 produced payload against the stage's declared shapes, and publishes it
 downstream — or, on the
-final step, counts the completions and registers their TimeCards.
+final step, counts the completions and registers their TimeCards. A
+step with ``async_dispatch`` (``sync_outputs`` False, the reference's
+rule) skips that wait: its ``inference{i}_finish`` is then the host's
+clock when the stage call returned, that is when its kernels were
+queued on the stage's stream, and the device work is waited for later
+by whoever reads it — the next stage's stream, ordered behind it, or on
+the final step the outputs sink's copy to the host, if there is one. A
+replica lane serves on a stream of its own, so there the order is made
+on the card: a lane behind an async step makes its stream wait for the
+card's default stream, where that step queued its work, before it calls
+its stage. An async replica step that feeds another step is refused by
+the config (its lane streams would need joining into the consumer's).
 Accumulating stages (the fusing loader, the batcher) get idle polls so
 a held batch emits on its hold timeout, and are flushed at end of
 stream. A group with several out queues asks its queue selector where
@@ -196,6 +207,12 @@ class RunnerContext:
     fin_bar: threading.Barrier
     model_class_path: str
     model_kwargs: Dict[str, Any] = field(default_factory=dict)
+    #: wait for the stage's device work before ``inference{i}_finish``
+    #: (False under the step's ``async_dispatch``)
+    sync_outputs: bool = True
+    #: the step upstream dispatches asynchronously: a lane stream must
+    #: wait for the card's default stream before reading its payloads
+    upstream_async: bool = False
     #: class path of the selector that routes over ``out_queues``
     queue_selector_path: str = DEFAULT_QUEUE_SELECTOR
     #: this producer's ring credits (None on the final step)
@@ -326,6 +343,17 @@ def _sync(payload) -> None:
     for pb in payload:
         if pb.data.is_cuda:
             torch.cuda.current_stream(pb.data.device).synchronize()
+
+
+def _order_behind_default(payload) -> None:
+    """A consumer behind an async step: its stream waits for the card's
+    default stream, where the producer queued its work."""
+    for pb in payload:
+        if pb.data.is_cuda:
+            current = torch.cuda.current_stream(pb.data.device)
+            default = torch.cuda.default_stream(pb.data.device)
+            if current != default:
+                current.wait_stream(default)
 
 
 #: the cache stamps the outputs sink records per request
@@ -1066,6 +1094,8 @@ def runner(ctx: RunnerContext) -> None:
                         with hostprof.section(tr_handoff), \
                                 trace.span(tr_handoff):
                             payload = handoff.take(payload)
+                    if ctx.upstream_async and payload:
+                        _order_behind_default(payload)
                     try:
                         result = _call_stage(ctx, model, payload,
                                              non_tensors, time_card, None,
@@ -1085,7 +1115,7 @@ def runner(ctx: RunnerContext) -> None:
             if time_card is None:
                 continue  # the stage swallowed the item
             validate_payload(declared, tensors_out, where)
-            if tensors_out:
+            if tensors_out and ctx.sync_outputs:
                 t_sync = time.monotonic() if busy is not None else None
                 with hostprof.section(tr_device_sync), \
                         trace.span(tr_device_sync, _rid(time_card)):

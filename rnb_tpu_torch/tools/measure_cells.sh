@@ -40,7 +40,16 @@
 # torchckpt-file (its copy serving a converted checkpoint: the synthetic
 # reference file of rnb_tpu_torch/tools/synth_ckpt.py, centred on the
 # dataset and converted beside it, its time printed); all
-# but dct and the netedge cells over a generated y4m dataset. With
+# but dct and the netedge cells over a generated y4m dataset. The MJPEG
+# cells serve trees written beside the y4m one by the port's own encoder
+# (rnb_tpu_torch/dataset.py --format mjpeg, the JAX package's frame
+# generator), each frame entropy-decoded on the native pool: big-mjpeg
+# (configs/rnb-fused-yuv-big.json, yuv420) and whole-mjpeg
+# (configs/r2p1d-whole.json, rgb) over a quality-90 tree, dct-mjpeg
+# (configs/rnb-fused-dct-ragged.json, the native coefficient decode in
+# place of dct's numpy synth:// decode) over a quality-70 tree whose
+# every frame fits the dct budget (--dct-budget); the encoder's seconds
+# for each tree are printed (the dataset's own line). With
 # RNB_HOST_PROFILE=1 in the environment every run also writes
 # hostprof.txt, and its sections are printed at the end.
 # RNB_MEASURE_VIDEOS sets the bulk request count
@@ -100,6 +109,12 @@ for name in ("r2p1d-segment", "rnb-shard-d1", "rnb-shard-d2", "r2p1d-mesh",
     json.dump(raw, open(os.path.join(sys.argv[1], name + "-1card.json"), "w"))
 PY
 case " $cells " in
+  *"-mjpeg "*)
+    for tree in "mjpeg 90" "mjpeg-dct 70 --dct-budget"; do
+      python3 -m rnb_tpu_torch.dataset "$data/${tree%% *}" --videos 64 --format mjpeg --quality ${tree#* }
+    done ;;
+esac
+case " $cells " in
   *" torchckpt-file "*) python3 -m rnb_tpu_torch.tools.synth_ckpt "$data/ckpt" --data "$data" ;;
 esac
 run() {  # run <cell> <args...>
@@ -135,12 +150,20 @@ run() {  # run <cell> <args...>
     mesh-yuv) cfg=$data/r2p1d-mesh-yuv-1card.json ;;
     torchckpt) cfg=configs/rnb-fused-yuv-big-torchckpt.json ;;
     torchckpt-file) cfg=$data/ckpt/rnb-fused-yuv-big-torchckpt-file.json ;;
+    big-mjpeg) cfg=configs/rnb-fused-yuv-big.json ;;
+    whole-mjpeg) cfg=configs/r2p1d-whole.json ;;
+    dct-mjpeg) cfg=configs/rnb-fused-dct-ragged.json ;;
     *) echo "unknown cell $cell" >&2; exit 2 ;;
+  esac
+  root=$data
+  case $cell in
+    dct-mjpeg) root=$data/mjpeg-dct ;;
+    *-mjpeg) root=$data/mjpeg ;;
   esac
   if [ "$cell" = dct ] || [ "${cell#netedge}" != "$cell" ]; then
     env -u RNB_TPU_DATA_ROOT python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath|Faults|Deadline|Compute|Memory|Net|Health|\[rnb-tpu-torch\] (operator|netedge))"
   else
-    RNB_TPU_DATA_ROOT="$data" python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath|Faults|Deadline|Compute|Memory|Net|Health|\[rnb-tpu-torch\] (operator|netedge))"
+    RNB_TPU_DATA_ROOT="$root" python3 -m rnb_tpu_torch.benchmark -c $cfg --seed 0 --log-base $out "$@" 2>&1 | grep -E "^(Result|Logs|Throughput|Cache|Pages|Autotune|Metrics|Critpath|Faults|Deadline|Compute|Memory|Net|Health|\[rnb-tpu-torch\] (operator|netedge))"
   fi
 }
 for c in $cells; do echo "== $c bulk"; run $c -mi 0 -v $videos; done

@@ -99,3 +99,52 @@ def test_the_flagship_flops_are_bench_py_s():
     with open(os.path.join(REPO, "configs/rnb-fused-yuv-big.json")) as f:
         raw = json.load(f)
     assert flops_per_clip_for_config(raw) == jax_flops_per_clip(raw)
+
+
+def test_the_mjpeg_mode_serves_compressed_files_on_the_native_pool(
+        tmp_path):
+    tmp = str(tmp_path)
+    config, _ = _reduced_config(tmp)
+    root = make_dataset(os.path.join(tmp, "data"), videos=4, frames=16,
+                        fmt="mjpeg")
+    code, line = _run({"RNB_BENCH_PLATFORM": "cpu",
+                       "RNB_BENCH_DATASET": "mjpeg",
+                       "RNB_BENCH_VIDEOS": "6",
+                       "RNB_BENCH_CONFIG": config,
+                       "RNB_TPU_DATA_ROOT": root}, tmp)
+    assert code == 0, line
+    assert BENCH_KEYS <= set(line)
+    assert line["decode_backend"] == "native-mjpeg"
+    assert line["value"] > 0 and line["num_videos"] == 6
+    assert line["dataset"] == os.path.relpath(root, REPO)
+
+
+def test_a_root_holding_both_formats_is_refused(tmp_path):
+    tmp = str(tmp_path)
+    config, _ = _reduced_config(tmp)
+    root = make_dataset(os.path.join(tmp, "data"), videos=2, frames=16,
+                        fmt="mjpeg")
+    make_dataset(root, videos=1, frames=16)  # a y4m video beside them
+    for mode in ("mjpeg", "y4m"):
+        code, line = _run({"RNB_BENCH_PLATFORM": "cpu",
+                           "RNB_BENCH_DATASET": mode,
+                           "RNB_BENCH_CONFIG": config,
+                           "RNB_TPU_DATA_ROOT": root}, tmp)
+        assert code == 1 and line["value"] is None
+        assert "of another format beside the %s dataset" % mode \
+            in line["error"]
+    code, line = _run({"RNB_BENCH_PLATFORM": "cpu",
+                       "RNB_BENCH_DATASET": "avi"}, tmp)
+    assert code == 1 and "must be y4m, mjpeg or synth" in line["error"]
+
+
+@pytest.mark.parametrize("mode,backends,name", [
+    ("mjpeg", "native", "native-mjpeg"), ("mjpeg", "mjpeg", "pil-mjpeg"),
+    ("y4m", "native", "native-y4m"), ("y4m", "y4m", "y4m-y4m"),
+    ("synth", "synth", "synthetic")])
+def test_decode_backend_names_what_decoded(mode, backends, name, tmp_path):
+    sys.path.insert(0, REPO)
+    import bench_cuda
+    with open(tmp_path / "log-meta.txt", "w") as f:
+        f.write("Pixel path: yuv420\nDecode backend: %s\n" % backends)
+    assert bench_cuda._decode_backend(str(tmp_path), mode) == name

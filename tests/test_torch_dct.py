@@ -32,9 +32,10 @@ from rnb_tpu.models.r2p1d import checkpoint as jax_ckpt
 from rnb_tpu.models.r2p1d.model import _shared_apply
 from rnb_tpu.ops import dct as jax_dct
 from rnb_tpu_torch.config import load_config
-from rnb_tpu_torch.decode import (CorruptVideoError, MjpegDecoder,
-                                  SyntheticDecoder, Y4MDecoder, get_decoder,
-                                  scan_mjpeg_frames, write_y4m)
+from rnb_tpu_torch.decode import (CorruptVideoError, MjpegPILDecoder,
+                                  SyntheticDecoder, Y4MDecoder,
+                                  get_decoder, scan_mjpeg_frames,
+                                  write_y4m)
 from rnb_tpu_torch.devices import DeviceSpec
 from rnb_tpu_torch.models.r2p1d.checkpoint import from_jax_variables
 from rnb_tpu_torch.models.r2p1d.model import (R2P1DFusingLoader,
@@ -377,7 +378,7 @@ def mjpeg_file(tmp_path_factory):
 
 def test_mjpeg_coefficients_bitwise_equal_to_jax(mjpeg_file, monkeypatch):
     # tolerance: none — the same integer entropy decode
-    ours, ref = MjpegDecoder(), JaxMjpegDecoder()
+    ours, ref = MjpegPILDecoder(), JaxMjpegDecoder()
     assert ours.num_frames(mjpeg_file) == ref.num_frames(mjpeg_file) == 6
     with open(mjpeg_file, "rb") as f:
         data = f.read()
@@ -396,13 +397,14 @@ def test_mjpeg_coefficients_bitwise_equal_to_jax(mjpeg_file, monkeypatch):
     np.testing.assert_array_equal(
         native.decode_clips_dct(mjpeg_file, starts, 4, 112, 112), got)
     monkeypatch.setenv("RNB_DISABLE_NATIVE", "1")
-    assert isinstance(get_decoder(mjpeg_file), MjpegDecoder)
+    assert isinstance(get_decoder(mjpeg_file), MjpegPILDecoder)
 
 
 def test_mjpeg_convert_within_one_step_of_numpy_oracle(mjpeg_file):
     # the reference's own bound between its float32 jnp twin and the
     # float64 numpy oracle on real JPEG content (tests/test_dct.py)
-    wire = MjpegDecoder().decode_clips_dct(mjpeg_file, [0], 4, 112, 112)
+    wire = MjpegPILDecoder().decode_clips_dct(mjpeg_file, [0], 4, 112,
+                                              112)
     out = dct.normalize_dct(torch.from_numpy(wire[0][None]), 112, 112,
                             torch.float32).numpy()
     oracle = dct.dct_rows_to_rgb_numpy(wire, 112, 112)
@@ -412,7 +414,7 @@ def test_mjpeg_convert_within_one_step_of_numpy_oracle(mjpeg_file):
 
 
 def test_mjpeg_rejections(mjpeg_file, tmp_path):
-    dec = MjpegDecoder()
+    dec = MjpegPILDecoder()
     with pytest.raises(CorruptVideoError):
         dec.decode_clips_dct(mjpeg_file, [0], 1, 96, 96)   # no resize
     with pytest.raises(CorruptVideoError):

@@ -29,7 +29,7 @@ import torch
 from rnb_tpu.decode import write_mjpeg
 from rnb_tpu.decode.native import NativeY4MDecoder as JaxNativeDecoder
 from rnb_tpu.decode.native import native_available as jax_native_available
-from rnb_tpu_torch.decode import (CorruptVideoError, MjpegDecoder,
+from rnb_tpu_torch.decode import (CorruptVideoError, MjpegPILDecoder,
                                   Y4MDecoder, get_decoder, write_y4m)
 from rnb_tpu_torch.decode import native
 from rnb_tpu_torch.devices import DeviceSpec
@@ -139,8 +139,8 @@ def test_dct_over_mjpeg_byte_equal_to_jax_native_and_numpy(mjpeg_files):
     assert got.dtype == np.int16
     assert got.shape == (3, 8, dct_frame_elems(HW, HW, FULL_COEFFS))
     np.testing.assert_array_equal(
-        got, MjpegDecoder().decode_clips_dct(path, starts, 8, HW, HW,
-                                             FULL_COEFFS))
+        got, MjpegPILDecoder().decode_clips_dct(path, starts, 8, HW, HW,
+                                                FULL_COEFFS))
     if jax_native_available():
         np.testing.assert_array_equal(got, JaxNativeDecoder().
                                       decode_clips_dct(path, starts, 8, HW,
@@ -182,7 +182,7 @@ def test_get_decoder_takes_the_native_backend_and_the_switch(
     assert get_decoder("synth://kinetics/video-0001").BACKEND == "synth"
     monkeypatch.setenv("RNB_DISABLE_NATIVE", "1")
     assert isinstance(get_decoder(y4m_files[0]), Y4MDecoder)
-    assert isinstance(get_decoder(mjpeg_files[0]), MjpegDecoder)
+    assert isinstance(get_decoder(mjpeg_files[0]), MjpegPILDecoder)
 
 
 # -- the fusing loader on the native pool --------------------------------

@@ -593,10 +593,12 @@ class _Scraper(threading.Thread):
             while json.loads(self._call(url, "/healthz")[1])["window_s"] \
                     <= 0:
                 time.sleep(0.02)
-            for route in ("/metrics", "/stacks"):
-                self._call(url, route)
             while b"snapshot seq" not in self._call(url, "/statusz")[1]:
                 time.sleep(0.02)
+            # after the first snapshot, so the live exposition holds
+            # counters to hold against the teardown's
+            for route in ("/metrics", "/stacks"):
+                self._call(url, route)
             # calibrated once a snapshot holds a completed dispatch of
             # each step
             while not json.loads(self._call(
@@ -919,8 +921,8 @@ def test_check_prints_the_reference_s_posture(config):
 def test_check_refuses_a_config_the_port_does_not_read(config, tmp_path):
     with open(config) as f:
         raw = json.load(f)
-    # the reference's key for an asynchronous step, not ported
-    raw["pipeline"][1]["async_dispatch"] = True
+    # a pixel path no stage of the port has (nor the reference's)
+    raw["pipeline"][1]["pixel_path"] = "nv12"
     path = str(tmp_path / os.path.basename(config))
     with open(path, "w") as f:
         json.dump(raw, f)

@@ -385,6 +385,22 @@ def test_keys_of_unported_parts_stay_refused(where, key, value):
         assert parse_config(raw, platform="cpu").steps[1].kwargs[
             "ckpt_path"] == "r2p1d.npz"
         return
+    if key in ("staging_slots", "transfer_async", "async_dispatch"):
+        # ported with the loader and launch keys: the plain loader reads
+        # its staging slots; transfer_async reads too, and the stage
+        # refuses it with the reference's message; async_dispatch is a
+        # step key
+        config = parse_config(raw, platform="cpu")
+        if key == "async_dispatch":
+            assert config.steps[1].async_dispatch is True
+            assert key not in config.steps[1].kwargs
+            return
+        assert config.steps[0].kwargs[key] == value
+        if key == "transfer_async":
+            with pytest.raises(ValueError, match="transfer_async requires "
+                               "a stage that emits asynchronously"):
+                port_model.R2P1DLoader(None, transfer_async=True)
+        return
     with pytest.raises(ConfigError, match="not yet ported"):
         parse_config(raw, platform="cpu")
 

@@ -32,6 +32,7 @@ from rnb_tpu import batcher as jax_batcher
 from rnb_tpu import selector as jax_selector
 from rnb_tpu import stage as jax_stage
 from rnb_tpu import telemetry as jax_telemetry
+from rnb_tpu.decode import MjpegPILDecoder as JaxMjpegPILDecoder
 from rnb_tpu.decode import SyntheticDecoder as JaxSyntheticDecoder
 from rnb_tpu.decode import Y4MDecoder as JaxY4MDecoder
 from rnb_tpu.models.r2p1d import checkpoint as jax_ckpt
@@ -41,8 +42,8 @@ from rnb_tpu.ops.preprocess import \
 from rnb_tpu.ops.ragged import _ragged_normalize_pallas
 from rnb_tpu.ops.ragged import ragged_normalize_u8 as jax_ragged_normalize_u8
 from rnb_tpu_torch.batcher import Batcher
-from rnb_tpu_torch.decode import (MjpegDecoder, SyntheticDecoder, Y4MDecoder,
-                                  write_y4m)
+from rnb_tpu_torch.decode import (MjpegPILDecoder, SyntheticDecoder,
+                                  Y4MDecoder, write_mjpeg, write_y4m)
 from rnb_tpu_torch.devices import DeviceSpec
 from rnb_tpu_torch.models.r2p1d.checkpoint import (filter_layer_range,
                                                    from_jax_variables)
@@ -181,8 +182,19 @@ def test_decode_clips_rejects_what_it_cannot_decode(tmp_path):
         f.truncate(os.path.getsize(path) - 100)  # cut inside frame 3
     with pytest.raises(ValueError, match="truncated"):
         decoder.decode_clips(path, [2], 2, 16, 16)
-    with pytest.raises(ValueError, match="not yet ported"):
-        MjpegDecoder().decode_clips("clip.mjpg", [0])
+    # MJPEG's rgb entry without the native library: PIL's decode,
+    # bitwise the JAX package's, or an error that names PIL
+    mjpg = str(tmp_path / "v.mjpg")
+    write_mjpeg(mjpg, _u8((4, 16, 16, 3)), quality=90)
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        with pytest.raises(ModuleNotFoundError, match="PIL"):
+            MjpegPILDecoder().decode_clips(mjpg, [0], 2, 16, 16)
+    else:
+        np.testing.assert_array_equal(
+            MjpegPILDecoder().decode_clips(mjpg, [0, 3], 2, 8, 12),
+            JaxMjpegPILDecoder().decode_clips(mjpg, [0, 3], 2, 8, 12))
 
 
 # -- the unfused loader ------------------------------------------------

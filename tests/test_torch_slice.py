@@ -557,6 +557,13 @@ def test_unported_keys_are_refused(where, key, value):
         assert parse_config(raw, platform="cpu").steps[1].kwargs[
             "ckpt_path"] == "weights.npz"
         return
+    if (where, key) == ("runner", "async_dispatch"):
+        # ported with the loader and launch keys: a step key, not a
+        # stage kwarg
+        config = parse_config(raw, platform="cpu")
+        assert config.steps[1].async_dispatch is True
+        assert key not in config.steps[1].kwargs
+        return
     message = {("root", "devobs"): r"'devobs' has unknown key\(s\) "
                                    r"\['xplane'\]",
                ("root", "operator"): r"'operator' has unknown key\(s\) "
