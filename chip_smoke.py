@@ -70,6 +70,9 @@ Phases (any failure exits non-zero and prints no result line):
    alone (``torch.roll`` of the members' stacked bytes), the conv5
    leaf's gather and the merge (``torch.cat``), and a whole forward's
    gather at degree 2, beside its 19 gathers one leaf at a time;
+   then rnb-lint of the port (``phase_lint``): ``python -m
+   rnb_tpu_torch.tools.lint`` over the checkout exits 0, its per-family
+   finding, baselined and stale counts and its seconds printed;
 4. path: serve ``configs/rnb-fused-yuv-big.json`` and
    ``configs/rnb-fused-yuv-ragged.json`` over a generated y4m dataset,
    and ``configs/rnb-fused-dct-ragged.json`` over ``synth://`` ids, at
@@ -250,6 +253,14 @@ Phases (any failure exits non-zero and prints no result line):
    redispatched. Each run launches only ``rnb_ragged_normalize_u8``, once
    per loader emission, prints each lane's graph pool and capture
    seconds, and has two requests recomputed on the CPU. Then the
+   lock-order witness (``phase_witness``): the big config, the r4 lane
+   copy and the paged cell served again with ``lint: {"lock_witness":
+   true}`` at their unarmed workloads, each with zero witness
+   violations and ``check_job`` green (every observed edge in rnb-lint's
+   static lock-order graph), the paged cell's hits observing
+   ``ClipCache._lock -> Pager.lock``, the big and r4 copies serving the
+   unarmed runs' class ids past the bf16 margin; each run's ``Locks:``
+   ledger and videos/s printed beside the unarmed run's. Then the
    clip-sharded mesh stage (``phase_mesh``): one-card copies of
    ``configs/r2p1d-mesh.json`` (33 requests in bulk, so the last
    dispatch's dp axis is padded with a zero video) and
@@ -298,6 +309,11 @@ Phases (any failure exits non-zero and prints no result line):
    to what ``nvidia-smi`` lists there beside this one (what was there
    before it is printed, not required to be empty), and the probe warns
    about ``cuda:0`` while it does.
+   Then every job directory the smoke wrote (``phase_check_jobs``)
+   through the port's whole ``check_job`` (the reference's
+   ``check_job_detail`` for the files the port writes), its count
+   printed; a ``seconds`` line gives the lint, witness and check phases'
+   seconds.
    Every run: each ``R2P1DRunner`` forward in the window is one replay
    of a captured CUDA graph (``Graphs:`` replays == ``Compiles:``
    steady calls, or requests for the single step), no signature is new
@@ -490,6 +506,17 @@ RNB_BATCH = 6
 #: video's first forward stored its logits (in bulk the loader admits
 #: every request before the first forward ends)
 ZIPF_INTERVAL_MS = 25
+#: the witness-armed copies (``phase_witness``), written beside the
+#: dataset: the big config, the r4 lane copy, and the paged cell, whose
+#: hits pin pages under the cache's lock (the one nesting of witnessed
+#: locks the port has)
+ARMED_BIG = "rnb-fused-yuv-big-armed"
+ARMED_R4 = "rnb-scaleout-r4-1card-armed"
+ARMED_PAGED = "paged-zipf-armed"
+#: the unarmed runs' outputs the armed ones are held to, by label
+UNARMED_SINKS = {}
+#: the unarmed runs' videos/s, by label
+UNARMED_VPS = {}
 HW = 112
 FRAMES = 8
 #: a geometry whose width is not a multiple of 16: the yuv420 kernel's
@@ -3323,6 +3350,9 @@ def phase_lanes(data_root, launches):
         counts = _kernels.launch_counts()
         wall = time.time() - t0
         results[label], sinks[label] = result, sink
+        if label == LANES_R4:
+            UNARMED_SINKS[label] = sink
+            UNARMED_VPS[label] = round(result.throughput_vps, 3)
         check(result.termination_flag == 0, "%s terminated with flag %d"
               % (label, result.termination_flag))
         runners = check_lanes_run(label, result, stages, videos)
@@ -3401,6 +3431,147 @@ def phase_lanes(data_root, launches):
               r1.placement["device_budget"],
               json.dumps(r1.placement["plan"], sort_keys=True), budget,
               json.dumps(plan, sort_keys=True)))
+
+
+def armed_copy(data_root, config_path, name) -> str:
+    """``config_path`` with the lock-order witness armed (the root
+    ``lint`` key), a temporary copy beside the dataset."""
+    with open(config_path) as f:
+        raw = json.load(f)
+    raw["lint"] = {"lock_witness": True}
+    path = os.path.join(data_root, name + ".json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def held_class_ids(label, sink, unarmed):
+    """Each request's class id (the argmax of its clips' summed logits)
+    against the unarmed run's: the ids must agree on every request whose
+    unarmed top-2 margin exceeds twice the 2% bf16 bound of the logit
+    scale (the repo's rule: a fused emission's batch may differ between
+    two runs, and with it the bf16 rounding), and on at least half.
+    -> (equal, requests, held)."""
+    import numpy as np
+    check(sorted(sink) == sorted(unarmed), "%s served requests %s, the "
+          "unarmed run %s" % (label, sorted(sink), sorted(unarmed)))
+    equal = held = 0
+    for rid in sorted(sink):
+        total = unarmed[rid][1].sum(axis=0)
+        got = int(np.argmax(sink[rid][1].sum(axis=0)))
+        equal += got == int(np.argmax(total))
+        top2 = np.sort(total)[-2:]
+        if top2[1] - top2[0] > 0.04 * float(np.abs(total).max()):
+            check(got == int(np.argmax(total)), "%s request %d: class id "
+                  "%d, the unarmed run's %d" % (label, rid, got,
+                                               int(np.argmax(total))))
+            held += 1
+    check(2 * held >= len(sink), "%s: %d of %d requests past the margin"
+          % (label, held, len(sink)))
+    return equal, len(sink), held
+
+
+def phase_witness(data_root, launches):
+    """Serve the big config, the r4 lane copy and the paged cell again
+    with the lock-order witness armed (``lint: {"lock_witness": true}``),
+    at the unarmed runs' workloads: each ends cleanly with zero witness
+    violations, ``check_job`` green (every observed lock-order edge in
+    rnb-lint's static graph), the paged cell's hits observe the
+    ``ClipCache._lock -> Pager.lock`` edge, and the big and r4 copies
+    serve the unarmed runs' class ids (:func:`held_class_ids`). Prints each run's ``Locks:``
+    ledger and its videos/s beside the unarmed run's. Adds the runs'
+    launches to ``launches``."""
+    from rnb_tpu_torch.analysis.concurrency import static_lock_order_edges
+    from rnb_tpu_torch.benchmark import run_benchmark
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.parse_utils import check_job_detail, read_meta
+    os.environ["RNB_TPU_DATA_ROOT"] = data_root
+    declared = static_lock_order_edges()
+    runs = [(ARMED_BIG, CONFIGS[0], os.path.join(HERE, CONFIGS[0]),
+             dict(mean_interval_ms=0, num_videos=VIDEOS_PER_RUN, seed=0,
+                  queue_size=50000)),
+            (ARMED_R4, LANES_R4, one_card_copy(data_root, SCALEOUT_R4,
+                                               LANES_R4),
+             dict(mean_interval_ms=0, num_videos=LANES_VIDEOS,
+                  seed=LANES_SEED, queue_size=LANES_QUEUE)),
+            (ARMED_PAGED, PAGED, os.path.join(HERE, PAGED),
+             dict(mean_interval_ms=ZIPF_INTERVAL_MS,
+                  num_videos=VIDEOS_PER_RUN, seed=0, queue_size=50000))]
+    for label, unarmed, config_path, workload in runs:
+        sink = {}
+        _kernels.reset_launches()
+        t0 = time.time()
+        result = run_benchmark(armed_copy(data_root, config_path, label),
+                               print_progress=False,
+                               log_base=os.path.join(data_root, "logs"),
+                               outputs_sink=sink, **workload)
+        wall = time.time() - t0
+        for name, count in _kernels.launch_counts().items():
+            launches[name] += count
+        check(result.termination_flag == 0, "%s terminated with flag %d"
+              % (label, result.termination_flag))
+        problems, parse_failed = check_job_detail(result.log_dir)
+        check(not problems and not parse_failed, "%s: check_job: %s"
+              % (label, "; ".join(problems[:5])))
+        detail = read_meta(os.path.join(result.log_dir, "log-meta.txt"))[
+            "lock_edge_detail"]
+        edges = sorted(tuple(edge) for edge in detail["edges"])
+        check(result.locks_violations == 0 and not detail["violations"],
+              "%s: witness violations %s" % (label, detail["violations"]))
+        check(set(edges) <= declared, "%s: edges %s outside the static "
+              "graph" % (label, sorted(set(edges) - declared)))
+        check(result.locks_tracked >= 1 and result.locks_acquires >= 1,
+              "%s: the witness saw no lock (tracked %d, acquires %d)"
+              % (label, result.locks_tracked, result.locks_acquires))
+        if label == ARMED_PAGED:
+            check(("ClipCache._lock", "Pager.lock") in edges,
+                  "%s: the paged hits' cache -> pager edge was not "
+                  "observed: %s" % (label, edges))
+            same = "not compared (Poisson arrivals)"
+        else:
+            same = ("%d of %d equal, %d held past the bf16 margin"
+                    % held_class_ids(label, sink, UNARMED_SINKS[unarmed]))
+        print("witness %s: %d requests, %.3f videos/s (unarmed %s), wall "
+              "%.1f s; Locks: tracked=%d acquires=%d edges=%d violations=%d;"
+              " edges %s; class ids %s" % (
+                  label, result.num_completed, result.throughput_vps,
+                  UNARMED_VPS.get(unarmed), wall, result.locks_tracked,
+                  result.locks_acquires, result.locks_edges,
+                  result.locks_violations, json.dumps(edges), same))
+
+
+def phase_lint():
+    """rnb-lint of the port over the checkout, on this machine: the CLI
+    exits 0 (no finding beyond the baseline, no stale entry); its
+    per-family counts and its seconds are printed."""
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rnb_tpu_torch.tools.lint"], cwd=HERE,
+        capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        print("lint: %s" % line)
+    check(proc.returncode == 0, "rnb-lint exited %d:\n%s%s" % (
+        proc.returncode, proc.stdout[-4000:], proc.stderr[-4000:]))
+    print("lint: %.1f s" % (time.time() - t0))
+
+
+def phase_check_jobs(data_root):
+    """Every job directory the smoke wrote, on every path, through the
+    port's whole ``check_job``: no problem and nothing unreadable."""
+    from rnb_tpu_torch.parse_utils import check_job_detail
+    t0 = time.time()
+    jobs = sorted(dirpath for dirpath, _dirs, names
+                  in os.walk(os.path.join(data_root, "logs"))
+                  if "log-meta.txt" in names)
+    for job in jobs:
+        problems, parse_failed = check_job_detail(job)
+        check(not problems and not parse_failed, "%s: check_job%s: %s" % (
+            os.path.relpath(job, data_root),
+            " (unreadable)" if parse_failed else "",
+            "; ".join(problems[:5])))
+    check(jobs, "no job directory under %s" % data_root)
+    print("check_job: %d job directories, every one green (%.1f s)"
+          % (len(jobs), time.time() - t0))
 
 
 def mesh_recompute(config_path, sink, runner):
@@ -4393,6 +4564,9 @@ def phase_path(data_root, videos_per_run):
                   % (label, result.window_launches[name], name, emissions))
         if label == WHOLE:
             whole_sink = sink
+        if label in (CONFIGS[0], PAGED):
+            UNARMED_SINKS[label] = sink
+            UNARMED_VPS[label] = round(result.throughput_vps, 3)
         if label in UNFUSED:
             check_unfused_run(label, result, sink, whole_sink)
         if label == TRACED:
@@ -4513,6 +4687,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     t_start = time.time()
+    seconds_of = {}
     # the fixed dataset root is relative to the checkout
     os.chdir(HERE)
     data_root = SMOKE_ROOT
@@ -4588,12 +4763,21 @@ def main() -> int:
         mix = clip_mix(data_root)
         print("dataset %s: %d videos, %.4f clips a request over them"
               % (data_root, len(mix), sum(mix.values()) / len(mix)))
+        t_lint = time.time()
+        phase_lint()
+        seconds_of["lint"] = time.time() - t_lint
         launches = phase_path(data_root, VIDEOS_PER_RUN)
         phase_lanes(data_root, launches)
+        t_witness = time.time()
+        phase_witness(data_root, launches)
+        seconds_of["witness"] = time.time() - t_witness
         phase_mesh(data_root, launches)
         phase_ckpt(data_root, launches)
         phase_bench_cuda(data_root)
         phase_mjpeg(data_root, launches)
+        t_checks = time.time()
+        phase_check_jobs(data_root)
+        seconds_of["check_jobs"] = time.time() - t_checks
 
         sass_out, _ = sass.communicate()
         check(sass.returncode == 0, "sass_counts failed:\n%s" % sass_out)
@@ -4618,6 +4802,8 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t.get("library_ms"),
                 **{key: t[key] for key in EXTRA_ROW_KEYS if key in t}})
+        print("seconds: %s" % json.dumps(
+            {k: round(v, 1) for k, v in seconds_of.items()}))
         print("total %.1f s" % (time.time() - t_start))
         print(json.dumps({"kernels": rows}))
         print(smi)

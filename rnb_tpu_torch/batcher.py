@@ -61,6 +61,9 @@ class Batcher(StageModel):
     #: the accumulate/emit decision and the pad bucket can be driven by
     #: the load-adaptive controller
     SUPPORTS_AUTOTUNE = True
+    #: it re-packs whatever its upstream emits: the static graph check
+    #: accepts any upstream row buckets on its input
+    REPACKS_ROWS = True
 
     def __init__(self, device, batch=1, shapes=None, max_rows=MAX_ROWS,
                  consecutive_frames=8, frame_hw=112, row_buckets=None,
@@ -123,6 +126,12 @@ class Batcher(StageModel):
             return tuple(tuple(int(d) for d in s) for s in shapes)
         return ((int(max_rows), int(consecutive_frames), frame_hw,
                  frame_hw, 3),)
+
+    @classmethod
+    def input_shape_for(cls, **model_kwargs):
+        # what it re-packs is what it emits: its input max shapes are
+        # its declared output shapes
+        return cls.output_shape_for(**model_kwargs)
 
     def __call__(self, tensors, non_tensors, time_card):
         if self.batch <= 1:

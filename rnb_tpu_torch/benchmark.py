@@ -141,7 +141,8 @@ from rnb_tpu_torch.netedge import (NET_LANE, PEER_EXIT_S, NetEdgeClient,
 from rnb_tpu_torch.pager import Pager, PagerSettings
 from rnb_tpu_torch.parallel.distributed import check_single_process
 from rnb_tpu_torch.placement import PlacementSettings, build_report
-from rnb_tpu_torch.runner import NUM_SUMMARY_SKIPS, RunnerContext, runner
+from rnb_tpu_torch.runner import (NUM_SUMMARY_SKIPS, RunnerContext,
+                                  finish_outputs, runner)
 from rnb_tpu_torch.stacksampler import StackSampler
 from rnb_tpu_torch.statusz import OperatorServer, OperatorSettings
 from rnb_tpu_torch.telemetry import latency_percentiles, logmeta, logroot
@@ -160,6 +161,9 @@ PAGES_LINE_KEYS = ("arenas", "pages", "page_rows", "live", "limbo", "bytes",
                    "feature_gathers", "feature_gather_rows",
                    "feature_bytes_saved", "feature_entries",
                    "bypassed_batches")
+#: the ``Ragged:`` line's counters, in the reference's order
+RAGGED_LINE_KEYS = ("pool_rows", "emissions", "rows", "pad_rows_eliminated",
+                    "cache_hit_rows")
 
 
 @dataclass
@@ -178,6 +182,7 @@ class BenchmarkResult:
     num_completed: int = 0
     pad_rows: int = 0
     total_rows: int = 0
+    pad_emissions: int = 0
     #: kernel launches inside the measured window, by kernel name
     window_launches: Dict[str, int] = field(default_factory=dict)
     #: sum of device kernel time in the window (profiled runs only)
@@ -191,7 +196,14 @@ class BenchmarkResult:
     cache_coalesced: int = 0
     cache_oversize: int = 0
     cache_bytes_resident: int = 0
-    #: rows ragged cache hits served into pools (the ``Ragged:`` line)
+    #: the ``Ragged:`` line over every ragged batching stage (all zero
+    #: without the root ``ragged`` key): the largest pool, emissions,
+    #: valid rows, pad rows a bucket would have shipped, and rows ragged
+    #: cache hits served into pools
+    ragged_pool_rows: int = 0
+    ragged_emissions: int = 0
+    ragged_rows: int = 0
+    ragged_pad_rows_eliminated: int = 0
     ragged_cache_hit_rows: int = 0
     #: the ``Pages:`` log-meta line's counters (empty without ``pager``)
     pages: Dict[str, int] = field(default_factory=dict)
@@ -1096,6 +1108,8 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                        for name, count in _kernels.launch_counts().items()}
     for t in threads:
         t.join(timeout=60)
+    if outputs_sink is not None:
+        finish_outputs(outputs_sink)
     if edge is not None:
         edge.finish(pad_sink)
     # every thread has drained: uninstall the tracer (or the bridge)
@@ -1138,10 +1152,15 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     pct = latency_percentiles(latencies)
     pad_rows = sum(p["pad_rows"] for p in pad_sink)
     total_rows = sum(p["total_rows"] for p in pad_sink)
+    pad_emissions = sum(p["emissions"] for p in pad_sink)
     device = (torch.cuda.get_device_name(0) if config.platform == "cuda"
               else "cpu")
     cache_stats = aggregate_snapshots(cache_sink) if cache_sink else None
-    cache_hit_rows = sum(r.get("cache_hit_rows", 0) for r in ragged_sink)
+    ragged_totals = dict.fromkeys(RAGGED_LINE_KEYS, 0)
+    if ragged_sink:
+        ragged_totals.update(
+            {k: sum(r[k] for r in ragged_sink) for k in RAGGED_LINE_KEYS},
+            pool_rows=max(r["pool_rows"] for r in ragged_sink))
     pages_summary = None
     if pager is not None:
         # every thread has joined: occupancy is settled, so the
@@ -1242,8 +1261,9 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
         p50_latency_ms=pct.get(50.0), p99_latency_ms=pct.get(99.0),
         clips_completed=clips, num_completed=completed,
         pad_rows=pad_rows, total_rows=total_rows,
+        pad_emissions=pad_emissions,
         window_launches=window_launches, kernel_ms=kernel_ms,
-        ragged_cache_hit_rows=cache_hit_rows,
+        **{"ragged_" + k: v for k, v in ragged_totals.items()},
         pages=dict(pages_summary) if pages_summary else {},
         compiles=compiles, warmup_s=warmup, graphs=graphs,
         trace_events=trace_events, trace_dropped=trace_dropped,
@@ -1328,12 +1348,15 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
         f.write("Faults: num_failed=%d num_shed=%d num_retries=%d\n"
                 % (faults["num_failed"], faults["num_shed"],
                    faults["num_retries"]))
-        for head, key in (("Failure reasons", "failure_reasons"),
-                          ("Shed sites", "shed_sites"),
-                          ("Queue overflows", "overflow_sites")):
-            if faults[key]:
-                f.write("%s: %s\n" % (head, json.dumps(faults[key],
-                                                       sort_keys=True)))
+        if faults["failure_reasons"]:
+            f.write("Failure reasons: %s\n" % json.dumps(
+                faults["failure_reasons"], sort_keys=True))
+        if faults["shed_sites"]:
+            f.write("Shed sites: %s\n" % json.dumps(faults["shed_sites"],
+                                                    sort_keys=True))
+        if faults["overflow_sites"]:
+            f.write("Queue overflows: %s\n" % json.dumps(
+                faults["overflow_sites"], sort_keys=True))
         if deadline_snap is not None:
             # parse_utils cross-foots the sites with the deadline-suffixed
             # entries of Shed sites:
@@ -1353,27 +1376,29 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
             if health_stats["lane_detail"]:
                 f.write("Health lanes: %s\n" % json.dumps(
                     health_stats["lane_detail"], sort_keys=True))
-        f.write("Device: %s\n" % device)
+        # JSON, never two words: the reference's reader takes a line of
+        # exactly two words for the window's timestamps
+        f.write("Device: %s\n" % json.dumps(
+            {"name": device, "platform": config.platform}, sort_keys=True))
         for ingest in ingest_sink:
-            # no "=" in these lines: they are names, not counters
+            # no "=" in these lines: they are names, not counters; a
+            # loader that decoded nothing (every request served remotely)
+            # names "none", never an empty value of two words
             f.write("Pixel path: %s\n" % ingest["pixel_path"])
             f.write("Decode backend: %s\n"
-                    % ",".join(sorted(ingest["backends"])))
+                    % (",".join(sorted(ingest["backends"])) or "none"))
         # the clip rows the final step completed: every batching stage
         # counts its own rows into Padding: and Ragged:, so a loader
         # followed by a batcher counts a clip twice there
         f.write("Completed: requests=%d clips=%d\n" % (completed, clips))
-        f.write("Padding: pad_rows=%d total_rows=%d\n"
-                % (pad_rows, total_rows))
+        f.write("Padding: pad_rows=%d total_rows=%d pad_emissions=%d\n"
+                % (pad_rows, total_rows, pad_emissions))
         if ragged_sink:
             # one line over every ragged batching stage (a loader, a
             # batcher), as the reference writes it
             f.write("Ragged: pool_rows=%d emissions=%d rows=%d "
                     "pad_rows_eliminated=%d cache_hit_rows=%d\n"
-                    % ((max(r["pool_rows"] for r in ragged_sink),)
-                       + tuple(sum(r[k] for r in ragged_sink) for k in (
-                           "emissions", "rows", "pad_rows_eliminated",
-                           "cache_hit_rows"))))
+                    % tuple(ragged_totals[k] for k in RAGGED_LINE_KEYS))
         if handoff_stats is not None:
             # handoff runs only; the reference's format: d2d + host ==
             # edges, and host_bytes 0 on a device config
@@ -1524,12 +1549,17 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
             # frames_acked + resent_pending, dedup_drops == dup_arrivals,
             # the error classes to the total, no strands on a reached
             # target; NetStats.COUNTERS is the reference's order
-            f.write("Net: %s\n" % " ".join(
-                "%s=%d" % (k, net_snap[k]) for k in NetStats.COUNTERS
-                if not k.startswith("err_")))
-            f.write("Net errors: %s\n" % " ".join(
-                "%s=%d" % (k[4:], net_snap[k]) for k in NetStats.COUNTERS
-                if k.startswith("err_")))
+            f.write("Net: frames_sent=%d frames_acked=%d resent_pending=%d "
+                    "resends=%d beats=%d reconnects=%d remote=%d local=%d "
+                    "dedup_drops=%d dup_arrivals=%d wire_bytes=%d "
+                    "frame_bytes=%d window_stranded=%d "
+                    "open_before_timeout=%d\n" % tuple(
+                        net_snap[k] for k in NetStats.COUNTERS
+                        if not k.startswith("err_")))
+            f.write("Net errors: total=%d refused=%d reset=%d timeout=%d "
+                    "partial_frame=%d corrupt=%d\n" % tuple(
+                        net_snap[k] for k in NetStats.COUNTERS
+                        if k.startswith("err_")))
         if lock_snap is not None:
             # the reference's lines; parse_utils holds violations to 0
             # and the counts to the detail

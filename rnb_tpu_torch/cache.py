@@ -30,12 +30,13 @@ Counters are exact and surface as the ``Cache:`` log-meta line and the
 from __future__ import annotations
 
 import os
-import threading
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from rnb_tpu_torch import lockwitness
 
 #: stat signature for ids that are not files (synth:// ids): their
 #: content is deterministic per id
@@ -80,6 +81,24 @@ class PagedEntry:
 class ClipCache:
     """Bounded, byte-accounted LRU of decoded clip batches."""
 
+    GUARDED_BY = {
+        "_entries": "_lock",
+        "_arena": "_lock",
+        "capacity_bytes": "_lock",
+        "resident_bytes": "_lock",
+        "num_hits": "_lock",
+        "num_misses": "_lock",
+        "num_inserts": "_lock",
+        "num_evictions": "_lock",
+        "num_coalesced": "_lock",
+        "num_oversize": "_lock",
+    }
+
+    UNGUARDED_OK = {
+        "_copy_stream": "created at the first insert_host, on the "
+                        "emission path one thread runs at a time",
+    }
+
     def __init__(self, cache_mb: float, device=None):
         if cache_mb <= 0:
             raise ValueError("cache_mb must be > 0 to build a ClipCache "
@@ -88,7 +107,7 @@ class ClipCache:
         self.capacity_bytes = int(float(cache_mb) * (1 << 20))
         self.device = torch.device(device) if device is not None \
             else torch.device("cpu")
-        self._lock = threading.Lock()
+        self._lock = lockwitness.lock("ClipCache._lock")
         self._entries: "OrderedDict[tuple, Any]" = OrderedDict()
         self.resident_bytes = 0
         self.num_hits = 0
@@ -291,8 +310,10 @@ class InflightTable:
     """Key -> in-flight record, for request coalescing. Records leave
     when their decode is finalized (taken for emission or discarded)."""
 
+    GUARDED_BY = {"_records": "_lock"}
+
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockwitness.lock("InflightTable._lock")
         self._records: Dict[tuple, Any] = {}
 
     def get(self, key: tuple) -> Optional[Any]:

@@ -59,6 +59,13 @@ class SignatureTracker:
     __slots__ = ("_warmup", "_steady_new", "_steady_calls", "_frozen",
                  "_lock")
 
+    GUARDED_BY = {
+        "_warmup": "_lock",
+        "_steady_new": "_lock",
+        "_steady_calls": "_lock",
+        "_frozen": "_lock",
+    }
+
     def __init__(self):
         self._warmup: set = set()
         self._steady_new: set = set()

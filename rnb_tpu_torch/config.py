@@ -155,8 +155,22 @@ class ConfigError(ValueError):
     pass
 
 
-def _not_ported(what: str) -> ConfigError:
-    return ConfigError("%s is not yet ported to rnb_tpu_torch" % what)
+class UnresolvedClassError(ConfigError):
+    """A step's model or a group's selector names a class the port does
+    not have (rnb-lint files it under RNB-G002)."""
+
+
+class UnconsumedKeyError(ConfigError):
+    """A step or group key its stage class does not take (RNB-G005)."""
+
+
+class ShardSpecError(ConfigError):
+    """A ``shard`` key on a stage that declares no partition
+    (RNB-G010)."""
+
+
+def _not_ported(what: str, error=ConfigError) -> ConfigError:
+    return error("%s is not yet ported to rnb_tpu_torch" % what)
 
 
 def port_class_path(path: str) -> str:
@@ -169,12 +183,13 @@ def port_class_path(path: str) -> str:
     return path
 
 
-def _check_keys(raw: dict, allowed, where: str) -> None:
+def _check_keys(raw: dict, allowed, where: str,
+                error=ConfigError) -> None:
     if not isinstance(raw, dict):
         raise ConfigError("%s must be an object, got %r" % (where, raw))
     for key in raw:
         if key != COMMENT_KEY and key not in allowed:
-            raise _not_ported("%s key %r" % (where, key))
+            raise _not_ported("%s key %r" % (where, key), error)
 
 
 @dataclasses.dataclass
@@ -1056,12 +1071,14 @@ def parse_config(raw: dict, platform: Optional[str] = None
             step_raw, dict) else step_raw)
         class_name = model.rpartition(".")[2]
         if class_name not in MODEL_KEYS:
-            raise _not_ported("%s model %r" % (where, step_raw["model"]))
+            raise _not_ported("%s model %r" % (where, step_raw["model"]),
+                              UnresolvedClassError)
         if step_raw.get("shard") is not None and class_name != "R2P1DRunner":
-            raise ConfigError("%s: 'shard' needs a stage that declares a "
-                              "partition (R2P1DRunner), not %s"
-                              % (where, class_name))
-        _check_keys(step_raw, STEP_KEYS | MODEL_KEYS[class_name], where)
+            raise ShardSpecError("%s: 'shard' needs a stage that declares a "
+                                 "partition (R2P1DRunner), not %s"
+                                 % (where, class_name))
+        _check_keys(step_raw, STEP_KEYS | MODEL_KEYS[class_name], where,
+                    UnconsumedKeyError)
         _check_loader_knobs(step_raw, step_idx)
         kwargs = {k: v for k, v in step_raw.items()
                   if k in MODEL_KEYS[class_name]}
@@ -1072,7 +1089,7 @@ def parse_config(raw: dict, platform: Optional[str] = None
         groups = []
         for group_raw in step_raw.get("queue_groups", ()):
             _check_keys(group_raw, GROUP_KEYS | MODEL_KEYS[class_name],
-                        where + " queue group")
+                        where + " queue group", UnconsumedKeyError)
             devices = group_raw.get("devices")
             if not devices:
                 raise ConfigError("%s: every queue group needs devices"
@@ -1081,7 +1098,8 @@ def parse_config(raw: dict, platform: Optional[str] = None
                 "queue_selector", DEFAULT_QUEUE_SELECTOR))
             if selector.rpartition(".")[2] not in QUEUE_SELECTORS:
                 raise _not_ported("%s queue_selector %r"
-                                  % (where, group_raw["queue_selector"]))
+                                  % (where, group_raw["queue_selector"]),
+                                  UnresolvedClassError)
             group_kwargs = {k: v for k, v in group_raw.items()
                             if k in MODEL_KEYS[class_name]}
             if "shard_devices" in group_kwargs:

@@ -19,6 +19,7 @@ target, so a run whose last requests failed or were shed still ends.
 from __future__ import annotations
 
 import enum
+import math
 import queue
 import threading
 import time
@@ -28,6 +29,23 @@ from rnb_tpu_torch import metrics
 
 #: end-of-stream markers sent on every edge
 NUM_EXIT_MARKERS = 10
+
+
+def get_segmented_shapes(shapes: Tuple[Tuple[int, ...], ...],
+                         num_segments: int) -> Tuple[Tuple[int, ...], ...]:
+    """Shrink per-output max shapes to one segment's worth of rows
+    (the reference's ``get_segmented_shapes``): a step with
+    ``num_segments=k`` splits each output batch row-wise into k segments,
+    so downstream stages only ever see ``ceil(rows/k)`` rows."""
+    if num_segments <= 1:
+        return shapes
+    out = []
+    for shape in shapes:
+        if not shape:
+            raise ValueError(
+                "cannot segment a scalar output shape %r" % (shape,))
+        out.append((math.ceil(shape[0] / num_segments),) + tuple(shape[1:]))
+    return tuple(out)
 
 
 class TerminationFlag(enum.IntEnum):
@@ -42,6 +60,11 @@ class TerminationFlag(enum.IntEnum):
 
 class TerminationState:
     """A raise-once job termination flag; the first raise wins."""
+
+    UNGUARDED_OK = {
+        "_value": "first-writer-wins under _lock; bare reads observe "
+                  "a monotone raise-once flag",
+    }
 
     def __init__(self):
         self._value = TerminationFlag.UNSET
@@ -149,6 +172,11 @@ class InferenceCounter:
     will never owe more work counts toward the target, so a run with
     contained failures still ends."""
 
+    UNGUARDED_OK = {
+        "_value": "add() is atomic under _lock; bare value reads are "
+                  "a progress gauge",
+    }
+
     def __init__(self):
         self._value = 0
         self._lock = threading.Lock()
@@ -182,6 +210,8 @@ class EdgeTracker:
     """Producer countdown for one queue edge: only the last producer
     to finish sends the exit markers, so markers never overtake a
     slower sibling's items."""
+
+    GUARDED_BY = {"_remaining": "_lock"}
 
     def __init__(self, num_producers: int, num_markers: int):
         self._remaining = num_producers

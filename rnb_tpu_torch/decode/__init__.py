@@ -152,6 +152,8 @@ class Y4MDecoder:
 
     BACKEND = "y4m"
 
+    GUARDED_BY = {"_meta": "_lock"}
+
     def __init__(self):
         self._meta = {}
         self._lock = threading.Lock()
@@ -403,6 +405,8 @@ class MjpegPILDecoder:
     bitwise. Frames past the end repeat the last one."""
 
     BACKEND = "mjpeg"
+
+    GUARDED_BY = {"_index": "_lock"}
 
     def __init__(self):
         # the frame index only: bytes are re-read per call, so a long

@@ -158,6 +158,13 @@ class DecodePool:
     _shared = None
     _shared_lock = threading.Lock()
 
+    GUARDED_BY = {"_pending": "_pending_lock"}
+
+    UNGUARDED_OK = {
+        "_pool": "set in __init__, cleared only by close() at "
+                 "teardown after in-flight tickets drain",
+    }
+
     def __init__(self, num_threads: Optional[int] = None):
         self._lib = load_native()
         if num_threads is None:
@@ -249,6 +256,8 @@ class NativeY4MDecoder:
     each chunk into its own slice of the one output."""
 
     BACKEND = "native"
+
+    GUARDED_BY = {"_count_cache": "_count_lock"}
 
     def __init__(self):
         self._lib = load_native()

@@ -206,6 +206,8 @@ class InflightDepths:
     plus in-service dispatches, so a lane wedged on a slow batch keeps
     its depth and stops receiving work."""
 
+    GUARDED_BY = {"_depths": "_lock"}
+
     def __init__(self, queue_indices):
         self._lock = threading.Lock()
         self._depths: Dict[int, int] = {int(q): 0 for q in queue_indices}

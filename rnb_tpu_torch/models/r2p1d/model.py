@@ -66,6 +66,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import Dict, Optional
 
 import numpy as np
@@ -80,8 +81,8 @@ from rnb_tpu_torch.decode.native import (PIX_DCT, PIX_RGB, PIX_YUV420,
                                          DecodePool, NativeY4MDecoder,
                                          default_decode_threads,
                                          native_enabled)
-from rnb_tpu_torch.faults import (FATAL, TRANSIENT, classify_error,
-                                  fault_reason)
+from rnb_tpu_torch.faults import (FATAL, TRANSIENT, TransientDecodeError,
+                                  classify_error, fault_reason)
 from rnb_tpu_torch.health import expired as deadline_expired
 from rnb_tpu_torch.models.r2p1d.checkpoint import load_or_init
 from rnb_tpu_torch.models.r2p1d.flops import range_flops_per_clip
@@ -392,6 +393,23 @@ def warn_warmup_skipped(path: str, error: Exception) -> None:
           % (path, error))
 
 
+#: the longest a request waits for a fallback decode thread (the
+#: reference's bound): past it the decode is a transient failure of that
+#: request, never a hang of the stage
+FALLBACK_DECODE_TIMEOUT_S = 120.0
+
+
+def _fallback_result(future, video: str, timeout: float):
+    """A fallback decode thread's result, waited at most ``timeout``
+    seconds; a wedged decode raises :class:`TransientDecodeError`."""
+    try:
+        return future.result(timeout=timeout)
+    except FuturesTimeout:
+        raise TransientDecodeError(
+            "fallback decode of %s unresponsive for %.0fs"
+            % (video, timeout)) from None
+
+
 class _DecodeHandle:
     """Decode work of one request, started ahead of its turn: ``wait()``
     blocks until the clip rows are in ``out``.
@@ -424,9 +442,9 @@ class _DecodeHandle:
         self.tickets = tickets  # native pool tickets, or None
         self.video = video
 
-    def wait(self) -> None:
+    def wait(self, timeout: float = FALLBACK_DECODE_TIMEOUT_S) -> None:
         if self.leader is not None:
-            self.leader.wait()
+            self.leader.wait(timeout=timeout)
             self.out = self.leader.out
             return
         if self.error is not None:
@@ -436,7 +454,8 @@ class _DecodeHandle:
                 tickets, self.tickets = self.tickets, None
                 wait_tickets(tickets, self.video)
             if self.future is not None:
-                self.out = self.future.result()
+                self.out = _fallback_result(self.future, self.video,
+                                            timeout)
                 self.future = None
         except Exception as e:
             self.error = e
@@ -957,7 +976,7 @@ class R2P1DLoader(_TraceStamps, StageModel):
         """Wait a submitted decode (the residual the prefetch did not
         hide) and stamp its end."""
         with hostprof.section("loader.decode_wait"):
-            handle.wait()
+            handle.wait(timeout=FALLBACK_DECODE_TIMEOUT_S)
         self._stamp((time_card,), "decode")
         trace.instant("loader.decode_ready", rid=time_card.id)
 
@@ -1001,7 +1020,7 @@ class R2P1DLoader(_TraceStamps, StageModel):
         and release the page pins of an unserved hit."""
         del non_tensors
         try:
-            handle.wait()
+            handle.wait(timeout=FALLBACK_DECODE_TIMEOUT_S)
         except Exception:
             pass  # abort path: decode errors are moot
         # waited, so no decoder writes into the slot rows any more
@@ -1082,14 +1101,15 @@ class _FuseRecord:
             return all(pool.peek(t) for t in self.tickets)
         return self.future is None or self.future.done()
 
-    def wait(self) -> None:
-        """Retire the decode that fills the rows; its error raises."""
+    def wait(self, timeout: float = FALLBACK_DECODE_TIMEOUT_S) -> None:
+        """Retire the decode that fills the rows; its error raises, and
+        so does a fallback decode past ``timeout`` seconds."""
         if self.tickets:
             tickets, self.tickets = self.tickets, None
             wait_tickets(tickets, self.video)
         if self.future is not None:
             future, self.future = self.future, None
-            future.result()
+            _fallback_result(future, self.video, timeout)
 
 
 class R2P1DFusingLoader(_TraceStamps, StageModel):
@@ -1171,6 +1191,28 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
     HARVEST_TICK_S = 0.005
     #: ready-queue poll tick while draining the transfer worker
     FLUSH_TICK_S = 0.0005
+
+    GUARDED_BY = {"_out_ready": "_out_lock"}
+
+    UNGUARDED_OK = {
+        "_ready": "executor-thread confined; only the _out_ready "
+                  "handoff crosses the transfer-worker boundary",
+        "_open_slot": "executor-thread confined (see _ready)",
+        "_open_rows": "executor-thread confined (see _ready)",
+        "_open_count": "executor-thread confined (see _ready)",
+        "_failed": "executor-thread confined (see _ready)",
+        "_stage_retries": "executor-thread confined (see _ready)",
+        "_deadline_shed": "executor-thread confined (see _ready)",
+        "_starts_cache": "executor-thread confined (see _ready)",
+        "_decode_pool": "built at the executor's first numpy submit, "
+                        "shut down by discard_pending at teardown",
+        "autotune": "set by enable_autotune before the start barrier",
+        "ragged_stats": "executor-thread confined (see _ready)",
+        "pager": "set by enable_pager before the start barrier",
+        "_clip_arena": "set by enable_pager before the start barrier",
+        "_zero_pool": "set by enable_pager before the start barrier",
+        "_feature_stub": "set by enable_pager before the start barrier",
+    }
 
     def __init__(self, device, fuse: int = 6, depth: Optional[int] = None,
                  max_hold_ms: float = 5.0,
@@ -1308,6 +1350,12 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
                          dct_coeffs_per_frame=None, **_kwargs):
         return (_wire_batch_shape(max_clips, pixel_path, _dct_coeffs(
             pixel_path, dct_coeffs_per_frame), consecutive_frames),)
+
+    @classmethod
+    def output_dtype_for(cls, pixel_path: str = "rgb", **_kwargs):
+        """What the stage emits: the loader's dtypes (normalized
+        bfloat16 on the rgb path, the wire dtype otherwise)."""
+        return R2P1DLoader.output_dtype_for(pixel_path=pixel_path)
 
     def enable_pager(self, pager) -> None:
         """Executor protocol: install the page allocator before the start
@@ -1662,7 +1710,7 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         raises. The failed decode's tickets are all waited before the
         error surfaces, so no decoder still writes into the rows."""
         try:
-            rec.wait()
+            rec.wait(timeout=FALLBACK_DECODE_TIMEOUT_S)
             return True
         except Exception as e:
             kind = classify_error(e)
@@ -1742,7 +1790,8 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         for rec in self._ready:
             if all(deadline_expired(tc) for tc in rec.cards):
                 try:
-                    rec.wait()  # decode-complete: retires its tickets
+                    # decode-complete: retires its tickets
+                    rec.wait(timeout=FALLBACK_DECODE_TIMEOUT_S)
                 except Exception:
                     pass  # shed either way
                 self._drop_record(rec)
@@ -1881,9 +1930,10 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         transfer and before it is published: gather the hit rows from the
         clip arena over the pool, release their plans, and publish the
         miss rows into pages (insert-after-success: decode and transfer
-        are done). The arena's work is ordered after the transfer stream
-        and confirmed before returning, so the runner's ingest never
-        reads a pool row the gather has not written."""
+        are done). The arena's work is ordered after the transfer stream,
+        and the calling thread's stream after the gather, on the card:
+        the normalize and the runner's ingest behind it never read a pool
+        row the gather has not written, and the host does not wait."""
         stream = self.staging.stream
         with (torch.cuda.stream(stream) if stream is not None
               else contextlib.nullcontext()):
@@ -1898,7 +1948,13 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
                     plan.release()
             for key, row0, n in insert_jobs:
                 self.cache.insert_pages(key, batch, row0, n)
-        self._clip_arena.synchronize()
+        if stream is not None:
+            # the normalize runs on this thread's stream: order it after
+            # the gather (which the transfer stream waits for) on the
+            # card, and keep the rows from reuse until it has read them
+            current = torch.cuda.current_stream(batch.device)
+            current.wait_stream(stream)
+            batch.record_stream(current)
         return batch
 
     def _pop_ready(self):
@@ -2007,7 +2063,7 @@ class R2P1DFusingLoader(_TraceStamps, StageModel):
         threads."""
         for rec in list(self._inflight) + list(self._ready):
             try:
-                rec.wait()
+                rec.wait(timeout=FALLBACK_DECODE_TIMEOUT_S)
             except Exception:
                 pass  # abort path: decode errors are moot
             self._drop_record(rec)
@@ -2152,6 +2208,8 @@ class R2P1DRunner(StageModel):
 
     SUPPORTS_RAGGED = True
     SUPPORTS_PAGER = True
+    #: the step's ``shard`` key slices its layer range's weights
+    SUPPORTS_SHARD = True
 
     def __init__(self, device, start_index: int = 1,
                  end_index: int = NUM_LAYERS,
@@ -2684,6 +2742,10 @@ class R2P1DSingleStep(StageModel):
     ``layer_sizes``, ``ckpt_path``, ``factored_shortcut``) go to the
     embedded runner, the others to the embedded loader."""
 
+    #: the static unconsumed-key check unions their constructor
+    #: parameters with the stage's own
+    FORWARDS_CONFIG_TO = (R2P1DLoader, R2P1DRunner)
+
     def __init__(self, device, num_classes: int = KINETICS_CLASSES,
                  layer_sizes=R18_LAYER_SIZES, max_clips: int = MAX_CLIPS,
                  consecutive_frames: int = CONSECUTIVE_FRAMES,
@@ -2917,17 +2979,16 @@ class R2P1DMeshRunner(StageModel):
     def _dispatch(self, pbs, cards):
         """One step over len(pbs) == dp videos; device predictions out,
         the unretired dispatches bounded."""
-        datas = []
-        for pb in pbs:
-            data = pb.data
-            if data.device != self._si.device:
-                data = data.to(self._si.device)
-            elif data.is_cuda:
+        datas = [pb.data for pb in pbs]
+        for data in datas:
+            if data.is_cuda and data.device == self._si.device:
                 # allocated on the loader's transfer stream: keep its
                 # memory until this stream's work is done
                 data.record_stream(torch.cuda.current_stream(data.device))
-            datas.append(data)
+        # batch first, transfer once
         batch = torch.stack(datas)
+        if batch.device != self._si.device:
+            batch = batch.to(self._si.device)
         mask = self._si.place_mask([pb.valid for pb in pbs])
         self.compiles.observe(batch, mask)
         preds = self.forward(batch, mask).argmax(dim=-1)

@@ -296,6 +296,8 @@ class NetEdgeClient:
         "_eos_sent": "tx-thread confined (EOS drain runs on tx)",
         "_evicted": "written only by the tx dial path; other threads' "
                     "bare bool reads are monotone (never un-evicted)",
+        "rows_sink": "the caller's dict: the rx thread alone writes it, "
+                     "the caller reads it after the run joined",
     }
 
     def __init__(self, settings: NetEdgeSettings, *, board, stats,
@@ -869,6 +871,7 @@ class NetEdgePeer:
         "_wedge_until": "written by the serve thread; the beat thread "
                         "reads a float gate (at worst one extra beat)",
         "model": "published by build_model before the listener binds",
+        "served": "serve-thread confined",
     }
 
     def __init__(self, config, listen: str, seed: int = 0):
@@ -947,10 +950,10 @@ class NetEdgePeer:
         reference's peer catches the two base classes only, so an
         OSError there kills the peer.)"""
         card.add_device(self.device.label)
-        card.record("runner0_start")
+        card.record("runner%d_start" % 0)
         attempt = 0
         while True:
-            card.record("inference0_start")
+            card.record("inference%d_start" % 0)
             try:
                 tensors, non_tensors, out_card = self.model(None, path, card)
                 break
@@ -971,7 +974,7 @@ class NetEdgePeer:
         if batch.data.is_cuda:
             # the honest finish stamp, as the executor's device sync
             torch.cuda.current_stream(batch.data.device).synchronize()
-        out_card.record("inference0_finish")
+        out_card.record("inference%d_finish" % 0)
         return (batch, non_tensors, out_card), None
 
     def _serve_req(self, seq: int, deadline: float, payload: bytes) -> None:

@@ -44,7 +44,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from rnb_tpu_torch import memledger
+from rnb_tpu_torch import lockwitness, memledger
 
 #: fallback arena budget when neither ``pool_mb`` nor a cache-derived
 #: size hint exists (a bare pager on a cache-less config)
@@ -379,9 +379,16 @@ class Pager:
                     "feature_gathers", "feature_gather_rows",
                     "feature_bytes_saved")
 
+    GUARDED_BY = {
+        "counters": "lock",
+        "_arenas": "lock",
+        "_size_hint_bytes": "lock",
+        "_owned_ids": "lock",
+    }
+
     def __init__(self, settings: PagerSettings):
         self.settings = settings
-        self.lock = threading.RLock()
+        self.lock = lockwitness.lock("Pager.lock", threading.RLock)
         self.counters: Dict[str, int] = {k: 0 for k in self.COUNTER_KEYS}
         self._arenas: List[Arena] = []
         self._size_hint_bytes: Optional[int] = None

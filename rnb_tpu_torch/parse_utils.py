@@ -102,14 +102,30 @@ summed to the totals, no host bytes where the job's config copy declares
 step at least one replica and, on a complete trace, each step's
 predicted occupancy within max(25%, 0.05) of its traced ``model_call`` +
 ``device_sync`` busy fraction. Of the lock-order witness (``Locks:``,
-``Lock edges:``; the reference's ``_check_locks`` but for its last
-step, the observed edges against rnb-lint's static lock-order graph,
-which the port does not have yet): the two lines come together, the
-counts foot against the detail, no edge without an acquisition or a
-witnessed lock behind it, and no violation. :func:`check_job` returns
+``Lock edges:``; the reference's ``_check_locks``): the two lines come
+together, the counts foot against the detail, no edge without an
+acquisition or a witnessed lock behind it, no violation, and every
+observed edge in the static lock-order graph of the port's rnb-lint
+(:mod:`rnb_tpu_torch.analysis.concurrency`). :func:`check_job` returns
 every violation of one job.
-A violation is printed and the exit code is 1 (``--check`` is accepted
-and changes nothing: the checks always run).
+Beyond those planes it holds every other invariant of the reference's
+``check_job_detail``: ``Termination flag:`` and the window's two stamps
+present; every timing table parses, and names only stamps this reader
+knows (:data:`TABLE_STAMPS`); the ``# cache`` and ``# padding``
+trailers within the ``Cache:`` and ``Padding:`` lines, the cache's
+inserts within its misses, the staging pools' waits within their
+acquires, the pager's limbo within its live pages, feature inserts equal
+to entries plus evictions and feature gathers within feature hits, pads
+within shipped rows, a ragged pool's valid rows within emissions x pool
+rows and no pad row on a fully ragged run, no negative counter; and the
+phase attribution (the reference's ``_check_phases``): every row's
+phases partition its end-to-end span, and the ``# phases`` trailers and
+the ``Phases:`` line re-derive from the tables.
+:func:`check_job_detail` returns ``(problems, parse_failed)``.
+
+A violation is printed and the exit code is 1; a job the reader cannot
+read (log-meta or a timing table) exits 2 (``--check`` is accepted and
+changes nothing: the checks always run).
 """
 
 from __future__ import annotations
@@ -117,7 +133,7 @@ from __future__ import annotations
 import json
 import os
 import sys
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import re
 
@@ -163,8 +179,8 @@ KERNEL_FAMILIES = (
 
 def read_meta(path: str) -> dict:
     """``log-meta.txt`` -> args, the window's two wall-clock stamps, the
-    in-window kernel launches, the pixel path and decode backend, and
-    the ``Key: k=v ...`` lines."""
+    device, the in-window kernel launches, the pixel path and decode
+    backend, and the ``Key: k=v ...`` lines."""
     meta: dict = {"lines": {}}
     with open(path) as f:
         for line in f.read().splitlines():
@@ -193,6 +209,8 @@ def read_meta(path: str) -> dict:
                 meta["memory_owner_detail"] = json.loads(rest)
             elif head in JSON_LINES:
                 meta[JSON_LINES[head]] = json.loads(rest)
+            elif head == "Device":
+                meta["device"] = json.loads(rest)
             elif head == "Termination flag":
                 meta["termination_flag"] = int(rest)
             elif head in ("Pixel path", "Decode backend"):
@@ -1217,8 +1235,10 @@ def netedge_problems(meta: dict) -> List[str]:
 
 
 def lock_problems(meta: dict) -> List[str]:
-    """The lock-order witness's ledger (the reference's ``_check_locks``
-    without its static-graph step)."""
+    """The lock-order witness's ledger (the reference's ``_check_locks``):
+    the counts foot against the detail, no violation, and every observed
+    edge lies in the port's static lock-order graph
+    (:func:`rnb_tpu_torch.analysis.concurrency.static_lock_order_edges`)."""
     locks = meta["lines"].get("Locks")
     detail = meta.get("lock_edge_detail")
     if locks is None:
@@ -1251,6 +1271,21 @@ def lock_problems(meta: dict) -> List[str]:
         problems.append("%d distinct lock name(s) appear in edges but only "
                         "locks_tracked=%d were witnessed"
                         % (len(named), locks.get("tracked", 0)))
+    if edges:
+        try:
+            from rnb_tpu_torch.analysis.concurrency import \
+                static_lock_order_edges
+            declared = static_lock_order_edges()
+        except Exception as e:
+            problems.append("static lock-order graph unavailable "
+                            "(%s) — observed edges unverified" % e)
+        else:
+            for a, b in edges:
+                if (a, b) not in declared:
+                    problems.append(
+                        "observed lock-order edge %s -> %s is not in "
+                        "the static RNB-C lock-order graph — an "
+                        "undeclared runtime lock dependency" % (a, b))
     return problems
 
 
@@ -1525,6 +1560,8 @@ def summarize(log_dir: str) -> dict:
         if head in lines:
             out[head.lower().replace(" ", "_")] = {
                 k: int(v) for k, v in lines[head].items()}
+    if "Profile" in lines:
+        out["profile"] = dict(lines["Profile"])
     if "autotune_buckets" in meta:
         out["autotune_buckets"] = meta["autotune_buckets"]
     if "Cache" in lines:
@@ -1540,22 +1577,7 @@ def summarize(log_dir: str) -> dict:
             "gathers", "gather_rows", "feature_lookups", "feature_hits",
             "feature_gathers", "bypassed_batches")})
         out["arenas"] = meta.get("arenas")
-    out["footing_problems"] = (footing_problems(meta)
-                               + trace_problems(log_dir, meta)
-                               + metrics_problems(log_dir, meta)
-                               + critpath_problems(log_dir, meta)
-                               + autotune_problems(meta)
-                               + fault_problems(log_dir, meta)
-                               + devobs_problems(log_dir, meta)
-                               + shard_problems(log_dir, meta)
-                               + whatif_problems(log_dir, meta)
-                               + operator_problems(log_dir, meta)
-                               + health_problems(meta)
-                               + netedge_problems(meta)
-                               + lock_problems(meta)
-                               + handoff_problems(log_dir, meta)
-                               + hedge_problems(meta)
-                               + placement_problems(log_dir, meta))
+    out["footing_problems"] = check_job(log_dir)
     profile = os.path.join(log_dir, "profile.json")
     if os.path.exists(profile):
         with open(profile) as f:
@@ -1576,10 +1598,304 @@ def summarize(log_dir: str) -> dict:
     return out
 
 
+#: the timing-table columns this reader knows, as stamp templates (the
+#: ``%d`` is the step; a merged segment card suffixes ``-<sub_id>``):
+#: telemetry.STAMP_REGISTRY's, which rnb-lint's RNB-T002 holds to this
+#: reader. A column outside them is a stamp no report reads.
+TABLE_STAMPS = ("enqueue_filename", "runner%d_start", "inference%d_start",
+                "inference%d_finish", "decode%d_done", "transfer%d_start",
+                "transfer%d_done")
+_TABLE_COLUMN = re.compile("^(%s)(-\\d+)?$" % "|".join(
+    stamp.replace("%d", "\\d+") for stamp in TABLE_STAMPS))
+
+
+def table_problems(path: str) -> List[str]:
+    """One timing table as the reference's reader parses it: a header,
+    then rows whose stamp columns are all numbers; the stamp columns are
+    stamps this reader knows. Empty when it parses."""
+    base = os.path.basename(path)
+    with open(path) as f:
+        lines = [ln.split() for ln in f.read().splitlines()
+                 if ln.strip() and not ln.startswith("#")]
+    if not lines:
+        return []
+    header = lines[0]
+    keys = [k for k in header if not k.startswith("device")]
+    problems = ["%s: column %r is no stamp the reader knows (%s)"
+                % (base, k, ", ".join(TABLE_STAMPS))
+                for k in keys if not _TABLE_COLUMN.match(k)]
+    for idx, row in enumerate(lines[1:], 2):
+        if len(row) != len(header):
+            problems.append("%s unparsable: line %d has %d fields for %d "
+                            "columns" % (base, idx, len(row), len(header)))
+            break
+        try:
+            [float(v) for v in row[:len(keys)]]
+        except ValueError as e:
+            problems.append("%s unparsable: line %d: %s" % (base, idx, e))
+            break
+    return problems
+
+
+def _trailer_sums(tables: List[str]) -> Dict[str, int]:
+    """The tables' ``# cache`` and ``# padding`` trailers summed, with
+    ``saw_cache``/``saw_padding`` set where any table carries one."""
+    sums = dict.fromkeys(("num_hits", "num_tracked", "pad_rows", "rows",
+                          "saw_cache", "saw_padding"), 0)
+    for path in tables:
+        trailers = read_trailers(path)
+        sums["rows"] += len(read_table(path)[1])
+        if "cache" in trailers:
+            sums["saw_cache"] = 1
+            sums["num_hits"] += trailers["cache"].get("num_hits", 0)
+            sums["num_tracked"] += trailers["cache"].get("num_tracked", 0)
+        if "padding" in trailers:
+            sums["saw_padding"] = 1
+            sums["pad_rows"] += trailers["padding"].get("pad_rows", 0)
+    return sums
+
+
+def _negatives(line: dict, prefix: str) -> List[str]:
+    return ["negative %s%s" % (prefix, k) for k, v in sorted(line.items())
+            if v < 0]
+
+
+def ledger_problems(log_dir: str, meta: dict) -> List[str]:
+    """The reference's ledger invariants the port's other checks do not
+    hold: the cache (its ``# cache`` trailers against the ``Cache:``
+    line, inserts within misses), the staging pools (waits within
+    acquires), the pager's remaining identities, the autotune counters'
+    signs, padding (pads within shipped rows, the trailers within the
+    line) and the ragged pool (valid rows within emissions x pool rows,
+    hit rows within valid rows, no pad row on a fully ragged run)."""
+    lines = meta["lines"]
+    sums = _trailer_sums(_tables(log_dir))
+    problems = []
+    cache = lines.get("Cache")
+    if sums["saw_cache"] and cache is None:
+        problems.append("tables carry a '# cache' trailer but log-meta has "
+                        "no 'Cache:' line")
+    if cache is not None:
+        if sums["num_hits"] > cache["hits"] + cache.get("coalesced", 0):
+            problems.append("tables count %d completed cache hits but "
+                            "log-meta records only %d lookup hits (+%d "
+                            "coalesced)" % (sums["num_hits"], cache["hits"],
+                                            cache.get("coalesced", 0)))
+        if sums["num_tracked"] > sums["rows"]:
+            problems.append("cache trailer tracks %d completions but tables "
+                            "hold %d rows" % (sums["num_tracked"],
+                                              sums["rows"]))
+        if cache.get("inserts", 0) > cache.get("misses", 0):
+            problems.append("cache_inserts=%d exceeds cache_misses=%d "
+                            "(inserts happen only after a miss decoded)"
+                            % (cache["inserts"], cache["misses"]))
+        if cache.get("bytes_resident", 0) < 0:
+            problems.append("negative cache_bytes_resident")
+    staging = _staging_totals(meta)
+    if staging:
+        problems += _negatives(staging, "staging_")
+        if staging.get("acquire_waits", 0) > staging.get("acquires", 0):
+            problems.append("staging_acquire_waits=%d exceeds "
+                            "staging_acquires=%d (every wait is part of an "
+                            "acquire)" % (staging["acquire_waits"],
+                                          staging["acquires"]))
+    pages = lines.get("Pages")
+    if pages is not None:
+        problems += _negatives(pages, "pages_")
+        if pages.get("limbo", 0) > pages.get("live", 0):
+            problems.append("pages_limbo=%d exceeds pages_live=%d (limbo "
+                            "pages are off the free list)"
+                            % (pages["limbo"], pages["live"]))
+        if pages.get("feature_inserts", 0) != pages.get(
+                "feature_entries", 0) + pages.get("feature_evictions", 0):
+            problems.append("pages_feature_inserts=%d != "
+                            "pages_feature_entries=%d + "
+                            "pages_feature_evictions=%d (entries leave only "
+                            "by eviction)" % (pages["feature_inserts"],
+                                              pages["feature_entries"],
+                                              pages["feature_evictions"]))
+        if pages.get("feature_gathers", 0) > pages.get("feature_hits", 0):
+            problems.append("pages_feature_gathers=%d exceeds "
+                            "pages_feature_hits=%d (a gather needs a hit "
+                            "plan; shed hits release without gathering)"
+                            % (pages["feature_gathers"],
+                               pages["feature_hits"]))
+    if "Autotune" in lines:
+        problems += _negatives(lines["Autotune"], "autotune_")
+    padding = lines.get("Padding")
+    if padding is not None:
+        if padding["pad_rows"] > padding.get("total_rows", 0):
+            problems.append("pad_rows=%d exceeds total_rows=%d (pads are "
+                            "part of the shipped rows)"
+                            % (padding["pad_rows"], padding["total_rows"]))
+        if sums["saw_padding"] and sums["pad_rows"] > padding["pad_rows"]:
+            problems.append("tables count pad_rows=%d but log-meta says %d "
+                            "(the job-wide counter covers every emission)"
+                            % (sums["pad_rows"], padding["pad_rows"]))
+    ragged = lines.get("Ragged")
+    if ragged is not None:
+        problems += _negatives(ragged, "ragged_")
+        capacity = ragged.get("emissions", 0) * ragged.get("pool_rows", 0)
+        if ragged.get("rows", 0) > capacity:
+            problems.append("ragged_rows=%d exceeds emissions*pool_rows=%d "
+                            "— an emission carried more valid rows than the "
+                            "pool holds" % (ragged["rows"], capacity))
+        if ragged.get("cache_hit_rows", 0) > ragged.get("rows", 0):
+            problems.append("ragged_cache_hit_rows=%d exceeds ragged_rows=%d "
+                            "(hit rows ship inside pool emissions)"
+                            % (ragged["cache_hit_rows"], ragged["rows"]))
+        if padding is not None \
+                and padding.get("pad_emissions") == ragged.get("emissions") \
+                and padding["pad_rows"] > 0:
+            problems.append("pad_rows=%d on a fully ragged run (every "
+                            "emission ragged) — the ragged path must compute "
+                            "no pad rows" % padding["pad_rows"])
+    return problems
+
+
+def phase_problems(log_dir: str, meta: dict,
+                   num_skips: int = NUM_SUMMARY_SKIPS) -> List[str]:
+    """The phase attribution's invariants (the reference's
+    ``_check_phases``): every row's phases partition its end-to-end span
+    within 1 ms, every steady row gives one sample per phase, and the
+    ``# phases`` trailers and the ``Phases:`` line re-derive from the
+    tables."""
+    problems: List[str] = []
+    merged: Dict[str, List[float]] = {}
+    tables = _tables(log_dir)
+    saw_trailer = False
+    for path in tables:
+        base = os.path.basename(path)
+        keys, rows = read_table(path)
+        for row in rows:
+            if len(row) < 2:
+                continue
+            total = sum(attribute_phases(dict(zip(keys, row))).values())
+            e2e_ms = (max(row) - min(row)) * 1e3
+            if abs(total - e2e_ms) > 1.0:
+                problems.append("%s: a request's phases sum to %.3f ms but "
+                                "its end-to-end latency is %.3f ms "
+                                "(attribution must partition the span)"
+                                % (base, total, e2e_ms))
+                break
+        samples: Dict[str, List[float]] = {}
+        for row in rows[num_skips:]:
+            for phase, ms in attribute_phases(dict(zip(keys, row))).items():
+                samples.setdefault(phase, []).append(ms)
+        steady = max(0, len(rows) - num_skips)
+        if samples:
+            counts = {len(vals) for vals in samples.values()}
+            if counts != {steady}:
+                problems.append("%s: phase sample counts %s != steady row "
+                                "count %d (every completed request "
+                                "contributes exactly one sample per phase)"
+                                % (base, sorted(counts), steady))
+            for phase, vals in samples.items():
+                merged.setdefault(phase, []).extend(vals)
+        trailer = read_trailers(path).get("phases")
+        if trailer is None:
+            continue
+        saw_trailer = True
+        stats = phase_stats(samples)
+        n = max((s["count"] for s in stats.values()), default=0)
+        if trailer.get("n") != n:
+            problems.append("%s: '# phases' trailer says n=%s but the table "
+                            "holds %d steady rows" % (base, trailer.get("n"),
+                                                      n))
+        for phase, s in sorted(stats.items()):
+            for stat_key, fmt in (("mean_ms", "%s_mean_us"),
+                                  ("p99_ms", "%s_p99_us")):
+                want = round(s[stat_key] * 1000)
+                got = trailer.get(fmt % phase)
+                if got is None or abs(got - want) > 1:
+                    problems.append("%s: '# phases' trailer %s=%s but the "
+                                    "table's rows recompute to %d"
+                                    % (base, fmt % phase, got, want))
+    if "phases" in meta:
+        if not saw_trailer and tables:
+            problems.append("log-meta carries a 'Phases:' line but no table "
+                            "carries a '# phases' trailer")
+        stats = phase_stats(merged)
+        line = meta["phases"]
+        if set(line) != set(stats):
+            problems.append("'Phases:' line names phases %s but the tables "
+                            "recompute %s" % (sorted(line), sorted(stats)))
+        else:
+            for phase, s in sorted(stats.items()):
+                if line[phase].get("count") != s["count"]:
+                    problems.append("'Phases:' %s count=%s but tables hold "
+                                    "%d steady samples"
+                                    % (phase, line[phase].get("count"),
+                                       s["count"]))
+                for stat_key in ("mean_ms", "p99_ms"):
+                    got = line[phase].get(stat_key)
+                    if got is None or abs(got - s[stat_key]) > 0.005:
+                        problems.append("'Phases:' %s %s=%s but tables "
+                                        "recompute %.6f" % (
+                                            phase, stat_key, got,
+                                            s[stat_key]))
+    elif saw_trailer:
+        problems.append("tables carry a '# phases' trailer but log-meta has "
+                        "no 'Phases:' line")
+    return problems
+
+
+def job_problems(log_dir: str, meta: dict) -> List[str]:
+    """Every invariant over one job's parsable files that does not hold."""
+    return (footing_problems(meta)
+            + ledger_problems(log_dir, meta)
+            + phase_problems(log_dir, meta)
+            + trace_problems(log_dir, meta)
+            + metrics_problems(log_dir, meta)
+            + critpath_problems(log_dir, meta)
+            + autotune_problems(meta)
+            + fault_problems(log_dir, meta)
+            + devobs_problems(log_dir, meta)
+            + shard_problems(log_dir, meta)
+            + whatif_problems(log_dir, meta)
+            + operator_problems(log_dir, meta)
+            + health_problems(meta)
+            + netedge_problems(meta)
+            + lock_problems(meta)
+            + handoff_problems(log_dir, meta)
+            + hedge_problems(meta)
+            + placement_problems(log_dir, meta))
+
+
+def check_job_detail(log_dir: str) -> Tuple[List[str], bool]:
+    """``(problems, parse_failed)`` of one job (the reference's
+    ``check_job_detail``): ``parse_failed`` marks files the reader cannot
+    read (a missing or corrupt ``log-meta.txt``, an unparsable timing
+    table), as against an invariant that does not hold over readable
+    ones; the CLI exits 2 for the first and 1 for the second."""
+    try:
+        meta = read_meta(os.path.join(log_dir, "log-meta.txt"))
+    except (OSError, ValueError) as e:
+        return ["log-meta.txt unreadable: %s" % e], True
+    problems = []
+    if "termination_flag" not in meta:
+        problems.append("log-meta.txt carries no 'Termination flag:'")
+    if "window" not in meta:
+        problems.append("log-meta.txt carries no start/end timestamps")
+    tables = _tables(log_dir)
+    if not tables:
+        problems.append("no timing tables (<device>-group<g>-<i>.txt)")
+    parse_failed = False
+    for path in tables:
+        issues = table_problems(path)
+        problems += issues
+        parse_failed = parse_failed or any(" unparsable: " in issue
+                                           for issue in issues)
+    if parse_failed:
+        # the invariants below read every table
+        return problems, True
+    return problems + job_problems(log_dir, meta), False
+
+
 def check_job(log_dir: str) -> List[str]:
     """Every invariant of one job's logs that does not hold (the
     reference's ``check_job``, for the files the port writes)."""
-    return summarize(log_dir)["footing_problems"]
+    return check_job_detail(log_dir)[0]
 
 
 def _mean(values: List[float]):
@@ -1598,14 +1914,18 @@ def main(argv=None) -> int:
     if not log_dirs:
         print(__doc__)
         return 2
-    failed = False
+    failed = unreadable = False
     for log_dir in log_dirs:
-        stats = summarize(log_dir)
-        print(json.dumps(stats))
-        for problem in stats["footing_problems"]:
+        problems, parse_failed = check_job_detail(log_dir)
+        if not parse_failed and "window" in read_meta(
+                os.path.join(log_dir, "log-meta.txt")):
+            print(json.dumps(summarize(log_dir)))
+        for problem in problems:
             print("%s: %s" % (log_dir, problem), file=sys.stderr)
-            failed = True
-    return 1 if failed else 0
+        failed = failed or bool(problems)
+        unreadable = unreadable or parse_failed
+    # 2: the checker could not read a job; 1: an invariant does not hold
+    return 2 if unreadable else 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -362,19 +362,22 @@ OUTPUT_STAMPS = ("cache_hit", "cache_coalesced", "feature_hit")
 
 def _store_outputs(sink: Dict[int, tuple], payload, non_tensors,
                    time_card) -> None:
-    """Copy each request's output rows to the host sink, with its cache
+    """Keep each request's output rows for the sink, with its cache
     stamps. A request's rows are ``[row0, row0 + num_clips)`` of the
     emission, as the last batching stage stamped them: a coalesced
     follower shares its leader's rows, so an emission may hold more
     cards than row segments. A stage that emits no tensor stores its
     non-tensor payload (the single step's class id, or a mesh stage's
-    class ids, one a card)."""
+    class ids, one a card). Tensors are copied on their device, in the
+    order of the stage's stream (a captured graph's output is rewritten
+    by its next replay), and reach the host in :func:`finish_outputs`,
+    after the run: the executor never waits for the card here."""
     cards = cards_of(time_card)
     if not payload:
         if isinstance(non_tensors, torch.Tensor):
             # card i's is entry i; a padded video's, past the cards, is
             # dropped
-            values = non_tensors.tolist()
+            values = non_tensors.clone()
         else:
             values = [non_tensors] * len(cards)
         for tc, value in zip(cards, values):
@@ -383,10 +386,20 @@ def _store_outputs(sink: Dict[int, tuple], payload, non_tensors,
         return
     pb = payload[0]
     end = max(tc.row0 + int(tc.num_clips) for tc in cards)
-    rows = pb.data[:end].to(torch.float32).cpu().numpy()
+    rows = pb.data[:end].to(torch.float32, copy=True)
     for tc in cards:
         sink[tc.id] = (tc.video, rows[tc.row0:tc.row0 + int(tc.num_clips)],
                        {k: getattr(tc, k) for k in OUTPUT_STAMPS})
+
+
+def finish_outputs(sink: Dict[int, tuple]) -> None:
+    """Bring the sink's tensors to the host, once every executor has
+    joined: rows as float32 numpy arrays, a class id as a Python int."""
+    for rid, (video, value, stamps) in list(sink.items()):
+        if isinstance(value, torch.Tensor):
+            value = value.cpu()
+            value = value.item() if value.dim() == 0 else value.numpy()
+            sink[rid] = (video, value, stamps)
 
 
 def _publish(ctx: RunnerContext, out_queue, payload, non_tensors,

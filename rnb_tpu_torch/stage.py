@@ -139,6 +139,27 @@ class StageModel:
         del model_kwargs
         return None
 
+    @classmethod
+    def input_shape_for(cls, **model_kwargs) -> Optional[
+            Sequence[Tuple[int, ...]]]:
+        """Max shapes of the expected input tensors from the step's
+        kwargs alone, or None (a first stage, or any input)."""
+        del model_kwargs
+        return None
+
+    @classmethod
+    def input_dtype_for(cls, **model_kwargs) -> Optional[str]:
+        """The expected input dtype's name, or None (any)."""
+        del model_kwargs
+        return None
+
+    @classmethod
+    def output_dtype_for(cls, **model_kwargs) -> Optional[str]:
+        """The produced dtype's name, or None (unknown: a pass-through
+        stage emits what it receives)."""
+        del model_kwargs
+        return None
+
     def input_sharding(self):
         """The ``torch.device`` this stage wants its input payloads
         homed on, or None for the instance's home device. Consulted by

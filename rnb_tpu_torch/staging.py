@@ -38,7 +38,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from rnb_tpu_torch import trace
+from rnb_tpu_torch import lockwitness, trace
 
 
 class StagingSlot:
@@ -60,6 +60,18 @@ class StagingPool:
     uint8 planes, int16 coefficient rows) for one target device, plus
     the transfer stream all of their copies run on."""
 
+    GUARDED_BY = {
+        "_slots": "_lock",
+        "_error": "_lock",
+        "num_acquires": "_lock",
+        "num_acquire_waits": "_lock",
+        "num_transfers": "_lock",
+        "num_transfer_bytes": "_lock",
+        "num_staged_batches": "_lock",
+        "num_copied_batches": "_lock",
+        "num_bypassed_batches": "_lock",
+    }
+
     def __init__(self, shape: Tuple[int, ...], num_slots: int,
                  device: torch.device, dtype: torch.dtype = torch.uint8):
         if num_slots < 1:
@@ -70,7 +82,7 @@ class StagingPool:
         self._slots = [StagingSlot(tuple(shape), pin, dtype)
                        for _ in range(num_slots)]
         self._stream = (torch.cuda.Stream(device=device) if pin else None)
-        self._lock = threading.Lock()
+        self._lock = lockwitness.lock("StagingPool._lock")
         self._available = threading.Condition(self._lock)
         self._error: Optional[BaseException] = None
         self.num_acquires = 0
@@ -222,9 +234,16 @@ class TransferWorker:
     Job errors are kept and re-raised on the executor thread through
     :meth:`raise_if_failed`."""
 
+    GUARDED_BY = {
+        "_jobs": "_lock",
+        "_outstanding": "_lock",
+        "_error": "_lock",
+        "_closed": "_lock",
+    }
+
     def __init__(self, pool: StagingPool):
         self._jobs: "deque[Callable[[], None]]" = deque()
-        self._lock = threading.Lock()
+        self._lock = lockwitness.lock("TransferWorker._lock")
         self._wake = threading.Condition(self._lock)
         self._outstanding = 0
         self._error: Optional[BaseException] = None

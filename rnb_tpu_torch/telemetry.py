@@ -28,11 +28,15 @@ aggregating step merges the k cards back into one
 stamps after it once per segment with a ``-{sub_id}`` suffix.
 
 The module also declares the names the tracing layer emits
-(:data:`TRACE_EVENT_REGISTRY`), the stamps only a traced run records
-(:data:`TRACE_STAMP_REGISTRY`), the live-metric series the metrics plane
-may hold (:data:`METRIC_REGISTRY`; the registry raises on any other
-name) and the log-meta lines of the metrics, critpath and autotune
-planes (:data:`META_LINE_REGISTRY`).
+(:data:`TRACE_EVENT_REGISTRY`), every timing stamp
+(:data:`STAMP_REGISTRY`; those only a traced run records are
+:data:`TRACE_STAMP_REGISTRY`), the card carriers a fork must not copy
+(:data:`TRANSIENT_STAMPS`), the timing tables' trailers
+(:data:`TABLE_TRAILER_REGISTRY`), the live-metric series the metrics
+plane may hold (:data:`METRIC_REGISTRY`; the registry raises on any
+other name) and the log-meta lines (:data:`META_LINE_REGISTRY`).
+rnb-lint's schema family (:mod:`rnb_tpu_torch.analysis.schema`)
+cross-checks them against the sites that write and the reader.
 """
 
 from __future__ import annotations
@@ -518,6 +522,43 @@ TRACE_STAMP_REGISTRY = (
               "inference{step}_finish is the device step and publish"),
 )
 
+#: every TimeCard timing-stamp pattern any code path may record: the
+#: executor's and the client's on every run, and the traced run's
+#: refinement stamps (the reference's registry)
+STAMP_REGISTRY = (
+    StampSpec("enqueue_filename", "rnb_tpu_torch/client.py",
+              "client created the request and enqueued its video path"),
+    StampSpec("runner{step}_start", "rnb_tpu_torch/runner.py",
+              "stage executor popped the request off its input queue"),
+    StampSpec("inference{step}_start", "rnb_tpu_torch/runner.py",
+              "stage model call began"),
+    StampSpec("inference{step}_finish", "rnb_tpu_torch/runner.py",
+              "stage model call returned (device work waited for unless "
+              "the step is async)"),
+) + TRACE_STAMP_REGISTRY
+
+#: card-riding carriers that are deliberately not content stamps: each
+#: holds single-owner live state (a feature hit's pinned gather plan,
+#: the insert the runner owes after its forward) that a fork would
+#: double-own, so :meth:`TimeCard.fork` never copies them
+TRANSIENT_STAMPS = ("feature_plan", "feature_insert")
+
+#: every ``# <kind> ...`` trailer a per-instance timing table may carry
+#: (:meth:`TimeCardSummary.save_full_report`)
+TABLE_TRAILER_REGISTRY = (
+    StampSpec("faults", "rnb_tpu_torch/telemetry.py",
+              "per-instance failed/shed/retry counts and reasons"),
+    StampSpec("cache", "rnb_tpu_torch/telemetry.py",
+              "per-instance completed-request cache attribution"),
+    StampSpec("phases", "rnb_tpu_torch/telemetry.py",
+              "per-instance per-phase latency attribution (traced runs "
+              "only)"),
+    StampSpec("padding", "rnb_tpu_torch/telemetry.py",
+              "per-instance pad rows shipped with completed requests"),
+    StampSpec("critpath", "rnb_tpu_torch/telemetry.py",
+              "per-instance blocking-chain totals (critpath runs only)"),
+)
+
 #: every span, instant and counter name the port's tracing layer
 #: (rnb_tpu_torch.trace) may write into ``logs/<job>/trace.json``
 TRACE_EVENT_REGISTRY = (
@@ -724,6 +765,52 @@ META_LINE_REGISTRY = (
               "samples (operator runs with sample_hz > 0 only; parse_utils "
               "re-sums stacks.folded to total and holds ticks to sample_hz "
               "x wall within tolerance)"),
+    StampSpec("Args:", "rnb_tpu_torch/benchmark.py",
+              "JSON launch arguments (config, mean interval, videos, "
+              "queue size, seed, platform)"),
+    StampSpec("Termination flag:", "rnb_tpu_torch/benchmark.py",
+              "how the run ended (0: the target was reached)"),
+    StampSpec("Device:", "rnb_tpu_torch/benchmark.py",
+              "JSON name and platform of the device the run served on"),
+    StampSpec("Pixel path:", "rnb_tpu_torch/benchmark.py",
+              "the wire format a loader ships (rgb, yuv420, dct)"),
+    StampSpec("Decode backend:", "rnb_tpu_torch/benchmark.py",
+              "the decoders a loader used (native, numpy, synth, ...)"),
+    StampSpec("Completed:", "rnb_tpu_torch/benchmark.py",
+              "requests and clip rows the final step completed"),
+    StampSpec("Padding:", "rnb_tpu_torch/benchmark.py",
+              "pad rows over shipped rows of every batching stage"),
+    StampSpec("Ragged:", "rnb_tpu_torch/benchmark.py",
+              "ragged pool dispatch counters (ragged runs only)"),
+    StampSpec("Cache:", "rnb_tpu_torch/benchmark.py",
+              "clip cache counters (cache_mb runs only)"),
+    StampSpec("Staging:", "rnb_tpu_torch/benchmark.py",
+              "one loader's staging pool counters"),
+    StampSpec("Pages:", "rnb_tpu_torch/benchmark.py",
+              "page allocator ledger (pager runs only)"),
+    StampSpec("Pages arenas:", "rnb_tpu_torch/benchmark.py",
+              "JSON pages and bytes of each arena (pager runs only)"),
+    StampSpec("Compiles:", "rnb_tpu_torch/benchmark.py",
+              "JSON entry signatures per step, warm-up and steady"),
+    StampSpec("Warmup:", "rnb_tpu_torch/benchmark.py",
+              "JSON construction seconds per step"),
+    StampSpec("Graphs:", "rnb_tpu_torch/benchmark.py",
+              "JSON captured CUDA graphs, capture seconds and replays per "
+              "step (the card only)"),
+    StampSpec("Trace:", "rnb_tpu_torch/benchmark.py",
+              "trace events exported and dropped (traced runs only)"),
+    StampSpec("Phases:", "rnb_tpu_torch/benchmark.py",
+              "JSON per-phase latency attribution (traced runs only)"),
+    StampSpec("Locks:", "rnb_tpu_torch/benchmark.py",
+              "lock-order witness counters (witness-armed runs only)"),
+    StampSpec("Lock edges:", "rnb_tpu_torch/benchmark.py",
+              "JSON observed lock-order edges and violations; parse_utils "
+              "holds every edge to rnb-lint's static lock-order graph"),
+    StampSpec("Kernels:", "rnb_tpu_torch/benchmark.py",
+              "JSON launches of each hand-written kernel in the window"),
+    StampSpec("Profile:", "rnb_tpu_torch/benchmark.py",
+              "profiled kernel time over the window (--profile runs "
+              "only)"),
 )
 
 

@@ -165,6 +165,17 @@ class Tracer:
     earliest event, one ``tid`` per thread role, counter tracks, and
     synthesized flow chains per request id)."""
 
+    GUARDED_BY = {
+        "_events": "_lock",
+        "_counter_sources": "_lock",
+        "dropped": "_lock",
+    }
+
+    UNGUARDED_OK = {
+        "_sampler": "controller-thread lifecycle "
+                    "(start_sampler/stop_sampler)",
+    }
+
     def __init__(self, settings: Optional[TraceSettings] = None):
         self.settings = settings or TraceSettings()
         self._lock = threading.Lock()

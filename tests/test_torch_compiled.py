@@ -56,6 +56,7 @@ import parse_utils as ref_parse_utils  # noqa: E402
 
 from test_torch_slice import (_assert_logits_close, _dataset,  # noqa: E402
                               _randomize_bn, _reduced)
+from torch_job_checks import assert_both_checks_pass  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -239,6 +240,7 @@ def test_compiles_and_warmup_lines_parse_alike(tmp_path, monkeypatch):
         lines = f.read().splitlines()
     assert not any(line.startswith("Graphs:") for line in lines)
     assert footing_problems(ours) == []
+    assert_both_checks_pass(result.log_dir)
 
     def reference_reads(compiles_line):
         """The reference's reader and check on the port's lines."""

@@ -57,6 +57,7 @@ from rnb_tpu_torch.runner import (RunnerContext, _overloaded,
                                   _sheddable_expired)
 from rnb_tpu_torch.stage import PaddedBatch
 from rnb_tpu_torch.telemetry import TimeCard, TimeCardList
+from torch_job_checks import assert_both_checks_pass
 
 torch.set_num_threads(2)
 
@@ -580,3 +581,10 @@ def test_the_smoke_s_chaos_copy_reads_as_the_reference_reads_it(
     else:
         # the stalls outlast the budget: what waits behind them expires
         assert budget == chaos.BUDGET_MS < chaos.STALL_MS
+
+
+@pytest.mark.parametrize("label", ["chaos", "deadline", "ring"])
+def test_both_check_jobs_pass_the_containment_job_dirs(runs, label):
+    run = runs[label]
+    assert_both_checks_pass((run[0] if isinstance(run, tuple)
+                             else run).log_dir)

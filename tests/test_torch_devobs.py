@@ -61,6 +61,7 @@ from rnb_tpu_torch.models.r2p1d.checkpoint import (filter_layer_range,
 from rnb_tpu_torch.models.r2p1d.network import (R2Plus1DClassifier,
                                                 cast_compute_weights)
 from rnb_tpu_torch.parse_utils import devobs_problems, read_meta, summarize
+from torch_job_checks import assert_both_checks_pass
 
 torch.set_num_threads(2)
 
@@ -668,3 +669,8 @@ def test_the_check_finds_what_the_reference_finds(served, tmp_path,
         assert summarize(job)["footing_problems"]
         from rnb_tpu_torch.parse_utils import main
         assert main([job]) == 1
+
+
+@pytest.mark.parametrize("label", ["devobs", "off"])
+def test_both_check_jobs_pass_the_devobs_job_dirs(served, label):
+    assert_both_checks_pass(served[1][label][0].log_dir)

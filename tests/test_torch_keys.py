@@ -15,7 +15,9 @@ the busy-card probe, against the JAX package on the CPU.
   the reference reads it, on a replica step that feeds another step:
   its lanes' streams are not joined into the consumer's), a witness-armed
   run writing ``Locks:`` and ``Lock edges:`` lines that the reference's
-  ``scripts/parse_utils.py`` reads and checks clean.
+  ``scripts/parse_utils.py`` reads and checks clean, every observed edge
+  in the port's static lock-order graph and both packages' whole
+  ``check_job`` passing the job as written.
 * ``devices.probe_busy_devices`` on mocked ``nvidia-smi -q -x`` readings
   (host pids, and a pid namespace that names every process pid 1): it warns
   about a card another process holds memory on, never about this
@@ -40,6 +42,7 @@ from rnb_tpu.decode.native import \
 from rnb_tpu.models.r2p1d import model as jax_model
 from rnb_tpu_torch import benchmark as port_benchmark
 from rnb_tpu_torch import devices, lockwitness, runner
+from rnb_tpu_torch.analysis.concurrency import static_lock_order_edges
 from rnb_tpu_torch.config import ConfigError, parse_config
 from rnb_tpu_torch.decode.native import default_decode_threads
 from rnb_tpu_torch.devices import DeviceSpec, probe_busy_devices
@@ -52,6 +55,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scripts"))
 
 import parse_utils as ref_parse_utils  # noqa: E402
+from torch_job_checks import assert_both_checks_pass  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -336,18 +340,6 @@ def test_lint_parses_as_the_reference(lint, read):
         _refused_alike(raw)
 
 
-def _reference_meta(log_dir, copy_dir):
-    """The reference's ``parse_meta`` of a port job, on a copy without
-    the port's ``Device:`` line (its one-word CPU value reads as a
-    timestamp there)."""
-    os.makedirs(copy_dir)
-    with open(os.path.join(log_dir, "log-meta.txt")) as f:
-        kept = [line for line in f if not line.startswith("Device:")]
-    with open(os.path.join(copy_dir, "log-meta.txt"), "w") as f:
-        f.writelines(kept)
-    return ref_parse_utils.parse_meta(str(copy_dir))
-
-
 def test_a_witness_armed_run_writes_the_references_lock_lines(tmp_path,
                                                               monkeypatch):
     monkeypatch.delenv("RNB_TPU_DATA_ROOT", raising=False)
@@ -369,19 +361,23 @@ def test_a_witness_armed_run_writes_the_references_lock_lines(tmp_path,
                         "violations=0" % (result.locks_tracked,
                                           result.locks_acquires,
                                           result.locks_edges))
-    meta = _reference_meta(result.log_dir, tmp_path / "ref")
+    meta = ref_parse_utils.parse_meta(result.log_dir)
     assert meta["locks_tracked"] == result.locks_tracked
     assert meta["locks_acquires"] == result.locks_acquires
     assert ref_parse_utils._check_locks(meta) == []
     ours = read_meta(os.path.join(result.log_dir, "log-meta.txt"))
     assert lock_problems(ours) == []
+    # every observed edge is in the static lock-order graph
+    assert {tuple(e) for e in ours["lock_edge_detail"]["edges"]} \
+        <= static_lock_order_edges()
+    assert_both_checks_pass(result.log_dir)
     # and a tampered ledger fails both readers
     with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
         text = f.read()
     with open(os.path.join(result.log_dir, "log-meta.txt"), "w") as f:
         f.write(text.replace(" violations=0", " violations=2"))
     assert ref_parse_utils._check_locks(
-        _reference_meta(result.log_dir, tmp_path / "tampered"))
+        ref_parse_utils.parse_meta(result.log_dir))
     assert lock_problems(read_meta(os.path.join(result.log_dir,
                                                 "log-meta.txt")))
 

@@ -59,9 +59,10 @@ from rnb_tpu_torch.models.r2p1d.network import (R2Plus1DClassifier,
 from rnb_tpu_torch.parallel import distributed, mesh
 from rnb_tpu_torch.parallel.sharded import ShardedInference
 from rnb_tpu_torch.parse_utils import summarize
-from rnb_tpu_torch.runner import _store_outputs
+from rnb_tpu_torch.runner import _store_outputs, finish_outputs
 from rnb_tpu_torch.stage import PaddedBatch
 from rnb_tpu_torch.telemetry import TimeCard, TimeCardList
+from torch_job_checks import assert_both_checks_pass
 
 torch.set_num_threads(2)
 
@@ -470,7 +471,10 @@ def test_a_final_step_stores_each_card_s_class_id():
     sink = {}
     _store_outputs(sink, None, torch.tensor([5, 3]), TimeCardList(cards))
     _store_outputs(sink, None, torch.tensor([6, 0]), TimeCard(7))
+    # the ids reach the host after the run, as Python ints
+    finish_outputs(sink)
     assert {rid: v[1] for rid, v in sink.items()} == {0: 5, 1: 3, 7: 6}
+    assert all(type(v[1]) is int for v in sink.values())
 
 
 def test_compute_profile_counts_the_distinct_devices(bridged_networks):
@@ -564,6 +568,7 @@ def test_the_pipeline_serves_the_jax_stages_classes(
     stats = summarize(result.log_dir)
     assert stats["requests"] == requests and stats["pixel_path"] == pixel_path
     assert stats["footing_problems"] == []
+    assert_both_checks_pass(result.log_dir)
 
 
 def test_a_drain_that_fails_fails_the_run(tmp_path, monkeypatch,

@@ -56,6 +56,7 @@ from rnb_tpu_torch.parse_utils import (load_metrics, metrics_problems,
                                        summarize)
 from rnb_tpu_torch.runner import NUM_SUMMARY_SKIPS
 from rnb_tpu_torch.telemetry import METRIC_REGISTRY, TimeCard
+from torch_job_checks import assert_both_checks_pass
 
 torch.set_num_threads(2)
 
@@ -689,3 +690,8 @@ def test_parse_utils_catches_critpath_drift(served, tmp_path, drift):
             "trailer": "'# critpath' n=99"}[drift]
     problems = summarize(job)["footing_problems"]
     assert any(want in p for p in problems), problems
+
+
+@pytest.mark.parametrize("label", sorted(RUNS))
+def test_both_check_jobs_pass_the_slice_s_job_dirs(served, label):
+    assert_both_checks_pass(served[1][label][0].log_dir)

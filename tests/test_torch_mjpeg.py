@@ -71,6 +71,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scripts"))
 
 from make_dataset import synth_frames as jax_synth_frames  # noqa: E402
+from torch_job_checks import assert_both_checks_pass  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -543,6 +544,7 @@ def test_a_served_mjpeg_run_holds_the_jax_logits(pixel_path, tmp_path,
         meta = f.read()
     assert "Pixel path: %s\n" % pixel_path in meta
     assert "Decode backend: native\n" in meta
+    assert_both_checks_pass(result.log_dir)
     clips = 0
     for rid, (video, logits, _stamps) in sorted(sink.items()):
         assert video.endswith(".mjpg")

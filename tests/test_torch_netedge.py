@@ -75,6 +75,7 @@ from rnb_tpu_torch.parse_utils import (health_problems, netedge_problems,
                                        read_meta, summarize)
 from rnb_tpu_torch.stage import PaddedBatch
 from rnb_tpu_torch.telemetry import TimeCard
+from torch_job_checks import assert_both_checks_pass
 
 torch.set_num_threads(2)
 
@@ -788,3 +789,8 @@ def test_the_health_check_catches_a_cooked_lane_path(served, tmp_path):
     meta["health_lane_detail"]["0"]["path"] = ["healthy"]
     meta["lines"]["Health"]["routes_after_open"] = 1
     assert any("containment violated" in p for p in health_problems(meta))
+
+
+@pytest.mark.parametrize("label", ["loopback", "off", "plain", "chaos"])
+def test_both_check_jobs_pass_the_netedge_job_dirs(served, label):
+    assert_both_checks_pass(served[1][label][0].log_dir)

@@ -65,6 +65,7 @@ from rnb_tpu_torch.models.r2p1d.network import (R2Plus1DClassifier,
                                                 cast_compute_weights)
 from rnb_tpu_torch.parse_utils import read_meta, summarize
 from rnb_tpu_torch.whatif import job_config as whatif_job_config
+from torch_job_checks import assert_both_checks_pass
 
 torch.set_num_threads(2)
 
@@ -961,3 +962,8 @@ def test_the_sampler_ticks_over_the_window_only(tmp_path, monkeypatch):
     assert 200 * (window + 4.0) > bound
     assert summarize(result.log_dir)["footing_problems"] == []
     assert _reference_problems(result.log_dir) == []
+
+
+@pytest.mark.parametrize("label", ["operator", "off"])
+def test_both_check_jobs_pass_the_operator_job_dirs(served, label):
+    assert_both_checks_pass(served[1][label][0].log_dir)

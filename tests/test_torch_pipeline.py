@@ -34,9 +34,11 @@ from rnb_tpu_torch.models.r2p1d.checkpoint import (filter_layer_range,
 from rnb_tpu_torch.models.r2p1d.network import (R2Plus1DClassifier,
                                                 cast_compute_weights)
 from rnb_tpu_torch.parse_utils import read_table, summarize
-from rnb_tpu_torch.runner import _store_outputs, validate_payload
+from rnb_tpu_torch.runner import (_store_outputs, finish_outputs,
+                                  validate_payload)
 from rnb_tpu_torch.stage import PaddedBatch, RaggedBatch
 from rnb_tpu_torch.telemetry import TimeCard, TimeCardList
+from torch_job_checks import assert_both_checks_pass
 
 torch.set_num_threads(2)
 
@@ -179,6 +181,7 @@ def _run(name, tmp_path, monkeypatch):
     assert result.termination_flag == 0
     assert result.num_completed == REQUESTS and result.device == "cpu"
     assert sorted(sink) == list(range(REQUESTS))
+    assert_both_checks_pass(result.log_dir)
     with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
         meta = f.read()
     return result, sink, meta
@@ -291,6 +294,11 @@ def test_outputs_sink_takes_rows_by_row0_and_a_class_id():
     rows = torch.arange(4.0).reshape(4, 1)
     sink = {}
     _store_outputs(sink, (PaddedBatch(rows, 3),), None, TimeCardList(cards))
+    # the sink holds a copy: the payload's next use (a graph's replay
+    # into its static output) leaves it as stored
+    rows += 100
+    finish_outputs(sink)
+    assert isinstance(sink[1][1], np.ndarray)
     assert sink[0][1].tolist() == [[0.0]]
     assert sink[1][1].tolist() == [[1.0], [2.0]]
     _store_outputs(sink, None, 7, cards[0])

@@ -24,6 +24,7 @@ import torch
 from rnb_tpu import profiler as jax_profiler
 from rnb_tpu_torch import devobs, memledger, metrics, profiler, trace
 from rnb_tpu_torch.decode import write_y4m
+from torch_job_checks import assert_both_checks_pass
 
 torch.set_num_threads(2)
 
@@ -220,3 +221,8 @@ def test_profile_and_xprof_together_are_refused():
     with pytest.raises(ValueError, match="one profiler session"):
         run_benchmark("unread.json", platform="cpu", profile=True,
                       xprof=True)
+
+
+@pytest.mark.parametrize("label", ["profile", "xprof"])
+def test_both_check_jobs_pass_the_profiled_job_dirs(runs, label):
+    assert_both_checks_pass(runs[label].log_dir)

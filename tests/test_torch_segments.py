@@ -40,6 +40,7 @@ from rnb_tpu_torch.runner import split_segments
 from rnb_tpu_torch.stage import PaddedBatch
 from rnb_tpu_torch.telemetry import (CONTENT_STAMPS, TimeCard,
                                      TimeCardList, TimeCardSummary)
+from torch_job_checks import assert_both_checks_pass
 
 torch.set_num_threads(2)
 
@@ -548,6 +549,7 @@ def test_segment_copy_serves_the_class_ids_of_the_jax_stages(
     assert stats["emissions_by_step"] == {
         "0": REQUESTS, "1": SEGMENTS * REQUESTS, "2": REQUESTS}
     assert stats["requests"] == REQUESTS and stats["footing_problems"] == []
+    assert_both_checks_pass(result.log_dir)
     (table,) = [n for n in os.listdir(result.log_dir)
                 if n.endswith("-0.txt")]
     keys, rows = read_table(os.path.join(result.log_dir, table))

@@ -70,6 +70,7 @@ from rnb_tpu_torch.parallel import mesh, shardplan
 from rnb_tpu_torch.parse_utils import read_meta, shard_problems, summarize
 from rnb_tpu_torch.stage import PaddedBatch, RaggedBatch
 from rnb_tpu_torch.telemetry import TimeCard
+from torch_job_checks import assert_both_checks_pass
 
 torch.set_num_threads(2)
 
@@ -947,3 +948,8 @@ def test_the_guard_covers_the_new_modules():
         with open(os.path.join(REPO, path)) as f:
             assert not re.search(r"^\s*(import|from)\s+(jax|flax|rnb_tpu)\b",
                                  f.read(), re.M), path
+
+
+@pytest.mark.parametrize("name", ["d1", "d2"])
+def test_both_check_jobs_pass_the_shard_job_dirs(served, name):
+    assert_both_checks_pass(served[1][name][0].log_dir)

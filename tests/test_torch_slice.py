@@ -42,6 +42,7 @@ from rnb_tpu_torch.pager import Pager, PagerSettings
 from rnb_tpu_torch.parse_utils import summarize
 from rnb_tpu_torch.stage import PaddedBatch, RaggedBatch
 from rnb_tpu_torch.telemetry import TimeCard
+from torch_job_checks import assert_both_checks_pass
 
 torch.set_num_threads(2)
 
@@ -272,6 +273,7 @@ def test_run_benchmark_on_cpu_completes_every_request(tmp_path, config,
     assert ("Ragged:" in meta) == ("ragged" in config)
     assert "Pixel path: %s\n" % PIXEL_PATH[config] in meta
     assert "Decode backend: %s\n" % ("synth" if dct else "native") in meta
+    assert_both_checks_pass(result.log_dir)
     table = os.path.join(result.log_dir, "cpu0-group0-0.txt")
     with open(table) as f:
         lines = f.read().splitlines()
@@ -475,6 +477,7 @@ def test_zipf_configs_serve_every_request_and_foot(tmp_path, config,
     assert trailers[0].startswith("# cache num_hits=%d "
                                   % result.cache_hits)
     assert parse_main([result.log_dir]) == 0
+    assert_both_checks_pass(result.log_dir)
 
 
 def test_parse_utils_flags_a_broken_footing(tmp_path):

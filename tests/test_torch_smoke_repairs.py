@@ -33,6 +33,7 @@ from rnb_tpu_torch.dataset import clip_mix, make_dataset
 from rnb_tpu_torch.decode import write_y4m
 from rnb_tpu_torch.faults import FaultPlan
 from rnb_tpu_torch.tools import chaos
+from torch_job_checks import assert_both_checks_pass
 
 torch.set_num_threads(2)
 
@@ -138,6 +139,7 @@ def test_a_reduced_burst_expires_requests_at_step_1_s_take(tmp_path):
     assert result.shed_sites.get("filename_queue", 0) >= 1
     assert result.num_completed + result.num_failed + result.num_shed \
         >= chaos.BURST_MIN_TARGET
+    assert_both_checks_pass(result.log_dir)
 
 
 # -- the fixed dataset root -----------------------------------------------------

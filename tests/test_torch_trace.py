@@ -33,6 +33,7 @@ from rnb_tpu_torch.decode import write_y4m
 from rnb_tpu_torch.parse_utils import attribute, read_meta, summarize
 from rnb_tpu_torch.telemetry import (TRACE_EVENT_REGISTRY,
                                      TRACE_STAMP_REGISTRY, TimeCard)
+from torch_job_checks import assert_both_checks_pass
 
 torch.set_num_threads(2)
 
@@ -445,3 +446,8 @@ def test_time_card_stamps_stay_ordered_when_clamped():
     assert tc.timings["decode0_done"] == 5.0
     _record_clamped(tc, "transfer0_start", 6.0)
     assert list(tc.timings.values()) == [5.0, 5.0, 6.0]
+
+
+@pytest.mark.parametrize("name", ["fused", "segments"])
+def test_both_check_jobs_pass_the_traced_job_dirs(traced_runs, name):
+    assert_both_checks_pass(traced_runs[name].log_dir)

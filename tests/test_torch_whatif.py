@@ -27,6 +27,7 @@ from rnb_tpu import whatif as jax_whatif
 from rnb_tpu_torch import metrics, placement, whatif
 from rnb_tpu_torch.decode import write_y4m
 from rnb_tpu_torch.parse_utils import summarize
+from torch_job_checks import assert_both_checks_pass
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHIPPED = sorted(glob.glob(os.path.join(REPO, "configs", "*.json")))
@@ -293,3 +294,8 @@ def test_the_job_config_is_the_copy_in_the_job_directory(served):
         raw = whatif.job_config(result.log_dir)
         assert raw == jax_whatif.job_config(result.log_dir)
         assert raw["whatif"] == {"enabled": True}
+
+
+@pytest.mark.parametrize("name", ["d1", "d2", "d2-poisson"])
+def test_both_check_jobs_pass_the_whatif_job_dirs(served, name):
+    assert_both_checks_pass(served[name].log_dir)
