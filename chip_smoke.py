@@ -309,6 +309,24 @@ Phases (any failure exits non-zero and prints no result line):
    to what ``nvidia-smi`` lists there beside this one (what was there
    before it is printed, not required to be empty), and the probe warns
    about ``cuda:0`` while it does.
+   Then the reference's parallel API and its entry points
+   (``phase_parallel``): ``rnb_tpu_torch.graft_entry.entry()``'s
+   flagship forward (R(2+1)D-18 and the 400-class head in bf16 over 15
+   clips of 8 x 112 x 112), its logits (15, 400) and finite, and on a
+   seeded batch within the bf16 bound of the CPU's float32 recompute
+   (argmax equal past twice the bound), timed; ``make_sharded_inference``
+   at full width over ``build_mesh([cuda:0] * 8, axes={"dp": 2, "sp":
+   4})`` (15 clips padded to 16), in rgb and in yuv420, on four seeded
+   videos of 15, 7, 1 and 12 valid clips: two ``run`` s and a
+   ``predict``, one ingest launch each and no other kernel, the second
+   run bitwise the first, every video within rtol = atol = 2e-2 of the
+   same network's unsharded masked sum, ``predict``'s class ids the
+   unsharded ones past the margin, the ingest kernel held to its plain
+   version at the run's 64 rows, ``run`` timed at dp 2 x 16 rows;
+   ``dryrun_multichip(8)`` and ``(2)`` with every member on the card,
+   each printing its ``ok`` line (the 8-member one serves its tiny
+   yuv420 mesh pipeline through ``run_benchmark``); and
+   ``global_mesh().shape`` and ``process_count()`` printed.
    Then every job directory the smoke wrote (``phase_check_jobs``)
    through the port's whole ``check_job`` (the reference's
    ``check_job_detail`` for the files the port writes), its count
@@ -585,6 +603,16 @@ MESH_MAX_CLIPS = 15
 MESH_PADDED_CLIPS = 16
 #: the ingest kernel inside the mesh stage's captured step, by pixel path
 MESH_KERNELS = {"rgb": "normalize_u8", "yuv420": "yuv420_normalize"}
+#: phase_parallel: the full-width ShardedInference's mesh, its videos'
+#: valid clips, and its bound against the unsharded forward (the JAX
+#: package's sharded bound, tests/test_parallel.py)
+PARALLEL_AXES = {"dp": 2, "sp": 4}
+PARALLEL_VALID = [15, 7, 1, 12]
+PARALLEL_TOL = 2e-2
+#: the dry runs' member counts, and the kernels their paths launch (the
+#: rgb sharded step; the yuv420 pipeline run from 4 members)
+DRYRUN_MEMBERS = (8, 2)
+DRYRUN_KERNELS = {"normalize_u8", "yuv420_normalize"}
 #: the checkpoint phase (``phase_ckpt``): the copies of
 #: ``rnb_tpu_torch/tools/synth_ckpt.py`` served from the file it
 #: converts, each with its requests, the kernel its path launches and
@@ -3718,30 +3746,23 @@ def mesh_recompute(config_path, sink, runner):
     return report
 
 
-def check_mesh_graphs(label, runner, reps=20):
-    """The mesh stage's ingest kernel against its plain version at the
-    dispatch's rows (dp x the padded clips): ``rnb_normalize_u8``
+def check_mesh_ingest(label, si, rows, rng):
+    """A sharded step's ingest kernel against its plain version on
+    ``rows`` seeded wire rows of its pixel path: ``rnb_normalize_u8``
     bitwise; ``rnb_yuv420_normalize`` bitwise the normalize of the u8
     entry's output, which is within one u8 step of the plain conversion.
-    Its captured graph holds that kernel (one launch a replay) and
-    replays bitwise its eager forward on seeded dispatches (every clip
-    count, a zero video among them). Returns the worst ingest error
-    against the plain version, the replay's time by CUDA events and the
-    graph pool's MiB."""
+    Returns the worst error against the plain version."""
     import numpy as np
     import torch
     from rnb_tpu_torch.ops import preprocess, yuv
-    kernel = MESH_KERNELS[runner.pixel_path]
-    si = runner._si
-    rng = np.random.default_rng(19)
-    rows = runner.dp * si.padded_clips
     wire = torch.from_numpy(rng.integers(0, 256, (rows,) + tuple(
         si.batch_shape(1)[2:]), dtype=np.uint8)).cuda()
-    if runner.pixel_path == "yuv420":
-        rgb = yuv.yuv420_to_rgb_u8(wire, HW, HW)
-        plain_rgb = yuv.yuv420_to_rgb_reference(wire, HW, HW)
+    hw = si.frame_hw
+    if si.pixel_path == "yuv420":
+        rgb = yuv.yuv420_to_rgb_u8(wire, hw, hw)
+        plain_rgb = yuv.yuv420_to_rgb_reference(wire, hw, hw)
         steps = int((rgb.int() - plain_rgb.int()).abs().max())
-        out = yuv.normalize_yuv420(wire, HW, HW)
+        out = yuv.normalize_yuv420(wire, hw, hw)
         ok = steps <= 1 and torch.equal(
             out.view(torch.int16),
             preprocess.normalize_u8_reference(rgb).view(torch.int16))
@@ -3752,7 +3773,24 @@ def check_mesh_graphs(label, runner, reps=20):
         ok = torch.equal(out.view(torch.int16), plain.view(torch.int16))
     err = float((out.float() - plain.float()).abs().max())
     check(ok, "%s: %s at %d rows differs from its plain version (max %g)"
-          % (label, kernel, rows, err))
+          % (label, MESH_KERNELS[si.pixel_path], rows, err))
+    return err
+
+
+def check_mesh_graphs(label, runner, reps=20):
+    """The mesh stage's ingest kernel against its plain version at the
+    dispatch's rows, dp x the padded clips (:func:`check_mesh_ingest`).
+    Its captured graph holds that kernel (one launch a replay) and
+    replays bitwise its eager forward on seeded dispatches (every clip
+    count, a zero video among them). Returns the worst ingest error
+    against the plain version, the replay's time by CUDA events and the
+    graph pool's MiB."""
+    import numpy as np
+    import torch
+    kernel = MESH_KERNELS[runner.pixel_path]
+    si = runner._si
+    rng = np.random.default_rng(19)
+    err = check_mesh_ingest(label, si, runner.dp * si.padded_clips, rng)
     check(len(runner._graphs) == 1, "%s: %d mesh graphs" % (
         label, len(runner._graphs)))
     (graph,) = runner._graphs.values()
@@ -3899,6 +3937,208 @@ def phase_mesh(data_root, launches):
                   ingest_err, time.time() - t1, json.dumps(report)))
         torch.cuda.empty_cache()
         check_mesh_unread(label, config_path, videos, data_root)
+
+
+def check_entry(device):
+    """``graft_entry.entry()`` on the card: the flagship forward's
+    logits over the example batch are (15, 400) float32 and finite; over
+    a seeded batch of the same shape they lie within the bf16 bound of
+    the CPU's float32 recompute with the same weights (the bound from
+    the CPU's own bf16 run, as ``cpu_recompute``), with equal argmax on
+    every row past twice the bound. Returns the forward's ms (CUDA
+    events) and the report."""
+    import numpy as np
+    import torch
+    from rnb_tpu_torch.graft_entry import FLAGSHIP_SHAPE, entry
+    from rnb_tpu_torch.models.r2p1d.model import shared_network
+    from rnb_tpu_torch.ops.preprocess import normalize_u8_reference
+    t0 = time.time()
+    forward, args = entry()
+    (x,) = args
+    check(tuple(x.shape) == FLAGSHIP_SHAPE and x.dtype == torch.bfloat16
+          and x.device == device, "entry: example batch %s %s on %s" % (
+              tuple(x.shape), x.dtype, x.device))
+    logits = forward(*args)
+    torch.cuda.synchronize()
+    check(tuple(logits.shape) == (FLAGSHIP_SHAPE[0], 400)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), "entry: logits %s %s, "
+          "finite %s" % (tuple(logits.shape), logits.dtype,
+                         bool(torch.isfinite(logits).all())))
+    built_s = time.time() - t0
+    ms = call_ms(lambda: forward(*args), reps=5, rounds=3)
+    rng = np.random.default_rng(29)
+    seeded = normalize_u8_reference(torch.from_numpy(rng.integers(
+        0, 256, FLAGSHIP_SHAPE, dtype=np.uint8)))
+    served = forward(seeded.to(device)).cpu().numpy()
+    del forward, args, x, logits
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    cpu = torch.device("cpu")
+    with torch.inference_mode():
+        truth = shared_network(1, 5, 400, (2, 2, 2, 2), cpu,
+                               dtype=torch.float32)(seeded).numpy()
+        cpu_bf16 = shared_network(1, 5, 400, (2, 2, 2, 2), cpu)(
+            seeded).numpy()
+    bound = BF16_FACTOR * float(np.abs(cpu_bf16 - truth).max()) + BF16_ATOL
+    served_err = float(np.abs(served - truth).max())
+    check(served_err <= bound, "entry: the card's logits are %g from the "
+          "CPU's float32, more than the bf16 bound %g" % (served_err, bound))
+    report = dict(rows=int(truth.shape[0]), past_margin=0, agreed=0,
+                  served_err=served_err, bound=bound,
+                  recompute_s=time.time() - t1, build_s=built_s)
+    for row_truth, row_served in zip(truth, served):
+        same = int(row_truth.argmax() == row_served.argmax())
+        top2 = np.sort(row_truth)[-2:]
+        if top2[1] - top2[0] > 2 * bound:
+            report["past_margin"] += 1
+            check(same, "entry: a row's argmax differs past the margin")
+        report["agreed"] += same
+    return ms, report
+
+
+def check_sharded(device, pixel_path, launches):
+    """``make_sharded_inference`` at full width on one card: R18, 400
+    classes, bf16, over ``build_mesh([cuda:0] * 8, axes={"dp": 2, "sp":
+    4})`` (15 clips padded to 16), on four seeded videos of
+    PARALLEL_VALID clips. Two ``run`` s and a ``predict`` with the
+    counts set to 0 before them and read after: one ingest launch each
+    and no other kernel, the second run bitwise the first; each video's
+    logits within PARALLEL_TOL (rtol = atol) of the same network's
+    unsharded masked sum on the card (one forward over every video's
+    max_clips rows); ``predict`` 's class ids those of the unsharded
+    sums wherever their top-2 gap exceeds the two logits' bounds; the
+    ingest kernel held to its plain version at the run's rows. Returns
+    ``run`` 's ms at dp 2 x 16 rows (CUDA events) and a report."""
+    import numpy as np
+    import torch
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.ops.preprocess import normalize_u8
+    from rnb_tpu_torch.ops.yuv import normalize_yuv420
+    from rnb_tpu_torch.parallel import build_mesh, make_sharded_inference
+    mesh = build_mesh([device] * 8, axes=PARALLEL_AXES)
+    t0 = time.time()
+    si = make_sharded_inference(mesh=mesh, max_clips=MESH_MAX_CLIPS,
+                                num_classes=400, pixel_path=pixel_path)
+    build_s = time.time() - t0
+    kernel = MESH_KERNELS[pixel_path]
+    check(si.padded_clips == MESH_PADDED_CLIPS and si.dtype ==
+          torch.bfloat16 and si.mesh.shape == PARALLEL_AXES, "sharded %s: "
+          "padded clips %d, %s, mesh %s" % (pixel_path, si.padded_clips,
+                                            si.dtype, si.mesh.shape))
+    rng = np.random.default_rng(31 + len(pixel_path))
+    videos = rng.integers(0, 256, si.batch_shape(len(PARALLEL_VALID)),
+                          dtype=np.uint8)
+    vids, mask = si.place(videos, PARALLEL_VALID)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    first = si.run(vids, mask)
+    again = si.run(vids, mask)
+    preds = si.predict(videos, PARALLEL_VALID)
+    counts = _kernels.launch_counts()
+    for name, count in counts.items():
+        check(count == (3 if name == kernel else 0), "sharded %s: %d %s "
+              "launches in two runs and a predict" % (pixel_path, count,
+                                                      name))
+        launches[name] += count
+    check(torch.equal(first, again), "sharded %s: a second run differs by "
+          "%g" % (pixel_path, float((first - again).abs().max())))
+    check(tuple(first.shape) == (len(PARALLEL_VALID), 400)
+          and bool(torch.isfinite(first).all()), "sharded %s: logits %s"
+          % (pixel_path, tuple(first.shape)))
+    got = first.cpu().numpy()
+    check(np.array_equal(preds, got.argmax(-1)), "sharded %s: predict %s, "
+          "the run's argmax %s" % (pixel_path, preds.tolist(),
+                                   got.argmax(-1).tolist()))
+    report = dict(videos=len(PARALLEL_VALID), held=0, agreed=0,
+                  near_ties=[], err=0.0, build_s=build_s)
+    # unsharded: one forward over every video's max_clips rows, each
+    # video's masked logits summed over its clip axis at once
+    flat = vids.reshape((-1,) + tuple(vids.shape[2:]))
+    with torch.inference_mode():
+        if pixel_path == "yuv420":
+            x = normalize_yuv420(flat, si.frame_hw, si.frame_hw)
+        else:
+            x = normalize_u8(flat)
+        unsharded = (si.network(x).reshape(len(PARALLEL_VALID), -1, 400)
+                     * mask[..., None]).sum(dim=1).cpu().numpy()
+    for j, valid in enumerate(PARALLEL_VALID):
+        want = unsharded[j]
+        bound = PARALLEL_TOL + PARALLEL_TOL * np.abs(want)
+        err = np.abs(got[j] - want)
+        check((err <= bound).all(), "sharded %s video %d (%d clips): "
+              "%g from the unsharded sum, past rtol = atol = %g" % (
+                  pixel_path, j, valid, float(err.max()), PARALLEL_TOL))
+        report["err"] = max(report["err"], float(err.max()))
+        top = np.argsort(want)[-2:]
+        gap = float(want[top[1]] - want[top[0]])
+        margin = float(bound[top[1]] + bound[top[0]])
+        agreed = int(preds[j]) == int(top[1])
+        check(gap <= margin or agreed, "sharded %s video %d: class id "
+              "%d, the unsharded sums say %d past the margin" % (
+                  pixel_path, j, int(preds[j]), int(top[1])))
+        report["held"] += int(gap > margin)
+        report["agreed"] += int(agreed)
+        if gap <= margin:
+            report["near_ties"].append([j, gap, margin])
+    report["ingest_err"] = check_mesh_ingest(
+        "sharded %s" % pixel_path, si, len(PARALLEL_VALID) * si.padded_clips,
+        rng)
+    two, two_mask = vids[:MESH_DP], mask[:MESH_DP]
+    ms = call_ms(lambda: si.run(two, two_mask), reps=10, rounds=3)
+    del si, vids, mask, first, again, two, two_mask
+    torch.cuda.empty_cache()
+    return ms, report
+
+
+def phase_parallel(data_root, launches):
+    """The reference's parallel API and its entry points on the
+    card (``rnb_tpu_torch.graft_entry``, ``rnb_tpu_torch.parallel``):
+    ``entry()``'s flagship forward (:func:`check_entry`); the full-width
+    ``ShardedInference`` in rgb and yuv420 (:func:`check_sharded`);
+    ``dryrun_multichip(8)`` and ``(2)`` with every member on the card,
+    each printing its ``ok`` line (the 8-member pipeline run's job
+    directory under ``data_root/logs``, for ``phase_check_jobs``); and
+    ``global_mesh()`` and ``process_count()``. Each path is driven with
+    the counts set to 0 before it and read after; their launches go to
+    ``launches``. Prints each time beside the card's name and power
+    limit."""
+    import torch
+    from rnb_tpu_torch.graft_entry import dryrun_multichip
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.parallel import distributed
+    device = torch.device("cuda", 0)
+    smi = nvidia_smi_line()
+    t0 = time.time()
+    entry_ms, entry_report = check_entry(device)
+    print("parallel entry: flagship forward %.3f ms (15 clips, bf16; %s); "
+          "%s" % (entry_ms, smi, json.dumps(entry_report)))
+    for pixel_path in ("rgb", "yuv420"):
+        run_ms, report = check_sharded(device, pixel_path, launches)
+        print("parallel sharded %s: run %.3f ms at dp %d x %d rows (%s); %s"
+              % (pixel_path, run_ms, MESH_DP, MESH_PADDED_CLIPS, smi,
+                 json.dumps(report)))
+    for members in DRYRUN_MEMBERS:
+        _kernels.reset_launches()
+        t1 = time.time()
+        summary = dryrun_multichip(members, log_base=os.path.join(
+            data_root, "logs", "dryrun-%d" % members))
+        counts = _kernels.launch_counts()
+        for name, count in counts.items():
+            check(count == 0 or name in DRYRUN_KERNELS, "dryrun_multichip(%d)"
+                  " launched %s, not a kernel of its paths" % (members, name))
+            launches[name] += count
+        check(counts["normalize_u8"] >= 1 and (
+            members < 4 or counts["yuv420_normalize"] >= 1),
+            "dryrun_multichip(%d): launches %s" % (members, counts))
+        print("parallel dryrun_multichip(%d): %.1f s, %s, launches %s (%s)"
+              % (members, time.time() - t1, json.dumps(summary),
+                 {k: v for k, v in counts.items() if v}, smi))
+    check(distributed.process_count() == 1 and distributed.is_primary(),
+          "process_count %d" % distributed.process_count())
+    print("parallel global_mesh().shape %s, process_count() %d (%.1f s)"
+          % (distributed.global_mesh().shape, distributed.process_count(),
+             time.time() - t0))
 
 
 def check_served_weights(label, runner, file_state, seeded):
@@ -4775,6 +5015,9 @@ def main() -> int:
         phase_ckpt(data_root, launches)
         phase_bench_cuda(data_root)
         phase_mjpeg(data_root, launches)
+        t_parallel = time.time()
+        phase_parallel(data_root, launches)
+        seconds_of["parallel"] = time.time() - t_parallel
         t_checks = time.time()
         phase_check_jobs(data_root)
         seconds_of["check_jobs"] = time.time() - t_checks

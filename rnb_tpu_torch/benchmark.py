@@ -139,7 +139,7 @@ from rnb_tpu_torch.netedge import (NET_LANE, PEER_EXIT_S, NetEdgeClient,
                                    NetEdgeSettings, NetStats, spawn_peer,
                                    stop_peer)
 from rnb_tpu_torch.pager import Pager, PagerSettings
-from rnb_tpu_torch.parallel.distributed import check_single_process
+from rnb_tpu_torch.parallel.distributed import maybe_initialize
 from rnb_tpu_torch.placement import PlacementSettings, build_report
 from rnb_tpu_torch.runner import (NUM_SUMMARY_SKIPS, RunnerContext,
                                   finish_outputs, runner)
@@ -788,9 +788,9 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                    log_base, print_progress, seed, platform, outputs_sink,
                    profile, stages_sink, xprof, batch_size, net_rows_sink,
                    closers) -> BenchmarkResult:
-    # where the reference joins a multi-process launch (RNB_TPU_COORDINATOR
-    # ...), the port refuses one before its first device touch
-    check_single_process()
+    # the reference joins a multi-process launch (RNB_TPU_COORDINATOR ...)
+    # here, before its first device touch; the port refuses one
+    maybe_initialize()
     config = load_config(config_path, platform)
     # the reference's contention probe, a warning (never an abort): a
     # card another process already holds memory on serves slower

@@ -8,10 +8,11 @@ payload it takes off its input queue, and counts the take:
   ``torch.device`` (a mesh stage's: the device its ``input_sharding``
   names) is adopted by reference (no copy, no transfer, no
   host bounce; on one card, and on the CPU, that is every take). A
-  payload on another device is moved with ``Tensor.to(device,
-  non_blocking=True)`` on the consumer's stream; the host never holds
+  payload on another device is moved by
+  :func:`rnb_tpu_torch.ops.handoff_dma.reshard` (``Tensor.to(device,
+  non_blocking=True)`` on the consumer's stream); the host never holds
   its bytes. No path reaches that branch on one card: it waits for two
-  (``ROADMAP.md``, queue 1 item 4).
+  (``ROADMAP.md``, queue 1 item 5).
 * ``mode: "host"``: the explicit host round trip, the measurable
   baseline arm: every payload bounces through a pinned host buffer
   before the upload, and every byte is counted.
@@ -45,6 +46,8 @@ import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from rnb_tpu_torch.ops.handoff_dma import is_resident, reshard
 
 #: modes the root ``handoff`` config key accepts
 HANDOFF_MODES = ("device", "host")
@@ -110,29 +113,19 @@ class EdgeHandoff:
             return self._take_host(payload)
         return self._take_device(payload)
 
-    def _resident(self, data) -> bool:
-        device = data.device
-        if device.type != self._device.type:
-            return False
-        if device.type != "cuda":
-            return True
-        target = (self._device.index if self._device.index is not None
-                  else torch.cuda.current_device())
-        return device.index == target
-
     def _take_device(self, payload: Tuple) -> Tuple:
-        """Adopt same-device tensors by reference; move a tensor on
+        """Adopt same-device tensors by reference; reshard a tensor on
         another device on the consumer's stream, never through the
         host."""
         out: List[Any] = []
         moved = 0
         for pb in payload:
             data = pb.data
-            if self._resident(data):
+            if is_resident(data, self._device):
                 out.append(pb)
                 continue
             moved += _nbytes(data)
-            out.append(_rewrap(pb, data.to(self._device, non_blocking=True)))
+            out.append(_rewrap(pb, reshard(data, self._device)))
         self.d2d_edges += 1
         self.d2d_bytes += moved
         self.resident_bytes = self._residency(out)

@@ -98,7 +98,7 @@ from rnb_tpu_torch.ops.ragged import (ragged_normalize_u8,
                                       ragged_normalize_yuv420,
                                       resolve_pool_rows, segment_offsets_of)
 from rnb_tpu_torch.ops.yuv import normalize_yuv420, packed_frame_bytes
-from rnb_tpu_torch.parallel.mesh import Mesh, Ring
+from rnb_tpu_torch.parallel.mesh import Ring, build_mesh
 from rnb_tpu_torch.parallel.sharded import ShardedInference
 from rnb_tpu_torch.parallel.shardplan import (build_shard_ring,
                                               make_merge, make_sharded_apply,
@@ -2845,9 +2845,8 @@ class R2P1DMeshRunner(StageModel):
         if len(mesh_devices) % self.dp != 0:
             raise ValueError("dp=%d must divide len(mesh_devices)=%d"
                              % (self.dp, len(mesh_devices)))
-        mesh = Mesh(np.array([_device_of(d) for d in mesh_devices],
-                             dtype=object).reshape(self.dp, -1),
-                    ("dp", "sp"))
+        mesh = build_mesh([_device_of(d) for d in mesh_devices],
+                          axes={"dp": self.dp, "sp": -1})
         if mesh.device != self.torch_device:
             raise ValueError("the mesh's members lie on %s, the stage on %s"
                              % (mesh.device, self.torch_device))
@@ -2857,10 +2856,10 @@ class R2P1DMeshRunner(StageModel):
         self.sync_preds = bool(sync_preds)
         self.pixel_path = pixel_path
         self._si = ShardedInference(
-            mesh, shared_network(1, NUM_LAYERS, int(num_classes),
-                                 tuple(layer_sizes), mesh.device,
-                                 factored_shortcut=factored_shortcut,
-                                 **_ckpt_kwargs(ckpt_path)),
+            mesh, network=shared_network(
+                1, NUM_LAYERS, int(num_classes), tuple(layer_sizes),
+                mesh.device, factored_shortcut=factored_shortcut,
+                **_ckpt_kwargs(ckpt_path)),
             max_clips=self.max_clips,
             consecutive_frames=self.consecutive_frames, frame_hw=FRAME_HW,
             num_classes=num_classes, pixel_path=pixel_path)

@@ -34,8 +34,20 @@ on the members of a :class:`rnb_tpu_torch.parallel.mesh.Ring`.
 
 The reference places each hop's buffer with ``dynamic_update_slice``, an
 op outside the Pallas body; here the hop writes the slot itself.
-``reshard``, ``ring_shift_amount`` and ``dma_available`` belong to the
-inter-stage handoff and wait for it.
+
+The inter-stage handoff's half (``rnb_tpu_torch.handoff``):
+
+* :func:`reshard` -- the one entry the edge calls: a tensor re-homed on a
+  device or a :class:`rnb_tpu_torch.parallel.mesh.NamedSharding`,
+  adopted where it already lies, else one device-to-device copy, never
+  through the host. The reference's ring route (a pure ring shift of a
+  one-axis sharding, one neighbour DMA a core) moves shards between
+  distinct cards, which no port mesh spans yet, so it raises "not yet
+  ported" (ROADMAP.md, queue 1 item 5).
+* :func:`ring_shift_amount` -- the pattern detector, the reference's
+  rule: the shift ``k`` that maps one sharding's member ring onto the
+  other's, or ``None``.
+* :func:`dma_available` -- the gate of the ring route.
 """
 
 from __future__ import annotations
@@ -43,12 +55,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import os
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from rnb_tpu_torch.ops import _kernels
-from rnb_tpu_torch.parallel.mesh import MAX_MEMBERS
+from rnb_tpu_torch.parallel.mesh import MAX_MEMBERS, NamedSharding
 
 Members = List[torch.Tensor]
 
@@ -450,3 +463,79 @@ def ring_psum_scatter(operands: Sequence[torch.Tensor], ring=None,
         ring.check(operands, "ring_psum_scatter")
     return ring_psum_scatter_body(len(operands), axis)(operands)
 
+
+# -- the inter-stage handoff --------------------------------------------------
+
+def dma_available(*tensors: torch.Tensor) -> bool:
+    """Is the ring route usable for ``tensors``? Only where
+    ``rnb_ring_shift`` is built and every tensor lies on a card."""
+    return bool(tensors) and all(t.is_cuda for t in tensors) \
+        and os.path.exists(_kernels.library_path(_kernels.RING_SHIFT.source))
+
+
+def ring_shift_amount(src_sharding, dst_sharding) -> Optional[int]:
+    """The ring shift ``k`` (in member positions, ``1 <= k < n``) that
+    maps the source placement onto the target placement, or ``None``
+    when the move is not a pure ring shift: both are
+    :class:`NamedSharding` s with equal specs over single-axis meshes of
+    one axis name and the same ``n >= 2`` members, and the target's
+    member list is the source's rotated by ``k``."""
+    for s in (src_sharding, dst_sharding):
+        if not isinstance(s, NamedSharding):
+            return None
+    if len(src_sharding.axis_names) != 1 \
+            or tuple(dst_sharding.axis_names) \
+            != tuple(src_sharding.axis_names):
+        return None
+    if tuple(src_sharding.spec) != tuple(dst_sharding.spec):
+        return None
+    src_devs = list(src_sharding.devices)
+    dst_devs = list(dst_sharding.devices)
+    n = len(src_devs)
+    if n < 2 or len(dst_devs) != n:
+        return None
+    for k in range(1, n):
+        if dst_devs == src_devs[k:] + src_devs[:k]:
+            return k
+    return None
+
+
+def is_resident(data: torch.Tensor, device: torch.device) -> bool:
+    """Does ``data`` lie on ``device`` (a card without an index meaning
+    the current one)?"""
+    if data.device.type != device.type:
+        return False
+    if device.type != "cuda":
+        return True
+    target = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return data.device.index == target
+
+
+def reshard(data: torch.Tensor, target,
+            source: Optional[NamedSharding] = None) -> torch.Tensor:
+    """Re-home ``data`` onto ``target`` (a device, or a
+    :class:`NamedSharding` whose members share one) without host
+    memory: adopted by reference where it already lies there, else one
+    ``.to(device, non_blocking=True)``, device to device on the current
+    stream. ``source`` is the sharding ``data`` lies under (a tensor
+    carries none): where it and ``target`` are one ring shift apart and
+    :func:`dma_available`, the reference moves each shard to its
+    neighbour by remote DMA. A shift between members on one card moves
+    nothing, so that route starts only across distinct cards, and it
+    raises "not yet ported"."""
+    if isinstance(target, NamedSharding):
+        distinct = len(set(target.devices))
+        if distinct > 1 and dma_available(data) \
+                and ring_shift_amount(source, target) is not None:
+            raise NotImplementedError(
+                "the ring route of reshard across %d distinct devices is "
+                "not yet ported to rnb_tpu_torch: its hop between cards "
+                "waits for peer access (ROADMAP.md, queue 1 item 5)"
+                % distinct)
+        device = target.device
+    else:
+        device = torch.device(target)
+    if is_resident(data, device):
+        return data
+    return data.to(device, non_blocking=True)

@@ -1,25 +1,31 @@
 """Meshes and rings: the member devices one parallel stage runs over.
 
-Counterpart of the part of ``rnb_tpu/parallel/mesh.py`` the port's
-stages use. Parallel stages name *axes* (``dp`` -- data/video
-replication, ``sp`` -- clip sharding, ``tp`` -- a shard ring): a
-:class:`Mesh` is a grid of ``torch.device`` s with named axes (the
-port's ``jax.sharding.Mesh``, built by the mesh stage), a :class:`Ring`
-a shard ring's one axis of members, in ring order, and
-:func:`carve_replicas` the replica expansion's placement rule
+Counterpart of ``rnb_tpu/parallel/mesh.py``. Parallel stages name
+*axes* (``dp`` -- data/video replication, ``sp`` -- clip sharding,
+``tp`` -- a shard ring): a :class:`Mesh` is a grid of ``torch.device`` s
+with named axes (the port's ``jax.sharding.Mesh``), a :class:`Ring` a
+shard ring's one axis of members, in ring order, and a
+:class:`NamedSharding` a mesh's members plus a spec (where a value's
+pieces lie). The reference's helpers build them: :class:`MeshSpec` (an
+axis request, ``-1`` once for "the rest"), :func:`factor_devices` (a
+device count split over axis names), :func:`build_mesh` and
+:func:`submeshes` (consecutive members carved into stage meshes), and
+:func:`carve_replicas` is the replica expansion's placement rule
 (``rnb_tpu_torch.config``).
 
 Members may repeat a device, which a ``jax.sharding.Mesh`` cannot: on
-the CPU every config device maps to the CPU, and a one-card copy of a
-multi-device config puts every member on the card. A mesh or a ring
-whose members sit on two or more distinct devices raises: a ring hop
-between cards (peer access, NVLink stores) and a mesh's reduce over
-cards (NCCL) are not yet ported (ROADMAP.md, queue 1 item 4).
+the CPU every config device maps to the CPU, and one card hosts a mesh
+of any size when its member list names the card that many times
+(``[torch.device("cuda", 0)] * 8``). A mesh or a ring whose members sit
+on two or more distinct devices raises: a ring hop between cards (peer
+access, NVLink stores) and a mesh's reduce over cards (NCCL) are not
+yet ported (ROADMAP.md, queue 1 item 5). A :class:`NamedSharding` may
+name distinct cards: it only describes a placement.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +43,7 @@ def _one_device(devices: Sequence[torch.device], what: str,
         raise NotImplementedError(
             "%s over %d distinct devices (%s) is not yet ported to "
             "rnb_tpu_torch: its members must share one device; %s "
-            "(ROADMAP.md, queue 1 item 4)"
+            "(ROADMAP.md, queue 1 item 5)"
             % (what, len(distinct), ", ".join(distinct), across))
 
 
@@ -66,6 +72,153 @@ class Mesh:
 
     def __repr__(self):
         return "Mesh(%r, axis_names=%r)" % (self.shape, self.axis_names)
+
+
+class MeshSpec:
+    """A declarative mesh request: ordered {axis_name: size}.
+
+    Size ``-1`` on at most one axis means "whatever is left" after the
+    explicit axes divide the device count (mirrors reshape's -1).
+    """
+
+    def __init__(self, axes: Dict[str, int]):
+        if not axes:
+            raise ValueError("MeshSpec needs at least one axis")
+        wildcards = [a for a, s in axes.items() if s == -1]
+        if len(wildcards) > 1:
+            raise ValueError("at most one mesh axis may be -1, got %r"
+                             % (axes,))
+        for a, s in axes.items():
+            if s != -1 and s < 1:
+                raise ValueError("mesh axis %r has invalid size %d" % (a, s))
+        self.axes = dict(axes)
+
+    def resolve(self, num_devices: int) -> Dict[str, int]:
+        """Concrete axis sizes for ``num_devices`` devices."""
+        sizes = dict(self.axes)
+        explicit = 1
+        wildcard = None
+        for a, s in sizes.items():
+            if s == -1:
+                wildcard = a
+            else:
+                explicit *= s
+        if wildcard is not None:
+            if num_devices % explicit != 0:
+                raise ValueError(
+                    "cannot fill axis %r: %d devices not divisible by %d"
+                    % (wildcard, num_devices, explicit))
+            sizes[wildcard] = num_devices // explicit
+        elif explicit != num_devices:
+            raise ValueError(
+                "mesh %r wants %d devices but group has %d"
+                % (self.axes, explicit, num_devices))
+        return sizes
+
+    def __repr__(self):
+        return "MeshSpec(%r)" % (self.axes,)
+
+
+def factor_devices(num_devices: int,
+                   axis_names: Sequence[str]) -> Dict[str, int]:
+    """Factor ``num_devices`` across ``axis_names`` as evenly as
+    possible, larger factors on the *earlier* axes: 8 over ("dp", "sp")
+    -> {dp: 4, sp: 2}; over ("pp", "dp", "sp") -> {pp: 2, dp: 2, sp: 2};
+    a prime count puts everything on the first axis."""
+    if num_devices < 1:
+        raise ValueError("need at least one device")
+    names = list(axis_names)
+    sizes = {a: 1 for a in names}
+    factors: List[int] = []
+    n = int(num_devices)
+    p = 2
+    while p * p <= n:
+        while n % p == 0:
+            factors.append(p)
+            n //= p
+        p += 1
+    if n > 1:
+        factors.append(n)
+    # LPT greedy: each prime factor, largest first, onto the currently
+    # smallest axis keeps the split as even as the factorization allows
+    for f in sorted(factors, reverse=True):
+        smallest = min(range(len(names)), key=lambda i: sizes[names[i]])
+        sizes[names[smallest]] *= f
+    ordered = sorted((sizes[a] for a in names), reverse=True)
+    return dict(zip(names, ordered))
+
+
+def visible_devices() -> List[torch.device]:
+    """Every CUDA card this process sees, in index order (none on a
+    machine without one)."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def build_mesh(devices: Optional[Sequence] = None,
+               axes: Optional[Dict[str, int]] = None,
+               axis_names: Sequence[str] = ("dp", "sp")) -> Mesh:
+    """A :class:`Mesh` over ``devices`` (default: every visible card).
+    ``axes`` gives explicit {name: size} (``-1`` allowed once); without
+    it the member count is factored over ``axis_names``. Members may
+    repeat a device: ``[torch.device("cuda", 0)] * 8`` is a mesh of
+    eight members on one card."""
+    devices = visible_devices() if devices is None else list(devices)
+    if axes is not None:
+        sizes = MeshSpec(axes).resolve(len(devices))
+    else:
+        sizes = factor_devices(len(devices), axis_names)
+    names = tuple(sizes.keys())
+    grid = np.empty(len(devices), dtype=object)
+    grid[:] = [torch.device(d) for d in devices]
+    return Mesh(grid.reshape(tuple(sizes[a] for a in names)), names)
+
+
+def submeshes(devices: Sequence, stage_sizes: Sequence[int],
+              axes_per_stage: Optional[Sequence[Optional[Dict[str, int]]]]
+              = None) -> List[Mesh]:
+    """Carve ``devices`` into consecutive sub-meshes: ``stage_sizes[i]``
+    members go to stage i (the pipeline-parallel split, each stage on
+    its own members), each built by :func:`build_mesh` with its entry of
+    ``axes_per_stage``."""
+    devices = list(devices)
+    if sum(stage_sizes) > len(devices):
+        raise ValueError("stage sizes %r exceed %d devices"
+                         % (list(stage_sizes), len(devices)))
+    if axes_per_stage is None:
+        axes_per_stage = [None] * len(stage_sizes)
+    out = []
+    cursor = 0
+    for size, axes in zip(stage_sizes, axes_per_stage):
+        out.append(build_mesh(devices[cursor:cursor + size], axes=axes))
+        cursor += size
+    return out
+
+
+class NamedSharding(NamedTuple):
+    """Where a value's pieces lie (the port's ``NamedSharding``): a
+    mesh's members in row-major order, its axis names and sizes, and a
+    ``spec`` naming the mesh axis each leading dim of the value is split
+    over (``()`` for a replicated value). It describes a placement, so,
+    unlike :class:`Mesh`, it may name distinct cards."""
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    spec: Tuple[Optional[str], ...] = ()
+
+    @classmethod
+    def of(cls, mesh: Mesh, spec: Sequence[Optional[str]] = ()
+           ) -> "NamedSharding":
+        """The sharding ``spec`` over ``mesh``'s members."""
+        return cls(tuple(mesh.devices.flat), mesh.axis_names,
+                   tuple(mesh.devices.shape), tuple(spec))
+
+    @property
+    def device(self) -> torch.device:
+        """The one device every member lives on; raises for members on
+        distinct devices, as :class:`Mesh` does."""
+        _one_device(self.devices, "a sharding",
+                    "a value across cards waits for the NCCL reduce")
+        return self.devices[0]
 
 
 def carve_replicas(devices: Sequence, replicas: int) -> list:

@@ -17,29 +17,40 @@ that share one card run one forward a card, over every row of the
 dispatch (the padded ones too), and the logits are then split into the
 member partials; a mesh over several cards raises
 (:class:`rnb_tpu_torch.parallel.mesh.Mesh`).
+
+:class:`ShardedInference` builds its network as the reference does
+(``variables``, else ``ckpt_path``, else the seeded init, through
+``checkpoint.load_or_init``) or takes a stage's finished one;
+:func:`make_sharded_inference` builds it over a factored mesh.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from rnb_tpu_torch.models.r2p1d.network import KINETICS_CLASSES
+from rnb_tpu_torch.models.r2p1d import checkpoint as ckpt
+from rnb_tpu_torch.models.r2p1d.network import (KINETICS_CLASSES,
+                                                NUM_LAYERS, R18_LAYER_SIZES)
 from rnb_tpu_torch.ops.preprocess import normalize_u8
 from rnb_tpu_torch.ops.yuv import normalize_yuv420, packed_frame_bytes
-from rnb_tpu_torch.parallel.mesh import Mesh
+from rnb_tpu_torch.parallel.mesh import (Mesh, Ring, build_mesh,
+                                         visible_devices)
+from rnb_tpu_torch.parallel.shardplan import make_sharded_apply
 
 
 class ShardedInference:
     """Full R(2+1)D inference over a ``dp x sp`` mesh.
 
-    :meth:`step` takes a uint8 batch of shape ``(videos, max_clips,
-    frames, H, W, 3)`` (rgb) or ``(videos, max_clips, frames, packed)``
-    (yuv420) and a float32 mask ``(videos, max_clips)`` (1.0 = valid
-    clip), both on the mesh's device, and returns per-video aggregated
-    logits ``(videos, num_classes)`` in float32: summed over each video's
-    valid clips, per member and then over the ``sp`` members.
+    :meth:`run` (the stage's :meth:`step`) takes a uint8 batch of shape
+    ``(videos, max_clips, frames, H, W, 3)`` (rgb) or ``(videos,
+    max_clips, frames, packed)`` (yuv420) and a float32 mask ``(videos,
+    max_clips)`` (1.0 = valid clip), both on the mesh's device
+    (:meth:`place`), and returns per-video aggregated logits ``(videos,
+    num_classes)`` in float32: summed over each video's valid clips, per
+    member and then over the ``sp`` members.
 
     The mesh's ``dp`` size must divide the video axis. The clip axis
     needs no divisibility: when ``sp`` does not divide ``max_clips`` the
@@ -47,14 +58,24 @@ class ShardedInference:
     flagship's 15 clips over ``sp`` 4 become 16), which change no
     result.
 
-    ``network`` is the [1..5] classifier the members share (the stage's
-    copy on its card); the ingest produces its compute dtype.
+    The [1..5] network is ``variables`` (a port state dict, what
+    ``checkpoint.from_jax_variables`` returns), else the file at
+    ``ckpt_path``, else the seeded init, in ``dtype`` (bf16 by default),
+    on the mesh's device. A stage passes its finished ``network``
+    instead (the one copy on its card); the ingest produces that
+    network's compute dtype.
     """
 
-    def __init__(self, mesh: Mesh, network: torch.nn.Module,
-                 max_clips: int = 15, consecutive_frames: int = 8,
-                 frame_hw: int = 112, num_classes: int = KINETICS_CLASSES,
-                 pixel_path: str = "rgb"):
+    def __init__(self, mesh: Mesh, max_clips: int = 15,
+                 consecutive_frames: int = 8, frame_hw: int = 112,
+                 num_classes: int = KINETICS_CLASSES,
+                 layer_sizes: Sequence[int] = R18_LAYER_SIZES,
+                 dtype: Optional[torch.dtype] = None,
+                 ckpt_path: Optional[str] = None,
+                 variables: Optional[Dict[str, torch.Tensor]] = None,
+                 factored_shortcut: bool = False,
+                 pixel_path: str = "rgb",
+                 network: Optional[torch.nn.Module] = None):
         if "dp" not in mesh.axis_names or "sp" not in mesh.axis_names:
             raise ValueError("mesh %r lacks axis 'dp'/'sp'"
                              % (mesh.axis_names,))
@@ -63,6 +84,18 @@ class ShardedInference:
                              "got %r" % (pixel_path,))
         self.mesh = mesh
         self.device = mesh.device
+        if network is None:
+            if variables is None:
+                variables = ckpt.load_or_init(
+                    1, NUM_LAYERS, num_classes, layer_sizes, ckpt_path,
+                    factored_shortcut=factored_shortcut)
+            network = make_sharded_apply(
+                1, NUM_LAYERS, num_classes, tuple(layer_sizes),
+                Ring([self.device]), factored_shortcut,
+                dtype or torch.bfloat16)(variables)
+        elif variables is not None or ckpt_path is not None:
+            raise ValueError("a finished network carries its weights: "
+                             "pass it without variables or ckpt_path")
         self.network = network
         self.dtype = network.dtype
         self.max_clips = int(max_clips)
@@ -94,6 +127,24 @@ class ShardedInference:
         return torch.stack([self._mask_rows[min(int(n), self.max_clips)]
                             for n in valid_clips])
 
+    def place(self, videos_u8: np.ndarray, valid_clips: Sequence[int]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A host batch on the mesh's device (one copy) and its mask."""
+        vids = torch.from_numpy(np.ascontiguousarray(videos_u8, np.uint8))
+        return vids.to(self.device), self.place_mask(valid_clips)
+
+    @torch.inference_mode()
+    def run(self, vids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """-> per-video aggregated logits (videos, num_classes), float32
+        (:meth:`step`)."""
+        return self.step(vids, mask)
+
+    def predict(self, videos_u8: np.ndarray,
+                valid_clips: Sequence[int]) -> np.ndarray:
+        """Host convenience: class ids for one padded uint8 batch."""
+        logits = self.run(*self.place(videos_u8, valid_clips))
+        return logits.argmax(dim=-1).cpu().numpy()
+
     def step(self, vids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """The sharded step on tensors already on the mesh's device (what
         a stage captures): pad the clip axis, ingest, one forward over
@@ -124,3 +175,21 @@ class ShardedInference:
         for member in range(1, self.sp_size):
             total = total + partials[:, member]
         return total
+
+
+def make_sharded_inference(mesh: Optional[Mesh] = None,
+                           num_devices: Optional[int] = None,
+                           **kwargs) -> ShardedInference:
+    """A :class:`ShardedInference` over ``mesh``, or over a dp x sp mesh
+    factored over the first ``num_devices`` visible cards (all of them
+    by default)."""
+    if mesh is None:
+        devices = visible_devices()
+        if num_devices is not None:
+            if num_devices > len(devices):
+                raise ValueError(
+                    "asked for %d devices but only %d are visible"
+                    % (num_devices, len(devices)))
+            devices = devices[:num_devices]
+        mesh = build_mesh(devices, axis_names=("dp", "sp"))
+    return ShardedInference(mesh, **kwargs)

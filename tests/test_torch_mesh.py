@@ -137,7 +137,7 @@ def _environment(monkeypatch, env):
 
 def test_single_process_mode(monkeypatch):
     _environment(monkeypatch, {"RNB_TPU_NUM_PROCESSES": "0"})
-    assert distributed.check_single_process() is None
+    assert distributed.maybe_initialize() is False
     assert jax_distributed.maybe_initialize() is False
 
 
@@ -151,7 +151,7 @@ def test_a_partial_environment_is_refused_as_the_reference(env,
     with pytest.raises(RuntimeError) as theirs:
         jax_distributed.maybe_initialize()
     with pytest.raises(RuntimeError) as ours:
-        distributed.check_single_process()
+        distributed.maybe_initialize()
     assert str(ours.value) == str(theirs.value)
 
 
@@ -165,7 +165,7 @@ def test_a_multi_process_launch_is_refused_as_not_yet_ported(env,
     with pytest.raises(NotImplementedError,
                        match=r"multi-process run \(RNB_TPU_COORDINATOR="
                              r"127.0.0.1:1\) is not yet ported.*NCCL"):
-        distributed.check_single_process()
+        distributed.maybe_initialize()
 
 
 def test_run_benchmark_refuses_a_multi_process_launch(monkeypatch,
@@ -206,7 +206,7 @@ def _sharded_pair(weights, dp, sp, pixel_path, dtype):
     theirs = JaxSharded(jax_mesh_, variables=weights, pixel_path=pixel_path,
                         dtype=jnp.float32 if dtype == torch.float32
                         else jnp.bfloat16, layer_sizes=LS, **TINY_SI)
-    ours = ShardedInference(_mesh(dp, sp), _network(weights, dtype),
+    ours = ShardedInference(_mesh(dp, sp), network=_network(weights, dtype),
                             pixel_path=pixel_path, **TINY_SI)
     return theirs, ours
 
@@ -273,12 +273,13 @@ def test_scribbling_on_masked_clips_changes_nothing(weights, pixel_path):
 def test_the_sharded_step_refuses_what_the_reference_refuses(weights):
     net = _network(weights, torch.bfloat16)
     with pytest.raises(ValueError, match=r"lacks axis 'dp'/'sp'"):
-        ShardedInference(mesh.Mesh([[CPU] * 2] * 2, ("dp", "cp")), net,
-                         **TINY_SI)
+        ShardedInference(mesh.Mesh([[CPU] * 2] * 2, ("dp", "cp")),
+                         network=net, **TINY_SI)
     with pytest.raises(ValueError, match="pixel_path must be 'rgb' or "
                                          "'yuv420', got 'dct'"):
-        ShardedInference(_mesh(2, 2), net, pixel_path="dct", **TINY_SI)
-    ours = ShardedInference(_mesh(2, 2), net, **TINY_SI)
+        ShardedInference(_mesh(2, 2), network=net, pixel_path="dct",
+                         **TINY_SI)
+    ours = ShardedInference(_mesh(2, 2), network=net, **TINY_SI)
     videos, valid = _videos(ours, 3, seed=1)
     with pytest.raises(ValueError, match="multiple of the mesh's dp size"):
         _step(ours, videos, valid)
