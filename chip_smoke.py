@@ -327,6 +327,26 @@ Phases (any failure exits non-zero and prints no result line):
    each printing its ``ok`` line (the 8-member one serves its tiny
    yuv420 mesh pipeline through ``run_benchmark``); and
    ``global_mesh().shape`` and ``process_count()`` printed.
+   Then two processes of one launch on the card (``phase_processes``;
+   ``rnb_tpu_torch.tools.launch`` sets the three ``RNB_TPU_*``
+   variables, each process joins the launch's gloo group and acts on
+   card ``index % device_count()``, here both on cuda:0): with the
+   counts set to 0 before it and read after, the conv5 temporal hop, a
+   d2 forward's 19-leaf gather and a reduce-scatter across the two
+   processes (the ring kernel's cross-process form, ``rnb_ring_hop``,
+   through the successor's window opened by CUDA IPC), each bitwise its
+   plain version on the same inputs, and ``ShardedInference``'s ``run``
+   and ``predict`` at full width over the launch's dp 1 x sp 2 mesh (2
+   videos of 15 clips padded to 16, 16 rows a process), within
+   rtol = atol = 2e-2 of the one-process run, class ids compared past
+   the margin; 10 ring launches and 2 ingest launches a process. Timed
+   (the card's name and power limit beside): the hop's two launches
+   alone (profiler device time, the other process idle),
+   ``Tensor.copy_`` into the peer's window, the hop with its semaphores
+   and a 16-byte hop (CUDA events), the run across the processes and
+   the one-process run. Then a second launch: after one hop, process 1
+   leaves, and process 0's next hop must raise at its 2 s cap. A
+   process that fails or outlives the launch's timeout fails the smoke.
    Then every job directory the smoke wrote (``phase_check_jobs``)
    through the port's whole ``check_job`` (the reference's
    ``check_job_detail`` for the files the port writes), its count
@@ -611,6 +631,18 @@ PARALLEL_VALID = [15, 7, 1, 12]
 PARALLEL_TOL = 2e-2
 #: the dry runs' member counts, and the kernels their paths launch (the
 #: rgb sharded step; the yuv420 pipeline run from 4 members)
+#: the launch of two processes on the card (phase_processes): its
+#: processes, the seconds a launch may take, its videos' valid clips, the
+#: wait cap of the killed-peer launch, the timed reps
+PROCESSES = 2
+PROCESS_TIMEOUT_S = 300
+PROCESS_VALID = [15, 9]
+PROCESS_KILL_CAP_S = 2.0
+PROCESS_REPS = 20
+#: ring_shift launches of the launch's main path, each process: the conv5
+#: hop, the 19-leaf gather, the reduce-scatter, then run's and predict's
+#: gathers of the partials, each one hop of a send and a place launch
+PROCESS_RING_LAUNCHES = 10
 DRYRUN_MEMBERS = (8, 2)
 DRYRUN_KERNELS = {"normalize_u8", "yuv420_normalize"}
 #: the checkpoint phase (``phase_ckpt``): the copies of
@@ -694,7 +726,10 @@ EXTRA_ROW_KEYS = ("all_hit_ms", "all_hit_ms_l2_flushed",
                   "gather_bound_ms", "gather_library_ms",
                   "forward_gather_ms", "forward_gather_ms_l2_flushed",
                   "forward_gather_plain_ms", "forward_gather_bound_ms",
-                  "forward_per_leaf_ms", "merge_host_us")
+                  "forward_per_leaf_ms", "merge_host_us", "xproc_ms",
+                  "xproc_round_trip_ms", "xproc_tiny_round_trip_ms",
+                  "xproc_library_ms", "xproc_bound_ms", "xproc_run_ms",
+                  "xproc_launches", "xproc_kill_s")
 
 
 class SmokeFailure(RuntimeError):
@@ -4141,6 +4176,327 @@ def phase_parallel(data_root, launches):
              time.time() - t0))
 
 
+def plain_psum_scatter(operands, axis):
+    """The reduce-scatter in the reference's ring order through the plain
+    version of the hop (``ring_shift_reference``) and the same adds: one
+    process's view of every member."""
+    from rnb_tpu_torch.ops.handoff_dma import ring_shift_reference
+    n = len(operands)
+    ax = axis % operands[0].dim()
+    chunk = operands[0].shape[ax] // n
+
+    def piece(member, m):
+        return operands[member].narrow(ax, m * chunk, chunk)
+    acc = [piece(j, (j - 1) % n).contiguous() for j in range(n)]
+    for s in range(1, n):
+        acc = ring_shift_reference(acc, 1)
+        acc = [acc[j] + piece(j, (j - 1 - s) % n) for j in range(n)]
+    return acc
+
+
+def peer_tensor(ptr, nbytes, device):
+    """A uint8 tensor over ``nbytes`` at ``ptr`` (a peer's window opened
+    in this process), for the library yardstick's ``copy_``."""
+    import torch
+
+    class Window:
+        __cuda_array_interface__ = {"shape": (nbytes,), "typestr": "|u1",
+                                    "data": (ptr, False), "version": 2}
+    return torch.as_tensor(Window(), device=device)
+
+
+def child_ring(rank, n, device, ring):
+    """One process of the ring launch: the main path with the counts set
+    to 0 before it and read after (the conv5 temporal hop, a d2
+    forward's 19-leaf gather, a reduce-scatter, ``ShardedInference``'s
+    run and predict at full width over the launch's dp 1 x sp 2 mesh),
+    then each result held to its plain version on the same inputs, and
+    the times. Every process makes every member's inputs from one seed
+    and runs the same steps in the same order."""
+    import numpy as np
+    import torch
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.ops import handoff_dma as dma
+    from rnb_tpu_torch.parallel import (ShardedInference, build_mesh,
+                                        distributed, make_sharded_inference,
+                                        peers)
+    gen = torch.Generator().manual_seed(2024)
+    leaves = ring_leaves(n)
+    forward = [ring_members(shape, fmt, dtype, n, gen, device)
+               for _, (shape, fmt, dtype) in sorted(leaves.items())]
+    conv5 = forward[sorted(leaves).index(
+        "net.conv5.block1.conv2.temporal.weight")]
+    operands = ring_members((16, 400), torch.contiguous_format,
+                            torch.float32, n, gen, device)
+    rng = np.random.default_rng(43)
+    t0 = time.time()
+    si = make_sharded_inference(
+        mesh=distributed.global_mesh(axes={"dp": 1, "sp": n}),
+        max_clips=MESH_MAX_CLIPS, num_classes=400, pixel_path="rgb")
+    build_s = time.time() - t0
+    videos = rng.integers(0, 256, si.batch_shape(len(PROCESS_VALID)),
+                          dtype=np.uint8)
+    vids, mask = si.place(videos, PROCESS_VALID)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    hopped = dma.ring_shift([conv5[rank]], 1, ring)[0]
+    gathered = dma.ring_all_gather_many([[m[rank]] for m in forward], 0,
+                                        ring)
+    scattered = dma.ring_psum_scatter([operands[rank]], ring, -1)[0]
+    logits = si.run(vids, mask)
+    preds = si.predict(videos, PROCESS_VALID)
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    check(counts["ring_shift"] == PROCESS_RING_LAUNCHES
+          and counts["normalize_u8"] == 2 and sum(counts.values())
+          == PROCESS_RING_LAUNCHES + 2, "process %d's main path launched "
+          "%s" % (rank, {k: v for k, v in counts.items() if v}))
+    # each result against its plain version on the same inputs
+    check(torch.equal(hopped, dma.ring_shift_reference(conv5, 1)[rank]),
+          "process %d: the conv5 hop is not bitwise its plain version"
+          % rank)
+    for (name, (_, fmt, _)), members, (full,) in zip(
+            sorted(leaves.items()), forward, gathered):
+        want = torch.cat(members).contiguous(memory_format=fmt)
+        check(torch.equal(full, want) and full.stride() == want.stride(),
+              "process %d: the gather of %s is not the concatenation, laid "
+              "out as it" % (rank, name))
+    check(torch.equal(scattered, plain_psum_scatter(operands, -1)[rank]),
+          "process %d: the reduce-scatter is not bitwise its plain version"
+          % rank)
+    one = ShardedInference(build_mesh([device] * n, axes={"dp": 1, "sp": n}),
+                           max_clips=MESH_MAX_CLIPS, num_classes=400,
+                           network=si.network)
+    single = one.run(*one.place(videos, PROCESS_VALID))
+    check(tuple(logits.shape) == (len(PROCESS_VALID), 400)
+          and bool(torch.isfinite(logits).all()), "process %d: logits %s"
+          % (rank, tuple(logits.shape)))
+    got, want = logits.cpu().numpy(), single.cpu().numpy()
+    bound = PARALLEL_TOL + PARALLEL_TOL * np.abs(want)
+    err = np.abs(got - want)
+    check((err <= bound).all(), "process %d: the run across processes is "
+          "%g from the one-process run, past rtol = atol = %g"
+          % (rank, float(err.max()), PARALLEL_TOL))
+    ids = {"held": 0, "agreed": 0, "near_ties": 0}
+    for j in range(len(PROCESS_VALID)):
+        top = np.argsort(want[j])[-2:]
+        gap = float(want[j, top[1]] - want[j, top[0]])
+        agreed = int(preds[j]) == int(top[1])
+        held = gap > float(bound[j, top[1]] + bound[j, top[0]])
+        check(agreed or not held, "process %d video %d: class id %d, the "
+              "one-process run's %d past the margin"
+              % (rank, j, int(preds[j]), int(top[1])))
+        ids["held"] += int(held)
+        ids["agreed"] += int(agreed)
+        ids["near_ties"] += int(not held)
+    # the times: the hop kernel alone (profiler device time of the send
+    # launch into the successor's window and the place launch out of this
+    # member's, neither waiting nor signalling), the hop with its
+    # semaphores and the whole run (CUDA events), Tensor.copy_ into the
+    # opened peer window; every process times the same calls at once
+    ep = peers.endpoint(ring)
+    nbytes = conv5[rank].numel() * conv5[rank].element_size()
+    succ = (ep.member + 1) % n
+    out = torch.empty_like(conv5[rank])
+    done = torch.zeros(64, dtype=torch.int32, device=device)
+    send = peers.launch_args([peers.Tile(conv5[rank].data_ptr(),
+                                         ep.peer_windows[succ], 1, nbytes,
+                                         nbytes, nbytes)])[0]
+    place = peers.launch_args([peers.Tile(ep.window, out.data_ptr(), 1,
+                                          nbytes, nbytes, nbytes)])[0]
+
+    def alone():
+        for args in (send, place):
+            _kernels.RING_SHIFT.launch(
+                *args, None, 0, None, done.data_ptr(), ep.error,
+                ep.report_dev, 10 ** 9, 0, None, None, device=device,
+                entry=_kernels.RING_HOP_ENTRY)
+    window = peer_tensor(ep.peer_windows[succ], nbytes, device)
+    # the shard's bytes (it is channels-last: no flat view of its dims)
+    source = torch.empty(0, dtype=torch.uint8, device=device).set_(
+        conv5[rank].untyped_storage())
+    check(source.numel() == nbytes, "the conv5 shard holds %d bytes of "
+          "storage, not %d" % (source.numel(), nbytes))
+    # what one process does alone is timed while the other waits at the
+    # barrier, its context idle: two contexts time-slice the card, and a
+    # kernel's span would hold the other's slices
+    times = {"ms": None, "library_ms": None, "one_process_run_ms": None}
+    torch.cuda.synchronize()
+    ep.barrier("timing")
+    if rank == 0:
+        times["ms"] = device_ms(alone)
+        times["library_ms"] = device_ms(lambda: window.copy_(source))
+    torch.cuda.synchronize()
+    ep.barrier("timed")
+
+    def events(fn, reps=PROCESS_REPS):
+        samples = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end))
+        samples.sort()
+        return samples[len(samples) // 2], samples[0], samples[-1]
+    tiny = torch.arange(16, dtype=torch.uint8, device=device)
+    times["round_trip_ms"] = events(
+        lambda: dma.ring_shift([conv5[rank]], 1, ring))
+    times["tiny_round_trip_ms"] = events(
+        lambda: dma.ring_shift([tiny], 1, ring))
+    times["run_ms"] = events(lambda: si.run(vids, mask), reps=5)
+    torch.cuda.synchronize()
+    ep.barrier("run timed")
+    if rank == 0:
+        one_vids, one_mask = one.place(videos, PROCESS_VALID)
+        times["one_process_run_ms"] = events(
+            lambda: one.run(one_vids, one_mask), reps=5)
+    torch.cuda.synchronize()
+    ep.barrier("one-process run timed")
+    times["bound_ms"] = 2 * nbytes / PEAK_BYTES_PER_S * 1e3
+    times["bytes"] = nbytes
+    return {"counts": counts, "times": times, "ids": ids,
+            "run_err": float(err.max()), "build_s": build_s,
+            "window_bytes": ep.window_bytes}
+
+
+def child_killed(rank, n, device, ring):
+    """One process of the killed-peer launch: both make the ring's
+    endpoint with one hop, then process 1 leaves without a word, and
+    process 0's next hop must raise within the wait cap."""
+    import torch
+    from rnb_tpu_torch.ops import handoff_dma as dma
+    from rnb_tpu_torch.parallel import peers
+    x = torch.arange(4096, dtype=torch.uint8, device=device)
+    first = dma.ring_shift([x], 1, ring)[0]
+    check(torch.equal(first, x), "the first hop of the killed-peer launch "
+          "moved other bytes")
+    if rank == 1:
+        os._exit(0)
+    peers.set_wait_cap(PROCESS_KILL_CAP_S)
+    t0 = time.monotonic()
+    try:
+        dma.ring_shift([x], 1, ring)
+        message = None
+    except RuntimeError as e:
+        message = str(e)
+    seconds = time.monotonic() - t0
+    check(message is not None and "past the %.1f s cap" % PROCESS_KILL_CAP_S
+          in message, "a hop to a killed peer did not raise within the "
+          "cap: %r" % message)
+    return {"message": message, "seconds": seconds}
+
+
+def process_child(mode, out_dir) -> int:
+    """``chip_smoke.py --process-child MODE OUT_DIR``: one process of a
+    launch (``rnb_tpu_torch.tools.launch`` set its variables), on the
+    card ``process_index() % device_count()``; writes its report to
+    OUT_DIR as JSON."""
+    import traceback
+    import torch
+    sys.path.insert(0, HERE)
+    rank = os.environ.get("RNB_TPU_PROCESS_ID", "?")
+    report = {"ok": False}
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from rnb_tpu_torch.parallel import distributed
+        from rnb_tpu_torch.parallel.mesh import Member, Ring
+        check(distributed.maybe_initialize(), "the launch was not joined")
+        n = distributed.process_count()
+        device = distributed.local_device()
+        torch.cuda.set_device(device)
+        ring = Ring([Member(p, distributed.local_device(p))
+                     for p in range(n)], "tp")
+        child = {"ring": child_ring, "killed": child_killed}[mode]
+        report.update(child(distributed.process_index(), n, device, ring))
+        report["ok"] = True
+    except Exception:  # reported to the smoke, which fails on it
+        report["error"] = traceback.format_exc()
+        print(report["error"], file=sys.stderr)
+    with open(os.path.join(out_dir, "child-%s-%s.json" % (mode, rank)),
+              "w") as f:
+        json.dump(report, f)
+    if mode == "killed" or not report["ok"]:
+        # a peer is gone, or this process failed: leave without the
+        # group's goodbye (its barrier would wait for the cap)
+        sys.stdout.flush()
+        os._exit(0 if report["ok"] else 1)
+    distributed.shutdown()
+    return 0
+
+
+def phase_processes(data_root, launches):
+    """Two processes of one launch on the card (``rnb_tpu_torch.tools.
+    launch``, the three ``RNB_TPU_*`` variables set): the ring
+    collectives across processes and ``ShardedInference.run`` at full
+    width (:func:`child_ring`), then a killed peer (:func:`child_killed`).
+    A child that fails or times out fails the smoke. Their ring_shift
+    and ingest launches go to ``launches``; returns the cross-process
+    numbers for the ring row."""
+    from rnb_tpu_torch.tools.launch import launch
+    smi = nvidia_smi_line()
+    out = os.path.abspath(os.path.join(data_root, "processes"))
+    os.makedirs(out, exist_ok=True)
+    reports = {}
+    for mode in ("ring", "killed"):
+        t0 = time.time()
+        ended = launch(PROCESSES, [sys.executable, os.path.join(
+            HERE, "chip_smoke.py"), "--process-child", mode, out],
+            PROCESS_TIMEOUT_S, cwd=HERE)
+        for e in ended:
+            path = os.path.join(out, "child-%s-%d.json" % (mode, e.index))
+            report = {"ok": False, "error": "no report"}
+            if os.path.exists(path):
+                with open(path) as f:
+                    report = json.load(f)
+            check(e.returncode == 0 and (report["ok"] or (
+                mode == "killed" and e.index > 0)),
+                  "process %d of the %s launch: %s\n%s\n%s" % (
+                      e.index, mode, "killed at the timeout"
+                      if e.returncode is None else "exit %d" % e.returncode,
+                      report.get("error"), e.stderr[-6000:]))
+            reports[mode, e.index] = report
+        print("processes %s launch: %.1f s" % (mode, time.time() - t0))
+    first = reports["ring", 0]["times"]
+    print("processes ring: the conv5 hop (%d bytes) alone %.5f ms on the "
+          "card (the send launch into the successor's window and the place "
+          "launch out of its own, the other process idle; bound %.5f ms by "
+          "bytes), Tensor.copy_ into the peer's window %.5f ms; the "
+          "one-process run %.3f ms (%s)" % (
+              first["bytes"], first["ms"], first["bound_ms"],
+              first["library_ms"], first["one_process_run_ms"][0], smi))
+    for rank in range(PROCESSES):
+        report = reports["ring", rank]
+        for name, count in report["counts"].items():
+            launches[name] += count
+        t = report["times"]
+        print("processes ring, process %d: the conv5 hop with its "
+              "semaphores %.3f ms (min %.3f, max %.3f), a 16-byte hop %.3f "
+              "ms (min %.3f, max %.3f); run across %d processes %.3f ms "
+              "(min %.3f, max %.3f); run %g from the one-process run; class "
+              "ids %s; window %d bytes; launches %s (%s)" % (
+                  rank, *t["round_trip_ms"], *t["tiny_round_trip_ms"],
+                  PROCESSES, *t["run_ms"], report["run_err"],
+                  json.dumps(report["ids"]), report["window_bytes"],
+                  {k: v for k, v in report["counts"].items() if v}, smi))
+    killed = reports["killed", 0]
+    print("processes killed peer: process 0's hop raised after %.2f s "
+          "(cap %.1f s): %s" % (killed["seconds"], PROCESS_KILL_CAP_S,
+                                killed["message"]))
+    return {"xproc_ms": first["ms"],
+            "xproc_round_trip_ms": first["round_trip_ms"][0],
+            "xproc_tiny_round_trip_ms": first["tiny_round_trip_ms"][0],
+            "xproc_library_ms": first["library_ms"],
+            "xproc_bound_ms": first["bound_ms"],
+            "xproc_run_ms": first["run_ms"][0],
+            "xproc_launches": sum(reports["ring", r]["counts"]["ring_shift"]
+                                  for r in range(PROCESSES)),
+            "xproc_kill_s": killed["seconds"]}
+
+
 def check_served_weights(label, runner, file_state, seeded):
     """Every parameter and buffer of ``runner``'s network on the card is
     the file's tensor of its range cast to the network's dtype, bitwise;
@@ -5018,6 +5374,9 @@ def main() -> int:
         t_parallel = time.time()
         phase_parallel(data_root, launches)
         seconds_of["parallel"] = time.time() - t_parallel
+        t_processes = time.time()
+        timings["ring_shift"].update(phase_processes(data_root, launches))
+        seconds_of["processes"] = time.time() - t_processes
         t_checks = time.time()
         phase_check_jobs(data_root)
         seconds_of["check_jobs"] = time.time() - t_checks
@@ -5065,4 +5424,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--process-child"]:
+        sys.exit(process_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -139,7 +139,8 @@ from rnb_tpu_torch.netedge import (NET_LANE, PEER_EXIT_S, NetEdgeClient,
                                    NetEdgeSettings, NetStats, spawn_peer,
                                    stop_peer)
 from rnb_tpu_torch.pager import Pager, PagerSettings
-from rnb_tpu_torch.parallel.distributed import maybe_initialize
+from rnb_tpu_torch.parallel.distributed import (maybe_initialize,
+                                                process_count)
 from rnb_tpu_torch.placement import PlacementSettings, build_report
 from rnb_tpu_torch.runner import (NUM_SUMMARY_SKIPS, RunnerContext,
                                   finish_outputs, runner)
@@ -789,8 +790,17 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                    profile, stages_sink, xprof, batch_size, net_rows_sink,
                    closers) -> BenchmarkResult:
     # the reference joins a multi-process launch (RNB_TPU_COORDINATOR ...)
-    # here, before its first device touch; the port refuses one
+    # here, before its first device touch, and serves the whole config in
+    # every process; the port joins it and refuses to serve
     maybe_initialize()
+    if process_count() > 1:
+        raise NotImplementedError(
+            "a served run in a launch of %d processes (RNB_TPU_COORDINATOR"
+            "=...) is not yet ported to rnb_tpu_torch: no served stage of "
+            "the port spans processes, and every process would serve the "
+            "whole config on its own (ROADMAP.md, queue 1 item 5); a launch "
+            "runs ShardedInference and the ring collectives "
+            "(rnb_tpu_torch.parallel)" % process_count())
     config = load_config(config_path, platform)
     # the reference's contention probe, a warning (never an abort): a
     # card another process already holds memory on serves slower

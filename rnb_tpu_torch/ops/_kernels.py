@@ -29,7 +29,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -127,34 +127,44 @@ class Kernel:
     """One CUDA kernel behind a C entry point of a csrc library."""
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence, replaces: str):
+                 argtypes: Sequence, replaces: str,
+                 entries: Optional[Dict[str, Sequence]] = None):
         self.name = name
         self.source = source
         self.symbol = symbol
         #: ctypes types of the arguments before (device, stream)
         self.argtypes = list(argtypes)
+        #: other C entries that launch this kernel, each with its argument
+        #: types (before device and stream); their launches count here too
+        self.entries = {symbol: self.argtypes}
+        self.entries.update({k: list(v) for k, v in (entries or {}).items()})
         #: the TPU kernel or op this kernel takes the place of
         self.replaces = replaces
         #: every ``file:line`` that ``replaces`` names
         self.replaced = tuple(re.findall(r"rnb_tpu/[\w/]+\.py:\d+",
                                          replaces))
         self.launches = 0
-        self._fn = None
+        self._fns = {}
 
-    def _bind(self):
-        if self._fn is None:
-            fn = getattr(_library(self.source), self.symbol)
+    def _bind(self, symbol: Optional[str] = None):
+        symbol = symbol or self.symbol
+        fn = self._fns.get(symbol)
+        if fn is None:
+            fn = getattr(_library(self.source), symbol)
             fn.restype = ctypes.c_int
-            fn.argtypes = self.argtypes + [ctypes.c_int, ctypes.c_void_p]
-            self._fn = fn
-        return self._fn
+            fn.argtypes = self.entries[symbol] + [ctypes.c_int,
+                                                  ctypes.c_void_p]
+            self._fns[symbol] = fn
+        return fn
 
-    def launch(self, *args, device=None) -> None:
-        """Launch on the current stream of ``device``, by default the
-        first tensor's: tensors pass as their data pointers, everything
-        else as is."""
+    def launch(self, *args, device=None, entry: Optional[str] = None
+               ) -> None:
+        """Launch through the C entry ``entry`` (by default
+        :attr:`symbol`) on the current stream of ``device``, by default
+        the first tensor's: tensors pass as their data pointers,
+        everything else as is."""
         import torch
-        fn = self._bind()
+        fn = self._bind(entry)
         if device is None:
             device = next(a.device for a in args
                           if isinstance(a, torch.Tensor))
@@ -217,13 +227,71 @@ RAGGED_NORMALIZE_U8 = Kernel(
 
 #: host arrays: sources, destinations, their pitches (one an entry and
 #: member), shifts, rows and row bytes (one an entry); then n and entries
+#: (entry, member) pairs one launch of the ring kernel moves at most
+#: (``kMaxTiles`` in csrc/ring.cu: the table rides in the kernel's 4 KB of
+#: parameters)
+RING_MAX_TILES = 80
+_RING_TABLE = [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_L),
+               ctypes.POINTER(_L), ctypes.POINTER(_I), ctypes.POINTER(_L),
+               ctypes.POINTER(_L), _I, _I]
+#: the hop across processes (``rnb_ring_hop``) counts as this kernel: the
+#: table (this member's tiles), then the counter waited on and its target,
+#: the counter signalled, the word of finished blocks, the error word, the
+#: pinned word it is reported into, the wait's cap in ns, and the hop's
+#: layout with the word it is written to and the word it is checked in
+RING_HOP_ENTRY = "rnb_ring_hop"
 RING_SHIFT = Kernel(
-    "ring_shift", "ring.cu", "rnb_ring_shift",
-    [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_L),
-     ctypes.POINTER(_L), ctypes.POINTER(_I), ctypes.POINTER(_L),
-     ctypes.POINTER(_L), _I, _I],
+    "ring_shift", "ring.cu", "rnb_ring_shift", _RING_TABLE,
     "rnb_tpu/ops/handoff_dma.py:104 (_pallas_shift_body, its pallas_call "
-    "at :134)")
+    "at :134)",
+    entries={RING_HOP_ENTRY: _RING_TABLE + [_P, ctypes.c_ulonglong, _P, _P,
+                                            _P, _P, _L, ctypes.c_ulonglong,
+                                            _P, _P]})
+
+
+class RingTableEntry(NamedTuple):
+    """One entry of the ring kernel's table over ``n`` members: member
+    ``i``'s ``srcs[i]`` (``rows`` rows of ``row_bytes`` at
+    ``src_pitches[i]``) into member ``(i + shift) % n``'s ``dsts`` entry
+    (at its ``dst_pitches`` entry); pointers and pitches in bytes."""
+    srcs: Sequence[int]
+    dsts: Sequence[int]
+    src_pitches: Sequence[int]
+    dst_pitches: Sequence[int]
+    shift: int
+    rows: int
+    row_bytes: int
+
+
+def ring_table(entries: Sequence[RingTableEntry], n: int,
+               at_least_one: bool = False) -> List[tuple]:
+    """The C table arguments (before the hop's and the launch's own) of
+    as few launches of the ring kernel as hold ``entries``, each
+    launch at most :data:`RING_MAX_TILES` (entry, member) pairs: the
+    sources, destinations and their pitches (one a pair), the shifts,
+    rows and row bytes (one an entry), ``n`` and the entry count. None
+    for no entries, unless ``at_least_one`` (a hop that only waits and
+    signals)."""
+    entries = list(entries)
+    per_launch = RING_MAX_TILES // n
+    chunks = [entries[i:i + per_launch]
+              for i in range(0, len(entries), per_launch)]
+    if not chunks and at_least_one:
+        chunks = [[]]
+    launches = []
+    for chunk in chunks:
+        pairs, count = max(1, len(chunk) * n), max(1, len(chunk))
+
+        def flat(field):
+            return [v for e in chunk for v in getattr(e, field)]
+        launches.append((
+            (_P * pairs)(*flat("srcs")), (_P * pairs)(*flat("dsts")),
+            (_L * pairs)(*flat("src_pitches")),
+            (_L * pairs)(*flat("dst_pitches")),
+            (_I * count)(*(e.shift for e in chunk)),
+            (_L * count)(*(e.rows for e in chunk)),
+            (_L * count)(*(e.row_bytes for e in chunk)), n, len(chunk)))
+    return launches
 
 KERNELS = (NORMALIZE_U8, YUV420_TO_RGB_U8, YUV420_NORMALIZE, DCT_UNPACK,
            DCT_CONVERT, DCT_INGEST, GATHER_ROWS, RAGGED_NORMALIZE_U8,

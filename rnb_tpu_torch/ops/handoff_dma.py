@@ -35,6 +35,22 @@ on the members of a :class:`rnb_tpu_torch.parallel.mesh.Ring`.
 The reference places each hop's buffer with ``dynamic_update_slice``, an
 op outside the Pallas body; here the hop writes the slot itself.
 
+A ring that spans the processes of a launch (a :class:`rnb_tpu_torch.
+parallel.mesh.Ring` with one member a process) takes the same calls,
+``ring=`` given: each process passes its own member's buffers and gets
+its own member's results, and the contracts stay the reference's. On
+CUDA tensors every hop is the kernel's cross-process form
+(``rnb_ring_hop``, :mod:`rnb_tpu_torch.parallel.peers`): a send launch
+into the successor's receive window, through the peer pointer that CUDA
+IPC opened, and a place launch out of its own window into the
+destinations, each behind a device counter (the reference's
+``send_sem``/``recv_sem``); at the end of the collective the process
+waits for its card and raises where a wait gave up. On CPU tensors the
+plain version sends and receives over the launch's gloo group (the
+counterpart of the reference's ``_ppermute_shift_body``), bounded by
+the same cap. On CUDA tensors no byte goes through gloo, the host or a
+library copy.
+
 The inter-stage handoff's half (``rnb_tpu_torch.handoff``):
 
 * :func:`reshard` -- the one entry the edge calls: a tensor re-homed on a
@@ -42,8 +58,9 @@ The inter-stage handoff's half (``rnb_tpu_torch.handoff``):
   adopted where it already lies, else one device-to-device copy, never
   through the host. The reference's ring route (a pure ring shift of a
   one-axis sharding, one neighbour DMA a core) moves shards between
-  distinct cards, which no port mesh spans yet, so it raises "not yet
-  ported" (ROADMAP.md, queue 1 item 5).
+  distinct cards of one program, which no port mesh spans yet (two cards
+  in one process wait for peer access), so it raises "not yet ported"
+  (ROADMAP.md, queue 1 item 5).
 * :func:`ring_shift_amount` -- the pattern detector, the reference's
   rule: the shift ``k`` that maps one sharding's member ring onto the
   other's, or ``None``.
@@ -52,7 +69,7 @@ The inter-stage handoff's half (``rnb_tpu_torch.handoff``):
 
 from __future__ import annotations
 
-import ctypes
+import datetime
 import functools
 import math
 import os
@@ -61,14 +78,15 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from rnb_tpu_torch.ops import _kernels
-from rnb_tpu_torch.parallel.mesh import MAX_MEMBERS, NamedSharding
+from rnb_tpu_torch.parallel import peers
+from rnb_tpu_torch.parallel.mesh import MAX_MEMBERS, NamedSharding, Ring
 
 Members = List[torch.Tensor]
 
 #: (entry, member) pairs one launch of ``rnb_ring_shift`` moves at most
 #: (``kMaxTiles`` in csrc/ring.cu: the table rides in the kernel's 4 KB of
 #: parameters); a larger table takes as few launches as hold it
-RING_MAX_TILES = 80
+RING_MAX_TILES = _kernels.RING_MAX_TILES
 
 
 class RingEntry(NamedTuple):
@@ -91,6 +109,28 @@ def ring_shift_reference(shards: Sequence[torch.Tensor],
     return out
 
 
+def _check_entry(entry: RingEntry, e: int, buffers: int, n: int,
+                 what: str) -> None:
+    """Raise unless ``entry`` holds ``buffers`` sources and destinations
+    (``what`` names them), a shift in ``0..n-1``, all of one dtype and
+    shape."""
+    if len(entry.srcs) != buffers or len(entry.dsts) != buffers:
+        raise ValueError("ring_shift entry %d: %d sources and %d "
+                         "destinations for %s"
+                         % (e, len(entry.srcs), len(entry.dsts), what))
+    if not 0 <= entry.shift < n:
+        raise ValueError("ring_shift entry %d: shift %d outside 0..%d"
+                         % (e, entry.shift, n - 1))
+    first = entry.srcs[0]
+    for i, t in enumerate(list(entry.srcs) + list(entry.dsts)):
+        if t.dtype != first.dtype or t.shape != first.shape:
+            raise ValueError(
+                "ring_shift needs every buffer of an entry of one dtype "
+                "and shape: entry %d buffer 0 %s %s, buffer %d %s %s"
+                % (e, first.dtype, tuple(first.shape), i, t.dtype,
+                   tuple(t.shape)))
+
+
 def _check_table(table: Sequence[RingEntry]) -> int:
     """The ring's degree, after checking every entry: one buffer a
     member on both sides, a shift in ``0..n-1``, one dtype and shape."""
@@ -99,21 +139,7 @@ def _check_table(table: Sequence[RingEntry]) -> int:
         raise ValueError("ring_shift takes 1 to %d members, got %d"
                          % (MAX_MEMBERS, n))
     for e, entry in enumerate(table):
-        if len(entry.srcs) != n or len(entry.dsts) != n:
-            raise ValueError("ring_shift entry %d: %d sources and %d "
-                             "destinations for a ring of %d members"
-                             % (e, len(entry.srcs), len(entry.dsts), n))
-        if not 0 <= entry.shift < n:
-            raise ValueError("ring_shift entry %d: shift %d outside 0..%d"
-                             % (e, entry.shift, n - 1))
-        first = entry.srcs[0]
-        for i, t in enumerate(list(entry.srcs) + list(entry.dsts)):
-            if t.dtype != first.dtype or t.shape != first.shape:
-                raise ValueError(
-                    "ring_shift needs every buffer of an entry of one dtype "
-                    "and shape: entry %d member 0 %s %s, buffer %d %s %s"
-                    % (e, first.dtype, tuple(first.shape), i, t.dtype,
-                       tuple(t.shape)))
+        _check_entry(entry, e, n, n, "a ring of %d members" % n)
     return n
 
 
@@ -205,41 +231,31 @@ def ring_launches(table: Sequence[RingEntry]) -> List[tuple]:
     table = [entry for entry in table if entry.srcs[0].numel()]
     if not table:
         return []
-    n = len(table[0].srcs)
-    per_launch = RING_MAX_TILES // n
-    launches = []
-    for start in range(0, len(table), per_launch):
-        chunk = table[start:start + per_launch]
-        srcs, dsts, src_pitch, dst_pitch, rows, row_bytes = ([] for _ in
-                                                             range(6))
-        for e, entry in enumerate(chunk):
-            layout = _layout(entry, start + e)
-            rows.append(layout[0])
-            row_bytes.append(layout[1])
-            src_pitch += layout[2]
-            dst_pitch += layout[3]
-            srcs += [t.data_ptr() for t in entry.srcs]
-            dsts += [t.data_ptr() for t in entry.dsts]
-        pairs, count = len(srcs), len(chunk)
-        launches.append((
-            (ctypes.c_void_p * pairs)(*srcs), (ctypes.c_void_p * pairs)(*dsts),
-            (ctypes.c_longlong * pairs)(*src_pitch),
-            (ctypes.c_longlong * pairs)(*dst_pitch),
-            (ctypes.c_int * count)(*(entry.shift for entry in chunk)),
-            (ctypes.c_longlong * count)(*rows),
-            (ctypes.c_longlong * count)(*row_bytes), n, count))
-    return launches
+    entries = []
+    for e, entry in enumerate(table):
+        rows, row_bytes, src_pitches, dst_pitches = _layout(entry, e)
+        entries.append(_kernels.RingTableEntry(
+            [t.data_ptr() for t in entry.srcs],
+            [t.data_ptr() for t in entry.dsts], src_pitches, dst_pitches,
+            entry.shift, rows, row_bytes))
+    return _kernels.ring_table(entries, len(table[0].srcs))
 
 
-def ring_shift_group(table: Sequence[RingEntry]) -> None:
+def ring_shift_group(table: Sequence[RingEntry],
+                     ring: Optional[Ring] = None) -> None:
     """Move every entry of ``table``: member ``i``'s source into the
     destination of member ``(i + shift) % n``, written in place. On CUDA
     tensors, one launch of ``rnb_ring_shift`` on the current stream for
     the whole table (as few as hold it past :data:`RING_MAX_TILES`
-    entry-member pairs); on CPU tensors, the plain version."""
+    entry-member pairs); on CPU tensors, the plain version. Over a
+    ``ring`` that spans processes, each entry holds this process's
+    member's source and destination (:func:`_group_across`)."""
     table = [RingEntry(list(entry.srcs), list(entry.dsts), int(entry.shift))
              for entry in table]
     if not table:
+        return
+    if _across(ring):
+        _finish_across(_group_across(table, ring))
         return
     _check_table(table)
     tensors = [t for entry in table for t in entry.srcs + entry.dsts]
@@ -257,6 +273,165 @@ def ring_shift_group(table: Sequence[RingEntry]) -> None:
                              % (device, i, t.device))
     for args in ring_launches(table):
         _kernels.RING_SHIFT.launch(*args, device=device)
+
+
+# -- rings that span processes ----------------------------------------------
+
+def _across(ring: Optional[Ring]) -> bool:
+    """Does ``ring`` span processes (so each process holds one member)?"""
+    return ring is not None and ring.spans_processes
+
+
+def _check_across(table: Sequence[RingEntry], ring: Ring) -> bool:
+    """Check a cross-process table (one source and one destination an
+    entry, a shift in ``0..n-1``, one dtype and shape, every buffer on
+    the member's device); True where the buffers lie on the CPU."""
+    device = ring.device
+    for e, entry in enumerate(table):
+        _check_entry(entry, e, 1, ring.degree, "the one member of a ring "
+                     "across processes in this process")
+        for t in (entry.srcs[0], entry.dsts[0]):
+            if t.device != device:
+                raise ValueError("ring_shift entry %d: a buffer on %s, "
+                                 "the ring's member on %s"
+                                 % (e, t.device, device))
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError("ring_shift runs its kernel on cuda tensors, got "
+                         "%s" % device)
+    return device.type == "cpu"
+
+
+def _group_across(table: Sequence[RingEntry], ring: Ring
+                  ) -> Optional[peers.Endpoint]:
+    """One process's part of a grouped hop over a ring that spans
+    processes. On CUDA tensors: shift-0 entries are tiles within the
+    member; each other shift, in the order the table first names it, is
+    one hop of ``rnb_ring_hop`` (:meth:`peers.Endpoint.hop`): every
+    entry of that shift packed into the successor's window at an aligned
+    offset (rows of the last dim, or one dense block), then placed out
+    of this member's window into its destination. The window's layout
+    is the same on every member, as every process builds the same table.
+    On CPU tensors, the plain version over gloo. Returns the endpoint of
+    a hop on the card (None for none), whose card the caller waits for
+    (:func:`_finish_across`)."""
+    if _check_across(table, ring):
+        _group_across_reference(table, ring)
+        return None
+    local: List[peers.Tile] = []
+    hops: dict = {}
+    for e, entry in enumerate(table):
+        src, dst = entry.srcs[0], entry.dsts[0]
+        if not src.numel():
+            continue
+        rows, row_bytes, (src_pitch,), (dst_pitch,) = _layout(
+            RingEntry([src], [dst], 0), e)
+        if entry.shift == 0:
+            local.append(peers.Tile(src.data_ptr(), dst.data_ptr(), rows,
+                                    row_bytes, src_pitch, dst_pitch))
+            continue
+        send, place, used = hops.setdefault(entry.shift, ([], [], [0]))
+        offset = -(-used[0] // peers.WINDOW_ALIGN) * peers.WINDOW_ALIGN
+        used[0] = offset + rows * row_bytes
+        send.append(peers.Tile(src.data_ptr(), offset, rows, row_bytes,
+                               src_pitch, row_bytes))
+        place.append(peers.Tile(offset, dst.data_ptr(), rows, row_bytes,
+                                row_bytes, dst_pitch))
+    if not hops:
+        for args in peers.launch_args(local):
+            if args[-1]:
+                _kernels.RING_SHIFT.launch(*args, device=ring.device)
+        return None
+    ep = peers.endpoint(ring)
+    for i, (shift, (send, place, used)) in enumerate(hops.items()):
+        ep.hop(shift, local if i == 0 else [], send, place, used[0])
+    return ep
+
+
+def _group_across_reference(table: Sequence[RingEntry], ring: Ring) -> None:
+    """The plain version of :func:`_group_across`: shift-0 entries a
+    ``copy_``; every other entry's bytes sent to the successor's process
+    and received from the predecessor's over the launch's gloo group
+    (tagged by entry), each transfer bounded by ``peers.wait_cap_s``.
+    Each entry's byte count goes first and is checked against the
+    receiver's, so processes whose tables disagree raise."""
+    m, n = ring.local[0], ring.degree
+    timeout = datetime.timedelta(seconds=peers.wait_cap_s)
+    moves = []
+    with torch.no_grad():
+        for e, entry in enumerate(table):
+            src, dst = entry.srcs[0], entry.dsts[0]
+            if entry.shift == 0:
+                dst.copy_(src)
+            elif src.numel():
+                moves.append((e, src, dst,
+                              ring.processes[(m + entry.shift) % n],
+                              ring.processes[(m - entry.shift) % n]))
+        sizes = [(torch.tensor([src.numel() * src.element_size()]),
+                  torch.zeros(1, dtype=torch.int64))
+                 for _, src, _, _, _ in moves]
+        _transfer([(2 * e, mine, theirs, succ, pred)
+                   for (e, _, _, succ, pred), (mine, theirs)
+                   in zip(moves, sizes)], ring, m, timeout)
+        for (e, _, dst, _, pred), (_, theirs) in zip(moves, sizes):
+            want = dst.numel() * dst.element_size()
+            if int(theirs) != want:
+                raise ValueError(
+                    "ring %s: member %d's entry %d receives %d bytes from "
+                    "process %d, where its destination holds %d: the "
+                    "processes' tables disagree (other shapes)"
+                    % (peers.ring_key(ring), m, e, int(theirs), pred, want))
+        bufs = [torch.empty(dst.numel() * dst.element_size(),
+                            dtype=torch.uint8) for _, _, dst, _, _ in moves]
+        _transfer([(2 * e + 1, src.contiguous().reshape(-1).view(
+            torch.uint8), buf, succ, pred)
+                   for (e, src, _, succ, pred), buf in zip(moves, bufs)],
+                  ring, m, timeout)
+        for (_, _, dst, _, _), buf in zip(moves, bufs):
+            dst.copy_(buf.view(dst.dtype).reshape(dst.shape))
+
+
+def _transfer(moves, ring: Ring, m: int, timeout) -> None:
+    """Each (tag, out, into, successor, predecessor) of ``moves``: ``out``
+    sent to the successor's process and ``into`` received from the
+    predecessor's over gloo, every transfer within ``timeout``; gloo's
+    failure named."""
+    import torch.distributed as dist
+    peer = None
+    try:
+        pending = []
+        for tag, out, into, succ, pred in moves:
+            peer = succ
+            pending.append((dist.isend(out, succ, tag=tag), succ))
+            peer = pred
+            pending.append((dist.irecv(into, pred, tag=tag), pred))
+        for work, peer in pending:
+            work.wait(timeout)
+    except RuntimeError as err:  # gloo's own, named
+        raise RuntimeError(
+            "ring %s: member %d's transfer with process %s gave up within "
+            "the %.1f s cap: %s" % (peers.ring_key(ring), m, peer,
+                                    peers.wait_cap_s, err)) from err
+
+
+def _finish_across(ep: Optional[peers.Endpoint]) -> None:
+    """The end of a collective over a ring that spans processes: where it
+    hopped on the card, wait for this process's stream and raise where a
+    wait gave up."""
+    if ep is not None:
+        ep.finish()
+
+
+def _shift_across(shards: Members, shift: int, ring: Ring
+                  ) -> Tuple[Members, Optional[peers.Endpoint]]:
+    """:func:`ring_shift` of this process's member over a ring that spans
+    processes, without waiting for the card; and the endpoint of its
+    hop on the card."""
+    ring.check(shards, "ring_shift")
+    shift = int(shift) % ring.degree
+    if shift == 0:
+        return shards, None
+    out = [torch.empty_like(shard) for shard in shards]
+    return out, _group_across([RingEntry(shards, out, shift)], ring)
 
 
 def _check_members(shards: Sequence[torch.Tensor]) -> None:
@@ -282,15 +457,22 @@ def _check_members(shards: Sequence[torch.Tensor]) -> None:
                              % (i, t.stride()))
 
 
-def ring_shift(shards: Sequence[torch.Tensor], shift: int = 1) -> Members:
+def ring_shift(shards: Sequence[torch.Tensor], shift: int = 1,
+               ring: Optional[Ring] = None) -> Members:
     """Move every member's buffer to the member ``shift`` places along
     the ring: ``out[(i + shift) % n] = shards[i]`` (value-wise the
     reference's ``jnp.roll`` by ``shift`` shards). A shift of 0 returns
     the members as they are, as the reference does. Otherwise a table of
     one entry into new buffers of the members' layout: one launch of
     ``rnb_ring_shift`` on CUDA tensors, the plain version on CPU
-    tensors."""
+    tensors. Over a ``ring`` that spans processes, ``shards`` is this
+    process's member's buffer and so is the result: one hop of the
+    cross-process form."""
     shards = list(shards)
+    if _across(ring):
+        out, ep = _shift_across(shards, shift, ring)
+        _finish_across(ep)
+        return out
     n = len(shards)
     if not 1 <= n <= MAX_MEMBERS:
         raise ValueError("ring_shift takes 1 to %d members, got %d"
@@ -334,8 +516,36 @@ def _full_width(shard: torch.Tensor, n: int, ax: int) -> torch.Tensor:
                        memory_format=fmt)
 
 
+def _gather_tables_across(leaves: List[Members], axis: int, ring: Ring
+                          ) -> Tuple[List[Members], List[List[RingEntry]]]:
+    """:func:`ring_gather_tables` for this process's member of a ring
+    that spans processes: its full-width tensors and its side of each
+    table, in the same ring order (member ``m`` places its own shard,
+    hands it on, and hands on at hop ``s`` the chunk hop ``s - 1``
+    brought)."""
+    n, m = ring.degree, ring.local[0]
+    for shards in leaves:
+        ring.check(shards, "ring_all_gather")
+    if n == 1:
+        return leaves, []
+    gathered = []
+    tables: List[List[RingEntry]] = [[] for _ in range(n - 1)]
+    for (shard,) in leaves:
+        ax = axis % shard.dim()
+        chunk = shard.shape[ax]
+        full = _full_width(shard, n, ax)
+        slots = [full.narrow(ax, c * chunk, chunk) for c in range(n)]
+        tables[0].append(RingEntry([shard], [slots[m]], 0))
+        tables[0].append(RingEntry([shard], [slots[(m - 1) % n]], 1))
+        for s in range(2, n):
+            tables[s - 1].append(RingEntry([slots[(m - s + 1) % n]],
+                                           [slots[(m - s) % n]], 1))
+        gathered.append([full])
+    return gathered, tables
+
+
 def ring_gather_tables(leaves: Sequence[Sequence[torch.Tensor]],
-                       axis: int = -1
+                       axis: int = -1, ring: Optional[Ring] = None
                        ) -> Tuple[List[Members], List[List[RingEntry]]]:
     """The all-gather of every leaf's per-member shards along ``axis``
     as ``n - 1`` tables of the grouped hop, in launch order, and the
@@ -344,10 +554,13 @@ def ring_gather_tables(leaves: Sequence[Sequence[torch.Tensor]],
     shard into its slot (shift 0) and hands it to the next member's slot
     (shift 1); table ``s >= 2`` hands on the slot that hop ``s - 1``
     filled, the ring's own order. Each chunk lands in each member's
-    result exactly once."""
+    result exactly once. Over a ``ring`` that spans processes, each leaf
+    is this process's member's shard and so is each result."""
     leaves = [list(shards) for shards in leaves]
     if not leaves:
         return [], []
+    if _across(ring):
+        return _gather_tables_across(leaves, axis, ring)
     n = len(leaves[0])
     for shards in leaves:
         if len(shards) != n:
@@ -378,13 +591,19 @@ def ring_gather_tables(leaves: Sequence[Sequence[torch.Tensor]],
 
 
 def ring_all_gather_many(leaves: Sequence[Sequence[torch.Tensor]],
-                         axis: int = -1) -> List[Members]:
+                         axis: int = -1, ring: Optional[Ring] = None
+                         ) -> List[Members]:
     """Per-member shards along ``axis`` of every leaf -> each member's
     full concatenation of each leaf, all leaves in the same ``n - 1``
     grouped hops (:func:`ring_gather_tables`), each shard written
     straight into its slots. Pure movement, so every result is bitwise
-    the unsharded tensor."""
-    gathered, tables = ring_gather_tables(leaves, axis)
+    the unsharded tensor. Over a ``ring`` that spans processes, this
+    process's member's shards in, its results out."""
+    gathered, tables = ring_gather_tables(leaves, axis, ring)
+    if _across(ring):
+        eps = [_group_across(table, ring) for table in tables]
+        _finish_across(eps[-1] if eps else None)
+        return gathered
     for table in tables:
         ring_shift_group(table)
     return gathered
@@ -445,11 +664,39 @@ def ring_all_gather(shards: Sequence[torch.Tensor], ring=None,
                     axis: int = -1) -> Members:
     """Standalone entry: the members' shards along ``axis`` -> the full
     tensor on every member (bitwise the unsharded tensor). With ``ring``
-    the shards are checked against its members."""
+    the shards are checked against its members; over a ring that spans
+    processes they are this process's member's, as is the result."""
     shards = list(shards)
     if ring is not None:
         ring.check(shards, "ring_all_gather")
+    if _across(ring):
+        return ring_all_gather_many([shards], axis, ring)[0]
     return ring_all_gather_body(len(shards), axis)(shards)
+
+
+def _psum_scatter_across(operands: Members, ring: Ring,
+                         axis: int) -> Members:
+    """:func:`ring_psum_scatter_body` for this process's member ``m`` of
+    a ring that spans processes: the reference's ring order, hop for
+    hop (one cross-process hop each, then the local add)."""
+    n, m = ring.degree, ring.local[0]
+    (x,) = operands
+    ax = axis % x.dim()
+    width = x.shape[ax]
+    if width % n:
+        raise ValueError(
+            "ring_psum_scatter: axis %d extent %d not divisible by %d "
+            "ring members" % (ax, width, n))
+    if n == 1:
+        return operands
+    chunk = width // n
+    acc = [x.narrow(ax, ((m - 1) % n) * chunk, chunk).contiguous()]
+    ep = None
+    for s in range(1, n):
+        moved, ep = _shift_across(acc, 1, ring)
+        acc = [moved[0] + x.narrow(ax, ((m - 1 - s) % n) * chunk, chunk)]
+    _finish_across(ep)
+    return acc
 
 
 def ring_psum_scatter(operands: Sequence[torch.Tensor], ring=None,
@@ -457,10 +704,13 @@ def ring_psum_scatter(operands: Sequence[torch.Tensor], ring=None,
     """Standalone entry: one full-width operand a member -> member ``i``
     holds chunk ``i`` of their sum along ``axis``; the chunks in member
     order concatenate to the full sum. With ``ring`` the operands are
-    checked against its members."""
+    checked against its members; over a ring that spans processes they
+    are this process's member's, as is the result."""
     operands = list(operands)
     if ring is not None:
         ring.check(operands, "ring_psum_scatter")
+    if _across(ring):
+        return _psum_scatter_across(operands, ring, axis)
     return ring_psum_scatter_body(len(operands), axis)(operands)
 
 
@@ -468,7 +718,9 @@ def ring_psum_scatter(operands: Sequence[torch.Tensor], ring=None,
 
 def dma_available(*tensors: torch.Tensor) -> bool:
     """Is the ring route usable for ``tensors``? Only where
-    ``rnb_ring_shift`` is built and every tensor lies on a card."""
+    ``rnb_ring_shift`` is built and every tensor lies on a card (as for
+    a ring across processes, whose hop is the same library's
+    ``rnb_ring_hop``)."""
     return bool(tensors) and all(t.is_cuda for t in tensors) \
         and os.path.exists(_kernels.library_path(_kernels.RING_SHIFT.source))
 

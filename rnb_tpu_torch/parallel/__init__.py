@@ -2,8 +2,8 @@
 counterpart): :mod:`mesh` holds meshes, rings, shardings and the
 reference's mesh helpers, :mod:`sharded` the dp x sp sharded inference
 step, :mod:`shardplan` what a sharded stage keeps at rest and how it
-gathers it, :mod:`distributed` the reference's multi-process API in
-single-process mode.
+gathers it, :mod:`distributed` the reference's multi-process launch,
+and :mod:`peers` the peers' memory of a ring across its processes.
 
 The reference's six names are exported here. ``sharded`` imports the
 network, whose ring collectives import :mod:`mesh` through this

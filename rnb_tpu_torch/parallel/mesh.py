@@ -2,30 +2,41 @@
 
 Counterpart of ``rnb_tpu/parallel/mesh.py``. Parallel stages name
 *axes* (``dp`` -- data/video replication, ``sp`` -- clip sharding,
-``tp`` -- a shard ring): a :class:`Mesh` is a grid of ``torch.device`` s
-with named axes (the port's ``jax.sharding.Mesh``), a :class:`Ring` a
-shard ring's one axis of members, in ring order, and a
-:class:`NamedSharding` a mesh's members plus a spec (where a value's
-pieces lie). The reference's helpers build them: :class:`MeshSpec` (an
-axis request, ``-1`` once for "the rest"), :func:`factor_devices` (a
-device count split over axis names), :func:`build_mesh` and
-:func:`submeshes` (consecutive members carved into stage meshes), and
-:func:`carve_replicas` is the replica expansion's placement rule
-(``rnb_tpu_torch.config``).
+``tp`` -- a shard ring): a :class:`Mesh` is a grid of members with named
+axes (the port's ``jax.sharding.Mesh``), a :class:`Ring` a shard ring's
+one axis of members, in ring order, and a :class:`NamedSharding` a
+mesh's members plus a spec (where a value's pieces lie). The reference's
+helpers build them: :class:`MeshSpec` (an axis request, ``-1`` once for
+"the rest"), :func:`factor_devices` (a device count split over axis
+names), :func:`build_mesh` and :func:`submeshes` (consecutive members
+carved into stage meshes), and :func:`carve_replicas` is the replica
+expansion's placement rule (``rnb_tpu_torch.config``).
 
-Members may repeat a device, which a ``jax.sharding.Mesh`` cannot: on
-the CPU every config device maps to the CPU, and one card hosts a mesh
-of any size when its member list names the card that many times
-(``[torch.device("cuda", 0)] * 8``). A mesh or a ring whose members sit
-on two or more distinct devices raises: a ring hop between cards (peer
-access, NVLink stores) and a mesh's reduce over cards (NCCL) are not
-yet ported (ROADMAP.md, queue 1 item 5). A :class:`NamedSharding` may
-name distinct cards: it only describes a placement.
+A member is a (process, device) pair, a :class:`Member`; a bare device
+names a member of the process that builds the mesh or ring. So a mesh,
+a ring and a sharding may span the processes of a launch
+(``rnb_tpu_torch.parallel.distributed``), as a multi-controller JAX
+program's mesh spans hosts, each process acting on its own members
+(``local``, ``device``). A mesh or a ring finds this process's members
+once, when it is built: one built in a launch is built after joining
+it (``distributed.maybe_initialize``). Members may repeat a device, which a
+``jax.sharding.Mesh`` cannot: on the CPU every config device maps to the
+CPU, and one card hosts a mesh of any size when its member list names
+the card that many times (``[torch.device("cuda", 0)] * 8``). Within one
+process every member lies on one device: a mesh or a ring whose members
+in one process sit on two or more distinct cards raises, since a ring
+hop between cards of one process (peer access) and a mesh's reduce over
+cards (NCCL) are not yet ported (ROADMAP.md, queue 1 item 5). A ring
+that spans processes holds one member a process; its hop goes through
+the peers' memory (``rnb_tpu_torch/parallel/peers.py``). A
+:class:`NamedSharding` may name distinct cards: it only describes a
+placement.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Dict, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -35,40 +46,109 @@ import torch
 MAX_MEMBERS = 8
 
 
+class Member(NamedTuple):
+    """One member of a mesh or a ring: the process that acts on it and
+    the device it lies on."""
+    process: int
+    device: torch.device
+
+
+def this_process() -> int:
+    """The index of this process in its launch (0 in one process)."""
+    from rnb_tpu_torch.parallel import distributed
+    return distributed.process_index()
+
+
+def _members(items, me: int) -> Tuple[list, List[int]]:
+    """(devices, processes) of ``items``, each a :class:`Member` or a
+    device of process ``me``."""
+    devices, owners = [], []
+    for item in items:
+        if isinstance(item, Member):
+            devices.append(torch.device(item.device))
+            owners.append(int(item.process))
+        else:
+            devices.append(torch.device(item))
+            owners.append(me)
+    return devices, owners
+
+
 def _one_device(devices: Sequence[torch.device], what: str,
-                across: str) -> None:
-    """Raise unless every member of ``devices`` is one device."""
-    distinct = sorted({str(d) for d in devices})
-    if len(distinct) > 1:
-        raise NotImplementedError(
-            "%s over %d distinct devices (%s) is not yet ported to "
-            "rnb_tpu_torch: its members must share one device; %s "
-            "(ROADMAP.md, queue 1 item 5)"
-            % (what, len(distinct), ", ".join(distinct), across))
+                across: str, processes: Optional[Sequence[int]] = None
+                ) -> None:
+    """Raise unless the members of each process lie on one device."""
+    if processes is None:
+        processes = [0] * len(devices)
+    for process in sorted(set(processes)):
+        distinct = sorted({str(d) for d, p in zip(devices, processes)
+                           if p == process})
+        if len(distinct) > 1:
+            raise NotImplementedError(
+                "%s over %d distinct devices (%s) is not yet ported to "
+                "rnb_tpu_torch: the members of one process must share one "
+                "device; %s (ROADMAP.md, queue 1 item 5)"
+                % (what, len(distinct), ", ".join(distinct), across))
+
+
+def _local_device(devices: Sequence[torch.device],
+                  processes: Sequence[int], me: int, what: str
+                  ) -> Union[torch.device, str]:
+    """The device of process ``me``'s members (one, as checked), or
+    why there is none."""
+    for d, p in zip(devices, processes):
+        if p == me:
+            return d
+    return ("%s has no member in process %d (its members lie in processes "
+            "%s)" % (what, me, sorted(set(processes))))
+
+
+def _device_or_raise(found: Union[torch.device, str]) -> torch.device:
+    """What :func:`_local_device` found, or raise why there is none."""
+    if isinstance(found, str):
+        raise ValueError(found)
+    return found
 
 
 class Mesh:
-    """A grid of member devices with named axes: ``devices`` is an
-    object array of ``torch.device`` s shaped by the axes, ``shape``
-    maps each axis name to its size. Every member lies on one device."""
+    """A grid of members with named axes: ``devices`` is an object array
+    of ``torch.device`` s shaped by the axes, ``processes`` an int array
+    of the same shape (the process of each member), ``shape`` maps each
+    axis name to its size. ``devices`` may hold :class:`Member` s in
+    place of devices (an object array, as :func:`build_mesh` makes); a
+    bare device is a member of this process. The members of each process
+    lie on one device."""
 
     def __init__(self, devices, axis_names: Sequence[str]):
-        grid = np.array(devices, dtype=object)
-        for idx in np.ndindex(grid.shape):
-            grid[idx] = torch.device(grid[idx])
+        if isinstance(devices, np.ndarray):
+            grid = devices.copy()
+        else:
+            grid = np.array(devices, dtype=object)
+        me = this_process()
+        flat, owners = _members(grid.flat, me)
+        grid = np.empty(grid.shape, dtype=object)
+        for i, d in enumerate(flat):
+            grid.flat[i] = d
         self.axis_names = tuple(str(a) for a in axis_names)
         if grid.ndim != len(self.axis_names) or grid.size < 1:
             raise ValueError("a mesh of shape %r cannot carry axes %r"
                              % (grid.shape, self.axis_names))
         self.devices = grid
+        self.processes = np.array(owners, dtype=np.int64).reshape(
+            grid.shape)
         self.shape = dict(zip(self.axis_names, grid.shape))
-        _one_device(list(grid.flat), "a mesh",
-                    "a mesh across cards waits for the NCCL reduce")
+        _one_device(flat, "a mesh",
+                    "a mesh across cards waits for the NCCL reduce", owners)
+        self._device = _local_device(flat, owners, me, "the mesh")
+
+    @property
+    def spans_processes(self) -> bool:
+        """Do the members lie in more than one process?"""
+        return len(set(self.processes.flat)) > 1
 
     @property
     def device(self) -> torch.device:
-        """The one device every member lives on."""
-        return self.devices.flat[0]
+        """The one device this process's members live on."""
+        return _device_or_raise(self._device)
 
     def __repr__(self):
         return "Mesh(%r, axis_names=%r)" % (self.shape, self.axis_names)
@@ -157,10 +237,12 @@ def visible_devices() -> List[torch.device]:
 def build_mesh(devices: Optional[Sequence] = None,
                axes: Optional[Dict[str, int]] = None,
                axis_names: Sequence[str] = ("dp", "sp")) -> Mesh:
-    """A :class:`Mesh` over ``devices`` (default: every visible card).
-    ``axes`` gives explicit {name: size} (``-1`` allowed once); without
-    it the member count is factored over ``axis_names``. Members may
-    repeat a device: ``[torch.device("cuda", 0)] * 8`` is a mesh of
+    """A :class:`Mesh` over ``devices`` (default: every visible card),
+    each a device of this process or a :class:`Member`, in the order
+    given (the reference's: process-major, as ``jax.devices()`` lists
+    them). ``axes`` gives explicit {name: size} (``-1`` allowed once);
+    without it the member count is factored over ``axis_names``. Members
+    may repeat a device: ``[torch.device("cuda", 0)] * 8`` is a mesh of
     eight members on one card."""
     devices = visible_devices() if devices is None else list(devices)
     if axes is not None:
@@ -169,7 +251,8 @@ def build_mesh(devices: Optional[Sequence] = None,
         sizes = factor_devices(len(devices), axis_names)
     names = tuple(sizes.keys())
     grid = np.empty(len(devices), dtype=object)
-    grid[:] = [torch.device(d) for d in devices]
+    for i, d in enumerate(devices):
+        grid[i] = d if isinstance(d, Member) else torch.device(d)
     return Mesh(grid.reshape(tuple(sizes[a] for a in names)), names)
 
 
@@ -196,29 +279,48 @@ def submeshes(devices: Sequence, stage_sizes: Sequence[int],
 
 class NamedSharding(NamedTuple):
     """Where a value's pieces lie (the port's ``NamedSharding``): a
-    mesh's members in row-major order, its axis names and sizes, and a
+    mesh's members in row-major order, its axis names and sizes, a
     ``spec`` naming the mesh axis each leading dim of the value is split
-    over (``()`` for a replicated value). It describes a placement, so,
-    unlike :class:`Mesh`, it may name distinct cards."""
+    over (``()`` for a replicated value), and the process of each member
+    (``()``: all of this process). It describes a placement, so, unlike
+    :class:`Mesh`, it may name distinct cards."""
     devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
     spec: Tuple[Optional[str], ...] = ()
+    processes: Tuple[int, ...] = ()
 
     @classmethod
     def of(cls, mesh: Mesh, spec: Sequence[Optional[str]] = ()
            ) -> "NamedSharding":
         """The sharding ``spec`` over ``mesh``'s members."""
         return cls(tuple(mesh.devices.flat), mesh.axis_names,
-                   tuple(mesh.devices.shape), tuple(spec))
+                   tuple(mesh.devices.shape), tuple(spec),
+                   tuple(int(p) for p in mesh.processes.flat))
+
+    @property
+    def members(self) -> Tuple[Member, ...]:
+        """Every member, a (process, device) pair."""
+        if not self.processes:
+            me = this_process()
+            return tuple(Member(me, d) for d in self.devices)
+        return tuple(Member(p, d) for p, d in zip(self.processes,
+                                                  self.devices))
 
     @property
     def device(self) -> torch.device:
-        """The one device every member lives on; raises for members on
-        distinct devices, as :class:`Mesh` does."""
-        _one_device(self.devices, "a sharding",
-                    "a value across cards waits for the NCCL reduce")
-        return self.devices[0]
+        """The one device this process's members live on; raises for
+        members of one process on distinct devices, as :class:`Mesh`
+        does."""
+        members = self.members
+        devices = [m.device for m in members]
+        processes = [m.process for m in members]
+        _one_device(devices, "a sharding",
+                    "a value across cards waits for the NCCL reduce",
+                    processes)
+        return _device_or_raise(_local_device(devices, processes,
+                                              this_process(),
+                                              "the sharding"))
 
 
 def carve_replicas(devices: Sequence, replicas: int) -> list:
@@ -240,40 +342,65 @@ def carve_replicas(devices: Sequence, replicas: int) -> list:
 
 
 class Ring:
-    """``degree`` member devices in ring order (member ``i`` hands its
-    buffer to member ``i + 1``), all one device."""
+    """``degree`` members in ring order (member ``i`` hands its buffer to
+    member ``i + 1``), each a device of this process or a
+    :class:`Member`. The members of one process lie on one device; a
+    ring that spans processes holds one member a process."""
 
     def __init__(self, devices: Sequence, axis_name: str = "tp"):
-        self.devices = tuple(torch.device(d) for d in devices)
+        me = this_process()
+        devices, owners = _members(devices, me)
+        self.devices = tuple(devices)
+        self.processes = tuple(owners)
         self.axis_name = str(axis_name)
         if not 1 <= len(self.devices) <= MAX_MEMBERS:
             raise ValueError("a shard ring has 1 to %d members, got %d"
                              % (MAX_MEMBERS, len(self.devices)))
         _one_device(self.devices, "a shard ring",
-                    "rings across cards wait for peer access")
+                    "rings across cards of one process wait for peer "
+                    "access", owners)
+        if self.spans_processes and len(set(owners)) != len(owners):
+            raise ValueError(
+                "a shard ring that spans processes holds one member a "
+                "process, got processes %s" % (list(owners),))
+        #: the positions of this process's members in ring order
+        self.local = tuple(i for i, p in enumerate(owners) if p == me)
+        self._device = _local_device(self.devices, owners, me, "the ring")
 
     @property
     def degree(self) -> int:
         return len(self.devices)
 
     @property
+    def spans_processes(self) -> bool:
+        """Do the members lie in more than one process?"""
+        return len(set(self.processes)) > 1
+
+    @property
     def device(self) -> torch.device:
-        """The one device every member lives on."""
-        return self.devices[0]
+        """The one device this process's members live on."""
+        return _device_or_raise(self._device)
 
     def check(self, members: Sequence[torch.Tensor], what: str) -> None:
-        """Raise unless ``members`` holds one tensor per member, each on
+        """Raise unless ``members`` holds one tensor for each member of
+        this process (every member, in a ring of one process), each on
         its member's device."""
-        if len(members) != self.degree:
-            raise ValueError("%s: %d tensors for a ring of %d members"
-                             % (what, len(members), self.degree))
-        for i, t in enumerate(members):
+        local = self.local
+        if len(members) != len(local):
+            raise ValueError("%s: %d tensors for a ring of %d members, %d "
+                             "of them in this process"
+                             % (what, len(members), self.degree, len(local)))
+        for i, t in zip(local, members):
             if t.device != self.devices[i]:
                 raise ValueError("%s: member %d's tensor lies on %s, the "
                                  "ring's member on %s"
                                  % (what, i, t.device, self.devices[i]))
 
     def __repr__(self):
+        if self.spans_processes:
+            return "Ring(%r, axis_name=%r)" % (
+                ["%d:%s" % m for m in zip(self.processes, self.devices)],
+                self.axis_name)
         return "Ring(%r, axis_name=%r)" % ([str(d) for d in self.devices],
                                            self.axis_name)
 

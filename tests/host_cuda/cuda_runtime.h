@@ -12,6 +12,7 @@
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <functional>
 #include <memory>
@@ -22,6 +23,8 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
+#define RNB_HOST_EMULATION 1
 #define __launch_bounds__(...)
 #define __grid_constant__
 #define __constant__
@@ -148,6 +151,42 @@ enum {
   cudaFuncAttributeMaxDynamicSharedMemorySize = 8
 };
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+// Memory: host allocations; pinned memory is host memory the kernels
+// address directly. IPC has no host counterpart and is refused.
+enum {
+  cudaErrorNotSupported = 801,
+  cudaIpcMemLazyEnablePeerAccess = 1,
+  cudaHostAllocPortable = 1,
+  cudaHostAllocMapped = 2
+};
+struct cudaIpcMemHandle_t { char reserved[64]; };
+inline cudaError_t cudaMalloc(void** p, size_t n) {
+  *p = std::calloc(n ? n : 1, 1);
+  return *p ? cudaSuccess : cudaErrorInvalidValue;
+}
+inline cudaError_t cudaFree(void* p) { std::free(p); return cudaSuccess; }
+inline cudaError_t cudaMemset(void* p, int v, size_t n) {
+  std::memset(p, v, n);
+  return cudaSuccess;
+}
+inline cudaError_t cudaHostAlloc(void** p, size_t n, unsigned) {
+  return cudaMalloc(p, n);
+}
+inline cudaError_t cudaHostGetDevicePointer(void** d, void* h, unsigned) {
+  *d = h;
+  return cudaSuccess;
+}
+inline cudaError_t cudaFreeHost(void* p) { return cudaFree(p); }
+inline cudaError_t cudaIpcGetMemHandle(cudaIpcMemHandle_t*, void*) {
+  return cudaErrorNotSupported;
+}
+inline cudaError_t cudaIpcOpenMemHandle(void**, cudaIpcMemHandle_t,
+                                        unsigned) {
+  return cudaErrorNotSupported;
+}
+inline cudaError_t cudaIpcCloseMemHandle(void*) {
+  return cudaErrorNotSupported;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host emulation"; }
 template <typename Kernel>

@@ -677,3 +677,94 @@ def test_a_sharded_stage_replays_degree_1_s_logits_bitwise(device):
     assert _kernels.RING_SHIFT.launches == 2 * (1 + 1)
     assert sharded.shard_stats["gathers"] == 2
     assert sharded.shard_stats["collective_ms"] > 0
+
+
+#: one process of the two-process launch below: the ring collectives
+#: across the processes (the kernel's cross-process form through the
+#: successor's window) against their plain versions on the same inputs
+_ACROSS = '''
+import torch
+from rnb_tpu_torch.ops import _kernels
+from rnb_tpu_torch.ops import handoff_dma as dma
+from rnb_tpu_torch.parallel import distributed
+from rnb_tpu_torch.parallel.mesh import Member, Ring
+assert distributed.maybe_initialize()
+rank, n = distributed.process_index(), distributed.process_count()
+device = distributed.local_device()
+ring = Ring([Member(p, distributed.local_device(p)) for p in range(n)])
+gen = torch.Generator().manual_seed(7)
+members = [torch.randn(3, 1000, 7, generator=gen).to(device)
+           for _ in range(n)]
+before = _kernels.RING_SHIFT.launches
+got = dma.ring_shift([members[rank]], 1, ring)[0]
+assert torch.equal(got, members[(rank - 1) % n])
+assert _kernels.RING_SHIFT.launches == before + 2  # a send and a place
+# slots along the last dim: rows at a pitch through the window
+full = dma.ring_all_gather([members[rank]], ring, axis=-1)[0]
+assert torch.equal(full, torch.cat(members, dim=-1))
+ints = [torch.randint(-8, 9, (4, 2 * n), generator=gen).float().to(device)
+        for _ in range(n)]
+chunk = dma.ring_psum_scatter([ints[rank]], ring, -1)[0]
+assert torch.equal(chunk, sum(ints).narrow(-1, 2 * rank, 2))
+distributed.shutdown()
+'''
+
+
+def test_the_ring_collectives_across_two_processes_on_the_card(device,
+                                                               tmp_path):
+    # tolerance: none (moves, and sums of integers in float32)
+    import sys
+    from rnb_tpu_torch.tools.launch import launch
+    script = tmp_path / "across.py"
+    script.write_text(_ACROSS)
+    for ended in launch(2, [sys.executable, str(script)], 300):
+        assert ended.returncode == 0, ended.stderr[-4000:]
+
+
+#: one process of the launch below: processes whose shapes disagree. A
+#: send past the successor's window raises before it launches (its
+#: successor's wait then gives up at the cap); a send that fits but
+#: lays out other bytes fails both places on the card
+_DISAGREE = '''
+import torch
+from rnb_tpu_torch.ops import handoff_dma as dma
+from rnb_tpu_torch.parallel import distributed, peers
+from rnb_tpu_torch.parallel.mesh import Member, Ring
+assert distributed.maybe_initialize()
+rank, n = distributed.process_index(), distributed.process_count()
+device = distributed.local_device()
+peers.set_wait_cap(5.0)
+
+
+def ring(axis):
+    return Ring([Member(p, distributed.local_device(p)) for p in range(n)],
+                axis)
+
+
+small = torch.zeros(16 * (rank + 1), dtype=torch.uint8, device=device)
+try:
+    dma.ring_shift([small], 1, ring("layout"))
+    raise AssertionError("a hop of another layout did not raise")
+except RuntimeError as e:
+    assert "another layout" in str(e), e
+big = torch.zeros((2 << 20) if rank == 0 else (1 << 19), dtype=torch.uint8,
+                  device=device)
+try:
+    dma.ring_shift([big], 1, ring("past"))
+    raise AssertionError("a send past the window did not raise")
+except (ValueError, RuntimeError) as e:
+    assert ("window of 1048576" if rank == 0 else "stalled past") in str(e)
+# process 1 meets the goodbye only once its wait gave up
+peers.set_wait_cap(60.0)
+distributed.shutdown()
+'''
+
+
+def test_processes_whose_shapes_disagree_fail_the_hop_on_the_card(
+        device, tmp_path):
+    import sys
+    from rnb_tpu_torch.tools.launch import launch
+    script = tmp_path / "disagree.py"
+    script.write_text(_DISAGREE)
+    for ended in launch(2, [sys.executable, str(script)], 300):
+        assert ended.returncode == 0, ended.stderr[-4000:]

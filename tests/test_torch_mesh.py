@@ -155,17 +155,49 @@ def test_a_partial_environment_is_refused_as_the_reference(env,
     assert str(ours.value) == str(theirs.value)
 
 
+def _stand_in_group(monkeypatch):
+    """Joining a launch records its arguments in place of serving a store
+    and a gloo group (tests/test_torch_processes.py joins real ones);
+    returns the record."""
+    joined = []
+    monkeypatch.setattr(distributed, "_launch", None)
+    monkeypatch.setattr(distributed, "_join",
+                        lambda *args: joined.append(args))
+    return joined
+
+
 @pytest.mark.parametrize("env", [
     {"RNB_TPU_COORDINATOR": "127.0.0.1:1"},
     {"RNB_TPU_COORDINATOR": "127.0.0.1:1", "RNB_TPU_NUM_PROCESSES": "2",
      "RNB_TPU_PROCESS_ID": "1"}])
 def test_a_multi_process_launch_is_refused_as_not_yet_ported(env,
-                                                             monkeypatch):
+                                                             monkeypatch,
+                                                             tmp_path):
+    # a coordinator alone names no process count or index (the reference
+    # reads them from a cluster, which the port has not); a whole launch
+    # joins its group, and what it cannot do yet is serve a config
+    from rnb_tpu_torch.benchmark import run_benchmark
     _environment(monkeypatch, env)
+    joined = _stand_in_group(monkeypatch)
+    if "RNB_TPU_NUM_PROCESSES" not in env:
+        with pytest.raises(NotImplementedError,
+                           match=r"multi-process run \(RNB_TPU_COORDINATOR="
+                                 r"127.0.0.1:1\) without RNB_TPU_NUM_PROCESSES "
+                                 r"and RNB_TPU_PROCESS_ID is not yet ported"):
+            distributed.maybe_initialize()
+        assert joined == []
+        return
+    assert distributed.maybe_initialize() is True
+    assert joined == [("127.0.0.1", 1, 2, 1)]
+    assert (distributed.process_count(), distributed.process_index(),
+            distributed.is_primary()) == (2, 1, False)
     with pytest.raises(NotImplementedError,
-                       match=r"multi-process run \(RNB_TPU_COORDINATOR="
-                             r"127.0.0.1:1\) is not yet ported.*NCCL"):
-        distributed.maybe_initialize()
+                       match=r"a served run in a launch of 2 processes "
+                             r"\(RNB_TPU_COORDINATOR=\.\.\.\) is not yet "
+                             r"ported.*ROADMAP"):
+        run_benchmark(MESH_CONFIGS["rgb"], mean_interval_ms=0, num_videos=1,
+                      log_base=str(tmp_path / "logs"), print_progress=False,
+                      platform="cpu")
 
 
 def test_run_benchmark_refuses_a_multi_process_launch(monkeypatch,
@@ -174,10 +206,12 @@ def test_run_benchmark_refuses_a_multi_process_launch(monkeypatch,
     _environment(monkeypatch, {"RNB_TPU_COORDINATOR": "127.0.0.1:1",
                                "RNB_TPU_NUM_PROCESSES": "2",
                                "RNB_TPU_PROCESS_ID": "0"})
+    joined = _stand_in_group(monkeypatch)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         run_benchmark(MESH_CONFIGS["rgb"], mean_interval_ms=0, num_videos=1,
                       log_base=str(tmp_path / "logs"), print_progress=False,
                       platform="cpu")
+    assert len(joined) == 1
     assert not (tmp_path / "logs").exists()
 
 

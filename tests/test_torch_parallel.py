@@ -18,6 +18,7 @@ the JAX package's sharded bound in bf16 (rtol = atol = 2e-2,
 """
 
 import itertools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -324,12 +325,31 @@ def test_a_partial_launch_by_arguments_is_refused_as_the_reference(
     assert str(ours.value) == str(theirs.value)
 
 
-def test_a_coordinator_launch_by_arguments_is_refused(monkeypatch):
+def test_a_coordinator_launch_by_arguments_is_refused(monkeypatch,
+                                                      tmp_path):
+    # a launch by arguments joins its group (here its arguments recorded
+    # in place of a store and a gloo group; tests/test_torch_processes.py
+    # joins real ones), idempotently, and a served run in it is refused
+    from rnb_tpu_torch.benchmark import run_benchmark
     _environment(monkeypatch, {})
+    joined = []
+    monkeypatch.setattr(distributed, "_launch", None)
+    monkeypatch.setattr(distributed, "_join",
+                        lambda *args: joined.append(args))
+    assert distributed.maybe_initialize("127.0.0.1:2", 2, 0) is True
+    assert distributed.maybe_initialize("127.0.0.1:3", 4, 1) is True
+    assert joined == [("127.0.0.1", 2, 2, 0)]
+    assert (distributed.process_count(), distributed.process_index(),
+            distributed.is_primary()) == (2, 0, True)
     with pytest.raises(NotImplementedError,
-                       match=r"RNB_TPU_COORDINATOR=127.0.0.1:2\) is not yet "
-                             r"ported.*NCCL"):
-        distributed.maybe_initialize("127.0.0.1:2", 2, 0)
+                       match=r"launch of 2 processes \(RNB_TPU_COORDINATOR="
+                             r"\.\.\.\) is not yet ported"):
+        run_benchmark(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "configs", "r2p1d-mesh.json"),
+            mean_interval_ms=0, num_videos=1,
+            log_base=str(tmp_path / "logs"), print_progress=False,
+            platform="cpu")
+    assert not (tmp_path / "logs").exists()
 
 
 def test_global_mesh_factors_the_visible_cards(monkeypatch):
