@@ -334,17 +334,20 @@ Phases (any failure exits non-zero and prints no result line):
    counts set to 0 before it and read after, the conv5 temporal hop, a
    d2 forward's 19-leaf gather and a reduce-scatter across the two
    processes (the ring kernel's cross-process form, ``rnb_ring_hop``,
-   through the successor's window opened by CUDA IPC), each bitwise its
-   plain version on the same inputs, and ``ShardedInference``'s ``run``
-   and ``predict`` at full width over the launch's dp 1 x sp 2 mesh (2
-   videos of 15 clips padded to 16, 16 rows a process), within
-   rtol = atol = 2e-2 of the one-process run, class ids compared past
-   the margin; 10 ring launches and 2 ingest launches a process. Timed
-   (the card's name and power limit beside): the hop's two launches
-   alone (profiler device time, the other process idle),
-   ``Tensor.copy_`` into the peer's window, the hop with its semaphores
-   and a 16-byte hop (CUDA events), the run across the processes and
-   the one-process run. Then a second launch: after one hop, process 1
+   one launch a hop writing straight into the successor's arena opened
+   by CUDA IPC), each bitwise its plain version on the same inputs, and
+   ``ShardedInference``'s ``run`` and ``predict`` at full width over the
+   launch's dp 1 x sp 2 mesh (2 videos of 15 clips padded to 16, 16 rows
+   a process), within rtol = atol = 2e-2 of the one-process run, class
+   ids compared past the margin; exactly 5 ring launches (five
+   collectives of one hop, one launch each) and 2 ingest launches a
+   process. Timed (the card's name and power limit beside): the hop's
+   launch alone, L2 warm and flushed, and its parts (the copy alone, the
+   copy with the post, waits and publication, those alone: profiler
+   device time, the other process idle), ``Tensor.copy_`` into the
+   peer's arena warm and flushed, the hop with its semaphores and a
+   16-byte hop (CUDA events), the run across the processes and the
+   one-process run. Then a second launch: after one hop, process 1
    leaves, and process 0's next hop must raise at its 2 s cap. A
    process that fails or outlives the launch's timeout fails the smoke.
    Then every job directory the smoke wrote (``phase_check_jobs``)
@@ -641,8 +644,9 @@ PROCESS_KILL_CAP_S = 2.0
 PROCESS_REPS = 20
 #: ring_shift launches of the launch's main path, each process: the conv5
 #: hop, the 19-leaf gather, the reduce-scatter, then run's and predict's
-#: gathers of the partials, each one hop of a send and a place launch
-PROCESS_RING_LAUNCHES = 10
+#: gathers of the partials, each at degree 2 one hop, and a hop one launch
+#: of rnb_ring_hop (its results in the arena: no placement launch)
+PROCESS_RING_LAUNCHES = 5
 DRYRUN_MEMBERS = (8, 2)
 DRYRUN_KERNELS = {"normalize_u8", "yuv420_normalize"}
 #: the checkpoint phase (``phase_ckpt``): the copies of
@@ -727,9 +731,11 @@ EXTRA_ROW_KEYS = ("all_hit_ms", "all_hit_ms_l2_flushed",
                   "forward_gather_ms", "forward_gather_ms_l2_flushed",
                   "forward_gather_plain_ms", "forward_gather_bound_ms",
                   "forward_per_leaf_ms", "merge_host_us", "xproc_ms",
-                  "xproc_round_trip_ms", "xproc_tiny_round_trip_ms",
-                  "xproc_library_ms", "xproc_bound_ms", "xproc_run_ms",
-                  "xproc_launches", "xproc_kill_s")
+                  "xproc_ms_l2_flushed", "xproc_copy_ms", "xproc_sync_ms",
+                  "xproc_copy_sync_ms", "xproc_round_trip_ms",
+                  "xproc_tiny_round_trip_ms", "xproc_library_ms",
+                  "xproc_library_ms_l2_flushed", "xproc_bound_ms",
+                  "xproc_run_ms", "xproc_launches", "xproc_kill_s")
 
 
 class SmokeFailure(RuntimeError):
@@ -4195,7 +4201,7 @@ def plain_psum_scatter(operands, axis):
 
 
 def peer_tensor(ptr, nbytes, device):
-    """A uint8 tensor over ``nbytes`` at ``ptr`` (a peer's window opened
+    """A uint8 tensor over ``nbytes`` at ``ptr`` (a peer's arena opened
     in this process), for the library yardstick's ``copy_``."""
     import torch
 
@@ -4203,6 +4209,70 @@ def peer_tensor(ptr, nbytes, device):
         __cuda_array_interface__ = {"shape": (nbytes,), "typestr": "|u1",
                                     "data": (ptr, False), "version": 2}
     return torch.as_tensor(Window(), device=device)
+
+
+def hop_calls(ep, source, target, place, device, launch=None):
+    """The calls that time the hop's launch and its parts alone, on
+    ``source`` (a dense tensor) into ``target`` (a pointer into the
+    successor's arena, as mapped here, at ``place``), every wait
+    satisfied: each kind of call has two scratch counter allocations of
+    its own, one for this member and one in the successor's place. One
+    launch on the second alone posts the call's tiles there; then its
+    ``posted`` and the first's ``recv`` are set past any epoch, so each
+    timed launch posts (into the first), reads the second's post, moves,
+    signals (the second) and finds its own hop landed, waiting for
+    nothing.
+
+    * ``hop``: the whole launch, the source landing in the successor's
+      arena where the (own) post says;
+    * ``copy``: the same bytes in a local launch (no post, no wait, no
+      publication): the copy alone;
+    * ``copy_sync``: the copy as a tile within the member, with the post,
+      the satisfied waits and the publication: all but the post's check;
+    * ``sync``: a launch with no tiles, one block: the post, the waits
+      and the publication alone.
+
+    ``launch(args)`` launches the C arguments (by default through
+    ``RING_SHIFT``'s hop entry)."""
+    import torch
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.parallel import peers
+    nbytes = source.numel() * source.element_size()
+    segments = ep.peer_segments[(ep.member + 1) % ep.degree]
+    if launch is None:
+        def launch(args):
+            _kernels.RING_SHIFT.launch(*args, device=device,
+                                       entry=_kernels.RING_HOP_ENTRY)
+    remote = peers.Tile(source.data_ptr(), place, 1, nbytes, nbytes, nbytes)
+    local = peers.Tile(source.data_ptr(), target, 1, nbytes, nbytes, nbytes)
+    scratch = []
+
+    def looped(tiles, remote_count):
+        own, succ = (torch.zeros(peers.COUNTER_BYTES, dtype=torch.uint8,
+                                 device=device) for _ in range(2))
+        scratch.extend((own, succ))
+        launch(peers.hop_args(tiles, remote_count, succ.data_ptr(),
+                              segments, succ.data_ptr(), 1, ep.report_dev,
+                              10 ** 9))
+        succ.view(torch.int64)[peers.POSTED // 8] = 1 << 62
+        own.view(torch.int64)[peers.RECV // 8] = 1 << 62
+        epoch = [0]
+
+        def call():
+            epoch[0] += 1
+            launch(peers.hop_args(tiles, remote_count, succ.data_ptr(),
+                                  segments, own.data_ptr(), epoch[0],
+                                  ep.report_dev, 10 ** 9))
+        return call
+    calls = {"hop": looped([remote], 1), "copy_sync": looped([local], 0),
+             "sync": looped([], 0)}
+    own = torch.zeros(peers.COUNTER_BYTES, dtype=torch.uint8, device=device)
+    scratch.append(own)
+    copy_args = peers.hop_args([local], 0, None, [], own.data_ptr(), 0,
+                               None, 10 ** 9)
+    calls["copy"] = lambda: launch(copy_args)
+    calls["_scratch"] = scratch
+    return calls
 
 
 def child_ring(rank, n, device, ring):
@@ -4289,34 +4359,27 @@ def child_ring(rank, n, device, ring):
         ids["held"] += int(held)
         ids["agreed"] += int(agreed)
         ids["near_ties"] += int(not held)
-    # the times: the hop kernel alone (profiler device time of the send
-    # launch into the successor's window and the place launch out of this
-    # member's, neither waiting nor signalling), the hop with its
-    # semaphores and the whole run (CUDA events), Tensor.copy_ into the
-    # opened peer window; every process times the same calls at once
+    # the times: the hop's launch alone, L2 warm and flushed, and its
+    # parts (profiler device time, hop_calls), and Tensor.copy_ of the
+    # same bytes into the successor's arena; then the hop with its
+    # semaphores and the whole run (CUDA events). The successor's target
+    # is a lease of its arena, its place sent through the store
     ep = peers.endpoint(ring)
     nbytes = conv5[rank].numel() * conv5[rank].element_size()
     succ = (ep.member + 1) % n
-    out = torch.empty_like(conv5[rank])
-    done = torch.zeros(64, dtype=torch.int32, device=device)
-    send = peers.launch_args([peers.Tile(conv5[rank].data_ptr(),
-                                         ep.peer_windows[succ], 1, nbytes,
-                                         nbytes, nbytes)])[0]
-    place = peers.launch_args([peers.Tile(ep.window, out.data_ptr(), 1,
-                                          nbytes, nbytes, nbytes)])[0]
-
-    def alone():
-        for args in (send, place):
-            _kernels.RING_SHIFT.launch(
-                *args, None, 0, None, done.data_ptr(), ep.error,
-                ep.report_dev, 10 ** 9, 0, None, None, device=device,
-                entry=_kernels.RING_HOP_ENTRY)
-    window = peer_tensor(ep.peer_windows[succ], nbytes, device)
+    (target,) = ep.empty([((nbytes,), (1,), torch.uint8)])
+    ep.store.set("rnb-smoke/target/%d" % rank, str(ep.arena.place(
+        target.data_ptr(), nbytes)))
+    place = int(ep.store.get("rnb-smoke/target/%d" % succ))
+    segment, offset = divmod(place, 1 << peers.SEGMENT_SHIFT)
+    target_ptr = ep.peer_segments[succ][segment][0] + offset
     # the shard's bytes (it is channels-last: no flat view of its dims)
     source = torch.empty(0, dtype=torch.uint8, device=device).set_(
         conv5[rank].untyped_storage())
     check(source.numel() == nbytes, "the conv5 shard holds %d bytes of "
           "storage, not %d" % (source.numel(), nbytes))
+    calls = hop_calls(ep, source, target_ptr, place, device)
+    window = peer_tensor(target_ptr, nbytes, device)
     # what one process does alone is timed while the other waits at the
     # barrier, its context idle: two contexts time-slice the card, and a
     # kernel's span would hold the other's slices
@@ -4324,10 +4387,21 @@ def child_ring(rank, n, device, ring):
     torch.cuda.synchronize()
     ep.barrier("timing")
     if rank == 0:
-        times["ms"] = device_ms(alone)
+        window.zero_()
+        times["ms"] = device_ms(calls["hop"])
+        times["ms_l2_flushed"] = flushed_ms(calls["hop"])
+        torch.cuda.synchronize()
+        check(torch.equal(window, source) and ep.reported() == 0,
+              "the timed hop did not land the shard in the successor's "
+              "arena (error word %d)" % ep.reported())
+        for part in ("copy", "copy_sync", "sync"):
+            times[part + "_ms"] = device_ms(calls[part])
         times["library_ms"] = device_ms(lambda: window.copy_(source))
+        times["library_ms_l2_flushed"] = flushed_ms(
+            lambda: window.copy_(source))
     torch.cuda.synchronize()
     ep.barrier("timed")
+    del target
 
     def events(fn, reps=PROCESS_REPS):
         samples = []
@@ -4359,7 +4433,7 @@ def child_ring(rank, n, device, ring):
     times["bytes"] = nbytes
     return {"counts": counts, "times": times, "ids": ids,
             "run_err": float(err.max()), "build_s": build_s,
-            "window_bytes": ep.window_bytes}
+            "arena_bytes": ep.arena.nbytes}
 
 
 def child_killed(rank, n, device, ring):
@@ -4462,12 +4536,18 @@ def phase_processes(data_root, launches):
         print("processes %s launch: %.1f s" % (mode, time.time() - t0))
     first = reports["ring", 0]["times"]
     print("processes ring: the conv5 hop (%d bytes) alone %.5f ms on the "
-          "card (the send launch into the successor's window and the place "
-          "launch out of its own, the other process idle; bound %.5f ms by "
-          "bytes), Tensor.copy_ into the peer's window %.5f ms; the "
-          "one-process run %.3f ms (%s)" % (
-              first["bytes"], first["ms"], first["bound_ms"],
-              first["library_ms"], first["one_process_run_ms"][0], smi))
+          "card, %.5f with L2 flushed (one launch into the successor's "
+          "arena, its waits satisfied, the other process idle; bound "
+          "%.5f ms by bytes); its parts: the copy alone %.5f ms, the copy "
+          "with the post, waits and publication %.5f, the post, waits and "
+          "publication alone (one block) %.5f; Tensor.copy_ into the "
+          "peer's arena %.5f ms, %.5f flushed; the one-process run %.3f ms "
+          "(%s)" % (
+              first["bytes"], first["ms"], first["ms_l2_flushed"],
+              first["bound_ms"], first["copy_ms"], first["copy_sync_ms"],
+              first["sync_ms"], first["library_ms"],
+              first["library_ms_l2_flushed"],
+              first["one_process_run_ms"][0], smi))
     for rank in range(PROCESSES):
         report = reports["ring", rank]
         for name, count in report["counts"].items():
@@ -4477,19 +4557,24 @@ def phase_processes(data_root, launches):
               "semaphores %.3f ms (min %.3f, max %.3f), a 16-byte hop %.3f "
               "ms (min %.3f, max %.3f); run across %d processes %.3f ms "
               "(min %.3f, max %.3f); run %g from the one-process run; class "
-              "ids %s; window %d bytes; launches %s (%s)" % (
+              "ids %s; arena %d bytes; launches %s (%s)" % (
                   rank, *t["round_trip_ms"], *t["tiny_round_trip_ms"],
                   PROCESSES, *t["run_ms"], report["run_err"],
-                  json.dumps(report["ids"]), report["window_bytes"],
+                  json.dumps(report["ids"]), report["arena_bytes"],
                   {k: v for k, v in report["counts"].items() if v}, smi))
     killed = reports["killed", 0]
     print("processes killed peer: process 0's hop raised after %.2f s "
           "(cap %.1f s): %s" % (killed["seconds"], PROCESS_KILL_CAP_S,
                                 killed["message"]))
     return {"xproc_ms": first["ms"],
+            "xproc_ms_l2_flushed": first["ms_l2_flushed"],
+            "xproc_copy_ms": first["copy_ms"],
+            "xproc_sync_ms": first["sync_ms"],
+            "xproc_copy_sync_ms": first["copy_sync_ms"],
             "xproc_round_trip_ms": first["round_trip_ms"][0],
             "xproc_tiny_round_trip_ms": first["tiny_round_trip_ms"][0],
             "xproc_library_ms": first["library_ms"],
+            "xproc_library_ms_l2_flushed": first["library_ms_l2_flushed"],
             "xproc_bound_ms": first["bound_ms"],
             "xproc_run_ms": first["run_ms"][0],
             "xproc_launches": sum(reports["ring", r]["counts"]["ring_shift"]
@@ -5332,12 +5417,13 @@ def main() -> int:
             [_kernels.nvcc(), "--version"], capture_output=True, text=True,
             timeout=60).stdout.strip().splitlines()[-1])
         if "ring.cu" in _kernels.BUILD_LOG:
-            frame = stack_frame_bytes(_kernels.BUILD_LOG["ring.cu"][1],
-                                      "ring_shift_kernel")
-            print("ring_shift_kernel stack frame: %s bytes" % frame)
-            check(frame == 0, "ptxas gives ring_shift_kernel a stack frame "
-                  "of %s bytes: its table is copied off the parameters"
-                  % frame)
+            for kernel in ("ring_shift_kernel", "ring_hop_kernel"):
+                frame = stack_frame_bytes(_kernels.BUILD_LOG["ring.cu"][1],
+                                          kernel)
+                print("%s stack frame: %s bytes" % (kernel, frame))
+                check(frame == 0, "ptxas gives %s a stack frame of %s "
+                      "bytes: its table is copied off the parameters"
+                      % (kernel, frame))
         if "error" in native_build:
             raise native_build["error"]
         print("build native/decode.cpp -> %s: %s\n%s" % (

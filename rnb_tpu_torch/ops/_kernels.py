@@ -235,18 +235,23 @@ _RING_TABLE = [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_L),
                ctypes.POINTER(_L), ctypes.POINTER(_I), ctypes.POINTER(_L),
                ctypes.POINTER(_L), _I, _I]
 #: the hop across processes (``rnb_ring_hop``) counts as this kernel: the
-#: table (this member's tiles), then the counter waited on and its target,
-#: the counter signalled, the word of finished blocks, the error word, the
-#: pinned word it is reported into, the wait's cap in ns, and the hop's
-#: layout with the word it is written to and the word it is checked in
+#: table (this member's tiles, n = 1), the count of its first entries that
+#: land in the successor's arena, the successor's counter allocation, its
+#: arena segments (pointers as mapped here, their sizes, their count),
+#: this member's counter allocation, the hop's number, the pinned word an
+#: error is reported into and the waits' cap in ns
 RING_HOP_ENTRY = "rnb_ring_hop"
+#: tiles one launch of the hop moves at most (``kMaxHopTiles``), and the
+#: arena segments it knows of (``kMaxSegments``)
+RING_HOP_MAX_TILES = 64
+RING_HOP_MAX_SEGMENTS = 16
 RING_SHIFT = Kernel(
     "ring_shift", "ring.cu", "rnb_ring_shift", _RING_TABLE,
     "rnb_tpu/ops/handoff_dma.py:104 (_pallas_shift_body, its pallas_call "
     "at :134)",
-    entries={RING_HOP_ENTRY: _RING_TABLE + [_P, ctypes.c_ulonglong, _P, _P,
-                                            _P, _P, _L, ctypes.c_ulonglong,
-                                            _P, _P]})
+    entries={RING_HOP_ENTRY: _RING_TABLE + [
+        _I, _P, ctypes.POINTER(_P), ctypes.POINTER(_L), _I, _P,
+        ctypes.c_ulonglong, _P, _L]})
 
 
 class RingTableEntry(NamedTuple):

@@ -40,16 +40,17 @@ parallel.mesh.Ring` with one member a process) takes the same calls,
 ``ring=`` given: each process passes its own member's buffers and gets
 its own member's results, and the contracts stay the reference's. On
 CUDA tensors every hop is the kernel's cross-process form
-(``rnb_ring_hop``, :mod:`rnb_tpu_torch.parallel.peers`): a send launch
-into the successor's receive window, through the peer pointer that CUDA
-IPC opened, and a place launch out of its own window into the
-destinations, each behind a device counter (the reference's
+(``rnb_ring_hop``, :mod:`rnb_tpu_torch.parallel.peers`), one launch a
+hop: the results the collectives return lie in each member's arena, so
+the sender writes each byte once, straight into its successor's
+destination (through the memory CUDA IPC opened), where the successor
+posted it, each side behind a device counter (the reference's
 ``send_sem``/``recv_sem``); at the end of the collective the process
-waits for its card and raises where a wait gave up. On CPU tensors the
-plain version sends and receives over the launch's gloo group (the
-counterpart of the reference's ``_ppermute_shift_body``), bounded by
-the same cap. On CUDA tensors no byte goes through gloo, the host or a
-library copy.
+waits for its card and raises where a wait gave up or the processes'
+tables disagreed. On CPU tensors the plain version sends and receives
+over the launch's gloo group (the counterpart of the reference's
+``_ppermute_shift_body``), bounded by the same cap. On CUDA tensors no
+byte goes through gloo, the host or a library copy.
 
 The inter-stage handoff's half (``rnb_tpu_torch.handoff``):
 
@@ -249,7 +250,12 @@ def ring_shift_group(table: Sequence[RingEntry],
     the whole table (as few as hold it past :data:`RING_MAX_TILES`
     entry-member pairs); on CPU tensors, the plain version. Over a
     ``ring`` that spans processes, each entry holds this process's
-    member's source and destination (:func:`_group_across`)."""
+    member's source and destination (:func:`_group_across`): a
+    destination in this member's arena is written straight by the
+    predecessor; a caller's own destination outside it lands in an arena
+    slot that one more local launch then places. No collective the port
+    runs takes that second route: each allocates its results in the
+    arena."""
     table = [RingEntry(list(entry.srcs), list(entry.dsts), int(entry.shift))
              for entry in table]
     if not table:
@@ -282,10 +288,20 @@ def _across(ring: Optional[Ring]) -> bool:
     return ring is not None and ring.spans_processes
 
 
-def _check_across(table: Sequence[RingEntry], ring: Ring) -> bool:
-    """Check a cross-process table (one source and one destination an
+def _card_path(ring: Ring) -> bool:
+    """Does a collective over ``ring`` (which spans processes) run on the
+    card, through ``rnb_ring_hop``? False on the CPU (the plain version
+    over gloo)."""
+    if ring.device.type not in ("cpu", "cuda"):
+        raise ValueError("ring_shift runs its kernel on cuda tensors, got "
+                         "%s" % ring.device)
+    return ring.device.type == "cuda"
+
+
+def _check_across(table: Sequence[RingEntry], ring: Ring) -> None:
+    """Check a cross-process table: one source and one destination an
     entry, a shift in ``0..n-1``, one dtype and shape, every buffer on
-    the member's device); True where the buffers lie on the CPU."""
+    the member's device."""
     device = ring.device
     for e, entry in enumerate(table):
         _check_entry(entry, e, 1, ring.degree, "the one member of a ring "
@@ -295,10 +311,18 @@ def _check_across(table: Sequence[RingEntry], ring: Ring) -> bool:
                 raise ValueError("ring_shift entry %d: a buffer on %s, "
                                  "the ring's member on %s"
                                  % (e, t.device, device))
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError("ring_shift runs its kernel on cuda tensors, got "
-                         "%s" % device)
-    return device.type == "cpu"
+
+
+def _empty_across(specs: Sequence[peers.Spec], ring: Ring
+                  ) -> List[torch.Tensor]:
+    """The tensors a collective over ``ring`` returns, one a spec (shape,
+    stride, dtype), taken at its start: in this member's arena on the
+    card (so the predecessor writes into them), else plain tensors."""
+    if _card_path(ring):
+        return peers.endpoint(ring).empty(specs)
+    return [torch.empty_strided(shape, stride, dtype=dtype,
+                                device=ring.device)
+            for shape, stride, dtype in specs]
 
 
 def _group_across(table: Sequence[RingEntry], ring: Ring
@@ -306,15 +330,20 @@ def _group_across(table: Sequence[RingEntry], ring: Ring
     """One process's part of a grouped hop over a ring that spans
     processes. On CUDA tensors: shift-0 entries are tiles within the
     member; each other shift, in the order the table first names it, is
-    one hop of ``rnb_ring_hop`` (:meth:`peers.Endpoint.hop`): every
-    entry of that shift packed into the successor's window at an aligned
-    offset (rows of the last dim, or one dense block), then placed out
-    of this member's window into its destination. The window's layout
-    is the same on every member, as every process builds the same table.
-    On CPU tensors, the plain version over gloo. Returns the endpoint of
-    a hop on the card (None for none), whose card the caller waits for
-    (:func:`_finish_across`)."""
-    if _check_across(table, ring):
+    one hop of ``rnb_ring_hop`` (:meth:`peers.Endpoint.hop`; a shift of
+    more than ``peers.HOP_MAX_TILES`` entries, as few hops as hold
+    them), whose launch posts where each of its entries lands in this
+    member and writes this member's sources where the successor posted
+    its own. A destination in the arena (every collective the port runs
+    allocates its results there) is posted as it is; a caller's own
+    destination outside it lands in an arena slot, taken at the start,
+    that one local launch then places (:meth:`peers.Endpoint.place`,
+    counted as a launch). Every process builds the same table, so the
+    posts agree with the sends. On CPU tensors, the plain version over
+    gloo. Returns the endpoint of a hop on the card (None for none),
+    whose card the caller waits for (:func:`_finish_across`)."""
+    _check_across(table, ring)
+    if not _card_path(ring):
         _group_across_reference(table, ring)
         return None
     local: List[peers.Tile] = []
@@ -325,25 +354,48 @@ def _group_across(table: Sequence[RingEntry], ring: Ring
             continue
         rows, row_bytes, (src_pitch,), (dst_pitch,) = _layout(
             RingEntry([src], [dst], 0), e)
+        tile = peers.Tile(src.data_ptr(), dst.data_ptr(), rows, row_bytes,
+                          src_pitch, dst_pitch)
         if entry.shift == 0:
-            local.append(peers.Tile(src.data_ptr(), dst.data_ptr(), rows,
-                                    row_bytes, src_pitch, dst_pitch))
-            continue
-        send, place, used = hops.setdefault(entry.shift, ([], [], [0]))
-        offset = -(-used[0] // peers.WINDOW_ALIGN) * peers.WINDOW_ALIGN
-        used[0] = offset + rows * row_bytes
-        send.append(peers.Tile(src.data_ptr(), offset, rows, row_bytes,
-                               src_pitch, row_bytes))
-        place.append(peers.Tile(offset, dst.data_ptr(), rows, row_bytes,
-                                row_bytes, dst_pitch))
+            local.append(tile)
+        else:
+            hops.setdefault(entry.shift, []).append(tile)
     if not hops:
-        for args in peers.launch_args(local):
-            if args[-1]:
-                _kernels.RING_SHIFT.launch(*args, device=ring.device)
+        for args in _kernels.ring_table(
+                [_kernels.RingTableEntry((t.src,), (t.dst,), (t.src_pitch,),
+                                         (t.dst_pitch,), 0, t.rows,
+                                         t.row_bytes) for t in local], 1):
+            _kernels.RING_SHIFT.launch(*args, device=ring.device)
         return None
     ep = peers.endpoint(ring)
-    for i, (shift, (send, place, used)) in enumerate(hops.items()):
-        ep.hop(shift, local if i == 0 else [], send, place, used[0])
+    # a caller's destinations outside the arena: slots, then one placement
+    outside = [(shift, i) for shift, tiles in hops.items()
+               for i, t in enumerate(tiles) if ep.arena.place(
+                   t.dst, peers.extent(t.rows, t.row_bytes, t.dst_pitch))
+               is None]
+    slots = ep.reserve([hops[shift][i].rows * hops[shift][i].row_bytes
+                        for shift, i in outside])
+    placed = []
+    for (shift, i), slot in zip(outside, slots):
+        t = hops[shift][i]
+        placed.append(peers.Tile(slot.ptr, t.dst, t.rows, t.row_bytes,
+                                 t.row_bytes, t.dst_pitch))
+        hops[shift][i] = t._replace(dst=slot.ptr, dst_pitch=t.row_bytes)
+    room = peers.HOP_MAX_TILES
+    for shift, tiles in hops.items():
+        for start in range(0, len(tiles), room):
+            remote = [t._replace(dst=ep.arena.place(t.dst, peers.extent(
+                t.rows, t.row_bytes, t.dst_pitch)))
+                for t in tiles[start:start + room]]
+            # the shift-0 tiles ride in the first hop where they fit
+            riding = local if len(local) + len(remote) <= room else []
+            if local and not riding:
+                for begin in range(0, len(local), room):
+                    ep.place(local[begin:begin + room])
+            ep.hop(shift, riding, remote)
+            local = []
+    for begin in range(0, len(placed), room):
+        ep.place(placed[begin:begin + room])
     return ep
 
 
@@ -421,16 +473,19 @@ def _finish_across(ep: Optional[peers.Endpoint]) -> None:
         ep.finish()
 
 
-def _shift_across(shards: Members, shift: int, ring: Ring
+def _shift_across(shards: Members, shift: int, ring: Ring,
+                  out: Optional[Members] = None
                   ) -> Tuple[Members, Optional[peers.Endpoint]]:
     """:func:`ring_shift` of this process's member over a ring that spans
-    processes, without waiting for the card; and the endpoint of its
-    hop on the card."""
+    processes (into ``out`` where given, else a new tensor laid out as
+    the shard, in the arena on the card), without waiting for the card;
+    and the endpoint of its hop on the card."""
     ring.check(shards, "ring_shift")
     shift = int(shift) % ring.degree
     if shift == 0:
         return shards, None
-    out = [torch.empty_like(shard) for shard in shards]
+    if out is None:
+        out = _empty_across([peers.spec_like(shards[0])], ring)
     return out, _group_across([RingEntry(shards, out, shift)], ring)
 
 
@@ -499,10 +554,12 @@ def _one_step_shift_body(n: int) -> Callable[[Members], Members]:
     return shift
 
 
-def _full_width(shard: torch.Tensor, n: int, ax: int) -> torch.Tensor:
+def _full_width(shard: torch.Tensor, n: int, ax: int,
+                device=None) -> torch.Tensor:
     """An empty tensor ``n`` times ``shard``'s extent along ``ax``, in
     its memory format (a channels-last conv kernel stays channels-last,
-    so the gathered weight is laid out as the unsharded one)."""
+    so the gathered weight is laid out as the unsharded one), on
+    ``device`` (by default the shard's)."""
     shape = list(shard.shape)
     shape[ax] *= n
     fmt = torch.contiguous_format
@@ -512,8 +569,8 @@ def _full_width(shard: torch.Tensor, n: int, ax: int) -> torch.Tensor:
             if shard.dim() == dims and shard.is_contiguous(
                     memory_format=channels_last):
                 fmt = channels_last
-    return torch.empty(shape, dtype=shard.dtype, device=shard.device,
-                       memory_format=fmt)
+    return torch.empty(shape, dtype=shard.dtype,
+                       device=device or shard.device, memory_format=fmt)
 
 
 def _gather_tables_across(leaves: List[Members], axis: int, ring: Ring
@@ -530,10 +587,12 @@ def _gather_tables_across(leaves: List[Members], axis: int, ring: Ring
         return leaves, []
     gathered = []
     tables: List[List[RingEntry]] = [[] for _ in range(n - 1)]
-    for (shard,) in leaves:
+    # the full-width tensors, in the arena on the card, taken at once
+    fulls = _empty_across([peers.spec_like(_full_width(
+        shard, n, axis % shard.dim(), "meta")) for (shard,) in leaves], ring)
+    for (shard,), full in zip(leaves, fulls):
         ax = axis % shard.dim()
         chunk = shard.shape[ax]
-        full = _full_width(shard, n, ax)
         slots = [full.narrow(ax, c * chunk, chunk) for c in range(n)]
         tables[0].append(RingEntry([shard], [slots[m]], 0))
         tables[0].append(RingEntry([shard], [slots[(m - 1) % n]], 1))
@@ -691,9 +750,11 @@ def _psum_scatter_across(operands: Members, ring: Ring,
         return operands
     chunk = width // n
     acc = [x.narrow(ax, ((m - 1) % n) * chunk, chunk).contiguous()]
+    # every hop's moved chunk, in the arena on the card, taken at once
+    moves = _empty_across([peers.spec_like(acc[0])] * (n - 1), ring)
     ep = None
     for s in range(1, n):
-        moved, ep = _shift_across(acc, 1, ring)
+        moved, ep = _shift_across(acc, 1, ring, [moves[s - 1]])
         acc = [moved[0] + x.narrow(ax, ((m - 1 - s) % n) * chunk, chunk)]
     _finish_across(ep)
     return acc

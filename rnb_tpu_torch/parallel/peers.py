@@ -10,38 +10,43 @@ IPC: an :class:`Endpoint` is one process's end of one ring, made at the
 ring's first collective and kept for its life.
 
 * Each member allocates once, with ``cudaMalloc`` (so each is the base
-  of its own allocation and its handle opens at offset 0), a pair of
-  device counters, ``recv`` and ``ack``, and a receive window, sized by
-  the caller and grown (by every member at once: a collective
-  allocation) when a hop needs more; and an error word on the card,
-  reported into a pinned word the host reads.
-* It exports them as IPC handles with their byte offsets, exchanges them
-  through the launch's store, and opens its peers' handles with the
-  lazy peer-access flag. Nothing is opened a hop.
-* :meth:`Endpoint.hop` is one hop of the kernel ``rnb_ring_hop``
-  (``rnb_tpu_torch/csrc/ring.cu``): a send launch into the successor's
-  window and a place launch out of its own, each gated on a counter and
-  signalling one, every wait bounded by :data:`wait_cap_s`. Each member
-  publishes its window's size with its handle, so a hop that needs more
-  than the successor's window raises before it launches; the send
-  carries the hop's layout (a digest of its window tiles) and the place
-  checks it against its own, so processes whose tables disagree fail
-  the hop instead of placing the wrong bytes.
-  :meth:`Endpoint.finish` waits for the card and raises where a wait
-  gave up or the layouts disagreed.
+  of its own allocation and its handle opens at offset 0), a counter
+  allocation laid out as ``csrc/ring.cu`` reads it (``recv``,
+  ``posted``, the launch's block counts, the error word on the card and
+  the post of the current hop), reported into a pinned word the host
+  reads; and a result :class:`Arena`: segments of device memory the
+  cross-process collectives allocate the tensors they return from, so
+  a sender can write straight into its successor's destination.
+* It exports them as IPC handles, exchanges them through the launch's
+  store, and opens its peers' handles with the lazy peer-access flag.
+  Nothing is opened a hop: the counters at the ring's first collective,
+  an arena segment when every member adds one at once
+  (:meth:`Endpoint.reserve`, at a collective's start, as rarely as the
+  arena doubles; a segment is never freed while a result views it).
+* :meth:`Endpoint.hop` is one hop of the kernel ``rnb_ring_hop``, one
+  launch on the member's stream: it posts where the hop lands in this
+  member (each tile's arena place, rows, row length and pitch), waits
+  for the successor's post, checks it against its own tiles (processes
+  whose tables disagree fail there, before any byte moves), writes each
+  byte once into the successor's arena, signals the successor's
+  ``recv`` and waits for its own, every wait bounded by
+  :data:`wait_cap_s`. :meth:`Endpoint.finish` waits for the card and
+  raises where a wait gave up or a post disagreed.
 * :func:`close_all` (from ``distributed.shutdown``): every endpoint
   waits for its card, closes its peers' handles, meets the others at a
-  barrier, then frees its own memory.
+  barrier, then frees its own memory (an arena segment a live result
+  still views once that result dies).
 """
 
 from __future__ import annotations
 
-import array
 import ctypes
 import datetime
 import pickle
-import zlib
-from typing import Dict, List, NamedTuple, Optional, Sequence
+import sys
+import threading
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, \
+    Tuple
 
 import torch
 
@@ -53,19 +58,28 @@ from rnb_tpu_torch.parallel.mesh import Ring
 DEFAULT_WAIT_CAP_S = 60.0
 wait_cap_s = DEFAULT_WAIT_CAP_S
 
-#: the counters' allocation: ``recv`` at 0 with the hop's layout beside
-#: it at 64 and ``ack`` at 128 (exported), the send and place launches'
-#: words of finished blocks at 256 and 384 and the error word at 448
-#: (this member's own)
-COUNTER_BYTES = 512
-RECV, LAYOUT, ACK, SEND_DONE, PLACE_DONE, ERROR = 0, 64, 128, 256, 384, 448
-#: the error word's values (``kTimedOut``, ``kLayoutDiffers`` in ring.cu)
-TIMED_OUT, LAYOUT_DIFFERS = 1, 2
-#: a window grows to a multiple of this (and at least doubles)
-WINDOW_QUANTUM = 1 << 20
-#: window offsets of a hop's tiles are multiples of this: the kernel's
-#: 16-byte vector path
-WINDOW_ALIGN = 256
+#: the counter allocation (``kRecv`` .. ``kPost`` in ring.cu): ``recv``
+#: (hops landed here), ``posted`` (hops posted), the launch's finished
+#: blocks (64 bits: their count, and in the high half those that moved
+#: nothing) and started blocks, the error word, the post's tile count,
+#: then the post, one tile of POST_TILE_BYTES each
+COUNTER_BYTES = 4096
+RECV, POSTED, DONE, CLAIM, ERROR, POST_COUNT, POST = (0, 64, 128, 192, 256,
+                                                      320, 384)
+POST_TILE_BYTES = 32
+#: the error word's values (``kTimedOut``, ``kTablesDiffer`` in ring.cu)
+TIMED_OUT, TABLES_DIFFER = 1, 2
+#: tiles one hop's launch moves at most; arena segments a member holds at
+#: most
+HOP_MAX_TILES = _kernels.RING_HOP_MAX_TILES
+MAX_SEGMENTS = _kernels.RING_HOP_MAX_SEGMENTS
+#: a posted place: segment << SEGMENT_SHIFT | offset
+SEGMENT_SHIFT = 40
+#: an arena segment is a multiple of this (and at least doubles the
+#: arena); a lease starts at a multiple of ARENA_ALIGN (the kernel's
+#: 16-byte vector path)
+ARENA_QUANTUM = 1 << 20
+ARENA_ALIGN = 256
 
 _P, _L = ctypes.c_void_p, ctypes.c_longlong
 
@@ -82,15 +96,22 @@ def set_wait_cap(seconds: float) -> float:
 
 class Tile(NamedTuple):
     """One move of a hop: ``rows`` rows of ``row_bytes`` from ``src`` (at
-    ``src_pitch``) to ``dst`` (at ``dst_pitch``). In a send tile ``dst``
-    is an offset into the successor's window, in a place tile ``src`` one
-    into this member's own."""
+    ``src_pitch``) to ``dst`` (at ``dst_pitch``). In a tile that lands in
+    the successor (a remote tile) ``dst`` and ``dst_pitch`` are this
+    member's post: where it receives the same entry (an arena place,
+    :meth:`Arena.place`) and that destination's pitch."""
     src: int
     dst: int
     rows: int
     row_bytes: int
     src_pitch: int
     dst_pitch: int
+
+
+def extent(rows: int, row_bytes: int, pitch: int) -> int:
+    """Bytes from the first byte of ``rows`` rows at ``pitch`` to past
+    their last."""
+    return 0 if rows <= 0 else (rows - 1) * pitch + row_bytes
 
 
 def _library():
@@ -121,24 +142,28 @@ def _call(lib, name: str, *args) -> None:
             name, code, lib.rnb_error_string(code).decode()))
 
 
-def launch_args(tiles: Sequence[Tile]) -> List[tuple]:
-    """The C table arguments of ``rnb_ring_hop`` for ``tiles`` (each an
-    entry of one member, shift 0), as few launches as hold them (at
-    least one: a launch with no tiles still waits and signals)."""
-    return _kernels.ring_table(
+def hop_args(tiles: Sequence[Tile], remote: int, succ: Optional[int],
+             segments: Sequence[Tuple[int, int]], counters: int, epoch: int,
+             report: Optional[int], cap_ns: int) -> tuple:
+    """The C arguments of one launch of ``rnb_ring_hop`` (before device
+    and stream): ``tiles`` (at most :data:`HOP_MAX_TILES`, the first
+    ``remote`` landing in the successor's arena), the successor's counter
+    allocation ``succ`` (None: a local launch) and its arena ``segments``
+    ``(pointer, bytes)`` as mapped here, this member's ``counters``, the
+    hop's ``epoch``, the pinned ``report`` word and the cap."""
+    if len(tiles) > HOP_MAX_TILES or len(segments) > MAX_SEGMENTS:
+        raise ValueError("a hop's launch moves at most %d tiles into at "
+                         "most %d segments, got %d and %d"
+                         % (HOP_MAX_TILES, MAX_SEGMENTS, len(tiles),
+                            len(segments)))
+    (table,) = _kernels.ring_table(
         [_kernels.RingTableEntry((t.src,), (t.dst,), (t.src_pitch,),
                                  (t.dst_pitch,), 0, t.rows, t.row_bytes)
          for t in tiles], 1, at_least_one=True)
-
-
-def layout(tiles: Sequence[Tile], window_side: str) -> int:
-    """The digest (never 0) of a hop's window layout: the offset and
-    the bytes of each tile in the window (``window_side`` is ``dst`` for
-    a send, ``src`` for a place; a tile's rows lie packed there), the
-    same on both ends of a hop whose processes built the same table."""
-    words = [v for t in tiles
-             for v in (getattr(t, window_side), t.rows * t.row_bytes)]
-    return zlib.crc32(array.array("q", words).tobytes()) + 1
+    return (*table, remote, succ,
+            (_P * MAX_SEGMENTS)(*(p for p, _ in segments)),
+            (_L * MAX_SEGMENTS)(*(b for _, b in segments)), len(segments),
+            counters, ctypes.c_ulonglong(epoch), report, cap_ns)
 
 
 def ring_key(ring: Ring) -> str:
@@ -149,34 +174,236 @@ def ring_key(ring: Ring) -> str:
                          ",".join(str(p) for p in ring.processes))
 
 
+# -- the arena ----------------------------------------------------------------
+
+def _align(nbytes: int) -> int:
+    return -(-nbytes // ARENA_ALIGN) * ARENA_ALIGN
+
+
+class _Lease:
+    """One range of an arena, held by the tensor that views it (through
+    its array interface): the range goes back to the arena when the
+    tensor's storage dies."""
+
+    def __init__(self, arena: "Arena", segment: int, offset: int,
+                 nbytes: int, ptr: int, stream):
+        self.arena = arena
+        self.segment = segment
+        self.offset = offset
+        self.nbytes = nbytes
+        self.ptr = ptr
+        self.stream = stream
+
+    def _interface(self, version: int) -> dict:
+        return {"shape": (self.nbytes,), "typestr": "|u1",
+                "data": (self.ptr, False), "version": version}
+
+    @property
+    def __cuda_array_interface__(self) -> dict:
+        return self._interface(2)
+
+    @property
+    def __array_interface__(self) -> dict:
+        return self._interface(3)
+
+    def __del__(self):
+        if not sys.is_finalizing():
+            self.arena._release(self)
+
+
+class Arena:
+    """A ring member's result memory: segments (each its own allocation,
+    exported to the peers), ranges of them leased to the tensors the
+    cross-process collectives return.
+
+    ``allocate(nbytes) -> pointer`` and ``free(pointer)`` make and drop a
+    segment; ``stream()`` is the stream a lease is taken on. A range goes
+    back to the arena when the storage of the tensor that views it dies,
+    and is handed out again under the caching allocator's stream rule:
+    on the stream it was taken on, later work follows the work queued
+    before its free in stream order (the successor's write follows this
+    member's post, queued after it); on another stream, that stream first
+    waits for the one it was taken on. A result used on a stream of the
+    caller's own is the caller's to order, as with the caching allocator
+    (``record_stream``). Growth (:meth:`add`) never frees a segment; once
+    the arena is closed, a segment is freed when its last lease dies."""
+
+    GUARDED_BY = {"bases": "_lock", "sizes": "_lock", "_ranges": "_lock",
+                  "leased": "_lock", "closed": "_lock"}
+
+    def __init__(self, device: torch.device,
+                 allocate: Callable[[int], int],
+                 free: Callable[[int], None],
+                 stream: Optional[Callable[[], object]] = None):
+        self.device = device
+        self._allocate = allocate
+        self._free = free
+        if stream is None:
+            stream = ((lambda: torch.cuda.current_stream(device))
+                      if device.type == "cuda" else (lambda: None))
+        self._stream = stream
+        self._lock = threading.Lock()
+        #: per segment: its base (0 once freed), its bytes, its free
+        #: ranges [offset, bytes, streams] by offset, its leased bytes
+        self.bases: List[int] = []
+        self.sizes: List[int] = []
+        self._ranges: List[List[list]] = []
+        self.leased: List[int] = []
+        self.closed = False
+
+    @property
+    def nbytes(self) -> int:
+        with self._lock:
+            return sum(self.sizes)
+
+    @staticmethod
+    def _fit(ranges: List[List[list]], nbytes: int):
+        """First fit of ``nbytes`` (aligned) in ``ranges``, carved out:
+        (segment, offset, the streams the range was freed on), or None."""
+        for s, free in enumerate(ranges):
+            for i, (offset, size, streams) in enumerate(free):
+                if size >= nbytes:
+                    if size == nbytes:
+                        del free[i]
+                    else:
+                        free[i] = [offset + nbytes, size - nbytes, streams]
+                    return s, offset, streams
+        return None
+
+    def shortfall(self, sizes: Sequence[int]) -> int:
+        """Bytes of ``sizes`` (each aligned) that do not fit the arena's
+        free ranges as they are: 0 where every one does."""
+        with self._lock:
+            ranges = [[list(r) for r in free] for free in self._ranges]
+        return sum(_align(n) for n in sizes
+                   if self._fit(ranges, _align(n)) is None)
+
+    def grown_size(self, shortfall: int) -> int:
+        """The size of the segment that holds ``shortfall`` more bytes:
+        at least the arena's size (so it doubles), a multiple of
+        :data:`ARENA_QUANTUM`."""
+        size = max(shortfall, self.nbytes)
+        return -(-size // ARENA_QUANTUM) * ARENA_QUANTUM
+
+    def add(self, ptr: int, nbytes: int) -> None:
+        """One more segment, of ``nbytes`` at ``ptr`` (from ``allocate``)."""
+        with self._lock:
+            self.bases.append(ptr)
+            self.sizes.append(nbytes)
+            self._ranges.append([[0, nbytes, ()]])
+            self.leased.append(0)
+
+    def take(self, sizes: Sequence[int]) -> List[_Lease]:
+        """A lease of each of ``sizes`` bytes, on the current stream;
+        raises where one does not fit (see :meth:`shortfall`)."""
+        current = self._stream()
+        taken = []
+        with self._lock:
+            for n in sizes:
+                got = self._fit(self._ranges, _align(n))
+                if got is None:
+                    raise RuntimeError("the arena's %d bytes hold no free "
+                                       "range of %d" % (sum(self.sizes), n))
+                segment, offset, streams = got
+                for stream in streams:
+                    if stream is not None and stream != current:
+                        current.wait_stream(stream)
+                self.leased[segment] += _align(n)
+                taken.append((segment, offset, _align(n),
+                              self.bases[segment] + offset))
+        return [_Lease(self, s, o, n, ptr, current)
+                for s, o, n, ptr in taken]
+
+    def _release(self, lease: _Lease) -> None:
+        orphan = 0
+        with self._lock:
+            free = self._ranges[lease.segment]
+            i = 0
+            while i < len(free) and free[i][0] < lease.offset:
+                i += 1
+            free.insert(i, [lease.offset, lease.nbytes, (lease.stream,)])
+            # coalesce with the neighbours, keeping every stream to wait on
+            for j in (i, i - 1):
+                if 0 <= j < len(free) - 1 and \
+                        free[j][0] + free[j][1] == free[j + 1][0]:
+                    streams = tuple(dict.fromkeys(free[j][2]
+                                                  + free[j + 1][2]))
+                    free[j] = [free[j][0], free[j][1] + free[j + 1][1],
+                               streams]
+                    del free[j + 1]
+            self.leased[lease.segment] -= lease.nbytes
+            if self.closed and self.leased[lease.segment] == 0:
+                orphan, self.bases[lease.segment] = \
+                    self.bases[lease.segment], 0
+        if orphan:
+            self._free(orphan)
+
+    def place(self, ptr: int, nbytes: int) -> Optional[int]:
+        """The place (``segment << SEGMENT_SHIFT | offset``) of ``nbytes``
+        at ``ptr`` where they lie in one segment, else None."""
+        with self._lock:
+            for s, (base, size) in enumerate(zip(self.bases, self.sizes)):
+                if base and base <= ptr and ptr + nbytes <= base + size:
+                    return s << SEGMENT_SHIFT | (ptr - base)
+        return None
+
+    def tensor(self, lease: _Lease, shape: Sequence[int],
+               stride: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
+        """A tensor of ``shape`` and ``stride`` over ``lease``, which it
+        holds."""
+        if self.device.type == "cuda":
+            flat = torch.as_tensor(lease, device=self.device)
+        else:
+            import numpy as np
+            flat = torch.from_numpy(np.asarray(lease))
+        return torch.as_strided(flat.view(dtype), tuple(shape),
+                                tuple(stride))
+
+    def close(self) -> None:
+        """Free every segment no lease views; the others go with their
+        last lease."""
+        with self._lock:
+            self.closed = True
+            idle = [s for s, n in enumerate(self.leased)
+                    if n == 0 and self.bases[s]]
+            ptrs = [self.bases[s] for s in idle]
+            for s in idle:
+                self.bases[s] = 0
+        for ptr in ptrs:
+            self._free(ptr)
+
+
+#: a result's shape, stride and dtype
+Spec = Tuple[Sequence[int], Sequence[int], torch.dtype]
+
+
+def spec_like(t: torch.Tensor) -> Spec:
+    """The spec of a tensor laid out as ``t`` (its strides where it is
+    dense, as ``torch.empty_like``)."""
+    return (t.shape, torch.empty_like(t, device="meta").stride(), t.dtype)
+
+
+def spec_bytes(spec: Spec) -> int:
+    shape, stride, dtype = spec
+    if not all(shape):
+        return 0
+    elements = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+    return elements * dtype.itemsize
+
+
 class Endpoint:
     """This process's end of one ring that spans processes, on CUDA:
-    its member's counters, error word (``error``, on the card at
+    its member's counters (``counters``; its error word at
     ``counters + ERROR``; ``report_host``/``report_dev``, the pinned word
-    it is reported into) and window, and its peers' opened counters and
-    windows."""
+    it is reported into) and result arena, and its peers' opened
+    counters and arena segments."""
 
     def __init__(self, ring: Ring, key: str, store):
         if len(ring.local) != 1:
             raise ValueError("a ring across processes has one member in "
                              "this process, got %d" % len(ring.local))
-        self.ring = ring
-        self.key = key
-        self.store = store
-        self.member = ring.local[0]
-        self.degree = ring.degree
-        self.device = ring.device
+        self._setup(ring, key, store)
         self.lib = _library()
-        self.epoch = 0
-        self.broken: Optional[str] = None
-        self.window = 0
-        self.window_bytes = 0
-        #: each peer's window: its pointer here and its size
-        self.peer_windows: Dict[int, int] = {}
-        self.peer_window_bytes: Dict[int, int] = {}
-        self.peer_counters: Dict[int, int] = {}
-        self._round = 0
-        self._closed = False
         index = self._index()
         ptr = _P()
         _call(self.lib, "rnb_peer_alloc", COUNTER_BYTES, index,
@@ -186,12 +413,37 @@ class Endpoint:
         _call(self.lib, "rnb_error_word_alloc", ctypes.byref(host),
               ctypes.byref(dev))
         self.report_host, self.report_dev = host.value, dev.value
-        self.error = self.counters + ERROR
+        self.arena = Arena(self.device, self._allocate, self._free)
         self.peer_counters = {m: ptr for m, (ptr, _) in self._exchange(
             self.counters, COUNTER_BYTES).items()}
 
+    def _setup(self, ring: Ring, key: str, store) -> None:
+        self.ring = ring
+        self.key = key
+        self.store = store
+        self.member = ring.local[0]
+        self.degree = ring.degree
+        self.device = ring.device
+        self.epoch = 0
+        self.broken: Optional[str] = None
+        #: each peer's arena segments: (pointer here, bytes)
+        self.peer_segments: Dict[int, List[Tuple[int, int]]] = {
+            m: [] for m in range(self.degree) if m != self.member}
+        self.peer_counters: Dict[int, int] = {}
+        self._round = 0
+        self._closed = False
+
     def _index(self) -> int:
         return self.device.index or 0
+
+    def _allocate(self, nbytes: int) -> int:
+        ptr = _P()
+        _call(self.lib, "rnb_peer_alloc", nbytes, self._index(),
+              ctypes.byref(ptr))
+        return ptr.value
+
+    def _free(self, ptr: int) -> None:
+        self.lib.rnb_peer_free(_P(ptr), self._index())
 
     # -- the control plane: the launch's store -----------------------------
 
@@ -237,93 +489,68 @@ class Endpoint:
             opened[m] = (out.value + offset, peer_bytes)
         return opened
 
-    # -- the window --------------------------------------------------------
+    # -- the arena ---------------------------------------------------------
 
-    def reserve(self, nbytes: int) -> None:
-        """A window of at least ``nbytes`` on every member. Every member
-        asks for the same bytes at the same hop (the same program on
-        every process), so every member grows at once: waits for its
-        card, closes its peers' old windows, meets them, frees its own,
-        and exchanges the new ones."""
-        if nbytes <= self.window_bytes:
-            return
-        size = max(nbytes, 2 * self.window_bytes)
-        size = -(-size // WINDOW_QUANTUM) * WINDOW_QUANTUM
-        torch.cuda.synchronize(self.device)
-        for ptr in self.peer_windows.values():
-            _call(self.lib, "rnb_peer_close", _P(ptr), self._index())
-        self.peer_windows, self.peer_window_bytes = {}, {}
-        self.barrier("grow")
-        if self.window:
-            _call(self.lib, "rnb_peer_free", _P(self.window), self._index())
-            self.window, self.window_bytes = 0, 0
-        ptr = _P()
-        _call(self.lib, "rnb_peer_alloc", size, self._index(),
-              ctypes.byref(ptr))
-        self.window, self.window_bytes = ptr.value, size
-        opened = self._exchange(self.window, size)
-        self.peer_windows = {m: p for m, (p, _) in opened.items()}
-        self.peer_window_bytes = {m: b for m, (_, b) in opened.items()}
+    def reserve(self, sizes: Sequence[int]) -> List[_Lease]:
+        """Leases of ``sizes`` bytes for a collective's results, at its
+        start. Where they do not fit, every member adds a segment at once
+        (the same program asks for the same bytes at the same collective)
+        and the peers open it (:meth:`_grow`)."""
+        short = self.arena.shortfall(sizes)
+        if short:
+            self._grow(self.arena.grown_size(short))
+        return self.arena.take(sizes)
+
+    def _grow(self, nbytes: int) -> None:
+        """One more arena segment of ``nbytes`` on every member,
+        exchanged: each peer's is opened here."""
+        if len(self.arena.sizes) >= MAX_SEGMENTS:
+            raise RuntimeError("ring %s: member %d's arena has %d segments "
+                               "already" % (self.key, self.member,
+                                            MAX_SEGMENTS))
+        ptr = self._allocate(nbytes)
+        self.arena.add(ptr, nbytes)
+        for m, segment in self._exchange(ptr, nbytes).items():
+            self.peer_segments[m].append(segment)
+
+    def empty(self, specs: Sequence[Spec]) -> List[torch.Tensor]:
+        """A tensor in the arena for each spec (shape, stride, dtype), all
+        leased at once."""
+        sizes = [spec_bytes(spec) for spec in specs]
+        leases = iter(self.reserve([n for n in sizes if n]))
+        return [self.arena.tensor(next(leases), shape, stride, dtype)
+                if n else torch.empty_strided(shape, stride, dtype=dtype,
+                                              device=self.device)
+                for (shape, stride, dtype), n in zip(specs, sizes)]
 
     # -- the hop -----------------------------------------------------------
 
-    def hop(self, shift: int, local: Sequence[Tile], send: Sequence[Tile],
-            place: Sequence[Tile], window_bytes: int) -> None:
-        """One hop at ``shift`` on the current stream: ``local`` tiles
-        (within this member) and ``send`` tiles (into the successor's
-        window) in the send launches, after the successor has placed the
-        last hop; then the ``place`` tiles out of this member's window
-        once the predecessor's send has landed with the same layout.
-        Raises, launching nothing and breaking the ring, where the send
-        needs more than the successor's window."""
+    def hop(self, shift: int, local: Sequence[Tile],
+            remote: Sequence[Tile]) -> None:
+        """One hop at ``shift`` on the current stream, one launch: the
+        ``remote`` tiles into the successor's arena at its posted places
+        (each ``dst`` this member's own post), the ``local`` tiles within
+        the member. The launch ends once the predecessor's hop has landed
+        here."""
         if self.broken is not None:
             raise RuntimeError(self.broken)
-        self.reserve(window_bytes)
         succ = (self.member + shift) % self.degree
-        needed = max((t.dst + t.rows * t.row_bytes for t in send),
-                     default=0)
-        if needed > self.peer_window_bytes[succ]:
-            self.broken = (
-                "ring %s: member %d's hop %d sends %d bytes into member "
-                "%d's window of %d: the processes' tables disagree (other "
-                "shapes); the ring is broken"
-                % (self.key, self.member, self.epoch + 1, needed, succ,
-                   self.peer_window_bytes[succ]))
-            raise ValueError(self.broken)
         epoch = self.epoch + 1
-        remote = [t._replace(dst=self.peer_windows[succ] + t.dst)
-                  for t in send]
-        own = [t._replace(src=self.window + t.src) for t in place]
-        self._launch(list(local) + remote,
-                     wait=(self.peer_counters[succ] + ACK, epoch - 1),
-                     signal=self.peer_counters[succ] + RECV,
-                     done=self.counters + SEND_DONE,
-                     layout=(layout(send, "dst"),
-                             self.peer_counters[succ] + LAYOUT, None))
-        self._launch(own, wait=(self.counters + RECV, epoch),
-                     signal=self.counters + ACK,
-                     done=self.counters + PLACE_DONE,
-                     layout=(layout(place, "src"), None,
-                             self.counters + LAYOUT))
+        self._launch(hop_args(
+            list(remote) + list(local), len(remote),
+            self.peer_counters[succ], self.peer_segments[succ],
+            self.counters, epoch, self.report_dev, int(wait_cap_s * 1e9)))
         self.epoch = epoch
 
-    def _launch(self, tiles, wait, signal, done, layout) -> None:
-        """``tiles`` in as few launches of ``rnb_ring_hop`` as hold them:
-        the first waits (and checks the layout word it is given), the
-        last writes the layout word it is given and signals."""
-        chunks = launch_args(tiles)
-        cap_ns = int(wait_cap_s * 1e9)
-        digest, out, into = layout
-        for i, args in enumerate(chunks):
-            first, last = i == 0, i == len(chunks) - 1
-            _kernels.RING_SHIFT.launch(
-                *args, _P(wait[0]) if first else None,
-                ctypes.c_ulonglong(wait[1] if first else 0),
-                _P(signal) if last else None, _P(done), _P(self.error),
-                _P(self.report_dev), cap_ns, ctypes.c_ulonglong(digest),
-                _P(out) if last and out else None,
-                _P(into) if first and into else None, device=self.device,
-                entry=_kernels.RING_HOP_ENTRY)
+    def place(self, tiles: Sequence[Tile]) -> None:
+        """``tiles`` within the member in one local launch, which moves
+        nothing once a hop of the ring failed (its error word set)."""
+        self._launch(hop_args(tiles, 0, None, [], self.counters, 0,
+                              self.report_dev, int(wait_cap_s * 1e9)))
+
+    def _launch(self, args: tuple) -> None:
+        _kernels.RING_SHIFT.launch(*args, device=self.device,
+                                   entry=_kernels.RING_HOP_ENTRY)
 
     def reported(self) -> int:
         """The error word as the card reported it (read with no copy)."""
@@ -331,18 +558,25 @@ class Endpoint:
 
     def finish(self) -> None:
         """Wait for this process's stream, then raise where a wait of the
-        collective gave up (a peer that died or stalled past the cap)."""
+        collective gave up (a peer that died or stalled past the cap) or
+        a post disagreed with this member's table."""
         torch.cuda.current_stream(self.device).synchronize()
+        self.check_reported()
+
+    def check_reported(self) -> None:
+        """Raise where the card reported a wait that gave up or a post
+        that disagreed (the ring is then broken for good)."""
         code = self.reported()
         if code and self.broken is None:
             self.broken = (
-                "ring %s: member %d's hop %d: the predecessor's window "
-                "holds another layout than this member's table reads (the "
+                "ring %s: member %d's hop %d: the successor posted other "
+                "destinations than this member's table sends (the "
                 "processes' tables disagree); the ring is broken"
                 % (self.key, self.member, self.epoch)
-                if code == LAYOUT_DIFFERS else
-                "ring %s: member %d's hop %d %s: a peer died or stalled "
-                "past the %.1f s cap; the ring is broken"
+                if code == TABLES_DIFFER else
+                "ring %s: member %d's hop %d %s: a peer died, stalled past "
+                "the %.1f s cap or found the tables disagree; the ring is "
+                "broken"
                 % (self.key, self.member, self.epoch,
                    "timed out" if code == TIMED_OUT else "gave up",
                    wait_cap_s))
@@ -353,26 +587,28 @@ class Endpoint:
 
     def close(self) -> None:
         """Wait for the card, close the peers' handles, meet the other
-        members, then free this member's memory. Frees even where the
-        barrier times out (a dead peer), then raises."""
+        members, then free this member's memory (a segment a live result
+        views, once that result dies). Frees even where the barrier times
+        out (a dead peer), then raises."""
         if self._closed:
             return
         self._closed = True
         failure = None
         try:
             torch.cuda.synchronize(self.device)
-            for ptr in list(self.peer_windows.values()) + list(
-                    self.peer_counters.values()):
+            opened = [p for segments in self.peer_segments.values()
+                      for p, _ in segments]
+            for ptr in opened + list(self.peer_counters.values()):
                 _call(self.lib, "rnb_peer_close", _P(ptr), self._index())
-            self.peer_windows, self.peer_counters = {}, {}
+            self.peer_segments, self.peer_counters = {}, {}
             self.barrier("close")
         except Exception as e:  # re-raised once the memory is freed
             failure = e
-        for ptr in (self.window, self.counters):
-            if ptr:
-                self.lib.rnb_peer_free(_P(ptr), self._index())
+        self.arena.close()
+        if self.counters:
+            self.lib.rnb_peer_free(_P(self.counters), self._index())
         self.lib.rnb_error_word_free(_P(self.report_host))
-        self.window = self.counters = 0
+        self.counters = 0
         if failure is not None:
             raise failure
 
@@ -413,4 +649,3 @@ def close_all() -> None:
             failure = failure or e
     if failure is not None:
         raise failure
-

@@ -36,13 +36,27 @@ struct dim3 {
   unsigned x = 1, y = 1, z = 1;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-inline thread_local dim3 threadIdx, blockIdx;
-inline dim3 blockDim, gridDim;
-inline std::barrier<>* host_block_barrier = nullptr;
-inline thread_local std::barrier<>* host_warp_barrier = nullptr;
-inline unsigned host_vote[1024];
+// The launch's state is internal to each library built with this header,
+// so that libraries loaded side by side (one a ring member, each
+// launching while the others do) keep their own.
+static thread_local dim3 threadIdx, blockIdx;
+static dim3 blockDim, gridDim;
+static std::barrier<>* host_block_barrier = nullptr;
+static thread_local std::barrier<>* host_warp_barrier = nullptr;
+static unsigned host_vote[1024];
 
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
+// Every thread's predicate posted, the block met, each thread reading them
+// all, the block meeting again before the array is reused.
+inline int __syncthreads_or(int predicate) {
+  host_vote[threadIdx.x] = predicate != 0;
+  host_block_barrier->arrive_and_wait();
+  unsigned any = 0;
+  for (unsigned i = 0; i < blockDim.x * blockDim.y * blockDim.z; ++i)
+    any |= host_vote[i];
+  host_block_barrier->arrive_and_wait();
+  return static_cast<int>(any);
+}
 inline void __syncwarp(unsigned = 0xffffffffu) {
   host_warp_barrier->arrive_and_wait();
 }
@@ -115,6 +129,11 @@ inline unsigned __match_any_sync(unsigned, int value) {
 }
 template <typename T>
 inline T __ldg(const T* p) { return *p; }
+inline unsigned long long __umul64hi(unsigned long long a,
+                                     unsigned long long b) {
+  return static_cast<unsigned long long>(
+      (static_cast<unsigned __int128>(a) * b) >> 64);
+}
 
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(8) uint2 { unsigned x, y; };

@@ -680,13 +680,14 @@ def test_a_sharded_stage_replays_degree_1_s_logits_bitwise(device):
 
 
 #: one process of the two-process launch below: the ring collectives
-#: across the processes (the kernel's cross-process form through the
-#: successor's window) against their plain versions on the same inputs
+#: across the processes (the kernel's cross-process form, one launch a
+#: hop straight into the successor's arena) against their plain versions
+#: on the same inputs; a result holds its arena range until it dies
 _ACROSS = '''
 import torch
 from rnb_tpu_torch.ops import _kernels
 from rnb_tpu_torch.ops import handoff_dma as dma
-from rnb_tpu_torch.parallel import distributed
+from rnb_tpu_torch.parallel import distributed, peers
 from rnb_tpu_torch.parallel.mesh import Member, Ring
 assert distributed.maybe_initialize()
 rank, n = distributed.process_index(), distributed.process_count()
@@ -698,7 +699,13 @@ members = [torch.randn(3, 1000, 7, generator=gen).to(device)
 before = _kernels.RING_SHIFT.launches
 got = dma.ring_shift([members[rank]], 1, ring)[0]
 assert torch.equal(got, members[(rank - 1) % n])
-assert _kernels.RING_SHIFT.launches == before + 2  # a send and a place
+assert _kernels.RING_SHIFT.launches == before + 1  # one launch a hop
+arena = peers.endpoint(ring).arena
+assert arena.place(got.data_ptr(), got.untyped_storage().nbytes()) \
+    is not None
+leased = sum(arena.leased)
+del got
+assert sum(arena.leased) < leased
 # slots along the last dim: rows at a pitch through the window
 full = dma.ring_all_gather([members[rank]], ring, axis=-1)[0]
 assert torch.equal(full, torch.cat(members, dim=-1))
@@ -721,10 +728,10 @@ def test_the_ring_collectives_across_two_processes_on_the_card(device,
         assert ended.returncode == 0, ended.stderr[-4000:]
 
 
-#: one process of the launch below: processes whose shapes disagree. A
-#: send past the successor's window raises before it launches (its
-#: successor's wait then gives up at the cap); a send that fits but
-#: lays out other bytes fails both places on the card
+#: one process of the launch below: processes whose shapes disagree. Each
+#: member's post then disagrees with its predecessor's table, so both
+#: hops fail on the card before any byte is written: a caller's own
+#: destination keeps every byte, and both processes raise
 _DISAGREE = '''
 import torch
 from rnb_tpu_torch.ops import handoff_dma as dma
@@ -742,19 +749,20 @@ def ring(axis):
 
 
 small = torch.zeros(16 * (rank + 1), dtype=torch.uint8, device=device)
+mine = torch.full_like(small, 7)
 try:
-    dma.ring_shift([small], 1, ring("layout"))
-    raise AssertionError("a hop of another layout did not raise")
+    dma.ring_shift_group([dma.RingEntry([small], [mine], 1)], ring("small"))
+    raise AssertionError("a hop of another table did not raise")
 except RuntimeError as e:
-    assert "another layout" in str(e), e
+    assert "tables disagree" in str(e), e
+assert (mine == 7).all()
 big = torch.zeros((2 << 20) if rank == 0 else (1 << 19), dtype=torch.uint8,
                   device=device)
 try:
-    dma.ring_shift([big], 1, ring("past"))
-    raise AssertionError("a send past the window did not raise")
-except (ValueError, RuntimeError) as e:
-    assert ("window of 1048576" if rank == 0 else "stalled past") in str(e)
-# process 1 meets the goodbye only once its wait gave up
+    dma.ring_shift([big], 1, ring("big"))
+    raise AssertionError("a hop of another table did not raise")
+except RuntimeError as e:
+    assert "tables disagree" in str(e), e
 peers.set_wait_cap(60.0)
 distributed.shutdown()
 '''

@@ -23,9 +23,13 @@ the JAX package's twins on the 8 virtual devices of
 
 Every launch has a timeout that kills its processes and fails the test.
 The cross-process form of the ring kernel (``rnb_ring_hop``) runs here
-in the host emulation (``tests/host_cuda/``): the protocol's counters,
-its bounded wait, and each process's tiles of the collectives through
-it, bitwise the plain version.
+in the host emulation (``tests/host_cuda/``), one library a member so
+that the members' launches run at once: the post, the bounded waits,
+the check that fails a disagreeing post before any byte moves, the
+result arena (its leases, its stream rule, its growth), and every
+member's gather, shift and reduce-scatter through it, bitwise the
+unsharded or rolled tensor, each hop one launch into the successor's
+arena.
 """
 
 import ctypes
@@ -473,48 +477,165 @@ def test_a_ring_across_processes_needs_a_launch():
     assert peers.ring_key(ring) == "tp:cpu,cpu:0,1"
 
 
-@pytest.mark.parametrize("tiles,launches", [(0, 1), (1, 1), (80, 1),
-                                            (81, 2), (200, 3)])
-def test_the_hop_takes_as_few_launches_as_hold_its_tiles(tiles, launches):
-    args = peers.launch_args([peers.Tile(16 * i, 16 * i, 1, 16, 16, 16)
-                              for i in range(tiles)])
-    assert len(args) == launches
-    assert sum(a[-1] for a in args) == tiles
-    assert all(a[-2] == 1 and a[-1] <= _kernels.RING_MAX_TILES
-               for a in args)
-
-
 @pytest.fixture(scope="module")
-def hop(tmp_path_factory):
+def hops(tmp_path_factory):
+    """The emulated ``rnb_ring_hop`` of each of four ring members: one
+    library each (built side by side), so that the members' launches run
+    at once, each waiting on the others' counters as on the card."""
+    from concurrent.futures import ThreadPoolExecutor
     from test_torch_host_cuda import _build
-    lib = _build("ring.cu", str(tmp_path_factory.mktemp("hop")))
-    fn = lib.rnb_ring_hop
-    fn.restype = ctypes.c_int
-    fn.argtypes = _kernels.RING_SHIFT.entries[_kernels.RING_HOP_ENTRY] + [
-        ctypes.c_int, ctypes.c_void_p]
-    return fn
+    out = tmp_path_factory.mktemp("hops")
+    dirs = [out / str(m) for m in range(4)]
+    for d in dirs:
+        d.mkdir()
+    with ThreadPoolExecutor(4) as pool:
+        libs = list(pool.map(lambda d: _build("ring.cu", str(d)), dirs))
+    fns = []
+    for lib in libs:
+        fn = lib.rnb_ring_hop
+        fn.restype = ctypes.c_int
+        fn.argtypes = _kernels.RING_SHIFT.entries[
+            _kernels.RING_HOP_ENTRY] + [ctypes.c_int, ctypes.c_void_p]
+        fns.append(fn)
+    return fns
 
 
-def _counters(*values):
-    return torch.tensor(values, dtype=torch.int64)
+def _words(counters):
+    """A member's counter allocation as 64-bit words."""
+    return counters.view(torch.int64)
 
 
-def _run_hop(hop, tiles, wait=None, wait_for=0, signal=None, cap_s=5.0,
-             done=None, error=None, layout=0, layout_out=None,
-             layout_in=None):
-    """``tiles`` through the emulated ``rnb_ring_hop``: the error word
-    (``error[0]``) and the word it is reported into (``error[8]``) in one
-    tensor."""
-    done = torch.zeros(1, dtype=torch.int32) if done is None else done
-    error = torch.zeros(16, dtype=torch.int32) if error is None else error
-    codes = []
-    for i, args in enumerate(peers.launch_args(tiles)):
-        codes.append(hop(*args, wait if i == 0 else None,
-                         wait_for if i == 0 else 0, signal, done.data_ptr(),
-                         error.data_ptr(), error.data_ptr() + 32,
-                         int(cap_s * 1e9), layout, layout_out,
-                         layout_in if i == 0 else None, 0, None))
-    return codes, done, error
+def _post(counters, tiles, epoch):
+    """Write a post by hand: ``tiles`` (place, rows, row_bytes, pitch)
+    as hop ``epoch``."""
+    w = _words(counters)
+    for t, fields in enumerate(tiles):
+        for k, v in enumerate(fields):
+            w[(peers.POST + peers.POST_TILE_BYTES * t) // 8 + k] = v
+    w[peers.POST_COUNT // 8] = len(tiles)
+    w[peers.POSTED // 8] = epoch
+
+
+class _Pair:
+    """Member A's hop into member B by hand: both members' counters, B's
+    arena of one segment (its bytes filled with 0xA5), A's pinned word."""
+
+    def __init__(self, arena_bytes=4096):
+        self.a = torch.zeros(peers.COUNTER_BYTES, dtype=torch.uint8)
+        self.b = torch.zeros(peers.COUNTER_BYTES, dtype=torch.uint8)
+        self.arena = torch.full((arena_bytes,), 0xA5, dtype=torch.uint8)
+        self.report = torch.zeros(16, dtype=torch.int32)
+
+    def error(self):
+        return self.a.view(torch.int32)[peers.ERROR // 4].item()
+
+    def launch(self, fn, tiles, remote, epoch=1, cap_s=5.0, segments=None):
+        segments = [(self.arena.data_ptr(), self.arena.numel())] \
+            if segments is None else segments
+        return fn(*peers.hop_args(tiles, remote, self.b.data_ptr(),
+                                  segments, self.a.data_ptr(), epoch,
+                                  self.report.data_ptr(),
+                                  int(cap_s * 1e9)), 0, None)
+
+
+def _remote(src, place, pitch=None):
+    nbytes = src.numel() * src.element_size()
+    return peers.Tile(src.data_ptr(), place, 1, nbytes, nbytes,
+                      nbytes if pitch is None else pitch)
+
+
+def test_the_hop_moves_and_signals_once_its_counter_is_reached(hops):
+    # A posts where its own hop 1 lands, waits for B's post, writes its
+    # bytes where B posted them, signals B's recv and waits for its own
+    src = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, 40007, dtype=np.uint8))
+    pair = _Pair(1 << 16)
+    _post(pair.b, [(256, 1, 40007, 40007)], 1)
+    _words(pair.a)[peers.RECV // 8] = 1
+    own = 3 << peers.SEGMENT_SHIFT | 512
+    assert pair.launch(hops[0], [_remote(src, own)], 1) == 0
+    assert torch.equal(pair.arena[256:256 + 40007], src)
+    assert (pair.arena[:256] == 0xA5).all()
+    assert (pair.arena[256 + 40007:] == 0xA5).all()
+    a, b = _words(pair.a), _words(pair.b)
+    assert b[peers.RECV // 8] == 1 and a[peers.POSTED // 8] == 1
+    assert a[peers.POST_COUNT // 8] == 1
+    assert a[peers.POST // 8:peers.POST // 8 + 4].tolist() == [
+        own, 1, 40007, 40007]
+    assert _words(pair.a)[peers.DONE // 8] == 0
+    assert pair.a.view(torch.int32)[peers.CLAIM // 4] == 0
+    assert pair.error() == 0 and pair.report[0] == 0
+
+
+def test_a_wait_past_its_cap_writes_the_error_and_moves_nothing(hops):
+    src = torch.arange(64, dtype=torch.uint8)
+    pair = _Pair()
+    t0 = time.monotonic()
+    # B never posts
+    assert pair.launch(hops[0], [_remote(src, 0)], 1, cap_s=0.05) == 0
+    assert time.monotonic() - t0 < 10.0
+    assert pair.error() == peers.TIMED_OUT  # timed out, and reported
+    assert pair.report[0] == peers.TIMED_OUT
+    assert (pair.arena == 0xA5).all()
+    assert _words(pair.b)[peers.RECV // 8] == 0  # signals nothing
+    assert _words(pair.a)[peers.DONE // 8] == 0
+    assert pair.a.view(torch.int32)[peers.CLAIM // 4] == 0
+    # a member whose error word is set gives up at once, even where its
+    # peer did post: nothing moves, nothing is signalled
+    _post(pair.b, [(0, 1, 64, 64)], 2)
+    t0 = time.monotonic()
+    assert pair.launch(hops[0], [_remote(src, 0)], 1, epoch=2) == 0
+    assert time.monotonic() - t0 < 4.0
+    assert (pair.arena == 0xA5).all()
+    assert _words(pair.b)[peers.RECV // 8] == 0
+    # and a local launch moves nothing either
+    dst = torch.zeros(64, dtype=torch.uint8)
+    assert hops[0](*peers.hop_args([_tile(src, dst)], 0, None, [],
+                                   pair.a.data_ptr(), 0, None, 10), 0,
+                   None) == 0
+    assert not dst.any()
+
+
+def test_a_hop_with_no_tiles_still_waits_and_signals(hops):
+    # it posts an empty hop, waits for B's, signals B and waits for its own
+    pair = _Pair()
+    _post(pair.b, [], 1)
+    _words(pair.a)[peers.RECV // 8] = 1
+    assert pair.launch(hops[0], [], 0) == 0
+    assert _words(pair.b)[peers.RECV // 8] == 1
+    assert _words(pair.a)[peers.POSTED // 8] == 1
+    assert _words(pair.a)[peers.POST_COUNT // 8] == 0
+    assert pair.error() == 0
+
+
+def test_the_hop_refuses_a_launch_without_its_words(hops):
+    src = torch.arange(16, dtype=torch.uint8)
+    pair = _Pair()
+    fn = hops[0]
+    segment = [(pair.arena.data_ptr(), pair.arena.numel())]
+
+    def call(tiles, remote, succ, segments, own, epoch, cap, count=None):
+        args = list(peers.hop_args(tiles, remote, succ, segments, own,
+                                   epoch, None, cap))
+        if count is not None:
+            args[13] = count
+        return fn(*args, 0, None)
+    tile = _remote(src, 0)
+    a, b = pair.a.data_ptr(), pair.b.data_ptr()
+    dst = torch.zeros(16, dtype=torch.uint8)
+    assert call([_tile(src, dst)], 0, None, [], a, 0, 10) == 0
+    assert torch.equal(dst, src)  # a local launch moves
+    assert call([tile], 1, b, segment, None, 1, 10) != 0  # no counters
+    assert call([tile], 1, b, segment, a, 1, -1) != 0  # a negative cap
+    assert call([tile], 2, b, segment, a, 1, 10) != 0  # remote > entries
+    assert call([tile], 1, None, [], a, 0, 10) != 0  # remote, no successor
+    assert call([tile], 1, b, segment, a, 0, 10) != 0  # a hop of epoch 0
+    assert call([tile], 1, b, segment, a, 1, 10, count=17) != 0
+    assert call([tile], 1, b, [(0, 1 << 40)], a, 1, 10) != 0
+    empty = peers.Tile(src.data_ptr(), 0, 0, 16, 16, 16)
+    assert call([empty], 1, b, segment, a, 1, 10) != 0  # an empty remote
+    with pytest.raises(ValueError, match="at most 64 tiles"):
+        peers.hop_args([tile] * 65, 0, b, segment, a, 1, None, 10)
 
 
 def _tile(src, dst):
@@ -524,239 +645,340 @@ def _tile(src, dst):
                       dst.numel() * dst.element_size())
 
 
-def test_the_hop_moves_and_signals_once_its_counter_is_reached(hop):
-    src = torch.from_numpy(np.random.default_rng(3).integers(
-        0, 256, 40007, dtype=np.uint8))
-    dst = torch.full((40007,), 0xA5, dtype=torch.uint8)
-    counters = _counters(5, 0)
-    codes, done, error = _run_hop(hop, [_tile(src, dst)],
-                                  wait=counters.data_ptr(), wait_for=5,
-                                  signal=counters.data_ptr() + 8)
-    assert codes == [0] and torch.equal(dst, src)
-    assert counters.tolist() == [5, 1] and done.item() == 0
-    assert error[0].item() == 0
-
-
-def test_a_wait_past_its_cap_writes_the_error_and_moves_nothing(hop):
+@pytest.mark.parametrize("post", ["bytes", "rows", "count", "past_segment",
+                                  "no_segment", "pitch_past_segment"])
+def test_a_post_that_disagrees_writes_the_error_and_moves_nothing(hops,
+                                                                   post):
+    # tolerance: none. B's post disagrees with A's table (another byte
+    # count, another row split, another tile count, a place past B's
+    # segment, rows whose pitch runs past it, or a segment A has not
+    # opened): A writes the error word, and no byte moves, neither into
+    # B's arena nor A's own local tile
     src = torch.arange(64, dtype=torch.uint8)
-    dst = torch.zeros(64, dtype=torch.uint8)
-    counters = _counters(0, 0)
-    t0 = time.monotonic()
-    codes, done, error = _run_hop(hop, [_tile(src, dst)],
-                                  wait=counters.data_ptr(), wait_for=1,
-                                  signal=counters.data_ptr() + 8, cap_s=0.05)
-    assert codes == [0] and time.monotonic() - t0 < 10.0
-    assert error[0].item() == 1  # timed out, and reported
-    assert error[8].item() == 1
-    assert not dst.any() and counters.tolist() == [0, 0]
-    assert done.item() == 0
-    # a member whose error word is set gives up at once: nothing moves
-    codes, _, error = _run_hop(hop, [_tile(src, dst)], error=error,
-                               signal=counters.data_ptr() + 8)
-    assert not dst.any() and counters.tolist() == [0, 0]
+    pair = _Pair(4096)
+    tiles = {"bytes": [(0, 1, 32, 32)], "rows": [(0, 2, 32, 64)],
+             "count": [(0, 1, 64, 64), (128, 1, 64, 64)],
+             "past_segment": [(4096 - 32, 1, 64, 64)],
+             "no_segment": [(1 << peers.SEGMENT_SHIFT, 1, 64, 64)],
+             "pitch_past_segment": [(0, 2, 32, 4096)]}[post]
+    # two rows of 32 bytes, received at a pitch of 64, where rows are
+    # posted
+    mine = peers.Tile(src.data_ptr(), 0, 2, 32, 32, 64) \
+        if post == "pitch_past_segment" else _remote(src, 0)
+    _post(pair.b, tiles, 1)
+    _words(pair.a)[peers.RECV // 8] = 1
+    local_src = torch.arange(100, dtype=torch.uint8)
+    local_dst = torch.zeros(100, dtype=torch.uint8)
+    assert pair.launch(hops[0], [mine, _tile(local_src, local_dst)], 1) == 0
+    assert pair.error() == peers.TABLES_DIFFER
+    assert pair.report[0] == peers.TABLES_DIFFER
+    assert (pair.arena == 0xA5).all() and not local_dst.any()
+    assert _words(pair.b)[peers.RECV // 8] == 0
 
 
-def test_a_hop_with_no_tiles_still_waits_and_signals(hop):
-    counters = _counters(2, 7)
-    codes, done, error = _run_hop(hop, [], wait=counters.data_ptr(),
-                                  wait_for=2,
-                                  signal=counters.data_ptr() + 8)
-    assert codes == [0] and counters.tolist() == [2, 8]
+class _HostEndpoint(peers.Endpoint):
+    """A ring member's endpoint in this process, on the host: its counters
+    and arena in host memory (an arena segment filled with 0xA5), its
+    peers the other members of ``group``, their handles exchanged at a
+    barrier. Each launch runs the member's own emulated ``rnb_ring_hop``
+    at once (``fns``) or, with none, is only recorded."""
+
+    def __init__(self, group, n, member, fns, barrier):
+        self._setup(mesh.Ring([mesh.Member(p, CPU) for p in range(n)],
+                              "tp"), "host", None)
+        self.member = member
+        self.peer_segments = {m: [] for m in range(self.degree)
+                              if m != member}
+        self.group, self.fn, self.meet = group, fns and fns[member], barrier
+        self.memory = []
+        self.counter_bytes = torch.zeros(peers.COUNTER_BYTES,
+                                         dtype=torch.uint8)
+        self.counters = self.counter_bytes.data_ptr()
+        self.report_word = torch.zeros(16, dtype=torch.int32)
+        self.report_host = self.report_dev = self.report_word.data_ptr()
+        self.arena = peers.Arena(CPU, self._allocate, lambda ptr: None)
+        self.launches = []
+
+    def link(self):
+        self.peer_counters = {ep.member: ep.counters for ep in self.group
+                              if ep is not self}
+
+    def _allocate(self, nbytes):
+        self.memory.append(torch.full((nbytes,), 0xA5, dtype=torch.uint8))
+        return self.memory[-1].data_ptr()
+
+    def _exchange(self, ptr, nbytes):
+        self.shared = (ptr, nbytes)
+        self.meet.wait()
+        opened = {ep.member: ep.shared for ep in self.group
+                  if ep is not self}
+        self.meet.wait()
+        return opened
+
+    def _launch(self, args):
+        self.launches.append(args)
+        if self.fn:
+            assert self.fn(*args, 0, None) == 0
+
+    def finish(self):
+        self.check_reported()
 
 
-def test_the_hop_refuses_a_launch_without_its_words(hop):
-    src = torch.arange(16, dtype=torch.uint8)
-    args = peers.launch_args([_tile(src, src.clone())])[0]
-    error = torch.zeros(16, dtype=torch.int32)
-    word = torch.zeros(1, dtype=torch.int64)
-    assert hop(*args, None, 0, None, None, error.data_ptr(), None, 10, 0,
-               None, None, 0, None) != 0
-    assert hop(*args, None, 0, None, error.data_ptr(), None, None, 10, 0,
-               None, None, 0, None) != 0
-    assert hop(*args, None, 0, None, error.data_ptr(), error.data_ptr(),
-               None, -1, 0, None, None, 0, None) != 0
-    # a layout word needs a layout (0 is what a fresh word holds)
-    assert hop(*args, None, 0, None, error.data_ptr(), error.data_ptr(),
-               None, 10, 0, word.data_ptr(), None, 0, None) != 0
-    assert hop(*args, None, 0, None, error.data_ptr(), error.data_ptr(),
-               None, 10, 0, None, word.data_ptr(), 0, None) != 0
+_member = __import__("threading").local()
 
 
-def test_the_send_writes_its_layout_before_it_signals_and_the_place_checks(
-        hop):
-    src = torch.arange(256, dtype=torch.uint8)
-    window = torch.zeros(256, dtype=torch.uint8)
-    dst = torch.zeros(256, dtype=torch.uint8)
-    counters = _counters(0, 0, 0)  # recv, its layout word, ack
-    send = [_tile(src, window)]
-    digest = peers.layout([t._replace(dst=0) for t in send], "dst")
-    codes, _, error = _run_hop(hop, send, signal=counters.data_ptr(),
-                               layout=digest,
-                               layout_out=counters.data_ptr() + 8)
-    assert codes == [0] and error[0].item() == 0
-    assert counters.tolist() == [1, digest, 0]
-    # a place that reads another layout moves nothing and says why
-    codes, _, error = _run_hop(hop, [_tile(window, dst)],
-                               wait=counters.data_ptr(), wait_for=1,
-                               signal=counters.data_ptr() + 16,
-                               layout=digest + 1,
-                               layout_in=counters.data_ptr() + 8)
-    assert codes == [0] and error[0].item() == peers.LAYOUT_DIFFERS
-    assert error[8].item() == peers.LAYOUT_DIFFERS
-    assert not dst.any() and counters.tolist() == [1, digest, 0]
-    codes, _, error = _run_hop(hop, [_tile(window, dst)],
-                               wait=counters.data_ptr(), wait_for=1,
-                               signal=counters.data_ptr() + 16,
-                               layout=digest,
-                               layout_in=counters.data_ptr() + 8)
-    assert error[0].item() == 0 and torch.equal(dst, src)
-    assert counters.tolist() == [1, digest, 1]
+def _members(monkeypatch, hops, n, run, live=True):
+    """``run(ring, member)`` as every member of a ring of ``n`` processes
+    at once, one thread each, on the card's path with host memory: each
+    member's hops through its own emulated kernel. Returns each member's
+    result and its endpoint."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    group = []
+    barrier = threading.Barrier(n)
+    for m in range(n):
+        group.append(_HostEndpoint(group, n, m, hops if live else None,
+                                   barrier))
+    for ep in group:
+        ep.link()
+    monkeypatch.setattr(mesh, "this_process", lambda: _member.value)
+    monkeypatch.setattr(dma, "_card_path", lambda ring: True)
+    monkeypatch.setattr(peers, "endpoint", lambda ring: group[_member.value])
+    previous = peers.set_wait_cap(20.0)
+
+    def one(m):
+        _member.value = m
+        return run(mesh.Ring([mesh.Member(p, CPU) for p in range(n)],
+                             "tp"), m)
+    try:
+        with ThreadPoolExecutor(n) as pool:
+            results = [f.result(timeout=120) for f in
+                       [pool.submit(one, m) for m in range(n)]]
+    finally:
+        peers.set_wait_cap(previous)
+        monkeypatch.undo()
+    for ep in group:
+        assert ep.reported() == 0
+        assert not live or _words(ep.counter_bytes)[
+            peers.RECV // 8] == ep.epoch
+    return results, group
 
 
-def test_the_layout_is_the_window_s_bytes_on_both_ends_of_a_hop():
-    send = [peers.Tile(1000, 0, 4, 64, 128, 64),
-            peers.Tile(2000, 256, 1, 100, 100, 100)]
-    place = [peers.Tile(0, 3000, 1, 256, 256, 256),
-             peers.Tile(256, 4000, 10, 10, 10, 16)]
-    # the same bytes at the same window offsets, rows or not: one layout
-    assert peers.layout(send, "dst") == peers.layout(place, "src") != 0
-    assert peers.layout(send[:1], "dst") != peers.layout(place, "src")
-    assert peers.layout([], "dst") != 0
+def _in_arena(ep, t):
+    return ep.arena.place(t.data_ptr(), t.untyped_storage().nbytes()) \
+        is not None
 
 
-class _Windowless(peers.Endpoint):
-    """An endpoint with its peers' windows set by hand: no card, no
-    store; launching raises."""
+@pytest.mark.parametrize("tiles,launches", [(1, 1), (64, 1), (65, 2),
+                                            (128, 2), (200, 4)])
+def test_the_hop_takes_as_few_launches_as_hold_its_tiles(
+        hops, monkeypatch, tiles, launches):
+    # a table of `tiles` entries at one shift: as few hops as hold them,
+    # each one launch of at most 64 tiles
+    shards = [torch.full((16,), i, dtype=torch.uint8) for i in range(tiles)]
 
-    def __init__(self, window_bytes, peer_window_bytes):
-        self.key, self.member, self.degree, self.epoch = "t", 0, 2, 0
-        self.broken = None
-        self.window, self.window_bytes = 1 << 20, window_bytes
-        self.peer_windows = {1: 1 << 30}
-        self.peer_window_bytes = {1: peer_window_bytes}
-        self.peer_counters = {1: 1 << 31}
-        self.counters = 1 << 32
-
-    def _launch(self, *args, **kwargs):
-        raise AssertionError("launched")
-
-
-def test_a_hop_past_the_successor_s_window_raises_before_it_launches():
-    # this member's window fits the send; its successor's, of another
-    # size, does not: the hop must not write past it
-    ep = _Windowless(4 << 20, 1 << 20)
-    send = [peers.Tile(0, 0, 1, 1 << 20, 1 << 20, 1 << 20),
-            peers.Tile(0, 1 << 20, 1, 16, 16, 16)]
-    with pytest.raises(ValueError, match=r"sends 1048592 bytes into member "
-                                         r"1's window of 1048576: the "
-                                         r"processes' tables disagree"):
-        ep.hop(1, [], send, [], (1 << 20) + 16)
-    assert ep.epoch == 0
-    with pytest.raises(RuntimeError, match="tables disagree"):
-        ep.hop(1, [], send[:1], [], 1 << 20)
+    def run(ring, m):
+        outs = dma._empty_across([peers.spec_like(s) for s in shards], ring)
+        dma._group_across([dma.RingEntry([s], [o], 1)
+                           for s, o in zip(shards, outs)], ring)
+        return outs
+    _, group = _members(monkeypatch, hops, 2, run, live=False)
+    for ep in group:
+        assert len(ep.launches) == launches == ep.epoch
+        assert sum(args[8] for args in ep.launches) == tiles
+        assert all(args[9] == args[8] <= peers.HOP_MAX_TILES
+                   for args in ep.launches)
 
 
-class _Recorder:
-    """A member's endpoint that records its hops instead of launching."""
+def test_each_post_is_the_receiver_s_destination_and_the_sender_s_bytes(
+        hops, monkeypatch):
+    # a gather on the last axis at degree 2: each member posts the place
+    # of its own slot for the predecessor's shard (rows at the full row's
+    # pitch), and the rows its successor sends it are the rows it posted
+    full = children.values("float32", (8, 4, 8), seed=5)
 
-    def __init__(self):
-        self.hops = []
-
-    def hop(self, shift, local, send, place, window_bytes):
-        self.hops.append((shift, list(local), list(send), list(place),
-                          window_bytes))
-
-
-def _record(monkeypatch, n, member, run):
-    """The hops ``run()`` makes as member ``member`` of a ring of ``n``
-    processes on the card's path (its tensors stay on the CPU)."""
-    recorder = _Recorder()
-    monkeypatch.setattr(mesh, "this_process", lambda: member)
-    monkeypatch.setattr(dma, "_check_across", lambda table, ring: False)
-    monkeypatch.setattr(dma, "_finish_across", lambda ep: None)
-    monkeypatch.setattr(peers, "endpoint", lambda ring: recorder)
-    out = run(mesh.Ring([mesh.Member(p, CPU) for p in range(n)], "tp"))
-    monkeypatch.undo()
-    return out, recorder.hops
+    def run(ring, m):
+        out = dma.ring_all_gather_many([[children.shard(full, 2, -1, m)]],
+                                       -1, ring)
+        return out[0][0]
+    results, group = _members(monkeypatch, hops, 2, run)
+    for m, ep in enumerate(group):
+        (args,) = ep.launches
+        srcs, dsts, src_pitch, dst_pitch, _, rows, row_bytes, n, entries, \
+            remote = args[:10]
+        assert (n, entries, remote) == (1, 2, 1)
+        # tile 0 lands in the successor: its dst is this member's post
+        slot = results[m][..., 4 * ((m - 1) % 2):][..., :4]
+        assert (dsts[0] or 0) == ep.arena.place(slot.data_ptr(), 4)
+        assert (rows[0], row_bytes[0], dst_pitch[0]) == (32, 16, 32)
+        succ = group[(m + 1) % 2].launches[0]
+        assert (succ[5][0], succ[6][0]) == (rows[0], row_bytes[0])
+        assert torch.equal(results[m], full)
 
 
-def _replay(hop, n, recorded):
-    """Every member's recorded hops through the emulated ``rnb_ring_hop``
-    as the card runs them: at each hop every member's send launch (into
-    its successor's window), then every member's place launch, each
-    gated on and signalling the ring's counters."""
-    hops = len(recorded[0])
-    windows = [torch.zeros(max(r[4] for r in recorded[m]) + 16,
-                           dtype=torch.uint8) for m in range(n)]
-    recv, ack = _counters(*[0] * n), _counters(*[0] * n)
-    layouts = _counters(*[0] * n)
-    for e in range(hops):
-        for m in range(n):
-            shift, local, send, _, _ = recorded[m][e]
-            succ = (m + shift) % n
-            tiles = local + [t._replace(dst=windows[succ].data_ptr() + t.dst)
-                             for t in send]
-            codes, _, error = _run_hop(
-                hop, tiles, wait=ack.data_ptr() + 8 * succ, wait_for=e,
-                signal=recv.data_ptr() + 8 * succ,
-                layout=peers.layout(send, "dst"),
-                layout_out=layouts.data_ptr() + 8 * succ)
-            assert set(codes) == {0} and error[0].item() == 0
-        for m in range(n):
-            place = recorded[m][e][3]
-            tiles = [t._replace(src=windows[m].data_ptr() + t.src)
-                     for t in place]
-            codes, _, error = _run_hop(hop, tiles,
-                                       wait=recv.data_ptr() + 8 * m,
-                                       wait_for=e + 1,
-                                       signal=ack.data_ptr() + 8 * m,
-                                       layout=peers.layout(place, "src"),
-                                       layout_in=layouts.data_ptr() + 8 * m)
-            assert set(codes) == {0} and error[0].item() == 0
-    assert recv.tolist() == ack.tolist() == [hops] * n
+def test_ring_shift_group_into_a_caller_s_destination_lands_through_one_copy(
+        hops, monkeypatch):
+    # tolerance: none. A destination of the caller's own, outside the
+    # arena, rows at a pitch: the hop lands in an arena slot, one local
+    # launch (counted) places it, and nothing else of the caller's tensor
+    # is written
+    full = children.values("bfloat16", (6, 10), seed=11)
+
+    def run(ring, m):
+        dst = torch.full((6, 10), -1.0, dtype=torch.bfloat16)
+        src = children.shard(full, 2, -1, m)
+        dma.ring_shift_group([dma.RingEntry([src], [dst[:, :5]], 1)], ring)
+        return dst
+    results, group = _members(monkeypatch, hops, 2, run)
+    for m, (dst, ep) in enumerate(zip(results, group)):
+        assert torch.equal(dst[:, :5], children.shard(full, 2, -1,
+                                                      (m - 1) % 2))
+        assert (dst[:, 5:] == -1).all()
+        # the hop, then the placement: two launches of the kernel (each
+        # counted on the card, Endpoint._launch)
+        assert len(ep.launches) == 2
+        hop, place = ep.launches
+        assert (hop[9], hop[10]) == (1, ep.peer_counters[(m + 1) % 2])
+        assert (place[9], place[10]) == (0, None)
+
+
+def test_an_arena_range_is_not_handed_out_while_its_tensor_lives():
+    arena = peers.Arena(CPU, lambda n: 0, lambda p: None)
+    base = torch.zeros(1 << 20, dtype=torch.uint8)
+    arena.add(base.data_ptr(), base.numel())
+    (lease,) = arena.take([1024])
+    first = lease.offset
+    t = arena.tensor(lease, (256,), (1,), torch.float32)
+    del lease
+    view = t[10:20]
+    del t
+    # the view holds the range
+    (other,) = arena.take([1024])
+    assert other.offset != first and arena.leased == [2048]
+    del other, view
+    assert arena.leased == [0]
+    (again,) = arena.take([1 << 20])  # coalesced whole again
+    assert again.offset == 0
+
+
+def test_a_freed_range_waits_for_its_stream_before_another_takes_it():
+    class Stream:
+        def __init__(self):
+            self.waited = []
+
+        def wait_stream(self, other):
+            self.waited.append(other)
+    one, two = Stream(), Stream()
+    current = [one]
+    arena = peers.Arena(CPU, lambda n: 0, lambda p: None,
+                        stream=lambda: current[0])
+    base = torch.zeros(1 << 16, dtype=torch.uint8)
+    arena.add(base.data_ptr(), base.numel())
+    (lease,) = arena.take([4096])
+    del lease
+    # on the stream it was taken on, stream order keeps the work queued
+    # before the free ahead of the next writer: no wait
+    (lease,) = arena.take([4096])
+    assert lease.offset == 0 and one.waited == []
+    del lease
+    # on another stream, that stream waits for the first
+    current[0] = two
+    (lease,) = arena.take([4096])
+    assert lease.offset == 0 and two.waited == [one]
+
+
+def test_the_arena_grows_by_doubling_and_never_frees_a_viewed_segment():
+    freed = []
+    memory = []
+
+    def allocate(nbytes):
+        memory.append(torch.zeros(nbytes, dtype=torch.uint8))
+        return memory[-1].data_ptr()
+    arena = peers.Arena(CPU, allocate, freed.append)
+    assert arena.shortfall([100, 300]) == 256 + 512
+    assert arena.grown_size(768) == peers.ARENA_QUANTUM
+    arena.add(allocate(peers.ARENA_QUANTUM), peers.ARENA_QUANTUM)
+    (held,) = arena.take([4096])
+    assert arena.shortfall([peers.ARENA_QUANTUM]) == peers.ARENA_QUANTUM
+    assert arena.grown_size(peers.ARENA_QUANTUM) == peers.ARENA_QUANTUM
+    arena.add(allocate(2 << 20), 2 << 20)
+    assert arena.grown_size(1) == 3 << 20
+    arena.close()
+    # the segment a lease still views is freed with its last lease
+    assert freed == [memory[1].data_ptr()]
+    del held
+    assert freed == [memory[1].data_ptr(), memory[0].data_ptr()]
 
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_each_process_s_gather_through_the_hop_kernel_is_the_unsharded(
-        hop, monkeypatch, n):
-    # tolerance: none. Each member's tiles of a gather of mixed leaves
-    # (float32 rows at a pitch on axis -1; a channels-last u8 conv kernel
-    # and odd bytes on axis 0), recorded on the card's path, replayed
-    # through the emulated kernel with the ring's counters: every
-    # member's result is the unsharded leaf, laid out as it
+        hops, monkeypatch, n):
+    # tolerance: none. Each member's gather of mixed leaves (float32 rows
+    # at a pitch on axis -1; a channels-last u8 conv kernel and odd bytes
+    # on axis 0), all members at once through the emulated kernel: every
+    # member's result is the unsharded leaf, laid out as it, in the
+    # member's arena, in one launch a hop
     for axis in (0, -1):
         fulls = [children.values("float32", (8, 4, 8), seed=n + axis)]
         if axis == 0:
             fulls += [children.conv_leaf(n, seed=2 * n),
                       children.values("uint8", (n * 7, 3), seed=n)]
-        results, recorded = [], []
-        for m in range(n):
+
+        def run(ring, m):
             leaves = [[children.shard(f, n, axis, m).contiguous(
                 memory_format=torch.channels_last_3d) if f.dim() == 5
                 else children.shard(f, n, axis, m)] for f in fulls]
-            out, hops = _record(monkeypatch, n, m, lambda ring: (
-                dma.ring_all_gather_many(leaves, axis, ring), leaves))
-            results.append(out)
-            recorded.append(hops)
-        assert all(len(h) == n - 1 for h in recorded)
-        _replay(hop, n, recorded)
-        for gathered, _ in results:
+            return dma.ring_all_gather_many(leaves, axis, ring)
+        results, group = _members(monkeypatch, hops, n, run)
+        for gathered, ep in zip(results, group):
+            assert len(ep.launches) == ep.epoch == n - 1
             for (member,), full in zip(gathered, fulls):
                 assert torch.equal(member, full)
                 assert member.stride() == full.stride()
+                assert _in_arena(ep, member)
 
 
 @pytest.mark.parametrize("n,shift", [(2, 1), (4, 1), (4, 3)])
 def test_each_process_s_shift_through_the_hop_kernel_is_the_roll(
-        hop, monkeypatch, n, shift):
+        hops, monkeypatch, n, shift):
     full = children.values("bfloat16", (n * 3, 5), seed=n + shift)
-    # the sources stay alive until the replay reads them
-    sources = [[children.shard(full, n, 0, m)] for m in range(n)]
-    outs, recorded = [], []
-    for m in range(n):
-        out, hops = _record(monkeypatch, n, m, lambda ring: dma.ring_shift(
-            sources[m], shift, ring))
-        outs.append(out[0])
-        recorded.append(hops)
-    _replay(hop, n, recorded)
+
+    def run(ring, m):
+        return dma.ring_shift([children.shard(full, n, 0, m)], shift,
+                              ring)[0]
+    outs, group = _members(monkeypatch, hops, n, run)
     assert torch.equal(torch.cat(outs), torch.roll(full, 3 * shift, 0))
+    assert all(len(ep.launches) == 1 and _in_arena(ep, out)
+               for ep, out in zip(group, outs))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_each_process_s_reduce_scatter_through_the_hop_kernel_is_exact(
+        hops, monkeypatch, n):
+    # tolerance: none (integer-valued float32: any order of the sums is
+    # exact); each hop's moved chunk lands in the arena
+    operands = [children.integers((3, 2 * n), seed=40 + i)
+                for i in range(n)]
+    total = sum(operands)
+
+    def run(ring, m):
+        return dma.ring_psum_scatter([operands[m]], ring, -1)[0]
+    chunks, group = _members(monkeypatch, hops, n, run)
+    assert torch.equal(torch.cat(chunks, -1), total)
+    assert all(len(ep.launches) == n - 1 for ep in group)
+
+
+def test_the_hop_probe_s_variants_apply_to_the_kernel_source(tmp_path):
+    # every variant the probe times is a patch of csrc/ring.cu as it is;
+    # the parent's hop is read from another checkout's tree
+    from rnb_tpu_torch.tools import hop_probe
+    parent = tmp_path / "rnb_tpu_torch" / "csrc"
+    parent.mkdir(parents=True)
+    (parent / "ring.cu").write_text("// the parent's ring.cu\n")
+    code = hop_probe.sources(str(tmp_path))
+    assert set(code) == {"hop_" + name for name in hop_probe.VARIANTS} | {
+        "hop_parent"}
+    assert code["hop_parent"] == "// the parent's ring.cu\n"
+    kernel = code["hop_kernel"]
+    assert all(text != kernel for name, text in code.items()
+               if name not in ("hop_kernel", "hop_parent"))
