@@ -235,6 +235,25 @@ Phases (any failure exits non-zero and prints no result line):
    no route to the open lane, the wire ledger footed; the main process's
    loader normalized the local requests only; one remote and one local
    request recomputed on the CPU.
+   Then the shipped configs no run above serves (``phase_configs``),
+   16 requests each in bulk over the y4m dataset:
+   ``configs/rnb-fused-yuv.json``, ``configs/rnb-1chip-yuv.json`` and
+   ``configs/rnb-fused-yuv-xl.json`` as shipped, and one-card copies
+   (every device index >= 0 made 0) of ``r2p1d-tiny`` (its own reduced
+   geometry), ``r2p1d-split``, ``baseline``, ``r2p1d-aggressive-global``,
+   ``r2p1d-aggressive``, ``r2p1d-aggressive-four-groups``,
+   ``r2p1d-nopipeline`` (eight single steps) and ``rnb`` (eight loaders
+   into two Batchers on the card, then eight runners): every request
+   served, the config's ingest kernel (``rnb_normalize_u8`` on rgb,
+   ``rnb_yuv420_normalize`` on yuv420) launched in the window and no
+   other, once an emission where no Batcher fuses again, every runner
+   or single-step instance the config declares built on cuda:0 and
+   its graphs captured there, every graph bitwise its eager forward,
+   native decode, two requests recomputed on the CPU; each run's
+   videos/s, peak device memory (allocated and reserved) and the
+   requests of each last-step instance printed beside the card's name
+   and power limit. With the runs before and after it, every shipped
+   config serves (``SERVED_CONFIGS``).
    Then the replica lanes (``phase_lanes``), over the y4m dataset:
    one-card copies of ``configs/rnb-scaleout-r1.json``, ``-r4.json`` and
    ``-r4-chaos.json`` (every device index made 0: four lanes, each on a
@@ -624,8 +643,35 @@ MESH_RUNS = (("r2p1d-mesh-1card", MESH, 33),
 MESH_DP = 2
 MESH_MAX_CLIPS = 15
 MESH_PADDED_CLIPS = 16
-#: the ingest kernel inside the mesh stage's captured step, by pixel path
-MESH_KERNELS = {"rgb": "normalize_u8", "yuv420": "yuv420_normalize"}
+#: the ingest kernel of each pixel path (the mesh stage's inside its
+#: captured step)
+INGEST_KERNELS = {"rgb": "normalize_u8", "yuv420": "yuv420_normalize"}
+#: the shipped configs served in a phase of their own (``phase_configs``):
+#: (label, config). The three single-card configs serve as shipped (their
+#: label is the config); the others name more cards, and serve as
+#: one-card copies (every device index >= 0 made 0, written beside the
+#: dataset under their label)
+CONFIG_RUNS = (
+    ("configs/rnb-fused-yuv.json", "configs/rnb-fused-yuv.json"),
+    ("configs/rnb-1chip-yuv.json", "configs/rnb-1chip-yuv.json"),
+    ("configs/rnb-fused-yuv-xl.json", "configs/rnb-fused-yuv-xl.json"),
+    ("r2p1d-tiny-1card", "configs/r2p1d-tiny.json"),
+    ("r2p1d-split-1card", "configs/r2p1d-split.json"),
+    ("baseline-1card", "configs/baseline.json"),
+    ("r2p1d-aggressive-global-1card", "configs/r2p1d-aggressive-global.json"),
+    ("r2p1d-aggressive-1card", "configs/r2p1d-aggressive.json"),
+    ("r2p1d-aggressive-four-groups-1card",
+     "configs/r2p1d-aggressive-four-groups.json"),
+    ("r2p1d-nopipeline-1card", "configs/r2p1d-nopipeline.json"),
+    ("rnb-1card", "configs/rnb.json"))
+#: requests of each of them, in bulk
+CONFIG_VIDEOS = 16
+#: the runs whose ingest launches once an emission (each fused loader
+#: emission, or each loader emission a runner takes whole); the Batcher
+#: configs normalize in the loader and emit again in the Batcher
+CONFIG_ONE_PER_EMISSION = tuple(
+    label for label, config in CONFIG_RUNS
+    if config not in ("configs/rnb-1chip-yuv.json", "configs/rnb.json"))
 #: phase_parallel: the full-width ShardedInference's mesh, its videos'
 #: valid clips, and its bound against the unsharded forward (the JAX
 #: package's sharded bound, tests/test_parallel.py)
@@ -674,6 +720,15 @@ FEW_VIDEOS = {TORCHCKPT: 12, MID: 12, TRACED: 12, CRITPATH: 12,
               OPERATOR: 400, OPERATOR_ACTIONS: 32,
               NETEDGE_OFF: NETEDGE_VIDEOS, NETEDGE_LOOPBACK: NETEDGE_VIDEOS,
               NETEDGE_CHAOS: NETCHAOS_VIDEOS}
+#: every shipped config a run of the smoke serves, as shipped or as the
+#: source of a copy (a one-card copy, the chaos copies of the staged
+#: cell, the checkpoint copies of torchckpt and split-1chip)
+SERVED_CONFIGS = tuple(dict.fromkeys(
+    CONFIGS + (SEGMENT, TRACED, METRICS, AUTOTUNE, STAGED, TINY_SHED,
+               SHARD_D1, SHARD_D2, DEVOBS, OPERATOR, NETEDGE_OFF,
+               NETEDGE_LOOPBACK, NETEDGE_CHAOS_CONFIG, SCALEOUT_R1,
+               SCALEOUT_R4, SCALEOUT_CHAOS, MESH, MESH_YUV)
+    + tuple(config for _, config in CONFIG_RUNS)))
 #: a captured graph against its eager forward where the two are not
 #: bitwise (a capture that changed the library's kernel choice): the
 #: float32 network's bound of tests/test_torch_network.py, relative to
@@ -3814,7 +3869,7 @@ def check_mesh_ingest(label, si, rows, rng):
         ok = torch.equal(out.view(torch.int16), plain.view(torch.int16))
     err = float((out.float() - plain.float()).abs().max())
     check(ok, "%s: %s at %d rows differs from its plain version (max %g)"
-          % (label, MESH_KERNELS[si.pixel_path], rows, err))
+          % (label, INGEST_KERNELS[si.pixel_path], rows, err))
     return err
 
 
@@ -3828,7 +3883,7 @@ def check_mesh_graphs(label, runner, reps=20):
     graph pool's MiB."""
     import numpy as np
     import torch
-    kernel = MESH_KERNELS[runner.pixel_path]
+    kernel = INGEST_KERNELS[runner.pixel_path]
     si = runner._si
     rng = np.random.default_rng(19)
     err = check_mesh_ingest(label, si, runner.dp * si.padded_clips, rng)
@@ -3935,7 +3990,7 @@ def phase_mesh(data_root, launches):
         check(replays == dispatches == result.compiles["step1"][
             "steady_calls"], "%s: %d replays, %d dispatches" % (
                 label, replays, dispatches))
-        kernel = MESH_KERNELS[runner.pixel_path]
+        kernel = INGEST_KERNELS[runner.pixel_path]
         for name, count in counts.items():
             if name == kernel:
                 want = NUM_WARMUPS + len(runner._graphs) + replays
@@ -4062,7 +4117,7 @@ def check_sharded(device, pixel_path, launches):
     si = make_sharded_inference(mesh=mesh, max_clips=MESH_MAX_CLIPS,
                                 num_classes=400, pixel_path=pixel_path)
     build_s = time.time() - t0
-    kernel = MESH_KERNELS[pixel_path]
+    kernel = INGEST_KERNELS[pixel_path]
     check(si.padded_clips == MESH_PADDED_CLIPS and si.dtype ==
           torch.bfloat16 and si.mesh.shape == PARALLEL_AXES, "sharded %s: "
           "padded clips %d, %s, mesh %s" % (pixel_path, si.padded_clips,
@@ -5350,6 +5405,174 @@ def phase_path(data_root, videos_per_run):
     return launches
 
 
+def check_config_instances(label, config_path, stages):
+    """Every network instance (runner or single step) the config's steps
+    declare was built on cuda:0 and captured its graphs there. Returns
+    each instance's (step, graphs, capture seconds, replays, graph pool
+    MiB)."""
+    import torch
+    from rnb_tpu_torch.config import load_config
+    from rnb_tpu_torch.models.r2p1d.model import R2P1DRunner
+    config = load_config(config_path, "cpu")
+    declared = {i: sum(len(g.devices) for g in step.groups)
+                for i, step in enumerate(config.steps)
+                if step.model.endswith((".R2P1DRunner", ".R2P1DSingleStep"))}
+    built = {i: 0 for i in declared}
+    instances = []
+    card = torch.device("cuda", 0)
+    for step_idx, stage in stages:
+        runner = getattr(stage, "net", stage)
+        if not isinstance(runner, R2P1DRunner):
+            continue
+        built[step_idx] = built.get(step_idx, 0) + 1
+        stats = runner.graph_stats
+        check(runner.torch_device == card, "%s: a step-%d instance was "
+              "built on %s, not %s" % (label, step_idx, runner.torch_device,
+                                       card))
+        check(stats is not None and stats["graphs"] >= 1
+              and stats["capture_s"] > 0, "%s: a step-%d instance "
+              "captured no graph (%s)" % (label, step_idx, stats))
+        check(all(p.device == card for p in runner.network.parameters()),
+              "%s: a step-%d instance's weights are not all on %s"
+              % (label, step_idx, card))
+        pool = graph_pool_mib(runner)
+        instances.append((step_idx, stats["graphs"],
+                          round(stats["capture_s"], 3), stats["replays"],
+                          None if pool is None else round(pool, 1)))
+    check(built == declared, "%s: network instances built per step %s, "
+          "the config declares %s" % (label, built, declared))
+    return instances
+
+
+def requests_per_table(log_dir):
+    """The requests each instance of the last step served: the rows of
+    its timing table, by file."""
+    from rnb_tpu_torch.parse_utils import read_table
+    return {name: len(read_table(os.path.join(log_dir, name))[1])
+            for name in sorted(os.listdir(log_dir))
+            if "-group" in name and name.endswith(".txt")}
+
+
+def phase_configs(data_root, launches):
+    """Serve the shipped configs of ``CONFIG_RUNS`` on cuda:0 at full
+    width (``r2p1d-tiny`` at its own reduced geometry), each in bulk over
+    the y4m dataset: every request served with finite logits of the
+    config's classes (a class id for the single steps), the config's own
+    ingest kernel launched in the window and no other kernel (once an
+    emission where a loader or fused loader feeds the runner), every
+    network instance the config declares built on cuda:0 with its graphs
+    captured there, each graph replaying bitwise its eager forward, every
+    decode on the native pool and two requests recomputed on the CPU.
+    Prints each run's videos/s, its peak device memory (allocated, and
+    reserved: the graph pools keep what their captures freed) and the
+    requests of each instance of its last step beside the card's name
+    and power limit. The job directories go through ``phase_check_jobs``."""
+    import numpy as np
+    import torch
+    from rnb_tpu_torch.benchmark import run_benchmark
+    from rnb_tpu_torch.config import load_config
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.parse_utils import summarize
+    smi = nvidia_smi_line()
+    os.environ["RNB_TPU_DATA_ROOT"] = data_root
+    for label, config in CONFIG_RUNS:
+        config_path = (os.path.join(HERE, config) if label == config
+                       else one_card_copy(data_root, config, label))
+        loaded = load_config(config_path, "cpu")
+        pixel_path = loaded.steps[0].kwargs.get("pixel_path", "rgb")
+        classes = next(
+            s.kwargs for s in reversed(loaded.steps)
+            if s.model.endswith((".R2P1DRunner", ".R2P1DSingleStep"))
+        ).get("num_classes", 400)
+        kernel = INGEST_KERNELS[pixel_path]
+        videos = CONFIG_VIDEOS
+        sink, stages = {}, []
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(0)
+        _kernels.reset_launches()
+        t0 = time.time()
+        result = run_benchmark(
+            config_path, mean_interval_ms=0, num_videos=videos,
+            queue_size=50000, print_progress=False,
+            log_base=os.path.join(data_root, "logs"), seed=0,
+            outputs_sink=sink, stages_sink=stages)
+        counts = _kernels.launch_counts()
+        wall = time.time() - t0
+        peak_mib = torch.cuda.max_memory_allocated(0) / (1 << 20)
+        reserved_mib = torch.cuda.max_memory_reserved(0) / (1 << 20)
+        check(result.termination_flag == 0, "%s terminated with flag %d"
+              % (label, result.termination_flag))
+        check(result.num_failed + result.num_shed + result.num_retries
+              == 0, "%s: Faults: num_failed=%d num_shed=%d num_retries=%d"
+              % (label, result.num_failed, result.num_shed,
+                 result.num_retries))
+        check(result.num_completed == videos and sorted(sink) == list(
+            range(videos)), "%s: completed %d of %d, outputs of %s"
+              % (label, result.num_completed, videos, sorted(sink)))
+        single = all(isinstance(out, int) for _, out, _ in sink.values())
+        for rid, (_video, out, _stamps) in sink.items():
+            if single:
+                check(0 <= out < classes, "%s request %d: class id %r"
+                      % (label, rid, out))
+                continue
+            check(out.ndim == 2 and out.shape[1] == classes
+                  and out.shape[0] >= 1 and np.isfinite(out).all(),
+                  "%s request %d: logits of shape %s, finite %s"
+                  % (label, rid, out.shape, np.isfinite(out).all()))
+        for name, count in counts.items():
+            if name == kernel:
+                check(result.window_launches[name] > 0, "%s: kernel %s "
+                      "was not launched in the measured window"
+                      % (label, name))
+            else:
+                check(count == 0, "%s: kernel %s, not of this config, was "
+                      "launched" % (label, name))
+            launches[name] += count
+        emissions = summarize(result.log_dir)["emissions"]
+        if label in CONFIG_ONE_PER_EMISSION:
+            check(result.window_launches[kernel] == emissions,
+                  "%s: %d %s launches for %d emissions"
+                  % (label, result.window_launches[kernel], kernel,
+                     emissions))
+        with open(os.path.join(result.log_dir, "log-meta.txt")) as f:
+            backends = [line.split(": ", 1)[1] for line in
+                        f.read().splitlines()
+                        if line.startswith("Decode backend: ")]
+        check(backends and all(b == "native" for b in backends),
+              "%s: requests decoded by %s, not the native pool"
+              % (label, backends))
+        instances = check_config_instances(label, config_path, stages)
+        tables = requests_per_table(result.log_dir)
+        check(sum(tables.values()) == videos, "%s: the last step's tables "
+              "hold %d requests of %d" % (label, sum(tables.values()),
+                                           videos))
+        t1 = time.time()
+        check_graphs(label, result, stages)
+        graphs_s = time.time() - t1
+        del stages
+        by_clips = sorted(sink, key=lambda r: (
+            sink[r][1].shape[0] if not single else 0, r))
+        picks = by_clips[:1] + by_clips[-1:]
+        t1 = time.time()
+        report = cpu_recompute(config_path, sink, picks)
+        print("configs %s: %d requests, %d clips, %.3f videos/s, wall "
+              "%.1f s, peak device memory %.1f MiB allocated, %.1f MiB "
+              "reserved, launches %s (window %s), %d emissions, pad_rows "
+              "%d of %d; graphs checked in %.1f s; recompute of requests "
+              "%s (%.1f s): %s; %s"
+              % (label, result.num_completed, result.clips_completed,
+                 result.throughput_vps, wall, peak_mib, reserved_mib,
+                 counts, result.window_launches, emissions,
+                 result.pad_rows, result.total_rows, graphs_s, picks,
+                 time.time() - t1, json.dumps(report), smi))
+        print("configs %s instances: %d network instances on cuda:0 "
+              "[step, graphs, capture s, replays, graph pool MiB] %s; "
+              "requests by last-step table %s" % (
+                  label, len(instances), json.dumps(instances),
+                  json.dumps(tables)))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5357,12 +5580,7 @@ def main() -> int:
         return 1
     if not os.path.isdir(os.path.join(HERE, "rnb_tpu_torch")) or not all(
             os.path.exists(os.path.join(HERE, c))
-            for c in CONFIGS + (SEGMENT, TRACED, METRICS, DEVOBS, AUTOTUNE,
-                                STAGED, TINY_SHED, SHARD_D1, SHARD_D2,
-                                OPERATOR, NETEDGE_OFF, NETEDGE_LOOPBACK,
-                                NETEDGE_CHAOS_CONFIG, SCALEOUT_R1,
-                                SCALEOUT_R4, SCALEOUT_CHAOS, MESH, MESH_YUV,
-                                "bench_cuda.py")):
+            for c in SERVED_CONFIGS + ("bench_cuda.py",)):
         print("chip_smoke: run from a checkout of the repo (rnb_tpu_torch/ "
               "and configs/ beside this script)", file=sys.stderr)
         return 1
@@ -5449,6 +5667,9 @@ def main() -> int:
         phase_lint()
         seconds_of["lint"] = time.time() - t_lint
         launches = phase_path(data_root, VIDEOS_PER_RUN)
+        t_configs = time.time()
+        phase_configs(data_root, launches)
+        seconds_of["configs"] = time.time() - t_configs
         phase_lanes(data_root, launches)
         t_witness = time.time()
         phase_witness(data_root, launches)

@@ -40,6 +40,7 @@ ring's first collective and kept for its life.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import datetime
 import pickle
@@ -226,10 +227,23 @@ class Arena:
     waits for the one it was taken on. A result used on a stream of the
     caller's own is the caller's to order, as with the caching allocator
     (``record_stream``). Growth (:meth:`add`) never frees a segment; once
-    the arena is closed, a segment is freed when its last lease dies."""
+    the arena is closed, a segment is freed when its last lease dies.
+
+    A lease dies in ``__del__``, which can run inside a garbage collection
+    that an allocation under ``_lock`` started on the very thread that
+    holds it. So a release never waits for the lock: it is queued on
+    ``_pending`` (a deque append needs no lock), and folded into the free
+    lists by whoever holds the lock next, before it reads them; where the
+    lock is free at once the releasing thread folds it in itself. Every
+    holder looks at the queue again after it lets go, so no release stays
+    queued behind a holder that has finished. (A re-entrant lock would
+    let the inner release change a free list while the outer holder keeps
+    an index into it.)"""
 
     GUARDED_BY = {"bases": "_lock", "sizes": "_lock", "_ranges": "_lock",
-                  "leased": "_lock", "closed": "_lock"}
+                  "leased": "_lock", "closed": "_lock", "_orphans": "_lock"}
+    UNGUARDED_OK = {"_pending": "a deque: a dying lease appends without "
+                                "the lock, a holder of the lock pops"}
 
     def __init__(self, device: torch.device,
                  allocate: Callable[[int], int],
@@ -250,11 +264,47 @@ class Arena:
         self._ranges: List[List[list]] = []
         self.leased: List[int] = []
         self.closed = False
+        #: leases that died and are not yet folded into the free lists
+        self._pending: collections.deque = collections.deque()
+        #: the bases of segments a fold freed (a closed arena's last
+        #: lease of them), freed once the lock is let go
+        self._orphans: List[int] = []
+
+    def _fold_locked(self) -> None:
+        """Fold the queued releases into the free lists (``_lock`` held)."""
+        while self._pending:
+            orphan = self._release_locked(self._pending.popleft())
+            if orphan:
+                self._orphans.append(orphan)
+
+    def _drain_locked(self) -> List[int]:
+        """Fold the queued releases in and hand over the orphaned
+        segments' bases (``_lock`` held)."""
+        self._fold_locked()
+        orphans, self._orphans = self._orphans, []
+        return orphans
+
+    def _settle(self) -> None:
+        """After letting go of the lock: fold in the releases queued
+        meanwhile and free the orphaned segments, wherever the lock is
+        free at once. Never waits (see the class's docstring)."""
+        while self._lock.acquire(blocking=False):
+            try:
+                orphans = self._drain_locked()
+            finally:
+                self._lock.release()
+            for ptr in orphans:
+                self._free(ptr)
+            if not self._pending:
+                return
 
     @property
     def nbytes(self) -> int:
         with self._lock:
-            return sum(self.sizes)
+            self._fold_locked()
+            size = sum(self.sizes)
+        self._settle()
+        return size
 
     @staticmethod
     def _fit(ranges: List[List[list]], nbytes: int):
@@ -274,7 +324,9 @@ class Arena:
         """Bytes of ``sizes`` (each aligned) that do not fit the arena's
         free ranges as they are: 0 where every one does."""
         with self._lock:
+            self._fold_locked()
             ranges = [[list(r) for r in free] for free in self._ranges]
+        self._settle()
         return sum(_align(n) for n in sizes
                    if self._fit(ranges, _align(n)) is None)
 
@@ -288,64 +340,80 @@ class Arena:
     def add(self, ptr: int, nbytes: int) -> None:
         """One more segment, of ``nbytes`` at ``ptr`` (from ``allocate``)."""
         with self._lock:
+            self._fold_locked()
             self.bases.append(ptr)
             self.sizes.append(nbytes)
             self._ranges.append([[0, nbytes, ()]])
             self.leased.append(0)
+        self._settle()
 
     def take(self, sizes: Sequence[int]) -> List[_Lease]:
         """A lease of each of ``sizes`` bytes, on the current stream;
         raises where one does not fit (see :meth:`shortfall`)."""
         current = self._stream()
         taken = []
-        with self._lock:
-            for n in sizes:
-                got = self._fit(self._ranges, _align(n))
-                if got is None:
-                    raise RuntimeError("the arena's %d bytes hold no free "
-                                       "range of %d" % (sum(self.sizes), n))
-                segment, offset, streams = got
-                for stream in streams:
-                    if stream is not None and stream != current:
-                        current.wait_stream(stream)
-                self.leased[segment] += _align(n)
-                taken.append((segment, offset, _align(n),
-                              self.bases[segment] + offset))
+        try:
+            with self._lock:
+                self._fold_locked()
+                for n in sizes:
+                    got = self._fit(self._ranges, _align(n))
+                    if got is None:
+                        raise RuntimeError(
+                            "the arena's %d bytes hold no free range of %d"
+                            % (sum(self.sizes), n))
+                    segment, offset, streams = got
+                    for stream in streams:
+                        if stream is not None and stream != current:
+                            current.wait_stream(stream)
+                    self.leased[segment] += _align(n)
+                    taken.append((segment, offset, _align(n),
+                                  self.bases[segment] + offset))
+        finally:
+            self._settle()
         return [_Lease(self, s, o, n, ptr, current)
                 for s, o, n, ptr in taken]
 
     def _release(self, lease: _Lease) -> None:
-        orphan = 0
-        with self._lock:
-            free = self._ranges[lease.segment]
-            i = 0
-            while i < len(free) and free[i][0] < lease.offset:
-                i += 1
-            free.insert(i, [lease.offset, lease.nbytes, (lease.stream,)])
-            # coalesce with the neighbours, keeping every stream to wait on
-            for j in (i, i - 1):
-                if 0 <= j < len(free) - 1 and \
-                        free[j][0] + free[j][1] == free[j + 1][0]:
-                    streams = tuple(dict.fromkeys(free[j][2]
-                                                  + free[j + 1][2]))
-                    free[j] = [free[j][0], free[j][1] + free[j + 1][1],
-                               streams]
-                    del free[j + 1]
-            self.leased[lease.segment] -= lease.nbytes
-            if self.closed and self.leased[lease.segment] == 0:
-                orphan, self.bases[lease.segment] = \
-                    self.bases[lease.segment], 0
-        if orphan:
-            self._free(orphan)
+        """A lease's range goes back (from its ``__del__``): queued, then
+        folded in where the lock is free at once."""
+        self._pending.append(lease)
+        self._settle()
+
+    def _release_locked(self, lease: _Lease) -> int:
+        """``lease``'s range back into its segment's free list, coalesced
+        (``_lock`` held); returns the segment's base where that was a
+        closed arena's last lease of it, else 0."""
+        free = self._ranges[lease.segment]
+        i = 0
+        while i < len(free) and free[i][0] < lease.offset:
+            i += 1
+        free.insert(i, [lease.offset, lease.nbytes, (lease.stream,)])
+        # coalesce with the neighbours, keeping every stream to wait on
+        for j in (i, i - 1):
+            if 0 <= j < len(free) - 1 and \
+                    free[j][0] + free[j][1] == free[j + 1][0]:
+                streams = tuple(dict.fromkeys(free[j][2] + free[j + 1][2]))
+                free[j] = [free[j][0], free[j][1] + free[j + 1][1],
+                           streams]
+                del free[j + 1]
+        self.leased[lease.segment] -= lease.nbytes
+        if self.closed and self.leased[lease.segment] == 0:
+            orphan, self.bases[lease.segment] = self.bases[lease.segment], 0
+            return orphan
+        return 0
 
     def place(self, ptr: int, nbytes: int) -> Optional[int]:
         """The place (``segment << SEGMENT_SHIFT | offset``) of ``nbytes``
         at ``ptr`` where they lie in one segment, else None."""
+        found = None
         with self._lock:
+            self._fold_locked()
             for s, (base, size) in enumerate(zip(self.bases, self.sizes)):
                 if base and base <= ptr and ptr + nbytes <= base + size:
-                    return s << SEGMENT_SHIFT | (ptr - base)
-        return None
+                    found = s << SEGMENT_SHIFT | (ptr - base)
+                    break
+        self._settle()
+        return found
 
     def tensor(self, lease: _Lease, shape: Sequence[int],
                stride: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
@@ -363,6 +431,7 @@ class Arena:
         """Free every segment no lease views; the others go with their
         last lease."""
         with self._lock:
+            self._fold_locked()
             self.closed = True
             idle = [s for s, n in enumerate(self.leased)
                     if n == 0 and self.bases[s]]
@@ -371,6 +440,7 @@ class Arena:
                 self.bases[s] = 0
         for ptr in ptrs:
             self._free(ptr)
+        self._settle()
 
 
 #: a result's shape, stride and dtype

@@ -29,12 +29,14 @@ the check that fails a disagreeing post before any byte moves, the
 result arena (its leases, its stream rule, its growth), and every
 member's gather, shift and reduce-scatter through it, bitwise the
 unsharded or rolled tensor, each hop one launch into the successor's
-arena.
+arena. A child process frees arena leases from garbage collections that
+the arena's own allocations start under its lock, within a wall limit.
 """
 
 import ctypes
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -908,6 +910,79 @@ def test_the_arena_grows_by_doubling_and_never_frees_a_viewed_segment():
     assert freed == [memory[1].data_ptr()]
     del held
     assert freed == [memory[1].data_ptr(), memory[0].data_ptr()]
+
+
+#: a child that frees leases inside garbage collections started by the
+#: arena's own allocations: over host memory from malloc, a collection at
+#: every allocation, each round a leased tensor left in a reference cycle
+#: and then a take, whose allocations under the arena's lock collect the
+#: cycle on the same thread. With more threads than cores and a short
+#: switch interval, the threads' releases and takes interleave, and every
+#: range must come back: a lost release leaves bytes leased at the end
+GC_RELEASE_CHILD = r"""
+import ctypes, gc, sys, threading
+import torch
+from rnb_tpu_torch.parallel import peers
+rounds, threads = int(sys.argv[1]), int(sys.argv[2])
+libc = ctypes.CDLL(None)
+libc.malloc.restype = ctypes.c_void_p
+libc.malloc.argtypes = [ctypes.c_size_t]
+libc.free.argtypes = [ctypes.c_void_p]
+freed = []
+def free(ptr):
+    freed.append(ptr)
+    libc.free(ptr)
+arena = peers.Arena(torch.device("cpu"), libc.malloc, free)
+size = 16 << 20
+base = libc.malloc(size)
+arena.add(base, size)
+def work():
+    for _ in range(rounds):
+        (lease,) = arena.take([1024])
+        t = arena.tensor(lease, (256,), (1,), torch.float32)
+        cycle = [t]
+        cycle.append(cycle)
+        del lease, t, cycle
+        arena.take([256, 512])
+gc.set_threshold(1, 1000, 1000)
+sys.setswitchinterval(1e-6)
+workers = [threading.Thread(target=work) for _ in range(threads)]
+for w in workers:
+    w.start()
+for w in workers:
+    w.join()
+gc.collect()
+assert arena.leased == [0], arena.leased
+(whole,) = arena.take([size])  # every range came back, coalesced
+assert whole.offset == 0
+del whole
+arena.close()
+assert freed == [base], freed
+print("rounds done")
+"""
+#: rounds a thread; threads (more than the suite's cores where many)
+GC_RELEASE_RUNS = {"one-thread": (2000, 1), "threads": (200, 16)}
+#: the child's wall limit: its rounds take a few seconds at most
+GC_RELEASE_WALL_S = 60
+
+
+@pytest.mark.parametrize("run", sorted(GC_RELEASE_RUNS))
+def test_a_lease_freed_by_a_collection_under_the_arena_lock_returns(run):
+    # a lease's __del__ that a garbage collection runs while its own
+    # thread holds the arena's lock must not wait on that lock: the child
+    # hangs there where it does, and the wall limit fails the test
+    rounds, threads = GC_RELEASE_RUNS[run]
+    try:
+        done = subprocess.run(
+            [sys.executable, "-c", GC_RELEASE_CHILD, str(rounds),
+             str(threads)], cwd=os.path.dirname(HERE),
+            capture_output=True, text=True, timeout=GC_RELEASE_WALL_S)
+    except subprocess.TimeoutExpired:
+        pytest.fail("the arena deadlocked: %d rounds on %d thread(s) of a "
+                    "lease freed by a collection under its lock did not "
+                    "end in %d s" % (rounds, threads, GC_RELEASE_WALL_S))
+    assert done.returncode == 0, done.stderr[-4000:]
+    assert done.stdout.strip() == "rounds done"
 
 
 @pytest.mark.parametrize("n", [2, 4])
