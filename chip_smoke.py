@@ -337,11 +337,15 @@ Phases (any failure exits non-zero and prints no result line):
    at full width over ``build_mesh([cuda:0] * 8, axes={"dp": 2, "sp":
    4})`` (15 clips padded to 16), in rgb and in yuv420, on four seeded
    videos of 15, 7, 1 and 12 valid clips: two ``run`` s and a
-   ``predict``, one ingest launch each and no other kernel, the second
-   run bitwise the first, every video within rtol = atol = 2e-2 of the
+   ``predict``, the first run capturing ``run`` as one CUDA graph (its
+   warm-up one ingest launch), each a replay of one ingest launch and no
+   other kernel, the second run bitwise the first and the captured run
+   bitwise the eager ``step``, every video within rtol = atol = 2e-2 of
+   the
    same network's unsharded masked sum, ``predict``'s class ids the
    unsharded ones past the margin, the ingest kernel held to its plain
-   version at the run's 64 rows, ``run`` timed at dp 2 x 16 rows;
+   version at the run's 64 rows, ``run`` timed at dp 2 x 16 rows, and
+   the median of 12 captured runs against 12 eager steps;
    ``dryrun_multichip(8)`` and ``(2)`` with every member on the card,
    each printing its ``ok`` line (the 8-member one serves its tiny
    yuv420 mesh pipeline through ``run_benchmark``); and
@@ -357,18 +361,27 @@ Phases (any failure exits non-zero and prints no result line):
    by CUDA IPC), each bitwise its plain version on the same inputs, and
    ``ShardedInference``'s ``run`` and ``predict`` at full width over the
    launch's dp 1 x sp 2 mesh (2 videos of 15 clips padded to 16, 16 rows
-   a process), within rtol = atol = 2e-2 of the one-process run, class
-   ids compared past the margin; exactly 5 ring launches (five
-   collectives of one hop, one launch each) and 2 ingest launches a
-   process. Timed (the card's name and power limit beside): the hop's
+   a process; the first run captures it as one CUDA graph), within rtol
+   = atol = 2e-2 of the one-process run, class ids compared past the
+   margin; exactly 6 ring launches (five collectives of one hop, one
+   launch each, and the capture's warm-up) and 3 ingest launches a
+   process. Then 8 replays of the captured run on new videos, each
+   bitwise the eager ``step_across`` on the same inputs, each one ring
+   and one ingest launch as recorded at capture, with no host wait in
+   the graph and one at the run's end (``peers.host_waits``); the
+   one-process captured run bitwise its eager step. Timed (the card's
+   name and power limit beside): the hop's
    launch alone, L2 warm and flushed, and its parts (the copy alone, the
    copy with the post, waits and publication, those alone: profiler
    device time, the other process idle), ``Tensor.copy_`` into the
    peer's arena warm and flushed, the hop with its semaphores and a
-   16-byte hop (CUDA events), the run across the processes and the
-   one-process run. Then a second launch: after one hop, process 1
-   leaves, and process 0's next hop must raise at its 2 s cap. A
-   process that fails or outlives the launch's timeout fails the smoke.
+   16-byte hop (CUDA events), the captured run across the processes
+   against the eager step and the one-process captured run against its
+   eager step (medians of 12). Then a second launch: after one hop and
+   two replays of a small captured run across the processes, process 1
+   leaves, and process 0's next replay must raise at its 2 s cap, then
+   its next hop over the other ring too. A process that fails or
+   outlives the launch's timeout fails the smoke.
    Then every job directory the smoke wrote (``phase_check_jobs``)
    through the port's whole ``check_job`` (the reference's
    ``check_job_detail`` for the files the port writes), its count
@@ -689,10 +702,17 @@ PROCESS_VALID = [15, 9]
 PROCESS_KILL_CAP_S = 2.0
 PROCESS_REPS = 20
 #: ring_shift launches of the launch's main path, each process: the conv5
-#: hop, the 19-leaf gather, the reduce-scatter, then run's and predict's
-#: gathers of the partials, each at degree 2 one hop, and a hop one launch
-#: of rnb_ring_hop (its results in the arena: no placement launch)
-PROCESS_RING_LAUNCHES = 5
+#: hop, the 19-leaf gather, the reduce-scatter, then the gathers of the
+#: partials in run's capture warm-up, its replay and predict's replay,
+#: each at degree 2 one hop, and a hop one launch of rnb_ring_hop (its
+#: results in the arena: no placement launch); and its ingest launches,
+#: the same three of run and predict
+PROCESS_RING_LAUNCHES = 6
+PROCESS_INGEST_LAUNCHES = 3
+#: replays of the captured run across processes, each held to the eager
+#: step_across; the runs a median of run times takes
+PROCESS_REPLAYS = 8
+RUN_REPS = 12
 DRYRUN_MEMBERS = (8, 2)
 DRYRUN_KERNELS = {"normalize_u8", "yuv420_normalize"}
 #: the checkpoint phase (``phase_ckpt``): the copies of
@@ -790,7 +810,8 @@ EXTRA_ROW_KEYS = ("all_hit_ms", "all_hit_ms_l2_flushed",
                   "xproc_copy_sync_ms", "xproc_round_trip_ms",
                   "xproc_tiny_round_trip_ms", "xproc_library_ms",
                   "xproc_library_ms_l2_flushed", "xproc_bound_ms",
-                  "xproc_run_ms", "xproc_launches", "xproc_kill_s")
+                  "xproc_run_ms", "xproc_eager_run_ms", "xproc_launches",
+                  "xproc_kill_s")
 
 
 class SmokeFailure(RuntimeError):
@@ -830,6 +851,26 @@ def call_ms(fn, reps: int = 50, rounds: int = 5) -> float:
         samples.append(start.elapsed_time(end) / reps)
     samples.sort()
     return samples[len(samples) // 2]
+
+
+def median_ms(fn, reps: int):
+    """(median, min, max) ms of ``reps`` calls, each between two CUDA
+    events and waited for (the host's wait ends each sample), after one
+    warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    samples.sort()
+    return samples[len(samples) // 2], samples[0], samples[-1]
 
 
 def profiled(calls, reps: int):
@@ -4098,20 +4139,25 @@ def check_sharded(device, pixel_path, launches):
     classes, bf16, over ``build_mesh([cuda:0] * 8, axes={"dp": 2, "sp":
     4})`` (15 clips padded to 16), on four seeded videos of
     PARALLEL_VALID clips. Two ``run`` s and a ``predict`` with the
-    counts set to 0 before them and read after: one ingest launch each
-    and no other kernel, the second run bitwise the first; each video's
+    counts set to 0 before them and read after: the first captures the
+    step as one CUDA graph (its warm-up one ingest launch), then three
+    replays of one ingest launch each and no other kernel; the second run
+    bitwise the first, the captured run bitwise the eager ``step``, one
+    graph replayed three times, no host wait; each video's
     logits within PARALLEL_TOL (rtol = atol) of the same network's
     unsharded masked sum on the card (one forward over every video's
     max_clips rows); ``predict`` 's class ids those of the unsharded
     sums wherever their top-2 gap exceeds the two logits' bounds; the
     ingest kernel held to its plain version at the run's rows. Returns
-    ``run`` 's ms at dp 2 x 16 rows (CUDA events) and a report."""
+    ``run`` 's ms at dp 2 x 16 rows (CUDA events) and a report with the
+    medians of RUN_REPS captured runs and eager steps there."""
     import numpy as np
     import torch
     from rnb_tpu_torch.ops import _kernels
     from rnb_tpu_torch.ops.preprocess import normalize_u8
     from rnb_tpu_torch.ops.yuv import normalize_yuv420
-    from rnb_tpu_torch.parallel import build_mesh, make_sharded_inference
+    from rnb_tpu_torch.parallel import (build_mesh, make_sharded_inference,
+                                        peers)
     mesh = build_mesh([device] * 8, axes=PARALLEL_AXES)
     t0 = time.time()
     si = make_sharded_inference(mesh=mesh, max_clips=MESH_MAX_CLIPS,
@@ -4128,17 +4174,27 @@ def check_sharded(device, pixel_path, launches):
     vids, mask = si.place(videos, PARALLEL_VALID)
     torch.cuda.synchronize()
     _kernels.reset_launches()
+    waits = peers.host_waits
     first = si.run(vids, mask)
     again = si.run(vids, mask)
     preds = si.predict(videos, PARALLEL_VALID)
     counts = _kernels.launch_counts()
+    waits = peers.host_waits - waits
     for name, count in counts.items():
-        check(count == (3 if name == kernel else 0), "sharded %s: %d %s "
-              "launches in two runs and a predict" % (pixel_path, count,
-                                                      name))
+        check(count == (4 if name == kernel else 0), "sharded %s: %d %s "
+              "launches in two runs and a predict (a capture's warm-up "
+              "and three replays)" % (pixel_path, count, name))
         launches[name] += count
+    check(si.graph_stats["graphs"] == 1 and si.graph_stats["replays"] == 3
+          and waits == 0, "sharded %s: graphs %s, host waits %d" % (
+              pixel_path, si.graph_stats, waits))
     check(torch.equal(first, again), "sharded %s: a second run differs by "
           "%g" % (pixel_path, float((first - again).abs().max())))
+    with torch.inference_mode():
+        eager = si.step(vids, mask)
+    check(torch.equal(first, eager), "sharded %s: the captured run is %g "
+          "from the eager step" % (pixel_path,
+                                   float((first - eager).abs().max())))
     check(tuple(first.shape) == (len(PARALLEL_VALID), 400)
           and bool(torch.isfinite(first).all()), "sharded %s: logits %s"
           % (pixel_path, tuple(first.shape)))
@@ -4182,7 +4238,13 @@ def check_sharded(device, pixel_path, launches):
         rng)
     two, two_mask = vids[:MESH_DP], mask[:MESH_DP]
     ms = call_ms(lambda: si.run(two, two_mask), reps=10, rounds=3)
-    del si, vids, mask, first, again, two, two_mask
+    report["captured_run_ms"] = median_ms(lambda: si.run(two, two_mask),
+                                          RUN_REPS)
+    with torch.inference_mode():
+        report["eager_step_ms"] = median_ms(lambda: si.step(two, two_mask),
+                                            RUN_REPS)
+    report["graphs"] = dict(si.graph_stats)
+    del si, vids, mask, first, again, eager, two, two_mask
     torch.cuda.empty_cache()
     return ms, report
 
@@ -4211,9 +4273,13 @@ def phase_parallel(data_root, launches):
           "%s" % (entry_ms, smi, json.dumps(entry_report)))
     for pixel_path in ("rgb", "yuv420"):
         run_ms, report = check_sharded(device, pixel_path, launches)
-        print("parallel sharded %s: run %.3f ms at dp %d x %d rows (%s); %s"
-              % (pixel_path, run_ms, MESH_DP, MESH_PADDED_CLIPS, smi,
-                 json.dumps(report)))
+        print("parallel sharded %s: run %.3f ms at dp %d x %d rows; the "
+              "captured run %.3f ms (median of %d; min %.3f, max %.3f) "
+              "against the eager step %.3f (min %.3f, max %.3f) (%s); %s"
+              % (pixel_path, run_ms, MESH_DP, MESH_PADDED_CLIPS,
+                 report["captured_run_ms"][0], RUN_REPS,
+                 *report["captured_run_ms"][1:], *report["eager_step_ms"],
+                 smi, json.dumps(report)))
     for members in DRYRUN_MEMBERS:
         _kernels.reset_launches()
         t1 = time.time()
@@ -4307,23 +4373,20 @@ def hop_calls(ep, source, target, place, device, launch=None):
                                  device=device) for _ in range(2))
         scratch.extend((own, succ))
         launch(peers.hop_args(tiles, remote_count, succ.data_ptr(),
-                              segments, succ.data_ptr(), 1, ep.report_dev,
+                              segments, succ.data_ptr(), ep.report_dev,
                               10 ** 9))
         succ.view(torch.int64)[peers.POSTED // 8] = 1 << 62
         own.view(torch.int64)[peers.RECV // 8] = 1 << 62
-        epoch = [0]
-
-        def call():
-            epoch[0] += 1
-            launch(peers.hop_args(tiles, remote_count, succ.data_ptr(),
-                                  segments, own.data_ptr(), epoch[0],
-                                  ep.report_dev, 10 ** 9))
-        return call
+        # the same arguments every call: the card numbers each hop
+        args = peers.hop_args(tiles, remote_count, succ.data_ptr(),
+                              segments, own.data_ptr(), ep.report_dev,
+                              10 ** 9)
+        return lambda: launch(args)
     calls = {"hop": looped([remote], 1), "copy_sync": looped([local], 0),
              "sync": looped([], 0)}
     own = torch.zeros(peers.COUNTER_BYTES, dtype=torch.uint8, device=device)
     scratch.append(own)
-    copy_args = peers.hop_args([local], 0, None, [], own.data_ptr(), 0,
+    copy_args = peers.hop_args([local], 0, None, [], own.data_ptr(),
                                None, 10 ** 9)
     calls["copy"] = lambda: launch(copy_args)
     calls["_scratch"] = scratch
@@ -4334,10 +4397,12 @@ def child_ring(rank, n, device, ring):
     """One process of the ring launch: the main path with the counts set
     to 0 before it and read after (the conv5 temporal hop, a d2
     forward's 19-leaf gather, a reduce-scatter, ``ShardedInference``'s
-    run and predict at full width over the launch's dp 1 x sp 2 mesh),
-    then each result held to its plain version on the same inputs, and
-    the times. Every process makes every member's inputs from one seed
-    and runs the same steps in the same order."""
+    run, which captures the step as one CUDA graph, and predict at full
+    width over the launch's dp 1 x sp 2 mesh), then each result held to
+    its plain version on the same inputs, PROCESS_REPLAYS replays of the
+    captured run each bitwise the eager step, and the times. Every
+    process makes every member's inputs from one seed and runs the same
+    steps in the same order."""
     import numpy as np
     import torch
     from rnb_tpu_torch.ops import _kernels
@@ -4373,9 +4438,11 @@ def child_ring(rank, n, device, ring):
     torch.cuda.synchronize()
     counts = _kernels.launch_counts()
     check(counts["ring_shift"] == PROCESS_RING_LAUNCHES
-          and counts["normalize_u8"] == 2 and sum(counts.values())
-          == PROCESS_RING_LAUNCHES + 2, "process %d's main path launched "
-          "%s" % (rank, {k: v for k, v in counts.items() if v}))
+          and counts["normalize_u8"] == PROCESS_INGEST_LAUNCHES
+          and sum(counts.values()) == PROCESS_RING_LAUNCHES
+          + PROCESS_INGEST_LAUNCHES, "process %d's main path launched %s"
+          % (rank, {k: v for k, v in counts.items() if v}))
+    replays = check_replays(rank, si, rng)
     # each result against its plain version on the same inputs
     check(torch.equal(hopped, dma.ring_shift_reference(conv5, 1)[rank]),
           "process %d: the conv5 hop is not bitwise its plain version"
@@ -4392,7 +4459,13 @@ def child_ring(rank, n, device, ring):
     one = ShardedInference(build_mesh([device] * n, axes={"dp": 1, "sp": n}),
                            max_clips=MESH_MAX_CLIPS, num_classes=400,
                            network=si.network)
-    single = one.run(*one.place(videos, PROCESS_VALID))
+    one_vids, one_mask = one.place(videos, PROCESS_VALID)
+    single = one.run(one_vids, one_mask)
+    with torch.inference_mode():
+        one_eager = one.step(one_vids, one_mask)
+    check(torch.equal(single, one_eager), "process %d: the one-process "
+          "captured run is %g from its eager step"
+          % (rank, float((single - one_eager).abs().max())))
     check(tuple(logits.shape) == (len(PROCESS_VALID), 400)
           and bool(torch.isfinite(logits).all()), "process %d: logits %s"
           % (rank, tuple(logits.shape)))
@@ -4458,64 +4531,134 @@ def child_ring(rank, n, device, ring):
     ep.barrier("timed")
     del target
 
-    def events(fn, reps=PROCESS_REPS):
-        samples = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            samples.append(start.elapsed_time(end))
-        samples.sort()
-        return samples[len(samples) // 2], samples[0], samples[-1]
+    def eager_across():
+        with torch.inference_mode():
+            si.step_across(vids, mask)
+        si.finish()
     tiny = torch.arange(16, dtype=torch.uint8, device=device)
-    times["round_trip_ms"] = events(
-        lambda: dma.ring_shift([conv5[rank]], 1, ring))
-    times["tiny_round_trip_ms"] = events(
-        lambda: dma.ring_shift([tiny], 1, ring))
-    times["run_ms"] = events(lambda: si.run(vids, mask), reps=5)
+    times["round_trip_ms"] = median_ms(
+        lambda: dma.ring_shift([conv5[rank]], 1, ring), PROCESS_REPS)
+    times["tiny_round_trip_ms"] = median_ms(
+        lambda: dma.ring_shift([tiny], 1, ring), PROCESS_REPS)
+    times["run_ms"] = median_ms(lambda: si.run(vids, mask), RUN_REPS)
+    times["eager_run_ms"] = median_ms(eager_across, RUN_REPS)
     torch.cuda.synchronize()
     ep.barrier("run timed")
     if rank == 0:
-        one_vids, one_mask = one.place(videos, PROCESS_VALID)
-        times["one_process_run_ms"] = events(
-            lambda: one.run(one_vids, one_mask), reps=5)
+        times["one_process_run_ms"] = median_ms(
+            lambda: one.run(one_vids, one_mask), RUN_REPS)
+        with torch.inference_mode():
+            times["one_process_eager_ms"] = median_ms(
+                lambda: one.step(one_vids, one_mask), RUN_REPS)
     torch.cuda.synchronize()
     ep.barrier("one-process run timed")
     times["bound_ms"] = 2 * nbytes / PEAK_BYTES_PER_S * 1e3
     times["bytes"] = nbytes
     return {"counts": counts, "times": times, "ids": ids,
             "run_err": float(err.max()), "build_s": build_s,
-            "arena_bytes": ep.arena.nbytes}
+            "arena_bytes": ep.arena.nbytes, "replays": replays}
+
+
+def check_replays(rank, si, rng):
+    """PROCESS_REPLAYS replays of ``si`` 's captured run across the
+    processes, each on new videos of PROCESS_VALID clips, with the counts
+    set to 0 before it and read after: one ring and one ingest launch (as
+    the graph recorded them at capture), one host wait (at the run's
+    end), and the logits bitwise the eager ``step_across`` on the same
+    inputs (which waits for nothing until its ``finish``). Returns the
+    graph's record: its launches, its host waits (0) and the replays'."""
+    import numpy as np
+    import torch
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.parallel import peers
+    ((graph, capture),) = si._graphs.values()
+    check(graph.launches == {"ring_shift": 1, "normalize_u8": 1}
+          and capture.host_waits == 0 and capture.hops
+          == {peers.endpoint(si.sp_ring): 1}, "process %d: the captured "
+          "run recorded launches %s, hops %d, host waits %d" % (
+              rank, graph.launches, sum(capture.hops.values()),
+              capture.host_waits))
+    for replay in range(PROCESS_REPLAYS):
+        videos = rng.integers(0, 256, si.batch_shape(len(PROCESS_VALID)),
+                              dtype=np.uint8)
+        vids, mask = si.place(videos, PROCESS_VALID)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        waits = peers.host_waits
+        out = si.run(vids, mask)
+        waits = peers.host_waits - waits
+        counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+        check(counts == graph.launches and waits == 1, "process %d replay "
+              "%d: launches %s, host waits %d" % (rank, replay, counts,
+                                                  waits))
+        eager_waits = peers.host_waits
+        with torch.inference_mode():
+            eager = si.step_across(vids, mask)
+        eager_waits = peers.host_waits - eager_waits
+        si.finish()
+        check(eager_waits == 0 and torch.equal(out, eager), "process %d "
+              "replay %d: %g from the eager step_across (host waits in it "
+              "%d)" % (rank, replay, float((out - eager).abs().max()),
+                       eager_waits))
+    return {"replays": PROCESS_REPLAYS, "launches": graph.launches,
+            "graph_host_waits": capture.host_waits,
+            "end_host_waits": 1, "graphs": dict(si.graph_stats)}
 
 
 def child_killed(rank, n, device, ring):
     """One process of the killed-peer launch: both make the ring's
-    endpoint with one hop, then process 1 leaves without a word, and
-    process 0's next hop must raise within the wait cap."""
+    endpoint with one hop, and capture a small ``ShardedInference`` 's run
+    over the launch's dp 1 x sp n mesh (2 frames, layer sizes (1, 1, 1,
+    1), 8 classes) and replay it once more, both alive; then process 1
+    leaves without a word, and process 0's next replay must raise within
+    the wait cap (set before the capture: a captured hop keeps the cap it
+    was captured with), and then its next hop over the launch's other
+    ring within the cap too."""
+    import numpy as np
     import torch
     from rnb_tpu_torch.ops import handoff_dma as dma
+    from rnb_tpu_torch.parallel import distributed, make_sharded_inference
     from rnb_tpu_torch.parallel import peers
+    peers.set_wait_cap(PROCESS_KILL_CAP_S)
     x = torch.arange(4096, dtype=torch.uint8, device=device)
     first = dma.ring_shift([x], 1, ring)[0]
     check(torch.equal(first, x), "the first hop of the killed-peer launch "
           "moved other bytes")
+    si = make_sharded_inference(
+        mesh=distributed.global_mesh(axes={"dp": 1, "sp": n}), max_clips=2,
+        consecutive_frames=2, num_classes=8, layer_sizes=(1, 1, 1, 1))
+    videos = np.random.default_rng(5).integers(
+        0, 256, si.batch_shape(1), dtype=np.uint8)
+    vids, mask = si.place(videos, [2])
+    captured = si.run(vids, mask)
+    again = si.run(vids, mask)
+    check(torch.equal(captured, again) and si.graph_stats["graphs"] == 1,
+          "the killed-peer launch's replays differ (graphs %s)"
+          % si.graph_stats)
+    torch.cuda.synchronize()
+    peers.endpoint(si.sp_ring).barrier("replayed")
     if rank == 1:
         os._exit(0)
-    peers.set_wait_cap(PROCESS_KILL_CAP_S)
-    t0 = time.monotonic()
-    try:
-        dma.ring_shift([x], 1, ring)
-        message = None
-    except RuntimeError as e:
-        message = str(e)
-    seconds = time.monotonic() - t0
-    check(message is not None and "past the %.1f s cap" % PROCESS_KILL_CAP_S
-          in message, "a hop to a killed peer did not raise within the "
-          "cap: %r" % message)
-    return {"message": message, "seconds": seconds}
+    report = {}
+    for what, call in (("replay", lambda: si.run(vids, mask)),
+                       ("hop", lambda: dma.ring_shift([x], 1, ring))):
+        t0 = time.monotonic()
+        try:
+            call()
+            message = None
+        except RuntimeError as e:
+            message = str(e)
+        seconds = time.monotonic() - t0
+        check(message is not None and "past the %.1f s cap"
+              % PROCESS_KILL_CAP_S in message, "a %s after the peer died "
+              "did not raise within the cap: %r" % (what, message))
+        report[what] = {"message": message, "seconds": seconds}
+    check(report["replay"]["seconds"] < PROCESS_KILL_CAP_S + 10, "the "
+          "replay raised after %.1f s" % report["replay"]["seconds"])
+    return {"message": report["replay"]["message"],
+            "seconds": report["replay"]["seconds"],
+            "hop_message": report["hop"]["message"],
+            "hop_seconds": report["hop"]["seconds"]}
 
 
 def process_child(mode, out_dir) -> int:
@@ -4596,13 +4739,14 @@ def phase_processes(data_root, launches):
           "%.5f ms by bytes); its parts: the copy alone %.5f ms, the copy "
           "with the post, waits and publication %.5f, the post, waits and "
           "publication alone (one block) %.5f; Tensor.copy_ into the "
-          "peer's arena %.5f ms, %.5f flushed; the one-process run %.3f ms "
-          "(%s)" % (
+          "peer's arena %.5f ms, %.5f flushed; the one-process captured "
+          "run %.3f ms (median of %d), its eager step %.3f (%s)" % (
               first["bytes"], first["ms"], first["ms_l2_flushed"],
               first["bound_ms"], first["copy_ms"], first["copy_sync_ms"],
               first["sync_ms"], first["library_ms"],
               first["library_ms_l2_flushed"],
-              first["one_process_run_ms"][0], smi))
+              first["one_process_run_ms"][0], RUN_REPS,
+              first["one_process_eager_ms"][0], smi))
     for rank in range(PROCESSES):
         report = reports["ring", rank]
         for name, count in report["counts"].items():
@@ -4610,17 +4754,27 @@ def phase_processes(data_root, launches):
         t = report["times"]
         print("processes ring, process %d: the conv5 hop with its "
               "semaphores %.3f ms (min %.3f, max %.3f), a 16-byte hop %.3f "
-              "ms (min %.3f, max %.3f); run across %d processes %.3f ms "
-              "(min %.3f, max %.3f); run %g from the one-process run; class "
-              "ids %s; arena %d bytes; launches %s (%s)" % (
+              "ms (min %.3f, max %.3f); the captured run across %d "
+              "processes %.3f ms (median of %d; min %.3f, max %.3f), the "
+              "eager step_across with its wait %.3f ms (min %.3f, max "
+              "%.3f); run %g from the one-process run; class ids %s; arena "
+              "%d bytes; launches %s; %d replays bitwise the eager step, "
+              "each launching %s, host waits inside the graph %d and at "
+              "the run's end %d (%s)" % (
                   rank, *t["round_trip_ms"], *t["tiny_round_trip_ms"],
-                  PROCESSES, *t["run_ms"], report["run_err"],
+                  PROCESSES, t["run_ms"][0], RUN_REPS, *t["run_ms"][1:],
+                  *t["eager_run_ms"], report["run_err"],
                   json.dumps(report["ids"]), report["arena_bytes"],
-                  {k: v for k, v in report["counts"].items() if v}, smi))
+                  {k: v for k, v in report["counts"].items() if v},
+                  report["replays"]["replays"],
+                  report["replays"]["launches"],
+                  report["replays"]["graph_host_waits"],
+                  report["replays"]["end_host_waits"], smi))
     killed = reports["killed", 0]
-    print("processes killed peer: process 0's hop raised after %.2f s "
-          "(cap %.1f s): %s" % (killed["seconds"], PROCESS_KILL_CAP_S,
-                                killed["message"]))
+    print("processes killed peer: process 0's replay of the captured run "
+          "raised after %.2f s (cap %.1f s): %s; its next hop after %.2f s: "
+          "%s" % (killed["seconds"], PROCESS_KILL_CAP_S, killed["message"],
+                  killed["hop_seconds"], killed["hop_message"]))
     return {"xproc_ms": first["ms"],
             "xproc_ms_l2_flushed": first["ms_l2_flushed"],
             "xproc_copy_ms": first["copy_ms"],
@@ -4632,6 +4786,7 @@ def phase_processes(data_root, launches):
             "xproc_library_ms_l2_flushed": first["library_ms_l2_flushed"],
             "xproc_bound_ms": first["bound_ms"],
             "xproc_run_ms": first["run_ms"][0],
+            "xproc_eager_run_ms": first["eager_run_ms"][0],
             "xproc_launches": sum(reports["ring", r]["counts"]["ring_shift"]
                                   for r in range(PROCESSES)),
             "xproc_kill_s": killed["seconds"]}

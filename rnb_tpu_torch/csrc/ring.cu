@@ -35,8 +35,15 @@
 //   in the same HBM, across cards they travel over NVLink with no change
 //   here. The collectives the port runs allocate their results in the
 //   arena, so the successor's destination is memory the sender can reach.
-//   Hop e of member m is one launch on m's stream, of one block more
-//   than its tiles need, the control block:
+//   A hop's number e lives on the card: member m's counter allocation
+//   holds the count of hops m has launched (kHops). Every block of a
+//   launch reads it and takes the count plus one as e, and the control
+//   block stores e back once every block has counted itself, so the same
+//   launch arguments, launched again or replayed from a CUDA graph, are
+//   the next hop. (The reference's program passes no count either: its
+//   semaphores are the DMA engine's.) Hop e of member m is one launch on
+//   m's stream, of one block more than its tiles need, the control
+//   block:
 //     post:    the control block claims the post and writes where hop e
 //              lands in m (the arena place, rows, row length and pitch of
 //              every tile m receives: the table's own tiles
@@ -65,8 +72,10 @@
 //              is transitive across the two scopes); meanwhile the control
 //              block waits for its own `recv` to reach e (the
 //              predecessor's hop e has landed in m) and for every block's
-//              count, resets `done` and `claim` for the next launch, and
-//              copies a set error word into pinned host memory.
+//              count, resets `done` and `claim` for the next launch,
+//              stores e into kHops, and copies a set error word into
+//              pinned host memory, with the number of the first hop that
+//              reported it.
 //   So each collective the port runs takes one launch a hop, and nothing
 //   reads a result before it has landed (the launch that made it ends
 //   only then). A caller's own destination
@@ -110,17 +119,19 @@
 //   emulation.
 //
 //   Measured (tools/hop_probe.py, two processes on an NVIDIA H100 80GB
-//   HBM3 at 700 W; ptxas: 0 bytes of stack frame): the conv5 hop's launch
-//   alone, its waits satisfied, 0.00597-0.00600 ms with L2 warm and
-//   0.0067 flushed (18% / 16% of the bound), where the parent commit's
-//   hop (a send launch into a receive window and a place launch out of
-//   it) took 0.00958 and 0.0122 in the same call, and Tensor.copy_ of the
-//   shard into the peer's arena 0.00148 / 0.0029. What holds it: the copy
-//   alone (a local launch) 0.0021; the signal's release at system scope
-//   0.0018 (the launch without it 0.0042; every system-scope operation at
-//   GPU scope instead 0.0041, right on one card only); the rest is the
-//   wait's load, the post's check and the count. With its semaphores, a
-//   hop between two processes on one card costs about two time slices
+//   HBM3 at 700 W; ptxas: 64 registers, 0 bytes of stack frame): the
+//   conv5 hop's launch alone, its waits satisfied, 0.00601-0.00607 ms
+//   with L2 warm and 0.00721-0.00732 flushed (18% / 15% of the bound),
+//   where the same kernel numbering its hops from the host took 0.00581
+//   and 0.00658-0.00666 in the same call (the count's load comes before
+//   each block's wait), an earlier hop through a receive window and a
+//   place launch 0.00958 / 0.0122, and Tensor.copy_ of the shard into the
+//   peer's arena 0.00142 / 0.0033. What holds it: the copy alone (a local
+//   launch) 0.0021; the signal's release at system scope 0.0018 (the
+//   launch without it 0.0043; every system-scope operation at GPU scope
+//   instead 0.0045, right on one card only); the rest is the wait's
+//   load, the post's check and the count. With its semaphores, a hop
+//   between two processes on one card costs about two time slices
 //   (PERF.md, section 6, row 5b).
 //
 //   Bound: memory. Every byte is read once and written once: a degree-2
@@ -199,8 +210,9 @@ constexpr long long kMaxRowsTile = 0xffffffffLL;
 // the offsets): hops landed in its arena (added to by the predecessor),
 // hops it has posted, its launch's finished blocks (a 64-bit word: their
 // count, and in its high half those that moved nothing), its launch's
-// started blocks, its error word, and its post: the tiles' count, then
-// one PostTile a tile.
+// started blocks, its error word, its post: the tiles' count, then one
+// PostTile a tile (kMaxHopTiles of them end at 2,432); and in its last 64
+// bytes the hops it has launched.
 constexpr int kRecv = 0;
 constexpr int kPosted = 64;
 constexpr int kDone = 128;
@@ -208,6 +220,10 @@ constexpr int kClaim = 192;
 constexpr int kError = 256;
 constexpr int kPostCount = 320;
 constexpr int kPost = 384;
+constexpr int kHops = 4032;
+// The pinned report (64 bytes of host memory): the error word, then at
+// kReportHop the number of the first hop that reported it.
+constexpr int kReportHop = 8;
 
 // Where one tile of a hop lands in the member that posts it.
 struct PostTile {
@@ -626,9 +642,6 @@ struct HopSync {
   // pinned host memory the last block copies a set error word into, or
   // null
   int* report;
-  // the hop's number: the successor's `posted` and this member's `recv`
-  // reach it
-  unsigned long long epoch;
   unsigned long long cap_ns;
   // tiles 0 .. remote - 1 land in the successor's arena
   int remote;
@@ -657,12 +670,13 @@ __device__ __forceinline__ bool is_control(int block) {
                        : block == static_cast<int>(gridDim.x) - 1;
 }
 
-// The post of a hop, by one thread, once a claim of it wins: where each
-// tile this member receives lands in it, then the hop's number with
+// The post of hop `epoch`, by one thread, once a claim of it wins: where
+// each tile this member receives lands in it, then the hop's number with
 // release at system scope.
 struct Poster {
   const HopTiles& tiles;
   const HopSync& sync;
+  unsigned long long epoch;
   __device__ __forceinline__ void run() const {
     if (add_relaxed(word<unsigned>(sync.own, kClaim)) != 0) return;
     PostTile* post = word<PostTile>(sync.own, kPost);
@@ -674,8 +688,7 @@ struct Poster {
       store_word(&post[t].pitch, tiles.dst_pitch[t]);
     }
     store_word(word<long long>(sync.own, kPostCount), sync.remote);
-    store_release_sys(word<unsigned long long>(sync.own, kPosted),
-                      sync.epoch);
+    store_release_sys(word<unsigned long long>(sync.own, kPosted), epoch);
   }
 };
 
@@ -689,8 +702,11 @@ struct Poster {
 // because a wait gave up, the post disagreed or an earlier hop failed,
 // into the high half too); the last to count signals where none failed.
 // The control block counts itself, waits for its own `recv`, then for
-// every block's count, resets `done` and `claim` for the next launch and
-// reports an error, so its waits stay off the copy's path. A grid of the
+// every block's count, resets `done` and `claim` for the next launch,
+// stores the hop's number into kHops (every block has read the count by
+// then) and reports an error, so its waits stay off the copy's path. Every
+// launch of a hop counts, one that moved nothing too, so the members'
+// counts stay in step. A grid of the
 // control block alone (a hop with no tiles) waits for and checks the post
 // itself, and signals.
 __global__ void __launch_bounds__(kThreads)
@@ -712,14 +728,22 @@ ring_hop_kernel(const __grid_constant__ HopTiles tiles,
   unsigned long long* done = word<unsigned long long>(sync.own, kDone);
   // the control block checks the post only where no data block does
   const bool checks = hop && (!control || gridDim.x == 1);
+  // the hop's number, read by the first thread of every block: one past
+  // the hops this member has launched
+  unsigned long long epoch = 0;
   if (threadIdx.x == 0) {
-    const Poster poster{tiles, sync};
+    if (hop) {
+      epoch = static_cast<unsigned long long>(
+                  load_word(word<long long>(sync.own, kHops))) +
+              1;
+    }
+    const Poster poster{tiles, sync, epoch};
     if (control) poster.run();
     // the error word and the successor's post read at once
     const int earlier = load_error(error);
     go = !checks ||
-         wait_counter(word<unsigned long long>(sync.succ, kPosted),
-                      sync.epoch, error, sync.cap_ns, &poster);
+         wait_counter(word<unsigned long long>(sync.succ, kPosted), epoch,
+                      error, sync.cap_ns, &poster);
     go = go && earlier == 0;
   }
   __syncthreads();
@@ -816,8 +840,8 @@ ring_hop_kernel(const __grid_constant__ HopTiles tiles,
   if (!control) return;
   // the predecessor's hop has landed here, and every block has counted
   const bool landed =
-      wait_counter(word<unsigned long long>(sync.own, kRecv), sync.epoch,
-                   error, sync.cap_ns, static_cast<const Poster*>(nullptr));
+      wait_counter(word<unsigned long long>(sync.own, kRecv), epoch, error,
+                   sync.cap_ns, static_cast<const Poster*>(nullptr));
   unsigned long long all = seen;
   while ((all & 0xffffffffull) != gridDim.x) {
     pause();
@@ -825,8 +849,16 @@ ring_hop_kernel(const __grid_constant__ HopTiles tiles,
   }
   *done = 0;
   *word<unsigned>(sync.own, kClaim) = 0;
+  store_word(word<long long>(sync.own, kHops),
+             static_cast<long long>(epoch));
   if ((!landed || (all >> 32) != 0) && sync.report != nullptr) {
     store_error(sync.report, load_error(error));
+    // the first hop that reported (the host memory is read only here)
+    long long* first = reinterpret_cast<long long*>(
+        reinterpret_cast<uint8_t*>(sync.report) + kReportHop);
+    if (load_word(first) == 0) {
+      store_word(first, static_cast<long long>(epoch));
+    }
   }
 }
 
@@ -922,7 +954,8 @@ int rnb_ring_shift(const void* const* srcs, void* const* dsts,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch of hop `epoch` across processes (see the note at the top):
+// One launch of the next hop across processes (see the note at the top;
+// its number is the card's count of this member's hops, plus one):
 // the table as rnb_ring_shift's with n = 1 and shifts 0 (this member's
 // tiles, at most kMaxHopTiles), its first `remote` entries landing in the
 // successor's arena (each non-empty; their dsts and dst pitches are this
@@ -931,27 +964,28 @@ int rnb_ring_shift(const void* const* srcs, void* const* dsts,
 // the member. `succ` is the successor's counter allocation as mapped here,
 // `segments` / `segment_bytes` its `count` arena segments as mapped here,
 // `own` this member's counter allocation, `report` pinned host memory a
-// set error word is copied into (none where null). With `succ` null the
+// set error word is copied into, with the first failing hop's number
+// (none where null). With `succ` null the
 // launch is local: no post, no wait, no signal, and it moves nothing once
 // the error word is set. A table with no tiles still launches one block,
 // which posts, waits and signals. Refused as rnb_ring_shift, and with n
 // other than 1, no counter allocation, a negative cap, `remote` outside
 // 0..entries (or above 0 in a local launch), an empty remote entry, a
-// segment count outside 0..kMaxSegments, a segment of 2^40 bytes or more,
-// or a hop of epoch 0.
+// segment count outside 0..kMaxSegments, or a segment of 2^40 bytes or
+// more. The arguments name no hop: launched again, or captured into a CUDA
+// graph and replayed, they are the member's next hop.
 int rnb_ring_hop(const void* const* srcs, void* const* dsts,
                  const long long* src_pitch, const long long* dst_pitch,
                  const int* shifts, const long long* rows,
                  const long long* row_bytes, int n, int entries, int remote,
                  const void* succ, void* const* segments,
                  const long long* segment_bytes, int count, void* own,
-                 unsigned long long epoch, void* report, long long cap_ns,
-                 int device, void* stream) {
+                 void* report, long long cap_ns, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n != 1 || own == nullptr || cap_ns < 0 || remote < 0 ||
       remote > entries || (succ == nullptr && remote > 0) || count < 0 ||
-      count > kMaxSegments || (succ != nullptr && epoch == 0)) {
+      count > kMaxSegments) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   HopSync sync = {};
@@ -976,7 +1010,6 @@ int rnb_ring_hop(const void* const* srcs, void* const* dsts,
   sync.succ = static_cast<const uint8_t*>(succ);
   sync.own = static_cast<uint8_t*>(own);
   sync.report = static_cast<int*>(report);
-  sync.epoch = epoch;
   sync.cap_ns = static_cast<unsigned long long>(cap_ns);
   sync.remote = remote;
   sync.segments = count;

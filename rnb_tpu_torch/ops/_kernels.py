@@ -238,8 +238,8 @@ _RING_TABLE = [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_L),
 #: table (this member's tiles, n = 1), the count of its first entries that
 #: land in the successor's arena, the successor's counter allocation, its
 #: arena segments (pointers as mapped here, their sizes, their count),
-#: this member's counter allocation, the hop's number, the pinned word an
-#: error is reported into and the waits' cap in ns
+#: this member's counter allocation (which holds the hop's number), the
+#: pinned word an error is reported into and the waits' cap in ns
 RING_HOP_ENTRY = "rnb_ring_hop"
 #: tiles one launch of the hop moves at most (``kMaxHopTiles``), and the
 #: arena segments it knows of (``kMaxSegments``)
@@ -250,8 +250,7 @@ RING_SHIFT = Kernel(
     "rnb_tpu/ops/handoff_dma.py:104 (_pallas_shift_body, its pallas_call "
     "at :134)",
     entries={RING_HOP_ENTRY: _RING_TABLE + [
-        _I, _P, ctypes.POINTER(_P), ctypes.POINTER(_L), _I, _P,
-        ctypes.c_ulonglong, _P, _L]})
+        _I, _P, ctypes.POINTER(_P), ctypes.POINTER(_L), _I, _P, _P, _L]})
 
 
 class RingTableEntry(NamedTuple):

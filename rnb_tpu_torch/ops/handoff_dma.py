@@ -45,9 +45,13 @@ hop: the results the collectives return lie in each member's arena, so
 the sender writes each byte once, straight into its successor's
 destination (through the memory CUDA IPC opened), where the successor
 posted it, each side behind a device counter (the reference's
-``send_sem``/``recv_sem``); at the end of the collective the process
-waits for its card and raises where a wait gave up or the processes'
-tables disagreed. On CPU tensors the plain version sends and receives
+``send_sem``/``recv_sem``, numbered on the card, so a captured hop
+replays as the next); at the end of the collective the process waits
+for its card and raises where a wait gave up or the processes' tables
+disagreed. A step that issues its gathers through
+:func:`ring_all_gather_issued` waits once, where it ends
+(``ShardedInference.run``), as the reference's one program waits on its
+semaphores inside. On CPU tensors the plain version sends and receives
 over the launch's gloo group (the counterpart of the reference's
 ``_ppermute_shift_body``), bounded by the same cap. On CUDA tensors no
 byte goes through gloo, the host or a library copy.
@@ -657,15 +661,41 @@ def ring_all_gather_many(leaves: Sequence[Sequence[torch.Tensor]],
     grouped hops (:func:`ring_gather_tables`), each shard written
     straight into its slots. Pure movement, so every result is bitwise
     the unsharded tensor. Over a ``ring`` that spans processes, this
-    process's member's shards in, its results out."""
-    gathered, tables = ring_gather_tables(leaves, axis, ring)
+    process's member's shards in, its results out, once the card is
+    waited for."""
     if _across(ring):
-        eps = [_group_across(table, ring) for table in tables]
-        _finish_across(eps[-1] if eps else None)
+        gathered, ep = _gather_across(leaves, axis, ring)
+        _finish_across(ep)
         return gathered
+    gathered, tables = ring_gather_tables(leaves, axis, ring)
     for table in tables:
         ring_shift_group(table)
     return gathered
+
+
+def _gather_across(leaves: Sequence[Sequence[torch.Tensor]], axis: int,
+                   ring: Ring) -> Tuple[List[Members],
+                                        Optional[peers.Endpoint]]:
+    """The all-gather over a ring that spans processes, issued: its
+    results, and the endpoint of its hops on the card (None for none)."""
+    gathered, tables = ring_gather_tables(leaves, axis, ring)
+    eps = [_group_across(table, ring) for table in tables]
+    return gathered, eps[-1] if eps else None
+
+
+def ring_all_gather_issued(leaves: Sequence[Sequence[torch.Tensor]],
+                           axis: int, ring: Ring) -> List[Members]:
+    """:func:`ring_all_gather_many` over a ``ring`` that spans
+    processes, issued and not waited for: no host wait. The caller waits
+    for its stream once, where its step ends, and then checks the ring's
+    error word (``peers.Endpoint.check_reported``), as
+    ``ShardedInference.run`` does; so the step captures into one CUDA
+    graph. On CPU tensors the plain version over gloo, as the waiting
+    form."""
+    if not _across(ring):
+        raise ValueError("ring_all_gather_issued takes a ring that spans "
+                         "processes, got %r" % (ring,))
+    return _gather_across(leaves, axis, ring)[0]
 
 
 def ring_all_gather_body(n: int, axis: int = -1

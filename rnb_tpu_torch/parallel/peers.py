@@ -30,8 +30,16 @@ ring's first collective and kept for its life.
   whose tables disagree fail there, before any byte moves), writes each
   byte once into the successor's arena, signals the successor's
   ``recv`` and waits for its own, every wait bounded by
-  :data:`wait_cap_s`. :meth:`Endpoint.finish` waits for the card and
-  raises where a wait gave up or a post disagreed.
+  :data:`wait_cap_s`. The hop's number lives on the card (the member's
+  count of hops launched, in its counter allocation), so the same
+  launch, captured into a CUDA graph and replayed, is the next hop.
+  :meth:`Endpoint.finish` waits for the card (:func:`wait_for_card`,
+  counted in :data:`host_waits`) and raises where a wait gave up or a
+  post disagreed; a caller that issues several collectives waits once
+  and calls :meth:`Endpoint.check_reported` itself.
+* :class:`Capture`: a CUDA graph capture of collectives across
+  processes gets the arena tensors its warm-up took, holds them for the
+  graph's life, and never takes from or grows an arena.
 * :func:`close_all` (from ``distributed.shutdown``): every endpoint
   waits for its card, closes its peers' handles, meets the others at a
   barrier, then frees its own memory (an arena segment a live result
@@ -41,6 +49,7 @@ ring's first collective and kept for its life.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import datetime
 import pickle
@@ -59,15 +68,20 @@ from rnb_tpu_torch.parallel.mesh import Ring
 DEFAULT_WAIT_CAP_S = 60.0
 wait_cap_s = DEFAULT_WAIT_CAP_S
 
-#: the counter allocation (``kRecv`` .. ``kPost`` in ring.cu): ``recv``
+#: the counter allocation (``kRecv`` .. ``kHops`` in ring.cu): ``recv``
 #: (hops landed here), ``posted`` (hops posted), the launch's finished
 #: blocks (64 bits: their count, and in the high half those that moved
 #: nothing) and started blocks, the error word, the post's tile count,
-#: then the post, one tile of POST_TILE_BYTES each
+#: then the post, one tile of POST_TILE_BYTES each; in the last 64 bytes
+#: ``hops``, the hops this member has launched (a launch's number is one
+#: more)
 COUNTER_BYTES = 4096
-RECV, POSTED, DONE, CLAIM, ERROR, POST_COUNT, POST = (0, 64, 128, 192, 256,
-                                                      320, 384)
+RECV, POSTED, DONE, CLAIM, ERROR, POST_COUNT, POST, HOPS = (
+    0, 64, 128, 192, 256, 320, 384, 4032)
 POST_TILE_BYTES = 32
+#: the pinned report (64 bytes; ``kReportHop``): the error word, then at
+#: REPORT_HOP the number of the first hop that reported it
+REPORT_HOP = 8
 #: the error word's values (``kTimedOut``, ``kTablesDiffer`` in ring.cu)
 TIMED_OUT, TABLES_DIFFER = 1, 2
 #: tiles one hop's launch moves at most; arena segments a member holds at
@@ -83,6 +97,24 @@ ARENA_QUANTUM = 1 << 20
 ARENA_ALIGN = 256
 
 _P, _L = ctypes.c_void_p, ctypes.c_longlong
+
+#: the host's waits for the card at the end of collectives across
+#: processes and of ``ShardedInference.run`` (:func:`wait_for_card`); a
+#: capture's are tallied in it (:class:`Capture`), not here
+host_waits = 0
+
+
+def wait_for_card(device: torch.device) -> None:
+    """The host waits for this process's stream on ``device`` (nothing
+    to wait for on the CPU), counted in :data:`host_waits`."""
+    global host_waits
+    capture = capturing()
+    if capture is not None:
+        capture.host_waits += 1
+    else:
+        host_waits += 1
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 def set_wait_cap(seconds: float) -> float:
@@ -144,14 +176,16 @@ def _call(lib, name: str, *args) -> None:
 
 
 def hop_args(tiles: Sequence[Tile], remote: int, succ: Optional[int],
-             segments: Sequence[Tuple[int, int]], counters: int, epoch: int,
+             segments: Sequence[Tuple[int, int]], counters: int,
              report: Optional[int], cap_ns: int) -> tuple:
     """The C arguments of one launch of ``rnb_ring_hop`` (before device
     and stream): ``tiles`` (at most :data:`HOP_MAX_TILES`, the first
     ``remote`` landing in the successor's arena), the successor's counter
     allocation ``succ`` (None: a local launch) and its arena ``segments``
     ``(pointer, bytes)`` as mapped here, this member's ``counters``, the
-    hop's ``epoch``, the pinned ``report`` word and the cap."""
+    pinned ``report`` word and the cap. They name no hop: the kernel
+    numbers it from the member's count on the card, so launched again
+    they are the next hop."""
     if len(tiles) > HOP_MAX_TILES or len(segments) > MAX_SEGMENTS:
         raise ValueError("a hop's launch moves at most %d tiles into at "
                          "most %d segments, got %d and %d"
@@ -164,7 +198,7 @@ def hop_args(tiles: Sequence[Tile], remote: int, succ: Optional[int],
     return (*table, remote, succ,
             (_P * MAX_SEGMENTS)(*(p for p, _ in segments)),
             (_L * MAX_SEGMENTS)(*(b for _, b in segments)), len(segments),
-            counters, ctypes.c_ulonglong(epoch), report, cap_ns)
+            counters, report, cap_ns)
 
 
 def ring_key(ring: Ring) -> str:
@@ -565,11 +599,20 @@ class Endpoint:
         """Leases of ``sizes`` bytes for a collective's results, at its
         start. Where they do not fit, every member adds a segment at once
         (the same program asks for the same bytes at the same collective)
-        and the peers open it (:meth:`_grow`)."""
+        and the peers open it (:meth:`_grow`). In a graph capture, the
+        leases its warm-up took (:class:`Capture`)."""
+        return _lend(self, ("reserve", tuple(sizes)),
+                     lambda: self._reserve(sizes))
+
+    def _reserve(self, sizes: Sequence[int]) -> List[_Lease]:
         short = self.arena.shortfall(sizes)
         if short:
             self._grow(self.arena.grown_size(short))
-        return self.arena.take(sizes)
+        leases = self.arena.take(sizes)
+        capture = _capture_of_thread()
+        if capture is not None:
+            capture.leases.extend(leases)
+        return leases
 
     def _grow(self, nbytes: int) -> None:
         """One more arena segment of ``nbytes`` on every member,
@@ -585,9 +628,15 @@ class Endpoint:
 
     def empty(self, specs: Sequence[Spec]) -> List[torch.Tensor]:
         """A tensor in the arena for each spec (shape, stride, dtype), all
-        leased at once."""
+        leased at once; in a graph capture, the tensors its warm-up took
+        (:class:`Capture`)."""
+        key = ("empty", tuple((tuple(shape), tuple(stride), dtype)
+                              for shape, stride, dtype in specs))
+        return _lend(self, key, lambda: self._empty(specs))
+
+    def _empty(self, specs: Sequence[Spec]) -> List[torch.Tensor]:
         sizes = [spec_bytes(spec) for spec in specs]
-        leases = iter(self.reserve([n for n in sizes if n]))
+        leases = iter(self._reserve([n for n in sizes if n]))
         return [self.arena.tensor(next(leases), shape, stride, dtype)
                 if n else torch.empty_strided(shape, stride, dtype=dtype,
                                               device=self.device)
@@ -601,21 +650,25 @@ class Endpoint:
         ``remote`` tiles into the successor's arena at its posted places
         (each ``dst`` this member's own post), the ``local`` tiles within
         the member. The launch ends once the predecessor's hop has landed
-        here."""
+        here. The card numbers the hop; :attr:`epoch`, the host's count,
+        names it in messages (in a capture each replay adds it)."""
         if self.broken is not None:
             raise RuntimeError(self.broken)
         succ = (self.member + shift) % self.degree
-        epoch = self.epoch + 1
         self._launch(hop_args(
             list(remote) + list(local), len(remote),
             self.peer_counters[succ], self.peer_segments[succ],
-            self.counters, epoch, self.report_dev, int(wait_cap_s * 1e9)))
-        self.epoch = epoch
+            self.counters, self.report_dev, int(wait_cap_s * 1e9)))
+        capture = capturing()
+        if capture is not None:
+            capture.hops[self] = capture.hops.get(self, 0) + 1
+        else:
+            self.epoch += 1
 
     def place(self, tiles: Sequence[Tile]) -> None:
         """``tiles`` within the member in one local launch, which moves
         nothing once a hop of the ring failed (its error word set)."""
-        self._launch(hop_args(tiles, 0, None, [], self.counters, 0,
+        self._launch(hop_args(tiles, 0, None, [], self.counters,
                               self.report_dev, int(wait_cap_s * 1e9)))
 
     def _launch(self, args: tuple) -> None:
@@ -626,28 +679,38 @@ class Endpoint:
         """The error word as the card reported it (read with no copy)."""
         return ctypes.c_int.from_address(self.report_host).value
 
+    def reported_hop(self) -> int:
+        """The number of the first hop that reported an error (0: none),
+        as the card counts them."""
+        return ctypes.c_longlong.from_address(self.report_host
+                                              + REPORT_HOP).value
+
     def finish(self) -> None:
-        """Wait for this process's stream, then raise where a wait of the
-        collective gave up (a peer that died or stalled past the cap) or
-        a post disagreed with this member's table."""
-        torch.cuda.current_stream(self.device).synchronize()
+        """Wait for this process's stream (:func:`wait_for_card`), then
+        raise where a wait of the collective gave up (a peer that died or
+        stalled past the cap) or a post disagreed with this member's
+        table."""
+        wait_for_card(self.device)
         self.check_reported()
 
     def check_reported(self) -> None:
         """Raise where the card reported a wait that gave up or a post
-        that disagreed (the ring is then broken for good)."""
+        that disagreed (the ring is then broken for good), naming the
+        ring and the hop. Read only once the card has done the work
+        (after :func:`wait_for_card`)."""
         code = self.reported()
         if code and self.broken is None:
+            hop = self.reported_hop() or self.epoch
             self.broken = (
                 "ring %s: member %d's hop %d: the successor posted other "
                 "destinations than this member's table sends (the "
                 "processes' tables disagree); the ring is broken"
-                % (self.key, self.member, self.epoch)
+                % (self.key, self.member, hop)
                 if code == TABLES_DIFFER else
                 "ring %s: member %d's hop %d %s: a peer died, stalled past "
                 "the %.1f s cap or found the tables disagree; the ring is "
                 "broken"
-                % (self.key, self.member, self.epoch,
+                % (self.key, self.member, hop,
                    "timed out" if code == TIMED_OUT else "gave up",
                    wait_cap_s))
         if self.broken is not None:
@@ -681,6 +744,104 @@ class Endpoint:
         self.counters = 0
         if failure is not None:
             raise failure
+
+
+# -- CUDA graph captures ------------------------------------------------------
+
+_capture_state = threading.local()
+
+
+def _capture_of_thread() -> Optional["Capture"]:
+    return getattr(_capture_state, "capture", None)
+
+
+def _lend(ep: "Endpoint", key: tuple, make: Callable[[], list]) -> list:
+    capture = _capture_of_thread()
+    return make() if capture is None else capture.lend(ep, key, make)
+
+
+def capturing() -> Optional["Capture"]:
+    """The :class:`Capture` this thread is recording a graph of, if any
+    (not its warm-up)."""
+    capture = _capture_of_thread()
+    return capture if capture is not None and capture.phase == "capture" \
+        else None
+
+
+class Capture:
+    """The rings' side of one CUDA graph capture of a step that issues
+    collectives across processes (``ShardedInference.run``). Every member
+    captures the same step at the same call, so their graphs' hops pair
+    as their eager hops do.
+
+    * :meth:`warm` around the warm-up run (eager, on the capture stream):
+      the arena tensors and leases each endpoint hands out are recorded
+      in order, with what was asked (an arena grows here if it must);
+    * :meth:`capture` around the capture: each endpoint hands out again,
+      in the same order, what its warm-up took, so the capture takes
+      nothing from an arena and grows none (cudaMalloc and an exchange of
+      handles cannot be captured) and makes no tensor over one; a request
+      other than the warm-up's raises. The record holds every lease for
+      the graph's life, so no replay writes into memory handed out again.
+      Each hop is tallied in :attr:`hops`, each host wait in
+      :attr:`host_waits` (a wait inside a capture fails it);
+    * :meth:`held` after the capture: the leases go back, when the graph
+      dies, on the stream its replays run on;
+    * :meth:`replayed` after each replay: the tallied hops added to the
+      endpoints' host counts."""
+
+    def __init__(self):
+        self.phase: Optional[str] = None
+        #: per endpoint: (what was asked, what was handed out), in order,
+        #: and how many of them the capture has had again
+        self.lent: Dict[Endpoint, List[tuple]] = {}
+        self._again: Dict[Endpoint, int] = {}
+        self.leases: List[_Lease] = []
+        self.hops: Dict[Endpoint, int] = {}
+        self.host_waits = 0
+
+    @contextlib.contextmanager
+    def _in(self, phase: str):
+        previous = _capture_of_thread()
+        _capture_state.capture, self.phase = self, phase
+        try:
+            yield self
+        finally:
+            _capture_state.capture, self.phase = previous, None
+
+    def warm(self):
+        return self._in("warm")
+
+    def capture(self):
+        return self._in("capture")
+
+    def lend(self, ep: Endpoint, key: tuple, make: Callable[[], list]
+             ) -> list:
+        """``make()`` recorded in the warm-up; in the capture, the warm-up's
+        result for the same request, in the same order."""
+        if self.phase == "warm":
+            made = make()
+            self.lent.setdefault(ep, []).append((key, made))
+            return list(made)
+        record = self.lent.get(ep, [])
+        i = self._again.get(ep, 0)
+        if i >= len(record) or record[i][0] != key:
+            raise RuntimeError(
+                "ring %s: member %d's CUDA graph capture asks its arena for "
+                "%r where its warm-up asked for %r: a capture takes only "
+                "what its warm-up took" % (
+                    ep.key, ep.member, key,
+                    record[i][0] if i < len(record) else None))
+        self._again[ep] = i + 1
+        return list(record[i][1])
+
+    def held(self, stream) -> None:
+        for lease in self.leases:
+            lease.stream = stream
+
+    def replayed(self) -> None:
+        for ep, hops in self.hops.items():
+            ep.epoch += hops
 
 
 _endpoints: Dict[str, Endpoint] = {}

@@ -31,6 +31,15 @@ all-gather, through the kernel on the card), and sums them in member
 order, the order the one-process step uses. It returns the logits of
 this process's videos.
 
+On the card :meth:`ShardedInference.run` replays one CUDA graph per input
+signature (videos, mask), captured at the signature's first call, as the
+reference runs one compiled ``jit(shard_map)``: the ingest, the forward,
+the masked sums and, across processes, the gather over the sp ring
+(issued with no host wait: ``ring_all_gather_issued``), all inside the
+graph. Across processes the run then waits for the card once and checks
+the ring's error word (:meth:`ShardedInference.finish`). On the CPU the
+run is the eager step with the same end.
+
 :class:`ShardedInference` builds its network as the reference does
 (``variables``, else ``ckpt_path``, else the seeded init, through
 ``checkpoint.load_or_init``) or takes a stage's finished one;
@@ -44,12 +53,14 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rnb_tpu_torch.compilestats import signature_of
 from rnb_tpu_torch.models.r2p1d import checkpoint as ckpt
 from rnb_tpu_torch.models.r2p1d.network import (KINETICS_CLASSES,
                                                 NUM_LAYERS, R18_LAYER_SIZES)
-from rnb_tpu_torch.ops.handoff_dma import ring_all_gather
+from rnb_tpu_torch.ops.handoff_dma import ring_all_gather_issued
 from rnb_tpu_torch.ops.preprocess import normalize_u8
 from rnb_tpu_torch.ops.yuv import normalize_yuv420, packed_frame_bytes
+from rnb_tpu_torch.parallel import peers
 from rnb_tpu_torch.parallel.mesh import (Member, Mesh, Ring, build_mesh,
                                          this_process, visible_devices)
 from rnb_tpu_torch.parallel.shardplan import make_sharded_apply
@@ -133,6 +144,11 @@ class ShardedInference:
         self.sp_ring: Optional[Ring] = None
         if mesh.spans_processes:
             self._place_across()
+        #: on the card: signature -> (CapturedForward, peers.Capture) of
+        #: :meth:`run`, and its graphs, capture seconds and replays
+        self._graphs: Dict[tuple, tuple] = {}
+        self._graph_pool = self._capture_stream = None
+        self.graph_stats = {"graphs": 0, "capture_s": 0.0, "replays": 0}
 
     def _place_across(self) -> None:
         """This process's block of the mesh (dp rows x sp columns) and
@@ -224,10 +240,70 @@ class ShardedInference:
         """-> per-video aggregated logits (videos, num_classes), float32
         (:meth:`step`); over a mesh that spans processes, this process's
         part in (:meth:`place`), its videos' logits out
-        (:meth:`step_across`)."""
-        if self.local_dp is not None:
-            return self.step_across(vids, mask)
-        return self.step(vids, mask)
+        (:meth:`step_across`). On the card one replay of the step's CUDA
+        graph at the inputs' signature (captured at its first call,
+        :meth:`_capture`), with no host wait inside; on the CPU the eager
+        step. Then :meth:`finish`: across processes the run's one host
+        wait and the ring's check."""
+        step = self.step if self.local_dp is None else self.step_across
+        if self.device.type == "cuda":
+            captured = self._graphs.get(signature_of(vids, mask))
+            if captured is None:
+                captured = self._capture(step, vids, mask)
+            graph, capture = captured
+            out = graph.replay(vids, mask)
+            capture.replayed()
+            self.graph_stats["replays"] += 1
+        else:
+            out = step(vids, mask)
+        self.finish()
+        return out
+
+    def finish(self) -> None:
+        """Where a step over a mesh that spans processes ends: one host
+        wait for this process's stream (``peers.wait_for_card``), then the
+        sp ring's error word checked (``peers.Endpoint.check_reported``),
+        which raises naming the ring and the hop that failed. Nothing
+        where the step issued no collective (one process, or a process
+        holding its whole sp row)."""
+        if self.sp_ring is None:
+            return
+        peers.wait_for_card(self.device)
+        if self.device.type == "cuda":
+            peers.endpoint(self.sp_ring).check_reported()
+
+    def _capture(self, step, vids: torch.Tensor, mask: torch.Tensor
+                 ) -> tuple:
+        """Capture ``step`` at the signature of ``vids`` and ``mask`` as
+        one CUDA graph (``model.capture_forward``: static inputs, a
+        warm-up on the capture stream, the capture in thread-local mode),
+        under the device lock. Across processes every member captures the
+        same signature at the same call: the warm-up's hops pair as an
+        eager step's, and the capture gets the arena tensors the warm-up
+        took, which the graph holds for its life (``peers.Capture``). A
+        capture that fails raises."""
+        from rnb_tpu_torch.models.r2p1d.model import (_DEVICE_SYNC_LOCK,
+                                                      capture_forward)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        capture = peers.Capture()
+        static_in = torch.zeros_like(vids, device=self.device)
+        static_mask = torch.ones_like(mask, device=self.device)
+
+        def run():
+            phase = capture.capture \
+                if torch.cuda.is_current_stream_capturing() else capture.warm
+            with phase():
+                return step(static_in, static_mask)
+        with _DEVICE_SYNC_LOCK:
+            graph = capture_forward(run, static_in, static_mask,
+                                    self._graph_pool, self._capture_stream)
+        capture.held(torch.cuda.current_stream(self.device))
+        self._graphs[signature_of(vids, mask)] = (graph, capture)
+        self.graph_stats["graphs"] = len(self._graphs)
+        self.graph_stats["capture_s"] += graph.capture_s
+        return graph, capture
 
     def predict(self, videos_u8: np.ndarray,
                 valid_clips: Sequence[int]) -> np.ndarray:
@@ -290,11 +366,12 @@ class ShardedInference:
         """The sharded step of this process's block: one forward over its
         rows (:meth:`step_partials`), every member's partial of these
         videos gathered over the sp ring (the ring all-gather across
-        processes) and summed in member order."""
+        processes, issued with no host wait) and summed in member order.
+        What a stage captures; its caller ends it with :meth:`finish`."""
         partials = self.step_partials(vids, mask)
         if self.sp_ring is not None:
-            (partials,) = ring_all_gather([partials.contiguous()],
-                                          self.sp_ring, axis=1)
+            ((partials,),) = ring_all_gather_issued(
+                [[partials.contiguous()]], 1, self.sp_ring)
         total = partials[:, 0]
         for member in range(1, self.sp_size):
             total = total + partials[:, member]

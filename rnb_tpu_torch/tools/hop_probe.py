@@ -35,10 +35,10 @@ publication) and ``sync`` (those alone, one block). Variants:
   and 16-byte aligned (loaded once the post is checked).
 
 With ``--parent DIR`` (another checkout, e.g. the parent commit unpacked
-with ``git archive``), that tree's hop as ``parent``: its send launch
-into the same peer range and its place launch out of a local window,
-neither waiting, the two launches of its hop. Also ``Tensor.copy_`` of
-the shard into the peer's range (``library``). Times are
+with ``git archive``), that tree's hop as ``parent``, through the same
+calls: its entry takes the hop's number from the host (an argument after
+the member's counter allocation), where this one reads it from the card.
+Also ``Tensor.copy_`` of the shard into the peer's range (``library``). Times are
 ``chip_smoke.py``'s (profiler device time), in two turns in opposite
 orders; each variant's landed bytes are checked against the shard, and
 the pinned error word is printed (``no_signal``'s set-up, whose own
@@ -130,7 +130,7 @@ VARIANTS: Dict[str, List[Tuple[str, str]]] = {
         (_SIGNAL, "    __threadfence_system();\n" + _SIGNAL)],
     # parts cut out (the timed calls' waits are satisfied either way)
     "no_post": [("    if (control) poster.run();",
-                 "    if (control && sync.epoch == 1) poster.run();")],
+                 "    if (control && epoch == 1) poster.run();")],
     "no_waits": [(_WAIT, "  while (false && load_acquire_sys(word) < "
                          "target) {")],
     "no_signal": [(_SIGNAL, "")],
@@ -147,14 +147,30 @@ VARIANTS: Dict[str, List[Tuple[str, str]]] = {
     "bulk": [(_BULK_AT, _BULK + _BULK_AT), (_DISPATCH, _BULK_DISPATCH),
              (_EARLY, "    early = false &&")],
 }
-#: the parent's rnb_ring_hop: the table, then the counter waited on and
-#: its target, the counter signalled, the word of finished blocks, the
-#: error word, the pinned word, the cap, and the layout with its words
-_PARENT_HOP = _kernels._RING_TABLE + [
-    ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
-    ctypes.c_void_p, ctypes.c_void_p]
+_HOP = _kernels.RING_SHIFT.entries[_kernels.RING_HOP_ENTRY]
+#: where the parent's rnb_ring_hop takes the hop's number: right after
+#: the member's counter allocation
+_PARENT_EPOCH_AT = 15
+_PARENT_HOP = (_HOP[:_PARENT_EPOCH_AT] + [ctypes.c_ulonglong]
+               + _HOP[_PARENT_EPOCH_AT:])
 TIMEOUT_S = 900
+
+
+def parent_launch(fn, stream):
+    """A launch of the parent's entry from this tree's arguments: the
+    hop's number inserted, 1 for ``hop_calls``' set-up launch (its own
+    counters are the successor's, which it posts into and signals), then
+    counting up (every timed call's waits are satisfied at any number)."""
+    count = [1]
+
+    def launch(args):
+        setup = args[10] is not None and args[10] == args[14]
+        epoch = 1 if setup else count[0]
+        count[0] += 0 if setup else 1
+        code = fn(*args[:_PARENT_EPOCH_AT], epoch,
+                  *args[_PARENT_EPOCH_AT:], 0, stream)
+        assert code == 0, code
+    return launch
 
 
 def sources(parent: str) -> Dict[str, str]:
@@ -224,21 +240,16 @@ def child(out: str, parent: str) -> int:
             if isinstance(lib, str):
                 rows.append({"variant": variant, "build_error": lib[-3000:]})
                 continue
-            if variant == "parent":
-                fn = lib.rnb_ring_hop
-                fn.restype = ctypes.c_int
-                fn.argtypes = _PARENT_HOP + [ctypes.c_int, ctypes.c_void_p]
-                calls[(variant, "hop")] = parent_hop(fn, source, target_ptr,
-                                                     nbytes, device, stream)
-                continue
             fn = lib.rnb_ring_hop
             fn.restype = ctypes.c_int
-            fn.argtypes = _kernels.RING_SHIFT.entries[
-                _kernels.RING_HOP_ENTRY] + [ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = (_PARENT_HOP if variant == "parent" else _HOP) \
+                + [ctypes.c_int, ctypes.c_void_p]
 
             def launch(args, fn=fn):
                 code = fn(*args, 0, stream)
                 assert code == 0, code
+            if variant == "parent":
+                launch = parent_launch(fn, stream)
             for part, call in chip_smoke.hop_calls(
                     ep, source, target_ptr, place, device, launch).items():
                 if not part.startswith("_"):
@@ -269,32 +280,6 @@ def child(out: str, parent: str) -> int:
     del target, got
     distributed.shutdown()
     return 0
-
-
-def parent_hop(fn, source, target_ptr, nbytes, device, stream):
-    """The parent's hop alone: its send launch (the shard into the
-    peer's range) and its place launch (a local window into a local
-    destination), neither waiting nor signalling."""
-    import torch
-    window = torch.empty(nbytes, dtype=torch.uint8, device=device)
-    out = torch.empty(nbytes, dtype=torch.uint8, device=device)
-    done = torch.zeros(64, dtype=torch.int32, device=device)
-    error = torch.zeros(64, dtype=torch.int32, device=device)
-    tables = []
-    for src, dst in ((source.data_ptr(), target_ptr),
-                     (window.data_ptr(), out.data_ptr())):
-        (table,) = _kernels.ring_table([_kernels.RingTableEntry(
-            (src,), (dst,), (nbytes,), (nbytes,), 0, 1, nbytes)], 1)
-        tables.append(table)
-
-    def call():
-        for table in tables:
-            code = fn(*table, None, 0, None, done.data_ptr(),
-                      error.data_ptr(), None, 10 ** 9, 0, None, None, 0,
-                      stream)
-            assert code == 0, code
-    call.keep = (window, out, done, error)
-    return call
 
 
 def main(argv=None) -> int:

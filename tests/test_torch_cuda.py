@@ -776,3 +776,119 @@ def test_processes_whose_shapes_disagree_fail_the_hop_on_the_card(
     script.write_text(_DISAGREE)
     for ended in launch(2, [sys.executable, str(script)], 300):
         assert ended.returncode == 0, ended.stderr[-4000:]
+
+
+def _tiny_sharded(device, **kwargs):
+    """A small ShardedInference over dp 1 x sp 2 members on ``device``:
+    2 frames, layer sizes (1, 1, 1, 1), 8 classes, 3 clips."""
+    from rnb_tpu_torch.parallel import build_mesh, make_sharded_inference
+    return make_sharded_inference(
+        mesh=build_mesh([device] * 2, axes={"dp": 1, "sp": 2}),
+        max_clips=3, consecutive_frames=2, num_classes=8,
+        layer_sizes=(1, 1, 1, 1), **kwargs)
+
+
+@pytest.mark.parametrize("pixel_path", ["rgb", "yuv420"])
+def test_the_run_replays_one_captured_graph_bitwise_its_eager_step(
+        device, pixel_path):
+    # tolerance: none (the graph replays the eager step's kernels on the
+    # same inputs). The first run captures (its warm-up one ingest
+    # launch), each run is one replay of one ingest launch, no host wait
+    from rnb_tpu_torch.parallel import peers
+    si = _tiny_sharded(device, pixel_path=pixel_path)
+    kernel = {"rgb": "normalize_u8", "yuv420": "yuv420_normalize"}[
+        pixel_path]
+    rng = np.random.default_rng(9)
+    for k in range(3):
+        videos = rng.integers(0, 256, si.batch_shape(2), dtype=np.uint8)
+        vids, mask = si.place(videos, [3, 1 + k])
+        torch.cuda.synchronize(device)
+        before = _kernels.launch_counts()
+        waits = peers.host_waits
+        got = si.run(vids, mask)
+        after = _kernels.launch_counts()
+        assert peers.host_waits == waits
+        assert {n: after[n] - before[n] for n in after
+                if after[n] != before[n]} == {kernel: 2 if k == 0 else 1}
+        with torch.inference_mode():
+            assert torch.equal(got, si.step(vids, mask))
+    assert si.graph_stats["graphs"] == 1 and si.graph_stats["replays"] == 3
+
+
+def test_a_run_whose_capture_fails_raises(device):
+    si = _tiny_sharded(device)
+    network = si.network
+
+    class Syncs(torch.nn.Module):
+        """A forward that reads a value back to the host: not
+        capturable."""
+
+        def forward(self, x):
+            out = network(x)
+            if float(out.sum()) != float(out.sum()):
+                raise AssertionError("unreachable")
+            return out
+
+    si.network = Syncs()
+    vids, mask = si.place(np.zeros(si.batch_shape(2), np.uint8), [3, 3])
+    with pytest.raises(RuntimeError):
+        si.run(vids, mask)
+    torch.cuda.synchronize(device)
+    assert si.graph_stats["graphs"] == 0 and si.graph_stats["replays"] == 0
+
+
+#: one process of the launch below: ShardedInference.run across the two
+#: processes, captured at its first call, replayed on new videos, each
+#: replay bitwise the eager step_across and one hop on the card (the same
+#: launch, replayed, is the next hop: the card's count of hops equals the
+#: host's), with one host wait, at the run's end
+_CAPTURED_ACROSS = '''
+import numpy as np
+import torch
+from rnb_tpu_torch.ops import _kernels
+from rnb_tpu_torch.parallel import distributed, make_sharded_inference, peers
+assert distributed.maybe_initialize()
+rank, n = distributed.process_index(), distributed.process_count()
+device = distributed.local_device()
+torch.cuda.set_device(device)
+si = make_sharded_inference(
+    mesh=distributed.global_mesh(axes={"dp": 1, "sp": n}), max_clips=3,
+    consecutive_frames=2, num_classes=8, layer_sizes=(1, 1, 1, 1))
+rng = np.random.default_rng(4)
+for k in range(4):
+    videos = rng.integers(0, 256, si.batch_shape(2), dtype=np.uint8)
+    vids, mask = si.place(videos, [3, 1 + k % 3])
+    torch.cuda.synchronize()
+    before = _kernels.RING_SHIFT.launches
+    waits = peers.host_waits
+    got = si.run(vids, mask)
+    assert peers.host_waits == waits + 1
+    assert _kernels.RING_SHIFT.launches == before + (2 if k == 0 else 1)
+    with torch.inference_mode():
+        eager = si.step_across(vids, mask)
+    assert peers.host_waits == waits + 1  # the eager step waits for nothing
+    si.finish()
+    assert torch.equal(got, eager)
+ep = peers.endpoint(si.sp_ring)
+torch.cuda.synchronize()
+counters = torch.as_tensor(type("W", (), {"__cuda_array_interface__": {
+    "shape": (peers.COUNTER_BYTES,), "typestr": "|u1",
+    "data": (ep.counters, False), "version": 2}})(), device=device)
+hops = int(counters.view(torch.int64)[peers.HOPS // 8])
+# warm-up, then 4 replays and 4 eager steps
+assert hops == ep.epoch == 9, (hops, ep.epoch)
+assert si.graph_stats["graphs"] == 1 and si.graph_stats["replays"] == 4
+del counters
+distributed.shutdown()
+'''
+
+
+def test_the_run_across_two_processes_replays_its_captured_graph(
+        device, tmp_path):
+    # tolerance: none (each replay against the eager step on its inputs)
+    import sys
+    from rnb_tpu_torch.tools.launch import launch
+    script = tmp_path / "captured_across.py"
+    script.write_text(_CAPTURED_ACROSS)
+    for ended in launch(2, [sys.executable, str(script)], 300):
+        assert ended.returncode == 0, ended.stderr[-4000:]

@@ -362,17 +362,33 @@ def weights(tmp_path_factory):
     return variables, str(path)
 
 
+@pytest.fixture(scope="module")
+def sharded_runs(weights, tmp_path_factory):
+    """``get(case)``: the results of the ``sharded`` launch of a case of
+    SHARDED, run once a module."""
+    launched = {}
+
+    def get(case):
+        if case not in launched:
+            pixel_path, dtype, count, members, axes, max_clips = \
+                SHARDED[case]
+            launched[case] = _launch(
+                tmp_path_factory.mktemp("sharded"), count, "sharded",
+                weights=weights[1], members=members, axes=axes,
+                dtype=dtype, pixel_path=pixel_path, max_clips=max_clips,
+                seed=7, videos=2 * axes["dp"])
+        return launched[case]
+    return get
+
+
 @pytest.mark.parametrize("case", sorted(SHARDED))
 def test_sharded_inference_across_processes_matches_the_reference(
-        weights, tmp_path, case):
+        weights, sharded_runs, case):
     pixel_path, dtype, count, members, axes, max_clips = SHARDED[case]
     variables, path = weights
     dp, sp = axes["dp"], axes["sp"]
     videos_n = 2 * dp
-    results = _launch(tmp_path, count, "sharded", weights=path,
-                      members=members, axes=axes, dtype=dtype,
-                      pixel_path=pixel_path, max_clips=max_clips, seed=7,
-                      videos=videos_n)
+    results = sharded_runs(case)
     tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
     theirs = jax_sharded.make_sharded_inference(
         mesh=JaxMesh(np.array(jax.devices()[:dp * sp]).reshape(dp, sp),
@@ -412,6 +428,39 @@ def test_sharded_inference_across_processes_matches_the_reference(
             assert got["ring"] is not None and rank in got["ring"]
         else:
             assert got["ring"] is None
+
+
+@pytest.mark.parametrize("case", sorted(SHARDED))
+def test_the_run_across_processes_waits_once_where_it_ends(sharded_runs,
+                                                           case):
+    # tolerance: none. The eager step issues its gather over the sp ring
+    # with no host wait (the route the card's graph captures); the run,
+    # the same step, waits once where it ends, only where it gathered
+    # across processes, and gives the eager step's logits bitwise
+    for got in sharded_runs(case):
+        across = got["ring"] is not None
+        assert got["host_waits"] == (0, 1 if across else 0)
+        assert torch.equal(got["eager"], got["logits"])
+
+
+@pytest.mark.parametrize("pixel_path", ["rgb", "yuv420"])
+def test_a_one_process_run_is_its_step_and_waits_for_nothing(weights,
+                                                             pixel_path):
+    # tolerance: none. On the CPU the run is the eager step, captures
+    # nothing and, with no collective across processes, waits for nothing
+    si = parallel.make_sharded_inference(
+        mesh=mesh.build_mesh([CPU] * 2, axes={"dp": 1, "sp": 2}),
+        variables=torch.load(weights[1]), pixel_path=pixel_path,
+        max_clips=3, dtype=torch.float32, **children.TINY_SI)
+    rng = np.random.default_rng(3)
+    videos = rng.integers(0, 256, si.batch_shape(2), dtype=np.uint8)
+    vids, mask = si.place(videos, [3, 1])
+    before = peers.host_waits
+    got = si.run(vids, mask)
+    assert peers.host_waits == before
+    with torch.inference_mode():
+        assert torch.equal(got, si.step(vids, mask))
+    assert si.graph_stats == {"graphs": 0, "capture_s": 0.0, "replays": 0}
 
 
 # -- meshes, rings and shardings that span processes (one process) --------
@@ -532,12 +581,26 @@ class _Pair:
         return self.a.view(torch.int32)[peers.ERROR // 4].item()
 
     def launch(self, fn, tiles, remote, epoch=1, cap_s=5.0, segments=None):
+        """A's hop ``epoch``: A's count of hops launched, on the card,
+        set to ``epoch - 1`` (the launch takes one more)."""
+        _words(self.a)[peers.HOPS // 8] = epoch - 1
         segments = [(self.arena.data_ptr(), self.arena.numel())] \
             if segments is None else segments
-        return fn(*peers.hop_args(tiles, remote, self.b.data_ptr(),
-                                  segments, self.a.data_ptr(), epoch,
-                                  self.report.data_ptr(),
-                                  int(cap_s * 1e9)), 0, None)
+        return fn(*self.args(tiles, remote, cap_s, segments), 0, None)
+
+    def args(self, tiles, remote, cap_s=5.0, segments=None):
+        segments = [(self.arena.data_ptr(), self.arena.numel())] \
+            if segments is None else segments
+        return peers.hop_args(tiles, remote, self.b.data_ptr(), segments,
+                              self.a.data_ptr(), self.report.data_ptr(),
+                              int(cap_s * 1e9))
+
+    def hops(self):
+        """A's count of hops launched, as the card keeps it."""
+        return int(_words(self.a)[peers.HOPS // 8])
+
+    def reported_hop(self):
+        return int(self.report.view(torch.int64)[peers.REPORT_HOP // 8])
 
 
 def _remote(src, place, pitch=None):
@@ -567,6 +630,7 @@ def test_the_hop_moves_and_signals_once_its_counter_is_reached(hops):
     assert _words(pair.a)[peers.DONE // 8] == 0
     assert pair.a.view(torch.int32)[peers.CLAIM // 4] == 0
     assert pair.error() == 0 and pair.report[0] == 0
+    assert pair.hops() == 1 and pair.reported_hop() == 0
 
 
 def test_a_wait_past_its_cap_writes_the_error_and_moves_nothing(hops):
@@ -578,6 +642,7 @@ def test_a_wait_past_its_cap_writes_the_error_and_moves_nothing(hops):
     assert time.monotonic() - t0 < 10.0
     assert pair.error() == peers.TIMED_OUT  # timed out, and reported
     assert pair.report[0] == peers.TIMED_OUT
+    assert pair.reported_hop() == 1 and pair.hops() == 1
     assert (pair.arena == 0xA5).all()
     assert _words(pair.b)[peers.RECV // 8] == 0  # signals nothing
     assert _words(pair.a)[peers.DONE // 8] == 0
@@ -590,10 +655,12 @@ def test_a_wait_past_its_cap_writes_the_error_and_moves_nothing(hops):
     assert time.monotonic() - t0 < 4.0
     assert (pair.arena == 0xA5).all()
     assert _words(pair.b)[peers.RECV // 8] == 0
+    # the first failing hop stays the one reported
+    assert pair.reported_hop() == 1 and pair.hops() == 2
     # and a local launch moves nothing either
     dst = torch.zeros(64, dtype=torch.uint8)
     assert hops[0](*peers.hop_args([_tile(src, dst)], 0, None, [],
-                                   pair.a.data_ptr(), 0, None, 10), 0,
+                                   pair.a.data_ptr(), None, 10), 0,
                    None) == 0
     assert not dst.any()
 
@@ -616,28 +683,29 @@ def test_the_hop_refuses_a_launch_without_its_words(hops):
     fn = hops[0]
     segment = [(pair.arena.data_ptr(), pair.arena.numel())]
 
-    def call(tiles, remote, succ, segments, own, epoch, cap, count=None):
+    def call(tiles, remote, succ, segments, own, cap, count=None):
         args = list(peers.hop_args(tiles, remote, succ, segments, own,
-                                   epoch, None, cap))
+                                   None, cap))
         if count is not None:
             args[13] = count
         return fn(*args, 0, None)
     tile = _remote(src, 0)
     a, b = pair.a.data_ptr(), pair.b.data_ptr()
     dst = torch.zeros(16, dtype=torch.uint8)
-    assert call([_tile(src, dst)], 0, None, [], a, 0, 10) == 0
+    assert call([_tile(src, dst)], 0, None, [], a, 10) == 0
     assert torch.equal(dst, src)  # a local launch moves
-    assert call([tile], 1, b, segment, None, 1, 10) != 0  # no counters
-    assert call([tile], 1, b, segment, a, 1, -1) != 0  # a negative cap
-    assert call([tile], 2, b, segment, a, 1, 10) != 0  # remote > entries
-    assert call([tile], 1, None, [], a, 0, 10) != 0  # remote, no successor
-    assert call([tile], 1, b, segment, a, 0, 10) != 0  # a hop of epoch 0
-    assert call([tile], 1, b, segment, a, 1, 10, count=17) != 0
-    assert call([tile], 1, b, [(0, 1 << 40)], a, 1, 10) != 0
+    assert pair.hops() == 0  # and is no hop
+    assert call([tile], 1, b, segment, None, 10) != 0  # no counters
+    assert call([tile], 1, b, segment, a, -1) != 0  # a negative cap
+    assert call([tile], 2, b, segment, a, 10) != 0  # remote > entries
+    assert call([tile], 1, None, [], a, 10) != 0  # remote, no successor
+    assert call([tile], 1, b, segment, a, 10, count=17) != 0
+    assert call([tile], 1, b, [(0, 1 << 40)], a, 10) != 0
     empty = peers.Tile(src.data_ptr(), 0, 0, 16, 16, 16)
-    assert call([empty], 1, b, segment, a, 1, 10) != 0  # an empty remote
+    assert call([empty], 1, b, segment, a, 10) != 0  # an empty remote
+    assert pair.hops() == 0  # a refused launch runs nothing
     with pytest.raises(ValueError, match="at most 64 tiles"):
-        peers.hop_args([tile] * 65, 0, b, segment, a, 1, None, 10)
+        peers.hop_args([tile] * 65, 0, b, segment, a, None, 10)
 
 
 def _tile(src, dst):
@@ -674,8 +742,125 @@ def test_a_post_that_disagrees_writes_the_error_and_moves_nothing(hops,
     assert pair.launch(hops[0], [mine, _tile(local_src, local_dst)], 1) == 0
     assert pair.error() == peers.TABLES_DIFFER
     assert pair.report[0] == peers.TABLES_DIFFER
+    assert pair.reported_hop() == 1 and pair.hops() == 1
     assert (pair.arena == 0xA5).all() and not local_dst.any()
     assert _words(pair.b)[peers.RECV // 8] == 0
+
+
+def _by_hand(kind, src, local_src, local_dst):
+    """A hop of ``kind`` by hand: A's tiles, how many land in B, and B's
+    post of them (place, rows, row_bytes, pitch)."""
+    if kind == "dense":
+        return [_remote(src, 256)], 1, [(256, 1, 64, 64)]
+    if kind == "pitched":
+        # four rows of 16 bytes, landing in B at a pitch of 32
+        return [peers.Tile(src.data_ptr(), 0, 4, 16, 16, 32)], 1, [
+            (128, 4, 16, 32)]
+    if kind == "with_local":
+        return [_remote(src, 256), _tile(local_src, local_dst)], 1, [
+            (256, 1, 64, 64)]
+    return [], 0, []
+
+
+@pytest.mark.parametrize("kind", ["dense", "pitched", "with_local", "empty"])
+def test_the_same_launch_arguments_launched_twice_are_two_hops(hops, kind):
+    # tolerance: none. One set of C arguments, launched twice (what a
+    # replayed graph does): the card numbers the launches 1 and 2 (A's
+    # count of hops, which each stores back), each posts its own number,
+    # takes only B's post of that number, moves the source's bytes as they
+    # are at its launch and signals B once
+    src = torch.arange(64, dtype=torch.uint8)
+    local_src = torch.arange(100, dtype=torch.uint8)
+    local_dst = torch.zeros(100, dtype=torch.uint8)
+    pair = _Pair()
+    tiles, remote, post = _by_hand(kind, src, local_src, local_dst)
+    args = pair.args(tiles, remote)
+    for hop in (1, 2):
+        src.add_(hop)
+        local_src.add_(hop)
+        _post(pair.b, post, hop)
+        _words(pair.a)[peers.RECV // 8] = hop
+        assert hops[0](*args, 0, None) == 0
+        assert pair.error() == 0 and pair.report[0] == 0
+        assert pair.hops() == hop
+        assert _words(pair.a)[peers.POSTED // 8] == hop
+        assert _words(pair.b)[peers.RECV // 8] == hop
+        if kind == "pitched":
+            for r in range(4):
+                assert torch.equal(pair.arena[128 + 32 * r:144 + 32 * r],
+                                   src[16 * r:16 * r + 16])
+                assert (pair.arena[144 + 32 * r:160 + 32 * r] == 0xA5).all()
+        elif kind != "empty":
+            assert torch.equal(pair.arena[256:320], src)
+        if kind == "with_local":
+            assert torch.equal(local_dst, local_src)
+        if kind == "empty":
+            assert (pair.arena == 0xA5).all()
+
+
+@pytest.mark.parametrize("launched", [1, 2, 7])
+def test_a_stale_post_of_the_last_hop_is_not_taken(hops, launched):
+    # A has launched `launched` hops and B's post is still that of the
+    # last one: A's next launch is hop launched + 1, which waits for B's
+    # post of that number, gives up at the cap, writes and reports
+    # TIMED_OUT with its number, and moves nothing (a replay never reads
+    # the previous replay's post)
+    src = torch.arange(64, dtype=torch.uint8)
+    pair = _Pair()
+    _post(pair.b, [(0, 1, 64, 64)], launched)
+    _words(pair.a)[peers.RECV // 8] = launched + 1
+    assert pair.launch(hops[0], [_remote(src, 0)], 1, epoch=launched + 1,
+                       cap_s=0.05) == 0
+    assert pair.error() == peers.TIMED_OUT == pair.report[0]
+    assert pair.reported_hop() == launched + 1 == pair.hops()
+    assert _words(pair.a)[peers.POSTED // 8] == launched + 1
+    assert (pair.arena == 0xA5).all()
+    assert _words(pair.b)[peers.RECV // 8] == 0
+
+
+@pytest.mark.parametrize("later", ["hop", "local"])
+@pytest.mark.parametrize("cause", ["timed_out", "tables_differ", "set"])
+def test_a_set_error_word_sticks_and_later_launches_move_nothing(
+        hops, cause, later):
+    # tolerance: none. Once A's error word is set (a wait past its cap, a
+    # post that disagreed, or set before any launch), two later launches
+    # move nothing even where B posted rightly: no byte lands, B is not
+    # signalled, the word keeps its value and the report its first
+    # failing hop. A hop still counts (the members' counts stay in step);
+    # a local launch is no hop
+    src = torch.arange(64, dtype=torch.uint8)
+    pair = _Pair()
+    code = peers.TABLES_DIFFER if cause == "tables_differ" \
+        else peers.TIMED_OUT
+    if cause == "set":
+        pair.a.view(torch.int32)[peers.ERROR // 4] = code
+    else:
+        if cause == "tables_differ":
+            _post(pair.b, [(0, 1, 32, 32)], 1)
+        _words(pair.a)[peers.RECV // 8] = 1
+        assert pair.launch(hops[0], [_remote(src, 0)], 1, cap_s=0.05) == 0
+    assert pair.error() == code
+    first = pair.hops()
+    for k in range(2):
+        epoch = first + 1 + k
+        _post(pair.b, [(0, 1, 64, 64)], epoch)
+        _words(pair.a)[peers.RECV // 8] = epoch
+        if later == "hop":
+            assert hops[0](*pair.args([_remote(src, 0)], 1, cap_s=0.05), 0,
+                           None) == 0
+            assert pair.hops() == epoch
+        else:
+            dst = torch.zeros(64, dtype=torch.uint8)
+            assert hops[0](*peers.hop_args(
+                [_tile(src, dst)], 0, None, [], pair.a.data_ptr(),
+                pair.report.data_ptr(), 10), 0, None) == 0
+            assert not dst.any() and pair.hops() == first
+        assert pair.error() == code
+        assert (pair.arena == 0xA5).all()
+        assert _words(pair.b)[peers.RECV // 8] == 0
+    reported = cause != "set" or later == "hop"
+    assert pair.report[0] == (code if reported else 0)
+    assert pair.reported_hop() == (1 if reported else 0)
 
 
 class _HostEndpoint(peers.Endpoint):
@@ -700,6 +885,7 @@ class _HostEndpoint(peers.Endpoint):
         self.report_host = self.report_dev = self.report_word.data_ptr()
         self.arena = peers.Arena(CPU, self._allocate, lambda ptr: None)
         self.launches = []
+        self.captured = []
 
     def link(self):
         self.peer_counters = {ep.member: ep.counters for ep in self.group
@@ -719,11 +905,16 @@ class _HostEndpoint(peers.Endpoint):
 
     def _launch(self, args):
         self.launches.append(args)
-        if self.fn:
+        if peers.capturing() is not None:
+            # a captured launch runs only when the graph is replayed
+            self.captured.append(args)
+        elif self.fn:
             assert self.fn(*args, 0, None) == 0
 
-    def finish(self):
-        self.check_reported()
+    def replay(self):
+        """Run the captured launches again, as a graph's replay does."""
+        for args in self.captured:
+            assert self.fn(*args, 0, None) == 0
 
 
 _member = __import__("threading").local()
@@ -761,8 +952,10 @@ def _members(monkeypatch, hops, n, run, live=True):
         monkeypatch.undo()
     for ep in group:
         assert ep.reported() == 0
+        # the card's count of hops launched is the host's
         assert not live or _words(ep.counter_bytes)[
-            peers.RECV // 8] == ep.epoch
+            peers.RECV // 8] == ep.epoch == _words(ep.counter_bytes)[
+                peers.HOPS // 8]
     return results, group
 
 
@@ -1041,6 +1234,146 @@ def test_each_process_s_reduce_scatter_through_the_hop_kernel_is_exact(
     chunks, group = _members(monkeypatch, hops, n, run)
     assert torch.equal(torch.cat(chunks, -1), total)
     assert all(len(ep.launches) == n - 1 for ep in group)
+
+
+#: replays of a captured gather
+REPLAYS = 3
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_a_captured_gather_replays_as_each_member_s_next_hops(
+        hops, monkeypatch, n):
+    # tolerance: none. Every member warms a gather up (eager), makes its
+    # arena hold the warm-up's leases, captures the same gather (its
+    # launches recorded, not run; its leases held by the capture), then
+    # replays the recorded launches, all members at once, with new shards
+    # in the captured input: each replay is every member's next n - 1
+    # hops on the card and gathers that replay's shards bitwise, no host
+    # wait is made, and the capture's leases stay leased until it dies
+    fulls = [children.values("float32", (8, 4, 8), seed=100 * n + r)
+             for r in range(REPLAYS + 1)]
+    before = peers.host_waits
+
+    def run(ring, m):
+        ep = peers.endpoint(ring)
+        static = children.shard(fulls[0], n, -1, m).clone()
+        capture = peers.Capture()
+        with capture.warm():
+            ((warm,),) = dma.ring_all_gather_issued([[static]], -1, ring)
+        warmed = torch.equal(warm, fulls[0])
+        del warm
+        with capture.capture():
+            ((out,),) = dma.ring_all_gather_issued([[static]], -1, ring)
+        recorded = len(ep.captured)
+        replays = []
+        for r in range(1, REPLAYS + 1):
+            static.copy_(children.shard(fulls[r], n, -1, m))
+            ep.replay()
+            capture.replayed()
+            replays.append(out.clone())
+        held = _in_arena(ep, out)
+        del out
+        leased = sum(ep.arena.leased)
+        hops_tallied = dict(capture.hops)
+        del capture
+        return (warmed, recorded, replays, held, leased,
+                sum(ep.arena.leased), hops_tallied)
+    results, group = _members(monkeypatch, hops, n, run)
+    assert peers.host_waits == before
+    for m, (ep, got) in enumerate(zip(group, results)):
+        warmed, recorded, replays, held, leased, after, tallied = got
+        assert warmed and recorded == n - 1 and held
+        assert tallied == {ep: n - 1}
+        for r, out in enumerate(replays, 1):
+            assert torch.equal(out, fulls[r])
+        # the capture held its lease after its tensor died; then let go
+        assert leased > 0 and after == 0
+        assert ep.epoch == (n - 1) * (REPLAYS + 1)
+
+
+#: arena requests of a warm-up, as (kind, what)
+WARM_UP = [("empty", [((4, 6), (6, 1), torch.float32),
+                      ((0, 3), (3, 1), torch.uint8)]),
+           ("reserve", [100, 3000]), ("reserve", [])]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_a_capture_gets_again_what_its_warm_up_took(hops, monkeypatch, n):
+    # a capture takes nothing from an arena, grows none (cudaMalloc and an
+    # exchange of handles cannot be captured) and makes no tensor over one:
+    # each endpoint hands it, in order, the tensors and leases its warm-up
+    # took, which the capture holds until it dies
+    def ask(ep, kind, what):
+        return ep.empty(what) if kind == "empty" else ep.reserve(what)
+
+    def run(ring, m):
+        ep = peers.endpoint(ring)
+        capture = peers.Capture()
+        with capture.warm():
+            warm = [ask(ep, kind, what) for kind, what in WARM_UP]
+        segments, leased = len(ep.arena.sizes), sum(ep.arena.leased)
+        with capture.capture():
+            again = [ask(ep, kind, what) for kind, what in WARM_UP]
+        same = all(a is b for w, g in zip(warm, again) for a, b in zip(w, g))
+        grown = len(ep.arena.sizes) - segments
+        more = sum(ep.arena.leased) - leased
+        del warm, again
+        held = sum(ep.arena.leased)
+        del capture
+        return same, grown, more, held, sum(ep.arena.leased)
+    results, _ = _members(monkeypatch, hops, n, run, live=False)
+    for same, grown, more, held, after in results:
+        assert same and grown == 0 and more == 0
+        assert held == _aligned(96) + _aligned(100) + _aligned(3000)
+        assert after == 0
+
+
+def _aligned(nbytes):
+    return -(-nbytes // peers.ARENA_ALIGN) * peers.ARENA_ALIGN
+
+
+@pytest.mark.parametrize("asked", ["another_shape", "more", "unwarmed"])
+def test_a_capture_asking_what_its_warm_up_did_not_raises(
+        hops, monkeypatch, asked):
+    def run(ring, m):
+        ep = peers.endpoint(ring)
+        capture = peers.Capture()
+        if asked != "unwarmed":
+            with capture.warm():
+                ep.empty([((4, 6), (6, 1), torch.float32)])
+        segments = len(ep.arena.sizes)
+        with capture.capture():
+            if asked == "more":
+                ep.empty([((4, 6), (6, 1), torch.float32)])
+            with pytest.raises(RuntimeError,
+                               match="takes only what its warm-up took"):
+                ep.empty([((4, 7), (7, 1), torch.float32)])
+        return len(ep.arena.sizes) - segments
+    results, _ = _members(monkeypatch, hops, 2, run, live=False)
+    assert results == [0, 0]
+
+
+def test_the_issued_gather_takes_a_ring_across_processes():
+    with pytest.raises(ValueError, match="spans processes"):
+        dma.ring_all_gather_issued([[torch.zeros(2), torch.zeros(2)]], 0,
+                                   mesh.Ring([CPU, CPU]))
+
+
+def test_host_waits_count_outside_a_capture_and_are_tallied_inside():
+    before = peers.host_waits
+    peers.wait_for_card(CPU)
+    assert peers.host_waits == before + 1
+    capture = peers.Capture()
+    with capture.capture():
+        assert peers.capturing() is capture
+        peers.wait_for_card(CPU)
+    assert peers.capturing() is None
+    assert peers.host_waits == before + 1 and capture.host_waits == 1
+    with capture.warm():
+        # the warm-up runs eagerly: its waits are real
+        assert peers.capturing() is None
+        peers.wait_for_card(CPU)
+    assert peers.host_waits == before + 2 and capture.host_waits == 1
 
 
 def test_the_hop_probe_s_variants_apply_to_the_kernel_source(tmp_path):

@@ -168,8 +168,9 @@ def _same_rows(si, videos, valid):
 def sharded(rank, n, args):
     """``ShardedInference`` over a mesh of ``args["members"]`` (process
     of each member, process-major) at ``args["axes"]``: this process's
-    run, predict, and its same-rows sum."""
-    from rnb_tpu_torch.parallel import ShardedInference
+    eager step and run, the host waits in each, predict, and its
+    same-rows sum."""
+    from rnb_tpu_torch.parallel import ShardedInference, peers
     from rnb_tpu_torch.parallel.mesh import Member, build_mesh
     variables = torch.load(args["weights"])
     mesh = build_mesh([Member(p, CPU) for p in args["members"]],
@@ -184,10 +185,19 @@ def sharded(rank, n, args):
     valid = [int(x) for x in rng.integers(1, si.max_clips + 1,
                                           args["videos"])]
     vids, mask = si.place(videos, valid)
+    before = peers.host_waits
+    with torch.inference_mode():
+        eager = si.step_across(vids, mask)
+    step_waits = peers.host_waits - before
+    si.finish()
+    before = peers.host_waits
     got = si.run(vids, mask)
+    run_waits = peers.host_waits - before
     with torch.inference_mode():
         same_rows = _same_rows(si, videos, valid)
-    return {"logits": got, "preds": si.predict(videos, valid),
+    return {"logits": got, "eager": eager,
+            "host_waits": (step_waits, run_waits),
+            "preds": si.predict(videos, valid),
             "same_rows": same_rows,
             "local_dp": si.local_dp, "local_sp": si.local_sp,
             "ring": None if si.sp_ring is None else si.sp_ring.processes,
