@@ -4,15 +4,23 @@ The port's counterpart of ``bench.py``: it serves
 ``configs/rnb-fused-yuv-big.json`` (the fusing loader decoding packed
 4:2:0 planes on the native pool, the yuv420 ingest fused in front of
 R(2+1)D-18 in one captured CUDA graph a forward) through
-``rnb_tpu_torch.benchmark.run_benchmark`` in bulk, and prints exactly
-ONE JSON line, with ``bench.py``'s keys::
+``rnb_tpu_torch.benchmark.run_benchmark``, in bulk or under Poisson
+arrivals (``RNB_BENCH_MEAN_INTERVAL_MS``), and prints exactly ONE JSON
+line, with ``bench.py``'s keys::
 
     {"metric": "videos_per_sec", "value": N, "unit": "videos/s",
      "vs_baseline": N / 11.3, "platform": "gpu", "decode_backend": "...",
      "p50_ms": N, "p99_ms": N, "clips_per_sec": N, "gflops_per_clip": N,
      "tflops": N, "mfu": N, ...}
 
-and on any failure the structured error line instead (exit code 1)::
+``latency_semantics`` is the config's (``bench.py``'s rule,
+:func:`rnb_tpu_torch.devobs.latency_semantics`): "dispatch" where a
+stage publishes before its device work ends, else "completion". A run
+that ends with a non-zero termination flag (an infeasible Poisson rate
+overflowing a queue) prints its line with ``termination_flag`` and an
+``error`` beside the numbers, and exits 1, as ``bench.py`` does. On any
+other failure it prints the structured error line instead (exit code
+1)::
 
     {"metric": "videos_per_sec", "value": null, "unit": "videos/s",
      "vs_baseline": null, "error": "..."}
@@ -40,7 +48,8 @@ spec-sheet dense bf16 peak, looked up by ``torch.cuda.get_device_name``
 (null for a card the table does not know).
 
 Env knobs, as ``bench.py``'s: ``RNB_BENCH_VIDEOS`` (default 10000),
-``RNB_BENCH_CONFIG``, ``RNB_BENCH_DATASET`` (y4m, mjpeg or synth;
+``RNB_BENCH_MEAN_INTERVAL_MS`` (default 0, bulk; above 0 the Poisson
+client's mean interval), ``RNB_BENCH_CONFIG``, ``RNB_BENCH_DATASET`` (y4m, mjpeg or synth;
 default y4m),
 ``RNB_TPU_DATA_ROOT`` (an existing dataset instead of the generated
 one), ``RNB_BENCH_LOG_BASE`` and ``RNB_BENCH_PLATFORM=cpu`` (serve on the CPU: a smoke of the line,
@@ -51,6 +60,7 @@ Run from the root of a checkout::
 
     python3 bench_cuda.py
     RNB_BENCH_VIDEOS=300 python3 bench_cuda.py
+    RNB_BENCH_MEAN_INTERVAL_MS=6 RNB_BENCH_VIDEOS=2000 python3 bench_cuda.py
     RNB_BENCH_DATASET=mjpeg python3 bench_cuda.py
 """
 
@@ -148,18 +158,20 @@ def _decode_backend(log_dir: str, mode: str) -> str:
 
 
 def measure(config: str, num_videos: int, dataset_root, mode: str,
-            platform: str, log_base: str = "logs", seed: int = 0):
-    """Serve one job in bulk; -> (the evidence line, the termination
-    flag)."""
+            platform: str, log_base: str = "logs", seed: int = 0,
+            mean_interval_ms: int = 0):
+    """Serve one job, in bulk where ``mean_interval_ms`` is 0; -> (the
+    evidence line, the termination flag)."""
     import torch
     from rnb_tpu_torch.benchmark import run_benchmark
-    from rnb_tpu_torch.devobs import devices_used, flops_per_clip_for_config
+    from rnb_tpu_torch.devobs import (devices_used, flops_per_clip_for_config,
+                                      latency_semantics)
     from rnb_tpu_torch.models.r2p1d.flops import peak_tflops_for
     repo_dir = os.path.dirname(os.path.abspath(__file__))
     with open(config) as f:
         config_dict = json.load(f)
     result = run_benchmark(config_path=config,
-                           mean_interval_ms=0,
+                           mean_interval_ms=mean_interval_ms,
                            num_videos=num_videos, log_base=log_base,
                            print_progress=False, seed=seed,
                            platform=platform)
@@ -175,7 +187,7 @@ def measure(config: str, num_videos: int, dataset_root, mode: str,
         "num_devices": torch.cuda.device_count() if on_card else 1,
         "devices_used": devices_used(config_dict),
         "num_videos": num_videos,
-        "mean_interval_ms": 0,
+        "mean_interval_ms": mean_interval_ms,
         "config": os.path.relpath(config, repo_dir),
         "decode_backend": _decode_backend(result.log_dir, mode),
         "dataset": (os.path.relpath(dataset_root, repo_dir)
@@ -185,8 +197,7 @@ def measure(config: str, num_videos: int, dataset_root, mode: str,
                    if result.p50_latency_ms is not None else None),
         "p99_ms": (round(result.p99_latency_ms, 3)
                    if result.p99_latency_ms is not None else None),
-        # every stage waits for its device work before its finish stamp
-        "latency_semantics": "completion",
+        "latency_semantics": latency_semantics(config_dict),
         "host_cpu_frac": (round(result.host_cpu_s / window, 3)
                           if window > 0 else None),
         # each hand-written kernel's launches in the measured window
@@ -228,7 +239,16 @@ def main() -> int:
     except Exception as e:  # one line on any failure
         return _emit_error("dataset preparation failed: %s: %s"
                            % (type(e).__name__, e))
-    num_videos = int(os.environ.get("RNB_BENCH_VIDEOS", "10000"))
+    try:
+        num_videos = int(os.environ.get("RNB_BENCH_VIDEOS", "10000"))
+        mean_interval_ms = int(os.environ.get("RNB_BENCH_MEAN_INTERVAL_MS",
+                                              "0"))
+    except ValueError as e:
+        return _emit_error("RNB_BENCH_VIDEOS and RNB_BENCH_MEAN_INTERVAL_MS "
+                           "must be integers: %s" % e)
+    if mean_interval_ms < 0:
+        return _emit_error("RNB_BENCH_MEAN_INTERVAL_MS must be >= 0, got %d"
+                           % mean_interval_ms)
     config = os.environ.get("RNB_BENCH_CONFIG", os.path.join(
         repo_dir, "configs", "rnb-fused-yuv-big.json"))
     # everything the run prints stays out of the one-line contract
@@ -239,14 +259,19 @@ def main() -> int:
             line, termination_flag = measure(
                 config, num_videos, dataset_root, mode,
                 platform, log_base=os.environ.get("RNB_BENCH_LOG_BASE",
-                                                  "logs"))
+                                                  "logs"),
+                mean_interval_ms=mean_interval_ms)
     except Exception as e:  # one line on any failure
         sys.stderr.write(captured_err.getvalue())
         return _emit_error("%s: %s" % (type(e).__name__, e))
     if termination_flag != 0:
+        # the numbers stay beside the flag: an infeasible rate is a row
         sys.stderr.write(captured_err.getvalue())
-        return _emit_error("the run ended with termination flag %d"
-                           % termination_flag)
+        line.update(termination_flag=termination_flag,
+                    error="the run ended with termination flag %d"
+                    % termination_flag)
+        _emit(line)
+        return 1
     _emit(line)
     return 0
 

@@ -272,6 +272,20 @@ Phases (any failure exits non-zero and prints no result line):
    redispatched. Each run launches only ``rnb_ragged_normalize_u8``, once
    per loader emission, prints each lane's graph pool and capture
    seconds, and has two requests recomputed on the CPU. Then the
+   explanation plane (``phase_explain``, the three legs of
+   ``rnb_tpu_torch/tools/explain.py``): ``parse_utils --explain`` on the
+   critpath run above exits 0 with every chain within 1 ms of its
+   request's latency and ``check_job`` green; the one-card r1 copy with
+   the ``metrics`` and ``whatif`` keys served at the lanes' workload, a
+   queueing model calibrated from its job directory alone and asked for
+   three more step-1 lanes, its r4/r1 ratio within 25% of the r4 copy's
+   videos/s above over this r1's; and two same-seed runs of
+   ``configs/rnb-fused-yuv.json``'s one-card copy at Poisson 20 ms (100
+   requests), arm B with a 5 ms ``latency`` fault at its runner step:
+   ``rnb_diff`` ranks ``inference1`` as the top significant work phase,
+   2.5-10 ms a request, and a self-diff of arm A finds no phase
+   significant. Each of these runs launches its path's ingest kernel and
+   no other. Then the
    lock-order witness (``phase_witness``): the big config, the r4 lane
    copy and the paged cell served again with ``lint: {"lock_witness":
    true}`` at their unarmed workloads, each with zero witness
@@ -310,7 +324,17 @@ Phases (any failure exits non-zero and prints no result line):
    ``FileNotFoundError`` and nothing served. Then
    ``bench_cuda.py`` in a process of its own (300 requests): its one JSON
    line, on the card (``platform`` gpu), decoded on the native pool, the
-   yuv420 ingest launched, a positive value and a numeric MFU. Last,
+   yuv420 ingest launched, a positive value and a numeric MFU. Then the
+   port's measurement tools through their CLIs over that dataset
+   (``phase_tools``): ``tools/bench_matrix.py --only`` on three cells of
+   200 requests (``rnb-fused-yuv-big`` in bulk and in Poisson at 6 ms,
+   ``r2p1d-whole`` in bulk) and ``tools/latency_frontier.py`` on
+   ``rnb-fused-yuv-mid`` at 4 and 9 ms, each cell a fresh
+   ``bench_cuda.py`` process: every row on the card at the asked mean
+   interval with a positive value, its path's ingest kernel launched and
+   its job directory (``evidence_logs``) clean under
+   ``check_job_detail``; ``tools/latency_summary.py`` over both outputs,
+   one row a job; ``parse_utils --stamps``. Last,
    MJPEG files (``phase_mjpeg``): two 16-video trees written at once by
    the port's own encoder on this host (``rnb_tpu_torch/dataset.py
    --format mjpeg``; quality 90 for the pixel paths, 70 for dct, every
@@ -628,6 +652,19 @@ LANES_MIN_SPEEDUP = 2.5
 LANES_DEAD_LANE = "3"
 #: bench_cuda.py as a phase: its requests (RNB_BENCH_VIDEOS)
 BENCH_CUDA_VIDEOS = 300
+#: the measurement tools as a phase (phase_tools): the matrix's and the
+#: frontier's cells, each a fresh bench_cuda.py process over
+#: bench_cuda.py's dataset, at 200 requests (checks, not cells)
+TOOLS_VIDEOS = 200
+TOOLS_MI = 6
+MATRIX_CELLS = {"rnb-fused-yuv-big@0": "yuv420_normalize",
+                "rnb-fused-yuv-big@%d" % TOOLS_MI: "yuv420_normalize",
+                "r2p1d-whole@0": "normalize_u8"}
+FRONTIER_CELLS = ("rnb-fused-yuv-mid@4", "rnb-fused-yuv-mid@9")
+TOOLS_TIMEOUT_S = 600
+#: the explanation plane's legs (phase_explain): job directories other
+#: phases served, by label
+EXPLAIN_JOBS = {}
 #: the MJPEG phase: videos a tree, and each run's (label, config, tree);
 #: the trees' qualities are rnb_tpu_torch.dataset's. The last run is a
 #: copy of the first with ``async_dispatch`` on its loader step
@@ -4989,6 +5026,187 @@ def phase_bench_cuda(data_root):
     print("bench_cuda (%.1f s): %s" % (time.time() - t0, lines[0]))
 
 
+def tool_run(argv, env, what):
+    """One of the port's tools as a user runs it, in a process of its
+    own from the checkout's root: -> its standard output. Fails the
+    smoke on a non-zero exit."""
+    proc = subprocess.run([sys.executable, "-m"] + argv, cwd=HERE, env=env,
+                          capture_output=True, text=True,
+                          timeout=TOOLS_TIMEOUT_S)
+    check(proc.returncode == 0, "%s exited %d:\n%s\n%s" % (
+        what, proc.returncode, proc.stdout[-4000:], proc.stderr[-4000:]))
+    return proc.stdout
+
+
+def check_tool_row(what, row, mi, kernel, launches):
+    """A matrix or frontier row: served on the card at the asked mean
+    interval, a positive value, its job directory clean under
+    ``check_job_detail``, and its path's ingest kernel launched (added
+    to ``launches``)."""
+    from rnb_tpu_torch.parse_utils import check_job_detail
+    job = os.path.join(HERE, row.get("evidence_logs") or "-")
+    for ok, fact in (
+            ("error" not in row and row.get("bench_rc") == 0,
+             "error %r (rc %r)" % (row.get("error"), row.get("bench_rc"))),
+            (row.get("value") is not None and row["value"] > 0,
+             "value %r" % row.get("value")),
+            (row.get("platform") == "gpu", "platform %r"
+             % row.get("platform")),
+            (row.get("mean_interval_ms") == mi,
+             "mean_interval_ms %r" % row.get("mean_interval_ms")),
+            (row.get("kernel_launches", {}).get(kernel, 0) > 0,
+             "%s launches %r" % (kernel, row.get("kernel_launches"))),
+            (os.path.isdir(job), "evidence_logs %r"
+             % row.get("evidence_logs"))):
+        check(ok, "%s: %s" % (what, fact))
+    problems, parse_failed = check_job_detail(job)
+    check(not problems and not parse_failed, "%s: check_job: %s"
+          % (what, "; ".join(problems[:5])))
+    for name, count in row["kernel_launches"].items():
+        launches[name] += count
+
+
+def phase_tools(data_root, launches):
+    """The port's measurement tools through their CLIs, over
+    ``bench_cuda.py``'s dataset: ``tools/bench_matrix.py --only`` on
+    three cells of 200 requests (big in bulk and in Poisson at 6 ms,
+    ``r2p1d-whole`` in bulk), ``tools/latency_frontier.py`` on mid at 4
+    and 9 ms, each cell a fresh ``bench_cuda.py`` process whose row
+    names its job directory; ``tools/latency_summary.py`` over both
+    outputs (one row a job); ``parse_utils --stamps``. Adds the cells'
+    launches to ``launches``."""
+    t0 = time.time()
+    out = os.path.abspath(os.path.join(data_root, "tools"))
+    env = dict(os.environ,
+               RNB_TPU_DATA_ROOT=os.path.abspath(
+                   os.path.join(data_root, "bench_cuda_y4m")),
+               RNB_MATRIX_VIDEOS=str(TOOLS_VIDEOS),
+               RNB_MATRIX_MI=str(TOOLS_MI),
+               RNB_MATRIX_OUT=os.path.join(out, "matrix"),
+               RNB_FRONTIER_VIDEOS=str(TOOLS_VIDEOS),
+               RNB_FRONTIER_OUT=os.path.join(out, "frontier"))
+    for key in ("RNB_BENCH_PLATFORM", "RNB_FAULT_PLAN", "RNB_BENCH_DATASET"):
+        env.pop(key, None)
+    only = [a for cell in MATRIX_CELLS for a in ("--only", cell)]
+    tool_run(["rnb_tpu_torch.tools.bench_matrix"] + only, env,
+             "bench_matrix")
+    with open(os.path.join(out, "matrix", "BENCH_MATRIX.json")) as f:
+        rows = json.load(f)["rows"]
+    check(sorted(r.get("cell") for r in rows) == sorted(MATRIX_CELLS),
+          "bench_matrix ran %s" % [r.get("cell") for r in rows])
+    for row in rows:
+        mi = int(row["cell"].split("@")[1])
+        check_tool_row("matrix %s" % row["cell"], row, mi,
+                       MATRIX_CELLS[row["cell"]], launches)
+        print("tools matrix %s (%.1f s): %.3f videos/s, p50 %s ms, p99 %s "
+              "ms, %s, %s launches %d, %s" % (
+                  row["cell"], row["cell_wall_s"], row["value"],
+                  row["p50_ms"], row["p99_ms"], row["latency_semantics"],
+                  MATRIX_CELLS[row["cell"]],
+                  row["kernel_launches"][MATRIX_CELLS[row["cell"]]],
+                  row["evidence_logs"]))
+    only = [a for cell in FRONTIER_CELLS for a in ("--only", cell)]
+    tool_run(["rnb_tpu_torch.tools.latency_frontier"] + only, env,
+             "latency_frontier")
+    with open(os.path.join(out, "frontier", "FRONTIER.json")) as f:
+        frontier = json.load(f)["rows"]
+    check(sorted(r.get("cell") for r in frontier) == sorted(FRONTIER_CELLS),
+          "latency_frontier ran %s" % [r.get("cell") for r in frontier])
+    for row in frontier:
+        check(row.get("termination_flag") == 0, "frontier %s: termination "
+              "flag %r" % (row["cell"], row.get("termination_flag")))
+        check_tool_row("frontier %s" % row["cell"], row,
+                       int(row["cell"].split("@")[1]), "yuv420_normalize",
+                       launches)
+        print("tools frontier %s (%.1f s): offered %.3f req/s, %.3f "
+              "videos/s, p50 %s ms, p99 %s ms" % (
+                  row["cell"], row["cell_wall_s"], row["offered_rps"],
+                  row["value"], row["p50_ms"], row["p99_ms"]))
+    summary_json = os.path.join(out, "latency_summary.json")
+    text = tool_run(["rnb_tpu_torch.tools.latency_summary", "--recursive",
+                     "--log-base", os.path.join(out, "matrix"),
+                     "--log-base", os.path.join(out, "frontier"),
+                     "--json", summary_json], env, "latency_summary")
+    with open(summary_json) as f:
+        summary = json.load(f)["rows"]
+    jobs = sorted(os.path.basename(r["evidence_logs"])
+                  for r in rows + frontier)
+    check(sorted(r["job_id"] for r in summary) == jobs,
+          "latency_summary rows %s, the cells' jobs %s"
+          % ([r["job_id"] for r in summary], jobs))
+    for line in text.splitlines():
+        if "end-to-end mean latency" in line:
+            print("tools summary %s" % line)
+    stamps = tool_run(["rnb_tpu_torch.parse_utils", "--stamps"], env,
+                      "parse_utils --stamps")
+    check("## TimeCard stamps" in stamps and "## HBM-ledger owners" in stamps,
+          "parse_utils --stamps printed no registry")
+    print("tools: %d matrix rows, %d frontier rows, %d summary rows, "
+          "--stamps %d lines (%.1f s)" % (len(rows), len(frontier),
+                                          len(summary),
+                                          len(stamps.splitlines()),
+                                          time.time() - t0))
+
+
+def phase_explain(data_root, launches):
+    """The three legs of ``rnb_tpu_torch/tools/explain.py`` on the card:
+    (1) ``--explain`` on the critpath job ``phase_path`` served; (2) the
+    one-card r1 copy with ``metrics`` and ``whatif`` served at
+    ``phase_lanes``' workload, a model calibrated from its job directory
+    alone asked for three more step-1 lanes, against the r4 copy's
+    videos/s from ``phase_lanes`` over this r1's (within 25%); (3) two
+    same-seed Poisson runs (20 ms) of ``configs/rnb-fused-yuv.json``'s
+    one-card copy, arm B with a 5 ms latency fault at its runner step:
+    ``rnb_diff`` names that step's ``inference1``, 2.5-10 ms a request,
+    and a self-diff of arm A finds nothing. Each served run launches
+    its own kernel and no other; the launches are added to
+    ``launches``."""
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.tools import explain, rnb_diff
+    t0 = time.time()
+    failures, leg1 = explain.leg_critpath(EXPLAIN_JOBS[CRITPATH])
+    check(not failures, "explain leg 1: %s" % "; ".join(failures))
+    print("explain leg 1: worst residual %.6f ms, --explain rc %d"
+          % (leg1["worst_residual_ms"], leg1["explain_rc"]))
+    os.environ["RNB_TPU_DATA_ROOT"] = data_root
+    logs = os.path.join(data_root, "logs")
+
+    def serve(path, videos, mi, seed, queue, kernel):
+        _kernels.reset_launches()
+        result = explain.serve(path, videos, mi, seed, logs, queue)
+        counts = _kernels.launch_counts()
+        for name, count in counts.items():
+            check((count > 0) == (name == kernel), "%s: launches %s"
+                  % (os.path.basename(path), counts))
+            launches[name] += count
+        return result
+
+    r1 = serve(explain.whatif_copy(data_root), LANES_VIDEOS, 0, LANES_SEED,
+               LANES_QUEUE, "ragged_normalize_u8")
+    r4_vps = UNARMED_VPS[LANES_R4]
+    failures, leg2 = explain.leg_whatif(r1.log_dir, r1.throughput_vps,
+                                        r4_vps)
+    print("explain leg 2: r1 with metrics %.3f videos/s, r4 %.3f; "
+          "predicted r4/r1 %.4f against %.4f measured (rel err %.2f%%)"
+          % (r1.throughput_vps, r4_vps, leg2["pred_ratio"],
+             leg2["measured_ratio"], 100.0 * leg2["rel_err"]))
+    check(not failures, "explain leg 2: %s" % "; ".join(failures))
+    path_a, path_b, step = explain.attribution_copies(data_root)
+    arms = [serve(path, explain.ATTRIBUTION_VIDEOS, explain.ATTRIBUTION_MI,
+                  explain.ATTRIBUTION_SEED, 50000, "yuv420_normalize")
+            for path in (path_a, path_b)]
+    failures, report = explain.leg_attribution(
+        arms[0].log_dir, arms[1].log_dir, "inference%d" % step)
+    for line in rnb_diff.report_lines(report):
+        print("explain leg 3: %s" % line)
+    check(not failures, "explain leg 3: %s" % "; ".join(failures))
+    print("explain: arms A/B %.3f / %.3f videos/s, p50 %.3f / %.3f ms; "
+          "three legs hold (%.1f s)" % (
+              arms[0].throughput_vps, arms[1].throughput_vps,
+              arms[0].p50_latency_ms, arms[1].p50_latency_ms,
+              time.time() - t0))
+
+
 def write_mjpeg_trees(data_root):
     """The phase's two trees under ``data_root``, written at the same
     time by two processes of ``rnb_tpu_torch.dataset``, each write
@@ -5472,6 +5690,7 @@ def phase_path(data_root, videos_per_run):
             check_operator_run(label, result, scraper)
         if label == CRITPATH:
             check_critpath_run(result)
+            EXPLAIN_JOBS[CRITPATH] = result.log_dir
         netedge_report = None
         if label in (NETEDGE_OFF, NETEDGE_LOOPBACK):
             netedge_report = check_netedge_run(label, result, sink,
@@ -5826,12 +6045,18 @@ def main() -> int:
         phase_configs(data_root, launches)
         seconds_of["configs"] = time.time() - t_configs
         phase_lanes(data_root, launches)
+        t_explain = time.time()
+        phase_explain(data_root, launches)
+        seconds_of["explain"] = time.time() - t_explain
         t_witness = time.time()
         phase_witness(data_root, launches)
         seconds_of["witness"] = time.time() - t_witness
         phase_mesh(data_root, launches)
         phase_ckpt(data_root, launches)
         phase_bench_cuda(data_root)
+        t_tools = time.time()
+        phase_tools(data_root, launches)
+        seconds_of["tools"] = time.time() - t_tools
         phase_mjpeg(data_root, launches)
         t_parallel = time.time()
         phase_parallel(data_root, launches)

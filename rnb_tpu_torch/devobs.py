@@ -144,6 +144,22 @@ def flops_per_clip_for_config(config: dict) -> float:
     return float(total)
 
 
+def latency_semantics(config: dict) -> str:
+    """What a job's p50/p99 measure (``bench.py``'s rule): "dispatch"
+    where a stage publishes before its device work ends (an
+    ``async_dispatch`` step, or a mesh stage with ``sync_preds`` false),
+    else "completion"."""
+    for step, views in config_stage_views(config):
+        for view in views:
+            if view.get("async_dispatch"):
+                return "dispatch"
+            if (view.get("model", step.get("model", ""))
+                    .endswith(".R2P1DMeshRunner")
+                    and view.get("sync_preds") is False):
+                return "dispatch"
+    return "completion"
+
+
 def devices_used(config: dict) -> int:
     """Distinct accelerator devices the topology touches (host -1
     excluded; a mesh stage counts its whole sub-mesh): the job MFU's

@@ -7,6 +7,8 @@ on the card, ``profile.json``::
 
     python -m rnb_tpu_torch.parse_utils logs/<job> [logs/<job> ...]
     python -m rnb_tpu_torch.parse_utils --attribute logs/<job> [...]
+    python -m rnb_tpu_torch.parse_utils --explain [--check] logs/<job> [...]
+    python -m rnb_tpu_torch.parse_utils --stamps
 
 prints one JSON object per job: requests, videos/s and clips/s over
 the measured window, emissions (fused batches) and the mean runner
@@ -123,19 +125,37 @@ phases partition its end-to-end span, and the ``# phases`` trailers and
 the ``Phases:`` line re-derive from the tables.
 :func:`check_job_detail` returns ``(problems, parse_failed)``.
 
+``--explain`` prints the reference's explanation of each job: the ranked
+blocked time per (class, step), each stage's critical-path bound and the
+stage that caps, and the calibrated what-if counterfactuals where the
+job streamed metrics (:func:`print_explanation`; 1 where nothing
+decomposes or a chain misses its request's latency by over 1 ms, and
+without ``--check`` no check runs, as in the reference). ``--stamps``
+prints the port's telemetry registries in the reference's layout.
+
+For the offline tools (``tools/rnb_diff.py``, ``tools/latency_summary.py``)
+it also reads any job directory, the JAX package's too, as the
+reference's pandas reader does, without pandas: :func:`parse_meta` (the
+reference's flat dict, either package's ``Args:`` line under the
+reference's names), :func:`get_data` and :func:`get_data_from_all_logs`
+(request frames: dicts of numpy columns), :func:`decompose_latency`,
+:func:`dispatch_batch_sizes`, :func:`attribute_job` and
+:func:`table_phase_samples`.
+
 A violation is printed and the exit code is 1; a job the reader cannot
-read (log-meta or a timing table) exits 2 (``--check`` is accepted and
-changes nothing: the checks always run).
+read (log-meta or a timing table) exits 2 (``--check`` is accepted and,
+but beside ``--explain``, changes nothing: the checks always run).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import sys
 from typing import Dict, List, Tuple
 
-import re
+import numpy as np
 
 from rnb_tpu_torch import critpath
 from rnb_tpu_torch import whatif as whatif_mod
@@ -159,6 +179,9 @@ JSON_LINES = {"Failure reasons": "failure_reasons",
               "Handoff edges": "handoff_edge_detail",
               "Placement": "placement",
               "Lock edges": "lock_edge_detail"}
+#: ``<device-label>-group<g>-<i>.txt`` (telemetry.logname)
+TABLE_NAME = re.compile(r"^(?P<device>.+)-group(?P<group>\d+)-"
+                        r"(?P<instance>\d+)\.txt$")
 #: the suffix of every deadline shed site (rnb_tpu_torch.health)
 DEADLINE_SUFFIX = ":deadline_expired"
 
@@ -365,7 +388,7 @@ def critpath_problems(log_dir: str, meta: dict,
     and the ``Critpath:`` line and ``# critpath`` trailers re-derive
     from the tables (the reference's --check)."""
     problems, steady, trailers = [], [], 0
-    for path in _tables(log_dir):
+    for path in timing_tables(log_dir):
         keys, rows = read_table(path)
         name = os.path.basename(path)
         for row in rows:
@@ -532,16 +555,11 @@ def attribute(log_dir: str, num_skips: int = NUM_SUMMARY_SKIPS) -> dict:
     its phases."""
     samples: Dict[str, List[float]] = {}
     residual, requests = 0.0, 0
-    for path in _tables(log_dir):
-        keys, rows = read_table(path)
-        for row in rows[num_skips:]:
-            timings = dict(zip(keys, row))
-            phases = attribute_phases(timings)
-            e2e = 1e3 * (max(row) - min(row))
-            residual = max(residual, abs(sum(phases.values()) - e2e))
-            requests += 1
-            for phase, ms in phases.items():
-                samples.setdefault(phase, []).append(ms)
+    for phases, e2e in _job_phase_rows(log_dir, num_skips):
+        residual = max(residual, abs(sum(phases.values()) - e2e))
+        requests += 1
+        for phase, ms in phases.items():
+            samples.setdefault(phase, []).append(ms)
     return {"phases": phase_stats(samples), "requests": requests,
             "max_residual_ms": residual}
 
@@ -573,12 +591,11 @@ def trace_problems(log_dir: str, meta: dict) -> List[str]:
     return problems
 
 
-def _tables(log_dir: str) -> List[str]:
+def timing_tables(job_dir: str) -> List[str]:
     """The job's timing tables, one per final-step instance
-    (``<device>-group<g>-<i>.txt``)."""
-    return [os.path.join(log_dir, name)
-            for name in sorted(os.listdir(log_dir))
-            if name.endswith(".txt") and "-group" in name]
+    (``<device>-group<g>-<i>.txt``), sorted."""
+    return sorted(os.path.join(job_dir, name)
+                  for name in os.listdir(job_dir) if TABLE_NAME.match(name))
 
 
 def kernel_families(kernels: Dict[str, dict]) -> Dict[str, float]:
@@ -623,7 +640,7 @@ def fault_problems(log_dir: str, meta: dict) -> List[str]:
                         % (sum(sites.values()), shed))
     completed = 0
     table_faults = {"num_failed": 0, "num_shed": 0}
-    for path in _tables(log_dir):
+    for path in timing_tables(log_dir):
         completed += len(read_table(path)[1])
         trailer = read_trailers(path).get("faults", {})
         for key in table_faults:
@@ -1515,7 +1532,7 @@ def summarize(log_dir: str) -> dict:
                warmup_s=meta.get("warmup_s"), graphs=meta.get("graphs"))
     requests, wait_ms = 0, []
     by_step: Dict[int, List[float]] = {}
-    for path in _tables(log_dir):
+    for path in timing_tables(log_dir):
         keys, rows = read_table(path)
         for step, values in step_service_ms(keys, rows).items():
             by_step.setdefault(step, []).extend(values)
@@ -1669,7 +1686,7 @@ def ledger_problems(log_dir: str, meta: dict) -> List[str]:
     line) and the ragged pool (valid rows within emissions x pool rows,
     hit rows within valid rows, no pad row on a fully ragged run)."""
     lines = meta["lines"]
-    sums = _trailer_sums(_tables(log_dir))
+    sums = _trailer_sums(timing_tables(log_dir))
     problems = []
     cache = lines.get("Cache")
     if sums["saw_cache"] and cache is None:
@@ -1762,7 +1779,7 @@ def phase_problems(log_dir: str, meta: dict,
     tables."""
     problems: List[str] = []
     merged: Dict[str, List[float]] = {}
-    tables = _tables(log_dir)
+    tables = timing_tables(log_dir)
     saw_trailer = False
     for path in tables:
         base = os.path.basename(path)
@@ -1877,7 +1894,7 @@ def check_job_detail(log_dir: str) -> Tuple[List[str], bool]:
         problems.append("log-meta.txt carries no 'Termination flag:'")
     if "window" not in meta:
         problems.append("log-meta.txt carries no start/end timestamps")
-    tables = _tables(log_dir)
+    tables = timing_tables(log_dir)
     if not tables:
         problems.append("no timing tables (<device>-group<g>-<i>.txt)")
     parse_failed = False
@@ -1898,14 +1915,508 @@ def check_job(log_dir: str) -> List[str]:
     return check_job_detail(log_dir)[0]
 
 
+# -- per-request rows over job directories (the reference's DataFrames) ------
+#
+# A frame is a dict of equal-length numpy arrays, one per column, in the
+# order the reference's DataFrame keeps them: a timing table's header,
+# then the producing instance (``final_device``, ``final_group``,
+# ``final_instance``), then the job's ``job_id``, ``mean_interval_ms``,
+# ``batch_size``, ``videos`` and ``queue_size``. Stamps are float64 (NaN
+# where a row of another schema has none), ``device*`` and string columns
+# object arrays. Frames of several tables or jobs concatenate over the
+# union of their columns in order of first appearance, as ``pd.concat``
+# does.
+
+#: ``Args: Namespace(mean_interval_ms=3, ...)``, the JAX package's form
+_NAMESPACE_ARG = re.compile(r"(\w+)=('[^']*'|\"[^\"]*\"|[^,)]+)")
+#: the port's ``Args:`` JSON keys under the reference's names
+_ARG_NAMES = {"num_videos": "videos", "config": "config_file_path"}
+#: ``Key: k=v ...`` lines of log-meta.txt, by the prefix the reference's
+#: ``parse_meta`` gives their keys
+_META_PREFIXES = {
+    "Faults": "", "Padding": "", "Cache": "cache_", "Staging": "staging_",
+    "Pages": "pages_", "Autotune": "autotune_", "Ragged": "ragged_",
+    "Shard": "shard_", "Trace": "trace_", "Metrics": "metrics_",
+    "Slo": "slo_", "Compute": "compute_", "Memory": "memory_",
+    "Critpath": "critpath_", "Whatif": "whatif_", "Operator": "operator_",
+    "Stacks": "stacks_", "Net errors": "net_err_", "Net": "net_",
+    "Locks": "locks_", "Handoff": "handoff_", "Health": "health_",
+    "Deadline": "deadline_", "Hedge": "hedges_"}
+#: the JSON lines of log-meta.txt, by the key the reference's
+#: ``parse_meta`` reads each into
+_META_JSON = {
+    "Compiles": "compile_signatures", "Warmup": "warmup_s",
+    "Autotune buckets": "autotune_bucket_counts",
+    "Shard steps": "shard_step_detail",
+    "Compute stages": "compute_stage_detail",
+    "Memory owners": "memory_owner_detail",
+    "Critpath stages": "critpath_stage_detail",
+    "Lock edges": "lock_edge_detail", "Phases": "phases",
+    "Handoff edges": "handoff_edge_detail",
+    "Health lanes": "health_lane_detail", "Deadline sites": "deadline_sites",
+    "Placement": "placement", "Failure reasons": "failure_reasons",
+    "Shed sites": "shed_sites", "Queue overflows": "queue_overflows"}
+#: the job's meta keys every request row carries (reference get_data)
+JOB_COLUMNS = ("job_id", "mean_interval_ms", "batch_size", "videos",
+               "queue_size")
+#: columns of a timing table that name its instance, not a time
+IDENTITY_COLUMNS = ("final_device", "final_group", "final_instance")
+
+
+def _scalar(raw: str):
+    try:
+        return int(raw)
+    except ValueError:
+        try:
+            return float(raw)
+        except ValueError:
+            return raw
+
+
+def parse_meta(job_dir: str) -> Dict[str, object]:
+    """One job's ``log-meta.txt`` as the reference's ``parse_meta`` flattens
+    it: the arguments (either package's ``Args:`` form, under the
+    reference's names), ``time_start``/``time_end``, ``wall_time_s``,
+    ``termination_flag``, ``throughput_vps`` (videos over the wall time),
+    each ``Key: k=v`` counter line under the reference's prefix and each
+    JSON line under the reference's key."""
+    meta: Dict[str, object] = {"job_id": os.path.basename(
+        job_dir.rstrip("/"))}
+    with open(os.path.join(job_dir, "log-meta.txt")) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        head, sep, rest = line.partition(":")
+        if head == "Args" and rest.strip().startswith("{"):
+            args = json.loads(rest)
+            args.setdefault("batch_size", 1)
+            meta.update((_ARG_NAMES.get(k, k), v) for k, v in args.items())
+        elif head == "Args":
+            for key, raw in _NAMESPACE_ARG.findall(line):
+                raw = raw.strip()
+                meta[key] = (raw[1:-1] if raw[:1] in "'\""
+                             else _scalar(raw))
+        elif head == "Termination flag":
+            meta["termination_flag"] = int(rest)
+        elif sep and head in _META_JSON:
+            value = json.loads(rest)
+            if head == "Autotune buckets":
+                value = {key: int(n) for key, n in value.items()}
+            meta[_META_JSON[head]] = value
+        elif sep and head in _META_PREFIXES:
+            prefix = _META_PREFIXES[head]
+            for part in rest.split():
+                key, _, val = part.partition("=")
+                meta[prefix + key] = _scalar(val)
+        elif len(line.split()) == 2 and not sep:
+            meta["time_start"], meta["time_end"] = map(float, line.split())
+    if "time_start" in meta and "time_end" in meta:
+        meta["wall_time_s"] = meta["time_end"] - meta["time_start"]
+        videos = meta.get("videos")
+        if videos and meta["wall_time_s"] > 0:
+            meta["throughput_vps"] = videos / meta["wall_time_s"]
+    return meta
+
+
+def frame_rows(frame: Dict[str, np.ndarray]) -> int:
+    return len(next(iter(frame.values()))) if frame else 0
+
+
+def parse_timing_table(path: str) -> Dict[str, np.ndarray]:
+    """One timing table -> a frame: stamps float64, ``device*`` columns
+    strings, and the producing instance from the file's name. ``#``
+    trailer lines are not rows."""
+    with open(path) as f:
+        header = f.readline().split()
+        rows = [line.split() for line in f
+                if line.strip() and not line.startswith("#")]
+    for row in rows:
+        if len(row) != len(header):
+            raise ValueError("%s: a row of %d fields under a header of %d"
+                             % (path, len(row), len(header)))
+    frame = {}
+    for idx, col in enumerate(header):
+        values = [row[idx] for row in rows]
+        frame[col] = (np.array(values, dtype=object)
+                      if col.startswith("device")
+                      else np.array([float(v) for v in values], dtype=float))
+    m = TABLE_NAME.match(os.path.basename(path))
+    if m:
+        frame["final_device"] = np.array([m.group("device")] * len(rows),
+                                         dtype=object)
+        frame["final_group"] = np.full(len(rows), int(m.group("group")))
+        frame["final_instance"] = np.full(len(rows),
+                                          int(m.group("instance")))
+    return frame
+
+
+def concat_frames(frames: List[Dict[str, np.ndarray]]
+                  ) -> Dict[str, np.ndarray]:
+    """Rows of every frame over the union of their columns, in order of
+    first appearance; a column a frame lacks is NaN there (None in a
+    string column), and an integer column with gaps turns float."""
+    columns: List[str] = []
+    for frame in frames:
+        columns.extend(c for c in frame if c not in columns)
+    out = {}
+    for col in columns:
+        parts = [f.get(col) for f in frames]
+        text = any(p is not None and p.dtype == object for p in parts)
+        filled = [p if p is not None else
+                  np.full(frame_rows(f), None if text else np.nan,
+                          dtype=object if text else float)
+                  for p, f in zip(parts, frames)]
+        out[col] = np.concatenate(filled) if filled else np.array([])
+    return out
+
+
+def select_rows(frame: Dict[str, np.ndarray], mask
+                ) -> Dict[str, np.ndarray]:
+    """The rows of ``frame`` where ``mask`` holds, every column kept."""
+    return {col: values[mask] for col, values in frame.items()}
+
+
+def get_data(job_dir: str):
+    """One job -> (its :func:`parse_meta` dict, its request frame: every
+    final instance's table, each row carrying the job's
+    :data:`JOB_COLUMNS`)."""
+    meta = parse_meta(job_dir)
+    tables = [parse_timing_table(p) for p in timing_tables(job_dir)]
+    frame = concat_frames(tables) if tables else {}
+    rows = frame_rows(frame)
+    for key in JOB_COLUMNS:
+        if key in meta:
+            value = meta[key]
+            frame[key] = (np.array([value] * rows, dtype=object)
+                          if isinstance(value, str)
+                          else np.full(rows, value))
+    return meta, frame
+
+
+def job_dirs(log_base: str, recursive: bool = False) -> List[str]:
+    """The job directories (each holding ``log-meta.txt``) right under
+    ``log_base``, or, ``recursive``, anywhere below it, sorted."""
+    if not recursive:
+        return [os.path.join(log_base, name)
+                for name in sorted(os.listdir(log_base))
+                if os.path.isfile(os.path.join(log_base, name,
+                                               "log-meta.txt"))]
+    found = []
+    for dirpath, dirnames, filenames in os.walk(log_base):
+        dirnames.sort()
+        if "log-meta.txt" in filenames and dirpath != log_base:
+            found.append(dirpath)
+    return sorted(found)
+
+
+def get_data_from_all_logs(log_base: str = "logs", recursive: bool = False):
+    """Every job under ``log_base`` -> (one :func:`parse_meta` dict per
+    job, one request frame over all of them), the reference's two-frame
+    contract; a job whose files do not parse is left out."""
+    metas, frames = [], []
+    for job_dir in job_dirs(log_base, recursive):
+        try:
+            meta, frame = get_data(job_dir)
+        except (OSError, ValueError):
+            continue
+        metas.append(meta)
+        if frame_rows(frame):
+            frames.append(frame)
+    return metas, (concat_frames(frames) if frames else {})
+
+
+#: the standard 2-stage schema's gaps under their semantic names (the
+#: reference's scripts/latency_summary.py decomposition)
+STANDARD_COMPONENTS = [
+    ("enqueue_filename", "runner0_start", "filename_queue_wait"),
+    ("runner0_start", "inference0_start", "runner0_dispatch"),
+    ("inference0_start", "inference0_finish", "decode"),
+    ("inference0_finish", "runner1_start", "frame_queue_wait"),
+    ("runner1_start", "inference1_start", "device_comm"),
+    ("inference1_start", "inference1_finish", "neural_net"),
+]
+#: the trace refinement of the loader span (decode{step}_done,
+#: transfer{step}_start/_done); absent columns are skipped
+REFINED_COMPONENTS = [
+    ("inference0_start", "decode0_done", "decode_only"),
+    ("decode0_done", "transfer0_start", "batch_hold"),
+    ("transfer0_start", "transfer0_done", "transfer"),
+    ("transfer0_done", "inference0_finish", "publish_drain"),
+]
+_FINISH = re.compile(r"inference(\d+)_finish")
+_SUFFIXED_FINISH = re.compile(r"inference(\d+)_finish-\d+")
+
+
+def dispatch_batch_sizes(frame: Dict[str, np.ndarray],
+                         step=None) -> Dict[int, int]:
+    """{requests a dispatch carried: dispatches}, sorted by size: the
+    constituents of one fused dispatch share their
+    ``inference{step}_finish`` stamp, so grouping by it recovers each
+    dispatch's size. ``step`` defaults to the last inference step with
+    data; a segmented job (suffixed finishes past it) gives {} rather
+    than mislabel a loader's stamps."""
+    finish_cols = sorted(
+        (c for c in frame if _FINISH.fullmatch(c)
+         and not np.isnan(frame[c]).all()),
+        key=lambda c: int(_FINISH.fullmatch(c).group(1)))
+    if step is not None:
+        col = "inference%d_finish" % step
+        if col not in frame or np.isnan(frame[col]).all():
+            raise ValueError("no data for %r; columns with data: %r"
+                             % (col, finish_cols))
+    else:
+        if not finish_cols:
+            return {}
+        last = int(_FINISH.fullmatch(finish_cols[-1]).group(1))
+        if any(_SUFFIXED_FINISH.fullmatch(c)
+               and int(_SUFFIXED_FINISH.fullmatch(c).group(1)) > last
+               for c in frame):
+            return {}
+        col = finish_cols[-1]
+    values = frame[col][~np.isnan(frame[col])]
+    _stamps, per_dispatch = np.unique(values, return_counts=True)
+    sizes, dispatches = np.unique(per_dispatch, return_counts=True)
+    return {int(s): int(n) for s, n in zip(sizes, dispatches)}
+
+
+def time_columns(frame: Dict[str, np.ndarray]) -> List[str]:
+    """The frame's float columns that are times: not ``device*`` and not
+    an instance's group or index (the reference's rule)."""
+    return [c for c in frame if frame[c].dtype == float
+            and not c.startswith("device")
+            and c not in ("final_group", "final_instance")]
+
+
+def decompose_latency(frame: Dict[str, np.ndarray]
+                      ) -> Dict[str, np.ndarray]:
+    """The frame with per-request latency components (ms) added: the
+    standard and refined gaps under their names, and every other pair
+    of adjacent time columns as ``gap:<prev>-><next>``."""
+    cols = time_columns(frame)
+    named = set()
+    out = dict(frame)
+    for prv, nxt, name in STANDARD_COMPONENTS + REFINED_COMPONENTS:
+        if prv in cols and nxt in cols:
+            out[name] = (frame[nxt] - frame[prv]) * 1000.0
+            named.update((prv, nxt))
+    for prv, nxt in zip(cols[:-1], cols[1:]):
+        if prv in named and nxt in named:
+            continue
+        out["gap:%s->%s" % (prv, nxt)] = (frame[nxt] - frame[prv]) * 1000.0
+    return out
+
+
+def _row_timings(frame: Dict[str, np.ndarray], num_skips: int = 0):
+    """{stamp: time} of each row of one table's frame past ``num_skips``
+    (NaN holes dropped), rows with fewer than two stamps left out."""
+    cols = [c for c in frame if not c.startswith("device")
+            and c not in IDENTITY_COLUMNS]
+    for idx in range(num_skips, frame_rows(frame)):
+        timings = {c: float(frame[c][idx]) for c in cols
+                   if frame[c][idx] == frame[c][idx]}
+        if len(timings) >= 2:
+            yield timings
+
+
+def _phase_rows(frame: Dict[str, np.ndarray], num_skips: int = 0):
+    """``(phases, e2e_ms)`` per row of :func:`_row_timings` (the
+    reference's ``_df_phase_rows``)."""
+    for timings in _row_timings(frame, num_skips):
+        e2e_ms = (max(timings.values()) - min(timings.values())) * 1e3
+        yield attribute_phases(timings), e2e_ms
+
+
+def table_phase_samples(path: str, num_skips: int = 0
+                        ) -> Dict[str, List[float]]:
+    """{phase: [ms a request]} over one timing table's rows past
+    ``num_skips``: the stamp-only decomposition, so any past log works."""
+    samples: Dict[str, List[float]] = {}
+    for phases, _e2e in _phase_rows(parse_timing_table(path), num_skips):
+        for phase, ms in phases.items():
+            samples.setdefault(phase, []).append(ms)
+    return samples
+
+
+def _job_phase_rows(job_dir: str, num_skips: int):
+    """:func:`_phase_rows` of every table of a job, each table's first
+    ``num_skips`` rows left out."""
+    for path in timing_tables(job_dir):
+        yield from _phase_rows(parse_timing_table(path), num_skips)
+
+
+def job_phase_samples(job_dir: str, num_skips: int = 0):
+    """(per-phase samples, per-request end-to-end ms) over every table of
+    a job; each request's end-to-end from its own row."""
+    merged: Dict[str, List[float]] = {}
+    e2e: List[float] = []
+    for phases, e2e_ms in _job_phase_rows(job_dir, num_skips):
+        for phase, ms in phases.items():
+            merged.setdefault(phase, []).append(ms)
+        e2e.append(e2e_ms)
+    return merged, e2e
+
+
+def attribute_job(job_dir: str, num_skips=None
+                  ) -> Dict[str, Dict[str, float]]:
+    """{phase: {mean_ms, p99_ms, count}} over every table's rows past
+    ``num_skips`` (default :data:`NUM_SUMMARY_SKIPS`): the ``Phases:``
+    line's rule, from the tables alone (the reference's name for
+    :func:`attribute`'s phases)."""
+    return attribute(job_dir, NUM_SUMMARY_SKIPS if num_skips is None
+                     else num_skips)["phases"]
+
+
+# -- critical-path explanation (--explain) ------------------------------------
+
+def _job_lanes(job_dir: str) -> Dict[int, int]:
+    """{step: instances} from the config copy in the job directory, by
+    whatif's reader and lane rule; {} without a copy."""
+    raw = whatif_mod.job_config(job_dir)
+    if raw is None:
+        return {}
+    return {step: int(info["lanes"]) for step, info
+            in whatif_mod.steps_info_from_config(raw).items()}
+
+
+def recompute_critpath(job_dir: str, num_skips: int):
+    """The ``Critpath:`` aggregation over every table's rows past
+    ``num_skips``, from the files alone (hedge and redispatch stamps are
+    not in the tables); None where no row decomposes."""
+    def rows():
+        for path in timing_tables(job_dir):
+            try:
+                frame = parse_timing_table(path)
+            except (OSError, ValueError):
+                continue
+            for timings in _row_timings(frame, num_skips):
+                yield (timings, False, 0)
+    return critpath.aggregate(rows(), _job_lanes(job_dir))
+
+
+def print_explanation(job_dir: str, out=None) -> int:
+    """``--explain``: the ranked blocked time per (class, step), each
+    stage's critical-path bound and the stage that caps, and, where the
+    job streamed metrics, the calibrated what-if counterfactuals, all
+    from the job's files (the reference's text). 0, or 1 where a chain
+    misses its request's latency by over 1 ms or nothing decomposes."""
+    out = out or sys.stdout
+    report = recompute_critpath(job_dir, NUM_SUMMARY_SKIPS)
+    if report is None:
+        report = recompute_critpath(job_dir, 0)
+        if report is None:
+            out.write("%s: no completed request decomposes into a "
+                      "blocking chain\n" % job_dir)
+            return 1
+        out.write("%s: fewer rows than the steady-state skip — "
+                  "explaining over every completed request\n" % job_dir)
+    out.write("%s: blocking-chain attribution over %d request(s)\n"
+              % (job_dir, report["requests"]))
+    out.write("  ranked blocked time (segment = <class><step>):\n")
+    ranked = critpath.ranking(report["stage_detail"])
+    total_all = sum(total for _seg, total, _mean in ranked) or 1.0
+    for seg, total, mean in ranked:
+        out.write("    %-18s %10.2f ms total  %8.3f ms/req  (%4.1f%%)\n"
+                  % (seg, total, mean, 100.0 * total / total_all))
+    out.write("  per-stage critical-path throughput bound "
+              "(lanes x requests / occupied s):\n")
+    for step_key in sorted(report["stage_detail"]):
+        entry = report["stage_detail"][step_key]
+        out.write("    %-8s lanes=%d occupied=%.1f ms  bound=%.3f "
+                  "videos/s%s\n"
+                  % (step_key, entry["lanes"], entry["occupied_ms"],
+                     entry["bound_vps"],
+                     "  <- binding" if "step%d" % report["bound_step"]
+                     == step_key else ""))
+    out.write("  partition residual: worst %d us per request "
+              "(must stay <= 1000)\n" % report["residual_us_max"])
+    meta = parse_meta(job_dir)
+    status = 0
+    if "critpath_requests" in meta \
+            and meta["critpath_requests"] != report["requests"]:
+        out.write("  WARNING: log-meta 'Critpath:' counts %s request(s) "
+                  "but the tables recompute %d\n"
+                  % (meta["critpath_requests"], report["requests"]))
+        status = 1
+    model = whatif_mod.calibrate_job(job_dir)
+    if model is not None and model.calibrated:
+        vps, bottleneck = model.predict_throughput()
+        out.write("  what-if (calibrated from metrics.jsonl + config "
+                  "copy):\n")
+        out.write("    self-predicted %.3f videos/s, bottleneck step%d\n"
+                  % (vps, bottleneck))
+        for label, spec in (
+                ("replicas+1 on the bottleneck",
+                 {"replicas": {bottleneck: "+1"}}),
+                ("service x0.5 on the bottleneck",
+                 {"service_scale": {bottleneck: 0.5}}),
+                ("arrival x1.5", {"arrival_scale": 1.5})):
+            answer = model.query(spec)
+            out.write("    %-32s -> %.3f videos/s (%.2fx)\n"
+                      % (label, answer["pred_vps"], answer["vps_ratio"]))
+    return max(status, 0 if report["residual_us_max"] <= 1000 else 1)
+
+
+def print_stamp_registry(out=None) -> None:
+    """``--stamps``: the port's telemetry schema (stamps, content stamps,
+    log-meta lines, table trailers, trace events, live-metric series and
+    memory owners), in the reference's layout."""
+    from rnb_tpu_torch.memledger import MEM_OWNER_REGISTRY
+    from rnb_tpu_torch.telemetry import (CONTENT_STAMPS, META_LINE_REGISTRY,
+                                         METRIC_REGISTRY, STAMP_REGISTRY,
+                                         TABLE_TRAILER_REGISTRY,
+                                         TRACE_EVENT_REGISTRY)
+    out = out or sys.stdout
+    out.write("# Telemetry schema reference (generated by "
+              "parse_utils.py --stamps)\n")
+    out.write("# Source of truth: rnb_tpu_torch/telemetry.py registries; "
+              "cross-checked by the port's rnb-lint.\n\n")
+    out.write("## TimeCard stamps ({step} = pipeline step index; merged "
+              "segment\n## cards suffix post-fork stamps with -{sub_id})\n")
+    for spec in STAMP_REGISTRY:
+        out.write("%-26s %-22s %s\n" % (spec.pattern, spec.producer,
+                                        spec.description))
+    out.write("\n## Content stamps (TimeCard attributes that survive "
+              "fork/merge)\n")
+    out.write("%s\n" % " ".join(CONTENT_STAMPS))
+    out.write("\n## log-meta.txt lines (plus one bare '<start> <end>' "
+              "timestamp line)\n")
+    for spec in META_LINE_REGISTRY:
+        out.write("%-26s %-22s %s\n" % (spec.pattern, spec.producer,
+                                        spec.description))
+    out.write("\n## Timing-table trailers ('# <kind> ...')\n")
+    for spec in TABLE_TRAILER_REGISTRY:
+        out.write("%-26s %-22s %s\n" % (spec.pattern, spec.producer,
+                                        spec.description))
+    out.write("\n## Trace events (logs/<job>/trace.json, trace-enabled "
+              "runs only;\n## {step} = pipeline-step or queue index)\n")
+    for spec in TRACE_EVENT_REGISTRY:
+        out.write("%-26s %-22s %s\n" % (spec.pattern, spec.producer,
+                                        spec.description))
+    out.write("\n## Live-metric series (logs/<job>/metrics.jsonl + "
+              "metrics.prom,\n## metrics-enabled runs only; kind/source "
+              "per rnb_tpu_torch.telemetry.MetricSpec)\n")
+    for spec in METRIC_REGISTRY:
+        out.write("%-26s %-10s %-7s %s\n" % (spec.pattern, spec.kind,
+                                              spec.source, spec.description))
+    out.write("\n## HBM-ledger owners (the 'Memory owners:' line's keys,\n"
+              "## devobs-enabled runs only; declared in "
+              "rnb_tpu_torch.memledger)\n")
+    for spec in MEM_OWNER_REGISTRY:
+        out.write("%-26s %-22s %s\n" % (spec.name, spec.producer,
+                                        spec.description))
+
+
 def _mean(values: List[float]):
     return sum(values) / len(values) if values else None
 
 
 def main(argv=None) -> int:
-    log_dirs = list(sys.argv[1:] if argv is None else argv)
-    if "--check" in log_dirs:
-        log_dirs.remove("--check")  # the checks always run
+    args = list(sys.argv[1:] if argv is None else argv)
+    if "--stamps" in args:
+        print_stamp_registry()
+        return 0
+    check = "--check" in args
+    explain = "--explain" in args
+    log_dirs = [a for a in args if a not in ("--check", "--explain")]
     if "--attribute" in log_dirs:
         log_dirs.remove("--attribute")
         for log_dir in log_dirs:
@@ -1914,6 +2425,13 @@ def main(argv=None) -> int:
     if not log_dirs:
         print(__doc__)
         return 2
+    status = 0
+    if explain:
+        for log_dir in log_dirs:
+            status = max(status, print_explanation(log_dir))
+        if not check:
+            # the reference's flags compose: --explain alone runs no check
+            return status
     failed = unreadable = False
     for log_dir in log_dirs:
         problems, parse_failed = check_job_detail(log_dir)
@@ -1925,7 +2443,7 @@ def main(argv=None) -> int:
         failed = failed or bool(problems)
         unreadable = unreadable or parse_failed
     # 2: the checker could not read a job; 1: an invariant does not hold
-    return 2 if unreadable else 1 if failed else 0
+    return max(status, 2 if unreadable else 1 if failed else 0)
 
 
 if __name__ == "__main__":
