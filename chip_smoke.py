@@ -752,6 +752,19 @@ PROCESS_REPLAYS = 8
 RUN_REPS = 12
 DRYRUN_MEMBERS = (8, 2)
 DRYRUN_KERNELS = {"normalize_u8", "yuv420_normalize"}
+#: the served launch (phase_launch): the launch copies of the two mesh
+#: configs (``tools.launch.launch_copy``: the loader on the host, the mesh
+#: stage homed on member 0 over members [0, 1]) with their dp, so rgb
+#: gathers over the ring of the two processes at sp 2 and yuv420 computes
+#: a video row a process; their requests, in bulk, and seed; the replays
+#: each process times after its run; and the request process 1 alone
+#: dead-letters in the diverging launch
+LAUNCH_RUNS = (("r2p1d-mesh-launch", MESH, 1),
+               ("r2p1d-mesh-yuv-launch", MESH_YUV, 2))
+LAUNCH_VIDEOS = 32
+LAUNCH_SEED = 0
+LAUNCH_REPLAYS = 8
+LAUNCH_DEAD_LETTER = 5
 #: the checkpoint phase (``phase_ckpt``): the copies of
 #: ``rnb_tpu_torch/tools/synth_ckpt.py`` served from the file it
 #: converts, each with its requests, the kernel its path launches and
@@ -4698,11 +4711,12 @@ def child_killed(rank, n, device, ring):
             "hop_seconds": report["hop"]["seconds"]}
 
 
-def process_child(mode, out_dir) -> int:
-    """``chip_smoke.py --process-child MODE OUT_DIR``: one process of a
-    launch (``rnb_tpu_torch.tools.launch`` set its variables), on the
-    card ``process_index() % device_count()``; writes its report to
-    OUT_DIR as JSON."""
+def process_child(mode, out_dir, args_path=None) -> int:
+    """``chip_smoke.py --process-child MODE OUT_DIR [ARGS_JSON]``: one
+    process of a launch (``rnb_tpu_torch.tools.launch`` set its
+    variables), on the card ``process_index() % device_count()``; writes
+    its report to OUT_DIR as JSON."""
+    import functools
     import traceback
     import torch
     sys.path.insert(0, HERE)
@@ -4719,7 +4733,13 @@ def process_child(mode, out_dir) -> int:
         torch.cuda.set_device(device)
         ring = Ring([Member(p, distributed.local_device(p))
                      for p in range(n)], "tp")
-        child = {"ring": child_ring, "killed": child_killed}[mode]
+        args = {}
+        if args_path is not None:
+            with open(args_path) as f:
+                args = json.load(f)
+        child = {"ring": child_ring, "killed": child_killed,
+                 "served": functools.partial(child_served, args=args,
+                                             out_dir=out_dir)}[mode]
         report.update(child(distributed.process_index(), n, device, ring))
         report["ok"] = True
     except Exception:  # reported to the smoke, which fails on it
@@ -4827,6 +4847,398 @@ def phase_processes(data_root, launches):
             "xproc_launches": sum(reports["ring", r]["counts"]["ring_shift"]
                                   for r in range(PROCESSES)),
             "xproc_kill_s": killed["seconds"]}
+
+
+class LogitsSpy:
+    """Within its ``with``: every dispatch of the mesh stage records its
+    request ids, the host waits it made (``peers.host_waits``) and a copy
+    of its logits (queued on the stage's stream: no later replay
+    overwrites it), with ``inputs`` a copy of its batch and mask too, and
+    ``finalize`` its host waits."""
+
+    def __init__(self, inputs=False):
+        from rnb_tpu_torch.models.r2p1d.model import R2P1DMeshRunner
+        self.cls = R2P1DMeshRunner
+        self.dispatches, self.logits, self.finalize_waits = [], [], []
+        self.keep_inputs, self.inputs = inputs, []
+
+    def __enter__(self):
+        from rnb_tpu_torch.parallel import peers
+        cls = self.cls
+        self.saved = (cls._dispatch, cls.forward, cls.finalize)
+        dispatch, forward, finalize = self.saved
+        spy = self
+
+        def spy_dispatch(stage, pbs, cards):
+            before = peers.host_waits
+            out = dispatch(stage, pbs, cards)
+            spy.dispatches.append(([tc.id for tc in cards],
+                                   peers.host_waits - before))
+            return out
+
+        def spy_forward(stage, vids, mask):
+            out = forward(stage, vids, mask)
+            spy.logits.append(out.clone())
+            if spy.keep_inputs:
+                spy.inputs.append((vids.clone(), mask.clone()))
+            return out
+
+        def spy_finalize(stage):
+            before = peers.host_waits
+            try:
+                finalize(stage)
+            finally:
+                spy.finalize_waits.append(peers.host_waits - before)
+        cls._dispatch, cls.forward, cls.finalize = (
+            spy_dispatch, spy_forward, spy_finalize)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._dispatch, self.cls.forward, self.cls.finalize = self.saved
+        self.logits = [t.cpu() for t in self.logits]
+        return False
+
+
+def child_served(rank, n, device, ring, args, out_dir):
+    """One process of a served launch: ``run_benchmark`` of the launch
+    copy ``args["config"]`` (every process serves the whole config), the
+    counts set to 0 just before and read just after; the dispatches'
+    request ids, host waits and logits (saved to OUT_DIR for the smoke
+    to hold to the one-process run), the class ids, the graph's record
+    and the job directory's check; then LAUNCH_REPLAYS replays of the
+    step's graph, timed (every process replays as many, so their hops
+    pair)."""
+    import torch
+    from rnb_tpu_torch.benchmark import run_benchmark
+    from rnb_tpu_torch.models.r2p1d.model import R2P1DMeshRunner
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.parse_utils import check_job_detail, summarize
+    stages, sink = [], {}
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.time()
+    with LogitsSpy() as spy:
+        result = run_benchmark(
+            args["config"], mean_interval_ms=0, num_videos=args["videos"],
+            print_progress=False, log_base=args["log_base"],
+            seed=args["seed"], outputs_sink=sink, stages_sink=stages)
+    seconds = time.time() - t0
+    counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+    (runner,) = [s for _, s in stages if isinstance(s, R2P1DMeshRunner)]
+    graphs = dict(runner.graph_stats)
+    problems, unreadable = check_job_detail(result.log_dir)
+    torch.save(spy.logits, os.path.join(out_dir, "logits-%d.pt" % rank))
+    si = runner._si
+    vids, mask = si.block(torch.zeros(si.batch_shape(runner.dp),
+                                      dtype=torch.uint8),
+                          [si.max_clips] * runner.dp)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(LAUNCH_REPLAYS):
+        si.run(vids, mask, finish=False)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t1) * 1e3 / LAUNCH_REPLAYS
+    si.finish()
+    return {"flag": int(result.termination_flag),
+            "completed": result.num_completed,
+            "vps": result.throughput_vps,
+            "clips_per_s": summarize(result.log_dir)["clips_per_s"],
+            "seconds": seconds, "replay_ms": replay_ms, "counts": counts,
+            "graphs": graphs, "compiles": result.compiles,
+            "dispatches": spy.dispatches,
+            "finalize_waits": spy.finalize_waits,
+            "classes": {str(rid): value for rid, (_, value, _)
+                        in sink.items()},
+            "log_dir": result.log_dir, "problems": problems,
+            "unreadable": unreadable, "sp": si.sp_size,
+            "device": str(si.device)}
+
+
+def launch_copies(data_root, label, config, dp):
+    """The launch copy of ``config`` (``tools.launch.launch_copy``) and
+    its one-process twin, both members on card 0 in one process as
+    ``phase_mesh`` serves a mesh, written beside the dataset."""
+    from rnb_tpu_torch.tools.launch import launch_copy
+    with open(os.path.join(HERE, config)) as f:
+        raw = launch_copy(json.load(f), PROCESSES, dp)
+    paths = []
+    for name, members in ((label, list(range(PROCESSES))),
+                          (label + "-one-process", [0] * PROCESSES)):
+        raw["pipeline"][-1]["mesh_devices"] = members
+        paths.append(os.path.join(data_root, name + ".json"))
+        with open(paths[-1], "w") as f:
+            json.dump(raw, f)
+    return paths
+
+
+def rows_alone(si, vids, mask):
+    """The logits of a block of whole videos (every clip, padded to the
+    sp members' shards) forwarded alone through ``si`` 's step, as a
+    process of a launch forwards its block: each member's partial, summed
+    in member order."""
+    import torch
+    with torch.inference_mode():
+        partials = si.step_partials(vids, mask)
+        total = partials[:, 0]
+        for member in range(1, partials.shape[1]):
+            total = total + partials[:, member]
+    return total
+
+
+def row_count_diagnosis(runner, vids, mask, rows):
+    """The first module of ``runner``'s network whose output for the
+    dispatch's rows ``rows`` forwarded alone is not bitwise its output
+    for the same rows inside the whole dispatch (its forward hooks, one
+    forward each), with the largest difference: where a kernel picked by
+    the row count changes a row's result."""
+    import torch
+    si = runner._si
+    network = si.network
+    names = [name for name, module in network.named_modules()
+             if not list(module.children())]
+    seen = {}
+
+    def hook(name, key):
+        def record(_module, _inputs, output):
+            if isinstance(output, torch.Tensor):
+                seen.setdefault(key, {})[name] = output.detach().clone()
+        return record
+
+    modules = dict(network.named_modules())
+
+    def outputs(key, step, *args):
+        handles = [modules[name].register_forward_hook(hook(name, key))
+                   for name in names]
+        try:
+            with torch.inference_mode():
+                step(*args)
+        finally:
+            for handle in handles:
+                handle.remove()
+    outputs("whole", si.step, vids, mask)
+    outputs("alone", rows_alone, si, vids[rows], mask[rows])
+    clips = si.padded_clips
+    first = rows.start * clips
+    for name in names:
+        whole, alone = seen["whole"].get(name), seen["alone"].get(name)
+        if whole is None or alone is None:
+            continue
+        part = whole[first:first + alone.shape[0]]
+        if part.shape == alone.shape and not torch.equal(part, alone):
+            return name, float((part.float() - alone.float()).abs().max())
+    return None, 0.0
+
+
+def check_launch(label, reports, twin, twin_sink, logits, dp, twin_runner):
+    """A served launch against its one-process twin: both processes
+    exited 0 with every request completed, dispatched the twin's
+    requests in its order, waited for the card at ``finalize`` only,
+    replayed the step's one graph a dispatch, launched the ingest kernel
+    and the hop as the step records them, wrote a job directory
+    ``check_job`` finds clean, and computed each dispatch's logits of its
+    rows bitwise the twin's. Where a process's block holds fewer rows
+    than the twin's forward (dp over the processes), a row's logits may
+    differ by the kernels picked by row count: there they must be bitwise
+    the twin's stage forwarding the same rows alone, within PARALLEL_TOL
+    of the twin's, with its class ids. Returns the largest difference
+    from the twin's and the first module it shows in."""
+    import torch
+    from rnb_tpu_torch.models.r2p1d.model import NUM_WARMUPS
+    worst = (0.0, None, None)
+    want_ids = [ids for ids, _ in twin.dispatches]
+    kernel = INGEST_KERNELS["rgb" if dp == 1 else "yuv420"]
+    dispatches = len(want_ids)
+    for rank, report in enumerate(reports):
+        check(report["flag"] == 0 and report["completed"] == LAUNCH_VIDEOS,
+              "%s process %d: flag %d, %d completed" % (
+                  label, rank, report["flag"], report["completed"]))
+        ids = [ids for ids, _ in report["dispatches"]]
+        check(ids == want_ids, "%s process %d dispatched %s, the "
+              "one-process run %s" % (label, rank, ids, want_ids))
+        waits = [w for _, w in report["dispatches"]]
+        check(waits == [0] * dispatches and report["finalize_waits"] == [1],
+              "%s process %d: host waits %s in its dispatches, %s at "
+              "finalize" % (label, rank, waits, report["finalize_waits"]))
+        graphs = report["graphs"]
+        check(graphs["graphs"] == 1 and graphs["replays"] == dispatches
+              == report["compiles"]["step1"]["steady_calls"],
+              "%s process %d: graphs %s for %d dispatches" % (
+                  label, rank, graphs, dispatches))
+        # the eager warm-ups, the capture's warm-up, then one a replay;
+        # the hop also where the stream starts and ends (agree)
+        want = {kernel: NUM_WARMUPS + 1 + dispatches,
+                "ring_shift": (NUM_WARMUPS + 3 + dispatches) if dp == 1
+                else 2}
+        check(report["counts"] == want, "%s process %d: launches %s, want "
+              "%s" % (label, rank, report["counts"], want))
+        check(not report["problems"] and not report["unreadable"],
+              "%s process %d: check_job: %s" % (label, rank,
+                                                 report["problems"][:5]))
+        mine = logits[rank]
+        check(len(mine) == dispatches, "%s process %d: %d logits for %d "
+              "dispatches" % (label, rank, len(mine), dispatches))
+        rows = slice(rank, rank + 1) if dp == PROCESSES else slice(None)
+        for j, (got, whole) in enumerate(zip(mine, twin.logits)):
+            theirs = whole[rows]
+            check(got.shape == theirs.shape, "%s process %d dispatch %d: "
+                  "logits %s, the twin's %s" % (label, rank, j,
+                                                tuple(got.shape),
+                                                tuple(theirs.shape)))
+            err = float((got - theirs).abs().max())
+            if err:
+                check(rows != slice(None) and twin.inputs, "%s process %d "
+                      "dispatch %d: logits %g from the one-process run's, "
+                      "over the same rows" % (label, rank, j, err))
+                vids, mask = twin.inputs[j]
+                alone = rows_alone(twin_runner._si, vids[rows],
+                                   mask[rows]).cpu()
+                check(torch.equal(got, alone) and err <= PARALLEL_TOL
+                      and torch.equal(got.argmax(-1), theirs.argmax(-1)),
+                      "%s process %d dispatch %d: logits %g from the "
+                      "one-process run's, %g from its rows forwarded alone"
+                      % (label, rank, j, err,
+                         float((got - alone).abs().max())))
+                if err > worst[0]:
+                    worst = (err, rank, j)
+        for rid, value in report["classes"].items():
+            check(value == twin_sink[int(rid)][1], "%s process %d: request "
+                  "%s class %d, the one-process run's %d" % (
+                      label, rank, rid, value, twin_sink[int(rid)][1]))
+    held = sorted({int(rid) for r in reports for rid in r["classes"]})
+    check(held == list(range(LAUNCH_VIDEOS)), "%s: the processes hold the "
+          "classes of %s" % (label, held))
+    err, rank, j = worst
+    if not err:
+        return 0.0, None
+    vids, mask = twin.inputs[j]
+    module, diff = row_count_diagnosis(twin_runner, vids, mask,
+                                       slice(rank, rank + 1))
+    return err, "%s (%g)" % (module, diff)
+
+
+def phase_launch(data_root, launches):
+    """A served launch: two processes of one launch on card 0 (``tools.
+    launch``), each serving a launch copy of the mesh configs at full
+    width (:func:`child_served`), LAUNCH_VIDEOS requests in bulk at a
+    fixed seed, held to the copy's one-process twin served here
+    (:func:`check_launch`); then the rgb copy served through the
+    benchmark's CLI in a launch whose process 1 alone dead-letters a
+    request (its ``RNB_FAULT_PLAN``), which must end both processes
+    non-zero with the ring's error. The launches' kernel launches and the
+    twins' go to ``launches``."""
+    import torch
+    from rnb_tpu_torch.benchmark import run_benchmark
+    from rnb_tpu_torch.models.r2p1d.model import R2P1DMeshRunner
+    from rnb_tpu_torch.ops import _kernels
+    from rnb_tpu_torch.parallel import peers
+    from rnb_tpu_torch.tools.launch import launch
+    smi = nvidia_smi_line()
+    os.environ["RNB_TPU_DATA_ROOT"] = data_root
+    for label, config, dp in LAUNCH_RUNS:
+        path, twin_path = launch_copies(data_root, label, config, dp)
+        out = os.path.abspath(os.path.join(data_root, label))
+        os.makedirs(out, exist_ok=True)
+        args = os.path.join(out, "args.json")
+        with open(args, "w") as f:
+            json.dump({"config": path, "videos": LAUNCH_VIDEOS,
+                       "seed": LAUNCH_SEED,
+                       "log_base": os.path.join(data_root, "logs")}, f)
+        t0 = time.time()
+        ended = launch(PROCESSES, [sys.executable, os.path.join(
+            HERE, "chip_smoke.py"), "--process-child", "served", out, args],
+            PROCESS_TIMEOUT_S, cwd=HERE)
+        wall = time.time() - t0
+        reports = []
+        for e in ended:
+            report_path = os.path.join(out, "child-served-%d.json" % e.index)
+            report = {"ok": False, "error": "no report"}
+            if os.path.exists(report_path):
+                with open(report_path) as f:
+                    report = json.load(f)
+            check(e.returncode == 0 and report["ok"], "process %d of the %s "
+                  "launch: %s\n%s\n%s" % (
+                      e.index, label, "killed at the timeout"
+                      if e.returncode is None else "exit %d" % e.returncode,
+                      report.get("error"), e.stderr[-6000:]))
+            reports.append(report)
+        logits = [torch.load(os.path.join(out, "logits-%d.pt" % rank))
+                  for rank in range(PROCESSES)]
+        twin_sink, stages = {}, []
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        with LogitsSpy(inputs=dp == PROCESSES) as twin:
+            result = run_benchmark(
+                twin_path, mean_interval_ms=0, num_videos=LAUNCH_VIDEOS,
+                print_progress=False,
+                log_base=os.path.join(data_root, "logs"), seed=LAUNCH_SEED,
+                outputs_sink=twin_sink, stages_sink=stages)
+        twin_counts = _kernels.launch_counts()
+        (twin_runner,) = [s for _, s in stages
+                          if isinstance(s, R2P1DMeshRunner)]
+        check(result.termination_flag == 0
+              and result.num_completed == LAUNCH_VIDEOS, "%s one-process "
+              "twin: flag %d, %d completed" % (
+                  label, result.termination_flag, result.num_completed))
+        err, where = check_launch(label, reports, twin, twin_sink, logits,
+                                  dp, twin_runner)
+        for name, count in twin_counts.items():
+            launches[name] += count
+        for report in reports:
+            for name, count in report["counts"].items():
+                launches[name] += count
+        for rank, report in enumerate(reports):
+            print("launch %s, process %d of %d (sp %d, %s): %d requests, "
+                  "%.3f videos/s, %.3f clips/s, run %.1f s, replay %.3f ms "
+                  "a dispatch (the mean of %d replays, the two processes "
+                  "time-slicing the card), host waits 0 a dispatch and %d "
+                  "at finalize, launches %s; logits %s (%s)" % (
+                      label, rank, PROCESSES, report["sp"], report["device"],
+                      report["completed"], report["vps"],
+                      report["clips_per_s"], report["seconds"],
+                      report["replay_ms"], LAUNCH_REPLAYS,
+                      report["finalize_waits"][0], report["counts"],
+                      "bitwise the one-process run's" if not err else
+                      "at most %g from the one-process run's and bitwise "
+                      "its rows forwarded alone; the first module whose "
+                      "rows differ by the row count: %s" % (err, where),
+                      smi))
+        print("launch %s: %.1f s the launch; the one-process twin %.3f "
+              "videos/s, launches %s" % (
+                  label, wall, result.throughput_vps,
+                  {k: v for k, v in twin_counts.items() if v}))
+        twin_runner._graphs.clear()
+        del stages, twin_runner, twin
+        torch.cuda.empty_cache()
+    label, config, dp = LAUNCH_RUNS[0]
+    path = os.path.join(data_root, label + ".json")
+    plan = {"faults": [{"step": 0, "kind": "permanent",
+                        "request_ids": [LAUNCH_DEAD_LETTER]}]}
+    t0 = time.time()
+    ended = launch(PROCESSES, [
+        sys.executable, "-m", "rnb_tpu_torch.benchmark", "-c", path, "-mi",
+        "0", "-v", str(LAUNCH_VIDEOS), "--seed", str(LAUNCH_SEED),
+        "--log-base", os.path.join(data_root, "diverged")],
+        PROCESS_TIMEOUT_S, cwd=HERE,
+        env_of={1: {"RNB_FAULT_PLAN": json.dumps(plan)}})
+    seconds = time.time() - t0
+    cap = peers.DEFAULT_WAIT_CAP_S
+    for e in ended:
+        errors = [line for line in e.stderr.splitlines()
+                  if line.startswith(("RuntimeError: ring sp:",
+                                      "ValueError: ring sp:"))]
+        check(e.returncode not in (None, 0) and errors,
+              "process %d of the diverging launch: %s, ring errors %s\n%s"
+              % (e.index, "killed at the timeout" if e.returncode is None
+                 else "exit %d" % e.returncode, errors, e.stderr[-6000:]))
+        print("launch diverged, process %d: exit %d, %s" % (
+            e.index, e.returncode, errors[0]))
+    # both processes start, build, serve and fail within one cap: the
+    # ring's check fails at the agreement, no wait reaches the cap
+    check(seconds < cap, "the diverging launch took %.1f s, past the "
+          "ring's wait cap of %.1f s" % (seconds, cap))
+    print("launch diverged (request %d dead-lettered in process 1 only): "
+          "both processes ended non-zero after %.1f s (cap %.1f s)"
+          % (LAUNCH_DEAD_LETTER, seconds, cap))
 
 
 def check_served_weights(label, runner, file_state, seeded):
@@ -6064,6 +6476,9 @@ def main() -> int:
         t_processes = time.time()
         timings["ring_shift"].update(phase_processes(data_root, launches))
         seconds_of["processes"] = time.time() - t_processes
+        t_launch = time.time()
+        phase_launch(data_root, launches)
+        seconds_of["launch"] = time.time() - t_launch
         t_checks = time.time()
         phase_check_jobs(data_root)
         seconds_of["check_jobs"] = time.time() - t_checks
@@ -6112,5 +6527,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--process-child"]:
-        sys.exit(process_child(*sys.argv[2:4]))
+        sys.exit(process_child(*sys.argv[2:5]))
     sys.exit(main())

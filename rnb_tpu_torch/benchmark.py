@@ -139,8 +139,7 @@ from rnb_tpu_torch.netedge import (NET_LANE, PEER_EXIT_S, NetEdgeClient,
                                    NetEdgeSettings, NetStats, spawn_peer,
                                    stop_peer)
 from rnb_tpu_torch.pager import Pager, PagerSettings
-from rnb_tpu_torch.parallel.distributed import (maybe_initialize,
-                                                process_count)
+from rnb_tpu_torch.parallel import distributed
 from rnb_tpu_torch.placement import PlacementSettings, build_report
 from rnb_tpu_torch.runner import (NUM_SUMMARY_SKIPS, RunnerContext,
                                   finish_outputs, runner)
@@ -789,18 +788,10 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
                    log_base, print_progress, seed, platform, outputs_sink,
                    profile, stages_sink, xprof, batch_size, net_rows_sink,
                    closers) -> BenchmarkResult:
-    # the reference joins a multi-process launch (RNB_TPU_COORDINATOR ...)
-    # here, before its first device touch, and serves the whole config in
-    # every process; the port joins it and refuses to serve
-    maybe_initialize()
-    if process_count() > 1:
-        raise NotImplementedError(
-            "a served run in a launch of %d processes (RNB_TPU_COORDINATOR"
-            "=...) is not yet ported to rnb_tpu_torch: no served stage of "
-            "the port spans processes, and every process would serve the "
-            "whole config on its own (ROADMAP.md, queue 1 item 5); a launch "
-            "runs ShardedInference and the ring collectives "
-            "(rnb_tpu_torch.parallel)" % process_count())
+    # a multi-process launch (RNB_TPU_COORDINATOR ...) is joined here,
+    # before the first device touch, and every process serves the whole
+    # config, as the reference does; a join that fails raises
+    distributed.maybe_initialize()
     config = load_config(config_path, platform)
     # the reference's contention probe, a warning (never an abort): a
     # card another process already holds memory on serves slower
@@ -816,6 +807,10 @@ def _run_benchmark(config_path, mean_interval_ms, num_videos, queue_size,
     job_id = "%s-mi%d-v%d-qs%d" % (
         datetime.today().strftime("%y%m%d_%H%M%S"), mean_interval_ms,
         num_videos, queue_size)
+    if distributed.process_count() > 1:
+        # the processes of a launch share a machine here, and a disk: each
+        # writes its own job directory (a TPU pod's hosts each have theirs)
+        job_id += "-p%d" % distributed.process_index()
 
     ragged = RaggedSettings.from_config(config.ragged)
     # one page allocator per job, handed to every SUPPORTS_PAGER stage
@@ -1811,12 +1806,16 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.check:
         return check_config(args.config_file_path)
-    result = run_benchmark(
-        config_path=args.config_file_path,
-        mean_interval_ms=args.mean_interval_ms, num_videos=args.videos,
-        queue_size=args.queue_size, log_base=args.log_base,
-        seed=args.seed, platform=args.platform, profile=args.profile,
-        xprof=args.xprof, batch_size=args.batch_size)
+    try:
+        result = run_benchmark(
+            config_path=args.config_file_path,
+            mean_interval_ms=args.mean_interval_ms, num_videos=args.videos,
+            queue_size=args.queue_size, log_base=args.log_base,
+            seed=args.seed, platform=args.platform, profile=args.profile,
+            xprof=args.xprof, batch_size=args.batch_size)
+    finally:
+        # a process of a launch leaves it (a no-op in one process)
+        distributed.shutdown()
     print("Throughput: %.3f videos/s" % result.throughput_vps)
     print("Logs: %s" % result.log_dir)
     print(json.dumps(asdict(result)))

@@ -27,6 +27,15 @@ device, and the ring travels to the runner as ``shard_devices``
 ``mesh_devices`` become ``DeviceSpec`` s the same way, and the loader's
 ``raw_output`` is read with it.
 
+In a launch of several processes every process serves the whole config,
+as the reference does, and a device index names a global member, one a
+process (:mod:`rnb_tpu_torch.devices`). A stage on a member that another
+process owns is refused here, in that process, naming the owner (the
+reference fails later, at its first ``device_put`` to a device it cannot
+address); host stages (``-1``) serve in every process. A mesh stage's
+home must be a member of its mesh, and in each process it runs on that
+process's member (:func:`_place_in_launch`).
+
 The loaders' ``fallback_decode_threads`` (the numpy/PIL decode pool's
 width), ``staging_slots`` and ``transfer_async`` are read with the
 reference's type rules and messages; so are a step's ``async_dispatch``
@@ -54,7 +63,9 @@ import dataclasses
 import json
 from typing import Any, Dict, List, Optional
 
-from rnb_tpu_torch.devices import DeviceSpec, resolve_platform
+from rnb_tpu_torch.devices import (DeviceResolutionError, DeviceSpec,
+                                   resolve_platform)
+from rnb_tpu_torch.parallel import distributed
 from rnb_tpu_torch.selector import DEFAULT_QUEUE_SELECTOR
 
 REFERENCE_PREFIX = "rnb_tpu."
@@ -1001,6 +1012,54 @@ def _mesh_devices(kwargs: dict, platform: str, where: str) -> None:
     kwargs["mesh_devices"] = [DeviceSpec(d, platform) for d in devices]
 
 
+def _owners(specs: List[DeviceSpec], where: str) -> List[int]:
+    """The process that owns each of ``specs`` in this launch."""
+    try:
+        return [spec.owner for spec in specs]
+    except DeviceResolutionError as e:
+        raise ConfigError("%s: %s" % (where, e)) from e
+
+
+def _place_in_launch(steps: List["StepConfig"], platform: str) -> None:
+    """In a launch of several processes: refuse every stage this process
+    cannot serve, naming the process that owns its device, and move each
+    mesh stage's home to this process's member of its mesh (where it
+    runs; the reference's home is one device of the global mesh)."""
+    me = distributed.process_index()
+    for step_idx, step in enumerate(steps):
+        for group_idx, group in enumerate(step.groups):
+            where = "pipeline step %d, queue group %d" % (step_idx,
+                                                          group_idx)
+            kwargs = step.kwargs_for_group(group_idx)
+            mesh = kwargs.get("mesh_devices")
+            if mesh:
+                owners = _owners(mesh, where)
+                members = [spec.spec for spec in mesh]
+                for spec in group.devices:
+                    _expect(spec.spec in members,
+                            "%s: the mesh stage's home device %d is not a "
+                            "member of its mesh %s" % (where, spec.spec,
+                                                       members))
+                _expect(me in owners,
+                        "%s: process %d of the launch owns no member of the "
+                        "mesh %s (its members lie in processes %s)"
+                        % (where, me, members, sorted(set(owners))))
+                home = DeviceSpec(members[owners.index(me)], platform)
+                group.devices = [home] * len(group.devices)
+                continue
+            specs = [spec for spec in list(group.devices)
+                     + list(kwargs.get("shard_devices") or ())
+                     if not spec.is_host]
+            for spec, owner in zip(specs, _owners(specs, where)):
+                _expect(owner == me,
+                        "%s: device %d is the member of process %d of the "
+                        "launch, so process %d cannot serve a stage there: "
+                        "every process serves the whole config; place the "
+                        "stage on the host (-1) or make it a mesh stage "
+                        "over the processes' members"
+                        % (where, spec.spec, owner, me))
+
+
 def parse_config(raw: dict, platform: Optional[str] = None
                  ) -> PipelineConfig:
     """Validate a config dict and build the port's view of it."""
@@ -1172,6 +1231,8 @@ def parse_config(raw: dict, platform: Optional[str] = None
     netedge = raw.get("netedge")
     if netedge is not None and netedge.get("enabled", True):
         _check_netedge_pipeline(steps, raw)
+    if distributed.process_count() > 1:
+        _place_in_launch(steps, platform)
     return PipelineConfig(
         video_path_iterator=port_class_path(raw["video_path_iterator"]),
         steps=steps, ragged=ragged, platform=platform,

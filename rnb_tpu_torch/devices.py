@@ -6,6 +6,12 @@ host CPU. A run on ``platform="cpu"`` (what the tests ask for) maps
 every index to the CPU. A CUDA run on a machine with no card raises;
 nothing falls back to the CPU on its own.
 
+In a launch of several processes (``rnb_tpu_torch.parallel.
+distributed``) an index ``d`` names global member ``d``, one a process,
+process-major, as ``distributed.global_mesh`` and the reference's
+``jax.devices()`` order them: process ``d`` acts on it (:attr:`DeviceSpec.
+owner`), on its card ``distributed.local_device(d)``.
+
 :func:`probe_busy_devices` is the reference's contention probe: a card
 on which another process already holds memory when a run starts gets a
 warning (never an abort).
@@ -16,9 +22,11 @@ from __future__ import annotations
 import os
 import subprocess
 from typing import Dict, List, Optional, Tuple
-from xml.etree import ElementTree
 
 import torch
+
+from rnb_tpu_torch.parallel import distributed
+from rnb_tpu_torch.parallel.mesh import Member
 
 HOST_DEVICE_INDEX = -1
 PLATFORMS = ("cuda", "cpu")
@@ -56,9 +64,33 @@ class DeviceSpec:
     def is_host(self) -> bool:
         return self.spec == HOST_DEVICE_INDEX
 
+    @property
+    def owner(self) -> int:
+        """The process that acts on this device: this one for the host
+        and in one process; in a launch, process ``d`` for index ``d``
+        (raises for an index past the launch's members)."""
+        count = distributed.process_count()
+        if self.is_host or count == 1:
+            return distributed.process_index()
+        if not 0 <= self.spec < count:
+            raise DeviceResolutionError(
+                "pipeline configuration names device %d but a launch of %d "
+                "processes has %d members, one a process"
+                % (self.spec, count, count))
+        return self.spec
+
+    def member(self) -> Member:
+        """This device as a mesh member: its owner and its device."""
+        return Member(self.owner, self.resolve())
+
     def resolve(self) -> torch.device:
-        if self.is_host or self.platform == "cpu":
+        if self.is_host:
             return torch.device("cpu")
+        owner = self.owner  # raises for an index past a launch's members
+        if self.platform == "cpu":
+            return torch.device("cpu")
+        if distributed.process_count() > 1:
+            return distributed.local_device(owner)
         count = torch.cuda.device_count()
         if not 0 <= self.spec < count:
             raise DeviceResolutionError(
@@ -81,38 +113,36 @@ class DeviceSpec:
 #: reference's threshold; in a pid namespace the probe counts processes
 #: instead, see :func:`other_processes`)
 BUSY_BYTES_THRESHOLD = 16 * 1024 * 1024
-#: seconds the ``nvidia-smi`` reading may take
+#: seconds an ``nvidia-smi`` reading may take
 SMI_TIMEOUT_S = 20
 
 
-def _smi_xml() -> str:
-    """One ``nvidia-smi -q -x`` reading: every card with its memory and
-    its processes. ``nvidia-smi`` answers one ``--query-*`` switch a
-    call and refuses ``-d`` with ``-x``, so this is the one call that
-    holds both."""
-    return subprocess.run(
-        ["nvidia-smi", "-q", "-x"], capture_output=True, text=True,
+def _smi_rows(query: str, fields: str) -> List[List[str]]:
+    """One ``nvidia-smi --query-<query>=<fields>`` reading: a row of
+    stripped fields a line (no header, no units). ``nvidia-smi``
+    answers one ``--query-*`` switch a call; ``-q -x``, which holds
+    both, reads every field of every card and can take seconds."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-%s=%s" % (query, fields),
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
         timeout=SMI_TIMEOUT_S, check=True).stdout
-
-
-def _mib(text: Optional[str]) -> float:
-    """``"582 MiB"`` -> 582.0 (ValueError on anything else)."""
-    return float((text or "").split(" ")[0])
+    return [[field.strip() for field in line.split(",")]
+            for line in out.splitlines() if line.strip()]
 
 
 def read_card_memory() -> Dict[int, dict]:
-    """Per card index (``nvidia-smi``'s order): its UUID, the MiB in use
-    on it, and the compute processes on it as ``(pid, MiB)``."""
-    cards = {}
-    for index, gpu in enumerate(ElementTree.fromstring(_smi_xml())
-                                .findall("gpu")):
-        cards[index] = {
-            "uuid": gpu.findtext("uuid"),
-            "used_mib": _mib(gpu.findtext("fb_memory_usage/used")),
-            "apps": [(int(app.findtext("pid")),
-                      _mib(app.findtext("used_memory")))
-                     for app in gpu.findall("processes/process_info")
-                     if "C" in (app.findtext("type") or "C")]}
+    """Per card index (``nvidia-smi``'s): its UUID, the MiB in use on
+    it, and the compute processes on it as ``(pid, MiB)``; two
+    readings, the cards' and the compute processes'."""
+    cards = {int(index): {"uuid": uuid, "used_mib": float(used),
+                          "apps": []}
+             for index, uuid, used in _smi_rows("gpu",
+                                                "index,uuid,memory.used")}
+    by_uuid = {card["uuid"]: card for card in cards.values()}
+    for uuid, pid, mib in _smi_rows("compute-apps",
+                                    "gpu_uuid,pid,used_memory"):
+        if uuid in by_uuid:
+            by_uuid[uuid]["apps"].append((int(pid), float(mib)))
     return cards
 
 
@@ -154,8 +184,7 @@ def probe_busy_devices(specs: List[DeviceSpec]) -> List[str]:
         return []
     try:
         cards = read_card_memory()
-    except (OSError, ValueError, TypeError, subprocess.SubprocessError,
-            ElementTree.ParseError):
+    except (OSError, ValueError, TypeError, subprocess.SubprocessError):
         return []
     own_context = torch.cuda.is_initialized()
     warnings = []

@@ -64,6 +64,7 @@ import math
 import os
 import threading
 import time
+import zlib
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FuturesTimeout
@@ -98,7 +99,8 @@ from rnb_tpu_torch.ops.ragged import (ragged_normalize_u8,
                                       ragged_normalize_yuv420,
                                       resolve_pool_rows, segment_offsets_of)
 from rnb_tpu_torch.ops.yuv import normalize_yuv420, packed_frame_bytes
-from rnb_tpu_torch.parallel.mesh import Ring, build_mesh
+from rnb_tpu_torch.parallel.mesh import (Member, Ring, build_mesh,
+                                         this_process)
 from rnb_tpu_torch.parallel.sharded import ShardedInference
 from rnb_tpu_torch.parallel.shardplan import (build_shard_ring,
                                               make_merge, make_sharded_apply,
@@ -107,8 +109,9 @@ from rnb_tpu_torch.parallel.shardplan import (build_shard_ring,
                                               split_param_bytes,
                                               validate_degree)
 from rnb_tpu_torch.selector import QueueSelector
-from rnb_tpu_torch.stage import (PadCounter, PaddedBatch, RaggedBatch,
-                                 StageModel, normalize_row_buckets,
+from rnb_tpu_torch.stage import (ANOTHER_PROCESS, PadCounter, PaddedBatch,
+                                 RaggedBatch, StageModel,
+                                 normalize_row_buckets,
                                  note_emission_accounting)
 from rnb_tpu_torch.staging import StagingPool, TransferWorker
 from rnb_tpu_torch.telemetry import TimeCard, TimeCardList, cards_of
@@ -197,6 +200,13 @@ def _device_of(device) -> torch.device:
     """Accept a DeviceSpec or a torch.device."""
     return device.resolve() if hasattr(device, "resolve") else \
         torch.device(device)
+
+
+def _member_of(device) -> Member:
+    """Accept a DeviceSpec (in a launch, a global member) or a device of
+    this process, as :func:`_device_of` does."""
+    return device.member() if hasattr(device, "resolve") else \
+        Member(this_process(), torch.device(device))
 
 
 def _record_clamped(card, key: str, at: float) -> None:
@@ -2794,6 +2804,11 @@ class R2P1DSingleStep(StageModel):
         return None, pred, time_card
 
 
+#: what the processes of a launch's mesh stage agree on where its stream
+#: starts and ends
+STREAM_VALUES = ("dispatches", "request digest")
+
+
 class R2P1DMeshRunner(StageModel):
     """Clip-sharded inference stage over a ``dp x sp`` mesh.
 
@@ -2819,14 +2834,33 @@ class R2P1DMeshRunner(StageModel):
     not device compute, as in the reference.
 
     Members share one device, so the mesh runs one forward a card over
-    every row of a dispatch; a mesh over distinct devices raises. On the
-    card the step is compiled as the runner's forward is: one captured
-    CUDA graph per signature (:class:`CapturedForward`), the pixel
-    path's ingest kernel inside it, captured under the device lock after
-    the eager warm-ups; the predictions are the argmax of a copy of the
-    graph's output, so no later replay overwrites them. The whole
+    every row of a dispatch; a mesh over distinct devices of one process
+    raises. On the card the step is compiled as the runner's forward is:
+    one captured CUDA graph per signature (:class:`CapturedForward`), the
+    pixel path's ingest kernel inside it, captured under the device lock
+    after the eager warm-ups; the predictions are the argmax of a copy of
+    the graph's output, so no later replay overwrites them. The whole
     network's weights come from ``ckpt_path`` where a file is named, else
     from the seeded init.
+
+    In a launch of several processes (every process serving the whole
+    config, as the reference does) ``mesh_devices`` name global members,
+    one a process (``rnb_tpu_torch.devices``): the mesh spans the
+    processes (``ShardedInference`` over it), the home device is one of
+    its members, and the stage runs on this process's member. Each
+    dispatch keeps this process's block of the batch
+    (``ShardedInference.block``) and runs ``ShardedInference.run``'s
+    captured step, the sp ring's gather inside it; the predictions of
+    rows another process computes are :data:`ANOTHER_PROCESS`. Every
+    member builds, warms and captures in the same order, so their hops
+    pair. With ``sync_preds=False`` a dispatch waits for nothing: it
+    reads the ring's sticky report first (``ShardedInference.poll``),
+    and ``finalize`` waits once, after every process of the mesh has
+    gathered the count and request digest of its dispatches and held
+    them to its own (``ShardedInference.agree``; once at construction
+    too, which makes the ring's memory before the measured window), so
+    streams that diverged end every process's run with the ring's
+    error.
     """
 
     def __init__(self, device, mesh_devices, dp: int = 1,
@@ -2840,16 +2874,17 @@ class R2P1DMeshRunner(StageModel):
                  factored_shortcut: bool = False,
                  pixel_path: str = "rgb"):
         super().__init__(device)
-        self.torch_device = _device_of(device)
         self.dp = int(dp)
         if len(mesh_devices) % self.dp != 0:
             raise ValueError("dp=%d must divide len(mesh_devices)=%d"
                              % (self.dp, len(mesh_devices)))
-        mesh = build_mesh([_device_of(d) for d in mesh_devices],
+        mesh = build_mesh([_member_of(d) for d in mesh_devices],
                           axes={"dp": self.dp, "sp": -1})
+        # in a launch the config placed the home on this process's member
+        self.torch_device = _device_of(device)
         if mesh.device != self.torch_device:
-            raise ValueError("the mesh's members lie on %s, the stage on %s"
-                             % (mesh.device, self.torch_device))
+            raise ValueError("the mesh's members lie on %s, the stage "
+                             "on %s" % (mesh.device, self.torch_device))
         self.max_clips = int(max_clips)
         self.consecutive_frames = int(consecutive_frames)
         self.max_inflight = int(max_inflight)
@@ -2873,18 +2908,33 @@ class R2P1DMeshRunner(StageModel):
         #: finalize waited for (the card only: CPU work is synchronous)
         self.inflight_peak = 0
         self.drained = 0
+        #: across processes, the dispatches served and a CRC-32 over
+        #: their request ids in order (a padded row's id -1): what
+        #: ``finalize`` holds every process of the launch's mesh to
+        self.dispatches = 0
+        self.digest = 0
         #: entry signatures of the step (the dispatch batch and its mask)
         self.compiles = SignatureTracker()
-        dummy = torch.zeros(self._si.batch_shape(self.dp),
-                            dtype=torch.uint8, device=mesh.device)
-        full = self._si.place_mask([self.max_clips] * self.dp)
+        self.across = mesh.spans_processes
+        full = [self.max_clips] * self.dp
+        dummy, full = self._si.block(torch.zeros(
+            self._si.batch_shape(self.dp), dtype=torch.uint8), full)
         self.compiles.observe(dummy, full)
         for _ in range(num_warmups):
             self.eager_forward(dummy, full)
         #: signature key -> CapturedForward (the card only)
         self._graphs: Dict[tuple, CapturedForward] = {}
         self.graph_stats = None
-        if mesh.device.type == "cuda":
+        if self.across:
+            # the step across processes is ShardedInference.run's graph
+            if mesh.device.type == "cuda":
+                self.graph_stats = self._si.graph_stats
+                self._si.capture(dummy, full)
+            # every process of the mesh has built the stage, and the ring
+            # the stream's end is agreed over holds its peers' memory
+            # before the measured window
+            self._si.agree([self.dispatches, self.digest], STREAM_VALUES)
+        elif mesh.device.type == "cuda":
             self.graph_stats = {"graphs": 0, "capture_s": 0.0,
                                 "replays": 0}
             self._graph_pool = torch.cuda.graph_pool_handle()
@@ -2940,15 +2990,26 @@ class R2P1DMeshRunner(StageModel):
     @torch.inference_mode()
     def eager_forward(self, vids: torch.Tensor, mask: torch.Tensor
                       ) -> torch.Tensor:
-        """The step op by op, as on the CPU."""
-        return self._si.step(vids, mask)
+        """The step op by op, as on the CPU; across processes this
+        process's block in, its videos' logits out, the run's end
+        waited for (``ShardedInference.step_across``, ``finish``)."""
+        if not self.across:
+            return self._si.step(vids, mask)
+        out = self._si.step_across(vids, mask)
+        self._si.finish()
+        return out
 
     @torch.inference_mode()
     def forward(self, vids: torch.Tensor, mask: torch.Tensor
                 ) -> torch.Tensor:
         """A dispatch's (dp, max_clips, ...) batch and its mask -> the
         per-video logits; on the card one replay of the captured graph
-        of the batch's signature."""
+        of the batch's signature. Across processes this process's block
+        (``ShardedInference.block``) in, its videos' logits out, through
+        ``ShardedInference.run``: with ``sync_preds`` it waits for the
+        card and checks the ring, else it waits for nothing."""
+        if self.across:
+            return self._si.run(vids, mask, finish=self.sync_preds)
         if not vids.is_cuda:
             return self.eager_forward(vids, mask)
         graph = self._graphs.get(signature_of(vids, mask))
@@ -2984,13 +3045,26 @@ class R2P1DMeshRunner(StageModel):
                 # allocated on the loader's transfer stream: keep its
                 # memory until this stream's work is done
                 data.record_stream(torch.cuda.current_stream(data.device))
-        # batch first, transfer once
-        batch = torch.stack(datas)
-        if batch.device != self._si.device:
-            batch = batch.to(self._si.device)
-        mask = self._si.place_mask([pb.valid for pb in pbs])
+        if self.across:
+            ids = [tc.id for tc in cards] + [-1] * (len(pbs) - len(cards))
+            self.digest = zlib.crc32(np.asarray(ids, np.int64).tobytes(),
+                                     self.digest)
+            self.dispatches += 1
+            if not self.sync_preds:
+                # a hop of an earlier dispatch that failed fails this one
+                self._si.poll()
+        # batch first (this process's block of it), transfer once
+        batch, mask = self._si.block(torch.stack(datas),
+                                     [pb.valid for pb in pbs])
         self.compiles.observe(batch, mask)
         preds = self.forward(batch, mask).argmax(dim=-1)
+        if self.across:
+            first, last = self._si.rows(len(pbs))
+            if (first, last) != (0, len(pbs)):
+                mine = preds
+                preds = torch.full((len(pbs),), ANOTHER_PROCESS,
+                                   dtype=preds.dtype, device=preds.device)
+                preds[first:last] = mine
         if preds.is_cuda:
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(preds.device))
@@ -3046,11 +3120,17 @@ class R2P1DMeshRunner(StageModel):
 
     def finalize(self) -> None:
         """Drain the unretired dispatches (the executor calls it before
-        the finish barrier, keeping the measured window honest)."""
+        the finish barrier, keeping the measured window honest). Across
+        processes every process of the mesh then holds the others'
+        dispatch count and request digest to its own, with the run's one
+        wait (``ShardedInference.agree``): a stream that diverged in one
+        process fails every process's run."""
         self._retire()
         self.drained = len(self._inflight)
         while self._inflight:
             self._inflight.popleft().synchronize()
+        if self.across:
+            self._si.agree([self.dispatches, self.digest], STREAM_VALUES)
 
 
 class R2P1DAggregator(StageModel):

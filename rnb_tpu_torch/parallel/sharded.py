@@ -38,7 +38,12 @@ the masked sums and, across processes, the gather over the sp ring
 (issued with no host wait: ``ring_all_gather_issued``), all inside the
 graph. Across processes the run then waits for the card once and checks
 the ring's error word (:meth:`ShardedInference.finish`). On the CPU the
-run is the eager step with the same end.
+run is the eager step with the same end. A served stage whose
+predictions stay on the card runs with ``finish=False`` instead: it
+reads the ring's sticky report before each dispatch with no wait
+(:meth:`ShardedInference.poll`) and waits once where its stream ends,
+when every process of the mesh gathers what it served and holds it to
+its own (:meth:`ShardedInference.agree`).
 
 :class:`ShardedInference` builds its network as the reference does
 (``variables``, else ``ckpt_path``, else the seeded init, through
@@ -142,6 +147,9 @@ class ShardedInference:
         #: columns, and the ring of the processes sharing its dp rows
         self.local_dp = self.local_sp = None
         self.sp_ring: Optional[Ring] = None
+        #: over a mesh that spans processes: a ring over all of them, one
+        #: member a process (the sp ring where that covers them)
+        self.stream_ring: Optional[Ring] = None
         if mesh.spans_processes:
             self._place_across()
         #: on the card: signature -> (CapturedForward, peers.Capture) of
@@ -190,6 +198,15 @@ class ShardedInference:
         if len(owners) > 1:
             self.sp_ring = Ring([Member(p, devices[rows[0], row.index(p)])
                                  for p in owners], "sp")
+        every = sorted(set(int(p) for p in procs.flat))
+        if self.sp_ring is not None and len(owners) == len(every):
+            self.stream_ring = self.sp_ring
+        else:
+            first = {}
+            for p, d in zip(procs.flat, devices.flat):
+                first.setdefault(int(p), d)
+            self.stream_ring = Ring([Member(p, first[p]) for p in every],
+                                    "mesh")
 
     def batch_shape(self, num_videos: int) -> Tuple[int, ...]:
         if self.pixel_path == "yuv420":
@@ -208,69 +225,133 @@ class ShardedInference:
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """A host batch on the mesh's device (one copy) and its mask.
         Over a mesh that spans processes, every process passes the whole
-        batch and keeps its part: its dp rows' videos and its sp columns'
-        clips of the padded clip axis (zero rows of mask 0 past
-        ``max_clips``)."""
-        if self.local_dp is None:
-            vids = torch.from_numpy(np.ascontiguousarray(videos_u8,
-                                                         np.uint8))
-            return vids.to(self.device), self.place_mask(valid_clips)
-        v = len(valid_clips)
-        if v % self.dp_size:
+        batch and keeps its part (:meth:`block`)."""
+        return self.block(torch.from_numpy(np.ascontiguousarray(
+            videos_u8, np.uint8)), valid_clips)
+
+    def rows(self, num_videos: int) -> Tuple[int, int]:
+        """``(first, last)``: the videos of a batch of ``num_videos`` whose
+        logits this process computes (all of them in one process)."""
+        if num_videos % self.dp_size:
             raise ValueError("the video axis (%d) must be a multiple of the "
-                             "mesh's dp size %d" % (v, self.dp_size))
-        per_row = v // self.dp_size
-        first, last = self.local_dp[0] * per_row, \
-            (self.local_dp[-1] + 1) * per_row
+                             "mesh's dp size %d" % (num_videos,
+                                                    self.dp_size))
+        if self.local_dp is None:
+            return 0, num_videos
+        per_row = num_videos // self.dp_size
+        return (self.local_dp[0] * per_row,
+                (self.local_dp[-1] + 1) * per_row)
+
+    def block(self, vids: torch.Tensor, valid_clips: Sequence[int]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The part of a whole uint8 batch (on any device) that this
+        process computes, on the mesh's device, and its mask: over a mesh
+        that spans processes its dp rows' videos and its sp columns'
+        clips of the padded clip axis (zero rows of mask 0 past
+        ``max_clips``), cut before the one copy; in one process the
+        whole batch."""
+        if self.local_dp is None:
+            return vids.to(self.device), self.place_mask(valid_clips)
+        first, last = self.rows(len(valid_clips))
         shard = self.padded_clips // self.sp_size
         lo, hi = self.local_sp[0] * shard, (self.local_sp[-1] + 1) * shard
-        videos = np.asarray(videos_u8, np.uint8)[first:last]
-        part = np.zeros((last - first, hi - lo) + videos.shape[2:],
-                        np.uint8)
+        part = vids.new_zeros((last - first, hi - lo) + tuple(vids.shape[2:]))
         part[:, :max(0, min(hi, self.max_clips) - lo)] = \
-            videos[:, lo:min(hi, self.max_clips)]
+            vids[first:last, lo:min(hi, self.max_clips)]
         mask = torch.zeros((last - first, self.padded_clips),
                            device=self.device)
         mask[:, :self.max_clips] = self.place_mask(valid_clips[first:last])
-        return (torch.from_numpy(part).to(self.device),
-                mask[:, lo:hi].contiguous())
+        return part.to(self.device), mask[:, lo:hi].contiguous()
 
     @torch.inference_mode()
-    def run(self, vids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def run(self, vids: torch.Tensor, mask: torch.Tensor,
+            finish: bool = True) -> torch.Tensor:
         """-> per-video aggregated logits (videos, num_classes), float32
         (:meth:`step`); over a mesh that spans processes, this process's
         part in (:meth:`place`), its videos' logits out
         (:meth:`step_across`). On the card one replay of the step's CUDA
-        graph at the inputs' signature (captured at its first call,
-        :meth:`_capture`), with no host wait inside; on the CPU the eager
-        step. Then :meth:`finish`: across processes the run's one host
+        graph at the inputs' signature (:meth:`capture`), with no host
+        wait inside; on the CPU the eager step. Then, unless ``finish``
+        is False, :meth:`finish`: across processes the run's one host
         wait and the ring's check."""
-        step = self.step if self.local_dp is None else self.step_across
         if self.device.type == "cuda":
-            captured = self._graphs.get(signature_of(vids, mask))
-            if captured is None:
-                captured = self._capture(step, vids, mask)
-            graph, capture = captured
+            graph, capture = self.capture(vids, mask)
             out = graph.replay(vids, mask)
             capture.replayed()
             self.graph_stats["replays"] += 1
         else:
-            out = step(vids, mask)
-        self.finish()
+            out = (self.step if self.local_dp is None
+                   else self.step_across)(vids, mask)
+        if finish:
+            self.finish()
         return out
 
-    def finish(self) -> None:
+    def capture(self, vids: torch.Tensor, mask: torch.Tensor) -> tuple:
+        """On the card: the step's graph at the signature of ``vids`` and
+        ``mask`` and its ``peers.Capture``, captured now where it is not
+        yet (:meth:`_capture`; across processes every member at the same
+        call)."""
+        captured = self._graphs.get(signature_of(vids, mask))
+        if captured is None:
+            captured = self._capture(self.step if self.local_dp is None
+                                     else self.step_across, vids, mask)
+        return captured
+
+    def finish(self, rings: Optional[Sequence[Ring]] = None) -> None:
         """Where a step over a mesh that spans processes ends: one host
         wait for this process's stream (``peers.wait_for_card``), then the
-        sp ring's error word checked (``peers.Endpoint.check_reported``),
-        which raises naming the ring and the hop that failed. Nothing
-        where the step issued no collective (one process, or a process
-        holding its whole sp row)."""
-        if self.sp_ring is None:
+        error word of each of ``rings`` (the sp ring by default) checked
+        (``peers.Endpoint.check_reported``), which raises naming the ring
+        and the hop that failed. Nothing where no ring issued a
+        collective (one process, or a process holding its whole sp
+        row)."""
+        if rings is None:
+            rings = [self.sp_ring] if self.sp_ring is not None else []
+        if not rings:
             return
         peers.wait_for_card(self.device)
         if self.device.type == "cuda":
+            for ring in rings:
+                peers.endpoint(ring).check_reported()
+
+    def poll(self) -> None:
+        """Raise where the card has reported a failed hop of the sp ring
+        so far, with no wait (the report is sticky): what a served stage
+        that does not wait a run reads before each dispatch. On the CPU
+        a collective raises where it fails."""
+        if self.sp_ring is not None and self.device.type == "cuda":
             peers.endpoint(self.sp_ring).check_reported()
+
+    @torch.inference_mode()
+    def agree(self, values: Sequence[int], names: Sequence[str]) -> None:
+        """Where a served stream over a mesh that spans processes ends:
+        every process of the mesh gathers each one's ``values`` (int64,
+        named by ``names``) over :attr:`stream_ring`, one collective
+        (one hop on the card), then :meth:`finish` waits once and checks
+        the rings. Raises, naming every process's values, where another
+        process's differ from this one's: the processes served different
+        streams (a request shed or dead-lettered in one process only),
+        so their sums may mix videos. Where the streams differ in length
+        the gather meets another process's step instead, and the ring's
+        own check fails it. Nothing in one process."""
+        ring = self.stream_ring
+        if ring is None:
+            return
+        mine = torch.tensor([list(values)], dtype=torch.int64).to(
+            self.device)
+        ((gathered,),) = ring_all_gather_issued([[mine]], 0, ring)
+        self.finish([r for r in dict.fromkeys((self.sp_ring, ring))
+                     if r is not None])
+        rows = gathered.cpu().tolist()
+        if any(row != rows[ring.local[0]] for row in rows):
+            raise RuntimeError(
+                "ring %s: the processes of the mesh served different "
+                "streams (%s): a request shed or dead-lettered in one "
+                "process only; every process of a launch must serve the "
+                "same stream" % (peers.ring_key(ring), "; ".join(
+                    "process %d %s" % (p, ", ".join(
+                        "%s %d" % kv for kv in zip(names, row)))
+                    for p, row in zip(ring.processes, rows))))
 
     def _capture(self, step, vids: torch.Tensor, mask: torch.Tensor
                  ) -> tuple:

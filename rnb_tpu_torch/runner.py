@@ -136,7 +136,7 @@ from rnb_tpu_torch.health import expired as deadline_expired
 from rnb_tpu_torch.ops.ragged import check_segment_offsets
 from rnb_tpu_torch.placement import CostRecord
 from rnb_tpu_torch.selector import DEFAULT_QUEUE_SELECTOR, pick_sibling_lane
-from rnb_tpu_torch.stage import PaddedBatch, RaggedBatch
+from rnb_tpu_torch.stage import ANOTHER_PROCESS, PaddedBatch, RaggedBatch
 from rnb_tpu_torch.staging import PinnedUpload
 from rnb_tpu_torch.telemetry import (TimeCardList, TimeCardSummary,
                                      cards_of, logname)
@@ -394,11 +394,17 @@ def _store_outputs(sink: Dict[int, tuple], payload, non_tensors,
 
 def finish_outputs(sink: Dict[int, tuple]) -> None:
     """Bring the sink's tensors to the host, once every executor has
-    joined: rows as float32 numpy arrays, a class id as a Python int."""
+    joined: rows as float32 numpy arrays, a class id as a Python int. A
+    mesh stage's class id of a request that another process of a launch
+    computed (``ANOTHER_PROCESS``) leaves the sink: that process's holds
+    it."""
     for rid, (video, value, stamps) in list(sink.items()):
         if isinstance(value, torch.Tensor):
             value = value.cpu()
             value = value.item() if value.dim() == 0 else value.numpy()
+            if isinstance(value, int) and value == ANOTHER_PROCESS:
+                del sink[rid]
+                continue
             sink[rid] = (video, value, stamps)
 
 
@@ -1201,9 +1207,10 @@ def runner(ctx: RunnerContext) -> None:
                         # an async stage (the mesh runner) counted its
                         # completions at dispatch: its device work is
                         # drained before the run is called complete, so
-                        # a fault there fails it (INTERNAL_ERROR below)
-                        finalize()
-                        finalize = None
+                        # a fault there fails it (INTERNAL_ERROR below),
+                        # and is not drained again at the exit
+                        drain, finalize = finalize, None
+                        drain()
                     ctx.termination.raise_flag(
                         TerminationFlag.TARGET_NUM_VIDEOS_REACHED)
                 break

@@ -104,6 +104,11 @@ def normalize_row_buckets(row_buckets, max_rows: int, what: str
     return tuple(buckets)
 
 
+#: a stage's class id for a request whose row another process of a launch
+#: computes (a mesh stage's; ``runner.finish_outputs`` drops it)
+ANOTHER_PROCESS = -1
+
+
 class StageModel:
     """Abstract contract every pipeline stage implements.
 

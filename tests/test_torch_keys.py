@@ -18,7 +18,7 @@ the busy-card probe, against the JAX package on the CPU.
   ``scripts/parse_utils.py`` reads and checks clean, every observed edge
   in the port's static lock-order graph and both packages' whole
   ``check_job`` passing the job as written.
-* ``devices.probe_busy_devices`` on mocked ``nvidia-smi -q -x`` readings
+* ``devices.probe_busy_devices`` on mocked ``nvidia-smi`` CSV readings
   (host pids, and a pid namespace that names every process pid 1): it warns
   about a card another process holds memory on, never about this
   process's own context, and never aborts a run.
@@ -394,24 +394,17 @@ def test_an_unarmed_run_writes_no_lock_lines(tmp_path, monkeypatch):
 # -- the busy-card probe -----------------------------------------------
 
 def _smi_reading(monkeypatch, gpus, apps):
-    """``nvidia-smi -q -x`` answering with ``gpus`` rows (index, uuid,
-    MiB) and ``apps`` rows (uuid, pid, MiB), each app a compute one and
-    a graphics process beside them on every card."""
-    def card(uuid, used):
-        procs = "".join(
-            "<process_info><pid>%d</pid><type>C</type><process_name>p"
-            "</process_name><used_memory>%s MiB</used_memory>"
-            "</process_info>" % (pid, mib)
-            for app_uuid, pid, mib in apps if app_uuid == uuid)
-        return ("<gpu id='x'><uuid>%s</uuid><fb_memory_usage><total>81559 "
-                "MiB</total><used>%s MiB</used></fb_memory_usage>"
-                "<processes>%s<process_info><pid>7</pid><type>G</type>"
-                "<used_memory>900 MiB</used_memory></process_info>"
-                "</processes></gpu>" % (uuid, used, procs))
-    xml = "<nvidia_smi_log><attached_gpus>1</attached_gpus>%s" \
-        "</nvidia_smi_log>" % "".join(card(uuid, used)
-                                      for _i, uuid, used in gpus)
-    monkeypatch.setattr(devices, "_smi_xml", lambda: xml)
+    """``nvidia-smi`` answering ``--query-gpu`` with ``gpus`` rows
+    (index, uuid, MiB) and ``--query-compute-apps`` with ``apps`` rows
+    (uuid, pid, MiB), as CSV without header or units; an app on a card
+    no ``gpus`` row names is left out."""
+    def run(args, **kwargs):
+        rows = gpus if args[1].startswith("--query-gpu=") else \
+            apps + [("GPU-gone", 9, 50)]
+        assert args[-1] == "--format=csv,noheader,nounits"
+        return subprocess.CompletedProcess(args, 0, stdout="".join(
+            "%s\n" % ", ".join(str(v) for v in row) for row in rows))
+    monkeypatch.setattr(subprocess, "run", run)
 
 
 def test_probe_warns_about_another_processes_memory(monkeypatch):

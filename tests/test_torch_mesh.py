@@ -12,8 +12,10 @@ port with ``from_jax_variables``. Size: the reference's ``TINY`` of
 
 * a mesh over two distinct devices raises; members may repeat one;
 * ``distributed``: single-process mode, a partial environment refused
-  with the reference's message, a multi-process launch refused as not
-  yet ported, by ``run_benchmark`` too;
+  with the reference's message, a coordinator without a process count
+  or index refused as not yet ported, and in a launch a shipped config
+  whose loader lies on another process's member refused by
+  ``run_benchmark`` (a served launch is ``tests/test_torch_launch.py``'s);
 * the sharded step: per-video logits within the JAX package's own
   sharded bound in bf16 (rtol = atol = 2e-2, ``tests/test_parallel.py``)
   with equal argmax, and within 5e-4 in float32 (the network's bound),
@@ -175,7 +177,8 @@ def test_a_multi_process_launch_is_refused_as_not_yet_ported(env,
                                                              tmp_path):
     # a coordinator alone names no process count or index (the reference
     # reads them from a cluster, which the port has not); a whole launch
-    # joins its group, and what it cannot do yet is serve a config
+    # joins its group, and its process 1 cannot serve a stage on member
+    # 0, process 0's: the shipped config's loader
     from rnb_tpu_torch.benchmark import run_benchmark
     _environment(monkeypatch, env)
     joined = _stand_in_group(monkeypatch)
@@ -191,23 +194,10 @@ def test_a_multi_process_launch_is_refused_as_not_yet_ported(env,
     assert joined == [("127.0.0.1", 1, 2, 1)]
     assert (distributed.process_count(), distributed.process_index(),
             distributed.is_primary()) == (2, 1, False)
-    with pytest.raises(NotImplementedError,
-                       match=r"a served run in a launch of 2 processes "
-                             r"\(RNB_TPU_COORDINATOR=\.\.\.\) is not yet "
-                             r"ported.*ROADMAP"):
-        run_benchmark(MESH_CONFIGS["rgb"], mean_interval_ms=0, num_videos=1,
-                      log_base=str(tmp_path / "logs"), print_progress=False,
-                      platform="cpu")
-
-
-def test_run_benchmark_refuses_a_multi_process_launch(monkeypatch,
-                                                      tmp_path):
-    from rnb_tpu_torch.benchmark import run_benchmark
-    _environment(monkeypatch, {"RNB_TPU_COORDINATOR": "127.0.0.1:1",
-                               "RNB_TPU_NUM_PROCESSES": "2",
-                               "RNB_TPU_PROCESS_ID": "0"})
-    joined = _stand_in_group(monkeypatch)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ConfigError,
+                       match=r"pipeline step 0, queue group 0: device 0 is "
+                             r"the member of process 0 of the launch, so "
+                             r"process 1 cannot serve a stage there"):
         run_benchmark(MESH_CONFIGS["rgb"], mean_interval_ms=0, num_videos=1,
                       log_base=str(tmp_path / "logs"), print_progress=False,
                       platform="cpu")

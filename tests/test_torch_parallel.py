@@ -35,6 +35,7 @@ from rnb_tpu.parallel import distributed as jax_distributed
 from rnb_tpu.parallel import mesh as jax_mesh
 from rnb_tpu.parallel import sharded as jax_sharded
 from rnb_tpu_torch import parallel
+from rnb_tpu_torch.config import ConfigError
 from rnb_tpu_torch.models.r2p1d.checkpoint import from_jax_variables
 from rnb_tpu_torch.ops import handoff_dma
 from rnb_tpu_torch.parallel import distributed, mesh
@@ -329,7 +330,9 @@ def test_a_coordinator_launch_by_arguments_is_refused(monkeypatch,
                                                       tmp_path):
     # a launch by arguments joins its group (here its arguments recorded
     # in place of a store and a gloo group; tests/test_torch_processes.py
-    # joins real ones), idempotently, and a served run in it is refused
+    # joins real ones), idempotently, and a served run of the shipped mesh
+    # config is refused in it: its mesh names 8 members, and a launch of
+    # 2 processes has 2 (tests/test_torch_launch.py serves launches)
     from rnb_tpu_torch.benchmark import run_benchmark
     _environment(monkeypatch, {})
     joined = []
@@ -341,9 +344,10 @@ def test_a_coordinator_launch_by_arguments_is_refused(monkeypatch,
     assert joined == [("127.0.0.1", 2, 2, 0)]
     assert (distributed.process_count(), distributed.process_index(),
             distributed.is_primary()) == (2, 0, True)
-    with pytest.raises(NotImplementedError,
-                       match=r"launch of 2 processes \(RNB_TPU_COORDINATOR="
-                             r"\.\.\.\) is not yet ported"):
+    with pytest.raises(ConfigError,
+                       match=r"pipeline step 1, queue group 0: pipeline "
+                             r"configuration names device 2 but a launch of "
+                             r"2 processes has 2 members, one a process"):
         run_benchmark(os.path.join(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))), "configs", "r2p1d-mesh.json"),
             mean_interval_ms=0, num_videos=1,

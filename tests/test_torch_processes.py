@@ -8,8 +8,9 @@ the JAX package's twins on the 8 virtual devices of
 ``tests/conftest.py``:
 
 * the ``distributed`` contract: the launch joins (``True``), count,
-  index and ``is_primary``, idempotent, the process-major global mesh,
-  ``run_benchmark`` refused; the partial environment's error unchanged;
+  index and ``is_primary``, idempotent, the process-major global mesh;
+  the partial environment's error unchanged (a served launch is
+  ``tests/test_torch_launch.py``'s);
 * ``ring_shift`` at every shift and the all-gathers bitwise the
   reference's ppermute twins (``use_pallas=False``); the reduce-scatter
   exact on integer-valued float32 (any order of their sums is exact);
@@ -71,8 +72,6 @@ F32_TOL = 5e-4
 #: seconds a launch may take before its processes are killed
 LAUNCH_TIMEOUT_S = 240.0
 KILL_CAP_S = 3.0
-MESH_CONFIG = os.path.join(os.path.dirname(HERE), "configs",
-                           "r2p1d-mesh.json")
 
 
 def _launch(tmp_path, count, case, saved=None, **args):
@@ -139,8 +138,7 @@ def _jax_sharded(full, n, axis, name="x"):
 def contract(request, tmp_path_factory):
     n = request.param
     tmp = tmp_path_factory.mktemp("contract")
-    return n, tmp, _launch(tmp, n, "contract", config=MESH_CONFIG,
-                           out=str(tmp))
+    return n, tmp, _launch(tmp, n, "contract")
 
 
 def test_the_launch_joins_with_the_reference_s_contract(contract):
@@ -166,15 +164,6 @@ def test_the_global_mesh_is_process_major_as_the_reference_s(contract):
                 range(n))
             assert devices == ["cpu"] * n and device == "cpu" and spans
         assert results[0]["sharding"] == (tuple(range(n)), "cpu")
-
-
-def test_run_benchmark_refuses_a_launch_of_several_processes(contract):
-    n, tmp, results = contract
-    for rank, got in enumerate(results):
-        assert got["run_benchmark"].startswith(
-            "a served run in a launch of %d processes" % n)
-        assert "not yet ported" in got["run_benchmark"]
-        assert got["logs"] is False
 
 
 @pytest.mark.parametrize("kwargs", [dict(num_processes=2),

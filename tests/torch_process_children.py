@@ -128,15 +128,6 @@ def contract(rank, n, args):
         out["local_device"] = "ok"
     except RuntimeError as e:
         out["local_device"] = str(e)
-    from rnb_tpu_torch.benchmark import run_benchmark
-    try:
-        run_benchmark(args["config"], mean_interval_ms=0, num_videos=1,
-                      log_base=os.path.join(args["out"], "logs-%d" % rank),
-                      print_progress=False, platform="cpu")
-        out["run_benchmark"] = "served"
-    except NotImplementedError as e:
-        out["run_benchmark"] = str(e)
-    out["logs"] = os.path.exists(os.path.join(args["out"], "logs-%d" % rank))
     return out
 
 
